@@ -1,0 +1,221 @@
+"""Hand-written Hopper kernels for paged attention, and their wrappers.
+
+``paged_flash_decode`` replaces the TPU kernel
+``repro/kernels/attention/attention.py:paged_flash_decode_pallas`` and
+``paged_flash_prefill`` replaces ``paged_flash_prefill_pallas``.  The
+kernels are CUDA C++ for ``sm_90a`` (``csrc/paged_decode.cu`` and
+``csrc/paged_prefill.cu``; each source's header says what bounds it on the
+card and what its design does about that), built by ``kernels.build`` at
+first use and called through their plain C interface with ``ctypes``.
+
+Each wrapper takes the model's layout, checks what the kernel accepts
+(device, dtype, shape, contiguity) and raises on anything else, allocates
+its output with ``torch.empty``, launches on the current stream, raises if
+``cudaGetLastError`` reports the launch, and adds one to its ``launches``
+count.  A CPU tensor takes the plain version in ``ops`` instead; a CUDA
+tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import LIBS
+
+INT32_MAX = 2 ** 31 - 1
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _fn(lib_name: str, fn_name: str, argtypes: tuple = ()):
+    fn = getattr(LIBS.get(lib_name), fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _limit(lib_name: str, fn_name: str) -> int:
+    return _fn(lib_name, fn_name)()
+
+
+def _window(window: int | None) -> int:
+    w = INT32_MAX if window is None else int(window)
+    if not 1 <= w <= INT32_MAX:
+        raise ValueError(f"window must be in [1, 2**31 - 1], got {window}")
+    return w
+
+
+def _softcap(logit_cap: float | None) -> float:
+    if logit_cap is None:
+        return 0.0
+    if not logit_cap > 0:
+        raise ValueError(f"logit_cap must be > 0, got {logit_cap}")
+    return float(logit_cap)
+
+
+def _check(name: str, t: torch.Tensor, device: torch.device,
+           dtype: torch.dtype, ndim: int) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{ndim} dimensions")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _scratch(lib: str, width: int, page: int, rows: int, d: int,
+             device: torch.device) -> tuple[torch.Tensor | None, ...]:
+    """f32 scratch for the kernel's key splits: (n_split, rows, d)
+    partial accumulators and (n_split, rows, 2) running max and sum."""
+    n_split = _fn(lib, f"{lib}_splits", (_I, _I))(width, page)
+    if n_split == 1:
+        return None, None
+    return (torch.empty((n_split, rows, d), dtype=torch.float32,
+                        device=device),
+            torch.empty((n_split, rows, 2), dtype=torch.float32,
+                        device=device))
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _check_pools(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, hq: int, d: int, lib: str
+                 ) -> tuple[int, int, int]:
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}; the kernel takes "
+                        f"{sorted(map(str, _DTYPES))}")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        _check(name, t, q.device, q.dtype, 4)
+    if k_pages.shape != v_pages.shape:
+        raise ValueError(f"k_pages {tuple(k_pages.shape)} != v_pages "
+                         f"{tuple(v_pages.shape)}")
+    n_pool, page, hkv, dk = k_pages.shape
+    if dk != d or hkv < 1 or hq % hkv:
+        raise ValueError(f"q heads {hq} x {d} do not group over pages "
+                         f"{tuple(k_pages.shape)}")
+    # the kernels load K/V rows in 16-byte pieces
+    if (d * q.element_size()) % 16 or any(t.data_ptr() % 16
+                                          for t in (q, k_pages, v_pages)):
+        raise ValueError(f"K/V rows of {d} x {q.dtype} are not 16-byte "
+                         f"aligned")
+    if hq // hkv > _limit(lib, f"{lib}_max_g"):
+        raise ValueError(f"{hq // hkv} query heads per kv head exceed the "
+                         f"kernel's {_limit(lib, f'{lib}_max_g')}")
+    if d > _limit(lib, f"{lib}_max_d"):
+        raise ValueError(f"head_dim {d} exceeds the kernel's "
+                         f"{_limit(lib, f'{lib}_max_d')}")
+    return n_pool, page, hkv
+
+
+def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, block_tables: torch.Tensor,
+                       lengths: torch.Tensor, *, scale: float,
+                       window: int | None = None,
+                       logit_cap: float | None = None) -> torch.Tensor:
+    """Paged single-token decode (``csrc/paged_decode.cu``).
+
+    q: (B, 1, Hq, D) contiguous, float32 or bfloat16 (read as
+    (B, Hkv, G, D)); k_pages/v_pages: (n_pool, page, Hkv, D) one layer's
+    pools; block_tables: (B, width) int32; lengths: (B,) int32 valid
+    positions.  Returns (B, 1, Hq, D) in q's dtype.
+    """
+    if not q.is_cuda:
+        from repro_torch.kernels.attention import ops
+        return ops.paged_decode_attention(
+            q, k_pages, v_pages, block_tables, lengths, scale=scale,
+            window=window, logit_cap=logit_cap, use_kernel=False)
+    b, one, hq, d = q.shape
+    if one != 1:
+        raise ValueError(f"decode takes one query per slot, got "
+                         f"q {tuple(q.shape)}")
+    _check("q", q, q.device, q.dtype, 4)
+    n_pool, page, hkv = _check_pools(q, k_pages, v_pages, hq, d,
+                                     "paged_decode")
+    _check("block_tables", block_tables, q.device, torch.int32, 2)
+    _check("lengths", lengths, q.device, torch.int32, 1)
+    if block_tables.shape[0] != b or lengths.shape[0] != b:
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
+                         f"lengths {tuple(lengths.shape)} do not match "
+                         f"batch {b}")
+    width = block_tables.shape[1]
+    out = torch.empty_like(q)
+    part_acc, part_ml = _scratch("paged_decode", width, page, b * hq, d,
+                                 q.device)
+    fn = _fn("paged_decode", "paged_decode",
+             (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+              _I, _F, _I, _F, _P))
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+                 v_pages.data_ptr(), block_tables.data_ptr(),
+                 lengths.data_ptr(), out.data_ptr(), _ptr(part_acc),
+                 _ptr(part_ml), b, hkv, hq // hkv, d,
+                 page, width, n_pool, float(scale), _window(window),
+                 _softcap(logit_cap),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
+    paged_flash_decode.launches += 1
+    return out
+
+
+paged_flash_decode.launches = 0
+
+
+def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_row: torch.Tensor,
+                        start: int, *, scale: float,
+                        window: int | None = None,
+                        logit_cap: float | None = None) -> torch.Tensor:
+    """Paged chunked prefill for ONE slot (``csrc/paged_prefill.cu``).
+
+    q: (1, C, Hq, D) contiguous at global positions [start, start+C);
+    k_pages/v_pages: (n_pool, page, Hkv, D); block_row: (width,) int32
+    covering the chunk; ``start`` a host int.  Returns (1, C, Hq, D) in
+    q's dtype.
+    """
+    if not q.is_cuda:
+        from repro_torch.kernels.attention import ops
+        return ops.paged_prefill_attention(
+            q, k_pages, v_pages, block_row, start, window=window,
+            logit_cap=logit_cap, scale=scale, use_kernel=False)
+    one, c, hq, d = q.shape
+    if one != 1:
+        raise ValueError(f"prefill takes one slot's chunk, got "
+                         f"q {tuple(q.shape)}")
+    _check("q", q, q.device, q.dtype, 4)
+    n_pool, page, hkv = _check_pools(q, k_pages, v_pages, hq, d,
+                                     "paged_prefill")
+    _check("block_row", block_row, q.device, torch.int32, 1)
+    width = block_row.shape[0]
+    start = int(start)
+    if start < 0 or start + c > width * page:
+        raise ValueError(f"chunk [{start}, {start + c}) is not covered by "
+                         f"a block row of {width} pages of {page}")
+    out = torch.empty_like(q)
+    part_acc, part_ml = _scratch("paged_prefill", width, page, c * hq, d,
+                                 q.device)
+    fn = _fn("paged_prefill", "paged_prefill",
+             (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+              _I, _F, _I, _F, _P))
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+                 v_pages.data_ptr(), block_row.data_ptr(), out.data_ptr(),
+                 _ptr(part_acc), _ptr(part_ml),
+                 c, hq, hkv, d, page, width, n_pool, start, float(scale),
+                 _window(window), _softcap(logit_cap),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_prefill launch failed: CUDA error {err}")
+    paged_flash_prefill.launches += 1
+    return out
+
+
+paged_flash_prefill.launches = 0

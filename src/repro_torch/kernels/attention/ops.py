@@ -1,0 +1,116 @@
+"""Paged attention entry points of the model code (port of the paged GQA
+half of ``repro.kernels.attention.ops``).
+
+Each function has two lowerings.  The plain version is the gather
+formulation of ``repro``'s jnp path, op for op and with the same cast
+points: scores in f32 from the stored K/V, softmax weights rounded to the
+value type before the PV product, f32 accumulation.  It is the CPU
+lowering and the oracle of the kernels.  The kernel lowering is the
+hand-written Hopper kernel in ``attention.py``.  ``use_kernel=None`` (the
+model code's default) takes the kernel exactly when the tensors are on
+CUDA; ``use_kernel=False`` takes the plain version on any device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.attention import attention as K
+
+
+def gather_kv_pages(pages: torch.Tensor, block_tables: torch.Tensor
+                    ) -> torch.Tensor:
+    """(n_pages, page, *feat) pool + (B, pages_per_seq) tables ->
+    (B, pages_per_seq * page, *feat) per-sequence contiguous cache view."""
+    b, pps = block_tables.shape
+    page = pages.shape[1]
+    return pages[block_tables.long()].reshape(b, pps * page,
+                                              *pages.shape[2:])
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           window: int | None = None,
+                           logit_cap: float | None = None,
+                           scale: float | None = None,
+                           use_kernel: bool | None = None) -> torch.Tensor:
+    """Single-token decode against a paged KV cache.
+
+    q: (B, 1, Hq, D); k_pages/v_pages: (n_pages, page, Hkv, D);
+    block_tables: (B, pages_per_seq) int32; lengths: (B,) valid positions;
+    ``window`` an int (INT32_MAX or None = global).  Returns (B, 1, Hq, D).
+    The cache stays in its grouped Hkv layout: the GQA expansion is never
+    materialized.  Dense oracle: ``ref.paged_attention_ref``.
+    """
+    b, _, hq, d = q.shape
+    _, page, hkv, dhv = v_pages.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    if use_kernel:
+        return K.paged_flash_decode(q, k_pages, v_pages, block_tables,
+                                    lengths, scale=scale, window=window,
+                                    logit_cap=logit_cap)
+    k = gather_kv_pages(k_pages, block_tables)   # (B, S, Hkv, D)
+    v = gather_kv_pages(v_pages, block_tables)
+    s = k.shape[1]
+    qr = q.reshape(b, hkv, g, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qr.float(), k.float()) * scale
+    if logit_cap is not None:
+        scores = torch.tanh(scores / logit_cap) * logit_cap
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, :] < lengths[:, None]
+    if window is not None:
+        mask &= pos[None, :] >= (lengths[:, None] - window)
+    scores = torch.where(mask[:, None, None, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", w.float(), v.float())
+    return out.reshape(b, 1, hq, dhv).to(q.dtype)
+
+
+def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, block_row: torch.Tensor,
+                            start: int, *, window: int | None = None,
+                            logit_cap: float | None = None,
+                            scale: float | None = None,
+                            use_kernel: bool | None = None) -> torch.Tensor:
+    """Chunked prefill for ONE slot straight off the paged KV cache.
+
+    q: (1, C, Hq, D) the chunk's queries at global positions
+    [start, start+C); k_pages/v_pages: (n_pages, page, Hkv, D);
+    block_row: (pages_per_seq,) int32; ``start`` a host int.  Returns
+    (1, C, Hq, D).  The plain version gathers the slot's pages and runs
+    ``repro.models.layers.attention``'s softmax with the GLOBAL causal mask
+    (q_pos = start + offset), which also masks stale and future page
+    contents.  Dense oracle: ``ref.paged_prefill_ref``.
+    """
+    _, c, hq, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    if use_kernel:
+        return K.paged_flash_prefill(q, k_pages, v_pages, block_row, start,
+                                     scale=scale, window=window,
+                                     logit_cap=logit_cap)
+    k = gather_kv_pages(k_pages, block_row[None]).repeat_interleave(g, 2)
+    v = gather_kv_pages(v_pages, block_row[None]).repeat_interleave(g, 2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if logit_cap is not None:
+        s = torch.tanh(s / logit_cap) * logit_cap
+    q_pos = start + torch.arange(c, device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask[None, None], s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    z = e.sum(dim=-1, keepdim=True)
+    p = (e / torch.clamp(z, min=1e-30)).to(v.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
+    return o.to(q.dtype)

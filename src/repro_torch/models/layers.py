@@ -1,0 +1,136 @@
+"""Decoder layers of the port (the GQA serving subset of
+``repro.models.layers``), as plain functions on tensors.
+
+Layouts follow ``repro``: activations (B, S, D), heads (B, S, H, Dh),
+weights (d_in, d_out) used as ``x @ W``.  The mesh-sharding constraints of
+the JAX layers are no-ops without a mesh and are left out.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def mask_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mask padded logit columns (>= vocab) to -1e30, so argmax and the
+    sampler see exactly the true vocab."""
+    if logits.shape[-1] == vocab:
+        return logits
+    pos = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(pos < vocab, logits, -1e30)
+
+
+def act_fn(kind: str, x: torch.Tensor) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        # jax.nn.gelu's default is the tanh approximation
+        return F.gelu(x, approximate="tanh")
+    if kind == "sq_relu":
+        r = F.relu(x)
+        return r * r
+    raise ValueError(kind)
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device: torch.device | str | None = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0, *, head_axis: bool = True
+               ) -> torch.Tensor:
+    """x: (..., S, H, Dh) -- or (..., S, Dh) with ``head_axis=False``;
+    positions: (..., S).  Rotates the pairs (x[i], x[i + Dh/2]) (the
+    half-split convention) in f32 and returns x's dtype."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)
+    ang = positions.float()[..., None] * freqs
+    if head_axis:
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xf = x.float().reshape(*x.shape[:-1], 2, dh // 2)
+    x1, x2 = xf[..., 0, :], xf[..., 1, :]
+    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-2)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """(d_in, d_out) normal weights with std 1/sqrt(d_in), drawn in f32
+    on the generator's device."""
+    std = 1.0 / math.sqrt(d_in)
+    return (torch.randn(d_in, d_out, generator=gen, device=gen.device)
+            * std).to(dtype)
+
+
+def init_mlp(gen: torch.Generator, cfg, d_ff: int, dtype: torch.dtype
+             ) -> Params:
+    p = {"down": dense_init(gen, d_ff, cfg.d_model, dtype)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["gate"] = dense_init(gen, cfg.d_model, d_ff, dtype)
+        p["up"] = dense_init(gen, cfg.d_model, d_ff, dtype)
+    else:  # sq_relu / plain
+        p["up"] = dense_init(gen, cfg.d_model, d_ff, dtype)
+    return p
+
+
+def apply_mlp(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["gate"]) * (x @ p["up"])
+    elif cfg.act == "geglu":
+        h = F.gelu(x @ p["gate"], approximate="tanh") * (x @ p["up"])
+    else:
+        h = act_fn(cfg.act, x @ p["up"])
+    return h @ p["down"]
+
+
+def init_gqa(gen: torch.Generator, cfg, dtype: torch.dtype) -> Params:
+    dh = cfg.head_dim
+    p = {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * dh, dtype),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, dtype),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, dtype),
+        "wo": dense_init(gen, cfg.n_heads * dh, cfg.d_model, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros(dh, dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.zeros(dh, dtype=dtype, device=gen.device)
+    return p
+
+
+def gqa_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> q (B, S, Hq, Dh), k, v (B, S, Hkv, Dh); qk-norm
+    before rope, as ``repro.models.layers.gqa_qkv``."""
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, dh)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, dh)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v

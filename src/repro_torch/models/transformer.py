@@ -1,0 +1,268 @@
+"""Decoder-only LM backbone, paged serving half (port of the GQA paths of
+``repro.models.transformer``).
+
+Parameters are a nested dict of tensors with layer-stacked blocks (leading
+L dim), as in ``repro``; the layers run as a Python loop.  Page pools are
+dicts {"k", "v"} of (L, n_pages + 1, page, Hkv, Dh) tensors.  Where JAX
+donates the pool through jit, these functions write the pool IN PLACE and
+return the same dict.  Attention goes through ``kernels.attention.ops``:
+the hand-written kernels when the tensors are on CUDA, the plain gather
+version on the CPU or with ``use_kernel=False``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.attention import ops as A
+from repro_torch.models import layers as L
+from repro_torch.models.sampling import sample_tokens
+
+Params = dict[str, Any]
+_NO_WINDOW = 2 ** 31 - 1
+
+
+class LeafSpec(NamedTuple):
+    """Shape and dtype of one layer-stacked cache page leaf."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _check_gqa(cfg: ArchConfig) -> None:
+    if cfg.family != "decoder" or cfg.moe or cfg.attn == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves dense GQA decoders so far "
+            "(MoE, MLA and the other families are later slices)")
+
+
+def _layer_windows(cfg: ArchConfig, n_layers: int) -> list[int]:
+    """Sliding-window size per layer (INT32_MAX = global)."""
+    if not cfg.local_window or not cfg.local_global_period:
+        return [_NO_WINDOW] * n_layers
+    return [cfg.local_window if i % cfg.local_global_period == 0
+            else _NO_WINDOW for i in range(n_layers)]
+
+
+def _layer(blocks: Params, i: int) -> Params:
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype
+               ) -> Params:
+    _check_gqa(cfg)
+    zeros = lambda: torch.zeros(cfg.d_model, dtype=dtype,  # noqa: E731
+                                device=gen.device)
+    p: Params = {"ln1": zeros(), "ln2": zeros()}
+    if cfg.softcap_attn is not None:  # gemma2-style post-norms
+        p["ln1_post"] = zeros()
+        p["ln2_post"] = zeros()
+    p["attn"] = L.init_gqa(gen, cfg, dtype)
+    p["mlp"] = L.init_mlp(gen, cfg, cfg.d_ff, dtype)
+    return p
+
+
+def _stack(trees: list[Params]) -> Params:
+    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
+                else torch.stack([t[k] for t in trees]))
+            for k, v in trees[0].items()}
+
+
+def init_decoder(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    """Random weights with ``repro``'s shapes and scales, drawn from
+    ``gen`` on its device."""
+    _check_gqa(cfg)
+    dtype = cfg.dtype
+    embed = (torch.randn(cfg.padded_vocab, cfg.d_model, generator=gen,
+                         device=gen.device)
+             / math.sqrt(cfg.d_model)).to(dtype)
+    p: Params = {
+        "embed": embed,
+        "blocks": _stack([init_block(gen, cfg, dtype)
+                          for _ in range(cfg.n_layers)]),
+        "final_norm": torch.zeros(cfg.d_model, dtype=dtype,
+                                  device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                    dtype)
+    return p
+
+
+def paged_cache_leaf_specs(cfg: ArchConfig, page_size: int
+                           ) -> dict[str, LeafSpec]:
+    """Shape of ONE layer-stacked KV page per leaf: (L, page, Hkv, Dh);
+    ``serve.paging.init_pool`` adds the physical-page dimension."""
+    _check_gqa(cfg)
+    shape = (cfg.n_layers, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": LeafSpec(shape, cfg.dtype), "v": LeafSpec(shape, cfg.dtype)}
+
+
+def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    emb = params["embed"]
+    # sqrt(d_model) rounded to the parameter dtype first, as in repro
+    return emb[tokens] * torch.tensor(math.sqrt(cfg.d_model),
+                                      dtype=emb.dtype, device=emb.device)
+
+
+def _mlp_residual(blk: Params, cfg: ArchConfig, x: torch.Tensor,
+                  a: torch.Tensor) -> torch.Tensor:
+    if "ln1_post" in blk:
+        a = L.rms_norm(a, blk["ln1_post"])
+    x = x + a
+    h = L.rms_norm(x, blk["ln2"])
+    f = L.apply_mlp(blk["mlp"], cfg, h)
+    if "ln2_post" in blk:
+        f = L.rms_norm(f, blk["ln2_post"])
+    return x + f
+
+
+def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    x = L.rms_norm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return L.mask_vocab(L.softcap((x @ head).float(), cfg.softcap_logits),
+                        cfg.vocab)
+
+
+def prefill_chunk_decoder(params: Params, cfg: ArchConfig,
+                          tokens: torch.Tensor, start: int, pages: Params,
+                          block_row: torch.Tensor, *,
+                          use_kernel: bool | None = None
+                          ) -> tuple[torch.Tensor, Params]:
+    """One prompt chunk for ONE slot: tokens (1, C) at positions
+    [start, start+C), written into the slot's pages via ``block_row``
+    (IN PLACE).  Chunks are page-aligned, so each chunk writes C/page whole
+    pages.  Returns (logits (C, V) f32, pages)."""
+    b, c = tokens.shape
+    page = pages["k"].shape[2]
+    if c % page or start % page:
+        raise ValueError(f"chunk [{start}, {start + c}) is not aligned to "
+                         f"pages of {page}")
+    x = _embed(params, cfg, tokens)
+    positions = start + torch.arange(c, device=x.device)
+    windows = _layer_windows(cfg, cfg.n_layers)
+    page_ids = block_row[start // page:(start + c) // page].long()
+    for i in range(cfg.n_layers):
+        blk = _layer(params["blocks"], i)
+        h = L.rms_norm(x, blk["ln1"])
+        q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
+        k_pool, v_pool = pages["k"][i], pages["v"][i]
+        k_pool[page_ids] = kk.reshape(c // page, page, *kk.shape[2:])
+        v_pool[page_ids] = v.reshape(c // page, page, *v.shape[2:])
+        # the slot's whole context (past pages + this chunk); unwritten
+        # and stale positions are masked by the global causal rule
+        o = A.paged_prefill_attention(q, k_pool, v_pool, block_row, start,
+                                      window=windows[i],
+                                      logit_cap=cfg.softcap_attn,
+                                      use_kernel=use_kernel)
+        a = o.reshape(b, c, -1) @ blk["attn"]["wo"]
+        x = _mlp_residual(blk, cfg, x, a)
+    return _logits(params, cfg, x)[0], pages
+
+
+def _paged_tick(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                pages: Params, block_tables: torch.Tensor,
+                lengths: torch.Tensor,
+                write_mask: torch.Tensor | None = None,
+                null_page: int | None = None, *,
+                use_kernel: bool | None = None
+                ) -> tuple[torch.Tensor, Params]:
+    """One paged decode tick over all slots (the shared body of
+    ``decode_step_paged_decoder`` and ``decode_ticks_decoder``).
+
+    tokens (B, 1); block_tables (B, width) int32; lengths (B,) int32
+    (the new token lands at position lengths).  ``write_mask`` (B,) bool
+    routes masked-off slots' cache writes to ``null_page``.  Returns
+    (logits (B, V) f32, pages updated in place)."""
+    b = tokens.shape[0]
+    page = pages["k"].shape[2]
+    x = _embed(params, cfg, tokens)                     # (B, 1, D)
+    windows = _layer_windows(cfg, cfg.n_layers)
+    # The tables may be width-sliced to the live context, and a masked-off
+    # slot's length can point one page past the slice: clamp (as JAX's
+    # gather does), then route that slot to the null page.
+    col = torch.clamp(lengths // page, max=block_tables.shape[1] - 1)
+    write_page = block_tables[torch.arange(b, device=x.device), col.long()]
+    if write_mask is not None:
+        if null_page is None:
+            null_page = pages["k"].shape[1] - 1
+        write_page = torch.where(write_mask, write_page, null_page)
+    write_page = write_page.long()
+    write_off = (lengths % page).long()
+    positions = lengths[:, None]
+    attn_len = lengths + 1
+    for i in range(cfg.n_layers):
+        blk = _layer(params["blocks"], i)
+        h = L.rms_norm(x, blk["ln1"])
+        q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
+        k_pool, v_pool = pages["k"][i], pages["v"][i]
+        k_pool[write_page, write_off] = kk[:, 0]
+        v_pool[write_page, write_off] = v[:, 0]
+        o = A.paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                     attn_len, window=windows[i],
+                                     logit_cap=cfg.softcap_attn,
+                                     use_kernel=use_kernel)
+        a = o.reshape(b, 1, -1) @ blk["attn"]["wo"]
+        x = _mlp_residual(blk, cfg, x, a)
+    return _logits(params, cfg, x)[:, 0], pages
+
+
+def decode_step_paged_decoder(params: Params, cfg: ArchConfig,
+                              tokens: torch.Tensor, pages: Params,
+                              block_tables: torch.Tensor,
+                              lengths: torch.Tensor, *,
+                              use_kernel: bool | None = None
+                              ) -> tuple[torch.Tensor, Params]:
+    """One decode tick over every slot; inactive slots ride along pointed
+    at the null page.  Returns (logits (B, V), pages updated in place)."""
+    return _paged_tick(params, cfg, tokens, pages, block_tables, lengths,
+                       use_kernel=use_kernel)
+
+
+def decode_ticks_decoder(params: Params, cfg: ArchConfig,
+                         tokens: torch.Tensor, pages: Params,
+                         block_tables: torch.Tensor, lengths: torch.Tensor,
+                         active: torch.Tensor, budget: torch.Tensor,
+                         eos: torch.Tensor, n_ticks: int, *, max_seq: int,
+                         top_k: int | None = None, temperature: float = 1.0,
+                         generator: torch.Generator | None = None,
+                         null_page: int | None = None,
+                         use_kernel: bool | None = None
+                         ) -> tuple[torch.Tensor, Params]:
+    """``n_ticks`` decode steps with device-side sampling, cache append and
+    per-slot retirement flags; the host reads one (N, B) token block.
+
+    tokens (B,) last emitted token per slot; lengths (B,) int32 positions
+    written; active (B,) bool; budget (B,) int32 remaining new tokens;
+    eos (B,) int32 (-1 = never).  A slot whose emitted token retires it
+    (budget spent, eos, or context reaching ``max_seq``: the engine's
+    ``_emit`` rule) turns inactive: later ticks freeze its token and
+    length and route its writes to the null page.  Returns (toks (N, B)
+    int32, -1 where the slot was already inactive; pages, updated in
+    place)."""
+    toks, lens, act, bud = tokens, lengths, active, budget
+    out = []
+    for _ in range(n_ticks):
+        logits, pages = _paged_tick(params, cfg, toks[:, None], pages,
+                                    block_tables, lens, write_mask=act,
+                                    null_page=null_page,
+                                    use_kernel=use_kernel)
+        nxt = sample_tokens(logits, generator=generator, top_k=top_k,
+                            temperature=temperature)
+        nxt = torch.where(act, nxt, toks)          # freeze inactive lanes
+        step = act.to(torch.int32)
+        lens = lens + step                         # the old token's KV landed
+        bud = bud - step
+        # _emit's rule on the just-emitted token: after the emit,
+        # prompt + out == lens + 1 (the new token's KV is unwritten)
+        done = (bud <= 0) | (nxt == eos) | (lens + 1 >= max_seq)
+        out.append(torch.where(act, nxt, -1))
+        act = act & ~done
+        toks = nxt
+    return torch.stack(out), pages

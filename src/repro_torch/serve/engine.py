@@ -1,0 +1,390 @@
+"""Continuous-batching serving engine over a PACO-paged KV cache (port of
+the fused path of ``repro.serve.engine``).
+
+Requests queue up; the scheduler admits them FIFO into fixed decode slots,
+prefills their prompts in page-aligned chunks (one ``prefill_chunk`` call
+per chunk), and advances every active slot with fused multi-tick decode
+dispatches: one ``decode_ticks`` call runs ``ticks_per_dispatch`` decode
+steps with sampling, cache append and retirement flags on the device, and
+the host syncs one small (ticks, slots) token block per dispatch.  The KV
+cache lives in a shared pool of fixed-size pages mapped through per-slot
+block tables; the model writes the pool in place.  Retirement frees pages
+back to the pool, and pool exhaustion preempts the youngest request (its
+pages freed, the request re-queued to resume with identical output).
+
+The engine runs on ``device`` ("cuda" unless the caller asks for "cpu");
+on CUDA the attention runs through the hand-written kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import (decode_ticks, paged_cache_leaf_specs,
+                                prefill_chunk, sample_tokens)
+from repro_torch.serve import paging
+
+Params = Any
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: list[int]
+    max_new_tokens: int = 16
+    eos_id: int = -1  # -1 = never
+    out: list[int] = dataclasses.field(default_factory=list)
+    # instrumentation (tests + launch report)
+    prefill_calls: int = 0
+    preemptions: int = 0
+
+
+def _width_bucket(width: int, pages_per_seq: int) -> int:
+    """Round a live block-table width up to a power of two (clamped to the
+    full table)."""
+    b = 1
+    while b < width:
+        b *= 2
+    return min(b, pages_per_seq)
+
+
+def _to_device(params: Params, device: torch.device) -> Params:
+    return {k: (_to_device(v, device) if isinstance(v, dict)
+                else v.to(device)) for k, v in params.items()}
+
+
+class ServeEngine:
+    """Paged continuous-batching engine (dense GQA decoders).
+
+    ``ticks_per_dispatch`` sets how many decode steps one dispatch fuses:
+    larger values amortize the host sync over more tokens at the cost of
+    token-block latency and up to that many pre-mapped pages per slot.
+    ``top_k``/``temperature`` switch the device-side sampler from greedy
+    argmax to top-k (``models.sample_tokens``, seeded by ``seed``).
+    ``device`` defaults to "cuda"; asking for it on a host without a card
+    raises.  Speculative decoding, the single-tick legacy loop and meshed
+    serving are not ported yet: passing ``speculate``, ``fused=False`` or
+    ``mesh`` raises.
+    """
+
+    def __init__(self, params: Params, cfg: ArchConfig, *, slots: int = 4,
+                 max_seq: int = 128, page_size: int | None = None,
+                 pool_pages: int | None = None,
+                 prefill_chunk_len: int | None = None, mesh=None,
+                 ticks_per_dispatch: int = 8, fused: bool = True,
+                 top_k: int | None = None, temperature: float = 1.0,
+                 speculate: int | None = None, seed: int = 0,
+                 device: torch.device | str = "cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"ServeEngine(device={str(device)!r}): no CUDA device on "
+                "this host; pass device='cpu' to serve on the CPU")
+        if mesh is not None or not fused or speculate is not None:
+            raise NotImplementedError(
+                "the port's engine serves the fused single-device path only "
+                "(mesh, fused=False and speculate are later slices)")
+        self.cfg = cfg
+        self.slots = slots
+        self.max_seq = max_seq
+        self.page = page_size or paging.paco_page_size(
+            slots, max_seq, cfg.head_dim)
+        if max_seq % self.page != 0:
+            raise ValueError(
+                f"page_size={self.page} does not divide max_seq="
+                f"{max_seq}: every sequence must span whole pages so "
+                f"block tables stay rectangular")
+        self.pages_per_seq = max_seq // self.page
+        if prefill_chunk_len is None:
+            prefill_chunk_len = self.page
+            while (prefill_chunk_len * 2 <= min(64, max_seq)
+                   and max_seq % (prefill_chunk_len * 2) == 0):
+                prefill_chunk_len *= 2
+        if prefill_chunk_len % self.page != 0:
+            raise ValueError(
+                f"prefill_chunk_len={prefill_chunk_len} is not a multiple "
+                f"of page_size={self.page}: each prefill chunk scatters "
+                f"whole pages")
+        if max_seq % prefill_chunk_len != 0:
+            raise ValueError(
+                f"prefill_chunk_len={prefill_chunk_len} does not divide "
+                f"max_seq={max_seq}: a padded final chunk would overrun "
+                f"the block table")
+        self.chunk = prefill_chunk_len
+        if ticks_per_dispatch < 1:
+            raise ValueError(f"ticks_per_dispatch must be >= 1, got "
+                             f"{ticks_per_dispatch}")
+        self.ticks = ticks_per_dispatch
+        self.top_k = top_k
+        self.temperature = temperature
+        n_pages = (pool_pages if pool_pages is not None
+                   else slots * self.pages_per_seq)
+        if n_pages < self.pages_per_seq:
+            raise ValueError(
+                f"pool_pages={n_pages} < pages_per_seq="
+                f"{self.pages_per_seq}: the pool must hold at least one "
+                f"full max_seq sequence or a lone request can never map")
+        self.pool = paging.init_pool(paged_cache_leaf_specs(cfg, self.page),
+                                     n_pages, self.page, self.device)
+        self.tables = paging.BlockTables(slots, self.pages_per_seq,
+                                         self.pool.null_page, self.device)
+        self.params = _to_device(params, self.device)
+
+        self.active: list[Request | None] = [None] * slots
+        self.queue: deque[Request] = deque()
+        self.done: list[Request] = []
+        # host-authoritative per-slot state: cache positions written, last
+        # emitted token (its KV lands on the next tick), admission order
+        # (preemption victims are the youngest).
+        self._ctx_len = [0] * slots
+        self._last_tok = [0] * slots
+        self._admit_order = [-1] * slots
+        self._admit_seq = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.stats = {"prefill_calls": 0, "decode_steps": 0,
+                      "preemptions": 0, "retired": 0, "dispatches": 0,
+                      "host_syncs": 0, "max_table_width": 0,
+                      "prefill_tokens": 0, "decode_tokens": 0,
+                      "prefill_s": 0.0, "decode_s": 0.0}
+
+    # -- plumbing -----------------------------------------------------------
+
+    def _i32(self, values) -> torch.Tensor:
+        return torch.tensor(values, dtype=torch.int32, device=self.device)
+
+    def submit(self, req: Request) -> None:
+        if not (1 <= len(req.prompt) < self.max_seq):
+            raise ValueError(
+                f"prompt length {len(req.prompt)} must be in "
+                f"[1, max_seq={self.max_seq})")
+        if req.max_new_tokens < 1:
+            # prefill always emits one token
+            raise ValueError(f"max_new_tokens must be >= 1, got "
+                             f"{req.max_new_tokens}")
+        self.queue.append(req)
+
+    def _emit(self, req: Request, tok: int) -> bool:
+        """Record a generated token; True when the request retires (eos,
+        token budget, or context hitting max_seq).  ``decode_ticks``'s
+        device-side flags mirror this rule exactly."""
+        req.out.append(tok)
+        return (len(req.out) >= req.max_new_tokens or tok == req.eos_id
+                or len(req.prompt) + len(req.out) >= self.max_seq)
+
+    def _release_slot(self, slot: int) -> None:
+        self.pool.release(self.tables.clear(slot))
+        self.active[slot] = None
+        self._ctx_len[slot] = 0
+        self._last_tok[slot] = 0
+        self._admit_order[slot] = -1
+
+    def _retire(self, slot: int) -> None:
+        req = self.active[slot]
+        self._release_slot(slot)
+        self.done.append(req)
+        self.stats["retired"] += 1
+
+    def _preempt(self, slot: int) -> None:
+        """Evict a slot: pages freed, request re-queued FIRST so it resumes
+        (prompt + generated so far re-prefilled) with identical output."""
+        req = self.active[slot]
+        self._release_slot(slot)
+        req.preemptions += 1
+        self.stats["preemptions"] += 1
+        self.queue.appendleft(req)
+
+    def _youngest_active(self) -> int:
+        return max((s for s in range(self.slots)
+                    if self.active[s] is not None),
+                   key=lambda s: self._admit_order[s])
+
+    # -- scheduler ----------------------------------------------------------
+
+    def _admit(self) -> None:
+        """Fill free slots from the queue head (FIFO).  Admission needs
+        pages for every padded prefill chunk up front; if the pool cannot
+        supply them the queue waits.  The first tokens of all slots
+        admitted here reach the host in one sync."""
+        pending: list[tuple[int, torch.Tensor]] = []
+        for slot in range(self.slots):
+            if self.active[slot] is not None or not self.queue:
+                continue
+            req = self.queue[0]
+            ctx = req.prompt + req.out
+            n_chunks = -(-len(ctx) // self.chunk)
+            got = self.pool.alloc(n_chunks * (self.chunk // self.page))
+            if got is None:
+                break
+            self.queue.popleft()
+            self.tables.assign(slot, 0, got)
+            self.active[slot] = req
+            self._admit_order[slot] = self._admit_seq
+            self._admit_seq += 1
+            pending.append((slot, self._prefill_slot(slot, req, ctx)))
+        if pending:
+            t0 = time.perf_counter()
+            toks = torch.stack([t for _, t in pending]).cpu().tolist()
+            self.stats["host_syncs"] += 1
+            self.stats["prefill_s"] += time.perf_counter() - t0
+            for (slot, _), tok in zip(pending, toks):
+                req = self.active[slot]
+                self._last_tok[slot] = tok
+                if self._emit(req, tok):
+                    self._retire(slot)
+
+    def _prefill_slot(self, slot: int, req: Request,
+                      ctx: list[int]) -> torch.Tensor:
+        """Chunked prefill: ceil(len(ctx)/chunk) calls, each ingesting a
+        whole page-aligned chunk with the block row sliced to the chunk's
+        live page extent (power-of-two bucket).  Returns the first sampled
+        token as a DEVICE scalar, read at the caller's batched sync."""
+        t0 = time.perf_counter()
+        logits = None
+        for i in range(0, len(ctx), self.chunk):
+            width = _width_bucket(-(-(i + self.chunk) // self.page),
+                                  self.pages_per_seq)
+            self.stats["max_table_width"] = max(
+                self.stats["max_table_width"], width)
+            row = self.tables.device_view(width)[slot]
+            toks = ctx[i:i + self.chunk]
+            toks = toks + [0] * (self.chunk - len(toks))
+            logits, self.pool.pools = prefill_chunk(
+                self.params, self.cfg, self._i32([toks]), i,
+                self.pool.pools, row)
+            req.prefill_calls += 1
+            self.stats["prefill_calls"] += 1
+        last = (len(ctx) - 1) % self.chunk
+        tok = sample_tokens(logits[last][None], generator=self._gen,
+                            top_k=self.top_k,
+                            temperature=self.temperature)[0]
+        self.stats["prefill_tokens"] += len(ctx)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self._ctx_len[slot] = len(ctx)
+        return tok
+
+    def _ensure_decode_pages(self, n: int = 1) -> None:
+        """Every active slot needs mapped pages for its next ``n`` write
+        positions (capped by its budget and max_seq); exhaustion preempts
+        the youngest active request until the allocation succeeds."""
+        order = sorted((s for s in range(self.slots)
+                        if self.active[s] is not None),
+                       key=lambda s: self._admit_order[s])
+        for slot in order:
+            if self.active[slot] is None:   # preempted below
+                continue
+            for idx in range(*self._write_page_range(slot, n)):
+                if self.active[slot] is None:
+                    break
+                if self.tables.row(slot)[idx] != self.tables.null_page:
+                    continue
+                while True:
+                    got = self.pool.alloc(1)
+                    if got is not None:
+                        self.tables.assign(slot, idx, got)
+                        break
+                    victim = self._youngest_active()
+                    self._preempt(victim)
+                    if victim == slot:
+                        break
+
+    def _planned_writes(self, slot: int, n: int) -> int:
+        """How many of the next ``n`` ticks this slot can write: capped by
+        the remaining token budget and the last writable position."""
+        req = self.active[slot]
+        ctx = self._ctx_len[slot]
+        return max(1, min(n, req.max_new_tokens - len(req.out),
+                          (self.max_seq - 1) - ctx))
+
+    def _write_page_range(self, slot: int, n: int) -> tuple[int, int]:
+        """Half-open block-table index range the slot writes over the next
+        ``n`` ticks: positions [ctx, ctx + _planned_writes)."""
+        ctx = self._ctx_len[slot]
+        w = self._planned_writes(slot, n)
+        return ctx // self.page, (ctx + w - 1) // self.page + 1
+
+    def tick(self) -> int:
+        """Admit + one fused decode dispatch; returns #retired."""
+        self._admit()
+        if all(r is None for r in self.active):
+            return 0
+        n = self.ticks
+        self._ensure_decode_pages(n)
+        live = [s for s in range(self.slots) if self.active[s] is not None]
+        if not live:
+            return 0
+        # clamp the block to the largest per-slot write plan (power-of-two
+        # bucket) so a drain tail does not run ticks with every lane frozen
+        planned = max(self._planned_writes(s, n) for s in live)
+        return self._dispatch_fused(live, min(n, _width_bucket(planned, n)))
+
+    def _dispatch_arrays(self, live: list[int], span: int):
+        """Per-slot device vectors of one dispatch: block tables sliced to
+        the span's width bucket, last tokens, context lengths,
+        active/budget/eos."""
+        width = _width_bucket(
+            max(self._write_page_range(s, span)[1] for s in live),
+            self.pages_per_seq)
+        self.stats["max_table_width"] = max(
+            self.stats["max_table_width"], width)
+        bt = self.tables.device_view(width)
+        toks = self._i32(self._last_tok)
+        lens = self._i32(self._ctx_len)
+        act = torch.tensor([r is not None for r in self.active],
+                           device=self.device)
+        bud = self._i32([r.max_new_tokens - len(r.out) if r else 0
+                         for r in self.active])
+        eos = self._i32([r.eos_id if r else -1 for r in self.active])
+        return bt, toks, lens, act, bud, eos
+
+    def _dispatch_fused(self, live: list[int], n: int) -> int:
+        """One fused decode dispatch: n on-device ticks, ONE host sync."""
+        bt, toks, lens, act, bud, eos = self._dispatch_arrays(live, n)
+        t0 = time.perf_counter()
+        block, self.pool.pools = decode_ticks(
+            self.params, self.cfg, toks, self.pool.pools, bt, lens, act,
+            bud, eos, n, max_seq=self.max_seq, top_k=self.top_k,
+            temperature=self.temperature, generator=self._gen,
+            null_page=self.pool.null_page)
+        block = block.cpu().numpy()   # THE one device->host sync per block
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += n
+        self.stats["dispatches"] += 1
+        self.stats["host_syncs"] += 1
+        finished = 0
+        for slot in live:
+            req = self.active[slot]
+            for t in range(n):
+                tok = int(block[t, slot])
+                self._ctx_len[slot] += 1   # that tick wrote last_tok's KV
+                self._last_tok[slot] = tok
+                self.stats["decode_tokens"] += 1
+                if self._emit(req, tok):
+                    # the device flag retired this slot at the same tick;
+                    # later block[t', slot] entries are -1 filler
+                    self._retire(slot)
+                    finished += 1
+                    break
+        return finished
+
+    def run_until_drained(self, max_ticks: int = 10_000) -> list[Request]:
+        for _ in range(max_ticks):
+            if not self.queue and all(r is None for r in self.active):
+                break
+            self.tick()
+        return self.done
+
+    # -- test/debug surface -------------------------------------------------
+
+    def check_page_invariants(self) -> None:
+        """Block-table/pool invariants: live rows disjoint, live pages off
+        the free list, live + free == pool."""
+        live = [s for s in range(self.slots) if self.active[s] is not None]
+        self.tables.check_invariants(self.pool, live)
+        n_live = sum(len(self.tables.live_pages(s)) for s in live)
+        assert n_live + self.pool.free_count() == self.pool.n_pages, \
+            (n_live, self.pool.free_count(), self.pool.n_pages)

@@ -1,0 +1,271 @@
+"""The port's paged attention against ``repro``'s, on the same inputs.
+
+On the CPU the port's ops take their plain version: it is held against
+``repro``'s jnp gather path, its Pallas kernel in interpret mode and the
+dense ``ref`` oracles, on the geometries of ``tests/test_serve.py``
+(prime pools, windows, softcaps, multi-page chunks, start > 0, stale
+pages).  A Python emulation of the CUDA kernels' walk (key splits, warp
+batches and tiles, finite -1e30 masking, online softmax, merges) is held
+against the
+plain version, so the kernels' algorithm is tested here too.  The CUDA
+kernels themselves run only on a card (``test_torch_cuda.py``).
+
+Tolerance: float32 atol 1e-5 (different summation orders).
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attention import (paged_attention_ref,
+                                     paged_decode_attention,
+                                     paged_prefill_attention,
+                                     paged_prefill_ref)
+from repro_torch.kernels.attention import attention as K
+from repro_torch.kernels.attention import ops, ref
+
+# Small tensors: one intra-op thread each, so these tests do not crowd the
+# other workers of a parallel run.
+torch.set_num_threads(1)
+ATOL = 1e-5
+INT32_MAX = 2 ** 31 - 1
+DECODE_KW = [{}, {"window": 6}, {"logit_cap": 20.0},
+             {"window": 3, "logit_cap": 5.0}]
+PREFILL_KW = [{}, {"window": 5}, {"logit_cap": 20.0},
+              {"window": 3, "logit_cap": 5.0}]
+PRIME_GEOMETRIES = [(3, 3, 11, 3, 3), (5, 2, 7, 5, 5), (2, 4, 13, 6, 0)]
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _close(t, j, atol=ATOL):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=atol, rtol=0)
+
+
+def _decode_case(seed=0):
+    rng = np.random.default_rng(seed)
+    b, hq, hkv, d, page, n_pages = 3, 4, 2, 16, 4, 13
+    q = _rand(rng, b, 1, hq, d)
+    kp = _rand(rng, n_pages, page, hkv, d)
+    vp = _rand(rng, n_pages, page, hkv, d)
+    bt = np.array([[0, 3, 5, 7], [1, 2, 4, 6], [8, 9, 10, 11]], np.int32)
+    lens = np.array([5, 16, 1], np.int32)
+    return q, kp, vp, bt, lens
+
+
+def _prefill_case(page=4, pps=4, n_pages=13, c=8, start=8, hq=4, hkv=2,
+                  d=16, seed=1):
+    rng = np.random.default_rng(seed)
+    row = rng.choice(n_pages, size=pps, replace=False).astype(np.int32)
+    return (_rand(rng, 1, c, hq, d), _rand(rng, n_pages, page, hkv, d),
+            _rand(rng, n_pages, page, hkv, d), row, start)
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+@pytest.mark.parametrize("kw", DECODE_KW)
+def test_plain_decode_matches_jax(kw):
+    q, kp, vp, bt, lens = _decode_case()
+    got = ops.paged_decode_attention(*_t(q, kp, vp, bt, lens), **kw)
+    jq = [jnp.asarray(x) for x in (q, kp, vp, bt, lens)]
+    _close(got, paged_decode_attention(*jq, **kw))
+    _close(got, paged_decode_attention(*jq, use_kernel=True,
+                                       interpret=True, **kw))
+    _close(got, paged_attention_ref(*jq, **kw))
+    _close(ref.paged_attention_ref(*_t(q, kp, vp, bt, lens), **kw),
+           paged_attention_ref(*jq, **kw))
+
+
+@pytest.mark.parametrize("kw", PREFILL_KW)
+def test_plain_prefill_matches_jax(kw):
+    """A chunk at start 8: past context in earlier pages, stale data in
+    later ones, masked by the global causal rule."""
+    q, kp, vp, _, _ = _prefill_case()
+    row = np.array([2, 5, 7, 11], np.int32)
+    got = ops.paged_prefill_attention(*_t(q, kp, vp, row), 8, **kw)
+    jq = [jnp.asarray(x) for x in (q, kp, vp, row)]
+    st = jnp.asarray(8, jnp.int32)
+    _close(got, paged_prefill_attention(*jq, st, **kw))
+    _close(got, paged_prefill_attention(*jq, st, use_kernel=True,
+                                        interpret=True, **kw))
+    _close(got, paged_prefill_ref(*jq, st, **kw))
+    _close(ref.paged_prefill_ref(*_t(q, kp, vp, row), 8, **kw),
+           paged_prefill_ref(*jq, st, **kw))
+
+
+@pytest.mark.parametrize("page,pps,n_pages,c,start", PRIME_GEOMETRIES)
+def test_plain_prefill_prime_geometries_match_jax(page, pps, n_pages, c,
+                                                  start):
+    """Prime pages and pools, single- and multi-page chunks, first and
+    last chunk positions."""
+    q, kp, vp, row, start = _prefill_case(page, pps, n_pages, c, start,
+                                          d=8, seed=page)
+    got = ops.paged_prefill_attention(*_t(q, kp, vp, row), start)
+    jq = [jnp.asarray(x) for x in (q, kp, vp, row)]
+    st = jnp.asarray(start, jnp.int32)
+    _close(got, paged_prefill_attention(*jq, st))
+    _close(got, paged_prefill_attention(*jq, st, use_kernel=True,
+                                        interpret=True))
+    _close(got, paged_prefill_ref(*jq, st))
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    K.paged_flash_decode.launches = 0
+    K.paged_flash_prefill.launches = 0
+    q, kp, vp, bt, lens = _t(*_decode_case())
+    scale = 1 / math.sqrt(q.shape[-1])
+    want = ops.paged_decode_attention(q, kp, vp, bt, lens, use_kernel=False)
+    for got in (ops.paged_decode_attention(q, kp, vp, bt, lens),
+                ops.paged_decode_attention(q, kp, vp, bt, lens,
+                                           use_kernel=True),
+                K.paged_flash_decode(q, kp, vp, bt, lens, scale=scale)):
+        assert torch.equal(got, want)
+    q, kp, vp, row, start = _prefill_case()
+    q, kp, vp, row = _t(q, kp, vp, row)
+    want = ops.paged_prefill_attention(q, kp, vp, row, start,
+                                       use_kernel=False)
+    for got in (ops.paged_prefill_attention(q, kp, vp, row, start),
+                K.paged_flash_prefill(q, kp, vp, row, start, scale=scale)):
+        assert torch.equal(got, want)
+    assert K.paged_flash_decode.launches == 0
+    assert K.paged_flash_prefill.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' walk, emulated (csrc/paged_decode.cu, paged_prefill.cu)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _online(states, sc, v):
+    """One tile of the online softmax: states (m, l, acc) per row."""
+    m, l, acc = states
+    m_new = torch.maximum(m, sc.max(-1).values)
+    p = torch.exp(sc - m_new[:, None])
+    alpha = torch.exp(m - m_new)
+    return m_new, l * alpha + p.sum(-1), acc * alpha[:, None] + p @ v
+
+
+def _merge(parts):
+    m = torch.stack([p[0] for p in parts]).max(0).values
+    w = [torch.exp(p[0] - m) for p in parts]
+    l = sum(p[1] * wi for p, wi in zip(parts, w))
+    acc = sum(p[2] * wi[:, None] for p, wi in zip(parts, w))
+    return acc / torch.clamp(l, min=1e-30)[:, None]
+
+
+def _softcap(sc, cap):
+    return sc if cap is None else torch.tanh(sc / cap) * cap
+
+
+def emulate_decode(q, kp, vp, bt, lens, *, window=None, logit_cap=None,
+                   warps=8, batch=8, split=128):
+    """csrc/paged_decode.cu: per (slot, kv head, key split) CTA, each warp
+    streams batches of ``batch`` keys (warp w takes batches w, w + warps,
+    ...) with its own online softmax; warps merge, then splits merge."""
+    b, _, hq, d = q.shape
+    _, page, hkv, _ = kp.shape
+    g, width = hq // hkv, bt.shape[1]
+    window = INT32_MAX if window is None else window
+    scale = 1 / math.sqrt(d)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        length = int(lens[bi])
+        lo, hi = max(0, length - window), min(length, width * page)
+        for h in range(hkv):
+            qh = q[bi, 0, h * g:(h + 1) * g]
+            parts = []
+            for s in range(-(-width * page // split)):
+                s_lo, s_hi = max(lo, s * split), min(hi, (s + 1) * split)
+                for w in range(warps):
+                    st = (torch.full((g,), NEG_INF), torch.zeros(g),
+                          torch.zeros(g, d))
+                    for t0 in range(s_lo + w * batch, s_hi, warps * batch):
+                        pos = torch.arange(t0, min(t0 + batch, s_hi))
+                        phys = bt[bi, pos // page].long()
+                        kt = kp[phys, pos % page, h]
+                        vt = vp[phys, pos % page, h]
+                        sc = _softcap(qh @ kt.T * scale, logit_cap)
+                        st = _online(st, sc, vt)
+                    parts.append(st)
+            out[bi, 0, h * g:(h + 1) * g] = _merge(parts)
+    return out
+
+
+def emulate_prefill(q, kp, vp, row, start, *, window=None, logit_cap=None,
+                    rows_per_cta=32, tile=32, split=128):
+    _, c, hq, d = q.shape
+    _, page, hkv, _ = kp.shape
+    g, width = hq // hkv, row.shape[0]
+    window = INT32_MAX if window is None else window
+    scale = 1 / math.sqrt(d)
+    bq = rows_per_cta // g
+    out = torch.zeros_like(q)
+    for c0 in range(0, c, bq):
+        ci = torch.arange(c0, min(c0 + bq, c))
+        q_pos = start + ci
+        k_lo0 = max(0, int(q_pos[0]) - window + 1)
+        k_hi0 = min(int(q_pos[-1]) + 1, width * page)
+        for h in range(hkv):
+            qr = q[0, ci][:, h * g:(h + 1) * g].transpose(0, 1)  # (G, n, D)
+            qr = qr.reshape(-1, d)
+            qp = q_pos.repeat(g)
+            parts = []
+            for s in range(-(-width * page // split)):
+                n_rows = qr.shape[0]
+                st = (torch.full((n_rows,), NEG_INF), torch.zeros(n_rows),
+                      torch.zeros(n_rows, d))
+                k_lo, k_hi = max(k_lo0, s * split), min(k_hi0,
+                                                        (s + 1) * split)
+                for t0 in range(k_lo, k_hi, tile):
+                    pos = torch.arange(t0, min(t0 + tile, k_hi))
+                    phys = row[pos // page].long()
+                    kt, vt = kp[phys, pos % page, h], vp[phys, pos % page, h]
+                    sc = _softcap(qr @ kt.T * scale, logit_cap)
+                    valid = ((pos[None, :] <= qp[:, None])
+                             & (qp[:, None] - pos[None, :] < window))
+                    st = _online(st, torch.where(valid, sc, NEG_INF), vt)
+                parts.append(st)
+            o = _merge(parts).reshape(g, len(ci), d).transpose(0, 1)
+            out[0, ci, h * g:(h + 1) * g] = o
+    return out
+
+
+@pytest.mark.parametrize("kw", DECODE_KW + [{"window": 100}])
+def test_decode_kernel_walk_matches_plain(kw):
+    """Serving-test geometry, plus slots whose context spans two key
+    splits (a 512-position table) and one frozen past its table."""
+    q, kp, vp, bt, lens = _t(*_decode_case())
+    _close(emulate_decode(q, kp, vp, bt, lens, **kw),
+           ops.paged_decode_attention(q, kp, vp, bt, lens, **kw))
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(_rand(rng, 3, 1, 4, 16))
+    kp = torch.from_numpy(_rand(rng, 25, 64, 2, 16))
+    vp = torch.from_numpy(_rand(rng, 25, 64, 2, 16))
+    bt = torch.from_numpy(rng.permutation(24)[:24].reshape(3, 8)
+                          .astype(np.int32))
+    lens = torch.tensor([300, 511, 515], dtype=torch.int32)
+    got = emulate_decode(q, kp, vp, bt, lens, **kw)
+    want = ops.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+    _close(got[:2], want[:2])
+    if "window" not in kw:   # past the table, no window: same keys
+        _close(got[2:], want[2:])
+
+
+@pytest.mark.parametrize("kw", PREFILL_KW)
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (6, 2), (3, 3)])
+def test_prefill_kernel_walk_matches_plain(kw, hq, hkv):
+    """A late chunk over two key splits; G = 2, 3 and 1; windows whose
+    first tile is wholly masked for some rows (the finite -1e30 wipe)."""
+    q, kp, vp, row, start = _prefill_case(page=16, pps=16, n_pages=20, c=24,
+                                          start=200, hq=hq, hkv=hkv, seed=3)
+    q, kp, vp, row = _t(q, kp, vp, row)
+    _close(emulate_prefill(q, kp, vp, row, start, **kw),
+           ops.paged_prefill_attention(q, kp, vp, row, start, **kw))
