@@ -9,15 +9,16 @@ Phases, in order; any failure ends the script with a nonzero exit:
 2. Build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc for
    sm_90a into ``build/repro_torch/`` (registers and shared memory from
    ``-Xptxas -v``).
-3. Kernels against their plain versions: each hand-written kernel and its
-   plain PyTorch version on the same CUDA inputs, at the serving shapes in
-   bf16 and f32 and on small prime/odd geometries with a window and a
-   softcap (tolerances: f32 atol 1e-4; bf16 atol 2e-2, since the plain
-   version rounds the softmax weights to bf16 and the kernel keeps f32).
-   Device times of the kernel, the plain version and one library call
-   (``scaled_dot_product_attention`` on pre-gathered K/V), each from a
-   CUDA-graph replay of many calls cycling through the 28 layers' pools
-   (the eager per-call time of the kernel, host launch cost included, is
+3. Kernels against their plain versions: each of the four hand-written
+   kernels and its plain PyTorch version on the same CUDA inputs, at the
+   serving shapes in bf16 and f32 and on small prime/odd geometries (GQA:
+   windows and softcaps; MLA latent: H = 3 and 5, narrow latents)
+   (tolerances: f32 atol 1e-4; bf16 atol 2e-2, since the two round the
+   softmax weights at different points).  Device times of the kernel, the
+   plain version and one library call (``scaled_dot_product_attention``
+   on the pre-gathered cache), each from a CUDA-graph replay of many calls
+   cycling through the layers' pools (28 for qwen3, 60 for deepseek-v2;
+   the eager per-call time of the kernel, host launch cost included, is
    printed beside it), and the bound from the shapes (bytes at 3.35 TB/s,
    flops at 989 TFLOP/s bf16).
 4. One full-width qwen3-0.6b prompt chunk per slot and 8 decode ticks
@@ -32,7 +33,17 @@ Phases, in order; any failure ends the script with a nonzero exit:
    launches == prefill_calls * 28 and decode launches == decode_steps * 28.
    One served request is replayed through the plain path, teacher-forced,
    and its tokens must agree under the margin rule of phase 4.
+6. Full-width deepseek-v2 (MLA + MoE), depth cut to fit the card: one
+   128-token chunk per slot and 8 ticks through the kernels and through
+   the plain path, in float32 (2 layers) and bf16 (4 layers), each model
+   freed before the next; MODEL_ATOL and the margin rule as in phase 4,
+   with MoE router near ties handled as ``moe_full_width_parity`` says.
+7. Serve deepseek-v2 (bf16, 4 layers, page 128, chunk 128) like phase 5:
+   latent prefill launches == prefill_calls * 4 and latent decode
+   launches == decode_steps * 4; then every model call of the run is
+   replayed through the plain path (``replay_schedule``).
 
+Each phase prints its time.
 The second-to-last line is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the rest of the repository beside it, the script
@@ -41,7 +52,10 @@ exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -67,10 +81,30 @@ ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 MODEL_ATOL = {torch.float32: 1e-3, torch.bfloat16: 0.25}
 ARCH = "qwen3-0.6b"
 ITERS = 200   # timed calls per kernel
+# deepseek-v2 at full width, depth cut to fit one card: about 36 GB of
+# float32 weights at 2 layers, 34 GB of bf16 at 4 (each block holds 3.97 B
+# parameters, 3.77 B of them routed experts).
+DS_ARCH = "deepseek-v2-236b"
+DS_DEPTH = {torch.float32: 2, torch.bfloat16: 4}
+# A router choice is a near tie when the plain path's k-th and (k+1)-th
+# router probabilities differ by less than this: rounding may move the
+# other path's probabilities that far and flip its choice.  Set above the
+# largest difference measured between the kernel and plain paths at full
+# width (2.2e-7 in float32; 3.0e-3 and 3.9e-3 in bf16); each check prints
+# its own (router_prob_max_diff) beside the count of near ties.
+ROUTER_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}
+MAX_EXCLUDED = 0.10   # share of logit rows a routing flip may leave out
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase(label: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"[time] {label}: {time.perf_counter() - t0:.1f}s")
 
 
 def _events_ms(run, iters: int) -> float:
@@ -312,6 +346,184 @@ def _row(name, source, replaces, err, ms, eager_ms, plain_ms, library_ms,
             "bytes": nbytes, "flops": flops}
 
 
+def check_small_latent(gen: torch.Generator) -> dict[str, float]:
+    """The MLA latent kernels on odd geometries (H = 3 and 5, prime pools,
+    kv_lora 32 and 64, qk_rope 8 and 16, tables over several key splits),
+    in f32 and bf16: kernel vs plain version."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ops
+
+    dev = "cuda"
+    worst = {"paged_latent_decode": 0.0, "paged_latent_prefill": 0.0}
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    # kv_lora 64 takes the tensor-core kernel in bf16, 32 the CUDA-core one
+    for dtype, h, kv, rope in itertools.product(
+            (torch.float32, torch.bfloat16), (3, 5), (32, 64), (8, 16)):
+        scale = 1 / math.sqrt(kv + rope)
+        for page, n_pool, width, lens in [(4, 13, 4, [5, 16, 1]),
+                                          (64, 31, 8, [300, 511, 515])]:
+            b = len(lens)
+            bt = torch.randperm(n_pool - 1, generator=gen, device=dev)
+            bt = bt[:b * width].reshape(b, width).to(torch.int32)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            args = (rnd(b, 1, h, kv, dtype=dtype),
+                    rnd(b, 1, h, rope, dtype=dtype),
+                    rnd(n_pool, page, kv, dtype=dtype),
+                    rnd(n_pool, page, rope, dtype=dtype), bt, lens_t)
+            err = max_err(K.paged_latent_decode(*args, scale=scale),
+                          ops.paged_latent_decode_attention(
+                              *args, scale=scale, use_kernel=False))
+            assert err <= ATOL[dtype], ("paged_latent_decode", dtype, h,
+                                        kv, rope, page, err)
+            worst["paged_latent_decode"] = max(
+                worst["paged_latent_decode"], err)
+        for page, width, n_pool, c, start in [(4, 4, 13, 8, 8),
+                                              (3, 3, 11, 3, 3),
+                                              (5, 2, 7, 5, 5),
+                                              (16, 16, 23, 24, 200)]:
+            row = torch.randperm(n_pool, generator=gen, device=dev)
+            row = row[:width].to(torch.int32)
+            args = (rnd(1, c, h, kv, dtype=dtype),
+                    rnd(1, c, h, rope, dtype=dtype),
+                    rnd(n_pool, page, kv, dtype=dtype),
+                    rnd(n_pool, page, rope, dtype=dtype), row)
+            err = max_err(
+                K.paged_latent_prefill(*args, start, scale=scale),
+                ops.paged_latent_prefill_attention(
+                    *args, start, scale=scale, use_kernel=False))
+            assert err <= ATOL[dtype], ("paged_latent_prefill", dtype, h,
+                                        kv, rope, page, err)
+            worst["paged_latent_prefill"] = max(
+                worst["paged_latent_prefill"], err)
+    return worst
+
+
+def bench_latent_kernels(cfg, gen: torch.Generator, iters: int
+                         ) -> list[dict]:
+    """The MLA latent kernels at the serving shapes of full-width
+    deepseek-v2 (8 slots, contexts 48..1032, H = 128, kv_lora 512,
+    qk_rope 64, page 128; prefill C = 128 at start 896): checked against
+    the plain version in f32 and bf16, then timed in bf16 cycling over
+    ``cfg.n_layers`` layers' pools (1.1 GB, so each call finds its layer
+    outside the 50 MB L2, as serving does after the MoE's 7.5 GB of
+    experts)."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ops
+
+    dev = "cuda"
+    m, h = cfg.mla, cfg.n_heads
+    kv, rope = m.kv_lora, m.qk_rope
+    scale = 1 / math.sqrt(m.qk_nope + m.qk_rope)
+    slots, page, pps = 8, 128, 16
+    n_pool = slots * pps + 1
+    n_layers = cfg.n_layers
+    rows = []
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    lens = torch.randint(48, 1000 + 32 + 1, (slots,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    perm = torch.randperm(n_pool - 1, generator=gen, device=dev)
+    bt = perm[:slots * pps].reshape(slots, pps).to(torch.int32).contiguous()
+    c, start, width = 128, 896, 8
+    row = perm[:width].to(torch.int32).contiguous()
+    err = {"paged_latent_decode": 0.0, "paged_latent_prefill": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        ck, kr = rnd(n_pool, page, kv, dtype=dtype), rnd(n_pool, page, rope,
+                                                         dtype=dtype)
+        dq = (rnd(slots, 1, h, kv, dtype=dtype),
+              rnd(slots, 1, h, rope, dtype=dtype))
+        e = max_err(K.paged_latent_decode(*dq, ck, kr, bt, lens,
+                                          scale=scale),
+                    ops.paged_latent_decode_attention(
+                        *dq, ck, kr, bt, lens, scale=scale,
+                        use_kernel=False))
+        assert e <= ATOL[dtype], ("paged_latent_decode", dtype, e)
+        pq = (rnd(1, c, h, kv, dtype=dtype), rnd(1, c, h, rope, dtype=dtype))
+        e2 = max_err(K.paged_latent_prefill(*pq, ck, kr, row, start,
+                                            scale=scale),
+                     ops.paged_latent_prefill_attention(
+                         *pq, ck, kr, row, start, scale=scale,
+                         use_kernel=False))
+        assert e2 <= ATOL[dtype], ("paged_latent_prefill", dtype, e2)
+        if dtype == torch.bfloat16:
+            err = {"paged_latent_decode": e, "paged_latent_prefill": e2}
+    del ck, kr
+
+    dtype = torch.bfloat16
+    ckp = rnd(n_layers, n_pool, page, kv, dtype=dtype)
+    krp = rnd(n_layers, n_pool, page, rope, dtype=dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(q_cat, rows_table, s_ctx, mask):
+        """SDPA on the latent pre-gathered per layer: one shared key of
+        E = 576 and value of Ev = 512 (Hkv = 1, enable_gqa)."""
+        ctx_pages = -(-s_ctx // page)
+        kg, vg = [], []
+        for i in range(n_layers):
+            ckg = ops.gather_kv_pages(ckp[i], rows_table[:, :ctx_pages])
+            krg = ops.gather_kv_pages(krp[i], rows_table[:, :ctx_pages])
+            kg.append(torch.cat([ckg, krg], -1)[:, None, :s_ctx]
+                      .contiguous())
+            vg.append(ckg[:, None, :s_ctx].contiguous())
+        ms, _ = time_ms(lambda i: sdpa(q_cat, kg[i % n_layers],
+                                       vg[i % n_layers], attn_mask=mask,
+                                       scale=scale, enable_gqa=True), iters)
+        return ms
+
+    # ---- decode
+    dq = (rnd(slots, 1, h, kv, dtype=dtype), rnd(slots, 1, h, rope,
+                                                 dtype=dtype))
+    ms, eager_ms = time_ms(lambda i: K.paged_latent_decode(
+        *dq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale),
+        iters)
+    plain_ms, _ = time_ms(lambda i: ops.paged_latent_decode_attention(
+        *dq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale,
+        use_kernel=False), max(iters // 4, 10))
+    s_max = int(lens.max())
+    mask = torch.arange(s_max, device=dev)[None, :] < lens[:, None]
+    q_cat = torch.cat(dq, -1).transpose(1, 2)           # (B, H, 1, 576)
+    library_ms = library(q_cat, bt, s_max, mask[:, None, None, :])
+    n_keys = int(lens.sum())
+    nbytes = (2 * (dq[0].numel() + dq[1].numel() + dq[0].numel())
+              + bt.numel() * 4 + lens.numel() * 4 + n_keys * (kv + rope) * 2)
+    flops = n_keys * h * (2 * (kv + rope) + 2 * kv)
+    rows.append(_row("paged_latent_decode",
+                     "src/repro_torch/csrc/paged_latent_decode.cu",
+                     "src/repro/kernels/attention/attention.py:463",
+                     err["paged_latent_decode"], ms, eager_ms, plain_ms,
+                     library_ms, nbytes, flops, dtype))
+
+    # ---- prefill: one 128-token chunk at start 896
+    pq = (rnd(1, c, h, kv, dtype=dtype), rnd(1, c, h, rope, dtype=dtype))
+    ms, eager_ms = time_ms(lambda i: K.paged_latent_prefill(
+        *pq, ckp[i % n_layers], krp[i % n_layers], row, start, scale=scale),
+        iters)
+    plain_ms, _ = time_ms(lambda i: ops.paged_latent_prefill_attention(
+        *pq, ckp[i % n_layers], krp[i % n_layers], row, start, scale=scale,
+        use_kernel=False), max(iters // 20, 5))
+    s_ctx = start + c
+    q_pos = start + torch.arange(c, device=dev)[:, None]
+    cmask = q_pos >= torch.arange(s_ctx, device=dev)[None, :]
+    q_cat = torch.cat(pq, -1)[0].transpose(0, 1)[None]  # (1, H, C, 576)
+    library_ms = library(q_cat, row[None], s_ctx, cmask)
+    del ckp, krp
+    pairs = int(cmask.sum())
+    nbytes = (2 * (pq[0].numel() + pq[1].numel() + pq[0].numel())
+              + row.numel() * 4 + s_ctx * (kv + rope) * 2)
+    flops = pairs * h * (2 * (kv + rope) + 2 * kv)
+    rows.append(_row("paged_latent_prefill",
+                     "src/repro_torch/csrc/paged_latent_prefill.cu",
+                     "src/repro/kernels/attention/attention.py:270",
+                     err["paged_latent_prefill"], ms, eager_ms, plain_ms,
+                     library_ms, nbytes, flops, dtype))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: one chunk and 8 ticks at full width, kernels vs plain path
 # ---------------------------------------------------------------------------
@@ -364,6 +576,178 @@ def full_width_parity(cfg, params, rng: np.random.Generator) -> dict:
             "atol": tol, "slots": slots, "chunk": c, "ticks": 8}
 
 
+class RouterLog:
+    """While active, records every MoE router call: the chosen expert ids
+    and, per token, the margin between the k-th and (k+1)-th router
+    probability, under the tag the caller sets (one tag per dispatch group
+    and path).  With ``forced`` set to a deque of id tensors, each call
+    takes the next one as its choice instead of its own top-k, with
+    weights renormalized from its own probabilities: the path then follows
+    another run's routing, and the comparison stays continuous where
+    rounding would flip a near tie."""
+
+    def __init__(self) -> None:
+        self.calls: dict = {}
+        self.tag = None
+        self.forced: collections.deque | None = None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._orig = orig = moe.router_topk
+
+        def route(p, cfg, x):
+            k = cfg.moe.top_k
+            probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+            if self.forced is None:
+                w, ids = orig(p, cfg, x)
+            else:
+                ids = self.forced.popleft()
+                w = probs.gather(1, ids)
+                w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            top = torch.topk(probs, k + 1, dim=-1).values
+            self.calls.setdefault(self.tag, []).append(
+                (ids.clone(), top[:, k - 1] - top[:, k], probs))
+            return w, ids
+
+        moe.router_topk = route
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe
+
+        moe.router_topk = self._orig
+
+    def near_ties(self, tag, tol: float) -> int:
+        return sum(int((margin < tol).sum())
+                   for _, margin, _ in self.calls.get(tag, []))
+
+    def flipped(self, tag_a, tag_b) -> bool:
+        return any(not torch.equal(a[0], b[0])
+                   for a, b in zip(self.calls[tag_a], self.calls[tag_b]))
+
+    def prob_diff(self, tag_a, tag_b) -> float:
+        """Largest difference of a router probability between the calls
+        of two tags (the same tokens on two paths)."""
+        return max((float((a[2] - b[2]).abs().max())
+                    for a, b in zip(self.calls[tag_a], self.calls[tag_b])),
+                   default=0.0)
+
+
+def moe_full_width_parity(cfg, params, rng: np.random.Generator, *,
+                          share_routing: bool) -> dict:
+    """Full-width deepseek-v2 (MLA + MoE), kernel path vs plain path: one
+    128-token chunk per slot, then 8 decode ticks teacher-forced by the
+    plain path.
+
+    A router near tie can flip an expert choice between the paths, and
+    with it the capacity positions of the whole dispatch group (the chunk,
+    or the tick's 8 tokens) and the cache the later ticks read.  The near
+    ties of the plain path (margin under ROUTER_TOL) are counted.  With
+    ``share_routing`` off (float32), each path routes itself, and the
+    logit rows of a group where the two paths chose different experts are
+    left out: the slot's chunk and its later ticks for a prefill group,
+    every later tick for a decode group (a near tie that did not flip
+    left both paths with the same dispatch, so its rows are compared); it
+    fails if more than MAX_EXCLUDED of the rows are left out.  In bf16
+    rounding moves the router probabilities by up to ~4e-3, and about 1%
+    of choices lie within 1e-4 of a tie, so most 128-token groups would be
+    left out: ``share_routing`` has the kernel path take the plain path's
+    expert choices (``RouterLog.forced``), and the comparison holds the
+    attention kernels and the rest of the block on every row.  Either way
+    a kept row must meet MODEL_ATOL and the margin rule."""
+    tol = MODEL_ATOL[cfg.dtype]
+    rtol = ROUTER_TOL[cfg.dtype]
+    from repro_torch.models import (decode_step_paged,
+                                    paged_cache_leaf_specs, prefill_chunk)
+    from repro_torch.serve.paging import init_pool
+
+    slots, page, c, ticks = 8, 128, 128, 8
+    pools = {uk: init_pool(paged_cache_leaf_specs(cfg, page), 2 * slots,
+                           page, "cuda").pools for uk in (True, False)}
+    bt = torch.arange(2 * slots, dtype=torch.int32,
+                      device="cuda").reshape(slots, 2)
+    prompts = rng.integers(0, cfg.vocab, size=(slots, c))
+    outs = []                       # (event, {use_kernel: logits})
+
+    def both_paths(log, event, run):
+        out = {}
+        for uk in (False, True):
+            log.tag = (event, uk)
+            if uk and share_routing:
+                log.forced = collections.deque(
+                    call[0] for call in log.calls[(event, False)])
+            out[uk] = run(uk)
+            log.forced = None
+        outs.append((event, out))
+        return out
+
+    with RouterLog() as log:
+        for s in range(slots):
+            toks = torch.tensor(prompts[s:s + 1], dtype=torch.int32,
+                                device="cuda")
+            both_paths(log, ("prefill", s), lambda uk: prefill_chunk(
+                params, cfg, toks, 0, pools[uk], bt[s], use_kernel=uk)[0])
+        cur = torch.stack([o[False][c - 1].argmax() for _, o in outs])
+        cur = cur.to(torch.int32)
+        lens = torch.full((slots,), c, dtype=torch.int32, device="cuda")
+        for t in range(ticks):
+            out = both_paths(log, ("tick", t), lambda uk: decode_step_paged(
+                params, cfg, cur[:, None], pools[uk], bt, lens,
+                use_kernel=uk)[0])
+            cur = out[False].argmax(-1).to(torch.int32)   # teacher-forced
+            lens = lens + 1
+    near_ties, flips, prob_diff = 0, 0, 0.0
+    tainted_slots, tainted_from = set(), ticks
+    for event, _ in outs:
+        near = log.near_ties((event, False), rtol)
+        flip = log.flipped((event, False), (event, True))
+        near_ties += near
+        flips += flip
+        prob_diff = max(prob_diff, log.prob_diff((event, False),
+                                                 (event, True)))
+        if flip and not share_routing:
+            if event[0] == "prefill":
+                tainted_slots.add(event[1])
+            else:
+                tainted_from = min(tainted_from, event[1])
+    worst, worst_all, kept, total = 0.0, 0.0, 0, 0
+    for (kind, i), out in outs:
+        diff = (out[True] - out[False]).abs().amax(-1)     # per row
+        assert torch.isfinite(out[True]).all()
+        worst_all = max(worst_all, float(diff.max()))
+        if kind == "prefill":
+            keep = torch.full_like(diff, i not in tainted_slots,
+                                   dtype=torch.bool)
+        else:
+            keep = torch.tensor([i < tainted_from and s not in tainted_slots
+                                 for s in range(slots)], device="cuda")
+        total += keep.numel()
+        kept += int(keep.sum())
+        if keep.any():
+            worst = max(worst, float(diff[keep].max()))
+            assert margin_agrees(out[False][keep], out[True][keep].argmax(-1),
+                                 tol), (kind, i)
+    result = {"dtype": str(cfg.dtype), "layers": cfg.n_layers,
+              "shared_routing": share_routing,
+              "max_abs_logit_err": worst,
+              "max_abs_logit_err_all_rows": worst_all, "atol": tol,
+              "router_choices": sum(call[0].numel() for (ev, uk), calls
+                                    in log.calls.items() if not uk
+                                    for call in calls),
+              "router_near_ties": near_ties, "router_tol": rtol,
+              "router_prob_max_diff": prob_diff,
+              "groups_with_flips": flips, "rows": total,
+              "rows_excluded": total - kept, "slots": slots, "chunk": c,
+              "ticks": ticks}
+    log_line = f"[ds-model] kernel path vs plain path: {json.dumps(result)}"
+    print(log_line, flush=True)
+    assert (total - kept) <= MAX_EXCLUDED * total, \
+        ("too many rows left out", result)
+    assert worst <= tol, ("full-width logits", result)
+    return result
+
+
 # ---------------------------------------------------------------------------
 # phase 5: serve
 # ---------------------------------------------------------------------------
@@ -403,41 +787,153 @@ def replay_plain(engine, params, cfg, req) -> None:
             lens = lens + 1
 
 
-def serve(cfg, params, rng: np.random.Generator, seed: int) -> dict:
-    from repro_torch.kernels.attention import attention as K
+class EngineCalls:
+    """Records the engine's model calls while active: each prefill chunk
+    (tokens, start, block row, the greedy token of every chunk row) and
+    each fused decode dispatch (its inputs and the token block it
+    returned), for ``replay_schedule``."""
+
+    def __init__(self) -> None:
+        self.calls: list[tuple] = []
+
+    def __enter__(self):
+        from repro_torch.serve import engine as E
+
+        self._orig = orig_p, orig_d = E.prefill_chunk, E.decode_ticks
+
+        def prefill(params, cfg, tokens, start, pages, row, **kw):
+            logits, pages = orig_p(params, cfg, tokens, start, pages, row,
+                                   **kw)
+            self.calls.append(("prefill", tokens.clone(), start, row.clone(),
+                               logits.argmax(-1)))
+            return logits, pages
+
+        def decode(params, cfg, toks, pages, bt, lens, act, bud, eos, n,
+                   **kw):
+            block, pages = orig_d(params, cfg, toks, pages, bt, lens, act,
+                                  bud, eos, n, **kw)
+            self.calls.append(("decode", toks.clone(), bt.clone(),
+                               lens.clone(), act.clone(), bud.clone(),
+                               eos.clone(), n, kw["max_seq"],
+                               kw["null_page"], block.clone()))
+            return block, pages
+
+        E.prefill_chunk, E.decode_ticks = prefill, decode
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.serve import engine as E
+
+        E.prefill_chunk, E.decode_ticks = self._orig
+
+
+def replay_schedule(engine, params, cfg, calls: list[tuple],
+                    routing: list[tuple]) -> dict:
+    """Replay every recorded engine call, in order, through the plain path
+    (``use_kernel=False``) on a fresh pool of the same layout, teacher-
+    forced by the served tokens: every chunk row's greedy token and every
+    active lane's served token must be the plain argmax wherever the plain
+    top-2 margin exceeds the tolerance.  An MoE model needs the whole
+    schedule: a token's expert capacity depends on the other tokens of its
+    dispatch group (the chunk, or the tick's active slots), so one request
+    replayed alone would route differently.  The replay also takes the
+    served run's expert choices (``routing``: the served run's
+    ``RouterLog`` calls, in order), for the reason
+    ``moe_full_width_parity`` gives for bf16."""
+    from repro_torch.models import paged_cache_leaf_specs
+    from repro_torch.serve.paging import init_pool
+
+    tol = MODEL_ATOL[cfg.dtype]
+    pages = init_pool(paged_cache_leaf_specs(cfg, engine.page),
+                      engine.pool.n_pages, engine.page, "cuda").pools
+    rows = 0
+    with RouterLog() as log:
+        log.tag = "replay"
+        log.forced = collections.deque(call[0] for call in routing)
+        rows = _replay_calls(params, cfg, calls, pages, tol)
+        assert not log.forced, "the replay made fewer router calls"
+    log.calls["serve"] = routing
+    return {"calls": len(calls), "rows_checked": rows,
+            "router_choices": sum(call[0].numel() for call in routing),
+            "router_near_ties": log.near_ties("replay",
+                                              ROUTER_TOL[cfg.dtype]),
+            "router_tol": ROUTER_TOL[cfg.dtype],
+            "router_prob_max_diff": log.prob_diff("serve", "replay")}
+
+
+def _replay_calls(params, cfg, calls, pages, tol: float) -> int:
+    from repro_torch.models import prefill_chunk, transformer
+
+    rows = 0
+    for call in calls:
+        if call[0] == "prefill":
+            _, tokens, start, row, served = call
+            logits, pages = prefill_chunk(params, cfg, tokens, start, pages,
+                                          row, use_kernel=False)
+            assert margin_agrees(logits, served, tol), ("prefill", start)
+            rows += served.numel()
+            continue
+        _, toks, bt, lens, act, bud, eos, n, max_seq, null, block = call
+        for j in range(n):
+            logits, pages = transformer._paged_tick(
+                params, cfg, toks[:, None], pages, bt, lens, write_mask=act,
+                null_page=null, use_kernel=False)
+            nxt = torch.where(act, block[j], toks)
+            assert margin_agrees(logits[act], nxt[act], tol), ("tick", j)
+            rows += int(act.sum())
+            step = act.to(torch.int32)       # decode_ticks' retirement rule
+            lens, bud = lens + step, bud - step
+            done = (bud <= 0) | (nxt == eos) | (lens + 1 >= max_seq)
+            act, toks = act & ~done, nxt
+    return rows
+
+
+def serve(cfg, params, rng: np.random.Generator, seed: int,
+          geometry: tuple[int, int, int], kernels: dict,
+          record: bool = False) -> tuple[dict, object, list]:
+    """ServeEngine at 8 slots and max_seq 2048: 16 requests, prompts of
+    48..1000 tokens, 32 new tokens each.  ``geometry`` is the expected
+    (page, chunk, pages_per_seq); ``kernels`` maps each kernel's name to
+    its wrapper and the engine counter its launches must equal times the
+    depth.  The counts are zeroed just before and read just after.  With
+    ``record``, the engine's model calls and expert choices are kept for
+    ``replay_schedule``: the third result is then (calls, routing), else
+    the finished requests."""
     from repro_torch.serve import Request, ServeEngine
 
     engine = ServeEngine(params, cfg, slots=8, max_seq=2048,
                          ticks_per_dispatch=8, seed=seed, device="cuda")
-    assert (engine.page, engine.chunk, engine.pages_per_seq) == (64, 64, 32)
+    assert (engine.page, engine.chunk, engine.pages_per_seq) == geometry
     lengths = rng.integers(48, 1001, size=16)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab,
                                                size=n).tolist(),
                     max_new_tokens=32) for i, n in enumerate(lengths)]
+    recorder, router = EngineCalls(), RouterLog()
+    router.tag = "serve"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.paged_flash_prefill.launches = 0
-    K.paged_flash_decode.launches = 0
+    for fn, _ in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    for r in reqs:
-        engine.submit(r)
-    done = engine.run_until_drained()
-    torch.cuda.synchronize()
+    with (recorder if record else contextlib.nullcontext(),
+          router if record else contextlib.nullcontext()):
+        for r in reqs:
+            engine.submit(r)
+        done = engine.run_until_drained()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_prefill": K.paged_flash_prefill.launches,
-                "paged_decode": K.paged_flash_decode.launches}
+    launches = {name: fn.launches for name, (fn, _) in kernels.items()}
     engine.check_page_invariants()
     st = engine.stats
     assert len(done) == 16, len(done)
     assert all(len(r.out) == 32 for r in done), [len(r.out) for r in done]
     assert all(0 <= t < cfg.vocab for r in done for t in r.out)
-    assert launches["paged_prefill"] == st["prefill_calls"] * cfg.n_layers, \
-        (launches, st["prefill_calls"])
-    assert launches["paged_decode"] == st["decode_steps"] * cfg.n_layers, \
-        (launches, st["decode_steps"])
-    assert launches["paged_prefill"] > 0 and launches["paged_decode"] > 0
+    for name, (_, stat) in kernels.items():
+        assert launches[name] == st[stat] * cfg.n_layers > 0, \
+            (name, launches, st[stat])
     gen_tokens = sum(len(r.out) for r in done)
-    out = {"requests": len(done), "generated_tokens": gen_tokens,
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "requests": len(done), "generated_tokens": gen_tokens,
            "prompt_tokens": int(lengths.sum()), "wall_s": wall,
            "tokens_per_s": gen_tokens / wall,
            "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
@@ -447,9 +943,9 @@ def serve(cfg, params, rng: np.random.Generator, seed: int) -> dict:
            "preemptions": st["preemptions"],
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches}
-    replay_plain(engine, params, cfg,
-                 max(done, key=lambda r: len(r.prompt)))
-    return out
+    if record:
+        return out, engine, (recorder.calls, router.calls.get("serve", []))
+    return out, engine, done
 
 
 def main() -> int:
@@ -460,6 +956,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.build import LIBS
     from repro_torch.models import init_params, param_count
 
@@ -488,11 +985,15 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     cfg = get_arch(ARCH)
+    cfg_ds = get_arch(DS_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    worst = check_small_geometries(gen)
-    log(f"[kernels] small prime/window/softcap geometries ok: "
-        f"max err {worst}")
-    rows = bench_kernels(cfg, gen, ITERS)
+    with phase("kernels"):
+        worst = check_small_geometries(gen)
+        worst.update(check_small_latent(gen))
+        log(f"[kernels] small prime/odd/window/softcap geometries ok: "
+            f"max err {worst}")
+        rows = bench_kernels(cfg, gen, ITERS)
+        rows += bench_latent_kernels(cfg_ds, gen, ITERS)
     for r in rows:
         log(f"[kernels] {r['name']}: err {r['max_abs_err']:.3g} kernel "
             f"{r['ms']:.4f} ms (eager call {r['eager_ms']:.4f} ms) plain "
@@ -502,21 +1003,65 @@ def main() -> int:
 
     # 4. one chunk and 8 ticks at full width, float32 then bf16
     rng = np.random.default_rng(args.seed)
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-    parity = full_width_parity(
-        cfg32, init_params(cfg32, seed=args.seed, device="cuda"), rng)
-    log(f"[model] kernel path vs plain path: {json.dumps(parity)}")
-    params = init_params(cfg, seed=args.seed, device="cuda")
-    log(f"[model] {cfg.name} full width, {param_count(params)} params "
-        f"{cfg.dtype}")
-    parity = full_width_parity(cfg, params, rng)
-    log(f"[model] kernel path vs plain path: {json.dumps(parity)}")
+    with phase("qwen3 model"):
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+        parity = full_width_parity(
+            cfg32, init_params(cfg32, seed=args.seed, device="cuda"), rng)
+        log(f"[model] kernel path vs plain path: {json.dumps(parity)}")
+        params = init_params(cfg, seed=args.seed, device="cuda")
+        log(f"[model] {cfg.name} full width, {param_count(params)} params "
+            f"{cfg.dtype}")
+        parity = full_width_parity(cfg, params, rng)
+        log(f"[model] kernel path vs plain path: {json.dumps(parity)}")
 
     # 5. serve
-    result = serve(cfg, params, rng, args.seed)
-    log(f"[serve] {json.dumps(result)}; card: {smi}")
+    launches = {}
+    with phase("qwen3 serve"):
+        result, engine, done = serve(
+            cfg, params, rng, args.seed, (64, 64, 32),
+            {"paged_prefill": (K.paged_flash_prefill, "prefill_calls"),
+             "paged_decode": (K.paged_flash_decode, "decode_steps")})
+        log(f"[serve] {json.dumps(result)}; card: {smi}")
+        launches.update(result["launches"])
+        replay_plain(engine, params, cfg,
+                     max(done, key=lambda r: len(r.prompt)))
+    del params, engine
+    torch.cuda.empty_cache()
+
+    # 6. deepseek-v2 at full width, depth cut: kernel path vs plain path in
+    # float32 (2 layers) and bf16 (4 layers), each model freed before the
+    # next is built
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg_d = dataclasses.replace(
+            cfg_ds, n_layers=DS_DEPTH[dtype],
+            param_dtype=str(dtype).removeprefix("torch."))
+        with phase(f"deepseek-v2 model {cfg_d.param_dtype}"):
+            params = init_params(cfg_d, seed=args.seed, device="cuda")
+            log(f"[ds-model] {cfg_d.name} full width, {cfg_d.n_layers} "
+                f"layers, {param_count(params)} params {cfg_d.dtype}")
+            moe_full_width_parity(cfg_d, params, rng,
+                                  share_routing=dtype == torch.bfloat16)
+        if dtype == torch.float32:
+            del params
+            torch.cuda.empty_cache()
+
+    # 7. serve deepseek-v2 (bf16, 4 layers) through the latent kernels,
+    # then replay the whole schedule through the plain path
+    with phase("deepseek-v2 serve"):
+        result, engine, (calls, routing) = serve(
+            cfg_d, params, rng, args.seed, (128, 128, 16),
+            {"paged_latent_prefill": (K.paged_latent_prefill,
+                                      "prefill_calls"),
+             "paged_latent_decode": (K.paged_latent_decode,
+                                     "decode_steps")}, record=True)
+        log(f"[ds-serve] {json.dumps(result)}; card: {smi}")
+        launches.update(result["launches"])
+    with phase("deepseek-v2 plain replay"):
+        replay = replay_schedule(engine, params, cfg_d, calls, routing)
+        log(f"[ds-serve] plain-path replay agrees: {json.dumps(replay)}")
+
     for r in rows:
-        r["launches"] = result["launches"][r["name"]]
+        r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

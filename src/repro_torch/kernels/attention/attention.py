@@ -1,12 +1,16 @@
 """Hand-written Hopper kernels for paged attention, and their wrappers.
 
 ``paged_flash_decode`` replaces the TPU kernel
-``repro/kernels/attention/attention.py:paged_flash_decode_pallas`` and
-``paged_flash_prefill`` replaces ``paged_flash_prefill_pallas``.  The
-kernels are CUDA C++ for ``sm_90a`` (``csrc/paged_decode.cu`` and
-``csrc/paged_prefill.cu``; each source's header says what bounds it on the
-card and what its design does about that), built by ``kernels.build`` at
-first use and called through their plain C interface with ``ctypes``.
+``repro/kernels/attention/attention.py:paged_flash_decode_pallas``,
+``paged_flash_prefill`` replaces ``paged_flash_prefill_pallas``, and the
+MLA latent pair ``paged_latent_decode`` and ``paged_latent_prefill``
+replace ``paged_latent_decode_pallas`` and ``paged_latent_prefill_pallas``.
+The kernels are CUDA C++ for ``sm_90a`` (``csrc/paged_decode.cu``,
+``csrc/paged_prefill.cu``, ``csrc/paged_latent_decode.cu`` and
+``csrc/paged_latent_prefill.cu``; each source's header says what bounds it
+on the card and what its design does about that), built by
+``kernels.build`` at first use and called through their plain C interface
+with ``ctypes``.
 
 Each wrapper takes the model's layout, checks what the kernel accepts
 (device, dtype, shape, contiguity) and raises on anything else, allocates
@@ -69,11 +73,10 @@ def _check(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _scratch(lib: str, width: int, page: int, rows: int, d: int,
-             device: torch.device) -> tuple[torch.Tensor | None, ...]:
+def _scratch(n_split: int, rows: int, d: int, device: torch.device
+             ) -> tuple[torch.Tensor | None, ...]:
     """f32 scratch for the kernel's key splits: (n_split, rows, d)
     partial accumulators and (n_split, rows, 2) running max and sum."""
-    n_split = _fn(lib, f"{lib}_splits", (_I, _I))(width, page)
     if n_split == 1:
         return None, None
     return (torch.empty((n_split, rows, d), dtype=torch.float32,
@@ -147,8 +150,9 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                          f"batch {b}")
     width = block_tables.shape[1]
     out = torch.empty_like(q)
-    part_acc, part_ml = _scratch("paged_decode", width, page, b * hq, d,
-                                 q.device)
+    n_split = _fn("paged_decode", "paged_decode_splits", (_I, _I))(width,
+                                                                   page)
+    part_acc, part_ml = _scratch(n_split, b * hq, d, q.device)
     fn = _fn("paged_decode", "paged_decode",
              (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
               _I, _F, _I, _F, _P))
@@ -200,8 +204,9 @@ def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"chunk [{start}, {start + c}) is not covered by "
                          f"a block row of {width} pages of {page}")
     out = torch.empty_like(q)
-    part_acc, part_ml = _scratch("paged_prefill", width, page, c * hq, d,
-                                 q.device)
+    n_split = _fn("paged_prefill", "paged_prefill_splits", (_I, _I))(width,
+                                                                     page)
+    part_acc, part_ml = _scratch(n_split, c * hq, d, q.device)
     fn = _fn("paged_prefill", "paged_prefill",
              (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
               _I, _F, _I, _F, _P))
@@ -219,3 +224,141 @@ def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_flash_prefill.launches = 0
+
+
+def _check_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                  ckv_pages: torch.Tensor, kr_pages: torch.Tensor,
+                  lib: str) -> tuple[int, int, int, int]:
+    """Checks shared by the latent wrappers; returns (kv_lora, qk_rope,
+    n_pool, page)."""
+    if q_lat.dtype not in _DTYPES:
+        raise TypeError(f"q_lat has dtype {q_lat.dtype}; the kernel takes "
+                        f"{sorted(map(str, _DTYPES))}")
+    _check("q_lat", q_lat, q_lat.device, q_lat.dtype, 4)
+    _check("q_rope", q_rope, q_lat.device, q_lat.dtype, 4)
+    _check("ckv_pages", ckv_pages, q_lat.device, q_lat.dtype, 3)
+    _check("kr_pages", kr_pages, q_lat.device, q_lat.dtype, 3)
+    kv, rope = q_lat.shape[-1], q_rope.shape[-1]
+    n_pool, page = ckv_pages.shape[:2]
+    if (q_rope.shape[:3] != q_lat.shape[:3] or ckv_pages.shape[2] != kv
+            or tuple(kr_pages.shape) != (n_pool, page, rope)):
+        raise ValueError(
+            f"latent shapes do not agree: q_lat {tuple(q_lat.shape)}, "
+            f"q_rope {tuple(q_rope.shape)}, ckv_pages "
+            f"{tuple(ckv_pages.shape)}, kr_pages {tuple(kr_pages.shape)}")
+    # the kernels load latent rows in 16-byte pieces
+    if kv % 8 or rope % 8:
+        raise ValueError(f"kv_lora {kv} and qk_rope {rope} must be "
+                         f"multiples of 8")
+    if any(t.data_ptr() % 16 for t in (q_lat, q_rope, ckv_pages, kr_pages)):
+        raise ValueError("latent tensors must be 16-byte aligned")
+    if kv > _limit(lib, f"{lib}_max_kv"):
+        raise ValueError(f"kv_lora {kv} exceeds the kernel's "
+                         f"{_limit(lib, f'{lib}_max_kv')}")
+    if kv + rope > _limit(lib, f"{lib}_max_feat"):
+        raise ValueError(f"kv_lora + qk_rope = {kv + rope} exceeds the "
+                         f"kernel's {_limit(lib, f'{lib}_max_feat')}")
+    return kv, rope, n_pool, page
+
+
+def paged_latent_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                        ckv_pages: torch.Tensor, kr_pages: torch.Tensor,
+                        block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                        scale: float) -> torch.Tensor:
+    """Paged MLA latent decode (``csrc/paged_latent_decode.cu``).
+
+    q_lat (B, 1, H, kv_lora) and q_rope (B, 1, H, qk_rope) contiguous,
+    float32 or bfloat16; ckv_pages (n_pool, page, kv_lora) and kr_pages
+    (n_pool, page, qk_rope) one layer's latent pools; block_tables
+    (B, width) int32; lengths (B,) int32.  Returns (B, 1, H, kv_lora) in
+    q's dtype.
+    """
+    if not q_lat.is_cuda:
+        from repro_torch.kernels.attention import ops
+        return ops.paged_latent_decode_attention(
+            q_lat, q_rope, ckv_pages, kr_pages, block_tables, lengths,
+            scale=scale, use_kernel=False)
+    lib = "paged_latent_decode"
+    b, one, h, _ = q_lat.shape
+    if one != 1:
+        raise ValueError(f"decode takes one query per slot, got "
+                         f"q_lat {tuple(q_lat.shape)}")
+    kv, rope, n_pool, page = _check_latent(q_lat, q_rope, ckv_pages,
+                                           kr_pages, lib)
+    _check("block_tables", block_tables, q_lat.device, torch.int32, 2)
+    _check("lengths", lengths, q_lat.device, torch.int32, 1)
+    if block_tables.shape[0] != b or lengths.shape[0] != b:
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
+                         f"lengths {tuple(lengths.shape)} do not match "
+                         f"batch {b}")
+    width = block_tables.shape[1]
+    out = torch.empty_like(q_lat)
+    n_split = _fn(lib, f"{lib}_splits", (_I, _I, _I, _I))(width, page, b, h)
+    part_acc, part_ml = _scratch(n_split, b * h, kv, q_lat.device)
+    fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _F, _P))
+    with torch.cuda.device(q_lat.device):
+        err = fn(_DTYPES[q_lat.dtype], q_lat.data_ptr(), q_rope.data_ptr(),
+                 ckv_pages.data_ptr(), kr_pages.data_ptr(),
+                 block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 _ptr(part_acc), _ptr(part_ml), b, h, kv, rope, page, width,
+                 n_pool, float(scale),
+                 torch.cuda.current_stream(q_lat.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
+    paged_latent_decode.launches += 1
+    return out
+
+
+paged_latent_decode.launches = 0
+
+
+def paged_latent_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                         ckv_pages: torch.Tensor, kr_pages: torch.Tensor,
+                         block_row: torch.Tensor, start: int, *,
+                         scale: float) -> torch.Tensor:
+    """Paged MLA latent chunked prefill for ONE slot
+    (``csrc/paged_latent_prefill.cu``).
+
+    q_lat (1, C, H, kv_lora) and q_rope (1, C, H, qk_rope) contiguous at
+    global positions [start, start+C); latent pools as for decode;
+    block_row (width,) int32 covering the chunk; ``start`` a host int.
+    Returns (1, C, H, kv_lora) in q's dtype.
+    """
+    if not q_lat.is_cuda:
+        from repro_torch.kernels.attention import ops
+        return ops.paged_latent_prefill_attention(
+            q_lat, q_rope, ckv_pages, kr_pages, block_row, start,
+            scale=scale, use_kernel=False)
+    lib = "paged_latent_prefill"
+    one, c, h, _ = q_lat.shape
+    if one != 1:
+        raise ValueError(f"prefill takes one slot's chunk, got "
+                         f"q_lat {tuple(q_lat.shape)}")
+    kv, rope, n_pool, page = _check_latent(q_lat, q_rope, ckv_pages,
+                                           kr_pages, lib)
+    _check("block_row", block_row, q_lat.device, torch.int32, 1)
+    width = block_row.shape[0]
+    start = int(start)
+    if start < 0 or start + c > width * page:
+        raise ValueError(f"chunk [{start}, {start + c}) is not covered by "
+                         f"a block row of {width} pages of {page}")
+    out = torch.empty_like(q_lat)
+    n_split = _fn(lib, f"{lib}_splits", (_I, _I, _I, _I))(width, page, c, h)
+    part_acc, part_ml = _scratch(n_split, c * h, kv, q_lat.device)
+    fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _F, _P))
+    with torch.cuda.device(q_lat.device):
+        err = fn(_DTYPES[q_lat.dtype], q_lat.data_ptr(), q_rope.data_ptr(),
+                 ckv_pages.data_ptr(), kr_pages.data_ptr(),
+                 block_row.data_ptr(), out.data_ptr(), _ptr(part_acc),
+                 _ptr(part_ml), c, h, kv, rope, page, width, n_pool, start,
+                 float(scale),
+                 torch.cuda.current_stream(q_lat.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
+    paged_latent_prefill.launches += 1
+    return out
+
+
+paged_latent_prefill.launches = 0

@@ -1,5 +1,5 @@
 """Paged attention entry points of the model code (port of the paged GQA
-half of ``repro.kernels.attention.ops``).
+and MLA latent half of ``repro.kernels.attention.ops``).
 
 Each function has two lowerings.  The plain version is the gather
 formulation of ``repro``'s jnp path, op for op and with the same cast
@@ -17,6 +17,7 @@ import math
 import torch
 
 from repro_torch.kernels.attention import attention as K
+from repro_torch.models import layers as L
 
 
 def gather_kv_pages(pages: torch.Tensor, block_tables: torch.Tensor
@@ -114,3 +115,68 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     p = (e / torch.clamp(z, min=1e-30)).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
     return o.to(q.dtype)
+
+
+def paged_latent_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                                  ckv_pages: torch.Tensor,
+                                  kr_pages: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  lengths: torch.Tensor, *, scale: float,
+                                  use_kernel: bool | None = None
+                                  ) -> torch.Tensor:
+    """Single-token decode against a COMPRESSED (MLA latent) paged cache.
+
+    q_lat (B, 1, H, kv_lora) absorbed-W_uk queries; q_rope (B, 1, H,
+    qk_rope); ckv_pages (n_pages, page, kv_lora) and kr_pages (n_pages,
+    page, qk_rope), head-free; block_tables (B, pages_per_seq) int32;
+    lengths (B,).  Returns (B, 1, H, kv_lora), expanded through W_uv by
+    the caller.  Every head shares one latent key and value; scores are
+    q_lat . c_kv + q_rope . k_rope.  Dense oracle:
+    ``ref.paged_latent_attention_ref``."""
+    if use_kernel is None:
+        use_kernel = q_lat.is_cuda
+    if use_kernel:
+        return K.paged_latent_decode(q_lat, q_rope, ckv_pages, kr_pages,
+                                     block_tables, lengths, scale=scale)
+    ck = gather_kv_pages(ckv_pages, block_tables)   # (B, S, kv_lora)
+    kr = gather_kv_pages(kr_pages, block_tables)    # (B, S, qk_rope)
+    s = ck.shape[1]
+    scores = (torch.einsum("bqhk,bsk->bhqs", q_lat.float(), ck.float())
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())
+              ) * scale
+    pos = torch.arange(s, device=q_lat.device)
+    mask = pos[None, :] < lengths[:, None]
+    scores = torch.where(mask[:, None, None, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(ck.dtype)
+    out = torch.einsum("bhqs,bsk->bqhk", w.float(), ck.float())
+    return out.to(q_lat.dtype)
+
+
+def paged_latent_prefill_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                                   ckv_pages: torch.Tensor,
+                                   kr_pages: torch.Tensor,
+                                   block_row: torch.Tensor, start: int, *,
+                                   scale: float,
+                                   use_kernel: bool | None = None
+                                   ) -> torch.Tensor:
+    """Chunked MLA latent prefill for ONE slot off the compressed pools.
+
+    q_lat (1, C, H, kv_lora); q_rope (1, C, H, qk_rope) at global
+    positions [start, start+C); head-free pools; block_row
+    (pages_per_seq,) int32; ``start`` a host int.  Returns (1, C, H,
+    kv_lora).  The plain version gathers the slot's latent pages and runs
+    ``layers.latent_attention`` under the GLOBAL causal mask.  Dense
+    oracle: ``ref.paged_latent_prefill_ref``."""
+    if use_kernel is None:
+        use_kernel = q_lat.is_cuda
+    if use_kernel:
+        return K.paged_latent_prefill(q_lat, q_rope, ckv_pages, kr_pages,
+                                      block_row, start, scale=scale)
+    c = q_lat.shape[1]
+    ck = gather_kv_pages(ckv_pages, block_row[None])  # (1, S, kv_lora)
+    kr = gather_kv_pages(kr_pages, block_row[None])
+    return L.latent_attention(
+        q_lat, q_rope, ck, kr,
+        q_positions=start + torch.arange(c, device=q_lat.device),
+        k_positions=torch.arange(ck.shape[1], device=q_lat.device),
+        scale=scale)

@@ -1,5 +1,5 @@
 """Dense float32 oracles for the paged attention paths (port of
-``repro.kernels.attention.ref``'s paged GQA oracles)."""
+``repro.kernels.attention.ref``'s paged GQA and MLA latent oracles)."""
 from __future__ import annotations
 
 import math
@@ -72,3 +72,61 @@ def paged_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return o.to(q.dtype)
+
+
+def _latent_dense(q_lat, q_rope, ckv_pages, kr_pages, rows):
+    """The formulation the production path avoids: gathered latent pages,
+    the latent pair CONCATENATED into per-position keys and BROADCAST to
+    every head.  Returns f32 q (B, Sq, H, kv+rope), k (B, S, H, kv+rope)
+    and v (B, S, H, kv_lora)."""
+    b, _, h, _ = q_lat.shape
+    page, pps = ckv_pages.shape[1], rows.shape[1]
+    rows = rows.long()
+    q = torch.cat([q_lat, q_rope], dim=-1).float()
+    ck = ckv_pages[rows].reshape(b, pps * page, -1).float()
+    kr = kr_pages[rows].reshape(b, pps * page, -1).float()
+    k = torch.cat([ck, kr], dim=-1)[:, :, None, :].expand(-1, -1, h, -1)
+    v = ck[:, :, None, :].expand(-1, -1, h, -1)
+    return q, k, v
+
+
+def paged_latent_prefill_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                             ckv_pages: torch.Tensor, kr_pages: torch.Tensor,
+                             block_row: torch.Tensor, start: int, *,
+                             scale: float) -> torch.Tensor:
+    """Dense oracle for the paged MLA latent chunked-prefill path.
+
+    q_lat (1, C, H, kv_lora); q_rope (1, C, H, qk_rope); head-free pools
+    ckv_pages (n_pages, page, kv_lora) / kr_pages (n_pages, page,
+    qk_rope); block_row (pages_per_seq,).  Dense f32 softmax under the
+    GLOBAL causal mask.  Returns (1, C, H, kv_lora)."""
+    c = q_lat.shape[1]
+    q, k, v = _latent_dense(q_lat, q_rope, ckv_pages, kr_pages,
+                            block_row[None])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    q_pos = start + torch.arange(c, device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    s = torch.where((q_pos >= k_pos)[None, None], s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v).to(q_lat.dtype)
+
+
+def paged_latent_attention_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                               ckv_pages: torch.Tensor,
+                               kr_pages: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               lengths: torch.Tensor, *, scale: float
+                               ) -> torch.Tensor:
+    """Dense oracle for the paged MLA latent decode path.
+
+    q_lat (B, 1, H, kv_lora); q_rope (B, 1, H, qk_rope); head-free pools;
+    block_tables (B, pages_per_seq); lengths (B,).  Dense f32 softmax
+    over positions < length.  Returns (B, 1, H, kv_lora)."""
+    q, k, v = _latent_dense(q_lat, q_rope, ckv_pages, kr_pages,
+                            block_tables)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    pos = torch.arange(k.shape[1], device=q.device)
+    mask = pos[None, :] < lengths[:, None]
+    s = torch.where(mask[:, None, None, :], s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v).to(q_lat.dtype)

@@ -6,6 +6,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --reduced --device cpu                   # small, on the CPU
 
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-236b --reduced --device cpu   # MLA + MoE
+
 Weights are the port's own random ones, drawn from ``--seed``.
 """
 from __future__ import annotations

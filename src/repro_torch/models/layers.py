@@ -1,4 +1,4 @@
-"""Decoder layers of the port (the GQA serving subset of
+"""Decoder layers of the port (the GQA and MLA serving subset of
 ``repro.models.layers``), as plain functions on tensors.
 
 Layouts follow ``repro``: activations (B, S, D), heads (B, S, H, Dh),
@@ -134,3 +134,102 @@ def gqa_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention), absorbed form
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg, dtype: torch.dtype) -> Params:
+    m = cfg.mla
+    h = cfg.n_heads
+    zeros = lambda n: torch.zeros(n, dtype=dtype,  # noqa: E731
+                                  device=gen.device)
+    return {
+        "w_dq": dense_init(gen, cfg.d_model, m.q_lora, dtype),
+        "q_norm": zeros(m.q_lora),
+        "w_uq": dense_init(gen, m.q_lora, h * (m.qk_nope + m.qk_rope),
+                           dtype),
+        "w_dkv": dense_init(gen, cfg.d_model, m.kv_lora + m.qk_rope, dtype),
+        "kv_norm": zeros(m.kv_lora),
+        "w_uk": dense_init(gen, m.kv_lora, h * m.qk_nope, dtype),
+        "w_uv": dense_init(gen, m.kv_lora, h * m.v_head, dtype),
+        "wo": dense_init(gen, h * m.v_head, cfg.d_model, dtype),
+    }
+
+
+def mla_scale(cfg) -> float:
+    """MLA softmax scale: per-head query width is qk_nope + qk_rope."""
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.qk_nope + m.qk_rope)
+
+
+def mla_latents(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compressed KV latents, head-free: c_kv (B, S, kv_lora) and
+    k_rope (B, S, qk_rope)."""
+    m = cfg.mla
+    ckv_kr = x @ p["w_dkv"]
+    c_kv = rms_norm(ckv_kr[..., :m.kv_lora], p["kv_norm"])
+    k_rope = apply_rope(ckv_kr[..., m.kv_lora:], positions, cfg.rope_theta,
+                        head_axis=False)
+    return c_kv, k_rope
+
+
+def mla_queries(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q_nope (B, S, H, qk_nope) and roped q_rope (B, S, H, qk_rope)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = rms_norm(x @ p["w_dq"], p["q_norm"]) @ p["w_uq"]
+    q = q.reshape(b, s, cfg.n_heads, m.qk_nope + m.qk_rope)
+    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_absorbed_q(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Queries projected into the latent space (W_uk absorbed):
+    q_lat (B, S, H, kv_lora) and q_rope (B, S, H, qk_rope).  The two stay
+    separate: scores are q_lat . c_kv + q_rope . k_rope, never a concat."""
+    m = cfg.mla
+    q_nope, q_rope = mla_queries(p, cfg, x, positions)
+    w_uk = p["w_uk"].reshape(m.kv_lora, cfg.n_heads, m.qk_nope)
+    q_lat = torch.einsum("bshd,khd->bshk", q_nope, w_uk)
+    return q_lat.contiguous(), q_rope.contiguous()
+
+
+def mla_out(p: Params, cfg, o_lat: torch.Tensor) -> torch.Tensor:
+    """Latent attention output (B, S, H, kv_lora) -> (B, S, d_model):
+    expand through W_uv per head, then the output projection."""
+    m = cfg.mla
+    b, s = o_lat.shape[:2]
+    w_uv = p["w_uv"].reshape(m.kv_lora, cfg.n_heads, m.v_head)
+    o = torch.einsum("bshk,khd->bshd", o_lat, w_uv)
+    return o.reshape(b, s, cfg.n_heads * m.v_head) @ p["wo"]
+
+
+def latent_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     c_kv: torch.Tensor, k_rope: torch.Tensor, *,
+                     q_positions: torch.Tensor, k_positions: torch.Tensor,
+                     scale: float, causal: bool = True) -> torch.Tensor:
+    """Softmax attention against the SHARED compressed latent (absorbed
+    MLA, the MQA extreme): q_lat (B, Sq, H, kv_lora), q_rope (B, Sq, H,
+    qk_rope) vs head-free c_kv (B, Sk, kv_lora), k_rope (B, Sk, qk_rope)
+    -> (B, Sq, H, kv_lora).  c_kv is also the value.  The cast points are
+    ``repro``'s: f32 scores from the stored inputs, the finite -1e30 mask,
+    softmax weights rounded to c_kv's dtype before the PV product, f32
+    accumulation.  ``repro`` scans over query chunks to bound its memory;
+    rows are independent, so one pass computes the same values."""
+    s = (torch.einsum("bqhk,bsk->bhqs", q_lat.float(), c_kv.float())
+         + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), k_rope.float())
+         ) * scale
+    if causal:
+        mask = q_positions[:, None] >= k_positions[None, :]
+        s = torch.where(mask[None, None], s, -1e30)
+    mx = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - mx)
+    z = e.sum(dim=-1, keepdim=True)
+    p_mat = (e / torch.clamp(z, min=1e-30)).to(c_kv.dtype)
+    o = torch.einsum("bhqs,bsk->bqhk", p_mat.float(), c_kv.float())
+    return o.to(q_lat.dtype)

@@ -1,11 +1,12 @@
-"""Decoder-only LM backbone, paged serving half (port of the GQA paths of
-``repro.models.transformer``).
+"""Decoder-only LM backbone, paged serving half (port of the paged paths of
+``repro.models.transformer``): GQA and MLA attention, dense and MoE MLPs.
 
 Parameters are a nested dict of tensors with layer-stacked blocks (leading
 L dim), as in ``repro``; the layers run as a Python loop.  Page pools are
-dicts {"k", "v"} of (L, n_pages + 1, page, Hkv, Dh) tensors.  Where JAX
-donates the pool through jit, these functions write the pool IN PLACE and
-return the same dict.  Attention goes through ``kernels.attention.ops``:
+dicts {"k", "v"} of (L, n_pages + 1, page, Hkv, Dh) tensors for GQA, and
+{"c_kv", "k_rope"} of head-free (L, n_pages + 1, page, kv_lora / qk_rope)
+latent tensors for MLA.  Where JAX donates the pool through jit, these
+functions write the pool IN PLACE and return the same dict.  Attention goes through ``kernels.attention.ops``:
 the hand-written kernels when the tensors are on CUDA, the plain gather
 version on the CPU or with ``use_kernel=False``.
 """
@@ -19,6 +20,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.attention import ops as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.sampling import sample_tokens
 
 Params = dict[str, Any]
@@ -32,11 +34,11 @@ class LeafSpec(NamedTuple):
     dtype: torch.dtype
 
 
-def _check_gqa(cfg: ArchConfig) -> None:
-    if cfg.family != "decoder" or cfg.moe or cfg.attn == "mla":
+def _check_decoder(cfg: ArchConfig) -> None:
+    if cfg.family != "decoder":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA decoders so far "
-            "(MoE, MLA and the other families are later slices)")
+            f"{cfg.name}: the port serves decoder-only LMs so far (the "
+            f"{cfg.family} family is a later slice)")
 
 
 def _layer_windows(cfg: ArchConfig, n_layers: int) -> list[int]:
@@ -54,15 +56,17 @@ def _layer(blocks: Params, i: int) -> Params:
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype
                ) -> Params:
-    _check_gqa(cfg)
+    _check_decoder(cfg)
     zeros = lambda: torch.zeros(cfg.d_model, dtype=dtype,  # noqa: E731
                                 device=gen.device)
     p: Params = {"ln1": zeros(), "ln2": zeros()}
     if cfg.softcap_attn is not None:  # gemma2-style post-norms
         p["ln1_post"] = zeros()
         p["ln2_post"] = zeros()
-    p["attn"] = L.init_gqa(gen, cfg, dtype)
-    p["mlp"] = L.init_mlp(gen, cfg, cfg.d_ff, dtype)
+    p["attn"] = (L.init_mla(gen, cfg, dtype) if cfg.attn == "mla"
+                 else L.init_gqa(gen, cfg, dtype))
+    p["mlp"] = (M.init_moe(gen, cfg, dtype) if cfg.moe
+                else L.init_mlp(gen, cfg, cfg.d_ff, dtype))
     return p
 
 
@@ -75,7 +79,7 @@ def _stack(trees: list[Params]) -> Params:
 def init_decoder(cfg: ArchConfig, gen: torch.Generator) -> Params:
     """Random weights with ``repro``'s shapes and scales, drawn from
     ``gen`` on its device."""
-    _check_gqa(cfg)
+    _check_decoder(cfg)
     dtype = cfg.dtype
     embed = (torch.randn(cfg.padded_vocab, cfg.d_model, generator=gen,
                          device=gen.device)
@@ -95,9 +99,17 @@ def init_decoder(cfg: ArchConfig, gen: torch.Generator) -> Params:
 
 def paged_cache_leaf_specs(cfg: ArchConfig, page_size: int
                            ) -> dict[str, LeafSpec]:
-    """Shape of ONE layer-stacked KV page per leaf: (L, page, Hkv, Dh);
-    ``serve.paging.init_pool`` adds the physical-page dimension."""
-    _check_gqa(cfg)
+    """Shape of ONE layer-stacked cache page per leaf; ``serve.paging.
+    init_pool`` adds the physical-page dimension.  GQA: "k" and "v" of
+    (L, page, Hkv, Dh).  MLA keeps the cache compressed: head-free "c_kv"
+    (L, page, kv_lora) and "k_rope" (L, page, qk_rope)."""
+    _check_decoder(cfg)
+    if cfg.attn == "mla":
+        m = cfg.mla
+        return {"c_kv": LeafSpec((cfg.n_layers, page_size, m.kv_lora),
+                                 cfg.dtype),
+                "k_rope": LeafSpec((cfg.n_layers, page_size, m.qk_rope),
+                                   cfg.dtype)}
     shape = (cfg.n_layers, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": LeafSpec(shape, cfg.dtype), "v": LeafSpec(shape, cfg.dtype)}
 
@@ -116,7 +128,8 @@ def _mlp_residual(blk: Params, cfg: ArchConfig, x: torch.Tensor,
         a = L.rms_norm(a, blk["ln1_post"])
     x = x + a
     h = L.rms_norm(x, blk["ln2"])
-    f = L.apply_mlp(blk["mlp"], cfg, h)
+    f = (M.apply_moe(blk["mlp"], cfg, h) if cfg.moe
+         else L.apply_mlp(blk["mlp"], cfg, h))
     if "ln2_post" in blk:
         f = L.rms_norm(f, blk["ln2_post"])
     return x + f
@@ -140,7 +153,7 @@ def prefill_chunk_decoder(params: Params, cfg: ArchConfig,
     (IN PLACE).  Chunks are page-aligned, so each chunk writes C/page whole
     pages.  Returns (logits (C, V) f32, pages)."""
     b, c = tokens.shape
-    page = pages["k"].shape[2]
+    page = next(iter(pages.values())).shape[2]
     if c % page or start % page:
         raise ValueError(f"chunk [{start}, {start + c}) is not aligned to "
                          f"pages of {page}")
@@ -148,20 +161,37 @@ def prefill_chunk_decoder(params: Params, cfg: ArchConfig,
     positions = start + torch.arange(c, device=x.device)
     windows = _layer_windows(cfg, cfg.n_layers)
     page_ids = block_row[start // page:(start + c) // page].long()
+
+    def scatter(pool_l: torch.Tensor, new: torch.Tensor) -> None:
+        """Write this chunk's C positions as C/page WHOLE pages."""
+        pool_l[page_ids] = new.reshape(c // page, page, *new.shape[2:])
+
     for i in range(cfg.n_layers):
         blk = _layer(params["blocks"], i)
         h = L.rms_norm(x, blk["ln1"])
-        q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
-        k_pool, v_pool = pages["k"][i], pages["v"][i]
-        k_pool[page_ids] = kk.reshape(c // page, page, *kk.shape[2:])
-        v_pool[page_ids] = v.reshape(c // page, page, *v.shape[2:])
-        # the slot's whole context (past pages + this chunk); unwritten
-        # and stale positions are masked by the global causal rule
-        o = A.paged_prefill_attention(q, k_pool, v_pool, block_row, start,
-                                      window=windows[i],
-                                      logit_cap=cfg.softcap_attn,
-                                      use_kernel=use_kernel)
-        a = o.reshape(b, c, -1) @ blk["attn"]["wo"]
+        # each branch attends over the slot's whole context (past pages +
+        # this chunk); unwritten and stale positions are masked by the
+        # global causal rule
+        if cfg.attn == "mla":
+            c_kv, k_rope = L.mla_latents(blk["attn"], cfg, h, positions)
+            scatter(pages["c_kv"][i], c_kv)
+            scatter(pages["k_rope"][i], k_rope)
+            q_lat, q_rope = L.mla_absorbed_q(blk["attn"], cfg, h, positions)
+            o_lat = A.paged_latent_prefill_attention(
+                q_lat, q_rope, pages["c_kv"][i], pages["k_rope"][i],
+                block_row, start, scale=L.mla_scale(cfg),
+                use_kernel=use_kernel)
+            a = L.mla_out(blk["attn"], cfg, o_lat)
+        else:
+            q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
+            scatter(pages["k"][i], kk)
+            scatter(pages["v"][i], v)
+            o = A.paged_prefill_attention(q, pages["k"][i], pages["v"][i],
+                                          block_row, start,
+                                          window=windows[i],
+                                          logit_cap=cfg.softcap_attn,
+                                          use_kernel=use_kernel)
+            a = o.reshape(b, c, -1) @ blk["attn"]["wo"]
         x = _mlp_residual(blk, cfg, x, a)
     return _logits(params, cfg, x)[0], pages
 
@@ -181,7 +211,7 @@ def _paged_tick(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     routes masked-off slots' cache writes to ``null_page``.  Returns
     (logits (B, V) f32, pages updated in place)."""
     b = tokens.shape[0]
-    page = pages["k"].shape[2]
+    page = next(iter(pages.values())).shape[2]
     x = _embed(params, cfg, tokens)                     # (B, 1, D)
     windows = _layer_windows(cfg, cfg.n_layers)
     # The tables may be width-sliced to the live context, and a masked-off
@@ -191,7 +221,7 @@ def _paged_tick(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     write_page = block_tables[torch.arange(b, device=x.device), col.long()]
     if write_mask is not None:
         if null_page is None:
-            null_page = pages["k"].shape[1] - 1
+            null_page = next(iter(pages.values())).shape[1] - 1
         write_page = torch.where(write_mask, write_page, null_page)
     write_page = write_page.long()
     write_off = (lengths % page).long()
@@ -200,15 +230,26 @@ def _paged_tick(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         blk = _layer(params["blocks"], i)
         h = L.rms_norm(x, blk["ln1"])
-        q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
-        k_pool, v_pool = pages["k"][i], pages["v"][i]
-        k_pool[write_page, write_off] = kk[:, 0]
-        v_pool[write_page, write_off] = v[:, 0]
-        o = A.paged_decode_attention(q, k_pool, v_pool, block_tables,
-                                     attn_len, window=windows[i],
-                                     logit_cap=cfg.softcap_attn,
-                                     use_kernel=use_kernel)
-        a = o.reshape(b, 1, -1) @ blk["attn"]["wo"]
+        if cfg.attn == "mla":
+            c_kv, k_rope = L.mla_latents(blk["attn"], cfg, h, positions)
+            pages["c_kv"][i][write_page, write_off] = c_kv[:, 0]
+            pages["k_rope"][i][write_page, write_off] = k_rope[:, 0]
+            q_lat, q_rope = L.mla_absorbed_q(blk["attn"], cfg, h, positions)
+            o_lat = A.paged_latent_decode_attention(
+                q_lat, q_rope, pages["c_kv"][i], pages["k_rope"][i],
+                block_tables, attn_len, scale=L.mla_scale(cfg),
+                use_kernel=use_kernel)
+            a = L.mla_out(blk["attn"], cfg, o_lat)
+        else:
+            q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
+            pages["k"][i][write_page, write_off] = kk[:, 0]
+            pages["v"][i][write_page, write_off] = v[:, 0]
+            o = A.paged_decode_attention(q, pages["k"][i], pages["v"][i],
+                                         block_tables, attn_len,
+                                         window=windows[i],
+                                         logit_cap=cfg.softcap_attn,
+                                         use_kernel=use_kernel)
+            a = o.reshape(b, 1, -1) @ blk["attn"]["wo"]
         x = _mlp_residual(blk, cfg, x, a)
     return _logits(params, cfg, x)[:, 0], pages
 

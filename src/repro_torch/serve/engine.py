@@ -59,7 +59,8 @@ def _to_device(params: Params, device: torch.device) -> Params:
 
 
 class ServeEngine:
-    """Paged continuous-batching engine (dense GQA decoders).
+    """Paged continuous-batching engine (decoder LMs: GQA or MLA latent
+    attention, dense or MoE MLPs).
 
     ``ticks_per_dispatch`` sets how many decode steps one dispatch fuses:
     larger values amortize the host sync over more tokens at the cost of
@@ -92,8 +93,10 @@ class ServeEngine:
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq
-        self.page = page_size or paging.paco_page_size(
-            slots, max_seq, cfg.head_dim)
+        # the cache cuboid's per-position feature extent: head_dim for
+        # dense GQA KV, the compressed kv_lora face for MLA latents
+        feat = cfg.mla.kv_lora if cfg.attn == "mla" else cfg.head_dim
+        self.page = page_size or paging.paco_page_size(slots, max_seq, feat)
         if max_seq % self.page != 0:
             raise ValueError(
                 f"page_size={self.page} does not divide max_seq="

@@ -41,7 +41,8 @@ def paco_page_size(slots: int, max_seq: int, feat_dim: int, *,
 class PagePool:
     """Fixed pool of KV pages plus the host-side free list.
 
-    ``pools`` maps each cache leaf name ("k", "v") to a tensor of shape
+    ``pools`` maps each cache leaf name ("k", "v" for GQA; "c_kv",
+    "k_rope" for MLA latents) to a tensor of shape
     (layers, n_pages + 1, page_size, *feature_dims); physical page
     ``n_pages`` is the reserved null page.  The model writes the tensors
     in place.

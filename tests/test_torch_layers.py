@@ -2,8 +2,9 @@
 ``repro`` on the same inputs (numpy, from a seed), on the CPU.
 
 Tolerances: layer functions in float32 agree to atol 1e-5 (the two
-frameworks order their float32 sums differently); config fields, page
-sizes, greedy tokens and converted weights agree exactly.
+frameworks order their float32 sums differently), the MLA and MoE blocks,
+whose products run over wider sums, to atol 1e-4; config fields, page
+sizes, router ids, greedy tokens and converted weights agree exactly.
 """
 import dataclasses
 
@@ -16,10 +17,12 @@ import torch
 from repro import configs as jcfg
 from repro.models import init_params as jax_init_params
 from repro.models import layers as JL
+from repro.models import moe as JM
 from repro.serve.paging import paco_page_size as jax_paco_page_size
 from repro_torch import configs as tcfg
 from repro_torch.convert import from_jax
 from repro_torch.models import layers as TL
+from repro_torch.models import moe as TM
 from repro_torch.models.sampling import sample_tokens
 from repro_torch.serve.paging import paco_page_size
 
@@ -135,6 +138,129 @@ def test_apply_mlp_matches_jax(arch):
     x = _rand(rng, 2, 3, cfg_j.d_model)
     _close(TL.apply_mlp({k: _t(v) for k, v in p.items()}, cfg_t, _t(x)),
            JL.apply_mlp(p, cfg_j, x))
+
+
+# ---------------------------------------------------------------------------
+# MLA (absorbed latent attention) and MoE
+# ---------------------------------------------------------------------------
+
+BLOCK_ATOL = 1e-4
+
+
+def _tp(tree):
+    return {k: _tp(v) if isinstance(v, dict) else _t(v)
+            for k, v in tree.items()}
+
+
+def _mla_setup(seed=6):
+    rng = np.random.default_rng(seed)
+    cfg_j = jcfg.get_arch("deepseek-v2-236b").reduced()
+    cfg_t = tcfg.get_arch("deepseek-v2-236b").reduced()
+    m, h, d = cfg_j.mla, cfg_j.n_heads, cfg_j.d_model
+    p = {"w_dq": _rand(rng, d, m.q_lora) / 8,
+         "q_norm": _rand(rng, m.q_lora) / 4,
+         "w_uq": _rand(rng, m.q_lora, h * (m.qk_nope + m.qk_rope)) / 6,
+         "w_dkv": _rand(rng, d, m.kv_lora + m.qk_rope) / 8,
+         "kv_norm": _rand(rng, m.kv_lora) / 4,
+         "w_uk": _rand(rng, m.kv_lora, h * m.qk_nope) / 6,
+         "w_uv": _rand(rng, m.kv_lora, h * m.v_head) / 6,
+         "wo": _rand(rng, h * m.v_head, d) / 8}
+    x = _rand(rng, 2, 6, d)
+    pos = np.tile(np.arange(5, 11, dtype=np.int32), (2, 1))
+    return rng, cfg_j, cfg_t, p, x, pos
+
+
+def test_mla_projections_match_jax():
+    """mla_latents, mla_queries, mla_absorbed_q, mla_out and mla_scale on
+    reduced deepseek-v2."""
+    rng, cfg_j, cfg_t, p, x, pos = _mla_setup()
+    pt = _tp(p)
+    assert TL.mla_scale(cfg_t) == JL.mla_scale(cfg_j)
+    for fn in ("mla_latents", "mla_queries", "mla_absorbed_q"):
+        got = getattr(TL, fn)(pt, cfg_t, _t(x), _t(pos))
+        want = getattr(JL, fn)(p, cfg_j, x, pos)
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == w.shape, fn
+            _close(g, w, BLOCK_ATOL)
+    o_lat = _rand(rng, 2, 6, cfg_j.n_heads, cfg_j.mla.kv_lora)
+    _close(TL.mla_out(pt, cfg_t, _t(o_lat)), JL.mla_out(p, cfg_j, o_lat),
+           BLOCK_ATOL)
+
+
+@pytest.mark.parametrize("sq,k_off", [(6, 0), (3, 4)])
+def test_latent_attention_matches_jax(sq, k_off):
+    """Decomposed-score attention against the shared latent, causal over
+    global positions: a full square and a late query block over a longer
+    context."""
+    rng, cfg_j, cfg_t, p, x, pos = _mla_setup(7)
+    m, h = cfg_j.mla, cfg_j.n_heads
+    sk = sq + k_off
+    ql, qr = _rand(rng, 2, sq, h, m.kv_lora), _rand(rng, 2, sq, h, m.qk_rope)
+    ck, kr = _rand(rng, 2, sk, m.kv_lora), _rand(rng, 2, sk, m.qk_rope)
+    qpos = np.arange(k_off, sk, dtype=np.int32)
+    kpos = np.arange(sk, dtype=np.int32)
+    scale = JL.mla_scale(cfg_j)
+    got = TL.latent_attention(*map(_t, (ql, qr, ck, kr)),
+                              q_positions=_t(qpos), k_positions=_t(kpos),
+                              scale=scale)
+    want = JL.latent_attention(ql, qr, ck, kr, q_positions=qpos,
+                               k_positions=kpos, scale=scale, q_chunk=4)
+    _close(got, want, BLOCK_ATOL)
+
+
+def _moe_setup(arch, seed):
+    rng = np.random.default_rng(seed)
+    cfg_j = jcfg.get_arch(arch).reduced()
+    cfg_t = tcfg.get_arch(arch).reduced()
+    m, d = cfg_j.moe, cfg_j.d_model
+    p = {"router": _rand(rng, d, m.n_experts),
+         "gate": _rand(rng, m.n_experts, d, m.d_ff_expert) / 8,
+         "up": _rand(rng, m.n_experts, d, m.d_ff_expert) / 8,
+         "down": _rand(rng, m.n_experts, m.d_ff_expert, d) / 6}
+    if m.n_shared:
+        f = m.d_ff_expert * m.n_shared
+        p["shared"] = {"gate": _rand(rng, d, f) / 8,
+                       "up": _rand(rng, d, f) / 8,
+                       "down": _rand(rng, f, d) / 6}
+    return rng, cfg_j, cfg_t, p, _rand(rng, 2, 8, d)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("capacity_factor", [None, 0.5])
+def test_apply_moe_matches_jax(arch, capacity_factor):
+    """Router ids exactly equal; the MoE output within 1e-4.  At the
+    reduced capacity factor (2.0) no token is ever dropped, so a factor of
+    0.5 on both sides exercises the drop path."""
+    rng, cfg_j, cfg_t, p, x = _moe_setup(arch, 8)
+    if capacity_factor is not None:
+        cfg_j = dataclasses.replace(cfg_j, moe=dataclasses.replace(
+            cfg_j.moe, capacity_factor=capacity_factor))
+        cfg_t = dataclasses.replace(cfg_t, moe=dataclasses.replace(
+            cfg_t.moe, capacity_factor=capacity_factor))
+    m = cfg_j.moe
+    xf = x.reshape(-1, cfg_j.d_model)
+    w_t, ids_t = TM.router_topk(_tp(p), cfg_t, _t(xf))
+    w_j, ids_j = JM.router_topk(p, cfg_j, xf)
+    np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+    _close(w_t, w_j, BLOCK_ATOL)
+    _close(TM.apply_moe(_tp(p), cfg_t, _t(x)), JM.apply_moe(p, cfg_j, x),
+           BLOCK_ATOL)
+    n = xf.shape[0]
+    cap = max(1, int(m.capacity_factor * n * m.top_k / m.n_experts))
+    load = np.bincount(np.asarray(ids_j).ravel(), minlength=m.n_experts)
+    assert (load.max() > cap) == (capacity_factor == 0.5), (load, cap)
+
+
+def test_router_ties_go_to_the_lower_expert():
+    """Equal router probabilities: the stable sort picks the lower ids, as
+    jax.lax.top_k does."""
+    _, cfg_j, cfg_t, p, x = _moe_setup("olmoe-1b-7b", 9)
+    p["router"][:, 1] = p["router"][:, 3]
+    p["router"][:, 2] = p["router"][:, 3]
+    xf = x.reshape(-1, cfg_j.d_model)
+    _, ids_t = TM.router_topk(_tp(p), cfg_t, _t(xf))
+    np.testing.assert_array_equal(
+        ids_t.numpy(), np.asarray(JM.router_topk(p, cfg_j, xf)[1]))
 
 
 # ---------------------------------------------------------------------------

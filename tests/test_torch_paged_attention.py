@@ -10,6 +10,13 @@ against the
 plain version, so the kernels' algorithm is tested here too.  The CUDA
 kernels themselves run only on a card (``test_torch_cuda.py``).
 
+The MLA latent pair (``paged_latent_decode_attention`` and
+``paged_latent_prefill_attention``) gets the same treatment: plain version
+against ``repro``'s jnp path, Pallas interpret and dense oracles, and an
+emulation of the CUDA kernels' shared walk (``csrc/
+paged_latent_common.cuh``: 16-row blocks, key splits, 32-key tiles, weight
+0 for masked keys, merge) against the plain version.
+
 Tolerance: float32 atol 1e-5 (different summation orders).
 """
 import math
@@ -21,6 +28,10 @@ import torch
 
 from repro.kernels.attention import (paged_attention_ref,
                                      paged_decode_attention,
+                                     paged_latent_attention_ref,
+                                     paged_latent_decode_attention,
+                                     paged_latent_prefill_attention,
+                                     paged_latent_prefill_ref,
                                      paged_prefill_attention,
                                      paged_prefill_ref)
 from repro_torch.kernels.attention import attention as K
@@ -269,3 +280,198 @@ def test_prefill_kernel_walk_matches_plain(kw, hq, hkv):
     q, kp, vp, row = _t(q, kp, vp, row)
     _close(emulate_prefill(q, kp, vp, row, start, **kw),
            ops.paged_prefill_attention(q, kp, vp, row, start, **kw))
+
+
+# ---------------------------------------------------------------------------
+# MLA latent attention (paged_latent_decode_pallas, paged_latent_prefill_
+# pallas) and its CUDA kernels' walk (csrc/paged_latent_common.cuh)
+# ---------------------------------------------------------------------------
+
+def _latent_pools(rng, n_pages, page, kv=16, rope=8):
+    return _rand(rng, n_pages, page, kv), _rand(rng, n_pages, page, rope)
+
+
+def _latent_decode_case(h=4, seed=10):
+    """repro's test_serve geometry: a prime pool, lengths 5, 16 and 1."""
+    rng = np.random.default_rng(seed)
+    ql, qr = _rand(rng, 3, 1, h, 16), _rand(rng, 3, 1, h, 8)
+    ck, kr = _latent_pools(rng, 13, 4)
+    bt = np.array([[0, 3, 5, 7], [1, 2, 4, 6], [8, 9, 10, 11]], np.int32)
+    lens = np.array([5, 16, 1], np.int32)
+    return ql, qr, ck, kr, bt, lens
+
+
+def _latent_prefill_case(h=4, page=4, n_pages=13, pps=4, c=8, seed=11):
+    rng = np.random.default_rng(seed)
+    ql, qr = _rand(rng, 1, c, h, 16), _rand(rng, 1, c, h, 8)
+    ck, kr = _latent_pools(rng, n_pages, page)
+    row = rng.choice(n_pages, size=pps, replace=False).astype(np.int32)
+    return ql, qr, ck, kr, row
+
+
+SCALE = 1 / math.sqrt(16 + 8)
+
+
+@pytest.mark.parametrize("h", [4, 3, 5])
+def test_plain_latent_decode_matches_jax(h):
+    ql, qr, ck, kr, bt, lens = _latent_decode_case(h)
+    got = ops.paged_latent_decode_attention(*_t(ql, qr, ck, kr, bt, lens),
+                                            scale=SCALE)
+    jq = [jnp.asarray(x) for x in (ql, qr, ck, kr, bt, lens)]
+    _close(got, paged_latent_decode_attention(*jq, scale=SCALE))
+    _close(got, paged_latent_decode_attention(*jq, scale=SCALE,
+                                              use_kernel=True,
+                                              interpret=True))
+    _close(got, paged_latent_attention_ref(*jq, scale=SCALE))
+    _close(ref.paged_latent_attention_ref(*_t(ql, qr, ck, kr, bt, lens),
+                                          scale=SCALE),
+           paged_latent_attention_ref(*jq, scale=SCALE))
+
+
+@pytest.mark.parametrize("h,page,n_pages,pps,c,start", [
+    (4, 4, 13, 4, 8, 0), (4, 4, 13, 4, 8, 8), (3, 3, 11, 3, 3, 3),
+    (5, 5, 7, 2, 5, 5), (4, 2, 13, 4, 6, 0)])
+def test_plain_latent_prefill_matches_jax(h, page, n_pages, pps, c, start):
+    """repro's chunk at starts 0 and 8 over a prime pool (past and stale
+    pages masked by the global causal rule), prime pages, odd heads."""
+    ql, qr, ck, kr, row = _latent_prefill_case(h, page, n_pages, pps, c,
+                                               seed=page + start)
+    got = ops.paged_latent_prefill_attention(*_t(ql, qr, ck, kr, row),
+                                             start, scale=SCALE)
+    jq = [jnp.asarray(x) for x in (ql, qr, ck, kr, row)]
+    st = jnp.asarray(start, jnp.int32)
+    _close(got, paged_latent_prefill_attention(*jq, st, scale=SCALE))
+    _close(got, paged_latent_prefill_attention(*jq, st, scale=SCALE,
+                                               use_kernel=True,
+                                               interpret=True))
+    _close(got, paged_latent_prefill_ref(*jq, st, scale=SCALE))
+    _close(ref.paged_latent_prefill_ref(*_t(ql, qr, ck, kr, row), start,
+                                        scale=SCALE),
+           paged_latent_prefill_ref(*jq, st, scale=SCALE))
+
+
+def test_latent_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    K.paged_latent_decode.launches = 0
+    K.paged_latent_prefill.launches = 0
+    args = _t(*_latent_decode_case())
+    want = ops.paged_latent_decode_attention(*args, scale=SCALE,
+                                             use_kernel=False)
+    for got in (ops.paged_latent_decode_attention(*args, scale=SCALE),
+                ops.paged_latent_decode_attention(*args, scale=SCALE,
+                                                  use_kernel=True),
+                K.paged_latent_decode(*args, scale=SCALE)):
+        assert torch.equal(got, want)
+    args = _t(*_latent_prefill_case())
+    want = ops.paged_latent_prefill_attention(*args, 8, scale=SCALE,
+                                              use_kernel=False)
+    for got in (ops.paged_latent_prefill_attention(*args, 8, scale=SCALE),
+                K.paged_latent_prefill(*args, 8, scale=SCALE)):
+        assert torch.equal(got, want)
+    assert K.paged_latent_decode.launches == 0
+    assert K.paged_latent_prefill.launches == 0
+
+
+def emulate_latent(q_lat, q_rope, ckv, kr, tables, limit, *, scale,
+                   p_dtype=torch.float32, rows_per_cta=16, tile=32,
+                   split=128, sms=132):
+    """csrc/paged_latent_common.cuh over q rows (B, NR, .): per (row
+    block, element, key split) CTA, 32-key tiles with an online softmax in
+    which a masked key weighs 0; splits (only when the blocks do not fill
+    the card twice) merge.  ``limit(b, r)`` is row r's key limit.  The
+    tensor-core kernel rounds the softmax weights to bf16 for the value
+    product (``p_dtype``); its sums run in f32, as here."""
+    q_lat, q_rope, ckv, kr = (x.float() for x in (q_lat, q_rope, ckv, kr))
+    bsz, n_rows, kv = q_lat.shape
+    page, width = ckv.shape[1], tables.shape[1]
+    n_blocks = -(-n_rows // rows_per_cta)
+    n_split = (1 if n_blocks * bsz >= 2 * sms
+               else -(-width * page // split))
+    split_keys = width * page if n_split == 1 else split
+    out = torch.zeros_like(q_lat)
+    for b in range(bsz):
+        for r0 in range(0, n_rows, rows_per_cta):
+            rows = torch.arange(r0, min(r0 + rows_per_cta, n_rows))
+            lim = torch.tensor([limit(b, int(r)) for r in rows])
+            q = torch.cat([q_lat[b, rows], q_rope[b, rows]], -1)
+            parts = []
+            for s in range(n_split):
+                lo = s * split_keys
+                hi = min(int(lim.max()), width * page, lo + split_keys)
+                st = (torch.full((len(rows),), NEG_INF),
+                      torch.zeros(len(rows)), torch.zeros(len(rows), kv))
+                for t0 in range(lo, hi, tile):
+                    pos = torch.arange(t0, min(t0 + tile, hi))
+                    phys = tables[b, pos // page].long()
+                    key = torch.cat([ckv[phys, pos % page],
+                                     kr[phys, pos % page]], -1)
+                    valid = pos[None, :] < lim[:, None]
+                    sc = torch.where(valid, q @ key.T * scale, NEG_INF)
+                    m, l, acc = st
+                    m_new = torch.maximum(m, sc.max(-1).values)
+                    p = torch.where(valid, torch.exp(sc - m_new[:, None]),
+                                    0.0)
+                    alpha = torch.exp(m - m_new)
+                    pv = p.to(p_dtype).float() @ ckv[phys, pos % page]
+                    st = (m_new, l * alpha + p.sum(-1), acc * alpha[:, None]
+                          + pv)
+                parts.append(st)
+            out[b, rows] = _merge(parts)
+    return out
+
+
+@pytest.mark.parametrize("h", [4, 3, 5])
+@pytest.mark.parametrize("geom", ["prime", "splits"])
+def test_latent_decode_kernel_walk_matches_plain(h, geom):
+    """A prime pool, and 64-position pages whose 512-position tables span
+    four key splits (one slot whose length runs past its table)."""
+    if geom == "prime":
+        ql, qr, ck, kr, bt, lens = _t(*_latent_decode_case(h))
+    else:
+        rng = np.random.default_rng(12)
+        ql, qr = _t(_rand(rng, 3, 1, h, 16), _rand(rng, 3, 1, h, 8))
+        ck, kr = _t(*_latent_pools(rng, 25, 64))
+        bt = torch.from_numpy(rng.permutation(24).reshape(3, 8)
+                              .astype(np.int32))
+        lens = torch.tensor([300, 511, 515], dtype=torch.int32)
+    got = emulate_latent(ql[:, 0], qr[:, 0], ck, kr, bt,
+                         lambda b, r: int(lens[b]), scale=SCALE)
+    want = ops.paged_latent_decode_attention(ql, qr, ck, kr, bt, lens,
+                                             scale=SCALE)
+    _close(got[:, None], want)
+
+
+@pytest.mark.parametrize("h", [4, 3, 5])
+def test_latent_prefill_kernel_walk_matches_plain(h):
+    """A late chunk whose causal range spans two key splits; rows of a
+    16-row block straddle positions for H = 3 and 5."""
+    ql, qr, ck, kr, row = _t(*_latent_prefill_case(h, 16, 20, 16, 24,
+                                                   seed=13))
+    start = 200
+    got = emulate_latent(ql.reshape(1, 24 * h, 16), qr.reshape(1, 24 * h, 8),
+                         ck, kr, row[None],
+                         lambda b, r: start + r // h + 1, scale=SCALE)
+    want = ops.paged_latent_prefill_attention(ql, qr, ck, kr, row, start,
+                                              scale=SCALE)
+    _close(got, want.reshape(1, 24 * h, 16))
+
+
+@pytest.mark.parametrize("start,c,h", [(200, 24, 4), (0, 8, 5)])
+def test_latent_tensor_core_walk_matches_plain_in_bf16(start, c, h):
+    """The bf16 tensor-core kernel's walk (weights rounded to bf16 before
+    the value product) against the plain version on bf16 inputs, within
+    the kernels' bf16 tolerance (2e-2); kv_lora 64 and qk_rope 16 are the
+    smallest widths that kernel takes."""
+    rng = np.random.default_rng(14)
+    bf = torch.bfloat16
+    ql = torch.from_numpy(_rand(rng, 1, c, h, 64)).to(bf)
+    qr = torch.from_numpy(_rand(rng, 1, c, h, 16)).to(bf)
+    ck = torch.from_numpy(_rand(rng, 20, 16, 64)).to(bf)
+    kr = torch.from_numpy(_rand(rng, 20, 16, 16)).to(bf)
+    row = torch.from_numpy(rng.permutation(20)[:16].astype(np.int32))
+    scale = 1 / math.sqrt(80)
+    got = emulate_latent(ql.reshape(1, c * h, 64), qr.reshape(1, c * h, 16),
+                         ck, kr, row[None], lambda b, r: start + r // h + 1,
+                         scale=scale, p_dtype=bf)
+    want = ops.paged_latent_prefill_attention(ql, qr, ck, kr, row, start,
+                                              scale=scale)
+    _close(got.to(bf).float(), want.float().reshape(1, c * h, 64), 2e-2)

@@ -10,6 +10,7 @@ orders through the layers); tokens and block tables agree exactly, and
 the port's fused decode equals its single ticks bitwise.
 """
 import ast
+import math
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -21,7 +22,7 @@ from repro import models as jmodels
 from repro_torch import configs as tcfg
 from repro_torch import models as tmodels
 from repro_torch.serve import Request, ServeEngine
-from repro_torch.serve.paging import init_pool
+from repro_torch.serve.paging import init_pool, paco_page_size
 from torch_parity import close, models, pools_jax, reference, serve  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,15 +32,19 @@ ROOT = Path(__file__).resolve().parents[1]
 # model: paged prefill and decode against JAX
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b",
+                                  "deepseek-v2-236b", "olmoe-1b-7b"])
 def test_prefill_chunks_match_jax(models, arch):
     """Two page-aligned chunks of one slot (the second at start 8 over past
-    pages and stale ones); gemma2 adds a window, softcaps and post-norms."""
+    pages and stale ones); gemma2 adds a window, softcaps and post-norms;
+    deepseek-v2 writes and reads the latent c_kv/k_rope pools and routes
+    through MoE, as olmoe does."""
     cj, ct, pj, pt = models[arch]
     page, chunk = 4, 8
     pools_t = init_pool(tmodels.paged_cache_leaf_specs(ct, page), 6, page,
                         "cpu").pools
-    pools_t["k"].normal_(generator=torch.Generator().manual_seed(1))
+    next(iter(pools_t.values())).normal_(
+        generator=torch.Generator().manual_seed(1))
     pools_j = pools_jax(pools_t)
     row = np.array([3, 0, 5, 1], np.int32)
     rng = np.random.default_rng(0)
@@ -191,6 +196,106 @@ def test_engine_topk_sampling_is_seeded_and_respects_retirement(models):
     assert outs[0] == outs[1] != outs[2]
 
 
+# ---------------------------------------------------------------------------
+# MLA latent paging (deepseek-v2) and MoE (olmoe)
+# ---------------------------------------------------------------------------
+
+def test_mla_decode_tick_logits_and_pools_match_jax(models):
+    """Reduced deepseek-v2: one decode tick's logits and the latent pools
+    it writes (one row per slot at (write_page, write_off)) against JAX
+    from the same pool state; then four fused ticks emit JAX's tokens."""
+    cj, ct, pj, pt = models["deepseek-v2-236b"]
+    eng = _admitted_engine(pt, ct)
+    assert set(eng.pool.pools) == {"c_kv", "k_rope"}
+    bt = eng.tables.device_view(eng.pages_per_seq)
+    toks0 = torch.tensor(eng._last_tok, dtype=torch.int32)
+    lens0 = torch.tensor(eng._ctx_len, dtype=torch.int32)
+    start = {k: v.clone() for k, v in eng.pool.pools.items()}
+    pools_t = {k: v.clone() for k, v in start.items()}
+    lt, pools_t = tmodels.decode_step_paged(pt, ct, toks0[:, None], pools_t,
+                                            bt, lens0)
+    lj, pools_j = jmodels.decode_step_paged(
+        pj, cj, jnp.asarray(toks0.numpy()[:, None]), pools_jax(start),
+        jnp.asarray(bt.numpy()), jnp.asarray(lens0.numpy()))
+    close(lt, lj)
+    for name in start:
+        close(pools_t[name], pools_j[name])
+        assert not torch.equal(pools_t[name], start[name])
+    ones = torch.ones(2, dtype=torch.bool)
+    block, _ = tmodels.decode_ticks(
+        pt, ct, toks0, {k: v.clone() for k, v in start.items()}, bt, lens0,
+        ones, torch.full((2,), 100, dtype=torch.int32),
+        torch.full((2,), -1, dtype=torch.int32), 4, max_seq=eng.max_seq)
+    block_j, _ = jmodels.decode_ticks(
+        pj, cj, jnp.asarray(toks0.numpy()), pools_jax(start),
+        jnp.asarray(bt.numpy()), jnp.asarray(lens0.numpy()),
+        jnp.ones((2,), bool), jnp.full((2,), 100, jnp.int32),
+        jnp.full((2,), -1, jnp.int32), jnp.zeros((4, 2), jnp.uint32),
+        max_seq=eng.max_seq)
+    np.testing.assert_array_equal(block.numpy(), np.asarray(block_j))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "olmoe-1b-7b"])
+def test_mla_and_moe_engines_match_reference_decode(models, arch):
+    """Unequal prompts sharing slots and pages, more requests than slots:
+    the latent-paged MLA engine (deepseek-v2, MLA + MoE) and the MoE
+    engine (olmoe) emit reference_decode's tokens."""
+    cj, ct, pj, pt = models[arch]
+    kw, prompts, max_new = UNEQUAL
+    eng, done = serve(pt, ct, kw, prompts, max_new)
+    assert len(done) == len(prompts)
+    assert eng.pool.free_count() == eng.pool.n_pages
+    for r in done:
+        assert r.out == reference(pj, cj, r, eng.max_seq), r.uid
+
+
+def test_mla_latent_preemption_resumes_identically(models):
+    """A prime pool of 11 latent pages for 3 slots: the youngest request
+    is evicted, re-prefilled (latents recomputed from prompt + generated)
+    and still emits the reference continuation."""
+    cj, ct, pj, pt = models["deepseek-v2-236b"]
+    eng = ServeEngine(pt, ct, slots=3, max_seq=32, page_size=4,
+                      pool_pages=11, prefill_chunk_len=8, device="cpu")
+    for i, p in enumerate([[1, 2, 3, 4, 5], [7, 8, 9], [11, 12]]):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+    while eng.queue or any(eng.active):
+        eng.tick()
+        eng.check_page_invariants()
+    assert eng.stats["preemptions"] >= 1
+    assert eng.pool.free_count() == eng.pool.n_pages
+    for r in eng.done:
+        assert r.out == reference(pj, cj, r, 32), r.uid
+
+
+def test_mla_engine_chooses_latent_page_geometry(models):
+    """The page is planned on the (slots x seq x kv_lora) cuboid, as
+    repro's engine plans it; the pools are the head-free latent leaves,
+    whose bytes per position at full width are under 2% of dense KV."""
+    from repro.serve import ServeEngine as JaxEngine
+
+    cj, ct, pj, pt = models["deepseek-v2-236b"]
+    m = ct.mla
+    for slots, max_seq in ((2, 16), (3, 64)):
+        eng = ServeEngine(pt, ct, slots=slots, max_seq=max_seq,
+                          device="cpu")
+        assert eng.page == paco_page_size(slots, max_seq, m.kv_lora)
+        assert eng.page == JaxEngine(pj, cj, slots=slots,
+                                     max_seq=max_seq).page
+        n = eng.pool.n_pages + 1
+        assert eng.pool.pools["c_kv"].shape == (ct.n_layers, n, eng.page,
+                                                m.kv_lora)
+        assert eng.pool.pools["k_rope"].shape == (ct.n_layers, n, eng.page,
+                                                  m.qk_rope)
+    full = tcfg.get_arch("deepseek-v2-236b")
+    specs = tmodels.paged_cache_leaf_specs(full, 128)
+    latent = sum(math.prod(s.shape) for s in specs.values()) / 128
+    fm = full.mla
+    dense = full.n_layers * full.n_heads * (fm.qk_nope + fm.qk_rope
+                                            + fm.v_head)
+    assert latent * 50 < dense
+    assert paco_page_size(8, 2048, fm.kv_lora) == 128
+
+
 def test_launch_serve_runs_on_the_cpu(capsys, monkeypatch):
     from repro_torch.launch import serve as launch
 
@@ -213,7 +318,7 @@ def test_engine_rejects_what_it_does_not_serve(models):
     with pytest.raises(ValueError):
         eng.submit(Request(uid=0, prompt=[1], max_new_tokens=0))
     with pytest.raises(NotImplementedError):
-        tmodels.init_params(tcfg.get_arch("olmoe-1b-7b").reduced(),
+        tmodels.init_params(tcfg.get_arch("mamba2-780m").reduced(),
                             device="cpu")
 
 

@@ -38,16 +38,21 @@ def cfgs(arch):
                  for m in (jcfg, tcfg))
 
 
-@pytest.fixture(scope="module")
-def models():
-    """arch -> (jax cfg, torch cfg, jax params, torch params)."""
-    out = {}
-    for arch in ("qwen3-0.6b", "gemma2-2b"):
+class _Models(dict):
+    """arch -> (jax cfg, torch cfg, jax params, torch params), each built
+    on first use."""
+
+    def __missing__(self, arch):
         cj, ct = cfgs(arch)
         pj = jmodels.init_params(cj, jax.random.PRNGKey(0))
         pt = from_jax(jax.tree.map(np.asarray, pj), ct, "cpu")
-        out[arch] = (cj, ct, pj, pt)
-    return out
+        self[arch] = (cj, ct, pj, pt)
+        return self[arch]
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _Models()
 
 
 def close(t, j, atol=ATOL):
