@@ -9,18 +9,22 @@ Phases, in order; any failure ends the script with a nonzero exit:
 2. Build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc for
    sm_90a into ``build/repro_torch/`` (registers and shared memory from
    ``-Xptxas -v``).
-3. Kernels against their plain versions: each of the four hand-written
+3. Kernels against their plain versions: each of the six hand-written
    kernels and its plain PyTorch version on the same CUDA inputs, at the
-   serving shapes in bf16 and f32 and on small prime/odd geometries (GQA:
-   windows and softcaps; MLA latent: H = 3 and 5, narrow latents)
-   (tolerances: f32 atol 1e-4; bf16 atol 2e-2, since the two round the
-   softmax weights at different points).  Device times of the kernel, the
-   plain version and one library call (``scaled_dot_product_attention``
-   on the pre-gathered cache), each from a CUDA-graph replay of many calls
-   cycling through the layers' pools (28 for qwen3, 60 for deepseek-v2;
-   the eager per-call time of the kernel, host launch cost included, is
-   printed beside it), and the bound from the shapes (bytes at 3.35 TB/s,
-   flops at 989 TFLOP/s bf16).
+   serving or training shapes in bf16 and f32 and on small prime/odd
+   geometries (GQA: windows and softcaps; MLA latent: H = 3 and 5, narrow
+   latents; dense flash forward and backward: G 1, 2 and 8, D 16 to 256,
+   S 77 and 128, causal or not, windows, softcaps) (tolerances: f32 atol
+   1e-4; bf16 atol 2e-2, since the two round the softmax weights at
+   different points; the flash kernels relative to max(1, max |plain|),
+   FLASH_TOL).  Device times of the kernel, the plain version and one
+   library call (``scaled_dot_product_attention``, on the pre-gathered
+   cache for the paged kernels), each from a CUDA-graph replay of many
+   calls cycling through the layers' pools (28 for qwen3, 60 for
+   deepseek-v2; the eager per-call time of the kernel, host launch cost
+   included, is printed beside it; the flash kernels at B 2 x S 4096,
+   their plain versions and SDPA timed eagerly), and the bound from the
+   shapes (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16).
 4. One full-width qwen3-0.6b prompt chunk per slot and 8 decode ticks
    through the kernels and through the plain path (``use_kernel=False``)
    with the same seeded random weights, in float32 and in bf16: logits
@@ -42,6 +46,17 @@ Phases, in order; any failure ends the script with a nonzero exit:
    latent prefill launches == prefill_calls * 4 and latent decode
    launches == decode_steps * 4; then every model call of the run is
    replayed through the plain path (``replay_schedule``).
+8. Full-width qwen3-0.6b train-step parity at B 2 x S 4096: loss and
+   gradients through the flash kernels and through the plain path
+   (``use_kernel=False``) on the same weights and batch, in float32 at
+   depth 2 and in bf16 at depth 28 (TRAIN_PARITY_TOL).
+9. Train full-width qwen3-0.6b through ``Trainer`` (the code
+   ``launch.train`` runs): 5 steps at B 2 x S 4096, remat on.  Each step's
+   loss and time, tokens/s and model FLOP/s (6 N tokens / time, against
+   989 TFLOP/s) over steps 2-5, and peak memory.  The flash kernels'
+   launch counts are zeroed just before and read just after: 2 x 28
+   forward and 28 backward launches per step.  Then the parameters go
+   through the port's checkpoint and back, bit for bit.
 
 Each phase prints its time.
 The second-to-last line is one JSON object with every kernel's numbers;
@@ -81,6 +96,7 @@ ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 MODEL_ATOL = {torch.float32: 1e-3, torch.bfloat16: 0.25}
 ARCH = "qwen3-0.6b"
 ITERS = 200   # timed calls per kernel
+FLASH_ITERS = 20   # timed calls per flash kernel at the training shape
 # deepseek-v2 at full width, depth cut to fit one card: about 36 GB of
 # float32 weights at 2 layers, 34 GB of bf16 at 4 (each block holds 3.97 B
 # parameters, 3.77 B of them routed experts).
@@ -94,6 +110,26 @@ DS_DEPTH = {torch.float32: 2, torch.bfloat16: 4}
 # its own (router_prob_max_diff) beside the count of near ties.
 ROUTER_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}
 MAX_EXCLUDED = 0.10   # share of logit rows a routing flip may leave out
+# Dense flash kernels vs the plain versions, as max abs error over
+# max(1, max |plain|).  float32: 1e-4.  bf16: 2e-2, since the kernels round
+# the softmax weights (and dS) to bf16 before the products on tensor cores
+# (2**-9 relative), and round O, dQ, dK and dV to bf16 on the way out.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096   # Qwen3 stage-1 pretraining length
+TRAIN_STEPS = 5
+TRAIN_F32_DEPTH = 2    # float32 full width: logits and grads of 28 layers
+#                        would not leave room for the plain path's scores
+# Full-width train-step parity, kernel path vs plain path.  float32: the
+# paths differ only in the order of attention's sums, so the loss agrees
+# to 1e-4 (of ~12), the gradient norm to 1e-4 relative, and each leaf's
+# gradient to 1e-3 of the leaf's max.  bf16: the kernels round the
+# unnormalized softmax weights and dS to bf16 where the plain path rounds
+# the normalized weights, and 28 layers of a random-init model carry each
+# difference on, so the loss is held to 0.05, the norm to 5% and each
+# leaf's gradient direction to cosine 0.98.
+TRAIN_PARITY_TOL = {
+    torch.float32: {"loss": 1e-4, "grad_norm": 1e-4, "leaf_rel": 1e-3},
+    torch.bfloat16: {"loss": 0.05, "grad_norm": 0.05, "leaf_cosine": 0.98}}
 
 
 def log(msg: str) -> None:
@@ -330,6 +366,123 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int) -> list[dict]:
                      "src/repro/kernels/attention/attention.py:172",
                      err_prefill, ms, eager_ms, plain_ms, library_ms, nbytes,
                      flops, dtype))
+    return rows
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error over max(1, max |want|): gradients sum over up to S
+    positions, so their scale grows with the sequence."""
+    return max_err(got, want) / max(1.0, want.float().abs().max().item())
+
+
+def check_flash_small(gen: torch.Generator) -> dict[str, float]:
+    """The dense flash kernels against the plain versions (``attention_ref``
+    and its autograd gradient) on small geometries: G in {1, 2, 8}, D in
+    {16, 64, 128, 256} (16 takes the CUDA-core kernels in bf16 too), S a
+    multiple of the tiles (128) and not (77), causal and not, a window, a
+    softcap, f32 and bf16.  Errors are relative to max(1, max |plain|)
+    (FLASH_TOL)."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ref
+
+    dev = "cuda"
+    worst = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+    cases = itertools.product(
+        (torch.float32, torch.bfloat16), (1, 2, 8), (16, 64, 128, 256),
+        (128, 77),
+        ({"causal": True}, {"causal": False}, {"causal": True, "window": 9},
+         {"causal": True, "logit_cap": 5.0},
+         {"causal": False, "window": 20, "logit_cap": 30.0}))
+    for dtype, g, d, s, kw in cases:
+        b, hkv = 2, 2
+        q, k, v, d_o = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                        .to(dtype) for h in (hkv * g, hkv, hkv, hkv * g))
+        o, lse = K._flash_fwd(q, k, v, causal=kw["causal"],
+                              window=kw.get("window"),
+                              logit_cap=kw.get("logit_cap"))
+        grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, **kw)
+        tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+        want_o = ref.attention_ref(*tr[:3], **kw).transpose(1, 2)
+        want_g = [t.transpose(1, 2) for t in
+                  ref.attention_ref_grad(*tr, **kw)]
+        err_f = _rel_err(o, want_o)
+        err_b = max(_rel_err(a, w) for a, w in zip(grads, want_g))
+        case = (str(dtype), g, d, s, kw)
+        assert err_f <= FLASH_TOL[dtype], ("flash_attention", case, err_f)
+        assert err_b <= FLASH_TOL[dtype], ("flash_attention_bwd", case, err_b)
+        worst["flash_attention"] = max(worst["flash_attention"], err_f)
+        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                           err_b)
+    return worst
+
+
+def _events_loop_ms(fn, iters: int) -> float:
+    for _ in range(2):
+        fn()
+    return _events_ms(lambda: [fn() for _ in range(iters)], iters)
+
+
+def bench_flash(cfg, gen: torch.Generator, iters: int) -> list[dict]:
+    """The dense flash kernels at the training shape of full-width
+    qwen3-0.6b (B 2, Hq 16, Hkv 8, S 4096, D 128, bf16, causal): checked
+    against the plain versions, then timed.  Kernel times are CUDA-graph
+    replays of ``iters`` calls; the plain versions and SDPA (forward, and
+    its backward alone through autograd with the graph retained) are timed
+    eagerly with CUDA events: their calls take milliseconds, so launch cost
+    is noise.  Bounds from operations: the causal forward's 4 B Hq
+    (S (S + 1) / 2) D flops, the backward's 2.5 times that (the five
+    products a gradient needs)."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ref
+
+    dev, dtype = "cuda", torch.bfloat16
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v, d_o = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                    .to(dtype) for h in (hq, hkv, hkv, hq))
+    o, lse = K._flash_fwd(q, k, v, causal=True, window=None, logit_cap=None)
+    grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=True)
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want_o = ref.attention_ref(*tr[:3], causal=True).transpose(1, 2)
+    err_f = max_err(o, want_o)
+    del want_o
+    want_g = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr)]
+    err_b = max(_rel_err(a, w) for a, w in zip(grads, want_g))
+    del want_g
+    assert err_f <= FLASH_TOL[dtype], ("flash_attention full", err_f)
+    assert err_b <= FLASH_TOL[dtype], ("flash_attention_bwd full", err_b)
+    torch.cuda.empty_cache()
+
+    ms_f, eager_f = time_ms(lambda i: K._flash_fwd(
+        q, k, v, causal=True, window=None, logit_cap=None), iters)
+    ms_b, eager_b = time_ms(lambda i: K.flash_attention_bwd(
+        q, k, v, o, lse, d_o, causal=True), iters)
+    plain_f = _events_loop_ms(lambda: ref.attention_ref(*tr[:3]), 3)
+    plain_b = _events_loop_ms(lambda: ref.attention_ref_grad(*tr), 3)
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.detach().requires_grad_() for t in tr[:3])
+    lib_f = _events_loop_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True), 20)
+    out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_b = _events_loop_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), tr[3], retain_graph=True), 20)
+    del out
+    pairs = s * (s + 1) // 2
+    flops_f = 4 * b * hq * pairs * d
+    nbytes_f = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+    nbytes_b = (2 * (3 * q.numel() + 2 * k.numel())       # q, o, do; k, v
+                + 4 * lse.numel()
+                + 2 * (q.numel() + 2 * k.numel()))        # dq, dk, dv
+    rows = [
+        _row("flash_attention", "src/repro_torch/csrc/flash_fwd.cu",
+             "src/repro/kernels/attention/attention.py:72", err_f, ms_f,
+             eager_f, plain_f, lib_f, nbytes_f, flops_f, dtype),
+        _row("flash_attention_bwd", "src/repro_torch/csrc/flash_bwd.cu",
+             "src/repro/kernels/attention/attention.py:72", err_b, ms_b,
+             eager_b, plain_b, lib_b, nbytes_b, 2.5 * flops_f, dtype)]
+    rows[1]["fwd_bwd_ms"] = ms_f + ms_b
+    rows[1]["library_fwd_bwd_ms"] = lib_f + lib_b
     return rows
 
 
@@ -948,6 +1101,187 @@ def serve(cfg, params, rng: np.random.Generator, seed: int,
     return out, engine, done
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: training at full width
+# ---------------------------------------------------------------------------
+
+def _loss_and_grads(params, cfg, batch, use_kernel: bool):
+    """loss_fn and the gradient of every leaf, on one path."""
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    loss, _ = loss_fn(tree_map(lambda _: next(it), params), cfg, batch,
+                      remat=True, use_kernel=use_kernel)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.float() for g in grads]
+
+
+def train_step_parity(cfg, seed: int) -> dict:
+    """Full-width qwen3-0.6b, one loss-and-gradient evaluation at B 2 x
+    S 4096 through the flash kernels and through the plain path (the
+    port's chunked ``layers.attention`` on CUDA, ``use_kernel=False``), on
+    the same weights and batch.  Compared: the loss, the global gradient
+    norm, and each leaf's gradient (max abs error over the leaf's max |g|
+    in float32; cosine similarity in bf16, where a random-init model
+    carries each layer's rounding through 28 layers), within
+    TRAIN_PARITY_TOL."""
+    from repro_torch.data.pipeline import DataConfig, global_batch_rowwise
+    from repro_torch.models import init_params
+
+    tol = TRAIN_PARITY_TOL[cfg.dtype]
+    params = init_params(cfg, seed=seed, device="cuda")
+    batch = global_batch_rowwise(
+        DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                   vocab=cfg.vocab, seed=seed), 0, device="cuda")
+    loss_k, grads_k = _loss_and_grads(params, cfg, batch, True)
+    loss_p, grads_p = _loss_and_grads(params, cfg, batch, False)
+    norm_k = math.sqrt(sum(float(g.square().sum()) for g in grads_k))
+    norm_p = math.sqrt(sum(float(g.square().sum()) for g in grads_p))
+    rel, cos = [], []
+    for gk, gp in zip(grads_k, grads_p):
+        rel.append(max_err(gk, gp) / max(float(gp.abs().max()), 1e-30))
+        cos.append(float(torch.nn.functional.cosine_similarity(
+            gk.flatten(), gp.flatten(), dim=0)))
+    result = {"dtype": str(cfg.dtype), "layers": cfg.n_layers,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "loss_kernel": loss_k,
+              "loss_plain": loss_p, "loss_abs_err": abs(loss_k - loss_p),
+              "grad_norm_kernel": norm_k, "grad_norm_plain": norm_p,
+              "grad_norm_rel_err": abs(norm_k - norm_p) / norm_p,
+              "leaf_rel_err_max": max(rel), "leaf_cosine_min": min(cos),
+              "leaves": len(rel), "tol": tol}
+    log(f"[train-parity] kernel path vs plain path: {json.dumps(result)}")
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+    assert math.isfinite(loss_k) and math.isfinite(norm_k), result
+    assert result["loss_abs_err"] <= tol["loss"], result
+    assert result["grad_norm_rel_err"] <= tol["grad_norm"], result
+    if "leaf_rel" in tol:
+        assert result["leaf_rel_err_max"] <= tol["leaf_rel"], result
+    else:
+        assert result["leaf_cosine_min"] >= tol["leaf_cosine"], result
+    return result
+
+
+def _kernel_group(name: str) -> str:
+    if "flash_mma::fwd" in name or "flash_fwd_kernel" in name:
+        return "flash_attention"
+    if any(k in name for k in ("flash_mma::dq", "flash_mma::dkv",
+                               "flash_dq_kernel", "flash_dkv_kernel",
+                               "delta_kernel")):
+        return "flash_attention_bwd"
+    if any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def profile_step(cfg, params, state, trainer, mean_step_s: float) -> dict:
+    """One more train step under ``torch.profiler``: device time per kernel
+    group (the two flash kernels, matrix products, and everything else:
+    elementwise, reductions, copies), summed over the device-side kernel
+    events, and the device's busy share over the profiled step's wall
+    time and over the unprofiled mean step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import global_batch_rowwise
+    from repro_torch.train import train_step
+
+    batch = global_batch_rowwise(trainer.dcfg, TRAIN_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(params, state, batch, cfg=cfg, tcfg=trainer.tcfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups: dict[str, float] = collections.defaultdict(float)
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        groups[_kernel_group(e.name)] += e.device_time_total / 1e3
+        n_kernels += 1
+    busy_ms = sum(groups.values())
+    return {"wall_ms_profiled": wall * 1e3, "device_ms": busy_ms,
+            "kernels": n_kernels,
+            "device_ms_by_group": dict(sorted(groups.items())),
+            "busy_share_profiled": busy_ms / (wall * 1e3),
+            "busy_share_of_mean_step": busy_ms / (mean_step_s * 1e3)}
+
+
+def train(cfg, seed: int, smi: str) -> dict:
+    """``Trainer`` (the code ``launch.train`` runs) on full-width
+    qwen3-0.6b: TRAIN_STEPS steps at B 2 x S 4096, remat on, AdamW with
+    the launcher's defaults.  The flash kernels' launch counts are zeroed
+    just before and read just after: with remat, each step launches the
+    forward kernel twice per layer (forward and recompute) and the
+    backward kernel once.  Then the parameters go through the port's
+    checkpoint and must come back bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.models import active_param_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import TrainConfig, Trainer
+
+    dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab=cfg.vocab, seed=seed)
+    tcfg = TrainConfig(opt=AdamWConfig(total_steps=TRAIN_STEPS))
+    trainer = Trainer(cfg, tcfg, dcfg, log_every=1, device="cuda")
+    params, state = trainer.init(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.flash_attention.launches = 0
+    K.flash_attention_bwd.launches = 0
+    params, state, history = trainer.run(TRAIN_STEPS, params=params,
+                                         state=state)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": K.flash_attention.launches,
+                "flash_attention_bwd": K.flash_attention_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = [h["step_time_s"] for h in history[1:]]
+    mean_s = sum(steady) / len(steady)
+    n_active = active_param_count(cfg, params)
+    flops_per_s = 6 * n_active * tokens / mean_s
+    result = {"arch": cfg.name, "layers": cfg.n_layers, "dtype":
+              str(cfg.dtype), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "steps": TRAIN_STEPS,
+              "loss": [h["loss"] for h in history],
+              "step_time_s": [h["step_time_s"] for h in history],
+              "grad_norm": [h["grad_norm"] for h in history],
+              "mean_step_s_steps_2_on": mean_s,
+              "tokens_per_s_steps_2_on": tokens / mean_s,
+              "params_active": n_active,
+              "model_flops_per_s": flops_per_s,
+              "model_flops_share_of_989e12": flops_per_s / PEAK_FLOPS[
+                  torch.bfloat16],
+              "peak_memory_bytes": peak, "launches": launches}
+    log(f"[train] {json.dumps(result)}; card: {smi}")
+    assert all(math.isfinite(x) for x in result["loss"]), result
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    assert launches == want, (launches, want)
+    result["profile"] = profile_step(cfg, params, state, trainer, mean_s)
+    log(f"[train] one more step under torch.profiler: "
+        f"{json.dumps(result['profile'])}")
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent
+                                     / "build") as d:
+        ckpt.save(d, TRAIN_STEPS, params)
+        back, _ = ckpt.restore(d, TRAIN_STEPS, params)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(back), tree_leaves(params))), \
+            "checkpoint round trip is not bit-exact"
+    log(f"[train] checkpoint round trip of {len(tree_leaves(params))} "
+        f"leaves bit-exact")
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -990,10 +1324,12 @@ def main() -> int:
     with phase("kernels"):
         worst = check_small_geometries(gen)
         worst.update(check_small_latent(gen))
+        worst.update(check_flash_small(gen))
         log(f"[kernels] small prime/odd/window/softcap geometries ok: "
             f"max err {worst}")
         rows = bench_kernels(cfg, gen, ITERS)
         rows += bench_latent_kernels(cfg_ds, gen, ITERS)
+        rows += bench_flash(cfg, gen, FLASH_ITERS)
     for r in rows:
         log(f"[kernels] {r['name']}: err {r['max_abs_err']:.3g} kernel "
             f"{r['ms']:.4f} ms (eager call {r['eager_ms']:.4f} ms) plain "
@@ -1059,6 +1395,20 @@ def main() -> int:
     with phase("deepseek-v2 plain replay"):
         replay = replay_schedule(engine, params, cfg_d, calls, routing)
         log(f"[ds-serve] plain-path replay agrees: {json.dumps(replay)}")
+    del params, engine, calls, routing
+    torch.cuda.empty_cache()
+
+    # 8. full-width qwen3-0.6b train-step parity, kernel path vs plain
+    # path: float32 at depth 2, bf16 at depth 28
+    with phase("qwen3 train-step parity"):
+        train_step_parity(dataclasses.replace(
+            cfg, param_dtype="float32", n_layers=TRAIN_F32_DEPTH), args.seed)
+        train_step_parity(cfg, args.seed)
+
+    # 9. train full-width qwen3-0.6b through the flash kernels
+    with phase("qwen3 train"):
+        result = train(cfg, args.seed, smi)
+        launches.update(result["launches"])
 
     for r in rows:
         r["launches"] = launches[r["name"]]

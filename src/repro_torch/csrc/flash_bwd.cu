@@ -1,0 +1,511 @@
+// Dense flash attention, backward, for Hopper (sm_90a).
+//
+// The gradient of src/repro/kernels/attention/attention.py:
+// flash_attention_pallas (the function flash_fwd.cu computes).  The JAX
+// package has no backward kernel: XLA differentiates its jnp attention.
+// This is the port's own gradient of the same function, in the usual
+// recompute scheme from the forward's saved row log-sum-exp:
+//
+//   Delta_i = rowsum(dO_i * O_i)
+//   P       = exp(S - LSE)              S the scaled (and capped) scores
+//   dV      = P^T dO,   dP = dO V^T,    dS = P * (dP - Delta)
+//   softcap: dS_raw = dS * (1 - (S / cap)^2)
+//   dQ      = scale * dS K,             dK = scale * dS^T Q
+//
+// q, o, do (B, S, Hq, D) and k, v (B, S, Hkv, D) in the model's layout,
+// lse (B, Hq, S) f32 from the forward; delta (B, Hq, S) f32 scratch;
+// dq (B, S, Hq, D), dk, dv (B, S, Hkv, D) in q's type.
+//
+// Three launches, no atomics, so every sum has a fixed order and the
+// result does not vary between runs:
+//  1. delta_kernel: Delta, one warp per (position, head) row;
+//  2. dq pass: one CTA per (q block, kv head, batch element) over the G
+//     query heads of the kv head, walking the keys its rows may see, like
+//     the forward, and accumulating dQ in registers;
+//  3. dk/dv pass: one CTA per (key block, kv head, batch element), looping
+//     over the G query heads and the query tiles that may see its keys,
+//     so dK and dV sum over the G heads inside one CTA.
+//
+// What bounds it: operations.  Passes 2 and 3 do 7 products of the
+// forward's size between them (QK^T and dO V^T in both, P^T dO and dS^T Q
+// in pass 3, dS K in pass 2) against the 5 of a backward that keeps dQ in
+// atomics: 3.5 times the forward's 4 B Hq S^2 D / 2 flops (causal), 481
+// GFLOP at the training shape, 0.49 ms at 989 TFLOP/s bf16 (a gradient
+// needs 2.5 times, 0.35 ms).  Recomputing two products buys a
+// deterministic dQ.  bf16 with D 64 or 128 runs the products on tensor
+// cores (mma.sync m16n8k16, f32 accumulation; flash_mma.cuh); float32 and
+// other widths on CUDA cores (below), bound by shared-memory traffic.
+// Both walk only the tiles the masks leave, and mask the ragged last
+// tile.
+
+#include "flash_mma.cuh"
+
+namespace {
+
+using namespace paged;
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerWarp = 8;
+constexpr int kRows = kWarps * kRowsPerWarp;  // q rows (dq) / keys (dk, dv)
+constexpr int kTk = 32;                       // keys (dq) / queries per tile
+
+// Delta = rowsum(dO * O) in f32, one warp per (batch, position, head) row.
+template <typename T>
+__global__ void delta_kernel(const T* __restrict__ o,
+                             const T* __restrict__ d_o,
+                             float* __restrict__ delta, int rows, int s_len,
+                             int hq, int d) {
+  const int row = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* orow = o + (long long)row * d;
+  const T* grow = d_o + (long long)row * d;
+  float acc = 0.f;
+  for (int dd = lane; dd < d; dd += 32)
+    acc += to_f32(orow[dd]) * to_f32(grow[dd]);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const int head = row % hq;
+    const long long bs = row / hq;  // b * S + pos
+    const long long b = bs / s_len;
+    const int pos = (int)(bs - b * s_len);
+    delta[(b * hq + head) * s_len + pos] = acc;
+  }
+}
+
+// Stage `n` rows of a (.., rows, H, D) tensor, starting at row r0, head
+// `head`, into shared memory as f32 with row stride `stride`; rows past n
+// are zero.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
+                                           float* dst, long long base, int r0,
+                                           int n, int heads, int d,
+                                           int stride, int n_tile) {
+  constexpr int vec = Vec<T>::n;
+  const int chunks = d / vec;
+  for (int i = threadIdx.x; i < n_tile * chunks; i += blockDim.x) {
+    const int t = i / chunks;
+    const int cc = (i - t * chunks) * vec;
+    float x[vec];
+    if (t < n) {
+      load_n<T, vec>(src + (base + (long long)(r0 + t) * heads) * d + cc, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < vec; ++e) x[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < vec; ++e) dst[t * stride + cc + e] = x[e];
+  }
+}
+
+// Score, softmax weight and dS of one (query, key) pair.  raw = q . k,
+// dp = dO . v.  Returns dS with respect to the scaled, uncapped score (the
+// caller multiplies by scale); *p gets P.
+__device__ __forceinline__ float pair_grad(float raw, float dp, float lse,
+                                           float delta, bool valid,
+                                           float scale, float softcap,
+                                           float* p) {
+  float sc = raw * scale;
+  float cap_grad = 1.f;
+  if (softcap > 0.f) {
+    const float t = tanhf(sc / softcap);
+    sc = t * softcap;
+    cap_grad = 1.f - t * t;
+  }
+  const float pv = valid ? expf(sc - lse) : 0.f;
+  *p = pv;
+  return pv * (dp - delta) * cap_grad;
+}
+
+size_t dq_smem_bytes(int d) {
+  return sizeof(float) * (2 * (size_t)kRows * d + 2 * (size_t)kTk * (d + 1) +
+                          (size_t)kRows * kTk);
+}
+
+// Pass 2: dQ.  Rows as in the forward: row r is head h * G + r / bq at
+// position c0 + r % bq.
+template <typename T, int DL>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ d_o,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dq,
+                int s_len, int hq, int hkv, int d, int bq, float scale,
+                int causal, int window, float softcap) {
+  const int qb = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g_n = hq / hkv;
+  const int rows = g_n * bq;
+  const int c0 = qb * bq;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // kRows * D
+  float* g_s = q_s + kRows * d;                     // kRows * D (dO)
+  float* k_s = g_s + kRows * d;                     // kTk * (D + 1)
+  float* v_s = k_s + kTk * (d + 1);                 // kTk * (D + 1)
+  float* ds_s = v_s + kTk * (d + 1);                // kRows * kTk
+
+  for (int i = tid; i < kRows * d; i += kThreads) {
+    const int r = i / d;
+    const int dd = i - r * d;
+    const int pos = c0 + r % bq;
+    float x = 0.f, y = 0.f;
+    if (r < rows && pos < s_len) {
+      const long long off =
+          (((long long)b * s_len + pos) * hq + h * g_n + r / bq) * d + dd;
+      x = to_f32(q[off]);
+      y = to_f32(d_o[off]);
+    }
+    q_s[i] = x;
+    g_s[i] = y;
+  }
+
+  float lse_r[kRowsPerWarp], delta_r[kRowsPerWarp];
+  float acc[kRowsPerWarp][DL];
+  int q_pos[kRowsPerWarp];
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int r = warp * kRowsPerWarp + j;
+    q_pos[j] = c0 + r % bq;
+    const bool live = r < rows && q_pos[j] < s_len;
+    const long long li =
+        ((long long)b * hq + h * g_n + r / bq) * s_len + q_pos[j];
+    lse_r[j] = live ? lse[li] : 0.f;
+    delta_r[j] = live ? delta[li] : 0.f;
+#pragma unroll
+    for (int e = 0; e < DL; ++e) acc[j][e] = 0.f;
+  }
+
+  const int q_hi = min(c0 + bq, s_len) - 1;
+  const long long k_lo64 = (long long)c0 - (long long)window + 1;
+  const int k_lo = k_lo64 > 0 ? (int)k_lo64 : 0;
+  const int k_hi = causal ? q_hi + 1 : s_len;
+  const long long kv_base = (long long)b * s_len * hkv + h;
+
+  for (int t0 = k_lo; t0 < k_hi; t0 += kTk) {
+    const int n = min(kTk, k_hi - t0);
+    stage_rows<T>(k, k_s, kv_base, t0, n, hkv, d, d + 1, kTk);
+    stage_rows<T>(v, v_s, kv_base, t0, n, hkv, d, d + 1, kTk);
+    __syncthreads();
+
+    // q . k and dO . v of this warp's rows against key t0 + lane.
+    float s[kRowsPerWarp], dp[kRowsPerWarp];
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j) s[j] = dp[j] = 0.f;
+    const float* qw = q_s + warp * kRowsPerWarp * d;
+    const float* gw = g_s + warp * kRowsPerWarp * d;
+    const float* krow = k_s + lane * (d + 1);
+    const float* vrow = v_s + lane * (d + 1);
+    for (int dd = 0; dd < d; dd += 4) {
+      const float k0 = krow[dd], k1 = krow[dd + 1], k2 = krow[dd + 2],
+                  k3 = krow[dd + 3];
+      const float v0 = vrow[dd], v1 = vrow[dd + 1], v2 = vrow[dd + 2],
+                  v3 = vrow[dd + 3];
+#pragma unroll
+      for (int j = 0; j < kRowsPerWarp; ++j) {
+        const float4 qv = *reinterpret_cast<const float4*>(qw + j * d + dd);
+        const float4 gv = *reinterpret_cast<const float4*>(gw + j * d + dd);
+        s[j] += qv.x * k0 + qv.y * k1 + qv.z * k2 + qv.w * k3;
+        dp[j] += gv.x * v0 + gv.y * v1 + gv.z * v2 + gv.w * v3;
+      }
+    }
+    const int k_pos = t0 + lane;
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j) {
+      const bool valid = lane < n && (!causal || k_pos <= q_pos[j]) &&
+                         (q_pos[j] - k_pos) < window;
+      float p;
+      ds_s[(warp * kRowsPerWarp + j) * kTk + lane] = pair_grad(
+          s[j], dp[j], lse_r[j], delta_r[j], valid, scale, softcap, &p);
+    }
+    __syncwarp();
+
+    // dQ += dS K: lanes across head_dim.
+    const float* dsw = ds_s + warp * kRowsPerWarp * kTk;
+    for (int t = 0; t < n; ++t) {
+      float kk[DL];
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        const int dd = lane + 32 * e;
+        kk[e] = dd < d ? k_s[t * (d + 1) + dd] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kRowsPerWarp; ++j) {
+        const float x = dsw[j * kTk + t];
+#pragma unroll
+        for (int e = 0; e < DL; ++e) acc[j][e] += x * kk[e];
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int r = warp * kRowsPerWarp + j;
+    if (r >= rows || q_pos[j] >= s_len) continue;
+    const long long orow =
+        ((long long)b * s_len + q_pos[j]) * hq + h * g_n + r / bq;
+#pragma unroll
+    for (int e = 0; e < DL; ++e) {
+      const int dd = lane + 32 * e;
+      if (dd < d) store_val(dq + orow * d + dd, acc[j][e] * scale);
+    }
+  }
+}
+
+size_t dkv_smem_bytes(int d) {
+  return sizeof(float) * (2 * (size_t)kRows * d + 2 * (size_t)kTk * (d + 1) +
+                          2 * (size_t)kRows * kTk + 2 * (size_t)kTk);
+}
+
+// Pass 3: dK and dV for kRows keys [k0, k0 + kRows) of kv head h; warp w
+// owns keys k0 + 8w .. k0 + 8w + 7, and the lanes take the queries of a
+// tile (scores) or head_dim (accumulation).
+template <typename T, int DL>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ d_o,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dk,
+                 T* __restrict__ dv, int s_len, int hq, int hkv, int d,
+                 float scale, int causal, int window, float softcap) {
+  const int kb = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g_n = hq / hkv;
+  const int k0 = kb * kRows;
+  const int n_keys = min(kRows, s_len - k0);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* k_s = reinterpret_cast<float*>(smem_raw);  // kRows * D
+  float* v_s = k_s + kRows * d;                     // kRows * D
+  float* q_s = v_s + kRows * d;                     // kTk * (D + 1)
+  float* g_s = q_s + kTk * (d + 1);                 // kTk * (D + 1)
+  float* p_s = g_s + kTk * (d + 1);                 // kRows * kTk
+  float* ds_s = p_s + kRows * kTk;                  // kRows * kTk
+  float* lse_s = ds_s + kRows * kTk;                // kTk
+  float* delta_s = lse_s + kTk;                     // kTk
+
+  const long long kv_base = (long long)b * s_len * hkv + h;
+  stage_rows<T>(k, k_s, kv_base, k0, n_keys, hkv, d, d, kRows);
+  stage_rows<T>(v, v_s, kv_base, k0, n_keys, hkv, d, d, kRows);
+
+  float dk_acc[kRowsPerWarp][DL], dv_acc[kRowsPerWarp][DL];
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j)
+#pragma unroll
+    for (int e = 0; e < DL; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  // Queries that may see some key of the block: [q_lo, q_hi).
+  const int k_last = k0 + n_keys - 1;
+  const int q_lo = causal ? k0 : 0;
+  const long long q_hi64 = (long long)k_last + (long long)window;
+  const int q_hi = q_hi64 < s_len ? (int)q_hi64 : s_len;
+
+  for (int g = 0; g < g_n; ++g) {
+    const int head = h * g_n + g;
+    const long long q_base = (long long)b * s_len * hq + head;
+    const float* lse_h = lse + ((long long)b * hq + head) * s_len;
+    const float* delta_h = delta + ((long long)b * hq + head) * s_len;
+    for (int t0 = q_lo; t0 < q_hi; t0 += kTk) {
+      const int n = min(kTk, q_hi - t0);
+      __syncthreads();  // the previous tile's readers are done
+      stage_rows<T>(q, q_s, q_base, t0, n, hq, d, d + 1, kTk);
+      stage_rows<T>(d_o, g_s, q_base, t0, n, hq, d, d + 1, kTk);
+      if (tid < kTk) {
+        lse_s[tid] = tid < n ? lse_h[t0 + tid] : 0.f;
+        delta_s[tid] = tid < n ? delta_h[t0 + tid] : 0.f;
+      }
+      __syncthreads();
+
+      // q . k and dO . v of query t0 + lane against this warp's keys.
+      float s[kRowsPerWarp], dp[kRowsPerWarp];
+#pragma unroll
+      for (int j = 0; j < kRowsPerWarp; ++j) s[j] = dp[j] = 0.f;
+      const float* qrow = q_s + lane * (d + 1);
+      const float* grow = g_s + lane * (d + 1);
+      const float* kw = k_s + warp * kRowsPerWarp * d;
+      const float* vw = v_s + warp * kRowsPerWarp * d;
+      for (int dd = 0; dd < d; dd += 4) {
+        const float q0 = qrow[dd], q1 = qrow[dd + 1], q2 = qrow[dd + 2],
+                    q3 = qrow[dd + 3];
+        const float g0 = grow[dd], g1 = grow[dd + 1], g2 = grow[dd + 2],
+                    g3 = grow[dd + 3];
+#pragma unroll
+        for (int j = 0; j < kRowsPerWarp; ++j) {
+          const float4 kv4 = *reinterpret_cast<const float4*>(kw + j * d + dd);
+          const float4 vv4 = *reinterpret_cast<const float4*>(vw + j * d + dd);
+          s[j] += q0 * kv4.x + q1 * kv4.y + q2 * kv4.z + q3 * kv4.w;
+          dp[j] += g0 * vv4.x + g1 * vv4.y + g2 * vv4.z + g3 * vv4.w;
+        }
+      }
+      const int qp = t0 + lane;
+#pragma unroll
+      for (int j = 0; j < kRowsPerWarp; ++j) {
+        const int key = warp * kRowsPerWarp + j;
+        const int kp = k0 + key;
+        const bool valid = lane < n && key < n_keys &&
+                           (!causal || kp <= qp) && (qp - kp) < window;
+        float p;
+        const float x = pair_grad(s[j], dp[j], lse_s[lane], delta_s[lane],
+                                  valid, scale, softcap, &p);
+        p_s[key * kTk + lane] = p;
+        ds_s[key * kTk + lane] = x;
+      }
+      __syncwarp();
+
+      // dV += P^T dO, dK += dS^T Q: lanes across head_dim.
+      const float* pw = p_s + warp * kRowsPerWarp * kTk;
+      const float* dsw = ds_s + warp * kRowsPerWarp * kTk;
+      for (int t = 0; t < n; ++t) {
+        float gq[DL], qq[DL];
+#pragma unroll
+        for (int e = 0; e < DL; ++e) {
+          const int dd = lane + 32 * e;
+          gq[e] = dd < d ? g_s[t * (d + 1) + dd] : 0.f;
+          qq[e] = dd < d ? q_s[t * (d + 1) + dd] : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < kRowsPerWarp; ++j) {
+          const float pj = pw[j * kTk + t];
+          const float xj = dsw[j * kTk + t];
+#pragma unroll
+          for (int e = 0; e < DL; ++e) {
+            dv_acc[j][e] += pj * gq[e];
+            dk_acc[j][e] += xj * qq[e];
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int key = warp * kRowsPerWarp + j;
+    if (key >= n_keys) continue;
+    const long long orow = kv_base + (long long)(k0 + key) * hkv;
+#pragma unroll
+    for (int e = 0; e < DL; ++e) {
+      const int dd = lane + 32 * e;
+      if (dd < d) {
+        store_val(dk + orow * d + dd, dk_acc[j][e] * scale);
+        store_val(dv + orow * d + dd, dv_acc[j][e]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_delta(const void* o, const void* d_o, float* delta, int batch,
+                 int s_len, int hq, int d, cudaStream_t stream) {
+  const int rows = batch * s_len * hq;
+  constexpr int kWarpsPerBlock = 8;
+  delta_kernel<T><<<(rows + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                    32 * kWarpsPerBlock, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(d_o), delta, rows,
+      s_len, hq, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DL>
+int launch_cuda_cores(const void* q, const void* k, const void* v,
+                      const void* d_o, const float* lse, const float* delta,
+                      void* dq, void* dk, void* dv, int batch, int s_len,
+                      int hq, int hkv, int d, float scale, int causal,
+                      int window, float softcap, cudaStream_t stream) {
+  static size_t opted_dq = 48 * 1024, opted_dkv = 48 * 1024;
+  const size_t smem_dq = dq_smem_bytes(d), smem_dkv = dkv_smem_bytes(d);
+  cudaError_t e = allow_smem(flash_dq_kernel<T, DL>, smem_dq, &opted_dq);
+  if (e != cudaSuccess) return (int)e;
+  e = allow_smem(flash_dkv_kernel<T, DL>, smem_dkv, &opted_dkv);
+  if (e != cudaSuccess) return (int)e;
+  const int bq = kRows / (hq / hkv);
+  const dim3 grid_q((s_len + bq - 1) / bq, hkv, batch);
+  flash_dq_kernel<T, DL><<<grid_q, kThreads, smem_dq, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(d_o), lse, delta,
+      static_cast<T*>(dq), s_len, hq, hkv, d, bq, scale, causal, window,
+      softcap);
+  const dim3 grid_k((s_len + kRows - 1) / kRows, hkv, batch);
+  flash_dkv_kernel<T, DL><<<grid_k, kThreads, smem_dkv, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(d_o), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), s_len, hq, hkv, d, scale,
+      causal, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_type(const void* q, const void* k, const void* v,
+                const void* d_o, const float* lse, const float* delta,
+                void* dq, void* dk, void* dv, int batch, int s_len, int hq,
+                int hkv, int d, float scale, int causal, int window,
+                float softcap, cudaStream_t stream) {
+#define REPRO_FLASH_DL(N)                                                  \
+  if (d <= 32 * N)                                                         \
+    return launch_cuda_cores<T, N>(q, k, v, d_o, lse, delta, dq, dk, dv,   \
+                                   batch, s_len, hq, hkv, d, scale, causal, \
+                                   window, softcap, stream);
+  REPRO_FLASH_DL(1)
+  REPRO_FLASH_DL(2)
+  REPRO_FLASH_DL(4)
+  REPRO_FLASH_DL(8)
+#undef REPRO_FLASH_DL
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Limits the wrapper reads before it launches.
+int flash_bwd_max_g() { return kRows; }
+int flash_bwd_max_d() { return 256; }
+
+// dtype: 0 = float32, 1 = bfloat16; q, k, v, o, d_o as in the forward
+// (contiguous, the model's layout); lse (B, Hq, S) f32 from the forward;
+// delta (B, Hq, S) f32 scratch.  Writes dq, dk, dv in q's type.  Returns
+// cudaGetLastError().
+int flash_bwd(int dtype, const void* q, const void* k, const void* v,
+              const void* o, const void* d_o, const void* lse, void* delta,
+              void* dq, void* dk, void* dv, int batch, int s_len, int hq,
+              int hkv, int d, float scale, int causal, int window,
+              float softcap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lse_f = static_cast<const float*>(lse);
+  float* delta_f = static_cast<float*>(delta);
+  if (d <= 0 || d % 8 || d > 256 || hkv <= 0 || hq % hkv ||
+      hq / hkv > kRows)
+    return (int)cudaErrorInvalidValue;
+  int err;
+  if (dtype == 0) {
+    err = launch_delta<float>(o, d_o, delta_f, batch, s_len, hq, d, st);
+    if (err) return err;
+    return launch_type<float>(q, k, v, d_o, lse_f, delta_f, dq, dk, dv,
+                              batch, s_len, hq, hkv, d, scale, causal,
+                              window, softcap, st);
+  }
+  if (dtype == 1) {
+    err = launch_delta<__nv_bfloat16>(o, d_o, delta_f, batch, s_len, hq, d,
+                                      st);
+    if (err) return err;
+    if (flash_mma::takes_bwd(d))
+      return flash_mma::launch_bwd(q, k, v, d_o, lse_f, delta_f, dq, dk, dv,
+                                   batch, s_len, hq, hkv, d, scale, causal,
+                                   window, softcap, st);
+    return launch_type<__nv_bfloat16>(q, k, v, d_o, lse_f, delta_f, dq, dk,
+                                      dv, batch, s_len, hq, hkv, d, scale,
+                                      causal, window, softcap, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

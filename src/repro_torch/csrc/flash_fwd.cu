@@ -1,0 +1,284 @@
+// Dense flash attention, forward, for Hopper (sm_90a).
+//
+// Replaces src/repro/kernels/attention/attention.py:flash_attention_pallas
+// (body _flash_kernel): softmax(scale * Q K^T, masked) V over one sequence
+// of S positions per batch element, with GQA (G = Hq / Hkv query heads per
+// kv head), an optional causal mask q_pos >= k_pos, an optional sliding
+// window q_pos - k_pos < window and an optional tanh softcap, scale
+// 1 / sqrt(D).  Besides O it writes the f32 row log-sum-exp of the (capped)
+// scores, which the backward (flash_bwd.cu) needs.
+//
+// q   (B, S, Hq, D)   the model's layout, float32 or bfloat16
+// k,v (B, S, Hkv, D)
+// o   (B, S, Hq, D)   in q's type
+// lse (B, Hq, S)      f32
+//
+// What bounds it: operations.  The causal forward does 4 B Hq S^2 D / 2
+// flops (QK^T and PV over the lower triangle): 137 GFLOP at the training
+// shape (B 2, Hq 16, S 4096, D 128), 0.139 ms of tensor cores at 989
+// TFLOP/s bf16, against 101 MB of Q, K, V, O and the log-sum-exp.  The
+// design:
+//  * the TPU kernel walks keys along a sequential grid axis and carries
+//    (m, l, acc) in VMEM; here one CTA walks its key range in a loop and
+//    keeps that state in registers;
+//  * one CTA per (q block, kv head, batch element): its rows are the G
+//    query heads of the kv head at bq = kRows / G positions, so each K/V
+//    tile it loads serves all G heads (the TPU kernel copies K/V G times);
+//  * it walks only the keys some row of the block may see: from the
+//    window's start for its first row to its last row's position under the
+//    causal mask, so wholly masked tiles are never loaded; the ragged last
+//    tile (any S) is masked key by key;
+//  * bf16 with D 64, 128 or 256 runs its two products on tensor cores
+//    (mma.sync m16n8k16, f32 accumulation; fwd_kernel in flash_mma.cuh,
+//    with its softmax in the log2 domain); float32 and other widths run
+//    them on CUDA cores (flash_fwd_kernel below), bound by shared-memory
+//    traffic.
+//
+// Masking: the TPU kernel's finite -1e30 is the initial max, and a masked
+// key weighs 0 (not exp(0)), so no row ever meets exp(-inf - -inf) = NaN.
+// Every row sees at least its own position, so l > 0 at the end.
+
+#include "flash_mma.cuh"
+
+namespace {
+
+using namespace paged;
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerWarp = 8;
+constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per CTA
+constexpr int kTk = 32;                       // keys per tile
+
+size_t fwd_smem_bytes(int d) {
+  return sizeof(float) * ((size_t)kRows * d + (size_t)kTk * (d + 1) +
+                          (size_t)kTk * d + (size_t)kRows * kTk);
+}
+
+// DL: head_dim elements per lane in the PV product (D <= 32 * DL).
+template <typename T, int DL>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int s_len, int hq, int hkv, int d,
+                 int bq, float scale, int causal, int window, float softcap) {
+  const int qb = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g_n = hq / hkv;
+  const int rows = g_n * bq;  // row r: head h * G + r / bq, position
+  const int c0 = qb * bq;     //        c0 + r % bq
+  constexpr int vec = Vec<T>::n;
+  const int chunks = d / vec;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // kRows * D
+  float* k_s = q_s + kRows * d;                     // kTk * (D + 1)
+  float* v_s = k_s + kTk * (d + 1);                 // kTk * D
+  float* p_s = v_s + kTk * d;                       // kRows * kTk
+
+  for (int i = tid; i < kRows * d; i += kThreads) {
+    const int r = i / d;
+    const int dd = i - r * d;
+    const int pos = c0 + r % bq;
+    float x = 0.f;
+    if (r < rows && pos < s_len)
+      x = to_f32(q[(((long long)b * s_len + pos) * hq + h * g_n + r / bq) *
+                       d + dd]);
+    q_s[i] = x;
+  }
+
+  // Keys some row of the block may see: [k_lo, k_hi).
+  const int q_lo = c0;
+  const int q_hi = min(c0 + bq, s_len) - 1;
+  const long long k_lo64 = (long long)q_lo - (long long)window + 1;
+  const int k_lo = k_lo64 > 0 ? (int)k_lo64 : 0;
+  const int k_hi = causal ? q_hi + 1 : s_len;
+
+  float m[kRowsPerWarp], l[kRowsPerWarp];
+  float acc[kRowsPerWarp][DL];
+  int q_pos[kRowsPerWarp];
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    m[j] = kNegInf;
+    l[j] = 0.f;
+    q_pos[j] = c0 + (warp * kRowsPerWarp + j) % bq;
+#pragma unroll
+    for (int e = 0; e < DL; ++e) acc[j][e] = 0.f;
+  }
+  const long long kv_base = (long long)b * s_len * hkv + h;
+
+  for (int t0 = k_lo; t0 < k_hi; t0 += kTk) {
+    const int n = min(kTk, k_hi - t0);
+    // K and V tile -> shared memory as f32, 16 bytes per load; the tail
+    // past n is zero so that no lane reads stale data.
+    for (int i = tid; i < kTk * chunks; i += kThreads) {
+      const int t = i / chunks;
+      const int cc = (i - t * chunks) * vec;
+      float kb[vec], vb[vec];
+      if (t < n) {
+        const long long off = (kv_base + (long long)(t0 + t) * hkv) * d + cc;
+        load_n<T, vec>(k + off, kb);
+        load_n<T, vec>(v + off, vb);
+      } else {
+#pragma unroll
+        for (int e = 0; e < vec; ++e) kb[e] = vb[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < vec; ++e) {
+        k_s[t * (d + 1) + cc + e] = kb[e];
+        v_s[t * d + cc + e] = vb[e];
+      }
+    }
+    __syncthreads();
+
+    // Scores of this warp's rows against key t0 + lane.
+    float s[kRowsPerWarp];
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j) s[j] = 0.f;
+    const float* qw = q_s + warp * kRowsPerWarp * d;
+    const float* krow = k_s + lane * (d + 1);
+    for (int dd = 0; dd < d; dd += 4) {
+      const float k0 = krow[dd], k1 = krow[dd + 1], k2 = krow[dd + 2],
+                  k3 = krow[dd + 3];
+#pragma unroll
+      for (int j = 0; j < kRowsPerWarp; ++j) {
+        const float4 qv = *reinterpret_cast<const float4*>(qw + j * d + dd);
+        s[j] += qv.x * k0 + qv.y * k1 + qv.z * k2 + qv.w * k3;
+      }
+    }
+    const int k_pos = t0 + lane;
+    float alpha[kRowsPerWarp];
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j) {
+      float sc = s[j] * scale;
+      if (softcap > 0.f) sc = tanhf(sc / softcap) * softcap;
+      const bool valid = lane < n && (!causal || k_pos <= q_pos[j]) &&
+                         (q_pos[j] - k_pos) < window;
+      sc = valid ? sc : kNegInf;
+      const float m_new = fmaxf(m[j], warp_max(sc));
+      const float p = valid ? expf(sc - m_new) : 0.f;
+      alpha[j] = expf(m[j] - m_new);
+      l[j] = l[j] * alpha[j] + warp_sum(p);
+      m[j] = m_new;
+      p_s[(warp * kRowsPerWarp + j) * kTk + lane] = p;
+    }
+    __syncwarp();
+
+    // PV: lanes across head_dim, this warp's rows in registers.
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j)
+#pragma unroll
+      for (int e = 0; e < DL; ++e) acc[j][e] *= alpha[j];
+    const float* pw = p_s + warp * kRowsPerWarp * kTk;
+    for (int t = 0; t < n; ++t) {
+      float vv[DL];
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        const int dd = lane + 32 * e;
+        vv[e] = dd < d ? v_s[t * d + dd] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kRowsPerWarp; ++j) {
+        const float pj = pw[j * kTk + t];
+#pragma unroll
+        for (int e = 0; e < DL; ++e) acc[j][e] += pj * vv[e];
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int r = warp * kRowsPerWarp + j;
+    const int pos = q_pos[j];
+    if (r >= rows || pos >= s_len) continue;
+    const int head = h * g_n + r / bq;
+    const long long orow = ((long long)b * s_len + pos) * hq + head;
+    const float inv = 1.f / fmaxf(l[j], 1e-30f);
+#pragma unroll
+    for (int e = 0; e < DL; ++e) {
+      const int dd = lane + 32 * e;
+      if (dd < d) store_val(o + orow * d + dd, acc[j][e] * inv);
+    }
+    if (lane == 0)
+      lse[((long long)b * hq + head) * s_len + pos] =
+          m[j] + logf(fmaxf(l[j], 1e-30f));
+  }
+}
+
+template <typename T, int DL>
+int launch_cuda_cores(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int batch, int s_len, int hq, int hkv,
+                      int d, float scale, int causal, int window,
+                      float softcap, cudaStream_t stream) {
+  static size_t opted_in = 48 * 1024;
+  const size_t smem = fwd_smem_bytes(d);
+  const cudaError_t e = allow_smem(flash_fwd_kernel<T, DL>, smem, &opted_in);
+  if (e != cudaSuccess) return (int)e;
+  const int bq = kRows / (hq / hkv);
+  const dim3 grid((s_len + bq - 1) / bq, hkv, batch);
+  flash_fwd_kernel<T, DL><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, s_len, hq, hkv, d,
+      bq, scale, causal, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_type(const void* q, const void* k, const void* v, void* o,
+                float* lse, int batch, int s_len, int hq, int hkv, int d,
+                float scale, int causal, int window, float softcap,
+                cudaStream_t stream) {
+#define REPRO_FLASH_DL(N)                                                   \
+  if (d <= 32 * N)                                                          \
+    return launch_cuda_cores<T, N>(q, k, v, o, lse, batch, s_len, hq, hkv, \
+                                   d, scale, causal, window, softcap,       \
+                                   stream);
+  REPRO_FLASH_DL(1)
+  REPRO_FLASH_DL(2)
+  REPRO_FLASH_DL(4)
+  REPRO_FLASH_DL(8)
+#undef REPRO_FLASH_DL
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Limits the wrapper reads before it launches.
+int flash_fwd_max_g() { return kRows; }
+int flash_fwd_max_d() { return 256; }
+
+// dtype: 0 = float32, 1 = bfloat16.  causal: 0 or 1.  A window of
+// INT32_MAX means none; softcap <= 0 means none.  D must be a multiple of
+// 8 and at most 256, Hq a multiple of Hkv with G = Hq / Hkv <= 32.
+// Returns cudaGetLastError().
+int flash_fwd(int dtype, const void* q, const void* k, const void* v,
+              void* o, void* lse, int batch, int s_len, int hq, int hkv,
+              int d, float scale, int causal, int window, float softcap,
+              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
+  if (d <= 0 || d % 8 || d > 256 || hkv <= 0 || hq % hkv ||
+      hq / hkv > kRows)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_type<float>(q, k, v, o, lse_f, batch, s_len, hq, hkv, d,
+                              scale, causal, window, softcap, st);
+  if (dtype == 1) {
+    if (flash_mma::takes(d))
+      return flash_mma::launch_fwd(q, k, v, o, lse_f, batch, s_len, hq, hkv,
+                                   d, scale, causal, window, softcap, st);
+    return launch_type<__nv_bfloat16>(q, k, v, o, lse_f, batch, s_len, hq,
+                                      hkv, d, scale, causal, window,
+                                      softcap, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

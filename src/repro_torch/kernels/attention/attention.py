@@ -1,28 +1,43 @@
-"""Hand-written Hopper kernels for paged attention, and their wrappers.
+"""Hand-written Hopper kernels for attention, and their wrappers.
 
-``paged_flash_decode`` replaces the TPU kernel
-``repro/kernels/attention/attention.py:paged_flash_decode_pallas``,
-``paged_flash_prefill`` replaces ``paged_flash_prefill_pallas``, and the
-MLA latent pair ``paged_latent_decode`` and ``paged_latent_prefill``
-replace ``paged_latent_decode_pallas`` and ``paged_latent_prefill_pallas``.
-The kernels are CUDA C++ for ``sm_90a`` (``csrc/paged_decode.cu``,
-``csrc/paged_prefill.cu``, ``csrc/paged_latent_decode.cu`` and
-``csrc/paged_latent_prefill.cu``; each source's header says what bounds it
-on the card and what its design does about that), built by
-``kernels.build`` at first use and called through their plain C interface
-with ``ctypes``.
+Dense flash attention (the training path): ``flash_attention`` replaces
+the TPU kernel ``repro/kernels/attention/attention.py:
+flash_attention_pallas`` with ``csrc/flash_fwd.cu``, and
+``flash_attention_bwd`` is its gradient, ``csrc/flash_bwd.cu`` (the JAX
+package has no backward kernel: XLA differentiates its jnp attention).
+``FlashAttention``, a ``torch.autograd.Function``, joins the two: the
+forward saves O and the f32 row log-sum-exp, the backward recomputes the
+softmax weights from them.  What bounds them on the card: operations, at
+989 TFLOP/s bf16.  The causal forward does 4 B Hq S^2 D / 2 flops (0.139
+ms at B 2, Hq 16, S 4096, D 128); the backward does 3.5 times that, since
+it recomputes two products to keep dQ free of atomics.  Their design
+against that bound: bf16 runs every product on tensor cores (``mma.sync``,
+``csrc/flash_mma.cuh``), each K/V tile is shared by the G query heads of
+its kv head, and only the tiles the causal and window masks leave are
+walked (each source's header says more).
 
+Paged serving: ``paged_flash_decode`` replaces
+``paged_flash_decode_pallas``, ``paged_flash_prefill`` replaces
+``paged_flash_prefill_pallas``, and the MLA latent pair
+``paged_latent_decode`` and ``paged_latent_prefill`` replace
+``paged_latent_decode_pallas`` and ``paged_latent_prefill_pallas``
+(``csrc/paged_decode.cu``, ``csrc/paged_prefill.cu``,
+``csrc/paged_latent_decode.cu`` and ``csrc/paged_latent_prefill.cu``).
+
+The kernels are CUDA C++ for ``sm_90a``, built by ``kernels.build`` at
+first use and called through their plain C interface with ``ctypes``.
 Each wrapper takes the model's layout, checks what the kernel accepts
 (device, dtype, shape, contiguity) and raises on anything else, allocates
-its output with ``torch.empty``, launches on the current stream, raises if
+its outputs with ``torch.empty``, launches on the current stream, raises if
 ``cudaGetLastError`` reports the launch, and adds one to its ``launches``
-count.  A CPU tensor takes the plain version in ``ops`` instead; a CUDA
-tensor launches the kernel or raises.
+count.  A CPU tensor takes the plain version in ``ops`` (or ``ref``)
+instead; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -362,3 +377,155 @@ def paged_latent_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
 
 
 paged_latent_prefill.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Dense flash attention (training path)
+# ---------------------------------------------------------------------------
+
+def _check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lib: str) -> tuple[int, int, int, int, int]:
+    """Checks shared by the dense wrappers; returns (B, S, Hq, Hkv, D)."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}; the kernel takes "
+                        f"{sorted(map(str, _DTYPES))}")
+    _check("q", q, q.device, q.dtype, 4)
+    _check("k", k, q.device, q.dtype, 4)
+    _check("v", v, q.device, q.dtype, 4)
+    b, s, hq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s \
+            or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not form (B, S, H, D) over "
+                         f"one sequence")
+    hkv = k.shape[2]
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv}")
+    if hq // hkv > _limit(lib, f"{lib}_max_g"):
+        raise ValueError(f"{hq // hkv} query heads per kv head exceed the "
+                         f"kernel's {_limit(lib, f'{lib}_max_g')}")
+    if d % 8 or d > _limit(lib, f"{lib}_max_d"):
+        raise ValueError(f"head_dim {d} must be a multiple of 8 and at most "
+                         f"{_limit(lib, f'{lib}_max_d')}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
+    return b, s, hq, hkv, d
+
+
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool, window: int | None, logit_cap: float | None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel (``csrc/flash_fwd.cu``): (O (B, S, Hq, D) in q's
+    dtype, row log-sum-exp (B, Hq, S) f32).  Counts on
+    ``flash_attention.launches``."""
+    lib = "flash_fwd"
+    b, s, hq, hkv, d = _check_dense(q, k, v, lib)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                        _I, _F, _P))
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), lse.data_ptr(), b, s, hq, hkv, d,
+                 1.0 / math.sqrt(d), int(bool(causal)), _window(window),
+                 _softcap(logit_cap),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        d_o: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None,
+                        logit_cap: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradient of dense flash attention (``csrc/flash_bwd.cu``).
+
+    q, o, d_o (B, S, Hq, D) and k, v (B, S, Hkv, D) contiguous; lse
+    (B, Hq, S) f32 from the forward kernel.  Returns (dq, dk, dv) in q's
+    dtype and layouts.  On the CPU it takes the plain gradient
+    (``ref.attention_ref_grad``), which needs neither o nor lse."""
+    if not q.is_cuda:
+        from repro_torch.kernels.attention import ref
+        grads = ref.attention_ref_grad(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            d_o.transpose(1, 2), causal=causal, window=window,
+            logit_cap=logit_cap)
+        return tuple(g.transpose(1, 2) for g in grads)
+    lib = "flash_bwd"
+    b, s, hq, hkv, d = _check_dense(q, k, v, lib)
+    _check("o", o, q.device, q.dtype, 4)
+    _check("d_o", d_o, q.device, q.dtype, 4)
+    _check("lse", lse, q.device, torch.float32, 3)
+    if o.shape != q.shape or d_o.shape != q.shape \
+            or tuple(lse.shape) != (b, hq, s):
+        raise ValueError(f"o {tuple(o.shape)}, d_o {tuple(d_o.shape)} and "
+                         f"lse {tuple(lse.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if any(t.data_ptr() % 16 for t in (o, d_o)):
+        raise ValueError("o and d_o must be 16-byte aligned")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _F, _I, _I, _F, _P))
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, s, hq, hkv, d, 1.0 / math.sqrt(d),
+                 int(bool(causal)), _window(window), _softcap(logit_cap),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The two dense kernels as one differentiable function of (q, k, v):
+    the forward kernel saves O and the row log-sum-exp, the backward kernel
+    turns the output cotangent into (dq, dk, dv)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_cap):
+        o, lse = _flash_fwd(q, k, v, causal=causal, window=window,
+                            logit_cap=logit_cap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = (causal, window, logit_cap)
+        return o
+
+    @staticmethod
+    def backward(ctx, d_o):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, logit_cap = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, d_o.contiguous(),
+                                         causal=causal, window=window,
+                                         logit_cap=logit_cap)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    logit_cap: float | None = None) -> torch.Tensor:
+    """Dense flash attention over one sequence (``csrc/flash_fwd.cu``,
+    differentiable through ``csrc/flash_bwd.cu``).
+
+    q (B, S, Hq, D), k and v (B, S, Hkv, D) contiguous, float32 or
+    bfloat16, positions 0..S-1 on both sides; scale 1/sqrt(D); optional
+    causal mask, sliding ``window`` and tanh ``logit_cap``.  Returns
+    (B, S, Hq, D) in q's dtype.  ``launches`` counts forward kernel
+    launches (a remat recompute launches again)."""
+    if not q.is_cuda:
+        from repro_torch.kernels.attention import ops
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   logit_cap=logit_cap, use_kernel=False)
+    return FlashAttention.apply(q, k, v, causal, window, logit_cap)
+
+
+flash_attention.launches = 0

@@ -1,5 +1,6 @@
-"""Paged attention entry points of the model code (port of the paged GQA
-and MLA latent half of ``repro.kernels.attention.ops``).
+"""Attention entry points of the model code (port of
+``repro.kernels.attention.ops``): dense flash attention, and the paged GQA
+and MLA latent paths.
 
 Each function has two lowerings.  The plain version is the gather
 formulation of ``repro``'s jnp path, op for op and with the same cast
@@ -17,7 +18,30 @@ import math
 import torch
 
 from repro_torch.kernels.attention import attention as K
+from repro_torch.kernels.attention import ref as R
 from repro_torch.models import layers as L
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    logit_cap: float | None = None,
+                    use_kernel: bool | None = None) -> torch.Tensor:
+    """q: (B, S, Hq, D), k/v: (B, S, Hkv, D) -> (B, S, Hq, D).
+
+    The kernel lowering (``attention.flash_attention``, differentiable
+    through the backward kernel) reads the model's layout as it is; the
+    plain version transposes to (B, H, S, D) around ``ref.attention_ref``,
+    as ``repro``'s ops transpose around ``flash_attention_pallas``, and
+    autograd differentiates it."""
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    if use_kernel:
+        return K.flash_attention(q, k, v, causal=causal, window=window,
+                                 logit_cap=logit_cap)
+    o = R.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=window,
+                        logit_cap=logit_cap)
+    return o.transpose(1, 2)
 
 
 def gather_kv_pages(pages: torch.Tensor, block_tables: torch.Tensor

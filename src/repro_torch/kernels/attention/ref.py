@@ -1,10 +1,54 @@
-"""Dense float32 oracles for the paged attention paths (port of
-``repro.kernels.attention.ref``'s paged GQA and MLA latent oracles)."""
+"""Dense float32 oracles for the attention kernels (port of
+``repro.kernels.attention.ref``): the dense flash oracle and its autograd
+gradient, and the paged GQA and MLA latent oracles."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  logit_cap: float | None = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D).
+
+    Dense f32 softmax with K/V repeated over the G query heads of each kv
+    head, scale 1/sqrt(D), the finite -1e30 mask, and the result cast to
+    q's dtype: ``repro.kernels.attention.ref.attention_ref`` op for op."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    k = k.repeat_interleave(g, dim=1)
+    v = v.repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    if logit_cap is not None:
+        s = torch.tanh(s / logit_cap) * logit_cap
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= (qp - kp) < window
+    s = torch.where(mask, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+
+
+def attention_ref_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       d_o: torch.Tensor, *, causal: bool = True,
+                       window: int | None = None,
+                       logit_cap: float | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain gradient of ``attention_ref``: (dq, dk, dv) for the
+    output cotangent ``d_o``, by autograd through the dense oracle, in the
+    inputs' layouts and dtypes.  Materializes (B, Hq, Sq, Sk) f32."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = attention_ref(*leaves, causal=causal, window=window,
+                          logit_cap=logit_cap)
+        return torch.autograd.grad(o, leaves, d_o)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,0 +1,83 @@
+"""Training launcher of the port, on one device.
+
+  # small, on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      --reduced --device cpu --steps 3 --batch 2 --seq 32
+
+  # full-width qwen3-0.6b on the card (the flash kernels run every
+  # attention call, forward and backward):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      --steps 5 --batch 2 --seq 4096
+
+Flags as ``repro.launch.train``'s, except that ``--mesh`` is replaced by
+``--device`` (default cuda): a mesh of several devices is not ported yet.
+Weights are the port's own random ones (seed 0, as ``repro``'s
+``Trainer.init``).
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.models import active_param_count, param_count
+from repro_torch.optim import AdamWConfig
+from repro_torch.train import TrainConfig, Trainer
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args()
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
+                      vocab=cfg.vocab,
+                      src_len=128 if cfg.family == "encdec" else 0)
+    tcfg = TrainConfig(
+        opt=AdamWConfig(lr=args.lr, total_steps=args.steps),
+        microbatches=args.microbatches,
+        compress_dp_grads=args.compress_grads)
+    trainer = Trainer(cfg, tcfg, dcfg, ckpt_dir=args.ckpt_dir,
+                      log_every=1, device=args.device)
+    on_card = torch.device(args.device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params, state = trainer.init()
+    print(f"arch={cfg.name} device={args.device} "
+          f"params={param_count(params)}")
+    params, state, history = trainer.run(args.steps, params=params,
+                                         state=state)
+    losses = [h["loss"] for h in history]
+    times = [h["step_time_s"] for h in history[1:]] or [
+        history[0]["step_time_s"]]
+    mean_s = float(np.mean(times))
+    print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(mean step {mean_s * 1e3:.0f} ms)")
+    if on_card:
+        tokens = args.batch * args.seq
+        flops = 6 * active_param_count(cfg, params) * tokens
+        print(f"{tokens / mean_s:.0f} tokens/s, model {flops / mean_s:.3g} "
+              f"FLOP/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+              f"{torch.cuda.get_device_name()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,15 @@
-"""Decoder layers of the port (the GQA and MLA serving subset of
+"""Decoder layers of the port (the GQA and MLA decoder subset of
 ``repro.models.layers``), as plain functions on tensors.
 
 Layouts follow ``repro``: activations (B, S, D), heads (B, S, H, Dh),
 weights (d_in, d_out) used as ``x @ W``.  The mesh-sharding constraints of
 the JAX layers are no-ops without a mesh and are left out.
+
+Dense attention over a whole sequence (``attention``) has two lowerings:
+on CUDA the hand-written flash kernels (``kernels.attention.attention.
+flash_attention``, differentiable through its backward kernel), and
+elsewhere, or with ``use_kernel=False``, ``repro``'s chunked online-softmax
+formulation.
 """
 from __future__ import annotations
 
@@ -12,6 +18,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.attention import attention as K
 
 Params = dict[str, Any]
 
@@ -75,6 +83,87 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.reshape(x.shape).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Dense attention over a whole sequence
+# ---------------------------------------------------------------------------
+
+def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+                window: int | None) -> torch.Tensor:
+    """(Sq, Sk) boolean mask; True = attend."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def _is_arange(pos: torch.Tensor, n: int) -> bool:
+    return (pos.dim() == 1 and pos.shape[0] == n and bool(
+        (pos == torch.arange(n, device=pos.device)).all()))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              q_positions: torch.Tensor, k_positions: torch.Tensor,
+              causal: bool = True, window: int | None = None,
+              logit_cap: float | None = None, q_chunk: int = 1024,
+              scale: float | None = None,
+              use_kernel: bool | None = None) -> torch.Tensor:
+    """Softmax attention: q (B, Sq, Hq, Dh); k, v (B, Sk, Hkv, Dh) with
+    Hq % Hkv == 0 (GQA) -> (B, Sq, Hq, Dh).
+
+    ``use_kernel=None`` takes the flash kernels exactly when q is on CUDA;
+    they serve one sequence attending to itself (q_positions ==
+    k_positions == arange(S)) at the default scale 1/sqrt(Dh), and any
+    other call raises there (checking the positions reads them on the
+    host).  The plain version is ``repro``'s chunked online-softmax
+    formulation with its cast points: K/V repeated over the G query heads,
+    f32 scores from the stored inputs, the finite -1e30 mask, weights
+    rounded to v's dtype before the PV product, f32 accumulation, one
+    query chunk of ``q_chunk`` rows at a time.  ``repro`` also rematerializes
+    each chunk in its backward; here autograd keeps each chunk's weights,
+    and the model's per-layer remat bounds that to one layer."""
+    b, sq, hq, dh = q.shape
+    _, sk, hkv, dhv = v.shape
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    if use_kernel:
+        if not (sq == sk and _is_arange(q_positions, sq)
+                and _is_arange(k_positions, sk)):
+            raise ValueError("the flash kernels take one sequence attending "
+                             "to itself: positions must be arange(S) on "
+                             "both sides")
+        if scale is not None and scale != 1.0 / math.sqrt(dh):
+            raise ValueError(f"the flash kernels use scale 1/sqrt({dh}), "
+                             f"got {scale}")
+        return K.flash_attention(q, k, v, causal=causal, window=window,
+                                 logit_cap=logit_cap)
+    g = hq // hkv
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qc = min(q_chunk, sq)
+    kr = k.transpose(1, 2).float()   # (B, Hq, Sk, Dh)
+    vr = v.transpose(1, 2)           # (B, Hq, Sk, Dhv)
+    outs = []
+    for c0 in range(0, sq, qc):
+        qi = q[:, c0:c0 + qc].transpose(1, 2).float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qi, kr) * scale
+        s = softcap(s, logit_cap)
+        mask = _chunk_mask(q_positions[c0:c0 + qc], k_positions,
+                           causal=causal, window=window)
+        s = torch.where(mask[None, None], s, -1e30)
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        z = e.sum(dim=-1, keepdim=True)
+        p_mat = (e / torch.clamp(z, min=1e-30)).to(vr.dtype)
+        o = torch.einsum("bhqk,bhkd->bhqd", p_mat.float(), vr.float())
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=2).transpose(1, 2)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype) -> torch.Tensor:
     """(d_in, d_out) normal weights with std 1/sqrt(d_in), drawn in f32
@@ -134,6 +223,19 @@ def gqa_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def apply_gqa(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              use_kernel: bool | None = None) -> torch.Tensor:
+    """Grouped-query self-attention over a whole sequence: (B, S, D) ->
+    (B, S, D)."""
+    b, s, _ = x.shape
+    q, k, v = gqa_qkv(p, cfg, x, positions)
+    o = attention(q, k, v, q_positions=positions, k_positions=positions,
+                  causal=causal, window=window, logit_cap=cfg.softcap_attn,
+                  q_chunk=cfg.q_chunk, use_kernel=use_kernel)
+    return o.reshape(b, s, -1) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -233,3 +335,17 @@ def latent_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     p_mat = (e / torch.clamp(z, min=1e-30)).to(c_kv.dtype)
     o = torch.einsum("bhqs,bsk->bqhk", p_mat.float(), c_kv.float())
     return o.to(q_lat.dtype)
+
+
+def apply_mla(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
+              ) -> torch.Tensor:
+    """MLA over a whole sequence with the latent kept compressed: queries
+    projected into the latent space (absorbed W_uk) attend to c_kv
+    directly through ``latent_attention`` (``repro`` has no Pallas kernel
+    here either), then expand through W_uv."""
+    q_lat, q_rope = mla_absorbed_q(p, cfg, x, positions)
+    c_kv, k_rope = mla_latents(p, cfg, x, positions)
+    o_lat = latent_attention(q_lat, q_rope, c_kv, k_rope,
+                             q_positions=positions, k_positions=positions,
+                             scale=mla_scale(cfg), causal=True)
+    return mla_out(p, cfg, o_lat)

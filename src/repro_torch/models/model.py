@@ -1,5 +1,6 @@
-"""Model API of the port (the paged-serving subset of
-``repro.models.model``): init, paged prefill, paged decode."""
+"""Model API of the port (the decoder subset of ``repro.models.model``):
+init, forward and loss for training, paged prefill and decode for
+serving."""
 from __future__ import annotations
 
 from typing import Any
@@ -7,6 +8,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as TF
 
 Params = dict[str, Any]
@@ -19,6 +21,42 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     values differ, since the generators differ)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     return TF.init_decoder(cfg, gen)
+
+
+def forward(params: Params, cfg: ArchConfig, batch: dict, *,
+            remat: bool = True, use_kernel: bool | None = None
+            ) -> torch.Tensor:
+    """batch -> logits (B, S, V) f32."""
+    return TF.forward_decoder(params, cfg, batch["tokens"], remat=remat,
+                              use_kernel=use_kernel)
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: dict, *,
+            remat: bool = True, use_kernel: bool | None = None
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy (+ MoE aux loss), as ``repro``'s
+    ``loss_fn``: labels < 0 are masked out, the mean is over unmasked
+    tokens.  The gold logit is taken with ``torch.gather``, which gives the
+    value ``repro``'s masked vocab-iota sum gives without its (B, S, V)
+    integer iota.  The MoE aux loss is ``repro``'s layer-0 proxy: layer 0's
+    router over the token embeddings."""
+    logits = forward(params, cfg, batch, remat=remat, use_kernel=use_kernel)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    labels = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    metrics = {"nll": loss, "tokens": denom}
+    if cfg.moe is not None and cfg.moe.aux_loss_weight:
+        emb = params["embed"][batch["tokens"]].reshape(-1, cfg.d_model)
+        router0 = TF._layer(params["blocks"], 0)["mlp"]
+        aux = M.aux_load_balance_loss(router0, cfg, emb)
+        loss = loss + cfg.moe.aux_loss_weight * aux
+        metrics["aux"] = aux
+    return loss, metrics
 
 
 def paged_cache_leaf_specs(cfg: ArchConfig, page_size: int
@@ -70,3 +108,15 @@ def decode_ticks(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 def param_count(params: Params) -> int:
     return sum(param_count(v) if isinstance(v, dict) else v.numel()
                for v in params.values())
+
+
+def active_param_count(cfg: ArchConfig, params: Params) -> int:
+    """Active (per-token) parameters: for MoE archs the full expert block
+    is replaced by top_k experts (shared experts stay), as used for
+    MODEL_FLOPS = 6 * N_active * tokens."""
+    total = param_count(params)
+    if not cfg.moe:
+        return total
+    m = cfg.moe
+    expert_params = 3 * cfg.d_model * m.d_ff_expert  # gate/up/down
+    return total - (m.n_experts - m.top_k) * expert_params * cfg.n_layers

@@ -56,6 +56,19 @@ def router_topk(p: Params, cfg, x: torch.Tensor
     return w, ids
 
 
+def aux_load_balance_loss(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss: n_experts * sum over
+    experts of (share of top-k choices) * (mean router probability), over
+    top_k.  x (N, d); the choices take ``router_topk``'s tie rule (lower
+    expert id first), and only the probabilities carry a gradient."""
+    m = cfg.moe
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    ids = torch.sort(probs.detach(), dim=-1, descending=True,
+                     stable=True).indices[:, :m.top_k]
+    frac = F.one_hot(ids, m.n_experts).float().mean(dim=(0, 1))
+    return m.n_experts * torch.sum(frac * probs.mean(0)) / m.top_k
+
+
 def _expert_ffn(p: Params, xs: torch.Tensor) -> torch.Tensor:
     """xs (E, C, d) -> (E, C, d); SwiGLU per expert."""
     h = F.silu(torch.bmm(xs, p["gate"])) * torch.bmm(xs, p["up"])

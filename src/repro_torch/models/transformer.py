@@ -1,5 +1,6 @@
-"""Decoder-only LM backbone, paged serving half (port of the paged paths of
-``repro.models.transformer``): GQA and MLA attention, dense and MoE MLPs.
+"""Decoder-only LM backbone (port of ``repro.models.transformer``): the
+full-sequence forward of training and the paged serving paths; GQA and MLA
+attention, dense and MoE MLPs.
 
 Parameters are a nested dict of tensors with layer-stacked blocks (leading
 L dim), as in ``repro``; the layers run as a Python loop.  Page pools are
@@ -16,6 +17,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.attention import ops as A
@@ -52,6 +54,15 @@ def _layer_windows(cfg: ArchConfig, n_layers: int) -> list[int]:
 def _layer(blocks: Params, i: int) -> Params:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+def _unstack(blocks: Params, n: int) -> list[Params]:
+    """Layer-stacked blocks -> one dict per layer, by ``unbind``: the
+    backward stacks the n layers' gradients once, where n separate index
+    views would each scatter into a zero tensor of the whole stack."""
+    cols = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+            for k, v in blocks.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype
@@ -141,6 +152,45 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return L.mask_vocab(L.softcap((x @ head).float(), cfg.softcap_logits),
                         cfg.vocab)
+
+
+def _block_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor, window: int,
+                 use_kernel: bool | None = None) -> torch.Tensor:
+    """One decoder block over whole sequences: (B, S, D) -> (B, S, D)."""
+    h = L.rms_norm(x, p["ln1"])
+    if cfg.attn == "mla":
+        a = L.apply_mla(p["attn"], cfg, h, positions)
+    else:
+        a = L.apply_gqa(p["attn"], cfg, h, positions, window=window,
+                        use_kernel=use_kernel)
+    return _mlp_residual(p, cfg, x, a)
+
+
+def forward_decoder(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                    *, remat: bool = True,
+                    use_kernel: bool | None = None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V) f32.
+
+    ``remat`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
+    wraps ``repro``'s scan body: only the blocks' inputs are kept, and on
+    CUDA each block launches the flash forward kernel twice per training
+    step (forward and recompute) and the backward kernel once.  Global
+    layers take the window INT32_MAX, as ``repro`` threads it."""
+    _check_decoder(cfg)
+    _, s = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(s, device=x.device)
+    windows = _layer_windows(cfg, cfg.n_layers)
+    for blk, window in zip(_unstack(params["blocks"], cfg.n_layers),
+                           windows):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_block_apply, blk, cfg, x, positions, window,
+                           use_kernel, use_reentrant=False)
+        else:
+            x = _block_apply(blk, cfg, x, positions, window, use_kernel)
+    return _logits(params, cfg, x)
 
 
 def prefill_chunk_decoder(params: Params, cfg: ArchConfig,

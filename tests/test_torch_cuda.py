@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version on the same CUDA inputs (the paged GQA pair and the MLA
-latent pair), and the serving engine on CUDA running the kernels on every
-prefill chunk and decode tick.
+PyTorch version on the same CUDA inputs (the paged GQA pair, the MLA
+latent pair, and the dense flash forward and backward), the serving engine
+on CUDA running the kernels on every prefill chunk and decode tick, and a
+train step on CUDA running the flash kernels.
 
 These tests carry the ``cuda`` marker and skip on a host without a card;
 the file imports neither JAX nor ``repro``, so it also runs where only
@@ -10,7 +11,9 @@ PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: kernel vs plain f32 atol 1e-4; bf16 atol 2e-2 (the plain
-version rounds the softmax weights to bf16, the kernel keeps f32).
+version rounds the softmax weights to bf16, the kernel keeps f32).  The
+flash kernels' gradients are held relative to max(1, max |plain|), as
+``chip_smoke.py`` holds them.
 """
 import dataclasses
 import math
@@ -21,7 +24,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.kernels.attention import attention as K
-from repro_torch.kernels.attention import ops
+from repro_torch.kernels.attention import ops, ref
 from repro_torch.models import init_params
 from repro_torch.serve import Request, ServeEngine
 
@@ -38,6 +41,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -264,3 +268,114 @@ def test_mla_and_moe_engines_on_cuda_match_cpu(cuda, arch):
             eng.stats["prefill_calls"] * cfg.n_layers > 0
         assert K.paged_latent_decode.launches == \
             eng.stats["decode_steps"] * cfg.n_layers > 0
+
+
+# ---------------------------------------------------------------------------
+# dense flash attention (training path)
+# ---------------------------------------------------------------------------
+
+# As chip_smoke.FLASH_TOL: max abs error over max(1, max |plain|); bf16
+# rounds the softmax weights and dS to bf16 before the tensor-core products.
+FLASH_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+FLASH_KW = [{"causal": True}, {"causal": False},
+            {"causal": True, "window": 9}, {"causal": True, "logit_cap": 5.0},
+            {"causal": False, "window": 20, "logit_cap": 30.0}]
+
+
+def _rel(a, b):
+    return _err(a, b) / max(1.0, b.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_DTYPES)
+@pytest.mark.parametrize("kw", FLASH_KW)
+@pytest.mark.parametrize("g,d,s", [(1, 64, 128), (2, 128, 77), (8, 256, 77),
+                                   (3, 16, 50)])
+def test_flash_kernels_match_plain(cuda, dtype, tol, kw, g, d, s):
+    """Forward O and backward dQ, dK, dV through the autograd Function
+    against ``attention_ref`` and its autograd gradient; each call
+    launches each kernel once."""
+    gen = torch.Generator(device=cuda).manual_seed(g * d + s)
+    b, hkv = 2, 2
+    q, k, v, d_o = (_rand(gen, b, s, h, d, dtype=dtype)
+                    for h in (hkv * g, hkv, hkv, hkv * g))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = K.flash_attention.launches, K.flash_attention_bwd.launches
+    o = K.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(o, leaves, d_o)
+    torch.cuda.synchronize()
+    assert (K.flash_attention.launches, K.flash_attention_bwd.launches) == \
+        (f0 + 1, b0 + 1)
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want_o = ref.attention_ref(*tr[:3], **kw).transpose(1, 2)
+    want_g = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr, **kw)]
+    assert _rel(o, want_o) <= tol
+    for got, want in zip(grads, want_g):
+        assert got.dtype == dtype and _rel(got, want) <= tol
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _rand(gen, 1, 8, 4, 16, dtype=torch.float32)
+    k = _rand(gen, 1, 8, 2, 16, dtype=torch.float32)
+    with pytest.raises(TypeError):
+        K.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):          # not (B, S, H, D) over one S
+        K.flash_attention(q, k[:, :4].contiguous(), k[:, :4].contiguous())
+    with pytest.raises(ValueError):          # heads do not group
+        K.flash_attention(q[:, :, :3].contiguous(), k, k)
+    with pytest.raises(ValueError):          # head_dim not a multiple of 8
+        K.flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                          k[..., :12].contiguous())
+    with pytest.raises(ValueError):          # G above the kernel's 32
+        K.flash_attention(_rand(gen, 1, 8, 33, 16, dtype=torch.float32),
+                          k[:, :, :1].contiguous(), k[:, :, :1].contiguous())
+    with pytest.raises(ValueError):          # not contiguous
+        K.flash_attention(q.transpose(1, 2), k, k)
+    with pytest.raises(ValueError):          # other positions on CUDA
+        from repro_torch.models import layers as L
+        pos = torch.arange(8, device=cuda)
+        L.attention(q, k, k, q_positions=pos + 1, k_positions=pos + 1)
+
+
+def test_train_step_on_cuda_runs_the_kernels_and_matches_cpu(cuda):
+    """One reduced qwen3 train step on CUDA (float32) launches the flash
+    kernels 2 x layers times forward (remat recomputes) and layers times
+    backward, and lands where the same step on the CPU (plain attention)
+    lands: loss and gradient norm to 1e-5 relative, the first moment
+    within 1e-4 of each leaf's max, and params within 1e-5 plus what that
+    moment tolerance allows through AdamW's sign-like first step (an
+    element whose gradient is near zero may move either way, by up to
+    2 lr; see tests/test_torch_train.py)."""
+    from repro_torch.data.pipeline import DataConfig, global_batch_rowwise
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import TrainConfig, init_train_state, train_step
+
+    cfg = configs.get_arch("qwen3-0.6b").reduced()
+    lr = 1e-3
+    tcfg = TrainConfig(opt=AdamWConfig(lr=lr, warmup_steps=1))
+    dcfg = DataConfig(seq_len=40, global_batch=2, vocab=cfg.vocab)
+    out = {}
+    f0, b0 = K.flash_attention.launches, K.flash_attention_bwd.launches
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), init_params(cfg, seed=0,
+                                                      device="cpu"))
+        p, st, m = train_step(p, init_train_state(cfg, tcfg, p),
+                              global_batch_rowwise(dcfg, 0, device=dev),
+                              cfg=cfg, tcfg=tcfg)
+        out[dev] = (m, [t.cpu() for t in tree_leaves(p)],
+                    [t.cpu() for t in tree_leaves(st["opt"]["m"])],
+                    [t.cpu() for t in tree_leaves(st["opt"]["v"])])
+    assert (K.flash_attention.launches - f0,
+            K.flash_attention_bwd.launches - b0) == (2 * cfg.n_layers,
+                                                     cfg.n_layers)
+    mc, mg = out["cpu"][0], out["cuda"][0]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mg[key]) - float(mc[key])) <= 1e-5 * abs(
+            float(mc[key])), key
+    for pg, m_g, _, pc, m_c, v_c in zip(*out["cuda"][1:], *out["cpu"][1:]):
+        assert _err(m_g, m_c) <= 1e-4 * m_c.abs().max().item()
+        sens = (1e-4 * m_c.abs().max() / 0.1
+                / (torch.sqrt(v_c / 0.05) + 1e-8))
+        tol = 1e-5 + lr * torch.clamp(sens, max=2.0)
+        assert bool(((pg - pc).abs() <= tol).all())

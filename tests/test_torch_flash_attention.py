@@ -1,0 +1,372 @@
+"""The port's dense flash attention against ``repro`` on the CPU: the plain
+versions (``ref.attention_ref``, ``ops.flash_attention`` and the plain
+gradient) against ``repro``'s oracle, its Pallas kernel in interpret mode
+and ``jax.grad`` of its chunked model attention; and CPU emulations of the
+two CUDA kernels' tile walks (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``
+and their tensor-core versions in ``csrc/flash_mma.cuh``) against the
+plain versions.
+
+Inputs are numpy draws from a seed.  Tolerances:
+- plain forward vs ``repro`` in float32: atol 2e-5 (as
+  ``tests/test_kernels.py``); bf16 with a softcap: atol 3e-2, as there;
+- plain gradient vs ``jax.grad`` in float32: atol 1e-5;
+- tile-walk emulations vs the plain version: float32 (the CUDA-core walk)
+  atol 1e-5 on O and the log-sum-exp, 2e-5 on gradients, which sum over
+  more terms; the tensor-core walk, which rounds the softmax weights and
+  dS to bf16 before its products and O, dQ, dK, dV on the way out, within
+  2e-2 of max(1, max |plain|), the bound ``chip_smoke.py`` holds the
+  kernels to on the card.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attention import attention_ref as jattention_ref
+from repro.kernels.attention import flash_attention_pallas
+from repro.models import layers as JL
+from repro_torch.kernels.attention import attention as K
+from repro_torch.kernels.attention import ops, ref
+from repro_torch.models import layers as TL
+
+torch.set_num_threads(1)
+NEG = -1e30
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _bhsd(rng, b, hq, hkv, s, d):
+    return (_rand(rng, b, hq, s, d), _rand(rng, b, hkv, s, d),
+            _rand(rng, b, hkv, s, d))
+
+
+# ---------------------------------------------------------------------------
+# plain versions against repro
+# ---------------------------------------------------------------------------
+
+FWD_CASES = ([dict(hq=hq, hkv=hkv, s=64, d=32, causal=c, bq=32, bk=16)
+              for hq, hkv in [(4, 4), (4, 2), (8, 1)] for c in (True, False)]
+             + [dict(hq=2, hkv=2, s=128, d=16, causal=True, window=w, bq=32,
+                     bk=32) for w in (8, 32)]
+             + [dict(hq=2, hkv=2, s=64, d=32, causal=True, logit_cap=50.0,
+                     bq=32, bk=32)])
+
+
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_plain_forward_matches_jax(case):
+    """``test_kernels.py:57-111``'s GQA, window and softcap cases: the
+    port's ``attention_ref`` against ``repro``'s, and the CPU lowering of
+    ``ops.flash_attention`` (model layout) against
+    ``flash_attention_pallas(interpret=True)``."""
+    case = dict(case)
+    bq, bk = case.pop("bq"), case.pop("bk")
+    hq, hkv, s, d = (case.pop(k) for k in ("hq", "hkv", "s", "d"))
+    b = 2 if s == 64 else 1
+    q, k, v = _bhsd(np.random.default_rng(hq * 10 + s), b, hq, hkv, s, d)
+    want = jattention_ref(q, k, v, **case)
+    got = ref.attention_ref(*map(torch.from_numpy, (q, k, v)), **case)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=0)
+    pallas = flash_attention_pallas(q, k, v, bq=bq, bk=bk, interpret=True,
+                                    **case)
+    tq, tk, tv = (torch.from_numpy(x).transpose(1, 2).contiguous()
+                  for x in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, **case)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(),
+                               np.asarray(pallas), atol=2e-5, rtol=0)
+
+
+def test_plain_forward_softcap_bf16_matches_jax():
+    rng = np.random.default_rng(6)
+    q, k, v = (jnp.asarray(x, jnp.bfloat16)
+               for x in _bhsd(rng, 1, 2, 2, 64, 32))
+    want = flash_attention_pallas(q, k, v, causal=True, logit_cap=50.0,
+                                  bq=32, bk=32, interpret=True)
+    tq, tk, tv = (torch.from_numpy(np.asarray(x, np.float32))
+                  .to(torch.bfloat16).transpose(1, 2).contiguous()
+                  for x in (q, k, v))
+    got = K.flash_attention(tq, tk, tv, causal=True, logit_cap=50.0)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.transpose(1, 2).float().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2,
+                               rtol=3e-2)
+
+
+GRAD_CASES = [dict(causal=True), dict(causal=False),
+              dict(causal=True, window=5), dict(causal=True, logit_cap=4.0),
+              dict(causal=False, window=7, logit_cap=9.0)]
+
+
+@pytest.mark.parametrize("kw", GRAD_CASES)
+def test_plain_gradient_matches_jax_grad(kw):
+    """dq, dk and dv of the port's plain gradient (``attention_ref_grad``,
+    the CPU ``flash_attention_bwd``, and autograd through the CPU
+    ``flash_attention``) against ``jax.grad`` of ``repro``'s chunked
+    ``layers.attention`` (two query chunks)."""
+    rng = np.random.default_rng(len(kw) * 7 + int(kw["causal"]))
+    b, s, hq, hkv, d = 2, 24, 4, 2, 16
+    q, k, v = (_rand(rng, b, s, h, d) for h in (hq, hkv, hkv))
+    d_o = _rand(rng, b, s, hq, d)
+    pos = jnp.arange(s)
+
+    def f(q, k, v):
+        return JL.attention(q, k, v, q_positions=pos, k_positions=pos,
+                            q_chunk=16, **kw)
+
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(d_o))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, d_o))
+    got_ref = [g.transpose(1, 2) for g in ref.attention_ref_grad(
+        tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2),
+        tdo.transpose(1, 2), **kw)]
+    got_wrapper = K.flash_attention_bwd(tq, tk, tv, None, None, tdo, **kw)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    o = K.flash_attention(*leaves, **kw)
+    got_autograd = torch.autograd.grad(o, leaves, tdo)
+    for got in (got_ref, got_wrapper, got_autograd):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                       rtol=0)
+
+
+def test_model_attention_lowerings_agree_and_reject_other_positions():
+    """``layers.attention``: the chunked plain version and the kernel
+    lowering (plain on the CPU) agree; the kernel lowering takes only
+    positions arange(S) on both sides and the default scale."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(_rand(rng, 2, 40, h, 16)) for h in (4, 2, 2))
+    pos = torch.arange(40)
+    chunked = TL.attention(q, k, v, q_positions=pos, k_positions=pos,
+                           window=9, logit_cap=5.0, q_chunk=16,
+                           use_kernel=False)
+    lowered = TL.attention(q, k, v, q_positions=pos, k_positions=pos,
+                           window=9, logit_cap=5.0, use_kernel=True)
+    np.testing.assert_allclose(chunked.numpy(), lowered.numpy(), atol=2e-5,
+                               rtol=0)
+    with pytest.raises(ValueError, match="arange"):
+        TL.attention(q, k, v, q_positions=pos + 3, k_positions=pos + 3,
+                     use_kernel=True)
+    with pytest.raises(ValueError, match="scale"):
+        TL.attention(q, k, v, q_positions=pos, k_positions=pos, scale=0.5,
+                     use_kernel=True)
+
+
+# ---------------------------------------------------------------------------
+# CPU emulations of the kernels' tile walks
+# ---------------------------------------------------------------------------
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+class Walk:
+    """Tile sizes of one kernel family: the CUDA-core kernels (32 rows or
+    keys per CTA, 32-key / 32-query tiles, f32 weights) or the tensor-core
+    kernels (64 rows or keys, 64-key / 32-query tiles, bf16 weights)."""
+
+    def __init__(self, rows, tk, keys, tq, mma):
+        self.rows, self.tk, self.keys, self.tq, self.mma = (rows, tk, keys,
+                                                            tq, mma)
+
+    def round(self, x):
+        return _bf16(x) if self.mma else x
+
+
+CUDA_CORES = Walk(rows=32, tk=32, keys=32, tq=32, mma=False)
+TENSOR_CORES = Walk(rows=64, tk=64, keys=64, tq=32, mma=True)
+
+
+def _scores(raw, scale, cap):
+    x = raw * scale
+    cg = torch.ones_like(x)
+    if cap:
+        t = torch.tanh(x / cap)
+        x, cg = t * cap, 1 - t * t
+    return x, cg
+
+
+def _visible(qp, kp, causal, window):
+    ok = (qp[:, None] - kp[None, :]) < window
+    if causal:
+        ok &= kp[None, :] <= qp[:, None]
+    return ok
+
+
+def _q_blocks(s, g, walk):
+    """The kernels' query blocks: bq = rows // G positions x the G heads;
+    row r is head r // bq at position c0 + r % bq."""
+    bq = walk.rows // g
+    for c0 in range(0, s, bq):
+        rows = torch.arange(g * bq)
+        pos = c0 + rows % bq
+        live = pos < s
+        yield c0, bq, (rows // bq)[live], pos[live]
+
+
+def _key_range(c0, q_hi, s, causal, window):
+    return max(0, c0 - window + 1), (q_hi + 1 if causal else s)
+
+
+def emulate_fwd(q, k, v, *, causal, window, cap, walk):
+    """(B, S, H, D) f32 inputs -> (O (B, S, Hq, D), lse (B, Hq, S)), by the
+    forward kernel's walk: per (batch, kv head, query block), key tiles
+    over the block's range, online softmax with masked keys weighing 0."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = 1 / math.sqrt(d)
+    out = torch.zeros_like(q)
+    lse = torch.zeros(b, hq, s)
+    for bi in range(b):
+        for h in range(hkv):
+            for c0, bq, head, pos in _q_blocks(s, g, walk):
+                qr = q[bi, pos, h * g + head]                 # (R, D)
+                m = torch.full((len(pos),), NEG)
+                l = torch.zeros(len(pos))
+                acc = torch.zeros(len(pos), d)
+                lo, hi = _key_range(c0, int(pos.max()), s, causal, window)
+                for t0 in range(lo, hi, walk.tk):
+                    kp = torch.arange(t0, min(t0 + walk.tk, hi))
+                    x, _ = _scores(qr @ k[bi, kp, h].T, scale, cap)
+                    ok = _visible(pos, kp, causal, window)
+                    x = torch.where(ok, x, NEG)
+                    m_new = torch.maximum(m, x.max(1).values)
+                    p = torch.where(ok, torch.exp(x - m_new[:, None]), 0.0)
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + p.sum(1)
+                    acc = acc * alpha[:, None] + walk.round(p) @ v[bi, kp, h]
+                    m = m_new
+                out[bi, pos, h * g + head] = acc / l.clamp(min=1e-30)[:, None]
+                lse[bi, h * g + head, pos] = m + torch.log(l.clamp(min=1e-30))
+    return walk.round(out), lse
+
+
+def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk):
+    """(dq, dk, dv) by the backward kernel's three launches: Delta, the dQ
+    pass over the forward's query blocks, and the dK/dV pass per (kv head,
+    key block) over the G heads and their query tiles."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = 1 / math.sqrt(d)
+    delta = (d_o * o).sum(-1).transpose(1, 2)                 # (B, Hq, S)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for bi in range(b):
+        for h in range(hkv):
+            for c0, bq, head, pos in _q_blocks(s, g, walk):
+                hh = h * g + head
+                qr, gr = q[bi, pos, hh], d_o[bi, pos, hh]
+                acc = torch.zeros(len(pos), d)
+                lo, hi = _key_range(c0, int(pos.max()), s, causal, window)
+                for t0 in range(lo, hi, walk.tk):
+                    kp = torch.arange(t0, min(t0 + walk.tk, hi))
+                    x, cg = _scores(qr @ k[bi, kp, h].T, scale, cap)
+                    ok = _visible(pos, kp, causal, window)
+                    p = torch.where(
+                        ok, torch.exp(x - lse[bi, hh, pos][:, None]), 0.0)
+                    dp = gr @ v[bi, kp, h].T
+                    ds = p * (dp - delta[bi, hh, pos][:, None]) * cg
+                    acc += walk.round(ds) @ k[bi, kp, h]
+                dq[bi, pos, hh] = acc * scale
+            for k0 in range(0, s, walk.keys):
+                kp = torch.arange(k0, min(k0 + walk.keys, s))
+                kb, vb = k[bi, kp, h], v[bi, kp, h]
+                dk_acc = torch.zeros(len(kp), d)
+                dv_acc = torch.zeros(len(kp), d)
+                q_lo = k0 if causal else 0
+                q_hi = min(s, int(kp[-1]) + window)
+                for gi in range(g):
+                    hh = h * g + gi
+                    for t0 in range(q_lo, q_hi, walk.tq):
+                        qp = torch.arange(t0, min(t0 + walk.tq, q_hi))
+                        x, cg = _scores(kb @ q[bi, qp, hh].T, scale, cap)
+                        ok = _visible(qp, kp, causal, window).T  # (keys, q)
+                        p = torch.where(ok, torch.exp(x - lse[bi, hh, qp]),
+                                        0.0)
+                        dpt = vb @ d_o[bi, qp, hh].T
+                        ds = p * (dpt - delta[bi, hh, qp]) * cg
+                        dv_acc += walk.round(p) @ d_o[bi, qp, hh]
+                        dk_acc += walk.round(ds) @ q[bi, qp, hh]
+                dk[bi, kp, h] = dk_acc * scale
+                dv[bi, kp, h] = dv_acc
+    return tuple(walk.round(t) for t in (dq, dk, dv))
+
+
+EMU_CASES = [dict(causal=True), dict(causal=False),
+             dict(causal=True, window=9), dict(causal=True, logit_cap=5.0),
+             dict(causal=False, window=20, logit_cap=30.0)]
+
+
+@pytest.mark.parametrize("walk", [CUDA_CORES, TENSOR_CORES],
+                         ids=["cuda_cores", "tensor_cores"])
+@pytest.mark.parametrize("g,s", [(1, 77), (2, 128), (3, 77), (8, 70)])
+@pytest.mark.parametrize("kw", EMU_CASES)
+def test_kernel_tile_walks_match_plain(walk, g, s, kw):
+    """Both kernels' walks: query blocks of G heads x rows/G positions
+    (G = 3 leaves rows unused), the ragged last tile (S = 77, 70), the
+    causal, window and softcap masks, only the tiles the masks leave, the
+    row log-sum-exp, and dK/dV summed over the G heads of a kv head."""
+    rng = np.random.default_rng(g * 100 + s)
+    b, hkv, d = 2, 2, 16
+    q, k, v, d_o = (torch.from_numpy(_rand(rng, b, s, h, d))
+                    for h in (hkv * g, hkv, hkv, hkv * g))
+    if walk.mma:     # the tensor-core kernels take bf16 inputs
+        q, k, v, d_o = map(_bf16, (q, k, v, d_o))
+    window = kw.get("window", 2 ** 31 - 1)
+    cap = kw.get("logit_cap")
+    o, lse = emulate_fwd(q, k, v, causal=kw["causal"], window=window,
+                         cap=cap, walk=walk)
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want_o = ref.attention_ref(*tr[:3], **kw).transpose(1, 2)
+    grads = emulate_bwd(q, k, v, o, lse, d_o, causal=kw["causal"],
+                        window=window, cap=cap, walk=walk)
+    want_g = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr, **kw)]
+    # the row log-sum-exp of the plain version's masked, capped scores
+    qe, ke = tr[0], tr[1].repeat_interleave(g, 1)
+    x = qe @ ke.transpose(-1, -2) / math.sqrt(d)
+    if cap:
+        x = torch.tanh(x / cap) * cap
+    pos = torch.arange(s)
+    x = torch.where(_visible(pos, pos, kw["causal"], window), x, NEG)
+    want_lse = torch.logsumexp(x, -1)
+    if walk.mma:
+        tol = lambda w: 2e-2 * max(1.0, float(w.abs().max()))  # noqa: E731
+        assert float((lse - want_lse).abs().max()) <= 1e-4
+    else:
+        tol = lambda w: 1e-5 if w is want_o else 2e-5  # noqa: E731
+        assert float((lse - want_lse).abs().max()) <= 1e-5
+    assert float((o - want_o).abs().max()) <= tol(want_o)
+    for got, want in zip(grads, want_g):
+        assert float((got - want).abs().max()) <= tol(want)
+
+
+def test_autograd_function_joins_the_two_wrappers(monkeypatch):
+    """``FlashAttention`` on the CPU, with the forward kernel replaced by
+    its emulation: the forward saves what the backward wrapper needs, and
+    the gradient reaches q, k and v in their layouts."""
+    rng = np.random.default_rng(5)
+    q, k, v, d_o = (torch.from_numpy(_rand(rng, 2, 40, h, 16))
+                    for h in (4, 2, 2, 4))
+    calls = []
+
+    def fwd(q, k, v, *, causal, window, logit_cap):
+        calls.append((causal, window, logit_cap))
+        return emulate_fwd(q, k, v, causal=causal, window=window or 2 ** 31,
+                           cap=logit_cap, walk=CUDA_CORES)
+
+    monkeypatch.setattr(K, "_flash_fwd", fwd)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = K.FlashAttention.apply(*leaves, True, 9, 5.0)
+    got = torch.autograd.grad(o, leaves, d_o)
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want = [t.transpose(1, 2) for t in ref.attention_ref_grad(
+        *tr, causal=True, window=9, logit_cap=5.0)]
+    assert calls == [(True, 9, 5.0)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= 2e-5
