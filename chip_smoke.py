@@ -9,12 +9,16 @@ Phases, in order; any failure ends the script with a nonzero exit:
 2. Build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc for
    sm_90a into ``build/repro_torch/`` (registers and shared memory from
    ``-Xptxas -v``).
-3. Kernels against their plain versions: each of the six hand-written
+3. Kernels against their plain versions: each of the eight hand-written
    kernels and its plain PyTorch version on the same CUDA inputs, at the
-   serving or training shapes in bf16 and f32 and on small prime/odd
+   serving, training or PACO shapes in bf16 and f32 and on small prime/odd
    geometries (GQA: windows and softcaps; MLA latent: H = 3 and 5, narrow
    latents; dense flash forward and backward: G 1, 2 and 8, D 16 to 256,
-   S 77 and 128, causal or not, windows, softcaps) (tolerances: f32 atol
+   S 77 and 128, causal or not, windows, softcaps; matmul: odd and prime
+   shapes, strided views and every cuboid of plan_mm_1piece(8192, 8192,
+   8192, 132), MM_TOL; LCS tile: tiles 1 to 8192 on monotone and on
+   arbitrary int32 borders, and the longest anti-diagonal of the
+   n = 65,536 run, bit-exact) (tolerances: f32 atol
    1e-4; bf16 atol 2e-2, since the two round the softmax weights at
    different points; the flash kernels relative to max(1, max |plain|),
    FLASH_TOL).  Device times of the kernel, the plain version and one
@@ -24,7 +28,11 @@ Phases, in order; any failure ends the script with a nonzero exit:
    deepseek-v2; the eager per-call time of the kernel, host launch cost
    included, is printed beside it; the flash kernels at B 2 x S 4096,
    their plain versions and SDPA timed eagerly), and the bound from the
-   shapes (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16).
+   shapes (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16; the matmul
+   row: the 132 cuboid products of one paco_matmul at 8192^3 in bf16,
+   against torch.matmul on the same views, f32 beside it; the LCS row:
+   one launch over 256 tiles of 256, int32 operations at 16.7 TOP/s, no
+   library call).
 4. One full-width qwen3-0.6b prompt chunk per slot and 8 decode ticks
    through the kernels and through the plain path (``use_kernel=False``)
    with the same seeded random weights, in float32 and in bf16: logits
@@ -57,6 +65,14 @@ Phases, in order; any failure ends the script with a nonzero exit:
    launch counts are zeroed just before and read just after: 2 x 28
    forward and 28 backward launches per step.  Then the parameters go
    through the port's checkpoint and back, bit for bit.
+10. The paper's PACO algorithms at full size, p = the card's SM count
+   (132) and the prime 131 (``paco_algorithms``): LCS of two 65,536-base
+   sequences (p = 132 and 131 in tiles of 256, PO and PA), exactly the
+   plain row scan; paco_matmul on 8192^3 (f32 and bf16) and
+   65536 x 8192 x 512 (f32); Strassen at depth 2 on 8192^2; sample sort
+   of 2^26 floats; 1D (n 2048) and GAP (n 64).  The kernels' launch
+   counts are zeroed before and read after each call: p matmul launches
+   per paco_matmul, 49 per depth-2 Strassen, ti + tj - 1 LCS launches.
 
 Each phase prints its time.
 The second-to-last line is one JSON object with every kernel's numbers;
@@ -84,7 +100,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Dense peaks of the H100 SXM data sheet; int32 from the Hopper white
+# paper's 64 INT32 lanes per SM: 132 SMs x 64 x 1.98 GHz boost (the clock
+# at which 132 x 128 FP32 lanes x 2 give the sheet's 67 TFLOP/s).
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int32: 132 * 64 * 1.98e9}
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Full-model logits of the kernel path vs the plain path, 28 layers deep.
 # The paths differ only in how attention rounds: in float32 by summation
@@ -130,6 +150,32 @@ TRAIN_F32_DEPTH = 2    # float32 full width: logits and grads of 28 layers
 TRAIN_PARITY_TOL = {
     torch.float32: {"loss": 1e-4, "grad_norm": 1e-4, "leaf_rel": 1e-3},
     torch.bfloat16: {"loss": 0.05, "grad_norm": 0.05, "leaf_cosine": 0.98}}
+# The PACO algorithms at full size (phase 10): the shapes of
+# benchmarks/bench_mm.py:53-54 and bench_lcs.py's PO and PA settings.
+PACO_MM_SHAPES = [((8192, 8192, 8192), torch.float32),
+                  ((8192, 8192, 8192), torch.bfloat16),
+                  ((65536, 8192, 512), torch.float32)]
+PACO_MM_N = 8192          # the cube whose 132 cuboids the kernel checks use
+PACO_LCS_N = 65536        # two DNA sequences (4 symbols) of 64 Ki bases
+PACO_SORT_N = 2 ** 26
+PACO_STRASSEN_N = 8192
+# Matmul kernel vs its plain version (``matmul_ref``: cuBLAS in float32,
+# cast to the dtype), as max abs error over max(1, max |plain|).  float32:
+# both sum up to 8192 products in f32 in different orders, which moves a
+# result by ~1e-7 of the largest output on normal inputs; 1e-5 leaves two
+# orders of margin and still catches any wrong tile (an O(1) error).
+# bf16: both sum in f32 and round once to bf16, so a result may differ by
+# one bf16 step (2**-8 relative) where the sums straddle a rounding point.
+MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# paco_matmul and Strassen against the whole product.  paco_matmul in bf16
+# rounds each k-cut's partial product to bf16 and adds them in bf16 (as
+# repro does): a few bf16 steps, 2e-2 of the largest output.  Strassen's
+# pre- and post-additions in f32 cancel terms of the size of the largest
+# output: 1e-4 of it at depth 2.
+PACO_MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+STRASSEN_TOL = 1e-4
+# LCS kernel bound: compare, add, max and running max per DP cell.
+LCS_OPS_PER_CELL = 4
 
 
 def log(msg: str) -> None:
@@ -1282,6 +1328,357 @@ def train(cfg, seed: int, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 3, continued: the PACO kernels (matmul, LCS tile)
+# ---------------------------------------------------------------------------
+
+def _rel_mm(got: torch.Tensor, want: torch.Tensor) -> float:
+    if want.numel() == 0:
+        return 0.0
+    return max_err(got, want) / max(1.0, want.float().abs().max().item())
+
+
+def _cuboid_faces(a: torch.Tensor, b: torch.Tensor, plan):
+    """(A face, B face) views of each non-empty cuboid of a plan."""
+    return [(a[c.n0:c.n1, c.k0:c.k1], b[c.k0:c.k1, c.m0:c.m1])
+            for _, c in plan.tiles if c.volume()]
+
+
+def _symbols(gen: torch.Generator, *shape: int) -> torch.Tensor:
+    """int32 sequences over a 4-letter alphabet (DNA), on the card."""
+    return torch.randint(0, 4, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def _random_borders(gen: torch.Generator, *shape: int, monotone: bool
+                    ) -> torch.Tensor:
+    """int32 border values: sorted small values along the last axis, as
+    ``tests/test_kernels.py:114`` draws them, or any int32 (the kernel's
+    function is defined on every input)."""
+    if monotone:
+        x = torch.randint(0, 3, shape, generator=gen, device="cuda")
+        return torch.sort(x, dim=-1).values.to(torch.int32)
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
+    """Both PACO kernels against their plain versions.  Matmul, f32 and
+    bf16: small, odd and prime shapes (1 x 1 x 1, 17 x 23 x 31,
+    97 x 131 x 61, ...), k = 0, strided views, and every cuboid of
+    ``plan_mm_1piece(8192, 8192, 8192, 132)`` as a view of the full
+    operands (MM_TOL).  LCS, exact: single tiles of 1, 7, 64, 256 and 8192
+    (and ragged M x N) on monotone and on arbitrary int32 borders, and the
+    longest anti-diagonal of the n = 65,536, p = 132 run (256 tiles of 256)
+    on random borders."""
+    from repro_torch.core import plan_mm_1piece
+    from repro_torch.kernels.lcs import lcs as KL
+    from repro_torch.kernels.lcs.ref import lcs_tile_ref, lcs_tiles_ref
+    from repro_torch.kernels.matmul import matmul_kernel
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    dev = "cuda"
+    worst = {"matmul": 0.0, "lcs_tile": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+        pairs = [(rnd(n, k), rnd(k, m)) for n, k, m in
+                 [(1, 1, 1), (17, 23, 31), (97, 131, 61), (128, 32, 128),
+                  (129, 33, 257), (300, 700, 5), (5, 0, 7), (1, 4099, 3)]]
+        # views: row strides of 400 and 500 give each a 16-byte phase; 61
+        # gives none
+        big_a, big_b, odd = rnd(300, 400), rnd(400, 500), rnd(40, 61)
+        pairs += [(big_a[3:200, 7:190], big_b[5:188, 11:300]),
+                  (big_a[1:2, 1:400], big_b[1:400, 499:500]),
+                  (big_a[::2, 8:136], big_b[8:136, 128:384]),
+                  (big_a[:, 5:], big_b[5:, 3:]),
+                  (odd[:, 2:], big_b[:59, 1:9])]
+        n = PACO_MM_N
+        a, b = rnd(n, n), rnd(n, n)
+        pairs += _cuboid_faces(a, b, plan_mm_1piece(n, n, n, 132))
+        for x, y in pairs:
+            err = _rel_mm(matmul_kernel(x, y), matmul_ref(x, y))
+            assert err <= MM_TOL[dtype], ("matmul", dtype, tuple(x.shape),
+                                          x.stride(), tuple(y.shape), err)
+            worst["matmul"] = max(worst["matmul"], err)
+        del a, b, pairs
+    torch.cuda.synchronize()
+
+    for m, n in [(1, 1), (7, 7), (64, 64), (256, 256), (8192, 8192),
+                 (5, 300), (300, 5), (33, 8200)]:
+        for monotone in (True, False):
+            s, t = _symbols(gen, m), _symbols(gen, n)
+            top = _random_borders(gen, n, monotone=monotone)
+            left = _random_borders(gen, m, monotone=monotone)
+            corner = (torch.minimum(top[:1], left[:1]) if monotone else
+                      _random_borders(gen, 1, monotone=False))
+            got = KL.lcs_tile_kernel(s, t, top, left, corner)
+            want = lcs_tile_ref(s, t, top, left, corner)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), ("lcs_tile", m, n, monotone)
+
+    # the longest anti-diagonal of n = 65,536 at p = 132: d = 255, 256 tiles
+    tile, ti = 256, PACO_LCS_N // 256
+    s, t = _symbols(gen, PACO_LCS_N), _symbols(gen, PACO_LCS_N)
+    for monotone in (True, False):
+        rows = _random_borders(gen, 2, ti, tile, monotone=monotone)
+        cols = _random_borders(gen, 2, ti, tile, monotone=monotone)
+        rows, cols = rows.reshape(2, -1), cols.reshape(2, -1)
+        corners = _random_borders(gen, 2, ti, monotone=False)
+        src = (rows.clone(), cols.clone(), corners.clone())
+        d = ti - 1
+        KL.lcs_diagonal_kernel(s, t, rows, cols, corners, d, tile, tile)
+        i = torch.arange(ti, device=dev)
+        j = d - i
+        left = src[1][0].view(ti, tile)[i]
+        bottom, right = lcs_tiles_ref(
+            s.view(ti, tile)[i], t.view(ti, tile)[j],
+            src[0][0].view(ti, tile)[j], left, src[2][0][j])
+        assert torch.equal(rows[1].view(ti, tile)[j], bottom), "bottom rows"
+        assert torch.equal(cols[1].view(ti, tile)[i], right), "right cols"
+        assert torch.equal(corners[1][j], left[:, -1]), "corners"
+        for x, y in zip(src, (rows, cols, corners)):
+            assert torch.equal(x[0], y[0]), "diagonal 255 wrote its inputs"
+    return worst
+
+
+def bench_paco_kernels(gen: torch.Generator, iters: int) -> list[dict]:
+    """Both PACO kernels at the shapes their main path gives them.  Matmul:
+    the 132 cuboid products of one ``paco_matmul`` at 8192^3, p = 132 (in
+    bf16 for the row, f32 beside it), each product read from views of the
+    full operands; the plain version (``matmul_ref``) and the library
+    (``torch.matmul``) on the same 132 views.  LCS: the longest
+    anti-diagonal of the n = 65,536, p = 132 run, 256 tiles of 256, one
+    launch; the plain version (``lcs_tiles_ref``) on the same tiles; no
+    library call computes this function.  Kernel times: CUDA-graph
+    replays; the plain versions and the library eagerly with CUDA events.
+    Bounds: matmul 2 n m k flops; LCS LCS_OPS_PER_CELL int32 operations a
+    cell; bytes: each input read once, each output written once."""
+    from repro_torch.core import plan_mm_1piece
+    from repro_torch.kernels.lcs import lcs as KL
+    from repro_torch.kernels.lcs.ref import lcs_tiles_ref
+    from repro_torch.kernels.matmul import matmul_kernel
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    dev = "cuda"
+    n = PACO_MM_N
+    plan = plan_mm_1piece(n, n, n, 132)
+    mm = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        a = torch.randn(n, n, generator=gen, device=dev).to(dtype)
+        b = torch.randn(n, n, generator=gen, device=dev).to(dtype)
+        faces = _cuboid_faces(a, b, plan)
+        err = max(max_err(matmul_kernel(x, y), matmul_ref(x, y))
+                  for x, y in faces)
+        ms, eager = time_ms(
+            lambda i: [matmul_kernel(x, y) for x, y in faces], 3)
+        plain = _events_loop_ms(lambda: [matmul_ref(x, y) for x, y in faces],
+                                3)
+        library = _events_loop_ms(lambda: [x @ y for x, y in faces], 3)
+        nbytes = sum(x.numel() + y.numel() + x.shape[0] * y.shape[1]
+                     for x, y in faces) * a.element_size()
+        mm[dtype] = _row("matmul", "src/repro_torch/csrc/matmul.cu",
+                         "src/repro/kernels/matmul/matmul.py:35", err, ms,
+                         eager, plain, library, nbytes, 2.0 * n ** 3, dtype)
+        # the same product as one launch on the whole operands, beside
+        # one torch.matmul: the kernel's own rate, apart from the plan's
+        mm[dtype]["whole_ms"] = time_ms(lambda i: matmul_kernel(a, b), 3)[0]
+        mm[dtype]["whole_library_ms"] = _events_loop_ms(lambda: a @ b, 3)
+        del a, b, faces
+        torch.cuda.empty_cache()
+    row = mm[torch.bfloat16]
+    row["work"] = (f"the {len(plan.tiles)} cuboid products of "
+                   f"plan_mm_1piece({n}, {n}, {n}, 132), bf16")
+    for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
+                "max_abs_err", "whole_ms", "whole_library_ms"):
+        row[f"f32_{key}"] = mm[torch.float32][key]
+    rows = [row]
+
+    tile, ti = 256, PACO_LCS_N // 256
+    s, t = _symbols(gen, PACO_LCS_N), _symbols(gen, PACO_LCS_N)
+    rows_b = _random_borders(gen, 2, ti, tile, monotone=True).reshape(2, -1)
+    cols_b = _random_borders(gen, 2, ti, tile, monotone=True).reshape(2, -1)
+    corners = torch.zeros((2, ti), dtype=torch.int32, device=dev)
+    d = ti - 1
+    i = torch.arange(ti, device=dev)
+    tiles_in = (s.view(ti, tile)[i], t.view(ti, tile)[d - i],
+                rows_b[0].view(ti, tile)[d - i], cols_b[0].view(ti, tile)[i],
+                corners[0][d - i])
+    KL.lcs_diagonal_kernel(s, t, rows_b, cols_b, corners, d, tile, tile)
+    bottom, right = lcs_tiles_ref(*tiles_in)
+    err = max(max_err(rows_b[1].view(ti, tile)[d - i], bottom),
+              max_err(cols_b[1].view(ti, tile)[i], right))
+    ms, eager = time_ms(lambda k: KL.lcs_diagonal_kernel(
+        s, t, rows_b, cols_b, corners, d, tile, tile), iters)
+    plain = _events_loop_ms(lambda: lcs_tiles_ref(*tiles_in), 2)
+    cells = ti * tile * tile
+    nbytes = 4 * (6 * ti * tile + 2 * ti)  # s, t, top, left in; out
+    lcs = _row("lcs_tile", "src/repro_torch/csrc/lcs_tile.cu",
+               "src/repro/kernels/lcs/lcs.py:46", err, ms, eager, plain,
+               None, nbytes, LCS_OPS_PER_CELL * cells, torch.int32)
+    lcs["work"] = (f"anti-diagonal {d} of a {PACO_LCS_N}^2 table in tiles "
+                   f"of {tile}: {ti} tiles, {cells} cells, int32")
+    rows.append(lcs)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the paper's PACO algorithms at full size
+# ---------------------------------------------------------------------------
+
+def _timed(fn, counter=None):
+    """(result, host seconds to the synchronise, launches of ``counter``
+    during the call)."""
+    if counter is not None:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, (counter.launches
+                                           if counter is not None else None)
+
+
+def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
+    """The paper's suite on the card, p = the card's SM count (132) and
+    the prime 131, inputs from ``seed``; returns the kernels' launches.
+
+    LCS: two 65,536-symbol sequences over 4 letters through ``paco_lcs`` at
+    p = 132 and 131 (tiles of 256, 511 launches), PO (p = 1, tile 128) and
+    PA (p = 8, tile 8192) as ``benchmarks/bench_lcs.py`` defines them,
+    each exactly equal to the plain row scan ``lcs_reference``; launches ==
+    ti + tj - 1.  MM: ``paco_matmul`` on PACO_MM_SHAPES at both p against
+    ``matmul_ref`` (PACO_MM_TOL), ``torch.matmul``'s time beside it;
+    launches == the plan's non-empty cuboids.  Strassen: ``paco_strassen``
+    and ``strassen`` at depth 2 on 8192^2 f32 (49 leaf products of 2048^3
+    each, 49 launches) against the f32 product (STRASSEN_TOL).  Sort:
+    ``paco_sort`` of 2^26 uniform float32 at p = 132, exactly
+    ``torch.sort``, largest bucket <= 3 n / p (eps 2.0, as
+    ``tests/test_paco_core.py:297``).  1D (n = 2048) and GAP (n = 64, tile
+    4), whose base cases are host loops per element, against their
+    references (atol 1e-5, as the JAX tests)."""
+    from repro_torch import core
+    from repro_torch.kernels.lcs import lcs as KL
+    from repro_torch.kernels.lcs.ops import default_tile
+    from repro_torch.kernels.matmul import matmul_kernel
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.core.matmul import plan as mm_plan
+
+    dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ps = (sms, 131)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    launches = {"matmul": 0, "lcs_tile": 0}
+
+    def report(tag: str, result: dict) -> None:
+        log(f"[paco] {tag}: {json.dumps(result)}; card: {smi}")
+
+    # LCS
+    n = PACO_LCS_N
+    s = torch.tensor(rng.integers(0, 4, n), dtype=torch.int32, device=dev)
+    t = torch.tensor(rng.integers(0, 4, n), dtype=torch.int32, device=dev)
+    want, ref_s, _ = _timed(lambda: int(core.lcs_reference(s, t)))
+    report("lcs reference", {"n": n, "lcs": want, "seconds": ref_s})
+    for label, p, tile in [(f"p={ps[0]}", ps[0], None),
+                           (f"p={ps[1]}", ps[1], None),
+                           ("PO p=1 tile=128", 1, 128),
+                           ("PA p=8 tile=n/8", 8, n // 8)]:
+        got, secs, nl = _timed(lambda: int(core.paco_lcs(s, t, p, tile=tile)),
+                               KL.lcs_diagonal_kernel)
+        tile = tile or default_tile(n, p)
+        report(f"lcs {label}", {"tile": tile, "lcs": got, "seconds": secs,
+                                "cells_per_s": n * n / secs,
+                                "launches": nl})
+        assert got == want, ("paco_lcs", label, got, want)
+        assert nl == 2 * (n // tile) - 1, ("lcs launches", label, nl)
+        launches["lcs_tile"] += nl
+    del s, t
+
+    # MM
+    for (nn, m, k), dtype in PACO_MM_SHAPES:
+        a = torch.randn(nn, k, generator=gen, device=dev).to(dtype)
+        b = torch.randn(k, m, generator=gen, device=dev).to(dtype)
+        want = matmul_ref(a, b)
+        lib, lib_s, _ = _timed(lambda: a @ b)
+        lib_err = _rel_mm(lib, want)
+        del lib
+        for p in ps:
+            got, secs, nl = _timed(lambda: core.paco_matmul(a, b, p),
+                                   matmul_kernel)
+            err = _rel_mm(got, want)
+            del got
+            cuboids = sum(1 for _, c in mm_plan(nn, m, k, p).tiles
+                          if c.volume())
+            report(f"mm {nn}x{m}x{k} {str(dtype)[6:]} p={p}",
+                   {"seconds": secs, "flops_per_s": 2.0 * nn * m * k / secs,
+                    "torch_matmul_seconds": lib_s, "rel_err": err,
+                    "torch_matmul_rel_err": lib_err, "launches": nl,
+                    "cuboids": cuboids})
+            assert err <= PACO_MM_TOL[dtype], ("paco_matmul", dtype, p, err)
+            assert nl == cuboids == p, ("matmul launches", nl, cuboids)
+            launches["matmul"] += nl
+        del a, b, want
+        torch.cuda.empty_cache()
+
+    # Strassen
+    n = PACO_STRASSEN_N
+    a = torch.randn(n, n, generator=gen, device=dev)
+    b = torch.randn(n, n, generator=gen, device=dev)
+    want = matmul_ref(a, b)
+    for label, fn in [(f"paco_strassen p={ps[0]}",
+                       lambda: core.paco_strassen(a, b, ps[0], depth=2)),
+                      ("strassen", lambda: core.strassen(a, b, 2))]:
+        got, secs, nl = _timed(fn, matmul_kernel)
+        err = _rel_mm(got, want)
+        del got
+        report(f"{label} depth=2 {n}^2 float32",
+               {"seconds": secs, "rel_err": err, "launches": nl})
+        assert err <= STRASSEN_TOL, (label, err)
+        assert nl == 49, (label, nl)
+        launches["matmul"] += nl
+    log(f"[paco] strassen_beneficial_depth({n}) at 989 TFLOP/s and "
+        f"3.35 TB/s: {core.strassen_beneficial_depth(n)}")
+    del a, b, want
+    torch.cuda.empty_cache()
+
+    # Sort
+    x = torch.rand(PACO_SORT_N, generator=gen, device=dev)
+    (got, sizes), secs, _ = _timed(lambda: core.paco_sort(
+        x, ps[0], torch.Generator(device=dev).manual_seed(seed + 1)))
+    ref, ref_s, _ = _timed(lambda: torch.sort(x).values)
+    largest = int(sizes.max())
+    report(f"sort 2^26 p={ps[0]}",
+           {"seconds": secs, "torch_sort_seconds": ref_s,
+            "largest_bucket": largest,
+            "largest_over_n_p": largest / (PACO_SORT_N / ps[0])})
+    assert torch.equal(got, ref), "paco_sort is not torch.sort"
+    assert int(sizes.sum()) == PACO_SORT_N
+    assert largest <= 3.0 * PACO_SORT_N / ps[0], largest
+    del x, got, ref
+
+    # 1D and GAP
+    w = torch.tensor(rng.random((2049, 2049)), dtype=torch.float32,
+                     device=dev)
+    got, secs, _ = _timed(lambda: core.paco_onedim(w, ps[0]))
+    want, ref_s, _ = _timed(lambda: core.onedim_reference(w))
+    err = max_err(got, want)
+    report(f"onedim n=2048 p={ps[0]}", {"seconds": secs,
+                                        "reference_seconds": ref_s,
+                                        "max_err": err})
+    assert err <= 1e-5, ("paco_onedim", err)
+    ng = 64
+    sg, wg, w2 = (rng.random((ng + 1, ng + 1)) for _ in range(3))
+    got, secs, _ = _timed(lambda: core.paco_gap(
+        *(torch.tensor(x, device=dev) for x in (sg, wg, w2)), ps[0], tile=4))
+    err = float(np.max(np.abs(got.cpu().numpy()
+                              - core.gap_reference(sg, wg, w2))))
+    report(f"gap n={ng} tile=4 p={ps[0]}", {"seconds": secs, "max_err": err})
+    assert err <= 1e-5, ("paco_gap", err)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1325,17 +1722,20 @@ def main() -> int:
         worst = check_small_geometries(gen)
         worst.update(check_small_latent(gen))
         worst.update(check_flash_small(gen))
+        worst.update(check_paco_kernels(gen))
         log(f"[kernels] small prime/odd/window/softcap geometries ok: "
             f"max err {worst}")
         rows = bench_kernels(cfg, gen, ITERS)
         rows += bench_latent_kernels(cfg_ds, gen, ITERS)
         rows += bench_flash(cfg, gen, FLASH_ITERS)
+        rows += bench_paco_kernels(gen, ITERS)
     for r in rows:
+        library = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
         log(f"[kernels] {r['name']}: err {r['max_abs_err']:.3g} kernel "
             f"{r['ms']:.4f} ms (eager call {r['eager_ms']:.4f} ms) plain "
-            f"{r['plain_ms']:.4f} ms library "
-            f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}); {smi}")
+            f"{r['plain_ms']:.4f} ms library {library} bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); {smi}")
 
     # 4. one chunk and 8 ticks at full width, float32 then bf16
     rng = np.random.default_rng(args.seed)
@@ -1409,6 +1809,12 @@ def main() -> int:
     with phase("qwen3 train"):
         result = train(cfg, args.seed, smi)
         launches.update(result["launches"])
+    torch.cuda.empty_cache()
+
+    # 10. the paper's PACO algorithms at full size, through the matmul and
+    # LCS kernels
+    with phase("paco algorithms"):
+        launches.update(paco_algorithms(args.seed, smi))
 
     for r in rows:
         r["launches"] = launches[r["name"]]

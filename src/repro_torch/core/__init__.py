@@ -1,4 +1,35 @@
-"""PACO core: the part of the paper's partitioner the port plans with."""
-from repro_torch.core.cuboid import Cuboid, MMPlan, plan_mm_1piece
+"""PACO core: the paper's contribution, processor-aware cache-oblivious
+partitioning of divide-and-conquer algorithms (Tang & Gao, 2020), ported
+from ``repro.core`` for one device.  The base cases of the matmul
+executors and of LCS run through the hand-written kernels on a CUDA
+tensor."""
+from repro_torch.core.tree import Assignment, pruned_bfs, geometric_decrease_ok
+from repro_torch.core.cuboid import (
+    Cuboid, MMPlan, plan_mm, plan_mm_1piece, plan_hetero, mesh_factors,
+    megatron_comm_bytes,
+)
+from repro_torch.core.matmul import paco_matmul
+from repro_torch.core.strassen import (
+    strassen, paco_strassen, plan_strassen, strassen_beneficial_depth,
+    OMEGA0,
+)
+from repro_torch.core.lcs import (lcs_reference, lcs_tile, paco_lcs,
+                                  partition_lcs, LCSPlan, Region)
+from repro_torch.core.onedim import (onedim_reference, paco_onedim,
+                                     partition_square, Rect)
+from repro_torch.core.gap import gap_reference, paco_gap
+from repro_torch.core.sort import choose_pivots, paco_sort, sort_by_pivots
 
-__all__ = ["Cuboid", "MMPlan", "plan_mm_1piece"]
+__all__ = [
+    "Assignment", "pruned_bfs", "geometric_decrease_ok",
+    "Cuboid", "MMPlan", "plan_mm", "plan_mm_1piece", "plan_hetero",
+    "mesh_factors", "megatron_comm_bytes",
+    "paco_matmul",
+    "strassen", "paco_strassen", "plan_strassen",
+    "strassen_beneficial_depth", "OMEGA0",
+    "lcs_reference", "lcs_tile", "paco_lcs", "partition_lcs", "LCSPlan",
+    "Region",
+    "onedim_reference", "paco_onedim", "partition_square", "Rect",
+    "gap_reference", "paco_gap",
+    "choose_pivots", "paco_sort", "sort_by_pivots",
+]

@@ -36,24 +36,15 @@ instead; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
-from repro_torch.kernels.build import LIBS
+from repro_torch.kernels.build import c_function as _fn
 
 INT32_MAX = 2 ** 31 - 1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-@functools.cache
-def _fn(lib_name: str, fn_name: str, argtypes: tuple = ()):
-    fn = getattr(LIBS.get(lib_name), fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _limit(lib_name: str, fn_name: str) -> int:

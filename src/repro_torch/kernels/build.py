@@ -12,6 +12,7 @@ CPU tests import every module and this host may have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -87,3 +88,15 @@ def _nvcc() -> str:
 
 
 LIBS = KernelLibraries()
+
+
+@functools.cache
+def c_function(lib_name: str, fn_name: str, argtypes: tuple = ()):
+    """``fn_name`` of the library built from ``csrc/<lib_name>.cu``, with
+    its argument types set (``ctypes.c_void_p`` for each pointer and the
+    stream, so that none is cut to 32 bits) and an int return: the CUDA
+    error of the launch, 0 when none."""
+    fn = getattr(LIBS.get(lib_name), fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version on the same CUDA inputs (the paged GQA pair, the MLA
-latent pair, and the dense flash forward and backward), the serving engine
-on CUDA running the kernels on every prefill chunk and decode tick, and a
-train step on CUDA running the flash kernels.
+latent pair, the dense flash forward and backward, the PACO matmul and
+the LCS tile), the serving engine on CUDA running the kernels on every
+prefill chunk and decode tick, a train step on CUDA running the flash
+kernels, and the PACO executors launching the matmul kernel once per
+cuboid and the LCS kernel once per anti-diagonal.
 
 These tests carry the ``cuda`` marker and skip on a host without a card;
 the file imports neither JAX nor ``repro``, so it also runs where only
@@ -13,7 +15,8 @@ PyTorch is installed:
 Tolerances: kernel vs plain f32 atol 1e-4; bf16 atol 2e-2 (the plain
 version rounds the softmax weights to bf16, the kernel keeps f32).  The
 flash kernels' gradients are held relative to max(1, max |plain|), as
-``chip_smoke.py`` holds them.
+``chip_smoke.py`` holds them, and so is the matmul kernel (f32 1e-5, bf16
+1e-2: chip_smoke's MM_TOL); LCS is exact.
 """
 import dataclasses
 import math
@@ -379,3 +382,170 @@ def test_train_step_on_cuda_runs_the_kernels_and_matches_cpu(cuda):
                 / (torch.sqrt(v_c / 0.05) + 1e-8))
         tol = 1e-5 + lr * torch.clamp(sens, max=2.0)
         assert bool(((pg - pc).abs() <= tol).all())
+
+
+# ---------------------------------------------------------------------------
+# the PACO kernels: matmul and the LCS tile
+# ---------------------------------------------------------------------------
+
+# kernel vs matmul_ref, relative to max(1, max |plain|): two f32 sums in
+# other orders (float32); one bf16 step where the f32 sums round apart
+MM_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
+MM_SHAPES = [(1, 1, 1), (17, 23, 31), (97, 131, 61), (128, 32, 128),
+             (129, 33, 257), (300, 700, 5), (5, 0, 7), (1024, 1985, 2048)]
+
+
+@pytest.mark.parametrize("dtype,tol", MM_DTYPES)
+@pytest.mark.parametrize("shape", MM_SHAPES)
+def test_matmul_kernel_matches_plain(cuda, dtype, tol, shape):
+    """Odd, prime and ragged shapes (the last a cuboid of
+    plan_mm_1piece(8192, 8192, 8192, 132)), k = 0 included."""
+    from repro_torch.kernels.matmul import matmul_kernel, matmul_ref
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    n, k, m = shape
+    a, b = _rand(gen, n, k, dtype=dtype), _rand(gen, k, m, dtype=dtype)
+    before = matmul_kernel.launches
+    got = matmul_kernel(a, b)
+    torch.cuda.synchronize()
+    assert matmul_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, m)
+    assert _rel(got, matmul_ref(a, b)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", MM_DTYPES)
+def test_matmul_kernel_reads_strided_views(cuda, dtype, tol):
+    from repro_torch.kernels.matmul import matmul_kernel, matmul_ref
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    big_a = _rand(gen, 300, 400, dtype=dtype)
+    big_b = _rand(gen, 400, 500, dtype=dtype)
+    odd = _rand(gen, 40, 61, dtype=dtype)   # row stride 61: no 16B phase
+    for a, b in [(big_a[3:200, 7:190], big_b[5:188, 11:300]),
+                 (big_a[::2, 8:136], big_b[8:136, 128:384]),
+                 (big_a[1:2, 1:400], big_b[1:400, 499:500]),
+                 (big_a[:, 5:], big_b[5:, 3:]), (odd[:, 2:], big_b[:59, 1:9])]:
+        want = matmul_ref(a.contiguous(), b.contiguous())
+        assert _rel(matmul_kernel(a, b), want) <= tol
+
+
+def test_ops_matmul_launches_the_kernel_where_no_block_divides(cuda):
+    """17 x 23 x 31: no size in (128, 64, 32, 16, 8) divides a dimension,
+    where repro's ops.matmul falls back to jnp.dot; here the kernel runs."""
+    from repro_torch.kernels.matmul import matmul, matmul_kernel, matmul_ref
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = _rand(gen, 17, 23, dtype=torch.float32)
+    b = _rand(gen, 23, 31, dtype=torch.float32)
+    before = matmul_kernel.launches
+    got = matmul(a, b)
+    torch.cuda.synchronize()
+    assert matmul_kernel.launches == before + 1
+    assert _rel(got, matmul_ref(a, b)) <= 1e-5
+
+
+def test_matmul_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.matmul import matmul_kernel
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = _rand(gen, 8, 8, dtype=torch.float32)
+    with pytest.raises(TypeError):            # dtypes differ
+        matmul_kernel(a, a.bfloat16())
+    with pytest.raises(TypeError):            # not f32 or bf16
+        matmul_kernel(a.half(), a.half())
+    with pytest.raises(ValueError):           # no unit column stride
+        matmul_kernel(a.t(), a)
+    with pytest.raises(ValueError):           # not a product
+        matmul_kernel(a, a[:5])
+    with pytest.raises(ValueError):           # devices differ
+        matmul_kernel(a, a.cpu())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("p", [13, 132])
+def test_paco_matmul_on_cuda_launches_one_kernel_per_cuboid(cuda, dtype, tol,
+                                                            p):
+    """bf16 adds the k-cuts' partial products in bf16, as repro does: a
+    few bf16 steps, 2e-2 of the largest output (chip_smoke's
+    PACO_MM_TOL)."""
+    from repro_torch.core import paco_matmul
+    from repro_torch.kernels.matmul import matmul_kernel, matmul_ref
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    a = _rand(gen, 1000, 777, dtype=dtype)
+    b = _rand(gen, 777, 900, dtype=dtype)
+    before = matmul_kernel.launches
+    got = paco_matmul(a, b, p)
+    torch.cuda.synchronize()
+    assert matmul_kernel.launches == before + p
+    assert _rel(got, matmul_ref(a, b)) <= tol
+
+
+def _lcs_inputs(gen, m, n, monotone):
+    ints = lambda *s: torch.randint(0, 4, s, generator=gen,  # noqa: E731
+                                    device=gen.device, dtype=torch.int32)
+    if monotone:
+        top = torch.sort(ints(n) % 3).values
+        left = torch.sort(ints(m) % 3).values
+        corner = torch.minimum(top[:1], left[:1])
+    else:
+        big = lambda *s: torch.randint(  # noqa: E731
+            -2 ** 31, 2 ** 31 - 1, s, generator=gen, device=gen.device,
+            dtype=torch.int32)
+        top, left, corner = big(n), big(m), big(1)
+    return ints(m), ints(n), top, left, corner
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (7, 7), (64, 64), (256, 256),
+                                 (5, 300), (300, 5), (40, 1030), (9, 8200)])
+@pytest.mark.parametrize("monotone", [True, False])
+def test_lcs_tile_kernel_matches_plain(cuda, m, n, monotone):
+    """Exact, on DP borders and on any int32 borders; 1030 columns take
+    several warps, 8200 two column chunks (two launches)."""
+    from repro_torch.kernels.lcs import (lcs_diagonal_kernel,
+                                         lcs_tile_kernel, lcs_tile_ref)
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + n)
+    args = _lcs_inputs(gen, m, n, monotone)
+    before = lcs_diagonal_kernel.launches
+    got = lcs_tile_kernel(*args)
+    torch.cuda.synchronize()
+    assert lcs_diagonal_kernel.launches == before + -(-n // 8192)
+    for g, w in zip(got, lcs_tile_ref(*args)):
+        assert torch.equal(g, w)
+
+
+def test_lcs_diagonal_kernel_matches_plain(cuda):
+    """T = 12 tiles of 24 x 40 on one anti-diagonal of a 12 x 15 grid, in
+    the border arrays' two halves; what the diagonal reads is untouched."""
+    from repro_torch.kernels.lcs import lcs_diagonal_kernel, lcs_tiles_ref
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tm, tn, ti, tj, d = 24, 40, 12, 15, 13
+    ints = lambda *s: torch.randint(-9, 99, s, generator=gen,  # noqa: E731
+                                    device=cuda, dtype=torch.int32)
+    s, t = ints(ti * tm) % 4, ints(tj * tn) % 4
+    rows, cols, corners = ints(2, tj * tn), ints(2, ti * tm), ints(2, tj)
+    src = [x[0].clone() for x in (rows, cols, corners)]
+    lcs_diagonal_kernel(s, t, rows, cols, corners, d, tm, tn)
+    i = torch.arange(max(0, d - tj + 1), min(ti, d + 1), device=cuda)
+    j = d - i
+    left = src[1].view(ti, tm)[i]
+    bottom, right = lcs_tiles_ref(s.view(ti, tm)[i], t.view(tj, tn)[j],
+                                  src[0].view(tj, tn)[j], left, src[2][j])
+    assert torch.equal(rows[1].view(tj, tn)[j], bottom)
+    assert torch.equal(cols[1].view(ti, tm)[i], right)
+    assert torch.equal(corners[1][j], left[:, -1])
+    for before, after in zip(src, (rows[0], cols[0], corners[0])):
+        assert torch.equal(before, after)
+
+
+@pytest.mark.parametrize("n,p,tile", [(1024, 5, None), (1024, 132, None),
+                                      (768, 3, 96), (512, 1, 512)])
+def test_paco_lcs_on_cuda_launches_once_per_diagonal(cuda, n, p, tile):
+    from repro_torch.core import lcs_reference, paco_lcs
+    from repro_torch.kernels.lcs import lcs_diagonal_kernel
+    from repro_torch.kernels.lcs.ops import default_tile
+    gen = torch.Generator(device=cuda).manual_seed(n + p)
+    s, t = (torch.randint(0, 4, (n,), generator=gen, device=cuda,
+                          dtype=torch.int32) for _ in range(2))
+    before = lcs_diagonal_kernel.launches
+    got = paco_lcs(s, t, p, tile=tile)
+    torch.cuda.synchronize()
+    ti = n // (tile or default_tile(n, p))
+    assert lcs_diagonal_kernel.launches == before + 2 * ti - 1
+    assert int(got) == int(lcs_reference(s, t))
