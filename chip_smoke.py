@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA card and check it.
 
-  python3 chip_smoke.py [--seed N]
+  python3 chip_smoke.py [--seed N] [--parent-flash DIR]
 
 Phases, in order; any failure ends the script with a nonzero exit:
 
 1. Device: the card's name, the device count and its power limit.
 2. Build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc for
    sm_90a into ``build/repro_torch/`` (registers and shared memory from
-   ``-Xptxas -v``).
+   ``-Xptxas -v``), and the count of HGMMA (wgmma) and UTMALDG (TMA
+   load) instructions in the two dense flash libraries from
+   ``cuobjdump -sass``.  With ``--parent-flash DIR`` (a directory outside
+   the committed tree holding an earlier commit's ``flash_fwd.cu`` and
+   ``flash_bwd.cu`` with their headers), those are built too.
 3. Kernels against their plain versions: each of the eight hand-written
    kernels and its plain PyTorch version on the same CUDA inputs, at the
    serving, training or PACO shapes in bf16 and f32 and on small prime/odd
    geometries (GQA: windows and softcaps; MLA latent: H = 3 and 5, narrow
-   latents; dense flash forward and backward: G 1, 2 and 8, D 16 to 256,
-   S 77 and 128, causal or not, windows, softcaps; matmul: odd and prime
+   latents; dense flash forward and backward: G 1, 2, 6 and 8, D 16 to 256,
+   S 77 and 128, causal or not, windows, softcaps; at the training shape
+   the backward bitwise equal over two calls; matmul: odd and prime
    shapes, strided views and every cuboid of plan_mm_1piece(8192, 8192,
    8192, 132), MM_TOL; LCS tile: tiles 1 to 8192 on monotone and on
    arbitrary int32 borders, and the longest anti-diagonal of the
@@ -27,7 +32,13 @@ Phases, in order; any failure ends the script with a nonzero exit:
    calls cycling through the layers' pools (28 for qwen3, 60 for
    deepseek-v2; the eager per-call time of the kernel, host launch cost
    included, is printed beside it; the flash kernels at B 2 x S 4096,
-   their plain versions and SDPA timed eagerly), and the bound from the
+   their plain versions and SDPA timed eagerly, in turns with SDPA and,
+   given ``--parent-flash``, the earlier kernels: kernel, parent, SDPA,
+   SDPA, parent, kernel), SDPA under each of its flash, memory-efficient
+   and cuDNN backends pinned in turn (``sdpa_by_backend``: the fastest is
+   ``library_ms``, named in ``library_backend``; a backend that refuses
+   ``enable_gqa`` gets K/V expanded outside the timed region, one that
+   refuses the call is recorded with its reason), and the bound from the
    shapes (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16; the matmul
    row: the 132 cuboid products of one paco_matmul at 8192^3 in bf16,
    against torch.matmul on the same views, f32 beside it; the LCS row:
@@ -92,6 +103,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -219,6 +231,78 @@ def time_ms(fn, iters: int) -> tuple[float, float]:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+# The library yardstick: scaled_dot_product_attention with each of these
+# backends pinned in turn (``torch.nn.attention.sdpa_kernel``); the fastest
+# that runs is a row's ``library_ms``, its name ``library_backend``.
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def _refusal(err: Exception, caught) -> str:
+    """The error and PyTorch's warnings on why, without the source lines."""
+    why = []
+    for text in [str(err)] + [str(w.message) for w in caught]:
+        text = text.split("(Triggered internally")[0].strip()
+        if text and text not in why:
+            why.append(text.splitlines()[0])
+    return " | ".join(why)[:400]
+
+
+def sdpa_by_backend(run) -> dict:
+    """``run(gqa)`` builds and times one SDPA call its own way and returns
+    ms; it is called with each backend of SDPA_BACKENDS pinned: first with
+    ``enable_gqa`` (gqa True) and, where the backend refuses that, on K/V
+    expanded to the query heads outside the timed region (gqa False).
+    Returns the ms of each backend that ran, why each other one refused
+    (the error and PyTorch's warnings), which ran on expanded K/V, and the
+    fastest."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times, refused, expanded = {}, {}, []
+    for name in SDPA_BACKENDS:
+        reasons = []
+        for gqa in (True, False):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    with sdpa_kernel(getattr(SDPBackend, name)):
+                        times[name] = run(gqa)
+                except RuntimeError as e:
+                    reasons.append(("with enable_gqa: " if gqa else
+                                    "on expanded K/V: ")
+                                   + _refusal(e, caught))
+                    continue
+            if not gqa:
+                expanded.append(name)
+            break
+        else:
+            refused[name] = "; ".join(reasons)
+    best = min(times, key=times.get) if times else None
+    return {"ms": times, "refused": refused, "expanded": expanded,
+            "best": best}
+
+
+def _merge_sdpa(turns: list[dict]) -> dict:
+    """Per backend, the mean over the turns that timed it."""
+    out = dict(turns[0])
+    ms = {}
+    for name in SDPA_BACKENDS:
+        got = [t["ms"][name] for t in turns if name in t["ms"]]
+        if got:
+            ms[name] = sum(got) / len(got)
+    out["ms"] = ms
+    out["best"] = min(ms, key=ms.get) if ms else None
+    return out
+
+
+def _with_library(row: dict, sdpa: dict) -> dict:
+    row["library_ms"] = sdpa["ms"].get(sdpa["best"]) if sdpa["best"] else None
+    row["library_backend"] = sdpa["best"]
+    row["library_ms_by_backend"] = sdpa["ms"]
+    row["library_refused"] = sdpa["refused"]
+    row["library_expanded_kv"] = sdpa["expanded"]
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -352,19 +436,17 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int) -> list[dict]:
     mask = (torch.arange(s_max, device=dev)[None, :] < lens[:, None])
     mask = mask[:, None, None, :]
     qt = q.transpose(1, 2)
-    library_ms, _ = time_ms(lambda i: torch.nn.functional.
-                            scaled_dot_product_attention(
-                                qt, kg[i % n_layers], vg[i % n_layers],
-                                attn_mask=mask, enable_gqa=True), iters)
+    sdpa_decode = sdpa_by_backend(lambda gqa: _paged_sdpa_ms(
+        qt, kg, vg, mask, gqa, iters))
     del kg, vg
     n_keys = int(lens.sum())
     nbytes = (2 * q.numel() * 2 + bt.numel() * 4 + lens.numel() * 4
               + 2 * n_keys * hkv * d * 2)
     flops = 4 * n_keys * hq * d
-    rows.append(_row("paged_decode", "src/repro_torch/csrc/paged_decode.cu",
-                     "src/repro/kernels/attention/attention.py:371",
-                     err_decode, ms, eager_ms, plain_ms, library_ms, nbytes,
-                     flops, dtype))
+    rows.append(_with_library(_row(
+        "paged_decode", "src/repro_torch/csrc/paged_decode.cu",
+        "src/repro/kernels/attention/attention.py:371", err_decode, ms,
+        eager_ms, plain_ms, None, nbytes, flops, dtype), sdpa_decode))
 
     # ---- prefill: one 64-token chunk at start 960 of a ~1000-token prompt
     c, start, width = 64, 960, 16
@@ -398,21 +480,32 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int) -> list[dict]:
     q_pos = start + torch.arange(c, device=dev)[:, None]
     cmask = q_pos >= torch.arange(s_ctx, device=dev)[None, :]
     qt = qc.transpose(1, 2)
-    library_ms, _ = time_ms(lambda i: torch.nn.functional.
-                            scaled_dot_product_attention(
-                                qt, kg[i % n_layers], vg[i % n_layers],
-                                attn_mask=cmask, enable_gqa=True), iters)
+    sdpa_prefill = sdpa_by_backend(lambda gqa: _paged_sdpa_ms(
+        qt, kg, vg, cmask, gqa, iters))
     del kg, vg, kpool, vpool
     pairs = int(cmask.sum())
     nbytes = (2 * qc.numel() * 2 + row.numel() * 4
               + 2 * s_ctx * hkv * d * 2)
     flops = 4 * pairs * hq * d
-    rows.append(_row("paged_prefill",
-                     "src/repro_torch/csrc/paged_prefill.cu",
-                     "src/repro/kernels/attention/attention.py:172",
-                     err_prefill, ms, eager_ms, plain_ms, library_ms, nbytes,
-                     flops, dtype))
+    rows.append(_with_library(_row(
+        "paged_prefill", "src/repro_torch/csrc/paged_prefill.cu",
+        "src/repro/kernels/attention/attention.py:172", err_prefill, ms,
+        eager_ms, plain_ms, None, nbytes, flops, dtype), sdpa_prefill))
     return rows
+
+
+def _paged_sdpa_ms(qt, kg, vg, mask, gqa: bool, iters: int) -> float:
+    """SDPA over the layers' pre-gathered (B, Hkv, S, D) caches in turn,
+    one CUDA-graph replay of ``iters`` calls; without ``gqa`` on caches
+    expanded to the query heads first (untimed)."""
+    if not gqa:
+        g = qt.shape[1] // kg[0].shape[1]
+        kg = [t.repeat_interleave(g, 1) for t in kg]
+        vg = [t.repeat_interleave(g, 1) for t in vg]
+    n = len(kg)
+    ms, _ = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qt, kg[i % n], vg[i % n], attn_mask=mask, enable_gqa=gqa), iters)
+    return ms
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -423,18 +516,19 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def check_flash_small(gen: torch.Generator) -> dict[str, float]:
     """The dense flash kernels against the plain versions (``attention_ref``
-    and its autograd gradient) on small geometries: G in {1, 2, 8}, D in
-    {16, 64, 128, 256} (16 takes the CUDA-core kernels in bf16 too), S a
-    multiple of the tiles (128) and not (77), causal and not, a window, a
-    softcap, f32 and bf16.  Errors are relative to max(1, max |plain|)
-    (FLASH_TOL)."""
+    and its autograd gradient) on small geometries: G in {1, 2, 6, 8} (6
+    leaves rows of the wgmma kernels' 128 unused), D in {16, 64, 128, 256}
+    (bf16: 16 takes the CUDA-core kernels, 64 and 128 the wgmma ones, 256
+    the mma.sync forward), S a multiple of the tiles (128) and not (77),
+    causal and not, a window, a softcap, f32 and bf16.  Errors are
+    relative to max(1, max |plain|) (FLASH_TOL)."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ref
 
     dev = "cuda"
     worst = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
     cases = itertools.product(
-        (torch.float32, torch.bfloat16), (1, 2, 8), (16, 64, 128, 256),
+        (torch.float32, torch.bfloat16), (1, 2, 6, 8), (16, 64, 128, 256),
         (128, 77),
         ({"causal": True}, {"causal": False}, {"causal": True, "window": 9},
          {"causal": True, "logit_cap": 5.0},
@@ -468,16 +562,75 @@ def _events_loop_ms(fn, iters: int) -> float:
     return _events_ms(lambda: [fn() for _ in range(iters)], iters)
 
 
-def bench_flash(cfg, gen: torch.Generator, iters: int) -> list[dict]:
+class ParentFlash:
+    """The parent commit's dense flash kernels, built from its
+    ``flash_fwd.cu`` and ``flash_bwd.cu`` (with their headers) in ``src``,
+    a directory outside the committed tree, into ``build/parent_flash/``,
+    so that ``bench_flash`` times them in the same call as the current
+    kernels.  Their C interface is the current one's."""
+
+    def __init__(self, src: Path):
+        import ctypes
+
+        from repro_torch.kernels import build
+
+        out = build.BUILD_DIR.parent / "parent_flash"
+        out.mkdir(parents=True, exist_ok=True)
+        procs = [(name, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o",
+             str(out / f"lib{name}.so"), str(src / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for name in ("flash_fwd", "flash_bwd")]
+        libs = {}
+        for name, proc in procs:
+            text, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
+            libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.fwd = libs["flash_fwd"].flash_fwd
+        self.fwd.argtypes = [I, P, P, P, P, P, I, I, I, I, I, F, I, I, F, P]
+        self.bwd = libs["flash_bwd"].flash_bwd
+        self.bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                             F, I, I, F, P]
+        for fn in (self.fwd, self.bwd):
+            fn.restype = I
+
+    def forward(self, q, k, v, o, lse) -> None:
+        """Causal, no window or softcap: the training shape's call."""
+        b, s, hq, d = q.shape
+        err = self.fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), lse.data_ptr(), b, s, hq, k.shape[2], d,
+                       1 / math.sqrt(d), 1, 2 ** 31 - 1, 0.0,
+                       torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent flash_fwd", err)
+
+    def backward(self, q, k, v, o, lse, d_o, delta, dq, dk, dv) -> None:
+        b, s, hq, d = q.shape
+        err = self.bwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
+                       delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       dv.data_ptr(), b, s, hq, k.shape[2], d,
+                       1 / math.sqrt(d), 1, 2 ** 31 - 1, 0.0,
+                       torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent flash_bwd", err)
+
+
+def bench_flash(cfg, gen: torch.Generator, iters: int,
+                parent: ParentFlash | None = None) -> list[dict]:
     """The dense flash kernels at the training shape of full-width
     qwen3-0.6b (B 2, Hq 16, Hkv 8, S 4096, D 128, bf16, causal): checked
-    against the plain versions, then timed.  Kernel times are CUDA-graph
-    replays of ``iters`` calls; the plain versions and SDPA (forward, and
-    its backward alone through autograd with the graph retained) are timed
-    eagerly with CUDA events: their calls take milliseconds, so launch cost
-    is noise.  Bounds from operations: the causal forward's 4 B Hq
-    (S (S + 1) / 2) D flops, the backward's 2.5 times that (the five
-    products a gradient needs)."""
+    against the plain versions, the backward checked bitwise equal over two
+    calls, then timed.  Kernel times are CUDA-graph replays of ``iters``
+    calls; the plain versions and SDPA (forward, and its backward alone
+    through autograd with the graph retained) are timed eagerly with CUDA
+    events: their calls take milliseconds, so launch cost is noise.  SDPA
+    runs under each backend in turn (``sdpa_by_backend``), the fastest
+    being ``library_ms``.  The calls take turns on the card: kernels,
+    parent kernels (when ``parent`` is given), SDPA, SDPA, parent kernels,
+    kernels; each time is the mean of its two turns.  Bounds from
+    operations: the causal forward's 4 B Hq (S (S + 1) / 2) D flops, the
+    backward's 2.5 times that (the five products a gradient needs)."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ref
 
@@ -488,6 +641,10 @@ def bench_flash(cfg, gen: torch.Generator, iters: int) -> list[dict]:
                     .to(dtype) for h in (hq, hkv, hkv, hq))
     o, lse = K._flash_fwd(q, k, v, causal=True, window=None, logit_cap=None)
     grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=True)
+    again = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=True)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again)), \
+        "flash_attention_bwd is not bitwise reproducible"
+    del again
     tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
     want_o = ref.attention_ref(*tr[:3], causal=True).transpose(1, 2)
     err_f = max_err(o, want_o)
@@ -499,21 +656,56 @@ def bench_flash(cfg, gen: torch.Generator, iters: int) -> list[dict]:
     assert err_b <= FLASH_TOL[dtype], ("flash_attention_bwd full", err_b)
     torch.cuda.empty_cache()
 
-    ms_f, eager_f = time_ms(lambda i: K._flash_fwd(
-        q, k, v, causal=True, window=None, logit_cap=None), iters)
-    ms_b, eager_b = time_ms(lambda i: K.flash_attention_bwd(
-        q, k, v, o, lse, d_o, causal=True), iters)
+    times = collections.defaultdict(list)
+
+    def kernels():
+        times["f"].append(time_ms(lambda i: K._flash_fwd(
+            q, k, v, causal=True, window=None, logit_cap=None), iters))
+        times["b"].append(time_ms(lambda i: K.flash_attention_bwd(
+            q, k, v, o, lse, d_o, causal=True), iters))
+
+    def parent_kernels():
+        if parent is None:
+            return
+        o2, lse2, delta = (torch.empty_like(o), torch.empty_like(lse),
+                           torch.empty_like(lse))
+        g2 = [torch.empty_like(t) for t in (q, k, v)]
+        times["pf"].append(time_ms(lambda i: parent.forward(
+            q, k, v, o2, lse2), iters))
+        times["pb"].append(time_ms(lambda i: parent.backward(
+            q, k, v, o, lse, d_o, delta, *g2), iters))
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd(gqa):
+        kk, vv = tr[1:3] if gqa else (t.repeat_interleave(hq // hkv, 1)
+                                      for t in tr[1:3])
+        return _events_loop_ms(lambda: sdpa(tr[0], kk, vv, is_causal=True,
+                                            enable_gqa=gqa), 20)
+
+    def sdpa_bwd(gqa):
+        qt, kt, vt = (t.detach().requires_grad_() for t in (
+            tr[0], *(tr[1:3] if gqa else (t.repeat_interleave(hq // hkv, 1)
+                                          for t in tr[1:3]))))
+        out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=gqa)
+        return _events_loop_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), tr[3], retain_graph=True), 20)
+
+    kernels()
+    parent_kernels()
+    lib_turns = [(sdpa_by_backend(sdpa_fwd), sdpa_by_backend(sdpa_bwd))
+                 for _ in range(2)]
+    parent_kernels()
+    kernels()
     plain_f = _events_loop_ms(lambda: ref.attention_ref(*tr[:3]), 3)
     plain_b = _events_loop_ms(lambda: ref.attention_ref_grad(*tr), 3)
     torch.cuda.empty_cache()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (t.detach().requires_grad_() for t in tr[:3])
-    lib_f = _events_loop_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True), 20)
-    out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_b = _events_loop_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), tr[3], retain_graph=True), 20)
-    del out
+    lib_f = _merge_sdpa([t[0] for t in lib_turns])
+    lib_b = _merge_sdpa([t[1] for t in lib_turns])
+
+    def mean(key, i):
+        return sum(t[i] for t in times[key]) / len(times[key])
+
     pairs = s * (s + 1) // 2
     flops_f = 4 * b * hq * pairs * d
     nbytes_f = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
@@ -521,14 +713,26 @@ def bench_flash(cfg, gen: torch.Generator, iters: int) -> list[dict]:
                 + 4 * lse.numel()
                 + 2 * (q.numel() + 2 * k.numel()))        # dq, dk, dv
     rows = [
-        _row("flash_attention", "src/repro_torch/csrc/flash_fwd.cu",
-             "src/repro/kernels/attention/attention.py:72", err_f, ms_f,
-             eager_f, plain_f, lib_f, nbytes_f, flops_f, dtype),
-        _row("flash_attention_bwd", "src/repro_torch/csrc/flash_bwd.cu",
-             "src/repro/kernels/attention/attention.py:72", err_b, ms_b,
-             eager_b, plain_b, lib_b, nbytes_b, 2.5 * flops_f, dtype)]
-    rows[1]["fwd_bwd_ms"] = ms_f + ms_b
-    rows[1]["library_fwd_bwd_ms"] = lib_f + lib_b
+        _with_library(_row(
+            "flash_attention", "src/repro_torch/csrc/flash_fwd.cu",
+            "src/repro/kernels/attention/attention.py:72", err_f,
+            mean("f", 0), mean("f", 1), plain_f, None, nbytes_f, flops_f,
+            dtype), lib_f),
+        _with_library(_row(
+            "flash_attention_bwd", "src/repro_torch/csrc/flash_bwd.cu",
+            "src/repro/kernels/attention/attention.py:72", err_b,
+            mean("b", 0), mean("b", 1), plain_b, None, nbytes_b,
+            2.5 * flops_f, dtype), lib_b)]
+    for row, key, lib in zip(rows, ("f", "b"), ("flash_fwd", "flash_bwd")):
+        row["ms_turns"] = [t[0] for t in times[key]]
+        row["variant"] = K._flash_variant(lib, dtype, d)
+        if parent is not None:
+            row["parent_ms"] = mean("p" + key, 0)
+            row["parent_ms_turns"] = [t[0] for t in times["p" + key]]
+    rows[1]["fwd_bwd_ms"] = rows[0]["ms"] + rows[1]["ms"]
+    rows[1]["library_fwd_bwd_ms"] = (
+        None if rows[0]["library_ms"] is None or rows[1]["library_ms"] is None
+        else rows[0]["library_ms"] + rows[1]["library_ms"])
     return rows
 
 
@@ -1211,9 +1415,10 @@ def train_step_parity(cfg, seed: int) -> dict:
 
 
 def _kernel_group(name: str) -> str:
-    if "flash_mma::fwd" in name or "flash_fwd_kernel" in name:
+    if any(k in name for k in ("flash_wgmma::fwd", "flash_mma::fwd",
+                               "flash_fwd_kernel")):
         return "flash_attention"
-    if any(k in name for k in ("flash_mma::dq", "flash_mma::dkv",
+    if any(k in name for k in ("flash_wgmma::dq", "flash_wgmma::dkv",
                                "flash_dq_kernel", "flash_dkv_kernel",
                                "delta_kernel")):
         return "flash_attention_bwd"
@@ -1226,12 +1431,14 @@ def profile_step(cfg, params, state, trainer, mean_step_s: float) -> dict:
     """One more train step under ``torch.profiler``: device time per kernel
     group (the two flash kernels, matrix products, and everything else:
     elementwise, reductions, copies), summed over the device-side kernel
-    events, and the device's busy share over the profiled step's wall
-    time and over the unprofiled mean step."""
+    events, the flash groups' time by kernel (forward, Delta, dQ pass,
+    dK/dV pass), and the device's busy share over the profiled step's
+    wall time and over the unprofiled mean step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import global_batch_rowwise
+    from repro_torch.launch.flash_bench import kernel_name
     from repro_torch.train import train_step
 
     batch = global_batch_rowwise(trainer.dcfg, TRAIN_STEPS, device="cuda")
@@ -1243,16 +1450,21 @@ def profile_step(cfg, params, state, trainer, mean_step_s: float) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     groups: dict[str, float] = collections.defaultdict(float)
+    flash: dict[str, float] = collections.defaultdict(float)
     n_kernels = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        groups[_kernel_group(e.name)] += e.device_time_total / 1e3
+        group = _kernel_group(e.name)
+        groups[group] += e.device_time_total / 1e3
+        if group.startswith("flash"):
+            flash[kernel_name(e.name)] += e.device_time_total / 1e3
         n_kernels += 1
     busy_ms = sum(groups.values())
     return {"wall_ms_profiled": wall * 1e3, "device_ms": busy_ms,
             "kernels": n_kernels,
             "device_ms_by_group": dict(sorted(groups.items())),
+            "flash_device_ms_by_kernel": dict(sorted(flash.items())),
             "busy_share_profiled": busy_ms / (wall * 1e3),
             "busy_share_of_mean_step": busy_ms / (mean_step_s * 1e3)}
 
@@ -1284,11 +1496,15 @@ def train(cfg, seed: int, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     K.flash_attention.launches = 0
     K.flash_attention_bwd.launches = 0
+    K.flash_attention.variants.clear()
+    K.flash_attention_bwd.variants.clear()
     params, state, history = trainer.run(TRAIN_STEPS, params=params,
                                          state=state)
     torch.cuda.synchronize()
     launches = {"flash_attention": K.flash_attention.launches,
                 "flash_attention_bwd": K.flash_attention_bwd.launches}
+    variants = {"flash_attention": dict(K.flash_attention.variants),
+                "flash_attention_bwd": dict(K.flash_attention_bwd.variants)}
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = [h["step_time_s"] for h in history[1:]]
@@ -1307,12 +1523,15 @@ def train(cfg, seed: int, smi: str) -> dict:
               "model_flops_per_s": flops_per_s,
               "model_flops_share_of_989e12": flops_per_s / PEAK_FLOPS[
                   torch.bfloat16],
-              "peak_memory_bytes": peak, "launches": launches}
+              "peak_memory_bytes": peak, "launches": launches,
+              "launches_by_variant": variants}
     log(f"[train] {json.dumps(result)}; card: {smi}")
     assert all(math.isfinite(x) for x in result["loss"]), result
     want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
     assert launches == want, (launches, want)
+    # bf16 at head_dim 128: every launch took the wgmma kernels
+    assert variants == {n: {"wgmma": c} for n, c in want.items()}, variants
     result["profile"] = profile_step(cfg, params, state, trainer, mean_s)
     log(f"[train] one more step under torch.profiler: "
         f"{json.dumps(result['profile'])}")
@@ -1682,13 +1901,18 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent-flash", type=Path, default=None,
+                    help="a directory holding an earlier commit's "
+                    "flash_fwd.cu and flash_bwd.cu with their headers (not "
+                    "the committed tree): its kernels are built and timed "
+                    "in turns with the current ones at the training shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.configs import get_arch
     from repro_torch.kernels.attention import attention as K
-    from repro_torch.kernels.build import LIBS
+    from repro_torch.kernels.build import LIBS, sass_counts
     from repro_torch.models import init_params, param_count
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1713,6 +1937,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 log(f"[build] {lib}: {line.strip()}")
+    counts = sass_counts(("flash_fwd", "flash_bwd"))
+    log("[build] sass instructions " + (
+        "not counted: no cuobjdump" if counts is None else json.dumps(counts)))
+    parent = None
+    if args.parent_flash is not None:
+        parent = ParentFlash(args.parent_flash)
+        log(f"[build] parent flash kernels from {args.parent_flash}")
 
     # 3. kernels against their plain versions
     cfg = get_arch(ARCH)
@@ -1727,15 +1958,24 @@ def main() -> int:
             f"max err {worst}")
         rows = bench_kernels(cfg, gen, ITERS)
         rows += bench_latent_kernels(cfg_ds, gen, ITERS)
-        rows += bench_flash(cfg, gen, FLASH_ITERS)
+        rows += bench_flash(cfg, gen, FLASH_ITERS, parent)
         rows += bench_paco_kernels(gen, ITERS)
     for r in rows:
         library = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
+        if r.get("library_backend"):
+            library += f" ({r['library_backend']})"
+        parent_ms = ("" if "parent_ms" not in r else
+                     f" parent {r['parent_ms']:.4f} ms")
         log(f"[kernels] {r['name']}: err {r['max_abs_err']:.3g} kernel "
-            f"{r['ms']:.4f} ms (eager call {r['eager_ms']:.4f} ms) plain "
-            f"{r['plain_ms']:.4f} ms library {library} bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); {smi}")
+            f"{r['ms']:.4f} ms (eager call {r['eager_ms']:.4f} ms)"
+            f"{parent_ms} plain {r['plain_ms']:.4f} ms library {library} "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); {smi}")
+        if "library_ms_by_backend" in r:
+            log(f"[kernels] {r['name']}: SDPA by backend "
+                f"{json.dumps(r['library_ms_by_backend'])}; refused "
+                f"{json.dumps(r['library_refused'])}; on expanded K/V "
+                f"{r['library_expanded_kv']}")
 
     # 4. one chunk and 8 ticks at full width, float32 then bf16
     rng = np.random.default_rng(args.seed)

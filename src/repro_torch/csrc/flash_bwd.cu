@@ -25,6 +25,7 @@
 //  3. dk/dv pass: one CTA per (key block, kv head, batch element), looping
 //     over the G query heads and the query tiles that may see its keys,
 //     so dK and dV sum over the G heads inside one CTA.
+// (On wgmma, a persistent grid: each CTA takes such items in turn.)
 //
 // What bounds it: operations.  Passes 2 and 3 do 7 products of the
 // forward's size between them (QK^T and dO V^T in both, P^T dO and dS^T Q
@@ -32,13 +33,15 @@
 // atomics: 3.5 times the forward's 4 B Hq S^2 D / 2 flops (causal), 481
 // GFLOP at the training shape, 0.49 ms at 989 TFLOP/s bf16 (a gradient
 // needs 2.5 times, 0.35 ms).  Recomputing two products buys a
-// deterministic dQ.  bf16 with D 64 or 128 runs the products on tensor
-// cores (mma.sync m16n8k16, f32 accumulation; flash_mma.cuh); float32 and
-// other widths on CUDA cores (below), bound by shared-memory traffic.
+// deterministic dQ.  bf16 with D 64 or 128 runs the two passes on wgmma
+// with TMA loads, a producer warp and a persistent grid (dq_kernel and
+// dkv_kernel in flash_wgmma.cuh: 128 query rows per CTA over 64-key
+// tiles, 128 keys per CTA over 64-query tiles); float32 and other widths
+// on CUDA cores (below), bound by shared-memory traffic.
 // Both walk only the tiles the masks leave, and mask the ragged last
 // tile.
 
-#include "flash_mma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -470,6 +473,13 @@ extern "C" {
 int flash_bwd_max_g() { return kRows; }
 int flash_bwd_max_d() { return 256; }
 
+// The kernels flash_bwd launches after delta_kernel for this dtype and D:
+// 0 CUDA cores (flash_dq_kernel, flash_dkv_kernel), 2 wgmma
+// (flash_wgmma.cuh), numbered as flash_fwd_variant.
+int flash_bwd_variant(int dtype, int d) {
+  return dtype == 1 && flash_wgmma::takes(d) ? 2 : 0;
+}
+
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, o, d_o as in the forward
 // (contiguous, the model's layout); lse (B, Hq, S) f32 from the forward;
 // delta (B, Hq, S) f32 scratch.  Writes dq, dk, dv in q's type.  Returns
@@ -497,10 +507,16 @@ int flash_bwd(int dtype, const void* q, const void* k, const void* v,
     err = launch_delta<__nv_bfloat16>(o, d_o, delta_f, batch, s_len, hq, d,
                                       st);
     if (err) return err;
-    if (flash_mma::takes_bwd(d))
-      return flash_mma::launch_bwd(q, k, v, d_o, lse_f, delta_f, dq, dk, dv,
-                                   batch, s_len, hq, hkv, d, scale, causal,
-                                   window, softcap, st);
+    if (d == 64)
+      return flash_wgmma::launch_bwd_d<64>(q, k, v, d_o, lse_f, delta_f, dq,
+                                           dk, dv, batch, s_len, hq, hkv,
+                                           scale, causal, window, softcap,
+                                           st);
+    if (d == 128)
+      return flash_wgmma::launch_bwd_d<128>(q, k, v, d_o, lse_f, delta_f, dq,
+                                            dk, dv, batch, s_len, hq, hkv,
+                                            scale, causal, window, softcap,
+                                            st);
     return launch_type<__nv_bfloat16>(q, k, v, d_o, lse_f, delta_f, dq, dk,
                                       dv, batch, s_len, hq, hkv, d, scale,
                                       causal, window, softcap, st);

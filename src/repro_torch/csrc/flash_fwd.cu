@@ -28,17 +28,19 @@
 //    window's start for its first row to its last row's position under the
 //    causal mask, so wholly masked tiles are never loaded; the ragged last
 //    tile (any S) is masked key by key;
-//  * bf16 with D 64, 128 or 256 runs its two products on tensor cores
-//    (mma.sync m16n8k16, f32 accumulation; fwd_kernel in flash_mma.cuh,
-//    with its softmax in the log2 domain); float32 and other widths run
-//    them on CUDA cores (flash_fwd_kernel below), bound by shared-memory
-//    traffic.
+//  * bf16 with D 64 or 128 runs on wgmma with TMA loads, a producer warp
+//    and a persistent grid (fwd_kernel in flash_wgmma.cuh: 128 query rows
+//    per CTA, 128-key tiles); bf16 with D 256 on mma.sync m16n8k16
+//    (fwd_kernel in flash_mma.cuh); both with f32 accumulation and the
+//    softmax in the log2 domain.  float32 and other widths run the
+//    products on CUDA cores (flash_fwd_kernel below), bound by
+//    shared-memory traffic.
 //
 // Masking: the TPU kernel's finite -1e30 is the initial max, and a masked
 // key weighs 0 (not exp(0)), so no row ever meets exp(-inf - -inf) = NaN.
 // Every row sees at least its own position, so l > 0 at the end.
 
-#include "flash_mma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -254,6 +256,15 @@ extern "C" {
 int flash_fwd_max_g() { return kRows; }
 int flash_fwd_max_d() { return 256; }
 
+// The kernel flash_fwd launches for this dtype and D: 0 CUDA cores
+// (flash_fwd_kernel), 1 mma.sync (flash_mma.cuh), 2 wgmma
+// (flash_wgmma.cuh).
+int flash_fwd_variant(int dtype, int d) {
+  if (dtype != 1) return 0;
+  if (flash_wgmma::takes(d)) return 2;
+  return d == 256 ? 1 : 0;
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  causal: 0 or 1.  A window of
 // INT32_MAX means none; softcap <= 0 means none.  D must be a multiple of
 // 8 and at most 256, Hq a multiple of Hkv with G = Hq / Hkv <= 32.
@@ -271,9 +282,18 @@ int flash_fwd(int dtype, const void* q, const void* k, const void* v,
     return launch_type<float>(q, k, v, o, lse_f, batch, s_len, hq, hkv, d,
                               scale, causal, window, softcap, st);
   if (dtype == 1) {
-    if (flash_mma::takes(d))
-      return flash_mma::launch_fwd(q, k, v, o, lse_f, batch, s_len, hq, hkv,
-                                   d, scale, causal, window, softcap, st);
+    if (d == 64)
+      return flash_wgmma::launch_fwd_d<64>(q, k, v, o, lse_f, batch, s_len,
+                                           hq, hkv, scale, causal, window,
+                                           softcap, st);
+    if (d == 128)
+      return flash_wgmma::launch_fwd_d<128>(q, k, v, o, lse_f, batch, s_len,
+                                            hq, hkv, scale, causal, window,
+                                            softcap, st);
+    if (d == 256)
+      return flash_mma::launch_fwd_d<256>(q, k, v, o, lse_f, batch, s_len,
+                                          hq, hkv, scale, causal, window,
+                                          softcap, st);
     return launch_type<__nv_bfloat16>(q, k, v, o, lse_f, batch, s_len, hq,
                                       hkv, d, scale, causal, window,
                                       softcap, st);

@@ -1,0 +1,1243 @@
+// Dense flash attention for Hopper: the bf16 forward and backward at D 64
+// and 128 on wgmma, with TMA loads, a producer warp and a persistent grid.
+//
+// Replaces src/repro/kernels/attention/attention.py:72
+// flash_attention_pallas (fwd_kernel), and for the backward its gradient
+// (dq_kernel and dkv_kernel: the JAX package has no backward kernel, XLA
+// differentiates its jnp attention).  flash_fwd.cu and flash_bwd.cu give
+// the function, the layouts and the masks.
+//
+// What bounds them: operations.  The causal forward does
+// 4 B Hq S (S + 1) / 2 D flops: 137 GFLOP at the training shape (B 2,
+// Hq 16, S 4096, D 128), 0.139 ms at 989 TFLOP/s bf16.  The backward's
+// two passes do 7 products of that size, 3.5 times the forward (0.49 ms),
+// where a backward that adds dQ up with atomics does 5 (2.5 times,
+// 0.35 ms): recomputing two products buys a dQ that is bitwise the same
+// on every call.
+//
+// What the design does about it:
+//  * every product is wgmma (m64nNk16, bf16 in, f32 accumulation), the
+//    only way to the tensor cores' full rate.  S = Q K^T reads both
+//    operands from shared memory (K-major); O += P V takes P from
+//    registers, converted to bf16 in place (S's accumulator layout is the
+//    A operand's), and V from shared memory as an MN-major operand (the
+//    transpose bit);
+//  * a CTA is two consumer warpgroups of 64 rows each (128 query rows, or
+//    128 keys in the dK/dV pass) and one producer warp that issues every
+//    load by TMA into a ring of stages guarded by mbarriers: full barriers
+//    for the consumers, empty ones (one arrival per consumer warp) for the
+//    producer.  setmaxnreg moves registers from the producer's warpgroup
+//    to the consumers;
+//  * the forward walks 128-key tiles, and each K/V tile serves the G
+//    query heads of its kv head: a 4-D tensor map (D, H, S, B) with box
+//    (64, G, bq, 1) brings the G heads x bq = 128 / G positions of a query
+//    block in one request, position-major (row r is head r % G at
+//    position c0 + r / G); a G that does not divide 128 leaves rows
+//    unused.  The 128-byte swizzle caps a box at 64 columns, so a D-128
+//    row comes in two boxes, stored as two column blocks;
+//  * TMA zero-fills rows past S, so the ragged last tile needs no
+//    predicated loads (the mask still applies);
+//  * within a warpgroup, the forward issues tile i's S = Q K^T together
+//    with tile i - 1's O += P V and runs tile i's softmax while that
+//    product is in flight (the dQ pass likewise overlaps tile i's S and dP
+//    with tile i - 1's dQ += dS K); K and V of a stage are freed by
+//    separate barriers, as soon as the last product reading each lands;
+//  * the grid is persistent: one CTA per SM walks (block, kv head, batch)
+//    items, longest key (or query) range first, in rounds of gridDim.x
+//    taken in alternating directions (a snake), so that no CTA takes the
+//    longest item of every round; the producer runs ahead into the next
+//    item while the consumers finish one;
+//  * as in the mma.sync kernels (flash_mma.cuh, whose softmax and mask
+//    helpers these reuse): only the tiles the masks leave are walked,
+//    element masks only on partly visible tiles, the softmax in the log2
+//    domain, a finite -1e30 initial max with masked keys weighing 0.
+//
+// The backward takes two passes and no atomics, so every sum has a fixed
+// order.  dq_kernel walks 64-key tiles per query block like the forward
+// (S and dP = dO V^T, then dQ += dS K; three accumulators of 128 keys
+// would not fit in registers); dkv_kernel holds 128 keys and walks the G
+// heads and the 64-query tiles that see them (S^T = K Q^T, dP^T = V dO^T,
+// dV += P^T dO, dK += dS^T Q), so dK and dV sum over the G heads in
+// registers.  Its producer warp also copies each query tile's 64 floats of
+// log-sum-exp and Delta into the stage with plain loads (zero past S):
+// a 1-D TMA box of them would start at an address that is not 16-byte
+// aligned for most S, and ran past the array at its end.
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and the types of cuTensorMapEncodeTiled
+
+#include "flash_mma.cuh"
+
+namespace flash_wgmma {
+
+using namespace paged;
+using flash_mma::bf16;
+
+constexpr int kConsumers = 2;                    // warpgroups of 64 rows
+constexpr int kThreads = 128 * (kConsumers + 1); // + the producer's group
+constexpr int kRows = 64 * kConsumers;           // query rows or keys
+constexpr int kStages = 2;     // forward; the dQ and dK/dV passes take 3
+constexpr int kTkFwd = 128;   // keys per tile, forward
+constexpr int kTkDq = 64;     // keys per tile, dQ pass
+constexpr int kTqDkv = 64;    // queries per tile, dK/dV pass
+constexpr int kArrivals = 4 * kConsumers;        // one per consumer warp
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// A wait this long (about ten seconds) is a fault: trap, do not hang.
+constexpr long long kHangCycles = 1ll << 34;
+
+inline bool takes(int d) { return d == 64 || d == 128; }
+
+// ---------------------------------------------------------------------------
+// mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Expect `bytes` more of TMA traffic on the barrier's phase, no arrival.
+__device__ __forceinline__ void mbar_add_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > kHangCycles) __trap();
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed product groups are in
+// flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Tell the compiler that the asynchronous products may have written the
+// accumulators up to here, so it reads them only after the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor with the 128-byte swizzle that the TMA
+// loads write.  Tiles are stored as column blocks of R rows x 64 bf16 (128
+// bytes a row, 8-row atoms of 1024 bytes, each block 1024-byte aligned).
+//  * K-major (S = Q K^T and its kin: the reduction runs along the row):
+//    sbo = 1024 (the next 8 rows), lbo unused; the k-th 16-column step
+//    starts 32 k bytes into the block, then moves to the next block.
+//  * MN-major (P V and its kin: the reduction runs down the rows, N along
+//    them): sbo = 1024 (the next 8 reduction rows), lbo = R x 128 (the next
+//    64 of N, in the next column block); the k-th 16-row step starts
+//    16 x 128 k bytes in.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)(1024u >> 4) << 32) | (1ull << 62);
+}
+
+// The A operand of k-step `ks` of a product whose A is a 64 x 16 slice of
+// an R-row tile at `tile`, rows from `row0` (K-major).
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int row0,
+                                           int ks) {
+  return sw128_desc(tile + (ks >> 2) * rows * 128 + row0 * 128 + (ks & 3) * 32,
+                    16);
+}
+
+// The MN-major B operand of k-step `ks` (16 rows of an R-row tile).
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int ks) {
+  return sw128_desc(tile + ks * 16 * 128, rows * 128);
+}
+
+// d (64 x 64, f32) {=, +=} A (64 x 16) B^T (B 64 x 16), both bf16 from
+// shared memory through K-major descriptors.
+__device__ __forceinline__ void mma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) {=, +=} A (64 x 16) B^T (B 128 x 16), both bf16 from
+// shared memory through K-major descriptors.
+__device__ __forceinline__ void mma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers: a[4] per thread, the
+// accumulator layout of a product packed in pairs) B (16 x 64, bf16 in
+// shared memory through an MN-major descriptor: the transpose bit).
+__device__ __forceinline__ void mma_rs_n64(float* d, const unsigned* a,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 in registers: a[4] per thread, the
+// accumulator layout of a product packed in pairs) B (16 x 128, bf16 in
+// shared memory through an MN-major descriptor: the transpose bit).
+__device__ __forceinline__ void mma_rs_n128(float* d, const unsigned* a,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db,
+                                       int accumulate) {
+  if constexpr (N == 64)
+    mma_ss_n64(d, da, db, accumulate);
+  else
+    mma_ss_n128(d, da, db, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float* d, const unsigned* a,
+                                       uint64_t db) {
+  if constexpr (N == 64)
+    mma_rs_n64(d, a, db, 1);
+  else
+    mma_rs_n128(d, a, db, 1);
+}
+
+// d (64 x N) {=, +=} the 64 rows from row0 of tile a (R_A rows) times the
+// rows of tile b (N rows) transposed, over the D features: S = Q K^T.
+template <int D, int N>
+__device__ __forceinline__ void product_abt(float* d, uint32_t a, int r_a,
+                                            int row0, uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    mma_ss<N>(d, desc_k(a, r_a, row0, ks), desc_k(b, N, 0, ks), ks > 0);
+}
+
+// The f32 accumulator p of a 64 x K product as the bf16 A operand of K / 16
+// k-steps (the accumulator layout is the A operand's, in pairs).
+template <int K>
+__device__ __forceinline__ void pack_a(const float* p, unsigned (*a)[4]) {
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[ks][j] = flash_mma::pack_bf16(p[8 * ks + 2 * j], p[8 * ks + 2 * j + 1]);
+}
+
+// d (64 x D) += P (64 x K, bf16 A fragments a) times the K rows of tile b
+// (D wide): O += P V.
+template <int D, int K>
+__device__ __forceinline__ void product_ab(float* d, const unsigned (*a)[4],
+                                          uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks) mma_rs<D>(d, a[ks], desc_mn(b, K, ks));
+}
+
+// As product_ab, with P the f32 accumulator of a product, rounded to bf16.
+template <int D, int K>
+__device__ __forceinline__ void product_pb(float* d, const float* p,
+                                           uint32_t b) {
+  unsigned a[K / 16][4];
+  pack_a<K>(p, a);
+  product_ab<D, K>(d, a, b);
+}
+
+// The item this CTA takes in round r of the persistent grid: rounds of
+// gridDim.x items, CTA c taking the c-th of an even round and the c-th from
+// the end of an odd one, so that with items sorted longest first no CTA
+// takes the longest of every round.
+__device__ __forceinline__ int item_index(int r) {
+  const int c = (r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  return r * gridDim.x + c;
+}
+
+// The (block, kv head, batch element) items of a persistent grid, item
+// `it` of n_blk x hb (hb = Hkv x B), blocks in the order `descending` says.
+struct Item {
+  int blk, h, b;
+};
+
+__device__ __forceinline__ Item item_at(int it, int n_blk, int hkv, int hb,
+                                        bool descending) {
+  const int slot = it / hb, rest = it - slot * hb;
+  return {descending ? n_blk - 1 - slot : slot, rest % hkv, rest / hkv};
+}
+
+// Keys [k_lo, k_lo + n_tiles * tk) some row of the query block at c0 may
+// see (the last tile may run past them: masked).
+__device__ __forceinline__ void key_range(int c0, int bq, int s_len,
+                                          int causal, int window, int tk,
+                                          int* k_lo, int* k_hi,
+                                          int* n_tiles) {
+  const long long lo = (long long)c0 - (long long)window + 1;
+  *k_lo = lo > 0 ? (int)lo : 0;
+  *k_hi = causal ? min(c0 + bq, s_len) : s_len;
+  *n_tiles = (*k_hi - *k_lo + tk - 1) / tk;
+}
+
+// Queries [q_lo, q_hi) that may see some key of the block at k0.
+__device__ __forceinline__ void query_range(int k0, int s_len, int causal,
+                                            int window, int* q_lo,
+                                            int* q_hi) {
+  const int k_last = min(k0 + kRows, s_len) - 1;
+  const long long hi = (long long)k_last + (long long)window;
+  *q_lo = causal ? k0 : 0;
+  *q_hi = hi < s_len ? (int)hi : s_len;
+}
+
+__device__ __forceinline__ uint32_t aligned_smem_base(const void* raw) {
+  return (smem_u32(raw) + 1023u) & ~1023u;
+}
+
+// The consumer's rows: this thread's two rows (g and g + 8 of its warp's
+// 16) of the CTA's 128, position-major over the block at c0.
+struct Rows {
+  int r[2], pos[2];
+  bool live[2];
+  int p_min, p_max;
+};
+
+__device__ __forceinline__ Rows rows_of(int r0, int c0, int g_n, int bq,
+                                        int s_len) {
+  Rows w;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    w.r[hh] = r0 + 8 * hh;
+    w.pos[hh] = c0 + w.r[hh] / g_n;
+    w.live[hh] = w.r[hh] < g_n * bq && w.pos[hh] < s_len;
+  }
+  // the positions of the warp's 16 rows (unused rows only widen them)
+  w.p_min = __reduce_min_sync(0xffffffffu, min(w.pos[0], w.pos[1]));
+  w.p_max = __reduce_max_sync(0xffffffffu, max(w.pos[0], w.pos[1]));
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct FwdSmem {
+  static constexpr int kQ = 0;                       // kRows x D
+  static constexpr int kTile = kTkFwd * D * 2;       // one K or V tile
+  static constexpr int kK = kQ + kRows * D * 2;      // kStages K tiles
+  static constexpr int kV = kK + kStages * kTile;    // kStages V tiles
+  static constexpr int kBar = kV + kStages * kTile;
+  // q_full, q_empty, then k_full, v_full, k_empty, v_empty per stage
+  static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+           const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+           float* __restrict__ lse, int batch, int s_len, int hq, int hkv,
+           int bq, float scale, int causal, int window, float softcap) {
+  using L = FwdSmem<D>;
+  constexpr int TK = kTkFwd;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
+  const uint32_t k_full = q_empty + 8, v_full = k_full + 8 * kStages;
+  // K and V of a stage are freed apart: K once its S has landed, V once
+  // its P V has (an iteration later)
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kArrivals);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kArrivals);
+      mbar_init(v_empty + 8 * s, kArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int g_n = hq / hkv, hb = hkv * batch;
+  const int n_blk = (s_len + bq - 1) / bq, n_items = n_blk * hb;
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues every load
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x != kConsumers * 128) return;
+    prefetch_map(&q_map);
+    prefetch_map(&k_map);
+    prefetch_map(&v_map);
+    int stage = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
+      const Item w = item_at(it, n_blk, hkv, hb, causal);
+      const int c0 = w.blk * bq;
+      int k_lo, k_hi, n_tiles;
+      key_range(c0, bq, s_len, causal, window, TK, &k_lo, &k_hi, &n_tiles);
+      mbar_wait(q_empty, q_phase ^ 1);
+      q_phase ^= 1;
+      mbar_expect_tx(q_full, (D / 64) * g_n * bq * 128);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_4d(base + L::kQ + c * kRows * 128, &q_map, q_full, c * 64,
+                    w.h * g_n, c0, w.b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int t0 = k_lo + i * TK;
+        const uint32_t kt = base + L::kK + stage * L::kTile;
+        const uint32_t vt = base + L::kV + stage * L::kTile;
+        mbar_wait(k_empty + 8 * stage, phase ^ 1);
+        mbar_expect_tx(k_full + 8 * stage, L::kTile);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(kt + c * TK * 128, &k_map, k_full + 8 * stage, c * 64,
+                      w.h, t0, w.b);
+        mbar_wait(v_empty + 8 * stage, phase ^ 1);
+        mbar_expect_tx(v_full + 8 * stage, L::kTile);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(vt + c * TK * 128, &v_map, v_full + 8 * stage, c * 64,
+                      w.h, t0, w.b);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg holds rows 64 wg .. 64 wg + 63
+  regs_alloc<kConsumerRegs>();
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int t4 = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + (lane >> 2);
+  int stage = 0;
+  uint32_t phase = 0, q_phase = 0;
+  for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
+    const Item w = item_at(it, n_blk, hkv, hb, causal);
+    const int c0 = w.blk * bq;
+    int k_lo, k_hi, n_tiles;
+    key_range(c0, bq, s_len, causal, window, TK, &k_lo, &k_hi, &n_tiles);
+    const Rows rw = rows_of(r0, c0, g_n, bq, s_len);
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float s[TK / 2];
+    unsigned p_prev[TK / 16][4];   // tile i - 1's weights, bf16
+    mbar_wait(q_full, q_phase);
+    q_phase ^= 1;
+    // Tile i's S = Q K^T is issued together with tile i - 1's O += P V, and
+    // tile i's softmax runs while that product is in flight; O takes tile
+    // i's rescale once it has landed.  Tile 0 goes first on its own, so
+    // that the loop has no branch around its products (ptxas serializes
+    // the products when a path might touch their registers in flight).
+    float alpha[2];
+    auto softmax = [&](int i) {   // tile i's weights into s, rescale alpha
+      const int t0 = k_lo + i * TK;
+      const int n = min(TK, k_hi - t0);
+      float rs[2] = {0.f, 0.f};
+      auto sc = reinterpret_cast<float(*)[4]>(s);
+      if (n == TK && flash_mma::all_visible(rw.p_min, rw.p_max, t0,
+                                            t0 + TK - 1, causal, window))
+        flash_mma::online_softmax<false, TK / 8>(sc, m, alpha, rs, rw.pos, t0,
+                                                 n, scale, softcap, causal,
+                                                 window, t4);
+      else
+        flash_mma::online_softmax<true, TK / 8>(sc, m, alpha, rs, rw.pos, t0,
+                                                n, scale, softcap, causal,
+                                                window, t4);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        l[hh] = l[hh] * alpha[hh] + flash_mma::quad_sum(rs[hh]);
+    };
+    mbar_wait(k_full + 8 * stage, phase);
+    wg_fence();
+    product_abt<D, TK>(s, base + L::kQ, kRows, wg * 64,
+                       base + L::kK + stage * L::kTile);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<TK / 2>(s);
+    if (lane == 0) {
+      mbar_arrive(k_empty + 8 * stage);
+      if (n_tiles == 1) mbar_arrive(q_empty);
+    }
+    softmax(0);
+    pack_a<TK>(s, p_prev);
+    int v_stage = stage;
+    uint32_t v_phase = phase;
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    for (int i = 1; i < n_tiles; ++i) {
+      mbar_wait(k_full + 8 * stage, phase);
+      wg_fence();
+      product_abt<D, TK>(s, base + L::kQ, kRows, wg * 64,
+                         base + L::kK + stage * L::kTile);
+      wg_commit();
+      mbar_wait(v_full + 8 * v_stage, v_phase);
+      product_ab<D, TK>(acc, p_prev, base + L::kV + v_stage * L::kTile);
+      wg_commit();
+      wg_wait<1>();   // S has landed; P V may still run
+      fence_regs<TK / 2>(s);
+      if (lane == 0) {
+        mbar_arrive(k_empty + 8 * stage);
+        if (i == n_tiles - 1) mbar_arrive(q_empty);
+      }
+      softmax(i);
+      wg_wait<0>();
+      fence_regs<D / 2>(acc);
+      if (lane == 0) mbar_arrive(v_empty + 8 * v_stage);
+#pragma unroll
+      for (int i2 = 0; i2 < D / 2; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
+      pack_a<TK>(s, p_prev);
+      v_stage = stage;
+      v_phase = phase;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    mbar_wait(v_full + 8 * v_stage, v_phase);
+    wg_fence();
+    product_ab<D, TK>(acc, p_prev, base + L::kV + v_stage * L::kTile);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<D / 2>(acc);
+    if (lane == 0) mbar_arrive(v_empty + 8 * v_stage);
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (!rw.live[hh]) continue;
+      const int head = w.h * g_n + rw.r[hh] % g_n;
+      const long long orow =
+          ((long long)w.b * s_len + rw.pos[hh]) * hq + head;
+      const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(o + orow * D + nt * 8 + 2 * t4) =
+            __floats2bfloat162_rn(acc[4 * nt + 2 * hh] * inv,
+                                  acc[4 * nt + 2 * hh + 1] * inv);
+      if (t4 == 0)   // m is in the log2 domain
+        lse[((long long)w.b * hq + head) * s_len + rw.pos[hh]] =
+            (m[hh] + log2f(fmaxf(l[hh], 1e-30f))) * flash_mma::kLn2;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, pass 1: dQ
+// ---------------------------------------------------------------------------
+
+// The dQ pass holds K a whole iteration (until dS K has landed): a third
+// stage keeps the next K's load a full iteration ahead of its use.
+constexpr int kDqStages = 3;
+
+template <int D>
+struct DqSmem {
+  static constexpr int kQ = 0;                       // kRows x D
+  static constexpr int kG = kQ + kRows * D * 2;      // dO, kRows x D
+  static constexpr int kTile = kTkDq * D * 2;
+  static constexpr int kK = kG + kRows * D * 2;      // kDqStages K tiles
+  static constexpr int kV = kK + kDqStages * kTile;  // kDqStages V tiles
+  static constexpr int kBar = kV + kDqStages * kTile;
+  // q_full, q_empty, then k_full, v_full, k_empty, v_empty per stage
+  static constexpr int kBytes = kBar + 8 * (2 + 4 * kDqStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap q_map,
+          const __grid_constant__ CUtensorMap g_map,
+          const __grid_constant__ CUtensorMap k_map,
+          const __grid_constant__ CUtensorMap v_map,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dq, int batch, int s_len, int hq, int hkv,
+          int bq, float scale, int causal, int window, float softcap) {
+  using L = DqSmem<D>;
+  constexpr int TK = kTkDq;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
+  const uint32_t k_full = q_empty + 8, v_full = k_full + 8 * kDqStages;
+  // V of a stage is free once its dP has landed, K once its dQ has (an
+  // iteration later)
+  const uint32_t k_empty = v_full + 8 * kDqStages;
+  const uint32_t v_empty = k_empty + 8 * kDqStages;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kArrivals);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kArrivals);
+      mbar_init(v_empty + 8 * s, kArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int g_n = hq / hkv, hb = hkv * batch;
+  const int n_blk = (s_len + bq - 1) / bq, n_items = n_blk * hb;
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x != kConsumers * 128) return;
+    prefetch_map(&q_map);
+    prefetch_map(&g_map);
+    prefetch_map(&k_map);
+    prefetch_map(&v_map);
+    int stage = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
+      const Item w = item_at(it, n_blk, hkv, hb, causal);
+      const int c0 = w.blk * bq;
+      int k_lo, k_hi, n_tiles;
+      key_range(c0, bq, s_len, causal, window, TK, &k_lo, &k_hi, &n_tiles);
+      mbar_wait(q_empty, q_phase ^ 1);
+      q_phase ^= 1;
+      mbar_expect_tx(q_full, 2 * (D / 64) * g_n * bq * 128);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(base + L::kQ + c * kRows * 128, &q_map, q_full, c * 64,
+                    w.h * g_n, c0, w.b);
+        tma_load_4d(base + L::kG + c * kRows * 128, &g_map, q_full, c * 64,
+                    w.h * g_n, c0, w.b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int t0 = k_lo + i * TK;
+        const uint32_t kt = base + L::kK + stage * L::kTile;
+        const uint32_t vt = base + L::kV + stage * L::kTile;
+        mbar_wait(k_empty + 8 * stage, phase ^ 1);
+        mbar_expect_tx(k_full + 8 * stage, L::kTile);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(kt + c * TK * 128, &k_map, k_full + 8 * stage, c * 64,
+                      w.h, t0, w.b);
+        mbar_wait(v_empty + 8 * stage, phase ^ 1);
+        mbar_expect_tx(v_full + 8 * stage, L::kTile);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(vt + c * TK * 128, &v_map, v_full + 8 * stage, c * 64,
+                      w.h, t0, w.b);
+        if (++stage == kDqStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  regs_alloc<kConsumerRegs>();
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int t4 = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + (lane >> 2);
+  int stage = 0;
+  uint32_t phase = 0, q_phase = 0;
+  for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
+    const Item w = item_at(it, n_blk, hkv, hb, causal);
+    const int c0 = w.blk * bq;
+    int k_lo, k_hi, n_tiles;
+    key_range(c0, bq, s_len, causal, window, TK, &k_lo, &k_hi, &n_tiles);
+    const Rows rw = rows_of(r0, c0, g_n, bq, s_len);
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long li =
+          ((long long)w.b * hq + w.h * g_n + rw.r[hh] % g_n) * s_len +
+          rw.pos[hh];
+      lse2[hh] = rw.live[hh] ? lse[li] * flash_mma::kLog2e : 0.f;
+      dl[hh] = rw.live[hh] ? delta[li] : 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float s[TK / 2], dp[TK / 2];
+    unsigned ds_prev[TK / 16][4];   // tile i - 1's dS, bf16
+    mbar_wait(q_full, q_phase);
+    q_phase ^= 1;
+    // As in the forward: tile i's S and dP are issued together with tile
+    // i - 1's dQ += dS K, and tile i's dS is formed while that product
+    // runs; tile 0 goes first on its own.
+    auto issue_s_dp = [&]() {   // S and dP of the tile in `stage`
+      mbar_wait(k_full + 8 * stage, phase);
+      wg_fence();
+      product_abt<D, TK>(s, base + L::kQ, kRows, wg * 64,
+                         base + L::kK + stage * L::kTile);
+      mbar_wait(v_full + 8 * stage, phase);
+      product_abt<D, TK>(dp, base + L::kG, kRows, wg * 64,
+                         base + L::kV + stage * L::kTile);
+      wg_commit();
+    };
+    auto grad = [&](int i) {   // s <- tile i's dS (times the softcap's slope)
+      const int t0 = k_lo + i * TK;
+      const int n = min(TK, k_hi - t0);
+      auto sc = reinterpret_cast<float(*)[4]>(s);
+      auto dpc = reinterpret_cast<float(*)[4]>(dp);
+      if (n == TK && flash_mma::all_visible(rw.p_min, rw.p_max, t0,
+                                            t0 + TK - 1, causal, window))
+        flash_mma::grad_tile<false, TK / 8>(sc, dpc, lse2, dl, rw.pos, t0, n,
+                                            scale, softcap, causal, window,
+                                            t4);
+      else
+        flash_mma::grad_tile<true, TK / 8>(sc, dpc, lse2, dl, rw.pos, t0, n,
+                                           scale, softcap, causal, window,
+                                           t4);
+    };
+    issue_s_dp();
+    wg_wait<0>();
+    fence_regs<TK / 2>(s);
+    fence_regs<TK / 2>(dp);
+    if (lane == 0) {
+      mbar_arrive(v_empty + 8 * stage);
+      if (n_tiles == 1) mbar_arrive(q_empty);
+    }
+    grad(0);
+    pack_a<TK>(s, ds_prev);
+    int k_stage = stage;
+    if (++stage == kDqStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    for (int i = 1; i < n_tiles; ++i) {
+      issue_s_dp();
+      product_ab<D, TK>(acc, ds_prev, base + L::kK + k_stage * L::kTile);
+      wg_commit();
+      wg_wait<1>();   // S and dP have landed; dQ may still run
+      fence_regs<TK / 2>(s);
+      fence_regs<TK / 2>(dp);
+      if (lane == 0) {
+        mbar_arrive(v_empty + 8 * stage);
+        if (i == n_tiles - 1) mbar_arrive(q_empty);
+      }
+      grad(i);
+      wg_wait<0>();
+      fence_regs<D / 2>(acc);
+      if (lane == 0) mbar_arrive(k_empty + 8 * k_stage);
+      pack_a<TK>(s, ds_prev);
+      k_stage = stage;
+      if (++stage == kDqStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wg_fence();
+    product_ab<D, TK>(acc, ds_prev, base + L::kK + k_stage * L::kTile);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<D / 2>(acc);
+    if (lane == 0) mbar_arrive(k_empty + 8 * k_stage);
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (!rw.live[hh]) continue;
+      const long long orow = ((long long)w.b * s_len + rw.pos[hh]) * hq +
+                             w.h * g_n + rw.r[hh] % g_n;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(dq + orow * D + nt * 8 + 2 * t4) =
+            __floats2bfloat162_rn(acc[4 * nt + 2 * hh] * scale,
+                                  acc[4 * nt + 2 * hh + 1] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, pass 2: dK and dV
+// ---------------------------------------------------------------------------
+
+// Each 64-query tile of the dK/dV pass streams 32 KB of Q and dO (at
+// D 128) through the ring; three stages keep two tiles in flight.
+constexpr int kDkvStages = 3;
+
+template <int D>
+struct DkvSmem {
+  static constexpr int kK = 0;                       // kRows keys x D
+  static constexpr int kV = kK + kRows * D * 2;      // kRows keys x D
+  static constexpr int kTile = kTqDkv * D * 2;       // a Q or dO tile
+  // a stage: Q tile, dO tile, then the tile's log-sum-exp and Delta
+  static constexpr int kLse = 2 * kTile, kDelta = kLse + 4 * kTqDkv;
+  static constexpr int kStage = (kDelta + 4 * kTqDkv + 1023) / 1024 * 1024;
+  static constexpr int kStages0 = kV + kRows * D * 2;
+  static constexpr int kBar = kStages0 + kDkvStages * kStage;
+  // kv_full, kv_empty, then full, empty per stage
+  static constexpr int kBytes = kBar + 8 * (2 + 2 * kDkvStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+           const __grid_constant__ CUtensorMap g_map,
+           const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           bf16* __restrict__ dk, bf16* __restrict__ dv, int batch,
+           int s_len, int hq, int hkv, float scale, int causal, int window,
+           float softcap) {
+  using L = DkvSmem<D>;
+  constexpr int TQ = kTqDkv;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  const uint32_t kv_full = base + L::kBar, kv_empty = kv_full + 8;
+  const uint32_t full = kv_empty + 8, empty = full + 8 * kDkvStages;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, kArrivals);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(full + 8 * s, 32);   // the producer warp's lanes
+      mbar_init(empty + 8 * s, kArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int g_n = hq / hkv, hb = hkv * batch;
+  const int n_blk = (s_len + kRows - 1) / kRows, n_items = n_blk * hb;
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one warp.  Lane 0 issues the TMA loads of the tiles;
+    // every lane copies its share of the tile's log-sum-exp and Delta (64
+    // floats each, zero past S), then arrives on the stage's full barrier.
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x >= kConsumers * 128 + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      prefetch_map(&q_map);
+      prefetch_map(&g_map);
+      prefetch_map(&k_map);
+      prefetch_map(&v_map);
+    }
+    int stage = 0;
+    uint32_t phase = 0, kv_phase = 0;
+    for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
+      // causal: the first key blocks see the most queries
+      const Item w = item_at(it, n_blk, hkv, hb, !causal);
+      const int k0 = w.blk * kRows;
+      int q_lo, q_hi;
+      query_range(k0, s_len, causal, window, &q_lo, &q_hi);
+      const int n_qt = (q_hi - q_lo + TQ - 1) / TQ;
+      if (lane == 0) {
+        mbar_wait(kv_empty, kv_phase ^ 1);
+        mbar_expect_tx(kv_full, 2 * kRows * D * 2);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(base + L::kK + c * kRows * 128, &k_map, kv_full,
+                      c * 64, w.h, k0, w.b);
+          tma_load_4d(base + L::kV + c * kRows * 128, &v_map, kv_full,
+                      c * 64, w.h, k0, w.b);
+        }
+      }
+      kv_phase ^= 1;
+      for (int j = 0; j < g_n * n_qt; ++j) {
+        const int gi = j / n_qt, head = w.h * g_n + gi;
+        const int t0 = q_lo + (j - gi * n_qt) * TQ;
+        const uint32_t st = base + L::kStages0 + stage * L::kStage;
+        const uint32_t bar = full + 8 * stage;
+        // this lane's log-sum-exp and Delta, loaded before the wait
+        const long long row = ((long long)w.b * hq + head) * s_len;
+        float lse_r[TQ / 32], delta_r[TQ / 32];
+#pragma unroll
+        for (int c = 0; c < TQ / 32; ++c) {
+          const bool ok = t0 + lane + 32 * c < s_len;
+          lse_r[c] = ok ? lse[row + t0 + lane + 32 * c] : 0.f;
+          delta_r[c] = ok ? delta[row + t0 + lane + 32 * c] : 0.f;
+        }
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        if (lane == 0) {
+          mbar_add_tx(bar, 2 * L::kTile);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(st + c * TQ * 128, &q_map, bar, c * 64, head, t0,
+                        w.b);
+            tma_load_4d(st + L::kTile + c * TQ * 128, &g_map, bar, c * 64,
+                        head, t0, w.b);
+          }
+        }
+        float* lse_s = reinterpret_cast<float*>(
+            smem_raw + (st + L::kLse - smem_u32(smem_raw)));
+        float* delta_s = reinterpret_cast<float*>(
+            smem_raw + (st + L::kDelta - smem_u32(smem_raw)));
+#pragma unroll
+        for (int c = 0; c < TQ / 32; ++c) {
+          lse_s[lane + 32 * c] = lse_r[c];
+          delta_s[lane + 32 * c] = delta_r[c];
+        }
+        mbar_arrive(bar);   // after this lane's stores
+        if (++stage == kDkvStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  regs_alloc<kConsumerRegs>();
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int t4 = lane & 3;
+  const int row0 = wg * 64 + warp * 16;   // this warp's first key
+  int stage = 0;
+  uint32_t phase = 0, kv_phase = 0;
+  for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
+    const Item w = item_at(it, n_blk, hkv, hb, !causal);
+    const int k0 = w.blk * kRows;
+    int q_lo, q_hi;
+    query_range(k0, s_len, causal, window, &q_lo, &q_hi);
+    const int n_qt = (q_hi - q_lo + TQ - 1) / TQ;
+    int kp[2];
+    bool key_ok[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      kp[hh] = k0 + row0 + (lane >> 2) + 8 * hh;
+      key_ok[hh] = kp[hh] < s_len;
+    }
+    const int k_min = k0 + row0, k_max = k_min + 15;
+    const bool warp_keys_ok = k_max < s_len;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kv_full, kv_phase);
+    kv_phase ^= 1;
+    const int n_tiles = g_n * n_qt;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int gi = j / n_qt;
+      const int t0 = q_lo + (j - gi * n_qt) * TQ;
+      const int n = min(TQ, q_hi - t0);
+      const uint32_t st = base + L::kStages0 + stage * L::kStage;
+      const float* lse_t = reinterpret_cast<const float*>(
+          smem_raw + (st + L::kLse - smem_u32(smem_raw)));
+      const float* delta_t = reinterpret_cast<const float*>(
+          smem_raw + (st + L::kDelta - smem_u32(smem_raw)));
+      float s[TQ / 2], dp[TQ / 2];
+      mbar_wait(full + 8 * stage, phase);
+      wg_fence();
+      product_abt<D, TQ>(s, base + L::kK, kRows, wg * 64, st);   // K Q^T
+      product_abt<D, TQ>(dp, base + L::kV, kRows, wg * 64,
+                         st + L::kTile);                          // V dO^T
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<TQ / 2>(s);
+      fence_regs<TQ / 2>(dp);
+      if (j == n_tiles - 1 && lane == 0) mbar_arrive(kv_empty);
+
+      auto sc = reinterpret_cast<float(*)[4]>(s);
+      auto dpc = reinterpret_cast<float(*)[4]>(dp);
+      if (n == TQ && warp_keys_ok &&
+          flash_mma::all_visible(t0, t0 + TQ - 1, k_min, k_max, causal,
+                                 window))
+        flash_mma::grad_tile_t<false, TQ / 8>(sc, dpc, lse_t, delta_t, kp,
+                                              key_ok, t0, n, scale, softcap,
+                                              causal, window, t4);
+      else
+        flash_mma::grad_tile_t<true, TQ / 8>(sc, dpc, lse_t, delta_t, kp,
+                                             key_ok, t0, n, scale, softcap,
+                                             causal, window, t4);
+      wg_fence();
+      product_pb<D, TQ>(dv_acc, s, st + L::kTile);   // dV += P^T dO
+      product_pb<D, TQ>(dk_acc, dp, st);             // dK += dS^T Q
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<D / 2>(dv_acc);
+      fence_regs<D / 2>(dk_acc);
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+      if (++stage == kDkvStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const long long kv_base = (long long)w.b * s_len * hkv + w.h;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (!key_ok[hh]) continue;
+      const long long orow = kv_base + (long long)kp[hh] * hkv;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const int col = nt * 8 + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(dk + orow * D + col) =
+            __floats2bfloat162_rn(dk_acc[4 * nt + 2 * hh] * scale,
+                                  dk_acc[4 * nt + 2 * hh + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + orow * D + col) =
+            __floats2bfloat162_rn(dv_acc[4 * nt + 2 * hh],
+                                  dv_acc[4 * nt + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps and launches
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a libcuda function: fetch it through the
+// runtime's entry-point query, so the library needs no -lcuda.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, H, D) bf16 tensor as the 4-D map (D, H, S, B), boxes of 64
+// features x box_heads heads x box_rows positions, 128-byte swizzle.
+inline bool map_bshd(CUtensorMap* m, const void* p, int batch, int s_len,
+                     int heads, int d, int box_heads, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)s_len, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s_len * heads * d * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)box_rows,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The persistent grid: one CTA per SM, or one per item if fewer.
+inline int grid_size(long long n_items) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)(n_items < sms ? n_items : (sms > 0 ? sms : 1));
+}
+
+template <int D>
+int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int batch, int s_len, int hq, int hkv,
+                 float scale, int causal, int window, float softcap,
+                 cudaStream_t stream) {
+  static size_t opted_in = 48 * 1024;
+  const size_t smem = FwdSmem<D>::kBytes;
+  const cudaError_t e = allow_smem(fwd_kernel<D>, smem, &opted_in);
+  if (e != cudaSuccess) return (int)e;
+  const int g_n = hq / hkv, bq = kRows / g_n;
+  CUtensorMap qm, km, vm;
+  if (!map_bshd(&qm, q, batch, s_len, hq, D, g_n, bq) ||
+      !map_bshd(&km, k, batch, s_len, hkv, D, 1, kTkFwd) ||
+      !map_bshd(&vm, v, batch, s_len, hkv, D, 1, kTkFwd))
+    return (int)cudaErrorInvalidValue;
+  const long long n_items = (long long)((s_len + bq - 1) / bq) * hkv * batch;
+  if (n_items == 0) return 0;
+  fwd_kernel<D><<<grid_size(n_items), kThreads, smem, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), lse, batch, s_len, hq, hkv, bq,
+      scale, causal, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+// The two passes; Delta (B, Hq, S) f32 is already in `delta`.
+template <int D>
+int launch_bwd_d(const void* q, const void* k, const void* v,
+                 const void* d_o, const float* lse, const float* delta,
+                 void* dq, void* dk, void* dv, int batch, int s_len, int hq,
+                 int hkv, float scale, int causal, int window, float softcap,
+                 cudaStream_t stream) {
+  static size_t opted_dq = 48 * 1024, opted_dkv = 48 * 1024;
+  const size_t smem_dq = DqSmem<D>::kBytes, smem_dkv = DkvSmem<D>::kBytes;
+  cudaError_t e = allow_smem(dq_kernel<D>, smem_dq, &opted_dq);
+  if (e != cudaSuccess) return (int)e;
+  e = allow_smem(dkv_kernel<D>, smem_dkv, &opted_dkv);
+  if (e != cudaSuccess) return (int)e;
+  const int g_n = hq / hkv, bq = kRows / g_n;
+  CUtensorMap qm, gm, km, vm;
+  if (!map_bshd(&qm, q, batch, s_len, hq, D, g_n, bq) ||
+      !map_bshd(&gm, d_o, batch, s_len, hq, D, g_n, bq) ||
+      !map_bshd(&km, k, batch, s_len, hkv, D, 1, kTkDq) ||
+      !map_bshd(&vm, v, batch, s_len, hkv, D, 1, kTkDq))
+    return (int)cudaErrorInvalidValue;
+  const long long n_q = (long long)((s_len + bq - 1) / bq) * hkv * batch;
+  if (n_q == 0) return 0;
+  dq_kernel<D><<<grid_size(n_q), kThreads, smem_dq, stream>>>(
+      qm, gm, km, vm, lse, delta, static_cast<bf16*>(dq), batch, s_len, hq,
+      hkv, bq, scale, causal, window, softcap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap qt, gt, kb, vb;
+  if (!map_bshd(&qt, q, batch, s_len, hq, D, 1, kTqDkv) ||
+      !map_bshd(&gt, d_o, batch, s_len, hq, D, 1, kTqDkv) ||
+      !map_bshd(&kb, k, batch, s_len, hkv, D, 1, kRows) ||
+      !map_bshd(&vb, v, batch, s_len, hkv, D, 1, kRows))
+    return (int)cudaErrorInvalidValue;
+  const long long n_k = (long long)((s_len + kRows - 1) / kRows) * hkv * batch;
+  dkv_kernel<D><<<grid_size(n_k), kThreads, smem_dkv, stream>>>(
+      qt, gt, kb, vb, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv),
+      batch, s_len, hq, hkv, scale, causal, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_wgmma

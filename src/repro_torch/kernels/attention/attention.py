@@ -11,10 +11,15 @@ softmax weights from them.  What bounds them on the card: operations, at
 989 TFLOP/s bf16.  The causal forward does 4 B Hq S^2 D / 2 flops (0.139
 ms at B 2, Hq 16, S 4096, D 128); the backward does 3.5 times that, since
 it recomputes two products to keep dQ free of atomics.  Their design
-against that bound: bf16 runs every product on tensor cores (``mma.sync``,
-``csrc/flash_mma.cuh``), each K/V tile is shared by the G query heads of
+against that bound: bf16 at D 64 and 128 runs every product on ``wgmma``
+with TMA loads, a producer warp and a persistent grid
+(``csrc/flash_wgmma.cuh``), bf16 at D 256 on ``mma.sync``
+(``csrc/flash_mma.cuh``); each K/V tile is shared by the G query heads of
 its kv head, and only the tiles the causal and window masks leave are
-walked (each source's header says more).
+walked (each source's header says more).  Besides ``launches``, each of
+the two wrappers counts its launches by kernel family in ``variants``
+(``"wgmma"``, ``"mma_sync"``, ``"cuda_cores"``), as the library reports
+the family it takes for the dtype and D.
 
 Paged serving: ``paged_flash_decode`` replaces
 ``paged_flash_decode_pallas``, ``paged_flash_prefill`` replaces
@@ -35,6 +40,7 @@ instead; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -374,6 +380,16 @@ paged_latent_prefill.launches = 0
 # Dense flash attention (training path)
 # ---------------------------------------------------------------------------
 
+# The kernel families of the dense flash libraries, by the number their
+# ``<lib>_variant(dtype, d)`` returns.
+FLASH_VARIANTS = ("cuda_cores", "mma_sync", "wgmma")
+
+
+def _flash_variant(lib: str, dtype: torch.dtype, d: int) -> str:
+    return FLASH_VARIANTS[_fn(lib, f"{lib}_variant", (_I, _I))(
+        _DTYPES[dtype], d)]
+
+
 def _check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lib: str) -> tuple[int, int, int, int, int]:
     """Checks shared by the dense wrappers; returns (B, S, Hq, Hkv, D)."""
@@ -424,6 +440,7 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.variants[_flash_variant(lib, q.dtype, d)] += 1
     return out, lse
 
 
@@ -456,8 +473,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"o {tuple(o.shape)}, d_o {tuple(d_o.shape)} and "
                          f"lse {tuple(lse.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if any(t.data_ptr() % 16 for t in (o, d_o)):
-        raise ValueError("o and d_o must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (o, d_o, lse)):
+        raise ValueError("o, d_o and lse must be 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -472,10 +489,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.variants[_flash_variant(lib, q.dtype, d)] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.variants = collections.Counter()
 
 
 class FlashAttention(torch.autograd.Function):
@@ -520,3 +539,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.variants = collections.Counter()

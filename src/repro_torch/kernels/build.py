@@ -90,6 +90,24 @@ def _nvcc() -> str:
 LIBS = KernelLibraries()
 
 
+def sass_counts(lib_names: tuple[str, ...],
+                ops: tuple[str, ...] = ("HGMMA", "UTMALDG")) -> dict | None:
+    """Lines of each op in the SASS of each built library (``cuobjdump
+    -sass``), e.g. HGMMA (wgmma) and UTMALDG (TMA load); None where the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    counts = {}
+    for name in lib_names:
+        sass = subprocess.run([tool, "-sass", LIBS.get(name)._name],
+                              capture_output=True, text=True,
+                              check=True).stdout.splitlines()
+        counts[name] = {op: sum(op in line for line in sass) for op in ops}
+    return counts
+
+
 @functools.cache
 def c_function(lib_name: str, fn_name: str, argtypes: tuple = ()):
     """``fn_name`` of the library built from ``csrc/<lib_name>.cu``, with

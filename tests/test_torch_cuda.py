@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version on the same CUDA inputs (the paged GQA pair, the MLA
-latent pair, the dense flash forward and backward, the PACO matmul and
-the LCS tile), the serving engine on CUDA running the kernels on every
+latent pair, the dense flash forward and backward, including the wgmma
+kernels' geometries, their bitwise-reproducible backward and the variant
+they take, the PACO matmul and the LCS tile), the serving engine on CUDA
+running the kernels on every
 prefill chunk and decode tick, a train step on CUDA running the flash
 kernels, and the PACO executors launching the matmul kernel once per
 cuboid and the LCS kernel once per anti-diagonal.
@@ -338,6 +340,89 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
         from repro_torch.models import layers as L
         pos = torch.arange(8, device=cuda)
         L.attention(q, k, k, q_positions=pos + 1, k_positions=pos + 1)
+
+
+# bf16 at D 64 and 128 takes the wgmma kernels: the training length, ragged
+# lengths, G 1, 2, 6 (rows of the 128 left unused) and 8
+WGMMA_GEOMS = [(2, 128, 4096), (1, 64, 4096), (6, 128, 333), (8, 64, 1000),
+               (2, 64, 77), (1, 128, 200)]
+
+
+@pytest.mark.parametrize("kw", FLASH_KW)
+@pytest.mark.parametrize("g,d,s", WGMMA_GEOMS)
+def test_wgmma_flash_kernels_match_plain_and_repeat_bitwise(cuda, kw, g, d,
+                                                            s):
+    """The bf16 forward and backward at D 64 and 128 launch the wgmma
+    kernels (the wrappers' per-variant counts), agree with the plain
+    versions within FLASH_DTYPES' bf16 bound, and the backward gives
+    bitwise the same dq, dk and dv on a second call."""
+    gen = torch.Generator(device=cuda).manual_seed(g * d + s)
+    b, hkv, dtype = 2, 2, torch.bfloat16
+    q, k, v, d_o = (_rand(gen, b, s, h, d, dtype=dtype)
+                    for h in (hkv * g, hkv, hkv, hkv * g))
+    f0 = K.flash_attention.variants["wgmma"]
+    b0 = K.flash_attention_bwd.variants["wgmma"]
+    o, lse = K._flash_fwd(q, k, v, causal=kw["causal"],
+                          window=kw.get("window"),
+                          logit_cap=kw.get("logit_cap"))
+    grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, **kw)
+    again = K.flash_attention_bwd(q, k, v, o, lse, d_o, **kw)
+    torch.cuda.synchronize()
+    assert (K.flash_attention.variants["wgmma"] - f0,
+            K.flash_attention_bwd.variants["wgmma"] - b0) == (1, 2)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want_o = ref.attention_ref(*tr[:3], **kw).transpose(1, 2)
+    assert _rel(o, want_o) <= 2e-2
+    del want_o
+    want_g = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr, **kw)]
+    for got, want in zip(grads, want_g):
+        assert got.dtype == dtype and _rel(got, want) <= 2e-2
+
+
+def test_flash_wrappers_take_the_variant_the_library_names(cuda):
+    """bf16 at D 64 and 128 reports wgmma, bf16 at D 256 mma.sync, float32
+    and other widths the CUDA cores, and each wrapper counts its launch
+    under that name."""
+    want = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
+            (torch.bfloat16, 256): "mma_sync",
+            (torch.bfloat16, 16): "cuda_cores",
+            (torch.float32, 128): "cuda_cores"}
+    for (dtype, d), name in want.items():
+        assert K._flash_variant("flash_fwd", dtype, d) == name
+        gen = torch.Generator(device=cuda).manual_seed(d)
+        q, k = (_rand(gen, 1, 40, h, d, dtype=dtype) for h in (4, 2))
+        before = K.flash_attention.variants[name]
+        K.flash_attention(q, k, k)
+        torch.cuda.synchronize()
+        assert K.flash_attention.variants[name] == before + 1
+    assert K._flash_variant("flash_bwd", torch.bfloat16, 128) == "wgmma"
+    assert K._flash_variant("flash_bwd", torch.bfloat16, 256) == "cuda_cores"
+
+
+def test_flash_wrappers_reject_misaligned_bases(cuda):
+    """TMA needs 16-byte aligned bases: a q, k, v, o, d_o or lse that
+    starts 2 (or 4) bytes into its storage raises before any launch."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, s, h, d = 1, 64, 2, 128
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)
+        out = buf[1:1 + t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+
+    q, k, v, d_o = (_rand(gen, b, s, h, d, dtype=torch.bfloat16)
+                    for _ in range(4))
+    assert shifted(q).data_ptr() % 16 and shifted(q).is_contiguous()
+    for args in ((shifted(q), k, v), (q, shifted(k), v), (q, k, shifted(v))):
+        with pytest.raises(ValueError, match="16-byte"):
+            K.flash_attention(*args)
+    o, lse = K._flash_fwd(q, k, v, causal=True, window=None, logit_cap=None)
+    for o_, d_o_, lse_ in ((shifted(o), d_o, lse), (o, shifted(d_o), lse),
+                           (o, d_o, shifted(lse))):
+        with pytest.raises(ValueError, match="16-byte"):
+            K.flash_attention_bwd(q, k, v, o_, lse_, d_o_)
 
 
 def test_train_step_on_cuda_runs_the_kernels_and_matches_cpu(cuda):

@@ -2,9 +2,11 @@
 versions (``ref.attention_ref``, ``ops.flash_attention`` and the plain
 gradient) against ``repro``'s oracle, its Pallas kernel in interpret mode
 and ``jax.grad`` of its chunked model attention; and CPU emulations of the
-two CUDA kernels' tile walks (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``
-and their tensor-core versions in ``csrc/flash_mma.cuh``) against the
-plain versions.
+CUDA kernels' tile walks (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
+the mma.sync walk of ``csrc/flash_mma.cuh`` and the wgmma kernels of
+``csrc/flash_wgmma.cuh``: their persistent item order and the shared
+memory layout their TMA loads write and their descriptors read) against
+the plain versions.
 
 Inputs are numpy draws from a seed.  Tolerances:
 - plain forward vs ``repro`` in float32: atol 2e-5 (as
@@ -165,13 +167,24 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 class Walk:
-    """Tile sizes of one kernel family: the CUDA-core kernels (32 rows or
-    keys per CTA, 32-key / 32-query tiles, f32 weights) or the tensor-core
-    kernels (64 rows or keys, 64-key / 32-query tiles, bf16 weights)."""
+    """Tile sizes and order of one kernel family: the CUDA-core kernels (32
+    rows or keys per CTA, 32-key / 32-query tiles, f32 weights), the
+    mma.sync kernels (64 rows or keys, 64-key / 32-query tiles, bf16
+    weights; now the D-256 forward) and the wgmma kernels (128 rows or
+    keys, 128-key tiles forward, 64-key tiles in the dQ pass, 64-query
+    tiles in the dK/dV pass, bf16 weights).  Rows of a query block are
+    head-major (row r: head r // bq at position c0 + r % bq) or, for the
+    wgmma kernels, position-major as their TMA box brings them (head r % G
+    at position c0 + r // G).  ``sms`` set: a persistent grid of that many
+    CTAs (``_cta_items``)."""
 
-    def __init__(self, rows, tk, keys, tq, mma):
+    def __init__(self, rows, tk, keys, tq, mma, position_major=False,
+                 tk_dq=None, sms=None):
         self.rows, self.tk, self.keys, self.tq, self.mma = (rows, tk, keys,
                                                             tq, mma)
+        self.position_major = position_major
+        self.tk_dq = tk_dq or tk
+        self.sms = sms
 
     def round(self, x):
         return _bf16(x) if self.mma else x
@@ -179,6 +192,9 @@ class Walk:
 
 CUDA_CORES = Walk(rows=32, tk=32, keys=32, tq=32, mma=False)
 TENSOR_CORES = Walk(rows=64, tk=64, keys=64, tq=32, mma=True)
+# 3 CTAs, so each walks several items at these sizes
+WGMMA = Walk(rows=128, tk=128, keys=128, tq=64, mma=True,
+             position_major=True, tk_dq=64, sms=3)
 
 
 def _scores(raw, scale, cap):
@@ -197,103 +213,146 @@ def _visible(qp, kp, causal, window):
     return ok
 
 
-def _q_blocks(s, g, walk):
-    """The kernels' query blocks: bq = rows // G positions x the G heads;
-    row r is head r // bq at position c0 + r % bq."""
+def _cta_items(n, sms):
+    """The item indices each CTA of a persistent grid of ``sms`` CTAs takes,
+    in order, as ``item_index`` in ``csrc/flash_wgmma.cuh``: rounds of sms
+    items, CTA c taking the c-th of an even round and the c-th from the
+    end of an odd one."""
+    return [[r * sms + (c if r % 2 == 0 else sms - 1 - c)
+             for r in range(-(-n // sms))
+             if r * sms + (c if r % 2 == 0 else sms - 1 - c) < n]
+            for c in range(sms)]
+
+
+def _item(it, n_blk, hkv, b, descending):
+    """Item it of n_blk x Hkv x B as ``item_at``: (block, kv head, batch),
+    blocks counted from the last when ``descending``."""
+    slot, rest = divmod(it, hkv * b)
+    return (n_blk - 1 - slot if descending else slot), rest % hkv, rest // hkv
+
+
+def _items(n_blk, hkv, b, walk, descending):
+    """(block, kv head, batch) items in the order the kernels take them; a
+    persistent grid of ``walk.sms`` CTAs walks CTA 0's items first, then
+    CTA 1's (the order of the sums within an item does not depend on it)."""
+    n = n_blk * hkv * b
+    order = (range(n) if walk.sms is None else
+             [it for mine in _cta_items(n, walk.sms) for it in mine])
+    for it in order:
+        yield _item(it, n_blk, hkv, b, descending)
+
+
+def _q_rows(c0, s, g, walk):
+    """A query block's bq = rows // G positions x G heads: (head index
+    within the kv head's G, position) of its live rows."""
     bq = walk.rows // g
-    for c0 in range(0, s, bq):
-        rows = torch.arange(g * bq)
-        pos = c0 + rows % bq
-        live = pos < s
-        yield c0, bq, (rows // bq)[live], pos[live]
+    rows = torch.arange(g * bq)
+    if walk.position_major:
+        head, pos = rows % g, c0 + rows // g
+    else:
+        head, pos = rows // bq, c0 + rows % bq
+    live = pos < s
+    return head[live], pos[live]
 
 
 def _key_range(c0, q_hi, s, causal, window):
     return max(0, c0 - window + 1), (q_hi + 1 if causal else s)
 
 
-def emulate_fwd(q, k, v, *, causal, window, cap, walk):
+def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None):
     """(B, S, H, D) f32 inputs -> (O (B, S, Hq, D), lse (B, Hq, S)), by the
-    forward kernel's walk: per (batch, kv head, query block), key tiles
-    over the block's range, online softmax with masked keys weighing 0."""
+    forward kernel's walk: per (query block, kv head, batch) item, key
+    tiles over the block's range, online softmax with masked keys weighing
+    0.  Each item taken is appended to ``visited``."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     scale = 1 / math.sqrt(d)
     out = torch.zeros_like(q)
     lse = torch.zeros(b, hq, s)
-    for bi in range(b):
-        for h in range(hkv):
-            for c0, bq, head, pos in _q_blocks(s, g, walk):
-                qr = q[bi, pos, h * g + head]                 # (R, D)
-                m = torch.full((len(pos),), NEG)
-                l = torch.zeros(len(pos))
-                acc = torch.zeros(len(pos), d)
-                lo, hi = _key_range(c0, int(pos.max()), s, causal, window)
-                for t0 in range(lo, hi, walk.tk):
-                    kp = torch.arange(t0, min(t0 + walk.tk, hi))
-                    x, _ = _scores(qr @ k[bi, kp, h].T, scale, cap)
-                    ok = _visible(pos, kp, causal, window)
-                    x = torch.where(ok, x, NEG)
-                    m_new = torch.maximum(m, x.max(1).values)
-                    p = torch.where(ok, torch.exp(x - m_new[:, None]), 0.0)
-                    alpha = torch.exp(m - m_new)
-                    l = l * alpha + p.sum(1)
-                    acc = acc * alpha[:, None] + walk.round(p) @ v[bi, kp, h]
-                    m = m_new
-                out[bi, pos, h * g + head] = acc / l.clamp(min=1e-30)[:, None]
-                lse[bi, h * g + head, pos] = m + torch.log(l.clamp(min=1e-30))
+    bq = walk.rows // g
+    for blk, h, bi in _items(-(-s // bq), hkv, b, walk, descending=causal):
+        if visited is not None:
+            visited.append(("fwd", blk, h, bi))
+        c0 = blk * bq
+        head, pos = _q_rows(c0, s, g, walk)
+        qr = q[bi, pos, h * g + head]                         # (R, D)
+        m = torch.full((len(pos),), NEG)
+        l = torch.zeros(len(pos))
+        acc = torch.zeros(len(pos), d)
+        lo, hi = _key_range(c0, int(pos.max()), s, causal, window)
+        for t0 in range(lo, hi, walk.tk):
+            kp = torch.arange(t0, min(t0 + walk.tk, hi))
+            x, _ = _scores(qr @ k[bi, kp, h].T, scale, cap)
+            ok = _visible(pos, kp, causal, window)
+            x = torch.where(ok, x, NEG)
+            m_new = torch.maximum(m, x.max(1).values)
+            p = torch.where(ok, torch.exp(x - m_new[:, None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(1)
+            acc = acc * alpha[:, None] + walk.round(p) @ v[bi, kp, h]
+            m = m_new
+        out[bi, pos, h * g + head] = acc / l.clamp(min=1e-30)[:, None]
+        lse[bi, h * g + head, pos] = m + torch.log(l.clamp(min=1e-30))
     return walk.round(out), lse
 
 
-def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk):
+def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
+                visited=None):
     """(dq, dk, dv) by the backward kernel's three launches: Delta, the dQ
-    pass over the forward's query blocks, and the dK/dV pass per (kv head,
-    key block) over the G heads and their query tiles."""
+    pass over the forward's query blocks (``walk.tk_dq``-key tiles), and
+    the dK/dV pass per (key block, kv head, batch) item over the G heads
+    and their query tiles.  Items taken are appended to ``visited``."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     scale = 1 / math.sqrt(d)
     delta = (d_o * o).sum(-1).transpose(1, 2)                 # (B, Hq, S)
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    for bi in range(b):
-        for h in range(hkv):
-            for c0, bq, head, pos in _q_blocks(s, g, walk):
-                hh = h * g + head
-                qr, gr = q[bi, pos, hh], d_o[bi, pos, hh]
-                acc = torch.zeros(len(pos), d)
-                lo, hi = _key_range(c0, int(pos.max()), s, causal, window)
-                for t0 in range(lo, hi, walk.tk):
-                    kp = torch.arange(t0, min(t0 + walk.tk, hi))
-                    x, cg = _scores(qr @ k[bi, kp, h].T, scale, cap)
-                    ok = _visible(pos, kp, causal, window)
-                    p = torch.where(
-                        ok, torch.exp(x - lse[bi, hh, pos][:, None]), 0.0)
-                    dp = gr @ v[bi, kp, h].T
-                    ds = p * (dp - delta[bi, hh, pos][:, None]) * cg
-                    acc += walk.round(ds) @ k[bi, kp, h]
-                dq[bi, pos, hh] = acc * scale
-            for k0 in range(0, s, walk.keys):
-                kp = torch.arange(k0, min(k0 + walk.keys, s))
-                kb, vb = k[bi, kp, h], v[bi, kp, h]
-                dk_acc = torch.zeros(len(kp), d)
-                dv_acc = torch.zeros(len(kp), d)
-                q_lo = k0 if causal else 0
-                q_hi = min(s, int(kp[-1]) + window)
-                for gi in range(g):
-                    hh = h * g + gi
-                    for t0 in range(q_lo, q_hi, walk.tq):
-                        qp = torch.arange(t0, min(t0 + walk.tq, q_hi))
-                        x, cg = _scores(kb @ q[bi, qp, hh].T, scale, cap)
-                        ok = _visible(qp, kp, causal, window).T  # (keys, q)
-                        p = torch.where(ok, torch.exp(x - lse[bi, hh, qp]),
-                                        0.0)
-                        dpt = vb @ d_o[bi, qp, hh].T
-                        ds = p * (dpt - delta[bi, hh, qp]) * cg
-                        dv_acc += walk.round(p) @ d_o[bi, qp, hh]
-                        dk_acc += walk.round(ds) @ q[bi, qp, hh]
-                dk[bi, kp, h] = dk_acc * scale
-                dv[bi, kp, h] = dv_acc
+    bq = walk.rows // g
+    for blk, h, bi in _items(-(-s // bq), hkv, b, walk, descending=causal):
+        if visited is not None:
+            visited.append(("dq", blk, h, bi))
+        c0 = blk * bq
+        head, pos = _q_rows(c0, s, g, walk)
+        hh = h * g + head
+        qr, gr = q[bi, pos, hh], d_o[bi, pos, hh]
+        acc = torch.zeros(len(pos), d)
+        lo, hi = _key_range(c0, int(pos.max()), s, causal, window)
+        for t0 in range(lo, hi, walk.tk_dq):
+            kp = torch.arange(t0, min(t0 + walk.tk_dq, hi))
+            x, cg = _scores(qr @ k[bi, kp, h].T, scale, cap)
+            ok = _visible(pos, kp, causal, window)
+            p = torch.where(ok, torch.exp(x - lse[bi, hh, pos][:, None]), 0.0)
+            dp = gr @ v[bi, kp, h].T
+            ds = p * (dp - delta[bi, hh, pos][:, None]) * cg
+            acc += walk.round(ds) @ k[bi, kp, h]
+        dq[bi, pos, hh] = acc * scale
+    # causal: the first key blocks see the most queries
+    for blk, h, bi in _items(-(-s // walk.keys), hkv, b, walk,
+                             descending=not causal):
+        if visited is not None:
+            visited.append(("dkv", blk, h, bi))
+        k0 = blk * walk.keys
+        kp = torch.arange(k0, min(k0 + walk.keys, s))
+        kb, vb = k[bi, kp, h], v[bi, kp, h]
+        dk_acc = torch.zeros(len(kp), d)
+        dv_acc = torch.zeros(len(kp), d)
+        q_lo = k0 if causal else 0
+        q_hi = min(s, int(kp[-1]) + window)
+        for gi in range(g):
+            hh = h * g + gi
+            for t0 in range(q_lo, q_hi, walk.tq):
+                qp = torch.arange(t0, min(t0 + walk.tq, q_hi))
+                x, cg = _scores(kb @ q[bi, qp, hh].T, scale, cap)
+                ok = _visible(qp, kp, causal, window).T          # (keys, q)
+                p = torch.where(ok, torch.exp(x - lse[bi, hh, qp]), 0.0)
+                dpt = vb @ d_o[bi, qp, hh].T
+                ds = p * (dpt - delta[bi, hh, qp]) * cg
+                dv_acc += walk.round(p) @ d_o[bi, qp, hh]
+                dk_acc += walk.round(ds) @ q[bi, qp, hh]
+        dk[bi, kp, h] = dk_acc * scale
+        dv[bi, kp, h] = dv_acc
     return tuple(walk.round(t) for t in (dq, dk, dv))
 
 
@@ -302,15 +361,17 @@ EMU_CASES = [dict(causal=True), dict(causal=False),
              dict(causal=False, window=20, logit_cap=30.0)]
 
 
-@pytest.mark.parametrize("walk", [CUDA_CORES, TENSOR_CORES],
-                         ids=["cuda_cores", "tensor_cores"])
+@pytest.mark.parametrize("walk", [CUDA_CORES, TENSOR_CORES, WGMMA],
+                         ids=["cuda_cores", "tensor_cores", "wgmma"])
 @pytest.mark.parametrize("g,s", [(1, 77), (2, 128), (3, 77), (8, 70)])
 @pytest.mark.parametrize("kw", EMU_CASES)
 def test_kernel_tile_walks_match_plain(walk, g, s, kw):
-    """Both kernels' walks: query blocks of G heads x rows/G positions
-    (G = 3 leaves rows unused), the ragged last tile (S = 77, 70), the
-    causal, window and softcap masks, only the tiles the masks leave, the
-    row log-sum-exp, and dK/dV summed over the G heads of a kv head."""
+    """The kernels' walks: query blocks of G heads x rows/G positions
+    (G = 3 leaves rows unused; head-major or, for wgmma, position-major),
+    the ragged last tile (S = 77, 70), the causal, window and softcap
+    masks, only the tiles the masks leave, the row log-sum-exp, dK/dV
+    summed over the G heads of a kv head, and every item of each launch
+    taken once (for wgmma by a persistent grid of 3 CTAs)."""
     rng = np.random.default_rng(g * 100 + s)
     b, hkv, d = 2, 2, 16
     q, k, v, d_o = (torch.from_numpy(_rand(rng, b, s, h, d))
@@ -319,12 +380,16 @@ def test_kernel_tile_walks_match_plain(walk, g, s, kw):
         q, k, v, d_o = map(_bf16, (q, k, v, d_o))
     window = kw.get("window", 2 ** 31 - 1)
     cap = kw.get("logit_cap")
+    visited = []
     o, lse = emulate_fwd(q, k, v, causal=kw["causal"], window=window,
-                         cap=cap, walk=walk)
+                         cap=cap, walk=walk, visited=visited)
     tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
     want_o = ref.attention_ref(*tr[:3], **kw).transpose(1, 2)
     grads = emulate_bwd(q, k, v, o, lse, d_o, causal=kw["causal"],
-                        window=window, cap=cap, walk=walk)
+                        window=window, cap=cap, walk=walk, visited=visited)
+    n_q = -(-s // (walk.rows // g)) * hkv * b
+    n_k = -(-s // walk.keys) * hkv * b
+    assert len(set(visited)) == len(visited) == 2 * n_q + n_k
     want_g = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr, **kw)]
     # the row log-sum-exp of the plain version's masked, capped scores
     qe, ke = tr[0], tr[1].repeat_interleave(g, 1)
@@ -343,6 +408,145 @@ def test_kernel_tile_walks_match_plain(walk, g, s, kw):
     assert float((o - want_o).abs().max()) <= tol(want_o)
     for got, want in zip(grads, want_g):
         assert float((got - want).abs().max()) <= tol(want)
+
+
+@pytest.mark.parametrize("s,g,causal,window", [
+    (4096, 2, True, 2 ** 31 - 1), (77, 3, True, 9), (300, 6, False, 40),
+    (1000, 8, False, 2 ** 31 - 1)])
+def test_persistent_walk_takes_the_longest_items_first(s, g, causal, window):
+    """The wgmma kernels' persistent grid (132 CTAs, the H100's SMs, at
+    B 2 x Hkv 8): each item of the forward (and dQ) pass and of the dK/dV
+    pass is taken once, every CTA meets its items longest first, by the
+    keys a query block sees or the queries a key block sees, and the CTAs'
+    totals spread no wider than under a plain stride of gridDim.x."""
+    walk = Walk(rows=128, tk=128, keys=128, tq=64, mma=True,
+                position_major=True, tk_dq=64, sms=132)
+    b, hkv = 2, 8
+    bq = walk.rows // g
+    n_q, n_k = -(-s // bq), -(-s // walk.keys)
+
+    def key_len(blk):
+        c0 = blk * bq
+        lo, hi = _key_range(c0, min(c0 + bq, s) - 1, s, causal, window)
+        return hi - lo
+
+    def query_len(blk):
+        k0 = blk * walk.keys
+        k_last = min(k0 + walk.keys, s) - 1
+        return min(s, k_last + window) - (k0 if causal else 0)
+
+    for n_blk, length, descending in ((n_q, key_len, causal),
+                                      (n_k, query_len, not causal)):
+        items = list(_items(n_blk, hkv, b, walk, descending))
+        assert sorted(items) == sorted(
+            (blk, h, bi) for blk in range(n_blk) for h in range(hkv)
+            for bi in range(b))
+        def spread(per_cta):
+            totals = [sum(length(_item(it, n_blk, hkv, b, descending)[0])
+                          for it in mine) for mine in per_cta]
+            return max(totals) - min(totals)
+
+        for mine in _cta_items(len(items), walk.sms):
+            lens = [length(_item(it, n_blk, hkv, b, descending)[0])
+                    for it in mine]
+            assert lens == sorted(lens, reverse=True)
+        # the snake order balances the CTAs at least as well as a stride
+        stride = [list(range(c, len(items), walk.sms))
+                  for c in range(walk.sms)]
+        assert spread(_cta_items(len(items), walk.sms)) <= spread(stride)
+
+
+# ---------------------------------------------------------------------------
+# the wgmma kernels' shared-memory layout (csrc/flash_wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+def _sw128(addr):
+    """The 128-byte swizzle of a byte offset from a 1024-byte aligned base,
+    as TMA writes it and wgmma reads it: the 16-byte unit within each
+    128-byte row XOR the row's index within its 8-row atom."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _tma_tile(rows, d):
+    """A rows x d bf16 tile as the kernels' TMA loads lay it out: D / 64
+    column blocks of rows x 128 bytes (one 64-column box each), swizzled;
+    {byte offset: (row, column)}."""
+    return {_sw128(c * rows * 128 + r * 128 + 2 * j): (r, 64 * c + j)
+            for c in range(d // 64) for r in range(rows) for j in range(64)}
+
+
+def _desc_k(rows, row0, ks):
+    """``desc_k``: (start, sbo) of k-step ks of a K-major operand whose 64
+    (or N) rows start at row0 of a rows-row tile."""
+    return (ks >> 2) * rows * 128 + row0 * 128 + (ks & 3) * 32, 1024
+
+
+def _desc_mn(rows, ks):
+    """``desc_mn``: (start, lbo, sbo) of k-step ks of an MN-major operand
+    over the 16 rows 16 ks .. 16 ks + 15 of a rows-row tile."""
+    return ks * 16 * 128, rows * 128, 1024
+
+
+def _read_k_major(mem, start, sbo, m):
+    """The m x 16 operand a K-major, 128-byte swizzled descriptor points
+    at: 8-row atoms sbo apart, each row 128 bytes, 16 columns of 2 bytes."""
+    return [[mem[_sw128(start + (i // 8) * sbo + (i % 8) * 128 + 2 * kk)]
+             for kk in range(16)] for i in range(m)]
+
+
+def _read_mn_major(mem, start, lbo, sbo, n):
+    """The 16 x n operand an MN-major, 128-byte swizzled descriptor points
+    at: N along the rows, 64 per column block lbo apart; the 16 reduction
+    rows in atoms of 8 rows of 128 bytes, sbo apart."""
+    return [[mem[_sw128(start + (nn // 64) * lbo + 2 * (nn % 64)
+                        + (kk // 8) * sbo + (kk % 8) * 128)]
+             for nn in range(n)] for kk in range(16)]
+
+
+@pytest.mark.parametrize("rows,d", [(64, 64), (64, 128), (128, 64),
+                                    (128, 128)])
+def test_wgmma_descriptors_read_what_tma_wrote(rows, d):
+    """Every descriptor the kernels build reads the intended operand from a
+    tile laid out by TMA with the 128-byte swizzle: the A operand (64 rows
+    from row0 = 0 or 64, k-step ks over D / 16) and a K-major B (all rows:
+    K or a Q tile in S = Q K^T, K Q^T), and the MN-major B of P V, dS K,
+    P^T dO and dS^T Q (16 rows per k-step, D columns across the column
+    blocks)."""
+    mem = _tma_tile(rows, d)
+    for ks in range(d // 16):
+        for row0 in range(0, rows, 64):
+            start, sbo = _desc_k(rows, row0, ks)
+            assert _read_k_major(mem, start, sbo, 64) == [
+                [(row0 + i, 16 * ks + kk) for kk in range(16)]
+                for i in range(64)]
+        start, sbo = _desc_k(rows, 0, ks)
+        assert _read_k_major(mem, start, sbo, rows) == [
+            [(i, 16 * ks + kk) for kk in range(16)] for i in range(rows)]
+    for ks in range(rows // 16):
+        start, lbo, sbo = _desc_mn(rows, ks)
+        assert _read_mn_major(mem, start, lbo, sbo, d) == [
+            [(16 * ks + kk, nn) for nn in range(d)] for kk in range(16)]
+
+
+def test_flash_bench_reports_balance_and_needs_a_card(monkeypatch, capsys):
+    """``launch.flash_bench`` prints the persistent grid's balance (no card
+    needed): its CTA loads agree with ``_cta_items``, the snake order is
+    within 0.5% of even at the training shape where a stride of the grid
+    leaves a CTA 12.5% or more above the mean; without a card it exits 2
+    before building anything."""
+    from repro_torch.launch import flash_bench
+
+    lengths = [7, 7, 6, 5, 5, 3, 2, 2, 1]
+    loads = flash_bench.cta_loads(lengths, 4, snake=True)
+    assert loads == [sum(lengths[i] for i in mine)
+                     for mine in _cta_items(len(lengths), 4)]
+    ratios = flash_bench.balance()
+    for name in ("fwd", "dq", "dkv"):
+        assert ratios[name]["snake"] <= 1.005
+        assert ratios[name]["stride"] >= 1.125
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert flash_bench.main([]) == 2
+    assert capsys.readouterr().out.count("[balance]") == 3
 
 
 def test_autograd_function_joins_the_two_wrappers(monkeypatch):
