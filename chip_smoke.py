@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA card and check it.
 
-  python3 chip_smoke.py [--seed N] [--parent-flash DIR]
+  python3 chip_smoke.py [--seed N] [--parent DIR]
 
 Phases, in order; any failure ends the script with a nonzero exit:
 
 1. Device: the card's name, the device count and its power limit.
 2. Build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc for
    sm_90a into ``build/repro_torch/`` (registers and shared memory from
-   ``-Xptxas -v``), and the count of HGMMA (wgmma) and UTMALDG (TMA
-   load) instructions in the two dense flash libraries from
-   ``cuobjdump -sass``.  With ``--parent-flash DIR`` (a directory outside
-   the committed tree holding an earlier commit's ``flash_fwd.cu`` and
-   ``flash_bwd.cu`` with their headers), those are built too.
+   ``-Xptxas -v``), and the count of HGMMA (wgmma), HMMA (mma.sync) and
+   UTMALDG (TMA load) instructions in the dense flash, paged prefill and
+   matmul libraries from ``cuobjdump -sass``.  With ``--parent DIR`` (a
+   directory outside the committed tree holding an earlier commit's
+   ``flash_fwd.cu``, ``flash_bwd.cu``, ``paged_prefill.cu`` and
+   ``matmul.cu`` with their headers; ``--parent-flash`` is the same
+   flag), those are built too.
 3. Kernels against their plain versions: each of the eight hand-written
    kernels and its plain PyTorch version on the same CUDA inputs, at the
    serving, training or PACO shapes in bf16 and f32 and on small prime/odd
@@ -21,7 +23,10 @@ Phases, in order; any failure ends the script with a nonzero exit:
    S 77 and 128, causal or not, windows, softcaps; at the training shape
    the backward bitwise equal over two calls; matmul: odd and prime
    shapes, strided views and every cuboid of plan_mm_1piece(8192, 8192,
-   8192, 132), MM_TOL; LCS tile: tiles 1 to 8192 on monotone and on
+   8192, 132), MM_TOL; the matmul plan kernel on the 8192^3 plans at
+   p = 132 and 131 and on small prime plans with k-cuts, MM_TOL against
+   ``matmul_plan_ref`` and bitwise equal over two calls; LCS tile: tiles
+   1 to 8192 on monotone and on
    arbitrary int32 borders, and the longest anti-diagonal of the
    n = 65,536 run, bit-exact) (tolerances: f32 atol
    1e-4; bf16 atol 2e-2, since the two round the softmax weights at
@@ -33,15 +38,20 @@ Phases, in order; any failure ends the script with a nonzero exit:
    deepseek-v2; the eager per-call time of the kernel, host launch cost
    included, is printed beside it; the flash kernels at B 2 x S 4096,
    their plain versions and SDPA timed eagerly, in turns with SDPA and,
-   given ``--parent-flash``, the earlier kernels: kernel, parent, SDPA,
-   SDPA, parent, kernel), SDPA under each of its flash, memory-efficient
+   given ``--parent``, the earlier kernels: kernel, parent, SDPA,
+   SDPA, parent, kernel; paged prefill and the matmul plan take turns
+   the same way), SDPA under each of its flash, memory-efficient
    and cuDNN backends pinned in turn (``sdpa_by_backend``: the fastest is
    ``library_ms``, named in ``library_backend``; a backend that refuses
    ``enable_gqa`` gets K/V expanded outside the timed region, one that
    refuses the call is recorded with its reason), and the bound from the
    shapes (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16; the matmul
-   row: the 132 cuboid products of one paco_matmul at 8192^3 in bf16,
-   against torch.matmul on the same views, f32 beside it; the LCS row:
+   plan row: one launch over the 132 cuboids of a paco_matmul at 8192^3
+   in bf16, against torch.matmul on the whole operands (and on the 132
+   views), p = 131 and f32 beside it; the matmul row: one 2048^3 f32
+   Strassen leaf; the latent rows' SDPA pinned per backend too, K/V
+   expanded to the 128 heads over two layers where a backend refuses
+   ``enable_gqa``; the LCS row:
    one launch over 256 tiles of 256, int32 operations at 16.7 TOP/s, no
    library call).
 4. One full-width qwen3-0.6b prompt chunk per slot and 8 decode ticks
@@ -53,7 +63,8 @@ Phases, in order; any failure ends the script with a nonzero exit:
    page 64, chunk 64, 8 ticks per dispatch), 16 requests with prompt
    lengths drawn in [48, 1000] and 32 new tokens each.  The launch counts
    of both kernels are zeroed just before and read just after: prefill
-   launches == prefill_calls * 28 and decode launches == decode_steps * 28.
+   launches == prefill_calls * 28 and decode launches == decode_steps * 28,
+   every prefill launch of the tensor-core variant (``mma_sync``).
    One served request is replayed through the plain path, teacher-forced,
    and its tokens must agree under the margin rule of phase 4.
 6. Full-width deepseek-v2 (MLA + MoE), depth cut to fit the card: one
@@ -82,8 +93,9 @@ Phases, in order; any failure ends the script with a nonzero exit:
    plain row scan; paco_matmul on 8192^3 (f32 and bf16) and
    65536 x 8192 x 512 (f32); Strassen at depth 2 on 8192^2; sample sort
    of 2^26 floats; 1D (n 2048) and GAP (n 64).  The kernels' launch
-   counts are zeroed before and read after each call: p matmul launches
-   per paco_matmul, 49 per depth-2 Strassen, ti + tj - 1 LCS launches.
+   counts are zeroed before and read after each call: one matmul plan
+   launch walking p cuboids per paco_matmul (bf16 as ``wgmma``), 49
+   matmul launches per depth-2 Strassen, ti + tj - 1 LCS launches.
 
 Each phase prints its time.
 The second-to-last line is one JSON object with every kernel's numbers;
@@ -371,7 +383,8 @@ def check_small_geometries(gen: torch.Generator) -> dict[str, float]:
     return worst
 
 
-def bench_kernels(cfg, gen: torch.Generator, iters: int) -> list[dict]:
+def bench_kernels(cfg, gen: torch.Generator, iters: int,
+                  parent: ParentKernels | None = None) -> list[dict]:
     """Each kernel at the serving shapes of full-width qwen3-0.6b: checked
     against its plain version in f32 and bf16 (with and without a window
     and a softcap), then timed in bf16 over the 28 layers' pools in turn,
@@ -466,9 +479,29 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int) -> list[dict]:
             if dt == torch.bfloat16:
                 err_prefill = max(err_prefill, err)
     qc = torch.randn(1, c, hq, d, generator=gen, device=dev).to(dtype)
-    ms, eager_ms = time_ms(lambda i: K.paged_flash_prefill(
-        qc, kpool[i % n_layers], vpool[i % n_layers], row, start,
-        scale=scale), iters)
+    # the calls take turns on the card: kernel, parent kernel (given
+    # ``parent``), SDPA (below), parent, kernel
+    turns = collections.defaultdict(list)
+
+    def kernel_turn():
+        turns["k"].append(time_ms(lambda i: K.paged_flash_prefill(
+            qc, kpool[i % n_layers], vpool[i % n_layers], row, start,
+            scale=scale), iters))
+
+    def parent_turn():
+        if parent is None:
+            return
+        scratch = parent.prefill_scratch(qc, kpool[0], width)
+        got = parent.paged_prefill(qc, kpool[0], vpool[0], row, start,
+                                   scratch)
+        turns["err"].append(max_err(got, K.paged_flash_prefill(
+            qc, kpool[0], vpool[0], row, start, scale=scale)))
+        turns["p"].append(time_ms(lambda i: parent.paged_prefill(
+            qc, kpool[i % n_layers], vpool[i % n_layers], row, start,
+            scratch), iters))
+
+    kernel_turn()
+    parent_turn()
     plain_ms, _ = time_ms(lambda i: ops.paged_prefill_attention(
         qc, kpool[i % n_layers], vpool[i % n_layers], row, start,
         use_kernel=False), max(iters // 4, 10))
@@ -482,15 +515,27 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int) -> list[dict]:
     qt = qc.transpose(1, 2)
     sdpa_prefill = sdpa_by_backend(lambda gqa: _paged_sdpa_ms(
         qt, kg, vg, cmask, gqa, iters))
+    parent_turn()
+    kernel_turn()
     del kg, vg, kpool, vpool
     pairs = int(cmask.sum())
     nbytes = (2 * qc.numel() * 2 + row.numel() * 4
               + 2 * s_ctx * hkv * d * 2)
     flops = 4 * pairs * hq * d
-    rows.append(_with_library(_row(
+    ms, eager_ms = (sum(t[i] for t in turns["k"]) / 2 for i in (0, 1))
+    prefill = _with_library(_row(
         "paged_prefill", "src/repro_torch/csrc/paged_prefill.cu",
         "src/repro/kernels/attention/attention.py:172", err_prefill, ms,
-        eager_ms, plain_ms, None, nbytes, flops, dtype), sdpa_prefill))
+        eager_ms, plain_ms, None, nbytes, flops, dtype), sdpa_prefill)
+    prefill["ms_turns"] = [t[0] for t in turns["k"]]
+    before = K.paged_flash_prefill.variants.copy()
+    K.paged_flash_prefill(qc, kp, vp, row, start, scale=scale)
+    (prefill["variant"],) = K.paged_flash_prefill.variants - before
+    if parent is not None:
+        prefill["parent_ms"] = sum(t[0] for t in turns["p"]) / 2
+        prefill["parent_ms_turns"] = [t[0] for t in turns["p"]]
+        prefill["parent_max_abs_err"] = max(turns["err"])
+    rows.append(prefill)
     return rows
 
 
@@ -562,38 +607,57 @@ def _events_loop_ms(fn, iters: int) -> float:
     return _events_ms(lambda: [fn() for _ in range(iters)], iters)
 
 
-class ParentFlash:
-    """The parent commit's dense flash kernels, built from its
-    ``flash_fwd.cu`` and ``flash_bwd.cu`` (with their headers) in ``src``,
-    a directory outside the committed tree, into ``build/parent_flash/``,
-    so that ``bench_flash`` times them in the same call as the current
-    kernels.  Their C interface is the current one's."""
+class ParentKernels:
+    """The parent commit's kernels, built from its sources in ``src``, a
+    directory outside the committed tree: the dense flash pair
+    (``flash_fwd.cu``, ``flash_bwd.cu``), paged prefill
+    (``paged_prefill.cu``) and the matmul (``matmul.cu``), with their
+    headers, into ``build/parent_kernels/``, so that the benches time them
+    in the same call as the current kernels.  Their C interfaces are the
+    parent's: the flash pair's and ``matmul``'s are the current ones;
+    prefill's split count takes (width, page)."""
+
+    NAMES = ("flash_fwd", "flash_bwd", "paged_prefill", "matmul")
 
     def __init__(self, src: Path):
         import ctypes
 
         from repro_torch.kernels import build
 
-        out = build.BUILD_DIR.parent / "parent_flash"
+        out = build.BUILD_DIR.parent / "parent_kernels"
         out.mkdir(parents=True, exist_ok=True)
+        # the headers' namespaces renamed, so that no C++ symbol of a
+        # parent library (inline and template ones are weak) can bind to
+        # the current libraries' of the same name
+        rename = [f"-D{ns}=parent_{ns}"
+                  for ns in ("paged", "flash_mma", "flash_wgmma")]
         procs = [(name, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o",
+            [build._nvcc(), *build.NVCC_FLAGS, *rename, "-o",
              str(out / f"lib{name}.so"), str(src / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for name in ("flash_fwd", "flash_bwd")]
+            for name in self.NAMES]
         libs = {}
         for name, proc in procs:
             text, _ = proc.communicate()
             if proc.returncode:
                 raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
             libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_longlong)
         self.fwd = libs["flash_fwd"].flash_fwd
         self.fwd.argtypes = [I, P, P, P, P, P, I, I, I, I, I, F, I, I, F, P]
         self.bwd = libs["flash_bwd"].flash_bwd
         self.bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                              F, I, I, F, P]
-        for fn in (self.fwd, self.bwd):
+        self.prefill = libs["paged_prefill"].paged_prefill
+        self.prefill.argtypes = [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                 I, F, I, F, P]
+        self.prefill_splits = libs["paged_prefill"].paged_prefill_splits
+        self.prefill_splits.argtypes = [I, I]
+        self.mm = libs["matmul"].matmul
+        self.mm.argtypes = [I, P, P, P, I, I, I, L, L, P]
+        for fn in (self.fwd, self.bwd, self.prefill, self.prefill_splits,
+                   self.mm):
             fn.restype = I
 
     def forward(self, q, k, v, o, lse) -> None:
@@ -615,9 +679,43 @@ class ParentFlash:
                        torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent flash_bwd", err)
 
+    def prefill_scratch(self, q, k_pages, width):
+        """The output and f32 split scratch of the parent's prefill."""
+        _, c, hq, d = q.shape
+        n_split = self.prefill_splits(width, k_pages.shape[1])
+        return (torch.empty_like(q),
+                torch.empty((n_split, c * hq, d), device=q.device),
+                torch.empty((n_split, c * hq, 2), device=q.device))
+
+    def paged_prefill(self, q, k_pages, v_pages, row, start, scratch
+                      ) -> torch.Tensor:
+        """bf16, no window or softcap: the serving shape's call."""
+        _, c, hq, d = q.shape
+        n_pool, page, hkv, _ = k_pages.shape
+        out, acc, ml = scratch
+        err = self.prefill(1, q.data_ptr(), k_pages.data_ptr(),
+                           v_pages.data_ptr(), row.data_ptr(),
+                           out.data_ptr(), acc.data_ptr(), ml.data_ptr(), c,
+                           hq, hkv, d, page, row.shape[0], n_pool, start,
+                           1 / math.sqrt(d), 2 ** 31 - 1, 0.0,
+                           torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent paged_prefill", err)
+        return out
+
+    def matmul(self, a, b, out) -> None:
+        """One product of views with unit column stride into ``out``."""
+        n, k = a.shape
+        m = b.shape[1]
+        err = self.mm(1 if a.dtype == torch.bfloat16 else 0, a.data_ptr(),
+                      b.data_ptr(), out.data_ptr(), n, m, k,
+                      a.stride(0) if n > 1 else max(k, 1),
+                      b.stride(0) if k > 1 else max(m, 1),
+                      torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent matmul", err)
+
 
 def bench_flash(cfg, gen: torch.Generator, iters: int,
-                parent: ParentFlash | None = None) -> list[dict]:
+                parent: ParentKernels | None = None) -> list[dict]:
     """The dense flash kernels at the training shape of full-width
     qwen3-0.6b (B 2, Hq 16, Hkv 8, S 4096, D 128, bf16, causal): checked
     against the plain versions, the backward checked bitwise equal over two
@@ -864,7 +962,11 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int
 
     def library(q_cat, rows_table, s_ctx, mask):
         """SDPA on the latent pre-gathered per layer: one shared key of
-        E = 576 and value of Ev = 512 (Hkv = 1, enable_gqa)."""
+        E = 576 and value of Ev = 512 (Hkv = 1), under each backend pinned
+        in turn (``sdpa_by_backend``).  With ``enable_gqa`` it cycles over
+        every layer; a backend that refuses it gets K/V expanded to the H
+        query heads outside the timed region, over two layers (an expanded
+        layer is H times larger, still far past the 50 MB L2)."""
         ctx_pages = -(-s_ctx // page)
         kg, vg = [], []
         for i in range(n_layers):
@@ -873,10 +975,19 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int
             kg.append(torch.cat([ckg, krg], -1)[:, None, :s_ctx]
                       .contiguous())
             vg.append(ckg[:, None, :s_ctx].contiguous())
-        ms, _ = time_ms(lambda i: sdpa(q_cat, kg[i % n_layers],
-                                       vg[i % n_layers], attn_mask=mask,
-                                       scale=scale, enable_gqa=True), iters)
-        return ms
+
+        def run(gqa):
+            ks, vs = kg, vg
+            if not gqa:
+                ks = [t.expand(-1, h, -1, -1).contiguous() for t in kg[:2]]
+                vs = [t.expand(-1, h, -1, -1).contiguous() for t in vg[:2]]
+            n = len(ks)
+            ms, _ = time_ms(lambda i: sdpa(q_cat, ks[i % n], vs[i % n],
+                                           attn_mask=mask, scale=scale,
+                                           enable_gqa=gqa), iters)
+            return ms
+
+        return sdpa_by_backend(run)
 
     # ---- decode
     dq = (rnd(slots, 1, h, kv, dtype=dtype), rnd(slots, 1, h, rope,
@@ -890,16 +1001,16 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int
     s_max = int(lens.max())
     mask = torch.arange(s_max, device=dev)[None, :] < lens[:, None]
     q_cat = torch.cat(dq, -1).transpose(1, 2)           # (B, H, 1, 576)
-    library_ms = library(q_cat, bt, s_max, mask[:, None, None, :])
+    sdpa_decode = library(q_cat, bt, s_max, mask[:, None, None, :])
     n_keys = int(lens.sum())
     nbytes = (2 * (dq[0].numel() + dq[1].numel() + dq[0].numel())
               + bt.numel() * 4 + lens.numel() * 4 + n_keys * (kv + rope) * 2)
     flops = n_keys * h * (2 * (kv + rope) + 2 * kv)
-    rows.append(_row("paged_latent_decode",
-                     "src/repro_torch/csrc/paged_latent_decode.cu",
-                     "src/repro/kernels/attention/attention.py:463",
-                     err["paged_latent_decode"], ms, eager_ms, plain_ms,
-                     library_ms, nbytes, flops, dtype))
+    rows.append(_with_library(_row(
+        "paged_latent_decode", "src/repro_torch/csrc/paged_latent_decode.cu",
+        "src/repro/kernels/attention/attention.py:463",
+        err["paged_latent_decode"], ms, eager_ms, plain_ms, None, nbytes,
+        flops, dtype), sdpa_decode))
 
     # ---- prefill: one 128-token chunk at start 896
     pq = (rnd(1, c, h, kv, dtype=dtype), rnd(1, c, h, rope, dtype=dtype))
@@ -913,17 +1024,18 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int
     q_pos = start + torch.arange(c, device=dev)[:, None]
     cmask = q_pos >= torch.arange(s_ctx, device=dev)[None, :]
     q_cat = torch.cat(pq, -1)[0].transpose(0, 1)[None]  # (1, H, C, 576)
-    library_ms = library(q_cat, row[None], s_ctx, cmask)
+    sdpa_prefill = library(q_cat, row[None], s_ctx, cmask)
     del ckp, krp
     pairs = int(cmask.sum())
     nbytes = (2 * (pq[0].numel() + pq[1].numel() + pq[0].numel())
               + row.numel() * 4 + s_ctx * (kv + rope) * 2)
     flops = pairs * h * (2 * (kv + rope) + 2 * kv)
-    rows.append(_row("paged_latent_prefill",
-                     "src/repro_torch/csrc/paged_latent_prefill.cu",
-                     "src/repro/kernels/attention/attention.py:270",
-                     err["paged_latent_prefill"], ms, eager_ms, plain_ms,
-                     library_ms, nbytes, flops, dtype))
+    rows.append(_with_library(_row(
+        "paged_latent_prefill",
+        "src/repro_torch/csrc/paged_latent_prefill.cu",
+        "src/repro/kernels/attention/attention.py:270",
+        err["paged_latent_prefill"], ms, eager_ms, plain_ms, None, nbytes,
+        flops, dtype), sdpa_prefill))
     return rows
 
 
@@ -1317,6 +1429,8 @@ def serve(cfg, params, rng: np.random.Generator, seed: int,
     torch.cuda.reset_peak_memory_stats()
     for fn, _ in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants.clear()
     t0 = time.perf_counter()
     with (recorder if record else contextlib.nullcontext(),
           router if record else contextlib.nullcontext()):
@@ -1326,6 +1440,8 @@ def serve(cfg, params, rng: np.random.Generator, seed: int,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    by_variant = {name: dict(fn.variants) for name, (fn, _) in kernels.items()
+                  if hasattr(fn, "variants")}
     engine.check_page_invariants()
     st = engine.stats
     assert len(done) == 16, len(done)
@@ -1345,7 +1461,7 @@ def serve(cfg, params, rng: np.random.Generator, seed: int,
            "dispatches": st["dispatches"],
            "preemptions": st["preemptions"],
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-           "launches": launches}
+           "launches": launches, "launches_by_variant": by_variant}
     if record:
         return out, engine, (recorder.calls, router.calls.get("serve", []))
     return out, engine, done
@@ -1586,18 +1702,22 @@ def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
     bf16: small, odd and prime shapes (1 x 1 x 1, 17 x 23 x 31,
     97 x 131 x 61, ...), k = 0, strided views, and every cuboid of
     ``plan_mm_1piece(8192, 8192, 8192, 132)`` as a view of the full
-    operands (MM_TOL).  LCS, exact: single tiles of 1, 7, 64, 256 and 8192
+    operands (MM_TOL); the plan kernel on the 8192^3 plans at p = 132 and
+    131 and on small prime plans with k-cuts, against ``matmul_plan_ref``
+    (MM_TOL) and bitwise equal over two calls.  LCS, exact: single tiles of 1, 7, 64, 256 and 8192
     (and ragged M x N) on monotone and on arbitrary int32 borders, and the
     longest anti-diagonal of the n = 65,536, p = 132 run (256 tiles of 256)
     on random borders."""
     from repro_torch.core import plan_mm_1piece
+    from repro_torch.core.matmul import plan as mm_plan
     from repro_torch.kernels.lcs import lcs as KL
     from repro_torch.kernels.lcs.ref import lcs_tile_ref, lcs_tiles_ref
-    from repro_torch.kernels.matmul import matmul_kernel
+    from repro_torch.kernels.matmul import (matmul_kernel, matmul_plan_kernel,
+                                            matmul_plan_ref)
     from repro_torch.kernels.matmul.ref import matmul_ref
 
     dev = "cuda"
-    worst = {"matmul": 0.0, "lcs_tile": 0}
+    worst = {"matmul": 0.0, "matmul_plan": 0.0, "lcs_tile": 0}
     for dtype in (torch.float32, torch.bfloat16):
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -1621,7 +1741,26 @@ def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
             assert err <= MM_TOL[dtype], ("matmul", dtype, tuple(x.shape),
                                           x.stride(), tuple(y.shape), err)
             worst["matmul"] = max(worst["matmul"], err)
-        del a, b, pairs
+        # the plan kernel: the 8192^3 plans of the main path, then small
+        # prime plans (k-cuts shared by 2 to 4 cuboids) and a view whose
+        # base is off 16 bytes (mma_sync); bitwise equal over two calls
+        plans = [(a, b, mm_plan(n, n, n, p)) for p in (132, 131)]
+        for (nn, kk, mm), p in [((64, 64, 64), 5), ((64, 64, 64), 13),
+                                ((61, 97, 67), 12), ((97, 131, 61), 7),
+                                ((1000, 776, 904), 13)]:
+            x, y = rnd(nn, kk), rnd(kk, mm)
+            plans.append((x, y, mm_plan(nn, mm, kk, p)))
+        plans.append((big_a[3:200, 7:190], big_b[5:188, 11:300],
+                      mm_plan(197, 289, 183, 6)))
+        for x, y, pl in plans:
+            got = matmul_plan_kernel(x, y, pl)
+            assert torch.equal(got, matmul_plan_kernel(x, y, pl)), \
+                ("matmul_plan is not bitwise reproducible", pl.n, pl.p)
+            err = _rel_mm(got, matmul_plan_ref(x, y, pl))
+            assert err <= MM_TOL[dtype], ("matmul_plan", dtype, pl.n, pl.m,
+                                          pl.k, pl.p, err)
+            worst["matmul_plan"] = max(worst["matmul_plan"], err)
+        del a, b, pairs, plans
     torch.cuda.synchronize()
 
     for m, n in [(1, 1), (7, 7), (64, 64), (256, 256), (8192, 8192),
@@ -1662,57 +1801,134 @@ def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
     return worst
 
 
-def bench_paco_kernels(gen: torch.Generator, iters: int) -> list[dict]:
-    """Both PACO kernels at the shapes their main path gives them.  Matmul:
-    the 132 cuboid products of one ``paco_matmul`` at 8192^3, p = 132 (in
-    bf16 for the row, f32 beside it), each product read from views of the
-    full operands; the plain version (``matmul_ref``) and the library
-    (``torch.matmul``) on the same 132 views.  LCS: the longest
+def bench_paco_kernels(gen: torch.Generator, iters: int,
+                       parent: ParentKernels | None = None) -> list[dict]:
+    """Both PACO kernels at the shapes their main path gives them.
+
+    Matmul plan (``matmul_plan``): one launch over the 132 cuboids of
+    ``plan_mm_1piece(8192, 8192, 8192, 132)`` in bf16 (131 beside it, and
+    float32), its variant, against the plain version (``matmul_plan_ref``:
+    132 products and adds) and one library call computing the same
+    function (``torch.matmul`` on the whole operands; ``torch.matmul`` on
+    the 132 views beside it).  In turns: kernel, parent (given ``parent``:
+    its 132 cuboid launches, and those plus the adds into C that its
+    ``paco_matmul`` made), library, library, parent, kernel.  The
+    Strassen leaf (``matmul``): one 2048^3 float32 product, with the
+    parent's kernel and ``torch.matmul`` beside it.  LCS: the longest
     anti-diagonal of the n = 65,536, p = 132 run, 256 tiles of 256, one
     launch; the plain version (``lcs_tiles_ref``) on the same tiles; no
     library call computes this function.  Kernel times: CUDA-graph
-    replays; the plain versions and the library eagerly with CUDA events.
-    Bounds: matmul 2 n m k flops; LCS LCS_OPS_PER_CELL int32 operations a
-    cell; bytes: each input read once, each output written once."""
-    from repro_torch.core import plan_mm_1piece
+    replays; the plain versions eagerly with CUDA events.  Bounds: matmul
+    2 n m k flops (bytes: A and B read once, C written once); LCS
+    LCS_OPS_PER_CELL int32 operations a cell."""
+    from repro_torch.core.matmul import plan as mm_plan
     from repro_torch.kernels.lcs import lcs as KL
     from repro_torch.kernels.lcs.ref import lcs_tiles_ref
-    from repro_torch.kernels.matmul import matmul_kernel
+    from repro_torch.kernels.matmul import (matmul_kernel, matmul_plan_kernel,
+                                            matmul_plan_ref)
+    from repro_torch.kernels.matmul.matmul import plan_variant
     from repro_torch.kernels.matmul.ref import matmul_ref
 
     dev = "cuda"
     n = PACO_MM_N
-    plan = plan_mm_1piece(n, n, n, 132)
+    plan = mm_plan(n, n, n, 132)
     mm = {}
     for dtype in (torch.bfloat16, torch.float32):
         a = torch.randn(n, n, generator=gen, device=dev).to(dtype)
         b = torch.randn(n, n, generator=gen, device=dev).to(dtype)
         faces = _cuboid_faces(a, b, plan)
-        err = max(max_err(matmul_kernel(x, y), matmul_ref(x, y))
-                  for x, y in faces)
-        ms, eager = time_ms(
-            lambda i: [matmul_kernel(x, y) for x, y in faces], 3)
-        plain = _events_loop_ms(lambda: [matmul_ref(x, y) for x, y in faces],
-                                3)
-        library = _events_loop_ms(lambda: [x @ y for x, y in faces], 3)
-        nbytes = sum(x.numel() + y.numel() + x.shape[0] * y.shape[1]
-                     for x, y in faces) * a.element_size()
-        mm[dtype] = _row("matmul", "src/repro_torch/csrc/matmul.cu",
-                         "src/repro/kernels/matmul/matmul.py:35", err, ms,
-                         eager, plain, library, nbytes, 2.0 * n ** 3, dtype)
-        # the same product as one launch on the whole operands, beside
-        # one torch.matmul: the kernel's own rate, apart from the plan's
-        mm[dtype]["whole_ms"] = time_ms(lambda i: matmul_kernel(a, b), 3)[0]
-        mm[dtype]["whole_library_ms"] = _events_loop_ms(lambda: a @ b, 3)
+        want = matmul_plan_ref(a, b, plan)
+        err = _rel_mm(matmul_plan_kernel(a, b, plan), want)
+        del want
+        times = collections.defaultdict(list)
+
+        def kernel_turn():
+            times["k"].append(time_ms(
+                lambda i: matmul_plan_kernel(a, b, plan), 3))
+
+        def parent_turn():
+            if parent is None:
+                return
+            parts = [torch.empty((x.shape[0], y.shape[1]), dtype=dtype,
+                                 device=dev) for x, y in faces]
+            times["p"].append(time_ms(lambda i: [
+                parent.matmul(x, y, o) for (x, y), o in zip(faces, parts)],
+                3))
+            out = torch.empty((n, n), dtype=dtype, device=dev)
+
+            def with_adds(i):
+                out.zero_()
+                for (x, y), o, (_, c) in zip(faces, parts, (
+                        t for t in plan.tiles if t[1].volume())):
+                    parent.matmul(x, y, o)
+                    out[c.n0:c.n1, c.m0:c.m1] += o
+            times["pp"].append(time_ms(with_adds, 3))
+            del parts, out
+
+        def library_turn():
+            times["l"].append(_events_loop_ms(lambda: a @ b, 3))
+            times["lv"].append(_events_loop_ms(
+                lambda: [x @ y for x, y in faces], 3))
+
+        kernel_turn()
+        parent_turn()
+        library_turn()
+        library_turn()
+        parent_turn()
+        kernel_turn()
+        plain = _events_loop_ms(lambda: matmul_plan_ref(a, b, plan), 2)
+
+        def mean(key, i=0):
+            return sum(t[i] if isinstance(t, tuple) else t
+                       for t in times[key]) / len(times[key])
+
+        nbytes = 3 * n * n * a.element_size()
+        row = _row("matmul_plan", "src/repro_torch/csrc/matmul.cu",
+                   "src/repro/kernels/matmul/matmul.py:35", err,
+                   mean("k"), mean("k", 1), plain, mean("l"), nbytes,
+                   2.0 * n ** 3, dtype)
+        row["ms_turns"] = [t[0] for t in times["k"]]
+        row["variant"] = plan_variant(a, b)
+        row["library_views_ms"] = mean("lv")
+        if parent is not None:
+            row["parent_ms"] = mean("p")
+            row["parent_ms_turns"] = [t[0] for t in times["p"]]
+            row["parent_with_adds_ms"] = mean("pp")
+        if dtype == torch.bfloat16:   # the prime p beside it
+            plan131 = mm_plan(n, n, n, 131)
+            row["p131_ms"] = time_ms(
+                lambda i: matmul_plan_kernel(a, b, plan131), 3)[0]
+        mm[dtype] = row
         del a, b, faces
         torch.cuda.empty_cache()
     row = mm[torch.bfloat16]
-    row["work"] = (f"the {len(plan.tiles)} cuboid products of "
+    row["work"] = (f"one launch over the {len(plan.tiles)} cuboids of "
                    f"plan_mm_1piece({n}, {n}, {n}, 132), bf16")
     for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
-                "max_abs_err", "whole_ms", "whole_library_ms"):
-        row[f"f32_{key}"] = mm[torch.float32][key]
+                "max_abs_err", "parent_ms", "parent_with_adds_ms",
+                "library_views_ms", "variant"):
+        if key in mm[torch.float32]:
+            row[f"f32_{key}"] = mm[torch.float32][key]
     rows = [row]
+
+    # one Strassen leaf: 2048^3 float32
+    ls = PACO_STRASSEN_N // 4
+    a = torch.randn(ls, ls, generator=gen, device=dev)
+    b = torch.randn(ls, ls, generator=gen, device=dev)
+    err = _rel_mm(matmul_kernel(a, b), matmul_ref(a, b))
+    ms, eager = time_ms(lambda i: matmul_kernel(a, b), iters // 4)
+    leaf = _row("matmul", "src/repro_torch/csrc/matmul.cu",
+                "src/repro/kernels/matmul/matmul.py:35", err, ms, eager,
+                _events_loop_ms(lambda: matmul_ref(a, b), 10),
+                _events_loop_ms(lambda: a @ b, 10), 3 * ls * ls * 4,
+                2.0 * ls ** 3, torch.float32)
+    if parent is not None:
+        o = torch.empty_like(a)
+        leaf["parent_ms"] = time_ms(lambda i: parent.matmul(a, b, o),
+                                    iters // 4)[0]
+    leaf["work"] = f"one Strassen leaf, {ls}^3 float32"
+    rows.append(leaf)
+    del a, b
 
     tile, ti = 256, PACO_LCS_N // 256
     s, t = _symbols(gen, PACO_LCS_N), _symbols(gen, PACO_LCS_N)
@@ -1768,8 +1984,10 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
     PA (p = 8, tile 8192) as ``benchmarks/bench_lcs.py`` defines them,
     each exactly equal to the plain row scan ``lcs_reference``; launches ==
     ti + tj - 1.  MM: ``paco_matmul`` on PACO_MM_SHAPES at both p against
-    ``matmul_ref`` (PACO_MM_TOL), ``torch.matmul``'s time beside it;
-    launches == the plan's non-empty cuboids.  Strassen: ``paco_strassen``
+    ``matmul_ref`` (PACO_MM_TOL), ``torch.matmul``'s time beside it; one
+    ``matmul_plan`` launch per call walking the plan's p non-empty
+    cuboids, in bf16 as variant ``wgmma`` (the first call, which builds
+    the plan and its table, is timed apart).  Strassen: ``paco_strassen``
     and ``strassen`` at depth 2 on 8192^2 f32 (49 leaf products of 2048^3
     each, 49 launches) against the f32 product (STRASSEN_TOL).  Sort:
     ``paco_sort`` of 2^26 uniform float32 at p = 132, exactly
@@ -1781,6 +1999,7 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
     from repro_torch.kernels.lcs import lcs as KL
     from repro_torch.kernels.lcs.ops import default_tile
     from repro_torch.kernels.matmul import matmul_kernel
+    from repro_torch.kernels.matmul import matmul_plan_kernel as K6
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.core.matmul import plan as mm_plan
 
@@ -1789,7 +2008,7 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
     ps = (sms, 131)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    launches = {"matmul": 0, "lcs_tile": 0}
+    launches = {"matmul_plan": 0, "matmul": 0, "lcs_tile": 0}
 
     def report(tag: str, result: dict) -> None:
         log(f"[paco] {tag}: {json.dumps(result)}; card: {smi}")
@@ -1824,20 +2043,28 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
         lib_err = _rel_mm(lib, want)
         del lib
         for p in ps:
-            got, secs, nl = _timed(lambda: core.paco_matmul(a, b, p),
-                                   matmul_kernel)
+            # the first call builds the plan and its table (kept)
+            _, first_s, _ = _timed(lambda: core.paco_matmul(a, b, p))
+            K6.cuboids = 0
+            K6.variants.clear()
+            got, secs, nl = _timed(lambda: core.paco_matmul(a, b, p), K6)
             err = _rel_mm(got, want)
             del got
             cuboids = sum(1 for _, c in mm_plan(nn, m, k, p).tiles
                           if c.volume())
             report(f"mm {nn}x{m}x{k} {str(dtype)[6:]} p={p}",
                    {"seconds": secs, "flops_per_s": 2.0 * nn * m * k / secs,
+                    "first_call_seconds": first_s,
                     "torch_matmul_seconds": lib_s, "rel_err": err,
                     "torch_matmul_rel_err": lib_err, "launches": nl,
-                    "cuboids": cuboids})
+                    "cuboids": K6.cuboids, "variants": dict(K6.variants)})
             assert err <= PACO_MM_TOL[dtype], ("paco_matmul", dtype, p, err)
-            assert nl == cuboids == p, ("matmul launches", nl, cuboids)
-            launches["matmul"] += nl
+            assert nl == 1 and K6.cuboids == cuboids == p, \
+                ("one matmul_plan launch walking p cuboids", nl, K6.cuboids,
+                 cuboids, p)
+            if dtype == torch.bfloat16:
+                assert dict(K6.variants) == {"wgmma": 1}, dict(K6.variants)
+            launches["matmul_plan"] += nl
         del a, b, want
         torch.cuda.empty_cache()
 
@@ -1901,11 +2128,13 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parent-flash", type=Path, default=None,
+    ap.add_argument("--parent", "--parent-flash", dest="parent", type=Path,
+                    default=None,
                     help="a directory holding an earlier commit's "
-                    "flash_fwd.cu and flash_bwd.cu with their headers (not "
-                    "the committed tree): its kernels are built and timed "
-                    "in turns with the current ones at the training shape")
+                    "flash_fwd.cu, flash_bwd.cu, paged_prefill.cu and "
+                    "matmul.cu with their headers (not the committed "
+                    "tree): those kernels are built and timed in turns "
+                    "with the current ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1937,13 +2166,15 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 log(f"[build] {lib}: {line.strip()}")
-    counts = sass_counts(("flash_fwd", "flash_bwd"))
+    counts = sass_counts(("flash_fwd", "flash_bwd", "paged_prefill",
+                          "matmul"), ("HGMMA", "HMMA", "UTMALDG"))
     log("[build] sass instructions " + (
         "not counted: no cuobjdump" if counts is None else json.dumps(counts)))
     parent = None
-    if args.parent_flash is not None:
-        parent = ParentFlash(args.parent_flash)
-        log(f"[build] parent flash kernels from {args.parent_flash}")
+    if args.parent is not None:
+        parent = ParentKernels(args.parent)
+        log(f"[build] parent kernels {list(ParentKernels.NAMES)} from "
+            f"{args.parent}")
 
     # 3. kernels against their plain versions
     cfg = get_arch(ARCH)
@@ -1956,10 +2187,10 @@ def main() -> int:
         worst.update(check_paco_kernels(gen))
         log(f"[kernels] small prime/odd/window/softcap geometries ok: "
             f"max err {worst}")
-        rows = bench_kernels(cfg, gen, ITERS)
+        rows = bench_kernels(cfg, gen, ITERS, parent)
         rows += bench_latent_kernels(cfg_ds, gen, ITERS)
         rows += bench_flash(cfg, gen, FLASH_ITERS, parent)
-        rows += bench_paco_kernels(gen, ITERS)
+        rows += bench_paco_kernels(gen, ITERS, parent)
     for r in rows:
         library = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
@@ -1999,6 +2230,10 @@ def main() -> int:
              "paged_decode": (K.paged_flash_decode, "decode_steps")})
         log(f"[serve] {json.dumps(result)}; card: {smi}")
         launches.update(result["launches"])
+        assert result["launches_by_variant"]["paged_prefill"] == {
+            "mma_sync": result["launches"]["paged_prefill"]}, \
+            ("every bf16 prefill launch on tensor cores",
+             result["launches_by_variant"])
         replay_plain(engine, params, cfg,
                      max(done, key=lambda r: len(r.prompt)))
     del params, engine

@@ -12,32 +12,51 @@
 // out   (C, Hq, D)              in q's type
 //
 // What bounds it: at the serving shapes (C = 64, Hq = 16, Hkv = 8,
-// D = 128) a chunk does about 64 flops per K/V byte it needs, under the
-// card's ~295 flop/byte ridge, so on paper the bytes of K/V bound it.  This
-// first version runs its products on CUDA cores, not tensor cores, so in
-// practice its arithmetic and the latency of its tile loads do.  The
+// D = 128, a ~1000-token context) a chunk does about 64 flops per K/V byte
+// it needs, under the card's ~295 flop/byte ridge, so the bytes of K/V
+// bound it (1.4 us for 4 MB); in practice the latency of a few dependent
+// tile loads and two launches does, since each CTA has little work.  The
 // design:
 //  * one CTA per (q block, kv head, key split): the CTA holds the G query
-//    heads of its kv head for bq = kRows / G chunk positions, so each K/V
-//    tile it loads serves all G * bq rows; key splits of kSplitKeys
-//    positions spread a long context over more CTAs, and a second small
-//    kernel merges the splits' online-softmax states;
+//    heads of its kv head at bq = rows / G chunk positions, position-major
+//    (row r is head r % G at position c0 + r / G, so a warp's 16 rows span
+//    few positions and the causal mask leaves its tiles whole), so each
+//    K/V tile it loads serves all G * bq rows; key splits of kSplitKeys
+//    positions spread a long context over more CTAs (8 kv heads alone
+//    would fill 8 of 132 SMs), and a second small kernel merges the
+//    splits' online-softmax states;
 //  * a CTA walks key positions from the window's start for its first row
 //    to its last row's position (clamped to the table), never the pages
-//    past the chunk, loading each kTk-key tile of K and V into shared
-//    memory with 16-byte loads from all its threads at once;
-//  * scores go through an f32 online softmax, one warp per kRowsPerWarp
-//    rows with the tile's keys across the lanes, so row max and row sum are
-//    warp shuffles; the PV product puts head_dim across the lanes.
+//    past the chunk, and never a split past the chunk's end;
+//  * bf16 with D in {16, 32, 64, 128, 256} (variant "mma_sync",
+//    tc_prefill_kernel): 128 rows per CTA, all G x C rows of a kv head at
+//    qwen3-0.6b's chunk (G 2, C 64), so each K/V page is read once per
+//    key split (the CUDA-core body's 32 rows read it four times); eight
+//    warps of 16 rows; S = Q K^T and O += P V on tensor cores with
+//    mma.sync m16n8k16 (bf16 in, f32 accumulation) through ldmatrix, the
+//    fragment, softmax and mask helpers of flash_mma.cuh; 64-key tiles of
+//    K and V gathered page by page with 16-byte cp.async into two
+//    buffers, the next tile's copies in flight while the warps multiply;
+//    the softmax in the log2 domain, P rounded to bf16 in registers as the
+//    A operand of P V.  mma.sync rather than wgmma: a CTA walks two
+//    64-key tiles per split at the serving shape, too few for a producer
+//    warp and TMA's pipeline to pay for themselves, and page-gathered
+//    K/V would need a 4-D map per page.
+//  * float32 and other widths (variant "cuda_cores", paged_prefill_kernel):
+//    CUDA cores, kRows = 32 rows per CTA (head-major), scores one warp per
+//    kRowsPerWarp rows with the tile's keys across the lanes (row max and
+//    sum are warp shuffles), the PV product with head_dim across the
+//    lanes.
 //
-// Masking keeps the TPU kernel's finite NEG_INF (-1e30): a row whose first
-// tile lies wholly before its window takes exp(0) weights there, and the
-// next tile that holds a valid key scales them by exp(-1e30 - m) = 0.
-// Every row reaches a valid key (its own position), and the split merge
-// weighs a split that saw none by exp(-1e30 - m) = 0, so the junk never
-// survives; -inf would give NaN from exp(-inf - -inf).
+// Masking keeps the TPU kernel's finite NEG_INF (-1e30).  In the CUDA-core
+// body a row whose first tile lies wholly before its window takes exp(0)
+// weights there, and the next tile that holds a valid key scales them by
+// exp(-1e30 - m) = 0; in the tensor-core body a masked key weighs 0
+// outright.  Every row reaches a valid key (its own position), and the
+// split merge weighs a split that saw none by exp(-1e30 - m) = 0, so the
+// junk never survives; -inf would give NaN from exp(-inf - -inf).
 
-#include "paged_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -220,42 +239,249 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 256;
+constexpr int kTcRows = 128;   // query rows per CTA: 8 warps x 16
+constexpr int kTcTk = 64;      // keys per tile
+
+inline bool tc_takes(int d) {
+  return d == 16 || d == 32 || d == 64 || d == 128 || d == 256;
+}
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (size_t)(kTcRows + 4 * kTcTk) * (D + 8);
+}
+
+// Keys t0 .. t0 + n of one kv head, page by page through the block row,
+// -> shared memory rows of D + 8; rows past n up to kTcTk are zero.
+template <int D>
+__device__ __forceinline__ void stage_keys(
+    const __nv_bfloat16* __restrict__ pages, __nv_bfloat16* dst,
+    const int* __restrict__ block_row, int t0, int n, int page, int hkv,
+    int h, int n_pool) {
+  constexpr int chunks = D / 8;
+  for (int i = threadIdx.x; i < kTcTk * chunks; i += kTcThreads) {
+    const int t = i / chunks;
+    const int cc = i - t * chunks;
+    const __nv_bfloat16* src = pages;
+    if (t < n) {
+      const int pos = t0 + t;
+      const int phys = min(max(block_row[pos / page], 0), n_pool - 1);
+      src = pages + (((long long)phys * page + pos % page) * hkv + h) * D +
+            cc * 8;
+    }
+    flash_mma::cp_async16(dst + t * (D + 8) + cc * 8, src, t < n ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+tc_prefill_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k_pages,
+                  const __nv_bfloat16* __restrict__ v_pages,
+                  const int* __restrict__ block_row,
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+                  float* __restrict__ part_ml, int c, int hq, int hkv,
+                  int page, int width, int n_pool, int start, int bq,
+                  float scale, int window, float softcap) {
+  using namespace flash_mma;
+  constexpr int stride = D + 8;
+  constexpr int NT = D / 8;
+  constexpr int ST = kTcTk / 8;
+  const int qb = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g_n = hq / hkv, rows = g_n * bq, c0 = qb * bq;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + kTcRows * stride;     // 2 buffers of kTcTk rows
+  bf16* v_s = k_s + 2 * kTcTk * stride;   // 2 buffers of kTcTk rows
+
+  // Q: row r is head h G + r % G at chunk position c0 + r / G
+  constexpr int chunks = D / 8;
+  for (int i = threadIdx.x; i < kTcRows * chunks; i += kTcThreads) {
+    const int r = i / chunks;
+    const int cc = i - r * chunks;
+    const int ci = c0 + r / g_n;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (r < rows && ci < c)
+      x = *reinterpret_cast<const uint4*>(
+          q + ((long long)ci * hq + h * g_n + r % g_n) * D + cc * 8);
+    *reinterpret_cast<uint4*>(q_s + r * stride + cc * 8) = x;
+  }
+
+  const int g = lane >> 2, t4 = lane & 3;
+  int pos[2], row[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row[hh] = warp * 16 + g + 8 * hh;
+    pos[hh] = start + c0 + row[hh] / g_n;   // global position
+    m[hh] = kNegInf;
+    l[hh] = 0.f;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  // the positions of this warp's 16 rows (rows past the chunk only widen
+  // them, which errs toward masking)
+  const int p_min = __reduce_min_sync(0xffffffffu, min(pos[0], pos[1]));
+  const int p_max = __reduce_max_sync(0xffffffffu, max(pos[0], pos[1]));
+
+  // Key positions this CTA needs: [k_lo, k_hi).  64-bit for the window
+  // of a global layer (INT32_MAX).
+  const int q_lo = start + c0;
+  const int q_hi = start + min(c0 + bq, c) - 1;
+  const long long k_lo64 = (long long)q_lo - (long long)window + 1;
+  const int k_lo = max(k_lo64 > 0 ? (int)k_lo64 : 0, split * kSplitKeys);
+  const int k_hi = min(min(q_hi + 1, width * page), (split + 1) * kSplitKeys);
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kTcTk - 1) / kTcTk : 0;
+
+  auto load_tile = [&](int i) {
+    const int t0 = k_lo + i * kTcTk;
+    const int n = min(kTcTk, k_hi - t0);
+    stage_keys<D>(k_pages, k_s + (i & 1) * kTcTk * stride, block_row, t0, n,
+                  page, hkv, h, n_pool);
+    stage_keys<D>(v_pages, v_s + (i & 1) * kTcTk * stride, block_row, t0, n,
+                  page, hkv, h, n_pool);
+    cp_async_commit();
+  };
+  if (n_tiles > 0) load_tile(0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t0 = k_lo + i * kTcTk;
+    const int n = min(kTcTk, k_hi - t0);
+    if (i + 1 < n_tiles) {
+      load_tile(i + 1);   // into the buffer the last tile's readers left
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();      // tile i (and Q) visible to every warp
+    const bf16* kt = k_s + (i & 1) * kTcTk * stride;
+    const bf16* vt = v_s + (i & 1) * kTcTk * stride;
+
+    float sc[ST][4];
+#pragma unroll
+    for (int nt = 0; nt < ST; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+    mma_abt<D, ST / 2>(sc, q_s + warp * 16 * stride, kt, lane);
+
+    float alpha[2], rs[2] = {0.f, 0.f};
+    if (n == kTcTk && all_visible(p_min, p_max, t0, t0 + kTcTk - 1, 1,
+                                  window))
+      online_softmax<false, ST>(sc, m, alpha, rs, pos, t0, n, scale, softcap,
+                                1, window, t4);
+    else
+      online_softmax<true, ST>(sc, m, alpha, rs, pos, t0, n, scale, softcap,
+                               1, window, t4);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      l[hh] = l[hh] * alpha[hh] + quad_sum(rs[hh]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
+    }
+    mma_pb<D, kTcTk / 16>(acc, sc, vt, lane);
+    __syncthreads();      // every warp is done with tile i's buffer
+  }
+
+  // Output row of (chunk position ci, q head h G + r % G) is ci Hq + head.
+  const long long out_rows = (long long)c * hq;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int ci = c0 + row[hh] / g_n;
+    if (row[hh] >= rows || ci >= c) continue;
+    const long long orow = (long long)ci * hq + h * g_n + row[hh] % g_n;
+    if (gridDim.z == 1) {
+      const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(out + orow * D + nt * 8 + 2 * t4) =
+            __floats2bfloat162_rn(acc[nt][2 * hh] * inv,
+                                  acc[nt][2 * hh + 1] * inv);
+    } else {
+      const long long prow = (long long)split * out_rows + orow;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<float2*>(part_acc + prow * D + nt * 8 + 2 * t4) =
+            make_float2(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
+      if (t4 == 0) {   // m is in the log2 domain; the merge takes natural
+        part_ml[prow * 2] = m[hh] * kLn2;
+        part_ml[prow * 2 + 1] = l[hh];
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k_pages, const void* v_pages,
+              const int* block_row, void* out, void* part_acc, void* part_ml,
+              int c, int hq, int hkv, int page, int width, int n_pool,
+              int start, int n_split, float scale, int window, float softcap,
+              cudaStream_t stream) {
+  static size_t opted_in = 48 * 1024;
+  constexpr size_t smem = tc_smem_bytes<D>();
+  const cudaError_t e = allow_smem(tc_prefill_kernel<D>, smem, &opted_in);
+  if (e != cudaSuccess) return (int)e;
+  const int bq = kTcRows / (hq / hkv);
+  const dim3 grid((c + bq - 1) / bq, hkv, n_split);
+  using bf = __nv_bfloat16;
+  tc_prefill_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k_pages),
+      static_cast<const bf*>(v_pages), block_row, static_cast<bf*>(out),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), c, hq,
+      hkv, page, width, n_pool, start, bq, scale, window, softcap);
+  return (int)cudaGetLastError();
+}
+
 size_t prefill_smem_bytes(int d) {
   return kTk * sizeof(long long) +
          sizeof(float) * ((size_t)kRows * d + (size_t)kTk * (d + 1) +
                           (size_t)kTk * d + (size_t)kRows * kTk);
 }
 
-int prefill_splits(int width, int page) {
-  return (width * page + kSplitKeys - 1) / kSplitKeys;
+// Key splits of a chunk at [start, start + C): keys past the chunk's end
+// are never visible, so splits past it would only merge zeros.
+int prefill_splits(int width, int page, int start, int c) {
+  const int keys = min(start + c, width * page);
+  return keys > 0 ? (keys + kSplitKeys - 1) / kSplitKeys : 1;
 }
 
 template <typename T>
 int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
                    const int* block_row, void* out, void* part_acc,
                    void* part_ml, int c, int hq, int hkv, int d, int page,
-                   int width, int n_pool, int start, float scale, int window,
-                   float softcap, cudaStream_t stream) {
+                   int width, int n_pool, int start, int n_split, float scale,
+                   int window, float softcap, cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
   const size_t smem = prefill_smem_bytes(d);
   const cudaError_t e = allow_smem(paged_prefill_kernel<T>, smem, &opted_in);
   if (e != cudaSuccess) return (int)e;
   const int bq = kRows / (hq / hkv);
-  const int n_split = prefill_splits(width, page);
   const dim3 grid((c + bq - 1) / bq, hkv, n_split);
   paged_prefill_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), block_row, static_cast<T*>(out),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), c, hq,
       hkv, d, page, width, n_pool, start, bq, scale, window, softcap);
-  if (n_split > 1) {
-    const int rows = c * hq;
-    combine_kernel<T><<<rows, kThreads, 0, stream>>>(
-        static_cast<const float*>(part_acc),
-        static_cast<const float*>(part_ml), static_cast<T*>(out), rows, d,
-        n_split);
-  }
   return (int)cudaGetLastError();
+}
+
+// The variants, numbered as the wrapper's PREFILL_VARIANTS.
+enum { kCudaCores = 0, kMmaSync = 1 };
+
+int variant_of(int dtype, int d) {
+  return dtype == 1 && tc_takes(d) ? kMmaSync : kCudaCores;
 }
 
 }  // namespace
@@ -265,30 +491,58 @@ extern "C" {
 // Limits and scratch sizes the wrapper reads before it launches.
 int paged_prefill_max_g() { return kRows; }
 int paged_prefill_max_d() { return 32 * kMaxDLane; }
-int paged_prefill_splits(int width, int page) {
-  return prefill_splits(width, page);
+int paged_prefill_splits(int width, int page, int start, int c) {
+  return prefill_splits(width, page, start, c);
 }
+// The kernel family a launch takes: 0 CUDA cores, 1 mma.sync tensor cores.
+int paged_prefill_variant(int dtype, int d) { return variant_of(dtype, d); }
 
 // dtype: 0 = float32, 1 = bfloat16.  softcap <= 0 means no softcap; a
 // window of INT32_MAX means a global layer.  part_acc (n_split, C*Hq, D) and
-// part_ml (n_split, C*Hq, 2) are f32 scratch, unused when n_split == 1.
-// Returns cudaGetLastError().
+// part_ml (n_split, C*Hq, 2) are f32 scratch for paged_prefill_splits key
+// splits, unused when there is one.  Returns cudaGetLastError().
 int paged_prefill(int dtype, const void* q, const void* k_pages,
                   const void* v_pages, const int* block_row, void* out,
                   void* part_acc, void* part_ml, int c, int hq, int hkv,
                   int d, int page, int width, int n_pool, int start,
                   float scale, int window, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_prefill<float>(q, k_pages, v_pages, block_row, out,
-                                 part_acc, part_ml, c, hq, hkv, d, page,
-                                 width, n_pool, start, scale, window,
-                                 softcap, s);
-  if (dtype == 1)
-    return launch_prefill<__nv_bfloat16>(
+  const int n_split = prefill_splits(width, page, start, c);
+  int err;
+  if (variant_of(dtype, d) == kMmaSync) {
+    auto launch = d == 16    ? launch_tc<16>
+                  : d == 32  ? launch_tc<32>
+                  : d == 64  ? launch_tc<64>
+                  : d == 128 ? launch_tc<128>
+                             : launch_tc<256>;
+    err = launch(q, k_pages, v_pages, block_row, out, part_acc, part_ml, c,
+                 hq, hkv, page, width, n_pool, start, n_split, scale, window,
+                 softcap, s);
+  } else if (dtype == 0) {
+    err = launch_prefill<float>(q, k_pages, v_pages, block_row, out,
+                                part_acc, part_ml, c, hq, hkv, d, page,
+                                width, n_pool, start, n_split, scale, window,
+                                softcap, s);
+  } else if (dtype == 1) {
+    err = launch_prefill<__nv_bfloat16>(
         q, k_pages, v_pages, block_row, out, part_acc, part_ml, c, hq, hkv,
-        d, page, width, n_pool, start, scale, window, softcap, s);
-  return (int)cudaErrorInvalidValue;
+        d, page, width, n_pool, start, n_split, scale, window, softcap, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err || n_split == 1) return err;
+  const int rows = c * hq;
+  if (dtype == 0)
+    combine_kernel<float><<<rows, kThreads, 0, s>>>(
+        static_cast<const float*>(part_acc),
+        static_cast<const float*>(part_ml), static_cast<float*>(out), rows,
+        d, n_split);
+  else
+    combine_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
+        static_cast<const float*>(part_acc),
+        static_cast<const float*>(part_ml),
+        static_cast<__nv_bfloat16*>(out), rows, d, n_split);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

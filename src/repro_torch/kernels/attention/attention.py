@@ -28,6 +28,8 @@ Paged serving: ``paged_flash_decode`` replaces
 ``paged_latent_decode_pallas`` and ``paged_latent_prefill_pallas``
 (``csrc/paged_decode.cu``, ``csrc/paged_prefill.cu``,
 ``csrc/paged_latent_decode.cu`` and ``csrc/paged_latent_prefill.cu``).
+``paged_flash_prefill`` counts its launches by family in ``variants`` too
+(``"mma_sync"``: bf16 on tensor cores; ``"cuda_cores"``).
 
 The kernels are CUDA C++ for ``sm_90a``, built by ``kernels.build`` at
 first use and called through their plain C interface with ``ctypes``.
@@ -95,6 +97,10 @@ def _scratch(n_split: int, rows: int, d: int, device: torch.device
                         device=device),
             torch.empty((n_split, rows, 2), dtype=torch.float32,
                         device=device))
+
+
+# paged_prefill's kernel families, numbered as in csrc/paged_prefill.cu
+PREFILL_VARIANTS = ("cuda_cores", "mma_sync")
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -195,7 +201,9 @@ def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     q: (1, C, Hq, D) contiguous at global positions [start, start+C);
     k_pages/v_pages: (n_pool, page, Hkv, D); block_row: (width,) int32
     covering the chunk; ``start`` a host int.  Returns (1, C, Hq, D) in
-    q's dtype.
+    q's dtype.  Counts its launches by kernel family in ``variants``:
+    ``"mma_sync"`` (bf16 at D 16, 32, 64, 128 or 256, on tensor cores) or
+    ``"cuda_cores"`` (the rest).
     """
     if not q.is_cuda:
         from repro_torch.kernels.attention import ops
@@ -216,8 +224,8 @@ def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"chunk [{start}, {start + c}) is not covered by "
                          f"a block row of {width} pages of {page}")
     out = torch.empty_like(q)
-    n_split = _fn("paged_prefill", "paged_prefill_splits", (_I, _I))(width,
-                                                                     page)
+    n_split = _fn("paged_prefill", "paged_prefill_splits",
+                  (_I, _I, _I, _I))(width, page, start, c)
     part_acc, part_ml = _scratch(n_split, c * hq, d, q.device)
     fn = _fn("paged_prefill", "paged_prefill",
              (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -232,10 +240,14 @@ def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     if err:
         raise RuntimeError(f"paged_prefill launch failed: CUDA error {err}")
     paged_flash_prefill.launches += 1
+    paged_flash_prefill.variants[PREFILL_VARIANTS[_fn(
+        "paged_prefill", "paged_prefill_variant", (_I, _I))(
+            _DTYPES[q.dtype], d)]] += 1
     return out
 
 
 paged_flash_prefill.launches = 0
+paged_flash_prefill.variants = collections.Counter()
 
 
 def _check_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,

@@ -107,6 +107,40 @@ def test_prefill_kernel_matches_plain(cuda, dtype, atol, kw, hq, hkv):
     assert _err(got, want) <= atol
 
 
+# (dtype, d, the variant paged_prefill takes)
+PREFILL_VARIANT_CASES = [(torch.bfloat16, 16, "mma_sync"),
+                         (torch.bfloat16, 64, "mma_sync"),
+                         (torch.bfloat16, 128, "mma_sync"),
+                         (torch.bfloat16, 256, "mma_sync"),
+                         (torch.bfloat16, 8, "cuda_cores"),
+                         (torch.bfloat16, 48, "cuda_cores"),
+                         (torch.float32, 128, "cuda_cores")]
+
+
+@pytest.mark.parametrize("dtype,d,variant", PREFILL_VARIANT_CASES)
+@pytest.mark.parametrize("kw", [{}, {"window": 300, "logit_cap": 30.0}])
+def test_prefill_takes_the_variant_the_library_names(cuda, dtype, d, variant,
+                                                     kw):
+    """bf16 at D 16 to 256 runs on tensor cores (mma.sync), float32 and
+    other widths on CUDA cores; each within ATOL of the plain version at
+    qwen3-0.6b's chunk (C 64, Hq 16, Hkv 8: 128 rows a CTA) late in a
+    1000-token prompt, over eight key splits."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    hq, hkv, page, width, n_pool, c, start = 16, 8, 64, 16, 40, 64, 960
+    row = torch.randperm(n_pool - 1)[:width].to(cuda, torch.int32)
+    q = _rand(gen, 1, c, hq, d, dtype=dtype)
+    kp = _rand(gen, n_pool, page, hkv, d, dtype=dtype)
+    vp = _rand(gen, n_pool, page, hkv, d, dtype=dtype)
+    before = K.paged_flash_prefill.variants.copy()
+    got = K.paged_flash_prefill(q, kp, vp, row, start,
+                                scale=1 / math.sqrt(d), **kw)
+    torch.cuda.synchronize()
+    assert K.paged_flash_prefill.variants - before == {variant: 1}
+    want = ops.paged_prefill_attention(q, kp, vp, row, start,
+                                       use_kernel=False, **kw)
+    assert _err(got, want) <= dict(DTYPES)[dtype]
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(2, 1, 4, 16, device=cuda)
     kp = torch.zeros(5, 4, 2, 16, device=cuda)
@@ -547,19 +581,75 @@ def test_matmul_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("p", [13, 132])
 def test_paco_matmul_on_cuda_launches_one_kernel_per_cuboid(cuda, dtype, tol,
                                                             p):
-    """bf16 adds the k-cuts' partial products in bf16, as repro does: a
-    few bf16 steps, 2e-2 of the largest output (chip_smoke's
-    PACO_MM_TOL)."""
+    """One launch per call, p cuboids walked.  bf16 adds the k-cuts'
+    partial products in bf16, as repro does: a few bf16 steps, 2e-2 of the
+    largest output (chip_smoke's PACO_MM_TOL)."""
     from repro_torch.core import paco_matmul
-    from repro_torch.kernels.matmul import matmul_kernel, matmul_ref
+    from repro_torch.kernels.matmul import (matmul_kernel, matmul_plan_kernel,
+                                            matmul_ref)
     gen = torch.Generator(device=cuda).manual_seed(p)
     a = _rand(gen, 1000, 777, dtype=dtype)
     b = _rand(gen, 777, 900, dtype=dtype)
-    before = matmul_kernel.launches
+    before = (matmul_plan_kernel.launches, matmul_plan_kernel.cuboids,
+              matmul_kernel.launches)
     got = paco_matmul(a, b, p)
     torch.cuda.synchronize()
-    assert matmul_kernel.launches == before + p
+    assert (matmul_plan_kernel.launches, matmul_plan_kernel.cuboids,
+            matmul_kernel.launches) == (before[0] + 1, before[1] + p,
+                                        before[2])
     assert _rel(got, matmul_ref(a, b)) <= tol
+
+
+# (n, k, m, p): k-cut plans (outputs shared by 2 to 4 cuboids, equal or
+# partly overlapping rectangles), one without k-cuts, and ragged strides
+PLAN_GEOMS = [(64, 64, 64, 5), (64, 64, 64, 13), (61, 97, 67, 12),
+              (1000, 776, 900, 13), (1024, 2048, 512, 7), (300, 20, 260, 4)]
+
+
+@pytest.mark.parametrize("dtype,tol", MM_DTYPES)
+@pytest.mark.parametrize("n,k,m,p", PLAN_GEOMS)
+def test_matmul_plan_kernel_matches_plain_and_repeats_bitwise(cuda, dtype,
+                                                              tol, n, k, m, p):
+    """The one-launch plan against ``matmul_plan_ref`` (MM_TOL: the parts'
+    f32 sums in other orders; the k-cut adds are the same), bit for bit
+    the same over two calls, and the variant its operands call for."""
+    from repro_torch.core.matmul import plan
+    from repro_torch.kernels.matmul import matmul_plan_kernel, matmul_plan_ref
+    gen = torch.Generator(device=cuda).manual_seed(n + k + m + p)
+    a, b = _rand(gen, n, k, dtype=dtype), _rand(gen, k, m, dtype=dtype)
+    pl = plan(n, m, k, p)
+    variants = matmul_plan_kernel.variants.copy()
+    got = matmul_plan_kernel(a, b, pl)
+    again = matmul_plan_kernel(a, b, pl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, matmul_plan_ref(a, b, pl)) <= tol
+    want = ("cuda_cores" if dtype == torch.float32 else
+            "wgmma" if k % 8 == 0 and m % 8 == 0 else "mma_sync")
+    assert matmul_plan_kernel.variants - variants == {want: 2}
+
+
+@pytest.mark.parametrize("dtype,tol", MM_DTYPES)
+def test_matmul_plan_kernel_reads_views_and_other_planners(cuda, dtype, tol):
+    """Operands that are views (a row stride, a base off 16 bytes: the
+    bf16 kernel then gathers), and the "mm" and "hetero" planners (several
+    cuboids per processor, uneven cuts)."""
+    from repro_torch.core.matmul import plan
+    from repro_torch.kernels.matmul import matmul_plan_kernel, matmul_plan_ref
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    big_a = _rand(gen, 300, 400, dtype=dtype)
+    big_b = _rand(gen, 400, 520, dtype=dtype)
+    for a, b, kw in [(big_a[:, 8:392], big_b[8:392, 16:512], {}),
+                     (big_a[3:200, 7:190], big_b[5:188, 11:300], {}),
+                     (big_a[:, 5:], big_b[5:, 3:], {"planner": "mm"}),
+                     (big_a, big_b, {"planner": "hetero", "throughputs":
+                                     [1.0 + i % 3 for i in range(6)]})]:
+        (n, k), m = a.shape, b.shape[1]
+        pl = plan(n, m, k, 6, **kw)
+        got = matmul_plan_kernel(a, b, pl)
+        assert torch.equal(got, matmul_plan_kernel(a, b, pl))
+        assert _rel(got, matmul_plan_ref(a.contiguous(), b.contiguous(),
+                                         pl)) <= tol
 
 
 def _lcs_inputs(gen, m, n, monotone):

@@ -21,11 +21,13 @@ Tolerances: float32 atol 1e-4 and bf16 3e-2 against ``matmul_pallas``
 in other orders), 1e-2 in bf16 (one bf16 step where the two f32 sums
 round to neighbours).  LCS is exact everywhere.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import repro.core as JC
 from repro.core import lcs_reference as jlcs_reference
 from repro.kernels.lcs import lcs_pallas, lcs_tile_pallas
 from repro.kernels.lcs import lcs_tile_ref as jlcs_tile_ref
@@ -35,7 +37,13 @@ from repro.kernels.matmul import matmul_ref as jmatmul_ref
 from repro_torch.kernels.lcs import lcs as KL
 from repro_torch.kernels.lcs import (lcs_tile_kernel, lcs_tile_ref,
                                      lcs_tiles_ref, lcs_wavefront)
-from repro_torch.kernels.matmul import matmul, matmul_kernel, matmul_ref
+import repro_torch.core as TC
+import repro_torch.core.matmul as TCM
+from repro_torch.kernels.matmul import (matmul, matmul_kernel,
+                                        matmul_plan_kernel, matmul_plan_ref,
+                                        matmul_ref)
+from repro_torch.kernels.matmul.matmul import (PLAN_CELL, PLAN_COL_ALIGN,
+                                               PLAN_TILES, plan_table)
 
 torch.set_num_threads(1)
 INT_MIN = -2 ** 31
@@ -158,6 +166,337 @@ def test_matmul_walk_on_strided_views(dtype):
         assert torch.equal(matmul_kernel(a, b), want)  # CPU: plain version
     if dtype == torch.bfloat16:   # phases of the views of big_a; odd's
         assert shifts == {7, 0, 5, 3}  # row stride 61 gathers every chunk
+
+
+# ---------------------------------------------------------------------------
+# matmul_plan: a whole PACO plan in one launch
+# ---------------------------------------------------------------------------
+
+# Plans with k-cuts (output shared by 2 to 4 cuboids, rectangles equal or
+# overlapping in part), planners with several cuboids per processor, and
+# one without k-cuts.
+PLAN_CASES = [((64, 64, 64), 5, "1piece"), ((64, 64, 64), 7, "1piece"),
+              ((64, 64, 64), 13, "1piece"), ((61, 67, 97), 12, "1piece"),
+              ((64, 64, 64), 5, "mm"), ((96, 80, 64), 6, "hetero"),
+              ((300, 260, 20), 4, "1piece"), ((128, 128, 128), 8, "1piece")]
+
+
+_JAX_PLANS: dict = {}
+# one compile per plan rather than one per slice and add
+_jpaco_matmul = jax.jit(JC.paco_matmul, static_argnums=(2,),
+                        static_argnames=("planner", "throughputs"))
+
+
+def _plan(shape, p, planner):
+    n, k, m = shape
+    return TCM.plan(n, m, k, p, planner,
+                          [1.0 + i % 3 for i in range(p)]
+                          if planner == "hetero" else None)
+
+
+def _boxed(x: torch.Tensor, r0: int, c0: int, rows: int, cols: int
+           ) -> torch.Tensor:
+    """x[r0:r0 + rows, c0:c0 + cols], zero past x's edges (a TMA box)."""
+    out = torch.zeros((rows, cols), dtype=x.dtype)
+    blk = x[r0:r0 + rows, c0:c0 + cols]
+    out[:blk.shape[0], :blk.shape[1]] = blk
+    return out
+
+
+def _tile_part(a, b, q, r0, c0, variant):
+    """One output tile's f32 sums as the variant's k-walk takes them: rows
+    r0.., columns c0.. of cuboid q = (n0, n1, m0, m1, k0, k1) (c0 < 0 for
+    wgmma's first tile column when m0 is not a multiple of 8)."""
+    n0, n1, m0, m1, k0, k1 = q
+    bm, bn = PLAN_TILES[variant]
+    acc = torch.zeros((bm, bn))
+    if variant == "wgmma":   # TMA boxes of the whole operands from k0 & ~7
+        for kb in range(k0 - k0 % 8, k1, 64):
+            at = _boxed(a, n0 + r0, kb, bm, 64).float()
+            at[:, :max(k0 - kb, 0)] = 0      # A's columns before k0
+            at[:, k1 - kb:] = 0              # ... and at and past k1
+            bt = _boxed(b, kb, m0 + c0, 64, bn).float()
+            for kk in range(0, 64, 16):
+                acc += at[:, kk:kk + 16] @ bt[kk:kk + 16]
+        return acc
+    fa, fb = a[n0:n1, k0:k1], b[k0:k1, m0:m1]   # the faces, zero-filled
+    bk, step = (32, 16) if variant == "mma_sync" else (8, 1)
+    for kb in range(0, k1 - k0, bk):
+        at = _boxed(fa, r0, kb, bm, bk).float()
+        bt = _boxed(fb, kb, c0, bk, bn).float()
+        for kk in range(0, bk, step):
+            acc += at[:, kk:kk + step] @ bt[kk:kk + step]
+    return acc
+
+
+def emulate_matmul_plan(a, b, plan, variant, parts=None):
+    """The two launches of ``matmul_plan`` in ``csrc/matmul.cu`` on the
+    CPU, from the wrapper's own table: each CTA walks its cuboids' tiles
+    row by row (wgmma's first tile column at m0 rounded down to 8, the
+    columns before m0 not stored); a cuboid that shares no output writes
+    C, the others their workspace rows (from m0 rounded down to 8, padded
+    to 8); then each cell's parts, per element, in plan order in
+    ``a.dtype``.  ``parts`` keeps each tile's f32 sums from one call to
+    the next."""
+    parts = {} if parts is None else parts
+    tab = plan_table(plan)
+    bm, bn = PLAN_TILES[variant]
+    align = PLAN_COL_ALIGN[variant]
+    dt = a.dtype
+    out = torch.full((plan.n, plan.m), float("nan")).to(dt)
+    ws = torch.full((tab.ws_elems,), float("nan")).to(dt)
+    for ci in range(len(tab.cub)):   # every CTA's walk; order is moot here
+        q = [int(x) for x in tab.cub[ci, :6]]
+        nc, mc = q[1] - q[0], q[3] - q[2]
+        shift = q[2] % align           # columns before m0: not stored
+        tm = -(-(mc + shift) // bn)
+        for t in range(-(-nc // bm) * tm):
+            r0, c0 = (t // tm) * bm, (t % tm) * bn - shift
+            if (ci, r0, c0) not in parts:
+                parts[ci, r0, c0] = _tile_part(a, b, q, r0, c0, variant)
+            skip = max(-c0, 0)
+            part = parts[ci, r0, c0].to(dt)[:, skip:]
+            c0 += skip
+            rows, cols = min(bm, nc - r0), min(bn - skip, mc - c0)
+            off = int(tab.ws_off[ci])
+            if off < 0:
+                out[q[0] + r0:q[0] + r0 + rows, q[2] + c0:q[2] + c0 + cols] = \
+                    part[:rows, :cols]
+            else:
+                ld, pad = int(tab.cub[ci, 6]), q[2] % 8
+                rows_ws = ws[off:off + nc * ld].view(nc, ld)
+                rows_ws[r0:r0 + rows, pad + c0:pad + c0 + cols] = \
+                    part[:rows, :cols]
+    for r in range(len(tab.cell)):
+        _sum_cell(out, ws, tab, r)
+    return out
+
+
+def _sum_cell(out, ws, tab, r):
+    """``plan_sum_kernel`` on one cell: per element, the covering
+    members' parts added in cell order (plan order) in the output dtype,
+    the first taken as it is."""
+    cr0, cr1, cc0, cc1, first, count = (int(x) for x in tab.cell[r, :6])
+    acc = torch.zeros((cr1 - cr0, cc1 - cc0), dtype=out.dtype)
+    seen = torch.zeros(acc.shape, dtype=torch.bool)
+    for ci in tab.cell_mem[first:first + count]:
+        n0, n1, m0, m1 = (int(x) for x in tab.cub[ci, :4])
+        ld, off = int(tab.cub[ci, 6]), int(tab.ws_off[ci])
+        part = ws[off:off + (n1 - n0) * ld].view(n1 - n0, ld)
+        r0, r1, c0, c1 = max(cr0, n0), min(cr1, n1), max(cc0, m0), min(cc1, m1)
+        if r0 >= r1 or c0 >= c1:
+            continue
+        m_al = m0 - m0 % 8
+        dst = (slice(r0 - cr0, r1 - cr0), slice(c0 - cc0, c1 - cc0))
+        x = part[r0 - n0:r1 - n0, c0 - m_al:c1 - m_al]
+        acc[dst] = torch.where(seen[dst], acc[dst] + x, x)  # adds in dtype
+        seen[dst] = True
+    region = out[cr0:cr1, cc0:cc1]
+    region[seen] = acc[seen]
+
+
+def _fold_in_plan_order(parts, plan, dtype):
+    """The plain version's reduction on given parts: zeros, then each
+    part added in plan order in ``dtype``."""
+    out = torch.zeros((plan.n, plan.m), dtype=dtype)
+    cubs = [c for _, c in plan.tiles if c.volume()]
+    for c, part in zip(cubs, parts):
+        out[c.n0:c.n1, c.m0:c.m1] += part
+    return out
+
+
+@pytest.mark.parametrize("shape,p,planner", PLAN_CASES)
+@pytest.mark.parametrize("variant,dtype", [("wgmma", torch.bfloat16),
+                                           ("mma_sync", torch.bfloat16),
+                                           ("cuda_cores", torch.float32)])
+def test_matmul_plan_walk_matches_plain_and_jax(shape, p, planner, variant,
+                                                dtype):
+    """The plan walk: box-aligned k-steps from each cuboid's k0 rounded
+    down to 8 with A's columns outside [k0, k1) zeroed (wgmma), the faces'
+    own zero-filled k-walk (mma_sync, cuda_cores), output tiles clipped to
+    the cuboid, and the k-cut sums in plan order: within MM_TOL of the
+    plain version and of ``repro.core.paco_matmul`` on JAX's CPU, and,
+    given the walk's own parts, bitwise the plain version's sums."""
+    n, k, m = shape
+    ja, jb, ta, tb = _operands(4, n, k, m, dtype)
+    plan = _plan(shape, p, planner)
+    sums = {}
+    got = emulate_matmul_plan(ta, tb, plan, variant, parts=sums)
+    assert not got.float().isnan().any()
+    want = matmul_plan_kernel(ta, tb, plan)   # the CPU: the plain version
+    assert torch.equal(want, matmul_plan_ref(ta, tb, plan))
+    assert _rel(got, want) <= MM_TOL[dtype]
+    key = (shape, p, planner, dtype)
+    if key not in _JAX_PLANS:   # the two bf16 variants share it
+        thr = plan_throughputs(planner, p)
+        _JAX_PLANS[key] = np.asarray(_jpaco_matmul(
+            ja, jb, p, planner=planner,
+            throughputs=None if thr is None else tuple(thr)), np.float32)
+    jwant = _JAX_PLANS[key]
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(got.float().numpy(), jwant, rtol=0,
+                               atol=tol * max(1.0, np.abs(jwant).max()))
+    # the walk's parts, summed by the plain reduction, bit for bit
+    tab = plan_table(plan)
+    parts = []
+    for i in np.argsort(tab.rank):
+        q = [int(x) for x in tab.cub[i, :6]]
+        nc, mc = q[1] - q[0], q[3] - q[2]
+        bm, bn = PLAN_TILES[variant]
+        shift = q[2] % PLAN_COL_ALIGN[variant]
+        part = torch.empty((nc, mc + shift), dtype=dtype)
+        for r0 in range(0, nc, bm):
+            for c0 in range(0, mc + shift, bn):
+                blk = part[r0:r0 + bm, c0:c0 + bn]
+                blk.copy_(sums[i, r0, c0 - shift]
+                          [:blk.shape[0], :blk.shape[1]].to(dtype))
+        parts.append(part[:, shift:])
+    assert torch.equal(got, _fold_in_plan_order(parts, plan, dtype))
+    # each part against matmul_pallas where its blocks divide the face
+    cubs = [c for _, c in plan.tiles if c.volume()]
+    for c, part in zip(cubs, parts):
+        blocks = [next((bl for bl in (64, 32, 16, 8) if x % bl == 0), None)
+                  for x in (c.n, c.m, c.k)]
+        if None in blocks:
+            continue
+        jpart = matmul_pallas(ja[c.n0:c.n1, c.k0:c.k1],
+                              jb[c.k0:c.k1, c.m0:c.m1], bn=blocks[0],
+                              bm=blocks[1], bk=blocks[2], interpret=True)
+        np.testing.assert_allclose(part.float().numpy(),
+                                   np.asarray(jpart, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+def plan_throughputs(planner, p):
+    return [1.0 + i % 3 for i in range(p)] if planner == "hetero" else None
+
+
+@pytest.mark.parametrize("shape,p", [((8192, 8192, 8192), 132),
+                                     ((8192, 8192, 8192), 131),
+                                     ((65536, 512, 8192), 132),
+                                     ((64, 64, 64), 13), ((61, 67, 97), 12)])
+def test_matmul_plan_table_covers_each_shared_output_once(shape, p):
+    """The tables of the main path's plans: one CTA per processor; each
+    cell inside one aligned band of PLAN_CELL[1] columns and no larger
+    than PLAN_CELL; the cells of one group disjoint and covering each of
+    its cuboids' outputs exactly; a cell's members exactly the group's
+    cuboids that meet it, in plan order; workspace rows 16-byte aligned."""
+    n, k, m = shape
+    plan = TCM.plan(n, m, k, p)
+    tab = plan_table(plan)
+    assert tab.n_ctas == sum(1 for _, c in plan.tiles if c.volume()) == \
+        len(tab.cub)
+    cells = tab.cell.astype(np.int64)
+    cr, cc = PLAN_CELL
+    assert np.all(cells[:, 0] // cr == (cells[:, 1] - 1) // cr)
+    assert np.all(cells[:, 2] // cc == (cells[:, 3] - 1) // cc)
+    shared = tab.ws_off >= 0
+    assert np.all(tab.ws_off[shared] % 8 == 0)
+    assert np.all(tab.cub[:, 6] % 8 == 0)
+    cells_of = {}
+    for r, (f, c) in enumerate(cells[:, 4:6]):
+        mem = tab.cell_mem[f:f + c]
+        assert np.all(np.diff(tab.rank[mem]) > 0)      # plan order
+        for i in mem:
+            cells_of.setdefault(int(i), []).append(r)
+    for i in np.flatnonzero(shared):
+        n0, n1, m0, m1 = (int(x) for x in tab.cub[i, :4])
+        mine = np.asarray(cells_of[int(i)])
+        inter = ((np.minimum(cells[mine, 1], n1)
+                  - np.maximum(cells[mine, 0], n0)).clip(0)
+                 * (np.minimum(cells[mine, 3], m1)
+                    - np.maximum(cells[mine, 2], m0)).clip(0))
+        assert inter.sum() == (n1 - n0) * (m1 - m0) and np.all(inter > 0)
+    assert sorted(cells_of) == list(np.flatnonzero(shared))
+    if shape == (65536, 512, 8192):    # no k-cut: every part goes to C
+        assert tab.ws_elems == 0 and len(tab.cell) == 0
+
+
+def test_matmul_plan_tile_layout_reads_what_tma_wrote():
+    """The wgmma walk's shared-memory stage: A as one 128 x 64 box, B as
+    four 64 x 64 boxes 8 KB apart, both in TMA's 128-byte swizzle.  Each
+    warpgroup's K-major A descriptor (64 rows from row0, k-step ks) and the
+    MN-major B descriptor (16 k-rows per step, 256 columns, lbo 64 x 128)
+    read the intended operand, and the zeroing of A's columns addresses
+    element (r, e) where TMA put it."""
+    mem_a = _tma_tile(128, 64)
+    for row0 in (0, 64):
+        for ks in range(4):
+            start = row0 * 128 + ks * 32
+            assert _read_k_major(mem_a, start, 1024, 64) == [
+                [(row0 + i, 16 * ks + kk) for kk in range(16)]
+                for i in range(64)]
+    mem_b = _tma_tile(64, 256)
+    for ks in range(4):
+        assert _read_mn_major(mem_b, ks * 16 * 128, 64 * 128, 1024, 256) == [
+            [(16 * ks + kk, nn) for nn in range(256)] for kk in range(16)]
+    for r in range(128):
+        for e in range(64):   # zero_a_tail's address of element e of row r
+            addr = r * 128 + (((e >> 3) ^ (r & 7)) << 4) + 2 * (e & 7)
+            assert mem_a[addr] == (r, e)
+
+
+def _sw128(addr):
+    """TMA's 128-byte swizzle of a byte offset from a 1024-byte aligned
+    base: the 16-byte unit within each 128-byte row XOR the row's index
+    within its 8-row atom (as tests/test_torch_flash_attention.py)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _tma_tile(rows, cols):
+    """A rows x cols bf16 tile as 64-column boxes of rows x 128 bytes
+    each, swizzled: {byte offset: (row, column)}."""
+    return {_sw128(c * rows * 128 + r * 128 + 2 * j): (r, 64 * c + j)
+            for c in range(cols // 64) for r in range(rows)
+            for j in range(64)}
+
+
+def _read_k_major(mem, start, sbo, rows):
+    return [[mem[_sw128(start + (i // 8) * sbo + (i % 8) * 128 + 2 * kk)]
+             for kk in range(16)] for i in range(rows)]
+
+
+def _read_mn_major(mem, start, lbo, sbo, n):
+    return [[mem[_sw128(start + (nn // 64) * lbo + 2 * (nn % 64)
+                        + (kk // 8) * sbo + (kk % 8) * 128)]
+             for nn in range(n)] for kk in range(16)]
+
+
+def test_matmul_bench_needs_a_card_and_its_ablations_apply(monkeypatch,
+                                                           capsys):
+    """``launch.matmul_bench`` exits 2 without a card, and each ablated
+    copy's source edits still find their text in ``csrc/matmul.cu``."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import matmul_bench
+    src = (build.CSRC / "matmul.cu").read_text()
+    for edits in matmul_bench.ABLATIONS.values():
+        text = src
+        for old, new in edits:
+            assert old in text
+            text = text.replace(old, new)
+        assert text != src
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert matmul_bench.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_paco_matmul_runs_the_plan_once_and_keeps_its_tables(monkeypatch):
+    """paco_matmul hands the whole (cached) plan to one matmul_plan call,
+    and on the CPU returns the plain version bit for bit."""
+    calls = []
+    real = TCM.mm_ops.matmul_plan
+
+    def spy(a, b, plan):
+        calls.append(plan)
+        return real(a, b, plan)
+
+    monkeypatch.setattr(TCM.mm_ops, "matmul_plan", spy)
+    _, _, ta, tb = _operands(5, 61, 97, 67, torch.bfloat16)
+    got = TC.paco_matmul(ta, tb, 12)
+    again = TC.paco_matmul(ta, tb, 12)
+    assert len(calls) == 2 and calls[0] is calls[1]
+    assert torch.equal(got, again)
+    assert torch.equal(got, matmul_plan_ref(ta, tb, calls[0]))
 
 
 # ---------------------------------------------------------------------------

@@ -282,6 +282,131 @@ def test_prefill_kernel_walk_matches_plain(kw, hq, hkv):
            ops.paged_prefill_attention(q, kp, vp, row, start, **kw))
 
 
+LN2, LOG2E = math.log(2.0), 1.0 / math.log(2.0)
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def emulate_prefill_tc(q, kp, vp, row, start, *, window=None, logit_cap=None,
+                       rows_per_cta=128, warp_rows=16, tile=64, split=128):
+    """csrc/paged_prefill.cu's tensor-core body (bf16): per (q block, kv
+    head, key split) CTA, 128 rows position-major (row r: head r % G at
+    chunk position c0 + r / G), eight warps of 16 rows in fragment order;
+    per 64-key tile S = Q K^T in f32 from bf16 operands, the softmax in the
+    log2 domain (a tile whose pairs the warp's position range shows all
+    visible skips the mask; a masked key weighs 0), row sums of the f32
+    weights, P V from the weights rounded to bf16; splits only up to the
+    chunk's end, merged by their natural-log maxima."""
+    _, c, hq, d = q.shape
+    _, page, hkv, _ = kp.shape
+    g, width = hq // hkv, row.shape[0]
+    window = INT32_MAX if window is None else window
+    scale = 1 / math.sqrt(d)
+    bq = rows_per_cta // g
+    keys = min(start + c, width * page)
+    n_split = -(-keys // split)
+    out = torch.zeros(1, c, hq, d)
+    qf, kf, vf = q.float(), kp.float(), vp.float()
+    for c0 in range(0, c, bq):
+        for h in range(hkv):
+            r = torch.arange(g * bq)
+            ci, head = c0 + r // g, h * g + r % g
+            live = ci < c
+            qr = qf[0, ci.clamp(max=c - 1), head] * live[:, None]
+            pos = start + ci                       # global, per row
+            q_hi = start + min(c0 + bq, c) - 1
+            k_lo0 = max(0, start + c0 - window + 1)
+            k_hi0 = min(q_hi + 1, width * page)
+            parts = []
+            for s in range(n_split):
+                k_lo, k_hi = max(k_lo0, s * split), min(k_hi0,
+                                                        (s + 1) * split)
+                m = torch.full((len(r),), NEG_INF)
+                l = torch.zeros(len(r))
+                acc = torch.zeros(len(r), d)
+                for t0 in range(k_lo, k_hi, tile):
+                    kpos = torch.arange(t0, t0 + tile)
+                    ok = kpos < k_hi
+                    phys = row[(kpos.clamp(max=k_hi - 1)) // page].long()
+                    kt = kf[phys, kpos % page, h] * ok[:, None]
+                    vt = vf[phys, kpos % page, h] * ok[:, None]
+                    x = qr @ kt.T * scale
+                    if logit_cap is not None:
+                        x = torch.tanh(x / logit_cap) * logit_cap
+                    x = x * LOG2E
+                    vis = (ok[None, :] & (kpos[None, :] <= pos[:, None])
+                           & (pos[:, None] - kpos[None, :] < window))
+                    for w0 in range(0, len(r), warp_rows):
+                        wr = slice(w0, w0 + warp_rows)
+                        p_min, p_max = int(pos[wr].min()), int(pos[wr].max())
+                        whole = (bool(ok.all()) and t0 + tile - 1 <= p_min
+                                 and p_max - t0 < window)
+                        if not whole:
+                            x[wr] = torch.where(vis[wr], x[wr], NEG_INF)
+                    m_new = torch.maximum(m, x.max(-1).values)
+                    p = torch.exp2(x - m_new[:, None])
+                    p = torch.where(x <= NEG_INF, 0.0, p)
+                    alpha = torch.exp2(m - m_new)
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + _bf(p) @ vt
+                    m = m_new
+                parts.append((m * LN2, l, acc))
+            o = (parts[0][2] / parts[0][1].clamp(min=1e-30)[:, None]
+                 if n_split == 1 else _merge(parts))
+            out[0, ci[live], head[live]] = o[live]
+    return out.to(q.dtype)
+
+
+TC_CASES = [  # (page, pps, n_pages, c, start, hq, hkv, d)
+    (16, 16, 20, 24, 200, 4, 2, 16),     # two key splits, G 2
+    (16, 16, 20, 64, 180, 16, 8, 32),    # qwen3's chunk shape, narrow
+    (5, 7, 11, 9, 17, 6, 2, 16),         # prime page, G 3
+    (3, 11, 13, 7, 0, 3, 3, 16),         # first chunk, G 1
+    (64, 4, 9, 64, 130, 2, 1, 64),       # G 2 x C 64 = 128 rows, one CTA
+    (8, 40, 41, 40, 260, 8, 1, 16)]      # G 8: 16 positions a block, 3 splits
+
+
+@pytest.mark.parametrize("kw", PREFILL_KW)
+@pytest.mark.parametrize("case", range(len(TC_CASES)))
+def test_prefill_tensor_core_walk_matches_plain_and_pallas(kw, case):
+    """The tensor-core walk on bf16 inputs against the port's plain
+    version and (without a window or softcap, and with both) repro's Pallas
+    kernel in interpret mode (bf16 tolerance 2e-2: the walk rounds the
+    unnormalized weights to bf16, the others the normalized ones), on
+    windows, softcaps, prime geometries, G 1 to 8 and chunks over several
+    key splits."""
+    page, pps, n_pages, c, start, hq, hkv, d = TC_CASES[case]
+    q, kp, vp, row, _ = _prefill_case(page, pps, n_pages, c, start, hq, hkv,
+                                      d, seed=20 + case)
+    q, kp, vp = (torch.from_numpy(x).bfloat16() for x in (q, kp, vp))
+    row_t = torch.from_numpy(row)
+    got = emulate_prefill_tc(q, kp, vp, row_t, start, **kw)
+    want = ops.paged_prefill_attention(q, kp, vp, row_t, start, **kw)
+    _close(got.float(), want.float(), 2e-2)
+    if kw not in (PREFILL_KW[0], PREFILL_KW[3]):
+        return
+    jq = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, kp, vp)]
+    jwant = paged_prefill_attention(*jq, jnp.asarray(row),
+                                    jnp.asarray(start, jnp.int32),
+                                    use_kernel=True, interpret=True, **kw)
+    _close(got.float(), np.asarray(jwant, np.float32), 2e-2)
+
+
+def test_prefill_wrapper_counts_launches_by_variant_only_on_the_card():
+    """On the CPU the wrapper takes the plain version and counts nothing;
+    on the card it names the family the library takes."""
+    q, kp, vp, row, start = _t(*_prefill_case()[:4]) + [8]
+    before = (K.paged_flash_prefill.launches,
+              dict(K.paged_flash_prefill.variants))
+    K.paged_flash_prefill(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), row,
+                          start, scale=0.25)
+    assert (K.paged_flash_prefill.launches,
+            dict(K.paged_flash_prefill.variants)) == before
+    assert K.PREFILL_VARIANTS == ("cuda_cores", "mma_sync")
+
+
 # ---------------------------------------------------------------------------
 # MLA latent attention (paged_latent_decode_pallas, paged_latent_prefill_
 # pallas) and its CUDA kernels' walk (csrc/paged_latent_common.cuh)
