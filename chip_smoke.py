@@ -9,17 +9,21 @@ Phases, in order; any failure ends the script with a nonzero exit:
 2. Build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc for
    sm_90a into ``build/repro_torch/`` (registers and shared memory from
    ``-Xptxas -v``), and the count of HGMMA (wgmma), HMMA (mma.sync) and
-   UTMALDG (TMA load) instructions in the dense flash, paged prefill and
-   matmul libraries from ``cuobjdump -sass``.  With ``--parent DIR`` (a
-   directory outside the committed tree holding an earlier commit's
-   ``flash_fwd.cu``, ``flash_bwd.cu``, ``paged_prefill.cu`` and
-   ``matmul.cu`` with their headers; ``--parent-flash`` is the same
-   flag), those are built too.
+   UTMALDG (TMA load) instructions in the dense flash, paged prefill,
+   latent prefill and matmul libraries from ``cuobjdump -sass``.  With
+   ``--parent DIR`` (a directory outside the committed tree holding an
+   earlier commit's ``flash_fwd.cu``, ``flash_bwd.cu``,
+   ``paged_prefill.cu``, ``matmul.cu``, ``paged_decode.cu`` and
+   ``paged_latent_prefill.cu`` with their headers; ``--parent-flash`` is
+   the same flag), those are built too.
 3. Kernels against their plain versions: each of the eight hand-written
    kernels and its plain PyTorch version on the same CUDA inputs, at the
    serving, training or PACO shapes in bf16 and f32 and on small prime/odd
-   geometries (GQA: windows and softcaps; MLA latent: H = 3 and 5, narrow
-   latents; dense flash forward and backward: G 1, 2, 6 and 8, D 16 to 256,
+   geometries (GQA: windows and softcaps, decode at G 8 with D 256 and 64
+   and a zero-length slot, which writes zeros; MLA latent: H = 3 and 5,
+   narrow latents, and the wgmma latent prefill at deepseek-v2's widths
+   on blocks that straddle positions, starts off the tile and chunks
+   whose keys split; dense flash forward and backward: G 1, 2, 6 and 8, D 16 to 256,
    S 77 and 128, causal or not, windows, softcaps; at the training shape
    the backward bitwise equal over two calls; matmul: odd and prime
    shapes, strided views and every cuboid of plan_mm_1piece(8192, 8192,
@@ -39,8 +43,10 @@ Phases, in order; any failure ends the script with a nonzero exit:
    included, is printed beside it; the flash kernels at B 2 x S 4096,
    their plain versions and SDPA timed eagerly, in turns with SDPA and,
    given ``--parent``, the earlier kernels: kernel, parent, SDPA,
-   SDPA, parent, kernel; paged prefill and the matmul plan take turns
-   the same way), SDPA under each of its flash, memory-efficient
+   SDPA, parent, kernel; paged decode, paged prefill, the latent prefill
+   and the matmul plan take turns the same way; the decode and latent
+   prefill kernels bitwise equal over two calls at their serving
+   shapes), SDPA under each of its flash, memory-efficient
    and cuDNN backends pinned in turn (``sdpa_by_backend``: the fastest is
    ``library_ms``, named in ``library_backend``; a backend that refuses
    ``enable_gqa`` gets K/V expanded outside the timed region, one that
@@ -64,7 +70,9 @@ Phases, in order; any failure ends the script with a nonzero exit:
    lengths drawn in [48, 1000] and 32 new tokens each.  The launch counts
    of both kernels are zeroed just before and read just after: prefill
    launches == prefill_calls * 28 and decode launches == decode_steps * 28,
-   every prefill launch of the tensor-core variant (``mma_sync``).
+   every prefill launch of the tensor-core variant (``mma_sync``) and
+   every decode launch of the one-launch cluster kernel's tensor-core
+   family (``mma_sync``).
    One served request is replayed through the plain path, teacher-forced,
    and its tokens must agree under the margin rule of phase 4.
 6. Full-width deepseek-v2 (MLA + MoE), depth cut to fit the card: one
@@ -73,9 +81,9 @@ Phases, in order; any failure ends the script with a nonzero exit:
    freed before the next; MODEL_ATOL and the margin rule as in phase 4,
    with MoE router near ties handled as ``moe_full_width_parity`` says.
 7. Serve deepseek-v2 (bf16, 4 layers, page 128, chunk 128) like phase 5:
-   latent prefill launches == prefill_calls * 4 and latent decode
-   launches == decode_steps * 4; then every model call of the run is
-   replayed through the plain path (``replay_schedule``).
+   latent prefill launches == prefill_calls * 4, every one ``wgmma``, and
+   latent decode launches == decode_steps * 4; then every model call of
+   the run is replayed through the plain path (``replay_schedule``).
 8. Full-width qwen3-0.6b train-step parity at B 2 x S 4096: loss and
    gradients through the flash kernels and through the plain path
    (``use_kernel=False``) on the same weights and batch, in float32 at
@@ -350,6 +358,27 @@ def check_small_geometries(gen: torch.Generator) -> dict[str, float]:
             err = max_err(got, want)
             assert err <= ATOL[dtype], ("paged_decode", dtype, kw, err)
             worst["paged_decode"] = max(worst["paged_decode"], err)
+        # G 8 at D 256 (gemma2's decode) and at D 64; a zero-length slot
+        for (hq, hkv, d), kw in itertools.product(
+                ((16, 2, 256), (8, 1, 64)),
+                ({}, {"window": 40, "logit_cap": 30.0})):
+            page, n_pages = 16, 29
+            bt = torch.randperm(n_pages - 1, generator=gen, device=dev)
+            bt = bt[:24].reshape(3, 8).to(torch.int32)
+            lens = torch.tensor([0, 77, 128], dtype=torch.int32, device=dev)
+            q = rnd(3, 1, hq, d, dtype=dtype)
+            kp = rnd(n_pages, page, hkv, d, dtype=dtype)
+            vp = rnd(n_pages, page, hkv, d, dtype=dtype)
+            got = K.paged_flash_decode(q, kp, vp, bt, lens,
+                                       scale=1 / math.sqrt(d), **kw)
+            want = ops.paged_decode_attention(q, kp, vp, bt, lens,
+                                              use_kernel=False, **kw)
+            # the plain version averages a slot with no valid key
+            # uniformly over masked keys; the kernel writes zeros
+            err = max_err(got[1:], want[1:])
+            assert err <= ATOL[dtype], ("paged_decode", dtype, hq, d, err)
+            assert not got[0].any(), "a zero-length slot writes zeros"
+            worst["paged_decode"] = max(worst["paged_decode"], err)
         for kw in ({}, {"window": 5}, {"logit_cap": 20.0},
                    {"window": 3, "logit_cap": 5.0}):
             hq, hkv, d, page, n_pages, c = 4, 2, 16, 4, 13, 8
@@ -433,9 +462,32 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int,
         ops.paged_decode_attention(q, kpool[0], vpool[0], bt, lens,
                                    use_kernel=False)))
     assert err_decode <= ATOL[dtype], ("paged_decode", err_decode)
-    ms, eager_ms = time_ms(lambda i: K.paged_flash_decode(
-        q, kpool[i % n_layers], vpool[i % n_layers], bt, lens, scale=scale),
-        iters)
+    first = K.paged_flash_decode(q, kpool[0], vpool[0], bt, lens,
+                                 scale=scale)
+    assert torch.equal(first, K.paged_flash_decode(
+        q, kpool[0], vpool[0], bt, lens, scale=scale)), \
+        "paged_decode is not bitwise reproducible"
+    # the calls take turns on the card: kernel, parent kernel (given
+    # ``parent``), SDPA twice (below), parent, kernel
+    dturns = collections.defaultdict(list)
+
+    def decode_kernel_turn():
+        dturns["k"].append(time_ms(lambda i: K.paged_flash_decode(
+            q, kpool[i % n_layers], vpool[i % n_layers], bt, lens,
+            scale=scale), iters))
+
+    def decode_parent_turn():
+        if parent is None:
+            return
+        scratch = parent.decode_scratch(q, kpool[0], pps)
+        got = parent.paged_decode(q, kpool[0], vpool[0], bt, lens, scratch)
+        dturns["err"].append(max_err(got, first))
+        dturns["p"].append(time_ms(lambda i: parent.paged_decode(
+            q, kpool[i % n_layers], vpool[i % n_layers], bt, lens, scratch),
+            iters))
+
+    decode_kernel_turn()
+    decode_parent_turn()
     plain_ms, _ = time_ms(lambda i: ops.paged_decode_attention(
         q, kpool[i % n_layers], vpool[i % n_layers], bt, lens,
         use_kernel=False), max(iters // 4, 10))
@@ -449,17 +501,29 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int,
     mask = (torch.arange(s_max, device=dev)[None, :] < lens[:, None])
     mask = mask[:, None, None, :]
     qt = q.transpose(1, 2)
-    sdpa_decode = sdpa_by_backend(lambda gqa: _paged_sdpa_ms(
-        qt, kg, vg, mask, gqa, iters))
+    sdpa_decode = _merge_sdpa([sdpa_by_backend(lambda gqa: _paged_sdpa_ms(
+        qt, kg, vg, mask, gqa, iters)) for _ in range(2)])
     del kg, vg
+    decode_parent_turn()
+    decode_kernel_turn()
     n_keys = int(lens.sum())
     nbytes = (2 * q.numel() * 2 + bt.numel() * 4 + lens.numel() * 4
               + 2 * n_keys * hkv * d * 2)
     flops = 4 * n_keys * hq * d
-    rows.append(_with_library(_row(
+    ms, eager_ms = (sum(t[i] for t in dturns["k"]) / 2 for i in (0, 1))
+    decode = _with_library(_row(
         "paged_decode", "src/repro_torch/csrc/paged_decode.cu",
         "src/repro/kernels/attention/attention.py:371", err_decode, ms,
-        eager_ms, plain_ms, None, nbytes, flops, dtype), sdpa_decode))
+        eager_ms, plain_ms, None, nbytes, flops, dtype), sdpa_decode)
+    decode["ms_turns"] = [t[0] for t in dturns["k"]]
+    before = K.paged_flash_decode.variants.copy()
+    K.paged_flash_decode(q, kpool[0], vpool[0], bt, lens, scale=scale)
+    (decode["variant"],) = K.paged_flash_decode.variants - before
+    if parent is not None:
+        decode["parent_ms"] = sum(t[0] for t in dturns["p"]) / 2
+        decode["parent_ms_turns"] = [t[0] for t in dturns["p"]]
+        decode["parent_max_abs_err"] = max(dturns["err"])
+    rows.append(decode)
 
     # ---- prefill: one 64-token chunk at start 960 of a ~1000-token prompt
     c, start, width = 64, 960, 16
@@ -611,13 +675,18 @@ class ParentKernels:
     """The parent commit's kernels, built from its sources in ``src``, a
     directory outside the committed tree: the dense flash pair
     (``flash_fwd.cu``, ``flash_bwd.cu``), paged prefill
-    (``paged_prefill.cu``) and the matmul (``matmul.cu``), with their
-    headers, into ``build/parent_kernels/``, so that the benches time them
-    in the same call as the current kernels.  Their C interfaces are the
-    parent's: the flash pair's and ``matmul``'s are the current ones;
-    prefill's split count takes (width, page)."""
+    (``paged_prefill.cu``), the matmul (``matmul.cu``), paged decode
+    (``paged_decode.cu``) and MLA latent prefill
+    (``paged_latent_prefill.cu``), with their headers, into
+    ``build/parent_kernels/``, so that the benches time them in the same
+    call as the current kernels.  Their C interfaces are the parent's: the
+    flash pair's and ``matmul``'s are the current ones; prefill's split
+    count takes (width, page), decode's (width, page) and latent
+    prefill's (width, page, chunk, heads), and both of the latter take f32
+    split scratch."""
 
-    NAMES = ("flash_fwd", "flash_bwd", "paged_prefill", "matmul")
+    NAMES = ("flash_fwd", "flash_bwd", "paged_prefill", "matmul",
+             "paged_decode", "paged_latent_prefill")
 
     def __init__(self, src: Path):
         import ctypes
@@ -630,7 +699,7 @@ class ParentKernels:
         # parent library (inline and template ones are weak) can bind to
         # the current libraries' of the same name
         rename = [f"-D{ns}=parent_{ns}"
-                  for ns in ("paged", "flash_mma", "flash_wgmma")]
+                  for ns in ("paged", "flash_mma", "flash_wgmma", "latent")]
         procs = [(name, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, *rename, "-o",
              str(out / f"lib{name}.so"), str(src / f"{name}.cu")],
@@ -656,8 +725,20 @@ class ParentKernels:
         self.prefill_splits.argtypes = [I, I]
         self.mm = libs["matmul"].matmul
         self.mm.argtypes = [I, P, P, P, I, I, I, L, L, P]
+        self.decode = libs["paged_decode"].paged_decode
+        self.decode.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                I, F, I, F, P]
+        self.decode_splits = libs["paged_decode"].paged_decode_splits
+        self.decode_splits.argtypes = [I, I]
+        lat = libs["paged_latent_prefill"]
+        self.latent = lat.paged_latent_prefill
+        self.latent.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                I, I, F, P]
+        self.latent_splits = lat.paged_latent_prefill_splits
+        self.latent_splits.argtypes = [I, I, I, I]
         for fn in (self.fwd, self.bwd, self.prefill, self.prefill_splits,
-                   self.mm):
+                   self.mm, self.decode, self.decode_splits, self.latent,
+                   self.latent_splits):
             fn.restype = I
 
     def forward(self, q, k, v, o, lse) -> None:
@@ -700,6 +781,54 @@ class ParentKernels:
                            1 / math.sqrt(d), 2 ** 31 - 1, 0.0,
                            torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent paged_prefill", err)
+        return out
+
+    def decode_scratch(self, q, k_pages, width):
+        """The output and f32 split scratch of the parent's decode."""
+        b, _, hq, d = q.shape
+        n_split = self.decode_splits(width, k_pages.shape[1])
+        return (torch.empty_like(q),
+                torch.empty((n_split, b * hq, d), device=q.device),
+                torch.empty((n_split, b * hq, 2), device=q.device))
+
+    def paged_decode(self, q, k_pages, v_pages, tables, lengths, scratch
+                     ) -> torch.Tensor:
+        """bf16, no window or softcap: the serving shape's call."""
+        b, _, hq, d = q.shape
+        n_pool, page, hkv, _ = k_pages.shape
+        out, acc, ml = scratch
+        err = self.decode(1, q.data_ptr(), k_pages.data_ptr(),
+                          v_pages.data_ptr(), tables.data_ptr(),
+                          lengths.data_ptr(), out.data_ptr(), acc.data_ptr(),
+                          ml.data_ptr(), b, hkv, hq // hkv, d, page,
+                          tables.shape[1], n_pool, 1 / math.sqrt(d),
+                          2 ** 31 - 1, 0.0,
+                          torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent paged_decode", err)
+        return out
+
+    def latent_scratch(self, q_lat, ckv, width):
+        """The output and f32 split scratch of the parent's latent
+        prefill."""
+        _, c, h, kv = q_lat.shape
+        n_split = self.latent_splits(width, ckv.shape[1], c, h)
+        return (torch.empty_like(q_lat),
+                torch.empty((n_split, c * h, kv), device=q_lat.device),
+                torch.empty((n_split, c * h, 2), device=q_lat.device))
+
+    def paged_latent_prefill(self, q_lat, q_rope, ckv, kr, row, start,
+                             scale, scratch) -> torch.Tensor:
+        """bf16: the serving shape's call."""
+        _, c, h, kv = q_lat.shape
+        n_pool, page, _ = ckv.shape
+        out, acc, ml = scratch
+        err = self.latent(1, q_lat.data_ptr(), q_rope.data_ptr(),
+                          ckv.data_ptr(), kr.data_ptr(), row.data_ptr(),
+                          out.data_ptr(), acc.data_ptr(), ml.data_ptr(), c, h,
+                          kv, q_rope.shape[-1], page, row.shape[0], n_pool,
+                          start, scale,
+                          torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent paged_latent_prefill", err)
         return out
 
     def matmul(self, a, b, out) -> None:
@@ -899,18 +1028,45 @@ def check_small_latent(gen: torch.Generator) -> dict[str, float]:
                                         kv, rope, page, err)
             worst["paged_latent_prefill"] = max(
                 worst["paged_latent_prefill"], err)
+    # the wgmma kernel (bf16, kv_lora 512, qk_rope 64): 64-row blocks that
+    # straddle positions (H 3, 5), starts off the 64-key tile, short chunks
+    # whose keys split, a partial last row block
+    dtype, kv, rope = torch.bfloat16, 512, 64
+    scale = 1 / math.sqrt(kv + rope)
+    for h, page, width, n_pool, c, start in [(3, 64, 8, 13, 37, 200),
+                                             (5, 128, 4, 7, 9, 3),
+                                             (64, 64, 6, 11, 3, 301),
+                                             (128, 128, 8, 11, 20, 900)]:
+        row = torch.randperm(n_pool, generator=gen, device=dev)
+        row = row[:width].to(torch.int32)
+        args = (rnd(1, c, h, kv, dtype=dtype), rnd(1, c, h, rope, dtype=dtype),
+                rnd(n_pool, page, kv, dtype=dtype),
+                rnd(n_pool, page, rope, dtype=dtype), row)
+        before = K.paged_latent_prefill.variants.copy()
+        got = K.paged_latent_prefill(*args, start, scale=scale)
+        assert K.paged_latent_prefill.variants - before == {"wgmma": 1}
+        err = max_err(got, ops.paged_latent_prefill_attention(
+            *args, start, scale=scale, use_kernel=False))
+        assert err <= ATOL[dtype], ("paged_latent_prefill wgmma", h, page,
+                                    c, start, err)
+        assert torch.equal(got, K.paged_latent_prefill(*args, start,
+                                                       scale=scale))
+        worst["paged_latent_prefill"] = max(worst["paged_latent_prefill"],
+                                            err)
     return worst
 
 
-def bench_latent_kernels(cfg, gen: torch.Generator, iters: int
-                         ) -> list[dict]:
+def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
+                         parent: ParentKernels | None = None) -> list[dict]:
     """The MLA latent kernels at the serving shapes of full-width
     deepseek-v2 (8 slots, contexts 48..1032, H = 128, kv_lora 512,
     qk_rope 64, page 128; prefill C = 128 at start 896): checked against
     the plain version in f32 and bf16, then timed in bf16 cycling over
     ``cfg.n_layers`` layers' pools (1.1 GB, so each call finds its layer
     outside the 50 MB L2, as serving does after the MoE's 7.5 GB of
-    experts)."""
+    experts).  The prefill kernel takes turns with its parent (given
+    ``parent``) and SDPA: kernel, parent, SDPA twice, parent, kernel; it
+    and the parent are checked bitwise equal over two calls."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ops
 
@@ -989,12 +1145,12 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int
 
         return sdpa_by_backend(run)
 
-    # ---- decode
+    # ---- decode: two turns, around its plain version and SDPA
     dq = (rnd(slots, 1, h, kv, dtype=dtype), rnd(slots, 1, h, rope,
                                                  dtype=dtype))
-    ms, eager_ms = time_ms(lambda i: K.paged_latent_decode(
+    dturns = [time_ms(lambda i: K.paged_latent_decode(
         *dq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale),
-        iters)
+        iters)]
     plain_ms, _ = time_ms(lambda i: ops.paged_latent_decode_attention(
         *dq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale,
         use_kernel=False), max(iters // 4, 10))
@@ -1002,6 +1158,10 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int
     mask = torch.arange(s_max, device=dev)[None, :] < lens[:, None]
     q_cat = torch.cat(dq, -1).transpose(1, 2)           # (B, H, 1, 576)
     sdpa_decode = library(q_cat, bt, s_max, mask[:, None, None, :])
+    dturns.append(time_ms(lambda i: K.paged_latent_decode(
+        *dq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale),
+        iters))
+    ms, eager_ms = (sum(t[i] for t in dturns) / 2 for i in (0, 1))
     n_keys = int(lens.sum())
     nbytes = (2 * (dq[0].numel() + dq[1].numel() + dq[0].numel())
               + bt.numel() * 4 + lens.numel() * 4 + n_keys * (kv + rope) * 2)
@@ -1011,12 +1171,38 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int
         "src/repro/kernels/attention/attention.py:463",
         err["paged_latent_decode"], ms, eager_ms, plain_ms, None, nbytes,
         flops, dtype), sdpa_decode))
+    rows[-1]["ms_turns"] = [t[0] for t in dturns]
 
     # ---- prefill: one 128-token chunk at start 896
     pq = (rnd(1, c, h, kv, dtype=dtype), rnd(1, c, h, rope, dtype=dtype))
-    ms, eager_ms = time_ms(lambda i: K.paged_latent_prefill(
-        *pq, ckp[i % n_layers], krp[i % n_layers], row, start, scale=scale),
-        iters)
+    first = K.paged_latent_prefill(*pq, ckp[0], krp[0], row, start,
+                                   scale=scale)
+    assert torch.equal(first, K.paged_latent_prefill(
+        *pq, ckp[0], krp[0], row, start, scale=scale)), \
+        "paged_latent_prefill is not bitwise reproducible"
+    turns = collections.defaultdict(list)
+
+    def kernel_turn():
+        turns["k"].append(time_ms(lambda i: K.paged_latent_prefill(
+            *pq, ckp[i % n_layers], krp[i % n_layers], row, start,
+            scale=scale), iters))
+
+    def parent_turn():
+        if parent is None:
+            return
+        scratch = parent.latent_scratch(pq[0], ckp[0], width)
+        got = parent.paged_latent_prefill(*pq, ckp[0], krp[0], row, start,
+                                          scale, scratch).clone()
+        assert torch.equal(got, parent.paged_latent_prefill(
+            *pq, ckp[0], krp[0], row, start, scale, scratch)), \
+            "the parent's paged_latent_prefill is not bitwise reproducible"
+        turns["err"].append(max_err(got, first))
+        turns["p"].append(time_ms(lambda i: parent.paged_latent_prefill(
+            *pq, ckp[i % n_layers], krp[i % n_layers], row, start, scale,
+            scratch), iters))
+
+    kernel_turn()
+    parent_turn()
     plain_ms, _ = time_ms(lambda i: ops.paged_latent_prefill_attention(
         *pq, ckp[i % n_layers], krp[i % n_layers], row, start, scale=scale,
         use_kernel=False), max(iters // 20, 5))
@@ -1024,18 +1210,32 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int
     q_pos = start + torch.arange(c, device=dev)[:, None]
     cmask = q_pos >= torch.arange(s_ctx, device=dev)[None, :]
     q_cat = torch.cat(pq, -1)[0].transpose(0, 1)[None]  # (1, H, C, 576)
-    sdpa_prefill = library(q_cat, row[None], s_ctx, cmask)
+    sdpa_prefill = _merge_sdpa([library(q_cat, row[None], s_ctx, cmask)
+                                for _ in range(2)])
+    parent_turn()
+    kernel_turn()
+    ckv0, kr0 = ckp[0].clone(), krp[0].clone()
     del ckp, krp
     pairs = int(cmask.sum())
     nbytes = (2 * (pq[0].numel() + pq[1].numel() + pq[0].numel())
               + row.numel() * 4 + s_ctx * (kv + rope) * 2)
     flops = pairs * h * (2 * (kv + rope) + 2 * kv)
-    rows.append(_with_library(_row(
+    ms, eager_ms = (sum(t[i] for t in turns["k"]) / 2 for i in (0, 1))
+    prefill = _with_library(_row(
         "paged_latent_prefill",
         "src/repro_torch/csrc/paged_latent_prefill.cu",
         "src/repro/kernels/attention/attention.py:270",
         err["paged_latent_prefill"], ms, eager_ms, plain_ms, None, nbytes,
-        flops, dtype), sdpa_prefill))
+        flops, dtype), sdpa_prefill)
+    prefill["ms_turns"] = [t[0] for t in turns["k"]]
+    before = K.paged_latent_prefill.variants.copy()
+    K.paged_latent_prefill(*pq, ckv0, kr0, row, start, scale=scale)
+    (prefill["variant"],) = K.paged_latent_prefill.variants - before
+    if parent is not None:
+        prefill["parent_ms"] = sum(t[0] for t in turns["p"]) / 2
+        prefill["parent_ms_turns"] = [t[0] for t in turns["p"]]
+        prefill["parent_max_abs_err"] = max(turns["err"])
+    rows.append(prefill)
     return rows
 
 
@@ -2131,10 +2331,11 @@ def main() -> int:
     ap.add_argument("--parent", "--parent-flash", dest="parent", type=Path,
                     default=None,
                     help="a directory holding an earlier commit's "
-                    "flash_fwd.cu, flash_bwd.cu, paged_prefill.cu and "
-                    "matmul.cu with their headers (not the committed "
-                    "tree): those kernels are built and timed in turns "
-                    "with the current ones")
+                    "flash_fwd.cu, flash_bwd.cu, paged_prefill.cu, "
+                    "matmul.cu, paged_decode.cu and "
+                    "paged_latent_prefill.cu with their headers (not the "
+                    "committed tree): those kernels are built and timed "
+                    "in turns with the current ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2167,7 +2368,8 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line:
                 log(f"[build] {lib}: {line.strip()}")
     counts = sass_counts(("flash_fwd", "flash_bwd", "paged_prefill",
-                          "matmul"), ("HGMMA", "HMMA", "UTMALDG"))
+                          "paged_latent_prefill", "matmul"),
+                         ("HGMMA", "HMMA", "UTMALDG"))
     log("[build] sass instructions " + (
         "not counted: no cuobjdump" if counts is None else json.dumps(counts)))
     parent = None
@@ -2188,7 +2390,7 @@ def main() -> int:
         log(f"[kernels] small prime/odd/window/softcap geometries ok: "
             f"max err {worst}")
         rows = bench_kernels(cfg, gen, ITERS, parent)
-        rows += bench_latent_kernels(cfg_ds, gen, ITERS)
+        rows += bench_latent_kernels(cfg_ds, gen, ITERS, parent)
         rows += bench_flash(cfg, gen, FLASH_ITERS, parent)
         rows += bench_paco_kernels(gen, ITERS, parent)
     for r in rows:
@@ -2198,6 +2400,13 @@ def main() -> int:
             library += f" ({r['library_backend']})"
         parent_ms = ("" if "parent_ms" not in r else
                      f" parent {r['parent_ms']:.4f} ms")
+        for key, who in (("ms_turns", "kernel"),
+                         ("parent_ms_turns", "parent")):   # each turn's ms
+            if key in r:
+                parent_ms += f" {who} turns " + ", ".join(
+                    f"{t:.4f}" for t in r[key])
+        if r.get("variant"):
+            parent_ms += f" variant {r['variant']}"
         log(f"[kernels] {r['name']}: err {r['max_abs_err']:.3g} kernel "
             f"{r['ms']:.4f} ms (eager call {r['eager_ms']:.4f} ms)"
             f"{parent_ms} plain {r['plain_ms']:.4f} ms library {library} "
@@ -2234,6 +2443,10 @@ def main() -> int:
             "mma_sync": result["launches"]["paged_prefill"]}, \
             ("every bf16 prefill launch on tensor cores",
              result["launches_by_variant"])
+        assert result["launches_by_variant"]["paged_decode"] == {
+            "mma_sync": result["launches"]["paged_decode"]}, \
+            ("every bf16 decode launch on tensor cores",
+             result["launches_by_variant"])
         replay_plain(engine, params, cfg,
                      max(done, key=lambda r: len(r.prompt)))
     del params, engine
@@ -2267,6 +2480,10 @@ def main() -> int:
                                      "decode_steps")}, record=True)
         log(f"[ds-serve] {json.dumps(result)}; card: {smi}")
         launches.update(result["launches"])
+        assert result["launches_by_variant"]["paged_latent_prefill"] == {
+            "wgmma": result["launches"]["paged_latent_prefill"]}, \
+            ("every bf16 latent prefill launch on wgmma",
+             result["launches_by_variant"])
     with phase("deepseek-v2 plain replay"):
         replay = replay_schedule(engine, params, cfg_d, calls, routing)
         log(f"[ds-serve] plain-path replay agrees: {json.dumps(replay)}")

@@ -1,8 +1,9 @@
 // Paged single-token decode attention for Hopper (sm_90a).
 //
-// Replaces src/repro/kernels/attention/attention.py:paged_flash_decode_pallas
-// (body _paged_decode_kernel): one decode query per slot and query head
-// against the paged K/V pool, reached through the slot's block table.
+// Replaces src/repro/kernels/attention/attention.py:371
+// paged_flash_decode_pallas (body _paged_decode_kernel): one decode query
+// per slot and query head against the paged K/V pool, reached through the
+// slot's block table.
 //
 // q      (B, Hkv, G, D)          the slot's G grouped query heads per kv head
 // pages  (n_pool, page, Hkv, D)  one layer's K or V pool (null page included)
@@ -13,218 +14,456 @@
 //
 // What bounds it: the bytes of K/V it reads.  At the serving shapes
 // (G = 2, D = 128) attention does 4 flops per K/V byte in bf16, far below
-// the card's ~295 flop/byte ridge, so the kernel is a streaming read of the
-// slots' live pages and its time is set by how many bytes it keeps in
-// flight.  The design:
-//  * it reads only the valid key positions [max(0, length - window),
-//    min(length, width * page)), each K and V row once (the TPU kernel
-//    visits every page of the table and masks);
-//  * the grid is (kv head, slot, key split): each CTA takes one
-//    kSplitKeys-wide range of key positions, so a batch of 8 slots still
-//    puts hundreds of CTAs on the 132 SMs, and a second small kernel
-//    merges the splits' online-softmax states (flash-decoding);
-//  * the CTA reads its split's page ids into shared memory once; then each
-//    of its eight warps streams its own batches of kBatch keys through
-//    registers: a lane holds EPL consecutive elements of head_dim for the
-//    G grouped queries, issues the batch's K and V loads together (kBatch
-//    rows of each in flight per warp), reduces the dot products with warp
-//    shuffles and keeps its own f32 online-softmax state.  No global table
-//    load and no block barrier sit in the loop; the warps' states merge
-//    once at the end.  The softmax weights stay f32 for the PV
-//    product (the plain version rounds them to the value type).
-// Every position the walk visits is valid, so no masking is needed; a slot
-// with no valid position (only a frozen, inactive slot past its table)
-// writes zeros.
+// the card's ~295 flop/byte ridge: 17.6 MB for qwen3-0.6b's 8 slots of
+// 48..1032 positions, 0.0053 ms at 3.35 TB/s.  Its time is set by how
+// many of those bytes it keeps in flight and by what each launch costs
+// besides them.  The design:
+//  * one launch: the grid is (kRanks x Hkv, B) in clusters of kRanks = 8
+//    CTAs, one cluster per (slot, kv head).  No second kernel merges
+//    splits and no f32 partials go through device memory;
+//  * the splits are sized from the work, on the device: each rank reads
+//    the slot's length (and, in the same round trip, its block-table row)
+//    and takes ceil(n / 8) of its n live key positions
+//    [max(0, length - window), min(length, width * page)); a rank past
+//    the range loads nothing and writes nothing (it only joins the
+//    cluster's two barriers);
+//  * a rank copies its keys' K and V rows into a two-stage ring of shared
+//    memory with cp.async, 16 bytes a thread (a half-warp per 256-byte
+//    row at D 128), both stages issued before the first is used: at the
+//    serving shapes (512 CTAs of 128 threads and 53 KB, four a processor,
+//    one wave) 96 of each rank's at most 129 keys are in flight at once;
+//  * the arithmetic is small (CUDA cores would suffice for its flops), but
+//    done with warp shuffles it cost as much as the loads: 80 shuffles per
+//    8 keys, which the processor issues one warp at a time.  So bf16 at
+//    D 64, 128 and 256 runs each warp's 16-key steps on mma.sync
+//    (MmaWalk: S = Q K^T with the G queries as rows of a 16-row tile, the
+//    weights rounded to bf16 as P in P V; rows padded by 16 bytes so
+//    ldmatrix meets no bank conflict); float32 and other widths keep the
+//    shuffle walk (CoreWalk: lanes across head_dim, f32 weights);
+//  * the merge: the warps' states meet in shared memory in warp order,
+//    then rank 0 reads the ranks' states through distributed shared memory
+//    in rank order and writes the output, so the result is bitwise the
+//    same on every call.
+// Every position the walk visits is valid, so only a step's tail past the
+// stage's keys is masked; a slot with no valid position (only a frozen,
+// inactive slot past its table) writes zeros.
 
-#include "paged_common.cuh"
+#include <cooperative_groups.h>
+
+#include "flash_mma.cuh"   // the cp.async and quad-reduction helpers
 
 namespace {
 
 using namespace paged;
+namespace cg = cooperative_groups;
 
-constexpr int kThreads = 256;
+constexpr int kRanks = 8;        // CTAs of a cluster: one (slot, kv head)
+// 128 threads: at the serving instantiation's registers, four CTAs fit a
+// processor, so the 512 CTAs of qwen3-0.6b's decode run in one wave (with
+// 256 threads two did, and the decode took two waves)
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBatch = 8;        // keys per warp step
-constexpr int kSplitKeys = 128;  // key positions per CTA
+constexpr int kBatch = 8;        // keys per warp step on CUDA cores
+constexpr int kMmaKeys = 16;     // keys per warp step on tensor cores
+constexpr int kStages = 2;
+// Shared-memory rows are padded by 16 bytes, so that ldmatrix's eight rows
+// (and the CUDA-core lanes' loads) meet no bank conflict; a stage holds 48
+// such rows of K (and as many of V) at D 128 in bf16.
+constexpr int kPad = 16;
+constexpr int kStageBytes = 48 * (256 + kPad);
 constexpr int kMaxG = 8;         // grouped query heads per kv head
 constexpr int kMaxEpl = 8;       // head_dim <= 32 * kMaxEpl
 
-// G_MAX: a compile-time bound on the G grouped queries; EPL: head_dim
-// elements per lane.
+// Shared memory: the stages, later reused for the warps' states, then the
+// rank's merged state (read by rank 0 through the cluster) and its page
+// ids.
+inline size_t stage_region(int g_n, int d) {
+  const size_t stages = (size_t)kStages * 2 * kStageBytes;
+  const size_t warps = sizeof(float) * kWarps * g_n * (d + 2);
+  return stages > warps ? stages : warps;
+}
+
+inline size_t smem_bytes(int g_n, int d, int width) {
+  return stage_region(g_n, d) + sizeof(float) * g_n * (d + 2) +
+         sizeof(int) * width;
+}
+
+// Keys a stage holds: a multiple of 16 on tensor cores.
+__host__ __device__ inline int stage_keys_of(int row_bytes, bool mma) {
+  const int k = kStageBytes / (row_bytes + kPad);
+  return mma ? k / kMmaKeys * kMmaKeys : k;
+}
+
+// A warp's walk on CUDA cores: lanes across head_dim (EPL elements each),
+// batches of kBatch keys, the dot products reduced with warp shuffles.
 template <typename T, int G_MAX, int EPL>
-__global__ void __launch_bounds__(kThreads)
+struct CoreWalk {
+  float qr[G_MAX][EPL], acc[G_MAX][EPL], m[G_MAX], l[G_MAX];
+  int e0;
+  bool lane_on;
+
+  __device__ void init(const T* q, long long row0, int g_n, int d, int lane,
+                       bool any) {
+    e0 = lane * EPL;
+    lane_on = e0 < d;
+#pragma unroll
+    for (int g = 0; g < G_MAX; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) qr[g][e] = acc[g][e] = 0.f;
+      if (g < g_n && lane_on && any)
+        load_n<T, EPL>(q + (row0 + g) * d + e0, qr[g]);
+    }
+  }
+
+  // The warp's batches of one stage: nk keys, rows rs elements apart.
+  __device__ void stage(const T* kb, const T* vb, int rs, int nk, int g_n,
+                        int warp, float scale, float softcap) {
+    for (int j0 = warp * kBatch; j0 < nk; j0 += kWarps * kBatch) {
+      float kx[kBatch][EPL], vx[kBatch][EPL];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (j0 + j < nk && lane_on) {
+          load_n<T, EPL>(kb + (j0 + j) * rs + e0, kx[j]);
+          load_n<T, EPL>(vb + (j0 + j) * rs + e0, vx[j]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) kx[j][e] = vx[j][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G_MAX; ++g) {
+        if (g >= g_n) break;
+        float sc[kBatch];
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          float part = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) part += qr[g][e] * kx[j][e];
+          sc[j] = warp_sum(part) * scale;
+          if (softcap > 0.f) sc[j] = tanhf(sc[j] / softcap) * softcap;
+          if (j0 + j < nk) mx = fmaxf(mx, sc[j]);
+        }
+        const float m_new = fmaxf(m[g], mx);
+        const float alpha = expf(m[g] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const float p = j0 + j < nk ? expf(sc[j] - m_new) : 0.f;
+          sum += p;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] += p * vx[j][e];
+        }
+        l[g] = l[g] * alpha + sum;
+        m[g] = m_new;
+      }
+    }
+  }
+
+  // The warp's (m, l) and accumulator per query into w_ml, w_acc.
+  __device__ void write(float* w_ml, float* w_acc, int g_n, int d, int warp,
+                        int lane) const {
+#pragma unroll
+    for (int g = 0; g < G_MAX; ++g) {
+      if (g >= g_n) break;
+      if (lane == 0) {
+        w_ml[(warp * g_n + g) * 2] = m[g];
+        w_ml[(warp * g_n + g) * 2 + 1] = l[g];
+      }
+      if (lane_on) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          w_acc[(warp * g_n + g) * d + e0 + e] = acc[g][e];
+      }
+    }
+  }
+};
+
+// A warp's walk on tensor cores (bf16, D a multiple of 16): the G queries
+// are rows of a 16-row tile (rows G..15 zero), and each step takes 16 keys:
+// S = Q K^T (mma.sync m16n8k16, K by ldmatrix), the online softmax of row
+// g = lane / 4 across its quad, P rounded to bf16 as the A operand of
+// O += P V (V by ldmatrix.trans).  Rows past the stage's keys are zero
+// (the copies zero-fill them) and masked.
+template <int D>
+struct MmaWalk {
+  using bf16 = __nv_bfloat16;
+  unsigned qa[D / 16][2];   // Q's A fragments, row g (row g + 8 is zero)
+  float acc[D / 8][4];      // O, rows g and g + 8 (the latter unused)
+  float m, l;
+  int lane;
+
+  __device__ void init(const bf16* q, long long row0, int g_n, int, int ln,
+                       bool any) {
+    lane = ln;
+    m = kNegInf;
+    l = 0.f;
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      qa[ks][0] = qa[ks][1] = 0u;
+      if (g < g_n && any) {
+        const bf16* qr = q + (row0 + g) * D + 16 * ks + 2 * t4;
+        qa[ks][0] = *reinterpret_cast<const unsigned*>(qr);
+        qa[ks][1] = *reinterpret_cast<const unsigned*>(qr + 8);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  }
+
+  __device__ void stage(const bf16* kb, const bf16* vb, int rs, int nk, int,
+                        int warp, float scale, float softcap) {
+    const int t4 = lane & 3;
+    for (int j0 = warp * kMmaKeys; j0 < nk; j0 += kWarps * kMmaKeys) {
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      // matrix lane / 8: keys (lane / 16) * 8 .., dims ((lane / 8) % 2) * 8
+      const bf16* kp = kb + (j0 + (lane >> 4) * 8 + (lane & 7)) * rs +
+                       ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        unsigned bb[4];
+        ldsm_x4(bb, kp + 16 * ks);
+        const unsigned a[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+        mma_bf16(sc[0], a, bb);
+        mma_bf16(sc[1], a, bb + 2);
+      }
+      // row g's scores: keys j0 + 8 nt + 2 t4 + e (e = 0, 1)
+      float mx = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = sc[nt][e] * scale;
+          if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+          sc[nt][e] = x;
+          if (j0 + 8 * nt + 2 * t4 + e < nk) mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m, flash_mma::quad_max(mx));
+      const float alpha = expf(m - m_new);
+      float p[2][2], sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[nt][e] = j0 + 8 * nt + 2 * t4 + e < nk
+                         ? expf(sc[nt][e] - m_new) : 0.f;
+          sum += p[nt][e];
+        }
+      l = l * alpha + flash_mma::quad_sum(sum);
+      m = m_new;
+      const unsigned pa[4] = {flash_mma::pack_bf16(p[0][0], p[0][1]), 0u,
+                              flash_mma::pack_bf16(p[1][0], p[1][1]), 0u};
+      // V's B fragments: keys j0 + lane % 16, dims (lane / 16) * 8 ..
+      const bf16* vp = vb + (j0 + (lane & 15)) * rs + (lane >> 4) * 8;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; nt += 2) {
+        acc[nt][0] *= alpha;
+        acc[nt][1] *= alpha;
+        acc[nt + 1][0] *= alpha;
+        acc[nt + 1][1] *= alpha;
+        unsigned bb[4];
+        ldsm_x4_trans(bb, vp + nt * 8);
+        mma_bf16(acc[nt], pa, bb);
+        mma_bf16(acc[nt + 1], pa, bb + 2);
+      }
+    }
+  }
+
+  __device__ void write(float* w_ml, float* w_acc, int g_n, int, int warp,
+                        int) const {
+    const int g = lane >> 2, t4 = lane & 3;
+    if (g >= g_n) return;
+    if (t4 == 0) {
+      w_ml[(warp * g_n + g) * 2] = m;
+      w_ml[(warp * g_n + g) * 2 + 1] = l;
+    }
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      w_acc[(warp * g_n + g) * D + 8 * nt + 2 * t4] = acc[nt][0];
+      w_acc[(warp * g_n + g) * D + 8 * nt + 2 * t4 + 1] = acc[nt][1];
+    }
+  }
+};
+
+// WALK: CoreWalk or MmaWalk; MMA: whether it is MmaWalk (stages of a
+// multiple of 16 keys, tails zero-filled).
+template <typename T, typename WALK, bool MMA>
+__global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ block_tables,
                     const int* __restrict__ lengths, T* __restrict__ out,
-                    float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int hkv, int g_n, int d, int page, int width, int n_pool,
-                    float scale, int window, float softcap) {
-  const int h = blockIdx.x;
+                    float scale, int window, float softcap,
+                    int region_bytes) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.x / kRanks;
   const int b = blockIdx.y;
-  const int split = blockIdx.z;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int e0 = lane * EPL;  // this lane's head_dim elements [e0, e0+EPL)
-  const bool lane_on = e0 < d;
-
   const long long row0 = ((long long)b * hkv + h) * g_n;  // first q row
-  float qr[G_MAX][EPL];
-  float acc[G_MAX][EPL];
-  float m[G_MAX], l[G_MAX];
-#pragma unroll
-  for (int g = 0; g < G_MAX; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) qr[g][e] = acc[g][e] = 0.f;
-    if (g < g_n && lane_on) load_n<T, EPL>(q + (row0 + g) * d + e0, qr[g]);
-  }
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* r_ml = reinterpret_cast<float*>(smem_raw + region_bytes);  // G x 2
+  float* r_acc = r_ml + g_n * 2;                                    // G x D
+  int* phys_s = reinterpret_cast<int*>(r_acc + g_n * d);            // width
 
-  // This CTA's valid key positions: [lo, hi).  64-bit so that a global
-  // layer's window of INT32_MAX cannot overflow.
+  // The slot's page ids into shared memory, read together with its length
+  // (one round trip to device memory, not two): the copies then wait on no
+  // global table load.
+  const int* table = block_tables + (long long)b * width;
+  for (int i = threadIdx.x; i < width; i += kThreads)
+    phys_s[i] = min(max(table[i], 0), n_pool - 1);
+
+  // The slot's live keys [lo, hi) (64-bit so that a global layer's window
+  // of INT32_MAX cannot overflow) and this rank's share [r_lo, r_hi).
   const int length = lengths[b];
   const long long lo64 = (long long)length - (long long)window;
-  const int lo = max(lo64 > 0 ? (int)lo64 : 0, split * kSplitKeys);
-  const int hi = min(min(length, width * page), (split + 1) * kSplitKeys);
+  const int lo = lo64 > 0 ? (int)lo64 : 0;
+  const int hi = min(length, width * page);
+  const int n = max(hi - lo, 0);
+  const int share = (n + kRanks - 1) / kRanks;
+  const int r_lo = lo + rank * share;
+  const int n_mine = max(min(hi, r_lo + share) - r_lo, 0);
 
-  // The split's page ids, once, into shared memory: the key loop then
-  // waits on no global table load.
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* phys_s = reinterpret_cast<int*>(smem_raw);  // kSplitKeys + 1
-  const int first_page = lo / page;
-  if (lo < hi) {
-    const int* row = block_tables + (long long)b * width;
-    for (int i = threadIdx.x; i <= (hi - 1) / page - first_page;
-         i += kThreads)
-      phys_s[i] = min(max(row[first_page + i], 0), n_pool - 1);
-  }
+  const int row_bytes = d * (int)sizeof(T);
+  const int rs = row_bytes + kPad;      // bytes between shared-memory rows
+  const int stage_keys = stage_keys_of(row_bytes, MMA);
+  const int n_stages = (n_mine + stage_keys - 1) / stage_keys;
+  const int chunks = row_bytes / 16;   // 16-byte pieces of a K or V row
   __syncthreads();
 
-  for (int t0 = lo + warp * kBatch; t0 < hi; t0 += kWarps * kBatch) {
-    // lane j < kBatch finds the row offset of key t0 + j
-    long long off = 0;
-    if (lane < kBatch && t0 + lane < hi) {
-      const int pos = t0 + lane;
-      const int phys = phys_s[pos / page - first_page];
-      off = (((long long)phys * page + pos % page) * hkv + h) * d;
+  // Stage s's K and V rows -> buffer s % kStages, one commit group; on
+  // tensor cores the rows up to the next multiple of 16 are zero-filled.
+  auto issue = [&](int s) {
+    unsigned char* kb = smem_raw + (s % kStages) * 2 * kStageBytes;
+    unsigned char* vb = kb + kStageBytes;
+    const int t0 = r_lo + s * stage_keys;
+    const int nk = min(stage_keys, n_mine - s * stage_keys);
+    const int rows = MMA ? (nk + kMmaKeys - 1) / kMmaKeys * kMmaKeys : nk;
+    for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
+      const int t = i / chunks;
+      const int c = i - t * chunks;
+      const int pos = t0 + min(t, nk - 1);
+      const int phys = phys_s[pos / page];
+      const long long off =
+          (((long long)phys * page + pos % page) * hkv + h) * d;
+      const int bytes = t < nk ? 16 : 0;
+      flash_mma::cp_async16(kb + t * rs + c * 16,
+                            reinterpret_cast<const unsigned char*>(
+                                k_pages + off) + c * 16, bytes);
+      flash_mma::cp_async16(vb + t * rs + c * 16,
+                            reinterpret_cast<const unsigned char*>(
+                                v_pages + off) + c * 16, bytes);
     }
-    float kx[kBatch][EPL], vx[kBatch][EPL];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const long long oj = __shfl_sync(0xffffffffu, off, j);
-      if (t0 + j < hi && lane_on) {
-        load_n<T, EPL>(k_pages + oj + e0, kx[j]);
-        load_n<T, EPL>(v_pages + oj + e0, vx[j]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) kx[j][e] = vx[j][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G_MAX; ++g) {
-      if (g >= g_n) break;
-      float s[kBatch];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) part += qr[g][e] * kx[j][e];
-        s[j] = warp_sum(part) * scale;
-        if (softcap > 0.f) s[j] = tanhf(s[j] / softcap) * softcap;
-        if (t0 + j < hi) mx = fmaxf(mx, s[j]);
-      }
-      const float m_new = fmaxf(m[g], mx);
-      const float alpha = expf(m[g] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const float p = t0 + j < hi ? expf(s[j] - m_new) : 0.f;
-        sum += p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] += p * vx[j][e];
-      }
-      l[g] = l[g] * alpha + sum;
-      m[g] = m_new;
-    }
+    flash_mma::cp_async_commit();
+  };
+  for (int s = 0; s < kStages && s < n_stages; ++s) issue(s);
+
+  WALK walk;
+  walk.init(q, row0, g_n, d, lane, n_mine > 0);
+  for (int s = 0; s < n_stages; ++s) {
+    if (s + 1 < n_stages)
+      flash_mma::cp_async_wait<1>();
+    else
+      flash_mma::cp_async_wait<0>();
+    __syncthreads();
+    const T* kb =
+        reinterpret_cast<const T*>(smem_raw + (s % kStages) * 2 * kStageBytes);
+    const T* vb = kb + kStageBytes / sizeof(T);
+    walk.stage(kb, vb, rs / (int)sizeof(T),
+               min(stage_keys, n_mine - s * stage_keys), g_n, warp, scale,
+               softcap);
+    __syncthreads();   // the buffer is the stage after next's
+    if (s + kStages < n_stages) issue(s + kStages);
   }
 
-  // Merge the warps' states: (m, l) per warp and query, then acc.
-  float* ml_s = reinterpret_cast<float*>(phys_s + kSplitKeys + 1);
-  float* acc_s = ml_s + kWarps * g_n * 2;            // kWarps * G * D
-#pragma unroll
-  for (int g = 0; g < G_MAX; ++g) {
-    if (g >= g_n) break;
-    if (lane == 0) {
-      ml_s[(warp * g_n + g) * 2] = m[g];
-      ml_s[(warp * g_n + g) * 2 + 1] = l[g];
-    }
-    if (lane_on) {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e)
-        acc_s[(warp * g_n + g) * d + e0 + e] = acc[g][e];
-    }
-  }
+  // The warps' states meet in the stage region, in warp order: the rank's
+  // (m, l) per query and its unnormalized accumulator.
+  float* w_ml = reinterpret_cast<float*>(smem_raw);   // kWarps x G x 2
+  float* w_acc = w_ml + kWarps * g_n * 2;             // kWarps x G x D
+  walk.write(w_ml, w_acc, g_n, d, warp, lane);
   __syncthreads();
-  const long long rows = (long long)gridDim.y * hkv * g_n;
   for (int i = threadIdx.x; i < g_n * d; i += kThreads) {
     const int g = i / d;
     const int dd = i - g * d;
     float mm = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, ml_s[(w * g_n + g) * 2]);
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, w_ml[(w * g_n + g) * 2]);
     float ll = 0.f, aa = 0.f;
     for (int w = 0; w < kWarps; ++w) {
-      const float wt = expf(ml_s[(w * g_n + g) * 2] - mm);
-      ll += ml_s[(w * g_n + g) * 2 + 1] * wt;
-      aa += acc_s[(w * g_n + g) * d + dd] * wt;
+      const float wt = expf(w_ml[(w * g_n + g) * 2] - mm);
+      ll += w_ml[(w * g_n + g) * 2 + 1] * wt;
+      aa += w_acc[(w * g_n + g) * d + dd] * wt;
     }
-    if (gridDim.z == 1) {
-      store_val(out + (row0 + g) * d + dd, aa / fmaxf(ll, 1e-30f));
-    } else {
-      const long long prow = (long long)split * rows + row0 + g;
-      part_acc[prow * d + dd] = aa;
-      if (dd == 0) {
-        part_ml[prow * 2] = mm;
-        part_ml[prow * 2 + 1] = ll;
-      }
+    r_acc[i] = aa;
+    if (dd == 0) {
+      r_ml[g * 2] = mm;
+      r_ml[g * 2 + 1] = ll;
     }
   }
+
+  // Rank 0 merges the ranks that hold keys, in rank order, through
+  // distributed shared memory; the others wait until it has read them.
+  cluster.sync();
+  if (rank == 0) {
+    const int live = share > 0 ? (n + share - 1) / share : 1;
+    for (int i = threadIdx.x; i < g_n * d; i += kThreads) {
+      const int g = i / d;
+      // every rank's state read first, so the remote loads are in flight
+      // together
+      float mr[kRanks], lr[kRanks], ar[kRanks];
+#pragma unroll
+      for (int r = 0; r < kRanks; ++r) {
+        mr[r] = kNegInf;
+        lr[r] = ar[r] = 0.f;
+        if (r < live) {
+          const float* ml = cluster.map_shared_rank(r_ml, r);
+          mr[r] = ml[g * 2];
+          lr[r] = ml[g * 2 + 1];
+          ar[r] = cluster.map_shared_rank(r_acc, r)[i];
+        }
+      }
+      float mm = kNegInf;
+#pragma unroll
+      for (int r = 0; r < kRanks; ++r) mm = fmaxf(mm, mr[r]);
+      float ll = 0.f, aa = 0.f;
+#pragma unroll
+      for (int r = 0; r < kRanks; ++r) {
+        if (r >= live) break;
+        const float wt = expf(mr[r] - mm);
+        ll += lr[r] * wt;
+        aa += ar[r] * wt;
+      }
+      store_val(out + row0 * d + i, aa / fmaxf(ll, 1e-30f));
+    }
+  }
+  cluster.sync();
 }
 
-int decode_splits(int width, int page) {
-  return (width * page + kSplitKeys - 1) / kSplitKeys;
-}
-
-template <typename T, int G_MAX, int EPL>
+template <typename T, typename WALK, bool MMA>
 int launch_decode(const void* q, const void* k_pages, const void* v_pages,
                   const int* block_tables, const int* lengths, void* out,
-                  void* part_acc, void* part_ml, int batch, int hkv, int g_n,
-                  int d, int page, int width, int n_pool, float scale,
-                  int window, float softcap, cudaStream_t stream) {
+                  int batch, int hkv, int g_n, int d, int page, int width,
+                  int n_pool, float scale, int window, float softcap,
+                  cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
-  const size_t smem = sizeof(int) * (kSplitKeys + 1) +
-                      sizeof(float) * kWarps * g_n * (2 + (size_t)d);
+  const size_t smem = smem_bytes(g_n, d, width);
   const cudaError_t e =
-      allow_smem(paged_decode_kernel<T, G_MAX, EPL>, smem, &opted_in);
+      allow_smem(paged_decode_kernel<T, WALK, MMA>, smem, &opted_in);
   if (e != cudaSuccess) return (int)e;
-  const int n_split = decode_splits(width, page);
-  const dim3 grid(hkv, batch, n_split);
-  paged_decode_kernel<T, G_MAX, EPL><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(kRanks * hkv, batch);
+  paged_decode_kernel<T, WALK, MMA><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), block_tables, lengths,
-      static_cast<T*>(out), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), hkv, g_n, d, page, width, n_pool, scale,
-      window, softcap);
-  if (n_split > 1) {
-    const int rows = batch * hkv * g_n;
-    combine_kernel<T><<<rows, kThreads, 0, stream>>>(
-        static_cast<const float*>(part_acc),
-        static_cast<const float*>(part_ml), static_cast<T*>(out), rows, d,
-        n_split);
-  }
+      static_cast<T*>(out), hkv, g_n, d, page, width, n_pool, scale, window,
+      softcap, (int)stage_region(g_n, d));
   return (int)cudaGetLastError();
 }
 
@@ -236,18 +475,25 @@ int lane_elems(int d) {
   return epl;
 }
 
+// The kernel family: 1 (tensor cores: bf16 at D 64, 128 or 256), else 0
+// (CUDA cores).
+int variant(int dtype, int d) {
+  return dtype == 1 && (d == 64 || d == 128 || d == 256) ? 1 : 0;
+}
+
+#define REPRO_DECODE_ARGS                                                   \
+  q, k_pages, v_pages, block_tables, lengths, out, batch, hkv, g_n, d,      \
+      page, width, n_pool, scale, window, softcap, stream
+
 template <typename T, int G_MAX>
 int dispatch_epl(const void* q, const void* k_pages, const void* v_pages,
                  const int* block_tables, const int* lengths, void* out,
-                 void* part_acc, void* part_ml, int batch, int hkv, int g_n,
-                 int d, int page, int width, int n_pool, float scale,
-                 int window, float softcap, cudaStream_t stream) {
+                 int batch, int hkv, int g_n, int d, int page, int width,
+                 int n_pool, float scale, int window, float softcap,
+                 cudaStream_t stream) {
 #define REPRO_DECODE_EPL(N)                                                 \
   if (lane_elems(d) == N)                                                   \
-    return launch_decode<T, G_MAX, N>(q, k_pages, v_pages, block_tables,    \
-                                      lengths, out, part_acc, part_ml,      \
-                                      batch, hkv, g_n, d, page, width,      \
-                                      n_pool, scale, window, softcap, stream);
+    return launch_decode<T, CoreWalk<T, G_MAX, N>, false>(REPRO_DECODE_ARGS);
   REPRO_DECODE_EPL(1)
   REPRO_DECODE_EPL(2)
   REPRO_DECODE_EPL(4)
@@ -259,53 +505,54 @@ int dispatch_epl(const void* q, const void* k_pages, const void* v_pages,
 template <typename T>
 int dispatch(const void* q, const void* k_pages, const void* v_pages,
              const int* block_tables, const int* lengths, void* out,
-             void* part_acc, void* part_ml, int batch, int hkv, int g_n,
-             int d, int page, int width, int n_pool, float scale, int window,
-             float softcap, cudaStream_t stream) {
-  if (g_n <= 2)
-    return dispatch_epl<T, 2>(q, k_pages, v_pages, block_tables, lengths,
-                              out, part_acc, part_ml, batch, hkv, g_n, d,
-                              page, width, n_pool, scale, window, softcap,
-                              stream);
-  return dispatch_epl<T, kMaxG>(q, k_pages, v_pages, block_tables, lengths,
-                                out, part_acc, part_ml, batch, hkv, g_n, d,
-                                page, width, n_pool, scale, window, softcap,
-                                stream);
+             int batch, int hkv, int g_n, int d, int page, int width,
+             int n_pool, float scale, int window, float softcap,
+             cudaStream_t stream) {
+  if (g_n <= 2) return dispatch_epl<T, 2>(REPRO_DECODE_ARGS);
+  return dispatch_epl<T, kMaxG>(REPRO_DECODE_ARGS);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Limits and scratch sizes the wrapper reads before it launches.
+// Limits the wrapper reads before it launches.
 int paged_decode_max_g() { return kMaxG; }
 int paged_decode_max_d() { return 32 * kMaxEpl; }
-int paged_decode_splits(int width, int page) {
-  return decode_splits(width, page);
-}
+int paged_decode_variant(int dtype, int d) { return variant(dtype, d); }
 
 // dtype: 0 = float32, 1 = bfloat16.  softcap <= 0 means no softcap; a
-// window of INT32_MAX means a global layer.  part_acc (n_split, B*Hq, D) and
-// part_ml (n_split, B*Hq, 2) are f32 scratch, unused when n_split == 1.
-// Returns cudaGetLastError().
+// window of INT32_MAX means a global layer.  Returns cudaGetLastError().
 int paged_decode(int dtype, const void* q, const void* k_pages,
                  const void* v_pages, const int* block_tables,
-                 const int* lengths, void* out, void* part_acc, void* part_ml,
-                 int batch, int hkv, int g_n, int d, int page, int width,
-                 int n_pool, float scale, int window, float softcap,
-                 void* stream) {
+                 const int* lengths, void* out, int batch, int hkv, int g_n,
+                 int d, int page, int width, int n_pool, float scale,
+                 int window, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g_n < 1 || g_n > kMaxG || d > 32 * kMaxEpl || d % lane_elems(d))
+  if (g_n < 1 || g_n > kMaxG || d > 32 * kMaxEpl || d % lane_elems(d) ||
+      (d * (dtype == 0 ? 4 : 2)) % 16)
     return (int)cudaErrorInvalidValue;
+  if (batch == 0 || hkv == 0) return 0;
+  using bf16 = __nv_bfloat16;
+  if (variant(dtype, d) == 1) {
+    if (d == 64) return launch_decode<bf16, MmaWalk<64>, true>(
+        q, k_pages, v_pages, block_tables, lengths, out, batch, hkv, g_n, d,
+        page, width, n_pool, scale, window, softcap, s);
+    if (d == 128) return launch_decode<bf16, MmaWalk<128>, true>(
+        q, k_pages, v_pages, block_tables, lengths, out, batch, hkv, g_n, d,
+        page, width, n_pool, scale, window, softcap, s);
+    return launch_decode<bf16, MmaWalk<256>, true>(
+        q, k_pages, v_pages, block_tables, lengths, out, batch, hkv, g_n, d,
+        page, width, n_pool, scale, window, softcap, s);
+  }
   if (dtype == 0)
     return dispatch<float>(q, k_pages, v_pages, block_tables, lengths, out,
-                           part_acc, part_ml, batch, hkv, g_n, d, page, width,
-                           n_pool, scale, window, softcap, s);
+                           batch, hkv, g_n, d, page, width, n_pool, scale,
+                           window, softcap, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k_pages, v_pages, block_tables,
-                                   lengths, out, part_acc, part_ml, batch,
-                                   hkv, g_n, d, page, width, n_pool, scale,
-                                   window, softcap, s);
+    return dispatch<bf16>(q, k_pages, v_pages, block_tables, lengths, out,
+                          batch, hkv, g_n, d, page, width, n_pool, scale,
+                          window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }
 

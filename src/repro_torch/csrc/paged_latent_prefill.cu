@@ -1,10 +1,10 @@
 // Paged MLA latent chunked-prefill attention for Hopper (sm_90a).
 //
-// Replaces src/repro/kernels/attention/attention.py:paged_latent_prefill_pallas
-// (body _paged_latent_prefill_kernel): one slot's C-token chunk at global
-// positions [start, start + C), all H heads, against the head-free latent
-// pools of the slot's block row, under the GLOBAL causal mask (which also
-// masks stale and future page contents).
+// Replaces src/repro/kernels/attention/attention.py:270
+// paged_latent_prefill_pallas (body _paged_latent_prefill_kernel): one
+// slot's C-token chunk at global positions [start, start + C), all H
+// heads, against the head-free latent pools of the slot's block row, under
+// the GLOBAL causal mask (which also masks stale and future page contents).
 //
 // q_lat (C, H, kv_lora), q_rope (C, H, qk_rope)    (the model's (1, C, H, .))
 // ckv   (n_pool, page, kv_lora), kr (n_pool, page, qk_rope)
@@ -13,22 +13,52 @@
 //
 // The TPU kernel folds the heads into its q-block rows (bq * H rows with
 // bq = 128 / H, a single position at H = 128) and walks every page of the
-// row.  Here the C * H (position, head) rows are the query rows of the
-// shared latent tile walk in paged_latent_common.cuh, 16 consecutive rows
-// per CTA (16 heads of one position at full width), each CTA walking only
-// the keys up to its last row's position.  A full-width chunk (C = 128,
-// H = 128) gives 1,024 CTAs, so it needs no key split; a small chunk is
-// split over keys and merged like decode.  The chunk is about 34 GFLOP at
-// start 896, bound by the products: bf16 runs them on tensor cores.
+// row.  Here the C * H (position, head) rows are the query rows of a
+// latent tile walk, each CTA walking only the keys up to its last row's
+// position.  The chunk is about 34 GFLOP at deepseek-v2's serving shape
+// (C 128 at start 896, H 128), bound by the products.  Three families, by
+// the shapes (paged_latent_prefill_variant names the one a call takes):
+//  * "wgmma" (bf16 at kv_lora 512, qk_rope 64, pages of a multiple of 64):
+//    64-row blocks on wgmma with TMA loads, paged_latent_wgmma.cuh;
+//  * "mma_sync" (other bf16 widths the m16n8k16 tiles divide) and
+//    "cuda_cores" (float32 and the rest): the 16-row walk shared with the
+//    decode kernel, paged_latent_common.cuh.
+// A chunk too short to fill the card splits its keys, and a merge kernel
+// adds the splits up in split order.
 
 #include "paged_latent_common.cuh"
+#include "paged_latent_wgmma.cuh"
+
+namespace {
+
+enum Variant { kCudaCores = 0, kMmaSync = 1, kWgmma = 2 };
+
+// The family latent::launch or latent_wgmma::launch takes for the shape.
+int variant(int dtype, int kv, int rope, int page) {
+  if (latent_wgmma::takes(dtype, kv, rope, page)) return kWgmma;
+  if (dtype == 1 && (kv == 64 || kv == 128 || kv == 256 || kv == 512) &&
+      (kv + rope) % 16 == 0)
+    return kMmaSync;
+  return kCudaCores;
+}
+
+}  // namespace
 
 extern "C" {
 
 // Limits and scratch sizes the wrapper reads before it launches.
 int paged_latent_prefill_max_kv() { return 32 * latent::kMaxEpl; }
 int paged_latent_prefill_max_feat() { return latent::kMaxFeat; }
-int paged_latent_prefill_splits(int width, int page, int chunk, int heads) {
+int paged_latent_prefill_variant(int dtype, int kv, int rope, int page) {
+  return variant(dtype, kv, rope, page);
+}
+int paged_latent_prefill_splits(int dtype, int kv, int rope, int width,
+                                int page, int chunk, int heads, int start) {
+  if (variant(dtype, kv, rope, page) == kWgmma) {
+    int n_split, split_keys;
+    latent_wgmma::splits(start, chunk, heads, &n_split, &split_keys);
+    return n_split;
+  }
   return latent::splits(
       width, page, (chunk * heads + latent::kRows - 1) / latent::kRows);
 }
@@ -42,6 +72,11 @@ int paged_latent_prefill(int dtype, const void* q_lat, const void* q_rope,
                          void* part_ml, int chunk, int heads, int kv,
                          int rope, int page, int width, int n_pool,
                          int start, float scale, void* stream) {
+  if (variant(dtype, kv, rope, page) == kWgmma)
+    return latent_wgmma::launch(q_lat, q_rope, ckv, kr, block_row, out,
+                                part_acc, part_ml, chunk, heads, page, width,
+                                n_pool, start, scale,
+                                static_cast<cudaStream_t>(stream));
   return latent::launch<true>(dtype, q_lat, q_rope, ckv, kr, block_row,
                               nullptr, out, part_acc, part_ml, 1,
                               chunk * heads, heads, kv, rope, page, width,

@@ -28,8 +28,11 @@ Paged serving: ``paged_flash_decode`` replaces
 ``paged_latent_decode_pallas`` and ``paged_latent_prefill_pallas``
 (``csrc/paged_decode.cu``, ``csrc/paged_prefill.cu``,
 ``csrc/paged_latent_decode.cu`` and ``csrc/paged_latent_prefill.cu``).
-``paged_flash_prefill`` counts its launches by family in ``variants`` too
-(``"mma_sync"``: bf16 on tensor cores; ``"cuda_cores"``).
+``paged_flash_prefill``, ``paged_flash_decode`` and
+``paged_latent_prefill`` count their launches by family in ``variants``
+too (prefill ``"mma_sync"``: bf16 on tensor cores, ``"cuda_cores"``;
+decode ``"mma_sync"``, ``"cuda_cores"``; latent prefill ``"wgmma"``,
+``"mma_sync"``, ``"cuda_cores"``).
 
 The kernels are CUDA C++ for ``sm_90a``, built by ``kernels.build`` at
 first use and called through their plain C interface with ``ctypes``.
@@ -101,6 +104,12 @@ def _scratch(n_split: int, rows: int, d: int, device: torch.device
 
 # paged_prefill's kernel families, numbered as in csrc/paged_prefill.cu
 PREFILL_VARIANTS = ("cuda_cores", "mma_sync")
+# paged_decode's, as csrc/paged_decode.cu numbers them (both one cluster
+# of CTAs per slot and kv head)
+DECODE_VARIANTS = ("cuda_cores", "mma_sync")
+# The kernel families of the dense flash libraries and of
+# paged_latent_prefill, by the number their ``<lib>_variant`` returns.
+FLASH_VARIANTS = ("cuda_cores", "mma_sync", "wgmma")
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -146,7 +155,10 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     q: (B, 1, Hq, D) contiguous, float32 or bfloat16 (read as
     (B, Hkv, G, D)); k_pages/v_pages: (n_pool, page, Hkv, D) one layer's
     pools; block_tables: (B, width) int32; lengths: (B,) int32 valid
-    positions.  Returns (B, 1, Hq, D) in q's dtype.
+    positions.  Returns (B, 1, Hq, D) in q's dtype.  One launch per
+    call, a cluster of CTAs per slot and kv head; ``variants`` counts it
+    by the family of its per-warp walk: ``"mma_sync"`` (bf16 at D 64, 128
+    or 256, on tensor cores) or ``"cuda_cores"`` (the rest).
     """
     if not q.is_cuda:
         from repro_torch.kernels.attention import ops
@@ -168,27 +180,27 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                          f"batch {b}")
     width = block_tables.shape[1]
     out = torch.empty_like(q)
-    n_split = _fn("paged_decode", "paged_decode_splits", (_I, _I))(width,
-                                                                   page)
-    part_acc, part_ml = _scratch(n_split, b * hq, d, q.device)
     fn = _fn("paged_decode", "paged_decode",
-             (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-              _I, _F, _I, _F, _P))
+             (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+              _F, _P))
     with torch.cuda.device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
                  v_pages.data_ptr(), block_tables.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), _ptr(part_acc),
-                 _ptr(part_ml), b, hkv, hq // hkv, d,
+                 lengths.data_ptr(), out.data_ptr(), b, hkv, hq // hkv, d,
                  page, width, n_pool, float(scale), _window(window),
                  _softcap(logit_cap),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
     paged_flash_decode.launches += 1
+    paged_flash_decode.variants[DECODE_VARIANTS[_fn(
+        "paged_decode", "paged_decode_variant", (_I, _I))(
+            _DTYPES[q.dtype], d)]] += 1
     return out
 
 
 paged_flash_decode.launches = 0
+paged_flash_decode.variants = collections.Counter()
 
 
 def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
@@ -347,7 +359,10 @@ def paged_latent_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
     q_lat (1, C, H, kv_lora) and q_rope (1, C, H, qk_rope) contiguous at
     global positions [start, start+C); latent pools as for decode;
     block_row (width,) int32 covering the chunk; ``start`` a host int.
-    Returns (1, C, H, kv_lora) in q's dtype.
+    Returns (1, C, H, kv_lora) in q's dtype.  Counts its launches by
+    kernel family in ``variants``: ``"wgmma"`` (bf16 at kv_lora 512,
+    qk_rope 64 and pages of a multiple of 64), ``"mma_sync"`` (other bf16
+    widths the tensor-core tiles divide) or ``"cuda_cores"``.
     """
     if not q_lat.is_cuda:
         from repro_torch.kernels.attention import ops
@@ -368,12 +383,14 @@ def paged_latent_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
         raise ValueError(f"chunk [{start}, {start + c}) is not covered by "
                          f"a block row of {width} pages of {page}")
     out = torch.empty_like(q_lat)
-    n_split = _fn(lib, f"{lib}_splits", (_I, _I, _I, _I))(width, page, c, h)
+    dtype = _DTYPES[q_lat.dtype]
+    n_split = _fn(lib, f"{lib}_splits", (_I,) * 8)(dtype, kv, rope, width,
+                                                   page, c, h, start)
     part_acc, part_ml = _scratch(n_split, c * h, kv, q_lat.device)
     fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _F, _P))
     with torch.cuda.device(q_lat.device):
-        err = fn(_DTYPES[q_lat.dtype], q_lat.data_ptr(), q_rope.data_ptr(),
+        err = fn(dtype, q_lat.data_ptr(), q_rope.data_ptr(),
                  ckv_pages.data_ptr(), kr_pages.data_ptr(),
                  block_row.data_ptr(), out.data_ptr(), _ptr(part_acc),
                  _ptr(part_ml), c, h, kv, rope, page, width, n_pool, start,
@@ -382,19 +399,19 @@ def paged_latent_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if err:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     paged_latent_prefill.launches += 1
+    paged_latent_prefill.variants[FLASH_VARIANTS[_fn(
+        lib, f"{lib}_variant", (_I,) * 4)(dtype, kv, rope, page)]] += 1
     return out
 
 
 paged_latent_prefill.launches = 0
+paged_latent_prefill.variants = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
 # Dense flash attention (training path)
 # ---------------------------------------------------------------------------
 
-# The kernel families of the dense flash libraries, by the number their
-# ``<lib>_variant(dtype, d)`` returns.
-FLASH_VARIANTS = ("cuda_cores", "mma_sync", "wgmma")
 
 
 def _flash_variant(lib: str, dtype: torch.dtype, d: int) -> str:

@@ -60,31 +60,50 @@ def _err(a, b):
 
 @pytest.mark.parametrize("dtype,atol", DTYPES)
 @pytest.mark.parametrize("kw", DECODE_KW)
-@pytest.mark.parametrize("geom", ["prime", "splits"])
+@pytest.mark.parametrize("geom", ["prime", "splits", "g8_d256", "g8_d64"])
 def test_decode_kernel_matches_plain(cuda, dtype, atol, kw, geom):
-    """A prime pool of 4-position pages, and 64-position pages whose
-    512-position tables span two key splits (one slot past its table)."""
+    """A prime pool of 4-position pages; 64-position pages whose
+    512-position tables span the eight ranks of a slot's cluster (one slot
+    past its table); G 8 at D 256 (gemma2's decode) and at D 64, with a
+    zero-length slot, which writes zeros.  One launch of the variant the
+    library names (bf16 at D 64, 128 and 256 on tensor cores), bitwise the
+    same over two calls."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     if geom == "prime":
         b, hq, hkv, d, page, n_pool = 3, 4, 2, 16, 4, 13
         bt = torch.tensor([[0, 3, 5, 7], [1, 2, 4, 6], [8, 9, 10, 11]])
         lens = torch.tensor([5, 16, 1])
-    else:
+    elif geom == "splits":
         b, hq, hkv, d, page, n_pool = 3, 16, 8, 128, 64, 25
         bt = torch.randperm(24)[:24].reshape(3, 8)
         lens = torch.tensor([300, 511, 512])
+    else:
+        hq, hkv, d = (16, 2, 256) if geom == "g8_d256" else (8, 1, 64)
+        b, page, n_pool = 3, 16, 29
+        bt = torch.randperm(28)[:24].reshape(3, 8)
+        lens = torch.tensor([0, 77, 128])
     bt = bt.to(cuda, torch.int32)
     lens = lens.to(cuda, torch.int32)
     q = _rand(gen, b, 1, hq, d, dtype=dtype)
     kp = _rand(gen, n_pool, page, hkv, d, dtype=dtype)
     vp = _rand(gen, n_pool, page, hkv, d, dtype=dtype)
-    before = K.paged_flash_decode.launches
+    before = (K.paged_flash_decode.launches,
+              K.paged_flash_decode.variants.copy())
     got = ops.paged_decode_attention(q, kp, vp, bt, lens, **kw)
     torch.cuda.synchronize()
-    assert K.paged_flash_decode.launches == before + 1
+    assert K.paged_flash_decode.launches == before[0] + 1
+    variant = ("mma_sync" if dtype == torch.bfloat16 and d in (64, 128, 256)
+               else "cuda_cores")
+    assert K.paged_flash_decode.variants - before[1] == {variant: 1}
+    assert torch.equal(got, ops.paged_decode_attention(q, kp, vp, bt, lens,
+                                                       **kw))
     want = ops.paged_decode_attention(q, kp, vp, bt, lens, use_kernel=False,
                                       **kw)
-    assert _err(got, want) <= atol
+    # a slot with no valid key: zeros from the kernel, a uniform average of
+    # masked keys from the plain version
+    live = 1 if geom.startswith("g8") else 0
+    assert _err(got[live:], want[live:]) <= atol
+    assert not got[:live].any()
 
 
 @pytest.mark.parametrize("dtype,atol", DTYPES)
@@ -245,6 +264,49 @@ def test_latent_prefill_kernel_matches_plain(cuda, dtype, atol, h, kv, rope,
     want = ops.paged_latent_prefill_attention(*args, start, scale=scale,
                                               use_kernel=False)
     assert _err(got, want) <= atol
+
+
+# (dtype, h, kv, rope, page, the variant paged_latent_prefill takes)
+LATENT_VARIANT_CASES = [(torch.bfloat16, 3, 512, 64, 64, "wgmma"),
+                        (torch.bfloat16, 5, 512, 64, 128, "wgmma"),
+                        (torch.bfloat16, 64, 512, 64, 64, "wgmma"),
+                        (torch.bfloat16, 128, 512, 64, 128, "wgmma"),
+                        (torch.bfloat16, 5, 512, 64, 16, "mma_sync"),
+                        (torch.bfloat16, 5, 512, 32, 64, "mma_sync"),
+                        (torch.bfloat16, 5, 64, 16, 64, "mma_sync"),
+                        (torch.bfloat16, 5, 40, 16, 64, "cuda_cores"),
+                        (torch.float32, 5, 512, 64, 128, "cuda_cores")]
+
+
+@pytest.mark.parametrize("dtype,h,kv,rope,page,variant", LATENT_VARIANT_CASES)
+@pytest.mark.parametrize("c,start", [(37, 200), (9, 3), (128, 896)])
+def test_latent_prefill_takes_the_variant_the_library_names(
+        cuda, dtype, h, kv, rope, page, variant, c, start):
+    """deepseek-v2's widths (kv_lora 512, qk_rope 64) in bf16 take the
+    wgmma kernel: 64-row blocks that straddle positions (H 3, 5), blocks of
+    one position (H 64, 128), starts off the 64-key tile, short chunks
+    whose keys split; other pages and widths keep the mma.sync or CUDA-core
+    kernel.  Each within ATOL of the plain version and bitwise the same
+    over two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(c + h)
+    width = -(-(start + c) // page)
+    n_pool = width + 3
+    row = torch.randperm(n_pool, generator=gen, device=cuda)[:width]
+    args = (_rand(gen, 1, c, h, kv, dtype=dtype),
+            _rand(gen, 1, c, h, rope, dtype=dtype),
+            _rand(gen, n_pool, page, kv, dtype=dtype),
+            _rand(gen, n_pool, page, rope, dtype=dtype),
+            row.to(torch.int32))
+    scale = 1 / math.sqrt(kv + rope)
+    before = K.paged_latent_prefill.variants.copy()
+    got = K.paged_latent_prefill(*args, start, scale=scale)
+    torch.cuda.synchronize()
+    assert K.paged_latent_prefill.variants - before == {variant: 1}
+    assert torch.equal(got, K.paged_latent_prefill(*args, start,
+                                                   scale=scale))
+    want = ops.paged_latent_prefill_attention(*args, start, scale=scale,
+                                              use_kernel=False)
+    assert _err(got, want) <= dict(DTYPES)[dtype]
 
 
 def test_latent_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -31,6 +31,7 @@ from repro.kernels.attention import (paged_attention_ref,
                                      paged_latent_attention_ref,
                                      paged_latent_decode_attention,
                                      paged_latent_prefill_attention,
+                                     paged_latent_prefill_pallas,
                                      paged_latent_prefill_ref,
                                      paged_prefill_attention,
                                      paged_prefill_ref)
@@ -155,20 +156,30 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
 NEG_INF = -1e30
 
 
-def _online(states, sc, v):
-    """One tile of the online softmax: states (m, l, acc) per row."""
+def _online(states, sc, v, p_bf16=False):
+    """One tile of the online softmax: states (m, l, acc) per row; with
+    ``p_bf16`` the weights are rounded to bf16 for the value product (the
+    sums stay f32)."""
     m, l, acc = states
     m_new = torch.maximum(m, sc.max(-1).values)
     p = torch.exp(sc - m_new[:, None])
     alpha = torch.exp(m - m_new)
-    return m_new, l * alpha + p.sum(-1), acc * alpha[:, None] + p @ v
+    pv = (p.bfloat16().float() if p_bf16 else p) @ v
+    return m_new, l * alpha + p.sum(-1), acc * alpha[:, None] + pv
 
 
-def _merge(parts):
+def _combine(parts):
+    """Online-softmax states (m, l, acc) merged in the order given, still
+    unnormalized."""
     m = torch.stack([p[0] for p in parts]).max(0).values
     w = [torch.exp(p[0] - m) for p in parts]
     l = sum(p[1] * wi for p, wi in zip(parts, w))
     acc = sum(p[2] * wi[:, None] for p, wi in zip(parts, w))
+    return m, l, acc
+
+
+def _merge(parts):
+    _, l, acc = _combine(parts)
     return acc / torch.clamp(l, min=1e-30)[:, None]
 
 
@@ -177,37 +188,60 @@ def _softcap(sc, cap):
 
 
 def emulate_decode(q, kp, vp, bt, lens, *, window=None, logit_cap=None,
-                   warps=8, batch=8, split=128):
-    """csrc/paged_decode.cu: per (slot, kv head, key split) CTA, each warp
-    streams batches of ``batch`` keys (warp w takes batches w, w + warps,
-    ...) with its own online softmax; warps merge, then splits merge."""
+                   ranks=8, warps=4, stage_bytes=48 * (256 + 16)):
+    """csrc/paged_decode.cu: one cluster of ``ranks`` CTAs per (slot, kv
+    head).  Rank r takes keys [lo + r * share, lo + (r + 1) * share) of the
+    slot's n live keys [lo, hi), share = ceil(n / ranks), so a rank past
+    the range holds none; its keys pass through shared memory in stages of
+    ``stage_bytes`` of K (rows padded by 16 bytes; on tensor cores a
+    multiple of 16 keys), warp w taking steps w, w + warps, ... of each
+    stage (16 keys on tensor cores: bf16 at D 64, 128 or 256, weights
+    rounded to bf16 for the value product; else 8 keys, weights f32) with
+    its own online softmax; the warps' states merge in warp order, then
+    rank 0 merges the ranks that hold keys in rank order (a zero-length
+    slot: rank 0's empty state, zeros)."""
     b, _, hq, d = q.shape
     _, page, hkv, _ = kp.shape
     g, width = hq // hkv, bt.shape[1]
     window = INT32_MAX if window is None else window
     scale = 1 / math.sqrt(d)
-    out = torch.zeros_like(q)
+    mma = q.dtype == torch.bfloat16 and d in (64, 128, 256)
+    batch = 16 if mma else 8
+    stage_keys = stage_bytes // (d * q.element_size() + 16)
+    if mma:
+        stage_keys -= stage_keys % 16
+    qf, kf, vf = q.float(), kp.float(), vp.float()
+    out = torch.zeros(q.shape)
     for bi in range(b):
         length = int(lens[bi])
         lo, hi = max(0, length - window), min(length, width * page)
+        n = max(hi - lo, 0)
+        share = -(-n // ranks)
+        live = -(-n // share) if share else 1
         for h in range(hkv):
-            qh = q[bi, 0, h * g:(h + 1) * g]
-            parts = []
-            for s in range(-(-width * page // split)):
-                s_lo, s_hi = max(lo, s * split), min(hi, (s + 1) * split)
+            qh = qf[bi, 0, h * g:(h + 1) * g]
+            rank_states = []
+            for r in range(live):
+                r_lo = lo + r * share
+                r_hi = min(hi, r_lo + share)
+                warp_states = []
                 for w in range(warps):
                     st = (torch.full((g,), NEG_INF), torch.zeros(g),
                           torch.zeros(g, d))
-                    for t0 in range(s_lo + w * batch, s_hi, warps * batch):
-                        pos = torch.arange(t0, min(t0 + batch, s_hi))
-                        phys = bt[bi, pos // page].long()
-                        kt = kp[phys, pos % page, h]
-                        vt = vp[phys, pos % page, h]
-                        sc = _softcap(qh @ kt.T * scale, logit_cap)
-                        st = _online(st, sc, vt)
-                    parts.append(st)
-            out[bi, 0, h * g:(h + 1) * g] = _merge(parts)
-    return out
+                    for s0 in range(r_lo, r_hi, stage_keys):
+                        nk = min(stage_keys, r_hi - s0)
+                        for j0 in range(w * batch, nk, warps * batch):
+                            pos = torch.arange(s0 + j0,
+                                               s0 + min(j0 + batch, nk))
+                            phys = bt[bi, pos // page].long()
+                            kt = kf[phys, pos % page, h]
+                            vt = vf[phys, pos % page, h]
+                            sc = _softcap(qh @ kt.T * scale, logit_cap)
+                            st = _online(st, sc, vt, mma)
+                    warp_states.append(st)
+                rank_states.append(_combine(warp_states))
+            out[bi, 0, h * g:(h + 1) * g] = _merge(rank_states)
+    return out.to(q.dtype)
 
 
 def emulate_prefill(q, kp, vp, row, start, *, window=None, logit_cap=None,
@@ -249,25 +283,67 @@ def emulate_prefill(q, kp, vp, row, start, *, window=None, logit_cap=None,
     return out
 
 
-@pytest.mark.parametrize("kw", DECODE_KW + [{"window": 100}])
-def test_decode_kernel_walk_matches_plain(kw):
-    """Serving-test geometry, plus slots whose context spans two key
-    splits (a 512-position table) and one frozen past its table."""
-    q, kp, vp, bt, lens = _t(*_decode_case())
-    _close(emulate_decode(q, kp, vp, bt, lens, **kw),
-           ops.paged_decode_attention(q, kp, vp, bt, lens, **kw))
+def _decode_walk_case(geom):
+    """(q, k pool, v pool, tables, lengths) as numpy: the serving tests'
+    prime pool (G 2, D 16); 64-position pages whose 512-position tables
+    spread a slot over all eight ranks (one slot past its table); G 1 at
+    D 64 and G 8 at D 256 (gemma2's decode) with a zero-length slot."""
+    if geom == "prime":
+        return _decode_case()
     rng = np.random.default_rng(7)
-    q = torch.from_numpy(_rand(rng, 3, 1, 4, 16))
-    kp = torch.from_numpy(_rand(rng, 25, 64, 2, 16))
-    vp = torch.from_numpy(_rand(rng, 25, 64, 2, 16))
-    bt = torch.from_numpy(rng.permutation(24)[:24].reshape(3, 8)
-                          .astype(np.int32))
-    lens = torch.tensor([300, 511, 515], dtype=torch.int32)
+    b, hq, hkv, d, page, n_pages, lens = {
+        "ranks": (3, 4, 2, 16, 64, 25, [300, 511, 515]),
+        "g1_d64": (3, 2, 2, 64, 16, 29, [0, 77, 128]),
+        "g8_d256": (3, 16, 2, 256, 16, 29, [0, 77, 128])}[geom]
+    width = 8
+    bt = rng.permutation(n_pages - 1)[:b * width].reshape(b, width)
+    return (_rand(rng, b, 1, hq, d), _rand(rng, n_pages, page, hkv, d),
+            _rand(rng, n_pages, page, hkv, d), bt.astype(np.int32),
+            np.array(lens, np.int32))
+
+
+@pytest.mark.parametrize("kw", DECODE_KW + [{"window": 100}])
+@pytest.mark.parametrize("geom", ["prime", "ranks", "g1_d64", "g8_d256"])
+def test_decode_kernel_walk_matches_plain(kw, geom):
+    """The one-launch cluster walk (length-sized rank shares, empty ranks,
+    shared-memory stages, warp batches, the warp and rank-order merges)
+    against the plain version, on windows and softcaps (f32 atol 1e-5), and
+    against repro's Pallas kernel in interpret mode without a window or
+    softcap and with both.  A slot with no valid key (length 0, or a
+    window wholly past its table) writes zeros, the kernel's contract; the
+    plain version and the Pallas kernel average such a slot's masked keys
+    uniformly, so those slots are held to zeros instead."""
+    case = _decode_walk_case(geom)
+    q, kp, vp, bt, lens = _t(*case)
     got = emulate_decode(q, kp, vp, bt, lens, **kw)
-    want = ops.paged_decode_attention(q, kp, vp, bt, lens, **kw)
-    _close(got[:2], want[:2])
-    if "window" not in kw:   # past the table, no window: same keys
-        _close(got[2:], want[2:])
+    window = kw.get("window", INT32_MAX)
+    page, width = kp.shape[1], bt.shape[1]
+    live = (torch.clamp(lens, max=width * page)
+            - torch.clamp(lens - window, min=0)) > 0
+    if geom.startswith("g"):   # the zero-length slot
+        assert not live[0]
+    assert not got[~live].any()
+    _close(got[live], ops.paged_decode_attention(q, kp, vp, bt, lens,
+                                                 **kw)[live])
+    if kw in (DECODE_KW[0], DECODE_KW[3]):
+        jq = [jnp.asarray(x) for x in case]
+        want = paged_decode_attention(*jq, use_kernel=True, interpret=True,
+                                      **kw)
+        _close(got[live], np.asarray(want)[live.numpy()])
+
+
+def test_decode_walk_in_bf16_stages_twice_the_keys():
+    """bf16 rows are half as wide, so a stage holds twice the keys, and at
+    D 256 the tensor-core walk takes 16-key steps: the walk on bf16 inputs
+    against the plain version (bf16 tolerance 2e-2: the walk rounds the
+    unnormalized weights to bf16, the plain version the normalized ones)."""
+    q, kp, vp, bt, lens = (torch.from_numpy(x) for x in
+                           _decode_walk_case("g8_d256"))
+    q, kp, vp = (x.bfloat16() for x in (q, kp, vp))
+    got = emulate_decode(q, kp, vp, bt, lens, logit_cap=30.0)
+    want = ops.paged_decode_attention(q, kp, vp, bt, lens, logit_cap=30.0)
+    assert not got[0].any()   # the zero-length slot
+    _close(got[1:].float(), want[1:].float(), 2e-2)
 
 
 @pytest.mark.parametrize("kw", PREFILL_KW)
@@ -600,3 +676,138 @@ def test_latent_tensor_core_walk_matches_plain_in_bf16(start, c, h):
     want = ops.paged_latent_prefill_attention(ql, qr, ck, kr, row, start,
                                               scale=scale)
     _close(got.to(bf).float(), want.float().reshape(1, c * h, 64), 2e-2)
+
+
+def _latent_wgmma_splits(start, c, h, sms=132, rows=64, tile=64):
+    """csrc/paged_latent_wgmma.cuh's split rule: (n_split, split_keys)."""
+    blocks = -(-c * h // rows)
+    keys = start + c
+    split_keys = -(-keys // tile) * tile
+    if blocks < sms:
+        want = -(-sms // blocks)
+        split_keys = -(-(-(-keys // want)) // tile) * tile
+    return -(-keys // split_keys), split_keys
+
+
+def emulate_latent_wgmma(q_lat, q_rope, ckv, kr, row, start, *, scale,
+                         sms=132, rows_per_cta=64, tile=64):
+    """csrc/paged_latent_wgmma.cuh over the chunk's C * H rows (row r:
+    position r // H, head r % H): per (64-row block, key split) CTA, 64-key
+    tiles inside one page from the split's start to its last row's causal
+    limit, each row masked by its own limit (a block may straddle
+    positions); S in f32 from the bf16 operands, in the log2 domain; each
+    warpgroup's 32 keys give a row max, the two meet, and each keeps the
+    row sum of its own keys (added at the end, warpgroup 0's first); the
+    weights are rounded to bf16 before the value product, which each
+    warpgroup runs over its half of the value features; splits (when the
+    blocks do not fill ``sms`` processors) merge by their natural-log
+    maxima in split order."""
+    _, c, h, kv = q_lat.shape
+    page, width = ckv.shape[1], row.shape[0]
+    n_rows, half, wk = c * h, kv // 2, tile // 2
+    q = torch.cat([q_lat.float().reshape(n_rows, kv),
+                   q_rope.float().reshape(n_rows, -1)], -1)
+    ckf, krf = ckv.float(), kr.float()
+    n_split, split_keys = _latent_wgmma_splits(start, c, h, sms,
+                                               rows_per_cta, tile)
+    out = torch.zeros(n_rows, kv)
+    for r0 in range(0, n_rows, rows_per_cta):
+        r = torch.arange(r0, min(r0 + rows_per_cta, n_rows))
+        limit = start + r // h + 1
+        parts = []
+        for s in range(n_split):
+            lo = s * split_keys
+            hi = min(int(limit.max()), width * page, lo + split_keys)
+            lim = torch.clamp(limit, max=hi)
+            m = torch.full((len(r),), NEG_INF)
+            l_wg = torch.zeros(2, len(r))
+            acc = torch.zeros(len(r), kv)
+            for t0 in range(lo, hi, tile):
+                pos = torch.arange(t0, t0 + tile)
+                phys = int(row[t0 // page])
+                v = ckf[phys, pos % page]
+                key = torch.cat([v, krf[phys, pos % page]], -1)
+                x = q[r] @ key.T * (scale * LOG2E)
+                x = torch.where(pos[None, :] < lim[:, None], x, NEG_INF)
+                m_new = torch.maximum(m, x.max(-1).values)
+                alpha = torch.exp2(m - m_new)
+                p = torch.where(x <= NEG_INF, 0.0,
+                                torch.exp2(x - m_new[:, None]))
+                l_wg = l_wg * alpha + torch.stack([p[:, :wk].sum(-1),
+                                                   p[:, wk:].sum(-1)])
+                pb = _bf(p)
+                acc = acc * alpha[:, None] + torch.cat(
+                    [pb @ v[:, :half], pb @ v[:, half:]], -1)
+                m = m_new
+            parts.append((m * LN2, l_wg[0] + l_wg[1], acc))
+        if n_split == 1:
+            out[r] = parts[0][2] / parts[0][1].clamp(min=1e-30)[:, None]
+        else:
+            out[r] = _merge(parts)
+    return out.reshape(1, c, h, kv).to(q_lat.dtype)
+
+
+WGMMA_CASES = [  # (h, c, start, pps, n_pages, sms)
+    (3, 37, 200, 8, 13, 132),   # blocks straddle positions, four splits
+    (5, 9, 3, 4, 7, 132),       # one block, start off the tile, one split
+    (64, 3, 301, 6, 11, 132),   # blocks of one position, five splits
+    (5, 40, 150, 4, 9, 1)]      # a card with fewer processors: no split
+
+
+@pytest.mark.parametrize("case", range(len(WGMMA_CASES)))
+def test_latent_wgmma_walk_matches_plain_and_pallas(case):
+    """The wgmma kernel's walk on bf16 inputs (64-position pages; kv_lora
+    64 and qk_rope 16 stand for 512 and 64, the warpgroups' halves of the
+    value features 32 wide) against the port's plain version and repro's Pallas
+    kernel in interpret mode, within the kernels' bf16 tolerance (2e-2:
+    the walk rounds the unnormalized weights to bf16, the others the
+    normalized ones)."""
+    h, c, start, pps, n_pages, sms = WGMMA_CASES[case]
+    rng = np.random.default_rng(30 + case)
+    bf = torch.bfloat16
+    ql = torch.from_numpy(_rand(rng, 1, c, h, 64)).to(bf)
+    qr = torch.from_numpy(_rand(rng, 1, c, h, 16)).to(bf)
+    ck = torch.from_numpy(_rand(rng, n_pages, 64, 64)).to(bf)
+    kr = torch.from_numpy(_rand(rng, n_pages, 64, 16)).to(bf)
+    row = rng.permutation(n_pages)[:pps].astype(np.int32)
+    scale = 1 / math.sqrt(80)
+    n_split, _ = _latent_wgmma_splits(start, c, h, sms)
+    assert (n_split > 1) == (case in (0, 2))
+    got = emulate_latent_wgmma(ql, qr, ck, kr, torch.from_numpy(row), start,
+                               scale=scale, sms=sms)
+    want = ops.paged_latent_prefill_attention(ql, qr, ck, kr,
+                                              torch.from_numpy(row), start,
+                                              scale=scale)
+    _close(got.float(), want.float(), 2e-2)
+    jq = [jnp.asarray(x.float().numpy(), jnp.bfloat16)
+          for x in (ql[0], qr[0], ck, kr)]
+    jwant = paged_latent_prefill_pallas(*jq, jnp.asarray(row),
+                                        jnp.asarray(start, jnp.int32),
+                                        scale=scale, interpret=True)
+    _close(got[0].float(), np.asarray(jwant, np.float32), 2e-2)
+
+
+def test_latent_and_decode_wrappers_count_variants_only_on_the_card():
+    """On the CPU the wrappers take the plain version and count nothing;
+    on the card they name the family the library takes."""
+    counters = (K.paged_flash_decode, K.paged_latent_prefill)
+    before = [(f.launches, dict(f.variants)) for f in counters]
+    K.paged_flash_decode(*_t(*_decode_case()), scale=0.25)
+    ql, qr, ck, kr, row = _t(*_latent_prefill_case())
+    K.paged_latent_prefill(ql.bfloat16(), qr.bfloat16(), ck.bfloat16(),
+                           kr.bfloat16(), row, 8, scale=SCALE)
+    assert [(f.launches, dict(f.variants)) for f in counters] == before
+    assert K.DECODE_VARIANTS == ("cuda_cores", "mma_sync")
+    assert K.FLASH_VARIANTS == ("cuda_cores", "mma_sync", "wgmma")
+
+
+def test_paged_bench_ablations_still_apply():
+    """``launch.paged_bench --ablate`` builds copies of the decode and
+    latent prefill sources with parts taken out: each edit still finds its
+    text, and changes it."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import paged_bench
+    copies = paged_bench.ablated_sources(build.CSRC)
+    assert set(copies) == set(paged_bench.ABLATIONS)
+    for fname, text in copies.values():
+        assert text != (build.CSRC / fname).read_text()
