@@ -13,26 +13,31 @@ Phases, in order; any failure ends the script with a nonzero exit:
    latent prefill and matmul libraries from ``cuobjdump -sass``.  With
    ``--parent DIR`` (a directory outside the committed tree holding an
    earlier commit's ``flash_fwd.cu``, ``flash_bwd.cu``,
-   ``paged_prefill.cu``, ``matmul.cu``, ``paged_decode.cu`` and
-   ``paged_latent_prefill.cu`` with their headers; ``--parent-flash`` is
-   the same flag), those are built too.
+   ``paged_prefill.cu``, ``matmul.cu``, ``paged_decode.cu``,
+   ``paged_latent_prefill.cu``, ``paged_latent_decode.cu`` and
+   ``lcs_tile.cu`` with their headers; ``--parent-flash`` is the same
+   flag), those are built too.
 3. Kernels against their plain versions: each of the eight hand-written
    kernels and its plain PyTorch version on the same CUDA inputs, at the
    serving, training or PACO shapes in bf16 and f32 and on small prime/odd
    geometries (GQA: windows and softcaps, decode at G 8 with D 256 and 64
    and a zero-length slot, which writes zeros; MLA latent: H = 3 and 5,
-   narrow latents, and the wgmma latent prefill at deepseek-v2's widths
+   narrow latents, the wgmma latent prefill at deepseek-v2's widths
    on blocks that straddle positions, starts off the tile and chunks
-   whose keys split; dense flash forward and backward: G 1, 2, 6 and 8, D 16 to 256,
+   whose keys split, and the wgmma latent decode in clusters of 4 ranks
+   over lengths of 1 to past the table; dense flash forward and backward:
+   G 1, 2, 6 and 8, D 16 to 256,
    S 77 and 128, causal or not, windows, softcaps; at the training shape
    the backward bitwise equal over two calls; matmul: odd and prime
    shapes, strided views and every cuboid of plan_mm_1piece(8192, 8192,
    8192, 132), MM_TOL; the matmul plan kernel on the 8192^3 plans at
    p = 132 and 131 and on small prime plans with k-cuts, MM_TOL against
    ``matmul_plan_ref`` and bitwise equal over two calls; LCS tile: tiles
-   1 to 8192 on monotone and on
-   arbitrary int32 borders, and the longest anti-diagonal of the
-   n = 65,536 run, bit-exact) (tolerances: f32 atol
+   1 to 8192 on monotone and on arbitrary int32 borders, whole tables in
+   tiles of 1 to 8192, and the main path's table (65,536^2 in tiles of
+   256, 256 x 256 tiles) on arbitrary int32 borders, its whole bottom row
+   and right column against the plain version on the same tensors,
+   bit-exact, one launch each) (tolerances: f32 atol
    1e-4; bf16 atol 2e-2, since the two round the softmax weights at
    different points; the flash kernels relative to max(1, max |plain|),
    FLASH_TOL).  Device times of the kernel, the plain version and one
@@ -43,10 +48,10 @@ Phases, in order; any failure ends the script with a nonzero exit:
    included, is printed beside it; the flash kernels at B 2 x S 4096,
    their plain versions and SDPA timed eagerly, in turns with SDPA and,
    given ``--parent``, the earlier kernels: kernel, parent, SDPA,
-   SDPA, parent, kernel; paged decode, paged prefill, the latent prefill
-   and the matmul plan take turns the same way; the decode and latent
-   prefill kernels bitwise equal over two calls at their serving
-   shapes), SDPA under each of its flash, memory-efficient
+   SDPA, parent, kernel; paged decode, paged prefill, the latent pair,
+   the matmul plan and the LCS table take turns the same way; the decode,
+   latent and LCS kernels bitwise equal over two calls at their serving
+   or PACO shapes), SDPA under each of its flash, memory-efficient
    and cuDNN backends pinned in turn (``sdpa_by_backend``: the fastest is
    ``library_ms``, named in ``library_backend``; a backend that refuses
    ``enable_gqa`` gets K/V expanded outside the timed region, one that
@@ -57,9 +62,9 @@ Phases, in order; any failure ends the script with a nonzero exit:
    views), p = 131 and f32 beside it; the matmul row: one 2048^3 f32
    Strassen leaf; the latent rows' SDPA pinned per backend too, K/V
    expanded to the 128 heads over two layers where a backend refuses
-   ``enable_gqa``; the LCS row:
-   one launch over 256 tiles of 256, int32 operations at 16.7 TOP/s, no
-   library call).
+   ``enable_gqa``; the LCS row: the whole 65,536^2 table at p = 132 in
+   one launch, int32 operations at 16.7 TOP/s, the row scan as its plain
+   version, no library call).
 4. One full-width qwen3-0.6b prompt chunk per slot and 8 decode ticks
    through the kernels and through the plain path (``use_kernel=False``)
    with the same seeded random weights, in float32 and in bf16: logits
@@ -81,8 +86,9 @@ Phases, in order; any failure ends the script with a nonzero exit:
    freed before the next; MODEL_ATOL and the margin rule as in phase 4,
    with MoE router near ties handled as ``moe_full_width_parity`` says.
 7. Serve deepseek-v2 (bf16, 4 layers, page 128, chunk 128) like phase 5:
-   latent prefill launches == prefill_calls * 4, every one ``wgmma``, and
-   latent decode launches == decode_steps * 4; then every model call of
+   latent prefill launches == prefill_calls * 4 and latent decode
+   launches == decode_steps * 4, every one of both ``wgmma``; then every
+   model call of
    the run is replayed through the plain path (``replay_schedule``).
 8. Full-width qwen3-0.6b train-step parity at B 2 x S 4096: loss and
    gradients through the flash kernels and through the plain path
@@ -103,7 +109,7 @@ Phases, in order; any failure ends the script with a nonzero exit:
    of 2^26 floats; 1D (n 2048) and GAP (n 64).  The kernels' launch
    counts are zeroed before and read after each call: one matmul plan
    launch walking p cuboids per paco_matmul (bf16 as ``wgmma``), 49
-   matmul launches per depth-2 Strassen, ti + tj - 1 LCS launches.
+   matmul launches per depth-2 Strassen, one LCS launch per table.
 
 Each phase prints its time.
 The second-to-last line is one JSON object with every kernel's numbers;
@@ -479,11 +485,11 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int,
     def decode_parent_turn():
         if parent is None:
             return
-        scratch = parent.decode_scratch(q, kpool[0], pps)
-        got = parent.paged_decode(q, kpool[0], vpool[0], bt, lens, scratch)
+        out = torch.empty_like(q)
+        got = parent.paged_decode(q, kpool[0], vpool[0], bt, lens, out)
         dturns["err"].append(max_err(got, first))
         dturns["p"].append(time_ms(lambda i: parent.paged_decode(
-            q, kpool[i % n_layers], vpool[i % n_layers], bt, lens, scratch),
+            q, kpool[i % n_layers], vpool[i % n_layers], bt, lens, out),
             iters))
 
     decode_kernel_turn()
@@ -555,7 +561,7 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int,
     def parent_turn():
         if parent is None:
             return
-        scratch = parent.prefill_scratch(qc, kpool[0], width)
+        scratch = parent.prefill_scratch(qc, kpool[0], width, start)
         got = parent.paged_prefill(qc, kpool[0], vpool[0], row, start,
                                    scratch)
         turns["err"].append(max_err(got, K.paged_flash_prefill(
@@ -676,17 +682,22 @@ class ParentKernels:
     directory outside the committed tree: the dense flash pair
     (``flash_fwd.cu``, ``flash_bwd.cu``), paged prefill
     (``paged_prefill.cu``), the matmul (``matmul.cu``), paged decode
-    (``paged_decode.cu``) and MLA latent prefill
-    (``paged_latent_prefill.cu``), with their headers, into
+    (``paged_decode.cu``), MLA latent prefill and decode
+    (``paged_latent_prefill.cu``, ``paged_latent_decode.cu``) and the LCS
+    tile (``lcs_tile.cu``), with their headers, into
     ``build/parent_kernels/``, so that the benches time them in the same
     call as the current kernels.  Their C interfaces are the parent's: the
-    flash pair's and ``matmul``'s are the current ones; prefill's split
-    count takes (width, page), decode's (width, page) and latent
-    prefill's (width, page, chunk, heads), and both of the latter take f32
-    split scratch."""
+    flash pair's, ``matmul``'s and paged decode's are the current ones (the
+    decode one launch, no scratch); prefill's split count takes (width,
+    page, start, C), latent prefill's (dtype, kv_lora, qk_rope, width,
+    page, C, H, start) and latent decode's (width, page, B, H), and these
+    three take f32 split scratch; the LCS kernel takes one anti-diagonal
+    of tiles a launch (``lcs_diagonal``), its borders in two halves that
+    alternate with the diagonal's parity."""
 
     NAMES = ("flash_fwd", "flash_bwd", "paged_prefill", "matmul",
-             "paged_decode", "paged_latent_prefill")
+             "paged_decode", "paged_latent_prefill", "paged_latent_decode",
+             "lcs_tile")
 
     def __init__(self, src: Path):
         import ctypes
@@ -699,7 +710,8 @@ class ParentKernels:
         # parent library (inline and template ones are weak) can bind to
         # the current libraries' of the same name
         rename = [f"-D{ns}=parent_{ns}"
-                  for ns in ("paged", "flash_mma", "flash_wgmma", "latent")]
+                  for ns in ("paged", "flash_mma", "flash_wgmma", "latent",
+                             "latent_wgmma")]
         procs = [(name, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, *rename, "-o",
              str(out / f"lib{name}.so"), str(src / f"{name}.cu")],
@@ -722,23 +734,29 @@ class ParentKernels:
         self.prefill.argtypes = [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                  I, F, I, F, P]
         self.prefill_splits = libs["paged_prefill"].paged_prefill_splits
-        self.prefill_splits.argtypes = [I, I]
+        self.prefill_splits.argtypes = [I, I, I, I]
         self.mm = libs["matmul"].matmul
         self.mm.argtypes = [I, P, P, P, I, I, I, L, L, P]
         self.decode = libs["paged_decode"].paged_decode
-        self.decode.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                                I, F, I, F, P]
-        self.decode_splits = libs["paged_decode"].paged_decode_splits
-        self.decode_splits.argtypes = [I, I]
+        self.decode.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, I, F,
+                                I, F, P]
         lat = libs["paged_latent_prefill"]
         self.latent = lat.paged_latent_prefill
         self.latent.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                 I, I, F, P]
         self.latent_splits = lat.paged_latent_prefill_splits
-        self.latent_splits.argtypes = [I, I, I, I]
+        self.latent_splits.argtypes = [I] * 8
+        ldec = libs["paged_latent_decode"]
+        self.latent_dec = ldec.paged_latent_decode
+        self.latent_dec.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                                    I, I, I, F, P]
+        self.latent_dec_splits = ldec.paged_latent_decode_splits
+        self.latent_dec_splits.argtypes = [I, I, I, I]
+        self.lcs_diag = libs["lcs_tile"].lcs_diagonal
+        self.lcs_diag.argtypes = [P] * 8 + [I] * 5 + [P]
         for fn in (self.fwd, self.bwd, self.prefill, self.prefill_splits,
-                   self.mm, self.decode, self.decode_splits, self.latent,
-                   self.latent_splits):
+                   self.mm, self.decode, self.latent, self.latent_splits,
+                   self.latent_dec, self.latent_dec_splits, self.lcs_diag):
             fn.restype = I
 
     def forward(self, q, k, v, o, lse) -> None:
@@ -760,10 +778,10 @@ class ParentKernels:
                        torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent flash_bwd", err)
 
-    def prefill_scratch(self, q, k_pages, width):
+    def prefill_scratch(self, q, k_pages, width, start):
         """The output and f32 split scratch of the parent's prefill."""
         _, c, hq, d = q.shape
-        n_split = self.prefill_splits(width, k_pages.shape[1])
+        n_split = self.prefill_splits(width, k_pages.shape[1], start, c)
         return (torch.empty_like(q),
                 torch.empty((n_split, c * hq, d), device=q.device),
                 torch.empty((n_split, c * hq, 2), device=q.device))
@@ -783,35 +801,26 @@ class ParentKernels:
         assert err == 0, ("parent paged_prefill", err)
         return out
 
-    def decode_scratch(self, q, k_pages, width):
-        """The output and f32 split scratch of the parent's decode."""
-        b, _, hq, d = q.shape
-        n_split = self.decode_splits(width, k_pages.shape[1])
-        return (torch.empty_like(q),
-                torch.empty((n_split, b * hq, d), device=q.device),
-                torch.empty((n_split, b * hq, 2), device=q.device))
-
-    def paged_decode(self, q, k_pages, v_pages, tables, lengths, scratch
+    def paged_decode(self, q, k_pages, v_pages, tables, lengths, out
                      ) -> torch.Tensor:
         """bf16, no window or softcap: the serving shape's call."""
         b, _, hq, d = q.shape
         n_pool, page, hkv, _ = k_pages.shape
-        out, acc, ml = scratch
         err = self.decode(1, q.data_ptr(), k_pages.data_ptr(),
                           v_pages.data_ptr(), tables.data_ptr(),
-                          lengths.data_ptr(), out.data_ptr(), acc.data_ptr(),
-                          ml.data_ptr(), b, hkv, hq // hkv, d, page,
-                          tables.shape[1], n_pool, 1 / math.sqrt(d),
-                          2 ** 31 - 1, 0.0,
+                          lengths.data_ptr(), out.data_ptr(), b, hkv,
+                          hq // hkv, d, page, tables.shape[1], n_pool,
+                          1 / math.sqrt(d), 2 ** 31 - 1, 0.0,
                           torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent paged_decode", err)
         return out
 
-    def latent_scratch(self, q_lat, ckv, width):
+    def latent_scratch(self, q_lat, q_rope, ckv, width, start):
         """The output and f32 split scratch of the parent's latent
         prefill."""
         _, c, h, kv = q_lat.shape
-        n_split = self.latent_splits(width, ckv.shape[1], c, h)
+        n_split = self.latent_splits(1, kv, q_rope.shape[-1], width,
+                                     ckv.shape[1], c, h, start)
         return (torch.empty_like(q_lat),
                 torch.empty((n_split, c * h, kv), device=q_lat.device),
                 torch.empty((n_split, c * h, 2), device=q_lat.device))
@@ -830,6 +839,54 @@ class ParentKernels:
                           torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent paged_latent_prefill", err)
         return out
+
+    def latent_decode_scratch(self, q_lat, ckv, width):
+        """The output and f32 split scratch of the parent's latent
+        decode."""
+        b, _, h, kv = q_lat.shape
+        n_split = self.latent_dec_splits(width, ckv.shape[1], b, h)
+        return (torch.empty_like(q_lat),
+                torch.empty((n_split, b * h, kv), device=q_lat.device),
+                torch.empty((n_split, b * h, 2), device=q_lat.device))
+
+    def paged_latent_decode(self, q_lat, q_rope, ckv, kr, tables, lengths,
+                            scale, scratch) -> torch.Tensor:
+        """bf16: the serving shape's call (its launch and, split, the
+        merge kernel's)."""
+        b, _, h, kv = q_lat.shape
+        n_pool, page, _ = ckv.shape
+        out, acc, ml = scratch
+        err = self.latent_dec(1, q_lat.data_ptr(), q_rope.data_ptr(),
+                              ckv.data_ptr(), kr.data_ptr(),
+                              tables.data_ptr(), lengths.data_ptr(),
+                              out.data_ptr(), acc.data_ptr(), ml.data_ptr(),
+                              b, h, kv, q_rope.shape[-1], page,
+                              tables.shape[1], n_pool, scale,
+                              torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent paged_latent_decode", err)
+        return out
+
+    def lcs(self, s, t, tile) -> torch.Tensor:
+        """The parent's whole LCS table of s against t in tile x tile
+        tiles: ti + tj - 1 launches, one an anti-diagonal, over border
+        arrays in two halves; returns the LCS length (0-d int32)."""
+        m, n = s.shape[0], t.shape[0]
+        ti, tj = m // tile, n // tile
+        rows = torch.zeros((2, n), dtype=torch.int32, device=s.device)
+        cols = torch.zeros((2, m), dtype=torch.int32, device=s.device)
+        corners = torch.zeros((2, tj), dtype=torch.int32, device=s.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        for d in range(ti + tj - 1):
+            i_lo = max(0, d - tj + 1)
+            src, dst = (d + 1) % 2, d % 2
+            err = self.lcs_diag(s.data_ptr(), t.data_ptr(),
+                                rows[src].data_ptr(), cols[src].data_ptr(),
+                                corners[src].data_ptr(),
+                                rows[dst].data_ptr(), cols[dst].data_ptr(),
+                                corners[dst].data_ptr(), tile, tile, d,
+                                i_lo, min(ti, d + 1) - i_lo, stream)
+            assert err == 0, ("parent lcs_diagonal", err)
+        return rows[(ti + tj - 2) % 2, -1]
 
     def matmul(self, a, b, out) -> None:
         """One product of views with unit column stride into ``out``."""
@@ -979,7 +1036,10 @@ def _row(name, source, replaces, err, ms, eager_ms, plain_ms, library_ms,
 def check_small_latent(gen: torch.Generator) -> dict[str, float]:
     """The MLA latent kernels on odd geometries (H = 3 and 5, prime pools,
     kv_lora 32 and 64, qk_rope 8 and 16, tables over several key splits),
-    in f32 and bf16: kernel vs plain version."""
+    in f32 and bf16, and the wgmma prefill and decode at deepseek-v2's
+    widths (blocks that straddle positions or end past H, split chunks,
+    clusters of 4 ranks over lengths of 1 to past the table): kernel
+    vs plain version, the wgmma ones bitwise over two calls."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ops
 
@@ -1053,6 +1113,30 @@ def check_small_latent(gen: torch.Generator) -> dict[str, float]:
                                                        scale=scale))
         worst["paged_latent_prefill"] = max(worst["paged_latent_prefill"],
                                             err)
+    # the wgmma decode (bf16, kv_lora 512, qk_rope 64): clusters of 4 ranks
+    # sharing the live keys, lengths of one tile and past the table,
+    # head blocks that end past H (3, 70)
+    for h, page, width, lens in [(3, 64, 8, [1, 63, 64, 65, 512, 600]),
+                                 (128, 128, 4, [1, 200, 513, 129]),
+                                 (70, 64, 6, [130, 384, 5])]:
+        b = len(lens)
+        n_pool = b * width + 1
+        bt = torch.randperm(n_pool - 1, generator=gen, device=dev)
+        bt = bt[:b * width].reshape(b, width).to(torch.int32)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (rnd(b, 1, h, kv, dtype=dtype), rnd(b, 1, h, rope, dtype=dtype),
+                rnd(n_pool, page, kv, dtype=dtype),
+                rnd(n_pool, page, rope, dtype=dtype), bt, lens_t)
+        want = ops.paged_latent_decode_attention(*args, scale=scale,
+                                                 use_kernel=False)
+        before = K.paged_latent_decode.variants.copy()
+        got = K.paged_latent_decode(*args, scale=scale)
+        assert K.paged_latent_decode.variants - before == {"wgmma": 1}
+        err = max_err(got, want)
+        assert err <= ATOL[dtype], ("paged_latent_decode wgmma", h, page,
+                                    err)
+        assert torch.equal(got, K.paged_latent_decode(*args, scale=scale))
+        worst["paged_latent_decode"] = max(worst["paged_latent_decode"], err)
     return worst
 
 
@@ -1145,12 +1229,35 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
 
         return sdpa_by_backend(run)
 
-    # ---- decode: two turns, around its plain version and SDPA
+    # ---- decode: in turns with its parent (given ``parent``) and SDPA:
+    # kernel, parent, SDPA, parent, kernel; bitwise over two calls
     dq = (rnd(slots, 1, h, kv, dtype=dtype), rnd(slots, 1, h, rope,
                                                  dtype=dtype))
-    dturns = [time_ms(lambda i: K.paged_latent_decode(
-        *dq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale),
-        iters)]
+    dfirst = K.paged_latent_decode(*dq, ckp[0], krp[0], bt, lens,
+                                   scale=scale)
+    assert torch.equal(dfirst, K.paged_latent_decode(
+        *dq, ckp[0], krp[0], bt, lens, scale=scale)), \
+        "paged_latent_decode is not bitwise reproducible"
+    dturns = collections.defaultdict(list)
+
+    def decode_kernel_turn():
+        dturns["k"].append(time_ms(lambda i: K.paged_latent_decode(
+            *dq, ckp[i % n_layers], krp[i % n_layers], bt, lens,
+            scale=scale), iters))
+
+    def decode_parent_turn():
+        if parent is None:
+            return
+        scratch = parent.latent_decode_scratch(dq[0], ckp[0], pps)
+        got = parent.paged_latent_decode(*dq, ckp[0], krp[0], bt, lens,
+                                         scale, scratch)
+        dturns["err"].append(max_err(got, dfirst))
+        dturns["p"].append(time_ms(lambda i: parent.paged_latent_decode(
+            *dq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale,
+            scratch), iters))
+
+    decode_kernel_turn()
+    decode_parent_turn()
     plain_ms, _ = time_ms(lambda i: ops.paged_latent_decode_attention(
         *dq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale,
         use_kernel=False), max(iters // 4, 10))
@@ -1158,20 +1265,27 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
     mask = torch.arange(s_max, device=dev)[None, :] < lens[:, None]
     q_cat = torch.cat(dq, -1).transpose(1, 2)           # (B, H, 1, 576)
     sdpa_decode = library(q_cat, bt, s_max, mask[:, None, None, :])
-    dturns.append(time_ms(lambda i: K.paged_latent_decode(
-        *dq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale),
-        iters))
-    ms, eager_ms = (sum(t[i] for t in dturns) / 2 for i in (0, 1))
+    decode_parent_turn()
+    decode_kernel_turn()
+    ms, eager_ms = (sum(t[i] for t in dturns["k"]) / 2 for i in (0, 1))
     n_keys = int(lens.sum())
     nbytes = (2 * (dq[0].numel() + dq[1].numel() + dq[0].numel())
               + bt.numel() * 4 + lens.numel() * 4 + n_keys * (kv + rope) * 2)
     flops = n_keys * h * (2 * (kv + rope) + 2 * kv)
-    rows.append(_with_library(_row(
+    decode = _with_library(_row(
         "paged_latent_decode", "src/repro_torch/csrc/paged_latent_decode.cu",
         "src/repro/kernels/attention/attention.py:463",
         err["paged_latent_decode"], ms, eager_ms, plain_ms, None, nbytes,
-        flops, dtype), sdpa_decode))
-    rows[-1]["ms_turns"] = [t[0] for t in dturns]
+        flops, dtype), sdpa_decode)
+    decode["ms_turns"] = [t[0] for t in dturns["k"]]
+    before = K.paged_latent_decode.variants.copy()
+    K.paged_latent_decode(*dq, ckp[0], krp[0], bt, lens, scale=scale)
+    (decode["variant"],) = K.paged_latent_decode.variants - before
+    if parent is not None:
+        decode["parent_ms"] = sum(t[0] for t in dturns["p"]) / 2
+        decode["parent_ms_turns"] = [t[0] for t in dturns["p"]]
+        decode["parent_max_abs_err"] = max(dturns["err"])
+    rows.append(decode)
 
     # ---- prefill: one 128-token chunk at start 896
     pq = (rnd(1, c, h, kv, dtype=dtype), rnd(1, c, h, rope, dtype=dtype))
@@ -1190,7 +1304,7 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
     def parent_turn():
         if parent is None:
             return
-        scratch = parent.latent_scratch(pq[0], ckp[0], width)
+        scratch = parent.latent_scratch(*pq, ckp[0], width, start)
         got = parent.paged_latent_prefill(*pq, ckp[0], krp[0], row, start,
                                           scale, scratch).clone()
         assert torch.equal(got, parent.paged_latent_prefill(
@@ -1889,12 +2003,16 @@ def _random_borders(gen: torch.Generator, *shape: int, monotone: bool
                     ) -> torch.Tensor:
     """int32 border values: sorted small values along the last axis, as
     ``tests/test_kernels.py:114`` draws them, or any int32 (the kernel's
-    function is defined on every input)."""
+    function is defined on every input), INT32_MAX and INT32_MIN among
+    them."""
     if monotone:
         x = torch.randint(0, 3, shape, generator=gen, device="cuda")
         return torch.sort(x, dim=-1).values.to(torch.int32)
-    return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
-                         device="cuda", dtype=torch.int32)
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                      device="cuda", dtype=torch.int32)
+    x[..., ::7] = 2 ** 31 - 1      # sums that wrap
+    x[..., 3::11] = -2 ** 31
+    return x
 
 
 def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
@@ -1904,10 +2022,15 @@ def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
     ``plan_mm_1piece(8192, 8192, 8192, 132)`` as a view of the full
     operands (MM_TOL); the plan kernel on the 8192^3 plans at p = 132 and
     131 and on small prime plans with k-cuts, against ``matmul_plan_ref``
-    (MM_TOL) and bitwise equal over two calls.  LCS, exact: single tiles of 1, 7, 64, 256 and 8192
-    (and ragged M x N) on monotone and on arbitrary int32 borders, and the
-    longest anti-diagonal of the n = 65,536, p = 132 run (256 tiles of 256)
-    on random borders."""
+    (MM_TOL) and bitwise equal over two calls.  LCS, exact, one launch each:
+    single tiles of 1, 7, 64, 256 and 8192 (and ragged M x N, and tiles
+    taller or wider than one CTA takes) on monotone and on arbitrary int32
+    borders; whole tables in tiles of 1, 7, 128, 256 and 8192 on arbitrary
+    borders; and the main path's table, PACO_LCS_N^2 in tiles of 256
+    (256 x 256 tiles, as many CTAs claiming and waiting as fit), on
+    arbitrary borders: its whole bottom row and right column against
+    ``lcs_table_plain`` (``lcs_tiles_ref`` batched per anti-diagonal) on
+    the same CUDA tensors, bitwise the same over two calls."""
     from repro_torch.core import plan_mm_1piece
     from repro_torch.core.matmul import plan as mm_plan
     from repro_torch.kernels.lcs import lcs as KL
@@ -1964,7 +2087,7 @@ def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
     torch.cuda.synchronize()
 
     for m, n in [(1, 1), (7, 7), (64, 64), (256, 256), (8192, 8192),
-                 (5, 300), (300, 5), (33, 8200)]:
+                 (5, 300), (300, 5), (33, 8200), (8200, 33)]:
         for monotone in (True, False):
             s, t = _symbols(gen, m), _symbols(gen, n)
             top = _random_borders(gen, n, monotone=monotone)
@@ -1976,28 +2099,41 @@ def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
             for g, w in zip(got, want):
                 assert torch.equal(g, w), ("lcs_tile", m, n, monotone)
 
-    # the longest anti-diagonal of n = 65,536 at p = 132: d = 255, 256 tiles
-    tile, ti = 256, PACO_LCS_N // 256
-    s, t = _symbols(gen, PACO_LCS_N), _symbols(gen, PACO_LCS_N)
-    for monotone in (True, False):
-        rows = _random_borders(gen, 2, ti, tile, monotone=monotone)
-        cols = _random_borders(gen, 2, ti, tile, monotone=monotone)
-        rows, cols = rows.reshape(2, -1), cols.reshape(2, -1)
-        corners = _random_borders(gen, 2, ti, monotone=False)
-        src = (rows.clone(), cols.clone(), corners.clone())
-        d = ti - 1
-        KL.lcs_diagonal_kernel(s, t, rows, cols, corners, d, tile, tile)
-        i = torch.arange(ti, device=dev)
-        j = d - i
-        left = src[1][0].view(ti, tile)[i]
-        bottom, right = lcs_tiles_ref(
-            s.view(ti, tile)[i], t.view(ti, tile)[j],
-            src[0][0].view(ti, tile)[j], left, src[2][0][j])
-        assert torch.equal(rows[1].view(ti, tile)[j], bottom), "bottom rows"
-        assert torch.equal(cols[1].view(ti, tile)[i], right), "right cols"
-        assert torch.equal(corners[1][j], left[:, -1]), "corners"
-        for x, y in zip(src, (rows, cols, corners)):
-            assert torch.equal(x[0], y[0]), "diagonal 255 wrote its inputs"
+    # whole tables in one launch: tiles 1, 7, 128, 256 and 8192 (ragged
+    # where they do not divide), arbitrary borders, as one tile of the plain
+    # version
+    for tile, m, n in [(1, 23, 41), (7, 61, 45), (128, 300, 520),
+                       (256, 700, 600), (8192, 9000, 8500)]:
+        s, t = _symbols(gen, m), _symbols(gen, n)
+        top, left = (_random_borders(gen, x, monotone=False) for x in (n, m))
+        corner = _random_borders(gen, 1, monotone=False)
+        want = lcs_tiles_ref(s[None], t[None], top[None], left[None], corner)
+        before = KL.lcs_table_kernel.launches
+        got = KL.lcs_table_kernel(s, t, top, left, corner, tile, tile)
+        assert KL.lcs_table_kernel.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w[0]), ("lcs_table", tile)
+
+    # the main path's table on arbitrary borders: 256 x 256 tiles of 256,
+    # the whole bottom row and right column against the plain version
+    n, tile = PACO_LCS_N, 256
+    s, t = _symbols(gen, n), _symbols(gen, n)
+    args = (s, t, *(_random_borders(gen, x, monotone=False)
+                    for x in (n, n, 1)), tile, tile)
+    before = KL.lcs_table_kernel.launches
+    got = KL.lcs_table_kernel(*args)
+    again = KL.lcs_table_kernel(*args)
+    assert KL.lcs_table_kernel.launches == before + 2
+    t0 = time.perf_counter()
+    want = KL.lcs_table_plain(*args)
+    torch.cuda.synchronize()
+    log(f"[kernels] lcs_table {n}^2 in tiles of {tile} on arbitrary borders: "
+        f"plain version {time.perf_counter() - t0:.1f} s")
+    for g, a, w, side in zip(got, again, want, ("bottom row", "right column")):
+        assert torch.equal(g, a), ("lcs_table is not bitwise reproducible",
+                                   side)
+        assert torch.equal(g, w), ("lcs_table", n, tile, side,
+                                   int((g != w).sum()))
     return worst
 
 
@@ -2014,16 +2150,18 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
     its 132 cuboid launches, and those plus the adds into C that its
     ``paco_matmul`` made), library, library, parent, kernel.  The
     Strassen leaf (``matmul``): one 2048^3 float32 product, with the
-    parent's kernel and ``torch.matmul`` beside it.  LCS: the longest
-    anti-diagonal of the n = 65,536, p = 132 run, 256 tiles of 256, one
-    launch; the plain version (``lcs_tiles_ref``) on the same tiles; no
-    library call computes this function.  Kernel times: CUDA-graph
-    replays; the plain versions eagerly with CUDA events.  Bounds: matmul
+    parent's kernel and ``torch.matmul`` beside it.  LCS: the whole
+    n = 65,536 table at p = 132 (tiles of 256), one launch a call, bitwise
+    over two calls, in turns with the parent's (given ``parent``: one
+    launch an anti-diagonal, 511), its variant, p = 131, PO, PA and both
+    runs beside it; the plain version is the row scan ``lcs_reference``
+    (host clock, once); no library call computes this function.  Kernel
+    times: CUDA-graph replays; the plain versions eagerly with CUDA events
+    (LCS: the host clock).  Bounds: matmul
     2 n m k flops (bytes: A and B read once, C written once); LCS
     LCS_OPS_PER_CELL int32 operations a cell."""
     from repro_torch.core.matmul import plan as mm_plan
     from repro_torch.kernels.lcs import lcs as KL
-    from repro_torch.kernels.lcs.ref import lcs_tiles_ref
     from repro_torch.kernels.matmul import (matmul_kernel, matmul_plan_kernel,
                                             matmul_plan_ref)
     from repro_torch.kernels.matmul.matmul import plan_variant
@@ -2130,30 +2268,56 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
     rows.append(leaf)
     del a, b
 
-    tile, ti = 256, PACO_LCS_N // 256
-    s, t = _symbols(gen, PACO_LCS_N), _symbols(gen, PACO_LCS_N)
-    rows_b = _random_borders(gen, 2, ti, tile, monotone=True).reshape(2, -1)
-    cols_b = _random_borders(gen, 2, ti, tile, monotone=True).reshape(2, -1)
-    corners = torch.zeros((2, ti), dtype=torch.int32, device=dev)
-    d = ti - 1
-    i = torch.arange(ti, device=dev)
-    tiles_in = (s.view(ti, tile)[i], t.view(ti, tile)[d - i],
-                rows_b[0].view(ti, tile)[d - i], cols_b[0].view(ti, tile)[i],
-                corners[0][d - i])
-    KL.lcs_diagonal_kernel(s, t, rows_b, cols_b, corners, d, tile, tile)
-    bottom, right = lcs_tiles_ref(*tiles_in)
-    err = max(max_err(rows_b[1].view(ti, tile)[d - i], bottom),
-              max_err(cols_b[1].view(ti, tile)[i], right))
-    ms, eager = time_ms(lambda k: KL.lcs_diagonal_kernel(
-        s, t, rows_b, cols_b, corners, d, tile, tile), iters)
-    plain = _events_loop_ms(lambda: lcs_tiles_ref(*tiles_in), 2)
-    cells = ti * tile * tile
-    nbytes = 4 * (6 * ti * tile + 2 * ti)  # s, t, top, left in; out
+    # LCS: the whole n = 65,536 table at p = 132 (tiles of 256), one launch
+    # a call, in turns with the parent's 511 launches: kernel, parent,
+    # parent, kernel
+    from repro_torch.core import lcs_reference
+    from repro_torch.kernels.lcs.ops import default_tile, lcs_wavefront
+    n = PACO_LCS_N
+    s, t = _symbols(gen, n), _symbols(gen, n)
+    tile = default_tile(n, 132)
+    got = lcs_wavefront(s, t, 132)
+    assert torch.equal(got, lcs_wavefront(s, t, 132)), \
+        "lcs_table is not bitwise reproducible"
+    # the plain version of the whole table: the row scan, timed once
+    want, plain_s, _ = _timed(lambda: lcs_reference(s, t))
+    err = abs(int(got) - int(want))
+    times = collections.defaultdict(list)
+
+    def kernel_turn():
+        times["k"].append(time_ms(lambda i: lcs_wavefront(s, t, 132), 5))
+
+    def parent_turn():
+        if parent is None:
+            return
+        times["err"].append(abs(int(parent.lcs(s, t, tile)) - int(want)))
+        times["p"].append(time_ms(lambda i: parent.lcs(s, t, tile), 3))
+
+    kernel_turn()
+    parent_turn()
+    parent_turn()
+    kernel_turn()
+    ms, eager = (sum(x[i] for x in times["k"]) / 2 for i in (0, 1))
+    cells = n * n
+    nbytes = 4 * 4 * n     # s, t in; the bottom row and right column out
     lcs = _row("lcs_tile", "src/repro_torch/csrc/lcs_tile.cu",
-               "src/repro/kernels/lcs/lcs.py:46", err, ms, eager, plain,
-               None, nbytes, LCS_OPS_PER_CELL * cells, torch.int32)
-    lcs["work"] = (f"anti-diagonal {d} of a {PACO_LCS_N}^2 table in tiles "
-                   f"of {tile}: {ti} tiles, {cells} cells, int32")
+               "src/repro/kernels/lcs/lcs.py:46", err, ms, eager,
+               plain_s * 1e3, None, nbytes, LCS_OPS_PER_CELL * cells,
+               torch.int32)
+    lcs["ms_turns"] = [x[0] for x in times["k"]]
+    before = KL.lcs_table_kernel.variants.copy()
+    lcs_wavefront(s, t, 132)
+    (lcs["variant"],) = KL.lcs_table_kernel.variants - before
+    # the other tilings of the suite, one launch each
+    for key, p, tl in [("p131_ms", 131, None), ("po_ms", 1, 128),
+                       ("pa_ms", 8, 8192)]:
+        lcs[key] = time_ms(lambda i: lcs_wavefront(s, t, p, tile=tl), 3)[0]
+    if parent is not None:
+        lcs["parent_ms"] = sum(x[0] for x in times["p"]) / 2
+        lcs["parent_ms_turns"] = [x[0] for x in times["p"]]
+        lcs["parent_max_abs_err"] = max(times["err"])
+    lcs["work"] = (f"the whole {n}^2 table in tiles of {tile} (p = 132), "
+                   f"{cells} cells, int32; plain: the row scan")
     rows.append(lcs)
     return rows
 
@@ -2180,11 +2344,11 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
     the prime 131, inputs from ``seed``; returns the kernels' launches.
 
     LCS: two 65,536-symbol sequences over 4 letters through ``paco_lcs`` at
-    p = 132 and 131 (tiles of 256, 511 launches), PO (p = 1, tile 128) and
-    PA (p = 8, tile 8192) as ``benchmarks/bench_lcs.py`` defines them,
-    each exactly equal to the plain row scan ``lcs_reference``; launches ==
-    ti + tj - 1.  MM: ``paco_matmul`` on PACO_MM_SHAPES at both p against
-    ``matmul_ref`` (PACO_MM_TOL), ``torch.matmul``'s time beside it; one
+    p = 132 and 131 (tiles of 256), PO (p = 1, tile 128) and PA (p = 8,
+    tile 8192) as ``benchmarks/bench_lcs.py`` defines them, each exactly
+    equal to the plain row scan ``lcs_reference``; one ``lcs_table``
+    launch per call, its variant named.  MM: ``paco_matmul`` on
+    PACO_MM_SHAPES at both p against ``matmul_ref`` (PACO_MM_TOL), ``torch.matmul``'s time beside it; one
     ``matmul_plan`` launch per call walking the plan's p non-empty
     cuboids, in bf16 as variant ``wgmma`` (the first call, which builds
     the plan and its table, is timed apart).  Strassen: ``paco_strassen``
@@ -2223,14 +2387,17 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
                            (f"p={ps[1]}", ps[1], None),
                            ("PO p=1 tile=128", 1, 128),
                            ("PA p=8 tile=n/8", 8, n // 8)]:
+        KL.lcs_table_kernel.variants.clear()
         got, secs, nl = _timed(lambda: int(core.paco_lcs(s, t, p, tile=tile)),
-                               KL.lcs_diagonal_kernel)
+                               KL.lcs_table_kernel)
         tile = tile or default_tile(n, p)
+        variants = dict(KL.lcs_table_kernel.variants)
         report(f"lcs {label}", {"tile": tile, "lcs": got, "seconds": secs,
                                 "cells_per_s": n * n / secs,
-                                "launches": nl})
+                                "launches": nl, "variants": variants})
         assert got == want, ("paco_lcs", label, got, want)
-        assert nl == 2 * (n // tile) - 1, ("lcs launches", label, nl)
+        assert nl == 1 and sum(variants.values()) == 1, \
+            ("one lcs_table launch a paco_lcs call", label, nl, variants)
         launches["lcs_tile"] += nl
     del s, t
 
@@ -2332,10 +2499,10 @@ def main() -> int:
                     default=None,
                     help="a directory holding an earlier commit's "
                     "flash_fwd.cu, flash_bwd.cu, paged_prefill.cu, "
-                    "matmul.cu, paged_decode.cu and "
-                    "paged_latent_prefill.cu with their headers (not the "
-                    "committed tree): those kernels are built and timed "
-                    "in turns with the current ones")
+                    "matmul.cu, paged_decode.cu, paged_latent_prefill.cu, "
+                    "paged_latent_decode.cu and lcs_tile.cu with their "
+                    "headers (not the committed tree): those kernels are "
+                    "built and timed in turns with the current ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2483,6 +2650,10 @@ def main() -> int:
         assert result["launches_by_variant"]["paged_latent_prefill"] == {
             "wgmma": result["launches"]["paged_latent_prefill"]}, \
             ("every bf16 latent prefill launch on wgmma",
+             result["launches_by_variant"])
+        assert result["launches_by_variant"]["paged_latent_decode"] == {
+            "wgmma": result["launches"]["paged_latent_decode"]}, \
+            ("every bf16 latent decode launch on wgmma",
              result["launches_by_variant"])
     with phase("deepseek-v2 plain replay"):
         replay = replay_schedule(engine, params, cfg_d, calls, routing)

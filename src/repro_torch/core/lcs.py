@@ -12,10 +12,11 @@ The row recurrence X[i,j] = max(X[i-1,j], X[i-1,j-1]+eq, X[i,j-1]) is
 monotone in j, so a row update is a running max: X[i,:] = cummax(a) with
 a_j = max(X[i-1,j], X[i-1,j-1]+eq_ij).
 
-A port of ``repro.core.lcs``.  ``paco_lcs`` runs every tile of an
-anti-diagonal through one launch of the tile kernel on a CUDA tensor
-(``kernels.lcs.ops.lcs_wavefront``), and through the kernel's plain version
-on the CPU.
+A port of ``repro.core.lcs``.  ``paco_lcs`` runs the whole tiled table
+through one launch of the tile kernel on a CUDA tensor
+(``kernels.lcs.ops.lcs_wavefront``: tiles claimed in anti-diagonal order,
+each waiting only for its two neighbours), and through the kernel's plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -168,6 +169,6 @@ def paco_lcs(s: torch.Tensor, t: torch.Tensor, p: int, *,
     Tile size follows the first-assignment rule: the first anti-diagonal
     with >= p tiles fixes the granularity (m / 2^ceil(log2 p) when
     uniform).  Tiles on one anti-diagonal are mutually independent (run on
-    p processors, here one launch); borders flow to the right and bottom
-    neighbours only."""
+    p processors; here the whole table is one launch); borders flow to the
+    right and bottom neighbours only."""
     return lcs_wavefront(s, t, p, tile=tile)

@@ -1,23 +1,28 @@
-// Paged MLA latent chunked prefill on wgmma with TMA loads: the bf16
-// kernel for the full-width shapes (kv_lora 512, qk_rope 64, pages of a
-// multiple of 64 positions), variant "wgmma" of paged_latent_prefill.cu.
+// Paged MLA latent attention on wgmma with TMA loads: the bf16 kernels for
+// the full-width shapes (kv_lora 512, qk_rope 64, pages of a multiple of
+// 64 positions), variant "wgmma" of paged_latent_prefill.cu (kernel 4)
+// and of paged_latent_decode.cu (kernel 3).  Both run one walk, `walk`
+// below, over 64 query rows of one slot; they differ in their rows, their
+// key ranges and their epilogues.
 //
 // Replaces src/repro/kernels/attention/attention.py:270
-// paged_latent_prefill_pallas (body _paged_latent_prefill_kernel, :227);
-// paged_latent_prefill.cu gives the function and the layouts.
+// paged_latent_prefill_pallas (body _paged_latent_prefill_kernel, :227)
+// and :463 paged_latent_decode_pallas; paged_latent_prefill.cu and
+// paged_latent_decode.cu give the functions and the layouts.
 //
-// What bounds it: operations.  A chunk of C positions x H heads at start s
-// scores each visible (row, key) pair over 576 features and adds 512 value
-// features: 2 (576 + 512) flops a pair, 34.2 GFLOP for deepseek-v2's
-// serving chunk (C 128, H 128, start 896), 0.0346 ms at 989 TFLOP/s bf16.
-// The latent it reads is small (1,152 bytes a key, 1.2 MB for 1,024 keys),
-// but every CTA reads its whole causal key range again, from L2.
+// What bounds them.  Prefill: operations.  A chunk of C positions x H heads
+// at start s scores each visible (row, key) pair over 576 features and
+// adds 512 value features: 2 (576 + 512) flops a pair, 34.2 GFLOP for
+// deepseek-v2's serving chunk (C 128, H 128, start 896), 0.0346 ms at 989
+// TFLOP/s bf16.  The latent it reads is small (1,152 bytes a key, 1.2 MB
+// for 1,024 keys), but every CTA reads its whole causal key range again,
+// from L2.  Decode: bytes.  One query a slot, 1,152 bytes a key shared by
+// the 128 heads (~250 flops a byte, under the ~295 ridge): 5.1 MB of keys
+// for 8 slots of 48..1,032 positions, 0.0020 ms at 3.35 TB/s; in practice
+// the launch, the first loads and the merge set its time.
 //
-// What the design does about it:
-//  * a CTA takes 64 query rows (row r: position r / H, head r % H), so a
-//    full-width chunk launches 256 CTAs, each walking the keys up to its
-//    last row's position: 4x fewer key reads from L2 than 16-row blocks
-//    (295 MB a chunk, against 1.13 GB);
+// The walk (64 query rows, key positions [lo, hi) of one block-table row,
+// each row masked at its own limit):
 //  * one thread issues every load by TMA: Q (64 rows x 576, 72 KB, nine
 //    64-column boxes of q_lat and q_rope, resident for the walk) and
 //    64-key tiles of the latent (nine boxes of c_kv and k_rope at pool row
@@ -49,18 +54,41 @@
 //    accumulator stays in registers (128 a thread);
 //  * tile i's S is issued right behind tile i - 1's P V, so the tensor
 //    cores run the two back to back;
-//  * rows are masked by their own causal limit start + r / H + 1, so a
-//    block may straddle positions (H < 64); masked keys weigh 0 and the
-//    finite -1e30 initial max never makes a NaN;
-//  * the grid takes the longest causal ranges first.  A chunk whose rows
-//    fill fewer CTAs than the card has processors splits its keys over
-//    64-key-aligned ranges, and combine_kernel merges the f32 partials in
-//    split order (bitwise repeatable);
-//  * the epilogue normalizes the accumulator and leaves through shared
-//    memory (the Q region, free once the last S has landed), each warp
-//    staging its 16 rows 128 columns at a time and writing whole 16-byte
-//    pieces, as the matmul plan kernel does.
+//  * masked keys weigh 0 and the finite -1e30 initial max never makes a
+//    NaN.
+//
+// Prefill (prefill_kernel): row r of the chunk is position r / H, head
+// r % H, masked by its own causal limit start + r / H + 1, so a block may
+// straddle positions (H < 64).  A full-width chunk launches 256 CTAs, each
+// walking the keys up to its last row's position: 4x fewer key reads from
+// L2 than 16-row blocks (295 MB a chunk, against 1.13 GB).  The grid takes
+// the longest causal ranges first.  A chunk whose rows fill fewer CTAs
+// than the card has processors splits its keys over 64-key-aligned
+// ranges, and combine_kernel merges the f32 partials in split order
+// (bitwise repeatable).  The epilogue normalizes the accumulator and
+// leaves through shared memory (the Q region, free once the last S has
+// landed), each warp staging its 16 rows 128 columns at a time and writing
+// whole 16-byte pieces, as the matmul plan kernel does.
+//
+// Decode (decode_kernel): a slot's H heads are its rows, 64 a CTA (two
+// blocks at H 128: each key tile is read twice, not eight times as by
+// 16-row blocks), every row masked at the slot's length.  One launch: the
+// grid is (kRanks, head blocks, slots) in clusters of kRanks CTAs, one
+// cluster per (slot, head block).  The splits are sized from the live
+// keys, on the device: each rank reads the slot's length and takes a
+// 64-key-aligned share of its tiles; a rank past the range loads no key
+// and leaves no state.  After the walk each live rank puts its (m, l) and
+// its 64 x 512 f32 accumulator in its own shared memory (over the key
+// stages, free once the last product has landed; rows 520 floats apart,
+// so the fragments' 8-byte stores meet no bank conflict).  Then every
+// rank merges a slice of 512 / kRanks features of the 64 rows, reading the
+// live ranks' states through distributed shared memory in rank order, and
+// writes it: no f32 partials go through device memory, no second kernel
+// runs, and the result is bitwise the same on every call.  A slot with no
+// valid key writes zeros.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "flash_wgmma.cuh"
 
@@ -73,6 +101,7 @@ constexpr int kBoxes = (kKv + kRope) / 64;  // 64-column boxes of a row: 9
 constexpr int kRowsW = 64;                   // query rows a CTA
 constexpr int kTk = 64;                      // keys a tile
 constexpr int kHalf = kKv / 2;               // value features a warpgroup
+constexpr int kAcc = 4 * kHalf / 8;          // accumulators a thread: 128
 // two warpgroups and no producer warp: eight warps, two on each of the
 // SM's four register files, so each thread may take 255 registers (a
 // ninth warp caps them at 168, too few for the 128 accumulators and the
@@ -89,6 +118,12 @@ constexpr int kX = kP + kBlockBytes;               // 2 x 64 floats
 constexpr int kBar = kX + 2 * kRowsW * 4;
 // q_full, then full per stage; + the 1024-byte alignment slack
 constexpr size_t kSmemW = kBar + 8 * (1 + kStagesW) + 1024;
+// decode: a rank's accumulator rows in shared memory (8 mod 32 floats)
+constexpr int kAccStride = kKv + 8;
+// decode: CTAs a cluster (8 ran slower, launch.paged_bench's ranks8 copy)
+constexpr int kRanks = 4;
+static_assert(kRowsW * kAccStride * 4 <= kStagesW * kTileBytes,
+              "a rank's accumulator fits the key stages");
 
 inline bool takes(int dtype, int kv, int rope, int page) {
   return dtype == 1 && kv == kKv && rope == kRope && page % kTk == 0;
@@ -126,22 +161,25 @@ __device__ __forceinline__ void mma_ss_n32(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// q_lat (n_rows, 512), q_rope (n_rows, 64), the pools (n_pool * page, 512)
-// and (n_pool * page, 64), all as 2-D maps with 64 x 64 boxes; row_table
-// (width,); out (n_rows, 512) bf16, or, split, part_acc (n_split, n_rows,
-// 512) and part_ml (n_split, n_rows, 2) f32.  scale_log2 = scale * log2 e.
-__global__ void __launch_bounds__(kThreadsW, 1)
-prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
-               const __grid_constant__ CUtensorMap qr_map,
-               const __grid_constant__ CUtensorMap ckv_map,
-               const __grid_constant__ CUtensorMap kr_map,
-               const int* __restrict__ row_table, bf16* __restrict__ out,
-               float* __restrict__ part_acc, float* __restrict__ part_ml,
-               int n_rows, int n_heads, int page, int width, int n_pool,
-               int start, int split_keys, float scale_log2) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = aligned_smem_base(smem_raw);
-  unsigned char* gen = smem_raw + (base - smem_u32(smem_raw));
+// This thread's row hh (0 or 1) of the CTA's 64: rows g and g + 8 of its
+// warp's 16.
+__device__ __forceinline__ int row_of(int hh) {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + 8 * hh;
+}
+
+// The walk: the CTA's 64 query rows (rows q_row0 .. q_row0 + 63 of the q
+// maps) against key positions [lo, hi) of the block-table row `table`,
+// this thread's rows masked at limit[0], limit[1] (<= hi).  On return,
+// for this thread's two rows: m, the running max (log2 domain, the same in
+// both warpgroups); l, the row sums of both warpgroups' keys (warpgroup
+// 0's first); acc, its warpgroup's 256 value features, unnormalized.  Both
+// warpgroups' products have landed and no load is in flight.
+__device__ __forceinline__ void walk(
+    uint32_t base, unsigned char* gen, const CUtensorMap* ql_map,
+    const CUtensorMap* qr_map, const CUtensorMap* ckv_map,
+    const CUtensorMap* kr_map, const int* __restrict__ table, int q_row0,
+    int lo, int hi, const int* limit, int page, int n_pool,
+    float scale_log2, float* m, float* l, float* acc) {
   const uint32_t q_full = base + kBar, full = q_full + 8;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -149,14 +187,6 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-
-  // longest causal range first: the last row block goes first
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRowsW;
-  const int split = blockIdx.y;
-  const int r_last = min(r0 + kRowsW, n_rows) - 1;
-  const int lo = split * split_keys;
-  const int hi =
-      min(min(start + r_last / n_heads + 1, width * page), lo + split_keys);
   const int n_tiles = hi > lo ? (hi - lo + kTk - 1) / kTk : 0;
   const int wg = threadIdx.x / 128;
 
@@ -164,7 +194,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
   // i + 1 in iteration i, once both warpgroups' P V of tile i - 1 has
   // landed (below).  It reads each tile's page id a tile ahead.
   auto phys_of = [&](int i) {
-    return min(max(row_table[(lo + i * kTk) / page], 0), n_pool - 1);
+    return min(max(table[(lo + i * kTk) / page], 0), n_pool - 1);
   };
   auto load_tile = [&](int i, int phys) {
     const int stage = i % kStagesW;
@@ -173,24 +203,25 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
     mbar_expect_tx(full + 8 * stage, kTileBytes);
 #pragma unroll
     for (int c = 0; c < kBoxes - 1; ++c)
-      tma_load_2d(kt + c * kBlockBytes, &ckv_map, full + 8 * stage, c * 64,
+      tma_load_2d(kt + c * kBlockBytes, ckv_map, full + 8 * stage, c * 64,
                   krow);
-    tma_load_2d(kt + (kBoxes - 1) * kBlockBytes, &kr_map, full + 8 * stage,
+    tma_load_2d(kt + (kBoxes - 1) * kBlockBytes, kr_map, full + 8 * stage,
                 0, krow);
   };
   const bool loader = threadIdx.x == 0;
   int next_phys = 0;
   if (loader && n_tiles > 0) {
-    prefetch_map(&ql_map);
-    prefetch_map(&qr_map);
-    prefetch_map(&ckv_map);
-    prefetch_map(&kr_map);
+    prefetch_map(ql_map);
+    prefetch_map(qr_map);
+    prefetch_map(ckv_map);
+    prefetch_map(kr_map);
     mbar_expect_tx(q_full, kTileBytes);
 #pragma unroll
     for (int c = 0; c < kBoxes - 1; ++c)
-      tma_load_2d(base + kQ + c * kBlockBytes, &ql_map, q_full, c * 64, r0);
-    tma_load_2d(base + kQ + (kBoxes - 1) * kBlockBytes, &qr_map, q_full, 0,
-                r0);
+      tma_load_2d(base + kQ + c * kBlockBytes, ql_map, q_full, c * 64,
+                  q_row0);
+    tma_load_2d(base + kQ + (kBoxes - 1) * kBlockBytes, qr_map, q_full, 0,
+                q_row0);
     load_tile(0, phys_of(0));
     if (n_tiles > 1) load_tile(1, phys_of(1));
     if (n_tiles > 2) next_phys = phys_of(2);
@@ -198,19 +229,16 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
 
   // ---- consumers: warpgroup wg scores keys [32 wg, 32 wg + 32) of each
   // tile and owns value features [256 wg, 256 wg + 256)
-  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-  const int g = lane >> 2, t4 = lane & 3;
+  const int t4 = threadIdx.x & 3;
   float* x_s = reinterpret_cast<float*>(gen + kX);   // [warpgroup][row]
-  int row[2], limit[2];
+  const int row[2] = {row_of(0), row_of(1)};
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    row[hh] = warp * 16 + g + 8 * hh;   // of the CTA's 64
-    limit[hh] = min(start + (r0 + row[hh]) / n_heads + 1, hi);
+    m[hh] = kNegInf;
+    l[hh] = 0.f;
   }
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[4 * kHalf / 8];
 #pragma unroll
-  for (int i = 0; i < 4 * kHalf / 8; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   float s[16];
   if (n_tiles > 0) mbar_wait(q_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -225,7 +253,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
     wg_commit();
     wg_wait<0>();   // S, and the previous tile's P V, have landed
     fence_regs<16>(s);
-    fence_regs<4 * kHalf / 8>(acc);
+    fence_regs<kAcc>(acc);
 
     // scores in the log2 domain, masked keys at -1e30; row maxima of this
     // warpgroup's 32 keys, then of both
@@ -278,7 +306,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
     fence_proxy_async();
     bar_sync(2, 256);   // P whole; both warpgroups read their maxima
 #pragma unroll
-    for (int i2 = 0; i2 < 4 * kHalf / 8; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
+    for (int i2 = 0; i2 < kAcc; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < kTk / 16; ++ks)
@@ -287,7 +315,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
     wg_commit();
   }
   wg_wait<0>();
-  fence_regs<4 * kHalf / 8>(acc);
+  fence_regs<kAcc>(acc);
 
   // the row sums of both warpgroups' keys, in warpgroup order
   if (t4 == 0) {
@@ -295,11 +323,47 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
     x_s[wg * kRowsW + row[1]] = l[1];
   }
   bar_sync(1, 256);
-  float lt[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
-    lt[hh] = x_s[row[hh]] + x_s[kRowsW + row[hh]];
+    l[hh] = x_s[row[hh]] + x_s[kRowsW + row[hh]];
+}
 
+// q_lat (n_rows, 512), q_rope (n_rows, 64), the pools (n_pool * page, 512)
+// and (n_pool * page, 64), all as 2-D maps with 64 x 64 boxes; row_table
+// (width,); out (n_rows, 512) bf16, or, split, part_acc (n_split, n_rows,
+// 512) and part_ml (n_split, n_rows, 2) f32.  scale_log2 = scale * log2 e.
+__global__ void __launch_bounds__(kThreadsW, 1)
+prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
+               const __grid_constant__ CUtensorMap qr_map,
+               const __grid_constant__ CUtensorMap ckv_map,
+               const __grid_constant__ CUtensorMap kr_map,
+               const int* __restrict__ row_table, bf16* __restrict__ out,
+               float* __restrict__ part_acc, float* __restrict__ part_ml,
+               int n_rows, int n_heads, int page, int width, int n_pool,
+               int start, int split_keys, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  unsigned char* gen = smem_raw + (base - smem_u32(smem_raw));
+
+  // longest causal range first: the last row block goes first
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRowsW;
+  const int split = blockIdx.y;
+  const int r_last = min(r0 + kRowsW, n_rows) - 1;
+  const int lo = split * split_keys;
+  const int hi =
+      min(min(start + r_last / n_heads + 1, width * page), lo + split_keys);
+  int limit[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    limit[hh] = min(start + (r0 + row_of(hh)) / n_heads + 1, hi);
+  float m[2], lt[2], acc[kAcc];
+  walk(base, gen, &ql_map, &qr_map, &ckv_map, &kr_map, row_table, r0, lo, hi,
+       limit, page, n_pool, scale_log2, m, lt, acc);
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row[2] = {row_of(0), row_of(1)};
   if (gridDim.y > 1) {   // f32 partials for combine_kernel
     const long long prow0 = (long long)split * n_rows + r0;
 #pragma unroll
@@ -350,7 +414,118 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
   }
 }
 
-// The launch, and combine_kernel's when split.
+// q_lat (B * H, 512), q_rope (B * H, 64) and the pools as for prefill;
+// tables (B, width), lengths (B,); out (B * H, 512) bf16.  Grid (kRanks,
+// head blocks of 64, B), clusters of kRanks along x.
+__global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreadsW, 1)
+decode_kernel(const __grid_constant__ CUtensorMap ql_map,
+              const __grid_constant__ CUtensorMap qr_map,
+              const __grid_constant__ CUtensorMap ckv_map,
+              const __grid_constant__ CUtensorMap kr_map,
+              const int* __restrict__ tables,
+              const int* __restrict__ lengths, bf16* __restrict__ out,
+              int n_heads, int page, int width, int n_pool,
+              float scale_log2) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int hb = blockIdx.y, b = blockIdx.z;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  unsigned char* gen = smem_raw + (base - smem_u32(smem_raw));
+
+  // the slot's live keys [0, n) in 64-key tiles, and this rank's share
+  const int n = max(min(lengths[b], width * page), 0);
+  const int tiles = (n + kTk - 1) / kTk;
+  const int share = (tiles + kRanks - 1) / kRanks;
+  const int lo = min(rank * share * kTk, n);
+  const int hi = min(n, lo + share * kTk);
+  const int limit[2] = {hi, hi};
+  float m[2], l[2], acc[kAcc];
+  walk(base, gen, &ql_map, &qr_map, &ckv_map, &kr_map,
+       tables + (long long)b * width, b * n_heads + hb * kRowsW, lo, hi,
+       limit, page, n_pool, scale_log2, m, l, acc);
+
+  // the rank's state in its own shared memory: the accumulator over the
+  // key stages, (m, l) over P
+  float* acc_s = reinterpret_cast<float*>(gen + kK);
+  float* ml_s = reinterpret_cast<float*>(gen + kP);
+  if (hi > lo) {
+    const int wg = threadIdx.x / 128, t4 = threadIdx.x & 3;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row_of(hh);
+#pragma unroll
+      for (int nt = 0; nt < kHalf / 8; ++nt)
+        *reinterpret_cast<float2*>(acc_s + r * kAccStride + kHalf * wg +
+                                   8 * nt + 2 * t4) =
+            make_float2(acc[4 * nt + 2 * hh], acc[4 * nt + 2 * hh + 1]);
+      if (wg == 0 && t4 == 0) {
+        ml_s[2 * r] = m[hh];
+        ml_s[2 * r + 1] = l[hh];
+      }
+    }
+  }
+  cluster.sync();
+
+  // the merge: features [rank F, rank F + F) of the 64 rows, 4 a thread at
+  // a time, from the live ranks in rank order
+  constexpr int kF = kKv / kRanks, kUnits = kF / 4;
+  const int live = share > 0 ? (tiles + share - 1) / share : 0;
+  for (int u = threadIdx.x; u < kRowsW * kUnits; u += kThreadsW) {
+    const int r = u / kUnits, f = rank * kF + 4 * (u % kUnits);
+    const int h = hb * kRowsW + r;
+    if (h >= n_heads) continue;
+    float mr[kRanks], lr[kRanks];
+    float4 ar[kRanks];
+#pragma unroll
+    for (int q = 0; q < kRanks; ++q) {
+      mr[q] = kNegInf;
+      lr[q] = 0.f;
+      ar[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q < live) {
+        const float* ml = cluster.map_shared_rank(ml_s, q);
+        mr[q] = ml[2 * r];
+        lr[q] = ml[2 * r + 1];
+        ar[q] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(acc_s, q) + r * kAccStride + f);
+      }
+    }
+    float mm = kNegInf;
+#pragma unroll
+    for (int q = 0; q < kRanks; ++q) mm = fmaxf(mm, mr[q]);
+    float ll = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kRanks; ++q) {
+      if (q >= live) break;
+      const float w = exp2f(mr[q] - mm);
+      ll += lr[q] * w;
+      a.x += ar[q].x * w;
+      a.y += ar[q].y * w;
+      a.z += ar[q].z * w;
+      a.w += ar[q].w * w;
+    }
+    const float inv = 1.f / fmaxf(ll, 1e-30f);
+    __nv_bfloat162 v[2] = {__floats2bfloat162_rn(a.x * inv, a.y * inv),
+                           __floats2bfloat162_rn(a.z * inv, a.w * inv)};
+    *reinterpret_cast<uint2*>(out + ((long long)b * n_heads + h) * kKv + f) =
+        *reinterpret_cast<const uint2*>(v);
+  }
+  cluster.sync();   // no rank leaves while another reads its state
+}
+
+// The 2-D maps of the queries (n_rows rows) and of the latent pools.
+inline bool maps(CUtensorMap* qlm, CUtensorMap* qrm, CUtensorMap* ckm,
+                 CUtensorMap* krm, const void* q_lat, const void* q_rope,
+                 const void* ckv, const void* kr, int n_rows, int pool_rows) {
+  return map_2d(qlm, q_lat, n_rows, kKv, kKv, kRowsW) &&
+         map_2d(qrm, q_rope, n_rows, kRope, kRope, kRowsW) &&
+         map_2d(ckm, ckv, pool_rows, kKv, kKv, kTk) &&
+         map_2d(krm, kr, pool_rows, kRope, kRope, kTk);
+}
+
+// The prefill launch, and combine_kernel's when split.
 inline int launch(const void* q_lat, const void* q_rope, const void* ckv,
                   const void* kr, const int* row_table, void* out,
                   void* part_acc, void* part_ml, int chunk, int heads,
@@ -360,12 +535,10 @@ inline int launch(const void* q_lat, const void* q_rope, const void* ckv,
   static size_t opted_in = 48 * 1024;
   const cudaError_t e = allow_smem(prefill_kernel, kSmemW, &opted_in);
   if (e != cudaSuccess) return (int)e;
-  const int n_rows = chunk * heads, pool_rows = n_pool * page;
+  const int n_rows = chunk * heads;
   CUtensorMap qlm, qrm, ckm, krm;
-  if (!map_2d(&qlm, q_lat, n_rows, kKv, kKv, kRowsW) ||
-      !map_2d(&qrm, q_rope, n_rows, kRope, kRope, kRowsW) ||
-      !map_2d(&ckm, ckv, pool_rows, kKv, kKv, kTk) ||
-      !map_2d(&krm, kr, pool_rows, kRope, kRope, kTk))
+  if (!maps(&qlm, &qrm, &ckm, &krm, q_lat, q_rope, ckv, kr, n_rows,
+            n_pool * page))
     return (int)cudaErrorInvalidValue;
   int n_split, split_keys;
   splits(start, chunk, heads, &n_split, &split_keys);
@@ -383,6 +556,27 @@ inline int launch(const void* q_lat, const void* q_rope, const void* ckv,
         static_cast<const float*>(part_ml), static_cast<bf16*>(out), n_rows,
         kKv, n_split);
   }
+  return (int)cudaGetLastError();
+}
+
+// The decode launch: one, no scratch.
+inline int launch_decode(const void* q_lat, const void* q_rope,
+                         const void* ckv, const void* kr, const int* tables,
+                         const int* lengths, void* out, int batch, int heads,
+                         int page, int width, int n_pool, float scale,
+                         cudaStream_t stream) {
+  if (batch * heads == 0) return 0;
+  CUtensorMap qlm, qrm, ckm, krm;
+  if (!maps(&qlm, &qrm, &ckm, &krm, q_lat, q_rope, ckv, kr, batch * heads,
+            n_pool * page))
+    return (int)cudaErrorInvalidValue;
+  static size_t opted_in = 48 * 1024;
+  const cudaError_t e = allow_smem(decode_kernel, kSmemW, &opted_in);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(kRanks, (heads + kRowsW - 1) / kRowsW, batch);
+  decode_kernel<<<grid, kThreadsW, kSmemW, stream>>>(
+      qlm, qrm, ckm, krm, tables, lengths, static_cast<bf16*>(out), heads,
+      page, width, n_pool, scale * flash_mma::kLog2e);
   return (int)cudaGetLastError();
 }
 

@@ -28,11 +28,11 @@ Paged serving: ``paged_flash_decode`` replaces
 ``paged_latent_decode_pallas`` and ``paged_latent_prefill_pallas``
 (``csrc/paged_decode.cu``, ``csrc/paged_prefill.cu``,
 ``csrc/paged_latent_decode.cu`` and ``csrc/paged_latent_prefill.cu``).
-``paged_flash_prefill``, ``paged_flash_decode`` and
-``paged_latent_prefill`` count their launches by family in ``variants``
-too (prefill ``"mma_sync"``: bf16 on tensor cores, ``"cuda_cores"``;
-decode ``"mma_sync"``, ``"cuda_cores"``; latent prefill ``"wgmma"``,
-``"mma_sync"``, ``"cuda_cores"``).
+``paged_flash_prefill``, ``paged_flash_decode``, ``paged_latent_prefill``
+and ``paged_latent_decode`` count their launches by family in
+``variants`` too (prefill ``"mma_sync"``: bf16 on tensor cores,
+``"cuda_cores"``; decode ``"mma_sync"``, ``"cuda_cores"``; the latent pair
+``"wgmma"``, ``"mma_sync"``, ``"cuda_cores"``).
 
 The kernels are CUDA C++ for ``sm_90a``, built by ``kernels.build`` at
 first use and called through their plain C interface with ``ctypes``.
@@ -107,8 +107,8 @@ PREFILL_VARIANTS = ("cuda_cores", "mma_sync")
 # paged_decode's, as csrc/paged_decode.cu numbers them (both one cluster
 # of CTAs per slot and kv head)
 DECODE_VARIANTS = ("cuda_cores", "mma_sync")
-# The kernel families of the dense flash libraries and of
-# paged_latent_prefill, by the number their ``<lib>_variant`` returns.
+# The kernel families of the dense flash libraries and of the latent pair,
+# by the number their ``<lib>_variant`` returns.
 FLASH_VARIANTS = ("cuda_cores", "mma_sync", "wgmma")
 
 
@@ -307,7 +307,10 @@ def paged_latent_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     float32 or bfloat16; ckv_pages (n_pool, page, kv_lora) and kr_pages
     (n_pool, page, qk_rope) one layer's latent pools; block_tables
     (B, width) int32; lengths (B,) int32.  Returns (B, 1, H, kv_lora) in
-    q's dtype.
+    q's dtype.  Counts its launches by kernel family in ``variants``:
+    ``"wgmma"`` (bf16 at kv_lora 512, qk_rope 64 and pages of a multiple
+    of 64: one launch of clusters of 4 CTAs), ``"mma_sync"`` (other bf16
+    widths the tensor-core tiles divide) or ``"cuda_cores"``.
     """
     if not q_lat.is_cuda:
         from repro_torch.kernels.attention import ops
@@ -329,12 +332,16 @@ def paged_latent_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
                          f"batch {b}")
     width = block_tables.shape[1]
     out = torch.empty_like(q_lat)
-    n_split = _fn(lib, f"{lib}_splits", (_I, _I, _I, _I))(width, page, b, h)
+    dtype = _DTYPES[q_lat.dtype]
+    variant = FLASH_VARIANTS[_fn(lib, f"{lib}_variant", (_I,) * 4)(
+        dtype, kv, rope, page)]
+    n_split = 1 if variant == "wgmma" else _fn(
+        lib, f"{lib}_splits", (_I, _I, _I, _I))(width, page, b, h)
     part_acc, part_ml = _scratch(n_split, b * h, kv, q_lat.device)
     fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _F, _P))
     with torch.cuda.device(q_lat.device):
-        err = fn(_DTYPES[q_lat.dtype], q_lat.data_ptr(), q_rope.data_ptr(),
+        err = fn(dtype, q_lat.data_ptr(), q_rope.data_ptr(),
                  ckv_pages.data_ptr(), kr_pages.data_ptr(),
                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                  _ptr(part_acc), _ptr(part_ml), b, h, kv, rope, page, width,
@@ -343,10 +350,12 @@ def paged_latent_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if err:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     paged_latent_decode.launches += 1
+    paged_latent_decode.variants[variant] += 1
     return out
 
 
 paged_latent_decode.launches = 0
+paged_latent_decode.variants = collections.Counter()
 
 
 def paged_latent_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,

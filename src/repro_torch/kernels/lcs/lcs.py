@@ -1,36 +1,31 @@
 """Hand-written Hopper kernel for the LCS DP tile, and its wrappers.
 
-``lcs_diagonal_kernel`` replaces the TPU kernel
+``lcs_table_kernel`` replaces the TPU kernel
 ``repro/kernels/lcs/lcs.py: lcs_tile_pallas`` with ``csrc/lcs_tile.cu``:
-it computes that kernel's function for every tile of one anti-diagonal of
-the PACO wavefront in one launch, one CTA per tile, reading and writing
-the borders in place in device arrays (layout below), so the wavefront
-takes one launch per diagonal and no per-tile host slicing.
-``lcs_tile_kernel`` is ``lcs_tile_pallas``'s single-tile call: one
-diagonal of one tile.
+it computes that kernel's function (bottom row and right column of a DP
+table from its top row, left column and corner) for a whole table cut
+into tiles, in one launch.  A persistent grid claims the tiles in
+anti-diagonal order, each tile one CTA that waits for its top and left
+neighbours' done flags and sweeps its rows skewed across the lanes.
+``lcs_tile_kernel`` is ``lcs_tile_pallas``'s single-tile call: the 1 x 1
+case of the same launch (a tile wider or taller than one CTA takes cuts
+into a few tiles of the same launch).
 
 What bounds it on the card: integer operations, about four per DP cell at
 the INT32 rate.  ``csrc/lcs_tile.cu``'s header says what the design does
 about it.
 
-Border arrays of an (m x n) table cut into (tile_m x tile_n) tiles, all
-int32 on the device of the sequences, each in two halves: diagonal d reads
-half (d + 1) % 2 and writes half d % 2.
-- ``rows`` (2, n): the bottom row of the last tile done in each tile
-  column (zeros before the first: the DP table's row -1);
-- ``cols`` (2, m): the right column of the last tile done in each tile
-  row (zeros: column -1);
-- ``corners`` (2, tj): in slot j, the entry X[i0 - 1, j0 - 1] that tile
-  (i, j) takes as its corner, which tile (i - 1, j) writes (its left
-  column's last entry).
-
 The wrappers check device, dtype, shape and contiguity and raise on
 anything else, launch on the current stream, raise if the launch reports
-a CUDA error, and add one to ``lcs_diagonal_kernel.launches`` per launch.
-A CPU tensor takes the plain version (``ref.lcs_tiles_ref``) instead.
+a CUDA error, and add one to ``lcs_table_kernel.launches`` per launch and
+to ``lcs_table_kernel.variants[f"skew{run}"]``, naming the sweep's run of
+columns a lane (4 for tiles of at most 128 columns, else 8).  A CPU
+tensor takes the plain version (``lcs_table_plain``: ``ref.lcs_tiles_ref``
+anti-diagonal by anti-diagonal over the same border buffers) instead.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -47,6 +42,11 @@ def max_tile_n() -> int:
     return c_function("lcs_tile", "lcs_tile_max_n")()
 
 
+def max_tile_m() -> int:
+    """The tallest tile one CTA takes."""
+    return c_function("lcs_tile", "lcs_tile_max_m")()
+
+
 def _check(name: str, x: torch.Tensor, device: torch.device,
            shape: tuple[int, ...]) -> None:
     if x.device != device:
@@ -60,63 +60,115 @@ def _check(name: str, x: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def lcs_diagonal_kernel(s: torch.Tensor, t: torch.Tensor,
-                        rows: torch.Tensor, cols: torch.Tensor,
-                        corners: torch.Tensor, d: int, tile_m: int,
-                        tile_n: int) -> None:
-    """Every (tile_m x tile_n) tile on anti-diagonal ``d`` of the DP table
-    of s (m,) against t (n,), in place on the border arrays ``rows``
-    (2, n), ``cols`` (2, m) and ``corners`` (2, n // tile_n) (layout in
-    the module docstring).  m and n must be multiples of the tile."""
+def _state(top: torch.Tensor, left: torch.Tensor, corner: torch.Tensor,
+           tile_n: int, ti: int, tj: int) -> torch.Tensor:
+    """The kernel's int32 state: rows (n) | cols (m) | corners (tj) |
+    colprog (tj) | rowprog (ti) | counter (1).  Corner j is X[-1, j0 - 1]:
+    the corner for the first tile column, the top row one column left of
+    the tile for the others; flags and counter zero."""
+    n, m = top.shape[0], left.shape[0]
+    state = torch.zeros(n + m + 2 * tj + ti + 1, dtype=torch.int32,
+                        device=top.device)
+    state[:n] = top
+    state[n:n + m] = left
+    state[n + m] = corner[0]
+    if tj > 1:
+        state[n + m + 1:n + m + tj] = top[tile_n - 1:(tj - 1) * tile_n:tile_n]
+    return state
+
+
+def _table_plain(s, t, state, tile_m, tile_n, ti, tj) -> None:
+    """The plain version over the kernel's state, one anti-diagonal of
+    tiles at a time (tiles of one shape batched into one call of
+    ``lcs_tiles_ref``)."""
     m, n = s.shape[0], t.shape[0]
-    if tile_m < 1 or tile_n < 1 or m % tile_m or n % tile_n:
-        raise ValueError(f"tiles of {tile_m} x {tile_n} do not cut a "
-                         f"{m} x {n} table")
-    ti, tj = m // tile_m, n // tile_n
-    if not 0 <= d < ti + tj - 1:
-        raise ValueError(f"diagonal {d} is outside a {ti} x {tj} grid")
+    rows, cols = state[:n], state[n:n + m]
+    corners = state[n + m:n + m + tj]
+    for d in range(ti + tj - 1):
+        groups = collections.defaultdict(list)
+        for i in range(max(0, d - tj + 1), min(ti, d + 1)):
+            j = d - i
+            groups[(min(tile_m, m - i * tile_m),
+                    min(tile_n, n - j * tile_n))].append((i, j))
+        for (hm, hn), tiles in groups.items():
+            i = torch.tensor([x[0] for x in tiles])
+            j = torch.tensor([x[1] for x in tiles])
+            r_idx = (i * tile_m)[:, None] + torch.arange(hm)
+            c_idx = (j * tile_n)[:, None] + torch.arange(hn)
+            left = cols[r_idx]
+            bottom, right = lcs_tiles_ref(s[r_idx], t[c_idx], rows[c_idx],
+                                          left, corners[j])
+            rows[c_idx] = bottom
+            cols[r_idx] = right
+            corners[j] = left[:, -1]
+
+
+def _checked(s, t, top, left, corner, tile_m, tile_n) -> tuple[int, int]:
+    """(m, n) of a table call whose arguments hold."""
+    m, n = s.shape[0], t.shape[0]
+    if m < 1 or n < 1:
+        raise ValueError(f"an LCS table needs m, n >= 1, got {m} x {n}")
+    if tile_m < 1 or tile_n < 1:
+        raise ValueError(f"tiles of {tile_m} x {tile_n} are empty")
     for name, x, shape in (("s", s, (m,)), ("t", t, (n,)),
-                           ("rows", rows, (2, n)), ("cols", cols, (2, m)),
-                           ("corners", corners, (2, tj))):
+                           ("top", top, (n,)), ("left", left, (m,)),
+                           ("corner", corner, (1,))):
         _check(name, x, s.device, shape)
-    i_lo = max(0, d - tj + 1)             # tiles (i, d - i), i_lo <= i
-    count = min(ti, d + 1) - i_lo
-    src, dst = (d + 1) % 2, d % 2
+    return m, n
+
+
+def lcs_table_plain(s: torch.Tensor, t: torch.Tensor, top: torch.Tensor,
+                    left: torch.Tensor, corner: torch.Tensor, tile_m: int,
+                    tile_n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lcs_table_kernel``'s function by the plain version, on the
+    tensors' own device: ``lcs_tiles_ref`` anti-diagonal by anti-diagonal
+    over the kernel's border buffers."""
+    m, n = _checked(s, t, top, left, corner, tile_m, tile_n)
+    ti, tj = -(-m // tile_m), -(-n // tile_n)
+    state = _state(top, left, corner, tile_n, ti, tj)
+    _table_plain(s, t, state, tile_m, tile_n, ti, tj)
+    return state[:n], state[n:n + m]
+
+
+def lcs_table_kernel(s: torch.Tensor, t: torch.Tensor, top: torch.Tensor,
+                     left: torch.Tensor, corner: torch.Tensor, tile_m: int,
+                     tile_n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The DP table of s (m,) against t (n,) from its borders top (n,),
+    left (m,) and corner (1,), all int32, in (tile_m x tile_n) tiles (the
+    last tile row and column may be ragged): ``lcs_tile_pallas``'s
+    function, one launch on CUDA.  Returns (bottom row (n,), right column
+    (m,))."""
     if not s.is_cuda:
-        i = torch.arange(i_lo, i_lo + count)
-        j = d - i
-        left = cols[src].view(ti, tile_m)[i]
-        bottom, right = lcs_tiles_ref(
-            s.view(ti, tile_m)[i], t.view(tj, tile_n)[j],
-            rows[src].view(tj, tile_n)[j], left, corners[src][j])
-        rows[dst].view(tj, tile_n)[j] = bottom
-        cols[dst].view(ti, tile_m)[i] = right
-        corners[dst][j] = left[:, -1]
-        return
-    if tile_n > max_tile_n():
-        raise ValueError(f"tiles {tile_n} wide exceed the kernel's "
-                         f"{max_tile_n()}")
-    fn = c_function("lcs_tile", "lcs_diagonal",
-                    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _P))
+        return lcs_table_plain(s, t, top, left, corner, tile_m, tile_n)
+    m, n = _checked(s, t, top, left, corner, tile_m, tile_n)
+    if tile_n > max_tile_n() or tile_m > max_tile_m():
+        raise ValueError(f"tiles of {tile_m} x {tile_n} exceed the "
+                         f"kernel's {max_tile_m()} x {max_tile_n()}")
+    ti, tj = -(-m // tile_m), -(-n // tile_n)
+    state = _state(top, left, corner, tile_n, ti, tj)
+    fn = c_function("lcs_tile", "lcs_table",
+                    (_P, _P, _P, _I, _I, _I, _I, _P))
     with torch.cuda.device(s.device):
-        err = fn(s.data_ptr(), t.data_ptr(), rows[src].data_ptr(),
-                 cols[src].data_ptr(), corners[src].data_ptr(),
-                 rows[dst].data_ptr(), cols[dst].data_ptr(),
-                 corners[dst].data_ptr(), tile_m, tile_n, d, i_lo, count,
-                 torch.cuda.current_stream(s.device).cuda_stream)
+        err = fn(s.data_ptr(), t.data_ptr(), state.data_ptr(), m, n, tile_m,
+                 tile_n, torch.cuda.current_stream(s.device).cuda_stream)
     if err:
-        raise RuntimeError(f"lcs_diagonal launch failed: CUDA error {err}")
-    lcs_diagonal_kernel.launches += 1
+        raise RuntimeError(f"lcs_table launch failed: CUDA error {err}")
+    lcs_table_kernel.launches += 1
+    lcs_table_kernel.variants[
+        f"skew{c_function('lcs_tile', 'lcs_run', (_I,))(tile_n)}"] += 1
+    return state[:n], state[n:n + m]
 
 
-lcs_diagonal_kernel.launches = 0
+lcs_table_kernel.launches = 0
+lcs_table_kernel.variants = collections.Counter()
 
 
-def _chunk_width(t_tile: torch.Tensor) -> int:
-    """Columns per launch of one tile: the kernel's widest on the card;
-    the plain version takes any width."""
-    return max_tile_n() if t_tile.is_cuda else t_tile.shape[0]
+def _tile_shape(m: int, n: int, is_cuda: bool) -> tuple[int, int]:
+    """The tiles of a single-tile call: the whole tile where one CTA takes
+    it (always for the plain version), else the kernel's largest."""
+    if not is_cuda:
+        return m, n
+    return min(m, max_tile_m()), min(n, max_tile_n())
 
 
 def lcs_tile_kernel(s_tile: torch.Tensor, t_tile: torch.Tensor,
@@ -125,27 +177,12 @@ def lcs_tile_kernel(s_tile: torch.Tensor, t_tile: torch.Tensor,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """One (M, N) tile, as ``lcs_tile_pallas``: s_tile (M,), t_tile (N,)
     int32 sequences; top (N,), left (M,), corner (1,) int32 DP borders.
-    Returns (bottom_row (N,), right_col (M,)).  A tile wider than the
-    kernel's widest goes through in column chunks, each one launch: the
-    right column of a chunk is the left border of the next, and its top
-    entry one column left is the next chunk's corner."""
+    Returns (bottom_row (N,), right_col (M,)).  One launch: a tile larger
+    than one CTA takes is cut into tiles of the same launch."""
     m, n = s_tile.shape[0], t_tile.shape[0]
     if m < 1 or n < 1:
         raise ValueError(f"an LCS tile needs M, N >= 1, got {m} x {n}")
-    for name, x, shape in (("t_tile", t_tile, (n,)), ("top", top, (n,)),
-                           ("left", left, (m,)), ("corner", corner, (1,))):
-        _check(name, x, s_tile.device, shape)
-    width = _chunk_width(t_tile)
-    bottoms = []
-    for c0 in range(0, n, width):
-        c1 = min(n, c0 + width)
-        cnr = corner if c0 == 0 else top[c0 - 1:c0]
-        zeros = torch.zeros_like
-        rows = torch.stack([zeros(top[c0:c1]), top[c0:c1]])
-        cols = torch.stack([zeros(left), left])
-        corners = torch.stack([zeros(cnr), cnr])
-        lcs_diagonal_kernel(s_tile.contiguous(), t_tile[c0:c1].contiguous(),
-                            rows, cols, corners, 0, m, c1 - c0)
-        bottoms.append(rows[0])
-        left = cols[0]
-    return torch.cat(bottoms), left
+    tile_m, tile_n = _tile_shape(m, n, s_tile.is_cuda)
+    return lcs_table_kernel(s_tile, t_tile, top, left, corner, tile_m,
+                            tile_n)
+

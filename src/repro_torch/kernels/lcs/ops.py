@@ -1,11 +1,11 @@
 """Public LCS of the port over the tile kernel: the anti-diagonal
-wavefront of ``repro.kernels.lcs.ops.lcs_pallas``, with one launch per
-anti-diagonal of tiles where JAX makes one call per tile."""
+wavefront of ``repro.kernels.lcs.ops.lcs_pallas``, with the whole table in
+one launch where JAX makes one call per tile."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.lcs.lcs import lcs_diagonal_kernel
+from repro_torch.kernels.lcs.lcs import lcs_table_kernel
 
 
 def default_tile(m: int, p: int) -> int:
@@ -18,19 +18,15 @@ def lcs_wavefront(s: torch.Tensor, t: torch.Tensor, p: int, *,
                   tile: int | None = None) -> torch.Tensor:
     """LCS length (0-d int32) of int32 sequences s (m,) and t (n,) by the
     tile kernel over the PACO tiling for p processors: tile x tile tiles
-    (both lengths must be multiples of the tile), ti + tj - 1 launches on
-    CUDA."""
+    (both lengths must be multiples of the tile), one launch on CUDA."""
     m, n = s.shape[0], t.shape[0]
     if tile is None:
         tile = default_tile(m, p)
     if m % tile or n % tile:
         raise ValueError(f"tile {tile} does not divide {m} x {n}")
-    ti, tj = m // tile, n // tile
     s = s.to(torch.int32).contiguous()
     t = t.to(torch.int32).contiguous()
-    rows = torch.zeros((2, n), dtype=torch.int32, device=s.device)
-    cols = torch.zeros((2, m), dtype=torch.int32, device=s.device)
-    corners = torch.zeros((2, tj), dtype=torch.int32, device=s.device)
-    for d in range(ti + tj - 1):
-        lcs_diagonal_kernel(s, t, rows, cols, corners, d, tile, tile)
-    return rows[(ti + tj - 2) % 2, -1]
+    zeros = torch.zeros(m + n + 1, dtype=torch.int32, device=s.device)
+    bottom, _ = lcs_table_kernel(s, t, zeros[:n], zeros[n:n + m],
+                                 zeros[n + m:], tile, tile)
+    return bottom[-1]

@@ -1,16 +1,18 @@
-"""The paged decode kernel and the MLA latent prefill kernel on the card,
-in one short call: build, check, time and ablate them, for iterating on
-``csrc/paged_decode.cu`` and ``csrc/paged_latent_wgmma.cuh``.
+"""The paged decode kernel and the MLA latent prefill and decode kernels
+on the card, in one short call: build, check, time and ablate them, for
+iterating on ``csrc/paged_decode.cu`` and ``csrc/paged_latent_wgmma.cuh``.
 
   PYTHONPATH=src python -m repro_torch.launch.paged_bench [--seed N]
       [--ablate]
 
-1. Build every kernel (``kernels.build``) and print the two libraries'
+1. Build every kernel (``kernels.build``) and print the three libraries'
    kernels' registers and spills from ``-Xptxas -v``.
 2. Paged decode at qwen3-0.6b's serving shape (8 slots of 48..1032
-   positions drawn from the seed, Hkv 8, G 2, D 128, pages of 64, bf16)
-   and the latent prefill at deepseek-v2's (one 128-token chunk at start
-   896, H 128, kv_lora 512, qk_rope 64, pages of 128, bf16): each against
+   positions drawn from the seed, Hkv 8, G 2, D 128, pages of 64, bf16),
+   the latent prefill at deepseek-v2's (one 128-token chunk at start 896,
+   H 128, kv_lora 512, qk_rope 64, pages of 128, bf16) and the latent
+   decode at deepseek-v2's (8 slots of 48..1032 positions, H 128, pages of
+   128, clusters of 4 ranks): each against
    its plain version (``chip_smoke.py``'s bf16 ATOL, 2e-2), bitwise equal
    over two calls, with the variant it took; device ms per call from one
    CUDA-graph replay of ITERS calls cycling over LAYERS layers' pools (so
@@ -23,8 +25,11 @@ in one short call: build, check, time and ablate them, for iterating on
    and weighted sums) or without both (the launch, the page ids and the
    merges); latent prefill without its loads (its barriers completed by a
    plain arrival), without its output stores or without its products
-   (both wgmma loops, behind a condition that never holds).  What bounds
-   each kernel.
+   (both wgmma loops, behind a condition that never holds); latent decode
+   without its loads, its products or its merge (the ranks' states left
+   unread, no output written).  What bounds each kernel.  And the latent
+   decode in clusters of 8 ranks (``ranks8``), which computes the
+   kernel's function: checked like the kernel.
 
 Exits 1 if a check fails, 2 without a card.  ``chip_smoke.py`` holds the
 kernels to the same bounds at more shapes and times them beside SDPA and
@@ -70,20 +75,33 @@ _LATENT_STORE = ("      if (orow < n_rows)\n"
 _LATENT_Q_LOAD = ("    mbar_expect_tx(q_full, kTileBytes);\n"
                   "#pragma unroll\n"
                   "    for (int c = 0; c < kBoxes - 1; ++c)\n"
-                  "      tma_load_2d(base + kQ + c * kBlockBytes, &ql_map, "
-                  "q_full, c * 64, r0);\n"
+                  "      tma_load_2d(base + kQ + c * kBlockBytes, ql_map, "
+                  "q_full, c * 64,\n"
+                  "                  q_row0);\n"
                   "    tma_load_2d(base + kQ + (kBoxes - 1) * kBlockBytes, "
-                  "&qr_map, q_full, 0,\n"
-                  "                r0);\n")
+                  "qr_map, q_full, 0,\n"
+                  "                q_row0);\n")
 _LATENT_TILE_LOAD = ("    mbar_expect_tx(full + 8 * stage, kTileBytes);\n"
                      "#pragma unroll\n"
                      "    for (int c = 0; c < kBoxes - 1; ++c)\n"
-                     "      tma_load_2d(kt + c * kBlockBytes, &ckv_map, "
+                     "      tma_load_2d(kt + c * kBlockBytes, ckv_map, "
                      "full + 8 * stage, c * 64,\n"
                      "                  krow);\n"
                      "    tma_load_2d(kt + (kBoxes - 1) * kBlockBytes, "
-                     "&kr_map, full + 8 * stage,\n"
+                     "kr_map, full + 8 * stage,\n"
                      "                0, krow);\n")
+_LATENT_NO_LOADS = [
+    (_LATENT_Q_LOAD, "    mbar_arrive(q_full);\n"),
+    (_LATENT_TILE_LOAD, "    mbar_arrive(full + 8 * stage);\n"
+                        "    (void)kt;\n    (void)krow;\n")]
+# the products guarded by a condition that never holds, so that the copy
+# keeps its registers and code shape
+_LATENT_NO_PRODUCTS = [
+    (_LATENT_S, "    if (page < 0) {\n" + _LATENT_S + "    }\n"),
+    (_LATENT_PV, "    if (page < 0) {\n" + _LATENT_PV + "    }\n")]
+_LATENT_MERGE = ("  for (int u = threadIdx.x; u < kRowsW * kUnits; "
+                 "u += kThreadsW) {\n")
+_LATENT_RANKS = "constexpr int kRanks = 4;\n"
 ABLATIONS = {
     "decode_no_loads": ("paged_decode.cu", [(_DECODE_ISSUE, ""),
                                             (_DECODE_NEXT, "")]),
@@ -94,16 +112,24 @@ ABLATIONS = {
         (_LATENT_STORE, _LATENT_STORE.replace("orow < n_rows",
                                               "orow < 0"))]),
     # the barriers complete by a plain arrival, no TMA load issued
-    "latent_no_loads": ("paged_latent_wgmma.cuh", [
-        (_LATENT_Q_LOAD, "    mbar_arrive(q_full);\n"),
-        (_LATENT_TILE_LOAD, "    mbar_arrive(full + 8 * stage);\n"
-                            "    (void)kt;\n    (void)krow;\n")]),
-    # the products guarded by a condition that never holds, so that the
-    # copy keeps its registers and code shape
-    "latent_no_products": ("paged_latent_wgmma.cuh", [
-        (_LATENT_S, "    if (n_heads < 0) {\n" + _LATENT_S + "    }\n"),
-        (_LATENT_PV, "    if (n_heads < 0) {\n" + _LATENT_PV + "    }\n")]),
+    "latent_no_loads": ("paged_latent_wgmma.cuh", _LATENT_NO_LOADS),
+    "latent_no_products": ("paged_latent_wgmma.cuh", _LATENT_NO_PRODUCTS),
+    # the latent decode (kernel 3) shares the walk: the same edits, built
+    # from paged_latent_decode.cu; without its merge, the ranks leave their
+    # states in shared memory and nobody reads them or writes the output
+    "latent_decode_no_loads": ("paged_latent_wgmma.cuh", _LATENT_NO_LOADS),
+    "latent_decode_no_products": ("paged_latent_wgmma.cuh",
+                                  _LATENT_NO_PRODUCTS),
+    "latent_decode_no_merge": ("paged_latent_wgmma.cuh", [
+        (_LATENT_MERGE, _LATENT_MERGE.replace("u < kRowsW * kUnits",
+                                              "u < kRowsW * kUnits && "
+                                              "page < 0"))]),
+    # clusters of 8 ranks: the kernel's function, a different split
+    "latent_decode_ranks8": ("paged_latent_wgmma.cuh", [
+        (_LATENT_RANKS, _LATENT_RANKS.replace("4", "8"))]),
 }
+# the copies that compute the kernel's function, checked like it
+EXACT = ("latent_decode_ranks8",)
 
 
 def ablated_sources(csrc) -> dict[str, tuple[str, str]]:
@@ -124,7 +150,8 @@ def ablated_sources(csrc) -> dict[str, tuple[str, str]]:
 def build_report() -> None:
     from repro_torch.kernels.build import LIBS
     LIBS.build_all()
-    for lib in ("paged_decode", "paged_latent_prefill"):
+    for lib in ("paged_decode", "paged_latent_prefill",
+                "paged_latent_decode"):
         entry = None
         for line in LIBS.ptxas_log.get(lib, "").splitlines():
             if "Compiling entry" in line:
@@ -186,6 +213,13 @@ class Shapes:
         self.row = torch.randperm(n_lpool - 1, generator=gen, device=dev)[
             :width].to(torch.int32)
         self.scale = 1 / math.sqrt(192)   # deepseek-v2: qk_nope + qk_rope
+        # the latent decode: 8 slots of 16 pages of 128 over the same pools
+        self.llens = torch.randint(48, 1000 + 32 + 1, (slots,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+        self.lbt = torch.randperm(n_lpool - 1, generator=gen, device=dev)[
+            :slots * 16].reshape(slots, 16).to(torch.int32)
+        self.dql = rnd(slots, 1, self.h, self.kv)
+        self.dqr = rnd(slots, 1, self.h, self.rope)
 
     def decode_bound_ms(self) -> float:
         n_keys = int(self.lens.sum())
@@ -193,6 +227,14 @@ class Shapes:
                   + 2 * n_keys * 8 * self.d * 2)
         return max(nbytes / HBM_BYTES_PER_S,
                    4 * n_keys * self.hq * self.d / BF16_FLOPS) * 1e3
+
+    def latent_decode_bound_ms(self) -> float:
+        n_keys = int(self.llens.sum())
+        flops = n_keys * self.h * (2 * (self.kv + self.rope) + 2 * self.kv)
+        nbytes = (2 * (2 * self.dql.numel() + self.dqr.numel())
+                  + 4 * (self.lbt.numel() + 8)
+                  + n_keys * (self.kv + self.rope) * 2)
+        return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
 
     def latent_bound_ms(self) -> float:
         pairs = sum(self.start + i + 1 for i in range(self.c))
@@ -221,7 +263,12 @@ def check_and_time(sh: Shapes, smi: str) -> bool:
          lambda: ops.paged_latent_prefill_attention(
              sh.ql, sh.qr, sh.ck[0], sh.kr[0], sh.row, sh.start,
              scale=sh.scale, use_kernel=False),
-         sh.latent_bound_ms())]
+         sh.latent_bound_ms()),
+        ("paged_latent_decode", K.paged_latent_decode,
+         lambda i: K.paged_latent_decode(
+             sh.dql, sh.dqr, sh.ck[i % LAYERS], sh.kr[i % LAYERS], sh.lbt,
+             sh.llens, scale=sh.scale),
+         lambda: latent_decode_plain(sh), sh.latent_decode_bound_ms())]
     for name, wrapper, call, plain, bound in cases:
         before = wrapper.variants.copy()
         got = call(0)
@@ -237,7 +284,15 @@ def check_and_time(sh: Shapes, smi: str) -> bool:
     return ok
 
 
-def ablate(sh: Shapes, smi: str) -> None:
+def latent_decode_plain(sh: Shapes) -> torch.Tensor:
+    """The plain latent decode on the first layer's pools."""
+    from repro_torch.kernels.attention import ops
+    return ops.paged_latent_decode_attention(
+        sh.dql, sh.dqr, sh.ck[0], sh.kr[0], sh.lbt, sh.llens, scale=sh.scale,
+        use_kernel=False)
+
+
+def ablate(sh: Shapes, smi: str) -> bool:
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR.parent / "paged_bench"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -245,8 +300,10 @@ def ablate(sh: Shapes, smi: str) -> None:
     for name, (fname, text) in ablated_sources(build.CSRC).items():
         # the copy of a header goes beside a copy of the library's .cu that
         # includes it from the copy's directory first
-        lib_src = "paged_decode.cu" if name.startswith("decode") else \
-            "paged_latent_prefill.cu"
+        lib_src = ("paged_decode.cu" if name.startswith("decode") else
+                   "paged_latent_decode.cu"
+                   if name.startswith("latent_decode") else
+                   "paged_latent_prefill.cu")
         cu_dir = out_dir / name
         cu_dir.mkdir(exist_ok=True)
         (cu_dir / fname).write_text(text)
@@ -265,6 +322,7 @@ def ablate(sh: Shapes, smi: str) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     out_d = torch.empty_like(sh.q)
     out_l = torch.empty_like(sh.ql)
+    ok = True
     for name, proc in procs:
         text, _ = proc.communicate()
         if proc.returncode:
@@ -286,6 +344,25 @@ def ablate(sh: Shapes, smi: str) -> None:
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"ablation {name}: CUDA error {err}")
+        elif name.startswith("latent_decode"):
+            fn = lib.paged_latent_decode
+            fn.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                           F, P]
+            fn.restype = I
+            n_pool, page = sh.ck.shape[1:3]
+            out_ld = torch.empty_like(sh.dql)
+
+            def call(i, fn=fn, name=name, n_pool=n_pool, page=page,
+                     out_ld=out_ld):
+                err = fn(1, sh.dql.data_ptr(), sh.dqr.data_ptr(),
+                         sh.ck[i % LAYERS].data_ptr(),
+                         sh.kr[i % LAYERS].data_ptr(), sh.lbt.data_ptr(),
+                         sh.llens.data_ptr(), out_ld.data_ptr(), None, None,
+                         sh.lbt.shape[0], sh.h, sh.kv, sh.rope, page,
+                         sh.lbt.shape[1], n_pool, sh.scale,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"ablation {name}: CUDA error {err}")
         else:
             fn = lib.paged_latent_prefill
             fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
@@ -303,15 +380,26 @@ def ablate(sh: Shapes, smi: str) -> None:
                 if err:
                     raise RuntimeError(f"ablation {name}: CUDA error {err}")
         row = {"copy": name, "ms": _graph_ms(call), "card": smi}
+        if name in EXACT:
+            call(0)
+            got = out_ld.clone()
+            call(0)
+            err = (got.float() - latent_decode_plain(sh).float()).abs().max()
+            row.update(max_abs_err=err.item(),
+                       bitwise_repeat=torch.equal(got, out_ld))
+            row["ok"] = row["bitwise_repeat"] and row["max_abs_err"] <= ATOL
+            ok &= row["ok"]
         print(f"[ablate] {json.dumps(row)}")
+    return ok
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ablate", action="store_true",
-                    help="also time copies of the two kernels with their "
-                    "loads, stores or products taken out")
+                    help="also time copies of the kernels with their "
+                    "loads, stores, products or merge taken out, and the "
+                    "latent decode in clusters of 8 ranks")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("paged_bench: no CUDA device", file=sys.stderr)
@@ -325,7 +413,7 @@ def main(argv: list[str] | None = None) -> int:
     sh = Shapes(torch.Generator(device="cuda").manual_seed(args.seed))
     ok = check_and_time(sh, smi)
     if args.ablate:
-        ablate(sh, smi)
+        ok &= ablate(sh, smi)
     return 0 if ok else 1
 
 

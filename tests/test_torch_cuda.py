@@ -6,7 +6,7 @@ they take, the PACO matmul and the LCS tile), the serving engine on CUDA
 running the kernels on every
 prefill chunk and decode tick, a train step on CUDA running the flash
 kernels, and the PACO executors launching the matmul kernel once per
-cuboid and the LCS kernel once per anti-diagonal.
+cuboid and the LCS kernel once per table.
 
 These tests carry the ``cuda`` marker and skip on a host without a card;
 the file imports neither JAX nor ``repro``, so it also runs where only
@@ -307,6 +307,42 @@ def test_latent_prefill_takes_the_variant_the_library_names(
     want = ops.paged_latent_prefill_attention(*args, start, scale=scale,
                                               use_kernel=False)
     assert _err(got, want) <= dict(DTYPES)[dtype]
+
+
+@pytest.mark.parametrize("h,page", [(128, 128), (128, 64), (5, 64),
+                                    (70, 128)])
+def test_latent_decode_takes_wgmma_with_live_key_ranks(cuda, h, page):
+    """deepseek-v2's widths (kv_lora 512, qk_rope 64) in bf16 take the
+    wgmma decode: one launch of clusters of 4 ranks, lengths 1, 63,
+    64, 65 (ranks past the live keys hold nothing), 1000, the full width
+    and past it; within ATOL of the plain version and bitwise the same
+    over two calls; a slot with no valid key writes zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(h + page)
+    width = 2048 // page
+    lens = [1, 63, 64, 65, 1000, 2048, 2049, 0]
+    b = len(lens)
+    n_pool = b * width + 1
+    bt = torch.randperm(n_pool - 1, generator=gen, device=cuda)
+    bt = bt[:b * width].reshape(b, width).to(torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    bf = torch.bfloat16
+    args = (_rand(gen, b, 1, h, 512, dtype=bf),
+            _rand(gen, b, 1, h, 64, dtype=bf),
+            _rand(gen, n_pool, page, 512, dtype=bf),
+            _rand(gen, n_pool, page, 64, dtype=bf), bt, lens)
+    scale = 1 / math.sqrt(192)
+    dec = K.paged_latent_decode
+    before = dec.launches, dec.variants.copy()
+    got = dec(*args, scale=scale)
+    again = dec(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert dec.launches == before[0] + 2
+    assert dec.variants - before[1] == {"wgmma": 2}
+    assert torch.equal(got, again)
+    want = ops.paged_latent_decode_attention(*args, scale=scale,
+                                             use_kernel=False)
+    assert _err(got[:-1], want[:-1]) <= 2e-2
+    assert not got[-1].any()
 
 
 def test_latent_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -726,63 +762,85 @@ def _lcs_inputs(gen, m, n, monotone):
             -2 ** 31, 2 ** 31 - 1, s, generator=gen, device=gen.device,
             dtype=torch.int32)
         top, left, corner = big(n), big(m), big(1)
+        top[::7], left[::5] = 2 ** 31 - 1, 2 ** 31 - 1   # sums that wrap
+        top[3::11], left[2::9] = -2 ** 31, -2 ** 31
     return ints(m), ints(n), top, left, corner
 
 
 @pytest.mark.parametrize("m,n", [(1, 1), (7, 7), (64, 64), (256, 256),
-                                 (5, 300), (300, 5), (40, 1030), (9, 8200)])
+                                 (5, 300), (300, 5), (40, 1030), (9, 8200),
+                                 (8200, 9)])
 @pytest.mark.parametrize("monotone", [True, False])
 def test_lcs_tile_kernel_matches_plain(cuda, m, n, monotone):
-    """Exact, on DP borders and on any int32 borders; 1030 columns take
-    several warps, 8200 two column chunks (two launches)."""
-    from repro_torch.kernels.lcs import (lcs_diagonal_kernel,
-                                         lcs_tile_kernel, lcs_tile_ref)
+    """Exact, on DP borders and on any int32 borders (INT32_MIN and
+    INT32_MAX among them); 1030 columns take several strips, 8200 columns
+    or rows two tiles of the same launch: one launch each."""
+    from repro_torch.kernels.lcs import lcs_tile_kernel, lcs_tile_ref
+    from repro_torch.kernels.lcs.lcs import lcs_table_kernel
     gen = torch.Generator(device=cuda).manual_seed(m * 7 + n)
     args = _lcs_inputs(gen, m, n, monotone)
-    before = lcs_diagonal_kernel.launches
+    before = lcs_table_kernel.launches
     got = lcs_tile_kernel(*args)
     torch.cuda.synchronize()
-    assert lcs_diagonal_kernel.launches == before + -(-n // 8192)
+    assert lcs_table_kernel.launches == before + 1
     for g, w in zip(got, lcs_tile_ref(*args)):
         assert torch.equal(g, w)
 
 
-def test_lcs_diagonal_kernel_matches_plain(cuda):
-    """T = 12 tiles of 24 x 40 on one anti-diagonal of a 12 x 15 grid, in
-    the border arrays' two halves; what the diagonal reads is untouched."""
-    from repro_torch.kernels.lcs import lcs_diagonal_kernel, lcs_tiles_ref
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    tm, tn, ti, tj, d = 24, 40, 12, 15, 13
-    ints = lambda *s: torch.randint(-9, 99, s, generator=gen,  # noqa: E731
-                                    device=cuda, dtype=torch.int32)
-    s, t = ints(ti * tm) % 4, ints(tj * tn) % 4
-    rows, cols, corners = ints(2, tj * tn), ints(2, ti * tm), ints(2, tj)
-    src = [x[0].clone() for x in (rows, cols, corners)]
-    lcs_diagonal_kernel(s, t, rows, cols, corners, d, tm, tn)
-    i = torch.arange(max(0, d - tj + 1), min(ti, d + 1), device=cuda)
-    j = d - i
-    left = src[1].view(ti, tm)[i]
-    bottom, right = lcs_tiles_ref(s.view(ti, tm)[i], t.view(tj, tn)[j],
-                                  src[0].view(tj, tn)[j], left, src[2][j])
-    assert torch.equal(rows[1].view(tj, tn)[j], bottom)
-    assert torch.equal(cols[1].view(ti, tm)[i], right)
-    assert torch.equal(corners[1][j], left[:, -1])
-    for before, after in zip(src, (rows[0], cols[0], corners[0])):
-        assert torch.equal(before, after)
+@pytest.mark.parametrize("tile", [1, 7, 128, 256, 8192])
+def test_lcs_table_kernel_matches_plain(cuda, tile):
+    """The whole table in one launch, tiles 1, 7, 128, 256 and 8192 wide
+    (a ragged last tile row and column where the tile does not divide),
+    on arbitrary int32 borders, against ``lcs_tiles_ref`` as one tile;
+    bitwise the same over two calls; the variant names the run (4 up to
+    128 columns, 8 above)."""
+    from repro_torch.kernels.lcs import lcs_tiles_ref
+    from repro_torch.kernels.lcs.lcs import lcs_table_kernel
+    m, n = {1: (23, 41), 7: (61, 45), 128: (300, 520), 256: (700, 600),
+            8192: (9000, 8500)}[tile]
+    gen = torch.Generator(device=cuda).manual_seed(tile)
+    s, t, top, left, corner = _lcs_inputs(gen, m, n, False)
+    before = lcs_table_kernel.launches, lcs_table_kernel.variants.copy()
+    got = lcs_table_kernel(s, t, top, left, corner, tile, tile)
+    again = lcs_table_kernel(s, t, top, left, corner, tile, tile)
+    torch.cuda.synchronize()
+    assert lcs_table_kernel.launches == before[0] + 2
+    took = 4 if tile <= 128 else 8
+    assert lcs_table_kernel.variants - before[1] == {f"skew{took}": 2}
+    want = lcs_tiles_ref(s[None], t[None], top[None], left[None], corner)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w[0]) and torch.equal(g, a)
+
+
+@pytest.mark.parametrize("tile", [32, 128])
+def test_lcs_table_kernel_many_tiles_match_plain(cuda, tile):
+    """A grid of 64 x 64 tiles (up to 64 CTAs claiming and waiting at
+    once) on arbitrary int32 borders: the whole bottom row and right
+    column against ``lcs_table_plain`` on the same tensors, bitwise the
+    same over two calls."""
+    from repro_torch.kernels.lcs.lcs import lcs_table_kernel, lcs_table_plain
+    n = 64 * tile
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    args = (*_lcs_inputs(gen, n, n, False), tile, tile)
+    got = lcs_table_kernel(*args)
+    again = lcs_table_kernel(*args)
+    for g, a, w in zip(got, again, lcs_table_plain(*args)):
+        assert torch.equal(g, w) and torch.equal(g, a)
 
 
 @pytest.mark.parametrize("n,p,tile", [(1024, 5, None), (1024, 132, None),
-                                      (768, 3, 96), (512, 1, 512)])
-def test_paco_lcs_on_cuda_launches_once_per_diagonal(cuda, n, p, tile):
+                                      (768, 3, 96), (512, 1, 512),
+                                      (2048, 1, 128)])
+def test_paco_lcs_on_cuda_launches_once(cuda, n, p, tile):
+    """One launch per paco_lcs call, whatever the tiling, exactly the
+    plain row scan."""
     from repro_torch.core import lcs_reference, paco_lcs
-    from repro_torch.kernels.lcs import lcs_diagonal_kernel
-    from repro_torch.kernels.lcs.ops import default_tile
+    from repro_torch.kernels.lcs.lcs import lcs_table_kernel
     gen = torch.Generator(device=cuda).manual_seed(n + p)
     s, t = (torch.randint(0, 4, (n,), generator=gen, device=cuda,
                           dtype=torch.int32) for _ in range(2))
-    before = lcs_diagonal_kernel.launches
+    before = lcs_table_kernel.launches
     got = paco_lcs(s, t, p, tile=tile)
     torch.cuda.synchronize()
-    ti = n // (tile or default_tile(n, p))
-    assert lcs_diagonal_kernel.launches == before + 2 * ti - 1
+    assert lcs_table_kernel.launches == before + 1
     assert int(got) == int(lcs_reference(s, t))

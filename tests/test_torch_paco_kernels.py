@@ -8,12 +8,15 @@ interpret mode (``matmul_pallas``, ``lcs_tile_pallas``) and against
   products of bf16 operands into f32) or 8 (float32, one FMA per k), loads
   zero-filled past the ragged edges, one f32 accumulator flushed once in
   ``a.dtype``.
-- ``emulate_lcs_tiles`` walks ``csrc/lcs_tile.cu``: 8 columns per thread,
-  a thread-local running max, a warp scan in the steps of
-  ``__shfl_up_sync`` (1, 2, 4, 8, 16), a max over the earlier warps'
-  totals, and the next row's diagonal from the neighbouring thread or, at
-  a warp's first lane, from the left border and the warp prefix; int32
-  sums wrap.
+- ``emulate_skewed_sweep`` walks a tile of ``csrc/lcs_tile.cu``: runs of
+  4 or 8 columns a lane, row r at lane k's step r + k, the left neighbour
+  by ``__shfl_up_sync``, strips of 32 lanes pipelined through the
+  hand-off ring and its mbarrier phases (warps stepping in a seeded random
+  order), one three-way max over a wrapping add a cell; int32 sums wrap.
+- ``test_claim_schedule_in_random_order_is_exact`` walks the launch's
+  schedule: tiles claimed in anti-diagonal order, started once their
+  neighbours' flags are set and finished in a seeded random order, over
+  the kernel's single border buffers.
 
 Tolerances: float32 atol 1e-4 and bf16 3e-2 against ``matmul_pallas``
 (as ``tests/test_kernels.py``); against the port's plain version, within
@@ -503,55 +506,101 @@ def test_paco_matmul_runs_the_plan_once_and_keeps_its_tables(monkeypatch):
 # LCS
 # ---------------------------------------------------------------------------
 
-def _shift(x: torch.Tensor, by: int, fill: torch.Tensor) -> torch.Tensor:
-    """x moved ``by`` places up the last axis, ``fill`` below (the lanes
-    that __shfl_up_sync leaves unchanged and the guard ignores)."""
-    return torch.cat([fill.expand(*x.shape[:-1], by), x[..., :-by]], dim=-1)
+def _ring_done(blk0: int, slots: int) -> list[int]:
+    """Phases each hand-off slot has completed after ``blk0`` blocks of a
+    CTA's earlier tiles."""
+    return [len(range(q, blk0, slots)) for q in range(slots)]
 
 
-def emulate_lcs_tiles(s_tiles, t_tiles, top, left, corner, run: int = 8):
-    """The per-CTA walk of ``csrc/lcs_tile.cu`` for T tiles at once."""
+def emulate_skewed_sweep(s_tiles, t_tiles, top, left, corner, run: int = 8,
+                         block: int = 16, slots: int = 4, blk0: int = 0,
+                         seed: int = 0):
+    """The per-CTA sweep of ``csrc/lcs_tile.cu`` for T tiles at once.
+
+    Lane k of warp w owns columns c0 = (32 w + k) * run .. c0 + run - 1
+    (zero past the tile, as the kernel loads them) and does row r at its
+    warp's step r + k: X[r, c0 - 1] from lane k - 1 (``__shfl_up_sync``),
+    or at lane 0 from ``left`` (warp 0) or the hand-off ring of the warp
+    before; one three-way max over a wrapping add a cell.  Warps advance
+    in a seeded random order, each step only once its waits hold: a
+    consumer's "full" phase at the first row of each block, a producer's
+    "empty" phase before it overwrites a slot; ``blk0`` blocks of earlier
+    tiles set the phases' start, as in a CTA's later tiles."""
+    rng = np.random.default_rng(seed)
     n_t, m = s_tiles.shape
     n = t_tiles.shape[1]
-    runs = -(-n // run)
-    threads = -(-runs // 32) * 32
-    warps, width = threads // 32, threads * run
-    lo = torch.tensor(INT_MIN, dtype=torch.int32)
-    pad = lambda x: torch.cat(  # noqa: E731
-        [x, lo.expand(n_t, width - n)], dim=1).view(n_t, threads, run)
-    tv = pad(t_tiles)
-    prev = pad(top)
-    c0 = torch.arange(threads) * run
-    top_x = torch.cat([top, lo.expand(n_t, width - n + 1)], dim=1)
-    diag0 = torch.where(c0 == 0, corner[:, None],
-                        top_x[:, (c0 - 1).clamp(min=0)])
-    diag0 = torch.where(c0 <= n, diag0, lo)
-    rights = []
-    for i in range(m):
-        si, li = s_tiles[:, i, None, None], left[:, i]
-        dg, run_max, loc = diag0, lo.expand(n_t, threads), []
-        for r in range(run):
-            a = torch.maximum(prev[:, :, r],
-                              dg + (tv[:, :, r] == si[:, :, 0]).int())
-            dg = prev[:, :, r]
-            run_max = torch.maximum(run_max, a)
-            loc.append(run_max)
-        loc = torch.stack(loc, dim=2)
-        incl = run_max.reshape(n_t, warps, 32)
-        for o in (1, 2, 4, 8, 16):
-            incl = torch.maximum(incl, _shift(incl, o, lo))
-        excl = _shift(incl, 1, lo)
-        totals = incl[:, :, 31]
-        wpre = torch.cat([lo.expand(n_t, 1),
-                          torch.cummax(totals, dim=1).values[:, :-1]], dim=1)
-        pre = torch.maximum(torch.maximum(li[:, None, None],
-                                          wpre[:, :, None]), excl)
-        prev = torch.maximum(loc, pre.reshape(n_t, threads, 1))
-        rights.append(prev.reshape(n_t, width)[:, n - 1])
-        up = _shift(prev[:, :, run - 1], 1, lo)
-        lane0 = torch.maximum(li[:, None], wpre).repeat_interleave(32, dim=1)
-        diag0 = torch.where(torch.arange(threads) % 32 == 0, lane0, up)
-    return prev.reshape(n_t, width)[:, :n], torch.stack(rights, dim=1)
+    nw = -(-n // (32 * run))
+    lanes = 32 * nw
+    width = lanes * run
+
+    def pad(x):
+        return torch.cat([x, torch.zeros(n_t, width - n, dtype=x.dtype)], 1)
+
+    tv = pad(t_tiles).view(n_t, nw, 32, run)
+    prev = pad(top).view(n_t, nw, 32, run).clone()
+    c0 = torch.arange(lanes) * run
+    top_x = torch.cat([top, torch.zeros(n_t, 1, dtype=top.dtype)], 1)
+    diag = torch.where(c0 == 0, corner[:, None],
+                       top_x[:, (c0 - 1).clamp(0, n)])
+    diag = torch.where(c0 <= n, diag, 0).view(n_t, nw, 32).clone()
+    last = torch.zeros(n_t, nw, 32, dtype=torch.int32)
+    right = torch.zeros(n_t, m, dtype=torch.int32)
+    owner, at = (n - 1) // run, (n - 1) % run
+    hand = torch.zeros(max(nw - 1, 1), slots, block, n_t, dtype=torch.int32)
+    full = [_ring_done(blk0, slots) for _ in range(nw)]
+    empty = [_ring_done(blk0, slots) for _ in range(nw)]
+    step = [0] * nw
+    lane = torch.arange(32)
+
+    def can_step(w):
+        st = step[w]
+        g = blk0 + st // block
+        if w > 0 and st < m and st % block == 0 \
+                and full[w - 1][g % slots] < g // slots + 1:
+            return False
+        r31 = st - 31
+        g = blk0 + r31 // block
+        return not (w < nw - 1 and 0 <= r31 < m and r31 % block == 0
+                    and g >= slots and empty[w][g % slots] < g // slots)
+
+    while any(step[w] < m + 31 for w in range(nw)):
+        ready = [w for w in range(nw) if step[w] < m + 31 and can_step(w)]
+        assert ready, "the strips' pipeline is stuck"
+        w = int(rng.choice(ready))
+        st = step[w]
+        x = torch.roll(last[:, w], 1, dims=1)
+        if st < m:
+            if w == 0:
+                x[:, 0] = left[:, st]
+            else:
+                g = blk0 + st // block
+                x[:, 0] = hand[w - 1, g % slots, st % block]
+                if st % block == block - 1 or st == m - 1:
+                    empty[w - 1][g % slots] += 1
+        r = st - lane
+        active = (r >= 0) & (r < m)
+        si = s_tiles[:, r.clamp(0, m - 1)]
+        cur, dg = x, diag[:, w]
+        for q in range(run):
+            p = prev[:, w, :, q].clone()
+            cell = torch.maximum(torch.maximum(cur, p),
+                                 dg + (tv[:, w, :, q] == si).int())
+            cur = torch.where(active, cell, cur)
+            prev[:, w, :, q] = torch.where(active, cell, p)
+            dg = p
+        diag[:, w] = torch.where(active, x, diag[:, w])
+        last[:, w] = torch.where(active, cur, last[:, w])
+        k = owner - 32 * w
+        if 0 <= k < 32 and active[k]:
+            right[:, r[k]] = prev[:, w, k, at]
+        if w < nw - 1 and active[31]:
+            r31 = int(r[31])
+            g = blk0 + r31 // block
+            hand[w, g % slots, r31 % block] = cur[:, 31]
+            if r31 % block == block - 1 or r31 == m - 1:
+                full[w][g % slots] += 1
+        step[w] += 1
+    return prev.reshape(n_t, width)[:, :n], right
 
 
 def _borders(rng, n_t, m, n, kind):
@@ -567,23 +616,26 @@ def _borders(rng, n_t, m, n, kind):
         left = rng.integers(-hi - 1, hi, (n_t, m), endpoint=True)
         corner = rng.integers(-hi - 1, hi, n_t, endpoint=True)
         top[:, ::7], left[:, ::5] = hi, hi   # sums that wrap
+        top[:, 3::11], left[:, 2::9] = -hi - 1, -hi - 1
     return [np.asarray(x, np.int32) for x in (s, t, top, left, corner)]
 
 
-@pytest.mark.parametrize("m,n", [(8, 8), (16, 16), (32, 32), (5, 7),
-                                 (1, 1), (16, 300), (9, 520)])
+@pytest.mark.parametrize("m,n,run", [(8, 8, 8), (16, 16, 4), (32, 32, 8),
+                                     (5, 7, 4), (1, 1, 8), (16, 300, 4),
+                                     (9, 520, 8), (40, 129, 4)])
 @pytest.mark.parametrize("kind", ["monotone", "any"])
-def test_lcs_walk_matches_pallas_and_plain(m, n, kind):
+def test_lcs_walk_matches_pallas_and_plain(m, n, run, kind):
     """One tile against lcs_tile_pallas in interpret mode: the tiles of
     tests/test_kernels.py:114, ragged ones, and tiles wide enough for
-    several warps, on DP borders and on arbitrary int32 ones."""
+    several strips, on DP borders and on arbitrary int32 ones (INT32_MIN
+    and INT32_MAX among them)."""
     rng = np.random.default_rng(m * 1000 + n)
     s, t, top, left, corner = _borders(rng, 1, m, n, kind)
     want_b, want_r = lcs_tile_pallas(
         jnp.asarray(s[0]), jnp.asarray(t[0]), jnp.asarray(top[0]),
         jnp.asarray(left[0]), jnp.asarray(corner), interpret=True)
     ts = [torch.from_numpy(x) for x in (s, t, top, left, corner)]
-    for got_b, got_r in (emulate_lcs_tiles(*ts),
+    for got_b, got_r in (emulate_skewed_sweep(*ts, run=run, seed=m + n),
                          lcs_tiles_ref(*ts),
                          [x[None] for x in lcs_tile_ref(
                              *(x[0] for x in ts[:4]), ts[4])],
@@ -593,15 +645,19 @@ def test_lcs_walk_matches_pallas_and_plain(m, n, kind):
         np.testing.assert_array_equal(got_r[0].numpy(), np.asarray(want_r))
 
 
-@pytest.mark.parametrize("n_t,m,n", [(5, 16, 16), (3, 7, 40), (4, 33, 260)])
+@pytest.mark.parametrize("n_t,m,n,run,blk0", [(5, 16, 16, 8, 0),
+                                              (3, 7, 40, 4, 3),
+                                              (4, 33, 260, 4, 6),
+                                              (2, 50, 1030, 8, 9)])
 @pytest.mark.parametrize("kind", ["monotone", "any"])
-def test_lcs_batched_walk_matches_jax_per_tile(n_t, m, n, kind):
-    """T > 1 tiles at once (one anti-diagonal): the batched plain version
-    and the walk against JAX's plain version tile by tile."""
+def test_lcs_batched_walk_matches_jax_per_tile(n_t, m, n, run, blk0, kind):
+    """T > 1 tiles at once: the batched plain version and the sweep (its
+    strips pipelined through the hand-off ring from a later tile's ring
+    phases) against JAX's plain version tile by tile."""
     rng = np.random.default_rng(n_t + m + n)
     s, t, top, left, corner = _borders(rng, n_t, m, n, kind)
     ts = [torch.from_numpy(x) for x in (s, t, top, left, corner)]
-    walk_b, walk_r = emulate_lcs_tiles(*ts)
+    walk_b, walk_r = emulate_skewed_sweep(*ts, run=run, blk0=blk0, seed=m)
     ref_b, ref_r = lcs_tiles_ref(*ts)
     assert torch.equal(walk_b, ref_b) and torch.equal(walk_r, ref_r)
     for i in range(n_t):
@@ -616,8 +672,8 @@ def test_lcs_batched_walk_matches_jax_per_tile(n_t, m, n, kind):
                                       (128, 3, None), (96, 1, 32),
                                       (60, 5, 12)])
 def test_wavefront_matches_lcs_pallas(n, p, tile):
-    """The port's one-launch-per-diagonal wavefront (its border arrays in
-    two halves) against lcs_pallas's per-tile loop and the reference."""
+    """The port's one-launch wavefront (one border buffer of each kind)
+    against lcs_pallas's per-tile loop and the reference."""
     rng = np.random.default_rng(n + p)
     s, t = rng.integers(0, 4, n), rng.integers(0, 4, n)
     js, jt = jnp.asarray(s, jnp.int32), jnp.asarray(t, jnp.int32)
@@ -625,20 +681,20 @@ def test_wavefront_matches_lcs_pallas(n, p, tile):
     if n % 8 == 0 and tile is None:
         assert int(lcs_pallas(js, jt, p, interpret=True)) == want
     ts, tt = (torch.tensor(x, dtype=torch.int32) for x in (s, t))
-    launches = KL.lcs_diagonal_kernel.launches
+    launches = KL.lcs_table_kernel.launches
     assert int(lcs_wavefront(ts, tt, p, tile=tile)) == want
-    assert KL.lcs_diagonal_kernel.launches == launches  # CPU: plain version
+    assert KL.lcs_table_kernel.launches == launches  # CPU: plain version
 
 
 def test_wavefront_diagonals_through_the_walk(monkeypatch):
-    """Each anti-diagonal's tiles through the walk emulation, in the
-    kernel's border layout: the table's LCS comes out exact, with one
-    call per diagonal (ti + tj - 1)."""
+    """Each anti-diagonal's tiles through the sweep emulation, in the
+    kernel's border layout: the table's LCS comes out exact, the plain
+    version batching one call per diagonal (ti + tj - 1)."""
     calls = []
 
     def walk(*tiles):
         calls.append(tiles[0].shape[0])
-        return emulate_lcs_tiles(*tiles)
+        return emulate_skewed_sweep(*tiles, run=4)
 
     monkeypatch.setattr(KL, "lcs_tiles_ref", walk)
     rng = np.random.default_rng(7)
@@ -652,10 +708,11 @@ def test_wavefront_diagonals_through_the_walk(monkeypatch):
 
 
 def test_lcs_tile_column_chunks_chain_exactly(monkeypatch):
-    """A tile wider than the kernel's widest goes through in column
-    chunks (the right column of one is the next one's left border, its
-    top entry one column left the next corner): exact on any borders."""
-    monkeypatch.setattr(KL, "_chunk_width", lambda x: 5)
+    """A tile larger than one CTA takes is cut into tiles of the same
+    launch, ragged at the far edges (the right column of one is the next
+    one's left border, the bottom row the next one's top, X[-1, j0 - 1]
+    the first tile row's corners): exact on any borders."""
+    monkeypatch.setattr(KL, "_tile_shape", lambda m, n, cuda: (4, 5))
     rng = np.random.default_rng(3)
     for kind in ("monotone", "any"):
         s, t, top, left, corner = (torch.from_numpy(x[0] if x.ndim > 1
@@ -666,17 +723,112 @@ def test_lcs_tile_column_chunks_chain_exactly(monkeypatch):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _claim_order(ti: int, tj: int):
+    """The tiles in the kernel's claim order: its per-CTA cursor over the
+    anti-diagonals, for claims 0, 1, 2, ..."""
+    def count(d):
+        return min(d + 1, ti, tj, ti + tj - 1 - d)
+    d = base = 0
+    for k in range(ti * tj):
+        while k >= base + count(d):
+            base += count(d)
+            d += 1
+        i = max(0, d - tj + 1) + k - base
+        yield i, d - i
+
+
+@pytest.mark.parametrize("m,n,tile_m,tile_n,ctas,kind", [
+    (64, 64, 8, 8, 3, "zero"), (64, 48, 8, 16, 8, "zero"),
+    (50, 37, 8, 10, 4, "any"), (30, 70, 7, 9, 64, "any")])
+def test_claim_schedule_in_random_order_is_exact(m, n, tile_m, tile_n, ctas,
+                                                 kind):
+    """The launch's schedule, one CTA per slot of ``ctas``: each claims the
+    next tile in anti-diagonal order, starts it (reads its borders) once
+    its top and left flags are set, and finishes it (writes its borders,
+    then its flags) later; a seeded random order picks among every start
+    and finish that may happen.  Some step can always happen (no
+    deadlock), and the table comes out as ``lcs_reference`` (zero borders)
+    or as one tile through the plain version (any borders)."""
+    rng = np.random.default_rng(m + n + ctas)
+    s, t, top, left, corner = (torch.from_numpy(x[0] if x.ndim > 1 else x)
+                               for x in _borders(rng, 1, m, n, "any"))
+    if kind == "zero":
+        top, left, corner = (torch.zeros_like(x) for x in (top, left,
+                                                           corner))
+    ti, tj = -(-m // tile_m), -(-n // tile_n)
+    state = KL._state(top, left, corner, tile_n, ti, tj)
+    rows, cols = state[:n], state[n:n + m]
+    corners = state[n + m:n + m + tj]
+    colprog, rowprog = [0] * tj, [0] * ti
+    claims = _claim_order(ti, tj)
+    held = [next(claims, None) for _ in range(ctas)]
+    started = [None] * ctas
+    while any(h is not None for h in held):
+        moves = []
+        for c, h in enumerate(held):
+            if h is None:
+                continue
+            i, j = h
+            if started[c] is not None:
+                moves.append(("finish", c))
+            elif colprog[j] >= i and rowprog[i] >= j:
+                moves.append(("start", c))
+        assert moves, "no CTA can move: the schedule deadlocks"
+        what, c = moves[int(rng.integers(len(moves)))]
+        i, j = held[c]
+        r = slice(i * tile_m, min(m, (i + 1) * tile_m))
+        cc = slice(j * tile_n, min(n, (j + 1) * tile_n))
+        if what == "start":
+            lft = cols[r].clone()
+            started[c] = (lcs_tile_ref(s[r], t[cc], rows[cc].clone(), lft,
+                                       corners[j:j + 1].clone()), lft[-1])
+        else:
+            (bottom, right), corner_out = started[c]
+            rows[cc], cols[r], corners[j] = bottom, right, corner_out
+            colprog[j], rowprog[i] = i + 1, j + 1
+            started[c] = None
+            held[c] = next(claims, None)
+    want_b, want_r = lcs_tile_ref(s, t, top, left, corner)
+    assert torch.equal(rows, want_b) and torch.equal(cols, want_r)
+    if kind == "zero":
+        assert int(rows[-1]) == int(jlcs_reference(jnp.asarray(s.numpy()),
+                                                   jnp.asarray(t.numpy())))
+
+
 def test_lcs_wrappers_reject_what_they_do_not_take():
     s = torch.zeros(8, dtype=torch.int32)
-    rows = torch.zeros((2, 8), dtype=torch.int32)
-    corners = torch.zeros((2, 1), dtype=torch.int32)
-    with pytest.raises(ValueError, match="do not cut"):
-        KL.lcs_diagonal_kernel(s, s, rows, rows, corners, 0, 3, 8)
-    with pytest.raises(ValueError, match="outside"):
-        KL.lcs_diagonal_kernel(s, s, rows, rows, corners, 1, 8, 8)
+    one = s[:1]
+    with pytest.raises(ValueError, match="empty"):
+        KL.lcs_table_kernel(s, s, s, s, one, 0, 8)
     with pytest.raises(TypeError, match="int32"):
-        KL.lcs_diagonal_kernel(s.long(), s, rows, rows, corners, 0, 8, 8)
+        KL.lcs_table_kernel(s.long(), s, s, s, one, 8, 8)
     with pytest.raises(ValueError, match="shape"):
-        KL.lcs_diagonal_kernel(s, s, rows[:1], rows, corners, 0, 8, 8)
+        KL.lcs_table_kernel(s, s, s[:4], s, one, 8, 8)
     with pytest.raises(ValueError, match="M, N >= 1"):
         lcs_tile_kernel(s[:0], s, s, s[:0], s[:1])
+    with pytest.raises(ValueError, match="does not divide"):
+        lcs_wavefront(s, s, 2, tile=3)
+
+
+def test_lcs_wrappers_count_launches_by_walk_only_on_the_card():
+    """On the CPU the table takes the plain version: no launch, no
+    variant counted."""
+    before = (KL.lcs_table_kernel.launches,
+              dict(KL.lcs_table_kernel.variants))
+    s = torch.arange(16, dtype=torch.int32) % 4
+    for tile in (None, 4, 8):
+        lcs_wavefront(s, s.flip(0), 4, tile=tile)
+    assert (KL.lcs_table_kernel.launches,
+            dict(KL.lcs_table_kernel.variants)) == before
+
+
+def test_lcs_bench_ablations_still_apply():
+    """``launch.lcs_bench --ablate`` builds copies of ``csrc/lcs_tile.cu``
+    with the other run of columns a lane, without its cells or without its
+    neighbour waits: each edit still finds its text, and changes it."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import lcs_bench
+    src = (build.CSRC / "lcs_tile.cu").read_text()
+    copies = lcs_bench.ablated_sources(build.CSRC)
+    assert set(copies) == set(lcs_bench.ABLATIONS)
+    assert all(text != src for text in copies.values())

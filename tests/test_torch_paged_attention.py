@@ -28,6 +28,7 @@ import torch
 
 from repro.kernels.attention import (paged_attention_ref,
                                      paged_decode_attention,
+                                     paged_latent_decode_pallas,
                                      paged_latent_attention_ref,
                                      paged_latent_decode_attention,
                                      paged_latent_prefill_attention,
@@ -689,22 +690,51 @@ def _latent_wgmma_splits(start, c, h, sms=132, rows=64, tile=64):
     return -(-keys // split_keys), split_keys
 
 
+def _wgmma_walk(q, ckf, krf, table, lo, hi, limit, scale, tile=64):
+    """csrc/paged_latent_wgmma.cuh's walk of one CTA: rows q (R, kv +
+    rope) in f32 from bf16 operands against 64-key tiles inside one page
+    from ``lo`` to ``hi`` of the block-table row ``table``, each row masked
+    at its own ``limit`` (<= hi); S in the log2 domain; each warpgroup's 32
+    keys give a row max, the two meet, and each keeps the row sum of its
+    own keys (added at the end, warpgroup 0's first); the weights are
+    rounded to bf16 before the value product, which each warpgroup runs
+    over its half of the value features.  Returns (m in log2 units, l,
+    acc unnormalized)."""
+    page, kv = ckf.shape[1], ckf.shape[2]
+    half, wk = kv // 2, tile // 2
+    m = torch.full((q.shape[0],), NEG_INF)
+    l_wg = torch.zeros(2, q.shape[0])
+    acc = torch.zeros(q.shape[0], kv)
+    for t0 in range(lo, hi, tile):
+        pos = torch.arange(t0, t0 + tile)
+        phys = int(table[t0 // page])
+        v = ckf[phys, pos % page]
+        key = torch.cat([v, krf[phys, pos % page]], -1)
+        x = q @ key.T * (scale * LOG2E)
+        x = torch.where(pos[None, :] < limit[:, None], x, NEG_INF)
+        m_new = torch.maximum(m, x.max(-1).values)
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(x <= NEG_INF, 0.0, torch.exp2(x - m_new[:, None]))
+        l_wg = l_wg * alpha + torch.stack([p[:, :wk].sum(-1),
+                                           p[:, wk:].sum(-1)])
+        pb = _bf(p)
+        acc = acc * alpha[:, None] + torch.cat(
+            [pb @ v[:, :half], pb @ v[:, half:]], -1)
+        m = m_new
+    return m, l_wg[0] + l_wg[1], acc
+
+
 def emulate_latent_wgmma(q_lat, q_rope, ckv, kr, row, start, *, scale,
                          sms=132, rows_per_cta=64, tile=64):
-    """csrc/paged_latent_wgmma.cuh over the chunk's C * H rows (row r:
-    position r // H, head r % H): per (64-row block, key split) CTA, 64-key
-    tiles inside one page from the split's start to its last row's causal
-    limit, each row masked by its own limit (a block may straddle
-    positions); S in f32 from the bf16 operands, in the log2 domain; each
-    warpgroup's 32 keys give a row max, the two meet, and each keeps the
-    row sum of its own keys (added at the end, warpgroup 0's first); the
-    weights are rounded to bf16 before the value product, which each
-    warpgroup runs over its half of the value features; splits (when the
-    blocks do not fill ``sms`` processors) merge by their natural-log
-    maxima in split order."""
+    """csrc/paged_latent_wgmma.cuh's prefill over the chunk's C * H rows
+    (row r: position r // H, head r % H): per (64-row block, key split)
+    CTA, the walk (``_wgmma_walk``) from the split's start to its last
+    row's causal limit, each row masked by its own limit (a block may
+    straddle positions); splits (when the blocks do not fill ``sms``
+    processors) merge by their natural-log maxima in split order."""
     _, c, h, kv = q_lat.shape
     page, width = ckv.shape[1], row.shape[0]
-    n_rows, half, wk = c * h, kv // 2, tile // 2
+    n_rows = c * h
     q = torch.cat([q_lat.float().reshape(n_rows, kv),
                    q_rope.float().reshape(n_rows, -1)], -1)
     ckf, krf = ckv.float(), kr.float()
@@ -718,33 +748,60 @@ def emulate_latent_wgmma(q_lat, q_rope, ckv, kr, row, start, *, scale,
         for s in range(n_split):
             lo = s * split_keys
             hi = min(int(limit.max()), width * page, lo + split_keys)
-            lim = torch.clamp(limit, max=hi)
-            m = torch.full((len(r),), NEG_INF)
-            l_wg = torch.zeros(2, len(r))
-            acc = torch.zeros(len(r), kv)
-            for t0 in range(lo, hi, tile):
-                pos = torch.arange(t0, t0 + tile)
-                phys = int(row[t0 // page])
-                v = ckf[phys, pos % page]
-                key = torch.cat([v, krf[phys, pos % page]], -1)
-                x = q[r] @ key.T * (scale * LOG2E)
-                x = torch.where(pos[None, :] < lim[:, None], x, NEG_INF)
-                m_new = torch.maximum(m, x.max(-1).values)
-                alpha = torch.exp2(m - m_new)
-                p = torch.where(x <= NEG_INF, 0.0,
-                                torch.exp2(x - m_new[:, None]))
-                l_wg = l_wg * alpha + torch.stack([p[:, :wk].sum(-1),
-                                                   p[:, wk:].sum(-1)])
-                pb = _bf(p)
-                acc = acc * alpha[:, None] + torch.cat(
-                    [pb @ v[:, :half], pb @ v[:, half:]], -1)
-                m = m_new
-            parts.append((m * LN2, l_wg[0] + l_wg[1], acc))
+            m, l, acc = _wgmma_walk(q[r], ckf, krf, row, lo, hi,
+                                    torch.clamp(limit, max=hi), scale, tile)
+            parts.append((m * LN2, l, acc))
         if n_split == 1:
             out[r] = parts[0][2] / parts[0][1].clamp(min=1e-30)[:, None]
         else:
             out[r] = _merge(parts)
     return out.reshape(1, c, h, kv).to(q_lat.dtype)
+
+
+def emulate_latent_decode_wgmma(q_lat, q_rope, ckv, kr, tables, lengths, *,
+                                scale, ranks=8, rows_per_cta=64, tile=64):
+    """csrc/paged_latent_wgmma.cuh's decode: per (slot, 64-head block) a
+    cluster of ``ranks`` CTAs; the slot's live keys [0, min(length, width
+    * page)) in 64-key tiles, rank k taking tiles [k s, k s + s) with
+    s = ceil(tiles / ranks), a rank past them walking nothing and leaving
+    no state; every rank merges a slice of the features from the live
+    ranks' (m, l, acc) in rank order (log2 domain).  A slot with no valid
+    key comes out zero.  Returns (B, 1, H, kv) and the live ranks of each
+    slot."""
+    b, _, h, kv = q_lat.shape
+    page, width = ckv.shape[1], tables.shape[1]
+    q = torch.cat([q_lat.float()[:, 0], q_rope.float()[:, 0]], -1)
+    ckf, krf = ckv.float(), kr.float()
+    out = torch.zeros(b, h, kv)
+    lives = []
+    for slot in range(b):
+        n = max(min(int(lengths[slot]), width * page), 0)
+        tiles = -(-n // tile)
+        share = -(-tiles // ranks)
+        live = -(-tiles // share) if share else 0
+        lives.append(live)
+        for h0 in range(0, h, rows_per_cta):
+            rows = torch.arange(h0, min(h0 + rows_per_cta, h))
+            states = []
+            for rank in range(ranks):
+                lo = min(rank * share * tile, n)
+                hi = min(n, lo + share * tile)
+                if hi > lo:
+                    states.append(_wgmma_walk(
+                        q[slot, rows], ckf, krf, tables[slot], lo, hi,
+                        torch.full((len(rows),), hi), scale, tile))
+            assert len(states) == live
+            if not states:
+                continue
+            mm = torch.stack([st[0] for st in states]).max(0).values
+            ll = torch.zeros(len(rows))
+            acc = torch.zeros(len(rows), kv)
+            for m, l, a in states:     # rank order
+                w = torch.exp2(m - mm)
+                ll = ll + l * w
+                acc = acc + a * w[:, None]
+            out[slot, rows] = acc / ll.clamp(min=1e-30)[:, None]
+    return out[:, None].to(q_lat.dtype), lives
 
 
 WGMMA_CASES = [  # (h, c, start, pps, n_pages, sms)
@@ -787,15 +844,60 @@ def test_latent_wgmma_walk_matches_plain_and_pallas(case):
     _close(got[0].float(), np.asarray(jwant, np.float32), 2e-2)
 
 
+@pytest.mark.parametrize("h,ranks", [(5, 8), (70, 4), (128, 8)])
+def test_latent_decode_wgmma_ranks_match_plain_and_pallas(h, ranks):
+    """The wgmma decode's live-key rank shares and rank-order merge on
+    bf16 inputs (64-position pages, a table of 12 pages; kv_lora 64 and
+    qk_rope 16 stand for 512 and 64) at lengths 1, 63, 64, 65, the full
+    width and one past it, against the port's plain version and repro's
+    Pallas kernel in interpret mode, within the kernels' bf16 tolerance
+    (2e-2); ranks past a slot's tiles hold nothing, and a slot with no
+    valid key comes out zero (the plain version averages its masked
+    keys)."""
+    rng = np.random.default_rng(40 + h)
+    bf = torch.bfloat16
+    lens = [1, 63, 64, 65, 768, 769, 0]
+    b, width, page = len(lens), 12, 64
+    n_pool = b * width + 1
+    ql = torch.from_numpy(_rand(rng, b, 1, h, 64)).to(bf)
+    qr = torch.from_numpy(_rand(rng, b, 1, h, 16)).to(bf)
+    ck = torch.from_numpy(_rand(rng, n_pool, page, 64)).to(bf)
+    kr = torch.from_numpy(_rand(rng, n_pool, page, 16)).to(bf)
+    bt = rng.permutation(n_pool - 1)[:b * width].reshape(b, width)
+    bt = torch.from_numpy(bt.astype(np.int32))
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    scale = 1 / math.sqrt(80)
+    got, lives = emulate_latent_decode_wgmma(ql, qr, ck, kr, bt, lengths,
+                                             scale=scale, ranks=ranks)
+    share = [-(-min(n, 768) // 64 // ranks) if n else 0 for n in lens]
+    assert lives == [-(-(-(-min(n, 768) // 64)) // s) if s else 0
+                     for n, s in zip(lens, share)]
+    assert lives[:4] == [1, 1, 1, min(2, ranks)] and lives[-1] == 0
+    assert torch.equal(got[-1].float(), torch.zeros(1, h, 64))
+    want = ops.paged_latent_decode_attention(ql, qr, ck, kr, bt, lengths,
+                                             scale=scale)
+    _close(got[:-1].float(), want[:-1].float(), 2e-2)
+    jq = [jnp.asarray(x.float().numpy(), jnp.bfloat16)
+          for x in (ql[:-1, 0], qr[:-1, 0], ck, kr)]
+    jwant = paged_latent_decode_pallas(*jq, jnp.asarray(bt[:-1].numpy()),
+                                       jnp.asarray(lens[:-1], jnp.int32),
+                                       scale=scale, interpret=True)
+    _close(got[:-1, 0].float(), np.asarray(jwant, np.float32), 2e-2)
+
+
 def test_latent_and_decode_wrappers_count_variants_only_on_the_card():
     """On the CPU the wrappers take the plain version and count nothing;
     on the card they name the family the library takes."""
-    counters = (K.paged_flash_decode, K.paged_latent_prefill)
+    counters = (K.paged_flash_decode, K.paged_latent_prefill,
+                K.paged_latent_decode)
     before = [(f.launches, dict(f.variants)) for f in counters]
     K.paged_flash_decode(*_t(*_decode_case()), scale=0.25)
     ql, qr, ck, kr, row = _t(*_latent_prefill_case())
     K.paged_latent_prefill(ql.bfloat16(), qr.bfloat16(), ck.bfloat16(),
                            kr.bfloat16(), row, 8, scale=SCALE)
+    ql, qr, ck, kr, bt, lens = _t(*_latent_decode_case())
+    K.paged_latent_decode(ql.bfloat16(), qr.bfloat16(), ck.bfloat16(),
+                          kr.bfloat16(), bt, lens, scale=SCALE)
     assert [(f.launches, dict(f.variants)) for f in counters] == before
     assert K.DECODE_VARIANTS == ("cuda_cores", "mma_sync")
     assert K.FLASH_VARIANTS == ("cuda_cores", "mma_sync", "wgmma")
