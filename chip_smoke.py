@@ -21,7 +21,7 @@ Phases, in order; any failure ends the script with a nonzero exit:
    kernels and its plain PyTorch version on the same CUDA inputs, at the
    serving, training or PACO shapes in bf16 and f32 and on small prime/odd
    geometries (GQA: windows and softcaps, decode at G 8 with D 256 and 64
-   and a zero-length slot, which writes zeros; MLA latent: H = 3 and 5,
+   and a zero-length slot, its row's uniform mean; MLA latent: H = 3 and 5,
    narrow latents, the wgmma latent prefill at deepseek-v2's widths
    on blocks that straddle positions, starts off the tile and chunks
    whose keys split, and the wgmma latent decode in clusters of 4 ranks
@@ -65,6 +65,17 @@ Phases, in order; any failure ends the script with a nonzero exit:
    ``enable_gqa``; the LCS row: the whole 65,536^2 table at p = 132 in
    one launch, int32 operations at 16.7 TOP/s, the row scan as its plain
    version, no library call).
+3b. verify_kernels: the speculative-verify entries of kernels 2 and 4
+   (``paged_verify``, ``paged_latent_verify``: one launch for all slots,
+   each slot's start read on the device) against their plain versions in
+   f32 and bf16 and bitwise over two calls, at qwen3-0.6b's serving
+   verify (8 slots, W 8, Hq 16, Hkv 8, D 128, page 64), gemma2-2b's heads
+   with its window and softcap, and deepseek-v2's latent widths (H 128,
+   kv_lora 512, qk_rope 64, page 128, W 8), over lengths with an inactive
+   slot, a window across a page boundary, one reaching the last mapped
+   page and slots splits apart; each timed in bf16 over its model's
+   layers' pools beside its plain version, SDPA under the windows' mask
+   pinned per backend, and the bound (each slot's live K/V once, q, out).
 4. One full-width qwen3-0.6b prompt chunk per slot and 8 decode ticks
    through the kernels and through the plain path (``use_kernel=False``)
    with the same seeded random weights, in float32 and in bf16: logits
@@ -80,6 +91,18 @@ Phases, in order; any failure ends the script with a nonzero exit:
    family (``mma_sync``).
    One served request is replayed through the plain path, teacher-forced,
    and its tokens must agree under the margin rule of phase 4.
+5b. serve_speculative: the same requests with ``speculate=0`` (W 8) and
+   ``spec_min_accept=0``, so that every dispatch verifies: verify launches
+   == decode_steps * 28, all ``mma_sync``, no decode launch; the
+   acceptance stats consistent; three requests against the port's
+   ``reference_decode`` on the card (agreement up to the first
+   difference, where the oracle's top-2 margin is within MODEL_ATOL), the
+   longest replayed through the plain path; tok/s, acceptance, tokens per
+   verify step and the agreement with phase 5's tokens printed.
+5c. serve_legacy: four of the requests with ``fused=False`` (one decode
+   step and one host argmax per token): decode launches == decode_steps *
+   28, every request replayed through the plain path, one against the
+   oracle.
 6. Full-width deepseek-v2 (MLA + MoE), depth cut to fit the card: one
    128-token chunk per slot and 8 ticks through the kernels and through
    the plain path, in float32 (2 layers) and bf16 (4 layers), each model
@@ -90,6 +113,12 @@ Phases, in order; any failure ends the script with a nonzero exit:
    launches == decode_steps * 4, every one of both ``wgmma``; then every
    model call of
    the run is replayed through the plain path (``replay_schedule``).
+7b. serve_speculative on deepseek-v2: the same requests, every dispatch
+   verifying: latent verify launches == decode_steps * 4, all ``wgmma``;
+   the whole schedule, verify windows included, replayed through the
+   plain path on the served routing; the agreement with phase 7's tokens
+   printed but not gated (MoE capacity depends on the tokens of a call:
+   B x W in a verify window, B in a decode tick).
 8. Full-width qwen3-0.6b train-step parity at B 2 x S 4096: loss and
    gradients through the flash kernels and through the plain path
    (``use_kernel=False``) on the same weights and batch, in float32 at
@@ -379,11 +408,10 @@ def check_small_geometries(gen: torch.Generator) -> dict[str, float]:
                                        scale=1 / math.sqrt(d), **kw)
             want = ops.paged_decode_attention(q, kp, vp, bt, lens,
                                               use_kernel=False, **kw)
-            # the plain version averages a slot with no valid key
-            # uniformly over masked keys; the kernel writes zeros
-            err = max_err(got[1:], want[1:])
+            # the zero-length slot: its row's uniform mean, as the plain
+            # version gives it
+            err = max_err(got, want)
             assert err <= ATOL[dtype], ("paged_decode", dtype, hq, d, err)
-            assert not got[0].any(), "a zero-length slot writes zeros"
             worst["paged_decode"] = max(worst["paged_decode"], err)
         for kw in ({}, {"window": 5}, {"logit_cap": 20.0},
                    {"window": 3, "logit_cap": 5.0}):
@@ -691,9 +719,8 @@ class ParentKernels:
     decode one launch, no scratch); prefill's split count takes (width,
     page, start, C), latent prefill's (dtype, kv_lora, qk_rope, width,
     page, C, H, start) and latent decode's (width, page, B, H), and these
-    three take f32 split scratch; the LCS kernel takes one anti-diagonal
-    of tiles a launch (``lcs_diagonal``), its borders in two halves that
-    alternate with the diagonal's parity."""
+    three take f32 split scratch; the LCS kernel takes a whole table in one
+    launch (``lcs_table``) over the int32 state ``kernels.lcs`` lays out."""
 
     NAMES = ("flash_fwd", "flash_bwd", "paged_prefill", "matmul",
              "paged_decode", "paged_latent_prefill", "paged_latent_decode",
@@ -752,11 +779,11 @@ class ParentKernels:
                                     I, I, I, F, P]
         self.latent_dec_splits = ldec.paged_latent_decode_splits
         self.latent_dec_splits.argtypes = [I, I, I, I]
-        self.lcs_diag = libs["lcs_tile"].lcs_diagonal
-        self.lcs_diag.argtypes = [P] * 8 + [I] * 5 + [P]
+        self.lcs_tab = libs["lcs_tile"].lcs_table
+        self.lcs_tab.argtypes = [P, P, P, I, I, I, I, P]
         for fn in (self.fwd, self.bwd, self.prefill, self.prefill_splits,
                    self.mm, self.decode, self.latent, self.latent_splits,
-                   self.latent_dec, self.latent_dec_splits, self.lcs_diag):
+                   self.latent_dec, self.latent_dec_splits, self.lcs_tab):
             fn.restype = I
 
     def forward(self, q, k, v, o, lse) -> None:
@@ -868,25 +895,19 @@ class ParentKernels:
 
     def lcs(self, s, t, tile) -> torch.Tensor:
         """The parent's whole LCS table of s against t in tile x tile
-        tiles: ti + tj - 1 launches, one an anti-diagonal, over border
-        arrays in two halves; returns the LCS length (0-d int32)."""
+        tiles, one launch on zero borders; returns the LCS length (0-d
+        int32)."""
+        from repro_torch.kernels.lcs.lcs import _state
+
         m, n = s.shape[0], t.shape[0]
-        ti, tj = m // tile, n // tile
-        rows = torch.zeros((2, n), dtype=torch.int32, device=s.device)
-        cols = torch.zeros((2, m), dtype=torch.int32, device=s.device)
-        corners = torch.zeros((2, tj), dtype=torch.int32, device=s.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        for d in range(ti + tj - 1):
-            i_lo = max(0, d - tj + 1)
-            src, dst = (d + 1) % 2, d % 2
-            err = self.lcs_diag(s.data_ptr(), t.data_ptr(),
-                                rows[src].data_ptr(), cols[src].data_ptr(),
-                                corners[src].data_ptr(),
-                                rows[dst].data_ptr(), cols[dst].data_ptr(),
-                                corners[dst].data_ptr(), tile, tile, d,
-                                i_lo, min(ti, d + 1) - i_lo, stream)
-            assert err == 0, ("parent lcs_diagonal", err)
-        return rows[(ti + tj - 2) % 2, -1]
+        zeros = [torch.zeros(k, dtype=torch.int32, device=s.device)
+                 for k in (n, m, 1)]
+        state = _state(*zeros, tile, -(-m // tile), -(-n // tile))
+        err = self.lcs_tab(s.data_ptr(), t.data_ptr(), state.data_ptr(), m,
+                           n, tile, tile,
+                           torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent lcs_table", err)
+        return state[n - 1]
 
     def matmul(self, a, b, out) -> None:
         """One product of views with unit column stride into ``out``."""
@@ -1353,6 +1374,224 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
     return rows
 
 
+VERIFY_SLOTS = 8
+# the verify phase's lengths over tables of 1,024 keys (by page size): an
+# inactive slot (0), a window across a page boundary (60 .. 67 at pages of
+# 64, 124 .. 131 at 128), one reaching the last mapped page (1016 .. 1023),
+# and slots whose lengths lie more than a 128-key split apart
+VERIFY_LENS = {64: [0, 60, 1016, 1000, 300, 777, 48, 555],
+               128: [0, 124, 1016, 1000, 300, 777, 48, 555]}
+
+
+def _verify_sdpa(qt, kg, vg, lens, w, iters, scale=None, window=None):
+    """SDPA on the windows' queries qt (B, H, W, E) against each layer's
+    K/V pre-gathered to (B, Hkv, S, .) under the windows' boolean mask
+    (key position <= lengths[b] + t, and within ``window``), pinned per
+    backend (``sdpa_by_backend``); a backend that refuses ``enable_gqa``
+    gets K/V expanded outside the timed region, over two layers."""
+    dev = qt.device
+    s = kg[0].shape[2]
+    q_pos = lens[:, None].long() + torch.arange(w, device=dev)[None, :]
+    pos = torch.arange(s, device=dev)
+    mask = pos[None, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        mask &= pos[None, None, :] > q_pos[:, :, None] - window
+    mask = mask[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def run(gqa):
+        ks, vs = kg, vg
+        if not gqa:
+            g = qt.shape[1] // kg[0].shape[1]
+            ks = [t.repeat_interleave(g, 1) for t in kg[:2]]
+            vs = [t.repeat_interleave(g, 1) for t in vg[:2]]
+        n = len(ks)
+        ms, _ = time_ms(lambda i: sdpa(qt, ks[i % n], vs[i % n],
+                                       attn_mask=mask, scale=scale,
+                                       enable_gqa=gqa), iters)
+        return ms
+
+    return sdpa_by_backend(run)
+
+
+def bench_verify_kernels(gen: torch.Generator, iters: int
+                         ) -> tuple[list[dict], dict[str, float]]:
+    """The ``verify_kernels`` phase: the verify entries of kernels 2 and 4
+    (one launch for all slots) against their plain versions in bf16 and
+    f32, bitwise over two calls, at qwen3-0.6b's serving verify (8 slots,
+    W 8 = paco_draft_len + 1, Hq 16, Hkv 8, D 128, page 64), at gemma2-2b's
+    heads with its window and softcap (and a short window, so that the
+    mask cuts), and at deepseek-v2's latent widths (H 128, kv_lora 512,
+    qk_rope 64, page 128, W 8), each over VERIFY_LENS; then each timed in
+    bf16 over its model's layers' pools in turn (CUDA-graph replay) beside
+    its plain version, SDPA under the windows' mask pinned per backend,
+    and the bound: each slot's live K/V read once, q and out."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ops
+    from repro_torch.serve.paging import paco_draft_len
+
+    dev = "cuda"
+    b = VERIFY_SLOTS
+    worst = {"paged_verify": 0.0, "paged_latent_verify": 0.0}
+    rows = []
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def tables(width):
+        n_pool = b * width + 1
+        perm = torch.randperm(n_pool - 1, generator=gen, device=dev)
+        return n_pool, perm[:b * width].reshape(b, width).to(torch.int32)
+
+    def check(fn, plain, name, dtype, what):
+        got = fn()
+        assert torch.equal(got, fn()), (name, "not bitwise reproducible",
+                                        what)
+        err = max_err(got, plain())
+        assert err <= ATOL[dtype], (name, dtype, what, err)
+        worst[name] = max(worst[name], err)
+
+    # ---- kernel 2's verify entry: qwen3-0.6b, then gemma2-2b's heads
+    for arch in ("qwen3-0.6b", "gemma2-2b"):
+        cfg = get_arch(arch)
+        page, width = 64, 16
+        w = paco_draft_len(b, 2048, cfg.head_dim) + 1
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        n_pool, bt = tables(width)
+        lens = torch.tensor(VERIFY_LENS[page], dtype=torch.int32, device=dev)
+        assert int(lens.max()) + w == width * page
+        kws = [{}]
+        if cfg.local_window:
+            kws = [{"logit_cap": cfg.softcap_attn},
+                   {"window": cfg.local_window,
+                    "logit_cap": cfg.softcap_attn},
+                   {"window": 100, "logit_cap": cfg.softcap_attn}]
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rnd(b, w, hq, d, dtype=dtype)
+            kp = rnd(n_pool, page, hkv, d, dtype=dtype)
+            vp = rnd(n_pool, page, hkv, d, dtype=dtype)
+            for kw in kws:
+                check(lambda: K.paged_flash_verify(
+                          q, kp, vp, bt, lens, scale=1 / math.sqrt(d), **kw),
+                      lambda: ops.paged_verify_attention(
+                          q, kp, vp, bt, lens, use_kernel=False, **kw),
+                      "paged_verify", dtype, (arch, kw))
+        log(f"[verify] {arch}: W {w}, Hq {hq}, Hkv {hkv}, D {d}, page "
+            f"{page}, lengths {VERIFY_LENS[page]}: f32 and bf16 within ATOL "
+            f"of the plain version, bitwise over two calls")
+    del q, kp, vp
+
+    # timed at qwen3-0.6b's serving verify over its 28 layers' pools
+    cfg = get_arch("qwen3-0.6b")
+    dtype, page, width = torch.bfloat16, 64, 16
+    w = paco_draft_len(b, 2048, cfg.head_dim) + 1
+    hq, hkv, d, n_layers = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.n_layers
+    n_pool, bt = tables(width)
+    lens = torch.tensor(VERIFY_LENS[page], dtype=torch.int32, device=dev)
+    kpool = rnd(n_layers, n_pool, page, hkv, d, dtype=dtype)
+    vpool = rnd(n_layers, n_pool, page, hkv, d, dtype=dtype)
+    q = rnd(b, w, hq, d, dtype=dtype)
+    scale = 1 / math.sqrt(d)
+    ms, eager_ms = time_ms(lambda i: K.paged_flash_verify(
+        q, kpool[i % n_layers], vpool[i % n_layers], bt, lens, scale=scale),
+        iters)
+    plain_ms, _ = time_ms(lambda i: ops.paged_verify_attention(
+        q, kpool[i % n_layers], vpool[i % n_layers], bt, lens,
+        use_kernel=False), max(iters // 4, 10))
+    s_ctx = int(lens.max()) + w
+    ctx_pages = -(-s_ctx // page)
+    kg = [ops.gather_kv_pages(kpool[i], bt[:, :ctx_pages])[:, :s_ctx]
+          .transpose(1, 2).contiguous() for i in range(n_layers)]
+    vg = [ops.gather_kv_pages(vpool[i], bt[:, :ctx_pages])[:, :s_ctx]
+          .transpose(1, 2).contiguous() for i in range(n_layers)]
+    sdpa = _verify_sdpa(q.transpose(1, 2), kg, vg, lens, w, iters)
+    ms2, _ = time_ms(lambda i: K.paged_flash_verify(
+        q, kpool[i % n_layers], vpool[i % n_layers], bt, lens, scale=scale),
+        iters)
+    before = K.paged_flash_verify.variants.copy()
+    K.paged_flash_verify(q, kpool[0], vpool[0], bt, lens, scale=scale)
+    (variant,) = K.paged_flash_verify.variants - before
+    del kg, vg, kpool, vpool
+    keys = int((lens + w).sum())
+    pairs = int((lens[:, None] + torch.arange(1, w + 1, device=dev)).sum())
+    nbytes = (2 * q.numel() * 2 + bt.numel() * 4 + lens.numel() * 4
+              + 2 * keys * hkv * d * 2)
+    row = _with_library(_row(
+        "paged_verify", "src/repro_torch/csrc/paged_prefill.cu",
+        "src/repro/kernels/attention/attention.py:172",
+        worst["paged_verify"], (ms + ms2) / 2, eager_ms, plain_ms, None,
+        nbytes, 4 * pairs * hq * d, dtype), sdpa)
+    row["ms_turns"] = [ms, ms2]
+    row["variant"] = variant
+    rows.append(row)
+
+    # ---- kernel 4's verify entry: deepseek-v2's latent widths
+    cfg = get_arch("deepseek-v2-236b")
+    m, h = cfg.mla, cfg.n_heads
+    kv, rope = m.kv_lora, m.qk_rope
+    scale = 1 / math.sqrt(m.qk_nope + m.qk_rope)
+    page, width = 128, 8
+    w = paco_draft_len(b, 2048, kv) + 1
+    n_pool, bt = tables(width)
+    lens = torch.tensor(VERIFY_LENS[page], dtype=torch.int32, device=dev)
+    assert int(lens.max()) + w == width * page
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (rnd(b, w, h, kv, dtype=dtype), rnd(b, w, h, rope, dtype=dtype),
+                rnd(n_pool, page, kv, dtype=dtype),
+                rnd(n_pool, page, rope, dtype=dtype), bt, lens)
+        check(lambda: K.paged_latent_verify(*args, scale=scale),
+              lambda: ops.paged_latent_verify_attention(
+                  *args, scale=scale, use_kernel=False),
+              "paged_latent_verify", dtype, "deepseek-v2")
+    log(f"[verify] deepseek-v2-236b: W {w}, H {h}, kv_lora {kv}, qk_rope "
+        f"{rope}, page {page}, lengths {VERIFY_LENS[page]}: f32 and bf16 "
+        f"within ATOL of the plain version, bitwise over two calls")
+    del args
+    dtype, n_layers = torch.bfloat16, cfg.n_layers
+    ckp = rnd(n_layers, n_pool, page, kv, dtype=dtype)
+    krp = rnd(n_layers, n_pool, page, rope, dtype=dtype)
+    vq = (rnd(b, w, h, kv, dtype=dtype), rnd(b, w, h, rope, dtype=dtype))
+    ms, eager_ms = time_ms(lambda i: K.paged_latent_verify(
+        *vq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale),
+        iters)
+    plain_ms, _ = time_ms(lambda i: ops.paged_latent_verify_attention(
+        *vq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale,
+        use_kernel=False), max(iters // 20, 5))
+    s_ctx = int(lens.max()) + w
+    ctx_pages = -(-s_ctx // page)
+    kg, vg = [], []
+    for i in range(n_layers):
+        ckg = ops.gather_kv_pages(ckp[i], bt[:, :ctx_pages])
+        krg = ops.gather_kv_pages(krp[i], bt[:, :ctx_pages])
+        kg.append(torch.cat([ckg, krg], -1)[:, None, :s_ctx].contiguous())
+        vg.append(ckg[:, None, :s_ctx].contiguous())
+    q_cat = torch.cat(vq, -1).transpose(1, 2)             # (B, H, W, 576)
+    sdpa = _verify_sdpa(q_cat, kg, vg, lens, w, iters, scale=scale)
+    ms2, _ = time_ms(lambda i: K.paged_latent_verify(
+        *vq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale),
+        iters)
+    del kg, vg
+    keys = int((lens + w).sum())
+    pairs = int((lens[:, None] + torch.arange(1, w + 1, device=dev)).sum())
+    nbytes = (2 * (2 * vq[0].numel() + vq[1].numel()) + bt.numel() * 4
+              + lens.numel() * 4 + keys * (kv + rope) * 2)
+    row = _with_library(_row(
+        "paged_latent_verify",
+        "src/repro_torch/csrc/paged_latent_prefill.cu",
+        "src/repro/kernels/attention/attention.py:270",
+        worst["paged_latent_verify"], (ms + ms2) / 2, eager_ms, plain_ms,
+        None, nbytes, pairs * h * (2 * (kv + rope) + 2 * kv), dtype), sdpa)
+    row["ms_turns"] = [ms, ms2]
+    before = K.paged_latent_verify.variants.copy()
+    K.paged_latent_verify(*vq, ckp[0], krp[0], bt, lens, scale=scale)
+    (row["variant"],) = K.paged_latent_verify.variants - before
+    del ckp, krp
+    rows.append(row)
+    return rows, worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: one chunk and 8 ticks at full width, kernels vs plain path
 # ---------------------------------------------------------------------------
@@ -1616,11 +1855,45 @@ def replay_plain(engine, params, cfg, req) -> None:
             lens = lens + 1
 
 
+def oracle_agrees(params, cfg, req, max_seq: int) -> int:
+    """``req``'s served tokens against the port's ``reference_decode`` on
+    the card (a dense re-forward per token, no cache: a path that shares
+    nothing with the paged engine): they agree up to the first difference,
+    and at that step the oracle's top-2 margin is within MODEL_ATOL (after
+    it the contexts differ).  Returns the tokens that agree."""
+    from repro_torch.serve.reference import forward_ref, reference_decode
+
+    want = reference_decode(params, cfg, req.prompt,
+                            max_new_tokens=req.max_new_tokens,
+                            eos_id=req.eos_id, max_seq=max_seq)
+    for t, (got, ref) in enumerate(zip(req.out, want)):
+        if got != ref:   # the oracle's logits at that step, for its margin
+            logits = forward_ref(params, cfg, torch.tensor(
+                [req.prompt + want[:t]], device="cuda"))[:, -1]
+            assert margin_agrees(logits, torch.tensor([got], device="cuda"),
+                                 MODEL_ATOL[cfg.dtype]), (req.uid, t)
+            return t
+    assert len(req.out) == len(want), (req.uid, len(req.out), len(want))
+    return len(want)
+
+
+def agreement(done_a, done_b) -> dict:
+    """How far two runs of the same requests emitted the same tokens."""
+    a = {r.uid: r.out for r in done_a}
+    b = {r.uid: r.out for r in done_b}
+    same = [a[u] == b[u] for u in a]
+    prefix = [next((i for i, (x, y) in enumerate(zip(a[u], b[u])) if x != y),
+                   min(len(a[u]), len(b[u]))) for u in a]
+    return {"requests_equal": sum(same), "requests": len(same),
+            "tokens_before_first_difference": sum(prefix),
+            "tokens": sum(len(a[u]) for u in a)}
+
+
 class EngineCalls:
     """Records the engine's model calls while active: each prefill chunk
-    (tokens, start, block row, the greedy token of every chunk row) and
-    each fused decode dispatch (its inputs and the token block it
-    returned), for ``replay_schedule``."""
+    (tokens, start, block row, the greedy token of every chunk row), each
+    fused decode dispatch and each speculative verify dispatch (its inputs
+    and the token blocks it returned), for ``replay_schedule``."""
 
     def __init__(self) -> None:
         self.calls: list[tuple] = []
@@ -1628,7 +1901,8 @@ class EngineCalls:
     def __enter__(self):
         from repro_torch.serve import engine as E
 
-        self._orig = orig_p, orig_d = E.prefill_chunk, E.decode_ticks
+        self._orig = orig_p, orig_d, orig_v = (E.prefill_chunk,
+                                               E.decode_ticks, E.verify_ticks)
 
         def prefill(params, cfg, tokens, start, pages, row, **kw):
             logits, pages = orig_p(params, cfg, tokens, start, pages, row,
@@ -1647,13 +1921,26 @@ class EngineCalls:
                                kw["null_page"], block.clone()))
             return block, pages
 
-        E.prefill_chunk, E.decode_ticks = prefill, decode
+        def verify(params, cfg, toks, pages, bt, lens, act, bud, eos, hist,
+                   limit, n, **kw):
+            inputs = tuple(x.clone() for x in (toks, bt, lens, act, bud, eos,
+                                               hist, limit))
+            blocks, acc, hist_out, pages = orig_v(
+                params, cfg, toks, pages, bt, lens, act, bud, eos, hist,
+                limit, n, **kw)
+            self.calls.append(("verify", *inputs, n, kw["max_seq"],
+                               kw["draft_len"], kw["null_page"],
+                               blocks.clone()))
+            return blocks, acc, hist_out, pages
+
+        E.prefill_chunk, E.decode_ticks, E.verify_ticks = (prefill, decode,
+                                                           verify)
         return self
 
     def __exit__(self, *exc) -> None:
         from repro_torch.serve import engine as E
 
-        E.prefill_chunk, E.decode_ticks = self._orig
+        E.prefill_chunk, E.decode_ticks, E.verify_ticks = self._orig
 
 
 def replay_schedule(engine, params, cfg, calls: list[tuple],
@@ -1690,11 +1977,69 @@ def replay_schedule(engine, params, cfg, calls: list[tuple],
             "router_prob_max_diff": log.prob_diff("serve", "replay")}
 
 
+def _replay_verify(params, cfg, call, pages, tol: float) -> int:
+    """One recorded verify dispatch through the plain path, teacher-forced
+    by the served token blocks: each step drafts from the same history
+    (so its window is the served one), scores the window with
+    ``use_kernel=False``, requires every emitted token to be the plain
+    argmax at its window offset wherever the plain top-2 margin exceeds
+    ``tol``, then advances, rolls back and appends as ``verify_ticks``
+    does with the served emission."""
+    from repro_torch.models import transformer
+    from repro_torch.models.draft import draft_ngram_propose
+
+    (_, toks, bt, lens, act, bud, eos, hist, limit, n, max_seq, draft_len,
+     null, blocks) = call
+    w = draft_len + 1
+    b = toks.shape[0]
+    page, width = next(iter(pages.values())).shape[2], bt.shape[1]
+    offs = torch.arange(w, dtype=torch.int32, device=toks.device)
+    rows = 0
+    for step in range(n):
+        props = draft_ngram_propose(hist, lens + 1, draft_len=draft_len)
+        win = torch.cat([toks[:, None], props], dim=1)
+        positions = lens[:, None] + offs[None, :]
+        wp = bt.gather(1, torch.clamp(positions // page, 0,
+                                      width - 1).long())
+        in_plan = act[:, None] & (positions < limit[:, None])
+        wp = torch.where(in_plan, wp, null).long()
+        wo = (positions % page).long()
+        old = {k: v[:, wp, wo] for k, v in pages.items()}
+        logits, pages = transformer._verify_window(
+            params, cfg, win, pages, bt, lens, wp, wo, use_kernel=False)
+        served = blocks[step]
+        emitted = served >= 0
+        assert margin_agrees(logits[emitted], served[emitted], tol), \
+            ("verify", step)
+        rows += int(emitted.sum())
+        n_emit = emitted.sum(1).to(torch.int32)
+        keep = offs[None, :] < n_emit[:, None]
+        for k, v in pages.items():
+            mask = keep.reshape((1, b, w) + (1,) * (v.dim() - 3))
+            v[:, wp, wo] = torch.where(mask, v[:, wp, wo], old[k])
+        hidx = torch.where(keep, lens[:, None] + 1 + offs[None, :],
+                           hist.shape[1])
+        pad = torch.cat([hist, hist.new_zeros(b, 1)], dim=1)
+        pad.scatter_(1, torch.clamp(hidx, max=hist.shape[1]).long(), served)
+        hist = pad[:, :-1].contiguous()
+        for j in range(w):                 # verify_ticks' retirement rule
+            can = emitted[:, j]
+            toks = torch.where(can, served[:, j], toks)
+            lens = lens + can.to(torch.int32)
+            bud = bud - can.to(torch.int32)
+            done = (bud <= 0) | (served[:, j] == eos) | (lens + 1 >= max_seq)
+            act = act & ~(can & done)
+    return rows
+
+
 def _replay_calls(params, cfg, calls, pages, tol: float) -> int:
     from repro_torch.models import prefill_chunk, transformer
 
     rows = 0
     for call in calls:
+        if call[0] == "verify":
+            rows += _replay_verify(params, cfg, call, pages, tol)
+            continue
         if call[0] == "prefill":
             _, tokens, start, row, served = call
             logits, pages = prefill_chunk(params, cfg, tokens, start, pages,
@@ -1719,24 +2064,29 @@ def _replay_calls(params, cfg, calls, pages, tol: float) -> int:
 
 def serve(cfg, params, rng: np.random.Generator, seed: int,
           geometry: tuple[int, int, int], kernels: dict,
-          record: bool = False) -> tuple[dict, object, list]:
+          record: bool = False, prompts: list | None = None,
+          **engine_kw) -> tuple[dict, object, list]:
     """ServeEngine at 8 slots and max_seq 2048: 16 requests, prompts of
-    48..1000 tokens, 32 new tokens each.  ``geometry`` is the expected
-    (page, chunk, pages_per_seq); ``kernels`` maps each kernel's name to
-    its wrapper and the engine counter its launches must equal times the
-    depth.  The counts are zeroed just before and read just after.  With
-    ``record``, the engine's model calls and expert choices are kept for
-    ``replay_schedule``: the third result is then (calls, routing), else
-    the finished requests."""
+    48..1000 tokens (or ``prompts``), 32 new tokens each; ``engine_kw``
+    goes to the engine (``speculate``, ``fused``).  ``geometry`` is the
+    expected (page, chunk, pages_per_seq); ``kernels`` maps each kernel's
+    name to its wrapper and the engine counter its launches must equal
+    times the depth.  The counts are zeroed just before and read just
+    after.  With ``record``, the engine's model calls and expert choices
+    are kept for ``replay_schedule``: the third result is then (calls,
+    routing), else the finished requests."""
     from repro_torch.serve import Request, ServeEngine
 
     engine = ServeEngine(params, cfg, slots=8, max_seq=2048,
-                         ticks_per_dispatch=8, seed=seed, device="cuda")
+                         ticks_per_dispatch=8, seed=seed, device="cuda",
+                         **engine_kw)
     assert (engine.page, engine.chunk, engine.pages_per_seq) == geometry
-    lengths = rng.integers(48, 1001, size=16)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab,
-                                               size=n).tolist(),
-                    max_new_tokens=32) for i, n in enumerate(lengths)]
+    if prompts is None:
+        prompts = [rng.integers(0, cfg.vocab, size=n).tolist()
+                   for n in rng.integers(48, 1001, size=16)]
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    lengths = np.array([len(p) for p in prompts])
     recorder, router = EngineCalls(), RouterLog()
     router.tag = "serve"
     torch.cuda.synchronize()
@@ -1758,7 +2108,7 @@ def serve(cfg, params, rng: np.random.Generator, seed: int,
                   if hasattr(fn, "variants")}
     engine.check_page_invariants()
     st = engine.stats
-    assert len(done) == 16, len(done)
+    assert len(done) == len(reqs), len(done)
     assert all(len(r.out) == 32 for r in done), [len(r.out) for r in done]
     assert all(0 <= t < cfg.vocab for r in done for t in r.out)
     for name, (_, stat) in kernels.items():
@@ -1776,6 +2126,22 @@ def serve(cfg, params, rng: np.random.Generator, seed: int,
            "preemptions": st["preemptions"],
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches, "launches_by_variant": by_variant}
+    if engine.draft_len is not None:
+        assert st["spec_windows"] > 0
+        assert st["drafted_tokens"] == engine.draft_len * st["spec_windows"]
+        assert 0 <= st["accepted_tokens"] <= st["drafted_tokens"]
+        assert (st["spec_windows"] <= st["decode_tokens"]
+                <= st["spec_windows"] + st["accepted_tokens"])
+        out.update({
+            "draft_len": engine.draft_len,
+            "spec_windows": st["spec_windows"],
+            "accepted_tokens": st["accepted_tokens"],
+            "drafted_tokens": st["drafted_tokens"],
+            "acceptance": st["accepted_tokens"] / st["drafted_tokens"],
+            "tokens_per_verify_step": (st["decode_tokens"]
+                                       / st["decode_steps"]),
+            "tokens_per_window": st["decode_tokens"] / st["spec_windows"],
+            "spec_fallback_dispatches": st["spec_fallback_dispatches"]})
     if record:
         return out, engine, (recorder.calls, router.calls.get("serve", []))
     return out, engine, done
@@ -2560,6 +2926,11 @@ def main() -> int:
         rows += bench_latent_kernels(cfg_ds, gen, ITERS, parent)
         rows += bench_flash(cfg, gen, FLASH_ITERS, parent)
         rows += bench_paco_kernels(gen, ITERS, parent)
+    with phase("verify_kernels"):
+        verify_rows, verify_worst = bench_verify_kernels(gen, ITERS)
+        log(f"[verify] both entries against their plain versions: max err "
+            f"{verify_worst}")
+        rows += verify_rows
     for r in rows:
         library = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
@@ -2616,6 +2987,48 @@ def main() -> int:
              result["launches_by_variant"])
         replay_plain(engine, params, cfg,
                      max(done, key=lambda r: len(r.prompt)))
+    prompts = [r.prompt for r in sorted(done, key=lambda r: r.uid)]
+
+    # 5b. serve_speculative: the same requests, every dispatch verifying
+    with phase("qwen3 serve_speculative"):
+        K.paged_flash_decode.launches = 0
+        result, engine, done_s = serve(
+            cfg, params, rng, args.seed, (64, 64, 32),
+            {"paged_prefill": (K.paged_flash_prefill, "prefill_calls"),
+             "paged_verify": (K.paged_flash_verify, "decode_steps")},
+            prompts=prompts, speculate=0, spec_min_accept=0)
+        assert K.paged_flash_decode.launches == 0, "a decode fallback ran"
+        assert result["spec_fallback_dispatches"] == 0
+        assert result["launches_by_variant"]["paged_verify"] == {
+            "mma_sync": result["launches"]["paged_verify"]}, \
+            ("every bf16 verify launch on tensor cores",
+             result["launches_by_variant"])
+        launches["paged_verify"] = result["launches"]["paged_verify"]
+        result["agreement_with_fused"] = agreement(done_s, done)
+        result["oracle_tokens_agreeing"] = {
+            r.uid: oracle_agrees(params, cfg, r, engine.max_seq)
+            for r in sorted(done_s, key=lambda r: r.uid)[:3]}
+        replay_plain(engine, params, cfg,
+                     max(done_s, key=lambda r: len(r.prompt)))
+        log(f"[serve_speculative] {json.dumps(result)}; card: {smi}")
+
+    # 5c. serve_legacy: the single-tick loop on four of the requests
+    with phase("qwen3 serve_legacy"):
+        result, engine, done_l = serve(
+            cfg, params, rng, args.seed, (64, 64, 32),
+            {"paged_prefill": (K.paged_flash_prefill, "prefill_calls"),
+             "paged_decode": (K.paged_flash_decode, "decode_steps")},
+            prompts=prompts[:4], fused=False)
+        assert result["dispatches"] == result["decode_steps"]
+        assert result["launches_by_variant"]["paged_decode"] == {
+            "mma_sync": result["launches"]["paged_decode"]}
+        for r in done_l:
+            replay_plain(engine, params, cfg, r)
+        result["oracle_tokens_agreeing"] = oracle_agrees(
+            params, cfg, done_l[0], engine.max_seq)
+        result["agreement_with_fused"] = agreement(
+            done_l, [r for r in done if r.uid < 4])
+        log(f"[serve_legacy] {json.dumps(result)}; card: {smi}")
     del params, engine
     torch.cuda.empty_cache()
 
@@ -2658,7 +3071,37 @@ def main() -> int:
     with phase("deepseek-v2 plain replay"):
         replay = replay_schedule(engine, params, cfg_d, calls, routing)
         log(f"[ds-serve] plain-path replay agrees: {json.dumps(replay)}")
-    del params, engine, calls, routing
+    done = list(engine.done)
+    del engine, calls, routing
+
+    # 7b. serve_speculative on deepseek-v2: the same requests through the
+    # latent verify entry, then the whole schedule (verify windows
+    # included) replayed through the plain path on the served routing
+    with phase("deepseek-v2 serve_speculative"):
+        K.paged_latent_decode.launches = 0
+        result, engine, (calls, routing) = serve(
+            cfg_d, params, rng, args.seed, (128, 128, 16),
+            {"paged_latent_prefill": (K.paged_latent_prefill,
+                                      "prefill_calls"),
+             "paged_latent_verify": (K.paged_latent_verify,
+                                     "decode_steps")}, record=True,
+            prompts=[r.prompt for r in sorted(done, key=lambda r: r.uid)],
+            speculate=0, spec_min_accept=0)
+        assert K.paged_latent_decode.launches == 0, "a decode fallback ran"
+        assert result["launches_by_variant"]["paged_latent_verify"] == {
+            "wgmma": result["launches"]["paged_latent_verify"]}, \
+            ("every bf16 latent verify launch on wgmma",
+             result["launches_by_variant"])
+        launches["paged_latent_verify"] = \
+            result["launches"]["paged_latent_verify"]
+        # MoE capacity depends on the tokens of a call (B x W in verify, B
+        # in a decode tick): printed, not gated
+        result["agreement_with_fused"] = agreement(engine.done, done)
+        log(f"[ds-serve_speculative] {json.dumps(result)}; card: {smi}")
+        replay = replay_schedule(engine, params, cfg_d, calls, routing)
+        log(f"[ds-serve_speculative] plain-path replay agrees: "
+            f"{json.dumps(replay)}")
+    del params, engine, calls, routing, done
     torch.cuda.empty_cache()
 
     # 8. full-width qwen3-0.6b train-step parity, kernel path vs plain

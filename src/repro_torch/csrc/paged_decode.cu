@@ -45,8 +45,10 @@
 //    in rank order and writes the output, so the result is bitwise the
 //    same on every call.
 // Every position the walk visits is valid, so only a step's tail past the
-// stage's keys is masked; a slot with no valid position (only a frozen,
-// inactive slot past its table) writes zeros.
+// stage's keys is masked.  A slot with no valid position (length 0, or a
+// window wholly past its table) walks its whole block-table row with every
+// key weighed alike: the uniform mean of its values, which the TPU kernel
+// and the plain version give by masking every score to the finite -1e30.
 
 #include <cooperative_groups.h>
 
@@ -117,9 +119,10 @@ struct CoreWalk {
     }
   }
 
-  // The warp's batches of one stage: nk keys, rows rs elements apart.
+  // The warp's batches of one stage: nk keys, rows rs elements apart;
+  // ``uniform`` scores every key 0 (a slot with no valid key).
   __device__ void stage(const T* kb, const T* vb, int rs, int nk, int g_n,
-                        int warp, float scale, float softcap) {
+                        int warp, float scale, float softcap, bool uniform) {
     for (int j0 = warp * kBatch; j0 < nk; j0 += kWarps * kBatch) {
       float kx[kBatch][EPL], vx[kBatch][EPL];
 #pragma unroll
@@ -144,6 +147,7 @@ struct CoreWalk {
           for (int e = 0; e < EPL; ++e) part += qr[g][e] * kx[j][e];
           sc[j] = warp_sum(part) * scale;
           if (softcap > 0.f) sc[j] = tanhf(sc[j] / softcap) * softcap;
+          if (uniform) sc[j] = 0.f;
           if (j0 + j < nk) mx = fmaxf(mx, sc[j]);
         }
         const float m_new = fmaxf(m[g], mx);
@@ -219,7 +223,7 @@ struct MmaWalk {
   }
 
   __device__ void stage(const bf16* kb, const bf16* vb, int rs, int nk, int,
-                        int warp, float scale, float softcap) {
+                        int warp, float scale, float softcap, bool uniform) {
     const int t4 = lane & 3;
     for (int j0 = warp * kMmaKeys; j0 < nk; j0 += kWarps * kMmaKeys) {
       float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -242,7 +246,7 @@ struct MmaWalk {
         for (int e = 0; e < 2; ++e) {
           float x = sc[nt][e] * scale;
           if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-          sc[nt][e] = x;
+          sc[nt][e] = uniform ? 0.f : x;
           if (j0 + 8 * nt + 2 * t4 + e < nk) mx = fmaxf(mx, x);
         }
       const float m_new = fmaxf(m, flash_mma::quad_max(mx));
@@ -324,11 +328,17 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
   // The slot's live keys [lo, hi) (64-bit so that a global layer's window
   // of INT32_MAX cannot overflow) and this rank's share [r_lo, r_hi).
+  // A slot with none walks the whole row, every key weighed alike.
   const int length = lengths[b];
   const long long lo64 = (long long)length - (long long)window;
-  const int lo = lo64 > 0 ? (int)lo64 : 0;
-  const int hi = min(length, width * page);
-  const int n = max(hi - lo, 0);
+  int lo = lo64 > 0 ? (int)lo64 : 0;
+  int hi = min(length, width * page);
+  const bool uniform = hi <= lo;
+  if (uniform) {
+    lo = 0;
+    hi = width * page;
+  }
+  const int n = hi - lo;
   const int share = (n + kRanks - 1) / kRanks;
   const int r_lo = lo + rank * share;
   const int n_mine = max(min(hi, r_lo + share) - r_lo, 0);
@@ -380,7 +390,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* vb = kb + kStageBytes / sizeof(T);
     walk.stage(kb, vb, rs / (int)sizeof(T),
                min(stage_keys, n_mine - s * stage_keys), g_n, warp, scale,
-               softcap);
+               softcap, uniform);
     __syncthreads();   // the buffer is the stage after next's
     if (s + kStages < n_stages) issue(s + kStages);
   }

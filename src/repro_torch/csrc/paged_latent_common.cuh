@@ -18,7 +18,11 @@
 // Row r of element b sees key positions [0, limit(b, r)): decode gives every
 // head of slot b the slot's length; prefill gives row r (position r / H of
 // the chunk) the global causal limit start + r / H + 1, which also masks
-// stale and future page contents.
+// stale and future page contents; verify gives row r of slot b (position
+// r / H of its W-token window) the limit lengths[b] + r / H + 1.  A decode
+// slot of length 0 has no valid key: it walks its whole table with every
+// key scored 0, the uniform mean of its latents, which the TPU kernel and
+// the plain version give by masking every score to the finite -1e30.
 //
 // What bounds it: the products.  A key costs 2 * (kv_lora + qk_rope) flops
 // per row for its score and 2 * kv_lora for the value, against 1152 bytes
@@ -81,8 +85,9 @@ inline size_t smem_bytes(int feat) {
 // On CUDA cores: a warp holds 2 rows, lanes across the latent features;
 // the tile is staged as f32 and the softmax weights stay f32 for the value
 // product.  CAUSAL = false: limit(b, r) = lengths[b] (decode).  CAUSAL =
-// true: limit(b, r) = start + r / n_heads + 1 (prefill, B = 1).  EPL:
-// kv_lora elements per lane.
+// true: limit(b, r) = s + r / n_heads + 1 with s = lengths[b] (verify) or,
+// where lengths is null, ``start`` (prefill, B = 1).  EPL: kv_lora
+// elements per lane.
 template <typename T, bool CAUSAL, int EPL>
 __global__ void __launch_bounds__(kThreads)
 latent_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
@@ -121,14 +126,17 @@ latent_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
 
   // Each warp row's key limit, and the block's: [lo, hi) is the key range
   // this CTA walks.
+  const bool uniform = !CAUSAL && lengths[b] <= 0;
+  const int st = CAUSAL && lengths != nullptr ? lengths[b] : start;
+  const int dec = uniform ? width * page : CAUSAL ? 0 : lengths[b];
   int limit[kRowsPerWarp];
 #pragma unroll
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int r = r0 + warp * kRowsPerWarp + j;
-    limit[j] = CAUSAL ? start + r / n_heads + 1 : lengths[b];
+    limit[j] = CAUSAL ? st + r / n_heads + 1 : dec;
   }
   const int block_limit =
-      CAUSAL ? start + (r0 + rows_here - 1) / n_heads + 1 : lengths[b];
+      CAUSAL ? st + (r0 + rows_here - 1) / n_heads + 1 : dec;
   const int lo = split * split_keys;
   const int hi = min(min(block_limit, width * page), lo + split_keys);
 
@@ -196,7 +204,7 @@ latent_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
 #pragma unroll
     for (int j = 0; j < kRowsPerWarp; ++j) {
       const bool valid = lane < n && k_pos < limit[j];
-      const float sc = valid ? s[j] * scale : kNegInf;
+      const float sc = valid ? (uniform ? 0.f : s[j] * scale) : kNegInf;
       const float m_new = fmaxf(m[j], warp_max(sc));
       const float p = valid ? expf(sc - m_new) : 0.f;
       alpha[j] = expf(m[j] - m_new);
@@ -339,17 +347,20 @@ latent_mma_kernel(const __nv_bfloat16* __restrict__ q_lat,
 
   // Softmax rows of this warp: 4w .. 4w + 3, their limits and state.
   constexpr int kSoftRows = kRows / kMmaWarps;
+  const bool uniform = !CAUSAL && lengths[b] <= 0;
+  const int st = CAUSAL && lengths != nullptr ? lengths[b] : start;
+  const int dec = uniform ? width * page : CAUSAL ? 0 : lengths[b];
   int limit[kSoftRows];
   float m[kSoftRows], l[kSoftRows];
 #pragma unroll
   for (int j = 0; j < kSoftRows; ++j) {
     const int r = r0 + warp * kSoftRows + j;
-    limit[j] = CAUSAL ? start + r / n_heads + 1 : lengths[b];
+    limit[j] = CAUSAL ? st + r / n_heads + 1 : dec;
     m[j] = kNegInf;
     l[j] = 0.f;
   }
   const int block_limit =
-      CAUSAL ? start + (r0 + rows_here - 1) / n_heads + 1 : lengths[b];
+      CAUSAL ? st + (r0 + rows_here - 1) / n_heads + 1 : dec;
   const int lo = split * split_keys;
   const int hi = min(min(block_limit, width * page), lo + split_keys);
 
@@ -412,7 +423,8 @@ latent_mma_kernel(const __nv_bfloat16* __restrict__ q_lat,
     for (int j = 0; j < kSoftRows; ++j) {
       const int r = warp * kSoftRows + j;
       const bool valid = lane < n && k_pos < limit[j];
-      const float x = valid ? s_s[r * kTk + lane] * scale : kNegInf;
+      const float x =
+          valid ? (uniform ? 0.f : s_s[r * kTk + lane] * scale) : kNegInf;
       const float m_new = fmaxf(m[j], warp_max(x));
       const float p = valid ? expf(x - m_new) : 0.f;
       const float alpha = expf(m[j] - m_new);

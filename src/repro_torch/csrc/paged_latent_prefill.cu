@@ -25,6 +25,19 @@
 //    decode kernel, paged_latent_common.cuh.
 // A chunk too short to fill the card splits its keys, and a merge kernel
 // adds the splits up in split order.
+//
+// paged_latent_verify is the speculative-verify entry: the W-token windows
+// of all B slots in one launch (jax.vmap of the TPU kernel over the slots),
+//
+// q_lat (B, W, H, kv_lora), q_rope (B, W, H, qk_rope)
+// tables (B, width) int32, lengths (B,) int32  slot b's window starts at
+//                                              lengths[b], read on the device
+// out   (B, W, H, kv_lora) in q's type
+//
+// row r of slot b (position r / H of the window) masked at lengths[b] +
+// r / H + 1.  The same three families, with the slot as a grid axis; key
+// splits are sized on the host from the table's width, and a split past a
+// slot's last key walks nothing and weighs 0 in the merge.
 
 #include "paged_latent_common.cuh"
 #include "paged_latent_wgmma.cuh"
@@ -63,6 +76,19 @@ int paged_latent_prefill_splits(int dtype, int kv, int rope, int width,
       width, page, (chunk * heads + latent::kRows - 1) / latent::kRows);
 }
 
+int paged_latent_verify_splits(int dtype, int kv, int rope, int width,
+                               int page, int batch, int w, int heads) {
+  if (variant(dtype, kv, rope, page) == kWgmma) {
+    int n_split, split_keys;
+    latent_wgmma::verify_splits(width, page, w * heads, batch, &n_split,
+                                &split_keys);
+    return n_split;
+  }
+  return latent::splits(
+      width, page,
+      batch * ((w * heads + latent::kRows - 1) / latent::kRows));
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  part_acc (n_split, C*H, kv_lora) and
 // part_ml (n_split, C*H, 2) are f32 scratch, unused when n_split == 1.
 // Returns cudaGetLastError().
@@ -82,6 +108,26 @@ int paged_latent_prefill(int dtype, const void* q_lat, const void* q_rope,
                               chunk * heads, heads, kv, rope, page, width,
                               n_pool, start, scale,
                               static_cast<cudaStream_t>(stream));
+}
+
+// The verify entry.  part_acc (n_split, B*W*H, kv_lora) and part_ml
+// (n_split, B*W*H, 2) are f32 scratch, unused when n_split == 1.  Returns
+// cudaGetLastError().
+int paged_latent_verify(int dtype, const void* q_lat, const void* q_rope,
+                        const void* ckv, const void* kr, const int* tables,
+                        const int* lengths, void* out, void* part_acc,
+                        void* part_ml, int batch, int w, int heads, int kv,
+                        int rope, int page, int width, int n_pool,
+                        float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant(dtype, kv, rope, page) == kWgmma)
+    return latent_wgmma::launch_verify(q_lat, q_rope, ckv, kr, tables,
+                                       lengths, out, part_acc, part_ml, batch,
+                                       w, heads, page, width, n_pool, scale,
+                                       s);
+  return latent::launch<true>(dtype, q_lat, q_rope, ckv, kr, tables, lengths,
+                              out, part_acc, part_ml, batch, w * heads, heads,
+                              kv, rope, page, width, n_pool, 0, scale, s);
 }
 
 }  // extern "C"

@@ -85,7 +85,17 @@
 // live ranks' states through distributed shared memory in rank order, and
 // writes it: no f32 partials go through device memory, no second kernel
 // runs, and the result is bitwise the same on every call.  A slot with no
-// valid key writes zeros.
+// valid key (length 0) walks its whole block-table row with every key
+// scored 0: the uniform mean of its latents, which the TPU kernel and the
+// plain version give by masking every score to the finite -1e30.
+//
+// Verify (prefill_kernel over a slot axis, paged_latent_prefill.cu's
+// paged_latent_verify): the W-token windows of B slots in one launch, the
+// grid's z the slot; slot b's rows are its W x H (position, head) pairs,
+// its window starting at lengths[b], read on the device.  The key splits
+// are sized on the host from the table's width (verify_splits); a split
+// past a slot's last key walks nothing and leaves the empty state, which
+// combine_kernel weighs 0.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -145,6 +155,22 @@ inline void splits(int start, int chunk, int heads, int* n_split,
   *n_split = (keys + sk - 1) / sk;
 }
 
+// The key splits of a verify launch: B slots of n_rows rows each over
+// tables of width x page keys, by the rule of ``splits`` with the keys
+// counted from the width (the windows' starts are on the device).
+inline void verify_splits(int width, int page, int n_rows, int batch,
+                          int* n_split, int* split_keys) {
+  const int blocks = batch * ((n_rows + kRowsW - 1) / kRowsW);
+  const int keys = width * page;
+  int sk = (keys + kTk - 1) / kTk * kTk;
+  if (blocks < kSmsW) {
+    const int want = (kSmsW + blocks - 1) / blocks;
+    sk = ((keys + want - 1) / want + kTk - 1) / kTk * kTk;
+  }
+  *split_keys = sk;
+  *n_split = (keys + sk - 1) / sk;
+}
+
 // d (64 x 32, f32) {=, +=} A (64 x 16) B^T (B 32 x 16), both bf16 from
 // shared memory through K-major descriptors.
 __device__ __forceinline__ void mma_ss_n32(float* d, uint64_t da, uint64_t db,
@@ -169,7 +195,8 @@ __device__ __forceinline__ int row_of(int hh) {
 
 // The walk: the CTA's 64 query rows (rows q_row0 .. q_row0 + 63 of the q
 // maps) against key positions [lo, hi) of the block-table row `table`,
-// this thread's rows masked at limit[0], limit[1] (<= hi).  On return,
+// this thread's rows masked at limit[0], limit[1] (<= hi); ``uniform``
+// scores every unmasked key 0 (a decode slot with no valid key).  On return,
 // for this thread's two rows: m, the running max (log2 domain, the same in
 // both warpgroups); l, the row sums of both warpgroups' keys (warpgroup
 // 0's first); acc, its warpgroup's 256 value features, unnormalized.  Both
@@ -179,7 +206,7 @@ __device__ __forceinline__ void walk(
     const CUtensorMap* qr_map, const CUtensorMap* ckv_map,
     const CUtensorMap* kr_map, const int* __restrict__ table, int q_row0,
     int lo, int hi, const int* limit, int page, int n_pool,
-    float scale_log2, float* m, float* l, float* acc) {
+    float scale_log2, bool uniform, float* m, float* l, float* acc) {
   const uint32_t q_full = base + kBar, full = q_full + 8;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -263,7 +290,8 @@ __device__ __forceinline__ void walk(
     for (int j = 0; j < 16; ++j) {
       const int hh = (j >> 1) & 1;
       const int key = k0 + 8 * (j >> 2) + 2 * t4 + (j & 1);
-      s[j] = key < limit[hh] ? s[j] * scale_log2 : kNegInf;
+      s[j] = key < limit[hh] ? (uniform ? 0.f : s[j] * scale_log2)
+                             : kNegInf;
       mx[hh] = fmaxf(mx[hh], s[j]);
     }
     mx[0] = flash_mma::quad_max(mx[0]);
@@ -328,16 +356,19 @@ __device__ __forceinline__ void walk(
     l[hh] = x_s[row[hh]] + x_s[kRowsW + row[hh]];
 }
 
-// q_lat (n_rows, 512), q_rope (n_rows, 64), the pools (n_pool * page, 512)
-// and (n_pool * page, 64), all as 2-D maps with 64 x 64 boxes; row_table
-// (width,); out (n_rows, 512) bf16, or, split, part_acc (n_split, n_rows,
-// 512) and part_ml (n_split, n_rows, 2) f32.  scale_log2 = scale * log2 e.
+// q_lat (B * n_rows, 512), q_rope (B * n_rows, 64), the pools (n_pool *
+// page, 512) and (n_pool * page, 64), all as 2-D maps with 64 x 64 boxes;
+// tables (B, width); starts (B,) or, for one slot (B 1), nullptr and
+// ``start``; out (B * n_rows, 512) bf16, or, split, part_acc (n_split,
+// B * n_rows, 512) and part_ml (n_split, B * n_rows, 2) f32.  Grid (row
+// blocks, n_split, B).  scale_log2 = scale * log2 e.
 __global__ void __launch_bounds__(kThreadsW, 1)
 prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
                const __grid_constant__ CUtensorMap qr_map,
                const __grid_constant__ CUtensorMap ckv_map,
                const __grid_constant__ CUtensorMap kr_map,
-               const int* __restrict__ row_table, bf16* __restrict__ out,
+               const int* __restrict__ tables,
+               const int* __restrict__ starts, bf16* __restrict__ out,
                float* __restrict__ part_acc, float* __restrict__ part_ml,
                int n_rows, int n_heads, int page, int width, int n_pool,
                int start, int split_keys, float scale_log2) {
@@ -345,6 +376,11 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
   const uint32_t base = aligned_smem_base(smem_raw);
   unsigned char* gen = smem_raw + (base - smem_u32(smem_raw));
 
+  // the slot: its block-table row, its window's start, its rows' outputs
+  const int b = blockIdx.z;
+  const int* row_table = tables + (long long)b * width;
+  if (starts != nullptr) start = starts[b];
+  out += (long long)b * n_rows * kKv;
   // longest causal range first: the last row block goes first
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kRowsW;
   const int split = blockIdx.y;
@@ -357,15 +393,17 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
   for (int hh = 0; hh < 2; ++hh)
     limit[hh] = min(start + (r0 + row_of(hh)) / n_heads + 1, hi);
   float m[2], lt[2], acc[kAcc];
-  walk(base, gen, &ql_map, &qr_map, &ckv_map, &kr_map, row_table, r0, lo, hi,
-       limit, page, n_pool, scale_log2, m, lt, acc);
+  walk(base, gen, &ql_map, &qr_map, &ckv_map, &kr_map, row_table,
+       b * n_rows + r0, lo, hi, limit, page, n_pool, scale_log2, false, m,
+       lt, acc);
 
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t4 = lane & 3;
   const int row[2] = {row_of(0), row_of(1)};
   if (gridDim.y > 1) {   // f32 partials for combine_kernel
-    const long long prow0 = (long long)split * n_rows + r0;
+    const long long prow0 =
+        ((long long)split * gridDim.z + b) * n_rows + r0;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (r0 + row[hh] >= n_rows) continue;
@@ -434,8 +472,11 @@ decode_kernel(const __grid_constant__ CUtensorMap ql_map,
   const uint32_t base = aligned_smem_base(smem_raw);
   unsigned char* gen = smem_raw + (base - smem_u32(smem_raw));
 
-  // the slot's live keys [0, n) in 64-key tiles, and this rank's share
-  const int n = max(min(lengths[b], width * page), 0);
+  // the slot's live keys [0, n) in 64-key tiles, and this rank's share; a
+  // slot with none walks the whole row, every key scored 0
+  int n = max(min(lengths[b], width * page), 0);
+  const bool uniform = n == 0;
+  if (uniform) n = width * page;
   const int tiles = (n + kTk - 1) / kTk;
   const int share = (tiles + kRanks - 1) / kRanks;
   const int lo = min(rank * share * kTk, n);
@@ -444,7 +485,7 @@ decode_kernel(const __grid_constant__ CUtensorMap ql_map,
   float m[2], l[2], acc[kAcc];
   walk(base, gen, &ql_map, &qr_map, &ckv_map, &kr_map,
        tables + (long long)b * width, b * n_heads + hb * kRowsW, lo, hi,
-       limit, page, n_pool, scale_log2, m, l, acc);
+       limit, page, n_pool, scale_log2, uniform, m, l, acc);
 
   // the rank's state in its own shared memory: the accumulator over the
   // key stages, (m, l) over P
@@ -544,7 +585,7 @@ inline int launch(const void* q_lat, const void* q_rope, const void* ckv,
   splits(start, chunk, heads, &n_split, &split_keys);
   const dim3 grid((n_rows + kRowsW - 1) / kRowsW, n_split);
   prefill_kernel<<<grid, kThreadsW, kSmemW, stream>>>(
-      qlm, qrm, ckm, krm, row_table, static_cast<bf16*>(out),
+      qlm, qrm, ckm, krm, row_table, nullptr, static_cast<bf16*>(out),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), n_rows,
       heads, page, width, n_pool, start, split_keys,
       scale * flash_mma::kLog2e);
@@ -555,6 +596,42 @@ inline int launch(const void* q_lat, const void* q_rope, const void* ckv,
         static_cast<const float*>(part_acc),
         static_cast<const float*>(part_ml), static_cast<bf16*>(out), n_rows,
         kKv, n_split);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The verify launch: q_lat (B, W, H, 512) and q_rope (B, W, H, 64) as B *
+// W * H rows, tables (B, width), lengths (B,) the windows' starts; one
+// launch over the slots, and combine_kernel's when split.
+inline int launch_verify(const void* q_lat, const void* q_rope,
+                         const void* ckv, const void* kr, const int* tables,
+                         const int* lengths, void* out, void* part_acc,
+                         void* part_ml, int batch, int w, int heads, int page,
+                         int width, int n_pool, float scale,
+                         cudaStream_t stream) {
+  const int n_rows = w * heads;
+  if (batch * n_rows == 0) return 0;
+  static size_t opted_in = 48 * 1024;
+  const cudaError_t e = allow_smem(prefill_kernel, kSmemW, &opted_in);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap qlm, qrm, ckm, krm;
+  if (!maps(&qlm, &qrm, &ckm, &krm, q_lat, q_rope, ckv, kr, batch * n_rows,
+            n_pool * page))
+    return (int)cudaErrorInvalidValue;
+  int n_split, split_keys;
+  verify_splits(width, page, n_rows, batch, &n_split, &split_keys);
+  const dim3 grid((n_rows + kRowsW - 1) / kRowsW, n_split, batch);
+  prefill_kernel<<<grid, kThreadsW, kSmemW, stream>>>(
+      qlm, qrm, ckm, krm, tables, lengths, static_cast<bf16*>(out),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), n_rows,
+      heads, page, width, n_pool, 0, split_keys, scale * flash_mma::kLog2e);
+  if (n_split > 1) {
+    const cudaError_t e2 = cudaGetLastError();
+    if (e2 != cudaSuccess) return (int)e2;
+    combine_kernel<bf16><<<batch * n_rows, 256, 0, stream>>>(
+        static_cast<const float*>(part_acc),
+        static_cast<const float*>(part_ml), static_cast<bf16*>(out),
+        batch * n_rows, kKv, n_split);
   }
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,27 @@
 //    sum are warp shuffles), the PV product with head_dim across the
 //    lanes.
 //
+// paged_verify is the speculative-verify entry: the W-token windows of all
+// B slots in one launch, as jax.vmap of the TPU kernel over the slots runs
+// it (slot b's scalar-prefetched start is lengths[b]),
+//
+// q      (B, W, Hq, D)         slot b's queries at positions lengths[b] + t
+// tables (B, width) int32      block-table rows
+// lengths(B,) int32            the windows' starts, read on the device
+// out    (B, W, Hq, D)
+//
+// with the slot as a grid axis of both bodies (the chunk of slot b is its
+// window).  It reads each slot's K/V once for all W rows, where the decode
+// kernel over B x W rows would read it W times.  Key splits are sized on
+// the host from width x page; a split past a slot's last key (lengths[b] +
+// W) walks nothing and leaves the empty state, which the merge weighs 0.
+// At qwen3-0.6b's verify (G 2, W 8) a slot and kv head hold 16 rows, which
+// one 16-row warp covers; the tensor-core body takes four warps a CTA all
+// the same (three idle in the products), not one: they stage each K/V tile
+// four times as fast, and the CTA waits on its tiles (launch.paged_bench,
+// NVIDIA H100 80GB HBM3, 700.00 W: 0.0338 ms against 0.0485 with one warp
+// and 0.0448 with the prefill's eight).
+//
 // Masking keeps the TPU kernel's finite NEG_INF (-1e30).  In the CUDA-core
 // body a row whose first tile lies wholly before its window takes exp(0)
 // weights there, and the next tile that holds a valid key scales them by
@@ -70,18 +91,27 @@ constexpr int kTk = 32;                       // key positions per tile
 constexpr int kSplitKeys = 128;               // key positions per CTA
 constexpr int kMaxDLane = 8;                  // head_dim <= 32 * kMaxDLane
 
+// Grid (q blocks, Hkv, n_split x B): slot b = z / n_split takes row b of
+// ``tables`` and starts at starts[b] (or, where starts is null, ``start``).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                      const T* __restrict__ v_pages,
-                     const int* __restrict__ block_row, T* __restrict__ out,
+                     const int* __restrict__ tables,
+                     const int* __restrict__ starts, T* __restrict__ out,
                      float* __restrict__ part_acc,
                      float* __restrict__ part_ml, int c, int hq, int hkv,
                      int d, int page, int width, int n_pool, int start,
-                     int bq, float scale, int window, float softcap) {
+                     int n_split, int bq, float scale, int window,
+                     float softcap) {
   const int qb = blockIdx.x;
   const int h = blockIdx.y;
-  const int split = blockIdx.z;
+  const int split = blockIdx.z % n_split;
+  const int b = blockIdx.z / n_split;
+  const int* block_row = tables + (long long)b * width;
+  if (starts != nullptr) start = starts[b];
+  q += (long long)b * c * hq * d;
+  out += (long long)b * c * hq * d;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -208,15 +238,17 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     __syncthreads();
   }
 
-  // Output row of (chunk position ci, q head h * G + g) is ci * Hq + head.
+  // Output row of (chunk position ci, q head h * G + g) is ci * Hq + head;
+  // partial rows run over all slots.
   const long long out_rows = (long long)c * hq;
+  const long long all_rows = out_rows * (gridDim.z / n_split);
 #pragma unroll
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int r = warp * kRowsPerWarp + j;
     const int ci = c0 + r % bq;
     if (r < rows && ci < c) {
       const long long orow = (long long)ci * hq + h * g_n + r / bq;
-      if (gridDim.z == 1) {
+      if (n_split == 1) {
         const float inv = 1.f / fmaxf(l[j], 1e-30f);
 #pragma unroll
         for (int s2 = 0; s2 < kMaxDLane; ++s2) {
@@ -224,7 +256,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
           if (dd < d) store_val(out + orow * d + dd, acc[j][s2] * inv);
         }
       } else {
-        const long long prow = (long long)split * out_rows + orow;
+        const long long prow = split * all_rows + b * out_rows + orow;
 #pragma unroll
         for (int s2 = 0; s2 < kMaxDLane; ++s2) {
           const int dd = lane + 32 * s2;
@@ -243,28 +275,28 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 // bf16 on tensor cores (mma.sync)
 // ---------------------------------------------------------------------------
 
-constexpr int kTcThreads = 256;
-constexpr int kTcRows = 128;   // query rows per CTA: 8 warps x 16
+constexpr int kTcWarps = 8;    // the prefill's warps of 16 rows a CTA
+constexpr int kTcRows = 16 * kTcWarps;   // its query rows per CTA: 128
 constexpr int kTcTk = 64;      // keys per tile
 
 inline bool tc_takes(int d) {
   return d == 16 || d == 32 || d == 64 || d == 128 || d == 256;
 }
 
-template <int D>
+template <int D, int NW>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(kTcRows + 4 * kTcTk) * (D + 8);
+  return sizeof(__nv_bfloat16) * (size_t)(16 * NW + 4 * kTcTk) * (D + 8);
 }
 
 // Keys t0 .. t0 + n of one kv head, page by page through the block row,
 // -> shared memory rows of D + 8; rows past n up to kTcTk are zero.
-template <int D>
+template <int D, int NW>
 __device__ __forceinline__ void stage_keys(
     const __nv_bfloat16* __restrict__ pages, __nv_bfloat16* dst,
     const int* __restrict__ block_row, int t0, int n, int page, int hkv,
     int h, int n_pool) {
   constexpr int chunks = D / 8;
-  for (int i = threadIdx.x; i < kTcTk * chunks; i += kTcThreads) {
+  for (int i = threadIdx.x; i < kTcTk * chunks; i += 32 * NW) {
     const int t = i / chunks;
     const int cc = i - t * chunks;
     const __nv_bfloat16* src = pages;
@@ -278,32 +310,41 @@ __device__ __forceinline__ void stage_keys(
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, 1)
+// NW warps of 16 rows a CTA (the prefill takes 8, verify 4 where 64 rows
+// cover its G x W); grid and slots as paged_prefill_kernel's.
+template <int D, int NW>
+__global__ void __launch_bounds__(32 * NW, 1)
 tc_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k_pages,
                   const __nv_bfloat16* __restrict__ v_pages,
-                  const int* __restrict__ block_row,
+                  const int* __restrict__ tables,
+                  const int* __restrict__ starts,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
                   float* __restrict__ part_ml, int c, int hq, int hkv,
-                  int page, int width, int n_pool, int start, int bq,
-                  float scale, int window, float softcap) {
+                  int page, int width, int n_pool, int start, int n_split,
+                  int bq, float scale, int window, float softcap) {
   using namespace flash_mma;
   constexpr int stride = D + 8;
   constexpr int NT = D / 8;
   constexpr int ST = kTcTk / 8;
-  const int qb = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  constexpr int kRowsCta = 16 * NW;
+  const int qb = blockIdx.x, h = blockIdx.y;
+  const int split = blockIdx.z % n_split, b = blockIdx.z / n_split;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g_n = hq / hkv, rows = g_n * bq, c0 = qb * bq;
+  const int* block_row = tables + (long long)b * width;
+  if (starts != nullptr) start = starts[b];
+  q += (long long)b * c * hq * D;
+  out += (long long)b * c * hq * D;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kTcRows * stride;     // 2 buffers of kTcTk rows
+  bf16* k_s = q_s + kRowsCta * stride;    // 2 buffers of kTcTk rows
   bf16* v_s = k_s + 2 * kTcTk * stride;   // 2 buffers of kTcTk rows
 
   // Q: row r is head h G + r % G at chunk position c0 + r / G
   constexpr int chunks = D / 8;
-  for (int i = threadIdx.x; i < kTcRows * chunks; i += kTcThreads) {
+  for (int i = threadIdx.x; i < kRowsCta * chunks; i += 32 * NW) {
     const int r = i / chunks;
     const int cc = i - r * chunks;
     const int ci = c0 + r / g_n;
@@ -346,10 +387,10 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   auto load_tile = [&](int i) {
     const int t0 = k_lo + i * kTcTk;
     const int n = min(kTcTk, k_hi - t0);
-    stage_keys<D>(k_pages, k_s + (i & 1) * kTcTk * stride, block_row, t0, n,
-                  page, hkv, h, n_pool);
-    stage_keys<D>(v_pages, v_s + (i & 1) * kTcTk * stride, block_row, t0, n,
-                  page, hkv, h, n_pool);
+    stage_keys<D, NW>(k_pages, k_s + (i & 1) * kTcTk * stride, block_row,
+                      t0, n, page, hkv, h, n_pool);
+    stage_keys<D, NW>(v_pages, v_s + (i & 1) * kTcTk * stride, block_row,
+                      t0, n, page, hkv, h, n_pool);
     cp_async_commit();
   };
   if (n_tiles > 0) load_tile(0);
@@ -395,14 +436,16 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();      // every warp is done with tile i's buffer
   }
 
-  // Output row of (chunk position ci, q head h G + r % G) is ci Hq + head.
+  // Output row of (chunk position ci, q head h G + r % G) is ci Hq + head;
+  // partial rows run over all slots.
   const long long out_rows = (long long)c * hq;
+  const long long all_rows = out_rows * (gridDim.z / n_split);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int ci = c0 + row[hh] / g_n;
     if (row[hh] >= rows || ci >= c) continue;
     const long long orow = (long long)ci * hq + h * g_n + row[hh] % g_n;
-    if (gridDim.z == 1) {
+    if (n_split == 1) {
       const float inv = 1.f / fmaxf(l[hh], 1e-30f);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
@@ -410,7 +453,7 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q,
             __floats2bfloat162_rn(acc[nt][2 * hh] * inv,
                                   acc[nt][2 * hh + 1] * inv);
     } else {
-      const long long prow = (long long)split * out_rows + orow;
+      const long long prow = split * all_rows + b * out_rows + orow;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
         *reinterpret_cast<float2*>(part_acc + prow * D + nt * 8 + 2 * t4) =
@@ -423,25 +466,44 @@ tc_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, int NW>
 int launch_tc(const void* q, const void* k_pages, const void* v_pages,
-              const int* block_row, void* out, void* part_acc, void* part_ml,
-              int c, int hq, int hkv, int page, int width, int n_pool,
-              int start, int n_split, float scale, int window, float softcap,
-              cudaStream_t stream) {
+              const int* tables, const int* starts, void* out, void* part_acc,
+              void* part_ml, int batch, int c, int hq, int hkv, int page,
+              int width, int n_pool, int start, int n_split, float scale,
+              int window, float softcap, cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
-  constexpr size_t smem = tc_smem_bytes<D>();
-  const cudaError_t e = allow_smem(tc_prefill_kernel<D>, smem, &opted_in);
+  constexpr size_t smem = tc_smem_bytes<D, NW>();
+  const cudaError_t e =
+      allow_smem(tc_prefill_kernel<D, NW>, smem, &opted_in);
   if (e != cudaSuccess) return (int)e;
-  const int bq = kTcRows / (hq / hkv);
-  const dim3 grid((c + bq - 1) / bq, hkv, n_split);
+  const int bq = 16 * NW / (hq / hkv);
+  const dim3 grid((c + bq - 1) / bq, hkv, n_split * batch);
   using bf = __nv_bfloat16;
-  tc_prefill_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+  tc_prefill_kernel<D, NW><<<grid, 32 * NW, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k_pages),
-      static_cast<const bf*>(v_pages), block_row, static_cast<bf*>(out),
+      static_cast<const bf*>(v_pages), tables, starts, static_cast<bf*>(out),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), c, hq,
-      hkv, page, width, n_pool, start, bq, scale, window, softcap);
+      hkv, page, width, n_pool, start, n_split, bq, scale, window, softcap);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core launch at D for NW warps a CTA (4 or 8).
+template <int NW>
+int launch_tc_d(int d, const void* q, const void* k_pages,
+                const void* v_pages, const int* tables, const int* starts,
+                void* out, void* part_acc, void* part_ml, int batch, int c,
+                int hq, int hkv, int page, int width, int n_pool, int start,
+                int n_split, float scale, int window, float softcap,
+                cudaStream_t s) {
+  auto launch = d == 16    ? launch_tc<16, NW>
+                : d == 32  ? launch_tc<32, NW>
+                : d == 64  ? launch_tc<64, NW>
+                : d == 128 ? launch_tc<128, NW>
+                           : launch_tc<256, NW>;
+  return launch(q, k_pages, v_pages, tables, starts, out, part_acc, part_ml,
+                batch, c, hq, hkv, page, width, n_pool, start, n_split, scale,
+                window, softcap, s);
 }
 
 size_t prefill_smem_bytes(int d) {
@@ -457,23 +519,81 @@ int prefill_splits(int width, int page, int start, int c) {
   return keys > 0 ? (keys + kSplitKeys - 1) / kSplitKeys : 1;
 }
 
+// Key splits of a verify launch: its starts are on the device, so the
+// splits cover the whole table.
+int verify_splits(int width, int page) {
+  return prefill_splits(width, page, 0, width * page);
+}
+
+// Warps of 16 rows a verify CTA takes on tensor cores: 4, or 8 where 64
+// rows do not cover a slot's G x W rows of one kv head.
+constexpr int kVerifyWarps = 4;
+int verify_warps(int g_n, int w) {
+  return 16 * kVerifyWarps < g_n * w ? kTcWarps : kVerifyWarps;
+}
+
 template <typename T>
 int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
-                   const int* block_row, void* out, void* part_acc,
-                   void* part_ml, int c, int hq, int hkv, int d, int page,
-                   int width, int n_pool, int start, int n_split, float scale,
-                   int window, float softcap, cudaStream_t stream) {
+                   const int* tables, const int* starts, void* out,
+                   void* part_acc, void* part_ml, int batch, int c, int hq,
+                   int hkv, int d, int page, int width, int n_pool, int start,
+                   int n_split, float scale, int window, float softcap,
+                   cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
   const size_t smem = prefill_smem_bytes(d);
   const cudaError_t e = allow_smem(paged_prefill_kernel<T>, smem, &opted_in);
   if (e != cudaSuccess) return (int)e;
   const int bq = kRows / (hq / hkv);
-  const dim3 grid((c + bq - 1) / bq, hkv, n_split);
+  const dim3 grid((c + bq - 1) / bq, hkv, n_split * batch);
   paged_prefill_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), block_row, static_cast<T*>(out),
+      static_cast<const T*>(v_pages), tables, starts, static_cast<T*>(out),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), c, hq,
-      hkv, d, page, width, n_pool, start, bq, scale, window, softcap);
+      hkv, d, page, width, n_pool, start, n_split, bq, scale, window,
+      softcap);
+  return (int)cudaGetLastError();
+}
+
+// Both entries: B slots of C rows (B 1 and a host ``start`` for a prefill
+// chunk; the windows' device starts for verify), nw warps a tensor-core CTA,
+// then the merge of the splits.
+int run(int dtype, const void* q, const void* k_pages, const void* v_pages,
+        const int* tables, const int* starts, void* out, void* part_acc,
+        void* part_ml, int batch, int c, int hq, int hkv, int d, int page,
+        int width, int n_pool, int start, int n_split, int nw, float scale,
+        int window, float softcap, cudaStream_t s) {
+  int err;
+  if (dtype == 1 && tc_takes(d)) {
+    auto launch = nw == kVerifyWarps ? launch_tc_d<kVerifyWarps>
+                                     : launch_tc_d<kTcWarps>;
+    err = launch(d, q, k_pages, v_pages, tables, starts, out, part_acc,
+                 part_ml, batch, c, hq, hkv, page, width, n_pool, start,
+                 n_split, scale, window, softcap, s);
+  } else if (dtype == 0) {
+    err = launch_prefill<float>(q, k_pages, v_pages, tables, starts, out,
+                                part_acc, part_ml, batch, c, hq, hkv, d, page,
+                                width, n_pool, start, n_split, scale, window,
+                                softcap, s);
+  } else if (dtype == 1) {
+    err = launch_prefill<__nv_bfloat16>(
+        q, k_pages, v_pages, tables, starts, out, part_acc, part_ml, batch,
+        c, hq, hkv, d, page, width, n_pool, start, n_split, scale, window,
+        softcap, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err || n_split == 1) return err;
+  const int rows = batch * c * hq;
+  if (dtype == 0)
+    combine_kernel<float><<<rows, kThreads, 0, s>>>(
+        static_cast<const float*>(part_acc),
+        static_cast<const float*>(part_ml), static_cast<float*>(out), rows,
+        d, n_split);
+  else
+    combine_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
+        static_cast<const float*>(part_acc),
+        static_cast<const float*>(part_ml),
+        static_cast<__nv_bfloat16*>(out), rows, d, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -497,6 +617,10 @@ int paged_prefill_splits(int width, int page, int start, int c) {
 // The kernel family a launch takes: 0 CUDA cores, 1 mma.sync tensor cores.
 int paged_prefill_variant(int dtype, int d) { return variant_of(dtype, d); }
 
+int paged_verify_splits(int width, int page) {
+  return verify_splits(width, page);
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  softcap <= 0 means no softcap; a
 // window of INT32_MAX means a global layer.  part_acc (n_split, C*Hq, D) and
 // part_ml (n_split, C*Hq, 2) are f32 scratch for paged_prefill_splits key
@@ -506,43 +630,26 @@ int paged_prefill(int dtype, const void* q, const void* k_pages,
                   void* part_acc, void* part_ml, int c, int hq, int hkv,
                   int d, int page, int width, int n_pool, int start,
                   float scale, int window, float softcap, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_split = prefill_splits(width, page, start, c);
-  int err;
-  if (variant_of(dtype, d) == kMmaSync) {
-    auto launch = d == 16    ? launch_tc<16>
-                  : d == 32  ? launch_tc<32>
-                  : d == 64  ? launch_tc<64>
-                  : d == 128 ? launch_tc<128>
-                             : launch_tc<256>;
-    err = launch(q, k_pages, v_pages, block_row, out, part_acc, part_ml, c,
-                 hq, hkv, page, width, n_pool, start, n_split, scale, window,
-                 softcap, s);
-  } else if (dtype == 0) {
-    err = launch_prefill<float>(q, k_pages, v_pages, block_row, out,
-                                part_acc, part_ml, c, hq, hkv, d, page,
-                                width, n_pool, start, n_split, scale, window,
-                                softcap, s);
-  } else if (dtype == 1) {
-    err = launch_prefill<__nv_bfloat16>(
-        q, k_pages, v_pages, block_row, out, part_acc, part_ml, c, hq, hkv,
-        d, page, width, n_pool, start, n_split, scale, window, softcap, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (err || n_split == 1) return err;
-  const int rows = c * hq;
-  if (dtype == 0)
-    combine_kernel<float><<<rows, kThreads, 0, s>>>(
-        static_cast<const float*>(part_acc),
-        static_cast<const float*>(part_ml), static_cast<float*>(out), rows,
-        d, n_split);
-  else
-    combine_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-        static_cast<const float*>(part_acc),
-        static_cast<const float*>(part_ml),
-        static_cast<__nv_bfloat16*>(out), rows, d, n_split);
-  return (int)cudaGetLastError();
+  return run(dtype, q, k_pages, v_pages, block_row, nullptr, out, part_acc,
+             part_ml, 1, c, hq, hkv, d, page, width, n_pool, start,
+             prefill_splits(width, page, start, c), kTcWarps, scale, window,
+             softcap, static_cast<cudaStream_t>(stream));
+}
+
+// The verify entry: q and out (B, W, Hq, D), tables (B, width), lengths
+// (B,) the windows' starts; part_acc (n_split, B*W*Hq, D) and part_ml
+// (n_split, B*W*Hq, 2) f32 scratch for paged_verify_splits key splits,
+// unused when there is one.  Returns cudaGetLastError().
+int paged_verify(int dtype, const void* q, const void* k_pages,
+                 const void* v_pages, const int* tables, const int* lengths,
+                 void* out, void* part_acc, void* part_ml, int batch, int w,
+                 int hq, int hkv, int d, int page, int width, int n_pool,
+                 float scale, int window, float softcap, void* stream) {
+  if (batch * w == 0) return 0;
+  return run(dtype, q, k_pages, v_pages, tables, lengths, out, part_acc,
+             part_ml, batch, w, hq, hkv, d, page, width, n_pool, 0,
+             verify_splits(width, page), verify_warps(hq / hkv, w), scale,
+             window, softcap, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -34,6 +34,14 @@ and ``paged_latent_decode`` count their launches by family in
 ``"cuda_cores"``; decode ``"mma_sync"``, ``"cuda_cores"``; the latent pair
 ``"wgmma"``, ``"mma_sync"``, ``"cuda_cores"``).
 
+Speculative verify: ``paged_flash_verify`` and ``paged_latent_verify`` are
+the W-token windows of all B slots in one launch, the entries
+``paged_verify`` of ``csrc/paged_prefill.cu`` and ``paged_latent_verify``
+of ``csrc/paged_latent_prefill.cu``, which run the prefill kernels with the
+slot as a grid axis and each slot's start read on the device (JAX vmaps
+``paged_flash_prefill_pallas`` and ``paged_latent_prefill_pallas`` over
+the slots).  They count launches and variants as the prefill wrappers do.
+
 The kernels are CUDA C++ for ``sm_90a``, built by ``kernels.build`` at
 first use and called through their plain C interface with ``ctypes``.
 Each wrapper takes the model's layout, checks what the kernel accepts
@@ -145,6 +153,15 @@ def _check_pools(q: torch.Tensor, k_pages: torch.Tensor,
     return n_pool, page, hkv
 
 
+def _check_slots(tables: torch.Tensor, lengths: torch.Tensor, b: int,
+                 device: torch.device) -> None:
+    _check("block_tables", tables, device, torch.int32, 2)
+    _check("lengths", lengths, device, torch.int32, 1)
+    if tables.shape[0] != b or lengths.shape[0] != b:
+        raise ValueError(f"block_tables {tuple(tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match batch {b}")
+
+
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, block_tables: torch.Tensor,
                        lengths: torch.Tensor, *, scale: float,
@@ -172,12 +189,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     _check("q", q, q.device, q.dtype, 4)
     n_pool, page, hkv = _check_pools(q, k_pages, v_pages, hq, d,
                                      "paged_decode")
-    _check("block_tables", block_tables, q.device, torch.int32, 2)
-    _check("lengths", lengths, q.device, torch.int32, 1)
-    if block_tables.shape[0] != b or lengths.shape[0] != b:
-        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
-                         f"lengths {tuple(lengths.shape)} do not match "
-                         f"batch {b}")
+    _check_slots(block_tables, lengths, b, q.device)
     width = block_tables.shape[1]
     out = torch.empty_like(q)
     fn = _fn("paged_decode", "paged_decode",
@@ -262,6 +274,59 @@ paged_flash_prefill.launches = 0
 paged_flash_prefill.variants = collections.Counter()
 
 
+def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, block_tables: torch.Tensor,
+                       lengths: torch.Tensor, *, scale: float,
+                       window: int | None = None,
+                       logit_cap: float | None = None) -> torch.Tensor:
+    """Speculative verify over all slots in one launch
+    (``csrc/paged_prefill.cu``: ``paged_verify``).
+
+    q: (B, W, Hq, D) contiguous, slot b's window at positions
+    lengths[b] + t; k_pages/v_pages: (n_pool, page, Hkv, D); block_tables
+    (B, width) int32; lengths (B,) int32 on the device.  Returns
+    (B, W, Hq, D) in q's dtype.  The key splits cover the table's width;
+    ``variants`` counts ``"mma_sync"`` (bf16 at D 16, 32, 64, 128 or 256)
+    or ``"cuda_cores"``.
+    """
+    if not q.is_cuda:
+        from repro_torch.kernels.attention import ops
+        return ops.paged_verify_attention(
+            q, k_pages, v_pages, block_tables, lengths, window=window,
+            logit_cap=logit_cap, scale=scale, use_kernel=False)
+    b, w, hq, d = q.shape
+    _check("q", q, q.device, q.dtype, 4)
+    n_pool, page, hkv = _check_pools(q, k_pages, v_pages, hq, d,
+                                     "paged_prefill")
+    _check_slots(block_tables, lengths, b, q.device)
+    width = block_tables.shape[1]
+    out = torch.empty_like(q)
+    n_split = _fn("paged_prefill", "paged_verify_splits", (_I, _I))(width,
+                                                                     page)
+    part_acc, part_ml = _scratch(n_split, b * w * hq, d, q.device)
+    fn = _fn("paged_prefill", "paged_verify",
+             (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+              _I, _F, _I, _F, _P))
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+                 v_pages.data_ptr(), block_tables.data_ptr(),
+                 lengths.data_ptr(), out.data_ptr(), _ptr(part_acc),
+                 _ptr(part_ml), b, w, hq, hkv, d, page, width, n_pool,
+                 float(scale), _window(window), _softcap(logit_cap),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_verify launch failed: CUDA error {err}")
+    paged_flash_verify.launches += 1
+    paged_flash_verify.variants[PREFILL_VARIANTS[_fn(
+        "paged_prefill", "paged_prefill_variant", (_I, _I))(
+            _DTYPES[q.dtype], d)]] += 1
+    return out
+
+
+paged_flash_verify.launches = 0
+paged_flash_verify.variants = collections.Counter()
+
+
 def _check_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
                   ckv_pages: torch.Tensor, kr_pages: torch.Tensor,
                   lib: str) -> tuple[int, int, int, int]:
@@ -324,12 +389,7 @@ def paged_latent_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
                          f"q_lat {tuple(q_lat.shape)}")
     kv, rope, n_pool, page = _check_latent(q_lat, q_rope, ckv_pages,
                                            kr_pages, lib)
-    _check("block_tables", block_tables, q_lat.device, torch.int32, 2)
-    _check("lengths", lengths, q_lat.device, torch.int32, 1)
-    if block_tables.shape[0] != b or lengths.shape[0] != b:
-        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
-                         f"lengths {tuple(lengths.shape)} do not match "
-                         f"batch {b}")
+    _check_slots(block_tables, lengths, b, q_lat.device)
     width = block_tables.shape[1]
     out = torch.empty_like(q_lat)
     dtype = _DTYPES[q_lat.dtype]
@@ -415,6 +475,59 @@ def paged_latent_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
 
 paged_latent_prefill.launches = 0
 paged_latent_prefill.variants = collections.Counter()
+
+
+def paged_latent_verify(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                        ckv_pages: torch.Tensor, kr_pages: torch.Tensor,
+                        block_tables: torch.Tensor, lengths: torch.Tensor,
+                        *, scale: float) -> torch.Tensor:
+    """Speculative MLA latent verify over all slots in one launch
+    (``csrc/paged_latent_prefill.cu``: ``paged_latent_verify``).
+
+    q_lat (B, W, H, kv_lora) and q_rope (B, W, H, qk_rope) contiguous,
+    slot b's window at positions lengths[b] + t; latent pools as for
+    decode; block_tables (B, width) int32; lengths (B,) int32 on the
+    device.  Returns (B, W, H, kv_lora) in q's dtype.  ``variants`` counts
+    ``"wgmma"`` (bf16 at kv_lora 512, qk_rope 64 and pages of a multiple of
+    64), ``"mma_sync"`` or ``"cuda_cores"``, as for the latent prefill.
+    """
+    if not q_lat.is_cuda:
+        from repro_torch.kernels.attention import ops
+        return ops.paged_latent_verify_attention(
+            q_lat, q_rope, ckv_pages, kr_pages, block_tables, lengths,
+            scale=scale, use_kernel=False)
+    lib = "paged_latent_prefill"
+    b, w, h, _ = q_lat.shape
+    kv, rope, n_pool, page = _check_latent(q_lat, q_rope, ckv_pages,
+                                           kr_pages, lib)
+    _check_slots(block_tables, lengths, b, q_lat.device)
+    width = block_tables.shape[1]
+    out = torch.empty_like(q_lat)
+    dtype = _DTYPES[q_lat.dtype]
+    n_split = _fn(lib, "paged_latent_verify_splits", (_I,) * 8)(
+        dtype, kv, rope, width, page, b, w, h)
+    part_acc, part_ml = _scratch(n_split, b * w * h, kv, q_lat.device)
+    fn = _fn(lib, "paged_latent_verify",
+             (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+              _I, _I, _I, _F, _P))
+    with torch.cuda.device(q_lat.device):
+        err = fn(dtype, q_lat.data_ptr(), q_rope.data_ptr(),
+                 ckv_pages.data_ptr(), kr_pages.data_ptr(),
+                 block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 _ptr(part_acc), _ptr(part_ml), b, w, h, kv, rope, page,
+                 width, n_pool, float(scale),
+                 torch.cuda.current_stream(q_lat.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_latent_verify launch failed: CUDA error "
+                           f"{err}")
+    paged_latent_verify.launches += 1
+    paged_latent_verify.variants[FLASH_VARIANTS[_fn(
+        lib, f"{lib}_variant", (_I,) * 4)(dtype, kv, rope, page)]] += 1
+    return out
+
+
+paged_latent_verify.launches = 0
+paged_latent_verify.variants = collections.Counter()
 
 
 # ---------------------------------------------------------------------------

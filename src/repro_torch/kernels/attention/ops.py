@@ -96,6 +96,58 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(b, 1, hq, dhv).to(q.dtype)
 
 
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           window: int | None = None,
+                           logit_cap: float | None = None,
+                           scale: float | None = None,
+                           use_kernel: bool | None = None) -> torch.Tensor:
+    """Speculative-verify attention: a W-token window PER SLOT against the
+    paged KV cache.
+
+    q: (B, W, Hq, D), slot b's queries at global positions lengths[b] + t
+    (the last emitted token and its drafts, whose K/V the caller has
+    already written); k_pages/v_pages: (n_pages, page, Hkv, D);
+    block_tables: (B, pages_per_seq) int32; lengths: (B,).  Returns
+    (B, W, Hq, D).  The plain version is ``paged_decode_attention``'s op
+    sequence with the W positions folded into the grouped-query rows and a
+    mask per position (key position <= lengths[b] + t), so at W = 1 it is
+    bitwise the plain decode at lengths + 1.  The kernel lowering is
+    ``attention.paged_flash_verify``: one launch for all slots.  Dense
+    oracle: ``ref.paged_verify_ref``.
+    """
+    b, w, hq, d = q.shape
+    _, page, hkv, dhv = v_pages.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    if use_kernel:
+        return K.paged_flash_verify(q, k_pages, v_pages, block_tables,
+                                    lengths, scale=scale, window=window,
+                                    logit_cap=logit_cap)
+    k = gather_kv_pages(k_pages, block_tables)   # (B, S, Hkv, D)
+    v = gather_kv_pages(v_pages, block_tables)
+    s = k.shape[1]
+    # rows (t, g) of each kv head: decode's grouped queries, W times over
+    qr = q.reshape(b, w, hkv, g, d).transpose(1, 2).reshape(b, hkv, w * g, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qr.float(), k.float()) * scale
+    if logit_cap is not None:
+        scores = torch.tanh(scores / logit_cap) * logit_cap
+    pos = torch.arange(s, device=q.device)
+    q_pos = lengths[:, None] + torch.arange(w, device=q.device)[None, :]
+    mask = pos[None, None, :] <= q_pos[:, :, None]           # (B, W, S)
+    if window is not None:
+        mask &= pos[None, None, :] > (q_pos[:, :, None] - window)
+    mask = mask[:, None, :, None, :].expand(b, 1, w, g, s)
+    scores = torch.where(mask.reshape(b, 1, w * g, s), scores, -1e30)
+    wts = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", wts.float(), v.float())
+    out = out.reshape(b, hkv, w, g, dhv).transpose(1, 2)
+    return out.reshape(b, w, hq, dhv).to(q.dtype)
+
+
 def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor, block_row: torch.Tensor,
                             start: int, *, window: int | None = None,
@@ -173,6 +225,44 @@ def paged_latent_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     scores = torch.where(mask[:, None, None, :], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(ck.dtype)
     out = torch.einsum("bhqs,bsk->bqhk", w.float(), ck.float())
+    return out.to(q_lat.dtype)
+
+
+def paged_latent_verify_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                                  ckv_pages: torch.Tensor,
+                                  kr_pages: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  lengths: torch.Tensor, *, scale: float,
+                                  use_kernel: bool | None = None
+                                  ) -> torch.Tensor:
+    """Speculative-verify attention against a COMPRESSED (MLA latent)
+    paged cache: a W-token window per slot at positions lengths[b] + t.
+
+    q_lat (B, W, H, kv_lora); q_rope (B, W, H, qk_rope); head-free pools;
+    block_tables (B, pages_per_seq) int32; lengths (B,).  Returns (B, W, H,
+    kv_lora).  The plain version is ``paged_latent_decode_attention``'s
+    decomposed-score op sequence with a mask per position, so at W = 1 it
+    is bitwise the plain decode at lengths + 1.  The kernel lowering is
+    ``attention.paged_latent_verify``: one launch for all slots.  Dense
+    oracle: ``ref.paged_latent_verify_ref``."""
+    if use_kernel is None:
+        use_kernel = q_lat.is_cuda
+    if use_kernel:
+        return K.paged_latent_verify(q_lat, q_rope, ckv_pages, kr_pages,
+                                     block_tables, lengths, scale=scale)
+    w = q_lat.shape[1]
+    ck = gather_kv_pages(ckv_pages, block_tables)   # (B, S, kv_lora)
+    kr = gather_kv_pages(kr_pages, block_tables)    # (B, S, qk_rope)
+    s = ck.shape[1]
+    scores = (torch.einsum("bqhk,bsk->bhqs", q_lat.float(), ck.float())
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())
+              ) * scale
+    pos = torch.arange(s, device=q_lat.device)
+    q_pos = lengths[:, None] + torch.arange(w, device=q_lat.device)[None, :]
+    mask = pos[None, None, :] <= q_pos[:, :, None]           # (B, W, S)
+    scores = torch.where(mask[:, None, :, :], scores, -1e30)
+    wts = torch.softmax(scores, dim=-1).to(ck.dtype)
+    out = torch.einsum("bhqs,bsk->bqhk", wts.float(), ck.float())
     return out.to(q_lat.dtype)
 
 

@@ -118,6 +118,22 @@ def paged_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return o.to(q.dtype)
 
 
+def paged_verify_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, block_tables: torch.Tensor,
+                     lengths: torch.Tensor, *, window: int | None = None,
+                     logit_cap: float | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """Dense oracle for the speculative-verify path: each slot's W-token
+    window (queries at positions lengths[b] + t) as one
+    ``paged_prefill_ref`` call over its own block row.  q: (B, W, Hq, D);
+    returns (B, W, Hq, D)."""
+    return torch.stack([
+        paged_prefill_ref(q[i][None], k_pages, v_pages, block_tables[i],
+                          int(lengths[i]), window=window,
+                          logit_cap=logit_cap, scale=scale)[0]
+        for i in range(q.shape[0])])
+
+
 def _latent_dense(q_lat, q_rope, ckv_pages, kr_pages, rows):
     """The formulation the production path avoids: gathered latent pages,
     the latent pair CONCATENATED into per-position keys and BROADCAST to
@@ -174,3 +190,18 @@ def paged_latent_attention_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
     s = torch.where(mask[:, None, None, :], s, -1e30)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v).to(q_lat.dtype)
+
+
+def paged_latent_verify_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                            ckv_pages: torch.Tensor, kr_pages: torch.Tensor,
+                            block_tables: torch.Tensor,
+                            lengths: torch.Tensor, *, scale: float
+                            ) -> torch.Tensor:
+    """Dense oracle for the MLA latent speculative-verify path: one
+    ``paged_latent_prefill_ref`` call per slot.  q_lat: (B, W, H,
+    kv_lora); returns (B, W, H, kv_lora)."""
+    return torch.stack([
+        paged_latent_prefill_ref(q_lat[i][None], q_rope[i][None], ckv_pages,
+                                 kr_pages, block_tables[i], int(lengths[i]),
+                                 scale=scale)[0]
+        for i in range(q_lat.shape[0])])

@@ -1,6 +1,7 @@
-"""The paged decode kernel and the MLA latent prefill and decode kernels
-on the card, in one short call: build, check, time and ablate them, for
-iterating on ``csrc/paged_decode.cu`` and ``csrc/paged_latent_wgmma.cuh``.
+"""The paged decode kernel, the MLA latent prefill and decode kernels and
+the GQA verify entry on the card, in one short call: build, check, time
+and ablate them, for iterating on ``csrc/paged_decode.cu``,
+``csrc/paged_latent_wgmma.cuh`` and ``csrc/paged_prefill.cu``.
 
   PYTHONPATH=src python -m repro_torch.launch.paged_bench [--seed N]
       [--ablate]
@@ -12,7 +13,10 @@ iterating on ``csrc/paged_decode.cu`` and ``csrc/paged_latent_wgmma.cuh``.
    the latent prefill at deepseek-v2's (one 128-token chunk at start 896,
    H 128, kv_lora 512, qk_rope 64, pages of 128, bf16) and the latent
    decode at deepseek-v2's (8 slots of 48..1032 positions, H 128, pages of
-   128, clusters of 4 ranks): each against
+   128, clusters of 4 ranks) and the GQA verify entry at qwen3-0.6b's
+   speculative serving (the decode's slots and pools, W 8 windows at the
+   decode's lengths, tables of 32 pages as the engine's width bucket
+   gives them): each against
    its plain version (``chip_smoke.py``'s bf16 ATOL, 2e-2), bitwise equal
    over two calls, with the variant it took; device ms per call from one
    CUDA-graph replay of ITERS calls cycling over LAYERS layers' pools (so
@@ -27,9 +31,12 @@ iterating on ``csrc/paged_decode.cu`` and ``csrc/paged_latent_wgmma.cuh``.
    plain arrival), without its output stores or without its products
    (both wgmma loops, behind a condition that never holds); latent decode
    without its loads, its products or its merge (the ranks' states left
-   unread, no output written).  What bounds each kernel.  And the latent
-   decode in clusters of 8 ranks (``ranks8``), which computes the
-   kernel's function: checked like the kernel.
+   unread, no output written).  What bounds each kernel.  And copies that
+   compute the kernel's function, checked like it: the latent decode in
+   clusters of 8 ranks (``ranks8``); the verify entry with one, two or the
+   prefill's eight 16-row warps a CTA instead of four (``verify_warps1``,
+   ``verify_warps2``, ``verify_warps8``), and with key splits of 256 keys
+   instead of 128 (``verify_split256``).
 
 Exits 1 if a check fails, 2 without a card.  ``chip_smoke.py`` holds the
 kernels to the same bounds at more shapes and times them beside SDPA and
@@ -102,6 +109,9 @@ _LATENT_NO_PRODUCTS = [
 _LATENT_MERGE = ("  for (int u = threadIdx.x; u < kRowsW * kUnits; "
                  "u += kThreadsW) {\n")
 _LATENT_RANKS = "constexpr int kRanks = 4;\n"
+_VERIFY_WARPS = "constexpr int kVerifyWarps = 4;\n"
+_VERIFY_LAUNCH = "launch_tc_d<kVerifyWarps>"
+_VERIFY_SPLIT = "constexpr int kSplitKeys = 128;"
 ABLATIONS = {
     "decode_no_loads": ("paged_decode.cu", [(_DECODE_ISSUE, ""),
                                             (_DECODE_NEXT, "")]),
@@ -127,9 +137,17 @@ ABLATIONS = {
     # clusters of 8 ranks: the kernel's function, a different split
     "latent_decode_ranks8": ("paged_latent_wgmma.cuh", [
         (_LATENT_RANKS, _LATENT_RANKS.replace("4", "8"))]),
+    # the verify entry's CTA at qwen3's G x W = 16 rows: 1, 2 or 8 warps
+    # instead of 4; splits of 256 keys instead of 128
+    **{f"verify_warps{nw}": ("paged_prefill.cu", [
+        (_VERIFY_WARPS, _VERIFY_WARPS.replace("4", str(nw))),
+        (_VERIFY_LAUNCH, f"launch_tc_d<{nw}>")]) for nw in (1, 2, 8)},
+    "verify_split256": ("paged_prefill.cu", [
+        (_VERIFY_SPLIT, _VERIFY_SPLIT.replace("128", "256"))]),
 }
 # the copies that compute the kernel's function, checked like it
-EXACT = ("latent_decode_ranks8",)
+EXACT = ("latent_decode_ranks8", "verify_warps1", "verify_warps2",
+         "verify_warps8", "verify_split256")
 
 
 def ablated_sources(csrc) -> dict[str, tuple[str, str]]:
@@ -151,7 +169,7 @@ def build_report() -> None:
     from repro_torch.kernels.build import LIBS
     LIBS.build_all()
     for lib in ("paged_decode", "paged_latent_prefill",
-                "paged_latent_decode"):
+                "paged_latent_decode", "paged_prefill"):
         entry = None
         for line in LIBS.ptxas_log.get(lib, "").splitlines():
             if "Compiling entry" in line:
@@ -220,6 +238,9 @@ class Shapes:
             :slots * 16].reshape(slots, 16).to(torch.int32)
         self.dql = rnd(slots, 1, self.h, self.kv)
         self.dqr = rnd(slots, 1, self.h, self.rope)
+        # the verify: W 8 windows at the decode's lengths, its pools
+        self.w = 8
+        self.vq = rnd(slots, self.w, self.hq, self.d)
 
     def decode_bound_ms(self) -> float:
         n_keys = int(self.lens.sum())
@@ -235,6 +256,15 @@ class Shapes:
                   + 4 * (self.lbt.numel() + 8)
                   + n_keys * (self.kv + self.rope) * 2)
         return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+
+    def verify_bound_ms(self) -> float:
+        keys = int((self.lens + self.w).sum())
+        pairs = int((self.lens[:, None] + torch.arange(
+            1, self.w + 1, device=self.lens.device)).sum())
+        nbytes = (4 * self.vq.numel() + 4 * (self.bt.numel() + 8)
+                  + 2 * keys * 8 * self.d * 2)
+        return max(nbytes / HBM_BYTES_PER_S,
+                   4 * pairs * self.hq * self.d / BF16_FLOPS) * 1e3
 
     def latent_bound_ms(self) -> float:
         pairs = sum(self.start + i + 1 for i in range(self.c))
@@ -268,7 +298,12 @@ def check_and_time(sh: Shapes, smi: str) -> bool:
          lambda i: K.paged_latent_decode(
              sh.dql, sh.dqr, sh.ck[i % LAYERS], sh.kr[i % LAYERS], sh.lbt,
              sh.llens, scale=sh.scale),
-         lambda: latent_decode_plain(sh), sh.latent_decode_bound_ms())]
+         lambda: latent_decode_plain(sh), sh.latent_decode_bound_ms()),
+        ("paged_verify", K.paged_flash_verify,
+         lambda i: K.paged_flash_verify(sh.vq, sh.kp[i % LAYERS],
+                                        sh.vp[i % LAYERS], sh.bt, sh.lens,
+                                        scale=1 / math.sqrt(sh.d)),
+         lambda: verify_plain(sh), sh.verify_bound_ms())]
     for name, wrapper, call, plain, bound in cases:
         before = wrapper.variants.copy()
         got = call(0)
@@ -292,6 +327,13 @@ def latent_decode_plain(sh: Shapes) -> torch.Tensor:
         use_kernel=False)
 
 
+def verify_plain(sh: Shapes) -> torch.Tensor:
+    """The plain verify on the first layer's pools."""
+    from repro_torch.kernels.attention import ops
+    return ops.paged_verify_attention(sh.vq, sh.kp[0], sh.vp[0], sh.bt,
+                                      sh.lens, use_kernel=False)
+
+
 def ablate(sh: Shapes, smi: str) -> bool:
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR.parent / "paged_bench"
@@ -303,6 +345,7 @@ def ablate(sh: Shapes, smi: str) -> bool:
         lib_src = ("paged_decode.cu" if name.startswith("decode") else
                    "paged_latent_decode.cu"
                    if name.startswith("latent_decode") else
+                   "paged_prefill.cu" if name.startswith("verify") else
                    "paged_latent_prefill.cu")
         cu_dir = out_dir / name
         cu_dir.mkdir(exist_ok=True)
@@ -341,6 +384,31 @@ def ablate(sh: Shapes, smi: str) -> bool:
                          sh.lens.data_ptr(), out_d.data_ptr(), 8, 8, 2,
                          sh.d, page, sh.bt.shape[1], n_pool,
                          1 / math.sqrt(sh.d), 2 ** 31 - 1, 0.0,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"ablation {name}: CUDA error {err}")
+        elif name.startswith("verify"):
+            fn = lib.paged_verify
+            fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                           F, I, F, P]
+            fn.restype = I
+            n_pool, page = sh.kp.shape[1:3]
+            width = sh.bt.shape[1]
+            splits = lib.paged_verify_splits
+            splits.argtypes, splits.restype = [I, I], I
+            n_split = splits(width, page)
+            rows = sh.vq.numel() // sh.d
+            acc = torch.empty((n_split, rows, sh.d), device="cuda")
+            ml = torch.empty((n_split, rows, 2), device="cuda")
+            out = out_ld = torch.empty_like(sh.vq)
+
+            def call(i, fn=fn, name=name, n_pool=n_pool, page=page,
+                     width=width, acc=acc, ml=ml, out=out):
+                err = fn(1, sh.vq.data_ptr(), sh.kp[i % LAYERS].data_ptr(),
+                         sh.vp[i % LAYERS].data_ptr(), sh.bt.data_ptr(),
+                         sh.lens.data_ptr(), out.data_ptr(), acc.data_ptr(),
+                         ml.data_ptr(), 8, sh.w, sh.hq, 8, sh.d, page, width,
+                         n_pool, 1 / math.sqrt(sh.d), 2 ** 31 - 1, 0.0,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"ablation {name}: CUDA error {err}")
@@ -384,7 +452,9 @@ def ablate(sh: Shapes, smi: str) -> bool:
             call(0)
             got = out_ld.clone()
             call(0)
-            err = (got.float() - latent_decode_plain(sh).float()).abs().max()
+            want = (verify_plain(sh) if name.startswith("verify")
+                    else latent_decode_plain(sh))
+            err = (got.float() - want.float()).abs().max()
             row.update(max_abs_err=err.item(),
                        bitwise_repeat=torch.equal(got, out_ld))
             row["ok"] = row["bitwise_repeat"] and row["max_abs_err"] <= ATOL

@@ -9,6 +9,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-236b --reduced --device cpu   # MLA + MoE
 
+  # speculative decoding (n-gram drafts verified in one batched forward,
+  # greedy only), each request re-decoded by the reference oracle:
+  ... --speculate 0 --verify-parity
+
 Weights are the port's own random ones, drawn from ``--seed``.
 """
 from __future__ import annotations
@@ -40,6 +44,22 @@ def main() -> None:
                     help="decode steps fused into one dispatch, which "
                          "syncs ONE (N, slots) token block to the host "
                          "(default 8)")
+    ap.add_argument("--speculate", type=int, default=None,
+                    help="draft length for speculative decoding: each "
+                         "dispatch step drafts N tokens per slot from its "
+                         "own history (n-gram lookup, no draft model), "
+                         "verifies the window in one batched forward and "
+                         "keeps the greedy-correct prefix; 0 plans the "
+                         "window as a PACO leaf tile of the cache cuboid")
+    ap.add_argument("--spec-min-accept", type=float, default=0.25,
+                    help="adaptive fallback: below this acceptance rate "
+                         "over the last 32 verify windows, dispatch the "
+                         "fused decode instead (a speculative probe every "
+                         "16th dispatch); 0 turns it off")
+    ap.add_argument("--verify-parity", action="store_true",
+                    help="after the drain, re-decode every request through "
+                         "serve.reference (dense, no cache) and require "
+                         "equal tokens; slow, for reduced sizes")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,
@@ -55,10 +75,14 @@ def main() -> None:
                          pool_pages=args.pool_pages,
                          prefill_chunk_len=args.chunk,
                          ticks_per_dispatch=args.ticks_per_dispatch,
+                         speculate=args.speculate,
+                         spec_min_accept=args.spec_min_accept,
                          seed=args.seed, device=args.device)
     print(f"{cfg.name}: device={engine.device} slots={args.slots} "
           f"page={engine.page} chunk={engine.chunk} "
-          f"pool={engine.pool.n_pages} pages ticks/dispatch={engine.ticks}")
+          f"pool={engine.pool.n_pages} pages ticks/dispatch={engine.ticks}"
+          + (f" draft_len={engine.draft_len}"
+             if engine.draft_len is not None else ""))
     for i in range(args.requests):
         engine.submit(Request(uid=i, prompt=[1 + i % 7, 2, 3 + i % 5],
                               max_new_tokens=args.new_tokens))
@@ -79,8 +103,29 @@ def main() -> None:
           f"{engine.stats['dispatches']} dispatches "
           f"({engine.stats['host_syncs']} host syncs), "
           f"preemptions={engine.stats['preemptions']}")
+    if engine.draft_len is not None:
+        s = engine.stats
+        rate = s["accepted_tokens"] / max(s["drafted_tokens"], 1)
+        per_win = s["decode_tokens"] / max(s["spec_windows"], 1)
+        print(f"speculation: draft_len={engine.draft_len} "
+              f"windows={s['spec_windows']} "
+              f"accepted={s['accepted_tokens']}/{s['drafted_tokens']} "
+              f"drafts (rate={rate:.2f}), "
+              f"tokens/window={per_win:.2f}, decode tokens/sync="
+              f"{s['decode_tokens'] / max(s['dispatches'], 1):.1f}, "
+              f"fallback dispatches={s['spec_fallback_dispatches']}")
     for r in done[:4]:
         print(f"  req {r.uid}: {r.out[:8]}")
+    if args.verify_parity:
+        from repro_torch.serve import reference_decode
+        for r in sorted(done, key=lambda r: r.uid):
+            ref = reference_decode(engine.params, cfg, r.prompt,
+                                   max_new_tokens=r.max_new_tokens,
+                                   eos_id=r.eos_id, max_seq=engine.max_seq)
+            if r.out != ref:
+                raise SystemExit(f"req {r.uid}: engine {r.out} != "
+                                 f"reference {ref}")
+        print(f"reference parity: ok ({len(done)} requests)")
 
 
 if __name__ == "__main__":

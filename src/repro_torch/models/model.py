@@ -1,6 +1,6 @@
 """Model API of the port (the decoder subset of ``repro.models.model``):
-init, forward and loss for training, paged prefill and decode for
-serving."""
+init, forward and loss for training, paged prefill, decode and speculative
+verify for serving."""
 from __future__ import annotations
 
 from typing import Any
@@ -102,6 +102,29 @@ def decode_ticks(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                                    max_seq=max_seq, top_k=top_k,
                                    temperature=temperature,
                                    generator=generator, null_page=null_page,
+                                   use_kernel=use_kernel)
+
+
+def verify_ticks(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                 pages: Params, block_tables: torch.Tensor,
+                 lengths: torch.Tensor, active: torch.Tensor,
+                 budget: torch.Tensor, eos: torch.Tensor,
+                 history: torch.Tensor, write_limit: torch.Tensor,
+                 n_steps: int, *, max_seq: int, draft_len: int,
+                 ngram: int = 2, null_page: int | None = None,
+                 use_kernel: bool | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            Params]:
+    """N speculative decode steps: device-side n-gram drafting, one batched
+    paged verify forward per step, greedy acceptance with rollback of
+    rejected writes -> (token blocks (N, B, draft_len + 1), accepted-draft
+    counts (N, B), updated history, pages); see
+    ``transformer.verify_ticks_decoder``."""
+    return TF.verify_ticks_decoder(params, cfg, tokens, pages, block_tables,
+                                   lengths, active, budget, eos, history,
+                                   write_limit, n_steps, max_seq=max_seq,
+                                   draft_len=draft_len, ngram=ngram,
+                                   null_page=null_page,
                                    use_kernel=use_kernel)
 
 

@@ -357,3 +357,157 @@ def decode_ticks_decoder(params: Params, cfg: ArchConfig,
         act = act & ~done
         toks = nxt
     return torch.stack(out), pages
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: batched paged verify of device-drafted windows
+# ---------------------------------------------------------------------------
+
+def _verify_window(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                   pages: Params, block_tables: torch.Tensor,
+                   lengths: torch.Tensor, write_page: torch.Tensor,
+                   write_off: torch.Tensor, *,
+                   use_kernel: bool | None = None
+                   ) -> tuple[torch.Tensor, Params]:
+    """One speculative verify forward: W window tokens per slot in one pass
+    (the multi-token sibling of ``_paged_tick``).
+
+    tokens (B, W): slot b's last emitted token and its W - 1 drafts, at
+    positions lengths[b] + t; write_page/write_off (B, W) int64 pool
+    coordinates (out-of-plan positions already at the null page).  Every
+    layer writes the window's K/V (or MLA latents) into the pool IN PLACE,
+    then attends through the paged verify attention (``ops.
+    paged_verify_attention``, ``paged_latent_verify_attention``: the decode
+    tick's op sequence with a mask per position).  Returns (logits (B, W,
+    V) f32, pages)."""
+    b, w = tokens.shape
+    x = _embed(params, cfg, tokens)                     # (B, W, D)
+    positions = lengths[:, None] + torch.arange(w, dtype=lengths.dtype,
+                                                device=x.device)[None, :]
+    windows = _layer_windows(cfg, cfg.n_layers)
+    for i in range(cfg.n_layers):
+        blk = _layer(params["blocks"], i)
+        h = L.rms_norm(x, blk["ln1"])
+        if cfg.attn == "mla":
+            c_kv, k_rope = L.mla_latents(blk["attn"], cfg, h, positions)
+            pages["c_kv"][i][write_page, write_off] = c_kv
+            pages["k_rope"][i][write_page, write_off] = k_rope
+            q_lat, q_rope = L.mla_absorbed_q(blk["attn"], cfg, h, positions)
+            o_lat = A.paged_latent_verify_attention(
+                q_lat, q_rope, pages["c_kv"][i], pages["k_rope"][i],
+                block_tables, lengths, scale=L.mla_scale(cfg),
+                use_kernel=use_kernel)
+            a = L.mla_out(blk["attn"], cfg, o_lat)
+        else:
+            q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
+            pages["k"][i][write_page, write_off] = kk
+            pages["v"][i][write_page, write_off] = v
+            o = A.paged_verify_attention(q, pages["k"][i], pages["v"][i],
+                                         block_tables, lengths,
+                                         window=windows[i],
+                                         logit_cap=cfg.softcap_attn,
+                                         use_kernel=use_kernel)
+            a = o.reshape(b, w, -1) @ blk["attn"]["wo"]
+        x = _mlp_residual(blk, cfg, x, a)
+    return _logits(params, cfg, x), pages
+
+
+def verify_ticks_decoder(params: Params, cfg: ArchConfig,
+                         tokens: torch.Tensor, pages: Params,
+                         block_tables: torch.Tensor, lengths: torch.Tensor,
+                         active: torch.Tensor, budget: torch.Tensor,
+                         eos: torch.Tensor, history: torch.Tensor,
+                         write_limit: torch.Tensor, n_steps: int, *,
+                         max_seq: int, draft_len: int, ngram: int = 2,
+                         null_page: int | None = None,
+                         use_kernel: bool | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor, Params]:
+    """``n_steps`` speculative draft -> verify -> accept steps, each
+    advancing every live slot by 1..draft_len + 1 tokens.
+
+    Per step and slot: the n-gram drafter (``models.draft``) proposes
+    ``draft_len`` tokens from the slot's history; one ``_verify_window``
+    scores the W = draft_len + 1 window (last token + drafts) and writes its
+    K/V; drafted token t is accepted iff it and every earlier draft equal
+    the argmax before them, and the slot emits argmax[0 .. accepted] (the
+    accepted drafts and one correction token), cut by the engine's ``_emit``
+    rule (budget, eos, max_seq), which also turns exhausted slots inactive;
+    window positions past the emitted prefix are rolled back to their
+    pre-step pool contents.
+
+    tokens/lengths/active/budget/eos: as in ``decode_ticks_decoder``;
+    history (B, H) int32 per-slot context (history[b, lengths[b]] ==
+    tokens[b]), appended on the lanes that emitted so that later steps draft
+    from tokens accepted earlier; write_limit (B,) int32 one past the last
+    position with a mapped page (0 for inactive slots): window writes at or
+    past it go to the null page.  Returns (blocks (N, B, W) int32, -1 past
+    each step's emitted prefix; accepted (N, B) int32, the accepted drafts
+    among the emitted tokens; the updated history; pages, updated in
+    place)."""
+    from repro_torch.models.draft import draft_ngram_propose
+
+    w = draft_len + 1
+    b = tokens.shape[0]
+    leaf0 = next(iter(pages.values()))
+    page, width = leaf0.shape[2], block_tables.shape[1]
+    if null_page is None:
+        null_page = leaf0.shape[1] - 1
+    dev = tokens.device
+    offs = torch.arange(w, dtype=torch.int32, device=dev)
+    toks, lens, act, bud, hist = tokens, lengths, active, budget, history
+    n_hist = hist.shape[1]
+    blocks, accepted = [], []
+    for _ in range(n_steps):
+        props = draft_ngram_propose(hist, lens + 1, draft_len=draft_len,
+                                    ngram=ngram)
+        win = torch.cat([toks[:, None], props], dim=1)        # (B, W)
+        # the window's pool coordinates; out-of-plan positions (past the
+        # mapped write plan, or any position of an inactive slot) go to
+        # the null page, as _paged_tick's write_mask routes them
+        positions = lens[:, None] + offs[None, :]              # (B, W)
+        pp = torch.clamp(positions // page, 0, width - 1).long()
+        wp = block_tables.gather(1, pp)
+        in_plan = act[:, None] & (positions < write_limit[:, None])
+        wp = torch.where(in_plan, wp, null_page).long()
+        wo = (positions % page).long()
+        # pre-step window contents, for rolling back rejected writes
+        old = {name: leaf[:, wp, wo] for name, leaf in pages.items()}
+        logits, pages = _verify_window(params, cfg, win, pages, block_tables,
+                                       lens, wp, wo, use_kernel=use_kernel)
+        g = logits.argmax(-1).to(torch.int32)                  # (B, W)
+        ok = (props == g[:, :draft_len]).to(torch.int32)
+        acc = torch.cumprod(ok, dim=1).sum(dim=1)              # (B,)
+        # the _emit rule replayed over the window: token j is emitted while
+        # the slot is alive and every earlier draft was accepted
+        alive, new_toks, new_lens, new_bud = act, toks, lens, bud
+        cols = []
+        for j in range(w):
+            tok_j = g[:, j]
+            can = alive & (j <= acc)
+            step = can.to(torch.int32)
+            cols.append(torch.where(can, tok_j, -1))
+            new_toks = torch.where(can, tok_j, new_toks)
+            new_lens = new_lens + step
+            new_bud = new_bud - step
+            done = ((new_bud <= 0) | (tok_j == eos)
+                    | (new_lens + 1 >= max_seq))
+            alive = alive & ~(can & done)
+        n_emit = new_lens - lens
+        # rollback: window offsets >= n_emit get their pre-step contents
+        keep = offs[None, :] < n_emit[:, None]                 # (B, W)
+        for name, leaf in pages.items():
+            cur = leaf[:, wp, wo]
+            k_mask = keep.reshape((1, b, w) + (1,) * (cur.dim() - 3))
+            leaf[:, wp, wo] = torch.where(k_mask, cur, old[name])
+        # history: emitted token j becomes context index lens + 1 + j; the
+        # other lanes land in a spare column that is dropped
+        out = torch.stack(cols, dim=1)                         # (B, W)
+        hidx = torch.where(keep, lens[:, None] + 1 + offs[None, :], n_hist)
+        pad = torch.cat([hist, hist.new_zeros(b, 1)], dim=1)
+        pad.scatter_(1, torch.clamp(hidx, max=n_hist).long(), out)
+        hist = pad[:, :n_hist].contiguous()
+        blocks.append(out)
+        accepted.append(torch.minimum(n_emit, acc).to(torch.int32))
+        toks, lens, act, bud = new_toks, new_lens, alive, new_bud
+    return torch.stack(blocks), torch.stack(accepted), hist, pages

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over a PACO-paged KV cache (port of
-the fused path of ``repro.serve.engine``).
+``repro.serve.engine`` on one device).
 
 Requests queue up; the scheduler admits them FIFO into fixed decode slots,
 prefills their prompts in page-aligned chunks (one ``prefill_chunk`` call
@@ -11,6 +11,10 @@ cache lives in a shared pool of fixed-size pages mapped through per-slot
 block tables; the model writes the pool in place.  Retirement frees pages
 back to the pool, and pool exhaustion preempts the youngest request (its
 pages freed, the request re-queued to resume with identical output).
+Speculative decoding (``speculate``) replaces each decode step by a
+draft -> verify -> accept step (``models.verify_ticks``), and
+``fused=False`` keeps the single-tick decode loop (one ``decode_step_paged``
+call and one host argmax per token) as the baseline of the fused loop.
 
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu");
 on CUDA the attention runs through the hand-written kernels.
@@ -22,11 +26,13 @@ import time
 from collections import deque
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import (decode_ticks, paged_cache_leaf_specs,
-                                prefill_chunk, sample_tokens)
+from repro_torch.models import (decode_step_paged, decode_ticks,
+                                paged_cache_leaf_specs, prefill_chunk,
+                                sample_tokens, verify_ticks)
 from repro_torch.serve import paging
 
 Params = Any
@@ -68,9 +74,25 @@ class ServeEngine:
     ``top_k``/``temperature`` switch the device-side sampler from greedy
     argmax to top-k (``models.sample_tokens``, seeded by ``seed``).
     ``device`` defaults to "cuda"; asking for it on a host without a card
-    raises.  Speculative decoding, the single-tick legacy loop and meshed
-    serving are not ported yet: passing ``speculate``, ``fused=False`` or
-    ``mesh`` raises.
+    raises.  Meshed serving is not ported yet: passing ``mesh`` raises.
+
+    ``fused=False`` keeps the single-tick decode loop: one
+    ``decode_step_paged`` call over full-width tables and one host argmax
+    per token (the prefill path is shared), the baseline the fused loop is
+    measured against.
+
+    ``speculate`` turns on speculative decoding: each decode dispatch runs
+    ``ticks_per_dispatch`` draft -> verify -> accept steps, each advancing
+    a live slot by 1..draft_len + 1 tokens; drafts come from the n-gram
+    drafter (``models.draft_ngram_propose``, tail ``draft_ngram``), the
+    verify forward scores the whole window in one pass, and rejected drafts
+    are rolled back.  ``speculate=N`` drafts N tokens a window, 0 plans the
+    window as a PACO leaf tile of the cache cuboid
+    (``paging.paco_draft_len``).  Greedy only, and only on the fused loop.
+    ``spec_min_accept`` is the adaptive fallback: when the acceptance rate
+    of the last 32 verify windows drops below it, the engine dispatches the
+    fused decode instead, probing speculatively every 16th dispatch; 0
+    turns the fallback off.
     """
 
     def __init__(self, params: Params, cfg: ArchConfig, *, slots: int = 4,
@@ -79,17 +101,18 @@ class ServeEngine:
                  prefill_chunk_len: int | None = None, mesh=None,
                  ticks_per_dispatch: int = 8, fused: bool = True,
                  top_k: int | None = None, temperature: float = 1.0,
-                 speculate: int | None = None, seed: int = 0,
+                 speculate: int | None = None, draft_ngram: int = 2,
+                 spec_min_accept: float = 0.25, seed: int = 0,
                  device: torch.device | str = "cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"ServeEngine(device={str(device)!r}): no CUDA device on "
                 "this host; pass device='cpu' to serve on the CPU")
-        if mesh is not None or not fused or speculate is not None:
+        if mesh is not None:
             raise NotImplementedError(
-                "the port's engine serves the fused single-device path only "
-                "(mesh, fused=False and speculate are later slices)")
+                "the port's engine serves on one device (mesh is a later "
+                "slice)")
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq
@@ -123,8 +146,31 @@ class ServeEngine:
             raise ValueError(f"ticks_per_dispatch must be >= 1, got "
                              f"{ticks_per_dispatch}")
         self.ticks = ticks_per_dispatch
+        self.fused = fused
         self.top_k = top_k
         self.temperature = temperature
+        self.draft_len = None
+        self.draft_ngram = draft_ngram
+        if speculate is not None:
+            if not fused:
+                raise ValueError(
+                    "speculate requires the fused engine (fused=True): the "
+                    "single-tick loop has no verify dispatch")
+            if top_k is not None or temperature != 1.0:
+                raise NotImplementedError(
+                    f"speculative decoding is greedy-only (got top_k="
+                    f"{top_k}, temperature={temperature}): sampled decoding "
+                    "would need rejection sampling over the draft window")
+            if speculate < 0:
+                raise ValueError(f"speculate must be >= 0 (0 = PACO-"
+                                 f"planned), got {speculate}")
+            self.draft_len = (speculate if speculate > 0 else
+                              paging.paco_draft_len(slots, max_seq, feat))
+        self.spec_min_accept = spec_min_accept
+        # adaptive fallback: accepted-draft counts of the last 32 verify
+        # windows, and the dispatches skipped since the last probe
+        self._spec_recent: deque[int] = deque(maxlen=32)
+        self._spec_skipped = 0
         n_pages = (pool_pages if pool_pages is not None
                    else slots * self.pages_per_seq)
         if n_pages < self.pages_per_seq:
@@ -148,12 +194,22 @@ class ServeEngine:
         self._last_tok = [0] * slots
         self._admit_order = [-1] * slots
         self._admit_seq = 0
+        # per-slot token history (prompt + generated; row s valid up to
+        # _ctx_len[s] inclusive, _hist[s, _ctx_len[s]] == _last_tok[s]),
+        # the drafter's haystack; ``_hist_dev`` is its device copy between
+        # speculative dispatches (their appends mirror the host replay), so
+        # it is dropped only when a slot changes or a fused dispatch
+        # appends on the host alone
+        self._hist = np.zeros((slots, max_seq), np.int32)
+        self._hist_dev: torch.Tensor | None = None
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.stats = {"prefill_calls": 0, "decode_steps": 0,
                       "preemptions": 0, "retired": 0, "dispatches": 0,
                       "host_syncs": 0, "max_table_width": 0,
                       "prefill_tokens": 0, "decode_tokens": 0,
-                      "prefill_s": 0.0, "decode_s": 0.0}
+                      "prefill_s": 0.0, "decode_s": 0.0,
+                      "spec_windows": 0, "drafted_tokens": 0,
+                      "accepted_tokens": 0, "spec_fallback_dispatches": 0}
 
     # -- plumbing -----------------------------------------------------------
 
@@ -185,6 +241,8 @@ class ServeEngine:
         self._ctx_len[slot] = 0
         self._last_tok[slot] = 0
         self._admit_order[slot] = -1
+        self._hist[slot] = 0
+        self._hist_dev = None
 
     def _retire(self, slot: int) -> None:
         req = self.active[slot]
@@ -237,6 +295,8 @@ class ServeEngine:
             for (slot, _), tok in zip(pending, toks):
                 req = self.active[slot]
                 self._last_tok[slot] = tok
+                self._hist[slot, self._ctx_len[slot]] = tok
+                self._hist_dev = None
                 if self._emit(req, tok):
                     self._retire(slot)
 
@@ -268,6 +328,8 @@ class ServeEngine:
         self.stats["prefill_tokens"] += len(ctx)
         self.stats["prefill_s"] += time.perf_counter() - t0
         self._ctx_len[slot] = len(ctx)
+        self._hist[slot, :len(ctx)] = ctx
+        self._hist_dev = None
         return tok
 
     def _ensure_decode_pages(self, n: int = 1) -> None:
@@ -310,20 +372,52 @@ class ServeEngine:
         w = self._planned_writes(slot, n)
         return ctx // self.page, (ctx + w - 1) // self.page + 1
 
+    def _use_speculation(self) -> bool:
+        """Speculate unless the acceptance rate of the last 32 verify
+        windows fell below ``spec_min_accept``; then dispatch the fused
+        decode, with a speculative probe every 16th dispatch."""
+        if self.draft_len is None:
+            return False
+        recent = self._spec_recent
+        if not self.spec_min_accept or len(recent) < recent.maxlen:
+            return True
+        rate = sum(recent) / (len(recent) * self.draft_len)
+        if rate >= self.spec_min_accept:
+            self._spec_skipped = 0
+            return True
+        self._spec_skipped += 1
+        if self._spec_skipped >= 16:   # periodic probe
+            self._spec_skipped = 0
+            return True
+        return False
+
     def tick(self) -> int:
-        """Admit + one fused decode dispatch; returns #retired."""
+        """Admit + one decode dispatch (``ticks_per_dispatch`` fused steps,
+        draft/verify steps when speculating; one step on the single-tick
+        loop); returns #retired."""
         self._admit()
         if all(r is None for r in self.active):
             return 0
-        n = self.ticks
-        self._ensure_decode_pages(n)
+        n = self.ticks if self.fused else 1
+        # a speculative dispatch maps pages for n x W window positions per
+        # slot: every in-plan window write needs a real page even if its
+        # draft is rejected (rollback restores contents, not mappings)
+        use_spec = self._use_speculation()
+        w = self.draft_len + 1 if use_spec else 1
+        span = n * w
+        self._ensure_decode_pages(span)
         live = [s for s in range(self.slots) if self.active[s] is not None]
         if not live:
             return 0
+        if not self.fused:
+            return self._dispatch_legacy(live)
         # clamp the block to the largest per-slot write plan (power-of-two
-        # bucket) so a drain tail does not run ticks with every lane frozen
-        planned = max(self._planned_writes(s, n) for s in live)
-        return self._dispatch_fused(live, min(n, _width_bucket(planned, n)))
+        # bucket) so a drain tail does not run steps with every lane frozen
+        planned = max(self._planned_writes(s, span) for s in live)
+        n_eff = min(n, _width_bucket(-(-planned // w), n))
+        if use_spec:
+            return self._dispatch_spec(live, n_eff)
+        return self._dispatch_fused(live, n_eff)
 
     def _dispatch_arrays(self, live: list[int], span: int):
         """Per-slot device vectors of one dispatch: block tables sliced to
@@ -346,6 +440,9 @@ class ServeEngine:
 
     def _dispatch_fused(self, live: list[int], n: int) -> int:
         """One fused decode dispatch: n on-device ticks, ONE host sync."""
+        if self.draft_len is not None:   # the adaptive fallback
+            self.stats["spec_fallback_dispatches"] += 1
+            self._hist_dev = None   # this dispatch appends on the host only
         bt, toks, lens, act, bud, eos = self._dispatch_arrays(live, n)
         t0 = time.perf_counter()
         block, self.pool.pools = decode_ticks(
@@ -365,6 +462,7 @@ class ServeEngine:
                 tok = int(block[t, slot])
                 self._ctx_len[slot] += 1   # that tick wrote last_tok's KV
                 self._last_tok[slot] = tok
+                self._hist[slot, self._ctx_len[slot]] = tok
                 self.stats["decode_tokens"] += 1
                 if self._emit(req, tok):
                     # the device flag retired this slot at the same tick;
@@ -372,6 +470,94 @@ class ServeEngine:
                     self._retire(slot)
                     finished += 1
                     break
+        return finished
+
+    def _dispatch_spec(self, live: list[int], n: int) -> int:
+        """One speculative dispatch: n draft -> verify -> accept steps on
+        the device, ONE host sync of an (n, slots, draft_len + 1) token
+        block; the replay is ``_dispatch_fused``'s with a variable advance
+        per step (-1 marks each window's un-emitted tail)."""
+        w = self.draft_len + 1
+        span = n * w
+        bt, toks, lens, act, bud, eos = self._dispatch_arrays(live, span)
+        # one past the last position each slot's write plan mapped pages
+        # for (window writes beyond it go to the null page)
+        limit = self._i32([self._ctx_len[s] + self._planned_writes(s, span)
+                           if self.active[s] is not None else 0
+                           for s in range(self.slots)])
+        hist = (self._hist_dev if self._hist_dev is not None
+                else torch.from_numpy(self._hist).to(self.device))
+        t0 = time.perf_counter()
+        block, accepted, self._hist_dev, self.pool.pools = verify_ticks(
+            self.params, self.cfg, toks, self.pool.pools, bt, lens, act, bud,
+            eos, hist, limit, n, max_seq=self.max_seq,
+            draft_len=self.draft_len, ngram=self.draft_ngram,
+            null_page=self.pool.null_page)
+        # the one device->host sync of the dispatch (the accepted counts
+        # follow on the synchronized stream)
+        block = block.cpu().numpy()
+        accepted = accepted.cpu().numpy()
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += n
+        self.stats["dispatches"] += 1
+        self.stats["host_syncs"] += 1
+        finished = 0
+        for slot in live:
+            req = self.active[slot]
+            retired = False
+            for t in range(n):
+                row = [int(x) for x in block[t, slot] if x >= 0]
+                if not row:
+                    break   # the slot went inactive in an earlier step
+                self.stats["spec_windows"] += 1
+                self.stats["drafted_tokens"] += self.draft_len
+                # from the device: a window cut by the retirement flags can
+                # end on an accepted draft, so len(row) - 1 would undercount
+                acc_w = int(accepted[t, slot])
+                self.stats["accepted_tokens"] += acc_w
+                self._spec_recent.append(acc_w)
+                for tok in row:
+                    self._ctx_len[slot] += 1
+                    self._last_tok[slot] = tok
+                    self._hist[slot, self._ctx_len[slot]] = tok
+                    self.stats["decode_tokens"] += 1
+                    if self._emit(req, tok):
+                        # the device flags stopped this slot at the same
+                        # token (verify_ticks mirrors _emit)
+                        self._retire(slot)
+                        finished += 1
+                        retired = True
+                        break
+                if retired:
+                    break
+        return finished
+
+    def _dispatch_legacy(self, live: list[int]) -> int:
+        """The single-tick loop: one decode step over full-width tables,
+        the argmax read by the host."""
+        toks = self._i32(self._last_tok)[:, None]
+        lens = self._i32(self._ctx_len)
+        self.stats["max_table_width"] = self.pages_per_seq
+        t0 = time.perf_counter()
+        logits, self.pool.pools = decode_step_paged(
+            self.params, self.cfg, toks, self.pool.pools,
+            self.tables.device_view(self.pages_per_seq), lens)
+        nxt = logits.argmax(-1).cpu().numpy()
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += 1
+        self.stats["dispatches"] += 1
+        self.stats["host_syncs"] += 1
+        finished = 0
+        for slot in live:
+            req = self.active[slot]
+            self._ctx_len[slot] += 1   # last_tok's KV was just written
+            tok = int(nxt[slot])
+            self._last_tok[slot] = tok
+            self._hist[slot, self._ctx_len[slot]] = tok
+            self.stats["decode_tokens"] += 1
+            if self._emit(req, tok):
+                self._retire(slot)
+                finished += 1
         return finished
 
     def run_until_drained(self, max_ticks: int = 10_000) -> list[Request]:

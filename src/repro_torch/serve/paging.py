@@ -37,6 +37,17 @@ def paco_page_size(slots: int, max_seq: int, feat_dim: int, *,
     return max(d for d in range(1, seq_extent + 1) if max_seq % d == 0)
 
 
+def paco_draft_len(slots: int, max_seq: int, feat_dim: int, *,
+                   max_window: int = 8) -> int:
+    """Draft length for speculative decoding, planned from the verify
+    cuboid: the verify window is a leaf tile of the (slots x max_seq x
+    feat_dim) cache cuboid (``paco_page_size``'s plan), capped at
+    ``max_window`` positions, less the slot the last emitted token takes:
+    draft_len = window - 1."""
+    page = paco_page_size(slots, max_seq, feat_dim)
+    return max(1, min(max_window, page) - 1)
+
+
 @dataclasses.dataclass
 class PagePool:
     """Fixed pool of KV pages plus the host-side free list.

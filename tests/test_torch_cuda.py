@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version on the same CUDA inputs (the paged GQA pair, the MLA
-latent pair, the dense flash forward and backward, including the wgmma
+latent pair, the speculative-verify entries of the two prefill kernels,
+the dense flash forward and backward, including the wgmma
 kernels' geometries, their bitwise-reproducible backward and the variant
 they take, the PACO matmul and the LCS tile), the serving engine on CUDA
 running the kernels on every
-prefill chunk and decode tick, a train step on CUDA running the flash
+prefill chunk, decode tick and verify step, a train step on CUDA running the flash
 kernels, and the PACO executors launching the matmul kernel once per
 cuboid and the LCS kernel once per table.
 
@@ -65,9 +66,10 @@ def test_decode_kernel_matches_plain(cuda, dtype, atol, kw, geom):
     """A prime pool of 4-position pages; 64-position pages whose
     512-position tables span the eight ranks of a slot's cluster (one slot
     past its table); G 8 at D 256 (gemma2's decode) and at D 64, with a
-    zero-length slot, which writes zeros.  One launch of the variant the
-    library names (bf16 at D 64, 128 and 256 on tensor cores), bitwise the
-    same over two calls."""
+    zero-length slot, which gets its row's uniform mean as the plain
+    version gives it.  One launch of the variant the library names (bf16
+    at D 64, 128 and 256 on tensor cores), bitwise the same over two
+    calls."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     if geom == "prime":
         b, hq, hkv, d, page, n_pool = 3, 4, 2, 16, 4, 13
@@ -99,11 +101,7 @@ def test_decode_kernel_matches_plain(cuda, dtype, atol, kw, geom):
                                                        **kw))
     want = ops.paged_decode_attention(q, kp, vp, bt, lens, use_kernel=False,
                                       **kw)
-    # a slot with no valid key: zeros from the kernel, a uniform average of
-    # masked keys from the plain version
-    live = 1 if geom.startswith("g8") else 0
-    assert _err(got[live:], want[live:]) <= atol
-    assert not got[:live].any()
+    assert _err(got, want) <= atol
 
 
 @pytest.mark.parametrize("dtype,atol", DTYPES)
@@ -315,8 +313,8 @@ def test_latent_decode_takes_wgmma_with_live_key_ranks(cuda, h, page):
     """deepseek-v2's widths (kv_lora 512, qk_rope 64) in bf16 take the
     wgmma decode: one launch of clusters of 4 ranks, lengths 1, 63,
     64, 65 (ranks past the live keys hold nothing), 1000, the full width
-    and past it; within ATOL of the plain version and bitwise the same
-    over two calls; a slot with no valid key writes zeros."""
+    and past it, and 0 (the whole row's uniform mean); within ATOL of the
+    plain version and bitwise the same over two calls."""
     gen = torch.Generator(device=cuda).manual_seed(h + page)
     width = 2048 // page
     lens = [1, 63, 64, 65, 1000, 2048, 2049, 0]
@@ -341,8 +339,7 @@ def test_latent_decode_takes_wgmma_with_live_key_ranks(cuda, h, page):
     assert torch.equal(got, again)
     want = ops.paged_latent_decode_attention(*args, scale=scale,
                                              use_kernel=False)
-    assert _err(got[:-1], want[:-1]) <= 2e-2
-    assert not got[-1].any()
+    assert _err(got, want) <= 2e-2
 
 
 def test_latent_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -405,6 +402,180 @@ def test_mla_and_moe_engines_on_cuda_match_cpu(cuda, arch):
             eng.stats["prefill_calls"] * cfg.n_layers > 0
         assert K.paged_latent_decode.launches == \
             eng.stats["decode_steps"] * cfg.n_layers > 0
+
+
+# ---------------------------------------------------------------------------
+# speculative verify: the multi-slot entries of the two prefill kernels
+# ---------------------------------------------------------------------------
+
+VERIFY_GEOMS = [   # (B, W, Hq, Hkv, D, page, width, lengths)
+    (3, 4, 4, 2, 16, 4, 4, [5, 12, 0]),
+    # qwen3-0.6b's serving verify: a window crossing a page, one reaching
+    # the last mapped page, an inactive slot, lengths splits apart
+    (8, 8, 16, 8, 128, 64, 16, [0, 60, 64, 1016, 1000, 200, 700, 9]),
+    (4, 3, 8, 4, 256, 16, 8, [0, 14, 120, 125]),   # gemma2's heads
+    (2, 8, 16, 2, 64, 16, 8, [10, 100])]           # G 8: 64 rows a CTA
+
+
+def _tables(gen, b, width):
+    """A pool of b x width pages plus the null page, and b rows of width
+    distinct pages."""
+    n_pool = b * width + 1
+    bt = torch.randperm(n_pool - 1, generator=gen, device=gen.device)
+    bt = bt[:b * width].reshape(b, width).to(torch.int32)
+    return n_pool, bt
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("kw", PREFILL_KW)
+@pytest.mark.parametrize("geom", range(len(VERIFY_GEOMS)))
+def test_verify_kernel_matches_plain_and_repeats_bitwise(cuda, dtype, atol,
+                                                         kw, geom):
+    """The verify entry of kernel 2 (one launch for all slots, starts read
+    on the device, splits over the table's width) against the plain
+    version, bitwise the same over two calls, of the variant the library
+    names."""
+    b, w, hq, hkv, d, page, width, lens = VERIFY_GEOMS[geom]
+    gen = torch.Generator(device=cuda).manual_seed(50 + geom)
+    n_pool, bt = _tables(gen, b, width)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    assert int(lens.max()) + w <= width * page
+    q = _rand(gen, b, w, hq, d, dtype=dtype)
+    kp = _rand(gen, n_pool, page, hkv, d, dtype=dtype)
+    vp = _rand(gen, n_pool, page, hkv, d, dtype=dtype)
+    ver = K.paged_flash_verify
+    before = ver.launches, ver.variants.copy()
+    got = ops.paged_verify_attention(q, kp, vp, bt, lens, **kw)
+    again = ver(q, kp, vp, bt, lens, scale=1 / math.sqrt(d), **kw)
+    torch.cuda.synchronize()
+    assert ver.launches == before[0] + 2
+    variant = "mma_sync" if dtype == torch.bfloat16 else "cuda_cores"
+    assert ver.variants - before[1] == {variant: 2}
+    assert torch.equal(got, again)
+    want = ops.paged_verify_attention(q, kp, vp, bt, lens, use_kernel=False,
+                                      **kw)
+    assert _err(got, want) <= atol
+
+
+LATENT_VERIFY_GEOMS = [   # (B, W, H, kv_lora, qk_rope, page, width, lengths)
+    (3, 4, 3, 32, 8, 4, 4, [5, 12, 0]),
+    (3, 3, 5, 64, 16, 16, 8, [0, 60, 125]),
+    # deepseek-v2's serving verify
+    (8, 8, 128, 512, 64, 128, 16, [0, 127, 128, 2040, 1000, 300, 64, 1500]),
+    (3, 8, 5, 512, 64, 64, 8, [0, 60, 504])]
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("geom", range(len(LATENT_VERIFY_GEOMS)))
+def test_latent_verify_kernel_matches_plain_and_repeats_bitwise(cuda, dtype,
+                                                                atol, geom):
+    """The verify entry of kernel 4 against the plain version, bitwise the
+    same over two calls; bf16 at deepseek-v2's widths takes wgmma."""
+    b, w, h, kv, rope, page, width, lens = LATENT_VERIFY_GEOMS[geom]
+    gen = torch.Generator(device=cuda).manual_seed(60 + geom)
+    n_pool, bt = _tables(gen, b, width)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    assert int(lens.max()) + w <= width * page
+    args = (_rand(gen, b, w, h, kv, dtype=dtype),
+            _rand(gen, b, w, h, rope, dtype=dtype),
+            _rand(gen, n_pool, page, kv, dtype=dtype),
+            _rand(gen, n_pool, page, rope, dtype=dtype), bt, lens)
+    scale = 1 / math.sqrt(kv + rope)
+    ver = K.paged_latent_verify
+    before = ver.launches, ver.variants.copy()
+    got = ops.paged_latent_verify_attention(*args, scale=scale)
+    again = ver(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert ver.launches == before[0] + 2
+    if dtype == torch.bfloat16 and kv == 512:
+        assert ver.variants - before[1] == {"wgmma": 2}
+    assert torch.equal(got, again)
+    want = ops.paged_latent_verify_attention(*args, scale=scale,
+                                             use_kernel=False)
+    assert _err(got, want) <= atol
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("kv,rope", [(32, 8), (64, 16), (512, 64)])
+def test_latent_decode_zero_length_slot_matches_plain(cuda, dtype, atol, kv,
+                                                      rope):
+    """Every family of kernel 3 gives a slot of length 0 the uniform mean
+    of its row's latents, as the plain version does."""
+    gen = torch.Generator(device=cuda).manual_seed(kv)
+    b, h, page, width = 3, 5, 64, 4
+    n_pool, bt = _tables(gen, b, width)
+    lens = torch.tensor([0, 100, 0], dtype=torch.int32, device=cuda)
+    args = (_rand(gen, b, 1, h, kv, dtype=dtype),
+            _rand(gen, b, 1, h, rope, dtype=dtype),
+            _rand(gen, n_pool, page, kv, dtype=dtype),
+            _rand(gen, n_pool, page, rope, dtype=dtype), bt, lens)
+    scale = 1 / math.sqrt(kv + rope)
+    got = K.paged_latent_decode(*args, scale=scale)
+    want = ops.paged_latent_decode_attention(*args, scale=scale,
+                                             use_kernel=False)
+    assert _err(got, want) <= atol
+
+
+def test_verify_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(2, 4, 4, 16, device=cuda)
+    kp = torch.zeros(5, 4, 2, 16, device=cuda)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    ver = K.paged_flash_verify
+    with pytest.raises(TypeError):        # int64 lengths
+        ver(q, kp, kp, bt, lens.long(), scale=0.25)
+    with pytest.raises(ValueError):       # tables of another batch
+        ver(q, kp, kp, bt[:1], lens, scale=0.25)
+    with pytest.raises(ValueError):       # CPU lengths
+        ver(q, kp, kp, bt, lens.cpu(), scale=0.25)
+    with pytest.raises(TypeError):        # float16
+        ver(q.half(), kp.half(), kp.half(), bt, lens, scale=0.25)
+    ql = torch.zeros(2, 4, 4, 32, device=cuda)
+    qr = torch.zeros(2, 4, 4, 8, device=cuda)
+    ck = torch.zeros(5, 4, 32, device=cuda)
+    kr = torch.zeros(5, 4, 8, device=cuda)
+    with pytest.raises(ValueError):       # lengths of another batch
+        K.paged_latent_verify(ql, qr, ck, kr, bt, lens[:1], scale=1.0)
+    with pytest.raises(ValueError):       # q_rope of another window
+        K.paged_latent_verify(ql, qr[:, :3].contiguous(), ck, kr, bt, lens,
+                              scale=1.0)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v2-236b"])
+def test_speculative_and_single_tick_engines_on_cuda_match_cpu(cuda, arch):
+    """Reduced qwen3 and deepseek-v2 (untied, f32): the speculative CUDA
+    engine launches the verify entry once per layer per verify step (every
+    dispatch verifies: spec_min_accept 0) and the single-tick engine the
+    decode kernel once per layer per step; both emit the CPU engines'
+    tokens, which are the fused engine's."""
+    cfg = dataclasses.replace(configs.get_arch(arch).reduced(),
+                              tie_embeddings=False)
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts = [[1, 2, 3, 1, 2, 3], [5, 6, 7, 8, 9, 10, 11], [3, 1],
+               [9] * 12, [2, 4, 6, 8], [13]]
+    mla = cfg.attn == "mla"
+    verify = K.paged_latent_verify if mla else K.paged_flash_verify
+    decode = K.paged_latent_decode if mla else K.paged_flash_decode
+    out = {}
+    for mode, kw in (("fused", {}), ("spec", {"speculate": 3,
+                                               "spec_min_accept": 0}),
+                     ("single", {"fused": False})):
+        for dev in ("cpu", "cuda"):
+            verify.launches = decode.launches = 0
+            eng = ServeEngine(params, cfg, slots=3, max_seq=64,
+                              prefill_chunk_len=8, device=dev, **kw)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+            done = sorted(eng.run_until_drained(), key=lambda r: r.uid)
+            out[mode, dev] = [r.out for r in done]
+            eng.check_page_invariants()
+        steps = eng.stats["decode_steps"] * cfg.n_layers
+        if mode == "spec":
+            assert verify.launches == steps > 0 and decode.launches == 0
+            assert eng.stats["spec_fallback_dispatches"] == 0
+        if mode == "single":
+            assert decode.launches == steps > 0 and verify.launches == 0
+    assert len(set(map(str, out.values()))) == 1, out
 
 
 # ---------------------------------------------------------------------------

@@ -199,8 +199,9 @@ def emulate_decode(q, kp, vp, bt, lens, *, window=None, logit_cap=None,
     stage (16 keys on tensor cores: bf16 at D 64, 128 or 256, weights
     rounded to bf16 for the value product; else 8 keys, weights f32) with
     its own online softmax; the warps' states merge in warp order, then
-    rank 0 merges the ranks that hold keys in rank order (a zero-length
-    slot: rank 0's empty state, zeros)."""
+    rank 0 merges the ranks that hold keys in rank order.  A slot with no
+    valid key (length 0, or a window wholly past its table) walks its whole
+    row with every score 0: the uniform mean of its values."""
     b, _, hq, d = q.shape
     _, page, hkv, _ = kp.shape
     g, width = hq // hkv, bt.shape[1]
@@ -216,7 +217,10 @@ def emulate_decode(q, kp, vp, bt, lens, *, window=None, logit_cap=None,
     for bi in range(b):
         length = int(lens[bi])
         lo, hi = max(0, length - window), min(length, width * page)
-        n = max(hi - lo, 0)
+        uniform = hi <= lo
+        if uniform:
+            lo, hi = 0, width * page
+        n = hi - lo
         share = -(-n // ranks)
         live = -(-n // share) if share else 1
         for h in range(hkv):
@@ -238,6 +242,8 @@ def emulate_decode(q, kp, vp, bt, lens, *, window=None, logit_cap=None,
                             kt = kf[phys, pos % page, h]
                             vt = vf[phys, pos % page, h]
                             sc = _softcap(qh @ kt.T * scale, logit_cap)
+                            if uniform:
+                                sc = torch.zeros_like(sc)
                             st = _online(st, sc, vt, mma)
                     warp_states.append(st)
                 rank_states.append(_combine(warp_states))
@@ -311,9 +317,8 @@ def test_decode_kernel_walk_matches_plain(kw, geom):
     against the plain version, on windows and softcaps (f32 atol 1e-5), and
     against repro's Pallas kernel in interpret mode without a window or
     softcap and with both.  A slot with no valid key (length 0, or a
-    window wholly past its table) writes zeros, the kernel's contract; the
-    plain version and the Pallas kernel average such a slot's masked keys
-    uniformly, so those slots are held to zeros instead."""
+    window wholly past its table) gets the uniform mean of its row's
+    values, as the plain version and the Pallas kernel give it."""
     case = _decode_walk_case(geom)
     q, kp, vp, bt, lens = _t(*case)
     got = emulate_decode(q, kp, vp, bt, lens, **kw)
@@ -323,14 +328,12 @@ def test_decode_kernel_walk_matches_plain(kw, geom):
             - torch.clamp(lens - window, min=0)) > 0
     if geom.startswith("g"):   # the zero-length slot
         assert not live[0]
-    assert not got[~live].any()
-    _close(got[live], ops.paged_decode_attention(q, kp, vp, bt, lens,
-                                                 **kw)[live])
+    _close(got, ops.paged_decode_attention(q, kp, vp, bt, lens, **kw))
     if kw in (DECODE_KW[0], DECODE_KW[3]):
         jq = [jnp.asarray(x) for x in case]
         want = paged_decode_attention(*jq, use_kernel=True, interpret=True,
                                       **kw)
-        _close(got[live], np.asarray(want)[live.numpy()])
+        _close(got, want)
 
 
 def test_decode_walk_in_bf16_stages_twice_the_keys():
@@ -343,8 +346,8 @@ def test_decode_walk_in_bf16_stages_twice_the_keys():
     q, kp, vp = (x.bfloat16() for x in (q, kp, vp))
     got = emulate_decode(q, kp, vp, bt, lens, logit_cap=30.0)
     want = ops.paged_decode_attention(q, kp, vp, bt, lens, logit_cap=30.0)
-    assert not got[0].any()   # the zero-length slot
-    _close(got[1:].float(), want[1:].float(), 2e-2)
+    assert int(lens[0]) == 0   # the zero-length slot: its row's mean
+    _close(got.float(), want.float(), 2e-2)
 
 
 @pytest.mark.parametrize("kw", PREFILL_KW)
@@ -367,7 +370,8 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
 
 
 def emulate_prefill_tc(q, kp, vp, row, start, *, window=None, logit_cap=None,
-                       rows_per_cta=128, warp_rows=16, tile=64, split=128):
+                       rows_per_cta=128, warp_rows=16, tile=64, split=128,
+                       n_split=None):
     """csrc/paged_prefill.cu's tensor-core body (bf16): per (q block, kv
     head, key split) CTA, 128 rows position-major (row r: head r % G at
     chunk position c0 + r / G), eight warps of 16 rows in fragment order;
@@ -375,7 +379,8 @@ def emulate_prefill_tc(q, kp, vp, row, start, *, window=None, logit_cap=None,
     log2 domain (a tile whose pairs the warp's position range shows all
     visible skips the mask; a masked key weighs 0), row sums of the f32
     weights, P V from the weights rounded to bf16; splits only up to the
-    chunk's end, merged by their natural-log maxima."""
+    chunk's end (or ``n_split`` of them, the later ones empty), merged by
+    their natural-log maxima."""
     _, c, hq, d = q.shape
     _, page, hkv, _ = kp.shape
     g, width = hq // hkv, row.shape[0]
@@ -383,7 +388,7 @@ def emulate_prefill_tc(q, kp, vp, row, start, *, window=None, logit_cap=None,
     scale = 1 / math.sqrt(d)
     bq = rows_per_cta // g
     keys = min(start + c, width * page)
-    n_split = -(-keys // split)
+    n_split = n_split or -(-keys // split)
     out = torch.zeros(1, c, hq, d)
     qf, kf, vf = q.float(), kp.float(), vp.float()
     for c0 in range(0, c, bq):
@@ -575,13 +580,15 @@ def test_latent_cpu_tensors_take_the_plain_version_and_launch_nothing():
 
 def emulate_latent(q_lat, q_rope, ckv, kr, tables, limit, *, scale,
                    p_dtype=torch.float32, rows_per_cta=16, tile=32,
-                   split=128, sms=132):
+                   split=128, sms=132, uniform=()):
     """csrc/paged_latent_common.cuh over q rows (B, NR, .): per (row
     block, element, key split) CTA, 32-key tiles with an online softmax in
     which a masked key weighs 0; splits (only when the blocks do not fill
-    the card twice) merge.  ``limit(b, r)`` is row r's key limit.  The
-    tensor-core kernel rounds the softmax weights to bf16 for the value
-    product (``p_dtype``); its sums run in f32, as here."""
+    the card twice) merge.  ``limit(b, r)`` is row r's key limit; the
+    elements in ``uniform`` (decode slots of length 0) walk the whole table
+    with every score 0.  The tensor-core kernel rounds the softmax weights
+    to bf16 for the value product (``p_dtype``); its sums run in f32, as
+    here."""
     q_lat, q_rope, ckv, kr = (x.float() for x in (q_lat, q_rope, ckv, kr))
     bsz, n_rows, kv = q_lat.shape
     page, width = ckv.shape[1], tables.shape[1]
@@ -593,7 +600,8 @@ def emulate_latent(q_lat, q_rope, ckv, kr, tables, limit, *, scale,
     for b in range(bsz):
         for r0 in range(0, n_rows, rows_per_cta):
             rows = torch.arange(r0, min(r0 + rows_per_cta, n_rows))
-            lim = torch.tensor([limit(b, int(r)) for r in rows])
+            lim = torch.tensor([width * page if b in uniform
+                                else limit(b, int(r)) for r in rows])
             q = torch.cat([q_lat[b, rows], q_rope[b, rows]], -1)
             parts = []
             for s in range(n_split):
@@ -607,7 +615,10 @@ def emulate_latent(q_lat, q_rope, ckv, kr, tables, limit, *, scale,
                     key = torch.cat([ckv[phys, pos % page],
                                      kr[phys, pos % page]], -1)
                     valid = pos[None, :] < lim[:, None]
-                    sc = torch.where(valid, q @ key.T * scale, NEG_INF)
+                    sc = q @ key.T * scale
+                    if b in uniform:
+                        sc = torch.zeros_like(sc)
+                    sc = torch.where(valid, sc, NEG_INF)
                     m, l, acc = st
                     m_new = torch.maximum(m, sc.max(-1).values)
                     p = torch.where(valid, torch.exp(sc - m_new[:, None]),
@@ -690,7 +701,8 @@ def _latent_wgmma_splits(start, c, h, sms=132, rows=64, tile=64):
     return -(-keys // split_keys), split_keys
 
 
-def _wgmma_walk(q, ckf, krf, table, lo, hi, limit, scale, tile=64):
+def _wgmma_walk(q, ckf, krf, table, lo, hi, limit, scale, tile=64,
+                uniform=False):
     """csrc/paged_latent_wgmma.cuh's walk of one CTA: rows q (R, kv +
     rope) in f32 from bf16 operands against 64-key tiles inside one page
     from ``lo`` to ``hi`` of the block-table row ``table``, each row masked
@@ -698,8 +710,8 @@ def _wgmma_walk(q, ckf, krf, table, lo, hi, limit, scale, tile=64):
     keys give a row max, the two meet, and each keeps the row sum of its
     own keys (added at the end, warpgroup 0's first); the weights are
     rounded to bf16 before the value product, which each warpgroup runs
-    over its half of the value features.  Returns (m in log2 units, l,
-    acc unnormalized)."""
+    over its half of the value features; ``uniform`` scores every key 0.
+    Returns (m in log2 units, l, acc unnormalized)."""
     page, kv = ckf.shape[1], ckf.shape[2]
     half, wk = kv // 2, tile // 2
     m = torch.full((q.shape[0],), NEG_INF)
@@ -711,6 +723,8 @@ def _wgmma_walk(q, ckf, krf, table, lo, hi, limit, scale, tile=64):
         v = ckf[phys, pos % page]
         key = torch.cat([v, krf[phys, pos % page]], -1)
         x = q @ key.T * (scale * LOG2E)
+        if uniform:
+            x = torch.zeros_like(x)
         x = torch.where(pos[None, :] < limit[:, None], x, NEG_INF)
         m_new = torch.maximum(m, x.max(-1).values)
         alpha = torch.exp2(m - m_new)
@@ -725,21 +739,22 @@ def _wgmma_walk(q, ckf, krf, table, lo, hi, limit, scale, tile=64):
 
 
 def emulate_latent_wgmma(q_lat, q_rope, ckv, kr, row, start, *, scale,
-                         sms=132, rows_per_cta=64, tile=64):
+                         sms=132, rows_per_cta=64, tile=64, splits=None):
     """csrc/paged_latent_wgmma.cuh's prefill over the chunk's C * H rows
     (row r: position r // H, head r % H): per (64-row block, key split)
     CTA, the walk (``_wgmma_walk``) from the split's start to its last
     row's causal limit, each row masked by its own limit (a block may
     straddle positions); splits (when the blocks do not fill ``sms``
-    processors) merge by their natural-log maxima in split order."""
+    processors, or ``splits`` = (n_split, split_keys) given) merge by their
+    natural-log maxima in split order."""
     _, c, h, kv = q_lat.shape
     page, width = ckv.shape[1], row.shape[0]
     n_rows = c * h
     q = torch.cat([q_lat.float().reshape(n_rows, kv),
                    q_rope.float().reshape(n_rows, -1)], -1)
     ckf, krf = ckv.float(), kr.float()
-    n_split, split_keys = _latent_wgmma_splits(start, c, h, sms,
-                                               rows_per_cta, tile)
+    n_split, split_keys = splits or _latent_wgmma_splits(
+        start, c, h, sms, rows_per_cta, tile)
     out = torch.zeros(n_rows, kv)
     for r0 in range(0, n_rows, rows_per_cta):
         r = torch.arange(r0, min(r0 + rows_per_cta, n_rows))
@@ -766,8 +781,8 @@ def emulate_latent_decode_wgmma(q_lat, q_rope, ckv, kr, tables, lengths, *,
     s = ceil(tiles / ranks), a rank past them walking nothing and leaving
     no state; every rank merges a slice of the features from the live
     ranks' (m, l, acc) in rank order (log2 domain).  A slot with no valid
-    key comes out zero.  Returns (B, 1, H, kv) and the live ranks of each
-    slot."""
+    key walks its whole table with every score 0.  Returns (B, 1, H, kv)
+    and the live ranks of each slot."""
     b, _, h, kv = q_lat.shape
     page, width = ckv.shape[1], tables.shape[1]
     q = torch.cat([q_lat.float()[:, 0], q_rope.float()[:, 0]], -1)
@@ -776,6 +791,9 @@ def emulate_latent_decode_wgmma(q_lat, q_rope, ckv, kr, tables, lengths, *,
     lives = []
     for slot in range(b):
         n = max(min(int(lengths[slot]), width * page), 0)
+        uniform = n == 0
+        if uniform:
+            n = width * page
         tiles = -(-n // tile)
         share = -(-tiles // ranks)
         live = -(-tiles // share) if share else 0
@@ -789,7 +807,8 @@ def emulate_latent_decode_wgmma(q_lat, q_rope, ckv, kr, tables, lengths, *,
                 if hi > lo:
                     states.append(_wgmma_walk(
                         q[slot, rows], ckf, krf, tables[slot], lo, hi,
-                        torch.full((len(rows),), hi), scale, tile))
+                        torch.full((len(rows),), hi), scale, tile,
+                        uniform))
             assert len(states) == live
             if not states:
                 continue
@@ -852,8 +871,8 @@ def test_latent_decode_wgmma_ranks_match_plain_and_pallas(h, ranks):
     width and one past it, against the port's plain version and repro's
     Pallas kernel in interpret mode, within the kernels' bf16 tolerance
     (2e-2); ranks past a slot's tiles hold nothing, and a slot with no
-    valid key comes out zero (the plain version averages its masked
-    keys)."""
+    valid key walks its whole table, every key weighed alike, to the
+    plain version's uniform mean of its masked keys."""
     rng = np.random.default_rng(40 + h)
     bf = torch.bfloat16
     lens = [1, 63, 64, 65, 768, 769, 0]
@@ -869,14 +888,14 @@ def test_latent_decode_wgmma_ranks_match_plain_and_pallas(h, ranks):
     scale = 1 / math.sqrt(80)
     got, lives = emulate_latent_decode_wgmma(ql, qr, ck, kr, bt, lengths,
                                              scale=scale, ranks=ranks)
-    share = [-(-min(n, 768) // 64 // ranks) if n else 0 for n in lens]
-    assert lives == [-(-(-(-min(n, 768) // 64)) // s) if s else 0
-                     for n, s in zip(lens, share)]
-    assert lives[:4] == [1, 1, 1, min(2, ranks)] and lives[-1] == 0
-    assert torch.equal(got[-1].float(), torch.zeros(1, h, 64))
+    keys = [min(n, 768) or 768 for n in lens]   # length 0: the whole row
+    share = [-(-(-(-n // 64)) // ranks) for n in keys]
+    assert lives == [-(-(-(-n // 64)) // s) for n, s in zip(keys, share)]
+    assert lives[:4] == [1, 1, 1, min(2, ranks)]
+    assert lives[-1] == -(-12 // -(-12 // ranks))
     want = ops.paged_latent_decode_attention(ql, qr, ck, kr, bt, lengths,
                                              scale=scale)
-    _close(got[:-1].float(), want[:-1].float(), 2e-2)
+    _close(got.float(), want.float(), 2e-2)
     jq = [jnp.asarray(x.float().numpy(), jnp.bfloat16)
           for x in (ql[:-1, 0], qr[:-1, 0], ck, kr)]
     jwant = paged_latent_decode_pallas(*jq, jnp.asarray(bt[:-1].numpy()),

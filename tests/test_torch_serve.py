@@ -309,9 +309,8 @@ def test_launch_serve_runs_on_the_cpu(capsys, monkeypatch):
 
 def test_engine_rejects_what_it_does_not_serve(models):
     _, ct, _, pt = models["qwen3-0.6b"]
-    for kw in ({"speculate": 2}, {"fused": False}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(pt, ct, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        ServeEngine(pt, ct, device="cpu", mesh=object())
     eng = ServeEngine(pt, ct, device="cpu")
     with pytest.raises(ValueError):
         eng.submit(Request(uid=0, prompt=[], max_new_tokens=2))
@@ -320,6 +319,17 @@ def test_engine_rejects_what_it_does_not_serve(models):
     with pytest.raises(NotImplementedError):
         tmodels.init_params(tcfg.get_arch("mamba2-780m").reduced(),
                             device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{"speculate": 2}, {"fused": False}])
+def test_engine_serves_speculation_and_the_single_tick_loop(models, kw):
+    """``speculate`` and ``fused=False``, which the engine once refused,
+    serve and emit the fused engine's tokens."""
+    _, ct, _, pt = models["qwen3-0.6b"]
+    prompts = [[1, 2, 3, 1, 2, 3], [5, 6, 7], [9, 9, 9, 9]]
+    outs = [[r.out for r in serve(pt, ct, dict(slots=2, max_seq=32, **k),
+                                  prompts, 10)[1]] for k in ({}, kw)]
+    assert outs[0] == outs[1]
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(models):
