@@ -64,7 +64,15 @@ Phases, in order; any failure ends the script with a nonzero exit:
    expanded to the 128 heads over two layers where a backend refuses
    ``enable_gqa``; the LCS row: the whole 65,536^2 table at p = 132 in
    one launch, int32 operations at 16.7 TOP/s, the row scan as its plain
-   version, no library call).
+   version, no library call).  Kernel 5 at its own key length
+   (``check_flash_own_key_length``, a generator of its own): Sq != Sk
+   (256 against 1024 and 1024 against 256 at D 64, 300 against 1000
+   causal, 512 against 768 at D 128 and 256) and zamba2's D 112 (S 2048,
+   causal), f32 and bf16, against ``attention_ref`` (FLASH_TOL), bf16
+   bitwise over two calls; rows ``flash_attention_cross`` (5x:
+   seamless-m4t-medium's cross-attention, B 2, Hq 16, Sq 256, Sk 1024,
+   D 64) and ``flash_attention_d112`` (5@112: zamba2-7b's shared block,
+   B 1, Hq 32, S 2048, D 112, causal), timed with SDPA per backend.
 3b. verify_kernels: the speculative-verify entries of kernels 2 and 4
    (``paged_verify``, ``paged_latent_verify``: one launch for all slots,
    each slot's start read on the device) against their plain versions in
@@ -103,6 +111,11 @@ Phases, in order; any failure ends the script with a nonzero exit:
    step and one host argmax per token): decode launches == decode_steps *
    28, every request replayed through the plain path, one against the
    oracle.
+5d. qwen3 non-paged: the same weights on the dense cache
+   (``prefill_decoder`` over 8 prompts of 512, max_seq 1024: kernel 5,
+   one ``wgmma`` launch a layer; 32 greedy ``decode_step_decoder``
+   ticks), the plain path within MODEL_ATOL and the paged path (kernels
+   2 and 1) on the same tokens by the margin rule.
 6. Full-width deepseek-v2 (MLA + MoE), depth cut to fit the card: one
    128-token chunk per slot and 8 ticks through the kernels and through
    the plain path, in float32 (2 layers) and bf16 (4 layers), each model
@@ -119,6 +132,26 @@ Phases, in order; any failure ends the script with a nonzero exit:
    plain path on the served routing; the agreement with phase 7's tokens
    printed but not gated (MoE capacity depends on the tokens of a call:
    B x W in a verify window, B in a decode tick).
+7c. deepseek-v2 non-paged: per slot a 128-token ``prefill_decoder`` on
+   the dense latent cache and a paged chunk (kernel 4), then 16 ticks of
+   ``decode_step`` against ``decode_step_paged`` (kernel 3), the dense
+   path following the paged path's expert choices: MODEL_ATOL and the
+   margin rule.
+7d. mamba2 model: mamba2-780m at full width (48 layers), B 2 x S 1024 in
+   chunks of 256, f32 and bf16: decode from an empty state over the
+   first 64 tokens against the forward at each position (the margin
+   rule; f32 also within MODEL_ATOL).  Attention-free: no kernel.
+7e. zamba2 model: zamba2-7b at full width (81 layers in 9 groups, ~6.6 B
+   parameters, bf16), B 1 x S 2048: the forward through kernel 5 at D 112
+   (9 launches, the CUDA cores) within MODEL_ATOL of the plain path, then
+   64 decode steps against it by the margin rule.
+7f. seamless model: seamless-m4t-medium at full width (bf16), B 2, 1024
+   source frames, 256 target tokens: the forward through kernel 5 three
+   ways (36 ``wgmma`` launches, 12 at Sq 256 against Sk 1024) within
+   MODEL_ATOL of the plain path; ``prefill`` and 32 greedy decode steps
+   against the teacher-forced forward by the margin rule.  The launches
+   of rows 5@112 and 5x are the zamba2 forward's and this phase's cross
+   launches.
 8. Full-width qwen3-0.6b train-step parity at B 2 x S 4096: loss and
    gradients through the flash kernels and through the plain path
    (``use_kernel=False``) on the same weights and batch, in float32 at
@@ -715,8 +748,10 @@ class ParentKernels:
     tile (``lcs_tile.cu``), with their headers, into
     ``build/parent_kernels/``, so that the benches time them in the same
     call as the current kernels.  Their C interfaces are the parent's: the
-    flash pair's, ``matmul``'s and paged decode's are the current ones (the
-    decode one launch, no scratch); prefill's split count takes (width,
+    flash forward's takes one sequence length for queries and keys (the
+    current one takes Sk apart), the flash backward's, ``matmul``'s and
+    paged decode's are the current ones (the decode one launch, no
+    scratch); prefill's split count takes (width,
     page, start, C), latent prefill's (dtype, kv_lora, qk_rope, width,
     page, C, H, start) and latent decode's (width, page, B, H), and these
     three take f32 split scratch; the LCS kernel takes a whole table in one
@@ -2148,6 +2183,480 @@ def serve(cfg, params, rng: np.random.Generator, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: kernel 5 at its own key length, and at D 112
+# ---------------------------------------------------------------------------
+
+# (Sq, Sk, D, causal, Hq, Hkv, B): a cross-attention ragged on both sides
+# (seamless-m4t-medium's 16 heads at D 64, then D 128 and 256), and
+# zamba2-7b's shared block at D 112, whose bf16 runs on the CUDA cores
+FLASH_SK_SHAPES = [(256, 1024, 64, False, 16, 16, 2),
+                   (1024, 256, 64, False, 16, 16, 2),
+                   (300, 1000, 64, True, 16, 16, 2),
+                   (512, 768, 128, False, 16, 8, 2),
+                   (512, 768, 256, False, 8, 4, 2),
+                   (2048, 2048, 112, True, 32, 32, 1)]
+
+
+def check_flash_own_key_length(gen: torch.Generator) -> dict[str, float]:
+    """The flash forward with Sq != Sk (and zamba2's D 112) against
+    ``ref.attention_ref`` in f32 and bf16, FLASH_TOL of max(1, max
+    |plain|); in bf16 bitwise the same over two calls."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ref
+
+    worst = {"flash_attention_cross": 0.0, "flash_attention_d112": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for sq, sk, d, causal, hq, hkv, b in FLASH_SK_SHAPES:
+            q = torch.randn(b, sq, hq, d, generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn(b, sk, hkv, d, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            o, _ = K._flash_fwd(q, k, v, causal=causal, window=None,
+                                logit_cap=None)
+            if dtype == torch.bfloat16:
+                again, _ = K._flash_fwd(q, k, v, causal=causal, window=None,
+                                        logit_cap=None)
+                assert torch.equal(o, again), ("flash at Sq != Sk repeat",
+                                               sq, sk, d)
+            want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2),
+                                     causal=causal).transpose(1, 2)
+            err = _rel_err(o, want)
+            case = (str(dtype), sq, sk, d, causal)
+            assert err <= FLASH_TOL[dtype], ("flash_attention Sq/Sk", case,
+                                             err)
+            key = "flash_attention_d112" if d == 112 else \
+                "flash_attention_cross"
+            worst[key] = max(worst[key], err)
+            del q, k, v, o, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_flash_same_as_parent(parent: ParentKernels,
+                               gen: torch.Generator) -> int:
+    """With ``--parent``: the forward at Sq == Sk, bf16 and causal, is
+    bitwise the parent's (O and the log-sum-exp) in every family (D 16 on
+    the CUDA cores, 64 and 128 on wgmma, 256 on mma.sync), at ragged and
+    whole lengths and G 1, 2 and 8.  Returns the cases checked."""
+    from repro_torch.kernels.attention import attention as K
+
+    n = 0
+    for d, s, g in itertools.product((16, 64, 128, 256), (77, 1000, 4096),
+                                     (1, 2, 8)):
+        b, hkv = 2, 2
+        q = torch.randn(b, s, hkv * g, d, generator=gen,
+                        device="cuda").bfloat16()
+        k, v = (torch.randn(b, s, hkv, d, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        o, lse = K._flash_fwd(q, k, v, causal=True, window=None,
+                              logit_cap=None)
+        o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
+        parent.forward(q, k, v, o2, lse2)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+            ("flash forward differs from the parent's", d, s, g)
+        n += 1
+    return n
+
+
+def bench_flash_own_key_length(gen: torch.Generator, iters: int
+                               ) -> list[dict]:
+    """Rows 5x and 5@112 of the kernels line, bf16: seamless-m4t-medium's
+    cross-attention (B 2, Hq = Hkv = 16, Sq 256 target positions against
+    Sk 1024 source frames, D 64, no mask) and zamba2-7b's shared block
+    (B 1, Hq = Hkv = 32, S 2048, D 112, causal).  Kernel times are
+    CUDA-graph replays of ``iters`` calls, in turns with SDPA under each
+    backend (kernel, SDPA, SDPA, kernel; the fastest backend is
+    ``library_ms``); the plain version is timed eagerly.  Bounds: 4 B Hq
+    Sq Sk D flops without a mask, half that causal at Sq = Sk, against
+    q, k, v, o and the log-sum-exp once each."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ref
+
+    dtype = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for name, (b, hq, hkv, sq, sk, d, causal) in (
+            ("flash_attention_cross", (2, 16, 16, 256, 1024, 64, False)),
+            ("flash_attention_d112", (1, 32, 32, 2048, 2048, 112, True))):
+        q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(b, sk, hkv, d, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        o, lse = K._flash_fwd(q, k, v, causal=causal, window=None,
+                              logit_cap=None)
+        tr = [t.transpose(1, 2) for t in (q, k, v)]
+        err = max_err(o, ref.attention_ref(*tr, causal=causal)
+                      .transpose(1, 2))
+        turns = []
+
+        def kernel():
+            turns.append(time_ms(lambda i: K._flash_fwd(
+                q, k, v, causal=causal, window=None, logit_cap=None), iters))
+
+        def sdpa_run(gqa):
+            kk, vv = tr[1:] if gqa else (t.repeat_interleave(hq // hkv, 1)
+                                         for t in tr[1:])
+            return _events_loop_ms(lambda: sdpa(tr[0], kk, vv,
+                                                is_causal=causal,
+                                                enable_gqa=gqa), 20)
+
+        kernel()
+        lib = [sdpa_by_backend(sdpa_run) for _ in range(2)]
+        kernel()
+        plain = _events_loop_ms(lambda: ref.attention_ref(*tr,
+                                                          causal=causal), 3)
+        flops = 4 * b * hq * sq * sk * d / (2 if causal else 1)
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+        row = _with_library(_row(
+            name, "src/repro_torch/csrc/flash_fwd.cu",
+            "src/repro/kernels/attention/attention.py:72", err,
+            sum(t[0] for t in turns) / 2, sum(t[1] for t in turns) / 2,
+            plain, None, nbytes, flops, dtype), _merge_sdpa(lib))
+        row["ms_turns"] = [t[0] for t in turns]
+        row["variant"] = K._flash_variant("flash_fwd", dtype, d)
+        row["shape"] = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "sk": sk,
+                        "d": d, "causal": causal}
+        rows.append(row)
+        del q, k, v, o, lse, tr
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the non-paged cache path, and the SSM, hybrid and enc-dec families
+# ---------------------------------------------------------------------------
+
+def _flash_counts_zeroed() -> None:
+    from repro_torch.kernels.attention import attention as K
+    K.flash_attention.launches = 0
+    K.flash_attention.cross_launches = 0
+    K.flash_attention.variants.clear()
+
+
+def _flash_counts() -> dict:
+    from repro_torch.kernels.attention import attention as K
+    return {"launches": K.flash_attention.launches,
+            "cross_launches": K.flash_attention.cross_launches,
+            "variants": dict(K.flash_attention.variants)}
+
+
+def nonpaged_qwen3(cfg, params, rng: np.random.Generator) -> dict:
+    """qwen3-0.6b (bf16, 28 layers) on the dense cache: ``prefill_decoder``
+    over 8 prompts of 512 tokens (max_seq 1024; kernel 5, causal at D 128,
+    one launch a layer, all ``wgmma``), then 32 greedy
+    ``decode_step_decoder`` ticks.  The plain path (``use_kernel=False``)
+    and the paged path (one prompt chunk a slot, ``decode_step_paged``
+    ticks: kernels 2 and 1) take the same tokens: the plain logits within
+    MODEL_ATOL, and both paths' tokens equal by the margin rule."""
+    from repro_torch.models import (decode_step, decode_step_paged,
+                                    paged_cache_leaf_specs, prefill,
+                                    prefill_chunk)
+    from repro_torch.serve.paging import init_pool
+
+    tol = MODEL_ATOL[cfg.dtype]
+    slots, n, max_seq, ticks, page = 8, 512, 1024, 32, 64
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, size=(slots, n)),
+                           dtype=torch.int32, device="cuda")
+    _flash_counts_zeroed()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache, lens = prefill(params, cfg, {"tokens": prompts}, max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = _flash_counts()
+    assert counts["launches"] == cfg.n_layers, counts
+    assert counts["variants"] == {"wgmma": cfg.n_layers}, counts
+    lg_p, cache_p, lens_p = prefill(params, cfg, {"tokens": prompts},
+                                    max_seq, use_kernel=False)
+    worst = max_err(lg, lg_p)
+    assert margin_agrees(lg_p, lg.argmax(-1), tol)
+    pools = init_pool(paged_cache_leaf_specs(cfg, page),
+                      slots * max_seq // page, page, "cuda").pools
+    bt = torch.arange(slots * max_seq // page, dtype=torch.int32,
+                      device="cuda").reshape(slots, -1)
+    lg_g = torch.stack([prefill_chunk(params, cfg, prompts[s:s + 1], 0,
+                                      pools, bt[s])[0][-1]
+                        for s in range(slots)])
+    assert margin_agrees(lg_g, lg.argmax(-1), tol)
+    cur, lens_g, decode_s = lg.argmax(-1).to(torch.int32), lens.clone(), 0.0
+    for _ in range(ticks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache, lens = decode_step(params, cfg, cur[:, None], cache,
+                                       lens)
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t0
+        out_p, cache_p, lens_p = decode_step(params, cfg, cur[:, None],
+                                             cache_p, lens_p)
+        out_g, pools = decode_step_paged(params, cfg, cur[:, None], pools,
+                                         bt, lens_g)
+        lens_g = lens_g + 1
+        assert torch.isfinite(out).all()
+        worst = max(worst, max_err(out, out_p))
+        assert margin_agrees(out_p, out.argmax(-1), tol)
+        assert margin_agrees(out_g, out.argmax(-1), tol)
+        cur = out.argmax(-1).to(torch.int32)
+    assert worst <= tol, ("non-paged logits", worst)
+    assert torch.equal(lens, torch.full_like(lens, n + ticks))
+    return {"arch": cfg.name, "layers": cfg.n_layers, "slots": slots,
+            "prompt": n, "max_seq": max_seq, "ticks": ticks,
+            "max_abs_logit_err_vs_plain": worst, "atol": tol,
+            "prefill_s": prefill_s, "decode_ms_per_tick":
+            1e3 * decode_s / ticks, "flash": counts}
+
+
+def nonpaged_deepseek(cfg, params, rng: np.random.Generator) -> dict:
+    """deepseek-v2 (bf16, published widths, 4 layers) on the dense latent
+    cache against the paged latent path (kernels 4 and 3): per slot one
+    128-token ``prefill_decoder`` and one ``prefill_chunk`` (the same MoE
+    dispatch group: expert capacity depends on the tokens of a call), the
+    caches joined, then 16 ticks of ``decode_step`` and
+    ``decode_step_paged`` over the 8 slots, teacher-forced by the dense
+    path's greedy tokens.  The dense path follows the paged path's expert
+    choices (``RouterLog.forced``), so a router near tie cannot flip
+    between them; logits within MODEL_ATOL and tokens by the margin
+    rule."""
+    from repro_torch.models import (decode_step, decode_step_paged,
+                                    paged_cache_leaf_specs, prefill,
+                                    prefill_chunk)
+    from repro_torch.serve.paging import init_pool
+
+    tol = MODEL_ATOL[cfg.dtype]
+    slots, n, max_seq, ticks, page = 8, 128, 256, 16, 128
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, size=(slots, n)),
+                           dtype=torch.int32, device="cuda")
+    pools = init_pool(paged_cache_leaf_specs(cfg, page),
+                      slots * max_seq // page, page, "cuda").pools
+    bt = torch.arange(slots * max_seq // page, dtype=torch.int32,
+                      device="cuda").reshape(slots, -1)
+    worst, caches, last, last_g = 0.0, [], [], []
+
+    def follow(log, tag):
+        log.forced = collections.deque(c[0] for c in log.calls[tag])
+
+    with RouterLog() as log:
+        for s in range(slots):
+            log.tag = ("prefill", s, "paged")
+            last_g.append(prefill_chunk(params, cfg, prompts[s:s + 1], 0,
+                                        pools, bt[s])[0][-1])
+            follow(log, ("prefill", s, "paged"))
+            log.tag = ("prefill", s, "dense")
+            lg, cache_s, _ = prefill(params, cfg,
+                                     {"tokens": prompts[s:s + 1]}, max_seq)
+            log.forced = None
+            last.append(lg[0])
+            caches.append(cache_s)
+        cache = {k: torch.cat([c[k] for c in caches], dim=1)
+                 for k in caches[0]}
+        del caches
+        lg, lg_g = torch.stack(last), torch.stack(last_g)
+        lens = torch.full((slots,), n, dtype=torch.int32, device="cuda")
+        for t in range(ticks + 1):
+            assert torch.isfinite(lg).all()
+            worst = max(worst, max_err(lg, lg_g))
+            assert margin_agrees(lg_g, lg.argmax(-1), tol), t
+            if t == ticks:
+                break
+            cur = lg.argmax(-1).to(torch.int32)[:, None]
+            log.tag = ("tick", t, "paged")
+            lg_g, pools = decode_step_paged(params, cfg, cur, pools, bt,
+                                            lens)
+            follow(log, ("tick", t, "paged"))
+            log.tag = ("tick", t, "dense")
+            lg, cache, lens = decode_step(params, cfg, cur, cache, lens)
+            log.forced = None
+    assert worst <= tol, ("non-paged latent logits", worst)
+    return {"arch": cfg.name, "layers": cfg.n_layers, "slots": slots,
+            "prompt": n, "ticks": ticks, "atol": tol,
+            "max_abs_logit_err_vs_paged": worst,
+            "router_near_ties": sum(log.near_ties(tag, ROUTER_TOL[cfg.dtype])
+                                    for tag in log.calls if tag[2] == "paged"),
+            "router_prob_max_diff": max(
+                log.prob_diff(tag, (tag[0], tag[1], "dense"))
+                for tag in log.calls if tag[2] == "paged")}
+
+
+SSM_BATCH, SSM_SEQ, SSM_DECODE = 2, 1024, 64
+HYBRID_SEQ, HYBRID_DECODE = 2048, 64
+ENCDEC_BATCH, ENCDEC_SRC, ENCDEC_TGT, ENCDEC_DECODE = 2, 1024, 256, 32
+
+
+def _decode_against_forward(params, cfg, tokens, full, steps, tol) -> dict:
+    """``decode_step`` from an empty state over the first ``steps`` tokens:
+    each step's tokens equal the forward's at that position by the margin
+    rule; returns the largest logit difference and the decode time."""
+    from repro_torch.models import decode_step, init_cache
+
+    b = tokens.shape[0]
+    state = init_cache(cfg, b, tokens.shape[1], device="cuda")
+    lens = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    worst = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        lg, state, lens = decode_step(params, cfg, tokens[:, t:t + 1], state,
+                                      lens)
+        assert torch.isfinite(lg).all()
+        worst = max(worst, max_err(lg, full[:, t]))
+        assert margin_agrees(full[:, t], lg.argmax(-1), tol), t
+    torch.cuda.synchronize()
+    return {"decode_steps": steps, "max_abs_logit_err_decode_vs_forward":
+            worst, "decode_ms_per_step":
+            1e3 * (time.perf_counter() - t0) / steps}
+
+
+def ssm_model(cfg, seed: int, rng: np.random.Generator) -> list[dict]:
+    """mamba2-780m at full width (48 layers, d_model 1536, d_state 128),
+    B 2 x S 1024 in chunks of 256: the forward, then decode from an empty
+    state over the first 64 tokens, each step against the forward's
+    logits at its position: by the margin rule in bf16, and within
+    MODEL_ATOL in f32, where only the order of the f32 sums differs
+    (chunked scan against the recurrence).  No kernel runs: the family is
+    attention-free, as in ``repro``."""
+    from repro_torch.models import forward, init_params, param_count
+
+    out = []
+    tokens = torch.tensor(rng.integers(0, cfg.vocab,
+                                       size=(SSM_BATCH, SSM_SEQ)),
+                          dtype=torch.int32, device="cuda")
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, param_dtype=dtype)
+        tol = MODEL_ATOL[c.dtype]
+        params = init_params(c, seed=seed, device="cuda")
+        _flash_counts_zeroed()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = forward(params, c, {"tokens": tokens})
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        assert torch.isfinite(full).all()
+        res = {"arch": c.name, "dtype": dtype, "params": param_count(params),
+               "batch": SSM_BATCH, "seq": SSM_SEQ, "chunk": c.ssm.chunk,
+               "forward_s": fwd_s, "atol": tol,
+               **_decode_against_forward(params, c, tokens, full,
+                                         SSM_DECODE, tol)}
+        assert _flash_counts()["launches"] == 0
+        if c.dtype == torch.float32:
+            assert res["max_abs_logit_err_decode_vs_forward"] <= tol, res
+        out.append(res)
+        del params, full
+        torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_model(cfg, seed: int, rng: np.random.Generator) -> dict:
+    """zamba2-7b at full width (81 Mamba-2 layers in 9 groups, d_model 3584,
+    the shared block's 32 heads at D 112), bf16, B 1 x S 2048: the forward
+    through kernel 5 (9 launches, the shared block once a group, on the
+    CUDA cores at D 112) within MODEL_ATOL of the plain path, then 64
+    decode steps from an empty state against the forward by the margin
+    rule."""
+    from repro_torch.models import forward, init_params, param_count
+
+    tol = MODEL_ATOL[cfg.dtype]
+    params = init_params(cfg, seed=seed, device="cuda")
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, size=(1, HYBRID_SEQ)),
+                          dtype=torch.int32, device="cuda")
+    _flash_counts_zeroed()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = forward(params, cfg, {"tokens": tokens})
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    counts = _flash_counts()
+    n_groups = cfg.n_layers // cfg.attn_every
+    assert counts["launches"] == n_groups, counts
+    assert counts["variants"] == {"cuda_cores": n_groups}, counts
+    plain = forward(params, cfg, {"tokens": tokens}, use_kernel=False)
+    err = max_err(full, plain)
+    assert margin_agrees(plain, full.argmax(-1), tol)
+    del plain
+    res = {"arch": cfg.name, "params": param_count(params),
+           "dtype": str(cfg.dtype), "seq": HYBRID_SEQ, "groups": n_groups,
+           "forward_s": fwd_s, "max_abs_logit_err_vs_plain": err,
+           "atol": tol, "flash": counts,
+           **_decode_against_forward(params, cfg, tokens, full,
+                                     HYBRID_DECODE, tol)}
+    assert err <= tol, res
+    del params, full
+    torch.cuda.empty_cache()
+    return res
+
+
+def encdec_model(cfg, seed: int, rng: np.random.Generator) -> dict:
+    """seamless-m4t-medium at full width (12 + 12 layers, d_model 1024, 16
+    heads at D 64, vocab 256,206), bf16: B 2, 1024 source frames drawn from
+    the seed, 256 target tokens.  The forward runs kernel 5 three ways
+    (the encoder without a mask, the decoder's causal self-attention and
+    its cross-attention at Sq 256 against Sk 1024: 36 launches, 12 of them
+    cross, all ``wgmma``) within MODEL_ATOL of the plain path; then
+    ``prefill`` (the encoder and every layer's cross K/V) and 32 greedy
+    decode steps, each against the teacher-forced forward over the decoded
+    tokens by the margin rule."""
+    from repro_torch.models import (decode_step, forward, init_params,
+                                    param_count, prefill)
+
+    tol = MODEL_ATOL[cfg.dtype]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, seed=seed, device="cuda")
+    src = torch.randn(ENCDEC_BATCH, ENCDEC_SRC, cfg.d_model, generator=gen,
+                      device="cuda").to(cfg.dtype)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab,
+                                       size=(ENCDEC_BATCH, ENCDEC_TGT)),
+                          dtype=torch.int32, device="cuda")
+    _flash_counts_zeroed()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = forward(params, cfg, {"src_emb": src, "tokens": tokens})
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    counts = _flash_counts()
+    per_forward = cfg.n_enc_layers + 2 * cfg.n_layers
+    assert counts == {"launches": per_forward,
+                      "cross_launches": cfg.n_layers,
+                      "variants": {"wgmma": per_forward}}, counts
+    plain = forward(params, cfg, {"src_emb": src, "tokens": tokens},
+                    use_kernel=False)
+    err = max_err(full, plain)
+    assert margin_agrees(plain, full.argmax(-1), tol)
+    del plain, full
+    _, cache, lens = prefill(params, cfg, {"src_emb": src}, ENCDEC_DECODE)
+    cur = torch.zeros((ENCDEC_BATCH, 1), dtype=torch.int32, device="cuda")
+    fed, logits = [cur], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENCDEC_DECODE):
+        lg, cache, lens = decode_step(params, cfg, cur, cache, lens)
+        cur = lg.argmax(-1, keepdim=True).to(torch.int32)
+        fed.append(cur)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    teacher = forward(params, cfg, {"src_emb": src,
+                                    "tokens": torch.cat(fed[:-1], 1)})
+    dec = torch.stack(logits, 1)
+    assert torch.isfinite(dec).all()
+    assert margin_agrees(teacher, dec.argmax(-1), tol)
+    counts = _flash_counts()
+    res = {"arch": cfg.name, "params": param_count(params),
+           "dtype": str(cfg.dtype), "batch": ENCDEC_BATCH,
+           "src_frames": ENCDEC_SRC, "tgt_tokens": ENCDEC_TGT,
+           "forward_s": fwd_s, "max_abs_logit_err_vs_plain": err,
+           "atol": tol, "decode_steps": ENCDEC_DECODE,
+           "decode_ms_per_step": 1e3 * decode_s / ENCDEC_DECODE,
+           "max_abs_logit_err_decode_vs_teacher_forced":
+           max_err(dec, teacher), "flash": counts}
+    assert err <= tol, res
+    # the phase's forward, prefill's encoder and the teacher-forced
+    # forward; the cross launches are the two forwards'
+    assert counts["cross_launches"] == 2 * cfg.n_layers, counts
+    del params, teacher, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phases 8-9: training at full width
 # ---------------------------------------------------------------------------
 
@@ -2926,6 +3435,16 @@ def main() -> int:
         rows += bench_latent_kernels(cfg_ds, gen, ITERS, parent)
         rows += bench_flash(cfg, gen, FLASH_ITERS, parent)
         rows += bench_paco_kernels(gen, ITERS, parent)
+        # kernel 5 at its own key length and at D 112, from a generator of
+        # their own (the draws of the checks above stay as they were)
+        gen_sk = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+        worst_sk = check_flash_own_key_length(gen_sk)
+        log(f"[kernels] flash forward at Sq != Sk and D 112 ok: max err "
+            f"{worst_sk}")
+        if parent is not None:
+            log(f"[kernels] flash forward at Sq == Sk bitwise the parent's "
+                f"in {check_flash_same_as_parent(parent, gen_sk)} cases")
+        rows += bench_flash_own_key_length(gen_sk, FLASH_ITERS)
     with phase("verify_kernels"):
         verify_rows, verify_worst = bench_verify_kernels(gen, ITERS)
         log(f"[verify] both entries against their plain versions: max err "
@@ -3029,6 +3548,14 @@ def main() -> int:
         result["agreement_with_fused"] = agreement(
             done_l, [r for r in done if r.uid < 4])
         log(f"[serve_legacy] {json.dumps(result)}; card: {smi}")
+    # the new phases draw from a stream of their own, so the earlier
+    # phases' prompts stay as they were
+    rng_new = np.random.default_rng([args.seed, 16])
+
+    # 5d. the non-paged cache path on the same weights
+    with phase("qwen3 non-paged"):
+        result = nonpaged_qwen3(cfg, params, rng_new)
+        log(f"[non-paged] {json.dumps(result)}; card: {smi}")
     del params, engine
     torch.cuda.empty_cache()
 
@@ -3101,8 +3628,29 @@ def main() -> int:
         replay = replay_schedule(engine, params, cfg_d, calls, routing)
         log(f"[ds-serve_speculative] plain-path replay agrees: "
             f"{json.dumps(replay)}")
-    del params, engine, calls, routing, done
+    del engine, calls, routing, done
     torch.cuda.empty_cache()
+
+    # 7c. deepseek-v2's dense latent cache against the paged latent path
+    with phase("deepseek-v2 non-paged"):
+        result = nonpaged_deepseek(cfg_d, params, rng_new)
+        log(f"[ds-non-paged] {json.dumps(result)}; card: {smi}")
+    del params
+    torch.cuda.empty_cache()
+
+    # 7d-7f. the SSM, hybrid and enc-dec families at full width
+    with phase("mamba2 model"):
+        for result in ssm_model(get_arch("mamba2-780m"), args.seed, rng_new):
+            log(f"[mamba2] {json.dumps(result)}; card: {smi}")
+    with phase("zamba2 model"):
+        result = hybrid_model(get_arch("zamba2-7b"), args.seed, rng_new)
+        log(f"[zamba2] {json.dumps(result)}; card: {smi}")
+        launches["flash_attention_d112"] = result["flash"]["launches"]
+    with phase("seamless model"):
+        result = encdec_model(get_arch("seamless-m4t-medium"), args.seed,
+                              rng_new)
+        log(f"[seamless] {json.dumps(result)}; card: {smi}")
+        launches["flash_attention_cross"] = result["flash"]["cross_launches"]
 
     # 8. full-width qwen3-0.6b train-step parity, kernel path vs plain
     # path: float32 at depth 2, bf16 at depth 28

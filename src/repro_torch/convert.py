@@ -30,22 +30,38 @@ def _tensor(x: np.ndarray, device: torch.device | str) -> torch.Tensor:
     return t.to(device)
 
 
+# Leaves of the Mamba-2 mixer that ``repro`` keeps in f32 whatever the
+# model's dtype (``repro/models/ssm.py:117-119``).
+F32_MIXER_LEAVES = frozenset({"a_log", "dt_bias", "d_skip"})
+
+
 def _leaf(x: np.ndarray, dtype: torch.dtype,
-          device: torch.device | str) -> torch.Tensor:
+          device: torch.device | str, path: str) -> torch.Tensor:
     t = _tensor(x, device)
     if t.dtype != dtype:
-        raise TypeError(f"leaf of dtype {x.dtype} where the config says "
-                        f"{dtype}")
+        raise TypeError(f"leaf {path} of dtype {x.dtype} where the config "
+                        f"says {dtype}")
     return t
 
 
 def from_jax(params: dict[str, Any], cfg: ArchConfig,
-             device: torch.device | str = "cuda") -> dict[str, Any]:
+             device: torch.device | str = "cuda", _path: str = ""
+             ) -> dict[str, Any]:
     """Nested dict of numpy arrays -> the same nested dict of tensors on
-    ``device``, each leaf bit-identical and of ``cfg.dtype``."""
-    return {k: (from_jax(v, cfg, device) if isinstance(v, dict)
-                else _leaf(v, cfg.dtype, device))
-            for k, v in params.items()}
+    ``device``, each leaf bit-identical and of ``cfg.dtype``, except the
+    Mamba-2 mixer's ``a_log``, ``dt_bias`` and ``d_skip``, which are f32 in
+    every model.  Any other dtype raises."""
+    out = {}
+    for k, v in params.items():
+        path = f"{_path}/{k}" if _path else k
+        if isinstance(v, dict):
+            out[k] = from_jax(v, cfg, device, path)
+        else:
+            f32 = (k in F32_MIXER_LEAVES
+                   and _path.rsplit("/", 1)[-1] == "mixer")
+            out[k] = _leaf(v, torch.float32 if f32 else cfg.dtype, device,
+                           path)
+    return out
 
 
 def _tree(tree: dict[str, Any], device: torch.device | str) -> dict:

@@ -1,17 +1,19 @@
 // Dense flash attention, forward, for Hopper (sm_90a).
 //
 // Replaces src/repro/kernels/attention/attention.py:flash_attention_pallas
-// (body _flash_kernel): softmax(scale * Q K^T, masked) V over one sequence
-// of S positions per batch element, with GQA (G = Hq / Hkv query heads per
-// kv head), an optional causal mask q_pos >= k_pos, an optional sliding
-// window q_pos - k_pos < window and an optional tanh softcap, scale
-// 1 / sqrt(D).  Besides O it writes the f32 row log-sum-exp of the (capped)
-// scores, which the backward (flash_bwd.cu) needs.
+// (body _flash_kernel): softmax(scale * Q K^T, masked) V for Sq query
+// positions against Sk key positions per batch element (both counted from
+// 0; Sq == Sk is one sequence attending to itself, Sq != Sk a
+// cross-attention), with GQA (G = Hq / Hkv query heads per kv head), an
+// optional causal mask q_pos >= k_pos, an optional sliding window
+// q_pos - k_pos < window and an optional tanh softcap, scale 1 / sqrt(D).
+// Besides O it writes the f32 row log-sum-exp of the (capped) scores, which
+// the backward (flash_bwd.cu, Sq == Sk only) needs.
 //
-// q   (B, S, Hq, D)   the model's layout, float32 or bfloat16
-// k,v (B, S, Hkv, D)
-// o   (B, S, Hq, D)   in q's type
-// lse (B, Hq, S)      f32
+// q   (B, Sq, Hq, D)   the model's layout, float32 or bfloat16
+// k,v (B, Sk, Hkv, D)
+// o   (B, Sq, Hq, D)   in q's type
+// lse (B, Hq, Sq)      f32
 //
 // What bounds it: operations.  The causal forward does 4 B Hq S^2 D / 2
 // flops (QK^T and PV over the lower triangle): 137 GFLOP at the training
@@ -26,8 +28,8 @@
 //    tile it loads serves all G heads (the TPU kernel copies K/V G times);
 //  * it walks only the keys some row of the block may see: from the
 //    window's start for its first row to its last row's position under the
-//    causal mask, so wholly masked tiles are never loaded; the ragged last
-//    tile (any S) is masked key by key;
+//    causal mask (or to Sk), so wholly masked tiles are never loaded; the
+//    ragged last tile (any Sk) is masked key by key;
 //  * bf16 with D 64 or 128 runs on wgmma with TMA loads, a producer warp
 //    and a persistent grid (fwd_kernel in flash_wgmma.cuh: 128 query rows
 //    per CTA, 128-key tiles); bf16 with D 256 on mma.sync m16n8k16
@@ -38,7 +40,8 @@
 //
 // Masking: the TPU kernel's finite -1e30 is the initial max, and a masked
 // key weighs 0 (not exp(0)), so no row ever meets exp(-inf - -inf) = NaN.
-// Every row sees at least its own position, so l > 0 at the end.
+// Every row sees at least one key (flash_fwd refuses a window that would
+// leave the last query row none: Sq - window >= Sk), so l > 0 at the end.
 
 #include "flash_wgmma.cuh"
 
@@ -62,8 +65,9 @@ template <typename T, int DL>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int s_len, int hq, int hkv, int d,
-                 int bq, float scale, int causal, int window, float softcap) {
+                 float* __restrict__ lse, int sq, int sk, int hq, int hkv,
+                 int d, int bq, float scale, int causal, int window,
+                 float softcap) {
   const int qb = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -87,18 +91,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int dd = i - r * d;
     const int pos = c0 + r % bq;
     float x = 0.f;
-    if (r < rows && pos < s_len)
-      x = to_f32(q[(((long long)b * s_len + pos) * hq + h * g_n + r / bq) *
+    if (r < rows && pos < sq)
+      x = to_f32(q[(((long long)b * sq + pos) * hq + h * g_n + r / bq) *
                        d + dd]);
     q_s[i] = x;
   }
 
   // Keys some row of the block may see: [k_lo, k_hi).
   const int q_lo = c0;
-  const int q_hi = min(c0 + bq, s_len) - 1;
+  const int q_hi = min(c0 + bq, sq) - 1;
   const long long k_lo64 = (long long)q_lo - (long long)window + 1;
   const int k_lo = k_lo64 > 0 ? (int)k_lo64 : 0;
-  const int k_hi = causal ? q_hi + 1 : s_len;
+  const int k_hi = causal ? min(q_hi + 1, sk) : sk;
 
   float m[kRowsPerWarp], l[kRowsPerWarp];
   float acc[kRowsPerWarp][DL];
@@ -111,7 +115,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < DL; ++e) acc[j][e] = 0.f;
   }
-  const long long kv_base = (long long)b * s_len * hkv + h;
+  const long long kv_base = (long long)b * sk * hkv + h;
 
   for (int t0 = k_lo; t0 < k_hi; t0 += kTk) {
     const int n = min(kTk, k_hi - t0);
@@ -197,9 +201,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int r = warp * kRowsPerWarp + j;
     const int pos = q_pos[j];
-    if (r >= rows || pos >= s_len) continue;
+    if (r >= rows || pos >= sq) continue;
     const int head = h * g_n + r / bq;
-    const long long orow = ((long long)b * s_len + pos) * hq + head;
+    const long long orow = ((long long)b * sq + pos) * hq + head;
     const float inv = 1.f / fmaxf(l[j], 1e-30f);
 #pragma unroll
     for (int e = 0; e < DL; ++e) {
@@ -207,37 +211,37 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (dd < d) store_val(o + orow * d + dd, acc[j][e] * inv);
     }
     if (lane == 0)
-      lse[((long long)b * hq + head) * s_len + pos] =
+      lse[((long long)b * hq + head) * sq + pos] =
           m[j] + logf(fmaxf(l[j], 1e-30f));
   }
 }
 
 template <typename T, int DL>
 int launch_cuda_cores(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int batch, int s_len, int hq, int hkv,
-                      int d, float scale, int causal, int window,
+                      float* lse, int batch, int sq, int sk, int hq,
+                      int hkv, int d, float scale, int causal, int window,
                       float softcap, cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
   const size_t smem = fwd_smem_bytes(d);
   const cudaError_t e = allow_smem(flash_fwd_kernel<T, DL>, smem, &opted_in);
   if (e != cudaSuccess) return (int)e;
   const int bq = kRows / (hq / hkv);
-  const dim3 grid((s_len + bq - 1) / bq, hkv, batch);
+  const dim3 grid((sq + bq - 1) / bq, hkv, batch);
   flash_fwd_kernel<T, DL><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, s_len, hq, hkv, d,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, hq, hkv, d,
       bq, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_type(const void* q, const void* k, const void* v, void* o,
-                float* lse, int batch, int s_len, int hq, int hkv, int d,
-                float scale, int causal, int window, float softcap,
+                float* lse, int batch, int sq, int sk, int hq, int hkv,
+                int d, float scale, int causal, int window, float softcap,
                 cudaStream_t stream) {
 #define REPRO_FLASH_DL(N)                                                   \
   if (d <= 32 * N)                                                          \
-    return launch_cuda_cores<T, N>(q, k, v, o, lse, batch, s_len, hq, hkv, \
+    return launch_cuda_cores<T, N>(q, k, v, o, lse, batch, sq, sk, hq, hkv, \
                                    d, scale, causal, window, softcap,       \
                                    stream);
   REPRO_FLASH_DL(1)
@@ -265,36 +269,39 @@ int flash_fwd_variant(int dtype, int d) {
   return d == 256 ? 1 : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  causal: 0 or 1.  A window of
-// INT32_MAX means none; softcap <= 0 means none.  D must be a multiple of
-// 8 and at most 256, Hq a multiple of Hkv with G = Hq / Hkv <= 32.
-// Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16.  sq query and sk key positions per
+// batch element, both >= 1.  causal: 0 or 1.  A window of INT32_MAX means
+// none; a window that leaves the last query row no key (sq - window >= sk)
+// is refused.  softcap <= 0 means none.  D must be a multiple of 8 and at
+// most 256, Hq a multiple of Hkv with G = Hq / Hkv <= 32.  Returns
+// cudaGetLastError().
 int flash_fwd(int dtype, const void* q, const void* k, const void* v,
-              void* o, void* lse, int batch, int s_len, int hq, int hkv,
+              void* o, void* lse, int batch, int sq, int sk, int hq, int hkv,
               int d, float scale, int causal, int window, float softcap,
               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   if (d <= 0 || d % 8 || d > 256 || hkv <= 0 || hq % hkv ||
-      hq / hkv > kRows)
+      hq / hkv > kRows || sq < 1 || sk < 1 ||
+      (long long)sq - (long long)window >= (long long)sk)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_type<float>(q, k, v, o, lse_f, batch, s_len, hq, hkv, d,
+    return launch_type<float>(q, k, v, o, lse_f, batch, sq, sk, hq, hkv, d,
                               scale, causal, window, softcap, st);
   if (dtype == 1) {
     if (d == 64)
-      return flash_wgmma::launch_fwd_d<64>(q, k, v, o, lse_f, batch, s_len,
+      return flash_wgmma::launch_fwd_d<64>(q, k, v, o, lse_f, batch, sq, sk,
                                            hq, hkv, scale, causal, window,
                                            softcap, st);
     if (d == 128)
-      return flash_wgmma::launch_fwd_d<128>(q, k, v, o, lse_f, batch, s_len,
+      return flash_wgmma::launch_fwd_d<128>(q, k, v, o, lse_f, batch, sq, sk,
                                             hq, hkv, scale, causal, window,
                                             softcap, st);
     if (d == 256)
-      return flash_mma::launch_fwd_d<256>(q, k, v, o, lse_f, batch, s_len,
+      return flash_mma::launch_fwd_d<256>(q, k, v, o, lse_f, batch, sq, sk,
                                           hq, hkv, scale, causal, window,
                                           softcap, st);
-    return launch_type<__nv_bfloat16>(q, k, v, o, lse_f, batch, s_len, hq,
+    return launch_type<__nv_bfloat16>(q, k, v, o, lse_f, batch, sq, sk, hq,
                                       hkv, d, scale, causal, window,
                                       softcap, st);
   }

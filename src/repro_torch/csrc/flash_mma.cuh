@@ -251,7 +251,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, bf16* __restrict__ o,
-           float* __restrict__ lse, int s_len, int hq, int hkv, int bq,
+           float* __restrict__ lse, int sq, int sk, int hq, int hkv, int bq,
            float scale, int causal, int window, float softcap) {
   constexpr int stride = D + 8;
   constexpr int NT = D / 8;
@@ -266,7 +266,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + kRows * stride;      // 2 buffers of kTk rows
   bf16* v_s = k_s + 2 * kTk * stride;    // 2 buffers of kTk rows
-  stage_q_block<D>(q, q_s, b, h, c0, bq, rows, s_len, hq, g_n);
+  stage_q_block<D>(q, q_s, b, h, c0, bq, rows, sq, hq, g_n);
 
   const int g = lane >> 2, t4 = lane & 3;
   int pos[2];
@@ -286,11 +286,11 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int p_min = __reduce_min_sync(0xffffffffu, min(pos[0], pos[1]));
   const int p_max = __reduce_max_sync(0xffffffffu, max(pos[0], pos[1]));
 
-  const int q_hi = min(c0 + bq, s_len) - 1;
+  const int q_hi = min(c0 + bq, sq) - 1;
   const long long k_lo64 = (long long)c0 - (long long)window + 1;
   const int k_lo = k_lo64 > 0 ? (int)k_lo64 : 0;
-  const int k_hi = causal ? q_hi + 1 : s_len;
-  const long long kv_base = (long long)b * s_len * hkv + h;
+  const int k_hi = causal ? min(q_hi + 1, sk) : sk;
+  const long long kv_base = (long long)b * sk * hkv + h;
 
   const int n_tiles = (k_hi - k_lo + kTk - 1) / kTk;
   auto load_tile = [&](int i) {
@@ -346,9 +346,9 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = warp * 16 + g + 8 * hh;
-    if (r >= rows || pos[hh] >= s_len) continue;
+    if (r >= rows || pos[hh] >= sq) continue;
     const int head = h * g_n + r / bq;
-    const long long orow = ((long long)b * s_len + pos[hh]) * hq + head;
+    const long long orow = ((long long)b * sq + pos[hh]) * hq + head;
     const float inv = 1.f / fmaxf(l[hh], 1e-30f);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -356,7 +356,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           __floats2bfloat162_rn(acc[nt][2 * hh] * inv,
                                 acc[nt][2 * hh + 1] * inv);
     if (t4 == 0)   // m is in the log2 domain
-      lse[((long long)b * hq + head) * s_len + pos[hh]] =
+      lse[((long long)b * hq + head) * sq + pos[hh]] =
           (m[hh] + log2f(fmaxf(l[hh], 1e-30f))) * kLn2;
   }
 }
@@ -413,7 +413,7 @@ __device__ __forceinline__ void grad_tile_t(
 
 template <int D>
 int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int batch, int s_len, int hq, int hkv,
+                 float* lse, int batch, int sq, int sk, int hq, int hkv,
                  float scale, int causal, int window, float softcap,
                  cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
@@ -421,10 +421,10 @@ int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
   const cudaError_t e = allow_smem(fwd_kernel<D>, smem, &opted_in);
   if (e != cudaSuccess) return (int)e;
   const int bq = kRows / (hq / hkv);
-  const dim3 grid((s_len + bq - 1) / bq, hkv, batch);
+  const dim3 grid((sq + bq - 1) / bq, hkv, batch);
   fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, s_len, hq,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk, hq,
       hkv, bq, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }

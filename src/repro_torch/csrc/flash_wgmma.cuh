@@ -35,8 +35,10 @@
 //    position c0 + r / G); a G that does not divide 128 leaves rows
 //    unused.  The 128-byte swizzle caps a box at 64 columns, so a D-128
 //    row comes in two boxes, stored as two column blocks;
-//  * TMA zero-fills rows past S, so the ragged last tile needs no
-//    predicated loads (the mask still applies);
+//  * TMA zero-fills rows past Sq (queries) or Sk (keys: the forward's K
+//    and V maps span Sk rows a batch element, which a cross-attention
+//    sets apart from Sq), so the ragged last tile needs no predicated
+//    loads (the mask still applies);
 //  * within a warpgroup, the forward issues tile i's S = Q K^T together
 //    with tile i - 1's O += P V and runs tile i's softmax while that
 //    product is in flight (the dQ pass likewise overlaps tile i's S and dP
@@ -493,14 +495,19 @@ __device__ __forceinline__ Item item_at(int it, int n_blk, int hkv, int hb,
 }
 
 // Keys [k_lo, k_lo + n_tiles * tk) some row of the query block at c0 may
-// see (the last tile may run past them: masked).
-__device__ __forceinline__ void key_range(int c0, int bq, int s_len,
+// see (the last tile may run past them: masked).  k_lim is the key count
+// Sk, or min(Sq, Sk) under the causal mask: no row sees a key past the
+// last query position.  (One bound computed on the host keeps this the
+// expression of the kernel that took one length: with a second min
+// against Sk here, ptxas scheduled the forward's wgmma products slower at
+// the training shape; PERF.md section 6.)
+__device__ __forceinline__ void key_range(int c0, int bq, int k_lim,
                                           int causal, int window, int tk,
                                           int* k_lo, int* k_hi,
                                           int* n_tiles) {
   const long long lo = (long long)c0 - (long long)window + 1;
   *k_lo = lo > 0 ? (int)lo : 0;
-  *k_hi = causal ? min(c0 + bq, s_len) : s_len;
+  *k_hi = causal ? min(c0 + bq, k_lim) : k_lim;
   *n_tiles = (*k_hi - *k_lo + tk - 1) / tk;
 }
 
@@ -561,8 +568,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
-           float* __restrict__ lse, int batch, int s_len, int hq, int hkv,
-           int bq, float scale, int causal, int window, float softcap) {
+           float* __restrict__ lse, int batch, int sq, int k_lim, int hq,
+           int hkv, int bq, float scale, int causal, int window,
+           float softcap) {
   using L = FwdSmem<D>;
   constexpr int TK = kTkFwd;
   extern __shared__ unsigned char smem_raw[];
@@ -587,7 +595,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
 
   const int g_n = hq / hkv, hb = hkv * batch;
-  const int n_blk = (s_len + bq - 1) / bq, n_items = n_blk * hb;
+  const int n_blk = (sq + bq - 1) / bq, n_items = n_blk * hb;
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // ---- producer: one thread issues every load
@@ -602,7 +610,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       const Item w = item_at(it, n_blk, hkv, hb, causal);
       const int c0 = w.blk * bq;
       int k_lo, k_hi, n_tiles;
-      key_range(c0, bq, s_len, causal, window, TK, &k_lo, &k_hi, &n_tiles);
+      key_range(c0, bq, k_lim, causal, window, TK, &k_lo, &k_hi, &n_tiles);
       mbar_wait(q_empty, q_phase ^ 1);
       q_phase ^= 1;
       mbar_expect_tx(q_full, (D / 64) * g_n * bq * 128);
@@ -646,8 +654,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     const Item w = item_at(it, n_blk, hkv, hb, causal);
     const int c0 = w.blk * bq;
     int k_lo, k_hi, n_tiles;
-    key_range(c0, bq, s_len, causal, window, TK, &k_lo, &k_hi, &n_tiles);
-    const Rows rw = rows_of(r0, c0, g_n, bq, s_len);
+    key_range(c0, bq, k_lim, causal, window, TK, &k_lo, &k_hi, &n_tiles);
+    const Rows rw = rows_of(r0, c0, g_n, bq, sq);
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     float acc[D / 2];
 #pragma unroll
@@ -741,7 +749,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       if (!rw.live[hh]) continue;
       const int head = w.h * g_n + rw.r[hh] % g_n;
       const long long orow =
-          ((long long)w.b * s_len + rw.pos[hh]) * hq + head;
+          ((long long)w.b * sq + rw.pos[hh]) * hq + head;
       const float inv = 1.f / fmaxf(l[hh], 1e-30f);
 #pragma unroll
       for (int nt = 0; nt < D / 8; ++nt)
@@ -749,7 +757,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
             __floats2bfloat162_rn(acc[4 * nt + 2 * hh] * inv,
                                   acc[4 * nt + 2 * hh + 1] * inv);
       if (t4 == 0)   // m is in the log2 domain
-        lse[((long long)w.b * hq + head) * s_len + rw.pos[hh]] =
+        lse[((long long)w.b * hq + head) * sq + rw.pos[hh]] =
             (m[hh] + log2f(fmaxf(l[hh], 1e-30f))) * flash_mma::kLn2;
     }
   }
@@ -1273,7 +1281,7 @@ inline int grid_size(long long n_items) {
 
 template <int D>
 int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int batch, int s_len, int hq, int hkv,
+                 float* lse, int batch, int sq, int sk, int hq, int hkv,
                  float scale, int causal, int window, float softcap,
                  cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
@@ -1282,15 +1290,16 @@ int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return (int)e;
   const int g_n = hq / hkv, bq = kRows / g_n;
   CUtensorMap qm, km, vm;
-  if (!map_bshd(&qm, q, batch, s_len, hq, D, g_n, bq) ||
-      !map_bshd(&km, k, batch, s_len, hkv, D, 1, kTkFwd) ||
-      !map_bshd(&vm, v, batch, s_len, hkv, D, 1, kTkFwd))
+  if (!map_bshd(&qm, q, batch, sq, hq, D, g_n, bq) ||
+      !map_bshd(&km, k, batch, sk, hkv, D, 1, kTkFwd) ||
+      !map_bshd(&vm, v, batch, sk, hkv, D, 1, kTkFwd))
     return (int)cudaErrorInvalidValue;
-  const long long n_items = (long long)((s_len + bq - 1) / bq) * hkv * batch;
+  const long long n_items = (long long)((sq + bq - 1) / bq) * hkv * batch;
   if (n_items == 0) return 0;
   fwd_kernel<D><<<grid_size(n_items), kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<bf16*>(o), lse, batch, s_len, hq, hkv, bq,
-      scale, causal, window, softcap);
+      qm, km, vm, static_cast<bf16*>(o), lse, batch, sq,
+      causal ? min(sq, sk) : sk, hq, hkv, bq, scale, causal, window,
+      softcap);
   return (int)cudaGetLastError();
 }
 

@@ -5,6 +5,8 @@ the TPU kernel ``repro/kernels/attention/attention.py:
 flash_attention_pallas`` with ``csrc/flash_fwd.cu``, and
 ``flash_attention_bwd`` is its gradient, ``csrc/flash_bwd.cu`` (the JAX
 package has no backward kernel: XLA differentiates its jnp attention).
+The forward takes Sq query positions against Sk keys, as the TPU kernel
+does (a cross-attention when they differ); the backward takes Sq == Sk.
 ``FlashAttention``, a ``torch.autograd.Function``, joins the two: the
 forward saves O and the f32 row log-sum-exp, the backward recomputes the
 softmax weights from them.  What bounds them on the card: operations, at
@@ -542,20 +544,22 @@ def _flash_variant(lib: str, dtype: torch.dtype, d: int) -> str:
 
 
 def _check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lib: str) -> tuple[int, int, int, int, int]:
-    """Checks shared by the dense wrappers; returns (B, S, Hq, Hkv, D)."""
+                 lib: str) -> tuple[int, int, int, int, int, int]:
+    """Checks shared by the dense wrappers; returns (B, Sq, Sk, Hq, Hkv,
+    D): q (B, Sq, Hq, D) against k and v (B, Sk, Hkv, D)."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"q has dtype {q.dtype}; the kernel takes "
                         f"{sorted(map(str, _DTYPES))}")
     _check("q", q, q.device, q.dtype, 4)
     _check("k", k, q.device, q.dtype, 4)
     _check("v", v, q.device, q.dtype, 4)
-    b, s, hq, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s \
-            or k.shape[3] != d:
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d \
+            or sq < 1 or sk < 1:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} do not form (B, S, H, D) over "
-                         f"one sequence")
+                         f"{tuple(v.shape)} do not form (B, Sq, Hq, D) "
+                         f"against (B, Sk, Hkv, D)")
     hkv = k.shape[2]
     if hkv < 1 or hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv}")
@@ -567,31 +571,40 @@ def _check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{_limit(lib, f'{lib}_max_d')}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
-    return b, s, hq, hkv, d
+    return b, sq, sk, hq, hkv, d
 
 
 def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool, window: int | None, logit_cap: float | None
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel (``csrc/flash_fwd.cu``): (O (B, S, Hq, D) in q's
-    dtype, row log-sum-exp (B, Hq, S) f32).  Counts on
+    """The forward kernel (``csrc/flash_fwd.cu``): q (B, Sq, Hq, D)
+    against k, v (B, Sk, Hkv, D), positions from 0 on both sides ->
+    (O (B, Sq, Hq, D) in q's dtype, row log-sum-exp (B, Hq, Sq) f32).
+    Refuses a window that leaves the last query row no key (Sq - window
+    >= Sk), where the kernel's rows would have nothing to weigh.  Counts on
     ``flash_attention.launches``."""
     lib = "flash_fwd"
-    b, s, hq, hkv, d = _check_dense(q, k, v, lib)
+    b, sq, sk, hq, hkv, d = _check_dense(q, k, v, lib)
+    w = _window(window)
+    if sq - w >= sk:
+        raise ValueError(f"a window of {w} leaves query rows past "
+                         f"{sk + w - 1} no key of {sk}")
     out = torch.empty_like(q)
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                        _I, _F, _P))
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                        _I, _I, _F, _P))
     with torch.cuda.device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), b, s, hq, hkv, d,
-                 1.0 / math.sqrt(d), int(bool(causal)), _window(window),
+                 out.data_ptr(), lse.data_ptr(), b, sq, sk, hq, hkv, d,
+                 1.0 / math.sqrt(d), int(bool(causal)), w,
                  _softcap(logit_cap),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.variants[_flash_variant(lib, q.dtype, d)] += 1
+    if sq != sk:
+        flash_attention.cross_launches += 1
     return out, lse
 
 
@@ -615,7 +628,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             logit_cap=logit_cap)
         return tuple(g.transpose(1, 2) for g in grads)
     lib = "flash_bwd"
-    b, s, hq, hkv, d = _check_dense(q, k, v, lib)
+    b, s, sk, hq, hkv, d = _check_dense(q, k, v, lib)
+    if sk != s:
+        raise ValueError(_BWD_ONE_SEQUENCE.format(sq=s, sk=sk))
     _check("o", o, q.device, q.dtype, 4)
     _check("d_o", d_o, q.device, q.dtype, 4)
     _check("lse", lse, q.device, torch.float32, 3)
@@ -648,13 +663,24 @@ flash_attention_bwd.launches = 0
 flash_attention_bwd.variants = collections.Counter()
 
 
+_BWD_ONE_SEQUENCE = (
+    "the backward kernel (5b, csrc/flash_bwd.cu) takes one sequence "
+    "attending to itself, and this call has Sq {sq} != Sk {sk}: "
+    "cross-attention training on CUDA is a later slice")
+
+
 class FlashAttention(torch.autograd.Function):
     """The two dense kernels as one differentiable function of (q, k, v):
     the forward kernel saves O and the row log-sum-exp, the backward kernel
-    turns the output cotangent into (dq, dk, dv)."""
+    turns the output cotangent into (dq, dk, dv).  The backward kernel takes
+    Sq == Sk only, so a cross-attention (Sq != Sk) with any input that
+    requires a gradient raises here, before the forward runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, logit_cap):
+        if q.shape[1] != k.shape[1] and any(ctx.needs_input_grad[:3]):
+            raise ValueError(_BWD_ONE_SEQUENCE.format(sq=q.shape[1],
+                                                      sk=k.shape[1]))
         o, lse = _flash_fwd(q, k, v, causal=causal, window=window,
                             logit_cap=logit_cap)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -674,20 +700,28 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     logit_cap: float | None = None) -> torch.Tensor:
-    """Dense flash attention over one sequence (``csrc/flash_fwd.cu``,
-    differentiable through ``csrc/flash_bwd.cu``).
+    """Dense flash attention (``csrc/flash_fwd.cu``, differentiable
+    through ``csrc/flash_bwd.cu`` when Sq == Sk).
 
-    q (B, S, Hq, D), k and v (B, S, Hkv, D) contiguous, float32 or
-    bfloat16, positions 0..S-1 on both sides; scale 1/sqrt(D); optional
-    causal mask, sliding ``window`` and tanh ``logit_cap``.  Returns
-    (B, S, Hq, D) in q's dtype.  ``launches`` counts forward kernel
-    launches (a remat recompute launches again)."""
+    q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) contiguous, float32 or
+    bfloat16, positions 0..Sq-1 and 0..Sk-1; scale 1/sqrt(D); optional
+    causal mask (q_pos >= k_pos), sliding ``window`` (q_pos - k_pos <
+    window) and tanh ``logit_cap``.  Returns (B, Sq, Hq, D) in q's dtype.
+    With Sq != Sk and grad mode on, ``FlashAttention`` raises if any input
+    requires a gradient (the backward kernel takes Sq == Sk); without grad
+    mode the forward kernel runs alone.  ``launches`` counts forward kernel
+    launches (a remat recompute launches again), ``cross_launches`` those
+    with Sq != Sk."""
     if not q.is_cuda:
         from repro_torch.kernels.attention import ops
         return ops.flash_attention(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap, use_kernel=False)
+    if q.shape[1] != k.shape[1] and not torch.is_grad_enabled():
+        return _flash_fwd(q, k, v, causal=causal, window=window,
+                          logit_cap=logit_cap)[0]
     return FlashAttention.apply(q, k, v, causal, window, logit_cap)
 
 
 flash_attention.launches = 0
 flash_attention.variants = collections.Counter()
+flash_attention.cross_launches = 0   # those of them with Sq != Sk

@@ -1,5 +1,5 @@
-"""Decoder layers of the port (the GQA and MLA decoder subset of
-``repro.models.layers``), as plain functions on tensors.
+"""Layers of the port (``repro.models.layers``), as plain functions on
+tensors.
 
 Layouts follow ``repro``: activations (B, S, D), heads (B, S, H, Dh),
 weights (d_in, d_out) used as ``x @ W``.  The mesh-sharding constraints of
@@ -114,10 +114,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hq % Hkv == 0 (GQA) -> (B, Sq, Hq, Dh).
 
     ``use_kernel=None`` takes the flash kernels exactly when q is on CUDA;
-    they serve one sequence attending to itself (q_positions ==
-    k_positions == arange(S)) at the default scale 1/sqrt(Dh), and any
-    other call raises there (checking the positions reads them on the
-    host).  The plain version is ``repro``'s chunked online-softmax
+    they take q_positions == arange(Sq) and k_positions == arange(Sk) (one
+    sequence attending to itself when Sq == Sk, a cross-attention when
+    not) at the default scale 1/sqrt(Dh), and any other call raises there
+    (checking the positions reads them on the host).  The plain version is ``repro``'s chunked online-softmax
     formulation with its cast points: K/V repeated over the G query heads,
     f32 scores from the stored inputs, the finite -1e30 mask, weights
     rounded to v's dtype before the PV product, f32 accumulation, one
@@ -129,11 +129,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if use_kernel is None:
         use_kernel = q.is_cuda
     if use_kernel:
-        if not (sq == sk and _is_arange(q_positions, sq)
-                and _is_arange(k_positions, sk)):
-            raise ValueError("the flash kernels take one sequence attending "
-                             "to itself: positions must be arange(S) on "
-                             "both sides")
+        if not (_is_arange(q_positions, sq) and _is_arange(k_positions, sk)):
+            raise ValueError("the flash kernels take positions arange(Sq) "
+                             "and arange(Sk)")
         if scale is not None and scale != 1.0 / math.sqrt(dh):
             raise ValueError(f"the flash kernels use scale 1/sqrt({dh}), "
                              f"got {scale}")
@@ -162,6 +160,42 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = torch.einsum("bhqk,bhkd->bhqd", p_mat.float(), vr.float())
         outs.append(o.to(q.dtype))
     return torch.cat(outs, dim=2).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Single-token decode against a dense (non-paged) cache
+# ---------------------------------------------------------------------------
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, lengths: torch.Tensor,
+                     window: int | None = None,
+                     logit_cap: float | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """Single-token decode: q (B, 1, Hq, Dh) against a cache (B, S, Hkv, Dh)
+    of which the first ``lengths`` (B,) positions are valid.
+
+    ``repro``'s ``decode_attention`` op for op (it has no Pallas kernel
+    here either): the cache stays in its grouped (Hkv) layout, never
+    expanded over the G query heads; f32 scores from the stored inputs,
+    the finite -1e30 mask ``pos < lengths`` (and ``pos >= lengths -
+    window`` with a window), weights rounded to the cache's dtype before
+    the PV product, f32 accumulation, the result in q's dtype."""
+    b, _, hq, dh = q.shape
+    _, s, hkv, dhv = v_cache.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qr = q.reshape(b, hkv, g, dh)
+    scores = torch.einsum("bhgd,bshd->bhgs", qr.float(),
+                          k_cache.float()) * scale
+    scores = softcap(scores, logit_cap)
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, :] < lengths[:, None]                      # (B, S)
+    if window is not None:
+        mask &= pos[None, :] >= (lengths[:, None] - window)
+    scores = torch.where(mask[:, None, None, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", w.float(), v_cache.float())
+    return out.reshape(b, 1, hq, dhv).to(q.dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -349,3 +383,26 @@ def apply_mla(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
                              q_positions=positions, k_positions=positions,
                              scale=mla_scale(cfg), causal=True)
     return mla_out(p, cfg, o_lat)
+
+
+def latent_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                            c_kv: torch.Tensor, k_rope: torch.Tensor, *,
+                            lengths: torch.Tensor, scale: float
+                            ) -> torch.Tensor:
+    """Single-token decode against a shared-latent cache (absorbed MLA):
+    q_lat (B, 1, H, kv_lora), q_rope (B, 1, H, qk_rope) against head-free
+    c_kv (B, S, kv_lora), k_rope (B, S, qk_rope), the first ``lengths``
+    positions valid -> (B, 1, H, kv_lora).  ``repro``'s
+    ``latent_decode_attention``: scores in the decomposed form q_lat . c_kv
+    + q_rope . k_rope in f32, the finite -1e30 mask, weights rounded to
+    c_kv's dtype before the PV product (c_kv is also the value)."""
+    s = c_kv.shape[1]
+    scores = (torch.einsum("bqhk,bsk->bhqs", q_lat.float(), c_kv.float())
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                             k_rope.float())) * scale
+    pos = torch.arange(s, device=c_kv.device)
+    mask = pos[None, :] < lengths[:, None]                      # (B, S)
+    scores = torch.where(mask[:, None, None, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+    out = torch.einsum("bhqs,bsk->bqhk", w.float(), c_kv.float())
+    return out.to(q_lat.dtype)

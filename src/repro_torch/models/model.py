@@ -1,6 +1,8 @@
-"""Model API of the port (the decoder subset of ``repro.models.model``):
-init, forward and loss for training, paged prefill, decode and speculative
-verify for serving."""
+"""Model API of the port (``repro.models.model``): init, forward and loss
+for training, per family (decoder, encdec, ssm, hybrid); prefill and decode
+on a dense cache padded to max_seq for every family (prefill for decoder
+and encdec only, as in ``repro``); paged prefill, decode and speculative
+verify for the decoder family."""
 from __future__ import annotations
 
 from typing import Any
@@ -8,6 +10,8 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as ED
+from repro_torch.models import hybrid as HY
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as TF
 
@@ -20,15 +24,32 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     ``seed`` (same shapes and scales as ``repro.models.init_params``; the
     values differ, since the generators differ)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return TF.init_decoder(cfg, gen)
+    init = {"decoder": TF.init_decoder, "encdec": ED.init_encdec,
+            "ssm": HY.init_ssm_lm, "hybrid": HY.init_hybrid}
+    if cfg.family not in init:
+        raise ValueError(cfg.family)
+    return init[cfg.family](cfg, gen)
 
 
 def forward(params: Params, cfg: ArchConfig, batch: dict, *,
             remat: bool = True, use_kernel: bool | None = None
             ) -> torch.Tensor:
-    """batch -> logits (B, S, V) f32."""
-    return TF.forward_decoder(params, cfg, batch["tokens"], remat=remat,
-                              use_kernel=use_kernel)
+    """batch -> logits (B, S, V) f32; encdec reads ``batch["src_emb"]``
+    beside the target ``tokens``.  ``use_kernel`` picks the attention
+    lowering (the SSM LM has no attention)."""
+    tokens = batch["tokens"]
+    if cfg.family == "decoder":
+        return TF.forward_decoder(params, cfg, tokens, remat=remat,
+                                  use_kernel=use_kernel)
+    if cfg.family == "encdec":
+        return ED.forward_encdec(params, cfg, batch["src_emb"], tokens,
+                                 remat=remat, use_kernel=use_kernel)
+    if cfg.family == "ssm":
+        return HY.forward_ssm_lm(params, cfg, tokens, remat=remat)
+    if cfg.family == "hybrid":
+        return HY.forward_hybrid(params, cfg, tokens, remat=remat,
+                                 use_kernel=use_kernel)
+    raise ValueError(cfg.family)
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: dict, *,
@@ -58,6 +79,81 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict, *,
         metrics["aux"] = aux
     return loss, metrics
 
+
+# ---------------------------------------------------------------------------
+# Serving on a dense cache padded to max_seq
+# ---------------------------------------------------------------------------
+
+def cache_spec(cfg: ArchConfig, batch: int, max_seq: int, src_len: int = 0
+               ) -> dict[str, TF.LeafSpec]:
+    """Shape and dtype of each cache (or state) leaf: the decoder's K/V or
+    MLA latents, encdec's self and cross K/V (cross over ``src_len``, or
+    max_seq when 0), the SSM's conv and ssm states, and the hybrid's states
+    plus the shared block's K/V."""
+    if cfg.family == "decoder":
+        return TF.cache_spec_decoder(cfg, batch, max_seq)
+    if cfg.family == "encdec":
+        return ED.cache_spec_encdec(cfg, batch, max_seq, src_len or max_seq)
+    if cfg.family == "ssm":
+        return HY.state_spec_ssm(cfg, batch)
+    if cfg.family == "hybrid":
+        return HY.state_spec_hybrid(cfg, batch, max_seq)
+    raise ValueError(cfg.family)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, src_len: int = 0,
+               *, device: torch.device | str = "cuda") -> Params:
+    """Zeros of ``cache_spec`` on ``device``."""
+    return TF.zeros_of(cache_spec(cfg, batch, max_seq, src_len), device)
+
+
+def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                cache: Params, lengths: torch.Tensor
+                ) -> tuple[torch.Tensor, Params, torch.Tensor]:
+    """One new token per sequence: (logits (B, V), cache, lengths + 1);
+    the cache is updated IN PLACE and returned."""
+    if cfg.family == "decoder":
+        return TF.decode_step_decoder(params, cfg, tokens, cache, lengths)
+    if cfg.family == "encdec":
+        return ED.decode_step_encdec(params, cfg, tokens, cache, lengths)
+    if cfg.family == "ssm":
+        return HY.decode_step_ssm(params, cfg, tokens, cache, lengths)
+    if cfg.family == "hybrid":
+        return HY.decode_step_hybrid(params, cfg, tokens, cache, lengths)
+    raise ValueError(cfg.family)
+
+
+def prefill(params: Params, cfg: ArchConfig, batch: dict, max_seq: int, *,
+            use_kernel: bool | None = None
+            ) -> tuple[torch.Tensor, Params, torch.Tensor]:
+    """Prompt ingestion -> (last logits, cache, lengths).  encdec encodes
+    the source and fills every decoder layer's cross K/V; its target starts
+    empty (zero logits, lengths 0).  ssm and hybrid raise, as in
+    ``repro``."""
+    if cfg.family == "decoder":
+        return TF.prefill_decoder(params, cfg, batch["tokens"], max_seq,
+                                  use_kernel=use_kernel)
+    if cfg.family == "encdec":
+        enc = ED.encode(params, cfg, batch["src_emb"], use_kernel=use_kernel)
+        b, src_len = enc.shape[:2]
+        cache = init_cache(cfg, b, max_seq, src_len, device=enc.device)
+        for i in range(cfg.n_layers):
+            xattn = TF._layer(params["dec_blocks"], i)["xattn"]
+            cache["xk"][i], cache["xv"][i] = ED.cross_kv(xattn, cfg, enc)
+        lengths = torch.zeros((b,), dtype=torch.int32, device=enc.device)
+        logits = torch.zeros((b, cfg.vocab), dtype=torch.float32,
+                             device=enc.device)
+        return logits, cache, lengths
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            "ssm/hybrid prefill: use forward() for scoring and decode_step "
+            "for generation; state-returning prefill is future work")
+    raise ValueError(cfg.family)
+
+
+# ---------------------------------------------------------------------------
+# Paged serving (the decoder family)
+# ---------------------------------------------------------------------------
 
 def paged_cache_leaf_specs(cfg: ArchConfig, page_size: int
                            ) -> dict[str, TF.LeafSpec]:

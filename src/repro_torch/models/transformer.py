@@ -1,6 +1,7 @@
 """Decoder-only LM backbone (port of ``repro.models.transformer``): the
-full-sequence forward of training and the paged serving paths; GQA and MLA
-attention, dense and MoE MLPs.
+full-sequence forward of training, serving on a dense cache padded to
+max_seq (``prefill_decoder``, ``decode_step_decoder``) and the paged
+serving paths; GQA and MLA attention, dense and MoE MLPs.
 
 Parameters are a nested dict of tensors with layer-stacked blocks (leading
 L dim), as in ``repro``; the layers run as a Python loop.  Page pools are
@@ -39,8 +40,9 @@ class LeafSpec(NamedTuple):
 def _check_decoder(cfg: ArchConfig) -> None:
     if cfg.family != "decoder":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoder-only LMs so far (the "
-            f"{cfg.family} family is a later slice)")
+            f"{cfg.name}: this path is the decoder family's (got "
+            f"{cfg.family}); paged serving of the ssm, hybrid and encdec "
+            f"families is an open item in repro too")
 
 
 def _layer_windows(cfg: ArchConfig, n_layers: int) -> list[int]:
@@ -87,16 +89,20 @@ def _stack(trees: list[Params]) -> Params:
             for k, v in trees[0].items()}
 
 
+def embed_table(gen: torch.Generator, cfg: ArchConfig) -> torch.Tensor:
+    """(padded_vocab, d_model) normal embeddings of std 1/sqrt(d_model)."""
+    return (torch.randn(cfg.padded_vocab, cfg.d_model, generator=gen,
+                        device=gen.device)
+            / math.sqrt(cfg.d_model)).to(cfg.dtype)
+
+
 def init_decoder(cfg: ArchConfig, gen: torch.Generator) -> Params:
     """Random weights with ``repro``'s shapes and scales, drawn from
     ``gen`` on its device."""
     _check_decoder(cfg)
     dtype = cfg.dtype
-    embed = (torch.randn(cfg.padded_vocab, cfg.d_model, generator=gen,
-                         device=gen.device)
-             / math.sqrt(cfg.d_model)).to(dtype)
     p: Params = {
-        "embed": embed,
+        "embed": embed_table(gen, cfg),
         "blocks": _stack([init_block(gen, cfg, dtype)
                           for _ in range(cfg.n_layers)]),
         "final_norm": torch.zeros(cfg.d_model, dtype=dtype,
@@ -191,6 +197,128 @@ def forward_decoder(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         else:
             x = _block_apply(blk, cfg, x, positions, window, use_kernel)
     return _logits(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# Serving on a dense cache padded to max_seq (the non-paged path)
+# ---------------------------------------------------------------------------
+
+def cache_spec_decoder(cfg: ArchConfig, batch: int, max_seq: int
+                       ) -> dict[str, LeafSpec]:
+    """The layer-stacked dense cache: GQA "k" and "v" of (L, B, max_seq,
+    Hkv, Dh); MLA the head-free latents "c_kv" (L, B, max_seq, kv_lora)
+    and "k_rope" (L, B, max_seq, qk_rope)."""
+    _check_decoder(cfg)
+    lyr = cfg.n_layers
+    if cfg.attn == "mla":
+        m = cfg.mla
+        return {"c_kv": LeafSpec((lyr, batch, max_seq, m.kv_lora),
+                                 cfg.dtype),
+                "k_rope": LeafSpec((lyr, batch, max_seq, m.qk_rope),
+                                   cfg.dtype)}
+    shape = (lyr, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": LeafSpec(shape, cfg.dtype), "v": LeafSpec(shape, cfg.dtype)}
+
+
+def zeros_of(spec: dict[str, LeafSpec], device: torch.device | str
+             ) -> Params:
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in spec.items()}
+
+
+def init_cache_decoder(cfg: ArchConfig, batch: int, max_seq: int, *,
+                       device: torch.device | str = "cuda") -> Params:
+    return zeros_of(cache_spec_decoder(cfg, batch, max_seq), device)
+
+
+def write_at(cache_l: torch.Tensor, new: torch.Tensor,
+             lengths: torch.Tensor) -> torch.Tensor:
+    """Write each row's one new position ``new`` (B, 1, ...) into
+    ``cache_l`` (B, S, ...) at ``lengths`` (B,), IN PLACE.  A length past
+    the cache writes its last position, as ``jax.lax.dynamic_update_slice``
+    clamps its start."""
+    b, s = cache_l.shape[:2]
+    rows = torch.arange(b, device=cache_l.device)
+    cache_l[rows, torch.clamp(lengths, max=s - 1).long()] = new[:, 0]
+    return cache_l
+
+
+def prefill_decoder(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                    max_seq: int, *, use_kernel: bool | None = None
+                    ) -> tuple[torch.Tensor, Params, torch.Tensor]:
+    """Full forward over the prompts tokens (B, S) -> (last logits (B, V)
+    f32, the cache of ``cache_spec_decoder`` holding the prompts' K/V (or
+    MLA latents) at positions [0, S) and zeros to max_seq, lengths (B,)
+    int32 = S).  GQA attention is ``layers.attention`` (the flash kernel
+    on CUDA, causal over arange(S)); MLA the absorbed latent attention."""
+    _check_decoder(cfg)
+    b, s = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(s, device=x.device)
+    windows = _layer_windows(cfg, cfg.n_layers)
+    cache = init_cache_decoder(cfg, b, max_seq, device=x.device)
+    for i in range(cfg.n_layers):
+        blk = _layer(params["blocks"], i)
+        h = L.rms_norm(x, blk["ln1"])
+        if cfg.attn == "mla":
+            c_kv, k_rope = L.mla_latents(blk["attn"], cfg, h, positions)
+            cache["c_kv"][i, :, :s] = c_kv
+            cache["k_rope"][i, :, :s] = k_rope
+            a = L.apply_mla(blk["attn"], cfg, h, positions)
+        else:
+            q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
+            cache["k"][i, :, :s] = kk
+            cache["v"][i, :, :s] = v
+            o = L.attention(q, kk, v, q_positions=positions,
+                            k_positions=positions, causal=True,
+                            window=windows[i], logit_cap=cfg.softcap_attn,
+                            q_chunk=cfg.q_chunk, use_kernel=use_kernel)
+            a = o.reshape(b, s, -1) @ blk["attn"]["wo"]
+        x = _mlp_residual(blk, cfg, x, a)
+    logits = _logits(params, cfg, x[:, -1:])[:, 0]
+    lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    return logits, cache, lengths
+
+
+def decode_step_decoder(params: Params, cfg: ArchConfig,
+                        tokens: torch.Tensor, cache: Params,
+                        lengths: torch.Tensor
+                        ) -> tuple[torch.Tensor, Params, torch.Tensor]:
+    """One new token per sequence, tokens (B, 1) at positions ``lengths``
+    (B,) -> (logits (B, V) f32, the cache with the new K/V (or latents)
+    written IN PLACE at ``lengths``, lengths + 1).  Attention is
+    ``layers.decode_attention`` / ``latent_decode_attention`` over the
+    first lengths + 1 positions (torch operations: ``repro`` has no Pallas
+    kernel on this path)."""
+    _check_decoder(cfg)
+    b = tokens.shape[0]
+    x = _embed(params, cfg, tokens)                     # (B, 1, D)
+    positions = lengths[:, None]
+    windows = _layer_windows(cfg, cfg.n_layers)
+    attn_len = lengths + 1
+    for i in range(cfg.n_layers):
+        blk = _layer(params["blocks"], i)
+        h = L.rms_norm(x, blk["ln1"])
+        if cfg.attn == "mla":
+            q_lat, q_rope = L.mla_absorbed_q(blk["attn"], cfg, h, positions)
+            c_kv_new, k_rope_new = L.mla_latents(blk["attn"], cfg, h,
+                                                 positions)
+            c_kv = write_at(cache["c_kv"][i], c_kv_new, lengths)
+            k_rope = write_at(cache["k_rope"][i], k_rope_new, lengths)
+            o_lat = L.latent_decode_attention(
+                q_lat, q_rope, c_kv, k_rope, lengths=attn_len,
+                scale=L.mla_scale(cfg))
+            a = L.mla_out(blk["attn"], cfg, o_lat)
+        else:
+            q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
+            k_c = write_at(cache["k"][i], kk, lengths)
+            v_c = write_at(cache["v"][i], v, lengths)
+            o = L.decode_attention(q, k_c, v_c, lengths=attn_len,
+                                   window=windows[i],
+                                   logit_cap=cfg.softcap_attn)
+            a = o.reshape(b, 1, -1) @ blk["attn"]["wo"]
+        x = _mlp_residual(blk, cfg, x, a)
+    return _logits(params, cfg, x)[:, 0], cache, lengths + 1
 
 
 def prefill_chunk_decoder(params: Params, cfg: ArchConfig,

@@ -2,8 +2,9 @@
 PyTorch version on the same CUDA inputs (the paged GQA pair, the MLA
 latent pair, the speculative-verify entries of the two prefill kernels,
 the dense flash forward and backward, including the wgmma
-kernels' geometries, their bitwise-reproducible backward and the variant
-they take, the PACO matmul and the LCS tile), the serving engine on CUDA
+kernels' geometries, their bitwise-reproducible backward, the variant
+they take and the forward at its own key length (Sq != Sk), each model
+family's forward launching the flash forward, the PACO matmul and the LCS tile), the serving engine on CUDA
 running the kernels on every
 prefill chunk, decode tick and verify step, a train step on CUDA running the flash
 kernels, and the PACO executors launching the matmul kernel once per
@@ -627,8 +628,8 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     k = _rand(gen, 1, 8, 2, 16, dtype=torch.float32)
     with pytest.raises(TypeError):
         K.flash_attention(q.half(), k.half(), k.half())
-    with pytest.raises(ValueError):          # not (B, S, H, D) over one S
-        K.flash_attention(q, k[:, :4].contiguous(), k[:, :4].contiguous())
+    with pytest.raises(ValueError):          # k and v of other lengths
+        K.flash_attention(q, k, k[:, :4].contiguous())
     with pytest.raises(ValueError):          # heads do not group
         K.flash_attention(q[:, :, :3].contiguous(), k, k)
     with pytest.raises(ValueError):          # head_dim not a multiple of 8
@@ -643,6 +644,92 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
         from repro_torch.models import layers as L
         pos = torch.arange(8, device=cuda)
         L.attention(q, k, k, q_positions=pos + 1, k_positions=pos + 1)
+
+
+# The forward at its own key length (a cross-attention, Sq != Sk): Sq, Sk,
+# D, causal, as chip_smoke.py's kernels phase checks them, and seamless's
+# 16 heads at D 64
+OWN_KEY_LENGTH = [(256, 1024, 64, False), (1024, 256, 64, False),
+                  (300, 1000, 64, True), (512, 768, 128, False),
+                  (512, 768, 256, False), (77, 130, 16, True),
+                  (2048, 2048, 112, True)]
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_DTYPES)
+@pytest.mark.parametrize("sq,sk,d,causal", OWN_KEY_LENGTH)
+def test_flash_forward_at_its_own_key_length_matches_plain(cuda, dtype, tol,
+                                                           sq, sk, d, causal):
+    """Every forward family (bf16 wgmma at D 64 and 128, mma.sync at 256,
+    the CUDA cores at 16, 112 and in float32) with Sq != Sk, ragged on
+    both sides, causal or not: within the plain version's bound, one launch
+    of the variant the library names, bitwise the same over two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    b, hkv, g = 2, 4, 2
+    q = _rand(gen, b, sq, hkv * g, d, dtype=dtype)
+    k, v = (_rand(gen, b, sk, hkv, d, dtype=dtype) for _ in range(2))
+    name = K._flash_variant("flash_fwd", dtype, d)
+    before = K.flash_attention.variants[name]
+    with torch.no_grad():
+        o = K.flash_attention(q, k, v, causal=causal)
+        again = K.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert K.flash_attention.variants[name] == before + 2
+    assert torch.equal(o, again)
+    want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal)
+    assert _rel(o, want.transpose(1, 2)) <= tol
+
+
+def test_cross_attention_refuses_a_gradient_and_an_empty_row(cuda):
+    """Sq != Sk: any input requiring a gradient raises (the backward
+    kernel takes Sq == Sk; no fallback to the plain version), and so does
+    a window that leaves the last query rows no key."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = _rand(gen, 1, 64, 4, 64, dtype=torch.bfloat16)
+    k = _rand(gen, 1, 32, 4, 64, dtype=torch.bfloat16)
+    launches = K.flash_attention.launches
+    with pytest.raises(ValueError, match="later slice"):
+        K.flash_attention(q.requires_grad_(), k, k, causal=False)
+    with pytest.raises(ValueError, match="no key"):
+        K.flash_attention(q.detach(), k, k, causal=True, window=32)
+    K.flash_attention(q.detach(), k, k, causal=True, window=33)
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches == launches + 1
+
+
+@pytest.mark.parametrize("arch,launches", [
+    ("qwen3-0.6b", 2), ("mamba2-780m", 0), ("zamba2-7b", 1),
+    ("seamless-m4t-medium", 6)])
+def test_family_forwards_take_the_flash_kernel(cuda, arch, launches):
+    """Each family's forward on CUDA (reduced, float32) launches the flash
+    forward where ``repro`` calls attention (zamba2: the shared block once
+    a group; seamless: the encoder, the decoder's self-attention and its
+    cross-attention each layer; mamba2: none) and agrees with the plain
+    path within 1e-4; qwen3's non-paged prefill launches it each layer."""
+    from repro_torch import models as M
+
+    cfg = configs.get_arch(arch).reduced()
+    params = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 24), generator=gen,
+                                     device=cuda)}
+    if cfg.family == "encdec":
+        batch["src_emb"] = _rand(gen, 2, 40, cfg.d_model,
+                                 dtype=torch.float32)
+    with torch.no_grad():
+        n0 = K.flash_attention.launches
+        v0 = K.flash_attention.variants["cuda_cores"]
+        got = M.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        assert K.flash_attention.launches - n0 == launches
+        assert K.flash_attention.variants["cuda_cores"] - v0 == launches
+        want = M.forward(params, cfg, batch, use_kernel=False)
+        assert _err(got, want) <= 1e-4
+        if cfg.family == "decoder":
+            n0 = K.flash_attention.launches
+            lg, _, _ = M.prefill(params, cfg, batch, 32)
+            assert K.flash_attention.launches - n0 == cfg.n_layers
+            assert _err(lg, want[:, -1]) <= 1e-4
 
 
 # bf16 at D 64 and 128 takes the wgmma kernels: the training length, ragged

@@ -255,32 +255,37 @@ def _q_rows(c0, s, g, walk):
     return head[live], pos[live]
 
 
-def _key_range(c0, q_hi, s, causal, window):
-    return max(0, c0 - window + 1), (q_hi + 1 if causal else s)
+def _key_range(c0, q_hi, sk, causal, window):
+    """Keys [lo, hi) some row of the query block at c0 may see: from the
+    window's start for its first row to its last row's position under the
+    causal mask, never past the sk keys (``key_range``)."""
+    return max(0, c0 - window + 1), (min(q_hi + 1, sk) if causal else sk)
 
 
 def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None):
-    """(B, S, H, D) f32 inputs -> (O (B, S, Hq, D), lse (B, Hq, S)), by the
-    forward kernel's walk: per (query block, kv head, batch) item, key
-    tiles over the block's range, online softmax with masked keys weighing
-    0.  Each item taken is appended to ``visited``."""
-    b, s, hq, d = q.shape
-    hkv = k.shape[2]
+    """q (B, Sq, Hq, D) against k, v (B, Sk, Hkv, D), f32 -> (O (B, Sq, Hq,
+    D), lse (B, Hq, Sq)), by the forward kernel's walk: per (query block,
+    kv head, batch) item over the Sq positions, key tiles over the block's
+    range ending at Sk, online softmax with masked keys (the ragged last
+    tile's past Sk among them) weighing 0.  Each item taken is appended to
+    ``visited``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = 1 / math.sqrt(d)
     out = torch.zeros_like(q)
-    lse = torch.zeros(b, hq, s)
+    lse = torch.zeros(b, hq, sq)
     bq = walk.rows // g
-    for blk, h, bi in _items(-(-s // bq), hkv, b, walk, descending=causal):
+    for blk, h, bi in _items(-(-sq // bq), hkv, b, walk, descending=causal):
         if visited is not None:
             visited.append(("fwd", blk, h, bi))
         c0 = blk * bq
-        head, pos = _q_rows(c0, s, g, walk)
+        head, pos = _q_rows(c0, sq, g, walk)
         qr = q[bi, pos, h * g + head]                         # (R, D)
         m = torch.full((len(pos),), NEG)
         l = torch.zeros(len(pos))
         acc = torch.zeros(len(pos), d)
-        lo, hi = _key_range(c0, int(pos.max()), s, causal, window)
+        lo, hi = _key_range(c0, int(pos.max()), sk, causal, window)
         for t0 in range(lo, hi, walk.tk):
             kp = torch.arange(t0, min(t0 + walk.tk, hi))
             x, _ = _scores(qr @ k[bi, kp, h].T, scale, cap)
@@ -408,6 +413,67 @@ def test_kernel_tile_walks_match_plain(walk, g, s, kw):
     assert float((o - want_o).abs().max()) <= tol(want_o)
     for got, want in zip(grads, want_g):
         assert float((got - want).abs().max()) <= tol(want)
+
+
+@pytest.mark.parametrize("walk", [CUDA_CORES, TENSOR_CORES, WGMMA],
+                         ids=["cuda_cores", "tensor_cores", "wgmma"])
+@pytest.mark.parametrize("sq,sk", [(77, 200), (200, 77), (128, 300),
+                                   (256, 64)])
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=40),
+                                dict(causal=False, window=150,
+                                     logit_cap=30.0)])
+def test_forward_walks_at_their_own_key_length(walk, sq, sk, g, kw):
+    """The forward walks with Sq != Sk, as a cross-attention calls them:
+    query blocks over the Sq positions, key ranges ending at Sk (the
+    ragged last key tile masked there), a causal mask with Sq < Sk (keys
+    past the last query never walked) and with Sq > Sk (rows past Sk see
+    every key), windows that leave every row a key (widened by Sq - Sk
+    where Sq > Sk, as ``_flash_fwd`` requires); O and the row
+    log-sum-exp against ``ref.attention_ref`` and every item taken once."""
+    rng = np.random.default_rng(sq * 1000 + sk + g)
+    b, hkv, d = 2, 2, 16
+    q = torch.from_numpy(_rand(rng, b, sq, hkv * g, d))
+    k, v = (torch.from_numpy(_rand(rng, b, sk, hkv, d)) for _ in range(2))
+    if walk.mma:
+        q, k, v = map(_bf16, (q, k, v))
+    if "window" in kw:     # widened past Sq - Sk, as the wrapper requires
+        kw = dict(kw, window=kw["window"] + max(0, sq - sk))
+    window = kw.get("window", 2 ** 31 - 1)
+    cap = kw.get("logit_cap")
+    assert sq - window < sk
+    visited = []
+    o, lse = emulate_fwd(q, k, v, causal=kw["causal"], window=window,
+                         cap=cap, walk=walk, visited=visited)
+    assert len(set(visited)) == len(visited) == \
+        -(-sq // (walk.rows // g)) * hkv * b
+    tr = [t.transpose(1, 2) for t in (q, k, v)]
+    want_o = ref.attention_ref(*tr, **kw).transpose(1, 2)
+    x = tr[0] @ tr[1].repeat_interleave(g, 1).transpose(-1, -2) / math.sqrt(d)
+    if cap:
+        x = torch.tanh(x / cap) * cap
+    x = torch.where(_visible(torch.arange(sq), torch.arange(sk),
+                             kw["causal"], window), x, NEG)
+    want_lse = torch.logsumexp(x, -1)
+    tol = (2e-2 * max(1.0, float(want_o.abs().max())) if walk.mma
+           else 1e-5)
+    assert float((o - want_o).abs().max()) <= tol
+    assert float((lse - want_lse).abs().max()) <= (1e-4 if walk.mma
+                                                   else 1e-5)
+
+
+def test_cross_attention_refuses_a_gradient():
+    """``FlashAttention`` at Sq != Sk with an input that requires a
+    gradient raises before any kernel runs: the backward kernel (5b) takes
+    Sq == Sk only, and nothing falls back to the plain version."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(_rand(rng, 1, 8, 2, 16))
+    k, v = (torch.from_numpy(_rand(rng, 1, 24, 2, 16)) for _ in range(2))
+    for leaves in ((q.requires_grad_(), k, v), (q.detach(),
+                                                 k.requires_grad_(), v)):
+        with pytest.raises(ValueError, match="later slice"):
+            K.FlashAttention.apply(*leaves, False, None, None)
 
 
 @pytest.mark.parametrize("s,g,causal,window", [

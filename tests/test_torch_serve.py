@@ -316,9 +316,11 @@ def test_engine_rejects_what_it_does_not_serve(models):
         eng.submit(Request(uid=0, prompt=[], max_new_tokens=2))
     with pytest.raises(ValueError):
         eng.submit(Request(uid=0, prompt=[1], max_new_tokens=0))
+    # the ssm family has weights and a dense-state decode, but no paged
+    # serving (nor has repro)
+    cm = tcfg.get_arch("mamba2-780m").reduced()
     with pytest.raises(NotImplementedError):
-        tmodels.init_params(tcfg.get_arch("mamba2-780m").reduced(),
-                            device="cpu")
+        ServeEngine(tmodels.init_params(cm, device="cpu"), cm, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [{"speculate": 2}, {"fused": False}])
