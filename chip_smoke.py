@@ -40,7 +40,8 @@ Phases, in order; any failure ends the script with a nonzero exit:
    bit-exact, one launch each) (tolerances: f32 atol
    1e-4; bf16 atol 2e-2, since the two round the softmax weights at
    different points; the flash kernels relative to max(1, max |plain|),
-   FLASH_TOL).  Device times of the kernel, the plain version and one
+   FLASH_TOL, and in the rows and at Sq != Sk each gradient relative to
+   its own max |plain|).  Device times of the kernel, the plain version and one
    library call (``scaled_dot_product_attention``, on the pre-gathered
    cache for the paged kernels), each from a CUDA-graph replay of many
    calls cycling through the layers' pools (28 for qwen3, 60 for
@@ -64,15 +65,19 @@ Phases, in order; any failure ends the script with a nonzero exit:
    expanded to the 128 heads over two layers where a backend refuses
    ``enable_gqa``; the LCS row: the whole 65,536^2 table at p = 132 in
    one launch, int32 operations at 16.7 TOP/s, the row scan as its plain
-   version, no library call).  Kernel 5 at its own key length
+   version, no library call).  Kernels 5 and 5b at their own key length
    (``check_flash_own_key_length``, a generator of its own): Sq != Sk
    (256 against 1024 and 1024 against 256 at D 64, 300 against 1000
-   causal, 512 against 768 at D 128 and 256) and zamba2's D 112 (S 2048,
-   causal), f32 and bf16, against ``attention_ref`` (FLASH_TOL), bf16
-   bitwise over two calls; rows ``flash_attention_cross`` (5x:
-   seamless-m4t-medium's cross-attention, B 2, Hq 16, Sq 256, Sk 1024,
-   D 64) and ``flash_attention_d112`` (5@112: zamba2-7b's shared block,
-   B 1, Hq 32, S 2048, D 112, causal), timed with SDPA per backend.
+   causal, whose keys past 300 must get zero dK and dV, 512 against 768
+   at D 128 and 256) and zamba2's D 112 (S 2048, causal, wgmma padded to
+   128), f32 and bf16, against ``attention_ref`` and its gradient
+   (FLASH_TOL), bf16 bitwise over two calls; rows ``flash_attention_cross``
+   and ``flash_attention_bwd_cross`` (5x, 5bx: seamless-m4t-medium's
+   cross-attention, B 2, Hq 16, Sq 256, Sk 1024, D 64) and
+   ``flash_attention_d112`` and ``flash_attention_bwd_d112`` (5@112,
+   5b@112: zamba2-7b's shared block, B 1, Hq 32, S 2048, D 112, causal),
+   timed with SDPA (and its backward) per backend and, given
+   ``--parent``, the parent's kernels at D 112 in turns.
 3b. verify_kernels: the speculative-verify entries of kernels 2 and 4
    (``paged_verify``, ``paged_latent_verify``: one launch for all slots,
    each slot's start read on the device) against their plain versions in
@@ -143,8 +148,8 @@ Phases, in order; any failure ends the script with a nonzero exit:
    rule; f32 also within MODEL_ATOL).  Attention-free: no kernel.
 7e. zamba2 model: zamba2-7b at full width (81 layers in 9 groups, ~6.6 B
    parameters, bf16), B 1 x S 2048: the forward through kernel 5 at D 112
-   (9 launches, the CUDA cores) within MODEL_ATOL of the plain path, then
-   64 decode steps against it by the margin rule.
+   (9 launches, ``wgmma``) within MODEL_ATOL of the plain path, then 64
+   decode steps against it by the margin rule.
 7f. seamless model: seamless-m4t-medium at full width (bf16), B 2, 1024
    source frames, 256 target tokens: the forward through kernel 5 three
    ways (36 ``wgmma`` launches, 12 at Sq 256 against Sk 1024) within
@@ -163,6 +168,19 @@ Phases, in order; any failure ends the script with a nonzero exit:
    launch counts are zeroed just before and read just after: 2 x 28
    forward and 28 backward launches per step.  Then the parameters go
    through the port's checkpoint and back, bit for bit.
+9b. The new families' train-step parity at full width, as phase 8 (loss,
+   gradient norm and every leaf's gradient through the kernels against
+   the plain path, TRAIN_PARITY_TOL; the flash counts of one evaluation
+   with remat): seamless-m4t-medium at full depth in bf16 and float32, B 2,
+   1024 source frames, 256 target tokens (kernel 5b 36 times, 12 of them
+   the cross-attention at Sq 256 against Sk 1024; ``wgmma`` in bf16, the
+   CUDA cores in float32); zamba2-7b in bf16, B 1 x S 2048, at 2 of its 9
+   groups (``HYBRID_TRAIN_GROUPS``: full depth does not fit one card for
+   training), kernels 5 and 5b at D 112 on ``wgmma``.
+9c. ``Trainer`` on each new family, 3 steps at the same sizes
+   (mamba2-780m at B 2 x S 1024, through ``Trainer`` alone: no attention
+   kernel): every loss finite, the flash counts of the steps with remat.
+   Rows 5bx's and 5b@112's launches are seamless's and zamba2's.
 10. The paper's PACO algorithms at full size, p = the card's SM count
    (132) and the prime 131 (``paco_algorithms``): LCS of two 65,536-base
    sequences (p = 132 and 131 in tiles of 256, PO and PA), exactly the
@@ -188,6 +206,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -250,6 +269,27 @@ TRAIN_F32_DEPTH = 2    # float32 full width: logits and grads of 28 layers
 TRAIN_PARITY_TOL = {
     torch.float32: {"loss": 1e-4, "grad_norm": 1e-4, "leaf_rel": 1e-3},
     torch.bfloat16: {"loss": 0.05, "grad_norm": 0.05, "leaf_cosine": 0.98}}
+# The new families' training cells (phases 9b-9c), at full width: (batch,
+# seq, src_len), the sizes of their model phases.  seamless-m4t-medium at
+# full depth in bf16 and in float32: ~0.97 B parameters, ~12 GB of float32
+# weights and the two paths' float32 gradients, so no cut.  mamba2-780m at
+# full depth, through ``Trainer`` alone: it has no attention kernel, so a
+# kernel-against-plain parity would hold the plain path against itself.
+# zamba2-7b's 81 layers do not fit one card for training: ~6.75 B
+# parameters x (2 + 2 + 8) bytes of bf16 weights, gradients and float32
+# AdamW moments is ~81 GB before activations.  AdamW also takes a few
+# float32 temporaries of the leaf it updates, and the Mamba layers'
+# in_proj is one leaf stacked over every layer of the groups (52 M values
+# a layer): at 4 groups (36 layers, ~3.25 B parameters) that leaf's
+# temporaries are 7.5 GB each and the step ran out of the card's 80 GB.  2
+# of its 9 groups (18 layers, ~1.84 B parameters: ~22 GB of weights,
+# gradients and moments, ~3.8 GB a temporary) keep whole groups, so that
+# the shared block's gradient sums over two of them.
+ENCDEC_TRAIN = {"batch": 2, "seq": 256, "src_len": 1024}
+HYBRID_TRAIN = {"batch": 1, "seq": 2048}
+HYBRID_TRAIN_GROUPS = 2
+SSM_TRAIN = {"batch": 2, "seq": 1024}
+FAMILY_TRAIN_STEPS = 3
 # The PACO algorithms at full size (phase 10): the shapes of
 # benchmarks/bench_mm.py:53-54 and bench_lcs.py's PO and PA settings.
 PACO_MM_SHAPES = [((8192, 8192, 8192), torch.float32),
@@ -690,6 +730,14 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return max_err(got, want) / max(1.0, want.float().abs().max().item())
 
 
+def _own_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error over max |want|, with no floor: a gradient whose
+    entries all lie well below 1 (a cross-attention's dK and dV) is held
+    to its own scale, so that a kernel off by a few percent everywhere
+    fails."""
+    return max_err(got, want) / want.float().abs().max().item()
+
+
 def check_flash_small(gen: torch.Generator) -> dict[str, float]:
     """The dense flash kernels against the plain versions (``attention_ref``
     and its autograd gradient) on small geometries: G in {1, 2, 6, 8} (6
@@ -748,8 +796,8 @@ class ParentKernels:
     tile (``lcs_tile.cu``), with their headers, into
     ``build/parent_kernels/``, so that the benches time them in the same
     call as the current kernels.  Their C interfaces are the parent's: the
-    flash forward's takes one sequence length for queries and keys (the
-    current one takes Sk apart), the flash backward's, ``matmul``'s and
+    flash backward's takes one sequence length for queries and keys (the
+    current one takes Sk apart), the flash forward's, ``matmul``'s and
     paged decode's are the current ones (the decode one launch, no
     scratch); prefill's split count takes (width,
     page, start, C), latent prefill's (dtype, kv_lora, qk_rope, width,
@@ -785,10 +833,12 @@ class ParentKernels:
             if proc.returncode:
                 raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
             libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
+        self.paths = {name: str(out / f"lib{name}.so") for name in libs}
         P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
         self.fwd = libs["flash_fwd"].flash_fwd
-        self.fwd.argtypes = [I, P, P, P, P, P, I, I, I, I, I, F, I, I, F, P]
+        self.fwd.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, F, I, I, F,
+                             P]
         self.bwd = libs["flash_bwd"].flash_bwd
         self.bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                              F, I, I, F, P]
@@ -822,21 +872,26 @@ class ParentKernels:
             fn.restype = I
 
     def forward(self, q, k, v, o, lse) -> None:
-        """Causal, no window or softcap: the training shape's call."""
-        b, s, hq, d = q.shape
-        err = self.fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       o.data_ptr(), lse.data_ptr(), b, s, hq, k.shape[2], d,
+        """Causal, no window or softcap; q's dtype, Sq and Sk from the
+        shapes."""
+        b, sq, hq, d = q.shape
+        err = self.fwd(int(q.dtype == torch.bfloat16), q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       lse.data_ptr(), b, sq, k.shape[1], hq, k.shape[2], d,
                        1 / math.sqrt(d), 1, 2 ** 31 - 1, 0.0,
                        torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent flash_fwd", err)
 
     def backward(self, q, k, v, o, lse, d_o, delta, dq, dk, dv) -> None:
+        """Causal, no window or softcap, Sq == Sk (the parent's one
+        length)."""
         b, s, hq, d = q.shape
-        err = self.bwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       o.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
-                       delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                       dv.data_ptr(), b, s, hq, k.shape[2], d,
-                       1 / math.sqrt(d), 1, 2 ** 31 - 1, 0.0,
+        assert k.shape[1] == s, "the parent's backward takes Sq == Sk"
+        err = self.bwd(int(q.dtype == torch.bfloat16), q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       d_o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, hq,
+                       k.shape[2], d, 1 / math.sqrt(d), 1, 2 ** 31 - 1, 0.0,
                        torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent flash_bwd", err)
 
@@ -956,123 +1011,151 @@ class ParentKernels:
         assert err == 0, ("parent matmul", err)
 
 
-def bench_flash(cfg, gen: torch.Generator, iters: int,
+# The dense flash pair's rows, bf16: {row-name suffix: (B, Hq, Hkv, Sq, Sk,
+# D, causal)}.  The training shape of full-width qwen3-0.6b (rows 5, 5b);
+# seamless-m4t-medium's cross-attention, Sq 256 target positions against
+# Sk 1024 source frames, no mask (5x, 5bx); zamba2-7b's shared block
+# (5@112, 5b@112).
+FLASH_TRAIN_SHAPE = {"": (TRAIN_BATCH, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128,
+                          True)}
+FLASH_OWN_SHAPES = {"_cross": (2, 16, 16, 256, 1024, 64, False),
+                    "_d112": (1, 32, 32, 2048, 2048, 112, True)}
+
+
+def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
                 parent: ParentKernels | None = None) -> list[dict]:
-    """The dense flash kernels at the training shape of full-width
-    qwen3-0.6b (B 2, Hq 16, Hkv 8, S 4096, D 128, bf16, causal): checked
-    against the plain versions, the backward checked bitwise equal over two
-    calls, then timed.  Kernel times are CUDA-graph replays of ``iters``
-    calls; the plain versions and SDPA (forward, and its backward alone
-    through autograd with the graph retained) are timed eagerly with CUDA
-    events: their calls take milliseconds, so launch cost is noise.  SDPA
-    runs under each backend in turn (``sdpa_by_backend``), the fastest
-    being ``library_ms``.  The calls take turns on the card: kernels,
-    parent kernels (when ``parent`` is given), SDPA, SDPA, parent kernels,
-    kernels; each time is the mean of its two turns.  Bounds from
-    operations: the causal forward's 4 B Hq (S (S + 1) / 2) D flops, the
-    backward's 2.5 times that (the five products a gradient needs)."""
+    """The dense flash pair at each of ``shapes`` (``FLASH_TRAIN_SHAPE``,
+    ``FLASH_OWN_SHAPES``), bf16: checked against the plain versions, the
+    backward bitwise equal over two calls (O within FLASH_TOL of
+    max(1, max |plain|), each of dQ, dK and dV of its own max |plain|),
+    then timed.  Kernel times are
+    CUDA-graph replays of ``iters`` calls; the plain versions and SDPA
+    (forward, and its backward alone through autograd with the graph
+    retained) are timed eagerly with CUDA events: their calls take
+    milliseconds, so launch cost is noise.  SDPA runs under each backend in
+    turn (``sdpa_by_backend``), the fastest being ``library_ms``.  The
+    calls take turns on the card, in positions that balance: kernels,
+    parent kernels (when ``parent`` is given and its one-length backward
+    takes the shape, Sq == Sk), SDPA, parent, kernels, kernels, parent,
+    SDPA, parent, kernels; each kernel time is the mean of its four turns
+    (on an H100 the mean of two moved by up to 5% between calls), SDPA's
+    of its two.
+    Bounds: operations, the forward's 4 B Hq D flops a visible (query, key)
+    pair and the backward's 2.5 times that (the five products a gradient
+    needs), against bytes: the forward's q, k, v, o and log-sum-exp once
+    each, the backward's q, k, v, o, dO and log-sum-exp in and dq, dk, dv
+    out."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ref
 
-    dev, dtype = "cuda", torch.bfloat16
-    b, s = TRAIN_BATCH, TRAIN_SEQ
-    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v, d_o = (torch.randn(b, s, h, d, generator=gen, device=dev)
-                    .to(dtype) for h in (hq, hkv, hkv, hq))
-    o, lse = K._flash_fwd(q, k, v, causal=True, window=None, logit_cap=None)
-    grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=True)
-    again = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=True)
-    assert all(torch.equal(a, c) for a, c in zip(grads, again)), \
-        "flash_attention_bwd is not bitwise reproducible"
-    del again
-    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
-    want_o = ref.attention_ref(*tr[:3], causal=True).transpose(1, 2)
-    err_f = max_err(o, want_o)
-    del want_o
-    want_g = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr)]
-    err_b = max(_rel_err(a, w) for a, w in zip(grads, want_g))
-    del want_g
-    assert err_f <= FLASH_TOL[dtype], ("flash_attention full", err_f)
-    assert err_b <= FLASH_TOL[dtype], ("flash_attention_bwd full", err_b)
-    torch.cuda.empty_cache()
-
-    times = collections.defaultdict(list)
-
-    def kernels():
-        times["f"].append(time_ms(lambda i: K._flash_fwd(
-            q, k, v, causal=True, window=None, logit_cap=None), iters))
-        times["b"].append(time_ms(lambda i: K.flash_attention_bwd(
-            q, k, v, o, lse, d_o, causal=True), iters))
-
-    def parent_kernels():
-        if parent is None:
-            return
-        o2, lse2, delta = (torch.empty_like(o), torch.empty_like(lse),
-                           torch.empty_like(lse))
-        g2 = [torch.empty_like(t) for t in (q, k, v)]
-        times["pf"].append(time_ms(lambda i: parent.forward(
-            q, k, v, o2, lse2), iters))
-        times["pb"].append(time_ms(lambda i: parent.backward(
-            q, k, v, o, lse, d_o, delta, *g2), iters))
-
+    dtype = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for tag, (b, hq, hkv, sq, sk, d, causal) in shapes.items():
+        q, d_o = (torch.randn(b, sq, hq, d, generator=gen, device="cuda")
+                  .to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, sk, hkv, d, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        o, lse = K._flash_fwd(q, k, v, causal=causal, window=None,
+                              logit_cap=None)
+        grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=causal)
+        again = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=causal)
+        assert all(torch.equal(a, c) for a, c in zip(grads, again)), \
+            ("flash_attention_bwd is not bitwise reproducible", tag)
+        del again
+        tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+        err_f = max_err(o, ref.attention_ref(*tr[:3], causal=causal)
+                        .transpose(1, 2))
+        err_b = max(_own_rel_err(a, w.transpose(1, 2)) for a, w in zip(
+            grads, ref.attention_ref_grad(*tr, causal=causal)))
+        assert err_f <= FLASH_TOL[dtype], ("flash_attention", tag, err_f)
+        assert err_b <= FLASH_TOL[dtype], ("flash_attention_bwd", tag, err_b)
+        del grads
+        torch.cuda.empty_cache()
+        times = collections.defaultdict(list)
+        with_parent = parent is not None and sq == sk
 
-    def sdpa_fwd(gqa):
-        kk, vv = tr[1:3] if gqa else (t.repeat_interleave(hq // hkv, 1)
-                                      for t in tr[1:3])
-        return _events_loop_ms(lambda: sdpa(tr[0], kk, vv, is_causal=True,
-                                            enable_gqa=gqa), 20)
+        def kernels():
+            times["f"].append(time_ms(lambda i: K._flash_fwd(
+                q, k, v, causal=causal, window=None, logit_cap=None), iters))
+            times["b"].append(time_ms(lambda i: K.flash_attention_bwd(
+                q, k, v, o, lse, d_o, causal=causal), iters))
 
-    def sdpa_bwd(gqa):
-        qt, kt, vt = (t.detach().requires_grad_() for t in (
-            tr[0], *(tr[1:3] if gqa else (t.repeat_interleave(hq // hkv, 1)
-                                          for t in tr[1:3]))))
-        out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=gqa)
-        return _events_loop_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), tr[3], retain_graph=True), 20)
+        def parent_kernels():
+            if not with_parent:
+                return
+            o2, lse2, delta = (torch.empty_like(o), torch.empty_like(lse),
+                               torch.empty_like(lse))
+            g2 = [torch.empty_like(t) for t in (q, k, v)]
+            times["pf"].append(time_ms(lambda i: parent.forward(
+                q, k, v, o2, lse2), iters))
+            times["pb"].append(time_ms(lambda i: parent.backward(
+                q, k, v, o, lse, d_o, delta, *g2), iters))
 
-    kernels()
-    parent_kernels()
-    lib_turns = [(sdpa_by_backend(sdpa_fwd), sdpa_by_backend(sdpa_bwd))
-                 for _ in range(2)]
-    parent_kernels()
-    kernels()
-    plain_f = _events_loop_ms(lambda: ref.attention_ref(*tr[:3]), 3)
-    plain_b = _events_loop_ms(lambda: ref.attention_ref_grad(*tr), 3)
-    torch.cuda.empty_cache()
-    lib_f = _merge_sdpa([t[0] for t in lib_turns])
-    lib_b = _merge_sdpa([t[1] for t in lib_turns])
+        def kv(gqa):
+            return tr[1:3] if gqa else [t.repeat_interleave(hq // hkv, 1)
+                                        for t in tr[1:3]]
 
-    def mean(key, i):
-        return sum(t[i] for t in times[key]) / len(times[key])
+        def sdpa_fwd(gqa):
+            kk, vv = kv(gqa)
+            return _events_loop_ms(lambda: sdpa(
+                tr[0], kk, vv, is_causal=causal, enable_gqa=gqa), 20)
 
-    pairs = s * (s + 1) // 2
-    flops_f = 4 * b * hq * pairs * d
-    nbytes_f = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
-    nbytes_b = (2 * (3 * q.numel() + 2 * k.numel())       # q, o, do; k, v
-                + 4 * lse.numel()
-                + 2 * (q.numel() + 2 * k.numel()))        # dq, dk, dv
-    rows = [
-        _with_library(_row(
-            "flash_attention", "src/repro_torch/csrc/flash_fwd.cu",
-            "src/repro/kernels/attention/attention.py:72", err_f,
-            mean("f", 0), mean("f", 1), plain_f, None, nbytes_f, flops_f,
-            dtype), lib_f),
-        _with_library(_row(
-            "flash_attention_bwd", "src/repro_torch/csrc/flash_bwd.cu",
-            "src/repro/kernels/attention/attention.py:72", err_b,
-            mean("b", 0), mean("b", 1), plain_b, None, nbytes_b,
-            2.5 * flops_f, dtype), lib_b)]
-    for row, key, lib in zip(rows, ("f", "b"), ("flash_fwd", "flash_bwd")):
-        row["ms_turns"] = [t[0] for t in times[key]]
-        row["variant"] = K._flash_variant(lib, dtype, d)
-        if parent is not None:
-            row["parent_ms"] = mean("p" + key, 0)
-            row["parent_ms_turns"] = [t[0] for t in times["p" + key]]
-    rows[1]["fwd_bwd_ms"] = rows[0]["ms"] + rows[1]["ms"]
-    rows[1]["library_fwd_bwd_ms"] = (
-        None if rows[0]["library_ms"] is None or rows[1]["library_ms"] is None
-        else rows[0]["library_ms"] + rows[1]["library_ms"])
+        def sdpa_bwd(gqa):
+            leaves = [t.detach().requires_grad_() for t in (tr[0], *kv(gqa))]
+            out = sdpa(*leaves, is_causal=causal, enable_gqa=gqa)
+            return _events_loop_ms(lambda: torch.autograd.grad(
+                out, leaves, tr[3], retain_graph=True), 20)
+
+        lib = []
+        for _ in range(2):
+            kernels()
+            parent_kernels()
+            lib.append((sdpa_by_backend(sdpa_fwd), sdpa_by_backend(sdpa_bwd)))
+            parent_kernels()
+            kernels()
+        plain_f = _events_loop_ms(lambda: ref.attention_ref(
+            *tr[:3], causal=causal), 3)
+        plain_b = _events_loop_ms(lambda: ref.attention_ref_grad(
+            *tr, causal=causal), 3)
+        torch.cuda.empty_cache()
+        # visible (query, key) pairs: under the causal mask query q sees
+        # min(q + 1, Sk) keys
+        m = min(sq, sk)
+        pairs = (m * (m + 1) // 2 + (sq - m) * sk) if causal else sq * sk
+        flops = 4 * b * hq * pairs * d
+        nbytes_f = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+        nbytes_b = (2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+                    + 2 * (q.numel() + 2 * k.numel()))
+        pair = []
+        for key, name, src, err, nbytes, fl, lib_i, plain in (
+                ("f", f"flash_attention{tag}", "flash_fwd", err_f, nbytes_f,
+                 flops, 0, plain_f),
+                ("b", f"flash_attention_bwd{tag}", "flash_bwd", err_b,
+                 nbytes_b, 2.5 * flops, 1, plain_b)):
+            turns = times[key]
+            row = _with_library(_row(
+                name, f"src/repro_torch/csrc/{src}.cu",
+                "src/repro/kernels/attention/attention.py:72", err,
+                sum(t[0] for t in turns) / len(turns),
+                sum(t[1] for t in turns) / len(turns), plain, None, nbytes,
+                fl, dtype), _merge_sdpa([t[lib_i] for t in lib]))
+            row["ms_turns"] = [t[0] for t in turns]
+            row["variant"] = K._flash_variant(src, dtype, d)
+            row["shape"] = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "sk": sk,
+                            "d": d, "causal": causal}
+            if with_parent:
+                pt = times["p" + key]
+                row["parent_ms"] = sum(t[0] for t in pt) / len(pt)
+                row["parent_ms_turns"] = [t[0] for t in pt]
+            pair.append(row)
+        pair[1]["fwd_bwd_ms"] = pair[0]["ms"] + pair[1]["ms"]
+        pair[1]["library_fwd_bwd_ms"] = (
+            None if None in (pair[0]["library_ms"], pair[1]["library_ms"])
+            else pair[0]["library_ms"] + pair[1]["library_ms"])
+        rows += pair
+        del q, k, v, d_o, o, lse, tr
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2187,8 +2270,9 @@ def serve(cfg, params, rng: np.random.Generator, seed: int,
 # ---------------------------------------------------------------------------
 
 # (Sq, Sk, D, causal, Hq, Hkv, B): a cross-attention ragged on both sides
-# (seamless-m4t-medium's 16 heads at D 64, then D 128 and 256), and
-# zamba2-7b's shared block at D 112, whose bf16 runs on the CUDA cores
+# (seamless-m4t-medium's 16 heads at D 64, then D 128 and 256; 300 against
+# 1000 causal leaves keys no query sees), and zamba2-7b's shared block at
+# D 112, whose bf16 runs on wgmma padded to 128
 FLASH_SK_SHAPES = [(256, 1024, 64, False, 16, 16, 2),
                    (1024, 256, 64, False, 16, 16, 2),
                    (300, 1000, 64, True, 16, 16, 2),
@@ -2198,129 +2282,209 @@ FLASH_SK_SHAPES = [(256, 1024, 64, False, 16, 16, 2),
 
 
 def check_flash_own_key_length(gen: torch.Generator) -> dict[str, float]:
-    """The flash forward with Sq != Sk (and zamba2's D 112) against
-    ``ref.attention_ref`` in f32 and bf16, FLASH_TOL of max(1, max
-    |plain|); in bf16 bitwise the same over two calls."""
+    """The flash pair with Sq != Sk (and at zamba2's D 112) against
+    ``ref.attention_ref`` and its gradient in f32 and bf16 within
+    FLASH_TOL, O's error over max(1, max |plain|) and each of dQ, dK and
+    dV's over its own max |plain| (``_own_rel_err``); in bf16 the forward
+    and the backward bitwise the
+    same over two calls; keys no query sees get exactly zero dK and dV."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ref
 
-    worst = {"flash_attention_cross": 0.0, "flash_attention_d112": 0.0}
+    worst = {n: 0.0 for n in ("flash_attention_cross", "flash_attention_d112",
+                              "flash_attention_bwd_cross",
+                              "flash_attention_bwd_d112")}
     for dtype in (torch.float32, torch.bfloat16):
         for sq, sk, d, causal, hq, hkv, b in FLASH_SK_SHAPES:
-            q = torch.randn(b, sq, hq, d, generator=gen,
-                            device="cuda").to(dtype)
+            q, d_o = (torch.randn(b, sq, hq, d, generator=gen,
+                                  device="cuda").to(dtype) for _ in range(2))
             k, v = (torch.randn(b, sk, hkv, d, generator=gen,
                                 device="cuda").to(dtype) for _ in range(2))
-            o, _ = K._flash_fwd(q, k, v, causal=causal, window=None,
-                                logit_cap=None)
+            o, lse = K._flash_fwd(q, k, v, causal=causal, window=None,
+                                  logit_cap=None)
+            grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=causal)
+            case = (str(dtype), sq, sk, d, causal)
             if dtype == torch.bfloat16:
                 again, _ = K._flash_fwd(q, k, v, causal=causal, window=None,
                                         logit_cap=None)
                 assert torch.equal(o, again), ("flash at Sq != Sk repeat",
-                                               sq, sk, d)
-            want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2),
-                                     causal=causal).transpose(1, 2)
-            err = _rel_err(o, want)
-            case = (str(dtype), sq, sk, d, causal)
+                                               case)
+                again = K.flash_attention_bwd(q, k, v, o, lse, d_o,
+                                              causal=causal)
+                assert all(torch.equal(a, c) for a, c in zip(grads, again)), \
+                    ("flash_attention_bwd at Sq != Sk repeat", case)
+                del again
+            if causal and sq < sk:
+                assert not grads[1][:, sq:].any() and \
+                    not grads[2][:, sq:].any(), ("unseen keys", case)
+            tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+            err = _rel_err(o, ref.attention_ref(*tr[:3], causal=causal)
+                           .transpose(1, 2))
+            err_b = max(_own_rel_err(a, w.transpose(1, 2)) for a, w in zip(
+                grads, ref.attention_ref_grad(*tr, causal=causal)))
             assert err <= FLASH_TOL[dtype], ("flash_attention Sq/Sk", case,
                                              err)
-            key = "flash_attention_d112" if d == 112 else \
-                "flash_attention_cross"
-            worst[key] = max(worst[key], err)
-            del q, k, v, o, want
+            assert err_b <= FLASH_TOL[dtype], ("flash_attention_bwd Sq/Sk",
+                                               case, err_b)
+            tag = "d112" if d == 112 else "cross"
+            worst[f"flash_attention_{tag}"] = max(
+                worst[f"flash_attention_{tag}"], err)
+            worst[f"flash_attention_bwd_{tag}"] = max(
+                worst[f"flash_attention_bwd_{tag}"], err_b)
+            del q, k, v, d_o, o, lse, grads, tr
     torch.cuda.empty_cache()
     return worst
 
 
+# The flash pair beside the parent's at the training shape: this many turns
+# of each, of this many calls each (one CUDA-graph replay per turn).
+FLASH_PARENT_TURNS = 16
+FLASH_PARENT_ITERS = 50
+
+
+def _sass_by_kernel(path: str) -> dict[str, collections.Counter]:
+    """The wgmma flash kernels' SASS in a library (``cuobjdump -sass``), by
+    kernel and width ("dkv_kernel<128>"): the count of each opcode (its
+    first dotted part; WARPGROUP's first two, ARRIVE and DEPBAR apart) and
+    of all instructions ("total").  Empty where the toolkit has no
+    cuobjdump."""
+    from repro_torch.kernels.build import cuobjdump
+
+    tool = cuobjdump()
+    if tool is None:
+        return {}
+    out, key = {}, None
+    for line in subprocess.run([tool, "-sass", path], capture_output=True,
+                               text=True, check=True).stdout.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_wgmma\d+(fwd|dq|dkv)_kernelILi(\d+)E",
+                          line)
+            key = f"{m[1]}_kernel<{m[2]}>" if m else None
+            if key:
+                out[key] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if key and m:
+            parts = m[2].split(".")
+            op = ".".join(parts[:2]) if parts[0] == "WARPGROUP" else parts[0]
+            out[key][op] += 1
+            out[key]["total"] += 1
+    return out
+
+
+def flash_against_parent(parent: ParentKernels,
+                         gen: torch.Generator) -> dict:
+    """With ``--parent``: the wgmma flash kernels beside the parent's.
+    SASS: for each kernel and width both libraries hold, the opcodes whose
+    counts differ, and the counts of HGMMA, WARPGROUP.ARRIVE,
+    WARPGROUP.DEPBAR, BAR, SYNCS and all instructions.  Times: rows 5 and
+    5b at the training shape (``FLASH_TRAIN_SHAPE``), each kernel captured
+    once in a CUDA graph of FLASH_PARENT_ITERS calls, the current and the
+    parent replayed in FLASH_PARENT_TURNS adjacent pairs whose order
+    alternates; per row the median turn of each, each one's spread
+    ((max - min) / median of its turns) and the current over the parent
+    per pair (median, min, max)."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.build import LIBS
+
+    sass = {}
+    for lib in ("flash_fwd", "flash_bwd"):
+        cur = _sass_by_kernel(LIBS.get(lib)._name)
+        par = _sass_by_kernel(parent.paths[lib])
+        for name in sorted(cur.keys() & par.keys()):
+            ops = {op for op in cur[name] | par[name]
+                   if cur[name][op] != par[name][op]}
+            ops |= {"HGMMA", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "BAR",
+                    "SYNCS", "total"}
+            sass[name] = {op: [cur[name][op], par[name][op]]
+                          for op in sorted(ops)}
+    (b, hq, hkv, sq, sk, d, causal), = FLASH_TRAIN_SHAPE.values()
+    q, d_o = (torch.randn(b, sq, hq, d, generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, sk, hkv, d, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = K._flash_fwd(q, k, v, causal=causal, window=None,
+                          logit_cap=None)
+    o2, lse2, delta = (torch.empty_like(o), torch.empty_like(lse),
+                       torch.empty_like(lse))
+    g2 = [torch.empty_like(t) for t in (q, k, v)]
+    calls = {
+        "5": lambda: K._flash_fwd(q, k, v, causal=causal, window=None,
+                                  logit_cap=None),
+        "5b": lambda: K.flash_attention_bwd(q, k, v, o, lse, d_o,
+                                            causal=causal),
+        "parent 5": lambda: parent.forward(q, k, v, o2, lse2),
+        "parent 5b": lambda: parent.backward(q, k, v, o, lse, d_o, delta,
+                                             *g2)}
+    graphs = {}
+    for name, fn in calls.items():
+        for _ in range(3):
+            fn()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(FLASH_PARENT_ITERS):
+                fn()
+        graphs[name].replay()
+    turns = collections.defaultdict(list)
+    for i in range(FLASH_PARENT_TURNS):
+        for row in ("5", "5b"):
+            pair = (row, f"parent {row}")
+            for name in pair if i % 2 == 0 else pair[::-1]:
+                turns[name].append(_events_ms(graphs[name].replay,
+                                              FLASH_PARENT_ITERS))
+    del graphs
+    torch.cuda.empty_cache()
+    times = {}
+    for row in ("5", "5b"):
+        ratio = [a / p for a, p in zip(turns[row], turns[f"parent {row}"])]
+        times[row] = {"ms": float(np.median(turns[row])),
+                      "parent_ms": float(np.median(turns[f"parent {row}"])),
+                      "ratio": [float(np.median(ratio)), min(ratio),
+                                max(ratio)]}
+        for name in (row, f"parent {row}"):
+            t = turns[name]
+            times[row]["spread" if name == row else "parent_spread"] = (
+                (max(t) - min(t)) / float(np.median(t)))
+    return {"sass": sass, "times": times, "turns": FLASH_PARENT_TURNS,
+            "iters": FLASH_PARENT_ITERS}
+
+
 def check_flash_same_as_parent(parent: ParentKernels,
                                gen: torch.Generator) -> int:
-    """With ``--parent``: the forward at Sq == Sk, bf16 and causal, is
-    bitwise the parent's (O and the log-sum-exp) in every family (D 16 on
-    the CUDA cores, 64 and 128 on wgmma, 256 on mma.sync), at ragged and
-    whole lengths and G 1, 2 and 8.  Returns the cases checked."""
+    """With ``--parent``: the pair at Sq == Sk, causal, is bitwise the
+    parent's (O, the log-sum-exp, dQ, dK and dV) in every family: bf16 at
+    D 16 on the CUDA cores, 64 and 128 on wgmma, 256 on mma.sync (the
+    backward on the CUDA cores), at ragged and whole lengths and G 1, 2 and
+    8; and float32 (the CUDA cores) at D 64 and 128.  Returns the cases
+    checked."""
     from repro_torch.kernels.attention import attention as K
 
-    n = 0
-    for d, s, g in itertools.product((16, 64, 128, 256), (77, 1000, 4096),
-                                     (1, 2, 8)):
+    cases = [(torch.bfloat16, d, s, g) for d, s, g in itertools.product(
+        (16, 64, 128, 256), (77, 1000, 4096), (1, 2, 8))]
+    cases += [(torch.float32, d, s, g) for d, s, g in itertools.product(
+        (64, 128), (77, 1000), (1, 8))]
+    for dtype, d, s, g in cases:
         b, hkv = 2, 2
-        q = torch.randn(b, s, hkv * g, d, generator=gen,
-                        device="cuda").bfloat16()
+        q, d_o = (torch.randn(b, s, hkv * g, d, generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
         k, v = (torch.randn(b, s, hkv, d, generator=gen,
-                            device="cuda").bfloat16() for _ in range(2))
+                            device="cuda").to(dtype) for _ in range(2))
         o, lse = K._flash_fwd(q, k, v, causal=True, window=None,
                               logit_cap=None)
-        o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
+        grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=True)
+        o2, lse2, delta = (torch.empty_like(o), torch.empty_like(lse),
+                           torch.empty_like(lse))
         parent.forward(q, k, v, o2, lse2)
+        g2 = [torch.empty_like(t) for t in (q, k, v)]
+        parent.backward(q, k, v, o, lse, d_o, delta, *g2)
         torch.cuda.synchronize()
+        case = (str(dtype), d, s, g)
         assert torch.equal(o, o2) and torch.equal(lse, lse2), \
-            ("flash forward differs from the parent's", d, s, g)
-        n += 1
-    return n
-
-
-def bench_flash_own_key_length(gen: torch.Generator, iters: int
-                               ) -> list[dict]:
-    """Rows 5x and 5@112 of the kernels line, bf16: seamless-m4t-medium's
-    cross-attention (B 2, Hq = Hkv = 16, Sq 256 target positions against
-    Sk 1024 source frames, D 64, no mask) and zamba2-7b's shared block
-    (B 1, Hq = Hkv = 32, S 2048, D 112, causal).  Kernel times are
-    CUDA-graph replays of ``iters`` calls, in turns with SDPA under each
-    backend (kernel, SDPA, SDPA, kernel; the fastest backend is
-    ``library_ms``); the plain version is timed eagerly.  Bounds: 4 B Hq
-    Sq Sk D flops without a mask, half that causal at Sq = Sk, against
-    q, k, v, o and the log-sum-exp once each."""
-    from repro_torch.kernels.attention import attention as K
-    from repro_torch.kernels.attention import ref
-
-    dtype = torch.bfloat16
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = []
-    for name, (b, hq, hkv, sq, sk, d, causal) in (
-            ("flash_attention_cross", (2, 16, 16, 256, 1024, 64, False)),
-            ("flash_attention_d112", (1, 32, 32, 2048, 2048, 112, True))):
-        q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dtype)
-        k, v = (torch.randn(b, sk, hkv, d, generator=gen,
-                            device="cuda").to(dtype) for _ in range(2))
-        o, lse = K._flash_fwd(q, k, v, causal=causal, window=None,
-                              logit_cap=None)
-        tr = [t.transpose(1, 2) for t in (q, k, v)]
-        err = max_err(o, ref.attention_ref(*tr, causal=causal)
-                      .transpose(1, 2))
-        turns = []
-
-        def kernel():
-            turns.append(time_ms(lambda i: K._flash_fwd(
-                q, k, v, causal=causal, window=None, logit_cap=None), iters))
-
-        def sdpa_run(gqa):
-            kk, vv = tr[1:] if gqa else (t.repeat_interleave(hq // hkv, 1)
-                                         for t in tr[1:])
-            return _events_loop_ms(lambda: sdpa(tr[0], kk, vv,
-                                                is_causal=causal,
-                                                enable_gqa=gqa), 20)
-
-        kernel()
-        lib = [sdpa_by_backend(sdpa_run) for _ in range(2)]
-        kernel()
-        plain = _events_loop_ms(lambda: ref.attention_ref(*tr,
-                                                          causal=causal), 3)
-        flops = 4 * b * hq * sq * sk * d / (2 if causal else 1)
-        nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
-        row = _with_library(_row(
-            name, "src/repro_torch/csrc/flash_fwd.cu",
-            "src/repro/kernels/attention/attention.py:72", err,
-            sum(t[0] for t in turns) / 2, sum(t[1] for t in turns) / 2,
-            plain, None, nbytes, flops, dtype), _merge_sdpa(lib))
-        row["ms_turns"] = [t[0] for t in turns]
-        row["variant"] = K._flash_variant("flash_fwd", dtype, d)
-        row["shape"] = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "sk": sk,
-                        "d": d, "causal": causal}
-        rows.append(row)
-        del q, k, v, o, lse, tr
-        torch.cuda.empty_cache()
-    return rows
+            ("flash forward differs from the parent's", case)
+        assert all(torch.equal(a, c) for a, c in zip(grads, g2)), \
+            ("flash backward differs from the parent's", case)
+    return len(cases)
 
 
 # ---------------------------------------------------------------------------
@@ -2329,16 +2493,43 @@ def bench_flash_own_key_length(gen: torch.Generator, iters: int
 
 def _flash_counts_zeroed() -> None:
     from repro_torch.kernels.attention import attention as K
-    K.flash_attention.launches = 0
-    K.flash_attention.cross_launches = 0
-    K.flash_attention.variants.clear()
+    for fn in (K.flash_attention, K.flash_attention_bwd):
+        fn.launches = 0
+        fn.cross_launches = 0
+        fn.variants.clear()
 
 
-def _flash_counts() -> dict:
+def _flash_counts(bwd: bool = False) -> dict:
+    """The forward wrapper's counts, or with ``bwd`` the backward's."""
     from repro_torch.kernels.attention import attention as K
-    return {"launches": K.flash_attention.launches,
-            "cross_launches": K.flash_attention.cross_launches,
-            "variants": dict(K.flash_attention.variants)}
+    fn = K.flash_attention_bwd if bwd else K.flash_attention
+    return {"launches": fn.launches, "cross_launches": fn.cross_launches,
+            "variants": dict(fn.variants)}
+
+
+def _train_flash_counts(cfg, steps: int) -> tuple[dict, dict]:
+    """The forward's and the backward's counts ``steps`` loss-and-gradient
+    evaluations with remat make: each layer's attention launches the
+    forward twice (forward and recompute) and the backward once; the
+    encoder, the decoder's self- and cross-attention for encdec (the cross
+    ones at Sq != Sk), the shared block once a group for the hybrid,
+    nothing for the SSM; bf16 at these widths on ``wgmma``, float32 on the
+    CUDA cores."""
+    if cfg.family == "encdec":
+        per, cross = cfg.n_enc_layers + 2 * cfg.n_layers, cfg.n_layers
+    elif cfg.family == "hybrid":
+        per, cross = cfg.n_layers // cfg.attn_every, 0
+    elif cfg.family == "ssm":
+        per, cross = 0, 0
+    else:
+        per, cross = cfg.n_layers, 0
+    fam = "wgmma" if cfg.dtype == torch.bfloat16 else "cuda_cores"
+
+    def counts(n, c):
+        return {"launches": n * steps, "cross_launches": c * steps,
+                "variants": {fam: n * steps} if n else {}}
+
+    return counts(2 * per, 2 * cross), counts(per, cross)
 
 
 def nonpaged_qwen3(cfg, params, rng: np.random.Generator) -> dict:
@@ -2548,8 +2739,8 @@ def ssm_model(cfg, seed: int, rng: np.random.Generator) -> list[dict]:
 def hybrid_model(cfg, seed: int, rng: np.random.Generator) -> dict:
     """zamba2-7b at full width (81 Mamba-2 layers in 9 groups, d_model 3584,
     the shared block's 32 heads at D 112), bf16, B 1 x S 2048: the forward
-    through kernel 5 (9 launches, the shared block once a group, on the
-    CUDA cores at D 112) within MODEL_ATOL of the plain path, then 64
+    through kernel 5 (9 launches, the shared block once a group, on wgmma
+    at D 112, padded to 128) within MODEL_ATOL of the plain path, then 64
     decode steps from an empty state against the forward by the margin
     rule."""
     from repro_torch.models import forward, init_params, param_count
@@ -2567,7 +2758,7 @@ def hybrid_model(cfg, seed: int, rng: np.random.Generator) -> dict:
     counts = _flash_counts()
     n_groups = cfg.n_layers // cfg.attn_every
     assert counts["launches"] == n_groups, counts
-    assert counts["variants"] == {"cuda_cores": n_groups}, counts
+    assert counts["variants"] == {"wgmma": n_groups}, counts
     plain = forward(params, cfg, {"tokens": tokens}, use_kernel=False)
     err = max_err(full, plain)
     assert margin_agrees(plain, full.argmax(-1), tol)
@@ -2673,25 +2864,32 @@ def _loss_and_grads(params, cfg, batch, use_kernel: bool):
     return float(loss.detach()), [g.float() for g in grads]
 
 
-def train_step_parity(cfg, seed: int) -> dict:
-    """Full-width qwen3-0.6b, one loss-and-gradient evaluation at B 2 x
-    S 4096 through the flash kernels and through the plain path (the
-    port's chunked ``layers.attention`` on CUDA, ``use_kernel=False``), on
-    the same weights and batch.  Compared: the loss, the global gradient
-    norm, and each leaf's gradient (max abs error over the leaf's max |g|
-    in float32; cosine similarity in bf16, where a random-init model
-    carries each layer's rounding through 28 layers), within
-    TRAIN_PARITY_TOL."""
+def train_step_parity(cfg, seed: int, batch: int = TRAIN_BATCH,
+                      seq: int = TRAIN_SEQ, src_len: int = 0) -> dict:
+    """One loss-and-gradient evaluation at B ``batch`` x S ``seq`` (and
+    ``src_len`` source frames for encdec, drawn by the data pipeline as
+    ``launch.train`` draws them) through the flash kernels and through the
+    plain path (the port's chunked ``layers.attention`` on CUDA,
+    ``use_kernel=False``), on the same weights and batch: full-width
+    qwen3-0.6b, and the new families' training cells.  Compared: the loss,
+    the global gradient norm, and each leaf's gradient (max abs error over
+    the leaf's max |g| in float32; cosine similarity in bf16, where a
+    random-init model carries each layer's rounding through its depth),
+    within TRAIN_PARITY_TOL.  The kernel path's flash counts must be those
+    of one evaluation with remat (``_train_flash_counts``)."""
     from repro_torch.data.pipeline import DataConfig, global_batch_rowwise
     from repro_torch.models import init_params
 
     tol = TRAIN_PARITY_TOL[cfg.dtype]
     params = init_params(cfg, seed=seed, device="cuda")
-    batch = global_batch_rowwise(
-        DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                   vocab=cfg.vocab, seed=seed), 0, device="cuda")
-    loss_k, grads_k = _loss_and_grads(params, cfg, batch, True)
-    loss_p, grads_p = _loss_and_grads(params, cfg, batch, False)
+    data = global_batch_rowwise(
+        DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab,
+                   seed=seed, src_len=src_len), 0, d_model=cfg.d_model,
+        device="cuda")
+    _flash_counts_zeroed()
+    loss_k, grads_k = _loss_and_grads(params, cfg, data, True)
+    counts = (_flash_counts(), _flash_counts(bwd=True))
+    loss_p, grads_p = _loss_and_grads(params, cfg, data, False)
     norm_k = math.sqrt(sum(float(g.square().sum()) for g in grads_k))
     norm_p = math.sqrt(sum(float(g.square().sum()) for g in grads_p))
     rel, cos = [], []
@@ -2699,23 +2897,67 @@ def train_step_parity(cfg, seed: int) -> dict:
         rel.append(max_err(gk, gp) / max(float(gp.abs().max()), 1e-30))
         cos.append(float(torch.nn.functional.cosine_similarity(
             gk.flatten(), gp.flatten(), dim=0)))
-    result = {"dtype": str(cfg.dtype), "layers": cfg.n_layers,
-              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "loss_kernel": loss_k,
+    result = {"arch": cfg.name, "dtype": str(cfg.dtype),
+              "layers": cfg.n_layers, "batch": batch, "seq": seq,
+              "src_len": src_len, "loss_kernel": loss_k,
               "loss_plain": loss_p, "loss_abs_err": abs(loss_k - loss_p),
               "grad_norm_kernel": norm_k, "grad_norm_plain": norm_p,
               "grad_norm_rel_err": abs(norm_k - norm_p) / norm_p,
               "leaf_rel_err_max": max(rel), "leaf_cosine_min": min(cos),
-              "leaves": len(rel), "tol": tol}
+              "leaves": len(rel), "tol": tol,
+              "flash": {"forward": counts[0], "backward": counts[1]}}
     log(f"[train-parity] kernel path vs plain path: {json.dumps(result)}")
     del params, grads_k, grads_p
     torch.cuda.empty_cache()
     assert math.isfinite(loss_k) and math.isfinite(norm_k), result
+    assert counts == _train_flash_counts(cfg, 1), result
     assert result["loss_abs_err"] <= tol["loss"], result
     assert result["grad_norm_rel_err"] <= tol["grad_norm"], result
     if "leaf_rel" in tol:
         assert result["leaf_rel_err_max"] <= tol["leaf_rel"], result
     else:
         assert result["leaf_cosine_min"] >= tol["leaf_cosine"], result
+    return result
+
+
+def train_family(cfg, seed: int, smi: str, batch: int, seq: int,
+                 src_len: int = 0) -> dict:
+    """``Trainer`` (the code ``launch.train`` runs) on a new family's
+    training cell: FAMILY_TRAIN_STEPS steps at B ``batch`` x S ``seq`` (and
+    ``src_len`` source frames), remat on, AdamW with the launcher's
+    defaults.  Every step's loss finite; the flash kernels' counts zeroed
+    just before and read just after, those of the steps with remat
+    (``_train_flash_counts``)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import param_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    dcfg = DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab,
+                      seed=seed, src_len=src_len)
+    tcfg = TrainConfig(opt=AdamWConfig(total_steps=FAMILY_TRAIN_STEPS))
+    trainer = Trainer(cfg, tcfg, dcfg, log_every=1, device="cuda")
+    params, state = trainer.init(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _flash_counts_zeroed()
+    params, state, history = trainer.run(FAMILY_TRAIN_STEPS, params=params,
+                                         state=state)
+    torch.cuda.synchronize()
+    counts = (_flash_counts(), _flash_counts(bwd=True))
+    result = {"arch": cfg.name, "layers": cfg.n_layers, "dtype":
+              str(cfg.dtype), "params": param_count(params), "batch": batch,
+              "seq": seq, "src_len": src_len, "steps": FAMILY_TRAIN_STEPS,
+              "loss": [h["loss"] for h in history],
+              "step_time_s": [h["step_time_s"] for h in history],
+              "grad_norm": [h["grad_norm"] for h in history],
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "flash": {"forward": counts[0], "backward": counts[1]}}
+    log(f"[train-family] {json.dumps(result)}; card: {smi}")
+    del params, state, trainer
+    torch.cuda.empty_cache()
+    assert all(math.isfinite(x) for x in result["loss"]), result
+    assert counts == _train_flash_counts(cfg, FAMILY_TRAIN_STEPS), result
     return result
 
 
@@ -3433,18 +3675,23 @@ def main() -> int:
             f"max err {worst}")
         rows = bench_kernels(cfg, gen, ITERS, parent)
         rows += bench_latent_kernels(cfg_ds, gen, ITERS, parent)
-        rows += bench_flash(cfg, gen, FLASH_ITERS, parent)
+        rows += bench_flash(FLASH_TRAIN_SHAPE, gen, FLASH_ITERS, parent)
         rows += bench_paco_kernels(gen, ITERS, parent)
-        # kernel 5 at its own key length and at D 112, from a generator of
-        # their own (the draws of the checks above stay as they were)
+        # kernels 5 and 5b at their own key length and at D 112, from a
+        # generator of their own (the draws of the checks above stay as
+        # they were)
         gen_sk = torch.Generator(device="cuda").manual_seed(args.seed + 1)
         worst_sk = check_flash_own_key_length(gen_sk)
-        log(f"[kernels] flash forward at Sq != Sk and D 112 ok: max err "
+        log(f"[kernels] flash pair at Sq != Sk and D 112 ok: max err "
             f"{worst_sk}")
         if parent is not None:
-            log(f"[kernels] flash forward at Sq == Sk bitwise the parent's "
+            log(f"[kernels] flash pair at Sq == Sk bitwise the parent's "
                 f"in {check_flash_same_as_parent(parent, gen_sk)} cases")
-        rows += bench_flash_own_key_length(gen_sk, FLASH_ITERS)
+        rows += bench_flash(FLASH_OWN_SHAPES, gen_sk, FLASH_ITERS, parent)
+        if parent is not None:
+            log("[parent] flash pair against the parent's: " + json.dumps(
+                flash_against_parent(parent, torch.Generator(
+                    device="cuda").manual_seed(args.seed + 2))))
     with phase("verify_kernels"):
         verify_rows, verify_worst = bench_verify_kernels(gen, ITERS)
         log(f"[verify] both entries against their plain versions: max err "
@@ -3664,6 +3911,30 @@ def main() -> int:
         result = train(cfg, args.seed, smi)
         launches.update(result["launches"])
     torch.cuda.empty_cache()
+
+    # 9b. the new families' train-step parity at full width: seamless (bf16
+    # and float32, full depth; its cross-attention through kernel 5b at
+    # Sq != Sk), zamba2 (bf16, 2 of its 9 groups; 5 and 5b at D 112)
+    seamless = get_arch("seamless-m4t-medium")
+    zamba2 = get_arch("zamba2-7b")
+    zamba2 = dataclasses.replace(
+        zamba2, n_layers=HYBRID_TRAIN_GROUPS * zamba2.attn_every)
+    with phase("seamless train-step parity"):
+        for dtype in ("bfloat16", "float32"):
+            train_step_parity(dataclasses.replace(seamless, param_dtype=dtype),
+                              args.seed, **ENCDEC_TRAIN)
+    with phase("zamba2 train-step parity"):
+        train_step_parity(zamba2, args.seed, **HYBRID_TRAIN)
+
+    # 9c. Trainer steps on each new family
+    with phase("family train"):
+        result = train_family(seamless, args.seed, smi, **ENCDEC_TRAIN)
+        launches["flash_attention_bwd_cross"] = \
+            result["flash"]["backward"]["cross_launches"]
+        result = train_family(zamba2, args.seed, smi, **HYBRID_TRAIN)
+        launches["flash_attention_bwd_d112"] = \
+            result["flash"]["backward"]["launches"]
+        train_family(get_arch("mamba2-780m"), args.seed, smi, **SSM_TRAIN)
 
     # 10. the paper's PACO algorithms at full size, through the matmul and
     # LCS kernels

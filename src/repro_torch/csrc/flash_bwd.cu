@@ -12,13 +12,16 @@
 //   softcap: dS_raw = dS * (1 - (S / cap)^2)
 //   dQ      = scale * dS K,             dK = scale * dS^T Q
 //
-// q, o, do (B, S, Hq, D) and k, v (B, S, Hkv, D) in the model's layout,
-// lse (B, Hq, S) f32 from the forward; delta (B, Hq, S) f32 scratch;
-// dq (B, S, Hq, D), dk, dv (B, S, Hkv, D) in q's type.
+// q, o, do (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D) in the model's layout
+// (Sq query positions against Sk keys, both from 0, as in the forward; a
+// cross-attention when they differ), lse (B, Hq, Sq) f32 from the forward;
+// delta (B, Hq, Sq) f32 scratch; dq (B, Sq, Hq, D), dk, dv (B, Sk, Hkv, D)
+// in q's type.  A key that no query sees (past Sq under the causal mask, or
+// out of every window) gets zero dK and dV.
 //
 // Three launches, no atomics, so every sum has a fixed order and the
 // result does not vary between runs:
-//  1. delta_kernel: Delta, one warp per (position, head) row;
+//  1. delta_kernel: Delta, one warp per (query position, head) row;
 //  2. dq pass: one CTA per (q block, kv head, batch element) over the G
 //     query heads of the kv head, walking the keys its rows may see, like
 //     the forward, and accumulating dQ in registers;
@@ -36,8 +39,9 @@
 // deterministic dQ.  bf16 with D 64 or 128 runs the two passes on wgmma
 // with TMA loads, a producer warp and a persistent grid (dq_kernel and
 // dkv_kernel in flash_wgmma.cuh: 128 query rows per CTA over 64-key
-// tiles, 128 keys per CTA over 64-query tiles); float32 and other widths
-// on CUDA cores (below), bound by shared-memory traffic.
+// tiles, 128 keys per CTA over 64-query tiles); bf16 with D 112 runs them
+// padded to 128 (flash_wgmma.cuh says how); float32 and other widths on
+// CUDA cores (below), bound by shared-memory traffic.
 // Both walk only the tiles the masks leave, and mask the ragged last
 // tile.
 
@@ -53,11 +57,12 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kRows = kWarps * kRowsPerWarp;  // q rows (dq) / keys (dk, dv)
 constexpr int kTk = 32;                       // keys (dq) / queries per tile
 
-// Delta = rowsum(dO * O) in f32, one warp per (batch, position, head) row.
+// Delta = rowsum(dO * O) in f32, one warp per (batch, query position,
+// head) row of the Sq positions.
 template <typename T>
 __global__ void delta_kernel(const T* __restrict__ o,
                              const T* __restrict__ d_o,
-                             float* __restrict__ delta, int rows, int s_len,
+                             float* __restrict__ delta, int rows, int sq,
                              int hq, int d) {
   const int row = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -70,10 +75,10 @@ __global__ void delta_kernel(const T* __restrict__ o,
   acc = warp_sum(acc);
   if (lane == 0) {
     const int head = row % hq;
-    const long long bs = row / hq;  // b * S + pos
-    const long long b = bs / s_len;
-    const int pos = (int)(bs - b * s_len);
-    delta[(b * hq + head) * s_len + pos] = acc;
+    const long long bs = row / hq;  // b * Sq + pos
+    const long long b = bs / sq;
+    const int pos = (int)(bs - b * sq);
+    delta[(b * hq + head) * sq + pos] = acc;
   }
 }
 
@@ -127,14 +132,14 @@ size_t dq_smem_bytes(int d) {
 }
 
 // Pass 2: dQ.  Rows as in the forward: row r is head h * G + r / bq at
-// position c0 + r % bq.
+// position c0 + r % bq of the sq; the keys range over the sk.
 template <typename T, int DL>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ d_o,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq,
-                int s_len, int hq, int hkv, int d, int bq, float scale,
+                const float* __restrict__ delta, T* __restrict__ dq, int sq,
+                int sk, int hq, int hkv, int d, int bq, float scale,
                 int causal, int window, float softcap) {
   const int qb = blockIdx.x;
   const int h = blockIdx.y;
@@ -158,9 +163,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int dd = i - r * d;
     const int pos = c0 + r % bq;
     float x = 0.f, y = 0.f;
-    if (r < rows && pos < s_len) {
+    if (r < rows && pos < sq) {
       const long long off =
-          (((long long)b * s_len + pos) * hq + h * g_n + r / bq) * d + dd;
+          (((long long)b * sq + pos) * hq + h * g_n + r / bq) * d + dd;
       x = to_f32(q[off]);
       y = to_f32(d_o[off]);
     }
@@ -175,20 +180,20 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int r = warp * kRowsPerWarp + j;
     q_pos[j] = c0 + r % bq;
-    const bool live = r < rows && q_pos[j] < s_len;
+    const bool live = r < rows && q_pos[j] < sq;
     const long long li =
-        ((long long)b * hq + h * g_n + r / bq) * s_len + q_pos[j];
+        ((long long)b * hq + h * g_n + r / bq) * sq + q_pos[j];
     lse_r[j] = live ? lse[li] : 0.f;
     delta_r[j] = live ? delta[li] : 0.f;
 #pragma unroll
     for (int e = 0; e < DL; ++e) acc[j][e] = 0.f;
   }
 
-  const int q_hi = min(c0 + bq, s_len) - 1;
+  const int q_hi = min(c0 + bq, sq) - 1;
   const long long k_lo64 = (long long)c0 - (long long)window + 1;
   const int k_lo = k_lo64 > 0 ? (int)k_lo64 : 0;
-  const int k_hi = causal ? q_hi + 1 : s_len;
-  const long long kv_base = (long long)b * s_len * hkv + h;
+  const int k_hi = causal ? min(q_hi + 1, sk) : sk;
+  const long long kv_base = (long long)b * sk * hkv + h;
 
   for (int t0 = k_lo; t0 < k_hi; t0 += kTk) {
     const int n = min(kTk, k_hi - t0);
@@ -250,9 +255,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int r = warp * kRowsPerWarp + j;
-    if (r >= rows || q_pos[j] >= s_len) continue;
+    if (r >= rows || q_pos[j] >= sq) continue;
     const long long orow =
-        ((long long)b * s_len + q_pos[j]) * hq + h * g_n + r / bq;
+        ((long long)b * sq + q_pos[j]) * hq + h * g_n + r / bq;
 #pragma unroll
     for (int e = 0; e < DL; ++e) {
       const int dd = lane + 32 * e;
@@ -266,16 +271,17 @@ size_t dkv_smem_bytes(int d) {
                           2 * (size_t)kRows * kTk + 2 * (size_t)kTk);
 }
 
-// Pass 3: dK and dV for kRows keys [k0, k0 + kRows) of kv head h; warp w
-// owns keys k0 + 8w .. k0 + 8w + 7, and the lanes take the queries of a
-// tile (scores) or head_dim (accumulation).
+// Pass 3: dK and dV for kRows keys [k0, k0 + kRows) of the sk of kv head
+// h; warp w owns keys k0 + 8w .. k0 + 8w + 7, and the lanes take the
+// queries of a tile (scores) or head_dim (accumulation).  A block no query
+// sees walks no tile and stores zeros.
 template <typename T, int DL>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ d_o,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int s_len, int hq, int hkv, int d,
+                 T* __restrict__ dv, int sq, int sk, int hq, int hkv, int d,
                  float scale, int causal, int window, float softcap) {
   const int kb = blockIdx.x;
   const int h = blockIdx.y;
@@ -285,7 +291,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
   const int g_n = hq / hkv;
   const int k0 = kb * kRows;
-  const int n_keys = min(kRows, s_len - k0);
+  const int n_keys = min(kRows, sk - k0);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* k_s = reinterpret_cast<float*>(smem_raw);  // kRows * D
@@ -297,7 +303,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* lse_s = ds_s + kRows * kTk;                // kTk
   float* delta_s = lse_s + kTk;                     // kTk
 
-  const long long kv_base = (long long)b * s_len * hkv + h;
+  const long long kv_base = (long long)b * sk * hkv + h;
   stage_rows<T>(k, k_s, kv_base, k0, n_keys, hkv, d, d, kRows);
   stage_rows<T>(v, v_s, kv_base, k0, n_keys, hkv, d, d, kRows);
 
@@ -307,17 +313,18 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < DL; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
-  // Queries that may see some key of the block: [q_lo, q_hi).
+  // Queries that may see some key of the block: [q_lo, q_hi), none when
+  // q_hi <= q_lo.
   const int k_last = k0 + n_keys - 1;
   const int q_lo = causal ? k0 : 0;
   const long long q_hi64 = (long long)k_last + (long long)window;
-  const int q_hi = q_hi64 < s_len ? (int)q_hi64 : s_len;
+  const int q_hi = q_hi64 < sq ? (int)q_hi64 : sq;
 
   for (int g = 0; g < g_n; ++g) {
     const int head = h * g_n + g;
-    const long long q_base = (long long)b * s_len * hq + head;
-    const float* lse_h = lse + ((long long)b * hq + head) * s_len;
-    const float* delta_h = delta + ((long long)b * hq + head) * s_len;
+    const long long q_base = (long long)b * sq * hq + head;
+    const float* lse_h = lse + ((long long)b * hq + head) * sq;
+    const float* delta_h = delta + ((long long)b * hq + head) * sq;
     for (int t0 = q_lo; t0 < q_hi; t0 += kTk) {
       const int n = min(kTk, q_hi - t0);
       __syncthreads();  // the previous tile's readers are done
@@ -408,20 +415,20 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch_delta(const void* o, const void* d_o, float* delta, int batch,
-                 int s_len, int hq, int d, cudaStream_t stream) {
-  const int rows = batch * s_len * hq;
+                 int sq, int hq, int d, cudaStream_t stream) {
+  const int rows = batch * sq * hq;
   constexpr int kWarpsPerBlock = 8;
   delta_kernel<T><<<(rows + kWarpsPerBlock - 1) / kWarpsPerBlock,
                     32 * kWarpsPerBlock, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(d_o), delta, rows,
-      s_len, hq, d);
+      sq, hq, d);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DL>
 int launch_cuda_cores(const void* q, const void* k, const void* v,
                       const void* d_o, const float* lse, const float* delta,
-                      void* dq, void* dk, void* dv, int batch, int s_len,
+                      void* dq, void* dk, void* dv, int batch, int sq, int sk,
                       int hq, int hkv, int d, float scale, int causal,
                       int window, float softcap, cudaStream_t stream) {
   static size_t opted_dq = 48 * 1024, opted_dkv = 48 * 1024;
@@ -431,17 +438,17 @@ int launch_cuda_cores(const void* q, const void* k, const void* v,
   e = allow_smem(flash_dkv_kernel<T, DL>, smem_dkv, &opted_dkv);
   if (e != cudaSuccess) return (int)e;
   const int bq = kRows / (hq / hkv);
-  const dim3 grid_q((s_len + bq - 1) / bq, hkv, batch);
+  const dim3 grid_q((sq + bq - 1) / bq, hkv, batch);
   flash_dq_kernel<T, DL><<<grid_q, kThreads, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(d_o), lse, delta,
-      static_cast<T*>(dq), s_len, hq, hkv, d, bq, scale, causal, window,
+      static_cast<T*>(dq), sq, sk, hq, hkv, d, bq, scale, causal, window,
       softcap);
-  const dim3 grid_k((s_len + kRows - 1) / kRows, hkv, batch);
+  const dim3 grid_k((sk + kRows - 1) / kRows, hkv, batch);
   flash_dkv_kernel<T, DL><<<grid_k, kThreads, smem_dkv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(d_o), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), s_len, hq, hkv, d, scale,
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, hq, hkv, d, scale,
       causal, window, softcap);
   return (int)cudaGetLastError();
 }
@@ -449,14 +456,14 @@ int launch_cuda_cores(const void* q, const void* k, const void* v,
 template <typename T>
 int launch_type(const void* q, const void* k, const void* v,
                 const void* d_o, const float* lse, const float* delta,
-                void* dq, void* dk, void* dv, int batch, int s_len, int hq,
-                int hkv, int d, float scale, int causal, int window,
+                void* dq, void* dk, void* dv, int batch, int sq, int sk,
+                int hq, int hkv, int d, float scale, int causal, int window,
                 float softcap, cudaStream_t stream) {
 #define REPRO_FLASH_DL(N)                                                  \
   if (d <= 32 * N)                                                         \
     return launch_cuda_cores<T, N>(q, k, v, d_o, lse, delta, dq, dk, dv,   \
-                                   batch, s_len, hq, hkv, d, scale, causal, \
-                                   window, softcap, stream);
+                                   batch, sq, sk, hq, hkv, d, scale,       \
+                                   causal, window, softcap, stream);
   REPRO_FLASH_DL(1)
   REPRO_FLASH_DL(2)
   REPRO_FLASH_DL(4)
@@ -481,44 +488,42 @@ int flash_bwd_variant(int dtype, int d) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, o, d_o as in the forward
-// (contiguous, the model's layout); lse (B, Hq, S) f32 from the forward;
-// delta (B, Hq, S) f32 scratch.  Writes dq, dk, dv in q's type.  Returns
-// cudaGetLastError().
+// (contiguous, the model's layout): sq query and sk key positions per batch
+// element, both >= 1, and a window that leaves the last query row a key
+// (sq - window < sk), as flash_fwd takes them; lse (B, Hq, Sq) f32 from
+// the forward; delta (B, Hq, Sq) f32 scratch.  Writes dq, dk, dv in q's
+// type.  Returns cudaGetLastError().
 int flash_bwd(int dtype, const void* q, const void* k, const void* v,
               const void* o, const void* d_o, const void* lse, void* delta,
-              void* dq, void* dk, void* dv, int batch, int s_len, int hq,
+              void* dq, void* dk, void* dv, int batch, int sq, int sk, int hq,
               int hkv, int d, float scale, int causal, int window,
               float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);
   if (d <= 0 || d % 8 || d > 256 || hkv <= 0 || hq % hkv ||
-      hq / hkv > kRows)
+      hq / hkv > kRows || sq < 1 || sk < 1 ||
+      (long long)sq - (long long)window >= (long long)sk)
     return (int)cudaErrorInvalidValue;
   int err;
   if (dtype == 0) {
-    err = launch_delta<float>(o, d_o, delta_f, batch, s_len, hq, d, st);
+    err = launch_delta<float>(o, d_o, delta_f, batch, sq, hq, d, st);
     if (err) return err;
     return launch_type<float>(q, k, v, d_o, lse_f, delta_f, dq, dk, dv,
-                              batch, s_len, hq, hkv, d, scale, causal,
+                              batch, sq, sk, hq, hkv, d, scale, causal,
                               window, softcap, st);
   }
   if (dtype == 1) {
-    err = launch_delta<__nv_bfloat16>(o, d_o, delta_f, batch, s_len, hq, d,
-                                      st);
+    err = launch_delta<__nv_bfloat16>(o, d_o, delta_f, batch, sq, hq, d, st);
     if (err) return err;
-    if (d == 64)
-      return flash_wgmma::launch_bwd_d<64>(q, k, v, d_o, lse_f, delta_f, dq,
-                                           dk, dv, batch, s_len, hq, hkv,
-                                           scale, causal, window, softcap,
-                                           st);
-    if (d == 128)
-      return flash_wgmma::launch_bwd_d<128>(q, k, v, d_o, lse_f, delta_f, dq,
-                                            dk, dv, batch, s_len, hq, hkv,
-                                            scale, causal, window, softcap,
-                                            st);
+    if (flash_wgmma::takes(d))
+      return flash_wgmma::dispatch_d(d, [&](auto dt) {
+        return flash_wgmma::launch_bwd_d<decltype(dt)::value>(
+            q, k, v, d_o, lse_f, delta_f, dq, dk, dv, batch, sq, sk, hq,
+            hkv, scale, causal, window, softcap, st);
+      }, (int)cudaErrorInvalidValue);
     return launch_type<__nv_bfloat16>(q, k, v, d_o, lse_f, delta_f, dq, dk,
-                                      dv, batch, s_len, hq, hkv, d, scale,
+                                      dv, batch, sq, sk, hq, hkv, d, scale,
                                       causal, window, softcap, st);
   }
   return (int)cudaErrorInvalidValue;

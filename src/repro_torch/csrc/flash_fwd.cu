@@ -8,7 +8,7 @@
 // optional causal mask q_pos >= k_pos, an optional sliding window
 // q_pos - k_pos < window and an optional tanh softcap, scale 1 / sqrt(D).
 // Besides O it writes the f32 row log-sum-exp of the (capped) scores, which
-// the backward (flash_bwd.cu, Sq == Sk only) needs.
+// the backward (flash_bwd.cu) needs.
 //
 // q   (B, Sq, Hq, D)   the model's layout, float32 or bfloat16
 // k,v (B, Sk, Hkv, D)
@@ -30,11 +30,12 @@
 //    window's start for its first row to its last row's position under the
 //    causal mask (or to Sk), so wholly masked tiles are never loaded; the
 //    ragged last tile (any Sk) is masked key by key;
-//  * bf16 with D 64 or 128 runs on wgmma with TMA loads, a producer warp
-//    and a persistent grid (fwd_kernel in flash_wgmma.cuh: 128 query rows
-//    per CTA, 128-key tiles); bf16 with D 256 on mma.sync m16n8k16
-//    (fwd_kernel in flash_mma.cuh); both with f32 accumulation and the
-//    softmax in the log2 domain.  float32 and other widths run the
+//  * bf16 with D 64, 112 or 128 runs on wgmma with TMA loads, a producer
+//    warp and a persistent grid (fwd_kernel in flash_wgmma.cuh: 128 query
+//    rows per CTA, 128-key tiles; D 112 padded to 128 in shared memory,
+//    its last 16 columns zero-filled by TMA); bf16 with D 256 on mma.sync
+//    m16n8k16 (fwd_kernel in flash_mma.cuh); both with f32 accumulation
+//    and the softmax in the log2 domain.  float32 and other widths run the
 //    products on CUDA cores (flash_fwd_kernel below), bound by
 //    shared-memory traffic.
 //
@@ -289,14 +290,12 @@ int flash_fwd(int dtype, const void* q, const void* k, const void* v,
     return launch_type<float>(q, k, v, o, lse_f, batch, sq, sk, hq, hkv, d,
                               scale, causal, window, softcap, st);
   if (dtype == 1) {
-    if (d == 64)
-      return flash_wgmma::launch_fwd_d<64>(q, k, v, o, lse_f, batch, sq, sk,
-                                           hq, hkv, scale, causal, window,
-                                           softcap, st);
-    if (d == 128)
-      return flash_wgmma::launch_fwd_d<128>(q, k, v, o, lse_f, batch, sq, sk,
-                                            hq, hkv, scale, causal, window,
-                                            softcap, st);
+    if (flash_wgmma::takes(d))
+      return flash_wgmma::dispatch_d(d, [&](auto dt) {
+        return flash_wgmma::launch_fwd_d<decltype(dt)::value>(
+            q, k, v, o, lse_f, batch, sq, sk, hq, hkv, scale, causal,
+            window, softcap, st);
+      }, (int)cudaErrorInvalidValue);
     if (d == 256)
       return flash_mma::launch_fwd_d<256>(q, k, v, o, lse_f, batch, sq, sk,
                                           hq, hkv, scale, causal, window,

@@ -1,11 +1,13 @@
-// Dense flash attention for Hopper: the bf16 forward and backward at D 64
-// and 128 on wgmma, with TMA loads, a producer warp and a persistent grid.
+// Dense flash attention for Hopper: the bf16 forward and backward at D 64,
+// 112 and 128 on wgmma, with TMA loads, a producer warp and a persistent
+// grid.
 //
 // Replaces src/repro/kernels/attention/attention.py:72
 // flash_attention_pallas (fwd_kernel), and for the backward its gradient
 // (dq_kernel and dkv_kernel: the JAX package has no backward kernel, XLA
 // differentiates its jnp attention).  flash_fwd.cu and flash_bwd.cu give
-// the function, the layouts and the masks.
+// the function, the layouts and the masks.  Both take Sq query positions
+// against Sk keys (a cross-attention when they differ).
 //
 // What bounds them: operations.  The causal forward does
 // 4 B Hq S (S + 1) / 2 D flops: 137 GFLOP at the training shape (B 2,
@@ -35,10 +37,19 @@
 //    position c0 + r / G); a G that does not divide 128 leaves rows
 //    unused.  The 128-byte swizzle caps a box at 64 columns, so a D-128
 //    row comes in two boxes, stored as two column blocks;
-//  * TMA zero-fills rows past Sq (queries) or Sk (keys: the forward's K
-//    and V maps span Sk rows a batch element, which a cross-attention
-//    sets apart from Sq), so the ragged last tile needs no predicated
-//    loads (the mask still applies);
+//  * D 112 (zamba2's shared block) runs the D-128 kernels padded: the
+//    tensor maps keep the tensor's 112 columns (a 224-byte row, a
+//    multiple of 16), so the second 64-column box of Q, K, V and dO comes
+//    with columns 112-127 zero-filled by TMA.  Zero columns add nothing to
+//    Q K^T, dO V^T or the products that sum over D, and every layout,
+//    descriptor and expected byte count stays the D-128 one (TMA counts a
+//    box's zero-filled bytes, as it does for rows past S).  The epilogues
+//    store the 112 true columns at a 112-element row stride.  It costs
+//    128 / 112 = 1.14 times the products the true width needs;
+//  * TMA zero-fills rows past Sq (queries) or Sk (keys: the K and V maps
+//    span Sk rows a batch element, which a cross-attention sets apart from
+//    Sq), so the ragged last tile needs no predicated loads (the mask
+//    still applies);
 //  * within a warpgroup, the forward issues tile i's S = Q K^T together
 //    with tile i - 1's O += P V and runs tile i's softmax while that
 //    product is in flight (the dQ pass likewise overlaps tile i's S and dP
@@ -61,12 +72,17 @@
 // heads and the 64-query tiles that see them (S^T = K Q^T, dP^T = V dO^T,
 // dV += P^T dO, dK += dS^T Q), so dK and dV sum over the G heads in
 // registers.  Its producer warp also copies each query tile's 64 floats of
-// log-sum-exp and Delta into the stage with plain loads (zero past S):
+// log-sum-exp and Delta into the stage with plain loads (zero past Sq):
 // a 1-D TMA box of them would start at an address that is not 16-byte
-// aligned for most S, and ran past the array at its end.
+// aligned for most Sq, and ran past the array at its end.  A key block
+// that no query sees (past Sq under the causal mask, or out of every
+// window, where Sq < Sk) is an item with no query tile: neither side
+// touches its K/V stage, and its dK and dV rows are stored as zeros.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and the types of cuTensorMapEncodeTiled
+
+#include <type_traits>
 
 #include "flash_mma.cuh"
 
@@ -87,7 +103,28 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 // A wait this long (about ten seconds) is a fault: trap, do not hang.
 constexpr long long kHangCycles = 1ll << 34;
 
-inline bool takes(int d) { return d == 64 || d == 128; }
+// Calls f(std::integral_constant<int, D>{}) for a head_dim D the kernels
+// take (64, 112 and 128: the one list of them) and returns what f returns;
+// `otherwise` for any other d.
+template <class F>
+int dispatch_d(int d, F&& f, int otherwise) {
+  switch (d) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+  }
+  return otherwise;
+}
+
+inline bool takes(int d) {
+  return dispatch_d(d, [](auto) { return 1; }, 0);
+}
+
+// The width a kernel for the true head_dim DT lays out and multiplies in
+// shared memory: whole 64-column boxes (112 -> 128).
+__host__ __device__ constexpr int padded(int dt) {
+  return (dt + 63) / 64 * 64;
+}
 
 // ---------------------------------------------------------------------------
 // mbarriers, TMA, wgmma
@@ -511,14 +548,19 @@ __device__ __forceinline__ void key_range(int c0, int bq, int k_lim,
   *n_tiles = (*k_hi - *k_lo + tk - 1) / tk;
 }
 
-// Queries [q_lo, q_hi) that may see some key of the block at k0.
-__device__ __forceinline__ void query_range(int k0, int s_len, int causal,
-                                            int window, int* q_lo,
-                                            int* q_hi) {
-  const int k_last = min(k0 + kRows, s_len) - 1;
+// Queries [q_lo, q_hi) of the sq that may see some key of the block at
+// k0 (of sk keys), and the 64-query tiles over them: none when the block
+// lies past every query's keys (q_hi <= q_lo: past Sq under the causal
+// mask, or beyond every window, where Sq < Sk).
+__device__ __forceinline__ void query_range(int k0, int sq, int sk,
+                                            int causal, int window,
+                                            int* q_lo, int* q_hi,
+                                            int* n_tiles) {
+  const int k_last = min(k0 + kRows, sk) - 1;
   const long long hi = (long long)k_last + (long long)window;
   *q_lo = causal ? k0 : 0;
-  *q_hi = hi < s_len ? (int)hi : s_len;
+  *q_hi = hi < sq ? (int)hi : sq;
+  *n_tiles = *q_hi > *q_lo ? (*q_hi - *q_lo + kTqDkv - 1) / kTqDkv : 0;
 }
 
 __device__ __forceinline__ uint32_t aligned_smem_base(const void* raw) {
@@ -534,13 +576,13 @@ struct Rows {
 };
 
 __device__ __forceinline__ Rows rows_of(int r0, int c0, int g_n, int bq,
-                                        int s_len) {
+                                        int sq) {
   Rows w;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     w.r[hh] = r0 + 8 * hh;
     w.pos[hh] = c0 + w.r[hh] / g_n;
-    w.live[hh] = w.r[hh] < g_n * bq && w.pos[hh] < s_len;
+    w.live[hh] = w.r[hh] < g_n * bq && w.pos[hh] < sq;
   }
   // the positions of the warp's 16 rows (unused rows only widen them)
   w.p_min = __reduce_min_sync(0xffffffffu, min(w.pos[0], w.pos[1]));
@@ -563,7 +605,9 @@ struct FwdSmem {
   static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages) + 1024;
 };
 
-template <int D>
+// DT: the tensors' head_dim; D = padded(DT) in shared memory and in the
+// products.
+template <int DT>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap k_map,
@@ -571,6 +615,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
            float* __restrict__ lse, int batch, int sq, int k_lim, int hq,
            int hkv, int bq, float scale, int causal, int window,
            float softcap) {
+  constexpr int D = padded(DT);
   using L = FwdSmem<D>;
   constexpr int TK = kTkFwd;
   extern __shared__ unsigned char smem_raw[];
@@ -752,8 +797,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
           ((long long)w.b * sq + rw.pos[hh]) * hq + head;
       const float inv = 1.f / fmaxf(l[hh], 1e-30f);
 #pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-        *reinterpret_cast<__nv_bfloat162*>(o + orow * D + nt * 8 + 2 * t4) =
+      for (int nt = 0; nt < DT / 8; ++nt)   // the true columns only
+        *reinterpret_cast<__nv_bfloat162*>(o + orow * DT + nt * 8 + 2 * t4) =
             __floats2bfloat162_rn(acc[4 * nt + 2 * hh] * inv,
                                   acc[4 * nt + 2 * hh + 1] * inv);
       if (t4 == 0)   // m is in the log2 domain
@@ -783,15 +828,18 @@ struct DqSmem {
   static constexpr int kBytes = kBar + 8 * (2 + 4 * kDqStages) + 1024;
 };
 
-template <int D>
+// sq query positions; k_lim as in key_range (Sk, or min(Sq, Sk) causal).
+template <int DT>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap q_map,
           const __grid_constant__ CUtensorMap g_map,
           const __grid_constant__ CUtensorMap k_map,
           const __grid_constant__ CUtensorMap v_map,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          bf16* __restrict__ dq, int batch, int s_len, int hq, int hkv,
-          int bq, float scale, int causal, int window, float softcap) {
+          bf16* __restrict__ dq, int batch, int sq, int k_lim, int hq,
+          int hkv, int bq, float scale, int causal, int window,
+          float softcap) {
+  constexpr int D = padded(DT);
   using L = DqSmem<D>;
   constexpr int TK = kTkDq;
   extern __shared__ unsigned char smem_raw[];
@@ -816,7 +864,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
 
   const int g_n = hq / hkv, hb = hkv * batch;
-  const int n_blk = (s_len + bq - 1) / bq, n_items = n_blk * hb;
+  const int n_blk = (sq + bq - 1) / bq, n_items = n_blk * hb;
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     regs_dealloc<kProducerRegs>();
@@ -831,7 +879,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
       const Item w = item_at(it, n_blk, hkv, hb, causal);
       const int c0 = w.blk * bq;
       int k_lo, k_hi, n_tiles;
-      key_range(c0, bq, s_len, causal, window, TK, &k_lo, &k_hi, &n_tiles);
+      key_range(c0, bq, k_lim, causal, window, TK, &k_lo, &k_hi, &n_tiles);
       mbar_wait(q_empty, q_phase ^ 1);
       q_phase ^= 1;
       mbar_expect_tx(q_full, 2 * (D / 64) * g_n * bq * 128);
@@ -877,13 +925,13 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
     const Item w = item_at(it, n_blk, hkv, hb, causal);
     const int c0 = w.blk * bq;
     int k_lo, k_hi, n_tiles;
-    key_range(c0, bq, s_len, causal, window, TK, &k_lo, &k_hi, &n_tiles);
-    const Rows rw = rows_of(r0, c0, g_n, bq, s_len);
+    key_range(c0, bq, k_lim, causal, window, TK, &k_lo, &k_hi, &n_tiles);
+    const Rows rw = rows_of(r0, c0, g_n, bq, sq);
     float lse2[2], dl[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const long long li =
-          ((long long)w.b * hq + w.h * g_n + rw.r[hh] % g_n) * s_len +
+          ((long long)w.b * hq + w.h * g_n + rw.r[hh] % g_n) * sq +
           rw.pos[hh];
       lse2[hh] = rw.live[hh] ? lse[li] * flash_mma::kLog2e : 0.f;
       dl[hh] = rw.live[hh] ? delta[li] : 0.f;
@@ -970,11 +1018,11 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (!rw.live[hh]) continue;
-      const long long orow = ((long long)w.b * s_len + rw.pos[hh]) * hq +
+      const long long orow = ((long long)w.b * sq + rw.pos[hh]) * hq +
                              w.h * g_n + rw.r[hh] % g_n;
 #pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-        *reinterpret_cast<__nv_bfloat162*>(dq + orow * D + nt * 8 + 2 * t4) =
+      for (int nt = 0; nt < DT / 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(dq + orow * DT + nt * 8 + 2 * t4) =
             __floats2bfloat162_rn(acc[4 * nt + 2 * hh] * scale,
                                   acc[4 * nt + 2 * hh + 1] * scale);
     }
@@ -1003,16 +1051,18 @@ struct DkvSmem {
   static constexpr int kBytes = kBar + 8 * (2 + 2 * kDkvStages) + 1024;
 };
 
-template <int D>
+// sq query positions against sk keys.
+template <int DT>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_kernel(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap g_map,
            const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap v_map,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           bf16* __restrict__ dk, bf16* __restrict__ dv, int batch,
-           int s_len, int hq, int hkv, float scale, int causal, int window,
+           bf16* __restrict__ dk, bf16* __restrict__ dv, int batch, int sq,
+           int sk, int hq, int hkv, float scale, int causal, int window,
            float softcap) {
+  constexpr int D = padded(DT);
   using L = DkvSmem<D>;
   constexpr int TQ = kTqDkv;
   extern __shared__ unsigned char smem_raw[];
@@ -1031,12 +1081,12 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
 
   const int g_n = hq / hkv, hb = hkv * batch;
-  const int n_blk = (s_len + kRows - 1) / kRows, n_items = n_blk * hb;
+  const int n_blk = (sk + kRows - 1) / kRows, n_items = n_blk * hb;
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // ---- producer: one warp.  Lane 0 issues the TMA loads of the tiles;
     // every lane copies its share of the tile's log-sum-exp and Delta (64
-    // floats each, zero past S), then arrives on the stage's full barrier.
+    // floats each, zero past Sq), then arrives on the stage's full barrier.
     regs_dealloc<kProducerRegs>();
     if (threadIdx.x >= kConsumers * 128 + 32) return;
     const int lane = threadIdx.x & 31;
@@ -1052,9 +1102,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map,
       // causal: the first key blocks see the most queries
       const Item w = item_at(it, n_blk, hkv, hb, !causal);
       const int k0 = w.blk * kRows;
-      int q_lo, q_hi;
-      query_range(k0, s_len, causal, window, &q_lo, &q_hi);
-      const int n_qt = (q_hi - q_lo + TQ - 1) / TQ;
+      int q_lo, q_hi, n_qt;
+      query_range(k0, sq, sk, causal, window, &q_lo, &q_hi, &n_qt);
+      if (n_qt == 0) continue;   // no query sees these keys: no K/V stage
       if (lane == 0) {
         mbar_wait(kv_empty, kv_phase ^ 1);
         mbar_expect_tx(kv_full, 2 * kRows * D * 2);
@@ -1073,11 +1123,11 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         const uint32_t st = base + L::kStages0 + stage * L::kStage;
         const uint32_t bar = full + 8 * stage;
         // this lane's log-sum-exp and Delta, loaded before the wait
-        const long long row = ((long long)w.b * hq + head) * s_len;
+        const long long row = ((long long)w.b * hq + head) * sq;
         float lse_r[TQ / 32], delta_r[TQ / 32];
 #pragma unroll
         for (int c = 0; c < TQ / 32; ++c) {
-          const bool ok = t0 + lane + 32 * c < s_len;
+          const bool ok = t0 + lane + 32 * c < sq;
           lse_r[c] = ok ? lse[row + t0 + lane + 32 * c] : 0.f;
           delta_r[c] = ok ? delta[row + t0 + lane + 32 * c] : 0.f;
         }
@@ -1120,23 +1170,24 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
     const Item w = item_at(it, n_blk, hkv, hb, !causal);
     const int k0 = w.blk * kRows;
-    int q_lo, q_hi;
-    query_range(k0, s_len, causal, window, &q_lo, &q_hi);
-    const int n_qt = (q_hi - q_lo + TQ - 1) / TQ;
+    int q_lo, q_hi, n_qt;
+    query_range(k0, sq, sk, causal, window, &q_lo, &q_hi, &n_qt);
     int kp[2];
     bool key_ok[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       kp[hh] = k0 + row0 + (lane >> 2) + 8 * hh;
-      key_ok[hh] = kp[hh] < s_len;
+      key_ok[hh] = kp[hh] < sk;
     }
     const int k_min = k0 + row0, k_max = k_min + 15;
-    const bool warp_keys_ok = k_max < s_len;
+    const bool warp_keys_ok = k_max < sk;
     float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-    mbar_wait(kv_full, kv_phase);
-    kv_phase ^= 1;
+    if (n_qt > 0) {   // else the producer loaded nothing: store zeros
+      mbar_wait(kv_full, kv_phase);
+      kv_phase ^= 1;
+    }
     const int n_tiles = g_n * n_qt;
     for (int j = 0; j < n_tiles; ++j) {
       const int gi = j / n_qt;
@@ -1185,18 +1236,18 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
 
-    const long long kv_base = (long long)w.b * s_len * hkv + w.h;
+    const long long kv_base = (long long)w.b * sk * hkv + w.h;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (!key_ok[hh]) continue;
       const long long orow = kv_base + (long long)kp[hh] * hkv;
 #pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
+      for (int nt = 0; nt < DT / 8; ++nt) {
         const int col = nt * 8 + 2 * t4;
-        *reinterpret_cast<__nv_bfloat162*>(dk + orow * D + col) =
+        *reinterpret_cast<__nv_bfloat162*>(dk + orow * DT + col) =
             __floats2bfloat162_rn(dk_acc[4 * nt + 2 * hh] * scale,
                                   dk_acc[4 * nt + 2 * hh + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + orow * D + col) =
+        *reinterpret_cast<__nv_bfloat162*>(dv + orow * DT + col) =
             __floats2bfloat162_rn(dv_acc[4 * nt + 2 * hh],
                                   dv_acc[4 * nt + 2 * hh + 1]);
       }
@@ -1279,68 +1330,74 @@ inline int grid_size(long long n_items) {
   return (int)(n_items < sms ? n_items : (sms > 0 ? sms : 1));
 }
 
-template <int D>
+// DT: the tensors' head_dim (64, 112 or 128); the maps span its columns,
+// so a padded kernel's last box is zero-filled past them.
+template <int DT>
 int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
                  float* lse, int batch, int sq, int sk, int hq, int hkv,
                  float scale, int causal, int window, float softcap,
                  cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
-  const size_t smem = FwdSmem<D>::kBytes;
-  const cudaError_t e = allow_smem(fwd_kernel<D>, smem, &opted_in);
+  const size_t smem = FwdSmem<padded(DT)>::kBytes;
+  const cudaError_t e = allow_smem(fwd_kernel<DT>, smem, &opted_in);
   if (e != cudaSuccess) return (int)e;
   const int g_n = hq / hkv, bq = kRows / g_n;
   CUtensorMap qm, km, vm;
-  if (!map_bshd(&qm, q, batch, sq, hq, D, g_n, bq) ||
-      !map_bshd(&km, k, batch, sk, hkv, D, 1, kTkFwd) ||
-      !map_bshd(&vm, v, batch, sk, hkv, D, 1, kTkFwd))
+  if (!map_bshd(&qm, q, batch, sq, hq, DT, g_n, bq) ||
+      !map_bshd(&km, k, batch, sk, hkv, DT, 1, kTkFwd) ||
+      !map_bshd(&vm, v, batch, sk, hkv, DT, 1, kTkFwd))
     return (int)cudaErrorInvalidValue;
   const long long n_items = (long long)((sq + bq - 1) / bq) * hkv * batch;
   if (n_items == 0) return 0;
-  fwd_kernel<D><<<grid_size(n_items), kThreads, smem, stream>>>(
+  fwd_kernel<DT><<<grid_size(n_items), kThreads, smem, stream>>>(
       qm, km, vm, static_cast<bf16*>(o), lse, batch, sq,
       causal ? min(sq, sk) : sk, hq, hkv, bq, scale, causal, window,
       softcap);
   return (int)cudaGetLastError();
 }
 
-// The two passes; Delta (B, Hq, S) f32 is already in `delta`.
-template <int D>
+// The two passes, sq query positions against sk keys; Delta (B, Hq, Sq)
+// f32 is already in `delta`.  The dQ pass takes the forward's key bound
+// (Sk, or min(Sq, Sk) causal), the dK/dV pass ceil(Sk / 128) key blocks.
+template <int DT>
 int launch_bwd_d(const void* q, const void* k, const void* v,
                  const void* d_o, const float* lse, const float* delta,
-                 void* dq, void* dk, void* dv, int batch, int s_len, int hq,
-                 int hkv, float scale, int causal, int window, float softcap,
-                 cudaStream_t stream) {
+                 void* dq, void* dk, void* dv, int batch, int sq, int sk,
+                 int hq, int hkv, float scale, int causal, int window,
+                 float softcap, cudaStream_t stream) {
+  constexpr int D = padded(DT);
   static size_t opted_dq = 48 * 1024, opted_dkv = 48 * 1024;
   const size_t smem_dq = DqSmem<D>::kBytes, smem_dkv = DkvSmem<D>::kBytes;
-  cudaError_t e = allow_smem(dq_kernel<D>, smem_dq, &opted_dq);
+  cudaError_t e = allow_smem(dq_kernel<DT>, smem_dq, &opted_dq);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(dkv_kernel<D>, smem_dkv, &opted_dkv);
+  e = allow_smem(dkv_kernel<DT>, smem_dkv, &opted_dkv);
   if (e != cudaSuccess) return (int)e;
   const int g_n = hq / hkv, bq = kRows / g_n;
   CUtensorMap qm, gm, km, vm;
-  if (!map_bshd(&qm, q, batch, s_len, hq, D, g_n, bq) ||
-      !map_bshd(&gm, d_o, batch, s_len, hq, D, g_n, bq) ||
-      !map_bshd(&km, k, batch, s_len, hkv, D, 1, kTkDq) ||
-      !map_bshd(&vm, v, batch, s_len, hkv, D, 1, kTkDq))
+  if (!map_bshd(&qm, q, batch, sq, hq, DT, g_n, bq) ||
+      !map_bshd(&gm, d_o, batch, sq, hq, DT, g_n, bq) ||
+      !map_bshd(&km, k, batch, sk, hkv, DT, 1, kTkDq) ||
+      !map_bshd(&vm, v, batch, sk, hkv, DT, 1, kTkDq))
     return (int)cudaErrorInvalidValue;
-  const long long n_q = (long long)((s_len + bq - 1) / bq) * hkv * batch;
+  const long long n_q = (long long)((sq + bq - 1) / bq) * hkv * batch;
   if (n_q == 0) return 0;
-  dq_kernel<D><<<grid_size(n_q), kThreads, smem_dq, stream>>>(
-      qm, gm, km, vm, lse, delta, static_cast<bf16*>(dq), batch, s_len, hq,
-      hkv, bq, scale, causal, window, softcap);
+  dq_kernel<DT><<<grid_size(n_q), kThreads, smem_dq, stream>>>(
+      qm, gm, km, vm, lse, delta, static_cast<bf16*>(dq), batch, sq,
+      causal ? min(sq, sk) : sk, hq, hkv, bq, scale, causal, window,
+      softcap);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   CUtensorMap qt, gt, kb, vb;
-  if (!map_bshd(&qt, q, batch, s_len, hq, D, 1, kTqDkv) ||
-      !map_bshd(&gt, d_o, batch, s_len, hq, D, 1, kTqDkv) ||
-      !map_bshd(&kb, k, batch, s_len, hkv, D, 1, kRows) ||
-      !map_bshd(&vb, v, batch, s_len, hkv, D, 1, kRows))
+  if (!map_bshd(&qt, q, batch, sq, hq, DT, 1, kTqDkv) ||
+      !map_bshd(&gt, d_o, batch, sq, hq, DT, 1, kTqDkv) ||
+      !map_bshd(&kb, k, batch, sk, hkv, DT, 1, kRows) ||
+      !map_bshd(&vb, v, batch, sk, hkv, DT, 1, kRows))
     return (int)cudaErrorInvalidValue;
-  const long long n_k = (long long)((s_len + kRows - 1) / kRows) * hkv * batch;
-  dkv_kernel<D><<<grid_size(n_k), kThreads, smem_dkv, stream>>>(
+  const long long n_k = (long long)((sk + kRows - 1) / kRows) * hkv * batch;
+  dkv_kernel<DT><<<grid_size(n_k), kThreads, smem_dkv, stream>>>(
       qt, gt, kb, vb, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv),
-      batch, s_len, hq, hkv, scale, causal, window, softcap);
+      static_cast<bf16*>(dv), batch, sq, sk, hq, hkv, scale, causal, window,
+      softcap);
   return (int)cudaGetLastError();
 }
 

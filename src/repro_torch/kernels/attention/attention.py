@@ -5,17 +5,17 @@ the TPU kernel ``repro/kernels/attention/attention.py:
 flash_attention_pallas`` with ``csrc/flash_fwd.cu``, and
 ``flash_attention_bwd`` is its gradient, ``csrc/flash_bwd.cu`` (the JAX
 package has no backward kernel: XLA differentiates its jnp attention).
-The forward takes Sq query positions against Sk keys, as the TPU kernel
-does (a cross-attention when they differ); the backward takes Sq == Sk.
-``FlashAttention``, a ``torch.autograd.Function``, joins the two: the
-forward saves O and the f32 row log-sum-exp, the backward recomputes the
-softmax weights from them.  What bounds them on the card: operations, at
-989 TFLOP/s bf16.  The causal forward does 4 B Hq S^2 D / 2 flops (0.139
-ms at B 2, Hq 16, S 4096, D 128); the backward does 3.5 times that, since
-it recomputes two products to keep dQ free of atomics.  Their design
-against that bound: bf16 at D 64 and 128 runs every product on ``wgmma``
-with TMA loads, a producer warp and a persistent grid
-(``csrc/flash_wgmma.cuh``), bf16 at D 256 on ``mma.sync``
+Both take Sq query positions against Sk keys, as the TPU kernel does (a
+cross-attention when they differ).  ``FlashAttention``, a
+``torch.autograd.Function``, joins the two: the forward saves O and the f32
+row log-sum-exp, the backward recomputes the softmax weights from them.
+What bounds them on the card: operations, at 989 TFLOP/s bf16.  The
+causal forward does 4 B Hq S^2 D / 2 flops (0.139 ms at B 2, Hq 16, S
+4096, D 128); the backward does 3.5 times that, since it recomputes two
+products to keep dQ free of atomics.  Their design
+against that bound: bf16 at D 64, 112 (padded to 128 in shared memory) and
+128 runs every product on ``wgmma`` with TMA loads, a producer warp and a
+persistent grid (``csrc/flash_wgmma.cuh``), bf16 at D 256 on ``mma.sync``
 (``csrc/flash_mma.cuh``); each K/V tile is shared by the G query heads of
 its kv head, and only the tiles the causal and window masks leave are
 walked (each source's header says more).  Besides ``launches``, each of
@@ -574,6 +574,17 @@ def _check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, sq, sk, hq, hkv, d
 
 
+def _check_window(window: int | None, sq: int, sk: int) -> int:
+    """The kernels' window argument; refuses one that leaves the last query
+    row no key (Sq - window >= Sk), where a row would have nothing to
+    weigh."""
+    w = _window(window)
+    if sq - w >= sk:
+        raise ValueError(f"a window of {w} leaves query rows past "
+                         f"{sk + w - 1} no key of {sk}")
+    return w
+
+
 def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool, window: int | None, logit_cap: float | None
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -585,10 +596,7 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention.launches``."""
     lib = "flash_fwd"
     b, sq, sk, hq, hkv, d = _check_dense(q, k, v, lib)
-    w = _window(window)
-    if sq - w >= sk:
-        raise ValueError(f"a window of {w} leaves query rows past "
-                         f"{sk + w - 1} no key of {sk}")
+    w = _check_window(window, sq, sk)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
@@ -616,10 +624,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradient of dense flash attention (``csrc/flash_bwd.cu``).
 
-    q, o, d_o (B, S, Hq, D) and k, v (B, S, Hkv, D) contiguous; lse
-    (B, Hq, S) f32 from the forward kernel.  Returns (dq, dk, dv) in q's
-    dtype and layouts.  On the CPU it takes the plain gradient
-    (``ref.attention_ref_grad``), which needs neither o nor lse."""
+    q, o, d_o (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D) contiguous, positions
+    from 0 on both sides as in the forward; lse (B, Hq, Sq) f32 from the
+    forward kernel.  Returns (dq, dk, dv) in q's dtype and layouts; a key
+    that no query sees gets zero dk and dv.  Refuses what ``_flash_fwd``
+    refuses.  Counts its launches in ``launches``, by kernel family in
+    ``variants``, and those with Sq != Sk in ``cross_launches``.  On the CPU
+    it takes the plain gradient (``ref.attention_ref_grad``), which needs
+    neither o nor lse."""
     if not q.is_cuda:
         from repro_torch.kernels.attention import ref
         grads = ref.attention_ref_grad(
@@ -628,14 +640,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             logit_cap=logit_cap)
         return tuple(g.transpose(1, 2) for g in grads)
     lib = "flash_bwd"
-    b, s, sk, hq, hkv, d = _check_dense(q, k, v, lib)
-    if sk != s:
-        raise ValueError(_BWD_ONE_SEQUENCE.format(sq=s, sk=sk))
+    b, sq, sk, hq, hkv, d = _check_dense(q, k, v, lib)
+    w = _check_window(window, sq, sk)
     _check("o", o, q.device, q.dtype, 4)
     _check("d_o", d_o, q.device, q.dtype, 4)
     _check("lse", lse, q.device, torch.float32, 3)
     if o.shape != q.shape or d_o.shape != q.shape \
-            or tuple(lse.shape) != (b, hq, s):
+            or tuple(lse.shape) != (b, hq, sq):
         raise ValueError(f"o {tuple(o.shape)}, d_o {tuple(d_o.shape)} and "
                          f"lse {tuple(lse.shape)} do not match q "
                          f"{tuple(q.shape)}")
@@ -644,43 +655,35 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                        _I, _I, _I, _F, _I, _I, _F, _P))
+                        _I, _I, _I, _I, _F, _I, _I, _F, _P))
     with torch.cuda.device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, s, hq, hkv, d, 1.0 / math.sqrt(d),
-                 int(bool(causal)), _window(window), _softcap(logit_cap),
+                 dv.data_ptr(), b, sq, sk, hq, hkv, d, 1.0 / math.sqrt(d),
+                 int(bool(causal)), w, _softcap(logit_cap),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.variants[_flash_variant(lib, q.dtype, d)] += 1
+    if sq != sk:
+        flash_attention_bwd.cross_launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.variants = collections.Counter()
-
-
-_BWD_ONE_SEQUENCE = (
-    "the backward kernel (5b, csrc/flash_bwd.cu) takes one sequence "
-    "attending to itself, and this call has Sq {sq} != Sk {sk}: "
-    "cross-attention training on CUDA is a later slice")
+flash_attention_bwd.cross_launches = 0   # those of them with Sq != Sk
 
 
 class FlashAttention(torch.autograd.Function):
-    """The two dense kernels as one differentiable function of (q, k, v):
-    the forward kernel saves O and the row log-sum-exp, the backward kernel
-    turns the output cotangent into (dq, dk, dv).  The backward kernel takes
-    Sq == Sk only, so a cross-attention (Sq != Sk) with any input that
-    requires a gradient raises here, before the forward runs."""
+    """The two dense kernels as one differentiable function of (q, k, v),
+    at any Sq and Sk: the forward kernel saves O and the row log-sum-exp,
+    the backward kernel turns the output cotangent into (dq, dk, dv)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, logit_cap):
-        if q.shape[1] != k.shape[1] and any(ctx.needs_input_grad[:3]):
-            raise ValueError(_BWD_ONE_SEQUENCE.format(sq=q.shape[1],
-                                                      sk=k.shape[1]))
         o, lse = _flash_fwd(q, k, v, causal=causal, window=window,
                             logit_cap=logit_cap)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -701,17 +704,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     logit_cap: float | None = None) -> torch.Tensor:
     """Dense flash attention (``csrc/flash_fwd.cu``, differentiable
-    through ``csrc/flash_bwd.cu`` when Sq == Sk).
+    through ``csrc/flash_bwd.cu``).
 
     q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) contiguous, float32 or
     bfloat16, positions 0..Sq-1 and 0..Sk-1; scale 1/sqrt(D); optional
     causal mask (q_pos >= k_pos), sliding ``window`` (q_pos - k_pos <
     window) and tanh ``logit_cap``.  Returns (B, Sq, Hq, D) in q's dtype.
-    With Sq != Sk and grad mode on, ``FlashAttention`` raises if any input
-    requires a gradient (the backward kernel takes Sq == Sk); without grad
-    mode the forward kernel runs alone.  ``launches`` counts forward kernel
-    launches (a remat recompute launches again), ``cross_launches`` those
-    with Sq != Sk."""
+    A cross-attention (Sq != Sk) without grad mode runs the forward kernel
+    alone.  ``launches`` counts forward kernel launches (a remat recompute
+    launches again), ``cross_launches`` those with Sq != Sk."""
     if not q.is_cuda:
         from repro_torch.kernels.attention import ops
         return ops.flash_attention(q, k, v, causal=causal, window=window,

@@ -28,7 +28,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     use_kernel: bool | None = None) -> torch.Tensor:
     """q: (B, Sq, Hq, D), k/v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D), positions
     0..Sq-1 against 0..Sk-1 (Sq == Sk: one sequence attending to itself;
-    Sq != Sk: a cross-attention, differentiable on the CPU only).
+    Sq != Sk: a cross-attention).
 
     The kernel lowering (``attention.flash_attention``, differentiable
     through the backward kernel) reads the model's layout as it is; the

@@ -90,14 +90,20 @@ def _nvcc() -> str:
 LIBS = KernelLibraries()
 
 
+def cuobjdump() -> str | None:
+    """The toolkit's cuobjdump, or None where there is none."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return tool if os.path.exists(tool) else None
+
+
 def sass_counts(lib_names: tuple[str, ...],
                 ops: tuple[str, ...] = ("HGMMA", "UTMALDG")) -> dict | None:
     """Lines of each op in the SASS of each built library (``cuobjdump
     -sass``), e.g. HGMMA (wgmma) and UTMALDG (TMA load); None where the
     toolkit has no cuobjdump."""
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
+    tool = cuobjdump()
+    if tool is None:
         return None
     counts = {}
     for name in lib_names:

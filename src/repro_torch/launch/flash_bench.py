@@ -11,8 +11,8 @@ time and profile them, for iterating on ``csrc/flash_wgmma.cuh``.
    registers and spills from ``-Xptxas -v`` and the HGMMA and UTMALDG
    counts of the two flash libraries; stop if a wgmma kernel did not get
    168 registers (its ``setmaxnreg`` split assumes them).
-3. Eight small bf16 geometries (G 1 to 8, D 64 and 128, S 77 to 1000,
-   causal or not, windows, softcaps): forward and backward against the
+3. Ten small bf16 geometries (G 1 to 8, D 64, 112 and 128, S 77 to
+   2048, causal or not, windows, softcaps): forward and backward against the
    plain versions (relative to max(1, max |plain|), as ``chip_smoke.py``'s
    FLASH_TOL), the backward bitwise equal over two calls, and the launches
    counted by variant.
@@ -42,6 +42,8 @@ CASES = [  # (B, G, D, S, options); Hkv 2
     (2, 6, 128, 300, {"causal": True, "logit_cap": 5.0}),
     (2, 8, 64, 200, {"causal": False, "window": 20, "logit_cap": 30.0}),
     (2, 1, 128, 1000, {"causal": True}),
+    (1, 1, 112, 2048, {"causal": True}),      # zamba2's shared block
+    (2, 2, 112, 77, {"causal": True, "window": 9}),
 ]
 
 

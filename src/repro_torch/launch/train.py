@@ -9,6 +9,17 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
       --steps 5 --batch 2 --seq 4096
 
+  # seamless-m4t-medium (128 source frames, as repro's launcher; its
+  # cross-attention through the backward kernel at Sq != Sk) and
+  # mamba2-780m (no attention kernel) train the same way; zamba2-7b's 81
+  # layers need more than one card's memory for weights, gradients and
+  # AdamW moments (about 81 GB), so only a cut depth trains on one card,
+  # through Trainer in chip_smoke.py:
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch seamless-m4t-medium --steps 3 --batch 2 --seq 256
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch mamba2-780m --steps 3 --batch 2 --seq 256
+
 Flags as ``repro.launch.train``'s, except that ``--mesh`` is replaced by
 ``--device`` (default cuda): a mesh of several devices is not ported yet.
 Weights are the port's own random ones (seed 0, as ``repro``'s

@@ -7,8 +7,9 @@ tokens.  Cross-attention K/V are computed once from the encoder's output
 and cached for decode.  On CUDA the flash kernel (kernel 5) runs three
 ways: the encoder's self-attention without a mask, the decoder's causal
 self-attention, and the cross-attention of S target positions against
-S_src frames (Sq != Sk, no mask).  The cross-attention has no backward
-kernel, so training this family on CUDA raises (``FlashAttention``).
+S_src frames (Sq != Sk, no mask); training differentiates all three
+through the backward kernel (kernel 5b), the cross-attention's at its own
+key length.
 """
 from __future__ import annotations
 

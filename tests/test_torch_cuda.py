@@ -2,8 +2,9 @@
 PyTorch version on the same CUDA inputs (the paged GQA pair, the MLA
 latent pair, the speculative-verify entries of the two prefill kernels,
 the dense flash forward and backward, including the wgmma
-kernels' geometries, their bitwise-reproducible backward, the variant
-they take and the forward at its own key length (Sq != Sk), each model
+kernels' geometries (D 112 among them), their bitwise-reproducible
+backward, the variant they take and the pair at its own key length
+(Sq != Sk), each model
 family's forward launching the flash forward, the PACO matmul and the LCS tile), the serving engine on CUDA
 running the kernels on every
 prefill chunk, decode tick and verify step, a train step on CUDA running the flash
@@ -595,6 +596,11 @@ def _rel(a, b):
     return _err(a, b) / max(1.0, b.float().abs().max().item())
 
 
+def _own_rel(a, b):
+    """As ``_rel`` with no floor: a gradient held to its own scale."""
+    return _err(a, b) / b.float().abs().max().item()
+
+
 @pytest.mark.parametrize("dtype,tol", FLASH_DTYPES)
 @pytest.mark.parametrize("kw", FLASH_KW)
 @pytest.mark.parametrize("g,d,s", [(1, 64, 128), (2, 128, 77), (8, 256, 77),
@@ -659,8 +665,8 @@ OWN_KEY_LENGTH = [(256, 1024, 64, False), (1024, 256, 64, False),
 @pytest.mark.parametrize("sq,sk,d,causal", OWN_KEY_LENGTH)
 def test_flash_forward_at_its_own_key_length_matches_plain(cuda, dtype, tol,
                                                            sq, sk, d, causal):
-    """Every forward family (bf16 wgmma at D 64 and 128, mma.sync at 256,
-    the CUDA cores at 16, 112 and in float32) with Sq != Sk, ragged on
+    """Every forward family (bf16 wgmma at D 64, 112 and 128, mma.sync at
+    256, the CUDA cores at 16 and in float32) with Sq != Sk, ragged on
     both sides, causal or not: within the plain version's bound, one launch
     of the variant the library names, bitwise the same over two calls."""
     gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -680,21 +686,88 @@ def test_flash_forward_at_its_own_key_length_matches_plain(cuda, dtype, tol,
     assert _rel(o, want.transpose(1, 2)) <= tol
 
 
-def test_cross_attention_refuses_a_gradient_and_an_empty_row(cuda):
-    """Sq != Sk: any input requiring a gradient raises (the backward
-    kernel takes Sq == Sk; no fallback to the plain version), and so does
-    a window that leaves the last query rows no key."""
+# The backward at its own key length: (Sq, Sk, causal, window); Sq < Sk
+# causal (and windowed) leaves the keys past Sq seen by no query
+BWD_OWN_KEY_LENGTH = [(256, 1024, False, None), (1024, 256, False, None),
+                      (300, 1000, True, None), (77, 300, True, 40),
+                      (300, 77, False, 260)]
+# (dtype, D, the family the library names): both backward families
+BWD_OWN_KEY_FAMILIES = [(torch.bfloat16, 64, "wgmma"),
+                        (torch.bfloat16, 128, "wgmma"),
+                        (torch.bfloat16, 112, "wgmma"),
+                        (torch.float32, 64, "cuda_cores"),
+                        (torch.bfloat16, 16, "cuda_cores")]
+
+
+@pytest.mark.parametrize("dtype,d,family", BWD_OWN_KEY_FAMILIES)
+@pytest.mark.parametrize("sq,sk,causal,window", BWD_OWN_KEY_LENGTH)
+def test_flash_backward_at_its_own_key_length_matches_plain(
+        cuda, dtype, d, family, sq, sk, causal, window):
+    """Kernel 5b with Sq != Sk (a cross-attention) in both families: autograd
+    through ``flash_attention`` launches the forward and the backward once
+    each (counted as cross launches, of the family the library names),
+    dq, dk and dv each within FLASH_DTYPES' bound of the plain gradient
+    relative to its own max |plain| (``_own_rel``, no floor at 1), a
+    second backward call bitwise the same, and keys no query sees (past Sq
+    under the causal mask, or out of every window) exactly zero in dk and
+    dv."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + 3 * sk + d)
+    b, hkv, g = 2, 4, 2
+    tol = dict(FLASH_DTYPES)[dtype]
+    q, d_o = (_rand(gen, b, sq, hkv * g, d, dtype=dtype) for _ in range(2))
+    k, v = (_rand(gen, b, sk, hkv, d, dtype=dtype) for _ in range(2))
+    kw = {"causal": causal, "window": window}
+    assert K._flash_variant("flash_bwd", dtype, d) == family
+    n0 = (K.flash_attention_bwd.launches, K.flash_attention_bwd.cross_launches,
+          K.flash_attention_bwd.variants[family])
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = K.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(o, leaves, d_o)
+    torch.cuda.synchronize()
+    assert (K.flash_attention_bwd.launches, K.flash_attention_bwd
+            .cross_launches, K.flash_attention_bwd.variants[family]) == \
+        tuple(n + 1 for n in n0)
+    o2, lse = K._flash_fwd(q, k, v, causal=causal, window=window,
+                           logit_cap=None)
+    assert torch.equal(o2, o.detach())
+    again = K.flash_attention_bwd(q, k, v, o2, lse, d_o, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr, **kw)]
+    for got, w in zip(grads, want):
+        assert got.dtype == dtype and got.shape == w.shape
+        assert _own_rel(got, w) <= tol
+    qp = torch.arange(sq, device=cuda)[:, None]
+    kp = torch.arange(sk, device=cuda)[None, :]
+    seen = ((qp - kp) < (window or 2 ** 31))
+    if causal:
+        seen &= kp <= qp
+    unseen = ~seen.any(0)
+    assert bool(unseen.any()) == (causal and sq < sk)
+    for grad in grads[1:]:
+        assert not grad[:, unseen].any()
+
+
+def test_cross_attention_refuses_an_empty_row(cuda):
+    """Sq != Sk: a window that leaves the last query rows no key raises in
+    the forward and the backward wrapper, before any launch; one key more
+    runs (and a gradient is taken, no longer refused)."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = _rand(gen, 1, 64, 4, 64, dtype=torch.bfloat16)
     k = _rand(gen, 1, 32, 4, 64, dtype=torch.bfloat16)
-    launches = K.flash_attention.launches
-    with pytest.raises(ValueError, match="later slice"):
-        K.flash_attention(q.requires_grad_(), k, k, causal=False)
+    launches = K.flash_attention.launches, K.flash_attention_bwd.launches
     with pytest.raises(ValueError, match="no key"):
         K.flash_attention(q.detach(), k, k, causal=True, window=32)
-    K.flash_attention(q.detach(), k, k, causal=True, window=33)
+    o, lse = K._flash_fwd(q, k, k, causal=True, window=33, logit_cap=None)
+    with pytest.raises(ValueError, match="no key"):
+        K.flash_attention_bwd(q, k, k, o, lse, q, causal=True, window=32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, k)]
+    out = K.flash_attention(*leaves, causal=True, window=33)
+    torch.autograd.grad(out, leaves, q)
     torch.cuda.synchronize()
-    assert K.flash_attention.launches == launches + 1
+    assert (K.flash_attention.launches, K.flash_attention_bwd.launches) == \
+        (launches[0] + 2, launches[1] + 1)
 
 
 @pytest.mark.parametrize("arch,launches", [
@@ -732,17 +805,18 @@ def test_family_forwards_take_the_flash_kernel(cuda, arch, launches):
             assert _err(lg, want[:, -1]) <= 1e-4
 
 
-# bf16 at D 64 and 128 takes the wgmma kernels: the training length, ragged
-# lengths, G 1, 2, 6 (rows of the 128 left unused) and 8
+# bf16 at D 64, 112 (padded to 128) and 128 takes the wgmma kernels: the
+# training length, ragged lengths, G 1, 2, 6 (rows of the 128 left unused)
+# and 8; zamba2's shared block at D 112 and S 2048
 WGMMA_GEOMS = [(2, 128, 4096), (1, 64, 4096), (6, 128, 333), (8, 64, 1000),
-               (2, 64, 77), (1, 128, 200)]
+               (2, 64, 77), (1, 128, 200), (1, 112, 2048), (2, 112, 333)]
 
 
 @pytest.mark.parametrize("kw", FLASH_KW)
 @pytest.mark.parametrize("g,d,s", WGMMA_GEOMS)
 def test_wgmma_flash_kernels_match_plain_and_repeat_bitwise(cuda, kw, g, d,
                                                             s):
-    """The bf16 forward and backward at D 64 and 128 launch the wgmma
+    """The bf16 forward and backward at D 64, 112 and 128 launch the wgmma
     kernels (the wrappers' per-variant counts), agree with the plain
     versions within FLASH_DTYPES' bf16 bound, and the backward gives
     bitwise the same dq, dk and dv on a second call."""
@@ -771,10 +845,11 @@ def test_wgmma_flash_kernels_match_plain_and_repeat_bitwise(cuda, kw, g, d,
 
 
 def test_flash_wrappers_take_the_variant_the_library_names(cuda):
-    """bf16 at D 64 and 128 reports wgmma, bf16 at D 256 mma.sync, float32
-    and other widths the CUDA cores, and each wrapper counts its launch
-    under that name."""
+    """bf16 at D 64, 112 and 128 reports wgmma, bf16 at D 256 mma.sync,
+    float32 and other widths the CUDA cores, and each wrapper counts its
+    launch under that name."""
     want = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
+            (torch.bfloat16, 112): "wgmma",
             (torch.bfloat16, 256): "mma_sync",
             (torch.bfloat16, 16): "cuda_cores",
             (torch.float32, 128): "cuda_cores"}
@@ -787,6 +862,7 @@ def test_flash_wrappers_take_the_variant_the_library_names(cuda):
         torch.cuda.synchronize()
         assert K.flash_attention.variants[name] == before + 1
     assert K._flash_variant("flash_bwd", torch.bfloat16, 128) == "wgmma"
+    assert K._flash_variant("flash_bwd", torch.bfloat16, 112) == "wgmma"
     assert K._flash_variant("flash_bwd", torch.bfloat16, 256) == "cuda_cores"
 
 

@@ -4,9 +4,10 @@ gradient) against ``repro``'s oracle, its Pallas kernel in interpret mode
 and ``jax.grad`` of its chunked model attention; and CPU emulations of the
 CUDA kernels' tile walks (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
 the mma.sync walk of ``csrc/flash_mma.cuh`` and the wgmma kernels of
-``csrc/flash_wgmma.cuh``: their persistent item order and the shared
-memory layout their TMA loads write and their descriptors read) against
-the plain versions.
+``csrc/flash_wgmma.cuh``: their persistent item order, the shared memory
+layout their TMA loads write and their descriptors read, D 112 padded to
+128 and their epilogues' stores) against the plain versions, at Sq == Sk
+and at Sq != Sk (a cross-attention, forward and backward).
 
 Inputs are numpy draws from a seed.  Tolerances:
 - plain forward vs ``repro`` in float32: atol 2e-5 (as
@@ -19,6 +20,7 @@ Inputs are numpy draws from a seed.  Tolerances:
   2e-2 of max(1, max |plain|), the bound ``chip_smoke.py`` holds the
   kernels to on the card.
 """
+import collections
 import math
 
 import jax
@@ -102,6 +104,12 @@ def test_plain_forward_softcap_bf16_matches_jax():
 GRAD_CASES = [dict(causal=True), dict(causal=False),
               dict(causal=True, window=5), dict(causal=True, logit_cap=4.0),
               dict(causal=False, window=7, logit_cap=9.0)]
+# (Sq, Sk): a cross-attention both ways; Sq < Sk causal leaves the keys past
+# Sq unseen, Sq > Sk with a window of 20 leaves every row a key
+GRAD_CASES += [dict(causal=True, sq=24, sk=40), dict(causal=False, sq=40,
+                                                     sk=24),
+               dict(causal=True, window=20, sq=40, sk=24),
+               dict(causal=False, logit_cap=9.0, sq=24, sk=40)]
 
 
 @pytest.mark.parametrize("kw", GRAD_CASES)
@@ -109,16 +117,21 @@ def test_plain_gradient_matches_jax_grad(kw):
     """dq, dk and dv of the port's plain gradient (``attention_ref_grad``,
     the CPU ``flash_attention_bwd``, and autograd through the CPU
     ``flash_attention``) against ``jax.grad`` of ``repro``'s chunked
-    ``layers.attention`` (two query chunks)."""
-    rng = np.random.default_rng(len(kw) * 7 + int(kw["causal"]))
-    b, s, hq, hkv, d = 2, 24, 4, 2, 16
-    q, k, v = (_rand(rng, b, s, h, d) for h in (hq, hkv, hkv))
-    d_o = _rand(rng, b, s, hq, d)
-    pos = jnp.arange(s)
+    ``layers.attention`` (two query chunks), at Sq == Sk and at Sq != Sk
+    (``k_positions`` of length Sk)."""
+    kw = dict(kw)
+    cross = "sq" in kw
+    sq, sk = kw.pop("sq", 24), kw.pop("sk", 24)
+    rng = np.random.default_rng(len(kw) * 7 + int(kw["causal"])
+                                + (sq + 2 * sk if cross else 0))
+    b, hq, hkv, d = 2, 4, 2, 16
+    q = _rand(rng, b, sq, hq, d)
+    k, v = (_rand(rng, b, sk, hkv, d) for _ in range(2))
+    d_o = _rand(rng, b, sq, hq, d)
 
     def f(q, k, v):
-        return JL.attention(q, k, v, q_positions=pos, k_positions=pos,
-                            q_chunk=16, **kw)
+        return JL.attention(q, k, v, q_positions=jnp.arange(sq),
+                            k_positions=jnp.arange(sk), q_chunk=16, **kw)
 
     _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
     want = vjp(jnp.asarray(d_o))
@@ -176,25 +189,35 @@ class Walk:
     head-major (row r: head r // bq at position c0 + r % bq) or, for the
     wgmma kernels, position-major as their TMA box brings them (head r % G
     at position c0 + r // G).  ``sms`` set: a persistent grid of that many
-    CTAs (``_cta_items``)."""
+    CTAs (``_cta_items``).  ``box`` set: the width is padded to whole boxes
+    of that many columns, zero past the true D (TMA's fill), and only the
+    true columns are stored."""
 
     def __init__(self, rows, tk, keys, tq, mma, position_major=False,
-                 tk_dq=None, sms=None):
+                 tk_dq=None, sms=None, box=None):
         self.rows, self.tk, self.keys, self.tq, self.mma = (rows, tk, keys,
                                                             tq, mma)
         self.position_major = position_major
         self.tk_dq = tk_dq or tk
         self.sms = sms
+        self.box = box
 
     def round(self, x):
         return _bf16(x) if self.mma else x
+
+    def pad(self, *ts):
+        """The inputs as the kernel's shared memory holds them: D padded
+        with zero columns to whole boxes."""
+        d = ts[0].shape[-1]
+        extra = -d % self.box if self.box else 0
+        return [torch.nn.functional.pad(t, (0, extra)) for t in ts]
 
 
 CUDA_CORES = Walk(rows=32, tk=32, keys=32, tq=32, mma=False)
 TENSOR_CORES = Walk(rows=64, tk=64, keys=64, tq=32, mma=True)
 # 3 CTAs, so each walks several items at these sizes
 WGMMA = Walk(rows=128, tk=128, keys=128, tq=64, mma=True,
-             position_major=True, tk_dq=64, sms=3)
+             position_major=True, tk_dq=64, sms=3, box=64)
 
 
 def _scores(raw, scale, cap):
@@ -272,9 +295,10 @@ def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None):
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    scale = 1 / math.sqrt(d)
-    out = torch.zeros_like(q)
-    lse = torch.zeros(b, hq, sq)
+    scale = 1 / math.sqrt(d)        # the true D's, as the host passes it
+    q, k, v = walk.pad(q, k, v)
+    out = torch.full((b, sq, hq, d), math.nan)   # torch.empty's garbage
+    lse = torch.full((b, hq, sq), math.nan)
     bq = walk.rows // g
     for blk, h, bi in _items(-(-sq // bq), hkv, b, walk, descending=causal):
         if visited is not None:
@@ -284,7 +308,7 @@ def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None):
         qr = q[bi, pos, h * g + head]                         # (R, D)
         m = torch.full((len(pos),), NEG)
         l = torch.zeros(len(pos))
-        acc = torch.zeros(len(pos), d)
+        acc = torch.zeros(len(pos), q.shape[-1])
         lo, hi = _key_range(c0, int(pos.max()), sk, causal, window)
         for t0 in range(lo, hi, walk.tk):
             kp = torch.arange(t0, min(t0 + walk.tk, hi))
@@ -297,33 +321,41 @@ def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None):
             l = l * alpha + p.sum(1)
             acc = acc * alpha[:, None] + walk.round(p) @ v[bi, kp, h]
             m = m_new
-        out[bi, pos, h * g + head] = acc / l.clamp(min=1e-30)[:, None]
+        acc = acc / l.clamp(min=1e-30)[:, None]
+        assert not acc[:, d:].any()     # the zero columns add nothing
+        out[bi, pos, h * g + head] = acc[:, :d]   # the true columns only
         lse[bi, h * g + head, pos] = m + torch.log(l.clamp(min=1e-30))
     return walk.round(out), lse
 
 
 def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
                 visited=None):
-    """(dq, dk, dv) by the backward kernel's three launches: Delta, the dQ
-    pass over the forward's query blocks (``walk.tk_dq``-key tiles), and
-    the dK/dV pass per (key block, kv head, batch) item over the G heads
-    and their query tiles.  Items taken are appended to ``visited``."""
-    b, s, hq, d = q.shape
-    hkv = k.shape[2]
+    """(dq, dk, dv) by the backward kernel's three launches, q, o, d_o
+    (B, Sq, Hq, D) against k, v (B, Sk, Hkv, D): Delta over the Sq rows,
+    the dQ pass over the forward's query blocks (``walk.tk_dq``-key tiles
+    over the block's key range ending at Sk), and the dK/dV pass per (key
+    block over the Sk, kv head, batch) item over the G heads and their
+    query tiles (ending at Sq; none for a block no query sees, whose rows
+    are stored as zeros).  Outputs start as NaN (``torch.empty``'s
+    garbage), so a row the walk does not store shows.  Items taken are
+    appended to ``visited``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = 1 / math.sqrt(d)
-    delta = (d_o * o).sum(-1).transpose(1, 2)                 # (B, Hq, S)
-    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = (d_o * o).sum(-1).transpose(1, 2)                 # (B, Hq, Sq)
+    dq, dk, dv = (torch.full_like(t, math.nan) for t in (q, k, v))
+    q, k, v, d_o = walk.pad(q, k, v, d_o)
     bq = walk.rows // g
-    for blk, h, bi in _items(-(-s // bq), hkv, b, walk, descending=causal):
+    for blk, h, bi in _items(-(-sq // bq), hkv, b, walk, descending=causal):
         if visited is not None:
             visited.append(("dq", blk, h, bi))
         c0 = blk * bq
-        head, pos = _q_rows(c0, s, g, walk)
+        head, pos = _q_rows(c0, sq, g, walk)
         hh = h * g + head
         qr, gr = q[bi, pos, hh], d_o[bi, pos, hh]
-        acc = torch.zeros(len(pos), d)
-        lo, hi = _key_range(c0, int(pos.max()), s, causal, window)
+        acc = torch.zeros(len(pos), q.shape[-1])
+        lo, hi = _key_range(c0, int(pos.max()), sk, causal, window)
         for t0 in range(lo, hi, walk.tk_dq):
             kp = torch.arange(t0, min(t0 + walk.tk_dq, hi))
             x, cg = _scores(qr @ k[bi, kp, h].T, scale, cap)
@@ -332,19 +364,20 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
             dp = gr @ v[bi, kp, h].T
             ds = p * (dp - delta[bi, hh, pos][:, None]) * cg
             acc += walk.round(ds) @ k[bi, kp, h]
-        dq[bi, pos, hh] = acc * scale
+        assert not acc[:, d:].any()
+        dq[bi, pos, hh] = acc[:, :d] * scale
     # causal: the first key blocks see the most queries
-    for blk, h, bi in _items(-(-s // walk.keys), hkv, b, walk,
+    for blk, h, bi in _items(-(-sk // walk.keys), hkv, b, walk,
                              descending=not causal):
         if visited is not None:
             visited.append(("dkv", blk, h, bi))
         k0 = blk * walk.keys
-        kp = torch.arange(k0, min(k0 + walk.keys, s))
+        kp = torch.arange(k0, min(k0 + walk.keys, sk))
         kb, vb = k[bi, kp, h], v[bi, kp, h]
-        dk_acc = torch.zeros(len(kp), d)
-        dv_acc = torch.zeros(len(kp), d)
+        dk_acc = torch.zeros(len(kp), k.shape[-1])
+        dv_acc = torch.zeros(len(kp), k.shape[-1])
         q_lo = k0 if causal else 0
-        q_hi = min(s, int(kp[-1]) + window)
+        q_hi = min(sq, int(kp[-1]) + window)
         for gi in range(g):
             hh = h * g + gi
             for t0 in range(q_lo, q_hi, walk.tq):
@@ -356,8 +389,9 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
                 ds = p * (dpt - delta[bi, hh, qp]) * cg
                 dv_acc += walk.round(p) @ d_o[bi, qp, hh]
                 dk_acc += walk.round(ds) @ q[bi, qp, hh]
-        dk[bi, kp, h] = dk_acc * scale
-        dv[bi, kp, h] = dv_acc
+        assert not dk_acc[:, d:].any() and not dv_acc[:, d:].any()
+        dk[bi, kp, h] = dk_acc[:, :d] * scale
+        dv[bi, kp, h] = dv_acc[:, :d]
     return tuple(walk.round(t) for t in (dq, dk, dv))
 
 
@@ -463,17 +497,108 @@ def test_forward_walks_at_their_own_key_length(walk, sq, sk, g, kw):
                                                    else 1e-5)
 
 
-def test_cross_attention_refuses_a_gradient():
-    """``FlashAttention`` at Sq != Sk with an input that requires a
-    gradient raises before any kernel runs: the backward kernel (5b) takes
-    Sq == Sk only, and nothing falls back to the plain version."""
+@pytest.mark.parametrize("walk", [CUDA_CORES, TENSOR_CORES, WGMMA],
+                         ids=["cuda_cores", "tensor_cores", "wgmma"])
+@pytest.mark.parametrize("sq,sk", [(77, 200), (200, 77), (128, 300),
+                                   (256, 64)])
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=40),
+                                dict(causal=False, window=150,
+                                     logit_cap=30.0)])
+def test_backward_walks_at_their_own_key_length(walk, sq, sk, g, kw):
+    """The backward walks with Sq != Sk, at the forward test's shapes and
+    masks: Delta over the Sq rows, the dQ pass's query blocks over Sq with
+    key ranges ending at Sk, the dK/dV pass's key blocks over Sk with query
+    ranges ending at Sq.  Under the causal mask with Sq < Sk, and under a
+    window, whole key blocks are seen by no query: their items walk no
+    tile and store zeros (the outputs start as NaN, so an unstored row
+    fails), exactly the plain gradient's zeros.  dq, dk and dv against
+    ``ref.attention_ref_grad``, every item of each launch taken once."""
+    rng = np.random.default_rng(sq * 1000 + sk + g + 7)
+    b, hkv, d = 2, 2, 16
+    q, d_o = (torch.from_numpy(_rand(rng, b, sq, hkv * g, d))
+              for _ in range(2))
+    k, v = (torch.from_numpy(_rand(rng, b, sk, hkv, d)) for _ in range(2))
+    if walk.mma:
+        q, k, v, d_o = map(_bf16, (q, k, v, d_o))
+    if "window" in kw:
+        kw = dict(kw, window=kw["window"] + max(0, sq - sk))
+    window = kw.get("window", 2 ** 31 - 1)
+    cap = kw.get("logit_cap")
+    o, lse = emulate_fwd(q, k, v, causal=kw["causal"], window=window,
+                         cap=cap, walk=walk)
+    visited = []
+    grads = emulate_bwd(q, k, v, o, lse, d_o, causal=kw["causal"],
+                        window=window, cap=cap, walk=walk, visited=visited)
+    n_q = -(-sq // (walk.rows // g)) * hkv * b
+    n_k = -(-sk // walk.keys) * hkv * b
+    assert len(set(visited)) == len(visited) == n_q + n_k
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr, **kw)]
+    # keys no query sees: exactly zero in both
+    seen = _visible(torch.arange(sq), torch.arange(sk), kw["causal"],
+                    window).any(0)
+    if kw["causal"] and sq < sk:
+        assert not seen[sq:].any()
+    for got, w in zip(grads[1:], want[1:]):
+        assert torch.equal(got[:, ~seen], torch.zeros_like(got[:, ~seen]))
+        assert torch.equal(w[:, ~seen], torch.zeros_like(w[:, ~seen]))
+    for got, w in zip(grads, want):
+        tol = (2e-2 * max(1.0, float(w.abs().max())) if walk.mma
+               else 2e-5)
+        assert float((got - w).abs().max()) <= tol
+
+
+def test_cross_attention_gradient_through_the_autograd_function(
+        monkeypatch):
+    """``FlashAttention`` at Sq != Sk (Sq < Sk causal, so the last keys are
+    seen by no query, and Sq > Sk): the forward kernel's emulation saves O
+    and the log-sum-exp of Sq rows, the backward wrapper gets q, o, d_o of
+    Sq rows and k, v of Sk, and its walk's (dq, dk, dv) are the plain
+    gradient, whichever inputs require one; the public ``flash_attention``
+    on the CPU gives the same through autograd of the plain version.
+    Nothing refuses a gradient at Sq != Sk."""
     rng = np.random.default_rng(9)
-    q = torch.from_numpy(_rand(rng, 1, 8, 2, 16))
-    k, v = (torch.from_numpy(_rand(rng, 1, 24, 2, 16)) for _ in range(2))
-    for leaves in ((q.requires_grad_(), k, v), (q.detach(),
-                                                 k.requires_grad_(), v)):
-        with pytest.raises(ValueError, match="later slice"):
-            K.FlashAttention.apply(*leaves, False, None, None)
+    calls = []
+
+    def fwd(q, k, v, *, causal, window, logit_cap):
+        return emulate_fwd(q, k, v, causal=causal, window=window or 2 ** 31,
+                           cap=logit_cap, walk=CUDA_CORES)
+
+    def bwd(q, k, v, o, lse, d_o, *, causal, window, logit_cap):
+        calls.append((q.shape[1], k.shape[1], tuple(lse.shape)))
+        return emulate_bwd(q, k, v, o, lse, d_o, causal=causal,
+                           window=window or 2 ** 31, cap=logit_cap,
+                           walk=CUDA_CORES)
+
+    monkeypatch.setattr(K, "_flash_fwd", fwd)
+    monkeypatch.setattr(K, "flash_attention_bwd", bwd)
+    for sq, sk, causal in ((40, 72, True), (72, 40, False)):
+        q, d_o = (torch.from_numpy(_rand(rng, 2, sq, 4, 16))
+                  for _ in range(2))
+        k, v = (torch.from_numpy(_rand(rng, 2, sk, 2, 16)) for _ in range(2))
+        tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+        want = [t.transpose(1, 2) for t in ref.attention_ref_grad(
+            *tr, causal=causal)]
+        for needs in ((True, True, True), (True, False, False),
+                      (False, True, True)):
+            leaves = [t.clone().requires_grad_(n) for t, n in
+                      zip((q, k, v), needs)]
+            o = K.FlashAttention.apply(*leaves, causal, None, None)
+            o.backward(d_o)
+            for leaf, n, w in zip(leaves, needs, want):
+                assert (leaf.grad is not None) == n
+                if n:
+                    assert float((leaf.grad - w).abs().max()) <= 2e-5
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = K.flash_attention(*leaves, causal=causal)
+            for g_, w in zip(torch.autograd.grad(o, leaves, d_o), want):
+                assert float((g_ - w).abs().max()) <= 1e-5
+        if causal:
+            assert torch.equal(want[1][:, sq:], torch.zeros_like(
+                want[1][:, sq:]))
+    assert calls == [(40, 72, (2, 4, 40))] * 3 + [(72, 40, (2, 4, 72))] * 3
 
 
 @pytest.mark.parametrize("s,g,causal,window", [
@@ -534,11 +659,20 @@ def _sw128(addr):
 
 
 def _tma_tile(rows, d):
-    """A rows x d bf16 tile as the kernels' TMA loads lay it out: D / 64
-    column blocks of rows x 128 bytes (one 64-column box each), swizzled;
-    {byte offset: (row, column)}."""
-    return {_sw128(c * rows * 128 + r * 128 + 2 * j): (r, 64 * c + j)
-            for c in range(d // 64) for r in range(rows) for j in range(64)}
+    """A rows x d bf16 tile as the kernels' TMA loads lay it out: ceil(D /
+    64) column blocks of rows x 128 bytes (one 64-column box each),
+    swizzled; {byte offset: (row, column)}, or 0 for a column past D, which
+    TMA zero-fills (D 112: columns 112-127 of the second box)."""
+    return {_sw128(c * rows * 128 + r * 128 + 2 * j):
+            ((r, 64 * c + j) if 64 * c + j < d else 0)
+            for c in range(-(-d // 64)) for r in range(rows)
+            for j in range(64)}
+
+
+def _col(row, col, d):
+    """What a descriptor should read at (row, column) of a D-wide tile
+    padded to whole boxes: the element, or the zero fill past D."""
+    return (row, col) if col < d else 0
 
 
 def _desc_k(rows, row0, ks):
@@ -570,28 +704,86 @@ def _read_mn_major(mem, start, lbo, sbo, n):
 
 
 @pytest.mark.parametrize("rows,d", [(64, 64), (64, 128), (128, 64),
-                                    (128, 128)])
+                                    (128, 128), (64, 112), (128, 112)])
 def test_wgmma_descriptors_read_what_tma_wrote(rows, d):
     """Every descriptor the kernels build reads the intended operand from a
     tile laid out by TMA with the 128-byte swizzle: the A operand (64 rows
-    from row0 = 0 or 64, k-step ks over D / 16) and a K-major B (all rows:
-    K or a Q tile in S = Q K^T, K Q^T), and the MN-major B of P V, dS K,
-    P^T dO and dS^T Q (16 rows per k-step, D columns across the column
-    blocks)."""
+    from row0 = 0 or 64, k-step ks over the padded D / 16) and a K-major B
+    (all rows: K or a Q tile in S = Q K^T, K Q^T), and the MN-major B of
+    P V, dS K, P^T dO and dS^T Q (16 rows per k-step, the padded D columns
+    across the column blocks).  At D 112 the kernels run the D-128 layout:
+    the last k-step of a K-major operand and the last 16 columns of an
+    MN-major one read TMA's zero fill."""
+    dp = -(-d // 64) * 64
     mem = _tma_tile(rows, d)
-    for ks in range(d // 16):
+    for ks in range(dp // 16):
         for row0 in range(0, rows, 64):
             start, sbo = _desc_k(rows, row0, ks)
             assert _read_k_major(mem, start, sbo, 64) == [
-                [(row0 + i, 16 * ks + kk) for kk in range(16)]
+                [_col(row0 + i, 16 * ks + kk, d) for kk in range(16)]
                 for i in range(64)]
         start, sbo = _desc_k(rows, 0, ks)
         assert _read_k_major(mem, start, sbo, rows) == [
-            [(i, 16 * ks + kk) for kk in range(16)] for i in range(rows)]
+            [_col(i, 16 * ks + kk, d) for kk in range(16)]
+            for i in range(rows)]
     for ks in range(rows // 16):
         start, lbo, sbo = _desc_mn(rows, ks)
-        assert _read_mn_major(mem, start, lbo, sbo, d) == [
-            [(16 * ks + kk, nn) for nn in range(d)] for kk in range(16)]
+        assert _read_mn_major(mem, start, lbo, sbo, dp) == [
+            [_col(16 * ks + kk, nn, d) for nn in range(dp)]
+            for kk in range(16)]
+
+
+@pytest.mark.parametrize("dt", [64, 112, 128])
+def test_wgmma_epilogues_store_the_true_columns(dt):
+    """The wgmma kernels' stores of O, dQ, dK and dV: a warp's 32 threads
+    write rows g and g + 8 (g = lane / 4) from the accumulator of the
+    padded width, columns nt * 8 + 2 (lane % 4) and the next for nt < D / 8
+    of the true D, at a row stride of the true D: every element of the
+    warp's 16 rows once, none past D (at D 112 the accumulator's columns
+    112-127 stay unstored), no address outside the rows."""
+    dp = -(-dt // 64) * 64
+    written = collections.Counter()
+    for lane in range(32):
+        g, t4 = lane >> 2, lane & 3
+        for hh in range(2):
+            row = g + 8 * hh
+            for nt in range(dt // 8):
+                for e in range(2):
+                    acc = 4 * nt + 2 * hh + e
+                    col = nt * 8 + 2 * t4 + e
+                    assert acc < dp // 2
+                    written[row * dt + col] += 1
+    assert written == collections.Counter(range(16 * dt))
+
+
+@pytest.mark.parametrize("g,s,kw", [
+    (1, 200, dict(causal=True)), (2, 77, dict(causal=False, window=30)),
+    (1, 130, dict(causal=True, logit_cap=20.0))])
+def test_wgmma_walk_at_d112_pads_to_128(g, s, kw):
+    """zamba2's head_dim 112 on the wgmma walk: Q, K, V and dO padded with
+    zero columns to 128 (TMA's fill of the second 64-column box), the
+    products over the padded width, the scale 1 / sqrt(112), and only the
+    112 true columns stored (the emulation asserts the padded columns of
+    every accumulator stay zero); O, the log-sum-exp, dq, dk and dv
+    against the plain versions at D 112."""
+    rng = np.random.default_rng(112 + g + s)
+    b, hkv, d = 1, 2, 112
+    q, d_o = (_bf16(torch.from_numpy(_rand(rng, b, s, hkv * g, d)))
+              for _ in range(2))
+    k, v = (_bf16(torch.from_numpy(_rand(rng, b, s, hkv, d)))
+            for _ in range(2))
+    window = kw.get("window", 2 ** 31 - 1)
+    o, lse = emulate_fwd(q, k, v, causal=kw["causal"], window=window,
+                         cap=kw.get("logit_cap"), walk=WGMMA)
+    grads = emulate_bwd(q, k, v, o, lse, d_o, causal=kw["causal"],
+                        window=window, cap=kw.get("logit_cap"), walk=WGMMA)
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want_o = ref.attention_ref(*tr[:3], **kw).transpose(1, 2)
+    want_g = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr, **kw)]
+    for got, want in zip((o, *grads), (want_o, *want_g)):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 2e-2 * max(
+            1.0, float(want.abs().max()))
 
 
 def test_flash_bench_reports_balance_and_needs_a_card(monkeypatch, capsys):
