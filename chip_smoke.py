@@ -190,6 +190,23 @@ Phases, in order; any failure ends the script with a nonzero exit:
    counts are zeroed before and read after each call: one matmul plan
    launch walking p cuboids per paco_matmul (bf16 as ``wgmma``), 49
    matmul launches per depth-2 Strassen, one LCS launch per table.
+11. mesh: the distributed paths on a one-rank NCCL group over an
+   in-process store, the card as a 1 x 1 (data, model) ``DeviceMesh``
+   (``mesh_phase``).  The full-width qwen3-0.6b ``train_step`` (bf16, B 2
+   x S 4096) with params laid out by ``param_specs`` and the batch by
+   ``batch_specs``, against the same step without a mesh: loss and
+   gradient norm within TRAIN_PARITY_TOL, every updated leaf within 2 lr
+   + 2^-7 of its max, bitwise reported, the flash counts of both (56
+   forward, 28 backward) as reckoned.  ``ServeEngine(mesh=...)`` (8
+   slots, max_seq 2048, 8 requests of 48..512 tokens, 16 new), fused and
+   speculative, against the engine without a mesh: equal tokens, equal
+   launch counts of kernels 1, 2 and 2v (each zeroed just before and
+   read just after a run).  ``paco_matmul_shmap`` and ``paco_matmul_pjit``
+   at 4096^3 bf16 (MM_TOL), ``paco_sort_shmap`` of 2^24 floats (exact),
+   ``apply_moe_paco_ep`` on one full-width olmoe-1b-7b layer (64 experts,
+   top-1, f32) against the dense top-1 reference (MOE_EP_TOL), and
+   ``ElasticRunner`` on qwen3-0.6b cut to 2 layers, replaying from its
+   checkpoint after a simulated loss of ranks (rtol 2e-4).
 
 Each phase prints its time.
 The second-to-last line is one JSON object with every kernel's numbers;
@@ -3609,6 +3626,348 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the meshed paths on a one-rank NCCL group (a 1 x 1 mesh)
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_REQUESTS = 8      # prompts of 48..512 tokens, 16 new tokens each
+MESH_SERVE_NEW = 16
+MESH_MM_N = 4096             # paco_matmul_shmap / pjit at 4096^3 bf16
+MESH_SORT_N = 2 ** 24
+# apply_moe_paco_ep on one full-width olmoe-1b-7b layer, top-1, float32:
+# capacity factor 1.0, so that on one rank (cap = nb) no token drops; the
+# dense reference sums each token's d_model products in another order
+MESH_MOE = {"batch": 4, "seq": 256, "capacity_factor": 1.0}
+MOE_EP_TOL = 1e-4            # max abs error over max |dense|
+MESH_ELASTIC = {"layers": 2, "batch": 2, "seq": 512, "save_every": 2}
+MESH_TRAIN_LR = 3e-4         # the train phase's AdamW rate
+
+
+def _mesh_group():
+    """A one-rank NCCL group over an in-process store: the card as a
+    1 x 1 (data, model) mesh, the same kernels as without a mesh."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    assert dist.get_backend() == "nccl"
+
+
+def _zero_serve_counts() -> None:
+    from repro_torch.kernels.attention import attention as K
+    for fn in (K.paged_flash_prefill, K.paged_flash_decode,
+               K.paged_flash_verify):
+        fn.launches = 0
+        fn.variants.clear()
+
+
+def _serve_counts() -> dict:
+    from repro_torch.kernels.attention import attention as K
+    return {name: (fn.launches, dict(fn.variants)) for name, fn in (
+        ("paged_prefill", K.paged_flash_prefill),
+        ("paged_decode", K.paged_flash_decode),
+        ("paged_verify", K.paged_flash_verify))}
+
+
+def mesh_train_step(cfg, mesh, seed: int) -> dict:
+    """One full-width ``train_step`` (B 2 x S 4096, remat, AdamW) without a
+    mesh and with params laid out by ``param_specs`` and the batch by
+    ``batch_specs`` on the 1 x 1 mesh, from the same weights: loss and
+    gradient norm within TRAIN_PARITY_TOL, every updated leaf within
+    2 lr + 2^-7 of its max (an AdamW step moves a leaf by about lr), and
+    whether all of it is bitwise.  The flash counts of each step are
+    zeroed just before and read just after: one evaluation with remat
+    (``_train_flash_counts``), the same with and without the mesh."""
+    from repro_torch.data.pipeline import DataConfig, global_batch_rowwise
+    from repro_torch.dist import act_sharding as act
+    from repro_torch.dist import sharding as D
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import TrainConfig, init_train_state, train_step
+
+    tcfg = TrainConfig(opt=AdamWConfig(lr=MESH_TRAIN_LR,
+                                       total_steps=TRAIN_STEPS))
+    data = global_batch_rowwise(
+        DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                   vocab=cfg.vocab, seed=seed), 0, device="cuda")
+    runs = {}
+    for meshed in (False, True):
+        params = init_params(cfg, seed=seed, device="cuda")
+        batch = data
+        if meshed:
+            params = D.distribute(mesh, params,
+                                  D.param_specs(cfg, params, mesh))
+            batch = D.distribute(mesh, data, D.batch_specs(cfg, mesh, data))
+        state = init_train_state(cfg, tcfg, params)
+        torch.cuda.synchronize()
+        _flash_counts_zeroed()
+        t0 = time.perf_counter()
+        params, state, metrics = train_step(params, state, batch, cfg=cfg,
+                                            tcfg=tcfg)
+        torch.cuda.synchronize()
+        runs[meshed] = {
+            "s": time.perf_counter() - t0,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "leaves": [act.replicate(p) for p in tree_leaves(params)],
+            "flash": (_flash_counts(), _flash_counts(bwd=True))}
+        del params, state
+    plain, meshed = runs[False], runs[True]
+    tol = TRAIN_PARITY_TOL[cfg.dtype]
+    leaf_err = max(max_err(a, b) / max(float(a.float().abs().max()), 1e-30)
+                   for a, b in zip(plain["leaves"], meshed["leaves"]))
+    bitwise = (plain["metrics"] == meshed["metrics"] and all(
+        torch.equal(a, b) for a, b in zip(plain["leaves"],
+                                          meshed["leaves"])))
+    result = {"arch": cfg.name, "dtype": str(cfg.dtype),
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "loss": [plain["metrics"]["loss"], meshed["metrics"]["loss"]],
+              "grad_norm": [plain["metrics"]["grad_norm"],
+                            meshed["metrics"]["grad_norm"]],
+              "leaf_rel_err_max": leaf_err, "bitwise": bitwise,
+              "step_s": [plain["s"], meshed["s"]],
+              "flash": {"plain": plain["flash"], "mesh": meshed["flash"]}}
+    log(f"[mesh] train step, 1 x 1 mesh vs no mesh: {json.dumps(result)}")
+    want = _train_flash_counts(cfg, 1)
+    assert plain["flash"] == want and meshed["flash"] == want, result
+    assert abs(result["loss"][0] - result["loss"][1]) <= tol["loss"], result
+    assert (abs(result["grad_norm"][0] - result["grad_norm"][1])
+            <= tol["grad_norm"] * result["grad_norm"][0]), result
+    assert leaf_err <= 2 * MESH_TRAIN_LR + 2 ** -7, result
+    del runs, plain, meshed
+    torch.cuda.empty_cache()
+    return result
+
+
+def mesh_serve(cfg, params, mesh, rng: np.random.Generator, seed: int,
+               **engine_kw) -> dict:
+    """The same requests through ``ServeEngine`` (8 slots, max_seq 2048)
+    without a mesh and with ``mesh=``: equal tokens, and equal launch
+    counts of kernels 1, 2 and 2v (zeroed just before each run, read just
+    after), each kernel the path runs launched at least once."""
+    from repro_torch.serve import Request, ServeEngine
+
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist()
+               for n in rng.integers(48, 513, size=MESH_SERVE_REQUESTS)]
+    runs = {}
+    for m in (None, mesh):
+        engine = ServeEngine(params, cfg, slots=8, max_seq=2048,
+                             ticks_per_dispatch=8, seed=seed, device="cuda",
+                             mesh=m, **engine_kw)
+        torch.cuda.synchronize()
+        _zero_serve_counts()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            engine.submit(Request(uid=i, prompt=p,
+                                  max_new_tokens=MESH_SERVE_NEW))
+        done = engine.run_until_drained()
+        torch.cuda.synchronize()
+        engine.check_page_invariants()
+        runs[m is not None] = {
+            "s": time.perf_counter() - t0, "counts": _serve_counts(),
+            "tokens": {r.uid: r.out for r in done},
+            "decode_steps": engine.stats["decode_steps"],
+            "accepted": engine.stats["accepted_tokens"]}
+        del engine
+    plain, meshed = runs[False], runs[True]
+    step = ("paged_verify" if engine_kw.get("speculate") is not None
+            else "paged_decode")
+    result = {"mode": "speculative" if step == "paged_verify" else "fused",
+              "requests": len(prompts), "tokens_equal":
+              plain["tokens"] == meshed["tokens"],
+              "wall_s": [plain["s"], meshed["s"]],
+              "launches": {"plain": plain["counts"],
+                           "mesh": meshed["counts"]},
+              "decode_steps": meshed["decode_steps"],
+              "accepted_tokens": meshed["accepted"]}
+    log(f"[mesh] serve, 1 x 1 mesh vs no mesh: {json.dumps(result)}")
+    assert result["tokens_equal"], result
+    assert plain["counts"] == meshed["counts"], result
+    for name in ("paged_prefill", step):
+        assert meshed["counts"][name][0] > 0, result
+    return result
+
+
+def mesh_paco(mesh_p, gen: torch.Generator) -> dict:
+    """``paco_matmul_shmap`` and ``paco_matmul_pjit`` at 4096^3 bf16 on one
+    rank within MM_TOL of ``torch.matmul``, and ``paco_sort_shmap`` of
+    2^24 floats exactly ``torch.sort``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import (make_paco_mesh, paco_matmul_pjit,
+                                  paco_matmul_shmap, paco_sort_shmap)
+
+    n = MESH_MM_N
+    a = torch.randn(n, n, device="cuda", generator=gen).to(torch.bfloat16)
+    b = torch.randn(n, n, device="cuda", generator=gen).to(torch.bfloat16)
+    want = torch.matmul(a, b)
+    mesh3 = make_paco_mesh(n, n, n, 1)
+    mesh1 = init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+    out = {}
+    for name, run in (("shmap", lambda: paco_matmul_shmap(a, b, mesh3)),
+                      ("pjit", lambda: paco_matmul_pjit(a, b, mesh1,
+                                                        "model"))):
+        got = run().full_tensor()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        out[f"matmul_{name}"] = {"rel_err": _rel_mm(got, want),
+                                 "ms": (time.perf_counter() - t0) / 5 * 1e3}
+        assert out[f"matmul_{name}"]["rel_err"] <= MM_TOL[torch.bfloat16], \
+            out
+    x = torch.rand(MESH_SORT_N, device="cuda", generator=gen)
+    t0 = time.perf_counter()
+    vals, valid = paco_sort_shmap(x, mesh_p, "p", torch.Generator(
+        device="cuda").manual_seed(7))
+    got = vals.full_tensor()[valid.full_tensor()]
+    torch.cuda.synchronize()
+    out["sort"] = {"n": MESH_SORT_N, "s": time.perf_counter() - t0,
+                   "exact": bool(torch.equal(got, torch.sort(x).values))}
+    assert out["sort"]["exact"], out
+    return out
+
+
+def mesh_moe_ep(mesh1, gen: torch.Generator) -> dict:
+    """``apply_moe_paco_ep`` on one full-width olmoe-1b-7b layer (64
+    experts, top-1, float32) on one rank, against the dense top-1
+    reference: each token through its arg-max expert, weighted by its
+    router probability (expert by expert, MOE_EP_TOL)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import apply_moe_paco_ep, init_moe
+
+    base = get_arch("olmoe-1b-7b")
+    cfg = dataclasses.replace(base, param_dtype="float32", moe=(
+        dataclasses.replace(base.moe, top_k=1, capacity_factor=MESH_MOE[
+            "capacity_factor"])))
+    p = init_moe(gen, cfg, torch.float32)
+    x = torch.randn(MESH_MOE["batch"], MESH_MOE["seq"], cfg.d_model,
+                    device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = apply_moe_paco_ep(p, cfg, x, mesh1, "model").full_tensor()
+    torch.cuda.synchronize()
+    ep_s = time.perf_counter() - t0
+    xf = x.reshape(-1, cfg.d_model)
+    probs = torch.softmax(xf @ p["router"], dim=-1)
+    w, eid = probs.max(dim=-1)
+    want = torch.zeros_like(xf)
+    for e in range(cfg.moe.n_experts):
+        rows = (eid == e).nonzero()[:, 0]
+        h = torch.nn.functional.silu(xf[rows] @ p["gate"][e]) * (
+            xf[rows] @ p["up"][e])
+        want[rows] = (h @ p["down"][e]) * w[rows, None]
+    want = want.reshape(x.shape)
+    result = {"experts": cfg.moe.n_experts, "tokens": xf.shape[0],
+              "rel_err": max_err(got, want) / float(want.abs().max()),
+              "s": ep_s}
+    assert result["rel_err"] <= MOE_EP_TOL, result
+    return result
+
+
+def mesh_elastic(cfg, seed: int) -> dict:
+    """``ElasticRunner`` on the 1 x 1 mesh: qwen3-0.6b at full width, cut
+    to 2 layers, B 2 x S 512.  An uninterrupted run of 4 steps (saved
+    every 2), and a run that loses its ranks at step 3 (``fail_at``; the
+    survivor count is 1), restores the step-2 checkpoint on a new mesh and
+    replays batches 2 and 3: its losses equal the uninterrupted run's
+    (rtol 2e-4, as ``tests/test_spmd.py``), and whether bitwise."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, global_batch_rowwise
+    from repro_torch.dist import sharding as D
+    from repro_torch.ft import ElasticRunner
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, train_step
+
+    el = MESH_ELASTIC
+    cfg = dataclasses.replace(cfg, n_layers=el["layers"])
+    tcfg = TrainConfig(opt=AdamWConfig(lr=MESH_TRAIN_LR))
+    dcfg = DataConfig(seq_len=el["seq"], global_batch=el["batch"],
+                      vocab=cfg.vocab, seed=seed)
+
+    def build(mesh):
+        params = init_params(cfg, seed=seed, device="cuda")
+        params = D.distribute(mesh, params, D.param_specs(cfg, params, mesh))
+
+        def step_fn(p, s, batch):
+            return train_step(p, s, D.distribute(mesh, batch, D.batch_specs(
+                cfg, mesh, batch)), cfg=cfg, tcfg=tcfg)
+        return {"params": params, "state": init_train_state(cfg, tcfg,
+                                                            params),
+                "step_fn": step_fn}
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build_dir, prefix="mesh_ckpt_")
+    try:
+        batches = [global_batch_rowwise(dcfg, i, device="cuda")
+                   for i in range(4)]
+        _, _, base = ElasticRunner(f"{tmp}/a", build, el["save_every"]).run(
+            1, batches)
+        _, _, replay = ElasticRunner(f"{tmp}/b", build,
+                                     el["save_every"]).run(
+            1, batches + batches[2:], fail_at=3, surviving=1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = base[:3] + base[2:]
+    result = {"layers": cfg.n_layers, "losses": replay, "uninterrupted": base,
+              "bitwise": replay == want}
+    np.testing.assert_allclose(replay, want, rtol=2e-4)
+    assert all(math.isfinite(v) for v in replay), result
+    return result
+
+
+def mesh_phase(seed: int, smi: str) -> dict:
+    """The meshed paths on the card (a one-rank NCCL group, a 1 x 1 mesh):
+    the train step, serving (fused and speculative), the SPMD matmul and
+    sort executors, the expert-parallel MoE and the elastic restart.
+    Returns the kernels' launches of its meshed runs."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _mesh_group()
+    try:
+        mesh = make_host_mesh((1, 1))
+        assert mesh.device_type == "cuda"
+        cfg = get_arch(ARCH)
+        train = mesh_train_step(cfg, mesh, seed)
+        params = init_params(cfg, seed=seed, device="cuda")
+        rng = np.random.default_rng([seed, 18])
+        fused = mesh_serve(cfg, params, mesh, rng, seed)
+        spec = mesh_serve(cfg, params, mesh, rng, seed, speculate=0,
+                          spec_min_accept=0)
+        del params
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+        mesh_p = init_device_mesh("cuda", (1,), mesh_dim_names=("p",))
+        mesh1 = init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+        paco = mesh_paco(mesh_p, gen)
+        log(f"[mesh] paco executors: {json.dumps(paco)}; {smi}")
+        moe = mesh_moe_ep(mesh1, gen)
+        log(f"[mesh] apply_moe_paco_ep vs dense top-1: {json.dumps(moe)}; "
+            f"{smi}")
+        torch.cuda.empty_cache()
+        elastic = mesh_elastic(cfg, seed)
+        log(f"[mesh] elastic replay: {json.dumps(elastic)}; {smi}")
+    finally:
+        dist.destroy_process_group()
+    return {"flash_attention": train["flash"]["mesh"][0]["launches"],
+            "flash_attention_bwd": train["flash"]["mesh"][1]["launches"],
+            "paged_prefill": (fused["launches"]["mesh"]["paged_prefill"][0]
+                              + spec["launches"]["mesh"]["paged_prefill"][0]),
+            "paged_decode": fused["launches"]["mesh"]["paged_decode"][0],
+            "paged_verify": spec["launches"]["mesh"]["paged_verify"][0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3940,6 +4299,12 @@ def main() -> int:
     # LCS kernels
     with phase("paco algorithms"):
         launches.update(paco_algorithms(args.seed, smi))
+
+    # 11. the meshed paths on a one-rank NCCL group (a 1 x 1 mesh): the
+    # same kernels, the same answers and the same launch counts as above
+    with phase("mesh"):
+        log(f"[mesh] launches on the mesh: "
+            f"{json.dumps(mesh_phase(args.seed, smi))}")
 
     for r in rows:
         r["launches"] = launches[r["name"]]

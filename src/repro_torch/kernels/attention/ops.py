@@ -10,13 +10,21 @@ lowering and the oracle of the kernels.  The kernel lowering is the
 hand-written Hopper kernel in ``attention.py``.  ``use_kernel=None`` (the
 model code's default) takes the kernel exactly when the tensors are on
 CUDA; ``use_kernel=False`` takes the plain version on any device.
+
+Under a mesh (DTensor arguments inside ``dist.act_sharding.
+use_mesh_rules``), each paged op runs on every rank's block: query heads
+cut over the model axis as the pools' heads are (``dist.sharding.
+paged_pool_specs``; latent pools are whole), slots over the dp axes, and
+the kernel or plain version sees contiguous local tensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from repro_torch.dist import act_sharding as act
 from repro_torch.kernels.attention import attention as K
 from repro_torch.kernels.attention import ref as R
 from repro_torch.models import layers as L
@@ -56,6 +64,35 @@ def gather_kv_pages(pages: torch.Tensor, block_tables: torch.Tensor
                                               *pages.shape[2:])
 
 
+def _on_shards(latent: bool, per_slot: bool):
+    """Run the wrapped paged op on each rank's block under a mesh.  GQA:
+    the query heads are cut only where the pools' KV heads are (the model
+    axis divides Hkv), so that query head h stays with KV head h // G.
+    Latent: query heads cut where they divide, pools whole.  ``per_slot``
+    ops take (B, W) block tables and (B,) lengths, cut over dp with the
+    slots; the prefill ops take one block row and a start, whole."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            if not any(act.is_dtensor(a) for a in args):
+                return fn(*args, **kw)
+            if latent:
+                q_names = ("dp", None, "model", None)
+                names = (q_names, q_names, (None,) * 3, (None,) * 3)
+            else:
+                cut = args[1].shape[2] % act.model_size() == 0
+                q_names = ("dp", None, "model" if cut else None, None)
+                pool = (None, None, "model", None)
+                names = (q_names, pool, pool)
+            names += (("dp", None), ("dp",)) if per_slot else ((None,),
+                                                               None)
+            return act.local_call(functools.partial(fn, **kw), names, 0,
+                                  *args)
+        return wrapper
+    return deco
+
+
+@_on_shards(latent=False, per_slot=True)
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            lengths: torch.Tensor, *,
@@ -98,6 +135,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(b, 1, hq, dhv).to(q.dtype)
 
 
+@_on_shards(latent=False, per_slot=True)
 def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            lengths: torch.Tensor, *,
@@ -150,6 +188,7 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(b, w, hq, dhv).to(q.dtype)
 
 
+@_on_shards(latent=False, per_slot=False)
 def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor, block_row: torch.Tensor,
                             start: int, *, window: int | None = None,
@@ -195,6 +234,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return o.to(q.dtype)
 
 
+@_on_shards(latent=True, per_slot=True)
 def paged_latent_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                                   ckv_pages: torch.Tensor,
                                   kr_pages: torch.Tensor,
@@ -230,6 +270,7 @@ def paged_latent_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     return out.to(q_lat.dtype)
 
 
+@_on_shards(latent=True, per_slot=True)
 def paged_latent_verify_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                                   ckv_pages: torch.Tensor,
                                   kr_pages: torch.Tensor,
@@ -268,6 +309,7 @@ def paged_latent_verify_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     return out.to(q_lat.dtype)
 
 
+@_on_shards(latent=True, per_slot=False)
 def paged_latent_prefill_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                                    ckv_pages: torch.Tensor,
                                    kr_pages: torch.Tensor,

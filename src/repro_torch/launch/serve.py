@@ -1,4 +1,5 @@
-"""Serving launcher of the port: paged continuous batching on one device.
+"""Serving launcher of the port: paged continuous batching on one device
+or on a mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --requests 16 --new-tokens 16            # on the card
@@ -12,6 +13,11 @@
   # speculative decoding (n-gram drafts verified in one batched forward,
   # greedy only), each request re-decoded by the reference oracle:
   ... --speculate 0 --verify-parity
+
+  # on a mesh, under torchrun (gloo on cpu, NCCL on cuda):
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \
+      --device cpu --mesh 2x2
 
 Weights are the port's own random ones, drawn from ``--seed``.
 """
@@ -64,7 +70,16 @@ def main() -> None:
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the sampler")
+    ap.add_argument("--mesh", default=None,
+                    help="auto, DxM, production or multi_pod (under "
+                         "torchrun); default: one device, no mesh")
     args = ap.parse_args()
+    mesh, rank = None, 0
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import init_from_env, mesh_from_flag
+        rank, world = init_from_env(args.device)
+        mesh = mesh_from_flag(args.mesh, world, args.device)
+    print_ = print if rank == 0 else (lambda *a, **k: None)
 
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -77,8 +92,8 @@ def main() -> None:
                          ticks_per_dispatch=args.ticks_per_dispatch,
                          speculate=args.speculate,
                          spec_min_accept=args.spec_min_accept,
-                         seed=args.seed, device=args.device)
-    print(f"{cfg.name}: device={engine.device} slots={args.slots} "
+                         seed=args.seed, device=args.device, mesh=mesh)
+    print_(f"{cfg.name}: device={engine.device} slots={args.slots} "
           f"page={engine.page} chunk={engine.chunk} "
           f"pool={engine.pool.n_pages} pages ticks/dispatch={engine.ticks}"
           + (f" draft_len={engine.draft_len}"
@@ -95,7 +110,7 @@ def main() -> None:
     budget_ok = all(
         r.prefill_calls <= (r.preemptions + 1)
         * -(-(len(r.prompt) + len(r.out)) // chunk) for r in done)
-    print(f"served {len(done)} requests, {total} tokens in {dt:.2f}s "
+    print_(f"served {len(done)} requests, {total} tokens in {dt:.2f}s "
           f"({total / dt:.1f} tok/s); prefill calls="
           f"{engine.stats['prefill_calls']} (<=ceil(len/chunk) per admit: "
           f"{'ok' if budget_ok else 'VIOLATED'}), decode steps="
@@ -107,7 +122,7 @@ def main() -> None:
         s = engine.stats
         rate = s["accepted_tokens"] / max(s["drafted_tokens"], 1)
         per_win = s["decode_tokens"] / max(s["spec_windows"], 1)
-        print(f"speculation: draft_len={engine.draft_len} "
+        print_(f"speculation: draft_len={engine.draft_len} "
               f"windows={s['spec_windows']} "
               f"accepted={s['accepted_tokens']}/{s['drafted_tokens']} "
               f"drafts (rate={rate:.2f}), "
@@ -115,17 +130,20 @@ def main() -> None:
               f"{s['decode_tokens'] / max(s['dispatches'], 1):.1f}, "
               f"fallback dispatches={s['spec_fallback_dispatches']}")
     for r in done[:4]:
-        print(f"  req {r.uid}: {r.out[:8]}")
+        print_(f"  req {r.uid}: {r.out[:8]}")
     if args.verify_parity:
         from repro_torch.serve import reference_decode
         for r in sorted(done, key=lambda r: r.uid):
-            ref = reference_decode(engine.params, cfg, r.prompt,
+            ref = reference_decode(params, cfg, r.prompt,
                                    max_new_tokens=r.max_new_tokens,
                                    eos_id=r.eos_id, max_seq=engine.max_seq)
             if r.out != ref:
                 raise SystemExit(f"req {r.uid}: engine {r.out} != "
                                  f"reference {ref}")
-        print(f"reference parity: ok ({len(done)} requests)")
+        print_(f"reference parity: ok ({len(done)} requests)")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Training launcher of the port, on one device.
+"""Training launcher of the port, on one device or on a mesh.
 
   # small, on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
@@ -20,10 +20,19 @@
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch mamba2-780m --steps 3 --batch 2 --seq 256
 
-Flags as ``repro.launch.train``'s, except that ``--mesh`` is replaced by
-``--device`` (default cuda): a mesh of several devices is not ported yet.
-Weights are the port's own random ones (seed 0, as ``repro``'s
-``Trainer.init``).
+  # on a mesh, under torchrun: 4 CPU ranks as 2 (data) x 2 (model), or
+  # the card as a 1 x 1 mesh (NCCL; the same kernels as without a mesh)
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch qwen3-0.6b --reduced \
+      --device cpu --mesh 2x2 --steps 2 --batch 4 --seq 32
+  PYTHONPATH=src torchrun --nproc-per-node 1 -m repro_torch.launch.train \
+      --arch qwen3-0.6b --mesh 1x1 --steps 5 --batch 2 --seq 4096
+
+Flags as ``repro.launch.train``'s, plus ``--device`` (default cuda).
+``--mesh`` (auto: the best 2-D mesh for the world, DxM, production,
+multi_pod) needs torchrun, with NCCL on cuda and gloo on cpu; without it
+the launcher trains on one device.  Weights are the port's own random
+ones (seed 0, as ``repro``'s ``Trainer.init``).
 """
 from __future__ import annotations
 
@@ -53,7 +62,16 @@ def main() -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="auto, DxM, production or multi_pod (under "
+                         "torchrun); default: one device, no mesh")
     args = ap.parse_args()
+    mesh, rank = None, 0
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import init_from_env, mesh_from_flag
+        rank, world = init_from_env(args.device)
+        mesh = mesh_from_flag(args.mesh, world, args.device)
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -66,28 +84,32 @@ def main() -> None:
         microbatches=args.microbatches,
         compress_dp_grads=args.compress_grads)
     trainer = Trainer(cfg, tcfg, dcfg, ckpt_dir=args.ckpt_dir,
-                      log_every=1, device=args.device)
+                      log_every=1, device=args.device, mesh=mesh)
     on_card = torch.device(args.device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     params, state = trainer.init()
-    print(f"arch={cfg.name} device={args.device} "
-          f"params={param_count(params)}")
+    say(f"arch={cfg.name} device={args.device} "
+        f"params={param_count(params)}"
+        + (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}"
+           if mesh is not None else ""))
     params, state, history = trainer.run(args.steps, params=params,
                                          state=state)
     losses = [h["loss"] for h in history]
     times = [h["step_time_s"] for h in history[1:]] or [
         history[0]["step_time_s"]]
     mean_s = float(np.mean(times))
-    print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-          f"(mean step {mean_s * 1e3:.0f} ms)")
+    say(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(mean step {mean_s * 1e3:.0f} ms)")
     if on_card:
         tokens = args.batch * args.seq
         flops = 6 * active_param_count(cfg, params) * tokens
-        print(f"{tokens / mean_s:.0f} tokens/s, model {flops / mean_s:.3g} "
-              f"FLOP/s, peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
-              f"{torch.cuda.get_device_name()}")
+        say(f"{tokens / mean_s:.0f} tokens/s, model {flops / mean_s:.3g} "
+            f"FLOP/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+            f"{torch.cuda.get_device_name()}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import act_sharding as act
 from repro_torch.models import layers as L
 from repro_torch.models.hybrid import _logits, _zeros
 from repro_torch.models.transformer import (LeafSpec, _embed, _layer, _stack,
@@ -68,11 +69,12 @@ def init_encdec(cfg: ArchConfig, gen: torch.Generator) -> Params:
 def _enc_block(blk: Params, cfg: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor, use_kernel: bool | None
                ) -> torch.Tensor:
+    x = act.residual(x)
     h = L.rms_norm(x, blk["ln1"])
     x = x + L.apply_gqa(blk["attn"], cfg, h, positions, causal=False,
                         use_kernel=use_kernel)
     h = L.rms_norm(x, blk["ln2"])
-    return x + L.apply_mlp(blk["mlp"], cfg, h)
+    return act.residual(x + L.apply_mlp(blk["mlp"], cfg, h))
 
 
 def encode(params: Params, cfg: ArchConfig, src_emb: torch.Tensor, *,
@@ -84,7 +86,7 @@ def encode(params: Params, cfg: ArchConfig, src_emb: torch.Tensor, *,
     promotes the whole encoder to f32 when f32 frames meet bf16 weights,
     which a torch matmul of mixed dtypes does not do.  With f32 weights
     the two are the same."""
-    x = src_emb.to(params["enc_norm"].dtype)
+    x = act.batch_seq(src_emb.to(params["enc_norm"].dtype))
     positions = torch.arange(x.shape[1], device=x.device)
     for blk in _unstack(params["enc_blocks"], cfg.n_enc_layers):
         if remat and torch.is_grad_enabled():
@@ -98,9 +100,8 @@ def encode(params: Params, cfg: ArchConfig, src_emb: torch.Tensor, *,
 def cross_kv(p: Params, cfg: ArchConfig, enc: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer's cross-attention K and V (B, S_src, Hkv, Dh)."""
-    b, s_src, _ = enc.shape
-    shape = (b, s_src, cfg.n_kv_heads, cfg.head_dim)
-    return (enc @ p["wk"]).reshape(shape), (enc @ p["wv"]).reshape(shape)
+    return (L.split_heads(enc @ p["wk"], cfg.n_kv_heads, cfg.head_dim),
+            L.split_heads(enc @ p["wv"], cfg.n_kv_heads, cfg.head_dim))
 
 
 def _cross_attention(p: Params, cfg: ArchConfig, h: torch.Tensor,
@@ -111,7 +112,7 @@ def _cross_attention(p: Params, cfg: ArchConfig, h: torch.Tensor,
     arange(S) and k_positions arange(S_src), the flash kernel's Sq != Sk
     entry on CUDA."""
     b, s, _ = h.shape
-    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = L.split_heads(h @ p["wq"], cfg.n_heads, cfg.head_dim)
     k, v = cross_kv(p, cfg, enc)
     o = L.attention(q, k, v, q_positions=torch.arange(s, device=h.device),
                     k_positions=torch.arange(enc.shape[1], device=h.device),
@@ -122,13 +123,14 @@ def _cross_attention(p: Params, cfg: ArchConfig, h: torch.Tensor,
 def _dec_block(blk: Params, cfg: ArchConfig, x: torch.Tensor,
                enc: torch.Tensor, positions: torch.Tensor,
                use_kernel: bool | None) -> torch.Tensor:
+    x = act.residual(x)
     h = L.rms_norm(x, blk["ln1"])
     x = x + L.apply_gqa(blk["attn"], cfg, h, positions, causal=True,
                         use_kernel=use_kernel)
     h = L.rms_norm(x, blk["lnx"])
     x = x + _cross_attention(blk["xattn"], cfg, h, enc, use_kernel)
     h = L.rms_norm(x, blk["ln2"])
-    return x + L.apply_mlp(blk["mlp"], cfg, h)
+    return act.residual(x + L.apply_mlp(blk["mlp"], cfg, h))
 
 
 def forward_encdec(params: Params, cfg: ArchConfig, src_emb: torch.Tensor,

@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import act_sharding as act
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (LeafSpec, _layer, _stack,
@@ -39,12 +40,15 @@ def _mamba_block(gen: torch.Generator, cfg: ArchConfig) -> Params:
 def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor
             ) -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"])
-    return L.mask_vocab((x @ params["lm_head"]).float(), cfg.vocab)
+    return L.mask_vocab(act.constrain((x @ params["lm_head"]).float(),
+                                      "dp", None, "model"), cfg.vocab)
 
 
 def _mamba_apply(blk: Params, cfg: ArchConfig, x: torch.Tensor
                  ) -> torch.Tensor:
-    return x + S.apply_mamba2(blk["mixer"], cfg, L.rms_norm(x, blk["ln"]))
+    x = act.residual(x)
+    return act.residual(
+        x + S.apply_mamba2(blk["mixer"], cfg, L.rms_norm(x, blk["ln"])))
 
 
 def _mamba_layers(blocks: list[Params], cfg: ArchConfig, x: torch.Tensor,
@@ -79,7 +83,7 @@ def forward_ssm_lm(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                    *, remat: bool = True) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) f32.  The embedding is not scaled
     (``repro``'s SSM LM)."""
-    x = params["embed"][tokens]
+    x = act.batch_seq(params["embed"][tokens])
     x = _mamba_layers(_unstack(params["blocks"], cfg.n_layers), cfg, x,
                       remat)
     return _logits(params, cfg, x)
@@ -162,7 +166,7 @@ def forward_hybrid(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     """tokens (B, S) -> logits (B, S, V) f32: each group's Mamba-2 layers,
     then the shared attention block (causal over arange(S))."""
     s = tokens.shape[1]
-    x = params["embed"][tokens]
+    x = act.batch_seq(params["embed"][tokens])
     positions = torch.arange(s, device=x.device)
     shared = params["shared_attn"]
     for grp in _unstack(params["groups"], _n_groups(cfg)):

@@ -3,7 +3,9 @@ tensors.
 
 Layouts follow ``repro``: activations (B, S, D), heads (B, S, H, Dh),
 weights (d_in, d_out) used as ``x @ W``.  The mesh-sharding constraints of
-the JAX layers are no-ops without a mesh and are left out.
+the JAX layers are kept (``dist.act_sharding``): the identity without a
+mesh, a DTensor ``redistribute`` under ``use_mesh_rules``.  Under a mesh
+the attention kernels run on each rank's head shard (``local_call``).
 
 Dense attention over a whole sequence (``attention``) has two lowerings:
 on CUDA the hand-written flash kernels (``kernels.attention.attention.
@@ -19,6 +21,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import act_sharding as act
 from repro_torch.kernels.attention import attention as K
 
 Params = dict[str, Any]
@@ -124,6 +127,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     query chunk of ``q_chunk`` rows at a time.  ``repro`` also rematerializes
     each chunk in its backward; here autograd keeps each chunk's weights,
     and the model's per-layer remat bounds that to one layer."""
+    if act.is_dtensor(q):
+        return _sharded_attention(
+            q, k, v, q_positions=q_positions, k_positions=k_positions,
+            causal=causal, window=window, logit_cap=logit_cap,
+            q_chunk=q_chunk, scale=scale, use_kernel=use_kernel)
     b, sq, hq, dh = q.shape
     _, sk, hkv, dhv = v.shape
     if use_kernel is None:
@@ -162,9 +170,81 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=2).transpose(1, 2)
 
 
+def split_heads(y: torch.Tensor, h: int, d: int, *, rows: bool = True
+                ) -> torch.Tensor:
+    """(..., h * d) -> (..., h, d).  Under a mesh the last dim is laid out
+    in whole heads first (cut over the model axis only where it divides
+    h; a k-cut's partial sums are added), so that the reshape splits no
+    head; ``rows`` puts the leading dim over dp (activations, not
+    weights)."""
+    if act.is_dtensor(y):
+        names = (("dp",) if rows else (None,)) + (None,) * (y.ndim - 2)
+        y = act.constrain(y, *names,
+                          "model" if h % act.model_size() == 0 else None)
+    return y.reshape(*y.shape[:-1], h, d)
+
+
+def head_names(hq: int, hkv: int) -> tuple[tuple, tuple, bool]:
+    """The PACO cut of the attention cuboid under the active mesh: logical
+    names for q (B, S, Hq, D) and for k / v (B, S, Hkv, D), and whether
+    K/V must first be repeated over the G query heads of a group.
+
+    The port's kernels share K/V across a group's G heads, where ``repro``
+    repeats K/V before cutting heads.  When the model axis divides Hkv,
+    q is cut in blocks of Hq/pm heads and K/V in blocks of Hkv/pm, so
+    query head h stays with KV head h // G; when it divides Hq only, K/V
+    are repeated as ``repro`` does.  When it divides neither, ``repro``
+    runs sequence-parallel attention; the port gathers the heads and runs
+    the kernel whole on every rank (same values, other communication)."""
+    pm = act.model_size()
+    q_names = ("dp", None, "model", None)
+    if hkv % pm == 0:
+        return q_names, q_names, False
+    if hq % pm == 0:
+        return q_names, q_names, True
+    whole = ("dp", None, None, None)
+    return whole, whole, False
+
+
+def repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, Hkv * g, D), each KV head repeated over
+    its g query heads (``repeat_interleave`` by expand and reshape, which
+    DTensor lays out)."""
+    b, s, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, h, g, d).reshape(b, s, h * g, d)
+
+
+def _sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, q_positions: torch.Tensor,
+                       k_positions: torch.Tensor, **kw) -> torch.Tensor:
+    """``attention`` on DTensors: the whole-sequence kernel (or the plain
+    version) on each rank's block of heads and batch rows."""
+    q_names, kv_names, rep = head_names(q.shape[2], k.shape[2])
+    if rep:
+        g = q.shape[2] // k.shape[2]
+        k, v = repeat_kv(k, g), repeat_kv(v, g)
+
+    def body(q, k, v, qp, kp):
+        return attention(q, k, v, q_positions=qp, k_positions=kp, **kw)
+
+    return act.local_call(body, (q_names, kv_names, kv_names, None, None),
+                          0, q, k, v, q_positions, k_positions)
+
+
 # ---------------------------------------------------------------------------
 # Single-token decode against a dense (non-paged) cache
 # ---------------------------------------------------------------------------
+
+def kv_cache_constrain(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, dh) decode cache: heads over the model axis when they
+    divide, else the sequence (sequence-parallel KV), as
+    ``dist.sharding.cache_specs``."""
+    if not act.active():
+        return x
+    if x.shape[2] % act.model_size() == 0:
+        return act.constrain(x, "dp", None, "model", None)
+    return act.constrain(x, "dp", "model", None, None)
+
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, lengths: torch.Tensor,
@@ -184,6 +264,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _, s, hkv, dhv = v_cache.shape
     g = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    k_cache = kv_cache_constrain(k_cache)
+    v_cache = kv_cache_constrain(v_cache)
     qr = q.reshape(b, hkv, g, dh)
     scores = torch.einsum("bhgd,bshd->bhgs", qr.float(),
                           k_cache.float()) * scale
@@ -248,9 +330,11 @@ def gqa_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
     before rope, as ``repro.models.layers.gqa_qkv``."""
     b, s, _ = x.shape
     dh = cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, dh)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, dh)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, dh)
+    q = split_heads(x @ p["wq"], cfg.n_heads, dh)
+    k = split_heads(x @ p["wk"], cfg.n_kv_heads, dh)
+    v = split_heads(x @ p["wv"], cfg.n_kv_heads, dh)
+    # the head layout (dh whole) before qk-norm and rope, as repro
+    q, k, v = act.heads(q), act.heads(k), act.heads(v)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -305,11 +389,13 @@ def mla_latents(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
     """Compressed KV latents, head-free: c_kv (B, S, kv_lora) and
     k_rope (B, S, qk_rope)."""
     m = cfg.mla
-    ckv_kr = x @ p["w_dkv"]
+    # [c_kv | k_rope] whole before it is sliced (repro's MLA rule)
+    ckv_kr = act.constrain(x @ p["w_dkv"], "dp", None, None)
     c_kv = rms_norm(ckv_kr[..., :m.kv_lora], p["kv_norm"])
     k_rope = apply_rope(ckv_kr[..., m.kv_lora:], positions, cfg.rope_theta,
                         head_axis=False)
-    return c_kv, k_rope
+    return (act.constrain(c_kv, "dp", None, None),
+            act.constrain(k_rope, "dp", None, None))
 
 
 def mla_queries(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
@@ -318,7 +404,7 @@ def mla_queries(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
     m = cfg.mla
     b, s, _ = x.shape
     q = rms_norm(x @ p["w_dq"], p["q_norm"]) @ p["w_uq"]
-    q = q.reshape(b, s, cfg.n_heads, m.qk_nope + m.qk_rope)
+    q = act.heads(split_heads(q, cfg.n_heads, m.qk_nope + m.qk_rope))
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -330,9 +416,9 @@ def mla_absorbed_q(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
     separate: scores are q_lat . c_kv + q_rope . k_rope, never a concat."""
     m = cfg.mla
     q_nope, q_rope = mla_queries(p, cfg, x, positions)
-    w_uk = p["w_uk"].reshape(m.kv_lora, cfg.n_heads, m.qk_nope)
+    w_uk = split_heads(p["w_uk"], cfg.n_heads, m.qk_nope, rows=False)
     q_lat = torch.einsum("bshd,khd->bshk", q_nope, w_uk)
-    return q_lat.contiguous(), q_rope.contiguous()
+    return act.heads(q_lat.contiguous()), act.heads(q_rope.contiguous())
 
 
 def mla_out(p: Params, cfg, o_lat: torch.Tensor) -> torch.Tensor:
@@ -340,8 +426,8 @@ def mla_out(p: Params, cfg, o_lat: torch.Tensor) -> torch.Tensor:
     expand through W_uv per head, then the output projection."""
     m = cfg.mla
     b, s = o_lat.shape[:2]
-    w_uv = p["w_uv"].reshape(m.kv_lora, cfg.n_heads, m.v_head)
-    o = torch.einsum("bshk,khd->bshd", o_lat, w_uv)
+    w_uv = split_heads(p["w_uv"], cfg.n_heads, m.v_head, rows=False)
+    o = torch.einsum("bshk,khd->bshd", act.heads(o_lat), w_uv)
     return o.reshape(b, s, cfg.n_heads * m.v_head) @ p["wo"]
 
 
@@ -357,6 +443,9 @@ def latent_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     softmax weights rounded to c_kv's dtype before the PV product, f32
     accumulation.  ``repro`` scans over query chunks to bound its memory;
     rows are independent, so one pass computes the same values."""
+    q_lat, q_rope = act.heads(q_lat), act.heads(q_rope)
+    c_kv = act.constrain(c_kv, "dp", None, None)
+    k_rope = act.constrain(k_rope, "dp", None, None)
     s = (torch.einsum("bqhk,bsk->bhqs", q_lat.float(), c_kv.float())
          + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), k_rope.float())
          ) * scale
@@ -396,6 +485,8 @@ def latent_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     ``latent_decode_attention``: scores in the decomposed form q_lat . c_kv
     + q_rope . k_rope in f32, the finite -1e30 mask, weights rounded to
     c_kv's dtype before the PV product (c_kv is also the value)."""
+    c_kv = act.constrain(c_kv, "dp", None, None)
+    k_rope = act.constrain(k_rope, "dp", None, None)
     s = c_kv.shape[1]
     scores = (torch.einsum("bqhk,bsk->bhqs", q_lat.float(), c_kv.float())
               + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),

@@ -10,6 +10,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import act_sharding as act
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import moe as M
@@ -61,7 +62,10 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict, *,
     value ``repro``'s masked vocab-iota sum gives without its (B, S, V)
     integer iota.  The MoE aux loss is ``repro``'s layer-0 proxy: layer 0's
     router over the token embeddings."""
-    logits = forward(params, cfg, batch, remat=remat, use_kernel=use_kernel)
+    # vocab whole for the gather (cut over the model axis under a mesh)
+    logits = act.constrain(
+        forward(params, cfg, batch, remat=remat, use_kernel=use_kernel),
+        "dp", None, None)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     labels = torch.clamp(labels, min=0).long()

@@ -25,6 +25,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import act_sharding as act
+
 Params = dict[str, Any]
 
 
@@ -58,16 +60,19 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
     # 1) intra-chunk (diagonal blocks): "bclhn,bcshn,bhcls,bcshp->bclhp"
     # as C B^T over n, times the decay mask, then over s with x
-    lmat = torch.exp(segsum(ar))                              # (B,H,c,l,l)
+    lmat = act.constrain(torch.exp(segsum(ar)),
+                         "dp", "model", None, None, None)     # (B,H,c,l,l)
     scores = torch.einsum("bclhn,bcshn->bclsh", cr_h, br_h)   # (B,c,l,l,H)
     scores = scores * lmat.permute(0, 2, 3, 4, 1)
-    y_diag = torch.einsum("bclsh,bcshp->bclhp", scores, xr)
+    y_diag = act.constrain(torch.einsum("bclsh,bcshp->bclhp", scores, xr),
+                           "dp", None, None, "model", None)
     del scores
     # 2) per-chunk output states: "bclhn,bhcl,bclhp->bchpn" as the decay
     # times x first, then over l with B
     decay_states = torch.exp(a_cum[..., -1:] - a_cum)         # (B, H, c, l)
     xd = decay_states.permute(0, 2, 3, 1)[..., None] * xr     # (B,c,l,H,P)
-    states = torch.einsum("bclhn,bclhp->bchpn", br_h, xd)
+    states = act.constrain(torch.einsum("bclhn,bclhp->bchpn", br_h, xd),
+                           "dp", None, "model", None, None)
     # 3) inter-chunk recurrence (includes the initial state h0)
     if h0 is None:
         h0 = torch.zeros((bs, h, p, n), dtype=x.dtype, device=x.device)
@@ -79,8 +84,10 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     # 4) state -> output within each chunk: "bclhn,bchpn,bhcl->bclhp" as C
     # against the states over n, then the decay
     state_decay = torch.exp(a_cum)                            # (B, H, c, l)
-    y_off = (torch.einsum("bclhn,bchpn->bclhp", cr_h, states_in)
-             * state_decay.permute(0, 2, 3, 1)[..., None])
+    y_off = act.constrain(
+        torch.einsum("bclhn,bchpn->bclhp", cr_h, states_in)
+        * state_decay.permute(0, 2, 3, 1)[..., None],
+        "dp", None, None, "model", None)
     y = (y_diag + y_off).reshape(bs, s, h, p)
     return y, final
 
@@ -153,13 +160,15 @@ def apply_mamba2(p: Params, cfg, u: torch.Tensor) -> torch.Tensor:
     m = cfg.ssm
     bs, s, _ = u.shape
     d_in, gn, nheads = _dims(cfg)
-    z, xbc, dt = _split_proj(cfg, u @ p["in_proj"])
+    z, xbc, dt = _split_proj(cfg, act.constrain(u @ p["in_proj"],
+                                                "dp", None, "model"))
     # causal depthwise conv over (x, B, C), in repro's order of sums
     w = p["conv_w"]                                           # (W, d_in+2gn)
     pad = F.pad(xbc, (0, 0, m.conv_width - 1, 0))
     conv = sum(pad[:, i:i + s] * w[i] for i in range(m.conv_width))
     conv = F.silu(conv)
-    x = conv[..., :d_in].reshape(bs, s, nheads, m.headdim)
+    x = act.constrain(conv[..., :d_in].reshape(bs, s, nheads, m.headdim),
+                      "dp", None, "model", None)
     b = conv[..., d_in:d_in + gn].reshape(bs, s, m.n_groups, m.d_state)
     c = conv[..., d_in + gn:].reshape(bs, s, m.n_groups, m.d_state)
     dt = F.softplus(dt.float() + p["dt_bias"])                # (B, S, H)
@@ -186,7 +195,8 @@ def step_mamba2(p: Params, cfg, u: torch.Tensor, conv_state: torch.Tensor,
     m = cfg.ssm
     bs = u.shape[0]
     d_in, gn, nheads = _dims(cfg)
-    z, xbc, dt = _split_proj(cfg, u @ p["in_proj"])
+    z, xbc, dt = _split_proj(cfg, act.constrain(u @ p["in_proj"],
+                                                "dp", None, "model"))
     window = torch.cat([conv_state, xbc[:, None]], dim=1)
     conv = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"]))
     new_conv_state = window[:, 1:]

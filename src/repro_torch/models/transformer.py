@@ -8,9 +8,16 @@ L dim), as in ``repro``; the layers run as a Python loop.  Page pools are
 dicts {"k", "v"} of (L, n_pages + 1, page, Hkv, Dh) tensors for GQA, and
 {"c_kv", "k_rope"} of head-free (L, n_pages + 1, page, kv_lora / qk_rope)
 latent tensors for MLA.  Where JAX donates the pool through jit, these
-functions write the pool IN PLACE and return the same dict.  Attention goes through ``kernels.attention.ops``:
-the hand-written kernels when the tensors are on CUDA, the plain gather
-version on the CPU or with ``use_kernel=False``.
+functions write the pool IN PLACE and return the same dict.  Attention
+goes through ``kernels.attention.ops``: the hand-written kernels when the
+tensors are on CUDA, the plain gather version on the CPU or with
+``use_kernel=False``.
+
+Under ``dist.act_sharding.use_mesh_rules`` with DTensor params and pools,
+the same code runs sharded: ``repro``'s constraints (``batch_seq``,
+``residual``, the vocab-cut logits) redistribute the activations, page
+writes go to each rank's local pool shard, and the serving paths hand
+back whole logits on every rank.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import act_sharding as act
 from repro_torch.kernels.attention import ops as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -54,15 +62,18 @@ def _layer_windows(cfg: ArchConfig, n_layers: int) -> list[int]:
 
 
 def _layer(blocks: Params, i: int) -> Params:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in blocks.items()}
+    """Layer i of layer-stacked blocks (a leaf cut on its layer dim, a
+    stacked (L, d) vector under a mesh, is gathered first)."""
+    return {k: _layer(v, i) if isinstance(v, dict)
+            else act.unshard_dim(v, 0)[i] for k, v in blocks.items()}
 
 
 def _unstack(blocks: Params, n: int) -> list[Params]:
     """Layer-stacked blocks -> one dict per layer, by ``unbind``: the
     backward stacks the n layers' gradients once, where n separate index
     views would each scatter into a zero tensor of the whole stack."""
-    cols = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+    cols = {k: (_unstack(v, n) if isinstance(v, dict)
+                else act.unshard_dim(v, 0).unbind(0))
             for k, v in blocks.items()}
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
@@ -135,8 +146,8 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor
            ) -> torch.Tensor:
     emb = params["embed"]
     # sqrt(d_model) rounded to the parameter dtype first, as in repro
-    return emb[tokens] * torch.tensor(math.sqrt(cfg.d_model),
-                                      dtype=emb.dtype, device=emb.device)
+    return act.batch_seq(emb[tokens] * torch.tensor(
+        math.sqrt(cfg.d_model), dtype=emb.dtype, device=emb.device))
 
 
 def _mlp_residual(blk: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -149,21 +160,53 @@ def _mlp_residual(blk: Params, cfg: ArchConfig, x: torch.Tensor,
          else L.apply_mlp(blk["mlp"], cfg, h))
     if "ln2_post" in blk:
         f = L.rms_norm(f, blk["ln2_post"])
-    return x + f
+    return act.residual(x + f)
 
 
 def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor
             ) -> torch.Tensor:
+    """Logits (..., V) f32; under a mesh cut over the vocab (model) axis,
+    as ``repro``'s."""
     x = L.rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return L.mask_vocab(L.softcap((x @ head).float(), cfg.softcap_logits),
+    logits = act.constrain(x @ head, *("dp",) + (None,) * (x.dim() - 2)
+                           + ("model",))
+    return L.mask_vocab(L.softcap(logits.float(), cfg.softcap_logits),
                         cfg.vocab)
+
+
+def _local(pool: torch.Tensor) -> torch.Tensor:
+    """A pool's local shard under a mesh (written in place), else the
+    pool."""
+    return pool.to_local() if act.is_dtensor(pool) else pool
+
+
+def _write_rows(pool: torch.Tensor, i: int, index: tuple,
+                new: torch.Tensor) -> None:
+    """pool[i][index] = new, IN PLACE.  Under a mesh the write goes to
+    each rank's local pool shard: ``new`` is gathered to the pool's own
+    cut (its trailing dims are the pool's), and the index (pages and
+    offsets, alike on every rank) is whole everywhere."""
+    if not act.is_dtensor(pool):
+        pool[i][index] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    lead = pool.ndim - new.ndim
+    want = tuple(Shard(p.dim - lead) if isinstance(p, Shard) else Replicate()
+                 for p in pool.placements)
+    new = act.as_dtensor(new, pool.device_mesh)
+    if tuple(new.placements) != want:
+        new = new.redistribute(pool.device_mesh, want)
+    index = tuple(act.replicate(t) for t in index)
+    _local(pool)[i][index] = new.to_local()
 
 
 def _block_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
                  positions: torch.Tensor, window: int,
                  use_kernel: bool | None = None) -> torch.Tensor:
     """One decoder block over whole sequences: (B, S, D) -> (B, S, D)."""
+    x = act.residual(x)
     h = L.rms_norm(x, p["ln1"])
     if cfg.attn == "mla":
         a = L.apply_mla(p["attn"], cfg, h, positions)
@@ -340,9 +383,10 @@ def prefill_chunk_decoder(params: Params, cfg: ArchConfig,
     windows = _layer_windows(cfg, cfg.n_layers)
     page_ids = block_row[start // page:(start + c) // page].long()
 
-    def scatter(pool_l: torch.Tensor, new: torch.Tensor) -> None:
+    def scatter(pool: torch.Tensor, i: int, new: torch.Tensor) -> None:
         """Write this chunk's C positions as C/page WHOLE pages."""
-        pool_l[page_ids] = new.reshape(c // page, page, *new.shape[2:])
+        _write_rows(pool, i, (page_ids,),
+                    new.reshape(c // page, page, *new.shape[2:]))
 
     for i in range(cfg.n_layers):
         blk = _layer(params["blocks"], i)
@@ -352,8 +396,8 @@ def prefill_chunk_decoder(params: Params, cfg: ArchConfig,
         # global causal rule
         if cfg.attn == "mla":
             c_kv, k_rope = L.mla_latents(blk["attn"], cfg, h, positions)
-            scatter(pages["c_kv"][i], c_kv)
-            scatter(pages["k_rope"][i], k_rope)
+            scatter(pages["c_kv"], i, c_kv)
+            scatter(pages["k_rope"], i, k_rope)
             q_lat, q_rope = L.mla_absorbed_q(blk["attn"], cfg, h, positions)
             o_lat = A.paged_latent_prefill_attention(
                 q_lat, q_rope, pages["c_kv"][i], pages["k_rope"][i],
@@ -362,8 +406,8 @@ def prefill_chunk_decoder(params: Params, cfg: ArchConfig,
             a = L.mla_out(blk["attn"], cfg, o_lat)
         else:
             q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
-            scatter(pages["k"][i], kk)
-            scatter(pages["v"][i], v)
+            scatter(pages["k"], i, kk)
+            scatter(pages["v"], i, v)
             o = A.paged_prefill_attention(q, pages["k"][i], pages["v"][i],
                                           block_row, start,
                                           window=windows[i],
@@ -371,7 +415,7 @@ def prefill_chunk_decoder(params: Params, cfg: ArchConfig,
                                           use_kernel=use_kernel)
             a = o.reshape(b, c, -1) @ blk["attn"]["wo"]
         x = _mlp_residual(blk, cfg, x, a)
-    return _logits(params, cfg, x)[0], pages
+    return act.replicate(_logits(params, cfg, x))[0], pages
 
 
 def _paged_tick(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -410,8 +454,10 @@ def _paged_tick(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         h = L.rms_norm(x, blk["ln1"])
         if cfg.attn == "mla":
             c_kv, k_rope = L.mla_latents(blk["attn"], cfg, h, positions)
-            pages["c_kv"][i][write_page, write_off] = c_kv[:, 0]
-            pages["k_rope"][i][write_page, write_off] = k_rope[:, 0]
+            _write_rows(pages["c_kv"], i, (write_page, write_off),
+                        c_kv[:, 0])
+            _write_rows(pages["k_rope"], i, (write_page, write_off),
+                        k_rope[:, 0])
             q_lat, q_rope = L.mla_absorbed_q(blk["attn"], cfg, h, positions)
             o_lat = A.paged_latent_decode_attention(
                 q_lat, q_rope, pages["c_kv"][i], pages["k_rope"][i],
@@ -420,8 +466,8 @@ def _paged_tick(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             a = L.mla_out(blk["attn"], cfg, o_lat)
         else:
             q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
-            pages["k"][i][write_page, write_off] = kk[:, 0]
-            pages["v"][i][write_page, write_off] = v[:, 0]
+            _write_rows(pages["k"], i, (write_page, write_off), kk[:, 0])
+            _write_rows(pages["v"], i, (write_page, write_off), v[:, 0])
             o = A.paged_decode_attention(q, pages["k"][i], pages["v"][i],
                                          block_tables, attn_len,
                                          window=windows[i],
@@ -429,7 +475,7 @@ def _paged_tick(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                                          use_kernel=use_kernel)
             a = o.reshape(b, 1, -1) @ blk["attn"]["wo"]
         x = _mlp_residual(blk, cfg, x, a)
-    return _logits(params, cfg, x)[:, 0], pages
+    return act.replicate(_logits(params, cfg, x))[:, 0], pages
 
 
 def decode_step_paged_decoder(params: Params, cfg: ArchConfig,
@@ -518,8 +564,8 @@ def _verify_window(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         h = L.rms_norm(x, blk["ln1"])
         if cfg.attn == "mla":
             c_kv, k_rope = L.mla_latents(blk["attn"], cfg, h, positions)
-            pages["c_kv"][i][write_page, write_off] = c_kv
-            pages["k_rope"][i][write_page, write_off] = k_rope
+            _write_rows(pages["c_kv"], i, (write_page, write_off), c_kv)
+            _write_rows(pages["k_rope"], i, (write_page, write_off), k_rope)
             q_lat, q_rope = L.mla_absorbed_q(blk["attn"], cfg, h, positions)
             o_lat = A.paged_latent_verify_attention(
                 q_lat, q_rope, pages["c_kv"][i], pages["k_rope"][i],
@@ -528,8 +574,8 @@ def _verify_window(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             a = L.mla_out(blk["attn"], cfg, o_lat)
         else:
             q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
-            pages["k"][i][write_page, write_off] = kk
-            pages["v"][i][write_page, write_off] = v
+            _write_rows(pages["k"], i, (write_page, write_off), kk)
+            _write_rows(pages["v"], i, (write_page, write_off), v)
             o = A.paged_verify_attention(q, pages["k"][i], pages["v"][i],
                                          block_tables, lengths,
                                          window=windows[i],
@@ -537,7 +583,7 @@ def _verify_window(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                                          use_kernel=use_kernel)
             a = o.reshape(b, w, -1) @ blk["attn"]["wo"]
         x = _mlp_residual(blk, cfg, x, a)
-    return _logits(params, cfg, x), pages
+    return act.replicate(_logits(params, cfg, x)), pages
 
 
 def verify_ticks_decoder(params: Params, cfg: ArchConfig,
@@ -599,8 +645,10 @@ def verify_ticks_decoder(params: Params, cfg: ArchConfig,
         in_plan = act[:, None] & (positions < write_limit[:, None])
         wp = torch.where(in_plan, wp, null_page).long()
         wo = (positions % page).long()
-        # pre-step window contents, for rolling back rejected writes
-        old = {name: leaf[:, wp, wo] for name, leaf in pages.items()}
+        # pre-step window contents, for rolling back rejected writes (on
+        # each rank's pool shard under a mesh: the coordinates are whole)
+        local = {name: _local(leaf) for name, leaf in pages.items()}
+        old = {name: leaf[:, wp, wo] for name, leaf in local.items()}
         logits, pages = _verify_window(params, cfg, win, pages, block_tables,
                                        lens, wp, wo, use_kernel=use_kernel)
         g = logits.argmax(-1).to(torch.int32)                  # (B, W)
@@ -624,7 +672,7 @@ def verify_ticks_decoder(params: Params, cfg: ArchConfig,
         n_emit = new_lens - lens
         # rollback: window offsets >= n_emit get their pre-step contents
         keep = offs[None, :] < n_emit[:, None]                 # (B, W)
-        for name, leaf in pages.items():
+        for name, leaf in local.items():
             cur = leaf[:, wp, wo]
             k_mask = keep.reshape((1, b, w) + (1,) * (cur.dim() - 3))
             leaf[:, wp, wo] = torch.where(k_mask, cur, old[name])

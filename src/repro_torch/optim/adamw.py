@@ -61,8 +61,9 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_opt_state(params: Params) -> dict:
     device = tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    # zeros_like keeps a DTensor leaf's layout (the moments are cut as
+    # their parameter is)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over a PACO-paged KV cache (port of
-``repro.serve.engine`` on one device).
+``repro.serve.engine``, on one device or on a ``DeviceMesh``).
 
 Requests queue up; the scheduler admits them FIFO into fixed decode slots,
 prefills their prompts in page-aligned chunks (one ``prefill_chunk`` call
@@ -17,10 +17,17 @@ draft -> verify -> accept step (``models.verify_ticks``), and
 call and one host argmax per token) as the baseline of the fused loop.
 
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu");
-on CUDA the attention runs through the hand-written kernels.
+on CUDA the attention runs through the hand-written kernels.  With
+``mesh`` every rank of the mesh runs the same engine: params are laid out
+by ``dist.sharding.param_specs`` and the pools by ``paged_pool_specs``
+(K/V heads cut over the model axis, latent pools whole, the page dim never
+cut), while tokens, lengths, block tables and history stay whole and
+alike on every rank; each dispatch's tokens are checked to agree across
+ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -30,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import act_sharding as act
+from repro_torch.dist import sharding as D
 from repro_torch.models import (decode_step_paged, decode_ticks,
                                 paged_cache_leaf_specs, prefill_chunk,
                                 sample_tokens, verify_ticks)
@@ -59,6 +68,22 @@ def _width_bucket(width: int, pages_per_seq: int) -> int:
     return min(b, pages_per_seq)
 
 
+def _check_mesh(mesh: Any, device: torch.device) -> None:
+    """A mesh needs an initialized process group of the device's backend:
+    NCCL for "cuda", gloo for "cpu" (no silent switch between them)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("ServeEngine(mesh=...): no process group; "
+                           "initialize one (NCCL on cuda, gloo on cpu)")
+    want = "nccl" if device.type == "cuda" else "gloo"
+    if dist.get_backend() != want or mesh.device_type != device.type:
+        raise RuntimeError(
+            f"ServeEngine(mesh=..., device={device.type!r}) needs a "
+            f"{want} group and a {device.type} mesh; got "
+            f"{dist.get_backend()} and {mesh.device_type}")
+
+
 def _to_device(params: Params, device: torch.device) -> Params:
     return {k: (_to_device(v, device) if isinstance(v, dict)
                 else v.to(device)) for k, v in params.items()}
@@ -74,7 +99,10 @@ class ServeEngine:
     ``top_k``/``temperature`` switch the device-side sampler from greedy
     argmax to top-k (``models.sample_tokens``, seeded by ``seed``).
     ``device`` defaults to "cuda"; asking for it on a host without a card
-    raises.  Meshed serving is not ported yet: passing ``mesh`` raises.
+    raises.  ``mesh`` (a ``DeviceMesh`` over an initialized process group:
+    NCCL on "cuda", gloo on "cpu") serves on every rank of it, as
+    ``repro``'s engine does on a JAX mesh; the fused, speculative and
+    single-tick dispatches all take it.
 
     ``fused=False`` keeps the single-tick decode loop: one
     ``decode_step_paged`` call over full-width tables and one host argmax
@@ -110,9 +138,8 @@ class ServeEngine:
                 f"ServeEngine(device={str(device)!r}): no CUDA device on "
                 "this host; pass device='cpu' to serve on the CPU")
         if mesh is not None:
-            raise NotImplementedError(
-                "the port's engine serves on one device (mesh is a later "
-                "slice)")
+            _check_mesh(mesh, self.device)
+        self.mesh = mesh
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq
@@ -183,6 +210,12 @@ class ServeEngine:
         self.tables = paging.BlockTables(slots, self.pages_per_seq,
                                          self.pool.null_page, self.device)
         self.params = _to_device(params, self.device)
+        if mesh is not None:
+            self.params = D.distribute(mesh, self.params, D.param_specs(
+                cfg, self.params, mesh))
+            place = D.pool_shardings(cfg, mesh, self.pool.pools)
+            self.pool.pools = {k: D.shard_of(v, mesh, place[k])
+                               for k, v in self.pool.pools.items()}
 
         self.active: list[Request | None] = [None] * slots
         self.queue: deque[Request] = deque()
@@ -212,6 +245,16 @@ class ServeEngine:
                       "accepted_tokens": 0, "spec_fallback_dispatches": 0}
 
     # -- plumbing -----------------------------------------------------------
+
+    def _mesh_cm(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return act.use_mesh_rules(self.mesh)
+
+    def _agree(self, t: torch.Tensor, what: str) -> None:
+        """Under a mesh, raise unless every rank drew the same tokens."""
+        if self.mesh is not None:
+            act.assert_replicated(t, self.mesh, what)
 
     def _i32(self, values) -> torch.Tensor:
         return torch.tensor(values, dtype=torch.int32, device=self.device)
@@ -316,15 +359,17 @@ class ServeEngine:
             row = self.tables.device_view(width)[slot]
             toks = ctx[i:i + self.chunk]
             toks = toks + [0] * (self.chunk - len(toks))
-            logits, self.pool.pools = prefill_chunk(
-                self.params, self.cfg, self._i32([toks]), i,
-                self.pool.pools, row)
+            with self._mesh_cm():
+                logits, self.pool.pools = prefill_chunk(
+                    self.params, self.cfg, self._i32([toks]), i,
+                    self.pool.pools, row)
             req.prefill_calls += 1
             self.stats["prefill_calls"] += 1
         last = (len(ctx) - 1) % self.chunk
         tok = sample_tokens(logits[last][None], generator=self._gen,
                             top_k=self.top_k,
                             temperature=self.temperature)[0]
+        self._agree(tok, "the prefill's sampled token")
         self.stats["prefill_tokens"] += len(ctx)
         self.stats["prefill_s"] += time.perf_counter() - t0
         self._ctx_len[slot] = len(ctx)
@@ -431,25 +476,27 @@ class ServeEngine:
         bt = self.tables.device_view(width)
         toks = self._i32(self._last_tok)
         lens = self._i32(self._ctx_len)
-        act = torch.tensor([r is not None for r in self.active],
-                           device=self.device)
+        live_mask = torch.tensor([r is not None for r in self.active],
+                                 device=self.device)
         bud = self._i32([r.max_new_tokens - len(r.out) if r else 0
                          for r in self.active])
         eos = self._i32([r.eos_id if r else -1 for r in self.active])
-        return bt, toks, lens, act, bud, eos
+        return bt, toks, lens, live_mask, bud, eos
 
     def _dispatch_fused(self, live: list[int], n: int) -> int:
         """One fused decode dispatch: n on-device ticks, ONE host sync."""
         if self.draft_len is not None:   # the adaptive fallback
             self.stats["spec_fallback_dispatches"] += 1
             self._hist_dev = None   # this dispatch appends on the host only
-        bt, toks, lens, act, bud, eos = self._dispatch_arrays(live, n)
+        bt, toks, lens, live_mask, bud, eos = self._dispatch_arrays(live, n)
         t0 = time.perf_counter()
-        block, self.pool.pools = decode_ticks(
-            self.params, self.cfg, toks, self.pool.pools, bt, lens, act,
-            bud, eos, n, max_seq=self.max_seq, top_k=self.top_k,
-            temperature=self.temperature, generator=self._gen,
-            null_page=self.pool.null_page)
+        with self._mesh_cm():
+            block, self.pool.pools = decode_ticks(
+                self.params, self.cfg, toks, self.pool.pools, bt, lens,
+                live_mask, bud, eos, n, max_seq=self.max_seq,
+                top_k=self.top_k, temperature=self.temperature,
+                generator=self._gen, null_page=self.pool.null_page)
+        self._agree(block, "the decode token block")
         block = block.cpu().numpy()   # THE one device->host sync per block
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += n
@@ -479,7 +526,8 @@ class ServeEngine:
         per step (-1 marks each window's un-emitted tail)."""
         w = self.draft_len + 1
         span = n * w
-        bt, toks, lens, act, bud, eos = self._dispatch_arrays(live, span)
+        bt, toks, lens, live_mask, bud, eos = self._dispatch_arrays(live,
+                                                                    span)
         # one past the last position each slot's write plan mapped pages
         # for (window writes beyond it go to the null page)
         limit = self._i32([self._ctx_len[s] + self._planned_writes(s, span)
@@ -488,11 +536,13 @@ class ServeEngine:
         hist = (self._hist_dev if self._hist_dev is not None
                 else torch.from_numpy(self._hist).to(self.device))
         t0 = time.perf_counter()
-        block, accepted, self._hist_dev, self.pool.pools = verify_ticks(
-            self.params, self.cfg, toks, self.pool.pools, bt, lens, act, bud,
-            eos, hist, limit, n, max_seq=self.max_seq,
-            draft_len=self.draft_len, ngram=self.draft_ngram,
-            null_page=self.pool.null_page)
+        with self._mesh_cm():
+            block, accepted, self._hist_dev, self.pool.pools = verify_ticks(
+                self.params, self.cfg, toks, self.pool.pools, bt, lens,
+                live_mask, bud, eos, hist, limit, n, max_seq=self.max_seq,
+                draft_len=self.draft_len, ngram=self.draft_ngram,
+                null_page=self.pool.null_page)
+        self._agree(block, "the verify token block")
         # the one device->host sync of the dispatch (the accepted counts
         # follow on the synchronized stream)
         block = block.cpu().numpy()
@@ -539,10 +589,13 @@ class ServeEngine:
         lens = self._i32(self._ctx_len)
         self.stats["max_table_width"] = self.pages_per_seq
         t0 = time.perf_counter()
-        logits, self.pool.pools = decode_step_paged(
-            self.params, self.cfg, toks, self.pool.pools,
-            self.tables.device_view(self.pages_per_seq), lens)
-        nxt = logits.argmax(-1).cpu().numpy()
+        with self._mesh_cm():
+            logits, self.pool.pools = decode_step_paged(
+                self.params, self.cfg, toks, self.pool.pools,
+                self.tables.device_view(self.pages_per_seq), lens)
+        nxt = logits.argmax(-1)
+        self._agree(nxt, "the single-tick argmax")
+        nxt = nxt.cpu().numpy()
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1
         self.stats["dispatches"] += 1

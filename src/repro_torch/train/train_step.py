@@ -6,15 +6,24 @@ respect to every parameter leaf, and ``adamw_update`` then writes params
 and optimizer state IN PLACE, where ``repro`` donates both to its jitted
 step.  Gradient accumulation over ``microbatches`` slices sums the slices'
 gradients in f32 and divides, as ``repro``'s scan does.
+
+On a mesh the params (and the optimizer moments made from them) are
+DTensors laid out by ``dist.sharding.param_specs`` and the batch by
+``batch_specs``: the step runs under ``use_mesh_rules``, each gradient is
+reduced to its parameter's layout (the data-parallel sum), AdamW updates
+the DTensor leaves in place, and the metrics come back whole on every
+rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import act_sharding as act
 from repro_torch.models import loss_fn
 from repro_torch.optim import (AdamWConfig, adamw_update, compress_grads,
                                init_error_buffer, init_opt_state)
@@ -52,6 +61,11 @@ def _value_and_grad(params: Params, cfg: ArchConfig, tcfg: TrainConfig,
     tracked = tree_map(lambda _: next(it), params)
     loss, metrics = loss_fn(tracked, cfg, batch, remat=tcfg.remat)
     grads = torch.autograd.grad(loss, leaves)
+    # each gradient in its parameter's layout: a Partial (data-parallel
+    # or k-cut) gradient is summed here
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if act.is_dtensor(g) and g.placements != p.placements else g
+             for g, p in zip(grads, leaves)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             list(grads))
 
@@ -66,7 +80,7 @@ def _grads(params: Params, cfg: ArchConfig, tcfg: TrainConfig, batch: dict
         if rows % mb:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{mb} microbatches")
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = [torch.zeros_like(p, dtype=torch.float32)
                for p in tree_leaves(params)]
         loss_sum = None
         for i in range(mb):
@@ -89,7 +103,21 @@ def train_step(params: Params, state: dict, batch: dict, *,
     """One step.  Returns (params, state, metrics) with params and the
     optimizer state updated in place; metrics are 0-d tensors ("loss",
     the loss function's metrics, "lr", "grad_norm").  Attention takes the
-    flash kernels when the params are on CUDA."""
+    flash kernels when the params are on CUDA.  With DTensor params the
+    step runs under their mesh's rules (unless a mesh is bound already)
+    and the metrics come back whole, plain tensors on every rank."""
+    lead = tree_leaves(params)[0]
+    meshed = act.is_dtensor(lead)
+    with (act.use_mesh_rules(lead.device_mesh)
+          if meshed and not act.active() else contextlib.nullcontext()):
+        params, state, metrics = _step(params, state, batch, cfg, tcfg)
+    if meshed:
+        metrics = {k: act.replicate(v) for k, v in metrics.items()}
+    return params, state, metrics
+
+
+def _step(params: Params, state: dict, batch: dict, cfg: ArchConfig,
+          tcfg: TrainConfig) -> tuple[Params, dict, dict]:
     loss, metrics, grads = _grads(params, cfg, tcfg, batch)
     if tcfg.compress_dp_grads:
         device = tree_leaves(params)[0].device

@@ -1,9 +1,12 @@
 """Training loop (port of ``repro.train.trainer``): data -> train step ->
 metrics and checkpoints, with the same history keys and checkpoint
 cadence as ``repro``'s ``Trainer``.  Runs on one device, the card unless
-the caller asks for the CPU."""
+the caller asks for the CPU, or with ``mesh`` (a ``DeviceMesh``) on every
+rank of it: params laid out by ``dist.sharding.param_specs``, each batch
+by ``batch_specs``, the step under ``use_mesh_rules``."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable
@@ -14,6 +17,8 @@ import torch
 from repro_torch.checkpoint import ckpt as C
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, global_batch_rowwise
+from repro_torch.dist import act_sharding as act
+from repro_torch.dist import sharding as D
 from repro_torch.ft.straggler import ThroughputTracker
 from repro_torch.models import init_params
 from repro_torch.train.train_step import (TrainConfig, init_train_state,
@@ -31,6 +36,7 @@ class Trainer:
     hooks: list[Callable[[int, dict], None]] = dataclasses.field(
         default_factory=list)
     device: str = "cuda"
+    mesh: Any = None
 
     def __post_init__(self) -> None:
         if torch.device(self.device).type == "cuda" \
@@ -41,8 +47,15 @@ class Trainer:
 
     def init(self, seed: int = 0) -> tuple[dict, dict]:
         params = init_params(self.cfg, seed=seed, device=self.device)
+        if self.mesh is not None:
+            params = D.distribute(self.mesh, params, D.param_specs(
+                self.cfg, params, self.mesh))
         state = init_train_state(self.cfg, self.tcfg, params)
         return params, state
+
+    def _cm(self):
+        return (act.use_mesh_rules(self.mesh) if self.mesh is not None
+                else contextlib.nullcontext())
 
     def run(self, steps: int, *, params=None, state=None,
             start_step: int = 0) -> tuple[Any, Any, list[dict]]:
@@ -60,9 +73,13 @@ class Trainer:
             batch = global_batch_rowwise(self.dcfg, step,
                                          d_model=self.cfg.d_model,
                                          device=self.device)
+            if self.mesh is not None:
+                batch = D.distribute(self.mesh, batch, D.batch_specs(
+                    self.cfg, self.mesh, batch))
             t0 = time.perf_counter()
-            params, state, metrics = train_step(params, state, batch,
-                                                cfg=self.cfg, tcfg=self.tcfg)
+            with self._cm():
+                params, state, metrics = train_step(
+                    params, state, batch, cfg=self.cfg, tcfg=self.tcfg)
             if on_card:
                 torch.cuda.synchronize(self.device)
             metrics = {k: float(v) for k, v in metrics.items()}
@@ -71,7 +88,9 @@ class Trainer:
             history.append({"step": step, **metrics})
             for hook in self.hooks:
                 hook(step, metrics)
-            if self.log_every and step % self.log_every == 0:
+            if (self.log_every and step % self.log_every == 0
+                    and (self.mesh is None or torch.distributed.get_rank()
+                         == 0)):
                 print(f"step {step:5d} loss {metrics['loss']:.4f} "
                       f"lr {metrics.get('lr', 0):.2e} "
                       f"{metrics['step_time_s'] * 1e3:.0f} ms")

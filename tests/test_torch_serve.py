@@ -309,7 +309,9 @@ def test_launch_serve_runs_on_the_cpu(capsys, monkeypatch):
 
 def test_engine_rejects_what_it_does_not_serve(models):
     _, ct, _, pt = models["qwen3-0.6b"]
-    with pytest.raises(NotImplementedError):
+    # the engine serves on a mesh now (tests/test_torch_spmd.py); a mesh
+    # without a process group is refused
+    with pytest.raises(RuntimeError, match="no process group"):
         ServeEngine(pt, ct, device="cpu", mesh=object())
     eng = ServeEngine(pt, ct, device="cpu")
     with pytest.raises(ValueError):

@@ -1,0 +1,392 @@
+"""The port's distributed paths across several ranks, on the CPU: gloo
+process groups of 8 and 5 ranks (``tests/torch_spmd_worker.py``), one
+spawn per world size running all of that size's checks, and one
+``torch.distributed.run`` of ``launch.train --mesh 2x2``.  The references
+are computed here, in the parent, from the same numpy inputs (JAX's from
+``repro``, with ``convert.from_jax`` weights where the port is held to
+it).  Each check states its tolerance; f32 throughout.
+
+Wall time: about 110 s on an idle 8-core host, most of it the 8-rank
+spawn (serving, the elastic runs, the forward and the train step through
+DTensor's dispatch) and the parent's references, then the launcher run
+and the 5-rank spawn."""
+import dataclasses
+import os
+import pickle
+import shutil
+import subprocess
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+import torch_parity as TP
+import torch_spmd_worker as W
+from repro import configs as jcfg
+from repro import models as jmodels
+from repro.data import DataConfig as JDataConfig
+from repro.data import global_batch_rowwise as j_batch
+from repro.models.moe import init_moe as j_init_moe
+from repro.optim import AdamWConfig as JAdamW
+from repro.train import TrainConfig as JTrainConfig
+from repro.train import init_train_state as j_init_state
+from repro.train import make_train_step as j_make_step
+from repro_torch import configs as tcfg
+from repro_torch import models as tmodels
+from repro_torch.convert import from_jax
+from repro_torch.core.sort import choose_pivots
+from repro_torch.data.pipeline import DataConfig, global_batch_rowwise
+from repro_torch.optim import AdamWConfig
+from repro_torch.train import TrainConfig, init_train_state, train_step
+
+torch.set_num_threads(1)
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+FWD_ARCHS = ("qwen3-0.6b", "deepseek-v2-236b", "mamba2-780m",
+             "seamless-m4t-medium")
+SERVE_ARCHS = ("qwen3-0.6b", "deepseek-v2-236b")
+# f32 tolerances: the sharded paths sum k-cut partial products and
+# data-parallel gradients in another order than one device does
+FWD_ATOL = 1e-4          # sharded vs unsharded logits
+MM_ATOL = 1e-4           # paco_matmul_shmap / pjit vs a @ b
+MOE_ATOL = 1e-5          # apply_moe_paco_ep vs JAX's dense top-1
+PIPE_ATOL = 1e-5         # GPipe vs the sequential stack
+TRAIN_LOSS_JAX, TRAIN_LEAF_JAX = 1e-3, 5e-3      # as tests/test_spmd.py
+TRAIN_LOSS_PORT, TRAIN_LEAF_PORT = 1e-5, 1e-5    # vs the port, one device
+ELASTIC_RTOL = 2e-4      # as tests/test_spmd.py
+
+
+def _spawn(world, jobs, tmp):
+    """Run ``world`` ranks on ``jobs``; rank 0's results.  The parent
+    computes its references after, not meanwhile: its JAX work would take
+    the cores the ranks need."""
+    job_path, out_path = os.path.join(tmp, "jobs.pkl"), os.path.join(
+        tmp, "out.pkl")
+    with open(job_path, "wb") as f:
+        pickle.dump(jobs, f)
+    mp.start_processes(W.main, args=(world, os.path.join(tmp, "store"),
+                                     job_path, out_path),
+                       nprocs=world, start_method="spawn")
+    with open(out_path, "rb") as f:
+        return pickle.load(f)
+
+
+def _seq_apply(layers, xs):
+    x = torch.from_numpy(xs)
+    for w, b in layers:
+        x = W._apply_layer({"w": torch.from_numpy(w),
+                            "b": torch.from_numpy(b)}, x)
+    return x.numpy()
+
+
+def _moe_case():
+    base = jcfg.get_arch("olmoe-1b-7b").reduced()
+    moe = dict(n_experts=8, top_k=1, capacity_factor=8.0, n_shared=0)
+    cj = dataclasses.replace(base, moe=dataclasses.replace(base.moe, **moe))
+    tb = tcfg.get_arch("olmoe-1b-7b").reduced()
+    ct = dataclasses.replace(tb, moe=dataclasses.replace(tb.moe, **moe))
+    p = j_init_moe(jax.random.PRNGKey(0), cj, jnp.float32)
+    x = jax.random.normal(jax.random.PRNGKey(1), (8, 16, cj.d_model))
+    # tests/test_spmd.py's dense reference: every token through its top-1
+    xf = x.reshape(-1, cj.d_model)
+    logits = xf @ p["router"]
+    eid = jnp.argmax(logits, -1)
+    w = jax.nn.softmax(logits, -1)[jnp.arange(xf.shape[0]), eid]
+    h = jax.nn.silu(jnp.einsum("nd,ndf->nf", xf, p["gate"][eid]))
+    h = h * jnp.einsum("nd,ndf->nf", xf, p["up"][eid])
+    want = (jnp.einsum("nf,nfd->nd", h, p["down"][eid])
+            * w[:, None]).reshape(x.shape)
+    return ({"cfg": ct, "x": np.asarray(x),
+             "params": {k: np.asarray(v) for k, v in p.items()}},
+            np.asarray(want))
+
+
+def _forward_cases():
+    cases = []
+    for arch in FWD_ARCHS:
+        cfg = tcfg.get_arch(arch).reduced()
+        params = tmodels.init_params(cfg, seed=0, device="cpu")
+        dcfg = DataConfig(seq_len=16, global_batch=4, vocab=cfg.vocab,
+                          src_len=16 if cfg.family == "encdec" else 0)
+        batch = global_batch_rowwise(dcfg, 0, d_model=cfg.d_model)
+        cases.append((arch, cfg, params, batch))
+    return {"cases": cases}
+
+
+def _forward_refs(job):
+    with torch.no_grad():
+        return {arch: tmodels.forward(params, cfg, batch,
+                                      remat=False).numpy()
+                for arch, cfg, params, batch in job["cases"]}
+
+
+def _train_case():
+    """The meshed step's job, and a function that computes the
+    references: JAX's unsharded step and the port's."""
+    cj = jcfg.get_arch("qwen3-0.6b").reduced()
+    ct = tcfg.get_arch("qwen3-0.6b").reduced()
+    pj = jmodels.init_params(cj, jax.random.PRNGKey(0))
+    tc = TrainConfig(opt=AdamWConfig(lr=1e-3))
+    batch = global_batch_rowwise(DataConfig(seq_len=32, global_batch=4,
+                                            vocab=ct.vocab), 0)
+    fresh = lambda: from_jax(jax.tree.map(np.asarray, pj), ct,  # noqa
+                             "cpu")
+    return ({"cfg": ct, "tcfg": tc, "params": fresh(), "batch": batch},
+            lambda: _train_refs(cj, ct, pj, tc, batch, fresh()))
+
+
+def _train_refs(cj, ct, pj, tc, batch, pt):
+    step = j_make_step(cj, JTrainConfig(opt=JAdamW(lr=1e-3)))
+    batch_j = j_batch(JDataConfig(seq_len=32, global_batch=4,
+                                  vocab=cj.vocab), 0)
+    pj_out, _, mj = jax.jit(step)(pj, j_init_state(
+        cj, JTrainConfig(opt=JAdamW(lr=1e-3)), pj), batch_j)
+    pt, _, mt = train_step(pt, init_train_state(ct, tc, pt), batch,
+                           cfg=ct, tcfg=tc)
+    return {"jax": (float(mj["loss"]),
+                    _flat_np(jax.tree.map(np.asarray, pj_out))),
+            "port": (float(mt["loss"]), _flat_np(pt))}
+
+
+def _flat_np(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat_np(v, key))
+        else:
+            out[key] = np.asarray(v.numpy() if isinstance(v, torch.Tensor)
+                                  else v, np.float32)
+    return out
+
+
+SERVE_KW = {"fused": (dict(slots=4, max_seq=32, prefill_chunk_len=8),
+                      [[1, 2, 3], [5, 6, 7, 8, 9], [9], [4] * 11, [2, 8]],
+                      6),
+            "single_tick": (dict(slots=4, max_seq=32, prefill_chunk_len=8,
+                                 fused=False),
+                            [[1, 2, 3], [5, 6, 7, 8, 9], [4] * 11], 4),
+            "spec": (dict(slots=4, max_seq=64, prefill_chunk_len=8,
+                          speculate=3, ticks_per_dispatch=4,
+                          spec_min_accept=0),
+                     [[1, 2, 3, 1, 2, 3, 1], [9, 9, 9, 9, 9], [2, 8]], 12)}
+
+
+def _serve_cases(models):
+    cases = []
+    for arch in SERVE_ARCHS:
+        _, ct, _, pt = models[arch]
+        for mode, (kw, prompts, max_new) in SERVE_KW.items():
+            cases.append(((arch, mode), ct, pt, kw, prompts, max_new))
+    return {"cases": cases}
+
+
+def _serve_refs(models):
+    """Per (arch, mode): the unmeshed engine's finished requests and
+    JAX's reference tokens for each."""
+    refs = {}
+    for arch in SERVE_ARCHS:
+        cj, ct, pj, pt = models[arch]
+        for mode, (kw, prompts, max_new) in SERVE_KW.items():
+            _, done = TP.serve(pt, ct, kw, prompts, max_new)
+            refs[(arch, mode)] = (done, [TP.reference(pj, cj, r,
+                                                      kw["max_seq"])
+                                         for r in done])
+    return refs
+
+
+def _elastic_job(tmp):
+    cfg = tcfg.get_arch("qwen3-0.6b").reduced()
+    return {"cfg": cfg, "tcfg": TrainConfig(opt=AdamWConfig(lr=1e-3)),
+            "dcfg": DataConfig(seq_len=16, global_batch=4, vocab=cfg.vocab),
+            "params": tmodels.init_params(cfg, seed=0, device="cpu"),
+            "save_every": 2}
+
+
+@pytest.fixture(scope="module")
+def models():
+    return TP._Models()
+
+
+@pytest.fixture(scope="module")
+def world8(tmp_path_factory, models):
+    tmp = str(tmp_path_factory.mktemp("spmd8"))
+    rng = np.random.default_rng(0)
+    mm = {"a": rng.standard_normal((256, 128), np.float32),
+          "b": rng.standard_normal((128, 192), np.float32),
+          "ak": rng.standard_normal((64, 512), np.float32),
+          "bk": rng.standard_normal((512, 64), np.float32)}
+    sort = {"seed": 3, "exact": rng.uniform(size=2048).astype(np.float32),
+            "overflow": (rng.exponential(size=2048) ** 3).astype(
+                np.float32)}
+    moe_job, moe_ref = _moe_case()
+    pipe = {"layers": [(rng.standard_normal((8, 8), np.float32) * 0.3,
+                        rng.standard_normal(8).astype(np.float32) * 0.1)
+                       for _ in range(6)],
+            "xs": rng.standard_normal((3, 2, 8), np.float32)}
+    fwd_job = _forward_cases()
+    train_job, train_refs = _train_case()
+    elastic = _elastic_job(tmp)
+    elastic["runs"] = [
+        ("base", os.path.join(tmp, "ck_a"), list(range(4)), None),
+        # the batch at the failure is consumed by it (as repro's runner
+        # does); the survivors replay batches 2 and 3 from the step-2 save
+        ("C", os.path.join(tmp, "ck_c"), list(range(4)) + [2, 3], (3, 5))]
+    jobs = [("agree", {}), ("matmul", mm), ("sort", sort), ("moe_ep", moe_job),
+            ("pipeline", pipe), ("forward", fwd_job), ("train", train_job),
+            ("serve", _serve_cases(models)), ("elastic", elastic)]
+    t0 = time.perf_counter()
+    got = _spawn(8, jobs, tmp)
+    print(f"8-rank spawn {time.perf_counter() - t0:.1f} s: {got['seconds']}")
+    refs = {"matmul": mm, "sort": sort, "moe_ep": moe_ref,
+            "pipeline": _seq_apply(pipe["layers"], pipe["xs"]),
+            "forward": _forward_refs(fwd_job), "train": train_refs(),
+            "serve": _serve_refs(models), "tmp": tmp}
+    return got, refs
+
+
+@pytest.fixture(scope="module")
+def world5(world8, tmp_path_factory):
+    """Restores world8's checkpoint at step 2 on 5 ranks (a (5, 1) mesh)
+    and trains on through step 4."""
+    tmp = world8[1]["tmp"]
+    # run C's step-2 checkpoint (saved on 8 ranks before its failure) as
+    # the latest of a fresh directory
+    for sub in ("", "_state"):
+        shutil.copytree(os.path.join(tmp, "ck_c" + sub, "step_00000002"),
+                        os.path.join(tmp, "ck_b" + sub, "step_00000002"))
+    job = _elastic_job(tmp)
+    job["runs"] = [("B", os.path.join(tmp, "ck_b"), [2, 3], None)]
+    return _spawn(5, [("elastic", job)],
+                  str(tmp_path_factory.mktemp("spmd5")))
+
+
+def test_paco_matmul_shmap_and_pjit(world8):
+    got, refs = world8
+    mm = refs["matmul"]
+    r = got["matmul"]
+    assert r["mesh"] == (4, 2, 1)     # make_paco_mesh(256, 192, 128, 8)
+    want = mm["a"].astype(np.float64) @ mm["b"]
+    np.testing.assert_allclose(r["shmap"], want, atol=MM_ATOL, rtol=0)
+    np.testing.assert_allclose(r["pjit"], want, atol=MM_ATOL, rtol=0)
+    np.testing.assert_allclose(r["pjit_k"], mm["ak"].astype(np.float64)
+                               @ mm["bk"], atol=MM_ATOL, rtol=0)
+
+
+def test_ranks_that_disagree_are_caught(world8):
+    got, _ = world8
+    assert got["agree"] == "tokens differs between ranks"
+
+
+def _replay_sort(x, pivots, p, cap):
+    """A single-process replay of the SPMD bucket rule: each rank's slice
+    bucketed by the pivots (stable), the first ``cap`` of each bucket
+    kept, received by the bucket's rank, sorted, +inf padded."""
+    per = x.shape[0] // p
+    recv = [[] for _ in range(p)]
+    for src in range(p):
+        xs = x[src * per:(src + 1) * per]
+        bucket = np.searchsorted(pivots, xs, side="left")
+        for dst in range(p):
+            recv[dst].extend(xs[bucket == dst][:cap].tolist())
+    out = np.full((p, p * cap), np.inf, np.float32)
+    for dst in range(p):
+        out[dst, :len(recv[dst])] = np.sort(np.asarray(recv[dst],
+                                                       np.float32))
+    return out.reshape(-1)
+
+
+def test_paco_sort_shmap_exact_and_overflow(world8):
+    got, refs = world8
+    x = refs["sort"]["exact"]
+    vals, valid = got["sort"]["exact"]
+    np.testing.assert_array_equal(vals[valid], np.sort(x))
+    xo = refs["sort"]["overflow"]
+    vals, valid = got["sort"]["overflow"]
+    pivots = choose_pivots(torch.from_numpy(xo), 8, torch.Generator()
+                           .manual_seed(refs["sort"]["seed"])).numpy()
+    want = _replay_sort(xo, pivots, 8, int(np.ceil(0.5 * 256 / 8)))
+    assert valid.sum() < xo.size          # the capacity dropped some
+    np.testing.assert_array_equal(vals, want)
+    np.testing.assert_array_equal(valid, want != np.inf)
+
+
+def test_apply_moe_paco_ep_matches_dense_top1(world8):
+    got, refs = world8
+    np.testing.assert_allclose(got["moe_ep"], refs["moe_ep"],
+                               atol=MOE_ATOL, rtol=0)
+
+
+def test_pipeline_apply_matches_sequential(world8):
+    got, refs = world8
+    np.testing.assert_allclose(got["pipeline"], refs["pipeline"],
+                               atol=PIPE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("arch", FWD_ARCHS)
+def test_sharded_forward_matches_unsharded(world8, arch):
+    got, refs = world8
+    np.testing.assert_allclose(got["forward"][arch], refs["forward"][arch],
+                               atol=FWD_ATOL, rtol=0)
+
+
+def test_sharded_train_step_matches_jax_and_port(world8):
+    got, refs = world8
+    r = got["train"]
+    flat = _flat_np(r["params"])
+    for ref, (loss_tol, leaf_tol) in (
+            (refs["train"]["jax"], (TRAIN_LOSS_JAX, TRAIN_LEAF_JAX)),
+            (refs["train"]["port"], (TRAIN_LOSS_PORT, TRAIN_LEAF_PORT))):
+        loss, leaves = ref
+        assert abs(r["loss"] - loss) < loss_tol
+        assert set(leaves) == set(flat)
+        for k in leaves:
+            np.testing.assert_allclose(flat[k], leaves[k], atol=leaf_tol,
+                                       rtol=0, err_msg=k)
+    # the weights were really cut over the (2 data, 4 model) mesh
+    assert "Shard" in r["placements"]["wq"]
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+@pytest.mark.parametrize("mode", list(SERVE_KW))
+def test_meshed_engine_tokens_equal_unmeshed_and_jax(world8, arch, mode):
+    got, refs = world8
+    outs, prefill_calls, accepted = got["serve"][(arch, mode)]
+    done, jax_tokens = refs["serve"][(arch, mode)]
+    assert outs == {r.uid: r.out for r in done}
+    for r, want in zip(done, jax_tokens):
+        assert prefill_calls[r.uid] == -(-len(r.prompt) // 8)
+        assert r.out == want, r.uid
+    if mode == "spec":
+        assert accepted > 0
+
+
+def test_elastic_restart_8_to_5_ranks(world8, world5):
+    got, _ = world8
+    base, c = got["elastic"]["base"], got["elastic"]["C"]
+    b = world5["elastic"]["B"]
+    assert len(base) == 4 and len(c) == 5 and len(b) == 2
+    # checkpoint at step 2 on 8 ranks, restore on 5 (a (5, 1) mesh)
+    np.testing.assert_allclose(base[:2] + b, base, rtol=ELASTIC_RTOL)
+    # in one group: ranks 5-7 leave at step 3, the 5 left replay from the
+    # step-2 checkpoint
+    np.testing.assert_allclose(c, base[:3] + base[2:], rtol=ELASTIC_RTOL)
+
+
+def test_torchrun_train_mesh_2x2():
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         "--reduced", "--arch", "qwen3-0.6b", "--device", "cpu", "--mesh",
+         "2x2", "--steps", "2", "--batch", "4", "--seq", "32"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    losses = [float(line.split()[3]) for line in proc.stdout.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert "mesh={'data': 2, 'model': 2}" in proc.stdout
