@@ -207,6 +207,20 @@ Phases, in order; any failure ends the script with a nonzero exit:
    top-1, f32) against the dense top-1 reference (MOE_EP_TOL), and
    ``ElasticRunner`` on qwen3-0.6b cut to 2 layers, replaying from its
    checkpoint after a simulated loss of ranks (rtol 2e-4).
+12. launch tooling (``launch_phase``): (a) full-width qwen3-0.6b in bf16
+   at two one-card cells, the train step at B 2 x S 4096 and one
+   dense-cache decode step at B 8 x S 32768 (30.1 GB of K/V): each traced
+   on fake CUDA tensors (``launch.dryrun.trace``: ``launch.cost``'s
+   counters and MemTracker), then run for real on the card under the same
+   counters; operations and bytes must be equal and the predicted peak
+   within PEAK_TOL of ``max_memory_allocated()``; printed beside them,
+   the roofline's bound (``launch.roofline.terms``) against the step's
+   median of 5 timed runs (CUDA events) and its dominant term.  (b)
+   ``launch.dryrun.run_cell("qwen3-0.6b", "train_4k")`` on the host: the
+   256-rank production mesh on a fake process group, status ``ok``.  (c)
+   the four ``examples/torch`` scripts at their defaults on the card, the
+   launches of kernels 1, 2, 5, 5b, 6 and 7 each adds logged (each must
+   launch its own).
 
 Each phase prints its time.
 The second-to-last line is one JSON object with every kernel's numbers;
@@ -235,12 +249,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-# Dense peaks of the H100 SXM data sheet; int32 from the Hopper white
-# paper's 64 INT32 lanes per SM: 132 SMs x 64 x 1.98 GHz boost (the clock
-# at which 132 x 128 FP32 lanes x 2 give the sheet's 67 TFLOP/s).
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
-              torch.int32: 132 * 64 * 1.98e9}
+# The card's figures and the kernels' work have one home each: the data
+# sheet's peaks and HBM rate in repro_torch/card.py, the per-kernel flops
+# and bytes in repro_torch/kernels/work.py.
+from repro_torch.card import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
+from repro_torch.kernels import work as W  # noqa: E402
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Full-model logits of the kernel path vs the plain path, 28 layers deep.
 # The paths differ only in how attention rounds: in float32 by summation
@@ -331,8 +344,7 @@ MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # output: 1e-4 of it at depth 2.
 PACO_MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 STRASSEN_TOL = 1e-4
-# LCS kernel bound: compare, add, max and running max per DP cell.
-LCS_OPS_PER_CELL = 4
+LCS_OPS_PER_CELL = W.LCS_OPS_PER_CELL
 
 
 def log(msg: str) -> None:
@@ -631,9 +643,8 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int,
     decode_parent_turn()
     decode_kernel_turn()
     n_keys = int(lens.sum())
-    nbytes = (2 * q.numel() * 2 + bt.numel() * 4 + lens.numel() * 4
-              + 2 * n_keys * hkv * d * 2)
-    flops = 4 * n_keys * hq * d
+    flops, nbytes = W.paged_work(q.numel(), bt.numel(), lens.numel(), n_keys,
+                                 n_keys, hq, hkv, d, 2)
     ms, eager_ms = (sum(t[i] for t in dturns["k"]) / 2 for i in (0, 1))
     decode = _with_library(_row(
         "paged_decode", "src/repro_torch/csrc/paged_decode.cu",
@@ -707,9 +718,8 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int,
     kernel_turn()
     del kg, vg, kpool, vpool
     pairs = int(cmask.sum())
-    nbytes = (2 * qc.numel() * 2 + row.numel() * 4
-              + 2 * s_ctx * hkv * d * 2)
-    flops = 4 * pairs * hq * d
+    flops, nbytes = W.paged_work(qc.numel(), row.numel(), 0, s_ctx, pairs,
+                                 hq, hkv, d, 2)
     ms, eager_ms = (sum(t[i] for t in turns["k"]) / 2 for i in (0, 1))
     prefill = _with_library(_row(
         "paged_prefill", "src/repro_torch/csrc/paged_prefill.cu",
@@ -1138,18 +1148,16 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
         torch.cuda.empty_cache()
         # visible (query, key) pairs: under the causal mask query q sees
         # min(q + 1, Sk) keys
-        m = min(sq, sk)
-        pairs = (m * (m + 1) // 2 + (sq - m) * sk) if causal else sq * sk
-        flops = 4 * b * hq * pairs * d
-        nbytes_f = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
-        nbytes_b = (2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
-                    + 2 * (q.numel() + 2 * k.numel()))
+        flops, nbytes_f = W.flash_fwd_work(b, sq, sk, hq, hkv, d, 2,
+                                           causal=causal)
+        flops_b, nbytes_b = W.flash_bwd_work(b, sq, sk, hq, hkv, d, 2,
+                                             causal=causal)
         pair = []
         for key, name, src, err, nbytes, fl, lib_i, plain in (
                 ("f", f"flash_attention{tag}", "flash_fwd", err_f, nbytes_f,
                  flops, 0, plain_f),
                 ("b", f"flash_attention_bwd{tag}", "flash_bwd", err_b,
-                 nbytes_b, 2.5 * flops, 1, plain_b)):
+                 nbytes_b, flops_b, 1, plain_b)):
             turns = times[key]
             row = _with_library(_row(
                 name, f"src/repro_torch/csrc/{src}.cu",
@@ -1425,9 +1433,9 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
     decode_kernel_turn()
     ms, eager_ms = (sum(t[i] for t in dturns["k"]) / 2 for i in (0, 1))
     n_keys = int(lens.sum())
-    nbytes = (2 * (dq[0].numel() + dq[1].numel() + dq[0].numel())
-              + bt.numel() * 4 + lens.numel() * 4 + n_keys * (kv + rope) * 2)
-    flops = n_keys * h * (2 * (kv + rope) + 2 * kv)
+    flops, nbytes = W.latent_work(dq[0].numel(), dq[1].numel(), bt.numel(),
+                                  lens.numel(), n_keys, n_keys, h, kv, rope,
+                                  2)
     decode = _with_library(_row(
         "paged_latent_decode", "src/repro_torch/csrc/paged_latent_decode.cu",
         "src/repro/kernels/attention/attention.py:463",
@@ -1487,9 +1495,8 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
     ckv0, kr0 = ckp[0].clone(), krp[0].clone()
     del ckp, krp
     pairs = int(cmask.sum())
-    nbytes = (2 * (pq[0].numel() + pq[1].numel() + pq[0].numel())
-              + row.numel() * 4 + s_ctx * (kv + rope) * 2)
-    flops = pairs * h * (2 * (kv + rope) + 2 * kv)
+    flops, nbytes = W.latent_work(pq[0].numel(), pq[1].numel(), row.numel(),
+                                  0, s_ctx, pairs, h, kv, rope, 2)
     ms, eager_ms = (sum(t[i] for t in turns["k"]) / 2 for i in (0, 1))
     prefill = _with_library(_row(
         "paged_latent_prefill",
@@ -1651,13 +1658,13 @@ def bench_verify_kernels(gen: torch.Generator, iters: int
     del kg, vg, kpool, vpool
     keys = int((lens + w).sum())
     pairs = int((lens[:, None] + torch.arange(1, w + 1, device=dev)).sum())
-    nbytes = (2 * q.numel() * 2 + bt.numel() * 4 + lens.numel() * 4
-              + 2 * keys * hkv * d * 2)
+    flops, nbytes = W.paged_work(q.numel(), bt.numel(), lens.numel(), keys,
+                                 pairs, hq, hkv, d, 2)
     row = _with_library(_row(
         "paged_verify", "src/repro_torch/csrc/paged_prefill.cu",
         "src/repro/kernels/attention/attention.py:172",
         worst["paged_verify"], (ms + ms2) / 2, eager_ms, plain_ms, None,
-        nbytes, 4 * pairs * hq * d, dtype), sdpa)
+        nbytes, flops, dtype), sdpa)
     row["ms_turns"] = [ms, ms2]
     row["variant"] = variant
     rows.append(row)
@@ -1710,14 +1717,14 @@ def bench_verify_kernels(gen: torch.Generator, iters: int
     del kg, vg
     keys = int((lens + w).sum())
     pairs = int((lens[:, None] + torch.arange(1, w + 1, device=dev)).sum())
-    nbytes = (2 * (2 * vq[0].numel() + vq[1].numel()) + bt.numel() * 4
-              + lens.numel() * 4 + keys * (kv + rope) * 2)
+    flops, nbytes = W.latent_work(vq[0].numel(), vq[1].numel(), bt.numel(),
+                                  lens.numel(), keys, pairs, h, kv, rope, 2)
     row = _with_library(_row(
         "paged_latent_verify",
         "src/repro_torch/csrc/paged_latent_prefill.cu",
         "src/repro/kernels/attention/attention.py:270",
         worst["paged_latent_verify"], (ms + ms2) / 2, eager_ms, plain_ms,
-        None, nbytes, pairs * h * (2 * (kv + rope) + 2 * kv), dtype), sdpa)
+        None, nbytes, flops, dtype), sdpa)
     row["ms_turns"] = [ms, ms2]
     before = K.paged_latent_verify.variants.copy()
     K.paged_latent_verify(*vq, ckp[0], krp[0], bt, lens, scale=scale)
@@ -3354,11 +3361,11 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
             return sum(t[i] if isinstance(t, tuple) else t
                        for t in times[key]) / len(times[key])
 
-        nbytes = 3 * n * n * a.element_size()
+        flops, nbytes = W.matmul_work(n, n, n, a.element_size())
         row = _row("matmul_plan", "src/repro_torch/csrc/matmul.cu",
                    "src/repro/kernels/matmul/matmul.py:35", err,
                    mean("k"), mean("k", 1), plain, mean("l"), nbytes,
-                   2.0 * n ** 3, dtype)
+                   flops, dtype)
         row["ms_turns"] = [t[0] for t in times["k"]]
         row["variant"] = plan_variant(a, b)
         row["library_views_ms"] = mean("lv")
@@ -3392,8 +3399,8 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
     leaf = _row("matmul", "src/repro_torch/csrc/matmul.cu",
                 "src/repro/kernels/matmul/matmul.py:35", err, ms, eager,
                 _events_loop_ms(lambda: matmul_ref(a, b), 10),
-                _events_loop_ms(lambda: a @ b, 10), 3 * ls * ls * 4,
-                2.0 * ls ** 3, torch.float32)
+                _events_loop_ms(lambda: a @ b, 10),
+                *W.matmul_work(ls, ls, ls, 4)[::-1], torch.float32)
     if parent is not None:
         o = torch.empty_like(a)
         leaf["parent_ms"] = time_ms(lambda i: parent.matmul(a, b, o),
@@ -3433,11 +3440,10 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
     kernel_turn()
     ms, eager = (sum(x[i] for x in times["k"]) / 2 for i in (0, 1))
     cells = n * n
-    nbytes = 4 * 4 * n     # s, t in; the bottom row and right column out
+    ops, nbytes = W.lcs_work(n, n)
     lcs = _row("lcs_tile", "src/repro_torch/csrc/lcs_tile.cu",
                "src/repro/kernels/lcs/lcs.py:46", err, ms, eager,
-               plain_s * 1e3, None, nbytes, LCS_OPS_PER_CELL * cells,
-               torch.int32)
+               plain_s * 1e3, None, nbytes, ops, torch.int32)
     lcs["ms_turns"] = [x[0] for x in times["k"]]
     before = KL.lcs_table_kernel.variants.copy()
     lcs_wavefront(s, t, 132)
@@ -3968,6 +3974,165 @@ def mesh_phase(seed: int, smi: str) -> dict:
             "paged_verify": spec["launches"]["mesh"]["paged_verify"][0]}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the launch tooling against the card
+# ---------------------------------------------------------------------------
+
+# Two cells of full-width qwen3-0.6b (bf16) sized for one card: the train
+# phase's step, and one decode step on the dense cache at B 8 x S 32768
+# (28 x 2 x 8 x 128 x 2 B = 114,688 B of K/V a token: 30.1 GB).
+LAUNCH_CELLS = {"train": (TRAIN_BATCH, TRAIN_SEQ), "decode": (8, 32768)}
+# MemTracker's peak on fake tensors against max_memory_allocated() of the
+# real step (less what was allocated before its arguments): the allocator
+# rounds each block up to 512 B and cuBLAS keeps a workspace.
+PEAK_TOL = 0.10
+LAUNCH_TIMED_STEPS = 5
+
+
+def _launch_cell(cfg, kind: str, seed: int, smi: str) -> dict:
+    """One cell traced on fake CUDA tensors (``launch.dryrun.trace``),
+    then run for real on the card under the same counters: operations and
+    bytes must be equal, the predicted peak within PEAK_TOL of the real
+    one.  Then the roofline's bound against the step's median time."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import cost, dryrun, specs
+    from repro_torch.launch.roofline import terms
+    from repro_torch.models import cache_spec, init_params
+    from repro_torch.models.transformer import zeros_of
+    from repro_torch.train.train_step import TrainConfig, init_train_state
+
+    b, s = LAUNCH_CELLS[kind]
+    shape = ShapeCell(f"{kind}_{s}", s, b, kind)
+    tcfg = TrainConfig()
+    fn, fn_name = specs.step_fn_for(cfg, shape, tcfg)
+    mode = specs.fake_mode()
+    fake_args = dryrun.build_args(cfg, shape, mode, tcfg)
+    fake = dryrun.trace(fn, fake_args, mode)
+    del fake_args
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    params = init_params(cfg, seed=seed, device="cuda")
+    ints = lambda *shp: torch.randint(  # noqa: E731
+        0, cfg.vocab, shp, generator=gen, device="cuda", dtype=torch.int32)
+    if kind == "train":
+        args = (params, init_train_state(cfg, tcfg, params),
+                {"tokens": ints(b, s), "labels": ints(b, s)})
+    else:
+        lengths = torch.randint(0, s - 1, (b,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        args = (params, ints(b, 1), zeros_of(cache_spec(cfg, b, s), "cuda"),
+                lengths)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with cost.StepCounters() as counters:
+        fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    real = counters.summary()
+    times = []
+    for _ in range(LAUNCH_TIMED_STEPS):
+        times.append(_events_ms(lambda: fn(*args), 1))
+    del args, params
+    torch.cuda.empty_cache()
+    t = terms(cfg, {"cost": fake["cost"], "collectives": {}}, {})
+    bound = {k: t[k] * 1e3 for k in ("compute", "memory")}
+    pred = fake["memory"]["peak_bytes_per_device"]
+    result = {
+        "cell": kind, "fn": fn_name, "batch": b, "seq": s,
+        "flops": {"fake": fake["cost"]["flops_per_device"],
+                  "real": real["flops_per_device"]},
+        "bytes": {"fake": fake["cost"]["bytes_per_device"],
+                  "real": real["bytes_per_device"]},
+        "kernel_calls": {"fake": fake["cost"]["kernel_calls"],
+                         "real": real["kernel_calls"]},
+        "peak_bytes": {"predicted": pred, "real": peak,
+                       "rel_err": (pred - peak) / peak},
+        "trace_s": fake["trace_s"],
+        "bound_ms": max(bound.values()), "bound_terms_ms": bound,
+        "dominant": max(bound, key=bound.get),
+        "step_ms_median": float(np.median(times)), "step_ms": times}
+    log(f"[launch] {json.dumps(result)}; card: {smi}")
+    assert result["flops"]["fake"] == result["flops"]["real"], result
+    assert result["bytes"]["fake"] == result["bytes"]["real"], result
+    assert abs(result["peak_bytes"]["rel_err"]) <= PEAK_TOL, result
+    return result
+
+
+def _kernel_launch_counts() -> dict[str, int]:
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.lcs.lcs import lcs_table_kernel
+    from repro_torch.kernels.matmul.matmul import (matmul_kernel,
+                                                   matmul_plan_kernel)
+
+    return {"paged_decode (1)": K.paged_flash_decode.launches,
+            "paged_prefill (2)": K.paged_flash_prefill.launches,
+            "flash_attention (5)": K.flash_attention.launches,
+            "flash_attention_bwd (5b)": K.flash_attention_bwd.launches,
+            "matmul (6)": matmul_kernel.launches,
+            "matmul_plan (6)": matmul_plan_kernel.launches,
+            "lcs_tile (7)": lcs_table_kernel.launches}
+
+
+# the kernels each example must launch at its defaults on the card
+EXAMPLE_KERNELS = {
+    "quickstart": ("matmul (6)", "matmul_plan (6)"),
+    "serve_lm": ("paged_decode (1)", "paged_prefill (2)"),
+    "train_lm": ("flash_attention (5)", "flash_attention_bwd (5b)"),
+    "paco_algorithms": ("matmul (6)", "matmul_plan (6)", "lcs_tile (7)"),
+}
+
+
+def run_examples(smi: str) -> dict:
+    """The four ``examples/torch`` scripts at their defaults on the card,
+    in this process; the kernel launches each adds."""
+    import importlib.util
+
+    added = {}
+    for name, want in EXAMPLE_KERNELS.items():
+        path = Path(__file__).resolve().parent / "examples" / "torch" \
+            / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                      path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        before = _kernel_launch_counts()
+        t0 = time.perf_counter()
+        rc = mod.main([])
+        torch.cuda.synchronize()
+        assert rc in (None, 0), (name, rc)
+        after = _kernel_launch_counts()
+        added[name] = {k: after[k] - before[k] for k in after
+                       if after[k] != before[k]}
+        added[name]["wall_s"] = round(time.perf_counter() - t0, 2)
+        assert all(added[name].get(k, 0) > 0 for k in want), (name, added)
+        torch.cuda.empty_cache()
+    log(f"[launch] examples' kernel launches: {json.dumps(added)}; {smi}")
+    return added
+
+
+def launch_phase(seed: int, smi: str) -> dict:
+    """(a) the dry-run against the real step on the card, (b) one
+    full-width cell of the production mesh traced on the host, (c) the
+    four examples."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+
+    cfg = get_arch(ARCH)
+    cells = [_launch_cell(cfg, kind, seed, smi) for kind in LAUNCH_CELLS]
+    rec = dryrun.run_cell(ARCH, "train_4k", False, "")
+    log(f"[launch] production mesh {ARCH} train_4k (256 fake ranks): "
+        f"status {rec['status']}, trace {rec.get('trace_s')} s, peak "
+        f"{rec.get('memory', {}).get('peak_bytes_per_device')} B/card, "
+        f"{rec.get('cost', {}).get('flops_per_device')} flops/card"
+        + (f"; {rec.get('error')}" if rec["status"] != "ok" else ""))
+    assert rec["status"] == "ok", rec.get("trace", rec)
+    return {"cells": cells, "mesh_cell": {k: rec.get(k) for k in (
+        "status", "trace_s", "memory")}, "examples": run_examples(smi)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4305,6 +4470,11 @@ def main() -> int:
     with phase("mesh"):
         log(f"[mesh] launches on the mesh: "
             f"{json.dumps(mesh_phase(args.seed, smi))}")
+
+    # 12. the launch tooling: the dry-run's count against the real step on
+    # the card, a production-mesh cell traced on the host, the examples
+    with phase("launch tooling"):
+        launch_phase(args.seed, smi)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

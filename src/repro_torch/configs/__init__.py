@@ -1,6 +1,7 @@
-from repro_torch.configs.base import (ArchConfig, MLAConfig, MoEConfig,
-                                     SSMConfig)
+from repro_torch.configs.base import (SHAPES, ArchConfig, MLAConfig,
+                                     MoEConfig, ShapeCell, SSMConfig,
+                                     cell_applicable)
 from repro_torch.configs.registry import ARCHS, get_arch
 
 __all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig", "ARCHS",
-           "get_arch"]
+           "SHAPES", "ShapeCell", "cell_applicable", "get_arch"]

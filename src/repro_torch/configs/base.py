@@ -1,8 +1,8 @@
-"""Architecture config schema.
+"""Architecture config schema and the four input-shape cells.
 
 A copy of ``repro.configs.base`` for the PyTorch port: the fields, the
-registry values and ``reduced()`` are the same, and ``dtype`` is a
-``torch.dtype``.
+registry values, ``reduced()``, ``SHAPES`` and ``cell_applicable`` are the
+same, and ``dtype`` is a ``torch.dtype``.
 """
 from __future__ import annotations
 
@@ -110,3 +110,27 @@ class ArchConfig:
         if self.local_window:
             kw["local_window"] = 16
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """Assignment rules: long_500k only for sub-quadratic archs; decode
+    shapes skipped for encoder-only archs (none assigned here)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full-attention arch: long_500k skipped (DESIGN.md §5)"
+    return True, ""

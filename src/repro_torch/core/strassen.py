@@ -19,15 +19,17 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.card import HBM_BYTES_PER_S, PEAK_FLOPS
 from repro_torch.core import tree as paco_tree
 from repro_torch.kernels.matmul import ops as mm_ops
 
 OMEGA0 = 2.8073549220576042  # log2(7)
 
-# H100 SXM data sheet: dense bf16 on the tensor cores, and HBM3 bandwidth
-# over the 6 bytes an element-wise bf16 add moves (two read, one written).
-H100_MATMUL_FLOPS = 989e12
-H100_ADDS_PER_S = 3.35e12 / 6
+# The card's data-sheet figures (``repro_torch.card``, NVIDIA H100 80GB
+# HBM3 at 700 W): dense bf16 on the tensor cores, and the HBM rate over
+# the 6 bytes an element-wise bf16 add moves (two read, one written).
+H100_MATMUL_FLOPS = PEAK_FLOPS[torch.bfloat16]
+H100_ADDS_PER_S = HBM_BYTES_PER_S / 6
 
 # (S_r coefficients over [A00,A01,A10,A11], T_r over [B00,B01,B10,B11])
 _S = (

@@ -46,7 +46,7 @@ def axis_sizes(mesh: Any) -> dict[str, int]:
     """Ordered {axis name: size} of a ``DeviceMesh`` or of a mapping."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def _mesh() -> Optional[Any]:
@@ -70,6 +70,11 @@ def use_mesh_rules(mesh: Any):
             yield mesh
     finally:
         _state.mesh = prev
+
+
+def current_mesh() -> Optional[Any]:
+    """The mesh bound by ``use_mesh_rules`` (None outside)."""
+    return _state.mesh
 
 
 def active() -> bool:
@@ -278,6 +283,103 @@ def local_call(fn, in_names: tuple, out_like: int | tuple[int, ...],
 
     return local_map(body, out_placements=out_pl[0] if single else out_pl,
                      in_placements=tuple(in_pl), device_mesh=mesh)(*dargs)
+
+
+def block_of(shape: tuple[int, ...], mesh: Any, place: tuple
+             ) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """(local shape, global offsets) of this rank's block of a tensor of
+    ``shape`` under ``place`` on ``mesh``: each ``Shard`` cuts its dim in
+    mesh order, as ``torch.chunk`` does.  Host arithmetic only (DTensor's
+    own helper reads the mesh's rank tensor, which a fake tensor mode
+    refuses)."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    local, offs = list(shape), [0] * len(shape)
+    for i, p in enumerate(place):
+        if isinstance(p, Shard):
+            size = local[p.dim]
+            chunk = -(-size // mesh.size(i))
+            start = min(coord[i] * chunk, size)
+            local[p.dim] = min(size, start + chunk) - start
+            offs[p.dim] += start
+    return tuple(local), tuple(offs)
+
+
+def local_block(x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """A DTensor's local shard and the global offset of its first element
+    on each dim; a plain tensor and zeros."""
+    if not is_dtensor(x):
+        return x, (0,) * x.ndim
+    _, offs = block_of(tuple(x.shape), x.device_mesh, tuple(x.placements))
+    return x.to_local(), offs
+
+
+def laid_out_as(x: torch.Tensor, like: torch.Tensor, lead: int = 0,
+                whole: tuple[int, ...] = ()) -> torch.Tensor:
+    """The local block of ``x`` (a DTensor or a plain tensor alike on every
+    rank) under the placements of the DTensor ``like``, whose dims are
+    x's with ``lead`` more in front; ``x``'s dims in ``whole`` are left
+    uncut.  Each rank then holds the part of ``x`` that meets its block of
+    ``like`` (all of it along a ``whole`` dim)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(Shard(p.dim - lead) if isinstance(p, Shard)
+                 and p.dim - lead not in whole else Replicate()
+                 for p in like.placements)
+    x = as_dtensor(x, like.device_mesh)
+    if tuple(x.placements) != want:
+        x = x.redistribute(like.device_mesh, want)
+    return x.to_local()
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim (still a DTensor: its
+    gradient is summed back to the original layout); a plain tensor as it
+    is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    want = (Replicate(),) * x.device_mesh.ndim
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def dp_gathered(x: torch.Tensor) -> torch.Tensor:
+    """FSDP's gather: a DTensor weight with its cuts over the
+    data-parallel axes undone, its model-axis cut kept (the backward
+    reduce-scatters the gradient back to the cut); a plain tensor as it
+    is.  A product then meets its weight in the tensor-parallel layout
+    alone, and DTensor picks no layout that cuts the tokens over the
+    model axis."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = x.device_mesh.mesh_dim_names
+    want = tuple(Replicate() if isinstance(p, Shard) and names[i] in _DP_AXES
+                 else p for i, p in enumerate(x.placements))
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def summed(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its pending (``Partial``) sums done, its cuts kept;
+    a plain tensor as it is.  A nonlinear op (a norm) takes its input so:
+    DTensor would otherwise keep the Partial through the op's linear last
+    step and gather the next product's weights to meet it."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Partial, Replicate
+
+    want = tuple(Replicate() if isinstance(p, Partial) else p
+                 for p in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
 def replicate(x: torch.Tensor) -> torch.Tensor:

@@ -31,8 +31,8 @@ import torch
 
 from repro_torch.core.matmul import paco_spec
 from repro_torch.dist.act_sharding import (_MODEL_AXIS, Spec, axis_sizes,
-                                           dp_axis_names, placements,
-                                           shed_to_divisible)
+                                           block_of, dp_axis_names,
+                                           placements, shed_to_divisible)
 
 
 def dp_axes(mesh: Any) -> tuple[str, ...]:
@@ -291,6 +291,31 @@ def shard_of(t: torch.Tensor, mesh: Any, place: tuple) -> Any:
     return DTensor.from_local(local.contiguous(), mesh, place,
                               run_check=False, shape=t.shape,
                               stride=t.contiguous().stride())
+
+
+def _contiguous_stride(shape: tuple[int, ...]) -> tuple[int, ...]:
+    stride, out = 1, []
+    for d in reversed(shape):
+        out.append(stride)
+        stride *= d
+    return tuple(reversed(out))
+
+
+def zeros_laid_out(mesh: Any, leaves: Mapping[str, Any], specs: Mapping,
+                   device: torch.device | str) -> dict[str, Any]:
+    """Zeros of each leaf (anything with ``shape`` and ``dtype``) as a
+    DTensor under its spec, each rank allocating only its own block."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for name, leaf in leaves.items():
+        shape = torch.Size(leaf.shape)
+        place = placements(mesh, specs[name])
+        local, _ = block_of(tuple(shape), mesh, place)
+        out[name] = DTensor.from_local(
+            torch.zeros(local, dtype=leaf.dtype, device=device), mesh, place,
+            run_check=False, shape=shape, stride=_contiguous_stride(shape))
+    return out
 
 
 def distribute(mesh: Any, tree: Any, specs: Any) -> Any:

@@ -52,6 +52,17 @@ its outputs with ``torch.empty``, launches on the current stream, raises if
 ``cudaGetLastError`` reports the launch, and adds one to its ``launches``
 count.  A CPU tensor takes the plain version in ``ops`` (or ``ref``)
 instead; a CUDA tensor launches the kernel or raises.
+
+A fake tensor (``FakeTensorMode``, the dry-run's) takes the kernel's
+path without the library: the wrapper makes the shape checks, allocates
+its outputs as fake tensors and records the kernel's work
+(``kernels.work``'s formula) in the open counters; it never reads a data
+pointer, calls into the library or counts a launch.  On a real tensor
+the one check ``work.tracing`` before the launch records the same work
+when a counter is open.  Where the work depends on the data (the paged
+kernels' lengths), a real call counts what its lengths need and a fake
+call the most its block tables allow.  The paged kernels' key-split
+scratch is sized by the library and is left out of the fake path.
 """
 from __future__ import annotations
 
@@ -62,6 +73,7 @@ import math
 import torch
 
 from repro_torch.kernels.build import c_function as _fn
+from repro_torch.kernels import work as _work
 
 INT32_MAX = 2 ** 31 - 1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -126,6 +138,36 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _slot_keys(lengths: torch.Tensor, offset: int, n: int,
+               window: int | None, bound: int, fake: bool
+               ) -> tuple[int, int]:
+    """(keys, pairs) of a paged walk over B slots whose query t < ``n``
+    of slot b sees the lengths[b] + offset + t positions before it, the
+    window's last ones at most: from the lengths on a real call, and on a
+    fake one from ``bound`` positions a slot (all its table holds)."""
+    w = _window(window)
+    if fake:
+        b = lengths.shape[0]
+        return b * min(bound, w + n - 1), b * n * min(bound, w)
+    with _work.suspended():
+        lens = lengths.long() + offset
+        steps = torch.arange(n, device=lens.device)
+        keys = int(torch.clamp(lens + n - 1, max=w + n - 1).sum())
+        pairs = int(torch.clamp(lens[:, None] + steps, max=w).sum())
+    return keys, pairs
+
+
+def _chunk_pairs(start: int, c: int, window: int | None) -> tuple[int, int]:
+    """(keys, pairs) of a prefill chunk at positions [start, start + c):
+    position p sees min(p + 1, window) keys."""
+    w = _window(window)
+    lo, hi = start + 1, start + c
+    a = min(hi, w)
+    pairs = ((a * (a + 1) - (lo - 1) * lo) // 2 if a >= lo else 0) \
+        + (hi - max(a, lo - 1)) * w
+    return hi - max(0, start + 1 - w), pairs
+
+
 def _check_pools(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, hq: int, d: int, lib: str
                  ) -> tuple[int, int, int]:
@@ -141,6 +183,8 @@ def _check_pools(q: torch.Tensor, k_pages: torch.Tensor,
     if dk != d or hkv < 1 or hq % hkv:
         raise ValueError(f"q heads {hq} x {d} do not group over pages "
                          f"{tuple(k_pages.shape)}")
+    if _work.is_fake(q):
+        return n_pool, page, hkv
     # the kernels load K/V rows in 16-byte pieces
     if (d * q.element_size()) % 16 or any(t.data_ptr() % 16
                                           for t in (q, k_pages, v_pages)):
@@ -179,7 +223,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     by the family of its per-warp walk: ``"mma_sync"`` (bf16 at D 64, 128
     or 256, on tensor cores) or ``"cuda_cores"`` (the rest).
     """
-    if not q.is_cuda:
+    if not q.is_cuda and not _work.is_fake(q):
         from repro_torch.kernels.attention import ops
         return ops.paged_decode_attention(
             q, k_pages, v_pages, block_tables, lengths, scale=scale,
@@ -194,6 +238,12 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     _check_slots(block_tables, lengths, b, q.device)
     width = block_tables.shape[1]
     out = torch.empty_like(q)
+    if _work.tracing(q) and _work.record_call("paged_decode", q, lambda fake: (
+            _work.paged_work(q.numel(), block_tables.numel(), b,
+                             *_slot_keys(lengths, 0, 1, window, width * page,
+                                         fake), hq, hkv, d,
+                             q.element_size()))):
+        return out
     fn = _fn("paged_decode", "paged_decode",
              (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
               _F, _P))
@@ -231,7 +281,7 @@ def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     ``"mma_sync"`` (bf16 at D 16, 32, 64, 128 or 256, on tensor cores) or
     ``"cuda_cores"`` (the rest).
     """
-    if not q.is_cuda:
+    if not q.is_cuda and not _work.is_fake(q):
         from repro_torch.kernels.attention import ops
         return ops.paged_prefill_attention(
             q, k_pages, v_pages, block_row, start, window=window,
@@ -250,6 +300,11 @@ def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"chunk [{start}, {start + c}) is not covered by "
                          f"a block row of {width} pages of {page}")
     out = torch.empty_like(q)
+    if _work.tracing(q) and _work.record_call(
+            "paged_prefill", q, lambda fake: _work.paged_work(
+                q.numel(), width, 0, *_chunk_pairs(start, c, window), hq,
+                hkv, d, q.element_size())):
+        return out
     n_split = _fn("paged_prefill", "paged_prefill_splits",
                   (_I, _I, _I, _I))(width, page, start, c)
     part_acc, part_ml = _scratch(n_split, c * hq, d, q.device)
@@ -291,7 +346,7 @@ def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
     ``variants`` counts ``"mma_sync"`` (bf16 at D 16, 32, 64, 128 or 256)
     or ``"cuda_cores"``.
     """
-    if not q.is_cuda:
+    if not q.is_cuda and not _work.is_fake(q):
         from repro_torch.kernels.attention import ops
         return ops.paged_verify_attention(
             q, k_pages, v_pages, block_tables, lengths, window=window,
@@ -303,6 +358,12 @@ def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
     _check_slots(block_tables, lengths, b, q.device)
     width = block_tables.shape[1]
     out = torch.empty_like(q)
+    if _work.tracing(q) and _work.record_call("paged_verify", q, lambda fake: (
+            _work.paged_work(q.numel(), block_tables.numel(), b,
+                             *_slot_keys(lengths, 1, w, window, width * page,
+                                         fake), hq, hkv, d,
+                             q.element_size()))):
+        return out
     n_split = _fn("paged_prefill", "paged_verify_splits", (_I, _I))(width,
                                                                      page)
     part_acc, part_ml = _scratch(n_split, b * w * hq, d, q.device)
@@ -353,6 +414,8 @@ def _check_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if kv % 8 or rope % 8:
         raise ValueError(f"kv_lora {kv} and qk_rope {rope} must be "
                          f"multiples of 8")
+    if _work.is_fake(q_lat):
+        return kv, rope, n_pool, page
     if any(t.data_ptr() % 16 for t in (q_lat, q_rope, ckv_pages, kr_pages)):
         raise ValueError("latent tensors must be 16-byte aligned")
     if kv > _limit(lib, f"{lib}_max_kv"):
@@ -379,7 +442,7 @@ def paged_latent_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     of 64: one launch of clusters of 4 CTAs), ``"mma_sync"`` (other bf16
     widths the tensor-core tiles divide) or ``"cuda_cores"``.
     """
-    if not q_lat.is_cuda:
+    if not q_lat.is_cuda and not _work.is_fake(q_lat):
         from repro_torch.kernels.attention import ops
         return ops.paged_latent_decode_attention(
             q_lat, q_rope, ckv_pages, kr_pages, block_tables, lengths,
@@ -394,6 +457,13 @@ def paged_latent_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     _check_slots(block_tables, lengths, b, q_lat.device)
     width = block_tables.shape[1]
     out = torch.empty_like(q_lat)
+    if _work.tracing(q_lat) and _work.record_call(lib, q_lat, lambda fake: (
+            _work.latent_work(q_lat.numel(), q_rope.numel(),
+                              block_tables.numel(), b,
+                              *_slot_keys(lengths, 0, 1, None, width * page,
+                                          fake), h, kv, rope,
+                              q_lat.element_size()))):
+        return out
     dtype = _DTYPES[q_lat.dtype]
     variant = FLASH_VARIANTS[_fn(lib, f"{lib}_variant", (_I,) * 4)(
         dtype, kv, rope, page)]
@@ -435,7 +505,7 @@ def paged_latent_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
     qk_rope 64 and pages of a multiple of 64), ``"mma_sync"`` (other bf16
     widths the tensor-core tiles divide) or ``"cuda_cores"``.
     """
-    if not q_lat.is_cuda:
+    if not q_lat.is_cuda and not _work.is_fake(q_lat):
         from repro_torch.kernels.attention import ops
         return ops.paged_latent_prefill_attention(
             q_lat, q_rope, ckv_pages, kr_pages, block_row, start,
@@ -454,6 +524,11 @@ def paged_latent_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
         raise ValueError(f"chunk [{start}, {start + c}) is not covered by "
                          f"a block row of {width} pages of {page}")
     out = torch.empty_like(q_lat)
+    if _work.tracing(q_lat) and _work.record_call(lib, q_lat, lambda fake: (
+            _work.latent_work(q_lat.numel(), q_rope.numel(), width, 0,
+                              *_chunk_pairs(start, c, None), h, kv, rope,
+                              q_lat.element_size()))):
+        return out
     dtype = _DTYPES[q_lat.dtype]
     n_split = _fn(lib, f"{lib}_splits", (_I,) * 8)(dtype, kv, rope, width,
                                                    page, c, h, start)
@@ -493,7 +568,7 @@ def paged_latent_verify(q_lat: torch.Tensor, q_rope: torch.Tensor,
     ``"wgmma"`` (bf16 at kv_lora 512, qk_rope 64 and pages of a multiple of
     64), ``"mma_sync"`` or ``"cuda_cores"``, as for the latent prefill.
     """
-    if not q_lat.is_cuda:
+    if not q_lat.is_cuda and not _work.is_fake(q_lat):
         from repro_torch.kernels.attention import ops
         return ops.paged_latent_verify_attention(
             q_lat, q_rope, ckv_pages, kr_pages, block_tables, lengths,
@@ -505,6 +580,12 @@ def paged_latent_verify(q_lat: torch.Tensor, q_rope: torch.Tensor,
     _check_slots(block_tables, lengths, b, q_lat.device)
     width = block_tables.shape[1]
     out = torch.empty_like(q_lat)
+    if _work.tracing(q_lat) and _work.record_call("paged_latent_verify", q_lat,
+                                        lambda fake: _work.latent_work(
+            q_lat.numel(), q_rope.numel(), block_tables.numel(), b,
+            *_slot_keys(lengths, 1, w, None, width * page, fake), h, kv, rope,
+            q_lat.element_size())):
+        return out
     dtype = _DTYPES[q_lat.dtype]
     n_split = _fn(lib, "paged_latent_verify_splits", (_I,) * 8)(
         dtype, kv, rope, width, page, b, w, h)
@@ -563,6 +644,10 @@ def _check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv = k.shape[2]
     if hkv < 1 or hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv}")
+    if _work.is_fake(q):
+        if d % 8:
+            raise ValueError(f"head_dim {d} must be a multiple of 8")
+        return b, sq, sk, hq, hkv, d
     if hq // hkv > _limit(lib, f"{lib}_max_g"):
         raise ValueError(f"{hq // hkv} query heads per kv head exceed the "
                          f"kernel's {_limit(lib, f'{lib}_max_g')}")
@@ -599,6 +684,11 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = _check_window(window, sq, sk)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if _work.tracing(q) and _work.record_call(
+            lib, q, lambda fake: _work.flash_fwd_work(
+                b, sq, sk, hq, hkv, d, q.element_size(), causal=causal,
+                window=window)):
+        return out, lse
     fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                         _I, _I, _F, _P))
     with torch.cuda.device(q.device):
@@ -632,7 +722,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``variants``, and those with Sq != Sk in ``cross_launches``.  On the CPU
     it takes the plain gradient (``ref.attention_ref_grad``), which needs
     neither o nor lse."""
-    if not q.is_cuda:
+    if not q.is_cuda and not _work.is_fake(q):
         from repro_torch.kernels.attention import ref
         grads = ref.attention_ref_grad(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -650,10 +740,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"o {tuple(o.shape)}, d_o {tuple(d_o.shape)} and "
                          f"lse {tuple(lse.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if any(t.data_ptr() % 16 for t in (o, d_o, lse)):
+    if not _work.is_fake(q) and any(t.data_ptr() % 16 for t in (o, d_o,
+                                                                lse)):
         raise ValueError("o, d_o and lse must be 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    if _work.tracing(q) and _work.record_call(
+            lib, q, lambda fake: _work.flash_bwd_work(
+                b, sq, sk, hq, hkv, d, q.element_size(), causal=causal,
+                window=window)):
+        return dq, dk, dv
     fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _I, _I, _I, _F, _I, _I, _F, _P))
     with torch.cuda.device(q.device):
@@ -713,7 +809,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     A cross-attention (Sq != Sk) without grad mode runs the forward kernel
     alone.  ``launches`` counts forward kernel launches (a remat recompute
     launches again), ``cross_launches`` those with Sq != Sk."""
-    if not q.is_cuda:
+    if not q.is_cuda and not _work.is_fake(q):
         from repro_torch.kernels.attention import ops
         return ops.flash_attention(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap, use_kernel=False)

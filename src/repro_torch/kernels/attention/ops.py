@@ -9,7 +9,8 @@ value type before the PV product, f32 accumulation.  It is the CPU
 lowering and the oracle of the kernels.  The kernel lowering is the
 hand-written Hopper kernel in ``attention.py``.  ``use_kernel=None`` (the
 model code's default) takes the kernel exactly when the tensors are on
-CUDA; ``use_kernel=False`` takes the plain version on any device.
+CUDA (or fake: ``kernels.work.on_card``); ``use_kernel=False`` takes
+the plain version on any device.
 
 Under a mesh (DTensor arguments inside ``dist.act_sharding.
 use_mesh_rules``), each paged op runs on every rank's block: query heads
@@ -27,6 +28,7 @@ import torch
 from repro_torch.dist import act_sharding as act
 from repro_torch.kernels.attention import attention as K
 from repro_torch.kernels.attention import ref as R
+from repro_torch.kernels.work import on_card
 from repro_torch.models import layers as L
 
 
@@ -44,7 +46,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     as ``repro``'s ops transpose around ``flash_attention_pallas``, and
     autograd differentiates it."""
     if use_kernel is None:
-        use_kernel = q.is_cuda
+        use_kernel = on_card(q)
     if use_kernel:
         return K.flash_attention(q, k, v, causal=causal, window=window,
                                  logit_cap=logit_cap)
@@ -113,7 +115,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     g = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if use_kernel is None:
-        use_kernel = q.is_cuda
+        use_kernel = on_card(q)
     if use_kernel:
         return K.paged_flash_decode(q, k_pages, v_pages, block_tables,
                                     lengths, scale=scale, window=window,
@@ -162,7 +164,7 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     g = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if use_kernel is None:
-        use_kernel = q.is_cuda
+        use_kernel = on_card(q)
     if use_kernel:
         return K.paged_flash_verify(q, k_pages, v_pages, block_tables,
                                     lengths, scale=scale, window=window,
@@ -210,7 +212,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     g = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if use_kernel is None:
-        use_kernel = q.is_cuda
+        use_kernel = on_card(q)
     if use_kernel:
         return K.paged_flash_prefill(q, k_pages, v_pages, block_row, start,
                                      scale=scale, window=window,
@@ -252,7 +254,7 @@ def paged_latent_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     q_lat . c_kv + q_rope . k_rope.  Dense oracle:
     ``ref.paged_latent_attention_ref``."""
     if use_kernel is None:
-        use_kernel = q_lat.is_cuda
+        use_kernel = on_card(q_lat)
     if use_kernel:
         return K.paged_latent_decode(q_lat, q_rope, ckv_pages, kr_pages,
                                      block_tables, lengths, scale=scale)
@@ -289,7 +291,7 @@ def paged_latent_verify_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     ``attention.paged_latent_verify``: one launch for all slots.  Dense
     oracle: ``ref.paged_latent_verify_ref``."""
     if use_kernel is None:
-        use_kernel = q_lat.is_cuda
+        use_kernel = on_card(q_lat)
     if use_kernel:
         return K.paged_latent_verify(q_lat, q_rope, ckv_pages, kr_pages,
                                      block_tables, lengths, scale=scale)
@@ -326,7 +328,7 @@ def paged_latent_prefill_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     ``layers.latent_attention`` under the GLOBAL causal mask.  Dense
     oracle: ``ref.paged_latent_prefill_ref``."""
     if use_kernel is None:
-        use_kernel = q_lat.is_cuda
+        use_kernel = on_card(q_lat)
     if use_kernel:
         return K.paged_latent_prefill(q_lat, q_rope, ckv_pages, kr_pages,
                                       block_row, start, scale=scale)

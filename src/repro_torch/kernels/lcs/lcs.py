@@ -22,6 +22,10 @@ to ``lcs_table_kernel.variants[f"skew{run}"]``, naming the sweep's run of
 columns a lane (4 for tiles of at most 128 columns, else 8).  A CPU
 tensor takes the plain version (``lcs_table_plain``: ``ref.lcs_tiles_ref``
 anti-diagonal by anti-diagonal over the same border buffers) instead.
+A fake tensor (``FakeTensorMode``) allocates the kernel's state as a fake
+tensor and records the table's work (``kernels.work.lcs_work``) in the
+open counters, with no launch; a real launch records the same when a
+counter is open.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import c_function
+from repro_torch.kernels import work as _work
 from repro_torch.kernels.lcs.ref import lcs_tiles_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -138,14 +143,18 @@ def lcs_table_kernel(s: torch.Tensor, t: torch.Tensor, top: torch.Tensor,
     last tile row and column may be ragged): ``lcs_tile_pallas``'s
     function, one launch on CUDA.  Returns (bottom row (n,), right column
     (m,))."""
-    if not s.is_cuda:
+    fake = _work.is_fake(s)
+    if not s.is_cuda and not fake:
         return lcs_table_plain(s, t, top, left, corner, tile_m, tile_n)
     m, n = _checked(s, t, top, left, corner, tile_m, tile_n)
-    if tile_n > max_tile_n() or tile_m > max_tile_m():
+    if not fake and (tile_n > max_tile_n() or tile_m > max_tile_m()):
         raise ValueError(f"tiles of {tile_m} x {tile_n} exceed the "
                          f"kernel's {max_tile_m()} x {max_tile_n()}")
     ti, tj = -(-m // tile_m), -(-n // tile_n)
     state = _state(top, left, corner, tile_n, ti, tj)
+    if _work.tracing(s) and _work.record_call(
+            "lcs_table", s, lambda fake: _work.lcs_work(m, n)):
+        return state[:n], state[n:n + m]
     fn = c_function("lcs_tile", "lcs_table",
                     (_P, _P, _P, _I, _I, _I, _I, _P))
     with torch.cuda.device(s.device):
@@ -182,7 +191,8 @@ def lcs_tile_kernel(s_tile: torch.Tensor, t_tile: torch.Tensor,
     m, n = s_tile.shape[0], t_tile.shape[0]
     if m < 1 or n < 1:
         raise ValueError(f"an LCS tile needs M, N >= 1, got {m} x {n}")
-    tile_m, tile_n = _tile_shape(m, n, s_tile.is_cuda)
+    tile_m, tile_n = _tile_shape(m, n, s_tile.is_cuda
+                                 and not _work.is_fake(s_tile))
     return lcs_table_kernel(s_tile, t_tile, top, left, corner, tile_m,
                             tile_n)
 

@@ -32,7 +32,10 @@ The wrappers check device, dtype, shape and strides and raise on anything
 else, allocate C (and the plan's workspace) with ``torch.empty``, launch
 on the current stream, raise if the launch reports a CUDA error, and
 count.  A CPU tensor takes the plain version (``ref.matmul_ref``,
-``ref.matmul_plan_ref``) instead.
+``ref.matmul_plan_ref``) instead.  A fake tensor (``FakeTensorMode``)
+allocates C and the plan's workspace as fake tensors and records the
+product's work (``kernels.work.matmul_work``) in the open counters, with
+no launch; a real launch records the same when a counter is open.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import c_function
+from repro_torch.kernels import work as _work
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -101,13 +105,16 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a contiguous (n, m) tensor in ``a.dtype``.  On the CPU it returns the
     plain version.
     """
-    if not a.is_cuda:
+    if not a.is_cuda and not _work.is_fake(a):
         from repro_torch.kernels.matmul.ref import matmul_ref
         return matmul_ref(a, b)
     n, m, k = _check_operands(a, b)
     lda, ldb = _row_stride("a", a), _row_stride("b", b)
     out = torch.empty((n, m), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
+        return out
+    if _work.tracing(a) and _work.record_call("matmul", a, lambda fake: (
+            _work.matmul_work(n, m, k, a.element_size()))):
         return out
     fn = c_function("matmul", "matmul", (_I, _P, _P, _P, _I, _I, _I, _L, _L,
                                          _P))
@@ -305,7 +312,7 @@ def matmul_plan_kernel(a: torch.Tensor, b: torch.Tensor, plan
     the cuboids that cover it, each rounded to ``a.dtype``, added in plan
     order in ``a.dtype``.  On the CPU it returns the plain version.
     """
-    if not a.is_cuda:
+    if not a.is_cuda and not _work.is_fake(a):
         from repro_torch.kernels.matmul.ref import matmul_plan_ref
         return matmul_plan_ref(a, b, plan)
     n, m, k = _check_operands(a, b)
@@ -313,15 +320,21 @@ def matmul_plan_kernel(a: torch.Tensor, b: torch.Tensor, plan
         raise ValueError(f"a plan for ({plan.n}, {plan.m}, {plan.k}) does not "
                          f"fit operands ({n}, {m}, {k})")
     lda, ldb = _row_stride("a", a), _row_stride("b", b)
-    variant = plan_variant(a, b)
-    table = _device_table(plan, a.device)
-    if table.host.n_ctas == 0 or n * m == 0:   # k = 0: nothing to multiply
+    fake = _work.is_fake(a)
+    table = None if fake else _device_table(plan, a.device)
+    host = plan_table(plan) if fake else table.host
+    if host.n_ctas == 0 or n * m == 0:   # k = 0: nothing to multiply
         return torch.zeros((n, m), dtype=a.dtype, device=a.device)
+    out = torch.empty((n, m), dtype=a.dtype, device=a.device)
+    ws = (torch.empty(host.ws_elems, dtype=a.dtype, device=a.device)
+          if host.ws_elems else None)
+    if _work.tracing(a) and _work.record_call(
+            "matmul_plan", a, lambda fake: _work.matmul_work(
+                n, m, k, a.element_size())):
+        return out
     if not _check_library_tiles.done:
         _check_library_tiles()
-    out = torch.empty((n, m), dtype=a.dtype, device=a.device)
-    ws = (torch.empty(table.host.ws_elems, dtype=a.dtype, device=a.device)
-          if table.host.ws_elems else None)
+    variant = plan_variant(a, b)
     fn = c_function("matmul", "matmul_plan",
                     (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _L, _L, _P))

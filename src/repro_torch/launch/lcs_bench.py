@@ -41,9 +41,12 @@ import sys
 
 import torch
 
+from repro_torch.card import PEAK_FLOPS
+from repro_torch.kernels import work
+
 N = 65536
-INT32_OPS_PER_S = 132 * 64 * 1.98e9   # 64 INT32 lanes a SM at 1.98 GHz
-LCS_OPS_PER_CELL = 4
+INT32_OPS_PER_S = PEAK_FLOPS[torch.int32]
+LCS_OPS_PER_CELL = work.LCS_OPS_PER_CELL
 # (label, p, tile or None for the PACO rule)
 TILINGS = [("p=132", 132, None), ("p=131", 131, None),
            ("PO p=1 tile=128", 1, 128), ("PA p=8 tile=8192", 8, 8192)]

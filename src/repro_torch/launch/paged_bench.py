@@ -54,10 +54,13 @@ import sys
 
 import torch
 
+from repro_torch import card
+
 ATOL = 2e-2
 ITERS = 100
 LAYERS = 16
-HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
+HBM_BYTES_PER_S = card.HBM_BYTES_PER_S
+BF16_FLOPS = card.PEAK_FLOPS[torch.bfloat16]
 
 # Source edits of each ablated copy: (file in csrc/, [(text, replacement)])
 _DECODE_ISSUE = ("  for (int s = 0; s < kStages && s < n_stages; ++s) "

@@ -23,7 +23,8 @@ from repro_torch.dist import act_sharding as act
 from repro_torch.models import layers as L
 from repro_torch.models.hybrid import _logits, _zeros
 from repro_torch.models.transformer import (LeafSpec, _embed, _layer, _stack,
-                                            _unstack, embed_table, write_at)
+                                            _unstack, embed_table, gathered,
+                                            write_at)
 
 Params = dict[str, Any]
 
@@ -69,6 +70,7 @@ def init_encdec(cfg: ArchConfig, gen: torch.Generator) -> Params:
 def _enc_block(blk: Params, cfg: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor, use_kernel: bool | None
                ) -> torch.Tensor:
+    blk = gathered(blk)
     x = act.residual(x)
     h = L.rms_norm(x, blk["ln1"])
     x = x + L.apply_gqa(blk["attn"], cfg, h, positions, causal=False,
@@ -91,7 +93,8 @@ def encode(params: Params, cfg: ArchConfig, src_emb: torch.Tensor, *,
     for blk in _unstack(params["enc_blocks"], cfg.n_enc_layers):
         if remat and torch.is_grad_enabled():
             x = checkpoint(_enc_block, blk, cfg, x, positions, use_kernel,
-                           use_reentrant=False)
+                           use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = _enc_block(blk, cfg, x, positions, use_kernel)
     return L.rms_norm(x, params["enc_norm"])
@@ -123,6 +126,7 @@ def _cross_attention(p: Params, cfg: ArchConfig, h: torch.Tensor,
 def _dec_block(blk: Params, cfg: ArchConfig, x: torch.Tensor,
                enc: torch.Tensor, positions: torch.Tensor,
                use_kernel: bool | None) -> torch.Tensor:
+    blk = gathered(blk)
     x = act.residual(x)
     h = L.rms_norm(x, blk["ln1"])
     x = x + L.apply_gqa(blk["attn"], cfg, h, positions, causal=True,
@@ -143,7 +147,8 @@ def forward_encdec(params: Params, cfg: ArchConfig, src_emb: torch.Tensor,
     for blk in _unstack(params["dec_blocks"], cfg.n_layers):
         if remat and torch.is_grad_enabled():
             x = checkpoint(_dec_block, blk, cfg, x, enc, positions,
-                           use_kernel, use_reentrant=False)
+                           use_kernel, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = _dec_block(blk, cfg, x, enc, positions, use_kernel)
     return _logits(params, cfg, x)

@@ -23,7 +23,8 @@ from repro_torch.dist import act_sharding as act
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (LeafSpec, _layer, _stack,
-                                            _unstack, embed_table, write_at)
+                                            _unstack, embed_table, gathered,
+                                            write_at, write_span)
 
 Params = dict[str, Any]
 
@@ -40,12 +41,15 @@ def _mamba_block(gen: torch.Generator, cfg: ArchConfig) -> Params:
 def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor
             ) -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"])
-    return L.mask_vocab(act.constrain((x @ params["lm_head"]).float(),
-                                      "dp", None, "model"), cfg.vocab)
+    head = act.dp_gathered(params["lm_head"])
+    return L.mask_vocab(act.constrain((x @ head).float(), "dp",
+                                      *(None,) * (x.dim() - 2), "model"),
+                        cfg.vocab)
 
 
 def _mamba_apply(blk: Params, cfg: ArchConfig, x: torch.Tensor
                  ) -> torch.Tensor:
+    blk = gathered(blk)
     x = act.residual(x)
     return act.residual(
         x + S.apply_mamba2(blk["mixer"], cfg, L.rms_norm(x, blk["ln"])))
@@ -58,7 +62,8 @@ def _mamba_layers(blocks: list[Params], cfg: ArchConfig, x: torch.Tensor,
     ``jax.checkpoint`` wraps ``repro``'s scan body."""
     for blk in blocks:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_mamba_apply, blk, cfg, x, use_reentrant=False)
+            x = checkpoint(_mamba_apply, blk, cfg, x, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = _mamba_apply(blk, cfg, x)
     return x
@@ -83,7 +88,7 @@ def forward_ssm_lm(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                    *, remat: bool = True) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) f32.  The embedding is not scaled
     (``repro``'s SSM LM)."""
-    x = act.batch_seq(params["embed"][tokens])
+    x = act.batch_seq(L.embed_rows(params["embed"], tokens))
     x = _mamba_layers(_unstack(params["blocks"], cfg.n_layers), cfg, x,
                       remat)
     return _logits(params, cfg, x)
@@ -101,8 +106,8 @@ def _mamba_step(blk: Params, cfg: ArchConfig, x: torch.Tensor,
     y, conv, ssm_st = S.step_mamba2(blk["mixer"], cfg,
                                     L.rms_norm(x, blk["ln"]),
                                     state["conv"][i], state["ssm"][i])
-    state["conv"][i] = conv
-    state["ssm"][i] = ssm_st
+    write_span(state["conv"], i, conv)
+    write_span(state["ssm"], i, ssm_st)
     return x + y
 
 
@@ -111,7 +116,7 @@ def decode_step_ssm(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                     ) -> tuple[torch.Tensor, Params, torch.Tensor]:
     """tokens (B, 1) -> (logits (B, V) f32, the state updated IN PLACE,
     lengths + 1)."""
-    x = params["embed"][tokens[:, 0]]                          # (B, D)
+    x = L.embed_rows(params["embed"], tokens[:, 0])         # (B, D)
     for i in range(cfg.n_layers):
         x = _mamba_step(_layer(params["blocks"], i), cfg, x, state, i)
     return _logits(params, cfg, x), state, lengths + 1
@@ -153,6 +158,7 @@ def init_hybrid(cfg: ArchConfig, gen: torch.Generator) -> Params:
 def _shared_block(shared: Params, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, use_kernel: bool | None
                   ) -> torch.Tensor:
+    shared = gathered(shared)
     h = L.rms_norm(x, shared["ln1"])
     x = x + L.apply_gqa(shared["attn"], cfg, h, positions,
                         use_kernel=use_kernel)
@@ -166,14 +172,15 @@ def forward_hybrid(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     """tokens (B, S) -> logits (B, S, V) f32: each group's Mamba-2 layers,
     then the shared attention block (causal over arange(S))."""
     s = tokens.shape[1]
-    x = act.batch_seq(params["embed"][tokens])
+    x = act.batch_seq(L.embed_rows(params["embed"], tokens))
     positions = torch.arange(s, device=x.device)
     shared = params["shared_attn"]
     for grp in _unstack(params["groups"], _n_groups(cfg)):
         x = _mamba_layers(_unstack(grp, cfg.attn_every), cfg, x, remat)
         if remat and torch.is_grad_enabled():
             x = checkpoint(_shared_block, shared, cfg, x, positions,
-                           use_kernel, use_reentrant=False)
+                           use_kernel, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = _shared_block(shared, cfg, x, positions, use_kernel)
     return _logits(params, cfg, x)
@@ -194,7 +201,7 @@ def decode_step_hybrid(params: Params, cfg: ArchConfig,
     state updated IN PLACE, lengths + 1).  The shared block's attention
     is ``layers.decode_attention`` over each group's own K/V cache."""
     b = tokens.shape[0]
-    x = params["embed"][tokens[:, 0]]                          # (B, D)
+    x = L.embed_rows(params["embed"], tokens[:, 0])         # (B, D)
     shared = params["shared_attn"]
     for g in range(_n_groups(cfg)):
         grp = _layer(params["groups"], g)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.dist import act_sharding as act
 from repro_torch.kernels.attention import attention as K
+from repro_torch.kernels import work
 
 Params = dict[str, Any]
 
@@ -30,7 +31,7 @@ Params = dict[str, Any]
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = act.summed(x).float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + scale.float())).to(dt)
 
@@ -62,6 +63,14 @@ def act_fn(kind: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens] by ``F.embedding`` (the same rows).  Under a mesh the
+    table is gathered whole first: torch 2.11's DTensor has no rule for
+    the ``index_put`` of an indexing's backward, nor for the backward of
+    a vocab-parallel embedding (its masked partial sum)."""
+    return F.embedding(tokens.long(), act.whole(table))
+
+
 def rope_freqs(head_dim: int, theta: float = 10000.0,
                device: torch.device | str | None = None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -73,7 +82,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                ) -> torch.Tensor:
     """x: (..., S, H, Dh) -- or (..., S, Dh) with ``head_axis=False``;
     positions: (..., S).  Rotates the pairs (x[i], x[i + Dh/2]) (the
-    half-split convention) in f32 and returns x's dtype."""
+    half-split convention) in f32 and returns x's dtype.  Under a mesh
+    per-row positions (decode's lengths) take the rows' layout first, so
+    the angles meet x without a redistribution of their own."""
+    if act.is_dtensor(positions) and positions.dim() > 1:
+        positions = act.constrain(positions, "dp",
+                                  *(None,) * (positions.dim() - 1))
     dh = x.shape[-1]
     freqs = rope_freqs(dh, theta, x.device)
     ang = positions.float()[..., None] * freqs
@@ -82,7 +96,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     cos, sin = torch.cos(ang), torch.sin(ang)
     xf = x.float().reshape(*x.shape[:-1], 2, dh // 2)
     x1, x2 = xf[..., 0, :], xf[..., 1, :]
-    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-2)
+    # the pair dim by its positive index: torch 2.11's DTensor shifts a
+    # cut on the head dim past a negative stack dim
+    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                      dim=x.dim() - 1)
     return out.reshape(x.shape).to(x.dtype)
 
 
@@ -103,8 +120,14 @@ def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 
 
 def _is_arange(pos: torch.Tensor, n: int) -> bool:
-    return (pos.dim() == 1 and pos.shape[0] == n and bool(
-        (pos == torch.arange(n, device=pos.device)).all()))
+    """pos is arange(n), read unseen by the step counters; a fake tensor
+    (no data) is held to its shape only."""
+    if pos.dim() != 1 or pos.shape[0] != n:
+        return False
+    if work.is_fake(pos):
+        return True
+    with work.suspended():
+        return bool((pos == torch.arange(n, device=pos.device)).all())
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -135,7 +158,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, dh = q.shape
     _, sk, hkv, dhv = v.shape
     if use_kernel is None:
-        use_kernel = q.is_cuda
+        use_kernel = work.on_card(q)
     if use_kernel:
         if not (_is_arange(q_positions, sq) and _is_arange(k_positions, sk)):
             raise ValueError("the flash kernels take positions arange(Sq) "
@@ -259,13 +282,31 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     expanded over the G query heads; f32 scores from the stored inputs,
     the finite -1e30 mask ``pos < lengths`` (and ``pos >= lengths -
     window`` with a window), weights rounded to the cache's dtype before
-    the PV product, f32 accumulation, the result in q's dtype."""
+    the PV product, f32 accumulation, the result in q's dtype.
+
+    Under a mesh the cache is cut as ``kv_cache_constrain`` cuts it: over
+    its heads, when the model axis divides Hkv, and then each rank attends
+    its own heads and rows (``local_call``); else over the sequence, and
+    the softmax's reductions run across ranks on DTensors, every rank
+    holding all of q's heads."""
+    hkv = v_cache.shape[2]
+    pm = act.model_size()
+    if act.is_dtensor(q) and hkv % pm == 0 and pm > 1:
+        names = ("dp", None, "model", None)
+        return act.local_call(
+            lambda q, k, v, n: decode_attention(
+                q, k, v, lengths=n, window=window, logit_cap=logit_cap,
+                scale=scale),
+            (names, names, names, ("dp",)), 0, q, k_cache, v_cache, lengths)
     b, _, hq, dh = q.shape
     _, s, hkv, dhv = v_cache.shape
     g = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     k_cache = kv_cache_constrain(k_cache)
     v_cache = kv_cache_constrain(v_cache)
+    if hkv % pm:
+        # the cache is cut over the sequence: every rank needs all heads
+        q = act.constrain(q, "dp", None, None, None)
     qr = q.reshape(b, hkv, g, dh)
     scores = torch.einsum("bhgd,bshd->bhgs", qr.float(),
                           k_cache.float()) * scale
@@ -301,12 +342,18 @@ def init_mlp(gen: torch.Generator, cfg, d_ff: int, dtype: torch.dtype
 
 
 def apply_mlp(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The MLP.  Under a mesh its hidden activations are laid out batch
+    over dp and hidden features over the model axis before the down
+    projection (DTensor may have cut the tokens over the model axis for
+    a row-parallel gate, a cut that the down projection's flattening
+    turns into a strided shard it cannot propagate)."""
     if cfg.act == "swiglu":
         h = F.silu(x @ p["gate"]) * (x @ p["up"])
     elif cfg.act == "geglu":
         h = F.gelu(x @ p["gate"], approximate="tanh") * (x @ p["up"])
     else:
         h = act_fn(cfg.act, x @ p["up"])
+    h = act.constrain(h, "dp", *(None,) * (h.dim() - 2), "model")
     return h @ p["down"]
 
 
@@ -442,10 +489,17 @@ def latent_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     ``repro``'s: f32 scores from the stored inputs, the finite -1e30 mask,
     softmax weights rounded to c_kv's dtype before the PV product, f32
     accumulation.  ``repro`` scans over query chunks to bound its memory;
-    rows are independent, so one pass computes the same values."""
-    q_lat, q_rope = act.heads(q_lat), act.heads(q_rope)
-    c_kv = act.constrain(c_kv, "dp", None, None)
-    k_rope = act.constrain(k_rope, "dp", None, None)
+    rows are independent, so one pass computes the same values.  Under
+    a mesh each rank attends its own heads and rows against the whole
+    latent (``local_call``)."""
+    if act.is_dtensor(q_lat):
+        qn, cn = ("dp", None, "model", None), ("dp", None, None)
+        return act.local_call(
+            lambda ql, qr, ck, kr, qp, kp: latent_attention(
+                ql, qr, ck, kr, q_positions=qp, k_positions=kp,
+                scale=scale, causal=causal),
+            (qn, qn, cn, cn, None, None), 0, q_lat, q_rope, c_kv, k_rope,
+            q_positions, k_positions)
     s = (torch.einsum("bqhk,bsk->bhqs", q_lat.float(), c_kv.float())
          + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), k_rope.float())
          ) * scale
@@ -484,9 +538,16 @@ def latent_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     positions valid -> (B, 1, H, kv_lora).  ``repro``'s
     ``latent_decode_attention``: scores in the decomposed form q_lat . c_kv
     + q_rope . k_rope in f32, the finite -1e30 mask, weights rounded to
-    c_kv's dtype before the PV product (c_kv is also the value)."""
-    c_kv = act.constrain(c_kv, "dp", None, None)
-    k_rope = act.constrain(k_rope, "dp", None, None)
+    c_kv's dtype before the PV product (c_kv is also the value).  Under a
+    mesh each rank attends its own heads and rows against the whole
+    latent cache (``local_call``)."""
+    if act.is_dtensor(q_lat):
+        qn, cn = ("dp", None, "model", None), ("dp", None, None)
+        return act.local_call(
+            lambda ql, qr, ck, kr, n: latent_decode_attention(
+                ql, qr, ck, kr, lengths=n, scale=scale),
+            (qn, qn, cn, cn, ("dp",)), 0, q_lat, q_rope, c_kv, k_rope,
+            lengths)
     s = c_kv.shape[1]
     scores = (torch.einsum("bqhk,bsk->bhqs", q_lat.float(), c_kv.float())
               + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),

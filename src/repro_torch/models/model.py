@@ -13,6 +13,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import act_sharding as act
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
+from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as TF
 
@@ -61,27 +62,56 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict, *,
     tokens.  The gold logit is taken with ``torch.gather``, which gives the
     value ``repro``'s masked vocab-iota sum gives without its (B, S, V)
     integer iota.  The MoE aux loss is ``repro``'s layer-0 proxy: layer 0's
-    router over the token embeddings."""
-    # vocab whole for the gather (cut over the model axis under a mesh)
-    logits = act.constrain(
-        forward(params, cfg, batch, remat=remat, use_kernel=use_kernel),
-        "dp", None, None)
+    router over the token embeddings.
+
+    Under a mesh whose model axis cuts the vocab the loss stays
+    vocab-parallel, as ``repro``'s: the log-sum-exp from each rank's
+    columns (a max and a sum reduced across the model axis) and the gold
+    logit as ``repro``'s masked sum against a vocab iota cut as the logits
+    are, so no rank holds a (B, S, V) tensor whole."""
+    logits = forward(params, cfg, batch, remat=remat, use_kernel=use_kernel)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     labels = torch.clamp(labels, min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None])[..., 0]
+    if act.is_dtensor(logits) and act.model_size() > 1:
+        logz, gold = _vocab_parallel_terms(logits, labels)
+    else:
+        # vocab whole for the gather (a mesh with no model cut)
+        logits = act.constrain(logits, "dp", None, None)
+        logz = torch.logsumexp(logits, dim=-1)
+        # on each rank's rows under a mesh: DTensor's gather backward
+        # would build the global (B, S, V) zeros on every rank
+        gold = act.local_call(
+            lambda lg, lb: lg.gather(-1, lb[..., None])[..., 0],
+            (("dp", None, None), ("dp", None)), 1, logits, labels)
     nll = (logz - gold) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = nll.sum() / denom
     metrics = {"nll": loss, "tokens": denom}
     if cfg.moe is not None and cfg.moe.aux_loss_weight:
-        emb = params["embed"][batch["tokens"]].reshape(-1, cfg.d_model)
+        # rows over dp and features whole before the rows are flattened
+        emb = act.constrain(L.embed_rows(params["embed"], batch["tokens"]),
+                            "dp", None, None).reshape(-1, cfg.d_model)
         router0 = TF._layer(params["blocks"], 0)["mlp"]
         aux = M.aux_load_balance_loss(router0, cfg, emb)
         loss = loss + cfg.moe.aux_loss_weight * aux
         metrics["aux"] = aux
     return loss, metrics
+
+
+def _vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(log-sum-exp, gold logit) of DTensor logits (B, S, V) with the
+    vocab over the model axis, each rank on its own columns."""
+    logits = act.constrain(logits, "dp", None, "model")
+    mx = logits.detach().amax(dim=-1, keepdim=True)
+    logz = (torch.log(torch.exp(logits - mx).sum(dim=-1))
+            + mx.squeeze(-1))
+    vocab = act.constrain(act.as_dtensor(torch.arange(
+        logits.shape[-1], device=logits.device), logits.device_mesh),
+        "model")
+    gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
+    return logz, gold
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +137,9 @@ def cache_spec(cfg: ArchConfig, batch: int, max_seq: int, src_len: int = 0
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, src_len: int = 0,
                *, device: torch.device | str = "cuda") -> Params:
-    """Zeros of ``cache_spec`` on ``device``."""
-    return TF.zeros_of(cache_spec(cfg, batch, max_seq, src_len), device)
+    """Zeros of ``cache_spec`` on ``device`` (under mesh rules laid out by
+    ``dist.sharding.cache_specs``)."""
+    return TF.zeros_of(cache_spec(cfg, batch, max_seq, src_len), device, cfg)
 
 
 def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -143,7 +174,9 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict, max_seq: int, *,
         cache = init_cache(cfg, b, max_seq, src_len, device=enc.device)
         for i in range(cfg.n_layers):
             xattn = TF._layer(params["dec_blocks"], i)["xattn"]
-            cache["xk"][i], cache["xv"][i] = ED.cross_kv(xattn, cfg, enc)
+            xk, xv = ED.cross_kv(xattn, cfg, enc)
+            TF.write_span(cache["xk"], i, xk)
+            TF.write_span(cache["xv"], i, xv)
         lengths = torch.zeros((b,), dtype=torch.int32, device=enc.device)
         logits = torch.zeros((b, cfg.vocab), dtype=torch.float32,
                              device=enc.device)

@@ -180,9 +180,7 @@ def apply_moe(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
                                     rows, rows, rows),
                          0, x, out_e, w, ids, pos)
     if m.n_shared:
-        out = out + L.apply_mlp(p["shared"], cfg,
-                                x.reshape(b * s, d)).reshape(
-                                    b, s, d).to(out.dtype)
+        out = out + L.apply_mlp(p["shared"], cfg, x).to(out.dtype)
     return out.to(x.dtype)
 
 

@@ -45,7 +45,18 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SSD scan.  x: (B, S, H, P); a: (B, S, H) log-decay (dt * A, negative);
     b, c: (B, S, G, N) with H % G == 0.  Returns (y (B, S, H, P),
-    final_state (B, H, P, N))."""
+    final_state (B, H, P, N)).  Under a mesh each rank scans its own rows
+    and block of heads (``_on_head_blocks``)."""
+    if act.is_dtensor(x):
+        if h0 is None:
+            h0 = torch.zeros((x.shape[0], x.shape[2], x.shape[3],
+                              b.shape[3]), dtype=x.dtype, device=x.device)
+        hn, gn = _head_names(x.shape[2], b.shape[2])
+        return act.local_call(
+            lambda *t: ssd_chunked(*t[:4], chunk, t[4]),
+            (("dp", None, hn, None), ("dp", None, hn), ("dp", None, gn, None),
+             ("dp", None, gn, None), ("dp", hn, None, None)), (0, 4),
+            x, a, b, c, h0)
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     rep = h // g
@@ -92,11 +103,29 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return y, final
 
 
+def _head_names(h: int, g: int) -> tuple[str | None, str | None]:
+    """Logical names of the SSM's head and group dims under the active
+    mesh: heads over the model axis when it divides them and the groups
+    (one group whole on every rank, or groups cut alongside their heads),
+    else both whole."""
+    pm = act.model_size()
+    if h % pm or (g > 1 and g % pm):
+        return None, None
+    return "model", ("model" if g > 1 else None)
+
+
 def ssd_step(h_prev: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step.  h_prev (B, H, P, N); x (B, H, P); a (B, H);
-    b, c (B, G, N).  Returns (y (B, H, P), h_new)."""
+    b, c (B, G, N).  Returns (y (B, H, P), h_new).  Under a mesh on each
+    rank's rows and block of heads."""
+    if act.is_dtensor(h_prev) or act.is_dtensor(x):
+        hn, gn = _head_names(h_prev.shape[1], b.shape[1])
+        return act.local_call(
+            ssd_step, (("dp", hn, None, None), ("dp", hn, None), ("dp", hn),
+                       ("dp", gn, None), ("dp", gn, None)), (1, 0),
+            h_prev, x, a, b, c)
     rep = h_prev.shape[1] // b.shape[1]
     bh = b.repeat_interleave(rep, dim=1)                      # (B, H, N)
     ch = c.repeat_interleave(rep, dim=1)
@@ -160,8 +189,9 @@ def apply_mamba2(p: Params, cfg, u: torch.Tensor) -> torch.Tensor:
     m = cfg.ssm
     bs, s, _ = u.shape
     d_in, gn, nheads = _dims(cfg)
-    z, xbc, dt = _split_proj(cfg, act.constrain(u @ p["in_proj"],
-                                                "dp", None, "model"))
+    z, xbc, dt = _split_proj(cfg, act.constrain(u @ p["in_proj"], "dp",
+                                                *(None,) * (u.dim() - 2),
+                                                "model"))
     # causal depthwise conv over (x, B, C), in repro's order of sums
     w = p["conv_w"]                                           # (W, d_in+2gn)
     pad = F.pad(xbc, (0, 0, m.conv_width - 1, 0))
@@ -195,8 +225,9 @@ def step_mamba2(p: Params, cfg, u: torch.Tensor, conv_state: torch.Tensor,
     m = cfg.ssm
     bs = u.shape[0]
     d_in, gn, nheads = _dims(cfg)
-    z, xbc, dt = _split_proj(cfg, act.constrain(u @ p["in_proj"],
-                                                "dp", None, "model"))
+    z, xbc, dt = _split_proj(cfg, act.constrain(u @ p["in_proj"], "dp",
+                                                *(None,) * (u.dim() - 2),
+                                                "model"))
     window = torch.cat([conv_state, xbc[:, None]], dim=1)
     conv = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"]))
     new_conv_state = window[:, 1:]

@@ -63,9 +63,19 @@ def _layer_windows(cfg: ArchConfig, n_layers: int) -> list[int]:
 
 def _layer(blocks: Params, i: int) -> Params:
     """Layer i of layer-stacked blocks (a leaf cut on its layer dim, a
-    stacked (L, d) vector under a mesh, is gathered first)."""
+    stacked (L, d) vector under a mesh, is gathered first), its weights
+    gathered over the data-parallel axes (``act.dp_gathered``)."""
     return {k: _layer(v, i) if isinstance(v, dict)
-            else act.unshard_dim(v, 0)[i] for k, v in blocks.items()}
+            else act.dp_gathered(act.unshard_dim(v, 0)[i])
+            for k, v in blocks.items()}
+
+
+def gathered(blk: Params) -> Params:
+    """One layer's weights gathered over the data-parallel axes: a block
+    function's first step, inside its remat, so that only the running
+    layer's gathered weights are alive."""
+    return {k: gathered(v) if isinstance(v, dict) else act.dp_gathered(v)
+            for k, v in blk.items()}
 
 
 def _unstack(blocks: Params, n: int) -> list[Params]:
@@ -146,7 +156,7 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor
            ) -> torch.Tensor:
     emb = params["embed"]
     # sqrt(d_model) rounded to the parameter dtype first, as in repro
-    return act.batch_seq(emb[tokens] * torch.tensor(
+    return act.batch_seq(L.embed_rows(emb, tokens) * torch.tensor(
         math.sqrt(cfg.d_model), dtype=emb.dtype, device=emb.device))
 
 
@@ -154,7 +164,10 @@ def _mlp_residual(blk: Params, cfg: ArchConfig, x: torch.Tensor,
                   a: torch.Tensor) -> torch.Tensor:
     if "ln1_post" in blk:
         a = L.rms_norm(a, blk["ln1_post"])
-    x = x + a
+    # a row-parallel projection's Partial output is summed here, once,
+    # before the norm (else the MLP's column-parallel weights are gathered
+    # to meet it)
+    x = act.residual(x + a)
     h = L.rms_norm(x, blk["ln2"])
     f = (M.apply_moe(blk["mlp"], cfg, h) if cfg.moe
          else L.apply_mlp(blk["mlp"], cfg, h))
@@ -168,7 +181,8 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor
     """Logits (..., V) f32; under a mesh cut over the vocab (model) axis,
     as ``repro``'s."""
     x = L.rms_norm(x, params["final_norm"])
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = act.dp_gathered(params["embed"].T if cfg.tie_embeddings
+                           else params["lm_head"])
     logits = act.constrain(x @ head, *("dp",) + (None,) * (x.dim() - 2)
                            + ("model",))
     return L.mask_vocab(L.softcap(logits.float(), cfg.softcap_logits),
@@ -206,6 +220,7 @@ def _block_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
                  positions: torch.Tensor, window: int,
                  use_kernel: bool | None = None) -> torch.Tensor:
     """One decoder block over whole sequences: (B, S, D) -> (B, S, D)."""
+    p = gathered(p)
     x = act.residual(x)
     h = L.rms_norm(x, p["ln1"])
     if cfg.attn == "mla":
@@ -226,7 +241,9 @@ def forward_decoder(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     wraps ``repro``'s scan body: only the blocks' inputs are kept, and on
     CUDA each block launches the flash forward kernel twice per training
     step (forward and recompute) and the backward kernel once.  Global
-    layers take the window INT32_MAX, as ``repro`` threads it."""
+    layers take the window INT32_MAX, as ``repro`` threads it.  The blocks
+    draw no random numbers, so the recompute keeps no RNG state
+    (``preserve_rng_state=False``, in every family's remat)."""
     _check_decoder(cfg)
     _, s = tokens.shape
     x = _embed(params, cfg, tokens)
@@ -236,7 +253,8 @@ def forward_decoder(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                            windows):
         if remat and torch.is_grad_enabled():
             x = checkpoint(_block_apply, blk, cfg, x, positions, window,
-                           use_kernel, use_reentrant=False)
+                           use_kernel, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = _block_apply(blk, cfg, x, positions, window, use_kernel)
     return _logits(params, cfg, x)
@@ -263,15 +281,22 @@ def cache_spec_decoder(cfg: ArchConfig, batch: int, max_seq: int
     return {"k": LeafSpec(shape, cfg.dtype), "v": LeafSpec(shape, cfg.dtype)}
 
 
-def zeros_of(spec: dict[str, LeafSpec], device: torch.device | str
-             ) -> Params:
+def zeros_of(spec: dict[str, LeafSpec], device: torch.device | str,
+             cfg: ArchConfig | None = None) -> Params:
+    """Zeros of ``spec``; under mesh rules (with ``cfg``) laid out by
+    ``dist.sharding.cache_specs``, each rank allocating its own block."""
+    mesh = act.current_mesh()
+    if mesh is not None and cfg is not None:
+        from repro_torch.dist.sharding import cache_specs, zeros_laid_out
+        return zeros_laid_out(mesh, spec, cache_specs(cfg, mesh, spec),
+                              device)
     return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
             for k, s in spec.items()}
 
 
 def init_cache_decoder(cfg: ArchConfig, batch: int, max_seq: int, *,
                        device: torch.device | str = "cuda") -> Params:
-    return zeros_of(cache_spec_decoder(cfg, batch, max_seq), device)
+    return zeros_of(cache_spec_decoder(cfg, batch, max_seq), device, cfg)
 
 
 def write_at(cache_l: torch.Tensor, new: torch.Tensor,
@@ -279,11 +304,47 @@ def write_at(cache_l: torch.Tensor, new: torch.Tensor,
     """Write each row's one new position ``new`` (B, 1, ...) into
     ``cache_l`` (B, S, ...) at ``lengths`` (B,), IN PLACE.  A length past
     the cache writes its last position, as ``jax.lax.dynamic_update_slice``
-    clamps its start."""
+    clamps its start.  Under a mesh the write goes to each rank's local
+    block: a rank whose block of positions does not hold a row's position
+    writes that row's old value back."""
     b, s = cache_l.shape[:2]
+    if act.is_dtensor(cache_l):
+        local, offs = act.local_block(cache_l)
+        lb, ls = local.shape[:2]
+        new_l = act.laid_out_as(new, cache_l, whole=(1,))[:, 0]
+        lens = act.replicate(lengths)[offs[0]:offs[0] + lb]
+        pos = torch.clamp(lens, max=s - 1).long() - offs[1]
+        inside = ((pos >= 0) & (pos < ls)).reshape(
+            (lb,) + (1,) * (new_l.dim() - 1))
+        pos = torch.clamp(pos, 0, ls - 1)
+        rows = torch.arange(lb, device=local.device)
+        local[rows, pos] = torch.where(inside, new_l, local[rows, pos])
+        return cache_l
     rows = torch.arange(b, device=cache_l.device)
     cache_l[rows, torch.clamp(lengths, max=s - 1).long()] = new[:, 0]
     return cache_l
+
+
+def write_span(leaf: torch.Tensor, i: int, new: torch.Tensor) -> None:
+    """leaf[i][:, :n] = new (B, n, ...) IN PLACE, for a layer-stacked
+    cache or state leaf (L, B, S, ...).  Under a mesh each rank writes the
+    part of ``new`` that meets its local block (a new as long as the
+    leaf's dim 2 is cut as the leaf is, with no communication; a shorter
+    one is gathered along that dim first)."""
+    n = new.shape[1]
+    if not act.is_dtensor(leaf):
+        leaf[i, :, :n] = new
+        return
+    local, offs = act.local_block(leaf)
+    whole = () if n == leaf.shape[2] else (1,)
+    new_l = act.laid_out_as(new, leaf, lead=1, whole=whole)
+    lo, ls = offs[2], local.shape[2]
+    if whole:
+        hi = min(n, lo + ls)
+        if hi > lo:
+            local[i, :, :hi - lo] = new_l[:, lo:hi]
+    else:
+        local[i] = new_l
 
 
 def prefill_decoder(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -305,13 +366,13 @@ def prefill_decoder(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         h = L.rms_norm(x, blk["ln1"])
         if cfg.attn == "mla":
             c_kv, k_rope = L.mla_latents(blk["attn"], cfg, h, positions)
-            cache["c_kv"][i, :, :s] = c_kv
-            cache["k_rope"][i, :, :s] = k_rope
+            write_span(cache["c_kv"], i, c_kv)
+            write_span(cache["k_rope"], i, k_rope)
             a = L.apply_mla(blk["attn"], cfg, h, positions)
         else:
             q, kk, v = L.gqa_qkv(blk["attn"], cfg, h, positions)
-            cache["k"][i, :, :s] = kk
-            cache["v"][i, :, :s] = v
+            write_span(cache["k"], i, kk)
+            write_span(cache["v"], i, v)
             o = L.attention(q, kk, v, q_positions=positions,
                             k_positions=positions, causal=True,
                             window=windows[i], logit_cap=cfg.softcap_attn,

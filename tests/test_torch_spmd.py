@@ -49,6 +49,8 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 FWD_ARCHS = ("qwen3-0.6b", "deepseek-v2-236b", "mamba2-780m",
              "seamless-m4t-medium")
 SERVE_ARCHS = ("qwen3-0.6b", "deepseek-v2-236b")
+NO_PREFILL = ("mamba2-780m", "zamba2-7b")    # SSM, hybrid: as in repro
+DECODE_ARCHS = SERVE_ARCHS + NO_PREFILL + ("seamless-m4t-medium",)
 # f32 tolerances: the sharded paths sum k-cut partial products and
 # data-parallel gradients in another order than one device does
 FWD_ATOL = 1e-4          # sharded vs unsharded logits
@@ -58,6 +60,10 @@ PIPE_ATOL = 1e-5         # GPipe vs the sequential stack
 TRAIN_LOSS_JAX, TRAIN_LEAF_JAX = 1e-3, 5e-3      # as tests/test_spmd.py
 TRAIN_LOSS_PORT, TRAIN_LEAF_PORT = 1e-5, 1e-5    # vs the port, one device
 ELASTIC_RTOL = 2e-4      # as tests/test_spmd.py
+DECODE_ATOL = TP.ATOL    # meshed dense-cache logits and cache vs one
+                         # device and vs JAX (f32, as test_torch_nonpaged)
+DECODE_PROMPT, DECODE_STEPS, DECODE_MAX_SEQ = 8, 4, 32
+j_decode_step = jax.jit(jmodels.decode_step, static_argnums=1)
 
 
 def _spawn(world, jobs, tmp):
@@ -199,6 +205,65 @@ def _serve_refs(models):
     return refs
 
 
+def _decode_cases(models):
+    """Per arch: tokens (4, 12), the enc-dec's source frames, and the
+    prompt the prefill takes (0 for SSM and hybrid: no prefill, every
+    token decoded from the empty state)."""
+    rng = np.random.default_rng(19)
+    cases = []
+    for arch in DECODE_ARCHS:
+        _, ct, _, pt = models[arch]
+        toks = rng.integers(0, ct.vocab, (4, DECODE_PROMPT + DECODE_STEPS),
+                            dtype=np.int32)
+        src = (rng.standard_normal((4, DECODE_PROMPT, ct.d_model)).astype(
+            np.float32) if ct.family == "encdec" else None)
+        prompt = 0 if arch in NO_PREFILL else DECODE_PROMPT
+        cases.append((arch, ct, pt, toks, src, prompt, DECODE_MAX_SEQ))
+    return {"cases": cases}
+
+
+def _decode_refs(models, job):
+    """Per arch: (the port's, JAX's) logits of the prefill and each
+    decode step, final caches and lengths, on one device."""
+    refs = {}
+    for arch, _, _, toks, src, prompt, max_seq in job["cases"]:
+        cj, ct, pj, pt = models[arch]
+        tt, tj = torch.from_numpy(toks), jnp.asarray(toks)
+        bt, bj = {"tokens": tt[:, :prompt]}, {"tokens": tj[:, :prompt]}
+        if src is not None:
+            bt["src_emb"], bj["src_emb"] = torch.from_numpy(src), \
+                jnp.asarray(src)
+        b = toks.shape[0]
+        port, jx = [], []
+        with torch.no_grad():
+            if prompt:
+                lg, cache, lens = tmodels.prefill(pt, ct, bt, max_seq)
+                port.append(lg.numpy())
+            else:
+                cache = tmodels.init_cache(ct, b, max_seq, device="cpu")
+                lens = torch.zeros((b,), dtype=torch.int32)
+            for t in range(prompt, toks.shape[1]):
+                lg, cache, lens = tmodels.decode_step(pt, ct,
+                                                      tt[:, t:t + 1],
+                                                      cache, lens)
+                port.append(lg.numpy())
+        if prompt:
+            lgj, cj_cache, lj = jmodels.prefill(pj, cj, bj, max_seq=max_seq)
+            jx.append(np.asarray(lgj))
+        else:
+            cj_cache = jmodels.init_cache(cj, b, max_seq)
+            lj = jnp.zeros((b,), jnp.int32)
+        for t in range(prompt, toks.shape[1]):
+            lgj, cj_cache, lj = j_decode_step(pj, cj, tj[:, t:t + 1],
+                                              cj_cache, lj)
+            jx.append(np.asarray(lgj))
+        refs[arch] = {"port": (port, {k: v.numpy() for k, v in
+                                      cache.items()}, lens.numpy()),
+                      "jax": (jx, {k: np.asarray(v) for k, v in
+                                   cj_cache.items()}, np.asarray(lj))}
+    return refs
+
+
 def _elastic_job(tmp):
     cfg = tcfg.get_arch("qwen3-0.6b").reduced()
     return {"cfg": cfg, "tcfg": TrainConfig(opt=AdamWConfig(lr=1e-3)),
@@ -230,6 +295,7 @@ def world8(tmp_path_factory, models):
             "xs": rng.standard_normal((3, 2, 8), np.float32)}
     fwd_job = _forward_cases()
     train_job, train_refs = _train_case()
+    decode_job = _decode_cases(models)
     elastic = _elastic_job(tmp)
     elastic["runs"] = [
         ("base", os.path.join(tmp, "ck_a"), list(range(4)), None),
@@ -238,14 +304,16 @@ def world8(tmp_path_factory, models):
         ("C", os.path.join(tmp, "ck_c"), list(range(4)) + [2, 3], (3, 5))]
     jobs = [("agree", {}), ("matmul", mm), ("sort", sort), ("moe_ep", moe_job),
             ("pipeline", pipe), ("forward", fwd_job), ("train", train_job),
-            ("serve", _serve_cases(models)), ("elastic", elastic)]
+            ("serve", _serve_cases(models)), ("decode", decode_job),
+            ("elastic", elastic)]
     t0 = time.perf_counter()
     got = _spawn(8, jobs, tmp)
     print(f"8-rank spawn {time.perf_counter() - t0:.1f} s: {got['seconds']}")
     refs = {"matmul": mm, "sort": sort, "moe_ep": moe_ref,
             "pipeline": _seq_apply(pipe["layers"], pipe["xs"]),
             "forward": _forward_refs(fwd_job), "train": train_refs(),
-            "serve": _serve_refs(models), "tmp": tmp}
+            "serve": _serve_refs(models),
+            "decode": _decode_refs(models, decode_job), "tmp": tmp}
     return got, refs
 
 
@@ -363,6 +431,32 @@ def test_meshed_engine_tokens_equal_unmeshed_and_jax(world8, arch, mode):
         assert r.out == want, r.uid
     if mode == "spec":
         assert accepted > 0
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_meshed_dense_cache_decode_matches_unmeshed_and_jax(world8, arch):
+    """Dense-cache prefill and 4 decode steps on a (2, 4) mesh of reduced
+    qwen3 (its cache cut over the sequence: 2 KV heads on a model axis of
+    4), deepseek-v2 (the latent cache, MoE in 2 groups) and seamless (the
+    encoder's cross K/V written by the prefill), and 12 decode steps from
+    the empty state of mamba2 and zamba2 (conv and SSM states, and the
+    hybrid's shared-attention cache): logits, cache and lengths within
+    DECODE_ATOL of the port on one device and of JAX's ``prefill`` /
+    ``decode_step``."""
+    got, refs = world8
+    logits, cache, lens = got["decode"][arch]
+    steps = (DECODE_PROMPT + DECODE_STEPS if arch in NO_PREFILL
+             else DECODE_STEPS + 1)
+    for who in ("port", "jax"):
+        r_logits, r_cache, r_lens = refs["decode"][arch][who]
+        assert len(logits) == len(r_logits) == steps
+        for a, b in zip(logits, r_logits):
+            np.testing.assert_allclose(a, b, atol=DECODE_ATOL, rtol=0)
+        assert set(cache) == set(r_cache)
+        for k in cache:
+            np.testing.assert_allclose(cache[k], np.asarray(
+                r_cache[k], np.float32), atol=DECODE_ATOL, rtol=0)
+        np.testing.assert_array_equal(lens, r_lens)
 
 
 def test_elastic_restart_8_to_5_ranks(world8, world5):

@@ -138,6 +138,47 @@ def check_serve(job):
     return out
 
 
+def check_decode(job):
+    """Dense-cache prefill, then teacher-forced decode steps, on a (2, 4)
+    mesh: each step's logits, the final cache and lengths, whole.  SSM
+    and hybrid configs have no prefill (as in ``repro``): they decode
+    every token from the empty state, laid out by ``cache_specs``."""
+    from repro_torch.dist import act_sharding as act
+    from repro_torch.dist import sharding as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decode_step, init_cache, prefill
+    mesh = make_host_mesh((2, 4), device_type="cpu")
+    out = {}
+    for arch, cfg, params, tokens, src, prompt, max_seq in job["cases"]:
+        ps = D.distribute(mesh, params, D.param_specs(cfg, params, mesh))
+        toks = _t(tokens)
+        b = toks.shape[0]
+        if prompt == 0:
+            cache = init_cache(cfg, b, max_seq, device="cpu")
+            cache = D.distribute(mesh, cache, D.cache_specs(cfg, mesh, cache))
+            lengths = D.distribute(
+                mesh, {"n": torch.zeros((b,), dtype=torch.int32)},
+                {"n": ("data",)})["n"]
+        else:
+            batch = {"tokens": toks[:, :prompt].contiguous()}
+            if src is not None:
+                batch["src_emb"] = _t(src)
+            bs = D.distribute(mesh, batch, D.batch_specs(cfg, mesh, batch))
+        with act.use_mesh_rules(mesh), torch.no_grad():
+            logits = []
+            if prompt:
+                lg, cache, lengths = prefill(ps, cfg, bs, max_seq)
+                logits.append(_np(lg))
+            for t in range(prompt, toks.shape[1]):
+                tok = D.distribute(mesh, {"t": toks[:, t:t + 1].contiguous()},
+                                   {"t": ("data", None)})["t"]
+                lg, cache, lengths = decode_step(ps, cfg, tok, cache,
+                                                 lengths)
+                logits.append(_np(lg))
+        out[arch] = (logits, _tree_np(cache), _np(lengths))
+    return out
+
+
 def check_elastic(job):
     """Every rank runs the runner; rank 0 reports the losses."""
     from repro_torch.data.pipeline import global_batch_rowwise
@@ -189,7 +230,8 @@ def check_agree(job):
 CHECKS = {"agree": check_agree, "matmul": check_matmul, "sort": check_sort,
           "moe_ep": check_moe_ep, "pipeline": check_pipeline,
           "forward": check_forward, "train": check_train,
-          "serve": check_serve, "elastic": check_elastic}
+          "serve": check_serve, "decode": check_decode,
+          "elastic": check_elastic}
 
 
 def main(rank, world, store_path, job_path, out_path):
