@@ -89,6 +89,23 @@ Phases, in order; any failure ends the script with a nonzero exit:
    page and slots splits apart; each timed in bf16 over its model's
    layers' pools beside its plain version, SDPA under the windows' mask
    pinned per backend, and the bound (each slot's live K/V once, q, out).
+3c. seq_attention (``seq_attention_phase``): sequence-parallel attention,
+   the key-block entries of kernels 5 and 5b (``flash_fwd_block``,
+   ``flash_bwd_block``) and their merge (``seq_attention`` with the list
+   reduction, the code a mesh runs over its model axis's group) at
+   gemma2-2b's full width (B 1, Hq 8, Hkv 4, D 256, softcap 50): S 4096
+   causal (train_4k's global layer) and S 8192 with window 4096 (a local
+   layer), cut into 16 key blocks (the 16 x 16 mesh's model axis) and
+   into 5, f32 and bf16.  Each block against its plain version, the
+   merged forward and backward against the whole-sequence kernels 5 and
+   5b (FLASH_TOL) and bitwise over two runs, one block at offset 0
+   bitwise kernel 5's O.  Then the main path with the counts zeroed and
+   read (bf16, S 4096, 16 blocks: 16 launches of each entry) and rows
+   ``flash_attention_block`` (5s) and ``flash_attention_block_bwd``
+   (5bs): rank 0's block and the last rank's, the plain versions, SDPA
+   under the block's boolean mask per backend, the block formula's bound,
+   at B 1 and again at B 16 (a rank's batch of train_4k on the 16 x 16
+   mesh, the row's "b16").
 4. One full-width qwen3-0.6b prompt chunk per slot and 8 decode ticks
    through the kernels and through the plain path (``use_kernel=False``)
    with the same seeded random weights, in float32 and in bf16: logits
@@ -204,9 +221,12 @@ Phases, in order; any failure ends the script with a nonzero exit:
    read just after a run).  ``paco_matmul_shmap`` and ``paco_matmul_pjit``
    at 4096^3 bf16 (MM_TOL), ``paco_sort_shmap`` of 2^24 floats (exact),
    ``apply_moe_paco_ep`` on one full-width olmoe-1b-7b layer (64 experts,
-   top-1, f32) against the dense top-1 reference (MOE_EP_TOL), and
-   ``ElasticRunner`` on qwen3-0.6b cut to 2 layers, replaying from its
-   checkpoint after a simulated loss of ranks (rtol 2e-4).
+   top-1, f32) against the dense top-1 reference (MOE_EP_TOL),
+   ``seq_attention`` at rows 5s/5bs's geometry (16 key blocks, f32 and
+   bf16) merged over the model axis's NCCL group, forward and backward
+   bitwise the list-only merge, and ``ElasticRunner`` on qwen3-0.6b cut
+   to 2 layers, replaying from its checkpoint after a simulated loss of
+   ranks (rtol 2e-4).
 12. launch tooling (``launch_phase``): (a) full-width qwen3-0.6b in bf16
    at two one-card cells, the train step at B 2 x S 4096 and one
    dense-cache decode step at B 8 x S 32768 (30.1 GB of K/V): each traced
@@ -823,14 +843,13 @@ class ParentKernels:
     tile (``lcs_tile.cu``), with their headers, into
     ``build/parent_kernels/``, so that the benches time them in the same
     call as the current kernels.  Their C interfaces are the parent's: the
-    flash backward's takes one sequence length for queries and keys (the
-    current one takes Sk apart), the flash forward's, ``matmul``'s and
-    paged decode's are the current ones (the decode one launch, no
-    scratch); prefill's split count takes (width,
-    page, start, C), latent prefill's (dtype, kv_lora, qk_rope, width,
-    page, C, H, start) and latent decode's (width, page, B, H), and these
-    three take f32 split scratch; the LCS kernel takes a whole table in one
-    launch (``lcs_table``) over the int32 state ``kernels.lcs`` lays out."""
+    flash pair's (Sq and Sk apart in both), ``matmul``'s and paged
+    decode's are the current ones (the decode one launch, no scratch);
+    prefill's split count takes (width, page, start, C), latent prefill's
+    (dtype, kv_lora, qk_rope, width, page, C, H, start) and latent
+    decode's (width, page, B, H), and these three take f32 split scratch;
+    the LCS kernel takes a whole table in one launch (``lcs_table``) over
+    the int32 state ``kernels.lcs`` lays out."""
 
     NAMES = ("flash_fwd", "flash_bwd", "paged_prefill", "matmul",
              "paged_decode", "paged_latent_prefill", "paged_latent_decode",
@@ -868,7 +887,7 @@ class ParentKernels:
                              P]
         self.bwd = libs["flash_bwd"].flash_bwd
         self.bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                             F, I, I, F, P]
+                             I, F, I, I, F, P]
         self.prefill = libs["paged_prefill"].paged_prefill
         self.prefill.argtypes = [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                  I, F, I, F, P]
@@ -898,27 +917,26 @@ class ParentKernels:
                    self.latent_dec, self.latent_dec_splits, self.lcs_tab):
             fn.restype = I
 
-    def forward(self, q, k, v, o, lse) -> None:
-        """Causal, no window or softcap; q's dtype, Sq and Sk from the
-        shapes."""
+    def forward(self, q, k, v, o, lse, causal=True) -> None:
+        """No window or softcap; q's dtype, Sq and Sk from the shapes."""
         b, sq, hq, d = q.shape
         err = self.fwd(int(q.dtype == torch.bfloat16), q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        lse.data_ptr(), b, sq, k.shape[1], hq, k.shape[2], d,
-                       1 / math.sqrt(d), 1, 2 ** 31 - 1, 0.0,
+                       1 / math.sqrt(d), int(causal), 2 ** 31 - 1, 0.0,
                        torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent flash_fwd", err)
 
-    def backward(self, q, k, v, o, lse, d_o, delta, dq, dk, dv) -> None:
-        """Causal, no window or softcap, Sq == Sk (the parent's one
-        length)."""
-        b, s, hq, d = q.shape
-        assert k.shape[1] == s, "the parent's backward takes Sq == Sk"
+    def backward(self, q, k, v, o, lse, d_o, delta, dq, dk, dv,
+                 causal=True) -> None:
+        """No window or softcap; q's dtype, Sq and Sk from the shapes."""
+        b, sq, hq, d = q.shape
         err = self.bwd(int(q.dtype == torch.bfloat16), q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        d_o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, hq,
-                       k.shape[2], d, 1 / math.sqrt(d), 1, 2 ** 31 - 1, 0.0,
+                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
+                       k.shape[1], hq, k.shape[2], d, 1 / math.sqrt(d),
+                       int(causal), 2 ** 31 - 1, 0.0,
                        torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent flash_bwd", err)
 
@@ -1062,11 +1080,10 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
     milliseconds, so launch cost is noise.  SDPA runs under each backend in
     turn (``sdpa_by_backend``), the fastest being ``library_ms``.  The
     calls take turns on the card, in positions that balance: kernels,
-    parent kernels (when ``parent`` is given and its one-length backward
-    takes the shape, Sq == Sk), SDPA, parent, kernels, kernels, parent,
-    SDPA, parent, kernels; each kernel time is the mean of its four turns
-    (on an H100 the mean of two moved by up to 5% between calls), SDPA's
-    of its two.
+    parent kernels (when ``parent`` is given), SDPA, parent, kernels,
+    kernels, parent, SDPA, parent, kernels; each kernel time is the mean
+    of its four turns (on an H100 the mean of two moved by up to 5%
+    between calls), SDPA's of its two.
     Bounds: operations, the forward's 4 B Hq D flops a visible (query, key)
     pair and the backward's 2.5 times that (the five products a gradient
     needs), against bytes: the forward's q, k, v, o and log-sum-exp once
@@ -1100,7 +1117,7 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
         del grads
         torch.cuda.empty_cache()
         times = collections.defaultdict(list)
-        with_parent = parent is not None and sq == sk
+        with_parent = parent is not None
 
         def kernels():
             times["f"].append(time_ms(lambda i: K._flash_fwd(
@@ -1115,9 +1132,9 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
                                torch.empty_like(lse))
             g2 = [torch.empty_like(t) for t in (q, k, v)]
             times["pf"].append(time_ms(lambda i: parent.forward(
-                q, k, v, o2, lse2), iters))
+                q, k, v, o2, lse2, causal), iters))
             times["pb"].append(time_ms(lambda i: parent.backward(
-                q, k, v, o, lse, d_o, delta, *g2), iters))
+                q, k, v, o, lse, d_o, delta, *g2, causal), iters))
 
         def kv(gqa):
             return tr[1:3] if gqa else [t.repeat_interleave(hq // hkv, 1)
@@ -1184,17 +1201,24 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
     return rows
 
 
-def _row(name, source, replaces, err, ms, eager_ms, plain_ms, library_ms,
-         nbytes, flops, dtype) -> dict:
+def _bound(nbytes, flops, dtype) -> tuple[float, str]:
+    """The least time of the work on the card, ms, and what sets it: the
+    bytes at the HBM rate or the operations at the dtype's peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (max(t_bytes, t_flops),
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
+def _row(name, source, replaces, err, ms, eager_ms, plain_ms, library_ms,
+         nbytes, flops, dtype) -> dict:
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "kernel_ms": ms, "eager_ms": eager_ms,
             "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops}
 
 
 def check_small_latent(gen: torch.Generator) -> dict[str, float]:
@@ -2381,9 +2405,12 @@ def _sass_by_kernel(path: str) -> dict[str, collections.Counter]:
     for line in subprocess.run([tool, "-sass", path], capture_output=True,
                                text=True, check=True).stdout.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_wgmma\d+(fwd|dq|dkv)_kernelILi(\d+)E",
-                          line)
-            key = f"{m[1]}_kernel<{m[2]}>" if m else None
+            m = re.search(r"flash_wgmma\d+(fwd|dq|dkv)_kernelILi(\d+)E"
+                          r"(Lb([01])E)?", line)
+            # the key-block instantiations (flag KB) apart from the
+            # whole-sequence ones, which keep the parent's names
+            key = (f"{m[1]}_kernel<{m[2]}"
+                   + (", key block>" if m[4] == "1" else ">")) if m else None
             if key:
                 out[key] = collections.Counter()
             continue
@@ -2509,6 +2536,271 @@ def check_flash_same_as_parent(parent: ParentKernels,
         assert all(torch.equal(a, c) for a, c in zip(grads, g2)), \
             ("flash backward differs from the parent's", case)
     return len(cases)
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel attention: the key-block entries of kernels 5 and 5b
+# ---------------------------------------------------------------------------
+
+# gemma2-2b's attention at full width (8 query heads, 4 KV heads, D 256,
+# softcap 50), causal: a global layer at train_4k's length and a local one
+# (window 4096) at 8192, each cut into the 16 x 16 mesh's 16 key blocks and
+# into 5 (a prime model axis).  The rows time train_4k's cut into 16.
+SEQ_GEOM = {"b": 1, "hq": 8, "hkv": 4, "d": 256, "logit_cap": 50.0}
+SEQ_CELLS = {"train_4k": (4096, None), "local": (8192, 4096)}
+SEQ_BLOCKS = (16, 5)
+SEQ_TRAIN_B = 16   # train_4k's 256 sequences over the 16 x 16 mesh's dp 16
+
+
+def _key_blocks(s: int, p: int) -> tuple[list[int], list[int]]:
+    """p contiguous blocks of s keys, repro's cut where p divides s:
+    (offsets, lengths)."""
+    bounds = [round(i * s / p) for i in range(p + 1)]
+    return bounds[:-1], [c - a for a, c in zip(bounds, bounds[1:])]
+
+
+def _seq_run(q, k, v, d_o, offs, lens, kw, blocks=None):
+    """``seq_attention`` over the blocks of k and v (kernels; the list
+    reduction, then ``blocks``' group where given), forward and backward:
+    (O, (dq, dk, dv))."""
+    from repro_torch.kernels.attention import attention as K
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = K.seq_attention(
+        leaves[0], [leaves[1][:, o:o + n] for o, n in zip(offs, lens)],
+        [leaves[2][:, o:o + n] for o, n in zip(offs, lens)], offs,
+        blocks=blocks or K.KeyBlocks(), **kw)
+    grads = torch.autograd.grad(out, leaves, d_o)
+    return out.detach(), grads
+
+
+def check_seq_attention(gen: torch.Generator) -> dict[str, float]:
+    """The key-block entries at SEQ_GEOM, each cell of SEQ_CELLS cut into
+    each of SEQ_BLOCKS, f32 and bf16: every block's O and lse against its
+    plain version (``ref.attention_block_ref``; O within FLASH_TOL of
+    max(1, max |plain|), lse -inf on exactly the plain version's rows);
+    ``seq_attention`` over the blocks (forward and backward, the list
+    reduction) against the whole-sequence kernels 5 and 5b (FLASH_TOL,
+    the gradients each of its own max) and bitwise the same over two runs;
+    each block's backward at the merged O and lse against
+    ``ref.attention_block_ref_grad``; one block at offset 0 bitwise kernel
+    5's O.  Returns the worst errors."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ref
+
+    g = SEQ_GEOM
+    worst = {"flash_attention_block": 0.0, "flash_attention_block_bwd": 0.0}
+    for dtype, (cell, (s, window)) in itertools.product(
+            (torch.float32, torch.bfloat16), SEQ_CELLS.items()):
+        kw = {"causal": True, "window": window, "logit_cap": g["logit_cap"]}
+        q, d_o = (torch.randn(g["b"], s, g["hq"], g["d"], generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn(g["b"], s, g["hkv"], g["d"], generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        whole_o, whole_lse = K._flash_fwd(q, k, v, **kw)
+        whole_g = K.flash_attention_bwd(q, k, v, whole_o, whole_lse, d_o,
+                                        **kw)
+        one, _ = _seq_run(q, k, v, d_o, [0], [s], kw)
+        assert torch.equal(one, whole_o), ("one key block is not kernel 5",
+                                           str(dtype), cell)
+        for p in SEQ_BLOCKS:
+            case = (str(dtype), cell, p)
+            offs, lens = _key_blocks(s, p)
+            out, grads = _seq_run(q, k, v, d_o, offs, lens, kw)
+            again = _seq_run(q, k, v, d_o, offs, lens, kw)
+            assert torch.equal(out, again[0]) and all(
+                torch.equal(a, c) for a, c in zip(grads, again[1])), \
+                ("seq_attention repeat", case)
+            del again
+            err_f = _rel_err(out, whole_o)
+            err_b = max(_own_rel_err(a, w) for a, w in zip(grads, whole_g))
+            parts = []
+            for off, n in zip(offs, lens):
+                kb, vb = k[:, off:off + n], v[:, off:off + n]
+                o_b, lse_b = K.flash_attention_block(q, kb, vb, k_off=off,
+                                                     **kw)
+                want_o, want_lse = ref.attention_block_ref(q, kb, vb,
+                                                           k_off=off, **kw)
+                assert torch.equal(torch.isinf(lse_b),
+                                   torch.isinf(want_lse)), ("-inf rows", case)
+                err_f = max(err_f, _rel_err(o_b, want_o))
+                parts.append(lse_b)
+            m = torch.stack(parts).amax(0)
+            lse = m + torch.log(sum(torch.exp(x - m) for x in parts))
+            for off, n in zip(offs, lens):
+                kb, vb = (t[:, off:off + n].contiguous() for t in (k, v))
+                got = K.flash_attention_block_bwd(q, kb, vb, out, lse, d_o,
+                                                  k_off=off, **kw)
+                want = ref.attention_block_ref_grad(q, kb, vb, out, lse, d_o,
+                                                    k_off=off, **kw)
+                err_b = max(err_b, *(_own_rel_err(a, w)
+                                     for a, w in zip(got, want)))
+                del got, want
+            assert err_f <= FLASH_TOL[dtype], ("flash_attention_block",
+                                               case, err_f)
+            assert err_b <= FLASH_TOL[dtype], ("flash_attention_block_bwd",
+                                               case, err_b)
+            worst["flash_attention_block"] = max(
+                worst["flash_attention_block"], err_f)
+            worst["flash_attention_block_bwd"] = max(
+                worst["flash_attention_block_bwd"], err_b)
+            del out, grads
+            torch.cuda.empty_cache()
+    return worst
+
+
+def _seq_times(q, k, v, d_o, offs, lens, kw) -> dict[str, dict]:
+    """Rows 5s and 5bs's numbers on q, k, v, d_o (train_4k's global layer
+    cut at offs, lens): for each entry the time of the block of rank 0
+    (keys 0-255, which every query sees) and of the last rank (keys
+    3840-4095), CUDA-graph replays, and its eager time; the plain versions
+    on rank 0's block; SDPA (and its backward) on rank 0's block under the
+    block's boolean mask (no softcap: SDPA has none), each backend pinned;
+    the bounds from the block formula (``kernels.work``) for both ranks.
+    The entries run at the merged O and lse of ``seq_attention``."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ref
+
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    out, _ = _seq_run(q, k, v, d_o, offs, lens, kw)
+    parts = [K.flash_attention_block(q, k[:, o:o + n].contiguous(),
+                                     v[:, o:o + n].contiguous(), k_off=o,
+                                     **kw)[1] for o, n in zip(offs, lens)]
+    m = torch.stack(parts).amax(0)
+    lse = m + torch.log(sum(torch.exp(x - m) for x in parts))
+    del parts
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    got = {}
+    for name, src, fl_fn in (
+            ("flash_attention_block", "flash_fwd", W.flash_fwd_work),
+            ("flash_attention_block_bwd", "flash_bwd", W.flash_bwd_work)):
+        times = {}
+        for rank, off, n in ((0, offs[0], lens[0]),
+                             (len(offs) - 1, offs[-1], lens[-1])):
+            kb, vb = (t[:, off:off + n].contiguous() for t in (k, v))
+            if src == "flash_fwd":
+                call = lambda i: K.flash_attention_block(  # noqa: E731
+                    q, kb, vb, k_off=off, **kw)
+            else:
+                call = lambda i: K.flash_attention_block_bwd(  # noqa: E731
+                    q, kb, vb, out, lse, d_o, k_off=off, **kw)
+            times[rank] = time_ms(call, FLASH_ITERS)
+            torch.cuda.empty_cache()
+        kb, vb = (t[:, :lens[0]].contiguous() for t in (k, v))
+        if src == "flash_fwd":
+            plain = _events_loop_ms(lambda: ref.attention_block_ref(
+                q, kb, vb, k_off=0, **kw), 3)
+        else:
+            plain = _events_loop_ms(lambda: ref.attention_block_ref_grad(
+                q, kb, vb, out, lse, d_o, k_off=0, **kw), 3)
+        tr = [t.transpose(1, 2) for t in (q, kb, vb, d_o)]
+        mask = (torch.arange(s, device="cuda")[:, None]
+                >= torch.arange(lens[0], device="cuda")[None, :])
+
+        def kv(gqa):
+            return tr[1:3] if gqa else [t.repeat_interleave(hq // hkv, 1)
+                                        for t in tr[1:3]]
+
+        def lib_fwd(gqa):
+            kk, vv = kv(gqa)
+            return _events_loop_ms(lambda: sdpa(
+                tr[0], kk, vv, attn_mask=mask, enable_gqa=gqa), 20)
+
+        def lib_bwd(gqa):
+            leaves = [t.detach().requires_grad_() for t in (tr[0], *kv(gqa))]
+            o = sdpa(*leaves, attn_mask=mask, enable_gqa=gqa)
+            return _events_loop_ms(lambda: torch.autograd.grad(
+                o, leaves, tr[3], retain_graph=True), 20)
+
+        lib = sdpa_by_backend(lib_fwd if src == "flash_fwd" else lib_bwd)
+        torch.cuda.empty_cache()
+        work = [fl_fn(b, s, lens[i], hq, hkv, d, 2, causal=True,
+                      window=kw["window"], k_off=offs[i]) for i in (0, -1)]
+        got[name] = {"src": src, "ms": times[0][0], "eager_ms": times[0][1],
+                     "ms_last_rank": times[len(offs) - 1][0],
+                     "plain_ms": plain, "sdpa": lib, "work": work,
+                     "bound_ms_last_rank": _bound(work[1][1], work[1][0],
+                                                  q.dtype)[0]}
+    return got
+
+
+def seq_attention_phase(gen: torch.Generator, smi: str
+                        ) -> tuple[list[dict], dict[str, int]]:
+    """Sequence-parallel attention on the card: ``check_seq_attention``,
+    then the main path, ``seq_attention`` forward and backward at
+    train_4k's global layer (bf16) cut into 16 blocks, with the block
+    entries' counts zeroed just before and read just after (16 launches
+    of each, the forward on ``mma_sync`` and the backward on
+    ``cuda_cores`` at D 256), then rows 5s and 5bs (``_seq_times``) at
+    B 1 and, under "b16", at the B 16 that each rank of the 16 x 16 mesh
+    holds at train_4k (256 sequences over dp 16).  Returns the rows and
+    their launches."""
+    from repro_torch.kernels.attention import attention as K
+
+    worst = check_seq_attention(gen)
+    log(f"[seq] key-block entries against their plain versions and the "
+        f"whole-sequence kernels ok: max err {worst}")
+    g, dtype = SEQ_GEOM, torch.bfloat16
+    s, window = SEQ_CELLS["train_4k"]
+    kw = {"causal": True, "window": window, "logit_cap": g["logit_cap"]}
+    offs, lens = _key_blocks(s, SEQ_BLOCKS[0])
+
+    def draw(b):
+        q, d_o = (torch.randn(b, s, g["hq"], g["d"], generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, s, g["hkv"], g["d"], generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        return q, k, v, d_o
+
+    q, k, v, d_o = draw(g["b"])
+    for fn in (K.flash_attention_block, K.flash_attention_block_bwd):
+        fn.launches = 0
+        fn.variants.clear()
+    _seq_run(q, k, v, d_o, offs, lens, kw)
+    torch.cuda.synchronize()
+    launches = {"flash_attention_block": K.flash_attention_block.launches,
+                "flash_attention_block_bwd":
+                    K.flash_attention_block_bwd.launches}
+    variants = [dict(K.flash_attention_block.variants),
+                dict(K.flash_attention_block_bwd.variants)]
+    log(f"[seq] main path (bf16, S {s}, {len(offs)} key blocks): launches "
+        f"{json.dumps(launches)}, variants {json.dumps(variants)}")
+    assert variants == [{"mma_sync": len(offs)}, {"cuda_cores": len(offs)}]
+    one = _seq_times(q, k, v, d_o, offs, lens, kw)
+    del q, k, v, d_o
+    torch.cuda.empty_cache()
+    b16 = _seq_times(*draw(SEQ_TRAIN_B), offs, lens, kw)
+    torch.cuda.empty_cache()
+    rows = []
+    for name, t in one.items():
+        flops, nbytes = t["work"][0]
+        row = _with_library(_row(
+            name, f"src/repro_torch/csrc/{t['src']}.cu",
+            "src/repro/kernels/attention/attention.py:72", worst[name],
+            t["ms"], t["eager_ms"], t["plain_ms"], None, nbytes, flops,
+            dtype), t["sdpa"])
+        row["ms_last_rank"] = t["ms_last_rank"]
+        row["bound_ms_last_rank"] = t["bound_ms_last_rank"]
+        row["variant"] = K._flash_variant(t["src"], dtype, g["d"])
+        row["shape"] = {"b": g["b"], "hq": g["hq"], "hkv": g["hkv"],
+                        "sq": s, "blocks": len(offs), "block": lens[0],
+                        "d": g["d"], "causal": True,
+                        "logit_cap": g["logit_cap"]}
+        t = b16[name]
+        row["b16"] = {"b": SEQ_TRAIN_B, "ms": t["ms"],
+                      "ms_last_rank": t["ms_last_rank"],
+                      "plain_ms": t["plain_ms"],
+                      "library_ms": (t["sdpa"]["ms"].get(t["sdpa"]["best"])
+                                     if t["sdpa"]["best"] else None),
+                      "library_backend": t["sdpa"]["best"],
+                      "bound_ms": _bound(t["work"][0][1], t["work"][0][0],
+                                         dtype)[0],
+                      "bound_ms_last_rank": t["bound_ms_last_rank"]}
+        log(f"[seq] {name} at B {SEQ_TRAIN_B}: {json.dumps(row['b16'])}; "
+            f"{smi}")
+        rows.append(row)
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3873,6 +4165,47 @@ def mesh_moe_ep(mesh1, gen: torch.Generator) -> dict:
     return result
 
 
+def mesh_seq_attention(mesh1, gen: torch.Generator) -> dict:
+    """The merge across a group, on the card: ``seq_attention`` at the
+    rows 5s/5bs geometry (train_4k's global layer, 16 key blocks in the
+    list), f32 and bf16, with ``KeyBlocks`` over the one-rank NCCL group
+    of ``mesh1``'s model axis (the functional all-reduces, their waits and
+    dQ's all-reduce in the backward), forward and backward against the
+    same blocks reduced over the list alone: bitwise equal, and each run
+    16 launches of either entry.  Returns the launches of the group's
+    runs."""
+    from repro_torch.kernels.attention import attention as K
+
+    g = SEQ_GEOM
+    s, window = SEQ_CELLS["train_4k"]
+    kw = {"causal": True, "window": window, "logit_cap": g["logit_cap"]}
+    offs, lens = _key_blocks(s, SEQ_BLOCKS[0])
+    group = K.KeyBlocks(mesh1.get_group("model"))
+    launches = {"flash_attention_block": 0, "flash_attention_block_bwd": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, d_o = (torch.randn(g["b"], s, g["hq"], g["d"], generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn(g["b"], s, g["hkv"], g["d"], generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        alone = _seq_run(q, k, v, d_o, offs, lens, kw)
+        for fn in (K.flash_attention_block, K.flash_attention_block_bwd):
+            fn.launches = 0
+        meshed = _seq_run(q, k, v, d_o, offs, lens, kw, blocks=group)
+        torch.cuda.synchronize()
+        counts = {"flash_attention_block": K.flash_attention_block.launches,
+                  "flash_attention_block_bwd":
+                      K.flash_attention_block_bwd.launches}
+        assert counts == dict.fromkeys(counts, len(offs)), counts
+        assert torch.equal(meshed[0], alone[0]) and all(
+            torch.equal(a, c) for a, c in zip(meshed[1], alone[1])), \
+            ("seq_attention over the group differs from the list", dtype)
+        for key in launches:
+            launches[key] += counts[key]
+        del q, k, v, d_o, alone, meshed
+        torch.cuda.empty_cache()
+    return launches
+
+
 def mesh_elastic(cfg, seed: int) -> dict:
     """``ElasticRunner`` on the 1 x 1 mesh: qwen3-0.6b at full width, cut
     to 2 layers, B 2 x S 512.  An uninterrupted run of 4 steps (saved
@@ -3931,7 +4264,8 @@ def mesh_elastic(cfg, seed: int) -> dict:
 def mesh_phase(seed: int, smi: str) -> dict:
     """The meshed paths on the card (a one-rank NCCL group, a 1 x 1 mesh):
     the train step, serving (fused and speculative), the SPMD matmul and
-    sort executors, the expert-parallel MoE and the elastic restart.
+    sort executors, the expert-parallel MoE, the sequence-parallel merge
+    over the group and the elastic restart.
     Returns the kernels' launches of its meshed runs."""
     import torch.distributed as dist
 
@@ -3961,6 +4295,9 @@ def mesh_phase(seed: int, smi: str) -> dict:
         moe = mesh_moe_ep(mesh1, gen)
         log(f"[mesh] apply_moe_paco_ep vs dense top-1: {json.dumps(moe)}; "
             f"{smi}")
+        seq = mesh_seq_attention(mesh1, gen)
+        log(f"[mesh] seq_attention over the model axis's NCCL group bitwise "
+            f"the list's, f32 and bf16: launches {json.dumps(seq)}; {smi}")
         torch.cuda.empty_cache()
         elastic = mesh_elastic(cfg, seed)
         log(f"[mesh] elastic replay: {json.dumps(elastic)}; {smi}")
@@ -4216,6 +4553,13 @@ def main() -> int:
             log("[parent] flash pair against the parent's: " + json.dumps(
                 flash_against_parent(parent, torch.Generator(
                     device="cuda").manual_seed(args.seed + 2))))
+    # 3c. sequence-parallel attention: the key-block entries of kernels 5
+    # and 5b and their merge at gemma2-2b's full width, from a generator of
+    # their own
+    with phase("seq_attention"):
+        seq_rows, seq_launches = seq_attention_phase(
+            torch.Generator(device="cuda").manual_seed(args.seed + 3), smi)
+        rows += seq_rows
     with phase("verify_kernels"):
         verify_rows, verify_worst = bench_verify_kernels(gen, ITERS)
         log(f"[verify] both entries against their plain versions: max err "
@@ -4259,7 +4603,7 @@ def main() -> int:
         log(f"[model] kernel path vs plain path: {json.dumps(parity)}")
 
     # 5. serve
-    launches = {}
+    launches = dict(seq_launches)
     with phase("qwen3 serve"):
         result, engine, done = serve(
             cfg, params, rng, args.seed, (64, 64, 32),

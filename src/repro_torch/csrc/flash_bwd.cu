@@ -44,6 +44,16 @@
 // CUDA cores (below), bound by shared-memory traffic.
 // Both walk only the tiles the masks leave, and mask the ragged last
 // tile.
+//
+// flash_bwd_block is the key-block entry of sequence-parallel attention
+// (flash_fwd.cu's flash_fwd_block is its forward): k and v hold keys
+// k_off .. k_off + Sk - 1, o and lse are the MERGED forward's over every
+// block (so Delta and P are the whole sequence's), and it writes this
+// block's partial dQ in f32, which the ranks add, and the block's own dK
+// and dV.  Every kernel family takes the offset through its template flag
+// KB; a query block that sees none of the keys stores a zero dQ.
+
+#include <type_traits>
 
 #include "flash_wgmma.cuh"
 
@@ -132,15 +142,17 @@ size_t dq_smem_bytes(int d) {
 }
 
 // Pass 2: dQ.  Rows as in the forward: row r is head h * G + r / bq at
-// position c0 + r % bq of the sq; the keys range over the sk.
-template <typename T, int DL>
+// position c0 + r % bq of the sq; the keys range over the sk (KB: a block
+// at k_off, dQ in f32).
+template <typename T, int DL, bool KB>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ d_o,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int sq,
+                const float* __restrict__ delta,
+                std::conditional_t<KB, float, T>* __restrict__ dq, int sq,
                 int sk, int hq, int hkv, int d, int bq, float scale,
-                int causal, int window, float softcap) {
+                int causal, int window, float softcap, int k_off) {
   const int qb = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -173,24 +185,27 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     g_s[i] = y;
   }
 
+  // q_pos: the rows' positions less `shift` (a key block's offset), as
+  // the masks compare them
+  const int shift = KB ? k_off : 0;
   float lse_r[kRowsPerWarp], delta_r[kRowsPerWarp];
   float acc[kRowsPerWarp][DL];
   int q_pos[kRowsPerWarp];
 #pragma unroll
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int r = warp * kRowsPerWarp + j;
-    q_pos[j] = c0 + r % bq;
-    const bool live = r < rows && q_pos[j] < sq;
+    q_pos[j] = c0 + r % bq - shift;
+    const bool live = r < rows && q_pos[j] + shift < sq;
     const long long li =
-        ((long long)b * hq + h * g_n + r / bq) * sq + q_pos[j];
+        ((long long)b * hq + h * g_n + r / bq) * sq + q_pos[j] + shift;
     lse_r[j] = live ? lse[li] : 0.f;
     delta_r[j] = live ? delta[li] : 0.f;
 #pragma unroll
     for (int e = 0; e < DL; ++e) acc[j][e] = 0.f;
   }
 
-  const int q_hi = min(c0 + bq, sq) - 1;
-  const long long k_lo64 = (long long)c0 - (long long)window + 1;
+  const int q_hi = min(c0 + bq, sq) - 1 - shift;
+  const long long k_lo64 = (long long)c0 - shift - (long long)window + 1;
   const int k_lo = k_lo64 > 0 ? (int)k_lo64 : 0;
   const int k_hi = causal ? min(q_hi + 1, sk) : sk;
   const long long kv_base = (long long)b * sk * hkv + h;
@@ -255,9 +270,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int r = warp * kRowsPerWarp + j;
-    if (r >= rows || q_pos[j] >= sq) continue;
+    if (r >= rows || q_pos[j] + shift >= sq) continue;
     const long long orow =
-        ((long long)b * sq + q_pos[j]) * hq + h * g_n + r / bq;
+        ((long long)b * sq + q_pos[j] + shift) * hq + h * g_n + r / bq;
 #pragma unroll
     for (int e = 0; e < DL; ++e) {
       const int dd = lane + 32 * e;
@@ -274,15 +289,17 @@ size_t dkv_smem_bytes(int d) {
 // Pass 3: dK and dV for kRows keys [k0, k0 + kRows) of the sk of kv head
 // h; warp w owns keys k0 + 8w .. k0 + 8w + 7, and the lanes take the
 // queries of a tile (scores) or head_dim (accumulation).  A block no query
-// sees walks no tile and stores zeros.
-template <typename T, int DL>
+// sees walks no tile and stores zeros.  KB: key k sits at position
+// k_off + k.
+template <typename T, int DL, bool KB>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ d_o,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dk,
                  T* __restrict__ dv, int sq, int sk, int hq, int hkv, int d,
-                 float scale, int causal, int window, float softcap) {
+                 float scale, int causal, int window, float softcap,
+                 int k_off) {
   const int kb = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -314,9 +331,10 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < DL; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
   // Queries that may see some key of the block: [q_lo, q_hi), none when
-  // q_hi <= q_lo.
-  const int k_last = k0 + n_keys - 1;
-  const int q_lo = causal ? k0 : 0;
+  // q_hi <= q_lo.  The masks compare key positions, shift + the key.
+  const int shift = KB ? k_off : 0;
+  const int k_last = k0 + n_keys - 1 + shift;
+  const int q_lo = causal ? k0 + shift : 0;
   const long long q_hi64 = (long long)k_last + (long long)window;
   const int q_hi = q_hi64 < sq ? (int)q_hi64 : sq;
 
@@ -361,7 +379,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kRowsPerWarp; ++j) {
         const int key = warp * kRowsPerWarp + j;
-        const int kp = k0 + key;
+        const int kp = k0 + key + shift;
         const bool valid = lane < n && key < n_keys &&
                            (!causal || kp <= qp) && (qp - kp) < window;
         float p;
@@ -425,51 +443,92 @@ int launch_delta(const void* o, const void* d_o, float* delta, int batch,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DL>
+template <typename T, int DL, bool KB>
 int launch_cuda_cores(const void* q, const void* k, const void* v,
                       const void* d_o, const float* lse, const float* delta,
                       void* dq, void* dk, void* dv, int batch, int sq, int sk,
                       int hq, int hkv, int d, float scale, int causal,
-                      int window, float softcap, cudaStream_t stream) {
+                      int window, float softcap, int k_off,
+                      cudaStream_t stream) {
   static size_t opted_dq = 48 * 1024, opted_dkv = 48 * 1024;
   const size_t smem_dq = dq_smem_bytes(d), smem_dkv = dkv_smem_bytes(d);
-  cudaError_t e = allow_smem(flash_dq_kernel<T, DL>, smem_dq, &opted_dq);
+  cudaError_t e =
+      allow_smem(flash_dq_kernel<T, DL, KB>, smem_dq, &opted_dq);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(flash_dkv_kernel<T, DL>, smem_dkv, &opted_dkv);
+  e = allow_smem(flash_dkv_kernel<T, DL, KB>, smem_dkv, &opted_dkv);
   if (e != cudaSuccess) return (int)e;
   const int bq = kRows / (hq / hkv);
   const dim3 grid_q((sq + bq - 1) / bq, hkv, batch);
-  flash_dq_kernel<T, DL><<<grid_q, kThreads, smem_dq, stream>>>(
+  flash_dq_kernel<T, DL, KB><<<grid_q, kThreads, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(d_o), lse, delta,
-      static_cast<T*>(dq), sq, sk, hq, hkv, d, bq, scale, causal, window,
-      softcap);
+      static_cast<std::conditional_t<KB, float, T>*>(dq), sq, sk, hq, hkv, d,
+      bq, scale, causal, window, softcap, k_off);
   const dim3 grid_k((sk + kRows - 1) / kRows, hkv, batch);
-  flash_dkv_kernel<T, DL><<<grid_k, kThreads, smem_dkv, stream>>>(
+  flash_dkv_kernel<T, DL, KB><<<grid_k, kThreads, smem_dkv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(d_o), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, hq, hkv, d, scale,
-      causal, window, softcap);
+      causal, window, softcap, k_off);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool KB>
 int launch_type(const void* q, const void* k, const void* v,
                 const void* d_o, const float* lse, const float* delta,
                 void* dq, void* dk, void* dv, int batch, int sq, int sk,
                 int hq, int hkv, int d, float scale, int causal, int window,
-                float softcap, cudaStream_t stream) {
-#define REPRO_FLASH_DL(N)                                                  \
-  if (d <= 32 * N)                                                         \
-    return launch_cuda_cores<T, N>(q, k, v, d_o, lse, delta, dq, dk, dv,   \
-                                   batch, sq, sk, hq, hkv, d, scale,       \
-                                   causal, window, softcap, stream);
+                float softcap, int k_off, cudaStream_t stream) {
+#define REPRO_FLASH_DL(N)                                                   \
+  if (d <= 32 * N)                                                          \
+    return launch_cuda_cores<T, N, KB>(q, k, v, d_o, lse, delta, dq, dk,    \
+                                       dv, batch, sq, sk, hq, hkv, d, scale, \
+                                       causal, window, softcap, k_off,      \
+                                       stream);
   REPRO_FLASH_DL(1)
   REPRO_FLASH_DL(2)
   REPRO_FLASH_DL(4)
   REPRO_FLASH_DL(8)
 #undef REPRO_FLASH_DL
   return (int)cudaErrorInvalidValue;
+}
+
+// Either entry after its checks: Delta, then the two passes (KB false the
+// whole sequence, dQ in q's type; KB true the key block at k_off, dQ f32).
+template <bool KB>
+int run_bwd(int dtype, const void* q, const void* k, const void* v,
+            const void* o, const void* d_o, const float* lse, float* delta,
+            void* dq, void* dk, void* dv, int batch, int sq, int sk, int hq,
+            int hkv, int d, float scale, int causal, int window,
+            float softcap, int k_off, cudaStream_t st) {
+  int err;
+  if (dtype == 0) {
+    err = launch_delta<float>(o, d_o, delta, batch, sq, hq, d, st);
+    if (err) return err;
+    return launch_type<float, KB>(q, k, v, d_o, lse, delta, dq, dk, dv,
+                                  batch, sq, sk, hq, hkv, d, scale, causal,
+                                  window, softcap, k_off, st);
+  }
+  if (dtype == 1) {
+    err = launch_delta<__nv_bfloat16>(o, d_o, delta, batch, sq, hq, d, st);
+    if (err) return err;
+    if (flash_wgmma::takes(d))
+      return flash_wgmma::dispatch_d(d, [&](auto dt) {
+        return flash_wgmma::launch_bwd_d<decltype(dt)::value, KB>(
+            q, k, v, d_o, lse, delta, dq, dk, dv, batch, sq, sk, hq, hkv,
+            scale, causal, window, softcap, k_off, st);
+      }, (int)cudaErrorInvalidValue);
+    return launch_type<__nv_bfloat16, KB>(q, k, v, d_o, lse, delta, dq, dk,
+                                          dv, batch, sq, sk, hq, hkv, d,
+                                          scale, causal, window, softcap,
+                                          k_off, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+bool bad_shape(int d, int hq, int hkv, int sq, int sk) {
+  return d <= 0 || d % 8 || d > 256 || hkv <= 0 || hq % hkv ||
+         hq / hkv > kRows || sq < 1 || sk < 1;
 }
 
 }  // namespace
@@ -498,35 +557,31 @@ int flash_bwd(int dtype, const void* q, const void* k, const void* v,
               void* dq, void* dk, void* dv, int batch, int sq, int sk, int hq,
               int hkv, int d, float scale, int causal, int window,
               float softcap, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* lse_f = static_cast<const float*>(lse);
-  float* delta_f = static_cast<float*>(delta);
-  if (d <= 0 || d % 8 || d > 256 || hkv <= 0 || hq % hkv ||
-      hq / hkv > kRows || sq < 1 || sk < 1 ||
+  if (bad_shape(d, hq, hkv, sq, sk) ||
       (long long)sq - (long long)window >= (long long)sk)
     return (int)cudaErrorInvalidValue;
-  int err;
-  if (dtype == 0) {
-    err = launch_delta<float>(o, d_o, delta_f, batch, sq, hq, d, st);
-    if (err) return err;
-    return launch_type<float>(q, k, v, d_o, lse_f, delta_f, dq, dk, dv,
-                              batch, sq, sk, hq, hkv, d, scale, causal,
-                              window, softcap, st);
-  }
-  if (dtype == 1) {
-    err = launch_delta<__nv_bfloat16>(o, d_o, delta_f, batch, sq, hq, d, st);
-    if (err) return err;
-    if (flash_wgmma::takes(d))
-      return flash_wgmma::dispatch_d(d, [&](auto dt) {
-        return flash_wgmma::launch_bwd_d<decltype(dt)::value>(
-            q, k, v, d_o, lse_f, delta_f, dq, dk, dv, batch, sq, sk, hq,
-            hkv, scale, causal, window, softcap, st);
-      }, (int)cudaErrorInvalidValue);
-    return launch_type<__nv_bfloat16>(q, k, v, d_o, lse_f, delta_f, dq, dk,
-                                      dv, batch, sq, sk, hq, hkv, d, scale,
-                                      causal, window, softcap, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return run_bwd<false>(dtype, q, k, v, o, d_o, static_cast<const float*>(lse),
+                        static_cast<float*>(delta), dq, dk, dv, batch, sq, sk,
+                        hq, hkv, d, scale, causal, window, softcap, 0,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The key-block entry: as flash_bwd, with k and v the sk keys at
+// positions k_off .. k_off + sk - 1 (k_off >= 0), o and lse the merged
+// forward's over every block, any window >= 1; dq (B, Sq, Hq, D) is this
+// block's partial in f32, dk and dv the block's in q's type.
+int flash_bwd_block(int dtype, const void* q, const void* k, const void* v,
+                    const void* o, const void* d_o, const void* lse,
+                    void* delta, void* dq, void* dk, void* dv, int batch,
+                    int sq, int sk, int hq, int hkv, int d, float scale,
+                    int causal, int window, float softcap, int k_off,
+                    void* stream) {
+  if (bad_shape(d, hq, hkv, sq, sk) || k_off < 0 || window < 1)
+    return (int)cudaErrorInvalidValue;
+  return run_bwd<true>(dtype, q, k, v, o, d_o, static_cast<const float*>(lse),
+                       static_cast<float*>(delta), dq, dk, dv, batch, sq, sk,
+                       hq, hkv, d, scale, causal, window, softcap, k_off,
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

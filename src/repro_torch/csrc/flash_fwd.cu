@@ -43,6 +43,17 @@
 // key weighs 0 (not exp(0)), so no row ever meets exp(-inf - -inf) = NaN.
 // Every row sees at least one key (flash_fwd refuses a window that would
 // leave the last query row none: Sq - window >= Sk), so l > 0 at the end.
+//
+// flash_fwd_block is the key-block entry of sequence-parallel attention:
+// k and v hold keys k_off .. k_off + Sk - 1 of a longer sequence (the
+// queries still at 0 .. Sq - 1), every kernel family takes the offset
+// through its template flag KB (flash_wgmma.cuh's header says how), and
+// O comes out in f32: the block's normalized partial, which the ranks'
+// merge weighs by exp(lse - max lse) and adds before it rounds once.  A
+// row that sees no key of the block (l = 0) gets O = 0 and lse = -inf,
+// weight 0 in the merge; this entry refuses no window.
+
+#include <type_traits>
 
 #include "flash_wgmma.cuh"
 
@@ -61,14 +72,16 @@ size_t fwd_smem_bytes(int d) {
                           (size_t)kTk * d + (size_t)kRows * kTk);
 }
 
-// DL: head_dim elements per lane in the PV product (D <= 32 * DL).
-template <typename T, int DL>
+// DL: head_dim elements per lane in the PV product (D <= 32 * DL).  KB:
+// the keys are a block at k_off (O in f32).
+template <typename T, int DL, bool KB>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v,
+                 std::conditional_t<KB, float, T>* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int hq, int hkv,
                  int d, int bq, float scale, int causal, int window,
-                 float softcap) {
+                 float softcap, int k_off) {
   const int qb = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -98,9 +111,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     q_s[i] = x;
   }
 
-  // Keys some row of the block may see: [k_lo, k_hi).
-  const int q_lo = c0;
-  const int q_hi = min(c0 + bq, sq) - 1;
+  // Keys some row of the block may see: [k_lo, k_hi).  The masks compare
+  // positions less `shift` (a key block's offset).
+  const int shift = KB ? k_off : 0;
+  const int q_lo = c0 - shift;
+  const int q_hi = min(c0 + bq, sq) - 1 - shift;
   const long long k_lo64 = (long long)q_lo - (long long)window + 1;
   const int k_lo = k_lo64 > 0 ? (int)k_lo64 : 0;
   const int k_hi = causal ? min(q_hi + 1, sk) : sk;
@@ -112,7 +127,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < kRowsPerWarp; ++j) {
     m[j] = kNegInf;
     l[j] = 0.f;
-    q_pos[j] = c0 + (warp * kRowsPerWarp + j) % bq;
+    q_pos[j] = c0 + (warp * kRowsPerWarp + j) % bq - shift;
 #pragma unroll
     for (int e = 0; e < DL; ++e) acc[j][e] = 0.f;
   }
@@ -201,7 +216,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int r = warp * kRowsPerWarp + j;
-    const int pos = q_pos[j];
+    const int pos = q_pos[j] + shift;
     if (r >= rows || pos >= sq) continue;
     const int head = h * g_n + r / bq;
     const long long orow = ((long long)b * sq + pos) * hq + head;
@@ -213,44 +228,79 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (lane == 0)
       lse[((long long)b * hq + head) * sq + pos] =
-          m[j] + logf(fmaxf(l[j], 1e-30f));
+          KB && l[j] == 0.f ? -INFINITY : m[j] + logf(fmaxf(l[j], 1e-30f));
   }
 }
 
-template <typename T, int DL>
+template <typename T, int DL, bool KB>
 int launch_cuda_cores(const void* q, const void* k, const void* v, void* o,
                       float* lse, int batch, int sq, int sk, int hq,
                       int hkv, int d, float scale, int causal, int window,
-                      float softcap, cudaStream_t stream) {
+                      float softcap, int k_off, cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
   const size_t smem = fwd_smem_bytes(d);
-  const cudaError_t e = allow_smem(flash_fwd_kernel<T, DL>, smem, &opted_in);
+  const cudaError_t e =
+      allow_smem(flash_fwd_kernel<T, DL, KB>, smem, &opted_in);
   if (e != cudaSuccess) return (int)e;
   const int bq = kRows / (hq / hkv);
   const dim3 grid((sq + bq - 1) / bq, hkv, batch);
-  flash_fwd_kernel<T, DL><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, DL, KB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, hq, hkv, d,
-      bq, scale, causal, window, softcap);
+      static_cast<const T*>(v),
+      static_cast<std::conditional_t<KB, float, T>*>(o), lse, sq, sk, hq,
+      hkv, d, bq, scale, causal, window, softcap, k_off);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool KB>
 int launch_type(const void* q, const void* k, const void* v, void* o,
                 float* lse, int batch, int sq, int sk, int hq, int hkv,
                 int d, float scale, int causal, int window, float softcap,
-                cudaStream_t stream) {
-#define REPRO_FLASH_DL(N)                                                   \
-  if (d <= 32 * N)                                                          \
-    return launch_cuda_cores<T, N>(q, k, v, o, lse, batch, sq, sk, hq, hkv, \
-                                   d, scale, causal, window, softcap,       \
-                                   stream);
+                int k_off, cudaStream_t stream) {
+#define REPRO_FLASH_DL(N)                                                    \
+  if (d <= 32 * N)                                                           \
+    return launch_cuda_cores<T, N, KB>(q, k, v, o, lse, batch, sq, sk, hq,   \
+                                       hkv, d, scale, causal, window,        \
+                                       softcap, k_off, stream);
   REPRO_FLASH_DL(1)
   REPRO_FLASH_DL(2)
   REPRO_FLASH_DL(4)
   REPRO_FLASH_DL(8)
 #undef REPRO_FLASH_DL
   return (int)cudaErrorInvalidValue;
+}
+
+// Either entry: KB false the whole sequence, O in q's type; KB true the
+// key block at k_off, O in f32.  The caller has checked the arguments.
+template <bool KB>
+int run_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
+            float* lse, int batch, int sq, int sk, int hq, int hkv, int d,
+            float scale, int causal, int window, float softcap, int k_off,
+            cudaStream_t st) {
+  if (dtype == 0)
+    return launch_type<float, KB>(q, k, v, o, lse, batch, sq, sk, hq, hkv, d,
+                                  scale, causal, window, softcap, k_off, st);
+  if (dtype == 1) {
+    if (flash_wgmma::takes(d))
+      return flash_wgmma::dispatch_d(d, [&](auto dt) {
+        return flash_wgmma::launch_fwd_d<decltype(dt)::value, KB>(
+            q, k, v, o, lse, batch, sq, sk, hq, hkv, scale, causal, window,
+            softcap, k_off, st);
+      }, (int)cudaErrorInvalidValue);
+    if (d == 256)
+      return flash_mma::launch_fwd_d<256, KB>(q, k, v, o, lse, batch, sq, sk,
+                                              hq, hkv, scale, causal, window,
+                                              softcap, k_off, st);
+    return launch_type<__nv_bfloat16, KB>(q, k, v, o, lse, batch, sq, sk, hq,
+                                          hkv, d, scale, causal, window,
+                                          softcap, k_off, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+bool bad_shape(int d, int hq, int hkv, int sq, int sk) {
+  return d <= 0 || d % 8 || d > 256 || hkv <= 0 || hq % hkv ||
+         hq / hkv > kRows || sq < 1 || sk < 1;
 }
 
 }  // namespace
@@ -280,31 +330,27 @@ int flash_fwd(int dtype, const void* q, const void* k, const void* v,
               void* o, void* lse, int batch, int sq, int sk, int hq, int hkv,
               int d, float scale, int causal, int window, float softcap,
               void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
-  if (d <= 0 || d % 8 || d > 256 || hkv <= 0 || hq % hkv ||
-      hq / hkv > kRows || sq < 1 || sk < 1 ||
+  if (bad_shape(d, hq, hkv, sq, sk) ||
       (long long)sq - (long long)window >= (long long)sk)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_type<float>(q, k, v, o, lse_f, batch, sq, sk, hq, hkv, d,
-                              scale, causal, window, softcap, st);
-  if (dtype == 1) {
-    if (flash_wgmma::takes(d))
-      return flash_wgmma::dispatch_d(d, [&](auto dt) {
-        return flash_wgmma::launch_fwd_d<decltype(dt)::value>(
-            q, k, v, o, lse_f, batch, sq, sk, hq, hkv, scale, causal,
-            window, softcap, st);
-      }, (int)cudaErrorInvalidValue);
-    if (d == 256)
-      return flash_mma::launch_fwd_d<256>(q, k, v, o, lse_f, batch, sq, sk,
-                                          hq, hkv, scale, causal, window,
-                                          softcap, st);
-    return launch_type<__nv_bfloat16>(q, k, v, o, lse_f, batch, sq, sk, hq,
-                                      hkv, d, scale, causal, window,
-                                      softcap, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return run_fwd<false>(dtype, q, k, v, o, static_cast<float*>(lse), batch,
+                        sq, sk, hq, hkv, d, scale, causal, window, softcap, 0,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The key-block entry: as flash_fwd, with k and v the sk keys at
+// positions k_off .. k_off + sk - 1 (k_off >= 0) against queries at
+// 0 .. sq - 1, and o (B, Sq, Hq, D) f32 whatever the dtype.  Any window
+// >= 1: a row that sees no key of the block gets O = 0 and lse = -inf.
+int flash_fwd_block(int dtype, const void* q, const void* k, const void* v,
+                    void* o, void* lse, int batch, int sq, int sk, int hq,
+                    int hkv, int d, float scale, int causal, int window,
+                    float softcap, int k_off, void* stream) {
+  if (bad_shape(d, hq, hkv, sq, sk) || k_off < 0 || window < 1)
+    return (int)cudaErrorInvalidValue;
+  return run_fwd<true>(dtype, q, k, v, o, static_cast<float*>(lse), batch,
+                       sq, sk, hq, hkv, d, scale, causal, window, softcap,
+                       k_off, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

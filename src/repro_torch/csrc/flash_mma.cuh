@@ -12,10 +12,13 @@
 // weights are rounded to bf16 and fed back as the A operand of the next
 // product without a trip through shared memory.
 //
-// fwd_kernel: 4 warps x 16 query rows; the rows are the G query heads of
-// one kv head at 64 / G positions, so each 64-key K/V tile serves all G
-// heads.  Online softmax in registers (a row's 16 scores per tile sit in
-// the 4 lanes of a quad), P V into D / 2 f32 accumulators per thread.
+// fwd_kernel (KB: the keys are one block at positions k_off.., O in f32,
+// the log-sum-exp of a row that sees none of them -inf; flash_wgmma.cuh's
+// header says how the positions shift): 4 warps x 16 query rows; the
+// rows are the G query heads of one kv head at 64 / G positions, so each
+// 64-key K/V tile serves all G heads.  Online softmax in registers (a
+// row's 16 scores per tile sit in the 4 lanes of a quad), P V into D / 2
+// f32 accumulators per thread.
 // Tiles stream through two shared-memory buffers with cp.async (16 bytes
 // per copy, zero-filled past the ragged end): while the warps run the
 // products of one tile, the next tile's copies are in flight.
@@ -25,6 +28,8 @@
 // is also that of wgmma's m64nNk16 for each warp's 16 rows, so the helpers
 // below serve both kernel families.
 #pragma once
+
+#include <type_traits>
 
 #include "paged_common.cuh"
 
@@ -247,12 +252,13 @@ inline size_t fwd_smem_bytes(int d) {
   return sizeof(bf16) * (size_t)(kRows + 4 * kTk) * (d + 8);
 }
 
-template <int D>
+template <int D, bool KB>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ o,
+           const bf16* __restrict__ v,
+           std::conditional_t<KB, float, bf16>* __restrict__ o,
            float* __restrict__ lse, int sq, int sk, int hq, int hkv, int bq,
-           float scale, int causal, int window, float softcap) {
+           float scale, int causal, int window, float softcap, int k_off) {
   constexpr int stride = D + 8;
   constexpr int NT = D / 8;
   constexpr int ST = kTk / 8;
@@ -261,6 +267,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qb = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g_n = hq / hkv, rows = g_n * bq, c0 = qb * bq;
+  const int shift = KB ? k_off : 0;   // pos: a row's position less shift
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
@@ -273,7 +280,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m[2], l[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    pos[hh] = c0 + (warp * 16 + g + 8 * hh) % bq;
+    pos[hh] = c0 + (warp * 16 + g + 8 * hh) % bq - shift;
     m[hh] = kNegInf;
     l[hh] = 0.f;
   }
@@ -286,13 +293,14 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int p_min = __reduce_min_sync(0xffffffffu, min(pos[0], pos[1]));
   const int p_max = __reduce_max_sync(0xffffffffu, max(pos[0], pos[1]));
 
-  const int q_hi = min(c0 + bq, sq) - 1;
-  const long long k_lo64 = (long long)c0 - (long long)window + 1;
+  const int q_hi = min(c0 + bq, sq) - 1 - shift;
+  const long long k_lo64 = (long long)c0 - shift - (long long)window + 1;
   const int k_lo = k_lo64 > 0 ? (int)k_lo64 : 0;
   const int k_hi = causal ? min(q_hi + 1, sk) : sk;
   const long long kv_base = (long long)b * sk * hkv + h;
 
-  const int n_tiles = (k_hi - k_lo + kTk - 1) / kTk;
+  const int n_tiles =
+      KB && k_hi <= k_lo ? 0 : (k_hi - k_lo + kTk - 1) / kTk;
   auto load_tile = [&](int i) {
     const int t0 = k_lo + i * kTk;
     const int n = min(kTk, k_hi - t0);
@@ -300,7 +308,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     stage<D>(v, v_s + (i & 1) * kTk * stride, kv_base, t0, n, hkv, kTk);
     cp_async_commit();
   };
-  load_tile(0);
+  if (!KB || n_tiles > 0) load_tile(0);
   for (int i = 0; i < n_tiles; ++i) {
     const int t0 = k_lo + i * kTk;
     const int n = min(kTk, k_hi - t0);
@@ -346,18 +354,25 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = warp * 16 + g + 8 * hh;
-    if (r >= rows || pos[hh] >= sq) continue;
+    const int row_pos = pos[hh] + shift;
+    if (r >= rows || row_pos >= sq) continue;
     const int head = h * g_n + r / bq;
-    const long long orow = ((long long)b * sq + pos[hh]) * hq + head;
+    const long long orow = ((long long)b * sq + row_pos) * hq + head;
     const float inv = 1.f / fmaxf(l[hh], 1e-30f);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(o + orow * D + nt * 8 + 2 * t4) =
-          __floats2bfloat162_rn(acc[nt][2 * hh] * inv,
-                                acc[nt][2 * hh + 1] * inv);
+    for (int nt = 0; nt < NT; ++nt) {
+      const float a = acc[nt][2 * hh] * inv, c = acc[nt][2 * hh + 1] * inv;
+      if constexpr (KB)
+        *reinterpret_cast<float2*>(o + orow * D + nt * 8 + 2 * t4) =
+            make_float2(a, c);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(o + orow * D + nt * 8 + 2 * t4) =
+            __floats2bfloat162_rn(a, c);
+    }
     if (t4 == 0)   // m is in the log2 domain
-      lse[((long long)b * hq + head) * sq + pos[hh]] =
-          (m[hh] + log2f(fmaxf(l[hh], 1e-30f))) * kLn2;
+      lse[((long long)b * hq + head) * sq + row_pos] =
+          KB && l[hh] == 0.f ? -INFINITY
+                             : (m[hh] + log2f(fmaxf(l[hh], 1e-30f))) * kLn2;
   }
 }
 
@@ -411,21 +426,22 @@ __device__ __forceinline__ void grad_tile_t(
     }
 }
 
-template <int D>
+template <int D, bool KB>
 int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
                  float* lse, int batch, int sq, int sk, int hq, int hkv,
                  float scale, int causal, int window, float softcap,
-                 cudaStream_t stream) {
+                 int k_off, cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
   const size_t smem = fwd_smem_bytes(D);
-  const cudaError_t e = allow_smem(fwd_kernel<D>, smem, &opted_in);
+  const cudaError_t e = allow_smem(fwd_kernel<D, KB>, smem, &opted_in);
   if (e != cudaSuccess) return (int)e;
   const int bq = kRows / (hq / hkv);
   const dim3 grid((sq + bq - 1) / bq, hkv, batch);
-  fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<D, KB><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk, hq,
-      hkv, bq, scale, causal, window, softcap);
+      static_cast<const bf16*>(v),
+      static_cast<std::conditional_t<KB, float, bf16>*>(o), lse, sq, sk, hq,
+      hkv, bq, scale, causal, window, softcap, k_off);
   return (int)cudaGetLastError();
 }
 

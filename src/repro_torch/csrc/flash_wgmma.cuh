@@ -78,6 +78,18 @@
 // that no query sees (past Sq under the causal mask, or out of every
 // window, where Sq < Sk) is an item with no query tile: neither side
 // touches its K/V stage, and its dK and dV rows are stored as zeros.
+//
+// Key blocks (the template flag KB; sequence-parallel attention): the
+// keys are one block of a longer sequence, key j at position k_off + j,
+// the queries at 0 .. Sq - 1.  Only the masks see the offset, so the
+// kernels shift the positions they compare (query positions by -k_off in
+// the forward and the dQ pass, key positions by +k_off in the dK/dV
+// pass) and keep every address as it is; with KB false the shift is the
+// constant 0 and the kernels are the whole-sequence ones.  A query block
+// that sees no key of the block is an item with no tile: neither side
+// touches its stages, and its rows are stored as zeros (the forward's
+// log-sum-exp as -inf).  The forward writes O in f32 and the dQ pass dQ
+// in f32: partials that the ranks' merge adds before it rounds once.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and the types of cuTensorMapEncodeTiled
@@ -552,15 +564,42 @@ __device__ __forceinline__ void key_range(int c0, int bq, int k_lim,
 // k0 (of sk keys), and the 64-query tiles over them: none when the block
 // lies past every query's keys (q_hi <= q_lo: past Sq under the causal
 // mask, or beyond every window, where Sq < Sk).
+// The keys sit at positions shift + k0 .. (a key block's offset; 0 for
+// a whole sequence).
 __device__ __forceinline__ void query_range(int k0, int sq, int sk,
                                             int causal, int window,
-                                            int* q_lo, int* q_hi,
+                                            int shift, int* q_lo, int* q_hi,
                                             int* n_tiles) {
-  const int k_last = min(k0 + kRows, sk) - 1;
+  const int k_last = min(k0 + kRows, sk) - 1 + shift;
   const long long hi = (long long)k_last + (long long)window;
-  *q_lo = causal ? k0 : 0;
+  *q_lo = causal ? k0 + shift : 0;
   *q_hi = hi < sq ? (int)hi : sq;
   *n_tiles = *q_hi > *q_lo ? (*q_hi - *q_lo + kTqDkv - 1) / kTqDkv : 0;
+}
+
+// key_range for the query block at c0 of a kernel with the key-block flag
+// KB: the block's rows compare at c0 - shift, and a range that holds no
+// key has no tile (with KB false, key_range as it is).
+template <bool KB>
+__device__ __forceinline__ void block_key_range(int c0, int shift, int bq,
+                                                int k_lim, int causal,
+                                                int window, int tk,
+                                                int* k_lo, int* k_hi,
+                                                int* n_tiles) {
+  key_range(c0 - shift, bq, k_lim, causal, window, tk, k_lo, k_hi, n_tiles);
+  if (KB && *k_hi <= *k_lo) *n_tiles = 0;
+}
+
+// A kernel's f32 output under the key-block flag, else its bf16 one.
+template <bool KB>
+using OutT = std::conditional_t<KB, float, bf16>;
+
+// Two adjacent columns of a row of O or dQ.
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 __device__ __forceinline__ uint32_t aligned_smem_base(const void* raw) {
@@ -568,7 +607,10 @@ __device__ __forceinline__ uint32_t aligned_smem_base(const void* raw) {
 }
 
 // The consumer's rows: this thread's two rows (g and g + 8 of its warp's
-// 16) of the CTA's 128, position-major over the block at c0.
+// 16) of the CTA's 128, position-major over the block at c0.  pos is the
+// position the masks compare, the row's position less `shift` (a key
+// block's offset; 0 for a whole sequence): row r of the tensors sits at
+// pos + shift.
 struct Rows {
   int r[2], pos[2];
   bool live[2];
@@ -576,13 +618,13 @@ struct Rows {
 };
 
 __device__ __forceinline__ Rows rows_of(int r0, int c0, int g_n, int bq,
-                                        int sq) {
+                                        int sq, int shift) {
   Rows w;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     w.r[hh] = r0 + 8 * hh;
-    w.pos[hh] = c0 + w.r[hh] / g_n;
-    w.live[hh] = w.r[hh] < g_n * bq && w.pos[hh] < sq;
+    w.pos[hh] = c0 + w.r[hh] / g_n - shift;
+    w.live[hh] = w.r[hh] < g_n * bq && c0 + w.r[hh] / g_n < sq;
   }
   // the positions of the warp's 16 rows (unused rows only widen them)
   w.p_min = __reduce_min_sync(0xffffffffu, min(w.pos[0], w.pos[1]));
@@ -606,15 +648,15 @@ struct FwdSmem {
 };
 
 // DT: the tensors' head_dim; D = padded(DT) in shared memory and in the
-// products.
-template <int DT>
+// products.  KB: the keys are a block at k_off (the header says how).
+template <int DT, bool KB>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap k_map,
-           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
-           float* __restrict__ lse, int batch, int sq, int k_lim, int hq,
-           int hkv, int bq, float scale, int causal, int window,
-           float softcap) {
+           const __grid_constant__ CUtensorMap v_map,
+           OutT<KB>* __restrict__ o, float* __restrict__ lse, int batch,
+           int sq, int k_lim, int hq, int hkv, int bq, float scale,
+           int causal, int window, float softcap, int k_off) {
   constexpr int D = padded(DT);
   using L = FwdSmem<D>;
   constexpr int TK = kTkFwd;
@@ -641,6 +683,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int g_n = hq / hkv, hb = hkv * batch;
   const int n_blk = (sq + bq - 1) / bq, n_items = n_blk * hb;
+  const int shift = KB ? k_off : 0;
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // ---- producer: one thread issues every load
@@ -655,7 +698,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       const Item w = item_at(it, n_blk, hkv, hb, causal);
       const int c0 = w.blk * bq;
       int k_lo, k_hi, n_tiles;
-      key_range(c0, bq, k_lim, causal, window, TK, &k_lo, &k_hi, &n_tiles);
+      block_key_range<KB>(c0, shift, bq, k_lim, causal, window, TK, &k_lo,
+                          &k_hi, &n_tiles);
+      if (KB && n_tiles == 0) continue;   // no key of the block: no loads
       mbar_wait(q_empty, q_phase ^ 1);
       q_phase ^= 1;
       mbar_expect_tx(q_full, (D / 64) * g_n * bq * 128);
@@ -699,111 +744,116 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     const Item w = item_at(it, n_blk, hkv, hb, causal);
     const int c0 = w.blk * bq;
     int k_lo, k_hi, n_tiles;
-    key_range(c0, bq, k_lim, causal, window, TK, &k_lo, &k_hi, &n_tiles);
-    const Rows rw = rows_of(r0, c0, g_n, bq, sq);
+    block_key_range<KB>(c0, shift, bq, k_lim, causal, window, TK, &k_lo,
+                        &k_hi, &n_tiles);
+    const Rows rw = rows_of(r0, c0, g_n, bq, sq, shift);
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    float s[TK / 2];
-    unsigned p_prev[TK / 16][4];   // tile i - 1's weights, bf16
-    mbar_wait(q_full, q_phase);
-    q_phase ^= 1;
-    // Tile i's S = Q K^T is issued together with tile i - 1's O += P V, and
-    // tile i's softmax runs while that product is in flight; O takes tile
-    // i's rescale once it has landed.  Tile 0 goes first on its own, so
-    // that the loop has no branch around its products (ptxas serializes
-    // the products when a path might touch their registers in flight).
-    float alpha[2];
-    auto softmax = [&](int i) {   // tile i's weights into s, rescale alpha
-      const int t0 = k_lo + i * TK;
-      const int n = min(TK, k_hi - t0);
-      float rs[2] = {0.f, 0.f};
-      auto sc = reinterpret_cast<float(*)[4]>(s);
-      if (n == TK && flash_mma::all_visible(rw.p_min, rw.p_max, t0,
-                                            t0 + TK - 1, causal, window))
-        flash_mma::online_softmax<false, TK / 8>(sc, m, alpha, rs, rw.pos, t0,
-                                                 n, scale, softcap, causal,
-                                                 window, t4);
-      else
-        flash_mma::online_softmax<true, TK / 8>(sc, m, alpha, rs, rw.pos, t0,
-                                                n, scale, softcap, causal,
-                                                window, t4);
+    if (!KB || n_tiles > 0) {   // else the rows saw no key: zeros below
+      float s[TK / 2];
+      unsigned p_prev[TK / 16][4];   // tile i - 1's weights, bf16
+      mbar_wait(q_full, q_phase);
+      q_phase ^= 1;
+      // Tile i's S = Q K^T is issued together with tile i - 1's O += P V, and
+      // tile i's softmax runs while that product is in flight; O takes tile
+      // i's rescale once it has landed.  Tile 0 goes first on its own, so
+      // that the loop has no branch around its products (ptxas serializes
+      // the products when a path might touch their registers in flight).
+      float alpha[2];
+      auto softmax = [&](int i) {   // tile i's weights into s, rescale alpha
+        const int t0 = k_lo + i * TK;
+        const int n = min(TK, k_hi - t0);
+        float rs[2] = {0.f, 0.f};
+        auto sc = reinterpret_cast<float(*)[4]>(s);
+        if (n == TK && flash_mma::all_visible(rw.p_min, rw.p_max, t0,
+                                              t0 + TK - 1, causal, window))
+          flash_mma::online_softmax<false, TK / 8>(sc, m, alpha, rs, rw.pos, t0,
+                                                   n, scale, softcap, causal,
+                                                   window, t4);
+        else
+          flash_mma::online_softmax<true, TK / 8>(sc, m, alpha, rs, rw.pos, t0,
+                                                  n, scale, softcap, causal,
+                                                  window, t4);
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        l[hh] = l[hh] * alpha[hh] + flash_mma::quad_sum(rs[hh]);
-    };
-    mbar_wait(k_full + 8 * stage, phase);
-    wg_fence();
-    product_abt<D, TK>(s, base + L::kQ, kRows, wg * 64,
-                       base + L::kK + stage * L::kTile);
-    wg_commit();
-    wg_wait<0>();
-    fence_regs<TK / 2>(s);
-    if (lane == 0) {
-      mbar_arrive(k_empty + 8 * stage);
-      if (n_tiles == 1) mbar_arrive(q_empty);
-    }
-    softmax(0);
-    pack_a<TK>(s, p_prev);
-    int v_stage = stage;
-    uint32_t v_phase = phase;
-    if (++stage == kStages) {
-      stage = 0;
-      phase ^= 1;
-    }
-    for (int i = 1; i < n_tiles; ++i) {
+        for (int hh = 0; hh < 2; ++hh)
+          l[hh] = l[hh] * alpha[hh] + flash_mma::quad_sum(rs[hh]);
+      };
       mbar_wait(k_full + 8 * stage, phase);
       wg_fence();
       product_abt<D, TK>(s, base + L::kQ, kRows, wg * 64,
                          base + L::kK + stage * L::kTile);
       wg_commit();
-      mbar_wait(v_full + 8 * v_stage, v_phase);
-      product_ab<D, TK>(acc, p_prev, base + L::kV + v_stage * L::kTile);
-      wg_commit();
-      wg_wait<1>();   // S has landed; P V may still run
+      wg_wait<0>();
       fence_regs<TK / 2>(s);
       if (lane == 0) {
         mbar_arrive(k_empty + 8 * stage);
-        if (i == n_tiles - 1) mbar_arrive(q_empty);
+        if (n_tiles == 1) mbar_arrive(q_empty);
       }
-      softmax(i);
-      wg_wait<0>();
-      fence_regs<D / 2>(acc);
-      if (lane == 0) mbar_arrive(v_empty + 8 * v_stage);
-#pragma unroll
-      for (int i2 = 0; i2 < D / 2; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
+      softmax(0);
       pack_a<TK>(s, p_prev);
-      v_stage = stage;
-      v_phase = phase;
+      int v_stage = stage;
+      uint32_t v_phase = phase;
       if (++stage == kStages) {
         stage = 0;
         phase ^= 1;
       }
+      for (int i = 1; i < n_tiles; ++i) {
+        mbar_wait(k_full + 8 * stage, phase);
+        wg_fence();
+        product_abt<D, TK>(s, base + L::kQ, kRows, wg * 64,
+                           base + L::kK + stage * L::kTile);
+        wg_commit();
+        mbar_wait(v_full + 8 * v_stage, v_phase);
+        product_ab<D, TK>(acc, p_prev, base + L::kV + v_stage * L::kTile);
+        wg_commit();
+        wg_wait<1>();   // S has landed; P V may still run
+        fence_regs<TK / 2>(s);
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * stage);
+          if (i == n_tiles - 1) mbar_arrive(q_empty);
+        }
+        softmax(i);
+        wg_wait<0>();
+        fence_regs<D / 2>(acc);
+        if (lane == 0) mbar_arrive(v_empty + 8 * v_stage);
+#pragma unroll
+        for (int i2 = 0; i2 < D / 2; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
+        pack_a<TK>(s, p_prev);
+        v_stage = stage;
+        v_phase = phase;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      mbar_wait(v_full + 8 * v_stage, v_phase);
+      wg_fence();
+      product_ab<D, TK>(acc, p_prev, base + L::kV + v_stage * L::kTile);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<D / 2>(acc);
+      if (lane == 0) mbar_arrive(v_empty + 8 * v_stage);
     }
-    mbar_wait(v_full + 8 * v_stage, v_phase);
-    wg_fence();
-    product_ab<D, TK>(acc, p_prev, base + L::kV + v_stage * L::kTile);
-    wg_commit();
-    wg_wait<0>();
-    fence_regs<D / 2>(acc);
-    if (lane == 0) mbar_arrive(v_empty + 8 * v_stage);
 
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (!rw.live[hh]) continue;
       const int head = w.h * g_n + rw.r[hh] % g_n;
-      const long long orow =
-          ((long long)w.b * sq + rw.pos[hh]) * hq + head;
+      const int pos = rw.pos[hh] + shift;
+      const long long orow = ((long long)w.b * sq + pos) * hq + head;
       const float inv = 1.f / fmaxf(l[hh], 1e-30f);
 #pragma unroll
       for (int nt = 0; nt < DT / 8; ++nt)   // the true columns only
-        *reinterpret_cast<__nv_bfloat162*>(o + orow * DT + nt * 8 + 2 * t4) =
-            __floats2bfloat162_rn(acc[4 * nt + 2 * hh] * inv,
-                                  acc[4 * nt + 2 * hh + 1] * inv);
-      if (t4 == 0)   // m is in the log2 domain
-        lse[((long long)w.b * hq + head) * sq + rw.pos[hh]] =
-            (m[hh] + log2f(fmaxf(l[hh], 1e-30f))) * flash_mma::kLn2;
+        store2(o + orow * DT + nt * 8 + 2 * t4, acc[4 * nt + 2 * hh] * inv,
+               acc[4 * nt + 2 * hh + 1] * inv);
+      if (t4 == 0)   // m is in the log2 domain; a row of a key block that
+                     // saw no key has weight 0 in the merge
+        lse[((long long)w.b * hq + head) * sq + pos] =
+            KB && l[hh] == 0.f
+                ? -INFINITY
+                : (m[hh] + log2f(fmaxf(l[hh], 1e-30f))) * flash_mma::kLn2;
     }
   }
 }
@@ -828,17 +878,18 @@ struct DqSmem {
   static constexpr int kBytes = kBar + 8 * (2 + 4 * kDqStages) + 1024;
 };
 
-// sq query positions; k_lim as in key_range (Sk, or min(Sq, Sk) causal).
-template <int DT>
+// sq query positions; k_lim as in key_range (Sk, or min(Sq, Sk) causal;
+// under KB the keys are a block at k_off and dq is f32).
+template <int DT, bool KB>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap q_map,
           const __grid_constant__ CUtensorMap g_map,
           const __grid_constant__ CUtensorMap k_map,
           const __grid_constant__ CUtensorMap v_map,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          bf16* __restrict__ dq, int batch, int sq, int k_lim, int hq,
+          OutT<KB>* __restrict__ dq, int batch, int sq, int k_lim, int hq,
           int hkv, int bq, float scale, int causal, int window,
-          float softcap) {
+          float softcap, int k_off) {
   constexpr int D = padded(DT);
   using L = DqSmem<D>;
   constexpr int TK = kTkDq;
@@ -865,6 +916,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int g_n = hq / hkv, hb = hkv * batch;
   const int n_blk = (sq + bq - 1) / bq, n_items = n_blk * hb;
+  const int shift = KB ? k_off : 0;
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     regs_dealloc<kProducerRegs>();
@@ -879,7 +931,9 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
       const Item w = item_at(it, n_blk, hkv, hb, causal);
       const int c0 = w.blk * bq;
       int k_lo, k_hi, n_tiles;
-      key_range(c0, bq, k_lim, causal, window, TK, &k_lo, &k_hi, &n_tiles);
+      block_key_range<KB>(c0, shift, bq, k_lim, causal, window, TK, &k_lo,
+                          &k_hi, &n_tiles);
+      if (KB && n_tiles == 0) continue;   // no key of the block: no loads
       mbar_wait(q_empty, q_phase ^ 1);
       q_phase ^= 1;
       mbar_expect_tx(q_full, 2 * (D / 64) * g_n * bq * 128);
@@ -925,106 +979,108 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
     const Item w = item_at(it, n_blk, hkv, hb, causal);
     const int c0 = w.blk * bq;
     int k_lo, k_hi, n_tiles;
-    key_range(c0, bq, k_lim, causal, window, TK, &k_lo, &k_hi, &n_tiles);
-    const Rows rw = rows_of(r0, c0, g_n, bq, sq);
-    float lse2[2], dl[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const long long li =
-          ((long long)w.b * hq + w.h * g_n + rw.r[hh] % g_n) * sq +
-          rw.pos[hh];
-      lse2[hh] = rw.live[hh] ? lse[li] * flash_mma::kLog2e : 0.f;
-      dl[hh] = rw.live[hh] ? delta[li] : 0.f;
-    }
+    block_key_range<KB>(c0, shift, bq, k_lim, causal, window, TK, &k_lo,
+                        &k_hi, &n_tiles);
+    const Rows rw = rows_of(r0, c0, g_n, bq, sq, shift);
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    float s[TK / 2], dp[TK / 2];
-    unsigned ds_prev[TK / 16][4];   // tile i - 1's dS, bf16
-    mbar_wait(q_full, q_phase);
-    q_phase ^= 1;
-    // As in the forward: tile i's S and dP are issued together with tile
-    // i - 1's dQ += dS K, and tile i's dS is formed while that product
-    // runs; tile 0 goes first on its own.
-    auto issue_s_dp = [&]() {   // S and dP of the tile in `stage`
-      mbar_wait(k_full + 8 * stage, phase);
-      wg_fence();
-      product_abt<D, TK>(s, base + L::kQ, kRows, wg * 64,
-                         base + L::kK + stage * L::kTile);
-      mbar_wait(v_full + 8 * stage, phase);
-      product_abt<D, TK>(dp, base + L::kG, kRows, wg * 64,
-                         base + L::kV + stage * L::kTile);
-      wg_commit();
-    };
-    auto grad = [&](int i) {   // s <- tile i's dS (times the softcap's slope)
-      const int t0 = k_lo + i * TK;
-      const int n = min(TK, k_hi - t0);
-      auto sc = reinterpret_cast<float(*)[4]>(s);
-      auto dpc = reinterpret_cast<float(*)[4]>(dp);
-      if (n == TK && flash_mma::all_visible(rw.p_min, rw.p_max, t0,
-                                            t0 + TK - 1, causal, window))
-        flash_mma::grad_tile<false, TK / 8>(sc, dpc, lse2, dl, rw.pos, t0, n,
-                                            scale, softcap, causal, window,
-                                            t4);
-      else
-        flash_mma::grad_tile<true, TK / 8>(sc, dpc, lse2, dl, rw.pos, t0, n,
-                                           scale, softcap, causal, window,
-                                           t4);
-    };
-    issue_s_dp();
-    wg_wait<0>();
-    fence_regs<TK / 2>(s);
-    fence_regs<TK / 2>(dp);
-    if (lane == 0) {
-      mbar_arrive(v_empty + 8 * stage);
-      if (n_tiles == 1) mbar_arrive(q_empty);
-    }
-    grad(0);
-    pack_a<TK>(s, ds_prev);
-    int k_stage = stage;
-    if (++stage == kDqStages) {
-      stage = 0;
-      phase ^= 1;
-    }
-    for (int i = 1; i < n_tiles; ++i) {
+    if (!KB || n_tiles > 0) {   // else the rows saw no key: zeros below
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long li =
+            ((long long)w.b * hq + w.h * g_n + rw.r[hh] % g_n) * sq +
+            rw.pos[hh] + shift;
+        lse2[hh] = rw.live[hh] ? lse[li] * flash_mma::kLog2e : 0.f;
+        dl[hh] = rw.live[hh] ? delta[li] : 0.f;
+      }
+      float s[TK / 2], dp[TK / 2];
+      unsigned ds_prev[TK / 16][4];   // tile i - 1's dS, bf16
+      mbar_wait(q_full, q_phase);
+      q_phase ^= 1;
+      // As in the forward: tile i's S and dP are issued together with tile
+      // i - 1's dQ += dS K, and tile i's dS is formed while that product
+      // runs; tile 0 goes first on its own.
+      auto issue_s_dp = [&]() {   // S and dP of the tile in `stage`
+        mbar_wait(k_full + 8 * stage, phase);
+        wg_fence();
+        product_abt<D, TK>(s, base + L::kQ, kRows, wg * 64,
+                           base + L::kK + stage * L::kTile);
+        mbar_wait(v_full + 8 * stage, phase);
+        product_abt<D, TK>(dp, base + L::kG, kRows, wg * 64,
+                           base + L::kV + stage * L::kTile);
+        wg_commit();
+      };
+      auto grad = [&](int i) {   // s <- tile i's dS (times the softcap's slope)
+        const int t0 = k_lo + i * TK;
+        const int n = min(TK, k_hi - t0);
+        auto sc = reinterpret_cast<float(*)[4]>(s);
+        auto dpc = reinterpret_cast<float(*)[4]>(dp);
+        if (n == TK && flash_mma::all_visible(rw.p_min, rw.p_max, t0,
+                                              t0 + TK - 1, causal, window))
+          flash_mma::grad_tile<false, TK / 8>(sc, dpc, lse2, dl, rw.pos, t0, n,
+                                              scale, softcap, causal, window,
+                                              t4);
+        else
+          flash_mma::grad_tile<true, TK / 8>(sc, dpc, lse2, dl, rw.pos, t0, n,
+                                             scale, softcap, causal, window,
+                                             t4);
+      };
       issue_s_dp();
-      product_ab<D, TK>(acc, ds_prev, base + L::kK + k_stage * L::kTile);
-      wg_commit();
-      wg_wait<1>();   // S and dP have landed; dQ may still run
+      wg_wait<0>();
       fence_regs<TK / 2>(s);
       fence_regs<TK / 2>(dp);
       if (lane == 0) {
         mbar_arrive(v_empty + 8 * stage);
-        if (i == n_tiles - 1) mbar_arrive(q_empty);
+        if (n_tiles == 1) mbar_arrive(q_empty);
       }
-      grad(i);
-      wg_wait<0>();
-      fence_regs<D / 2>(acc);
-      if (lane == 0) mbar_arrive(k_empty + 8 * k_stage);
+      grad(0);
       pack_a<TK>(s, ds_prev);
-      k_stage = stage;
+      int k_stage = stage;
       if (++stage == kDqStages) {
         stage = 0;
         phase ^= 1;
       }
+      for (int i = 1; i < n_tiles; ++i) {
+        issue_s_dp();
+        product_ab<D, TK>(acc, ds_prev, base + L::kK + k_stage * L::kTile);
+        wg_commit();
+        wg_wait<1>();   // S and dP have landed; dQ may still run
+        fence_regs<TK / 2>(s);
+        fence_regs<TK / 2>(dp);
+        if (lane == 0) {
+          mbar_arrive(v_empty + 8 * stage);
+          if (i == n_tiles - 1) mbar_arrive(q_empty);
+        }
+        grad(i);
+        wg_wait<0>();
+        fence_regs<D / 2>(acc);
+        if (lane == 0) mbar_arrive(k_empty + 8 * k_stage);
+        pack_a<TK>(s, ds_prev);
+        k_stage = stage;
+        if (++stage == kDqStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wg_fence();
+      product_ab<D, TK>(acc, ds_prev, base + L::kK + k_stage * L::kTile);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<D / 2>(acc);
+      if (lane == 0) mbar_arrive(k_empty + 8 * k_stage);
     }
-    wg_fence();
-    product_ab<D, TK>(acc, ds_prev, base + L::kK + k_stage * L::kTile);
-    wg_commit();
-    wg_wait<0>();
-    fence_regs<D / 2>(acc);
-    if (lane == 0) mbar_arrive(k_empty + 8 * k_stage);
 
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (!rw.live[hh]) continue;
-      const long long orow = ((long long)w.b * sq + rw.pos[hh]) * hq +
+      const long long orow = ((long long)w.b * sq + rw.pos[hh] + shift) * hq +
                              w.h * g_n + rw.r[hh] % g_n;
 #pragma unroll
       for (int nt = 0; nt < DT / 8; ++nt)
-        *reinterpret_cast<__nv_bfloat162*>(dq + orow * DT + nt * 8 + 2 * t4) =
-            __floats2bfloat162_rn(acc[4 * nt + 2 * hh] * scale,
-                                  acc[4 * nt + 2 * hh + 1] * scale);
+        store2(dq + orow * DT + nt * 8 + 2 * t4, acc[4 * nt + 2 * hh] * scale,
+               acc[4 * nt + 2 * hh + 1] * scale);
     }
   }
 }
@@ -1051,8 +1107,8 @@ struct DkvSmem {
   static constexpr int kBytes = kBar + 8 * (2 + 2 * kDkvStages) + 1024;
 };
 
-// sq query positions against sk keys.
-template <int DT>
+// sq query positions against sk keys (under KB a block at k_off).
+template <int DT, bool KB>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_kernel(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap g_map,
@@ -1061,7 +1117,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map,
            const float* __restrict__ lse, const float* __restrict__ delta,
            bf16* __restrict__ dk, bf16* __restrict__ dv, int batch, int sq,
            int sk, int hq, int hkv, float scale, int causal, int window,
-           float softcap) {
+           float softcap, int k_off) {
   constexpr int D = padded(DT);
   using L = DkvSmem<D>;
   constexpr int TQ = kTqDkv;
@@ -1082,6 +1138,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int g_n = hq / hkv, hb = hkv * batch;
   const int n_blk = (sk + kRows - 1) / kRows, n_items = n_blk * hb;
+  const int shift = KB ? k_off : 0;
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // ---- producer: one warp.  Lane 0 issues the TMA loads of the tiles;
@@ -1103,7 +1160,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map,
       const Item w = item_at(it, n_blk, hkv, hb, !causal);
       const int k0 = w.blk * kRows;
       int q_lo, q_hi, n_qt;
-      query_range(k0, sq, sk, causal, window, &q_lo, &q_hi, &n_qt);
+      query_range(k0, sq, sk, causal, window, shift, &q_lo, &q_hi, &n_qt);
       if (n_qt == 0) continue;   // no query sees these keys: no K/V stage
       if (lane == 0) {
         mbar_wait(kv_empty, kv_phase ^ 1);
@@ -1171,16 +1228,18 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map,
     const Item w = item_at(it, n_blk, hkv, hb, !causal);
     const int k0 = w.blk * kRows;
     int q_lo, q_hi, n_qt;
-    query_range(k0, sq, sk, causal, window, &q_lo, &q_hi, &n_qt);
-    int kp[2];
+    query_range(k0, sq, sk, causal, window, shift, &q_lo, &q_hi, &n_qt);
+    // kp: the two keys' rows; kpos: their positions, which the masks see
+    int kp[2], kpos[2];
     bool key_ok[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       kp[hh] = k0 + row0 + (lane >> 2) + 8 * hh;
+      kpos[hh] = kp[hh] + shift;
       key_ok[hh] = kp[hh] < sk;
     }
-    const int k_min = k0 + row0, k_max = k_min + 15;
-    const bool warp_keys_ok = k_max < sk;
+    const int k_min = k0 + row0 + shift, k_max = k_min + 15;
+    const bool warp_keys_ok = k_max - shift < sk;
     float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
@@ -1215,11 +1274,11 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map,
       if (n == TQ && warp_keys_ok &&
           flash_mma::all_visible(t0, t0 + TQ - 1, k_min, k_max, causal,
                                  window))
-        flash_mma::grad_tile_t<false, TQ / 8>(sc, dpc, lse_t, delta_t, kp,
+        flash_mma::grad_tile_t<false, TQ / 8>(sc, dpc, lse_t, delta_t, kpos,
                                               key_ok, t0, n, scale, softcap,
                                               causal, window, t4);
       else
-        flash_mma::grad_tile_t<true, TQ / 8>(sc, dpc, lse_t, delta_t, kp,
+        flash_mma::grad_tile_t<true, TQ / 8>(sc, dpc, lse_t, delta_t, kpos,
                                              key_ok, t0, n, scale, softcap,
                                              causal, window, t4);
       wg_fence();
@@ -1330,16 +1389,23 @@ inline int grid_size(long long n_items) {
   return (int)(n_items < sms ? n_items : (sms > 0 ? sms : 1));
 }
 
+// The key bound of key_range (Sk, or causal the last query's position +
+// 1 less a key block's offset, at most Sk).
+inline int key_limit(int sq, int sk, int causal, int k_off) {
+  return causal ? max(0, min(sq - k_off, sk)) : sk;
+}
+
 // DT: the tensors' head_dim (64, 112 or 128); the maps span its columns,
-// so a padded kernel's last box is zero-filled past them.
-template <int DT>
+// so a padded kernel's last box is zero-filled past them.  KB: the keys
+// are a block at k_off, O is f32.
+template <int DT, bool KB>
 int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
                  float* lse, int batch, int sq, int sk, int hq, int hkv,
                  float scale, int causal, int window, float softcap,
-                 cudaStream_t stream) {
+                 int k_off, cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
   const size_t smem = FwdSmem<padded(DT)>::kBytes;
-  const cudaError_t e = allow_smem(fwd_kernel<DT>, smem, &opted_in);
+  const cudaError_t e = allow_smem(fwd_kernel<DT, KB>, smem, &opted_in);
   if (e != cudaSuccess) return (int)e;
   const int g_n = hq / hkv, bq = kRows / g_n;
   CUtensorMap qm, km, vm;
@@ -1349,28 +1415,29 @@ int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const long long n_items = (long long)((sq + bq - 1) / bq) * hkv * batch;
   if (n_items == 0) return 0;
-  fwd_kernel<DT><<<grid_size(n_items), kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<bf16*>(o), lse, batch, sq,
-      causal ? min(sq, sk) : sk, hq, hkv, bq, scale, causal, window,
-      softcap);
+  fwd_kernel<DT, KB><<<grid_size(n_items), kThreads, smem, stream>>>(
+      qm, km, vm, static_cast<OutT<KB>*>(o), lse, batch, sq,
+      key_limit(sq, sk, causal, k_off), hq, hkv, bq, scale, causal, window,
+      softcap, k_off);
   return (int)cudaGetLastError();
 }
 
 // The two passes, sq query positions against sk keys; Delta (B, Hq, Sq)
 // f32 is already in `delta`.  The dQ pass takes the forward's key bound
-// (Sk, or min(Sq, Sk) causal), the dK/dV pass ceil(Sk / 128) key blocks.
-template <int DT>
+// (key_limit), the dK/dV pass ceil(Sk / 128) key blocks.  KB: the keys
+// are a block at k_off, dQ is f32.
+template <int DT, bool KB>
 int launch_bwd_d(const void* q, const void* k, const void* v,
                  const void* d_o, const float* lse, const float* delta,
                  void* dq, void* dk, void* dv, int batch, int sq, int sk,
                  int hq, int hkv, float scale, int causal, int window,
-                 float softcap, cudaStream_t stream) {
+                 float softcap, int k_off, cudaStream_t stream) {
   constexpr int D = padded(DT);
   static size_t opted_dq = 48 * 1024, opted_dkv = 48 * 1024;
   const size_t smem_dq = DqSmem<D>::kBytes, smem_dkv = DkvSmem<D>::kBytes;
-  cudaError_t e = allow_smem(dq_kernel<DT>, smem_dq, &opted_dq);
+  cudaError_t e = allow_smem(dq_kernel<DT, KB>, smem_dq, &opted_dq);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(dkv_kernel<DT>, smem_dkv, &opted_dkv);
+  e = allow_smem(dkv_kernel<DT, KB>, smem_dkv, &opted_dkv);
   if (e != cudaSuccess) return (int)e;
   const int g_n = hq / hkv, bq = kRows / g_n;
   CUtensorMap qm, gm, km, vm;
@@ -1381,10 +1448,10 @@ int launch_bwd_d(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const long long n_q = (long long)((sq + bq - 1) / bq) * hkv * batch;
   if (n_q == 0) return 0;
-  dq_kernel<DT><<<grid_size(n_q), kThreads, smem_dq, stream>>>(
-      qm, gm, km, vm, lse, delta, static_cast<bf16*>(dq), batch, sq,
-      causal ? min(sq, sk) : sk, hq, hkv, bq, scale, causal, window,
-      softcap);
+  dq_kernel<DT, KB><<<grid_size(n_q), kThreads, smem_dq, stream>>>(
+      qm, gm, km, vm, lse, delta, static_cast<OutT<KB>*>(dq), batch, sq,
+      key_limit(sq, sk, causal, k_off), hq, hkv, bq, scale, causal, window,
+      softcap, k_off);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   CUtensorMap qt, gt, kb, vb;
@@ -1394,10 +1461,10 @@ int launch_bwd_d(const void* q, const void* k, const void* v,
       !map_bshd(&vb, v, batch, sk, hkv, DT, 1, kRows))
     return (int)cudaErrorInvalidValue;
   const long long n_k = (long long)((sk + kRows - 1) / kRows) * hkv * batch;
-  dkv_kernel<DT><<<grid_size(n_k), kThreads, smem_dkv, stream>>>(
+  dkv_kernel<DT, KB><<<grid_size(n_k), kThreads, smem_dkv, stream>>>(
       qt, gt, kb, vb, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), batch, sq, sk, hq, hkv, scale, causal, window,
-      softcap);
+      softcap, k_off);
   return (int)cudaGetLastError();
 }
 

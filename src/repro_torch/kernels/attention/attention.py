@@ -23,6 +23,15 @@ the two wrappers counts its launches by kernel family in ``variants``
 (``"wgmma"``, ``"mma_sync"``, ``"cuda_cores"``), as the library reports
 the family it takes for the dtype and D.
 
+Sequence-parallel attention (``repro``'s cut of the key sequence, where
+the model axis divides neither head count): ``flash_attention_block`` and
+``flash_attention_block_bwd`` are kernels 5 and 5b's key-block entries
+(``flash_fwd_block``, ``flash_bwd_block``: the keys are one block of a
+longer sequence at an offset; O and dQ come out in f32), each counting its
+launches and variants, and ``seq_attention`` (the ``SeqAttention``
+autograd Function) merges the blocks over a ``KeyBlocks`` reduction: a
+list of blocks in one process, then the ranks of a group.
+
 Paged serving: ``paged_flash_decode`` replaces
 ``paged_flash_decode_pallas``, ``paged_flash_prefill`` replaces
 ``paged_flash_prefill_pallas``, and the MLA latent pair
@@ -68,6 +77,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 
 import torch
@@ -822,3 +832,232 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.variants = collections.Counter()
 flash_attention.cross_launches = 0   # those of them with Sq != Sk
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel attention: the key-block entries and their merge
+# ---------------------------------------------------------------------------
+
+def _check_k_off(k_off: int) -> int:
+    k_off = int(k_off)
+    if not 0 <= k_off <= INT32_MAX:
+        raise ValueError(f"k_off must be in [0, 2**31 - 1], got {k_off}")
+    return k_off
+
+
+def flash_attention_block(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, k_off: int,
+                          causal: bool = True, window: int | None = None,
+                          logit_cap: float | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 5's key-block entry (``csrc/flash_fwd.cu``:
+    ``flash_fwd_block``): q (B, Sq, Hq, D) at positions 0 .. Sq - 1
+    against k, v (B, Sk, Hkv, D), one block of a longer key sequence at
+    positions k_off .. k_off + Sk - 1 -> (O (B, Sq, Hq, D) f32, the
+    block's normalized partial; row log-sum-exp (B, Hq, Sq) f32).  A row
+    that sees no key of the block gets O = 0 and -inf; no window is
+    refused.  Counts its launches in ``launches`` and by kernel family in
+    ``variants`` (those of ``flash_attention``).  On the CPU it takes the
+    plain version, ``ref.attention_block_ref``."""
+    k_off = _check_k_off(k_off)
+    if not q.is_cuda and not _work.is_fake(q):
+        from repro_torch.kernels.attention import ref
+        return ref.attention_block_ref(q, k, v, k_off=k_off, causal=causal,
+                                       window=window, logit_cap=logit_cap)
+    lib = "flash_fwd"
+    b, sq, sk, hq, hkv, d = _check_dense(q, k, v, lib)
+    w = _window(window)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if _work.tracing(q) and _work.record_call(
+            "flash_fwd_block", q, lambda fake: _work.flash_fwd_work(
+                b, sq, sk, hq, hkv, d, q.element_size(), causal=causal,
+                window=window, k_off=k_off)):
+        return out, lse
+    fn = _fn(lib, "flash_fwd_block", (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _F, _I, _I, _F, _I, _P))
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), lse.data_ptr(), b, sq, sk, hq, hkv, d,
+                 1.0 / math.sqrt(d), int(bool(causal)), w,
+                 _softcap(logit_cap), k_off,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_fwd_block launch failed: CUDA error {err}")
+    flash_attention_block.launches += 1
+    flash_attention_block.variants[_flash_variant(lib, q.dtype, d)] += 1
+    return out, lse
+
+
+flash_attention_block.launches = 0
+flash_attention_block.variants = collections.Counter()
+
+
+def flash_attention_block_bwd(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, d_o: torch.Tensor, *,
+                              k_off: int, causal: bool = True,
+                              window: int | None = None,
+                              logit_cap: float | None = None
+                              ) -> tuple[torch.Tensor, ...]:
+    """Kernel 5b's key-block entry (``csrc/flash_bwd.cu``:
+    ``flash_bwd_block``): q, o, d_o (B, Sq, Hq, D) and k, v (B, Sk, Hkv,
+    D) contiguous, the keys at positions k_off .. as in
+    ``flash_attention_block``; o (in q's dtype) and lse (B, Hq, Sq) f32 are
+    the MERGED forward's over every block.  Returns (dq (B, Sq, Hq, D)
+    f32, this block's partial; dk, dv in k's dtype, the block's own).
+    Counts its launches in ``launches`` and ``variants`` (those of
+    ``flash_attention_bwd``).  On the CPU it takes the plain version,
+    ``ref.attention_block_ref_grad``."""
+    k_off = _check_k_off(k_off)
+    if not q.is_cuda and not _work.is_fake(q):
+        from repro_torch.kernels.attention import ref
+        return ref.attention_block_ref_grad(
+            q, k, v, o, lse, d_o, k_off=k_off, causal=causal, window=window,
+            logit_cap=logit_cap)
+    lib = "flash_bwd"
+    b, sq, sk, hq, hkv, d = _check_dense(q, k, v, lib)
+    w = _window(window)
+    _check("o", o, q.device, q.dtype, 4)
+    _check("d_o", d_o, q.device, q.dtype, 4)
+    _check("lse", lse, q.device, torch.float32, 3)
+    if o.shape != q.shape or d_o.shape != q.shape \
+            or tuple(lse.shape) != (b, hq, sq):
+        raise ValueError(f"o {tuple(o.shape)}, d_o {tuple(d_o.shape)} and "
+                         f"lse {tuple(lse.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if not _work.is_fake(q) and any(t.data_ptr() % 16 for t in (o, d_o,
+                                                                lse)):
+        raise ValueError("o, d_o and lse must be 16-byte aligned")
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    if _work.tracing(q) and _work.record_call(
+            "flash_bwd_block", q, lambda fake: _work.flash_bwd_work(
+                b, sq, sk, hq, hkv, d, q.element_size(), causal=causal,
+                window=window, k_off=k_off)):
+        return dq, dk, dv
+    fn = _fn(lib, "flash_bwd_block", (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                      _F, _I, _P))
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, sq, sk, hq, hkv, d, 1.0 / math.sqrt(d),
+                 int(bool(causal)), w, _softcap(logit_cap), k_off,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_bwd_block launch failed: CUDA error {err}")
+    flash_attention_block_bwd.launches += 1
+    flash_attention_block_bwd.variants[_flash_variant(lib, q.dtype, d)] += 1
+    return dq, dk, dv
+
+
+flash_attention_block_bwd.launches = 0
+flash_attention_block_bwd.variants = collections.Counter()
+
+
+class KeyBlocks:
+    """Where the key blocks' partials meet: the blocks this process holds
+    (a list; one per rank under a mesh) are reduced here, then, with a
+    ``group``, across its ranks by all-reduce.  One H100 drives the merge
+    over a list of blocks, a mesh over its model axis's group."""
+
+    def __init__(self, group=None):
+        self.group = group
+
+    def _reduce(self, xs: list, local, op: str) -> torch.Tensor:
+        y = local(torch.stack(xs), 0) if len(xs) > 1 else xs[0]
+        if self.group is not None:
+            # a functional collective: a new tensor (no input is reduced in
+            # place), and the step counters see the group's mesh axis
+            from torch.distributed import _functional_collectives as funcol
+            y = funcol.all_reduce(y, op, self.group)
+            if isinstance(y, funcol.AsyncCollectiveTensor):
+                y = y.wait()
+        return y
+
+    def max(self, xs: list) -> torch.Tensor:
+        return self._reduce(xs, torch.amax, "max")
+
+    def sum(self, xs: list) -> torch.Tensor:
+        return self._reduce(xs, torch.sum, "sum")
+
+
+class SeqAttention(torch.autograd.Function):
+    """Sequence-parallel attention as one differentiable function of q and
+    the key blocks (``seq_attention``).  Forward: each block's entry, then
+    the merge (all-reduced max M of the blocks' log-sum-exps, sums of
+    exp(lse - M) O and of exp(lse - M)), O rounded once to q's dtype.
+    Backward: each block's gradient entry against the merged O and
+    log-sum-exp, dQ's partials summed the same way; dK and dV stay with
+    their blocks.  q's gradient is then whole on every rank, as DTensor
+    expects of a replicated input."""
+
+    @staticmethod
+    def forward(ctx, q, blocks, offsets, opts, fwd, bwd, *kv):
+        causal, window, logit_cap = opts
+        q, kv = q.contiguous(), [t.contiguous() for t in kv]
+        parts = [fwd(q, kv[2 * i], kv[2 * i + 1], k_off=off, causal=causal,
+                     window=window, logit_cap=logit_cap)
+                 for i, off in enumerate(offsets)]
+        m = blocks.max([lse for _, lse in parts])
+        w = [torch.exp(lse - m) for _, lse in parts]            # (B, Hq, Sq)
+        den = blocks.sum(w)
+        num = blocks.sum([o * wi.transpose(1, 2)[..., None]
+                          for (o, _), wi in zip(parts, w)])
+        out = (num / den.transpose(1, 2)[..., None]).to(q.dtype)
+        ctx.save_for_backward(q, out, m + torch.log(den), *kv)
+        ctx.meta = (blocks, offsets, opts, bwd)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_o):
+        q, out, lse, *kv = ctx.saved_tensors
+        blocks, offsets, (causal, window, logit_cap), bwd = ctx.meta
+        d_o = d_o.contiguous()
+        dqs, dkv = [], []
+        for i, off in enumerate(offsets):
+            dq, dk, dv = bwd(q, kv[2 * i], kv[2 * i + 1], out, lse, d_o,
+                             k_off=off, causal=causal, window=window,
+                             logit_cap=logit_cap)
+            dqs.append(dq)
+            dkv += [dk, dv]
+        return (blocks.sum(dqs).to(q.dtype), None, None, None, None, None,
+                *dkv)
+
+
+def seq_attention(q: torch.Tensor, ks: list, vs: list, offsets: list, *,
+                  blocks: KeyBlocks, causal: bool = True,
+                  window: int | None = None, logit_cap: float | None = None,
+                  q_chunk: int = 1024, scale: float | None = None,
+                  use_kernel: bool | None = None) -> torch.Tensor:
+    """Sequence-parallel attention (``repro.models.layers.attention``'s
+    key-sequence cut): q (B, Sq, Hq, D) at positions 0 .. Sq - 1 against
+    the key blocks ks[i], vs[i] (B, Sk_i, Hkv, D) at positions offsets[i]
+    .., merged over this process's blocks and ``blocks.group``'s ranks ->
+    (B, Sq, Hq, D) in q's dtype, whole on every rank.  Together the blocks
+    must leave every row a key (the merge divides by the row's weight).
+    ``use_kernel=None`` takes the key-block entries of kernels 5 and 5b
+    exactly when q is on CUDA (or fake), at the kernels' scale 1/sqrt(D),
+    else their plain versions (``ref.attention_block_ref``, over
+    ``q_chunk`` query rows at a time, and ``attention_block_ref_grad``)
+    at ``scale``."""
+    from repro_torch.kernels.attention import ref
+
+    if use_kernel is None:
+        use_kernel = _work.on_card(q)
+    if use_kernel:
+        d = q.shape[-1]
+        if scale is not None and scale != 1.0 / math.sqrt(d):
+            raise ValueError(f"the flash kernels use scale 1/sqrt({d}), "
+                             f"got {scale}")
+        fwd, bwd = flash_attention_block, flash_attention_block_bwd
+    else:
+        fwd = functools.partial(ref.attention_block_ref, q_chunk=q_chunk,
+                                scale=scale)
+        bwd = functools.partial(ref.attention_block_ref_grad, scale=scale)
+    kv = [t for pair in zip(ks, vs) for t in pair]
+    return SeqAttention.apply(q, blocks, tuple(int(o) for o in offsets),
+                              (causal, window, logit_cap), fwd, bwd, *kv)

@@ -1,11 +1,132 @@
 """Dense float32 oracles for the attention kernels (port of
 ``repro.kernels.attention.ref``): the dense flash oracle and its autograd
-gradient, and the paged GQA and MLA latent oracles."""
+gradient, and the paged GQA and MLA latent oracles; and the plain versions
+of the dense kernels' key-block entries (sequence-parallel attention) on
+``repro``'s chunked formulation, which ``models.layers.attention``'s plain
+path shares."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_positions: torch.Tensor, k_positions: torch.Tensor,
+                      causal: bool = True, window: int | None = None,
+                      logit_cap: float | None = None, q_chunk: int = 1024,
+                      scale: float | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``repro.models.layers.attention``'s chunked online-softmax
+    formulation with its cast points, in the model's layout: q (B, Sq, Hq,
+    D); k, v (B, Sk, Hkv, Dv) with Hq % Hkv == 0 -> (O (B, Sq, Hq, Dv)
+    f32, row log-sum-exp (B, Hq, Sq) f32, seen (Sq,) bool: the rows that
+    see some key).  K/V repeated over the G query heads, f32 scores from
+    the stored inputs, the finite -1e30 mask, weights rounded to v's dtype
+    before the PV product, f32 accumulation, ``q_chunk`` query rows at a
+    time.  A row that sees no key gets ``repro``'s uniform mean."""
+    sq, hq, dh = q.shape[1:]
+    g = hq // k.shape[2]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qc = min(q_chunk, sq)
+    kr = k.transpose(1, 2).float()   # (B, Hq, Sk, Dh)
+    vr = v.transpose(1, 2)           # (B, Hq, Sk, Dv)
+    outs, lses, seen = [], [], []
+    for c0 in range(0, sq, qc):
+        qi = q[:, c0:c0 + qc].transpose(1, 2).float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qi, kr) * scale
+        if logit_cap is not None:
+            s = torch.tanh(s / logit_cap) * logit_cap
+        qp = q_positions[c0:c0 + qc]
+        mask = torch.ones((qp.shape[0], k_positions.shape[0]),
+                          dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qp[:, None] >= k_positions[None, :]
+        if window is not None:
+            mask &= (qp[:, None] - k_positions[None, :]) < window
+        s = torch.where(mask[None, None], s, -1e30)
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        z = e.sum(dim=-1, keepdim=True)
+        p_mat = (e / torch.clamp(z, min=1e-30)).to(vr.dtype)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p_mat.float(),
+                                 vr.float()))
+        lses.append((m + torch.log(z))[..., 0])
+        seen.append(mask.any(dim=-1))
+    return (torch.cat(outs, dim=2).transpose(1, 2), torch.cat(lses, dim=2),
+            torch.cat(seen))
+
+
+def attention_block_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, k_off: int, causal: bool = True,
+                        window: int | None = None,
+                        logit_cap: float | None = None, q_chunk: int = 1024,
+                        scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel 5's key-block entry: q (B, Sq, Hq, D) at
+    positions 0 .. Sq - 1 against k, v (B, Sk, Hkv, D), one block of a
+    longer sequence at positions k_off .. k_off + Sk - 1 -> (O (B, Sq, Hq,
+    D) f32, the block's normalized partial; row log-sum-exp (B, Hq, Sq)
+    f32).  ``chunked_attention`` on those positions; a row that sees no key
+    of the block gets O = 0 and log-sum-exp -inf (weight 0 in the
+    merge)."""
+    dev = q.device
+    o, lse, seen = chunked_attention(
+        q, k, v, q_positions=torch.arange(q.shape[1], device=dev),
+        k_positions=k_off + torch.arange(k.shape[1], device=dev),
+        causal=causal, window=window, logit_cap=logit_cap, q_chunk=q_chunk,
+        scale=scale)
+    return (torch.where(seen[None, :, None, None], o, 0.0),
+            torch.where(seen, lse, -math.inf))
+
+
+def attention_block_ref_grad(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, d_o: torch.Tensor, *,
+                             k_off: int, causal: bool = True,
+                             window: int | None = None,
+                             logit_cap: float | None = None,
+                             scale: float | None = None
+                             ) -> tuple[torch.Tensor, ...]:
+    """The plain version of kernel 5b's key-block entry: with o (B, Sq, Hq,
+    D) and lse (B, Hq, Sq) the MERGED forward's over every block and d_o
+    its cotangent, this block's share of the gradient -> (dq (B, Sq, Hq,
+    D) f32, a partial the blocks add; dk, dv (B, Sk, Hkv, D) in k's
+    dtype).  The kernels' recompute in f32: P = exp(S - lse) on the
+    block's visible pairs, Delta = rowsum(dO O), dS = P (dO V^T - Delta)
+    times the softcap's slope, dq = scale dS K, dk = scale dS^T Q, dv =
+    P^T dO, dk and dv summed over each kv head's G query heads."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kr = k.repeat_interleave(g, dim=2).float()
+    vr = v.repeat_interleave(g, dim=2).float()
+    qf, gf = q.float(), d_o.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    slope = 1.0
+    if logit_cap is not None:
+        t = torch.tanh(s / logit_cap)
+        s, slope = t * logit_cap, 1.0 - t * t
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = k_off + torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= (qp - kp) < window
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    delta = (gf * o.float()).sum(-1).transpose(1, 2)        # (B, Hq, Sq)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", gf, vr)
+              - delta[..., None]) * slope
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    return (dq, dk.reshape(b, sk, hkv, g, d).sum(3).to(k.dtype),
+            dv.reshape(b, sk, hkv, g, d).sum(3).to(v.dtype))
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

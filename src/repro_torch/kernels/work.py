@@ -28,40 +28,59 @@ INT32_MAX = 2 ** 31 - 1
 
 
 def visible_pairs(sq: int, sk: int, causal: bool = True,
-                  window: int | None = None) -> int:
-    """(query, key) pairs the dense mask leaves, positions 0.. on both
-    sides: under the causal mask query i sees min(i + 1, Sk) keys, and a
-    window w takes away the max(0, i - w + 1) keys before it.  The kernels
-    refuse a window that leaves a row no key, so no row counts below 0."""
-    m = min(sq, sk)
-    pairs = (m * (m + 1) // 2 + (sq - m) * sk) if causal else sq * sk
-    w = INT32_MAX if window is None else int(window)
-    n = max(0, sq - w)
-    return pairs - n * (n + 1) // 2
+                  window: int | None = None, k_off: int = 0) -> int:
+    """(query, key) pairs the dense mask leaves: queries at positions
+    0 .. Sq - 1, keys at k_off .. k_off + Sk - 1 (k_off > 0 for one block
+    of a longer sequence, the key-block entries).  Query i sees key j when
+    j <= i (causal) and i - j < w (window w); a row may see no key of a
+    block.  Counted in closed form as the pairs with i - j <= w - 1 less
+    those with i - j <= -1 (causal)."""
+    def upto(x: int) -> int:
+        # sum of clip(y, 0, Sq) over the integers y < x
+        if x <= 0:
+            return 0
+        if x <= sq + 1:
+            return x * (x - 1) // 2
+        return sq * (sq + 1) // 2 + (x - 1 - sq) * sq
+
+    def below(t: int) -> int:
+        # pairs with i - j <= t: for key j, the queries i < j + t + 1
+        return upto(k_off + sk + t + 1) - upto(k_off + t + 1)
+
+    pairs = sq * sk if window is None else below(int(window) - 1)
+    return max(0, pairs - (below(-1) if causal else 0))
 
 
 def flash_fwd_work(b: int, sq: int, sk: int, hq: int, hkv: int, d: int,
                    esize: int, *, causal: bool = True,
-                   window: int | None = None) -> tuple[float, int]:
+                   window: int | None = None, k_off: int | None = None
+                   ) -> tuple[float, int]:
     """Kernel 5 (``csrc/flash_fwd.cu``): 4 D flops a visible pair and
     query head (QK^T and PV); reads q, k, v, writes o and the f32 row
-    log-sum-exp."""
-    flops = 4 * b * hq * visible_pairs(sq, sk, causal, window) * d
+    log-sum-exp.  With ``k_off`` its key-block entry (``flash_fwd_block``:
+    the Sk keys at positions k_off ..), whose o is f32."""
+    pairs = visible_pairs(sq, sk, causal, window, k_off or 0)
+    flops = 4 * b * hq * pairs * d
     q, k = b * sq * hq * d, b * sk * hkv * d
-    return flops, esize * (2 * q + 2 * k) + 4 * b * hq * sq
+    o_size = esize if k_off is None else 4
+    return flops, esize * (q + 2 * k) + o_size * q + 4 * b * hq * sq
 
 
 def flash_bwd_work(b: int, sq: int, sk: int, hq: int, hkv: int, d: int,
                    esize: int, *, causal: bool = True,
-                   window: int | None = None) -> tuple[float, int]:
+                   window: int | None = None, k_off: int | None = None
+                   ) -> tuple[float, int]:
     """Kernel 5b (``csrc/flash_bwd.cu``): 2.5 times the forward's flops
     (five products a pair where the forward has two); reads q, o, dO, k,
-    v and the log-sum-exp, writes dq, dk, dv."""
+    v and the log-sum-exp, writes dq, dk, dv.  With ``k_off`` its
+    key-block entry (``flash_bwd_block``), whose dq is f32."""
     flops, _ = flash_fwd_work(b, sq, sk, hq, hkv, d, esize, causal=causal,
-                              window=window)
+                              window=window, k_off=k_off)
     q, k = b * sq * hq * d, b * sk * hkv * d
+    dq_size = esize if k_off is None else 4
     return (2.5 * flops,
-            esize * (3 * q + 2 * k) + 4 * b * hq * sq + esize * (q + 2 * k))
+            esize * (3 * q + 2 * k) + 4 * b * hq * sq + dq_size * q
+            + esize * 2 * k)
 
 
 def paged_work(q_numel: int, table_numel: int, lengths_numel: int,

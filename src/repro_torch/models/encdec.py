@@ -100,11 +100,14 @@ def encode(params: Params, cfg: ArchConfig, src_emb: torch.Tensor, *,
     return L.rms_norm(x, params["enc_norm"])
 
 
-def cross_kv(p: Params, cfg: ArchConfig, enc: torch.Tensor
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One decoder layer's cross-attention K and V (B, S_src, Hkv, Dh)."""
-    return (L.split_heads(enc @ p["wk"], cfg.n_kv_heads, cfg.head_dim),
-            L.split_heads(enc @ p["wv"], cfg.n_kv_heads, cfg.head_dim))
+def cross_kv(p: Params, cfg: ArchConfig, enc: torch.Tensor, *,
+             keys: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer's cross-attention K and V (B, S_src, Hkv, Dh);
+    ``keys`` lays them out for the key cut (``layers.split_heads``)."""
+    return (L.split_heads(enc @ p["wk"], cfg.n_kv_heads, cfg.head_dim,
+                          keys=keys),
+            L.split_heads(enc @ p["wv"], cfg.n_kv_heads, cfg.head_dim,
+                          keys=keys))
 
 
 def _cross_attention(p: Params, cfg: ArchConfig, h: torch.Tensor,
@@ -116,7 +119,7 @@ def _cross_attention(p: Params, cfg: ArchConfig, h: torch.Tensor,
     entry on CUDA."""
     b, s, _ = h.shape
     q = L.split_heads(h @ p["wq"], cfg.n_heads, cfg.head_dim)
-    k, v = cross_kv(p, cfg, enc)
+    k, v = cross_kv(p, cfg, enc, keys=L.key_cut(cfg, enc, enc.shape[1]))
     o = L.attention(q, k, v, q_positions=torch.arange(s, device=h.device),
                     k_positions=torch.arange(enc.shape[1], device=h.device),
                     causal=False, q_chunk=cfg.q_chunk, use_kernel=use_kernel)

@@ -5,7 +5,9 @@ Layouts follow ``repro``: activations (B, S, D), heads (B, S, H, Dh),
 weights (d_in, d_out) used as ``x @ W``.  The mesh-sharding constraints of
 the JAX layers are kept (``dist.act_sharding``): the identity without a
 mesh, a DTensor ``redistribute`` under ``use_mesh_rules``.  Under a mesh
-the attention kernels run on each rank's head shard (``local_call``).
+the attention kernels run on each rank's head shard (``local_call``), or,
+where the model axis divides neither head count, on its block of keys
+(``head_names``).
 
 Dense attention over a whole sequence (``attention``) has two lowerings:
 on CUDA the hand-written flash kernels (``kernels.attention.attention.
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.dist import act_sharding as act
 from repro_torch.kernels.attention import attention as K
+from repro_torch.kernels.attention import ref as R
 from repro_torch.kernels import work
 
 Params = dict[str, Any]
@@ -107,27 +110,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Dense attention over a whole sequence
 # ---------------------------------------------------------------------------
 
-def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
-                window: int | None) -> torch.Tensor:
-    """(Sq, Sk) boolean mask; True = attend."""
-    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
-                   device=q_pos.device)
-    if causal:
-        m &= q_pos[:, None] >= k_pos[None, :]
-    if window is not None:
-        m &= (q_pos[:, None] - k_pos[None, :]) < window
-    return m
-
-
-def _is_arange(pos: torch.Tensor, n: int) -> bool:
-    """pos is arange(n), read unseen by the step counters; a fake tensor
-    (no data) is held to its shape only."""
+def _is_arange(pos: torch.Tensor, n: int, start: int = 0) -> bool:
+    """pos is arange(start, start + n), read unseen by the step counters;
+    a fake tensor (no data) is held to its shape only."""
     if pos.dim() != 1 or pos.shape[0] != n:
         return False
     if work.is_fake(pos):
         return True
     with work.suspended():
-        return bool((pos == torch.arange(n, device=pos.device)).all())
+        return bool((pos == torch.arange(start, start + n,
+                                         device=pos.device)).all())
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -143,20 +135,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     they take q_positions == arange(Sq) and k_positions == arange(Sk) (one
     sequence attending to itself when Sq == Sk, a cross-attention when
     not) at the default scale 1/sqrt(Dh), and any other call raises there
-    (checking the positions reads them on the host).  The plain version is ``repro``'s chunked online-softmax
-    formulation with its cast points: K/V repeated over the G query heads,
-    f32 scores from the stored inputs, the finite -1e30 mask, weights
-    rounded to v's dtype before the PV product, f32 accumulation, one
-    query chunk of ``q_chunk`` rows at a time.  ``repro`` also rematerializes
-    each chunk in its backward; here autograd keeps each chunk's weights,
-    and the model's per-layer remat bounds that to one layer."""
+    (checking the positions reads them on the host).  The plain version is
+    ``repro``'s chunked online-softmax formulation with its cast points
+    (``ref.chunked_attention``: K/V repeated over the G query heads, f32
+    scores from the stored inputs, the finite -1e30 mask, weights rounded
+    to v's dtype before the PV product, f32 accumulation, ``q_chunk``
+    query rows at a time).  ``repro`` also rematerializes each chunk in
+    its backward; here autograd keeps each chunk's weights, and the
+    model's per-layer remat bounds that to one layer."""
     if act.is_dtensor(q):
         return _sharded_attention(
             q, k, v, q_positions=q_positions, k_positions=k_positions,
             causal=causal, window=window, logit_cap=logit_cap,
             q_chunk=q_chunk, scale=scale, use_kernel=use_kernel)
-    b, sq, hq, dh = q.shape
-    _, sk, hkv, dhv = v.shape
+    sq, dh, sk = q.shape[1], q.shape[3], k.shape[1]
     if use_kernel is None:
         use_kernel = work.on_card(q)
     if use_kernel:
@@ -168,65 +160,67 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"got {scale}")
         return K.flash_attention(q, k, v, causal=causal, window=window,
                                  logit_cap=logit_cap)
-    g = hq // hkv
-    if g > 1:
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
-    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    qc = min(q_chunk, sq)
-    kr = k.transpose(1, 2).float()   # (B, Hq, Sk, Dh)
-    vr = v.transpose(1, 2)           # (B, Hq, Sk, Dhv)
-    outs = []
-    for c0 in range(0, sq, qc):
-        qi = q[:, c0:c0 + qc].transpose(1, 2).float()
-        s = torch.einsum("bhqd,bhkd->bhqk", qi, kr) * scale
-        s = softcap(s, logit_cap)
-        mask = _chunk_mask(q_positions[c0:c0 + qc], k_positions,
-                           causal=causal, window=window)
-        s = torch.where(mask[None, None], s, -1e30)
-        m = s.amax(dim=-1, keepdim=True)
-        e = torch.exp(s - m)
-        z = e.sum(dim=-1, keepdim=True)
-        p_mat = (e / torch.clamp(z, min=1e-30)).to(vr.dtype)
-        o = torch.einsum("bhqk,bhkd->bhqd", p_mat.float(), vr.float())
-        outs.append(o.to(q.dtype))
-    return torch.cat(outs, dim=2).transpose(1, 2)
+    o, _, _ = R.chunked_attention(
+        q, k, v, q_positions=q_positions, k_positions=k_positions,
+        causal=causal, window=window, logit_cap=logit_cap, q_chunk=q_chunk,
+        scale=scale)
+    return o.to(q.dtype)
 
 
-def split_heads(y: torch.Tensor, h: int, d: int, *, rows: bool = True
-                ) -> torch.Tensor:
+def split_heads(y: torch.Tensor, h: int, d: int, *, rows: bool = True,
+                keys: bool = False) -> torch.Tensor:
     """(..., h * d) -> (..., h, d).  Under a mesh the last dim is laid out
     in whole heads first (cut over the model axis only where it divides
     h; a k-cut's partial sums are added), so that the reshape splits no
     head; ``rows`` puts the leading dim over dp (activations, not
-    weights)."""
+    weights).  ``keys`` lays (B, S, h * d) K or V out for the key cut of
+    ``head_names`` instead: the sequence over the model axis, each rank
+    every head of its own positions (a row-parallel product's partial
+    sums reduce-scattered there), so that no rank holds all of K or V."""
     if act.is_dtensor(y):
-        names = (("dp",) if rows else (None,)) + (None,) * (y.ndim - 2)
-        y = act.constrain(y, *names,
-                          "model" if h % act.model_size() == 0 else None)
+        if keys:
+            y = act.constrain(y, "dp", "model", *(None,) * (y.ndim - 2))
+        else:
+            names = (("dp",) if rows else (None,)) + (None,) * (y.ndim - 2)
+            y = act.constrain(y, *names,
+                              "model" if h % act.model_size() == 0 else None)
     return y.reshape(*y.shape[:-1], h, d)
 
 
-def head_names(hq: int, hkv: int) -> tuple[tuple, tuple, bool]:
+def head_names(hq: int, hkv: int, sk: int) -> tuple[tuple, tuple, str]:
     """The PACO cut of the attention cuboid under the active mesh: logical
-    names for q (B, S, Hq, D) and for k / v (B, S, Hkv, D), and whether
-    K/V must first be repeated over the G query heads of a group.
+    names for q (B, Sq, Hq, D) and for k / v (B, Sk, Hkv, D), and the cut:
+    ``"heads"``, ``"repeat"`` (heads, K/V first repeated over the G query
+    heads of a group), ``"keys"`` or ``"whole"``.
 
     The port's kernels share K/V across a group's G heads, where ``repro``
     repeats K/V before cutting heads.  When the model axis divides Hkv,
     q is cut in blocks of Hq/pm heads and K/V in blocks of Hkv/pm, so
     query head h stays with KV head h // G; when it divides Hq only, K/V
-    are repeated as ``repro`` does.  When it divides neither, ``repro``
-    runs sequence-parallel attention; the port gathers the heads and runs
-    the kernel whole on every rank (same values, other communication)."""
+    are repeated as ``repro`` does.  When it divides neither, the cut goes
+    to the longest dim left, the key sequence, as in ``repro``
+    (sequence-parallel attention): K/V in contiguous blocks of Sk/pm keys
+    over the model axis, q whole over it.  Where the model axis does not
+    divide Sk either, no cut is left (``repro``'s constraint drops it) and
+    every rank attends whole."""
     pm = act.model_size()
     q_names = ("dp", None, "model", None)
     if hkv % pm == 0:
-        return q_names, q_names, False
+        return q_names, q_names, "heads"
     if hq % pm == 0:
-        return q_names, q_names, True
+        return q_names, q_names, "repeat"
     whole = ("dp", None, None, None)
-    return whole, whole, False
+    if sk % pm == 0:
+        return whole, ("dp", "model", None, None), "keys"
+    return whole, whole, "whole"
+
+
+def key_cut(cfg, x: torch.Tensor, sk: int) -> bool:
+    """Whether attention over ``sk`` keys projected from the DTensor ``x``
+    takes the key cut (``head_names``), whose K and V are then laid out
+    over the sequence from their projection on."""
+    return act.is_dtensor(x) and head_names(
+        cfg.n_heads, cfg.n_kv_heads, sk)[2] == "keys"
 
 
 def repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
@@ -240,18 +234,60 @@ def repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
 def _sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        *, q_positions: torch.Tensor,
                        k_positions: torch.Tensor, **kw) -> torch.Tensor:
-    """``attention`` on DTensors: the whole-sequence kernel (or the plain
-    version) on each rank's block of heads and batch rows."""
-    q_names, kv_names, rep = head_names(q.shape[2], k.shape[2])
-    if rep:
+    """``attention`` on DTensors, cut as ``head_names`` says.  A head cut
+    runs the whole-sequence kernel (or the plain version) on each rank's
+    block of heads and batch rows; a key cut runs ``_key_block_attention``
+    on each rank's block of keys (K and V come laid out so from their
+    projection, ``split_heads(keys=True)``), q and the output whole over
+    the model axis."""
+    q_names, kv_names, cut = head_names(q.shape[2], k.shape[2], k.shape[1])
+    if cut == "repeat":
         g = q.shape[2] // k.shape[2]
         k, v = repeat_kv(k, g), repeat_kv(v, g)
+    if cut == "keys":
+        mesh = act.current_mesh()
+        _, offs = act.block_of(tuple(k.shape), mesh, act.placements(
+            mesh, act.spec_for(mesh, tuple(k.shape), kv_names)))
+        blocks = K.KeyBlocks(mesh.get_group("model"))
+        return act.local_call(
+            lambda q, k, v, qp, kp: _key_block_attention(
+                q, k, v, qp, kp, offs[1], blocks, **kw),
+            (q_names, kv_names, kv_names, None, ("model",)), 0, q, k, v,
+            q_positions, k_positions)
 
     def body(q, k, v, qp, kp):
         return attention(q, k, v, q_positions=qp, k_positions=kp, **kw)
 
     return act.local_call(body, (q_names, kv_names, kv_names, None, None),
                           0, q, k, v, q_positions, k_positions)
+
+
+def _key_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_positions: torch.Tensor, k_positions: torch.Tensor,
+                         k_off: int, blocks, *, causal: bool = True,
+                         window: int | None = None,
+                         logit_cap: float | None = None, q_chunk: int = 1024,
+                         scale: float | None = None,
+                         use_kernel: bool | None = None) -> torch.Tensor:
+    """One rank's share of sequence-parallel attention, on local tensors:
+    q (B, Sq, Hq, D) whole against this rank's block of keys k, v (B, n,
+    Hkv, D) at positions ``k_positions`` (its block of them), which must
+    be arange(k_off, k_off + n), and q_positions arange(Sq); the key-block
+    entries (or their plain versions) and the merge across the model
+    axis's ranks (``kernels.attention.attention.seq_attention``)."""
+    sq, n = q.shape[1], k.shape[1]
+    if not (_is_arange(q_positions, sq)
+            and _is_arange(k_positions, n, k_off)):
+        raise ValueError(f"sequence-parallel attention takes q positions "
+                         f"arange({sq}) and this rank's key positions "
+                         f"arange({k_off}, {k_off + n})")
+    # every row must see some key of some block: the whole sequence's Sk
+    # is the last block's end (ranks hold equal blocks)
+    K._check_window(window, sq, n * act.model_size())
+    return K.seq_attention(q, [k], [v], [k_off], blocks=blocks,
+                           causal=causal, window=window, logit_cap=logit_cap,
+                           q_chunk=q_chunk, scale=scale,
+                           use_kernel=use_kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -377,11 +413,15 @@ def gqa_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
     before rope, as ``repro.models.layers.gqa_qkv``."""
     b, s, _ = x.shape
     dh = cfg.head_dim
+    keys = key_cut(cfg, x, s)
     q = split_heads(x @ p["wq"], cfg.n_heads, dh)
-    k = split_heads(x @ p["wk"], cfg.n_kv_heads, dh)
-    v = split_heads(x @ p["wv"], cfg.n_kv_heads, dh)
-    # the head layout (dh whole) before qk-norm and rope, as repro
-    q, k, v = act.heads(q), act.heads(k), act.heads(v)
+    k = split_heads(x @ p["wk"], cfg.n_kv_heads, dh, keys=keys)
+    v = split_heads(x @ p["wv"], cfg.n_kv_heads, dh, keys=keys)
+    # the head layout (dh whole) before qk-norm and rope, as repro; under
+    # the key cut K and V keep their sequence blocks (no rank gathers them)
+    q = act.heads(q)
+    if not keys:
+        k, v = act.heads(k), act.heads(v)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])

@@ -770,6 +770,77 @@ def test_cross_attention_refuses_an_empty_row(cuda):
         (launches[0] + 2, launches[1] + 1)
 
 
+# The key-block entries of kernels 5 and 5b (sequence-parallel attention):
+# (dtype, D, G, the forward's family, the backward's) over every family
+BLOCK_FAMILIES = [(torch.float32, 64, 2, "cuda_cores", "cuda_cores"),
+                  (torch.bfloat16, 16, 2, "cuda_cores", "cuda_cores"),
+                  (torch.bfloat16, 64, 2, "wgmma", "wgmma"),
+                  (torch.bfloat16, 112, 1, "wgmma", "wgmma"),
+                  (torch.bfloat16, 128, 2, "wgmma", "wgmma"),
+                  (torch.bfloat16, 256, 2, "mma_sync", "cuda_cores")]
+# (Sq, Sk, masks): causal, gemma2's window and softcap (rows that see no
+# key in most blocks), a non-causal cross-attention with Sq != Sk
+BLOCK_CASES = [(300, 300, {"causal": True}),
+               (300, 300, {"causal": True, "window": 40, "logit_cap": 50.0}),
+               (200, 300, {"causal": False})]
+
+
+@pytest.mark.parametrize("dtype,d,g,fwd_family,bwd_family", BLOCK_FAMILIES)
+@pytest.mark.parametrize("sq,sk,kw", BLOCK_CASES)
+@pytest.mark.parametrize("p", [1, 3, 5])
+def test_flash_key_block_entries_match_plain_and_merge(
+        cuda, dtype, d, g, fwd_family, bwd_family, sq, sk, kw, p):
+    """Each of p contiguous key blocks through ``flash_attention_block``:
+    O (f32) within the tolerance of ``ref.attention_block_ref`` on the same
+    CUDA inputs, lse -inf exactly on the rows that see no key of the block
+    (and nowhere else), bitwise the same over two calls; ``seq_attention``
+    over the blocks (the list reduction) against the whole ``attention_ref``
+    and, through autograd, its gradient (each relative to its own max);
+    p launches of each entry, of the families the library names.  At p = 1
+    the merged O is bitwise the whole-sequence kernel's O."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d + p)
+    b, hkv = 2, 2
+    tol = dict(FLASH_DTYPES)[dtype]
+    q, d_o = (_rand(gen, b, sq, hkv * g, d, dtype=dtype) for _ in range(2))
+    k, v = (_rand(gen, b, sk, hkv, d, dtype=dtype) for _ in range(2))
+    bounds = [round(i * sk / p) for i in range(p + 1)]
+    ks = [k[:, a:c].contiguous() for a, c in zip(bounds, bounds[1:])]
+    vs = [v[:, a:c].contiguous() for a, c in zip(bounds, bounds[1:])]
+    for kb, vb, off in zip(ks, vs, bounds):
+        o, lse = K.flash_attention_block(q, kb, vb, k_off=off, **kw)
+        o2, lse2 = K.flash_attention_block(q, kb, vb, k_off=off, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        want_o, want_lse = ref.attention_block_ref(q, kb, vb, k_off=off, **kw)
+        assert o.dtype == torch.float32
+        assert _rel(o, want_o) <= tol
+        assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+        live = torch.isfinite(want_lse)
+        assert _err(lse[live], want_lse[live]) <= 1e-3
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = (K.flash_attention_block.variants[fwd_family],
+          K.flash_attention_block_bwd.variants[bwd_family])
+    out = K.seq_attention(
+        leaves[0], [leaves[1][:, a:c] for a, c in zip(bounds, bounds[1:])],
+        [leaves[2][:, a:c] for a, c in zip(bounds, bounds[1:])], bounds[:-1],
+        blocks=K.KeyBlocks(), **kw)
+    grads = torch.autograd.grad(out, leaves, d_o)
+    torch.cuda.synchronize()
+    assert (K.flash_attention_block.variants[fwd_family],
+            K.flash_attention_block_bwd.variants[bwd_family]) == \
+        (n0[0] + p, n0[1] + p)
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    assert _rel(out, ref.attention_ref(*tr[:3], **kw).transpose(1, 2)) <= tol
+    want = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr, **kw)]
+    for got, w in zip(grads, want):
+        assert got.dtype == dtype and _own_rel(got, w) <= tol
+    if p == 1:
+        whole, _ = K._flash_fwd(q, k, v, causal=kw["causal"],
+                                window=kw.get("window"),
+                                logit_cap=kw.get("logit_cap"))
+        assert torch.equal(out.detach(), whole)
+
+
 @pytest.mark.parametrize("arch,launches", [
     ("qwen3-0.6b", 2), ("mamba2-780m", 0), ("zamba2-7b", 1),
     ("seamless-m4t-medium", 6)])

@@ -285,13 +285,18 @@ def _key_range(c0, q_hi, sk, causal, window):
     return max(0, c0 - window + 1), (min(q_hi + 1, sk) if causal else sk)
 
 
-def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None):
+def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None,
+                k_off=None):
     """q (B, Sq, Hq, D) against k, v (B, Sk, Hkv, D), f32 -> (O (B, Sq, Hq,
     D), lse (B, Hq, Sq)), by the forward kernel's walk: per (query block,
     kv head, batch) item over the Sq positions, key tiles over the block's
     range ending at Sk, online softmax with masked keys (the ragged last
     tile's past Sk among them) weighing 0.  Each item taken is appended to
-    ``visited``."""
+    ``visited``.  ``k_off`` set: the key-block entry (the keys at
+    positions k_off ..): the masks and the key range see the rows'
+    positions less k_off, an item whose range holds no key walks no tile,
+    and O stays f32, with O = 0 and lse = -inf on a row that saw no key."""
+    shift = k_off or 0
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -309,11 +314,12 @@ def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None):
         m = torch.full((len(pos),), NEG)
         l = torch.zeros(len(pos))
         acc = torch.zeros(len(pos), q.shape[-1])
-        lo, hi = _key_range(c0, int(pos.max()), sk, causal, window)
+        lo, hi = _key_range(c0 - shift, int(pos.max()) - shift, sk, causal,
+                            window)
         for t0 in range(lo, hi, walk.tk):
             kp = torch.arange(t0, min(t0 + walk.tk, hi))
             x, _ = _scores(qr @ k[bi, kp, h].T, scale, cap)
-            ok = _visible(pos, kp, causal, window)
+            ok = _visible(pos - shift, kp, causal, window)
             x = torch.where(ok, x, NEG)
             m_new = torch.maximum(m, x.max(1).values)
             p = torch.where(ok, torch.exp(x - m_new[:, None]), 0.0)
@@ -324,12 +330,15 @@ def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None):
         acc = acc / l.clamp(min=1e-30)[:, None]
         assert not acc[:, d:].any()     # the zero columns add nothing
         out[bi, pos, h * g + head] = acc[:, :d]   # the true columns only
-        lse[bi, h * g + head, pos] = m + torch.log(l.clamp(min=1e-30))
-    return walk.round(out), lse
+        row_lse = m + torch.log(l.clamp(min=1e-30))
+        if k_off is not None:
+            row_lse = torch.where(l == 0, -math.inf, row_lse)
+        lse[bi, h * g + head, pos] = row_lse
+    return (out if k_off is not None else walk.round(out)), lse
 
 
 def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
-                visited=None):
+                visited=None, k_off=None):
     """(dq, dk, dv) by the backward kernel's three launches, q, o, d_o
     (B, Sq, Hq, D) against k, v (B, Sk, Hkv, D): Delta over the Sq rows,
     the dQ pass over the forward's query blocks (``walk.tk_dq``-key tiles
@@ -338,7 +347,10 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
     query tiles (ending at Sq; none for a block no query sees, whose rows
     are stored as zeros).  Outputs start as NaN (``torch.empty``'s
     garbage), so a row the walk does not store shows.  Items taken are
-    appended to ``visited``."""
+    appended to ``visited``.  ``k_off`` set: the key-block entry, o and
+    lse the merged forward's; the dQ pass compares the rows' positions
+    less k_off, the dK/dV pass the keys' plus k_off, and dQ stays f32."""
+    shift = k_off or 0
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -355,11 +367,12 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
         hh = h * g + head
         qr, gr = q[bi, pos, hh], d_o[bi, pos, hh]
         acc = torch.zeros(len(pos), q.shape[-1])
-        lo, hi = _key_range(c0, int(pos.max()), sk, causal, window)
+        lo, hi = _key_range(c0 - shift, int(pos.max()) - shift, sk, causal,
+                            window)
         for t0 in range(lo, hi, walk.tk_dq):
             kp = torch.arange(t0, min(t0 + walk.tk_dq, hi))
             x, cg = _scores(qr @ k[bi, kp, h].T, scale, cap)
-            ok = _visible(pos, kp, causal, window)
+            ok = _visible(pos - shift, kp, causal, window)
             p = torch.where(ok, torch.exp(x - lse[bi, hh, pos][:, None]), 0.0)
             dp = gr @ v[bi, kp, h].T
             ds = p * (dp - delta[bi, hh, pos][:, None]) * cg
@@ -376,14 +389,14 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
         kb, vb = k[bi, kp, h], v[bi, kp, h]
         dk_acc = torch.zeros(len(kp), k.shape[-1])
         dv_acc = torch.zeros(len(kp), k.shape[-1])
-        q_lo = k0 if causal else 0
-        q_hi = min(sq, int(kp[-1]) + window)
+        q_lo = k0 + shift if causal else 0
+        q_hi = min(sq, int(kp[-1]) + shift + window)
         for gi in range(g):
             hh = h * g + gi
             for t0 in range(q_lo, q_hi, walk.tq):
                 qp = torch.arange(t0, min(t0 + walk.tq, q_hi))
                 x, cg = _scores(kb @ q[bi, qp, hh].T, scale, cap)
-                ok = _visible(qp, kp, causal, window).T          # (keys, q)
+                ok = _visible(qp, kp + shift, causal, window).T  # (keys, q)
                 p = torch.where(ok, torch.exp(x - lse[bi, hh, qp]), 0.0)
                 dpt = vb @ d_o[bi, qp, hh].T
                 ds = p * (dpt - delta[bi, hh, qp]) * cg
@@ -392,7 +405,8 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
         assert not dk_acc[:, d:].any() and not dv_acc[:, d:].any()
         dk[bi, kp, h] = dk_acc[:, :d] * scale
         dv[bi, kp, h] = dv_acc[:, :d]
-    return tuple(walk.round(t) for t in (dq, dk, dv))
+    return ((dq if k_off is not None else walk.round(dq)), walk.round(dk),
+            walk.round(dv))
 
 
 EMU_CASES = [dict(causal=True), dict(causal=False),

@@ -222,6 +222,80 @@ def test_reduced_dryrun_of_each_family_on_a_2x2_fake_mesh(arch):
             json.dumps(rec)
 
 
+def test_dryrun_counts_the_key_cut_on_a_fake_5_rank_mesh():
+    """Reduced gemma2-2b's train step traced on a (1, 5) ``fake`` mesh
+    (the dry-run's path): its 2 layers' attention takes the key-block
+    entries (forward twice with remat, backward once; no whole-sequence
+    flash call), each call recorded by the block formula of rank 0's 8
+    keys, and the merge's all-reduces counted on the model axis: three a
+    forward (max, and the sums of the weights and of the f32 O) and dQ's
+    one a backward."""
+    cfg = _reduced("gemma2-2b")
+    b, s = 2, 40
+    with _FakeGroup(5):
+        rec = dryrun.trace_cell(cfg, tcfg.ShapeCell("t", s, b, "train"),
+                                _mesh((1, 5)))
+    n = cfg.n_layers
+    assert rec["cost"]["kernel_calls"] == {"flash_fwd_block": 2 * n,
+                                           "flash_bwd_block": n}
+    from repro_torch.models.transformer import _layer_windows
+    windows = _layer_windows(cfg, n)
+    assert rec["cost"]["kernel_flops"]["flash_fwd_block"] == sum(
+        2 * work.flash_fwd_work(b, s, 8, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim, 4, window=w, k_off=0)[0]
+        for w in windows)
+    model = rec["collectives"]["all-reduce"]["axes"]["model"]
+    o_bytes = b * s * cfg.n_heads * cfg.head_dim * 4
+    assert model["count"] >= 3 * 2 * n + n
+    assert model["bytes"] >= (2 * n + n) * o_bytes
+    assert "world" not in rec["collectives"]["all-reduce"]["axes"]
+
+
+def test_key_cut_reduce_scatters_kv_on_a_fake_8_rank_mesh(monkeypatch):
+    """On a (1, 8) ``fake`` mesh reduced gemma2-2b's K and V projections
+    (64 -> 2 heads x 16, row-parallel) leave partial sums: under the key
+    cut they reduce-scatter straight to their blocks of 5 keys, where
+    gathering the heads first (``layers.key_cut`` forced off) all-reduces
+    them whole.  Each forward of a layer (2 with remat) has two such
+    collectives: the all-reduces' bytes fall by those whole K/V and the
+    reduce-scatters' rise by an eighth of them; K and V reach the key cut
+    laid out over the keys."""
+    from repro_torch.models import layers
+
+    cfg = _reduced("gemma2-2b")
+    b, s, pm = 2, 40, 8
+    inner, laid = layers._sharded_attention, set()
+
+    def spy(q, k, v, **kw):
+        laid.add(tuple(tuple(p.dim if p.is_shard() else None
+                             for p in t.placements) for t in (k, v)))
+        return inner(q, k, v, **kw)
+
+    monkeypatch.setattr(layers, "_sharded_attention", spy)
+    recs = {}
+    for cut in (True, False):
+        if not cut:
+            monkeypatch.setattr(layers, "key_cut", lambda *a: False)
+        with _FakeGroup(pm):
+            recs[cut] = dryrun.trace_cell(
+                cfg, tcfg.ShapeCell("t", s, b, "train"), _mesh((1, pm)))
+        if cut:
+            assert laid == {((None, 1), (None, 1))}
+    whole = b * s * cfg.n_kv_heads * cfg.head_dim * 4     # f32 K or V
+    calls = 2 * 2 * cfg.n_layers
+    axes = {cut: {kind: recs[cut]["collectives"][kind]["axes"]["model"]
+                  for kind in ("all-reduce", "reduce-scatter")}
+            for cut in recs}
+    ar = [axes[c]["all-reduce"] for c in (False, True)]
+    rs = [axes[c]["reduce-scatter"] for c in (False, True)]
+    assert ar[0]["count"] - ar[1]["count"] == calls
+    assert ar[0]["bytes"] - ar[1]["bytes"] == calls * whole
+    assert rs[1]["count"] - rs[0]["count"] == calls
+    assert rs[1]["bytes"] - rs[0]["bytes"] == calls * whole // pm
+    assert recs[True]["cost"]["kernel_calls"] == \
+        recs[False]["cost"]["kernel_calls"]
+
+
 def test_reduced_qwen3_train_flops_equal_the_worked_count():
     """No mesh: each projection's 2 tokens d_in d_out, four times in a
     remat block (forward, recompute, and the two products of its

@@ -1,6 +1,7 @@
 """The port's distributed paths across several ranks, on the CPU: gloo
 process groups of 8 and 5 ranks (``tests/torch_spmd_worker.py``), one
-spawn per world size running all of that size's checks, and one
+spawn per world size running all of that size's checks (the 5 ranks also
+run sequence-parallel attention on a (1, 5) mesh), and one
 ``torch.distributed.run`` of ``launch.train --mesh 2x2``.  The references
 are computed here, in the parent, from the same numpy inputs (JAX's from
 ``repro``, with ``convert.from_jax`` weights where the port is held to
@@ -63,6 +64,17 @@ ELASTIC_RTOL = 2e-4      # as tests/test_spmd.py
 DECODE_ATOL = TP.ATOL    # meshed dense-cache logits and cache vs one
                          # device and vs JAX (f32, as test_torch_nonpaged)
 DECODE_PROMPT, DECODE_STEPS, DECODE_MAX_SEQ = 8, 4, 32
+# sequence-parallel attention on the (1, 5) mesh: reduced gemma2-2b at
+# B 2 x S 40 (its local window 16: rows see no key in most blocks of 8;
+# the prefill into a cache of 80 positions), reduced seamless-m4t-medium
+# with 40 source frames and 20 target tokens, reduced zamba2-7b at S 40
+SEQ_ARCH, SEQ_ENCDEC, SEQ_HYBRID = ("gemma2-2b", "seamless-m4t-medium",
+                                    "zamba2-7b")
+SEQ_BATCH, SEQ_LEN, SEQ_SRC, SEQ_TGT = 2, 40, 40, 20
+SEQ_MAX_SEQ = 80
+# the dims of K and V that the (1, 5) mesh's (data, model) axes cut where
+# they meet the key cut: the keys over the model axis, never whole there
+KV_KEY_CUT = ((None, 1),) * 2
 j_decode_step = jax.jit(jmodels.decode_step, static_argnums=1)
 
 
@@ -145,9 +157,9 @@ def _train_case():
             lambda: _train_refs(cj, ct, pj, tc, batch, fresh()))
 
 
-def _train_refs(cj, ct, pj, tc, batch, pt):
+def _train_refs(cj, ct, pj, tc, batch, pt, seq=32, global_batch=4):
     step = j_make_step(cj, JTrainConfig(opt=JAdamW(lr=1e-3)))
-    batch_j = j_batch(JDataConfig(seq_len=32, global_batch=4,
+    batch_j = j_batch(JDataConfig(seq_len=seq, global_batch=global_batch,
                                   vocab=cj.vocab), 0)
     pj_out, _, mj = jax.jit(step)(pj, j_init_state(
         cj, JTrainConfig(opt=JAdamW(lr=1e-3)), pj), batch_j)
@@ -317,10 +329,66 @@ def world8(tmp_path_factory, models):
     return got, refs
 
 
+def _seq_case(models):
+    """The (1, 5) mesh's job (the forward of reduced gemma2-2b,
+    seamless-m4t-medium and zamba2-7b, gemma2's dense-cache prefill and
+    train step, on ``from_jax`` weights) and a function that computes its
+    references: the port unmeshed and JAX."""
+    cj, ct, pj, pt = models[SEQ_ARCH]
+    et = models[SEQ_ENCDEC][1]
+    ht = models[SEQ_HYBRID][1]
+    batch = global_batch_rowwise(DataConfig(seq_len=SEQ_LEN,
+                                            global_batch=SEQ_BATCH,
+                                            vocab=ct.vocab), 0)
+    ebatch = global_batch_rowwise(
+        DataConfig(seq_len=SEQ_TGT, global_batch=SEQ_BATCH, vocab=et.vocab,
+                   src_len=SEQ_SRC), 0, d_model=et.d_model)
+    hbatch = global_batch_rowwise(DataConfig(seq_len=SEQ_LEN,
+                                             global_batch=SEQ_BATCH,
+                                             vocab=ht.vocab), 0)
+    cases = ((SEQ_ARCH, batch), (SEQ_ENCDEC, ebatch), (SEQ_HYBRID, hbatch))
+    tokens = {"tokens": batch["tokens"]}
+    tc = TrainConfig(opt=AdamWConfig(lr=1e-3))
+    fresh = lambda: from_jax(jax.tree.map(np.asarray, pj), ct,  # noqa
+                             "cpu")
+    job = {"forward": [(arch, models[arch][1], models[arch][3], b)
+                       for arch, b in cases],
+           "prefill": (ct, pt, tokens, SEQ_MAX_SEQ),
+           "train": (ct, tc, fresh(), batch)}
+
+    def refs():
+        out = {}
+        for arch, b in cases:
+            c_j, c_t, p_j, p_t = models[arch]
+            with torch.no_grad():
+                port = tmodels.forward(p_t, c_t, b, remat=False).numpy()
+            bj = {k: jnp.asarray(v.numpy()) for k, v in b.items()}
+            out[arch] = {"port": port, "jax": np.asarray(
+                jmodels.forward(p_j, c_j, bj, remat=False))}
+        with torch.no_grad():
+            lg, cache, lens = tmodels.prefill(pt, ct, tokens, SEQ_MAX_SEQ)
+        lgj, cache_j, lens_j = jmodels.prefill(
+            pj, cj, {"tokens": jnp.asarray(tokens["tokens"].numpy())},
+            max_seq=SEQ_MAX_SEQ)
+        out["prefill"] = {
+            "port": (lg.numpy(), {k: v.numpy() for k, v in cache.items()},
+                     lens.numpy()),
+            "jax": (np.asarray(lgj), {k: np.asarray(v)
+                                      for k, v in cache_j.items()},
+                    np.asarray(lens_j))}
+        out["train"] = _train_refs(cj, ct, pj, tc, batch, fresh(),
+                                   seq=SEQ_LEN, global_batch=SEQ_BATCH)
+        return out
+
+    return job, refs
+
+
 @pytest.fixture(scope="module")
-def world5(world8, tmp_path_factory):
+def world5(world8, models, tmp_path_factory):
     """Restores world8's checkpoint at step 2 on 5 ranks (a (5, 1) mesh)
-    and trains on through step 4."""
+    and trains on through step 4; then sequence-parallel attention on a
+    (1, 5) mesh (``check_seq_attention``).  Returns rank 0's results and,
+    under "seq_refs", the references of the last."""
     tmp = world8[1]["tmp"]
     # run C's step-2 checkpoint (saved on 8 ranks before its failure) as
     # the latest of a fresh directory
@@ -329,8 +397,12 @@ def world5(world8, tmp_path_factory):
                         os.path.join(tmp, "ck_b" + sub, "step_00000002"))
     job = _elastic_job(tmp)
     job["runs"] = [("B", os.path.join(tmp, "ck_b"), [2, 3], None)]
-    return _spawn(5, [("elastic", job)],
-                  str(tmp_path_factory.mktemp("spmd5")))
+    seq_job, seq_refs = _seq_case(models)
+    got = _spawn(5, [("elastic", job), ("seq_attention", seq_job)],
+                 str(tmp_path_factory.mktemp("spmd5")))
+    print(f"5-rank spawn: {got['seconds']}")
+    got["seq_refs"] = seq_refs()
+    return got
 
 
 def test_paco_matmul_shmap_and_pjit(world8):
@@ -484,3 +556,71 @@ def test_torchrun_train_mesh_2x2():
               if line.startswith("step ")]
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert "mesh={'data': 2, 'model': 2}" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", [SEQ_ARCH, SEQ_ENCDEC, SEQ_HYBRID])
+def test_sequence_parallel_forward_matches_unmeshed_and_jax(world5, arch):
+    """On the (1, 5) mesh every attention of reduced gemma2-2b (4 query, 2
+    KV heads), seamless-m4t-medium (4 and 4) and zamba2-7b's shared block
+    (4 and 4) cuts its keys: each rank r took the block of Sk / 5 keys at
+    r Sk / 5 (8 at 8r of 40 positions or source frames, 4 at 4r of
+    seamless's 20 target tokens), and no other; the logits within
+    FWD_ATOL of the port unmeshed and of JAX's unmeshed ``forward``.  K
+    and V reach the key cut already laid out over the sequence (no rank
+    held all of them)."""
+    r = world5["seq_attention"]
+    assert r["kv_layouts"][arch] == [KV_KEY_CUT]
+    refs = world5["seq_refs"][arch]
+    lengths = (SEQ_SRC, SEQ_TGT) if arch == SEQ_ENCDEC else (SEQ_LEN,)
+    for rank, blocks in enumerate(r["blocks"]):
+        assert blocks[arch] == sorted((n // 5, rank * n // 5)
+                                      for n in lengths)
+    for who in ("port", "jax"):
+        np.testing.assert_allclose(r[arch], refs[who], atol=FWD_ATOL,
+                                   rtol=0, err_msg=who)
+
+
+def test_sequence_parallel_prefill_matches_unmeshed_and_jax(world5):
+    """gemma2-2b's dense-cache prefill of 40 tokens on the (1, 5) mesh:
+    the attention of each layer cuts its keys (rank r: 8 at 8r) while the
+    cache of 80 positions is cut over the sequence; the last logits, every
+    cache leaf and the lengths within DECODE_ATOL of the port unmeshed
+    and of JAX's ``prefill``."""
+    r = world5["seq_attention"]
+    assert [b["prefill"] for b in r["blocks"]] == [[(8, 8 * i)]
+                                                   for i in range(5)]
+    assert r["kv_layouts"]["prefill"] == [KV_KEY_CUT]
+    logits, cache, lens = r["prefill"]
+    for who in ("port", "jax"):
+        r_logits, r_cache, r_lens = world5["seq_refs"]["prefill"][who]
+        np.testing.assert_allclose(logits, r_logits, atol=DECODE_ATOL,
+                                   rtol=0, err_msg=who)
+        assert set(cache) == set(r_cache)
+        for k in cache:
+            np.testing.assert_allclose(cache[k], np.asarray(
+                r_cache[k], np.float32), atol=DECODE_ATOL, rtol=0,
+                err_msg=f"{who} {k}")
+        np.testing.assert_array_equal(lens, r_lens)
+
+
+def test_sequence_parallel_train_step_matches_jax_and_port(world5):
+    """One train step of reduced gemma2-2b at B 2 x S 40 on the (1, 5)
+    mesh, through the key-block entries' plain versions and the merge's
+    backward (dQ summed across the ranks, dK and dV on their blocks): the
+    loss and every updated leaf against JAX's step and the port's, one
+    device (the TRAIN_* tolerances), each rank on its block of 8 keys."""
+    r = world5["seq_attention"]
+    assert [b["train"] for b in r["blocks"]] == [[(8, 8 * i)]
+                                                 for i in range(5)]
+    assert r["kv_layouts"]["train"] == [KV_KEY_CUT]
+    flat = _flat_np(r["train"]["params"])
+    refs = world5["seq_refs"]["train"]
+    for ref, (loss_tol, leaf_tol) in (
+            (refs["jax"], (TRAIN_LOSS_JAX, TRAIN_LEAF_JAX)),
+            (refs["port"], (TRAIN_LOSS_PORT, TRAIN_LEAF_PORT))):
+        loss, leaves = ref
+        assert abs(r["train"]["loss"] - loss) < loss_tol
+        assert set(leaves) == set(flat)
+        for k in leaves:
+            np.testing.assert_allclose(flat[k], leaves[k], atol=leaf_tol,
+                                       rtol=0, err_msg=k)

@@ -227,11 +227,78 @@ def check_agree(job):
     return None
 
 
+def check_seq_attention(job):
+    """Sequence-parallel attention on a (1, 5) mesh, whose model axis of 5
+    divides neither reduced gemma2-2b's 4 query heads nor its 2 KV heads:
+    the forward logits of gemma2, seamless-m4t-medium (its encoder,
+    decoder and cross-attention all cut their keys) and zamba2-7b (the
+    hybrid's shared attention block), gemma2's dense-cache prefill
+    (logits, cache, lengths) and one gemma2 train step.  Each rank also
+    reports the (length, offset) of every key block its
+    ``layers._key_block_attention`` took, per case, gathered to rank 0,
+    and the placements of the K and V that reached the key cut."""
+    from repro_torch.dist import act_sharding as act
+    from repro_torch.dist import sharding as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import forward, layers, prefill
+    from repro_torch.train import init_train_state, train_step
+    mesh = make_host_mesh((1, 5), device_type="cpu")
+    inner, seen = layers._key_block_attention, set()
+    inner_sh, laid = layers._sharded_attention, set()
+
+    def spy(q, k, v, qp, kp, k_off, blocks, **kw):
+        seen.add((k.shape[1], k_off))
+        return inner(q, k, v, qp, kp, k_off, blocks, **kw)
+
+    def spy_sh(q, k, v, **kw):
+        # per mesh dim the tensor dim it cuts, None where it cuts none
+        laid.add(tuple(tuple(p.dim if p.is_shard() else None
+                             for p in t.placements) for t in (k, v)))
+        return inner_sh(q, k, v, **kw)
+
+    out, blocks, layouts = {}, {}, {}
+    layers._key_block_attention = spy
+    layers._sharded_attention = spy_sh
+    try:
+        for arch, cfg, params, batch in job["forward"]:
+            ps = D.distribute(mesh, params, D.param_specs(cfg, params, mesh))
+            bs = D.distribute(mesh, batch, D.batch_specs(cfg, mesh, batch))
+            with act.use_mesh_rules(mesh), torch.no_grad():
+                out[arch] = _np(forward(ps, cfg, bs, remat=False))
+            blocks[arch], seen = sorted(seen), set()
+            layouts[arch], laid = sorted(laid), set()
+        cfg, params, batch, max_seq = job["prefill"]
+        ps = D.distribute(mesh, params, D.param_specs(cfg, params, mesh))
+        bs = D.distribute(mesh, batch, D.batch_specs(cfg, mesh, batch))
+        with act.use_mesh_rules(mesh), torch.no_grad():
+            lg, cache, lengths = prefill(ps, cfg, bs, max_seq)
+            out["prefill"] = (_np(lg), _tree_np(cache), _np(lengths))
+        blocks["prefill"], seen = sorted(seen), set()
+        layouts["prefill"], laid = sorted(laid), set()
+        cfg, tcfg, params, batch = job["train"]
+        ps = D.distribute(mesh, params, D.param_specs(cfg, params, mesh))
+        state = init_train_state(cfg, tcfg, ps)
+        bs = D.distribute(mesh, batch, D.batch_specs(cfg, mesh, batch))
+        ps, state, metrics = train_step(ps, state, bs, cfg=cfg, tcfg=tcfg)
+        out["train"] = {"loss": float(metrics["loss"]),
+                        "params": _tree_np(ps)}
+        blocks["train"] = sorted(seen)
+        layouts["train"] = sorted(laid)
+    finally:
+        layers._key_block_attention = inner
+        layers._sharded_attention = inner_sh
+    out["kv_layouts"] = layouts
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, blocks)
+    out["blocks"] = ranks
+    return out
+
+
 CHECKS = {"agree": check_agree, "matmul": check_matmul, "sort": check_sort,
           "moe_ep": check_moe_ep, "pipeline": check_pipeline,
           "forward": check_forward, "train": check_train,
           "serve": check_serve, "decode": check_decode,
-          "elastic": check_elastic}
+          "elastic": check_elastic, "seq_attention": check_seq_attention}
 
 
 def main(rank, world, store_path, job_path, out_path):
