@@ -76,8 +76,17 @@ Phases, in order; any failure ends the script with a nonzero exit:
    cross-attention, B 2, Hq 16, Sq 256, Sk 1024, D 64) and
    ``flash_attention_d112`` and ``flash_attention_bwd_d112`` (5@112,
    5b@112: zamba2-7b's shared block, B 1, Hq 32, S 2048, D 112, causal),
-   timed with SDPA (and its backward) per backend and, given
-   ``--parent``, the parent's kernels at D 112 in turns.
+   and ``flash_attention_d256`` and ``flash_attention_bwd_d256`` (5@256,
+   5b@256: gemma2-2b's attention, B 2, Hq 8, Hkv 4, S 4096, D 256,
+   causal, softcap 50 as the model's, on the D-256 wgmma kernels; SDPA,
+   which has no softcap, uncapped), each against its plain version
+   and bitwise over two calls, timed with SDPA (and its backward) per
+   backend and, given ``--parent``, the parent's kernels in turns (every
+   row of these shapes must report the ``wgmma`` variant).  With
+   ``--parent`` the flash pair is bitwise the parent's at D 16, 64 and
+   128, and the wgmma kernels the parent also has (D 64, 112, 128) keep
+   its HGMMA, WARPGROUP, BAR and SYNCS counts; the D-256 kernels' counts
+   are printed.
 3b. verify_kernels: the speculative-verify entries of kernels 2 and 4
    (``paged_verify``, ``paged_latent_verify``: one launch for all slots,
    each slot's start read on the device) against their plain versions in
@@ -100,12 +109,13 @@ Phases, in order; any failure ends the script with a nonzero exit:
    merged forward and backward against the whole-sequence kernels 5 and
    5b (FLASH_TOL) and bitwise over two runs, one block at offset 0
    bitwise kernel 5's O.  Then the main path with the counts zeroed and
-   read (bf16, S 4096, 16 blocks: 16 launches of each entry) and rows
-   ``flash_attention_block`` (5s) and ``flash_attention_block_bwd``
-   (5bs): rank 0's block and the last rank's, the plain versions, SDPA
-   under the block's boolean mask per backend, the block formula's bound,
-   at B 1 and again at B 16 (a rank's batch of train_4k on the 16 x 16
-   mesh, the row's "b16").
+   read (bf16, S 4096, 16 blocks: 16 launches of each entry, all
+   ``wgmma``) and rows ``flash_attention_block`` (5s) and
+   ``flash_attention_block_bwd`` (5bs): rank 0's block and the last
+   rank's, the plain versions, SDPA under the block's boolean mask per
+   backend, the block formula's bound and, given ``--parent``, the
+   parent's entries on the same blocks in turns, at B 1 and again at B 16
+   (a rank's batch of train_4k on the 16 x 16 mesh, the row's "b16").
 4. One full-width qwen3-0.6b prompt chunk per slot and 8 decode ticks
    through the kernels and through the plain path (``use_kernel=False``)
    with the same seeded random weights, in float32 and in bf16: logits
@@ -198,6 +208,13 @@ Phases, in order; any failure ends the script with a nonzero exit:
    (mamba2-780m at B 2 x S 1024, through ``Trainer`` alone: no attention
    kernel): every loss finite, the flash counts of the steps with remat.
    Rows 5bx's and 5b@112's launches are seamless's and zamba2's.
+9d. gemma2-2b trains (``gemma2_train``): full width, 2 of its 26 layers
+   (one local with window 4096, one global), B 1 x S 4096, bf16, kernels
+   5 and 5b at D 256: one ``train_step`` against the plain path within
+   TRAIN_PARITY_TOL (flash counts of one evaluation with remat, all
+   ``wgmma``), then 3 ``Trainer`` steps, whose flash launches are rows
+   5@256's and 5b@256's; given ``--parent``, the same steps through the
+   parent's flash libraries, step times side by side.
 10. The paper's PACO algorithms at full size, p = the card's SM count
    (132) and the prime 131 (``paco_algorithms``): LCS of two 65,536-base
    sequences (p = 132 and 131 in tiles of 256, PO and PA), exactly the
@@ -790,7 +807,7 @@ def check_flash_small(gen: torch.Generator) -> dict[str, float]:
     and its autograd gradient) on small geometries: G in {1, 2, 6, 8} (6
     leaves rows of the wgmma kernels' 128 unused), D in {16, 64, 128, 256}
     (bf16: 16 takes the CUDA-core kernels, 64 and 128 the wgmma ones, 256
-    the mma.sync forward), S a multiple of the tiles (128) and not (77),
+    the D-256 wgmma ones), S a multiple of the tiles (128) and not (77),
     causal and not, a window, a softcap, f32 and bf16.  Errors are
     relative to max(1, max |plain|) (FLASH_TOL)."""
     from repro_torch.kernels.attention import attention as K
@@ -849,7 +866,10 @@ class ParentKernels:
     (dtype, kv_lora, qk_rope, width, page, C, H, start) and latent
     decode's (width, page, B, H), and these three take f32 split scratch;
     the LCS kernel takes a whole table in one launch (``lcs_table``) over
-    the int32 state ``kernels.lcs`` lays out."""
+    the int32 state ``kernels.lcs`` lays out.  Where the parent's flash
+    pair has the key-block entries (``flash_fwd_block``,
+    ``flash_bwd_block``) they are bound too, and ``flash_libraries`` lets
+    the wrappers run a model step through the parent's pair."""
 
     NAMES = ("flash_fwd", "flash_bwd", "paged_prefill", "matmul",
              "paged_decode", "paged_latent_prefill", "paged_latent_decode",
@@ -880,6 +900,7 @@ class ParentKernels:
                 raise RuntimeError(f"parent {name}.cu did not build:\n{text}")
             libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
         self.paths = {name: str(out / f"lib{name}.so") for name in libs}
+        self.libs = libs
         P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
         self.fwd = libs["flash_fwd"].flash_fwd
@@ -888,6 +909,17 @@ class ParentKernels:
         self.bwd = libs["flash_bwd"].flash_bwd
         self.bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                              I, F, I, I, F, P]
+        # the key-block entries, where the parent's libraries have them
+        self.fwd_block = getattr(libs["flash_fwd"], "flash_fwd_block", None)
+        self.bwd_block = getattr(libs["flash_bwd"], "flash_bwd_block", None)
+        if self.fwd_block is not None:
+            self.fwd_block.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, F,
+                                       I, I, F, I, P]
+            self.fwd_block.restype = I
+        if self.bwd_block is not None:
+            self.bwd_block.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I,
+                                       I, I, I, I, F, I, I, F, I, P]
+            self.bwd_block.restype = I
         self.prefill = libs["paged_prefill"].paged_prefill
         self.prefill.argtypes = [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                  I, F, I, F, P]
@@ -917,28 +949,73 @@ class ParentKernels:
                    self.latent_dec, self.latent_dec_splits, self.lcs_tab):
             fn.restype = I
 
-    def forward(self, q, k, v, o, lse, causal=True) -> None:
-        """No window or softcap; q's dtype, Sq and Sk from the shapes."""
+    def forward(self, q, k, v, o, lse, causal=True, logit_cap=None) -> None:
+        """No window; q's dtype, Sq and Sk from the shapes."""
         b, sq, hq, d = q.shape
         err = self.fwd(int(q.dtype == torch.bfloat16), q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        lse.data_ptr(), b, sq, k.shape[1], hq, k.shape[2], d,
-                       1 / math.sqrt(d), int(causal), 2 ** 31 - 1, 0.0,
+                       1 / math.sqrt(d), int(causal), 2 ** 31 - 1,
+                       logit_cap or 0.0,
                        torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent flash_fwd", err)
 
     def backward(self, q, k, v, o, lse, d_o, delta, dq, dk, dv,
-                 causal=True) -> None:
-        """No window or softcap; q's dtype, Sq and Sk from the shapes."""
+                 causal=True, logit_cap=None) -> None:
+        """No window; q's dtype, Sq and Sk from the shapes."""
         b, sq, hq, d = q.shape
         err = self.bwd(int(q.dtype == torch.bfloat16), q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        d_o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
                        k.shape[1], hq, k.shape[2], d, 1 / math.sqrt(d),
-                       int(causal), 2 ** 31 - 1, 0.0,
+                       int(causal), 2 ** 31 - 1, logit_cap or 0.0,
                        torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent flash_bwd", err)
+
+    def forward_block(self, q, k, v, o, lse, k_off, causal=True,
+                      window=None, logit_cap=None) -> None:
+        """The parent's ``flash_fwd_block``: o (B, Sq, Hq, D) f32."""
+        b, sq, hq, d = q.shape
+        err = self.fwd_block(
+            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq, k.shape[1],
+            hq, k.shape[2], d, 1 / math.sqrt(d), int(causal),
+            2 ** 31 - 1 if window is None else window, logit_cap or 0.0,
+            k_off, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent flash_fwd_block", err)
+
+    def backward_block(self, q, k, v, o, lse, d_o, delta, dq, dk, dv, k_off,
+                       causal=True, window=None, logit_cap=None) -> None:
+        """The parent's ``flash_bwd_block``: dq (B, Sq, Hq, D) f32."""
+        b, sq, hq, d = q.shape
+        err = self.bwd_block(
+            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+            sq, k.shape[1], hq, k.shape[2], d, 1 / math.sqrt(d), int(causal),
+            2 ** 31 - 1 if window is None else window, logit_cap or 0.0,
+            k_off, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent flash_bwd_block", err)
+
+    @contextlib.contextmanager
+    def flash_libraries(self):
+        """Inside the block the wrappers of kernels 5 and 5b
+        (``kernels.attention``) call the parent's flash libraries instead
+        of the current ones, launch counts and all (their variants as the
+        parent names them): a model step timed through the parent's
+        kernels."""
+        from repro_torch.kernels.build import LIBS, c_function
+
+        saved = {n: LIBS.get(n) for n in ("flash_fwd", "flash_bwd")}
+        try:
+            for n in saved:
+                LIBS._libs[n] = self.libs[n]
+            c_function.cache_clear()
+            yield
+        finally:
+            LIBS._libs.update(saved)
+            c_function.cache_clear()
 
     def prefill_scratch(self, q, k_pages, width, start):
         """The output and f32 split scratch of the parent's prefill."""
@@ -1060,18 +1137,26 @@ class ParentKernels:
 # D, causal)}.  The training shape of full-width qwen3-0.6b (rows 5, 5b);
 # seamless-m4t-medium's cross-attention, Sq 256 target positions against
 # Sk 1024 source frames, no mask (5x, 5bx); zamba2-7b's shared block
-# (5@112, 5b@112).
+# (5@112, 5b@112); gemma2-2b's attention (Hq 8, Hkv 4, D 256) at B 2 x S
+# 4096, causal, its scores capped at 50 as the model caps them (5@256,
+# 5b@256; FLASH_CAPS).
 FLASH_TRAIN_SHAPE = {"": (TRAIN_BATCH, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128,
                           True)}
 FLASH_OWN_SHAPES = {"_cross": (2, 16, 16, 256, 1024, 64, False),
-                    "_d112": (1, 32, 32, 2048, 2048, 112, True)}
+                    "_d112": (1, 32, 32, 2048, 2048, 112, True),
+                    "_d256": (2, 8, 4, 4096, 4096, 256, True)}
+# The softcap of a row's kernels and plain versions: gemma2-2b's
+# softcap_attn.  SDPA has no softcap, so its rows' library time stays
+# uncapped.
+FLASH_CAPS = {"_d256": 50.0}
 
 
 def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
                 parent: ParentKernels | None = None) -> list[dict]:
     """The dense flash pair at each of ``shapes`` (``FLASH_TRAIN_SHAPE``,
     ``FLASH_OWN_SHAPES``), bf16: checked against the plain versions, the
-    backward bitwise equal over two calls (O within FLASH_TOL of
+    backward bitwise equal over two calls, each with its row's softcap
+    (``FLASH_CAPS``; none by default) (O within FLASH_TOL of
     max(1, max |plain|), each of dQ, dK and dV of its own max |plain|),
     then timed.  Kernel times are
     CUDA-graph replays of ``iters`` calls; the plain versions and SDPA
@@ -1096,22 +1181,26 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for tag, (b, hq, hkv, sq, sk, d, causal) in shapes.items():
+        cap = FLASH_CAPS.get(tag)
         q, d_o = (torch.randn(b, sq, hq, d, generator=gen, device="cuda")
                   .to(dtype) for _ in range(2))
         k, v = (torch.randn(b, sk, hkv, d, generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
         o, lse = K._flash_fwd(q, k, v, causal=causal, window=None,
-                              logit_cap=None)
-        grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=causal)
-        again = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=causal)
+                              logit_cap=cap)
+        grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=causal,
+                                      logit_cap=cap)
+        again = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=causal,
+                                      logit_cap=cap)
         assert all(torch.equal(a, c) for a, c in zip(grads, again)), \
             ("flash_attention_bwd is not bitwise reproducible", tag)
         del again
         tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
-        err_f = max_err(o, ref.attention_ref(*tr[:3], causal=causal)
-                        .transpose(1, 2))
+        err_f = max_err(o, ref.attention_ref(*tr[:3], causal=causal,
+                                             logit_cap=cap).transpose(1, 2))
         err_b = max(_own_rel_err(a, w.transpose(1, 2)) for a, w in zip(
-            grads, ref.attention_ref_grad(*tr, causal=causal)))
+            grads, ref.attention_ref_grad(*tr, causal=causal,
+                                          logit_cap=cap)))
         assert err_f <= FLASH_TOL[dtype], ("flash_attention", tag, err_f)
         assert err_b <= FLASH_TOL[dtype], ("flash_attention_bwd", tag, err_b)
         del grads
@@ -1121,9 +1210,9 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
 
         def kernels():
             times["f"].append(time_ms(lambda i: K._flash_fwd(
-                q, k, v, causal=causal, window=None, logit_cap=None), iters))
+                q, k, v, causal=causal, window=None, logit_cap=cap), iters))
             times["b"].append(time_ms(lambda i: K.flash_attention_bwd(
-                q, k, v, o, lse, d_o, causal=causal), iters))
+                q, k, v, o, lse, d_o, causal=causal, logit_cap=cap), iters))
 
         def parent_kernels():
             if not with_parent:
@@ -1132,9 +1221,9 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
                                torch.empty_like(lse))
             g2 = [torch.empty_like(t) for t in (q, k, v)]
             times["pf"].append(time_ms(lambda i: parent.forward(
-                q, k, v, o2, lse2, causal), iters))
+                q, k, v, o2, lse2, causal, cap), iters))
             times["pb"].append(time_ms(lambda i: parent.backward(
-                q, k, v, o, lse, d_o, delta, *g2, causal), iters))
+                q, k, v, o, lse, d_o, delta, *g2, causal, cap), iters))
 
         def kv(gqa):
             return tr[1:3] if gqa else [t.repeat_interleave(hq // hkv, 1)
@@ -1159,9 +1248,9 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
             parent_kernels()
             kernels()
         plain_f = _events_loop_ms(lambda: ref.attention_ref(
-            *tr[:3], causal=causal), 3)
+            *tr[:3], causal=causal, logit_cap=cap), 3)
         plain_b = _events_loop_ms(lambda: ref.attention_ref_grad(
-            *tr, causal=causal), 3)
+            *tr, causal=causal, logit_cap=cap), 3)
         torch.cuda.empty_cache()
         # visible (query, key) pairs: under the causal mask query q sees
         # min(q + 1, Sk) keys
@@ -1184,8 +1273,9 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
                 fl, dtype), _merge_sdpa([t[lib_i] for t in lib]))
             row["ms_turns"] = [t[0] for t in turns]
             row["variant"] = K._flash_variant(src, dtype, d)
+            assert row["variant"] == "wgmma", (name, row["variant"])
             row["shape"] = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "sk": sk,
-                            "d": d, "causal": causal}
+                            "d": d, "causal": causal, "logit_cap": cap}
             if with_parent:
                 pt = times["p" + key]
                 row["parent_ms"] = sum(t[0] for t in pt) / len(pt)
@@ -2411,6 +2501,12 @@ def _sass_by_kernel(path: str) -> dict[str, collections.Counter]:
             # whole-sequence ones, which keep the parent's names
             key = (f"{m[1]}_kernel<{m[2]}"
                    + (", key block>" if m[4] == "1" else ">")) if m else None
+            # the D-256 backward (flash_wgmma256.cuh): "dq_kernel<256>"
+            m = re.search(r"flash_wgmma\d+(dq|dkv)256_kernelILb([01])E",
+                          line)
+            if m:
+                key = (f"{m[1]}_kernel<256"
+                       + (", key block>" if m[2] == "1" else ">"))
             if key:
                 out[key] = collections.Counter()
             continue
@@ -2439,17 +2535,26 @@ def flash_against_parent(parent: ParentKernels,
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.build import LIBS
 
-    sass = {}
+    sass, sass_new = {}, {}
+    kept = ("HGMMA", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "BAR", "SYNCS")
     for lib in ("flash_fwd", "flash_bwd"):
         cur = _sass_by_kernel(LIBS.get(lib)._name)
         par = _sass_by_kernel(parent.paths[lib])
         for name in sorted(cur.keys() & par.keys()):
             ops = {op for op in cur[name] | par[name]
                    if cur[name][op] != par[name][op]}
-            ops |= {"HGMMA", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "BAR",
-                    "SYNCS", "total"}
+            ops |= {*kept, "total"}
             sass[name] = {op: [cur[name][op], par[name][op]]
                           for op in sorted(ops)}
+            # the kernels both hold (D 64, 112, 128) keep their products,
+            # fences and barriers
+            assert all(cur[name][op] == par[name][op] for op in kept), \
+                ("SASS differs from the parent's", name, sass[name])
+        for name in sorted(cur.keys() - par.keys()):
+            sass_new[name] = {op: cur[name][op] for op in (*kept, "total")}
+    for name in ("fwd_kernel<256>", "dq_kernel<256>", "dkv_kernel<256>"):
+        assert not sass_new or sass_new.get(name, {}).get("HGMMA"), \
+            ("no wgmma in the D-256 kernel", name, sass_new)
     (b, hq, hkv, sq, sk, d, causal), = FLASH_TRAIN_SHAPE.values()
     q, d_o = (torch.randn(b, sq, hq, d, generator=gen, device="cuda")
               .to(torch.bfloat16) for _ in range(2))
@@ -2497,22 +2602,25 @@ def flash_against_parent(parent: ParentKernels,
             t = turns[name]
             times[row]["spread" if name == row else "parent_spread"] = (
                 (max(t) - min(t)) / float(np.median(t)))
-    return {"sass": sass, "times": times, "turns": FLASH_PARENT_TURNS,
-            "iters": FLASH_PARENT_ITERS}
+    return {"sass": sass, "sass_d256": sass_new, "times": times,
+            "turns": FLASH_PARENT_TURNS, "iters": FLASH_PARENT_ITERS}
 
 
 def check_flash_same_as_parent(parent: ParentKernels,
                                gen: torch.Generator) -> int:
     """With ``--parent``: the pair at Sq == Sk, causal, is bitwise the
-    parent's (O, the log-sum-exp, dQ, dK and dV) in every family: bf16 at
-    D 16 on the CUDA cores, 64 and 128 on wgmma, 256 on mma.sync (the
-    backward on the CUDA cores), at ragged and whole lengths and G 1, 2 and
-    8; and float32 (the CUDA cores) at D 64 and 128.  Returns the cases
-    checked."""
+    parent's (O, the log-sum-exp, dQ, dK and dV) in every family the
+    parent shares: bf16 at D 16 on the CUDA cores, 64 and 128 on wgmma, at
+    ragged and whole lengths and G 1, 2 and 8; and float32 (the CUDA cores)
+    at D 64 and 128.  (bf16 at D 256 runs ``fwd_kernel<256>`` of
+    ``flash_wgmma.cuh`` and the backward of ``flash_wgmma256.cuh``, which
+    are not the parent's where it predates them: ``check_flash_small`` and
+    the rows hold them to their plain versions.)
+    Returns the cases checked."""
     from repro_torch.kernels.attention import attention as K
 
     cases = [(torch.bfloat16, d, s, g) for d, s, g in itertools.product(
-        (16, 64, 128, 256), (77, 1000, 4096), (1, 2, 8))]
+        (16, 64, 128), (77, 1000, 4096), (1, 2, 8))]
     cases += [(torch.float32, d, s, g) for d, s, g in itertools.product(
         (64, 128), (77, 1000), (1, 8))]
     for dtype, d, s, g in cases:
@@ -2649,7 +2757,8 @@ def check_seq_attention(gen: torch.Generator) -> dict[str, float]:
     return worst
 
 
-def _seq_times(q, k, v, d_o, offs, lens, kw) -> dict[str, dict]:
+def _seq_times(q, k, v, d_o, offs, lens, kw,
+               parent: ParentKernels | None = None) -> dict[str, dict]:
     """Rows 5s and 5bs's numbers on q, k, v, d_o (train_4k's global layer
     cut at offs, lens): for each entry the time of the block of rank 0
     (keys 0-255, which every query sees) and of the last rank (keys
@@ -2657,7 +2766,10 @@ def _seq_times(q, k, v, d_o, offs, lens, kw) -> dict[str, dict]:
     on rank 0's block; SDPA (and its backward) on rank 0's block under the
     block's boolean mask (no softcap: SDPA has none), each backend pinned;
     the bounds from the block formula (``kernels.work``) for both ranks.
-    The entries run at the merged O and lse of ``seq_attention``."""
+    The entries run at the merged O and lse of ``seq_attention``.  Given
+    ``parent`` (with its key-block entries), the parent's entries on the
+    same blocks in turns with the current ones (kernel, parent, parent,
+    kernel), each time the mean of its two turns."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ref
 
@@ -2675,7 +2787,8 @@ def _seq_times(q, k, v, d_o, offs, lens, kw) -> dict[str, dict]:
     for name, src, fl_fn in (
             ("flash_attention_block", "flash_fwd", W.flash_fwd_work),
             ("flash_attention_block_bwd", "flash_bwd", W.flash_bwd_work)):
-        times = {}
+        times, parent_times = {}, {}
+        with_parent = parent is not None and parent.bwd_block is not None
         for rank, off, n in ((0, offs[0], lens[0]),
                              (len(offs) - 1, offs[-1], lens[-1])):
             kb, vb = (t[:, off:off + n].contiguous() for t in (k, v))
@@ -2685,7 +2798,27 @@ def _seq_times(q, k, v, d_o, offs, lens, kw) -> dict[str, dict]:
             else:
                 call = lambda i: K.flash_attention_block_bwd(  # noqa: E731
                     q, kb, vb, out, lse, d_o, k_off=off, **kw)
-            times[rank] = time_ms(call, FLASH_ITERS)
+            if not with_parent:
+                times[rank] = time_ms(call, FLASH_ITERS)
+                torch.cuda.empty_cache()
+                continue
+            o2 = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+            lse2 = torch.empty_like(lse)
+            g2 = [o2, torch.empty_like(kb), torch.empty_like(vb)]
+            if src == "flash_fwd":
+                p_call = lambda i: parent.forward_block(  # noqa: E731
+                    q, kb, vb, o2, lse2, off, **kw)
+            else:
+                p_call = lambda i: parent.backward_block(  # noqa: E731
+                    q, kb, vb, out, lse, d_o, lse2, *g2, off, **kw)
+            turns = collections.defaultdict(list)
+            for who in ("k", "p", "p", "k"):
+                turns[who].append(time_ms(call if who == "k" else p_call,
+                                          FLASH_ITERS))
+            times[rank] = tuple(sum(t[i] for t in turns["k"]) / 2
+                                for i in range(2))
+            parent_times[rank] = sum(t[0] for t in turns["p"]) / 2
+            del o2, lse2, g2
             torch.cuda.empty_cache()
         kb, vb = (t[:, :lens[0]].contiguous() for t in (k, v))
         if src == "flash_fwd":
@@ -2722,20 +2855,24 @@ def _seq_times(q, k, v, d_o, offs, lens, kw) -> dict[str, dict]:
                      "plain_ms": plain, "sdpa": lib, "work": work,
                      "bound_ms_last_rank": _bound(work[1][1], work[1][0],
                                                   q.dtype)[0]}
+        if parent_times:
+            got[name]["parent_ms"] = parent_times[0]
+            got[name]["parent_ms_last_rank"] = parent_times[len(offs) - 1]
     return got
 
 
-def seq_attention_phase(gen: torch.Generator, smi: str
+def seq_attention_phase(gen: torch.Generator, smi: str,
+                        parent: ParentKernels | None = None
                         ) -> tuple[list[dict], dict[str, int]]:
     """Sequence-parallel attention on the card: ``check_seq_attention``,
     then the main path, ``seq_attention`` forward and backward at
     train_4k's global layer (bf16) cut into 16 blocks, with the block
     entries' counts zeroed just before and read just after (16 launches
-    of each, the forward on ``mma_sync`` and the backward on
-    ``cuda_cores`` at D 256), then rows 5s and 5bs (``_seq_times``) at
-    B 1 and, under "b16", at the B 16 that each rank of the 16 x 16 mesh
-    holds at train_4k (256 sequences over dp 16).  Returns the rows and
-    their launches."""
+    of each, both on ``wgmma`` at D 256), then rows 5s and 5bs
+    (``_seq_times``, with the parent's entries beside them given
+    ``parent``) at B 1 and, under "b16", at the B 16 that each rank of the
+    16 x 16 mesh holds at train_4k (256 sequences over dp 16).  Returns the
+    rows and their launches."""
     from repro_torch.kernels.attention import attention as K
 
     worst = check_seq_attention(gen)
@@ -2766,11 +2903,11 @@ def seq_attention_phase(gen: torch.Generator, smi: str
                 dict(K.flash_attention_block_bwd.variants)]
     log(f"[seq] main path (bf16, S {s}, {len(offs)} key blocks): launches "
         f"{json.dumps(launches)}, variants {json.dumps(variants)}")
-    assert variants == [{"mma_sync": len(offs)}, {"cuda_cores": len(offs)}]
-    one = _seq_times(q, k, v, d_o, offs, lens, kw)
+    assert variants == [{"wgmma": len(offs)}, {"wgmma": len(offs)}]
+    one = _seq_times(q, k, v, d_o, offs, lens, kw, parent)
     del q, k, v, d_o
     torch.cuda.empty_cache()
-    b16 = _seq_times(*draw(SEQ_TRAIN_B), offs, lens, kw)
+    b16 = _seq_times(*draw(SEQ_TRAIN_B), offs, lens, kw, parent)
     torch.cuda.empty_cache()
     rows = []
     for name, t in one.items():
@@ -2782,6 +2919,9 @@ def seq_attention_phase(gen: torch.Generator, smi: str
             dtype), t["sdpa"])
         row["ms_last_rank"] = t["ms_last_rank"]
         row["bound_ms_last_rank"] = t["bound_ms_last_rank"]
+        for key in ("parent_ms", "parent_ms_last_rank"):
+            if key in t:
+                row[key] = t[key]
         row["variant"] = K._flash_variant(t["src"], dtype, g["d"])
         row["shape"] = {"b": g["b"], "hq": g["hq"], "hkv": g["hkv"],
                         "sq": s, "blocks": len(offs), "block": lens[0],
@@ -2797,6 +2937,9 @@ def seq_attention_phase(gen: torch.Generator, smi: str
                       "bound_ms": _bound(t["work"][0][1], t["work"][0][0],
                                          dtype)[0],
                       "bound_ms_last_rank": t["bound_ms_last_rank"]}
+        for key in ("parent_ms", "parent_ms_last_rank"):
+            if key in t:
+                row["b16"][key] = t[key]
         log(f"[seq] {name} at B {SEQ_TRAIN_B}: {json.dumps(row['b16'])}; "
             f"{smi}")
         rows.append(row)
@@ -3237,13 +3380,14 @@ def train_step_parity(cfg, seed: int, batch: int = TRAIN_BATCH,
 
 
 def train_family(cfg, seed: int, smi: str, batch: int, seq: int,
-                 src_len: int = 0) -> dict:
+                 src_len: int = 0, check_counts: bool = True) -> dict:
     """``Trainer`` (the code ``launch.train`` runs) on a new family's
     training cell: FAMILY_TRAIN_STEPS steps at B ``batch`` x S ``seq`` (and
     ``src_len`` source frames), remat on, AdamW with the launcher's
     defaults.  Every step's loss finite; the flash kernels' counts zeroed
     just before and read just after, those of the steps with remat
-    (``_train_flash_counts``)."""
+    (``_train_flash_counts``) unless ``check_counts`` is off (the parent's
+    kernels name other variants)."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import param_count
     from repro_torch.optim import AdamWConfig
@@ -3273,7 +3417,41 @@ def train_family(cfg, seed: int, smi: str, batch: int, seq: int,
     del params, state, trainer
     torch.cuda.empty_cache()
     assert all(math.isfinite(x) for x in result["loss"]), result
-    assert counts == _train_flash_counts(cfg, FAMILY_TRAIN_STEPS), result
+    if check_counts:
+        assert counts == _train_flash_counts(cfg, FAMILY_TRAIN_STEPS), result
+    return result
+
+
+# gemma2-2b's training cell (phase 9d): full width, 2 of its 26 layers (a
+# local one, window 4096, and a global one), B 1 x S 4096, bf16: the path
+# of kernels 5 and 5b at D 256 (rows 5@256 and 5b@256)
+GEMMA_TRAIN = {"batch": 1, "seq": 4096}
+GEMMA_TRAIN_LAYERS = 2
+
+
+def gemma2_train(seed: int, smi: str,
+                 parent: ParentKernels | None = None) -> dict:
+    """gemma2-2b at GEMMA_TRAIN_LAYERS layers: one loss-and-gradient
+    evaluation through the kernels against the plain path
+    (``train_step_parity``, TRAIN_PARITY_TOL, the flash counts all
+    ``wgmma``), then ``Trainer`` steps (``train_family``), and, given
+    ``parent``, the same steps through the parent's flash libraries (its
+    D-256 kernels) for their step times.  Returns the current steps'
+    result, the parent's step times under "parent_step_time_s"."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch("gemma2-2b"),
+                              n_layers=GEMMA_TRAIN_LAYERS)
+    train_step_parity(cfg, seed, **GEMMA_TRAIN)
+    result = train_family(cfg, seed, smi, **GEMMA_TRAIN)
+    if parent is not None:
+        with parent.flash_libraries():
+            theirs = train_family(cfg, seed, smi, check_counts=False,
+                                  **GEMMA_TRAIN)
+        result["parent_step_time_s"] = theirs["step_time_s"]
+        result["parent_flash"] = theirs["flash"]
+        log(f"[gemma2-train] step time s: kernels {result['step_time_s']}, "
+            f"parent's kernels {theirs['step_time_s']}; card: {smi}")
     return result
 
 
@@ -4510,7 +4688,8 @@ def main() -> int:
         f"{LIBS.build_seconds:.1f}s")
     for lib, text in sorted(LIBS.ptxas_log.items()):
         for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "serialized")):
                 log(f"[build] {lib}: {line.strip()}")
     counts = sass_counts(("flash_fwd", "flash_bwd", "paged_prefill",
                           "paged_latent_prefill", "matmul"),
@@ -4558,7 +4737,8 @@ def main() -> int:
     # their own
     with phase("seq_attention"):
         seq_rows, seq_launches = seq_attention_phase(
-            torch.Generator(device="cuda").manual_seed(args.seed + 3), smi)
+            torch.Generator(device="cuda").manual_seed(args.seed + 3), smi,
+            parent)
         rows += seq_rows
     with phase("verify_kernels"):
         verify_rows, verify_worst = bench_verify_kernels(gen, ITERS)
@@ -4803,6 +4983,14 @@ def main() -> int:
         launches["flash_attention_bwd_d112"] = \
             result["flash"]["backward"]["launches"]
         train_family(get_arch("mamba2-780m"), args.seed, smi, **SSM_TRAIN)
+
+    # 9d. gemma2-2b trains through kernels 5 and 5b at D 256
+    with phase("gemma2 train"):
+        result = gemma2_train(args.seed, smi, parent)
+        launches["flash_attention_d256"] = \
+            result["flash"]["forward"]["launches"]
+        launches["flash_attention_bwd_d256"] = \
+            result["flash"]["backward"]["launches"]
 
     # 10. the paper's PACO algorithms at full size, through the matmul and
     # LCS kernels

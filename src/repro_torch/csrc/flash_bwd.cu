@@ -40,8 +40,11 @@
 // with TMA loads, a producer warp and a persistent grid (dq_kernel and
 // dkv_kernel in flash_wgmma.cuh: 128 query rows per CTA over 64-key
 // tiles, 128 keys per CTA over 64-query tiles); bf16 with D 112 runs them
-// padded to 128 (flash_wgmma.cuh says how); float32 and other widths on
-// CUDA cores (below), bound by shared-memory traffic.
+// padded to 128 (flash_wgmma.cuh says how); bf16 with D 256 on wgmma
+// with tiles of its own (dq256_kernel and dkv256_kernel in
+// flash_wgmma256.cuh: 128 query rows over 32-key tiles, 64 keys per CTA
+// whose two warpgroups split the four products); float32 and other widths
+// on CUDA cores (below), bound by shared-memory traffic.
 // Both walk only the tiles the masks leave, and mask the ragged last
 // tile.
 //
@@ -55,7 +58,7 @@
 
 #include <type_traits>
 
-#include "flash_wgmma.cuh"
+#include "flash_wgmma256.cuh"
 
 namespace {
 
@@ -518,6 +521,11 @@ int run_bwd(int dtype, const void* q, const void* k, const void* v,
             q, k, v, d_o, lse, delta, dq, dk, dv, batch, sq, sk, hq, hkv,
             scale, causal, window, softcap, k_off, st);
       }, (int)cudaErrorInvalidValue);
+    if (d == flash_wgmma::kD256)
+      return flash_wgmma::launch_bwd256<KB>(q, k, v, d_o, lse, delta, dq, dk,
+                                            dv, batch, sq, sk, hq, hkv, scale,
+                                            causal, window, softcap, k_off,
+                                            st);
     return launch_type<__nv_bfloat16, KB>(q, k, v, d_o, lse, delta, dq, dk,
                                           dv, batch, sq, sk, hq, hkv, d,
                                           scale, causal, window, softcap,
@@ -541,9 +549,12 @@ int flash_bwd_max_d() { return 256; }
 
 // The kernels flash_bwd launches after delta_kernel for this dtype and D:
 // 0 CUDA cores (flash_dq_kernel, flash_dkv_kernel), 2 wgmma
-// (flash_wgmma.cuh), numbered as flash_fwd_variant.
+// (flash_wgmma.cuh at D 64, 112 and 128, flash_wgmma256.cuh at D 256),
+// numbered as flash_fwd_variant.
 int flash_bwd_variant(int dtype, int d) {
-  return dtype == 1 && flash_wgmma::takes(d) ? 2 : 0;
+  return dtype == 1 && (flash_wgmma::takes(d) || d == flash_wgmma::kD256)
+             ? 2
+             : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, o, d_o as in the forward

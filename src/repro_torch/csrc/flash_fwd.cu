@@ -30,14 +30,14 @@
 //    window's start for its first row to its last row's position under the
 //    causal mask (or to Sk), so wholly masked tiles are never loaded; the
 //    ragged last tile (any Sk) is masked key by key;
-//  * bf16 with D 64, 112 or 128 runs on wgmma with TMA loads, a producer
-//    warp and a persistent grid (fwd_kernel in flash_wgmma.cuh: 128 query
-//    rows per CTA, 128-key tiles; D 112 padded to 128 in shared memory,
-//    its last 16 columns zero-filled by TMA); bf16 with D 256 on mma.sync
-//    m16n8k16 (fwd_kernel in flash_mma.cuh); both with f32 accumulation
-//    and the softmax in the log2 domain.  float32 and other widths run the
-//    products on CUDA cores (flash_fwd_kernel below), bound by
-//    shared-memory traffic.
+//  * bf16 with D 64, 112, 128 or 256 runs on wgmma with TMA loads, a
+//    producer warp and a persistent grid (fwd_kernel in flash_wgmma.cuh:
+//    128 query rows per CTA, 128-key tiles; D 112 padded to 128 in shared
+//    memory, its last 16 columns zero-filled by TMA; D 256 with 64-key
+//    tiles and O through shared memory, FwdTraits there), with f32
+//    accumulation and the softmax in the log2 domain.  float32 and
+//    other widths run the products on CUDA cores (flash_fwd_kernel below),
+//    bound by shared-memory traffic.
 //
 // Masking: the TPU kernel's finite -1e30 is the initial max, and a masked
 // key weighs 0 (not exp(0)), so no row ever meets exp(-inf - -inf) = NaN.
@@ -287,10 +287,10 @@ int run_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
             q, k, v, o, lse, batch, sq, sk, hq, hkv, scale, causal, window,
             softcap, k_off, st);
       }, (int)cudaErrorInvalidValue);
-    if (d == 256)
-      return flash_mma::launch_fwd_d<256, KB>(q, k, v, o, lse, batch, sq, sk,
-                                              hq, hkv, scale, causal, window,
-                                              softcap, k_off, st);
+    if (d == flash_wgmma::kD256)
+      return flash_wgmma::launch_fwd_d<flash_wgmma::kD256, KB>(
+          q, k, v, o, lse, batch, sq, sk, hq, hkv, scale, causal, window,
+          softcap, k_off, st);
     return launch_type<__nv_bfloat16, KB>(q, k, v, o, lse, batch, sq, sk, hq,
                                           hkv, d, scale, causal, window,
                                           softcap, k_off, st);
@@ -312,12 +312,13 @@ int flash_fwd_max_g() { return kRows; }
 int flash_fwd_max_d() { return 256; }
 
 // The kernel flash_fwd launches for this dtype and D: 0 CUDA cores
-// (flash_fwd_kernel), 1 mma.sync (flash_mma.cuh), 2 wgmma
-// (flash_wgmma.cuh).
+// (flash_fwd_kernel), 2 wgmma (flash_wgmma.cuh's fwd_kernel at D 64, 112,
+// 128 and 256), numbered as the other libraries' families
+// (1 is mma.sync).
 int flash_fwd_variant(int dtype, int d) {
-  if (dtype != 1) return 0;
-  if (flash_wgmma::takes(d)) return 2;
-  return d == 256 ? 1 : 0;
+  return dtype == 1 && (flash_wgmma::takes(d) || d == flash_wgmma::kD256)
+             ? 2
+             : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  sq query and sk key positions per

@@ -1,6 +1,7 @@
-// Dense flash attention for Hopper: the bf16 forward and backward at D 64,
-// 112 and 128 on wgmma, with TMA loads, a producer warp and a persistent
-// grid.
+// Dense flash attention for Hopper: the bf16 forward at D 64, 112, 128 and
+// 256 and backward at D 64, 112 and 128 on wgmma, with TMA loads, a
+// producer warp and a persistent grid (flash_wgmma256.cuh has the backward
+// at D 256).
 //
 // Replaces src/repro/kernels/attention/attention.py:72
 // flash_attention_pallas (fwd_kernel), and for the backward its gradient
@@ -46,6 +47,11 @@
 //    box's zero-filled bytes, as it does for rows past S).  The epilogues
 //    store the 112 true columns at a 112-element row stride.  It costs
 //    128 / 112 = 1.14 times the products the true width needs;
+//  * D 256 (gemma2-2b) runs the forward with tiles of its own
+//    (FwdTraits<256>): each warpgroup holds a 64 x 256 f32 O (128
+//    registers a thread), so it walks 64-key tiles (S 32 registers, P 16 as
+//    bf16), takes 240 registers a consumer thread, and writes O through
+//    shared memory (the epilogue staging below) in 16-byte stores;
 //  * TMA zero-fills rows past Sq (queries) or Sk (keys: the K and V maps
 //    span Sk rows a batch element, which a cross-attention sets apart from
 //    Sq), so the ragged last tile needs no predicated loads (the mask
@@ -285,6 +291,25 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int ks) {
   return sw128_desc(tile + ks * 16 * 128, rows * 128);
 }
 
+// d (64 x 32, f32) {=, +=} A (64 x 16) B^T (B 32 x 16), both bf16 from
+// shared memory through K-major descriptors.
+__device__ __forceinline__ void mma_ss_n32(float* d, uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64, f32) {=, +=} A (64 x 16) B^T (B 64 x 16), both bf16 from
 // shared memory through K-major descriptors.
 __device__ __forceinline__ void mma_ss_n64(float* d, uint64_t da, uint64_t db,
@@ -404,6 +429,69 @@ __device__ __forceinline__ void mma_rs_n128(float* d, const unsigned* a,
 }
 
 
+// d (64 x 256, f32) += A (64 x 16, bf16 in registers: a[4] per thread, the
+// accumulator layout of a product packed in pairs) B (16 x 256, bf16 in
+// shared memory through an MN-major descriptor: the transpose bit).
+__device__ __forceinline__ void mma_rs_n256(float* d, const unsigned* a,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 // d (64 x 256, f32) += A (64 x 16) B (16 x 256): A K-major and B MN-major
 // (the transpose bit), both bf16 from shared memory through descriptors.
 __device__ __forceinline__ void mma_ss_n256_tb(float* d, uint64_t da,
@@ -468,7 +556,9 @@ __device__ __forceinline__ void mma_ss_n256_tb(float* d, uint64_t da,
 template <int N>
 __device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db,
                                        int accumulate) {
-  if constexpr (N == 64)
+  if constexpr (N == 32)
+    mma_ss_n32(d, da, db, accumulate);
+  else if constexpr (N == 64)
     mma_ss_n64(d, da, db, accumulate);
   else
     mma_ss_n128(d, da, db, accumulate);
@@ -479,8 +569,10 @@ __device__ __forceinline__ void mma_rs(float* d, const unsigned* a,
                                        uint64_t db) {
   if constexpr (N == 64)
     mma_rs_n64(d, a, db, 1);
-  else
+  else if constexpr (N == 128)
     mma_rs_n128(d, a, db, 1);
+  else
+    mma_rs_n256(d, a, db, 1);
 }
 
 // d (64 x N) {=, +=} the 64 rows from row0 of tile a (R_A rows) times the
@@ -633,16 +725,156 @@ __device__ __forceinline__ Rows rows_of(int r0, int c0, int g_n, int bq,
 }
 
 // ---------------------------------------------------------------------------
+// epilogue staging (D 256)
+// ---------------------------------------------------------------------------
+
+// At D 256 the forward's O and the dQ pass's dQ go out through shared
+// memory: a warpgroup writes its accumulator, row-scaled, into 64-row x
+// 128-byte pieces whose 16-byte units are swizzled by the row (unit u of
+// row r at u ^ (r % 8), so neither the fragment writes nor the row reads
+// conflict), then copies each row out in 16-byte stores, 128 contiguous
+// bytes for every 8 threads.
+
+constexpr int kD256 = 256;
+constexpr int kPiece = 64 * 128;   // an epilogue piece: 64 rows x 128 bytes
+
+__device__ __forceinline__ void st_shared_pair(uint32_t addr, float a,
+                                               float b, float) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a),
+               "f"(b)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared_pair(uint32_t addr, float a,
+                                               float b, bf16) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+               "r"(flash_mma::pack_bf16(a, b))
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Columns of T a piece row holds: 32 f32 or 64 bf16.
+template <class T>
+constexpr int kPieceCols = 128 / (int)sizeof(T);
+
+// Byte offset of 16-byte unit u of row rl in a piece (the row's swizzle).
+__device__ __forceinline__ uint32_t piece_at(int rl, int u) {
+  return rl * 128 + ((u ^ (rl & 7)) << 4);
+}
+
+// Piece p of a warpgroup's 64 x 256 accumulator (columns p kPieceCols<T>
+// ..), each row times mul[hh], into the piece at `piece`: this thread's
+// rows g and g + 8 of its warp's 16, columns 8 nt + 2 (lane % 4) and the
+// next.  Called in unrolled loops, so that p is a constant and acc stays
+// in registers.
+template <class T>
+__device__ __forceinline__ void stage_piece(uint32_t piece, const float* acc,
+                                            int p, const float* mul,
+                                            int warp, int lane) {
+  constexpr int NT = kPieceCols<T> / 8;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rl = warp * 16 + g + 8 * hh;
+      const int byte = (j * 8 + 2 * t4) * (int)sizeof(T);
+      const int nt = p * NT + j;
+      st_shared_pair(piece + piece_at(rl, byte >> 4) + (byte & 15),
+                     acc[4 * nt + 2 * hh] * mul[hh],
+                     acc[4 * nt + 2 * hh + 1] * mul[hh], T{});
+    }
+}
+
+// 16-byte unit u of the piece's columns col0 .. of output row orow.
+template <class T>
+__device__ __forceinline__ void store_unit(T* out, long long orow, int col0,
+                                           int u, uint4 v) {
+  *reinterpret_cast<uint4*>(out + orow * kD256 + col0 +
+                            u * (16 / (int)sizeof(T))) = v;
+}
+
+// Piece p out to its columns of the warpgroup's rows: thread t copies unit
+// t % 8 of rows (t / 8) + 16 i, orow[i] being that row's index into the
+// (.., 256) output, or -1 where the row is not stored.
+template <class T>
+__device__ __forceinline__ void copy_piece(uint32_t piece, T* out, int p,
+                                           const long long* orow, int tid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rl = (tid >> 3) + 16 * i, u = tid & 7;
+    if (orow[i] < 0) continue;
+    store_unit(out, orow[i], p * kPieceCols<T>, u,
+               ld_shared16(piece + piece_at(rl, u)));
+  }
+}
+
+// The output rows of the query block at c0 (position-major over G heads)
+// that thread tid of warpgroup wg copies (see stage_piece): row r of the
+// CTA is head h G + r % G at position c0 + r / G.
+__device__ __forceinline__ void out_rows(long long* orow, int wg, int tid,
+                                         int c0, int g_n, int bq, int sq,
+                                         int hq, const Item& w) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 64 * wg + (tid >> 3) + 16 * i;
+    const int pos = c0 + r / g_n;
+    orow[i] = r < g_n * bq && pos < sq
+                  ? ((long long)w.b * sq + pos) * hq + w.h * g_n + r % g_n
+                  : -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
+
+// What the forward's shape takes at the width D it multiplies: keys a
+// tile, the registers setmaxnreg gives the producer's warpgroup and the
+// consumers, the softcap's tanh (FAST: flash_mma::score_log2_fast) and the
+// epilogue (STAGED: O through shared-memory pieces, kOut bytes of them;
+// else straight from the accumulator fragments).
+template <int D>
+struct FwdTraits {
+  static constexpr int kTk = kTkFwd;
+  static constexpr int kProducerRegs = ::flash_wgmma::kProducerRegs;
+  static constexpr int kConsumerRegs = ::flash_wgmma::kConsumerRegs;
+  static constexpr bool kFast = false, kStaged = false;
+  static constexpr int kOut = 0;
+};
+
+// D 256 (gemma2-2b): 64-key tiles, so that S is 32 registers and P 16
+// beside a 64 x 256 f32 O of 128; 240 registers a consumer thread and 24
+// for the producer's warpgroup (2 x 128 x 240 + 128 x 24 = 64,512 of
+// 65,536); shared memory Q 64 KB + two stages of K + V at 64 KB + two
+// pieces a warpgroup (32 KB) = 224 KB.  The f32 O of a key block
+// (128 x 256 x 4 = 128 KB a CTA) goes out in 16-byte stores, 128
+// contiguous bytes for every 8 threads, where the fragment-wise stores
+// wrote 8 bytes at a time.
+template <>
+struct FwdTraits<kD256> {
+  static constexpr int kTk = 64;
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static constexpr bool kFast = true, kStaged = true;
+  static constexpr int kOut = kConsumers * 2 * kPiece;
+};
 
 template <int D>
 struct FwdSmem {
   static constexpr int kQ = 0;                       // kRows x D
-  static constexpr int kTile = kTkFwd * D * 2;       // one K or V tile
+  static constexpr int kTile = FwdTraits<D>::kTk * D * 2;   // a K or V tile
   static constexpr int kK = kQ + kRows * D * 2;      // kStages K tiles
   static constexpr int kV = kK + kStages * kTile;    // kStages V tiles
-  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kOut = kV + kStages * kTile;  // the staged epilogue's
+  static constexpr int kBar = kOut + FwdTraits<D>::kOut;
   // q_full, q_empty, then k_full, v_full, k_empty, v_empty per stage
   static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages) + 1024;
 };
@@ -659,7 +891,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
            int causal, int window, float softcap, int k_off) {
   constexpr int D = padded(DT);
   using L = FwdSmem<D>;
-  constexpr int TK = kTkFwd;
+  using Tr = FwdTraits<D>;
+  constexpr int TK = Tr::kTk;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = aligned_smem_base(smem_raw);
   const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
@@ -687,7 +920,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // ---- producer: one thread issues every load
-    regs_dealloc<kProducerRegs>();
+    regs_dealloc<Tr::kProducerRegs>();
     if (threadIdx.x != kConsumers * 128) return;
     prefetch_map(&q_map);
     prefetch_map(&k_map);
@@ -734,7 +967,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   // ---- consumers: warpgroup wg holds rows 64 wg .. 64 wg + 63
-  regs_alloc<kConsumerRegs>();
+  regs_alloc<Tr::kConsumerRegs>();
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int t4 = lane & 3;
   const int r0 = wg * 64 + warp * 16 + (lane >> 2);
@@ -769,13 +1002,13 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         auto sc = reinterpret_cast<float(*)[4]>(s);
         if (n == TK && flash_mma::all_visible(rw.p_min, rw.p_max, t0,
                                               t0 + TK - 1, causal, window))
-          flash_mma::online_softmax<false, TK / 8>(sc, m, alpha, rs, rw.pos, t0,
-                                                   n, scale, softcap, causal,
-                                                   window, t4);
+          flash_mma::online_softmax<false, TK / 8, Tr::kFast>(
+              sc, m, alpha, rs, rw.pos, t0, n, scale, softcap, causal,
+              window, t4);
         else
-          flash_mma::online_softmax<true, TK / 8>(sc, m, alpha, rs, rw.pos, t0,
-                                                  n, scale, softcap, causal,
-                                                  window, t4);
+          flash_mma::online_softmax<true, TK / 8, Tr::kFast>(
+              sc, m, alpha, rs, rw.pos, t0, n, scale, softcap, causal,
+              window, t4);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
           l[hh] = l[hh] * alpha[hh] + flash_mma::quad_sum(rs[hh]);
@@ -837,17 +1070,42 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       if (lane == 0) mbar_arrive(v_empty + 8 * v_stage);
     }
 
+    if constexpr (Tr::kStaged) {
+      // O through the group's two pieces, two pieces a round (four rounds
+      // for an f32 O, two for bf16)
+      using T = OutT<KB>;
+      const int tid = threadIdx.x & 127;
+      const uint32_t staging = base + L::kOut + wg * 2 * kPiece;
+      const float inv[2] = {1.f / fmaxf(l[0], 1e-30f),
+                            1.f / fmaxf(l[1], 1e-30f)};
+      long long orow[4];
+      out_rows(orow, wg, tid, c0, g_n, bq, sq, hq, w);
+#pragma unroll
+      for (int rd = 0; rd < D / kPieceCols<T> / 2; ++rd) {
+        bar_sync(1 + wg, 128);   // the last round's copies have read them
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+          stage_piece<T>(staging + h2 * kPiece, acc, 2 * rd + h2, inv, warp,
+                         lane);
+        bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+          copy_piece<T>(staging + h2 * kPiece, o, 2 * rd + h2, orow, tid);
+      }
+    }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (!rw.live[hh]) continue;
       const int head = w.h * g_n + rw.r[hh] % g_n;
       const int pos = rw.pos[hh] + shift;
-      const long long orow = ((long long)w.b * sq + pos) * hq + head;
-      const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+      if constexpr (!Tr::kStaged) {
+        const long long orow = ((long long)w.b * sq + pos) * hq + head;
+        const float inv = 1.f / fmaxf(l[hh], 1e-30f);
 #pragma unroll
-      for (int nt = 0; nt < DT / 8; ++nt)   // the true columns only
-        store2(o + orow * DT + nt * 8 + 2 * t4, acc[4 * nt + 2 * hh] * inv,
-               acc[4 * nt + 2 * hh + 1] * inv);
+        for (int nt = 0; nt < DT / 8; ++nt)   // the true columns only
+          store2(o + orow * DT + nt * 8 + 2 * t4, acc[4 * nt + 2 * hh] * inv,
+                 acc[4 * nt + 2 * hh + 1] * inv);
+      }
       if (t4 == 0)   // m is in the log2 domain; a row of a key block that
                      // saw no key has weight 0 in the merge
         lse[((long long)w.b * hq + head) * sq + pos] =
@@ -1395,9 +1653,9 @@ inline int key_limit(int sq, int sk, int causal, int k_off) {
   return causal ? max(0, min(sq - k_off, sk)) : sk;
 }
 
-// DT: the tensors' head_dim (64, 112 or 128); the maps span its columns,
-// so a padded kernel's last box is zero-filled past them.  KB: the keys
-// are a block at k_off, O is f32.
+// DT: the tensors' head_dim (64, 112, 128 or 256); the maps span its
+// columns, so a padded kernel's last box is zero-filled past them.  KB:
+// the keys are a block at k_off, O is f32.
 template <int DT, bool KB>
 int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
                  float* lse, int batch, int sq, int sk, int hq, int hkv,
@@ -1410,8 +1668,9 @@ int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
   const int g_n = hq / hkv, bq = kRows / g_n;
   CUtensorMap qm, km, vm;
   if (!map_bshd(&qm, q, batch, sq, hq, DT, g_n, bq) ||
-      !map_bshd(&km, k, batch, sk, hkv, DT, 1, kTkFwd) ||
-      !map_bshd(&vm, v, batch, sk, hkv, DT, 1, kTkFwd))
+      !map_bshd(&km, k, batch, sk, hkv, DT, 1,
+                FwdTraits<padded(DT)>::kTk) ||
+      !map_bshd(&vm, v, batch, sk, hkv, DT, 1, FwdTraits<padded(DT)>::kTk))
     return (int)cudaErrorInvalidValue;
   const long long n_items = (long long)((sq + bq - 1) / bq) * hkv * batch;
   if (n_items == 0) return 0;

@@ -13,15 +13,17 @@ What bounds them on the card: operations, at 989 TFLOP/s bf16.  The
 causal forward does 4 B Hq S^2 D / 2 flops (0.139 ms at B 2, Hq 16, S
 4096, D 128); the backward does 3.5 times that, since it recomputes two
 products to keep dQ free of atomics.  Their design
-against that bound: bf16 at D 64, 112 (padded to 128 in shared memory) and
-128 runs every product on ``wgmma`` with TMA loads, a producer warp and a
-persistent grid (``csrc/flash_wgmma.cuh``), bf16 at D 256 on ``mma.sync``
-(``csrc/flash_mma.cuh``); each K/V tile is shared by the G query heads of
-its kv head, and only the tiles the causal and window masks leave are
-walked (each source's header says more).  Besides ``launches``, each of
-the two wrappers counts its launches by kernel family in ``variants``
-(``"wgmma"``, ``"mma_sync"``, ``"cuda_cores"``), as the library reports
-the family it takes for the dtype and D.
+against that bound: bf16 at D 64, 112 (padded to 128 in shared memory),
+128 and 256 runs every product on ``wgmma`` with TMA loads, a producer
+warp and a persistent grid (``csrc/flash_wgmma.cuh``; at D 256, gemma2-2b's
+width, with tiles of its own, and a backward whose work is divided anew,
+``csrc/flash_wgmma256.cuh``); float32 and other widths run on the CUDA
+cores.  Each K/V tile is shared by the G query heads of its kv head, and
+only the tiles the causal and window masks leave are walked (each source's
+header says more).  Besides ``launches``, each of the two wrappers counts
+its launches by kernel family in ``variants`` (``"wgmma"`` or
+``"cuda_cores"``), as the library reports the family it takes for the
+dtype and D.
 
 Sequence-parallel attention (``repro``'s cut of the key sequence, where
 the model axis divides neither head count): ``flash_attention_block`` and

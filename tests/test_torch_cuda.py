@@ -777,7 +777,7 @@ BLOCK_FAMILIES = [(torch.float32, 64, 2, "cuda_cores", "cuda_cores"),
                   (torch.bfloat16, 64, 2, "wgmma", "wgmma"),
                   (torch.bfloat16, 112, 1, "wgmma", "wgmma"),
                   (torch.bfloat16, 128, 2, "wgmma", "wgmma"),
-                  (torch.bfloat16, 256, 2, "mma_sync", "cuda_cores")]
+                  (torch.bfloat16, 256, 2, "wgmma", "wgmma")]
 # (Sq, Sk, masks): causal, gemma2's window and softcap (rows that see no
 # key in most blocks), a non-causal cross-attention with Sq != Sk
 BLOCK_CASES = [(300, 300, {"causal": True}),
@@ -876,19 +876,21 @@ def test_family_forwards_take_the_flash_kernel(cuda, arch, launches):
             assert _err(lg, want[:, -1]) <= 1e-4
 
 
-# bf16 at D 64, 112 (padded to 128) and 128 takes the wgmma kernels: the
-# training length, ragged lengths, G 1, 2, 6 (rows of the 128 left unused)
-# and 8; zamba2's shared block at D 112 and S 2048
+# bf16 at D 64, 112 (padded to 128), 128 and 256 takes the wgmma kernels:
+# the training length, ragged lengths, G 1, 2, 6 (rows of the 128 left
+# unused) and 8; zamba2's shared block at D 112 and S 2048; gemma2-2b's
+# D 256 (its own tiles) at G 1, 2 and 8
 WGMMA_GEOMS = [(2, 128, 4096), (1, 64, 4096), (6, 128, 333), (8, 64, 1000),
-               (2, 64, 77), (1, 128, 200), (1, 112, 2048), (2, 112, 333)]
+               (2, 64, 77), (1, 128, 200), (1, 112, 2048), (2, 112, 333),
+               (1, 256, 333), (2, 256, 4096), (8, 256, 1000)]
 
 
 @pytest.mark.parametrize("kw", FLASH_KW)
 @pytest.mark.parametrize("g,d,s", WGMMA_GEOMS)
 def test_wgmma_flash_kernels_match_plain_and_repeat_bitwise(cuda, kw, g, d,
                                                             s):
-    """The bf16 forward and backward at D 64, 112 and 128 launch the wgmma
-    kernels (the wrappers' per-variant counts), agree with the plain
+    """The bf16 forward and backward at D 64, 112, 128 and 256 launch the
+    wgmma kernels (the wrappers' per-variant counts), agree with the plain
     versions within FLASH_DTYPES' bf16 bound, and the backward gives
     bitwise the same dq, dk and dv on a second call."""
     gen = torch.Generator(device=cuda).manual_seed(g * d + s)
@@ -916,12 +918,12 @@ def test_wgmma_flash_kernels_match_plain_and_repeat_bitwise(cuda, kw, g, d,
 
 
 def test_flash_wrappers_take_the_variant_the_library_names(cuda):
-    """bf16 at D 64, 112 and 128 reports wgmma, bf16 at D 256 mma.sync,
-    float32 and other widths the CUDA cores, and each wrapper counts its
-    launch under that name."""
+    """bf16 at D 64, 112, 128 and 256 reports wgmma, float32 and other
+    widths the CUDA cores, and each wrapper counts its launch under that
+    name."""
     want = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
             (torch.bfloat16, 112): "wgmma",
-            (torch.bfloat16, 256): "mma_sync",
+            (torch.bfloat16, 256): "wgmma",
             (torch.bfloat16, 16): "cuda_cores",
             (torch.float32, 128): "cuda_cores"}
     for (dtype, d), name in want.items():
@@ -934,7 +936,7 @@ def test_flash_wrappers_take_the_variant_the_library_names(cuda):
         assert K.flash_attention.variants[name] == before + 1
     assert K._flash_variant("flash_bwd", torch.bfloat16, 128) == "wgmma"
     assert K._flash_variant("flash_bwd", torch.bfloat16, 112) == "wgmma"
-    assert K._flash_variant("flash_bwd", torch.bfloat16, 256) == "cuda_cores"
+    assert K._flash_variant("flash_bwd", torch.bfloat16, 256) == "wgmma"
 
 
 def test_flash_wrappers_reject_misaligned_bases(cuda):

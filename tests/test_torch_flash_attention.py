@@ -3,11 +3,14 @@ versions (``ref.attention_ref``, ``ops.flash_attention`` and the plain
 gradient) against ``repro``'s oracle, its Pallas kernel in interpret mode
 and ``jax.grad`` of its chunked model attention; and CPU emulations of the
 CUDA kernels' tile walks (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
-the mma.sync walk of ``csrc/flash_mma.cuh`` and the wgmma kernels of
-``csrc/flash_wgmma.cuh``: their persistent item order, the shared memory
-layout their TMA loads write and their descriptors read, D 112 padded to
-128 and their epilogues' stores) against the plain versions, at Sq == Sk
-and at Sq != Sk (a cross-attention, forward and backward).
+the wgmma kernels of ``csrc/flash_wgmma.cuh`` and, for the backward at
+D 256, of ``csrc/flash_wgmma256.cuh``: their persistent item order, the
+shared memory layout their TMA loads write and their descriptors read, D 112
+padded to 128, the D-256 kernels' tiles, the dK/dV pass split between two
+warpgroups with P handed over through shared memory, and the epilogues'
+stores, direct or staged through shared memory) against the plain
+versions, at Sq == Sk and at Sq != Sk (a cross-attention, forward and
+backward).
 
 Inputs are numpy draws from a seed.  Tolerances:
 - plain forward vs ``repro`` in float32: atol 2e-5 (as
@@ -182,25 +185,35 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 class Walk:
     """Tile sizes and order of one kernel family: the CUDA-core kernels (32
     rows or keys per CTA, 32-key / 32-query tiles, f32 weights), the
-    mma.sync kernels (64 rows or keys, 64-key / 32-query tiles, bf16
-    weights; now the D-256 forward) and the wgmma kernels (128 rows or
-    keys, 128-key tiles forward, 64-key tiles in the dQ pass, 64-query
-    tiles in the dK/dV pass, bf16 weights).  Rows of a query block are
-    head-major (row r: head r // bq at position c0 + r % bq) or, for the
-    wgmma kernels, position-major as their TMA box brings them (head r % G
-    at position c0 + r // G).  ``sms`` set: a persistent grid of that many
+    wgmma kernels at D 64, 112 and 128 (128 rows or keys, 128-key tiles
+    forward, 64-key tiles in the dQ pass, 64-query tiles in the dK/dV pass,
+    bf16 weights) and those at D 256 (128 rows, 64-key tiles forward,
+    32-key tiles in the dQ pass, 64 keys a CTA over 64-query tiles, the
+    dK/dV pass split between two warpgroups, the epilogues of O and dQ
+    staged through shared memory).  Rows of a query block are head-major
+    (row r: head r // bq at position c0 + r % bq) or, for the wgmma
+    kernels, position-major as their TMA box brings them (head r % G at
+    position c0 + r // G).  ``sms`` set: a persistent grid of that many
     CTAs (``_cta_items``).  ``box`` set: the width is padded to whole boxes
     of that many columns, zero past the true D (TMA's fill), and only the
-    true columns are stored."""
+    true columns are stored.  ``split``: warpgroup 0 forms P^T and hands
+    P^T times the softcap's slope to warpgroup 1 through the shared tile
+    (``_p_handover``).  ``staged``: O and dQ leave through the epilogue's
+    swizzled pieces (``_staged_rows``).  ``fast_tanh``: the softcap's tanh
+    from one exp2 and one division (``_fast_tanh``)."""
 
     def __init__(self, rows, tk, keys, tq, mma, position_major=False,
-                 tk_dq=None, sms=None, box=None):
+                 tk_dq=None, sms=None, box=None, split=False, staged=False,
+                 fast_tanh=False):
         self.rows, self.tk, self.keys, self.tq, self.mma = (rows, tk, keys,
                                                             tq, mma)
         self.position_major = position_major
         self.tk_dq = tk_dq or tk
         self.sms = sms
         self.box = box
+        self.split = split
+        self.staged = staged
+        self.fast_tanh = fast_tanh
 
     def round(self, x):
         return _bf16(x) if self.mma else x
@@ -214,17 +227,102 @@ class Walk:
 
 
 CUDA_CORES = Walk(rows=32, tk=32, keys=32, tq=32, mma=False)
-TENSOR_CORES = Walk(rows=64, tk=64, keys=64, tq=32, mma=True)
 # 3 CTAs, so each walks several items at these sizes
 WGMMA = Walk(rows=128, tk=128, keys=128, tq=64, mma=True,
              position_major=True, tk_dq=64, sms=3, box=64)
+# the D-256 kernels' walk (``fwd_kernel`` at ``FwdTraits<256>`` and
+# ``csrc/flash_wgmma256.cuh``); at a smaller D the width pads to whole
+# 64-column boxes, as TMA's zero fill would
+WGMMA256 = Walk(rows=128, tk=64, keys=64, tq=64, mma=True,
+                position_major=True, tk_dq=32, sms=3, box=64, split=True,
+                staged=True, fast_tanh=True)
 
 
-def _scores(raw, scale, cap):
+def _fragment(rows, cols):
+    """Where a warpgroup's m64nN accumulator keeps (row, column) of its
+    64 x cols tile: (thread 0-127, register).  Warp w holds rows 16 w ..
+    16 w + 15; lane 4 g + t4 rows g and g + 8, columns 8 nt + 2 t4 and the
+    next, in registers 4 nt + 2 (row >= g + 8) + (column odd)."""
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(cols)[None, :]
+    tid = (r // 16) * 32 + (r % 8) * 4 + (c % 8) // 2
+    reg = 4 * (c // 8) + 2 * ((r % 16) // 8) + c % 2
+    return tid.expand(rows, cols), reg.expand(rows, cols)
+
+
+def _p_handover(pc):
+    """Warpgroup 0's P^T times the softcap's slope (64 keys x 64 queries)
+    through the shared tile to warpgroup 1, as ``dkv256_kernel`` hands it
+    over: thread t writes float4 i (registers 4 i .. 4 i + 3) at 16 bytes x
+    (128 i + t), and thread t of warpgroup 1, whose dP^T sits in the same
+    registers, reads it back from there.  Returns what warpgroup 1 reads,
+    in (key, query) order; every float of the 16 KB tile is written once."""
+    tid, reg = _fragment(*pc.shape)
+    word = ((reg // 4) * 128 + tid) * 4 + reg % 4
+    assert sorted(word.flatten().tolist()) == list(range(pc.numel()))
+    tile = torch.full((pc.numel(),), math.nan)
+    tile[word.flatten()] = pc.flatten()
+    return tile[word]
+
+
+def _piece_units(rows, elem):
+    """The staged epilogue's piece (``stage_piece`` / ``copy_piece``): 64
+    rows x 128 bytes, 16-byte unit u of row r at unit u ^ (r % 8).  The
+    byte offset of each (row, column) of a piece of ``elem``-byte values."""
+    cols = 128 // elem
+    r = torch.arange(rows)[:, None]
+    byte = torch.arange(cols)[None, :] * elem
+    return r * 128 + ((byte // 16) ^ (r % 8)) * 16 + byte % 16
+
+
+def _staged_rows(acc, elem):
+    """A warpgroup's 64 x D accumulator out through the staged epilogue:
+    pieces of 128 / elem columns, each written at the fragment's (row,
+    column) into its swizzled piece and copied out row by row in 16-byte
+    units (thread t: unit t % 8 of rows t / 8 + 16 i).  Returns the rows
+    as stored; each element passes through its piece once."""
+    rows, d = acc.shape
+    cols, per = 128 // elem, 16 // elem
+    offs = (_piece_units(rows, elem) // elem).flatten()
+    assert len(set(offs.tolist())) == rows * cols
+    t = torch.arange(128)
+    r = (t // 8)[:, None] + 16 * torch.arange(rows // 16)[None, :]
+    u = (t % 8)[:, None].expand_as(r)
+    unit = r * (128 // elem) + (u ^ (r % 8)) * per       # (thread, i)
+    out = torch.full_like(acc, math.nan)
+    for p in range(d // cols):
+        piece = torch.full((rows * cols,), math.nan)
+        piece[offs] = acc[:, p * cols:(p + 1) * cols].flatten()
+        for k in range(per):
+            out[r, p * cols + u * per + k] = piece[unit + k]
+    return out
+
+
+def _through_epilogue(acc, live, walk, elem):
+    """The live rows acc (in block order) of a query block as the kernel
+    stores them: through ``_staged_rows`` for each warpgroup's 64 rows
+    when the walk stages its epilogue, else as they are."""
+    if not walk.staged:
+        return acc
+    full = torch.zeros(walk.rows, acc.shape[1])
+    full[:len(live)][live] = acc
+    out = torch.cat([_staged_rows(full[w:w + 64], elem)
+                     for w in range(0, walk.rows, 64)])
+    return out[:len(live)][live]
+
+
+def _fast_tanh(y):
+    """tanh as the D-256 kernels take it (``score_log2_fast``): 1 - 2 / (1
+    + e^(2y)), from one exp2 and one division."""
+    return 1 - 2 / (1 + torch.exp2(y * (2 / math.log(2))))
+
+
+def _scores(raw, scale, cap, walk=None):
     x = raw * scale
     cg = torch.ones_like(x)
     if cap:
-        t = torch.tanh(x / cap)
+        t = (_fast_tanh if walk is not None and walk.fast_tanh
+             else torch.tanh)(x / cap)
         x, cg = t * cap, 1 - t * t
     return x, cg
 
@@ -263,6 +361,14 @@ def _items(n_blk, hkv, b, walk, descending):
              [it for mine in _cta_items(n, walk.sms) for it in mine])
     for it in order:
         yield _item(it, n_blk, hkv, b, descending)
+
+
+def _live(c0, s, g, walk):
+    """Which of a query block's G heads x rows // G positions lie before s,
+    in block order."""
+    rows = torch.arange(g * (walk.rows // g))
+    pos = c0 + (rows // g if walk.position_major else rows % (walk.rows // g))
+    return pos < s
 
 
 def _q_rows(c0, s, g, walk):
@@ -318,7 +424,7 @@ def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None,
                             window)
         for t0 in range(lo, hi, walk.tk):
             kp = torch.arange(t0, min(t0 + walk.tk, hi))
-            x, _ = _scores(qr @ k[bi, kp, h].T, scale, cap)
+            x, _ = _scores(qr @ k[bi, kp, h].T, scale, cap, walk)
             ok = _visible(pos - shift, kp, causal, window)
             x = torch.where(ok, x, NEG)
             m_new = torch.maximum(m, x.max(1).values)
@@ -329,6 +435,8 @@ def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None,
             m = m_new
         acc = acc / l.clamp(min=1e-30)[:, None]
         assert not acc[:, d:].any()     # the zero columns add nothing
+        acc = _through_epilogue(acc, _live(c0, sq, g, walk), walk,
+                                4 if k_off is not None else 2)
         out[bi, pos, h * g + head] = acc[:, :d]   # the true columns only
         row_lse = m + torch.log(l.clamp(min=1e-30))
         if k_off is not None:
@@ -371,14 +479,16 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
                             window)
         for t0 in range(lo, hi, walk.tk_dq):
             kp = torch.arange(t0, min(t0 + walk.tk_dq, hi))
-            x, cg = _scores(qr @ k[bi, kp, h].T, scale, cap)
+            x, cg = _scores(qr @ k[bi, kp, h].T, scale, cap, walk)
             ok = _visible(pos - shift, kp, causal, window)
             p = torch.where(ok, torch.exp(x - lse[bi, hh, pos][:, None]), 0.0)
             dp = gr @ v[bi, kp, h].T
             ds = p * (dp - delta[bi, hh, pos][:, None]) * cg
             acc += walk.round(ds) @ k[bi, kp, h]
         assert not acc[:, d:].any()
-        dq[bi, pos, hh] = acc[:, :d] * scale
+        acc = _through_epilogue(acc * scale, _live(c0, sq, g, walk), walk,
+                                4 if k_off is not None else 2)
+        dq[bi, pos, hh] = acc[:, :d]
     # causal: the first key blocks see the most queries
     for blk, h, bi in _items(-(-sk // walk.keys), hkv, b, walk,
                              descending=not causal):
@@ -395,11 +505,17 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
             hh = h * g + gi
             for t0 in range(q_lo, q_hi, walk.tq):
                 qp = torch.arange(t0, min(t0 + walk.tq, q_hi))
-                x, cg = _scores(kb @ q[bi, qp, hh].T, scale, cap)
+                x, cg = _scores(kb @ q[bi, qp, hh].T, scale, cap, walk)
                 ok = _visible(qp, kp + shift, causal, window).T  # (keys, q)
                 p = torch.where(ok, torch.exp(x - lse[bi, hh, qp]), 0.0)
                 dpt = vb @ d_o[bi, qp, hh].T
-                ds = p * (dpt - delta[bi, hh, qp]) * cg
+                if walk.split:   # P^T cg from warpgroup 0's registers
+                    pc = torch.zeros(walk.keys, walk.tq)
+                    pc[:len(kp), :len(qp)] = p * cg
+                    pc = _p_handover(pc)[:len(kp), :len(qp)]
+                    ds = pc * (dpt - delta[bi, hh, qp])
+                else:
+                    ds = p * (dpt - delta[bi, hh, qp]) * cg
                 dv_acc += walk.round(p) @ d_o[bi, qp, hh]
                 dk_acc += walk.round(ds) @ q[bi, qp, hh]
         assert not dk_acc[:, d:].any() and not dv_acc[:, d:].any()
@@ -414,8 +530,8 @@ EMU_CASES = [dict(causal=True), dict(causal=False),
              dict(causal=False, window=20, logit_cap=30.0)]
 
 
-@pytest.mark.parametrize("walk", [CUDA_CORES, TENSOR_CORES, WGMMA],
-                         ids=["cuda_cores", "tensor_cores", "wgmma"])
+@pytest.mark.parametrize("walk", [CUDA_CORES, WGMMA256, WGMMA],
+                         ids=["cuda_cores", "wgmma_d256", "wgmma"])
 @pytest.mark.parametrize("g,s", [(1, 77), (2, 128), (3, 77), (8, 70)])
 @pytest.mark.parametrize("kw", EMU_CASES)
 def test_kernel_tile_walks_match_plain(walk, g, s, kw):
@@ -463,8 +579,8 @@ def test_kernel_tile_walks_match_plain(walk, g, s, kw):
         assert float((got - want).abs().max()) <= tol(want)
 
 
-@pytest.mark.parametrize("walk", [CUDA_CORES, TENSOR_CORES, WGMMA],
-                         ids=["cuda_cores", "tensor_cores", "wgmma"])
+@pytest.mark.parametrize("walk", [CUDA_CORES, WGMMA256, WGMMA],
+                         ids=["cuda_cores", "wgmma_d256", "wgmma"])
 @pytest.mark.parametrize("sq,sk", [(77, 200), (200, 77), (128, 300),
                                    (256, 64)])
 @pytest.mark.parametrize("g", [1, 3])
@@ -511,8 +627,8 @@ def test_forward_walks_at_their_own_key_length(walk, sq, sk, g, kw):
                                                    else 1e-5)
 
 
-@pytest.mark.parametrize("walk", [CUDA_CORES, TENSOR_CORES, WGMMA],
-                         ids=["cuda_cores", "tensor_cores", "wgmma"])
+@pytest.mark.parametrize("walk", [CUDA_CORES, WGMMA256, WGMMA],
+                         ids=["cuda_cores", "wgmma_d256", "wgmma"])
 @pytest.mark.parametrize("sq,sk", [(77, 200), (200, 77), (128, 300),
                                    (256, 64)])
 @pytest.mark.parametrize("g", [1, 3])
@@ -718,7 +834,8 @@ def _read_mn_major(mem, start, lbo, sbo, n):
 
 
 @pytest.mark.parametrize("rows,d", [(64, 64), (64, 128), (128, 64),
-                                    (128, 128), (64, 112), (128, 112)])
+                                    (128, 128), (64, 112), (128, 112),
+                                    (128, 256), (64, 256), (32, 256)])
 def test_wgmma_descriptors_read_what_tma_wrote(rows, d):
     """Every descriptor the kernels build reads the intended operand from a
     tile laid out by TMA with the 128-byte swizzle: the A operand (64 rows
@@ -727,11 +844,14 @@ def test_wgmma_descriptors_read_what_tma_wrote(rows, d):
     P V, dS K, P^T dO and dS^T Q (16 rows per k-step, the padded D columns
     across the column blocks).  At D 112 the kernels run the D-128 layout:
     the last k-step of a K-major operand and the last 16 columns of an
-    MN-major one read TMA's zero fill."""
+    MN-major one read TMA's zero fill.  At D 256 (four boxes a row) the
+    tiles are Q's 128 rows, the forward's 64-key and the dQ pass's 32-key
+    K and V tiles, and the dK/dV pass's 64-row K, V, Q and dO tiles; a
+    32-row tile is only ever a B operand."""
     dp = -(-d // 64) * 64
     mem = _tma_tile(rows, d)
     for ks in range(dp // 16):
-        for row0 in range(0, rows, 64):
+        for row0 in range(0, rows - 63, 64):
             start, sbo = _desc_k(rows, row0, ks)
             assert _read_k_major(mem, start, sbo, 64) == [
                 [_col(row0 + i, 16 * ks + kk, d) for kk in range(16)]
@@ -798,6 +918,170 @@ def test_wgmma_walk_at_d112_pads_to_128(g, s, kw):
         assert got.shape == want.shape
         assert float((got - want).abs().max()) <= 2e-2 * max(
             1.0, float(want.abs().max()))
+
+
+def test_fast_tanh_of_the_d256_kernels_is_tanh():
+    """``score_log2_fast``'s tanh, 1 - 2 / (1 + e^(2y)), in float32 over
+    the capped scores' whole range: within 1e-6 of tanh (to the rounding
+    of 1 - 1 near 0), and its slope 1 - t^2 within 1e-6 too."""
+    y = torch.linspace(-30, 30, 600001, dtype=torch.float32)
+    t = _fast_tanh(y)
+    want = torch.tanh(y.double())
+    assert float((t.double() - want).abs().max()) <= 1e-6
+    assert float(((1 - t * t).double() - (1 - want * want)).abs().max()) \
+        <= 1e-6
+
+
+@pytest.mark.parametrize("elem", [4, 2], ids=["f32", "bf16"])
+def test_wgmma256_staged_epilogue_stores_each_element_once(elem):
+    """The D-256 kernels' staged epilogue (``stage_piece`` and
+    ``copy_piece`` of ``csrc/flash_wgmma.cuh``) for an f32 O or dQ (32
+    columns a piece) and a bf16 one (64): every element of a warpgroup's
+    64 x 256 accumulator leaves exactly where it was, each warp's fragment
+    stores (one n-tile and row half per instruction: 32 lanes x 2 values)
+    and row copies (32 lanes x 16 bytes) touch each of the 32 banks no
+    more often than their bytes require, and every 8 threads write 128
+    contiguous bytes of one output row."""
+    acc = torch.arange(64 * 256, dtype=torch.float32).reshape(64, 256)
+    assert torch.equal(_staged_rows(acc, elem), acc)
+    offs = _piece_units(64, elem)
+    cols = 128 // elem
+    for warp in range(4):
+        for j in range(cols // 8):
+            for hh in range(2):
+                words = collections.Counter()
+                for lane in range(32):
+                    g, t4 = lane >> 2, lane & 3
+                    r, c = warp * 16 + g + 8 * hh, j * 8 + 2 * t4
+                    for e in range(2):
+                        words[int(offs[r, c + e]) // 4] += 1
+                per_bank = collections.Counter(w % 32 for w in words)
+                assert max(per_bank.values()) == len(words) // 32
+    for warp in range(4):
+        for i in range(4):
+            banks = collections.Counter()
+            for lane in range(32):
+                t = 32 * warp + lane
+                r, u = t // 8 + 16 * i, t % 8
+                start = r * 128 + (u ^ (r % 8)) * 16
+                for w in range(4):
+                    banks[(start // 4 + w) % 32] += 1
+            assert max(banks.values()) == 4   # 512 bytes: 4 wavefronts
+
+
+def test_wgmma256_p_tile_mirrors_the_registers():
+    """``dkv256_kernel``'s hand-over of P^T cg from warpgroup 0 to 1: the
+    two groups' m64n64 accumulators (S^T and dP^T) share one layout, so
+    the 16 KB tile mirrors the registers: warpgroup 1 reads each (key,
+    query) back at its own thread and register, every float once, and a
+    warp's float4 stores cover 512 contiguous bytes (no bank conflict)."""
+    pc = torch.randn(64, 64)
+    assert torch.equal(_p_handover(pc), pc)
+    tid, reg = _fragment(64, 64)
+    for t in range(128):
+        assert (tid == t).sum() == 32
+        assert sorted(reg[tid == t].tolist()) == list(range(32))
+    for warp in range(4):
+        for i4 in range(8):
+            start = [((i4 * 128 + 32 * warp + lane) * 16)
+                     for lane in range(32)]
+            assert start == list(range(start[0], start[0] + 512, 16))
+
+
+@pytest.mark.parametrize("g,s,kw,k_off", [
+    (1, 200, dict(causal=True), None),
+    (2, 77, dict(causal=False, window=30), None),
+    (8, 70, dict(causal=True, logit_cap=50.0), None),
+    (2, 150, dict(causal=True, logit_cap=50.0), None),   # gemma2-2b's G, cap
+    (2, 130, dict(causal=True, logit_cap=50.0), 60),
+    (1, 96, dict(causal=True, window=40), 33)])
+def test_wgmma_walk_at_d256(g, s, kw, k_off):
+    """gemma2-2b's head_dim 256 on the D-256 kernels' walk at its true
+    width: four 64-column boxes a row, 64-key forward tiles, the dQ pass's
+    32-key tiles, 64-key dK/dV blocks whose two warpgroups split the
+    products (P^T cg through the shared tile), O and dQ through the staged
+    epilogue, the persistent order of 3 CTAs; O, the log-sum-exp, dq, dk
+    and dv against the plain versions, and with ``k_off`` one key block
+    (the keys from k_off on) against ``ref.attention_block_ref`` and its
+    gradient at the whole sequence's O and log-sum-exp."""
+    rng = np.random.default_rng(256 + g + s)
+    b, hkv, d = 1, 2, 256
+    q, d_o = (_bf16(torch.from_numpy(_rand(rng, b, s, hkv * g, d)))
+              for _ in range(2))
+    k, v = (_bf16(torch.from_numpy(_rand(rng, b, s, hkv, d)))
+            for _ in range(2))
+    window = kw.get("window", 2 ** 31 - 1)
+    cap = kw.get("logit_cap")
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    if k_off is None:
+        visited = []
+        o, lse = emulate_fwd(q, k, v, causal=kw["causal"], window=window,
+                             cap=cap, walk=WGMMA256, visited=visited)
+        grads = emulate_bwd(q, k, v, o, lse, d_o, causal=kw["causal"],
+                            window=window, cap=cap, walk=WGMMA256,
+                            visited=visited)
+        assert len(set(visited)) == len(visited) == (
+            2 * -(-s // (128 // g)) + -(-s // 64)) * hkv * b
+        want = [ref.attention_ref(*tr[:3], **kw).transpose(1, 2)]
+        want += [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr,
+                                                                   **kw)]
+    else:
+        o_all, lse_all = emulate_fwd(q, k, v, causal=kw["causal"],
+                                     window=window, cap=cap, walk=WGMMA256)
+        kb, vb = k[:, k_off:], v[:, k_off:]
+        o, lse = emulate_fwd(q, kb, vb, causal=kw["causal"], window=window,
+                             cap=cap, walk=WGMMA256, k_off=k_off)
+        w_o, w_lse = ref.attention_block_ref(q, kb, vb, k_off=k_off, **kw)
+        assert torch.equal(torch.isinf(lse), torch.isinf(w_lse))
+        live = torch.isfinite(w_lse)
+        assert float((lse[live] - w_lse[live]).abs().max()) <= 1e-4
+        grads = emulate_bwd(q, kb, vb, o_all, lse_all, d_o,
+                            causal=kw["causal"], window=window, cap=cap,
+                            walk=WGMMA256, k_off=k_off)
+        want = [w_o] + list(ref.attention_block_ref_grad(
+            q, kb, vb, o_all, lse_all, d_o, k_off=k_off, **kw))
+    for got, w in zip((o, *grads), want):
+        assert got.shape == w.shape
+        assert float((got - w).abs().max()) <= 2e-2 * max(
+            1.0, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("s,g,causal", [(4096, 2, True), (300, 8, False),
+                                        (1000, 1, True)])
+def test_persistent_walk_at_d256_takes_the_longest_items_first(s, g,
+                                                                causal):
+    """The D-256 kernels' persistent grid (132 CTAs; gemma2-2b's Hkv 4 at
+    B 2): the forward and dQ pass over query blocks of 128 / G positions,
+    the dK/dV pass over 64-key blocks (twice D 128's count); each item
+    taken once and every CTA's items longest first, by the keys a query
+    block sees or the queries a key block sees."""
+    walk = Walk(rows=128, tk=64, keys=64, tq=64, mma=True,
+                position_major=True, tk_dq=32, sms=132, box=64, split=True,
+                staged=True)
+    b, hkv = 2, 4
+    bq = walk.rows // g
+    window = 2 ** 31 - 1
+
+    def key_len(blk):
+        c0 = blk * bq
+        lo, hi = _key_range(c0, min(c0 + bq, s) - 1, s, causal, window)
+        return hi - lo
+
+    def query_len(blk):
+        k0 = blk * walk.keys
+        return s - (k0 if causal else 0)
+
+    for n_blk, length, descending in ((-(-s // bq), key_len, causal),
+                                      (-(-s // walk.keys), query_len,
+                                       not causal)):
+        items = list(_items(n_blk, hkv, b, walk, descending))
+        assert sorted(items) == sorted(
+            (blk, h, bi) for blk in range(n_blk) for h in range(hkv)
+            for bi in range(b))
+        for mine in _cta_items(len(items), walk.sms):
+            lens = [length(_item(it, n_blk, hkv, b, descending)[0])
+                    for it in mine]
+            assert lens == sorted(lens, reverse=True)
 
 
 def test_flash_bench_reports_balance_and_needs_a_card(monkeypatch, capsys):

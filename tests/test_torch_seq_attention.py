@@ -195,8 +195,8 @@ def test_rank0_share_of_gemma2s_cells():
     assert abs(local - 0.067) < 1e-3
 
 
-@pytest.mark.parametrize("walk", [FA.CUDA_CORES, FA.TENSOR_CORES, FA.WGMMA],
-                         ids=["cuda_cores", "tensor_cores", "wgmma"])
+@pytest.mark.parametrize("walk", [FA.CUDA_CORES, FA.WGMMA256, FA.WGMMA],
+                         ids=["cuda_cores", "wgmma_d256", "wgmma"])
 @pytest.mark.parametrize("p,kw", [(2, dict(causal=True)),
                                   (5, dict(causal=True, window=9,
                                            logit_cap=5.0)),
@@ -249,6 +249,47 @@ def test_key_block_walks_merge_to_the_whole(walk, p, kw):
     assert float((o - want_o).abs().max()) <= tol(want_o)
     for got, want in zip((dq, dk, dv), want_g):
         assert float((got - want).abs().max()) <= tol(want)
+
+
+@pytest.mark.parametrize("p,kw", [(3, dict(causal=True, logit_cap=50.0)),
+                                  (5, dict(causal=True, window=9,
+                                           logit_cap=5.0))])
+def test_key_block_walks_at_d256_merge_to_the_whole(p, kw):
+    """The D-256 kernels' key-block walks (their tiles, split dK/dV pass
+    and staged f32 epilogues) at gemma2-2b's true
+    head_dim, one walk per block of 77 keys at its offset, merged as
+    ``SeqAttention`` merges them: O and dQ summed over the blocks, dK and
+    dV concatenated, against ``ref.attention_ref`` and its gradient."""
+    rng = np.random.default_rng(256 + p)
+    s, g, d, walk = 77, 2, 256, FA.WGMMA256
+    q, k, v, d_o = (FA._bf16(torch.from_numpy(
+        rng.standard_normal((1, s, h, d)).astype(np.float32)))
+        for h in (HKV * g, HKV, HKV, HKV * g))
+    window = kw.get("window", 2 ** 31 - 1)
+    cap = kw.get("logit_cap")
+    offs, lens = _split(s, p)
+    parts = [FA.emulate_fwd(q, k[:, o:o + n], v[:, o:o + n],
+                            causal=kw["causal"], window=window, cap=cap,
+                            walk=walk, k_off=o)
+             for o, n in zip(offs, lens)]
+    m = torch.stack([lse for _, lse in parts]).amax(0)
+    w = [torch.exp(lse - m) for _, lse in parts]
+    o = walk.round(sum(po * wi.transpose(1, 2)[..., None] for (po, _), wi
+                       in zip(parts, w)) / sum(w).transpose(1, 2)[..., None])
+    lse = m + torch.log(sum(w))
+    grads = [FA.emulate_bwd(q, k[:, off:off + n], v[:, off:off + n], o, lse,
+                            d_o, causal=kw["causal"], window=window, cap=cap,
+                            walk=walk, k_off=off)
+             for off, n in zip(offs, lens)]
+    got = (walk.round(sum(gr[0] for gr in grads)),
+           torch.cat([gr[1] for gr in grads], 1),
+           torch.cat([gr[2] for gr in grads], 1))
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want_o = ref.attention_ref(*tr[:3], **kw).transpose(1, 2)
+    want_g = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr, **kw)]
+    for a, b in zip((o, *got), (want_o, *want_g)):
+        assert float((a - b).abs().max()) <= 2e-2 * max(
+            1.0, float(b.abs().max()))
 
 
 def test_block_entries_on_fake_tensors_record_their_formula():
