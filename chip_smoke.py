@@ -29,10 +29,12 @@ Phases, in order; any failure ends the script with a nonzero exit:
    G 1, 2, 6 and 8, D 16 to 256,
    S 77 and 128, causal or not, windows, softcaps; at the training shape
    the backward bitwise equal over two calls; matmul: odd and prime
-   shapes, strided views and every cuboid of plan_mm_1piece(8192, 8192,
-   8192, 132), MM_TOL; the matmul plan kernel on the 8192^3 plans at
-   p = 132 and 131 and on small prime plans with k-cuts, MM_TOL against
-   ``matmul_plan_ref`` and bitwise equal over two calls; LCS tile: tiles
+   shapes, k = 8192, strided views and every cuboid of plan_mm_1piece(8192,
+   8192, 8192, 132), MM_TOL, bitwise equal over two calls, float32 as
+   variant ``wgmma_tf32x3`` (three TF32 products); the matmul plan kernel
+   on the 8192^3 plans at p = 132 and 131 and on small prime plans with
+   k-cuts, MM_TOL against ``matmul_plan_ref`` and bitwise equal over two
+   calls, float32 as ``wgmma_tf32x3``; LCS tile: tiles
    1 to 8192 on monotone and on arbitrary int32 borders, whole tables in
    tiles of 1 to 8192, and the main path's table (65,536^2 in tiles of
    256, 256 x 256 tiles) on arbitrary int32 borders, its whole bottom row
@@ -60,8 +62,15 @@ Phases, in order; any failure ends the script with a nonzero exit:
    shapes (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16; the matmul
    plan row: one launch over the 132 cuboids of a paco_matmul at 8192^3
    in bf16, against torch.matmul on the whole operands (and on the 132
-   views), p = 131 and f32 beside it; the matmul row: one 2048^3 f32
-   Strassen leaf; the latent rows' SDPA pinned per backend too, K/V
+   views), p = 131 beside it, given ``--parent`` bitwise the parent's
+   plan launch (and the bf16 product on four shapes bitwise the parent's
+   ``matmul``); its float32 rows, each against torch.matmul
+   in true f32 (cuBLAS SGEMM, allow_tf32 off) and, given ``--parent``,
+   the parent's f32 ``matmul_plan`` launch: ``matmul_plan_f32`` at 8192^3
+   (p = 131 beside it) and ``matmul_plan_f32_tall`` at 65536 x 8192 x 512,
+   and the matmul row, one 2048^3 f32 Strassen leaf; their bound is
+   three TF32 products at 495 TFLOP/s, ``bound_cuda_cores_ms`` one true
+   f32 product at 67 TFLOP/s beside it; the latent rows' SDPA pinned per backend too, K/V
    expanded to the 128 heads over two layers where a backend refuses
    ``enable_gqa``; the LCS row: the whole 65,536^2 table at p = 132 in
    one launch, int32 operations at 16.7 TOP/s, the row scan as its plain
@@ -222,8 +231,9 @@ Phases, in order; any failure ends the script with a nonzero exit:
    65536 x 8192 x 512 (f32); Strassen at depth 2 on 8192^2; sample sort
    of 2^26 floats; 1D (n 2048) and GAP (n 64).  The kernels' launch
    counts are zeroed before and read after each call: one matmul plan
-   launch walking p cuboids per paco_matmul (bf16 as ``wgmma``), 49
-   matmul launches per depth-2 Strassen, one LCS launch per table.
+   launch walking p cuboids per paco_matmul (bf16 as ``wgmma``, f32 as
+   ``wgmma_tf32x3``), 49 matmul launches per depth-2 Strassen (all
+   ``wgmma_tf32x3``), one LCS launch per table.
 11. mesh: the distributed paths on a one-rank NCCL group over an
    in-process store, the card as a 1 x 1 (data, model) ``DeviceMesh``
    (``mesh_phase``).  The full-width qwen3-0.6b ``train_step`` (bf16, B 2
@@ -289,7 +299,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 # The card's figures and the kernels' work have one home each: the data
 # sheet's peaks and HBM rate in repro_torch/card.py, the per-kernel flops
 # and bytes in repro_torch/kernels/work.py.
-from repro_torch.card import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
+from repro_torch.card import (HBM_BYTES_PER_S, PEAK_FLOPS,  # noqa: E402
+                              PEAK_TF32_FLOPS)
 from repro_torch.kernels import work as W  # noqa: E402
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Full-model logits of the kernel path vs the plain path, 28 layers deep.
@@ -362,6 +373,8 @@ FAMILY_TRAIN_STEPS = 3
 PACO_MM_SHAPES = [((8192, 8192, 8192), torch.float32),
                   ((8192, 8192, 8192), torch.bfloat16),
                   ((65536, 8192, 512), torch.float32)]
+# The kernels line's row that counts each shape's plan launches.
+PACO_MM_ROWS = ("matmul_plan_f32", "matmul_plan", "matmul_plan_f32_tall")
 PACO_MM_N = 8192          # the cube whose 132 cuboids the kernel checks use
 PACO_LCS_N = 65536        # two DNA sequences (4 symbols) of 64 Ki bases
 PACO_SORT_N = 2 ** 26
@@ -860,8 +873,11 @@ class ParentKernels:
     tile (``lcs_tile.cu``), with their headers, into
     ``build/parent_kernels/``, so that the benches time them in the same
     call as the current kernels.  Their C interfaces are the parent's: the
-    flash pair's (Sq and Sk apart in both), ``matmul``'s and paged
-    decode's are the current ones (the decode one launch, no scratch);
+    flash pair's (Sq and Sk apart in both), ``matmul``'s, ``matmul_plan``'s
+    and paged decode's are the current ones (the decode one launch, no
+    scratch; float32 products go through ``matmul_tf32x3`` and
+    ``matmul_plan_tf32x3`` where the parent has them, else through
+    ``matmul`` and ``matmul_plan`` as CUDA-core variant 0);
     prefill's split count takes (width, page, start, C), latent prefill's
     (dtype, kv_lora, qk_rope, width, page, C, H, start) and latent
     decode's (width, page, B, H), and these three take f32 split scratch;
@@ -927,6 +943,23 @@ class ParentKernels:
         self.prefill_splits.argtypes = [I, I, I, I]
         self.mm = libs["matmul"].matmul
         self.mm.argtypes = [I, P, P, P, I, I, I, L, L, P]
+        self.mm_plan = libs["matmul"].matmul_plan
+        self.mm_plan.argtypes = [I, I, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                                 I, L, L, P]
+        self.mm_plan.restype = I
+        # the float32 entries on the tensor cores, where the parent has them
+        self.mm_tf32 = getattr(libs["matmul"], "matmul_tf32x3", None)
+        self.mm_plan_tf32 = getattr(libs["matmul"], "matmul_plan_tf32x3",
+                                    None)
+        if self.mm_tf32 is not None:
+            self.mm_tf32.argtypes = [P, P, P, P, L, I, I, I, L, L, P]
+            self.mm_tf32.restype = I
+            self.mm_plan_tf32.argtypes = [P, P, P, P, P, L, P, P, P, P, P, I,
+                                          I, I, I, I, L, L, P]
+            self.mm_plan_tf32.restype = I
+            self.mm_ws = libs["matmul"].matmul_tf32x3_ws_floats
+            self.mm_ws.argtypes = [I, I, I, L, P]
+            self.mm_ws.restype = L
         self.decode = libs["paged_decode"].paged_decode
         self.decode.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, I, F,
                                 I, F, P]
@@ -1121,16 +1154,57 @@ class ParentKernels:
         assert err == 0, ("parent lcs_table", err)
         return state[n - 1]
 
+    def _split(self, a, n, m, k, lda):
+        """The parent's float32 workspace, where it has the TF32 entries."""
+        return torch.empty(max(self.mm_ws(n, m, k, lda, a.data_ptr()), 4),
+                           dtype=torch.float32, device=a.device)
+
     def matmul(self, a, b, out) -> None:
         """One product of views with unit column stride into ``out``."""
         n, k = a.shape
         m = b.shape[1]
-        err = self.mm(1 if a.dtype == torch.bfloat16 else 0, a.data_ptr(),
-                      b.data_ptr(), out.data_ptr(), n, m, k,
-                      a.stride(0) if n > 1 else max(k, 1),
-                      b.stride(0) if k > 1 else max(m, 1),
-                      torch.cuda.current_stream().cuda_stream)
+        lda = a.stride(0) if n > 1 else max(k, 1)
+        ldb = b.stride(0) if k > 1 else max(m, 1)
+        stream = torch.cuda.current_stream().cuda_stream
+        if a.dtype == torch.float32 and self.mm_tf32 is not None:
+            split = self._split(a, n, m, k, lda)
+            err = self.mm_tf32(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                               split.data_ptr(), split.numel(), n, m, k, lda,
+                               ldb, stream)
+        else:
+            err = self.mm(1 if a.dtype == torch.bfloat16 else 0, a.data_ptr(),
+                          b.data_ptr(), out.data_ptr(), n, m, k, lda, ldb,
+                          stream)
         assert err == 0, ("parent matmul", err)
+
+    def matmul_plan(self, a, b, plan) -> torch.Tensor:
+        """The parent's one-launch plan walk (and its k-cut sums) on
+        contiguous a and b, over the current wrapper's tables (their layout
+        is the parent's); bf16 as the parent's TMA variant (2), float32 as
+        its ``matmul_plan_tf32x3`` or else its CUDA-core variant (0)."""
+        from repro_torch.kernels.matmul.matmul import _device_table
+        n, k = a.shape
+        m = b.shape[1]
+        table = _device_table(plan, a.device)
+        out = torch.empty((n, m), dtype=a.dtype, device=a.device)
+        ws = torch.empty(max(table.host.ws_elems, 8), dtype=a.dtype,
+                         device=a.device)
+        p_off, p_cub, p_cell, p_mem = table.ptrs
+        tables = (p_off, p_cub, table.ws_off.data_ptr(), p_cell, p_mem,
+                  table.host.n_ctas, len(table.host.cell), n, m, k, k, m,
+                  torch.cuda.current_stream().cuda_stream)
+        if a.dtype == torch.float32 and self.mm_plan_tf32 is not None:
+            split = self._split(a, n, m, k, k)
+            err = self.mm_plan_tf32(a.data_ptr(), b.data_ptr(),
+                                    out.data_ptr(), ws.data_ptr(),
+                                    split.data_ptr(), split.numel(), *tables)
+        else:
+            bf16 = a.dtype == torch.bfloat16
+            err = self.mm_plan(int(bf16), 2 if bf16 else 0, a.data_ptr(),
+                               b.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                               *tables)
+        assert err == 0, ("parent matmul_plan", err)
+        return out
 
 
 # The dense flash pair's rows, bf16: {row-name suffix: (B, Hq, Hkv, Sq, Sk,
@@ -1291,18 +1365,19 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
     return rows
 
 
-def _bound(nbytes, flops, dtype) -> tuple[float, str]:
+def _bound(nbytes, flops, dtype, peak=None) -> tuple[float, str]:
     """The least time of the work on the card, ms, and what sets it: the
-    bytes at the HBM rate or the operations at the dtype's peak."""
+    bytes at the HBM rate or the operations at the dtype's peak (or at
+    ``peak``, flops a second)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_flops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (max(t_bytes, t_flops),
             "bytes" if t_bytes >= t_flops else "operations")
 
 
 def _row(name, source, replaces, err, ms, eager_ms, plain_ms, library_ms,
-         nbytes, flops, dtype) -> dict:
-    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+         nbytes, flops, dtype, peak=None) -> dict:
+    bound_ms, bound_by = _bound(nbytes, flops, dtype, peak)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "kernel_ms": ms, "eager_ms": eager_ms,
@@ -3656,9 +3731,12 @@ def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
+        # k = 8192: the long sum that a single accumulator over all of k
+        # let drift past MM_TOL (csrc/matmul.cu, "wgmma_tf32x3")
         pairs = [(rnd(n, k), rnd(k, m)) for n, k, m in
                  [(1, 1, 1), (17, 23, 31), (97, 131, 61), (128, 32, 128),
-                  (129, 33, 257), (300, 700, 5), (5, 0, 7), (1, 4099, 3)]]
+                  (129, 33, 257), (300, 700, 5), (5, 0, 7), (1, 4099, 3),
+                  (128, 8192, 128)]]
         # views: row strides of 400 and 500 give each a 16-byte phase; 61
         # gives none
         big_a, big_b, odd = rnd(300, 400), rnd(400, 500), rnd(40, 61)
@@ -3670,8 +3748,15 @@ def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
         n = PACO_MM_N
         a, b = rnd(n, n), rnd(n, n)
         pairs += _cuboid_faces(a, b, plan_mm_1piece(n, n, n, 132))
+        variant = "wgmma_tf32x3" if dtype == torch.float32 else "mma_sync"
         for x, y in pairs:
-            err = _rel_mm(matmul_kernel(x, y), matmul_ref(x, y))
+            before = matmul_kernel.variants.copy()
+            got = matmul_kernel(x, y)
+            assert matmul_kernel.variants - before == {variant: 1}, \
+                ("matmul variant", dtype, matmul_kernel.variants - before)
+            assert torch.equal(got, matmul_kernel(x, y)), \
+                ("matmul is not bitwise reproducible", tuple(x.shape))
+            err = _rel_mm(got, matmul_ref(x, y))
             assert err <= MM_TOL[dtype], ("matmul", dtype, tuple(x.shape),
                                           x.stride(), tuple(y.shape), err)
             worst["matmul"] = max(worst["matmul"], err)
@@ -3687,7 +3772,11 @@ def check_paco_kernels(gen: torch.Generator) -> dict[str, float]:
         plans.append((big_a[3:200, 7:190], big_b[5:188, 11:300],
                       mm_plan(197, 289, 183, 6)))
         for x, y, pl in plans:
+            before = matmul_plan_kernel.variants.copy()
             got = matmul_plan_kernel(x, y, pl)
+            if dtype == torch.float32:
+                assert matmul_plan_kernel.variants - before == {
+                    "wgmma_tf32x3": 1}, matmul_plan_kernel.variants - before
             assert torch.equal(got, matmul_plan_kernel(x, y, pl)), \
                 ("matmul_plan is not bitwise reproducible", pl.n, pl.p)
             err = _rel_mm(got, matmul_plan_ref(x, y, pl))
@@ -3753,15 +3842,20 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
     """Both PACO kernels at the shapes their main path gives them.
 
     Matmul plan (``matmul_plan``): one launch over the 132 cuboids of
-    ``plan_mm_1piece(8192, 8192, 8192, 132)`` in bf16 (131 beside it, and
-    float32), its variant, against the plain version (``matmul_plan_ref``:
-    132 products and adds) and one library call computing the same
-    function (``torch.matmul`` on the whole operands; ``torch.matmul`` on
-    the 132 views beside it).  In turns: kernel, parent (given ``parent``:
-    its 132 cuboid launches, and those plus the adds into C that its
-    ``paco_matmul`` made), library, library, parent, kernel.  The
-    Strassen leaf (``matmul``): one 2048^3 float32 product, with the
-    parent's kernel and ``torch.matmul`` beside it.  LCS: the whole
+    ``plan_mm_1piece(8192, 8192, 8192, 132)`` in bf16 (131 beside it), its
+    variant, against the plain version (``matmul_plan_ref``: 132 products
+    and adds) and one library call computing the same function
+    (``torch.matmul`` on the whole operands; ``torch.matmul`` on the 132
+    views beside it).  In turns: kernel, parent (given ``parent``: its 132
+    cuboid launches, those plus the adds into C that its ``paco_matmul``
+    made, and its one plan launch), library, library, parent, kernel.
+    Float32 rows of their own, the same turns (the parent: its one f32
+    plan launch), the library ``torch.matmul`` in true f32:
+    ``matmul_plan_f32`` (8192^3, p = 131 beside it),
+    ``matmul_plan_f32_tall`` (65536 x 8192 x 512, p = 132) and the
+    Strassen leaf (``matmul``, one 2048^3 product); their bound three TF32
+    products at 495 TFLOP/s (``kernels.work.matmul_tf32x3_work``),
+    ``bound_cuda_cores_ms`` one true f32 product at 67.  LCS: the whole
     n = 65,536 table at p = 132 (tiles of 256), one launch a call, bitwise
     over two calls, in turns with the parent's (given ``parent``: one
     launch an anti-diagonal, 511), its variant, p = 131, PO, PA and both
@@ -3780,15 +3874,36 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
 
     dev = "cuda"
     n = PACO_MM_N
-    plan = mm_plan(n, n, n, 132)
-    mm = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        a = torch.randn(n, n, generator=gen, device=dev).to(dtype)
-        b = torch.randn(n, n, generator=gen, device=dev).to(dtype)
+    src = "src/repro_torch/csrc/matmul.cu"
+    replaces = "src/repro/kernels/matmul/matmul.py:35"
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    def f32_bounds(row, nn, m, k):
+        """A float32 row's second bound: one true f32 product on the CUDA
+        cores (the row's own bound is three TF32 products)."""
+        row["bound_cuda_cores_ms"] = _bound(
+            *W.matmul_work(nn, m, k, 4)[::-1], torch.float32)[0]
+
+    def plan_row(name, a, b, plan, work):
+        """The plan kernel on (a, b) in turns: kernel, parent (given
+        ``parent``: its one ``matmul_plan`` launch; in bf16 also its
+        ``matmul`` launched once a cuboid, with and without the adds into C
+        that a ``paco_matmul`` of one launch a cuboid made), library,
+        library, parent, kernel."""
+        dtype = a.dtype
+        (nn, k), m = a.shape, b.shape[1]
         faces = _cuboid_faces(a, b, plan)
         want = matmul_plan_ref(a, b, plan)
-        err = _rel_mm(matmul_plan_kernel(a, b, plan), want)
-        del want
+        got = matmul_plan_kernel(a, b, plan)
+        err = _rel_mm(got, want)
+        # bf16 is the parent's kernel: the same bits
+        same = (None if parent is None else
+                torch.equal(got, parent.matmul_plan(a, b, plan)))
+        assert same is not False or dtype != torch.bfloat16, \
+            ("the bf16 plan is not the parent's bit for bit", name)
+        del want, got
         times = collections.defaultdict(list)
 
         def kernel_turn():
@@ -3798,12 +3913,16 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
         def parent_turn():
             if parent is None:
                 return
+            times["pl"].append(time_ms(
+                lambda i: parent.matmul_plan(a, b, plan), 3)[0])
+            if dtype != torch.bfloat16:
+                return
             parts = [torch.empty((x.shape[0], y.shape[1]), dtype=dtype,
                                  device=dev) for x, y in faces]
             times["p"].append(time_ms(lambda i: [
                 parent.matmul(x, y, o) for (x, y), o in zip(faces, parts)],
-                3))
-            out = torch.empty((n, n), dtype=dtype, device=dev)
+                3)[0])
+            out = torch.empty((nn, m), dtype=dtype, device=dev)
 
             def with_adds(i):
                 out.zero_()
@@ -3811,13 +3930,14 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
                         t for t in plan.tiles if t[1].volume())):
                     parent.matmul(x, y, o)
                     out[c.n0:c.n1, c.m0:c.m1] += o
-            times["pp"].append(time_ms(with_adds, 3))
+            times["pp"].append(time_ms(with_adds, 3)[0])
             del parts, out
 
         def library_turn():
             times["l"].append(_events_loop_ms(lambda: a @ b, 3))
-            times["lv"].append(_events_loop_ms(
-                lambda: [x @ y for x, y in faces], 3))
+            if dtype == torch.bfloat16:
+                times["lv"].append(_events_loop_ms(
+                    lambda: [x @ y for x, y in faces], 3))
 
         kernel_turn()
         parent_turn()
@@ -3826,58 +3946,106 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
         parent_turn()
         kernel_turn()
         plain = _events_loop_ms(lambda: matmul_plan_ref(a, b, plan), 2)
-
-        def mean(key, i=0):
-            return sum(t[i] if isinstance(t, tuple) else t
-                       for t in times[key]) / len(times[key])
-
-        flops, nbytes = W.matmul_work(n, n, n, a.element_size())
-        row = _row("matmul_plan", "src/repro_torch/csrc/matmul.cu",
-                   "src/repro/kernels/matmul/matmul.py:35", err,
-                   mean("k"), mean("k", 1), plain, mean("l"), nbytes,
-                   flops, dtype)
+        if dtype == torch.float32:
+            flops, nbytes = W.matmul_tf32x3_work(nn, m, k)
+        else:
+            flops, nbytes = W.matmul_work(nn, m, k, a.element_size())
+        row = _row(name, src, replaces, err, mean([t[0] for t in times["k"]]),
+                   mean([t[1] for t in times["k"]]), plain, mean(times["l"]),
+                   nbytes, flops, dtype,
+                   PEAK_TF32_FLOPS if dtype == torch.float32 else None)
         row["ms_turns"] = [t[0] for t in times["k"]]
+        row["library_ms_turns"] = times["l"]
         row["variant"] = plan_variant(a, b)
-        row["library_views_ms"] = mean("lv")
+        if dtype == torch.float32:
+            f32_bounds(row, nn, m, k)
+        else:
+            row["library_views_ms"] = mean(times["lv"])
         if parent is not None:
-            row["parent_ms"] = mean("p")
-            row["parent_ms_turns"] = [t[0] for t in times["p"]]
-            row["parent_with_adds_ms"] = mean("pp")
-        if dtype == torch.bfloat16:   # the prime p beside it
-            plan131 = mm_plan(n, n, n, 131)
-            row["p131_ms"] = time_ms(
-                lambda i: matmul_plan_kernel(a, b, plan131), 3)[0]
-        mm[dtype] = row
-        del a, b, faces
-        torch.cuda.empty_cache()
-    row = mm[torch.bfloat16]
-    row["work"] = (f"one launch over the {len(plan.tiles)} cuboids of "
-                   f"plan_mm_1piece({n}, {n}, {n}, 132), bf16")
-    for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
-                "max_abs_err", "parent_ms", "parent_with_adds_ms",
-                "library_views_ms", "variant"):
-        if key in mm[torch.float32]:
-            row[f"f32_{key}"] = mm[torch.float32][key]
-    rows = [row]
+            row["parent_bitwise"] = same
+            if dtype == torch.bfloat16:
+                row["parent_ms"] = mean(times["p"])
+                row["parent_ms_turns"] = times["p"]
+                row["parent_with_adds_ms"] = mean(times["pp"])
+                row["parent_plan_ms"] = mean(times["pl"])
+            else:
+                row["parent_ms"] = mean(times["pl"])
+                row["parent_ms_turns"] = times["pl"]
+        row["work"] = work
+        return row
 
-    # one Strassen leaf: 2048^3 float32
+    # the 8192^3 plan at p = 132 in bf16 and in float32 (p = 131 beside
+    # each), then the tall float32 plan at p = 132
+    rows = []
+    plan = mm_plan(n, n, n, 132)
+    plan131 = mm_plan(n, n, n, 131)
+    for dtype, name in ((torch.bfloat16, "matmul_plan"),
+                        (torch.float32, "matmul_plan_f32")):
+        a = torch.randn(n, n, generator=gen, device=dev).to(dtype)
+        b = torch.randn(n, n, generator=gen, device=dev).to(dtype)
+        row = plan_row(name, a, b, plan,
+                       f"one launch over the {len(plan.tiles)} cuboids of "
+                       f"plan_mm_1piece({n}, {n}, {n}, 132), "
+                       f"{str(dtype)[6:]}")
+        row["p131_ms"] = time_ms(
+            lambda i: matmul_plan_kernel(a, b, plan131), 3)[0]
+        rows.append(row)
+        del a, b
+        torch.cuda.empty_cache()
+    if parent is not None:   # the bf16 single product, the parent's bits
+        for shape in ((1, 1, 1), (17, 23, 31), (129, 33, 257),
+                      (1024, 1985, 2048)):
+            x, y = (torch.randn(*s, generator=gen, device=dev).bfloat16()
+                    for s in (shape[:2], shape[1:]))
+            o = torch.empty((shape[0], shape[2]), dtype=x.dtype, device=dev)
+            parent.matmul(x, y, o)
+            assert torch.equal(matmul_kernel(x, y), o), \
+                ("the bf16 matmul is not the parent's bit for bit", shape)
+    (nn, m, k), _ = PACO_MM_SHAPES[2]
+    a = torch.randn(nn, k, generator=gen, device=dev)
+    b = torch.randn(k, m, generator=gen, device=dev)
+    tall = mm_plan(nn, m, k, 132)
+    rows.append(plan_row("matmul_plan_f32_tall", a, b, tall,
+                         f"one launch over the {len(tall.tiles)} cuboids of "
+                         f"the plan of {nn} x {m} x {k} at p = 132, float32"))
+    del a, b
+    torch.cuda.empty_cache()
+
+    # one Strassen leaf: 2048^3 float32, in turns: kernel, parent,
+    # library, library, parent, kernel
     ls = PACO_STRASSEN_N // 4
     a = torch.randn(ls, ls, generator=gen, device=dev)
     b = torch.randn(ls, ls, generator=gen, device=dev)
     err = _rel_mm(matmul_kernel(a, b), matmul_ref(a, b))
-    ms, eager = time_ms(lambda i: matmul_kernel(a, b), iters // 4)
-    leaf = _row("matmul", "src/repro_torch/csrc/matmul.cu",
-                "src/repro/kernels/matmul/matmul.py:35", err, ms, eager,
+    o = torch.empty_like(a)
+    times = collections.defaultdict(list)
+    for turn in ("k", "p", "l", "l", "p", "k"):
+        if turn == "k":
+            times["k"].append(time_ms(lambda i: matmul_kernel(a, b),
+                                      iters // 4))
+        elif turn == "l":
+            times["l"].append(_events_loop_ms(lambda: a @ b, 10))
+        elif parent is not None:
+            times["p"].append(time_ms(lambda i: parent.matmul(a, b, o),
+                                      iters // 4)[0])
+    leaf = _row("matmul", src, replaces, err,
+                mean([t[0] for t in times["k"]]),
+                mean([t[1] for t in times["k"]]),
                 _events_loop_ms(lambda: matmul_ref(a, b), 10),
-                _events_loop_ms(lambda: a @ b, 10),
-                *W.matmul_work(ls, ls, ls, 4)[::-1], torch.float32)
+                mean(times["l"]), *W.matmul_tf32x3_work(ls, ls, ls)[::-1],
+                torch.float32, PEAK_TF32_FLOPS)
+    leaf["ms_turns"] = [t[0] for t in times["k"]]
+    leaf["library_ms_turns"] = times["l"]
+    f32_bounds(leaf, ls, ls, ls)
+    before = matmul_kernel.variants.copy()
+    matmul_kernel(a, b)
+    (leaf["variant"],) = matmul_kernel.variants - before
     if parent is not None:
-        o = torch.empty_like(a)
-        leaf["parent_ms"] = time_ms(lambda i: parent.matmul(a, b, o),
-                                    iters // 4)[0]
+        leaf["parent_ms"] = mean(times["p"])
+        leaf["parent_ms_turns"] = times["p"]
     leaf["work"] = f"one Strassen leaf, {ls}^3 float32"
     rows.append(leaf)
-    del a, b
+    del a, b, o
 
     # LCS: the whole n = 65,536 table at p = 132 (tiles of 256), one launch
     # a call, in turns with the parent's 511 launches: kernel, parent,
@@ -3958,12 +4126,14 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
     tile 8192) as ``benchmarks/bench_lcs.py`` defines them, each exactly
     equal to the plain row scan ``lcs_reference``; one ``lcs_table``
     launch per call, its variant named.  MM: ``paco_matmul`` on
-    PACO_MM_SHAPES at both p against ``matmul_ref`` (PACO_MM_TOL), ``torch.matmul``'s time beside it; one
-    ``matmul_plan`` launch per call walking the plan's p non-empty
-    cuboids, in bf16 as variant ``wgmma`` (the first call, which builds
-    the plan and its table, is timed apart).  Strassen: ``paco_strassen``
-    and ``strassen`` at depth 2 on 8192^2 f32 (49 leaf products of 2048^3
-    each, 49 launches) against the f32 product (STRASSEN_TOL).  Sort:
+    PACO_MM_SHAPES at both p against ``matmul_ref`` (PACO_MM_TOL),
+    ``torch.matmul``'s time beside it; one ``matmul_plan`` launch per call
+    walking the plan's p non-empty cuboids, in bf16 as variant ``wgmma``
+    and in f32 as ``wgmma_tf32x3`` (the first call, which builds the plan
+    and its table, is timed apart); each shape's launches under its row's
+    name (PACO_MM_ROWS).  Strassen: ``paco_strassen`` and ``strassen`` at
+    depth 2 on 8192^2 f32 (49 leaf products of 2048^3 each, 49 launches,
+    all ``wgmma_tf32x3``) against the f32 product (STRASSEN_TOL).  Sort:
     ``paco_sort`` of 2^26 uniform float32 at p = 132, exactly
     ``torch.sort``, largest bucket <= 3 n / p (eps 2.0, as
     ``tests/test_paco_core.py:297``).  1D (n = 2048) and GAP (n = 64, tile
@@ -3982,7 +4152,8 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
     ps = (sms, 131)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    launches = {"matmul_plan": 0, "matmul": 0, "lcs_tile": 0}
+    launches = {**dict.fromkeys(PACO_MM_ROWS, 0), "matmul": 0,
+                "lcs_tile": 0}
 
     def report(tag: str, result: dict) -> None:
         log(f"[paco] {tag}: {json.dumps(result)}; card: {smi}")
@@ -4012,7 +4183,7 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
     del s, t
 
     # MM
-    for (nn, m, k), dtype in PACO_MM_SHAPES:
+    for ((nn, m, k), dtype), row in zip(PACO_MM_SHAPES, PACO_MM_ROWS):
         a = torch.randn(nn, k, generator=gen, device=dev).to(dtype)
         b = torch.randn(k, m, generator=gen, device=dev).to(dtype)
         want = matmul_ref(a, b)
@@ -4039,9 +4210,10 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
             assert nl == 1 and K6.cuboids == cuboids == p, \
                 ("one matmul_plan launch walking p cuboids", nl, K6.cuboids,
                  cuboids, p)
-            if dtype == torch.bfloat16:
-                assert dict(K6.variants) == {"wgmma": 1}, dict(K6.variants)
-            launches["matmul_plan"] += nl
+            assert dict(K6.variants) == {
+                "wgmma" if dtype == torch.bfloat16 else "wgmma_tf32x3": 1}, \
+                dict(K6.variants)
+            launches[row] += nl
         del a, b, want
         torch.cuda.empty_cache()
 
@@ -4053,13 +4225,17 @@ def paco_algorithms(seed: int, smi: str) -> dict[str, int]:
     for label, fn in [(f"paco_strassen p={ps[0]}",
                        lambda: core.paco_strassen(a, b, ps[0], depth=2)),
                       ("strassen", lambda: core.strassen(a, b, 2))]:
+        matmul_kernel.variants.clear()
         got, secs, nl = _timed(fn, matmul_kernel)
         err = _rel_mm(got, want)
         del got
         report(f"{label} depth=2 {n}^2 float32",
-               {"seconds": secs, "rel_err": err, "launches": nl})
+               {"seconds": secs, "rel_err": err, "launches": nl,
+                "variants": dict(matmul_kernel.variants)})
         assert err <= STRASSEN_TOL, (label, err)
         assert nl == 49, (label, nl)
+        assert dict(matmul_kernel.variants) == {"wgmma_tf32x3": 49}, \
+            (label, dict(matmul_kernel.variants))
         launches["matmul"] += nl
     log(f"[paco] strassen_beneficial_depth({n}) at 989 TFLOP/s and "
         f"3.35 TB/s: {core.strassen_beneficial_depth(n)}")

@@ -10,8 +10,14 @@
 // order, so the sequential k axis becomes a loop inside the CTA), with
 // the same f32 accumulator flushed once in a.dtype.
 //
-// What bounds it: operations, 2 n m k flops (989 TFLOP/s bf16 on tensor
-// cores, 67 TFLOP/s f32 on CUDA cores; f32 stays true f32, not TF32).
+// What bounds it: operations, 2 n m k flops at 989 TFLOP/s in bf16; in
+// float32, which the tensor cores have only as TF32, three TF32 products
+// of 2 n m k flops each at 495 TFLOP/s (against 67 TFLOP/s of true f32 on
+// the CUDA cores): each operand split into a TF32 hi and lo part, the
+// products A_lo B_hi + A_hi B_lo + A_hi B_hi summed in f32: 1.6e-6 to
+// 2.7e-6 of the largest output at k = 8192 on an H100, within MM_TOL
+// (1e-5), where one TF32 product errs by 2.5e-4
+// (tests/test_torch_paco_kernels.py: the single-pass guard).
 //
 // matmul_plan: one launch runs every cuboid of a PACO plan, one CTA per
 // processor, as the paper's model puts p processors on the machine (p =
@@ -39,8 +45,8 @@
 //    stored;
 //  * other bf16 operands - variant "mma_sync": the cp.async + mma.sync
 //    body of matmul below on 128 x 128 tiles, every chunk gathered;
-//  * float32 - variant "cuda_cores": the f32 body below on 128 x 128
-//    tiles.
+//  * float32 - variant "wgmma_tf32x3": three TF32 products on wgmma
+//    (the section of that name below), 128 x 128 tiles.
 // Where k is cut, several cuboids share output elements, and paco_matmul
 // adds their parts, each rounded to a.dtype, into C in the output dtype
 // in plan order.  The kernel does the same, deterministically and
@@ -69,12 +75,9 @@
 //    (zero-filled, never stored): then every whole 16-byte chunk is
 //    aligned and goes by cp.async, and only ragged chunks at the edges are
 //    gathered element by element.  Other strides gather every chunk.
-//  * float32 (mm_f32_kernel): CUDA cores in true f32.  128 x 128 output
-//    tile per CTA, each of 256 threads computes 8 x 8 outputs (two 4 x 4
-//    blocks a side, read as 16-byte vectors from shared memory: 4 reads
-//    per 64 FMAs), k in steps of 8 through four shared-memory stages
-//    filled by 4-byte cp.async (A transposed on the way), three steps in
-//    flight.
+//  * float32 (matmul_tf32x3): the plan walk's "wgmma_tf32x3" body on the
+//    whole product as one cuboid, a persistent grid of at most one CTA per
+//    SM taking every gridDim.x-th 128 x 128 tile.
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -104,11 +107,6 @@ __device__ __forceinline__ void store_pair(bf16* p, int col, int cols,
     if (col >= 0 && col < cols) store_one(q, x0);
     if (col + 1 >= 0 && col + 1 < cols) store_one(q + 1, x1);
   }
-}
-__device__ __forceinline__ void store_pair(float* p, int col, int cols,
-                                           float x0, float x1) {
-  if (col >= 0 && col < cols) p[col] = x0;
-  if (col + 1 >= 0 && col + 1 < cols) p[col + 1] = x1;
 }
 
 // ---------------------------------------------------------------------------
@@ -272,121 +270,6 @@ mm_bf16_kernel(const unsigned short* __restrict__ a,
   float acc[MT][4][4];
   bf16_tile<VEC, MT>(a_s, b_s, a, b, n0, m0, n, m, k, lda, ldb, a_shift, acc);
   bf16_tile_store<bf16, MT>(acc, c, m, n0, m0, n, m);
-}
-
-// ---------------------------------------------------------------------------
-// float32 on CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kFK = 8;                         // k per step
-constexpr int kFStages = 4;                    // shared-memory buffers
-constexpr int kFStride = kBM + 4;              // [k][row], rows 16B-aligned
-constexpr int kFLoads = kBM * kFK / kThreads;  // 4 per thread, A and B each
-using FStage = float[kFK * kFStride];
-
-// acc = the 128 x 128 output tile at rows n0 and columns m0 of A @ B (A
-// n x k with row stride lda, B k x m with row stride ldb): thread
-// (tr, tc) = (tid / 16, tid % 16) owns rows 4 tr + {0..3} and
-// 64 + 4 tr + {0..3}, and the same columns from tc.  Returns with every
-// cp.async drained; the caller syncs before the stages are reused.
-__device__ __forceinline__ void f32_tile(FStage* a_s, FStage* b_s,
-                                         const float* __restrict__ a,
-                                         const float* __restrict__ b, int n0,
-                                         int m0, int n, int m, int k,
-                                         long long lda, long long ldb,
-                                         float (&acc)[8][8]) {
-  const int tid = threadIdx.x;
-  // per k, two 16-byte reads of A (a warp reads 2 distinct ones,
-  // broadcast) and two of B (16 consecutive per warp)
-  const int tr = tid >> 4, tc = tid & 15;
-
-  // k-step `step` into stage `buf`, one 4-byte cp.async per element (A
-  // transposed on the way), zero-filled past the edges
-  auto load = [&](int step, int buf) {
-    const int k0 = step * kFK;
-#pragma unroll
-    for (int i = 0; i < kFLoads; ++i) {
-      const int e = tid + kThreads * i;
-      const int r = e / kFK, col = e % kFK;  // A: 8 k values of a row
-      const int gr = n0 + r, gk = k0 + col;
-      const bool ok = gr < n && gk < k;
-      flash_mma::cp_async4(a_s[buf] + col * kFStride + r,
-                           ok ? a + gr * lda + gk : a, ok ? 4 : 0);
-      const int kr = e / kBN, bc = e % kBN;  // B: a row of 128 columns
-      const int gk2 = k0 + kr, gc = m0 + bc;
-      const bool ok2 = gk2 < k && gc < m;
-      flash_mma::cp_async4(b_s[buf] + kr * kFStride + bc,
-                           ok2 ? b + gk2 * ldb + gc : b, ok2 ? 4 : 0);
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int n_steps = (k + kFK - 1) / kFK;
-#pragma unroll
-  for (int st = 0; st < kFStages - 1; ++st) {
-    if (st < n_steps) load(st, st);
-    flash_mma::cp_async_commit();
-  }
-  for (int step = 0; step < n_steps; ++step) {
-    flash_mma::cp_async_wait<kFStages - 2>();
-    __syncthreads();
-    const int next = step + kFStages - 1;
-    if (next < n_steps) load(next, next % kFStages);
-    flash_mma::cp_async_commit();
-    const int buf = step % kFStages;
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float* ak = a_s[buf] + kk * kFStride;
-      const float* bk = b_s[buf] + kk * kFStride;
-      float av[8], bv[8];
-      *reinterpret_cast<float4*>(av) =
-          *reinterpret_cast<const float4*>(ak + 4 * tr);
-      *reinterpret_cast<float4*>(av + 4) =
-          *reinterpret_cast<const float4*>(ak + 64 + 4 * tr);
-      *reinterpret_cast<float4*>(bv) =
-          *reinterpret_cast<const float4*>(bk + 4 * tc);
-      *reinterpret_cast<float4*>(bv + 4) =
-          *reinterpret_cast<const float4*>(bk + 64 + 4 * tc);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-  flash_mma::cp_async_wait<0>();
-}
-
-// The tile of f32_tile at rows n0, columns m0 -> rows [0, n) and columns
-// [0, m) of the row-major matrix at c with row stride ldc.
-__device__ __forceinline__ void f32_tile_store(const float (&acc)[8][8],
-                                               float* c, long long ldc,
-                                               int n0, int m0, int n, int m) {
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = n0 + (i < 4 ? 4 * tr + i : 64 + 4 * tr + i - 4);
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 8; j += 2)
-      store_pair(c + row * ldc, m0 + (j < 4 ? 4 * tc + j : 64 + 4 * tc + j - 4),
-                 m, acc[i][j], acc[i][j + 1]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-mm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-              float* __restrict__ c, int n, int m, int k, long long lda,
-              long long ldb) {
-  __shared__ __align__(16) FStage a_s[kFStages];  // [k][row]
-  __shared__ __align__(16) FStage b_s[kFStages];  // [k][col]
-  const int n0 = blockIdx.y * kBM, m0 = blockIdx.x * kBN;
-  float acc[8][8];
-  f32_tile(a_s, b_s, a, b, n0, m0, n, m, k, lda, ldb, acc);
-  f32_tile_store(acc, c, m, n0, m0, n, m);
 }
 
 // ---------------------------------------------------------------------------
@@ -716,8 +599,8 @@ plan_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
-// ---- variants "mma_sync" (bf16) and "cuda_cores" (float32): 256 threads
-// walk the plan's tiles of 128 x 128 with the bodies of matmul.
+// ---- variant "mma_sync" (other bf16): 256 threads walk the plan's tiles
+// of 128 x 128 with the body of matmul.
 
 __global__ void __launch_bounds__(kThreads)
 plan_mma_kernel(const unsigned short* __restrict__ a,
@@ -747,29 +630,382 @@ plan_mma_kernel(const unsigned short* __restrict__ a,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-plan_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                float* __restrict__ c, float* __restrict__ ws, const Plan pl,
-                long long lda, long long ldb, int m) {
-  __shared__ __align__(16) FStage a_s[kFStages];
-  __shared__ __align__(16) FStage b_s[kFStages];
-  for (int ci = pl.proc_off[blockIdx.x]; ci < pl.proc_off[blockIdx.x + 1];
-       ++ci) {
-    const Cub q = cub_at(pl, ci);
+// ---- variant "wgmma_tf32x3": float32 as three TF32 products on wgmma
+//
+// The tensor cores have no f32 mode.  Each operand element x is split into
+// hi = x rounded to TF32 and lo = (x - hi) rounded to TF32, and each
+// product accumulates A_lo B_hi, A_hi B_lo and A_hi B_hi (small terms
+// first) in one set of f32 accumulators; the dropped A_lo B_lo is 2^-22 of
+// the product.  wgmma reads a TF32 operand as an f32 bit pattern and
+// ignores its low 13 bits, so both parts are rounded explicitly
+// (cvt.rna).  wgmma takes TF32 operands K-major only (the transpose bits
+// are for 16-bit types, and TMA does not transpose), so a pre-pass
+// (split_bt_kernel) writes B^T's hi and lo parts, (m x kp) each, kp = k
+// rounded up to 4 (TMA's 16-byte row pitch), into the caller's workspace;
+// A (n x k, K-major as it is) streams at f32 size through TMA where its row
+// stride is a multiple of 4 and its base 16-byte aligned (else
+// pad_a_kernel copies it into the workspace first) and is split in
+// registers, where wgmma takes it.  A CTA of two consumer warpgroups and a
+// producer warp walks 128 x 128 output tiles (each warpgroup 64 rows: one
+// m64n128k8 product per k8 slice and part) in k-steps of 32 through four
+// 48 KB stages (a 128 x 32 box of A, a 128 x 32 box each of B^T's hi and
+// lo, TMA's 128-byte swizzle).  The tensor cores' accumulator truncates:
+// summed over all of k in one accumulator, the three products drifted by
+// 1.5e-5 of the largest output at 2048^3 and 5.8e-5 at k = 8192 (linear
+// in k), past MM_TOL.  So wgmma sums each kTPromote k-steps (128 of k)
+// from zero, and that sum is added into a second f32 accumulator with
+// rounded adds (~2e-6 of the largest output at k = 8192; after every
+// k-step, ~1.4e-6 but 10% slower on an H100); that second set of
+// registers is why a warpgroup takes 64 rows, not 128.
+// A k-step of a cuboid starts at k0 rounded down to 4 elements (a box
+// starts a row on a 16-byte boundary) and A's columns outside [k0, k1) are
+// zeroed as they are split, hi and lo both.  What bounds it: per k, a tile
+// loads 128 x 4 bytes of A and 128 x 8 of B^T for 3 x 2 x 128 x 128 TF32
+// flops, 64 flops a byte from L2 against 495 TFLOP/s.  The split costs a
+// cvt, a subtraction and a cvt an element of A, on the CUDA cores beside
+// the products.
+
+constexpr int kTM = 128, kTN = 128, kTK = 32, kTStages = 4;
+constexpr int kTAStage = kTM * kTK * 4;          // 16 KB: A, f32
+constexpr int kTBBox = kTN * kTK * 4;            // 16 KB: B^T's hi or lo
+constexpr int kTStage = kTAStage + 2 * kTBBox;   // 48 KB
+constexpr int kTBar = kTStages * kTStage;        // full, then empty barriers
+constexpr size_t kTSmem = kTBar + 16 * kTStages + 1024;  // + alignment
+constexpr int kTKAlign = 4;   // a TMA box starts a row on 16 bytes
+constexpr int kTPromote = 4;  // k-steps wgmma sums before the f32 total
+
+// x rounded to TF32, to nearest with ties away from zero (cvt.rna), as an
+// f32 bit pattern whose low 13 bits are 0.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x -> its TF32 hi part and the remainder's TF32 lo part.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// B (k x m, row stride ldb) -> B^T's hi and lo parts, (m x kp) each,
+// zero in columns [k, kp): a 32 x 32 block a CTA, through shared memory
+// so that both the reads and the writes are whole rows of 128 bytes.
+__global__ void __launch_bounds__(256)
+split_bt_kernel(const float* __restrict__ b, long long ldb, int k, int m,
+                int kp, float* __restrict__ hi, float* __restrict__ lo) {
+  __shared__ float blk[32][33];
+  const int k0 = blockIdx.x * 32, m0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int r = ty; r < 32; r += 8) {
+    const int kk = k0 + r, mm = m0 + tx;
+    blk[r][tx] = (kk < k && mm < m) ? b[kk * ldb + mm] : 0.f;
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8) {
+    const int mm = m0 + r, kk = k0 + tx;
+    if (mm >= m || kk >= kp) continue;
+    uint32_t h, l;
+    split_tf32(blk[tx][r], h, l);
+    hi[(long long)mm * kp + kk] = __uint_as_float(h);
+    lo[(long long)mm * kp + kk] = __uint_as_float(l);
+  }
+}
+
+// A (n x k, row stride lda) -> (n x kp) contiguous, zero in [k, kp): for
+// an A that TMA cannot read in place.
+__global__ void __launch_bounds__(256)
+pad_a_kernel(const float* __restrict__ a, long long lda, int n, int k,
+             int kp, float* __restrict__ out) {
+  const long long total = (long long)n * kp;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < total;
+       i += (long long)gridDim.x * 256) {
+    const long long r = i / kp;
+    const int c = (int)(i - r * kp);
+    out[i] = c < k ? a[r * lda + c] : 0.f;
+  }
+}
+
+// d (64 x 128, f32) {=, +=} A (64 x 8, TF32 in registers: a0 (row g,
+// column t4), a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, t4 + 4) of the
+// warp's 16 rows) B (8 x 128, TF32 in shared memory through a K-major
+// descriptor).
+__device__ __forceinline__ void mma_tf32_n128(float* d, const uint32_t* a,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// The walk.  Plan mode (pl.proc_off set): CTA i walks its processor's
+// cuboids in plan order and each cuboid's tiles row by row.  Single mode
+// (pl.proc_off null; matmul): one cuboid, the whole (n, m, k) product
+// into C, CTA i taking tiles i, i + gridDim.x, ...
+__global__ void __launch_bounds__(kWThreads, 1)
+plan_tf32x3_kernel(const __grid_constant__ CUtensorMap a_map,
+                   const __grid_constant__ CUtensorMap hi_map,
+                   const __grid_constant__ CUtensorMap lo_map,
+                   float* __restrict__ c, float* __restrict__ ws,
+                   const Plan pl, int n, int m, int k) {
+  using namespace flash_wgmma;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  const unsigned char* gen = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t full = base + kTBar, empty = full + 8 * kTStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kWConsumers / 32);   // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const bool single = pl.proc_off == nullptr;
+  const int c_lo = single ? 0 : pl.proc_off[blockIdx.x];
+  const int c_hi = single ? 1 : pl.proc_off[blockIdx.x + 1];
+  const int t0 = single ? blockIdx.x : 0, t_step = single ? gridDim.x : 1;
+  auto cuboid = [&](int ci) {
+    return single ? Cub{0, n, 0, m, 0, k, m} : cub_at(pl, ci);
+  };
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every load
+    regs_dealloc<kWProducerRegs>();
+    if (threadIdx.x != kWConsumers) return;
+    prefetch_map(&a_map);
+    prefetch_map(&hi_map);
+    prefetch_map(&lo_map);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int ci = c_lo; ci < c_hi; ++ci) {
+      const Cub q = cuboid(ci);
+      const int k_al = q.k0 - q.k0 % kTKAlign;
+      const int tm = (q.m1 - q.m0 + kTN - 1) / kTN;
+      const int tiles = (q.n1 - q.n0 + kTM - 1) / kTM * tm;
+      for (int t = t0; t < tiles; t += t_step) {
+        const int row0 = q.n0 + (t / tm) * kTM, col0 = q.m0 + (t % tm) * kTN;
+        for (int kb = k_al; kb < q.k1; kb += kTK) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          const uint32_t bar = full + 8 * stage;
+          mbar_expect_tx(bar, kTStage);
+          const uint32_t st = base + stage * kTStage;
+          tma_load_2d(st, &a_map, bar, kb, row0);
+          tma_load_2d(st + kTAStage, &hi_map, bar, kb, col0);
+          tma_load_2d(st + kTAStage + kTBBox, &lo_map, bar, kb, col0);
+          if (++stage == kTStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg holds rows 64 wg .. 64 wg + 63 of a tile
+  regs_alloc<kWConsumerRegs>();
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[64];   // up to kTPromote k-steps' products (wgmma)
+  float tot[64];   // the tile's sum (rounded f32 adds)
+  // A's parts of a k8 slice, two slices in flight: [slice & 1][hi 0-3,
+  // lo 4-7]
+  uint32_t fr[2][8];
+  for (int ci = c_lo; ci < c_hi; ++ci) {
+    const Cub q = cuboid(ci);
     const int nc = q.n1 - q.n0, mc = q.m1 - q.m0;
-    const int tm = (mc + kBN - 1) / kBN;
-    const int tiles = (nc + kBM - 1) / kBM * tm;
-    const Dest<float> d = dest_of(pl, ci, q, c, ws, m);
-    const float* ac = a + q.n0 * lda + q.k0;
-    const float* bc = b + q.k0 * ldb + q.m0;
-    for (int t = 0; t < tiles; ++t) {
-      const int n0 = (t / tm) * kBM, m0 = (t % tm) * kBN;
-      float acc[8][8];
-      f32_tile(a_s, b_s, ac, bc, n0, m0, nc, mc, q.k1 - q.k0, lda, ldb, acc);
-      f32_tile_store(acc, d.p, d.ld, n0, m0, nc, mc);
-      __syncthreads();   // the stages are the next tile's
+    const int k_al = q.k0 - q.k0 % kTKAlign;
+    const int tm = (mc + kTN - 1) / kTN;
+    const int tiles = (nc + kTM - 1) / kTM * tm;
+    const Dest<float> d =
+        single ? Dest<float>{c, m} : dest_of(pl, ci, q, c, ws, m);
+    for (int t = t0; t < tiles; t += t_step) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) tot[j] = 0.f;
+      int held = -1;   // the stage whose products may still be in flight
+      int steps = 0;   // k-steps in acc since it was last added to tot
+      for (int kb = k_al; kb < q.k1; kb += kTK) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t sb = base + stage * kTStage + kTAStage;
+        const float* as =
+            reinterpret_cast<const float*>(gen + stage * kTStage);
+        // A's columns kept: [lo_k, hi_k) of this step's 32
+        const int lo_k = q.k0 - kb, hi_k = q.k1 - kb;
+        const bool edge = lo_k > 0 || hi_k < kTK;
+#pragma unroll
+        for (int s = 0; s < kTK / 8; ++s) {
+          uint32_t (&f)[8] = fr[s & 1];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // row r's 16-byte unit j sits at unit j ^ (r % 8) (TMA's
+            // 128-byte swizzle): a warp's 32 reads hit 32 banks
+            const int r = 64 * wg + 16 * warp + g + 8 * (e & 1);
+            const int col = 8 * s + t4 + 4 * (e >> 1);
+            float x = as[r * kTK + (((col >> 2) ^ (r & 7)) << 2) + (col & 3)];
+            if (edge && (col < lo_k || col >= hi_k)) x = 0.f;
+            split_tf32(x, f[e], f[4 + e]);
+          }
+          wg_fence();
+          const uint64_t dhi = desc_k(sb, kTN, 0, s);
+          const uint64_t dlo = desc_k(sb + kTBBox, kTN, 0, s);
+          mma_tf32_n128(acc, f + 4, dhi, s > 0 || steps > 0);   // A_lo B_hi
+          mma_tf32_n128(acc, f, dlo, 1);           // A_hi B_lo
+          mma_tf32_n128(acc, f, dhi, 1);           // A_hi B_hi
+          wg_commit();
+          wg_wait<1>();   // the previous slice's products have landed
+          if (s == 0 && held >= 0) {
+            if (lane == 0) mbar_arrive(empty + 8 * held);
+            held = -1;
+          }
+        }
+        if (++steps == kTPromote || kb + kTK >= q.k1) {
+          wg_wait<0>();
+          fence_regs<64>(acc);
+          if (lane == 0) mbar_arrive(empty + 8 * stage);
+#pragma unroll
+          for (int j = 0; j < 64; ++j) tot[j] += acc[j];
+          steps = 0;
+        } else {
+          held = stage;
+        }
+        if (++stage == kTStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // f32 pairs straight from the sums: a warp's store covers 8 rows x
+      // 32 bytes, whole sectors
+      const int rt = (t / tm) * kTM, ct = (t % tm) * kTN;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = rt + 64 * wg + 16 * warp + g + 8 * hh;
+        if (row >= nc) continue;
+        float* dst = d.p + (long long)row * d.ld;
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          const int col = ct + 8 * nt + 2 * t4;
+          const float x0 = tot[4 * nt + 2 * hh], x1 = tot[4 * nt + 2 * hh + 1];
+          float* p = dst + col;
+          if (col + 1 < mc && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+            *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+          } else {
+            if (col < mc) p[0] = x0;
+            if (col + 1 < mc) p[1] = x1;
+          }
+        }
+      }
     }
   }
+}
+
+// A (rows x cols f32, row stride ld) as a 2-D tensor map, boxes of 32
+// columns (128 bytes) x box_rows rows, 128-byte swizzle.
+bool map_f32(CUtensorMap* map, const void* p, int rows, int cols,
+             long long ld, int box_rows) {
+  const flash_wgmma::EncodeTiled enc = flash_wgmma::encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)kTK, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(p),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// TMA reads A in place when its rows are 16-byte aligned.
+bool a_in_place(const void* a, long long lda) {
+  return lda % 4 == 0 && (uintptr_t)a % 16 == 0;
+}
+
+long long split_floats(int n, int m, int k, long long lda, const void* a) {
+  const long long kp = (k + 3) / 4 * 4;
+  return 2 * kp * m + (a_in_place(a, lda) ? 0 : kp * n);
+}
+
+// The pre-passes into ws (B^T's hi and lo parts, then A padded where TMA
+// cannot read it in place), the three maps, and the walk's launch checks.
+// Returns the CUDA error (0 when none).
+int tf32x3_prepare(const void* a, const void* b, float* ws,
+                   long long ws_floats, int n, int m, int k, long long lda,
+                   long long ldb, cudaStream_t st, CUtensorMap* am,
+                   CUtensorMap* him, CUtensorMap* lom) {
+  if (ws == nullptr || ws_floats < split_floats(n, m, k, lda, a) ||
+      (uintptr_t)ws % 16)
+    return (int)cudaErrorInvalidValue;
+  // setmaxnreg moves registers from the producer to the consumers on the
+  // assumption that each of the 384 threads got 168
+  static int regs = -1;
+  if (regs < 0) {
+    cudaFuncAttributes fa;
+    const cudaError_t e = cudaFuncGetAttributes(&fa, plan_tf32x3_kernel);
+    if (e != cudaSuccess) return (int)e;
+    regs = fa.numRegs;
+  }
+  if (regs != 168) return (int)cudaErrorInvalidConfiguration;
+  static size_t opted = 48 * 1024;
+  cudaError_t e = allow_smem(plan_tf32x3_kernel, kTSmem, &opted);
+  if (e != cudaSuccess) return (int)e;
+  const int kp = (k + 3) / 4 * 4;
+  float* hi = ws;
+  float* lo = ws + (long long)m * kp;
+  split_bt_kernel<<<dim3((kp + 31) / 32, (m + 31) / 32), 256, 0, st>>>(
+      static_cast<const float*>(b), ldb, k, m, kp, hi, lo);
+  const void* a_src = a;
+  long long a_ld = lda;
+  int a_cols = k;
+  if (!a_in_place(a, lda)) {
+    float* pad = lo + (long long)m * kp;
+    const long long total = (long long)n * kp;
+    const int blocks = (int)((total + 255) / 256 < 65535 ? (total + 255) / 256
+                                                         : 65535);
+    pad_a_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(a), lda,
+                                          n, k, kp, pad);
+    a_src = pad;
+    a_ld = kp;
+    a_cols = kp;
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (!map_f32(am, a_src, n, a_cols, a_ld, kTM) ||
+      !map_f32(him, hi, m, kp, kp, kTN) || !map_f32(lom, lo, m, kp, kp, kTN))
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 // SMs of the current device, read once.
@@ -786,82 +1022,108 @@ int sm_count() {
 
 }  // namespace
 
-// dtype 0 = float32, 1 = bfloat16.  a (n, k) with row stride lda, b (k, m)
-// with row stride ldb, c (n, m) contiguous; n, m >= 1, k >= 0.  Returns the
-// CUDA error of the launch (0 when none).
+// dtype 1 = bfloat16 (float32 takes matmul_tf32x3).  a (n, k) with row
+// stride lda, b (k, m) with row stride ldb, c (n, m) contiguous; n, m >= 1,
+// k >= 0.  Returns the CUDA error of the launch (0 when none).
 extern "C" int matmul(int dtype, const void* a, const void* b, void* c,
                       int n, int m, int k, long long lda, long long ldb,
                       void* stream) {
-  if (n < 1 || m < 1 || k < 0 || (n + kBM / 2 - 1) / (kBM / 2) > 65535)
+  if (dtype != 1 || n < 1 || m < 1 || k < 0 ||
+      (n + kBM / 2 - 1) / (kBM / 2) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    const bool vec = lda % 8 == 0 && ldb % 8 == 0;
-    // the 16-byte phase of each operand, in elements (bf16 is 2 bytes)
-    const int a_shift = vec ? (int)(((uintptr_t)a >> 1) & 7) : 0;
-    const int b_shift = vec ? (int)(((uintptr_t)b >> 1) & 7) : 0;
-    // 128-row tiles, or 64-row ones when 128-row tiles would give fewer
-    // than two CTAs per SM (a PACO cuboid such as 1024 x 2048 makes 128)
-    const int cols = (m + b_shift + kBN - 1) / kBN;
-    const bool tall = (long long)cols * ((n + kBM - 1) / kBM) >= 2 * sm_count();
-    const int bm = tall ? kBM : kBM / 2;
-    const dim3 grid(cols, (n + bm - 1) / bm);
-    auto kernel = tall ? (vec ? mm_bf16_kernel<true, 4>
-                              : mm_bf16_kernel<false, 4>)
-                       : (vec ? mm_bf16_kernel<true, 2>
-                              : mm_bf16_kernel<false, 2>);
-    static size_t opted[2][2] = {{48 * 1024, 48 * 1024},
-                                 {48 * 1024, 48 * 1024}};
-    const cudaError_t e = allow_smem(kernel, kBf16Smem, &opted[tall][vec]);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<grid, kThreads, kBf16Smem, st>>>(
-        static_cast<const unsigned short*>(a),
-        static_cast<const unsigned short*>(b), static_cast<bf16*>(c), n, m, k,
-        lda, ldb, a_shift, b_shift);
-  } else if (dtype == 0) {
-    const dim3 grid((m + kBN - 1) / kBN, (n + kBM - 1) / kBM);
-    mm_f32_kernel<<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<float*>(c), n, m, k, lda, ldb);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const bool vec = lda % 8 == 0 && ldb % 8 == 0;
+  // the 16-byte phase of each operand, in elements (bf16 is 2 bytes)
+  const int a_shift = vec ? (int)(((uintptr_t)a >> 1) & 7) : 0;
+  const int b_shift = vec ? (int)(((uintptr_t)b >> 1) & 7) : 0;
+  // 128-row tiles, or 64-row ones when 128-row tiles would give fewer than
+  // two CTAs per SM (a PACO cuboid such as 1024 x 2048 makes 128)
+  const int cols = (m + b_shift + kBN - 1) / kBN;
+  const bool tall = (long long)cols * ((n + kBM - 1) / kBM) >= 2 * sm_count();
+  const int bm = tall ? kBM : kBM / 2;
+  const dim3 grid(cols, (n + bm - 1) / bm);
+  auto kernel = tall ? (vec ? mm_bf16_kernel<true, 4>
+                            : mm_bf16_kernel<false, 4>)
+                     : (vec ? mm_bf16_kernel<true, 2>
+                            : mm_bf16_kernel<false, 2>);
+  static size_t opted[2][2] = {{48 * 1024, 48 * 1024},
+                               {48 * 1024, 48 * 1024}};
+  const cudaError_t e = allow_smem(kernel, kBf16Smem, &opted[tall][vec]);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, kThreads, kBf16Smem, st>>>(
+      static_cast<const unsigned short*>(a),
+      static_cast<const unsigned short*>(b), static_cast<bf16*>(c), n, m, k,
+      lda, ldb, a_shift, b_shift);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 // The plan variants, numbered as the wrapper's PLAN_VARIANTS.
-enum { kPlanCudaCores = 0, kPlanMmaSync = 1, kPlanWgmma = 2 };
+enum { kPlanTf32x3 = 0, kPlanMmaSync = 1, kPlanWgmma = 2 };
 
 // The output tile a variant walks, and the cells of the output whose
 // parts are summed together: the wrapper builds its tables for them.
 int matmul_plan_tile_rows(int variant) {
-  return variant == kPlanWgmma ? kWM : kBM;
+  return variant == kPlanWgmma ? kWM : variant == kPlanTf32x3 ? kTM : kBM;
 }
 int matmul_plan_tile_cols(int variant) {
-  return variant == kPlanWgmma ? kWN : kBN;
+  return variant == kPlanWgmma ? kWN : variant == kPlanTf32x3 ? kTN : kBN;
 }
 int matmul_plan_cell_rows() { return kCellRows; }
 int matmul_plan_cell_cols() { return kCellCols; }
 
+// The floats of workspace the float32 entries need beside C (and the
+// plan's parts): B^T's TF32 hi and lo parts, (m x kp) each with kp = k
+// rounded up to 4, and A padded to (n x kp) unless its row stride is a
+// multiple of 4 and its base 16-byte aligned.
+long long matmul_tf32x3_ws_floats(int n, int m, int k, long long lda,
+                                  const void* a) {
+  return split_floats(n, m, k, lda, a);
+}
+
+// float32 C = A @ B as three TF32 products (variant "wgmma_tf32x3"): the
+// pre-passes into ws (ws_floats of it, matmul_tf32x3_ws_floats), then the
+// walk over every tile, at most one CTA per SM.  a (n, k) row stride lda,
+// b (k, m) row stride ldb, c (n, m) contiguous; n, m >= 1, k >= 0.
+// Returns the CUDA error of the launches.
+int matmul_tf32x3(const void* a, const void* b, void* c, void* ws,
+                  long long ws_floats, int n, int m, int k, long long lda,
+                  long long ldb, void* stream) {
+  if (n < 1 || m < 1 || k < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k == 0)
+    return (int)cudaMemsetAsync(c, 0, sizeof(float) * (size_t)n * m, st);
+  CUtensorMap am, him, lom;
+  const int e = tf32x3_prepare(a, b, static_cast<float*>(ws), ws_floats, n,
+                               m, k, lda, ldb, st, &am, &him, &lom);
+  if (e) return e;
+  const long long tiles =
+      (long long)((n + kTM - 1) / kTM) * ((m + kTN - 1) / kTN);
+  const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
+  plan_tf32x3_kernel<<<grid, kWThreads, kTSmem, st>>>(
+      am, him, lom, static_cast<float*>(c), nullptr,
+      Plan{nullptr, nullptr, nullptr, nullptr, nullptr}, n, m, k);
+  return (int)cudaGetLastError();
+}
+
 // Every cuboid of a plan, one CTA per processor (n_ctas of them), then,
 // when cuboids share outputs (n_cells > 0), the sums of their parts.
-// dtype 0 = float32 (variant 0), 1 = bfloat16 (variant 1, or 2 when TMA
-// takes the operands: row strides multiples of 8, bases 16-byte aligned).
-// a (n, k) row stride lda, b (k, m) row stride ldb, c (n, m) contiguous;
-// ws: the parts of the cuboids that share outputs; the table pointers as
-// Plan says.  Returns the CUDA error of the launches.
+// bfloat16 only (dtype 1; float32 takes matmul_plan_tf32x3): variant 1,
+// or 2 when TMA takes the operands (row strides multiples of 8, bases
+// 16-byte aligned).  a (n, k) row stride lda, b (k, m) row stride ldb, c
+// (n, m) contiguous; ws: the parts of the cuboids that share outputs; the
+// table pointers as Plan says.  Returns the CUDA error of the launches.
 int matmul_plan(int dtype, int variant, const void* a, const void* b,
                 void* c, void* ws, const int* proc_off, const int* cub,
                 const long long* ws_off, const int* cell, const int* cell_mem,
                 int n_ctas, int n_cells, int n, int m, int k, long long lda,
                 long long ldb, void* stream) {
-  if (n_ctas < 1 || n_cells < 0 || n < 1 || m < 1 || k < 1)
+  if (dtype != 1 || n_ctas < 1 || n_cells < 0 || n < 1 || m < 1 || k < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Plan pl{proc_off, cub, ws_off, cell, cell_mem};
-  if (dtype == 1 && variant == kPlanWgmma) {
+  if (variant == kPlanWgmma) {
     if (lda % 8 || ldb % 8 || (uintptr_t)a % 16 || (uintptr_t)b % 16)
       return (int)cudaErrorInvalidValue;
     // setmaxnreg moves registers from the producer to the consumers on
@@ -883,7 +1145,7 @@ int matmul_plan(int dtype, int variant, const void* a, const void* b,
       return (int)cudaErrorInvalidValue;
     plan_wgmma_kernel<<<n_ctas, kWThreads, kWSmem, st>>>(
         am, bm, static_cast<bf16*>(c), static_cast<bf16*>(ws), pl, m);
-  } else if (dtype == 1 && variant == kPlanMmaSync) {
+  } else if (variant == kPlanMmaSync) {
     static size_t opted = 48 * 1024;
     const cudaError_t e = allow_smem(plan_mma_kernel, kBf16Smem, &opted);
     if (e != cudaSuccess) return (int)e;
@@ -891,21 +1153,42 @@ int matmul_plan(int dtype, int variant, const void* a, const void* b,
         static_cast<const unsigned short*>(a),
         static_cast<const unsigned short*>(b), static_cast<bf16*>(c),
         static_cast<bf16*>(ws), pl, lda, ldb, m);
-  } else if (dtype == 0 && variant == kPlanCudaCores) {
-    plan_f32_kernel<<<n_ctas, kThreads, 0, st>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<float*>(c), static_cast<float*>(ws), pl, lda, ldb, m);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_cells == 0) return (int)e;
-  if (dtype == 1)
-    plan_sum_kernel<bf16><<<n_cells, kSumThreads, 0, st>>>(
-        static_cast<const bf16*>(ws), static_cast<bf16*>(c), pl, m);
-  else
-    plan_sum_kernel<float><<<n_cells, kSumThreads, 0, st>>>(
-        static_cast<const float*>(ws), static_cast<float*>(c), pl, m);
+  plan_sum_kernel<bf16><<<n_cells, kSumThreads, 0, st>>>(
+      static_cast<const bf16*>(ws), static_cast<bf16*>(c), pl, m);
+  return (int)cudaGetLastError();
+}
+
+// matmul_plan in float32, variant "wgmma_tf32x3": the pre-passes into
+// split (split_len floats of it, matmul_tf32x3_ws_floats), the walk, one CTA
+// per processor, then the k-cuts' sums.  Arguments otherwise as
+// matmul_plan's (ws: the parts of the cuboids that share outputs).
+int matmul_plan_tf32x3(const void* a, const void* b, void* c, void* ws,
+                       void* split, long long split_len, const int* proc_off,
+                       const int* cub, const long long* ws_off,
+                       const int* cell, const int* cell_mem, int n_ctas,
+                       int n_cells, int n, int m, int k, long long lda,
+                       long long ldb, void* stream) {
+  if (n_ctas < 1 || n_cells < 0 || n < 1 || m < 1 || k < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan pl{proc_off, cub, ws_off, cell, cell_mem};
+  CUtensorMap am, him, lom;
+  const int err = tf32x3_prepare(a, b, static_cast<float*>(split),
+                                 split_len, n, m, k, lda, ldb, st, &am,
+                                 &him, &lom);
+  if (err) return err;
+  plan_tf32x3_kernel<<<n_ctas, kWThreads, kTSmem, st>>>(
+      am, him, lom, static_cast<float*>(c), static_cast<float*>(ws), pl, n,
+      m, k);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_cells == 0) return (int)e;
+  plan_sum_kernel<float><<<n_cells, kSumThreads, 0, st>>>(
+      static_cast<const float*>(ws), static_cast<float*>(c), pl, m);
   return (int)cudaGetLastError();
 }
 

@@ -115,12 +115,13 @@ def sass_counts(lib_names: tuple[str, ...],
 
 
 @functools.cache
-def c_function(lib_name: str, fn_name: str, argtypes: tuple = ()):
+def c_function(lib_name: str, fn_name: str, argtypes: tuple = (),
+               restype=ctypes.c_int):
     """``fn_name`` of the library built from ``csrc/<lib_name>.cu``, with
     its argument types set (``ctypes.c_void_p`` for each pointer and the
-    stream, so that none is cut to 32 bits) and an int return: the CUDA
-    error of the launch, 0 when none."""
+    stream, so that none is cut to 32 bits) and its return type: by
+    default an int, the CUDA error of the launch, 0 when none."""
     fn = getattr(LIBS.get(lib_name), fn_name)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn

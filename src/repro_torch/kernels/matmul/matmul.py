@@ -8,7 +8,9 @@ they take any n, m and k: their loads are predicated and zero-filled at
 the ragged edges.
 
 ``matmul_kernel`` is one product (a Strassen leaf, ``ops.matmul``).  A and
-B may be views with a row stride, read in place.
+B may be views with a row stride, read in place.  It counts its launches
+by variant too (``variants``): ``"mma_sync"`` (bf16) and
+``"wgmma_tf32x3"`` (float32).
 
 ``matmul_plan_kernel`` is a whole PACO matmul plan in one launch, one CTA
 per processor walking its cuboids (``paco_matmul`` on the card).  Each
@@ -22,11 +24,22 @@ cells); the device copy is built once per plan and kept.  Besides
 ``launches``, the wrapper counts the cuboids it walked (``cuboids``) and
 its launches by variant (``variants``): ``"wgmma"`` (bf16 through TMA and
 wgmma, when both row strides are multiples of 8 and both bases 16-byte
-aligned), ``"mma_sync"`` (other bf16) and ``"cuda_cores"`` (float32).
+aligned), ``"mma_sync"`` (other bf16) and ``"wgmma_tf32x3"`` (float32).
+
+Float32 runs on the tensor cores as three TF32 products: each operand
+split into a TF32 hi part and the TF32-rounded rest (lo), and A_lo B_hi +
+A_hi B_lo + A_hi B_hi summed in float32.  That holds the product to
+float32 accuracy: at k = 8192 on normal operands 1.6e-6 to 2.7e-6 of the
+largest output on an H100 (6e-7 in tests/test_torch_paco_kernels.py's
+CPU emulation), against MM_TOL's 1e-5, where one TF32 product errs by
+2.5e-4.  The float32 entries need a workspace for B^T's parts (and for A
+where TMA cannot read it in place), which the wrappers allocate; the
+plain versions stay true float32.
 
 What bounds them on the card: operations, 2 n m k flops at 989 TFLOP/s in
-bf16 (tensor cores) or 67 TFLOP/s in float32 (CUDA cores, true float32,
-not TF32).  ``csrc/matmul.cu``'s header says what the designs do about it.
+bf16; in float32 3 x 2 n m k TF32 flops at 495 TFLOP/s
+(``kernels.work.matmul_tf32x3_work``).  ``csrc/matmul.cu``'s header says
+what the designs do about it.
 
 The wrappers check device, dtype, shape and strides and raise on anything
 else, allocate C (and the plan's workspace) with ``torch.empty``, launch
@@ -56,10 +69,10 @@ INT32_MAX = 2 ** 31 - 1
 # tile each walks (wgmma's first tile column starts at a cuboid's m0
 # rounded down to a multiple of PLAN_COL_ALIGN: its TMA boxes start a row
 # on a 16-byte boundary), and the cells the sum pass takes one per CTA.
-PLAN_VARIANTS = ("cuda_cores", "mma_sync", "wgmma")
-PLAN_TILES = {"cuda_cores": (128, 128), "mma_sync": (128, 128),
+PLAN_VARIANTS = ("wgmma_tf32x3", "mma_sync", "wgmma")
+PLAN_TILES = {"wgmma_tf32x3": (128, 128), "mma_sync": (128, 128),
               "wgmma": (128, 256)}
-PLAN_COL_ALIGN = {"cuda_cores": 1, "mma_sync": 1, "wgmma": 8}
+PLAN_COL_ALIGN = {"wgmma_tf32x3": 1, "mma_sync": 1, "wgmma": 8}
 PLAN_CELL = (128, 256)
 
 
@@ -98,7 +111,8 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
 
 
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A @ B (``csrc/matmul.cu``: ``matmul``).
+    """C = A @ B (``csrc/matmul.cu``: ``matmul`` in bf16,
+    ``matmul_tf32x3`` in float32).
 
     a (n, k) and b (k, m): float32 or bfloat16, the same dtype, on one
     CUDA device, each with unit column stride and any row stride.  Returns
@@ -116,19 +130,39 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _work.tracing(a) and _work.record_call("matmul", a, lambda fake: (
             _work.matmul_work(n, m, k, a.element_size()))):
         return out
-    fn = c_function("matmul", "matmul", (_I, _P, _P, _P, _I, _I, _I, _L, _L,
-                                         _P))
     with torch.cuda.device(a.device):
-        err = fn(_DTYPES[a.dtype], a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 n, m, k, lda, ldb,
-                 torch.cuda.current_stream(a.device).cuda_stream)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        if a.dtype == torch.float32:
+            split = _split_workspace(a, n, m, k, lda)
+            err = c_function("matmul", "matmul_tf32x3", (
+                _P, _P, _P, _P, _L, _I, _I, _I, _L, _L, _P))(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), split.data_ptr(),
+                split.numel(), n, m, k, lda, ldb, stream)
+        else:
+            err = c_function("matmul", "matmul", (
+                _I, _P, _P, _P, _I, _I, _I, _L, _L, _P))(
+                _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                n, m, k, lda, ldb, stream)
     if err:
         raise RuntimeError(f"matmul launch failed: CUDA error {err}")
     matmul_kernel.launches += 1
+    matmul_kernel.variants["wgmma_tf32x3" if a.dtype == torch.float32
+                           else "mma_sync"] += 1
     return out
 
 
 matmul_kernel.launches = 0
+matmul_kernel.variants = collections.Counter()
+
+
+def _split_workspace(a: torch.Tensor, n: int, m: int, k: int,
+                     lda: int) -> torch.Tensor:
+    """The float32 entries' workspace: B^T's TF32 hi and lo parts, and A
+    padded where TMA cannot read it in place (``csrc/matmul.cu``:
+    ``matmul_tf32x3_ws_floats`` sizes it)."""
+    floats = c_function("matmul", "matmul_tf32x3_ws_floats",
+                        (_I, _I, _I, _L, _P), _L)(n, m, k, lda, a.data_ptr())
+    return torch.empty(max(floats, 4), dtype=torch.float32, device=a.device)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +310,7 @@ def _device_table(plan, device: torch.device) -> _DeviceTable:
 def plan_variant(a: torch.Tensor, b: torch.Tensor) -> str:
     """The variant ``matmul_plan_kernel`` takes for these operands."""
     if a.dtype == torch.float32:
-        return "cuda_cores"
+        return "wgmma_tf32x3"
     tma = (_row_stride("a", a) % 8 == 0 and _row_stride("b", b) % 8 == 0
            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     return "wgmma" if tma else "mma_sync"
@@ -304,7 +338,9 @@ def matmul_plan_kernel(a: torch.Tensor, b: torch.Tensor, plan
                        ) -> torch.Tensor:
     """Every cuboid of ``plan`` (a ``core.cuboid.MMPlan`` for a (n, k) x
     (k, m) product) in one launch of ``csrc/matmul.cu``: ``matmul_plan``
-    (and, where k is cut, one launch of the sums; counted as one).
+    in bf16, ``matmul_plan_tf32x3`` in float32 (with, where k is cut, one
+    launch of the sums, and in float32 the pre-pass before the walk;
+    counted as one).
 
     a (n, k) and b (k, m): float32 or bfloat16, the same dtype, on one
     CUDA device, each with unit column stride and any row stride.  Returns
@@ -335,17 +371,25 @@ def matmul_plan_kernel(a: torch.Tensor, b: torch.Tensor, plan
     if not _check_library_tiles.done:
         _check_library_tiles()
     variant = plan_variant(a, b)
-    fn = c_function("matmul", "matmul_plan",
-                    (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                     _I, _I, _L, _L, _P))
     p_off, p_cub, p_cell, p_mem = table.ptrs
+    tables = (p_off, p_cub, table.ws_off.data_ptr(), p_cell, p_mem,
+              table.host.n_ctas, len(table.host.cell), n, m, k, lda, ldb)
     with torch.cuda.device(a.device):
-        err = fn(_DTYPES[a.dtype], PLAN_VARIANTS.index(variant), a.data_ptr(),
-                 b.data_ptr(), out.data_ptr(),
-                 None if ws is None else ws.data_ptr(), p_off, p_cub,
-                 table.ws_off.data_ptr(), p_cell, p_mem, table.host.n_ctas,
-                 len(table.host.cell), n, m, k, lda, ldb,
-                 torch.cuda.current_stream(a.device).cuda_stream)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        ws_ptr = None if ws is None else ws.data_ptr()
+        if variant == "wgmma_tf32x3":
+            split = _split_workspace(a, n, m, k, lda)
+            err = c_function("matmul", "matmul_plan_tf32x3", (
+                _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                _I, _L, _L, _P))(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), ws_ptr,
+                split.data_ptr(), split.numel(), *tables, stream)
+        else:
+            err = c_function("matmul", "matmul_plan", (
+                _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                _I, _L, _L, _P))(
+                _DTYPES[a.dtype], PLAN_VARIANTS.index(variant), a.data_ptr(),
+                b.data_ptr(), out.data_ptr(), ws_ptr, *tables, stream)
     if err:
         raise RuntimeError(f"matmul_plan launch failed: CUDA error {err}")
     matmul_plan_kernel.launches += 1

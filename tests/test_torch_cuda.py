@@ -1051,6 +1051,52 @@ def test_matmul_kernel_reads_strided_views(cuda, dtype, tol):
         assert _rel(matmul_kernel(a, b), want) <= tol
 
 
+# float32 through three TF32 products (variant "wgmma_tf32x3"): k not a
+# multiple of 4 (A padded by the pre-pass where its row stride is not a
+# multiple of 4), k = 8192 (the long sum that one accumulator over all of k
+# let drift past MM_TOL), a Strassen leaf
+TF32_SHAPES = [(1, 1, 1), (17, 23, 31), (129, 33, 257), (1, 4099, 3),
+               (130, 4097, 131), (128, 8192, 128), (2048, 2048, 2048)]
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_matmul_kernel_f32_is_wgmma_tf32x3_and_repeats_bitwise(cuda, shape):
+    """float32 counts variant ``wgmma_tf32x3``, is within MM_TOL of the
+    true-f32 plain version, and is the same bit for bit over two calls."""
+    from repro_torch.kernels.matmul import matmul_kernel, matmul_ref
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+    n, k, m = shape
+    a = _rand(gen, n, k, dtype=torch.float32)
+    b = _rand(gen, k, m, dtype=torch.float32)
+    before = matmul_kernel.variants.copy()
+    got = matmul_kernel(a, b)
+    again = matmul_kernel(a, b)
+    torch.cuda.synchronize()
+    assert matmul_kernel.variants - before == {"wgmma_tf32x3": 2}
+    assert torch.equal(got, again)
+    assert _rel(got, matmul_ref(a, b)) <= 1e-5
+
+
+def test_matmul_kernel_f32_views_repeat_bitwise(cuda):
+    """Views in float32: row strides of 400 (TMA reads A in place), 61 and
+    a base 4 bytes off 16 (the pre-pass pads A), B at any column; within
+    MM_TOL and the same bit for bit over two calls, all ``wgmma_tf32x3``."""
+    from repro_torch.kernels.matmul import matmul_kernel, matmul_ref
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    big_a = _rand(gen, 300, 400, dtype=torch.float32)
+    big_b = _rand(gen, 400, 500, dtype=torch.float32)
+    odd = _rand(gen, 40, 61, dtype=torch.float32)
+    pairs = [(big_a[3:200, 8:190], big_b[8:190, 11:300]),
+             (big_a[3:200, 7:190], big_b[7:190, 1:2]),
+             (odd[:, 2:], big_b[:59, 1:9])]
+    before = matmul_kernel.variants.copy()
+    for a, b in pairs:
+        got = matmul_kernel(a, b)
+        assert torch.equal(got, matmul_kernel(a, b))
+        assert _rel(got, matmul_ref(a.contiguous(), b.contiguous())) <= 1e-5
+    assert matmul_kernel.variants - before == {"wgmma_tf32x3": 2 * len(pairs)}
+
+
 def test_ops_matmul_launches_the_kernel_where_no_block_divides(cuda):
     """17 x 23 x 31: no size in (128, 64, 32, 16, 8) divides a dimension,
     where repro's ops.matmul falls back to jnp.dot; here the kernel runs."""
@@ -1129,7 +1175,7 @@ def test_matmul_plan_kernel_matches_plain_and_repeats_bitwise(cuda, dtype,
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     assert _rel(got, matmul_plan_ref(a, b, pl)) <= tol
-    want = ("cuda_cores" if dtype == torch.float32 else
+    want = ("wgmma_tf32x3" if dtype == torch.float32 else
             "wgmma" if k % 8 == 0 and m % 8 == 0 else "mma_sync")
     assert matmul_plan_kernel.variants - variants == {want: 2}
 

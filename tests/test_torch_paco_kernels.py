@@ -4,10 +4,14 @@ interpret mode (``matmul_pallas``, ``lcs_tile_pallas``) and against
 ``lcs_pallas``, on numpy inputs from a seed.
 
 - ``emulate_matmul`` walks ``csrc/matmul.cu``: one 128 x 128 output tile
-  per CTA, k in steps of 32 (bf16, each step two m16n8k16 tensor-core
-  products of bf16 operands into f32) or 8 (float32, one FMA per k), loads
-  zero-filled past the ragged edges, one f32 accumulator flushed once in
-  ``a.dtype``.
+  per CTA, k in steps of 32, loads zero-filled past the ragged edges; bf16:
+  each step two m16n8k16 tensor-core products of bf16 operands into one
+  f32 accumulator flushed once in bf16; float32 (``wgmma_tf32x3``): each
+  operand split into TF32 hi and lo parts (``tf32_split``: round to
+  nearest, ties away, by int32 bit operations), per k8 slice A_lo B_hi +
+  A_hi B_lo + A_hi B_hi into an accumulator that TF32X3_PROMOTE steps fill
+  from zero before it is added into the tile's f32 total.  ``test_one_tf32_pass_fails_mm_tol_and_three_pass`` shows
+  why three products: one errs past MM_TOL.
 - ``emulate_skewed_sweep`` walks a tile of ``csrc/lcs_tile.cu``: runs of
   4 or 8 columns a lane, row r at lane k's step r + k, the left neighbour
   by ``__shfl_up_sync``, strips of 32 lanes pipelined through the
@@ -74,12 +78,53 @@ def _k_shift(a: torch.Tensor, b: torch.Tensor) -> int:
     return (a.data_ptr() >> 1) & 7
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest of 10 mantissa bits, ties away from zero, by int32 bit
+    operations (half a TF32 step added to the bits, the low 13 cleared; a
+    value past TF32's largest rounds to infinity), inf and nan unchanged."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = (bits + 0x1000) & -0x2000
+    return torch.where(torch.isfinite(x), rounded, bits).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x -> (hi, lo): x rounded to TF32, and the rest rounded to TF32."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+TF32X3_PROMOTE = 4   # k-steps of 32 that wgmma sums before the f32 total
+
+
+def _tf32x3_walk(steps, passes: int = 3) -> torch.Tensor:
+    """The ``wgmma_tf32x3`` walk's sum over its k-steps, f32 boxes (at, bt)
+    of (rows x 32) and (32 x cols): per k8 slice A_lo B_hi, A_hi B_lo and
+    A_hi B_hi (``passes`` 1: A_hi B_hi alone) into wgmma's accumulator,
+    which TF32X3_PROMOTE steps fill from zero before it is added into the
+    f32 total."""
+    total = acc = None
+    for i, (at, bt) in enumerate(steps):
+        if i % TF32X3_PROMOTE == 0:
+            total = acc if total is None else total + acc
+            acc = torch.zeros((at.shape[0], bt.shape[1]))
+        ahi, alo = tf32_split(at)
+        bhi, blo = tf32_split(bt)
+        for kk in range(0, at.shape[1], 8):
+            s = slice(kk, kk + 8)
+            if passes == 3:
+                acc += alo[:, s] @ bhi[s]
+                acc += ahi[:, s] @ blo[s]
+            acc += ahi[:, s] @ bhi[s]
+    return acc if total is None else total + acc
+
+
 def emulate_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The CTA walk of ``csrc/matmul.cu`` on the CPU.  (The bf16 kernel
     also shifts its output columns by B's phase; that moves no sum.)"""
     bf16 = a.dtype == torch.bfloat16
     bm = bn = 128
-    bk = 32 if bf16 else 8
+    bk = 32
     n, k = a.shape
     m = b.shape[1]
     shift = _k_shift(a, b)
@@ -88,18 +133,16 @@ def emulate_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, m), dtype=a.dtype)
     for n0 in range(0, n, bm):
         for m0 in range(0, m, bn):
-            acc = torch.zeros((bm, bn), dtype=torch.float32)
-            for k0 in range(0, k + shift, bk):
-                at = torch.zeros((bm, bk), dtype=a.dtype)
-                bt = torch.zeros((bk, bn), dtype=a.dtype)
-                blk = a[n0:n0 + bm, k0:k0 + bk]
-                at[:blk.shape[0], :blk.shape[1]] = blk
-                blk = b[k0:k0 + bk, m0:m0 + bn]
-                bt[:blk.shape[0], :blk.shape[1]] = blk
-                at, bt = at.float(), bt.float()
-                step = 16 if bf16 else 1   # one mma, or one FMA per k
-                for kk in range(0, bk, step):
-                    acc += at[:, kk:kk + step] @ bt[kk:kk + step]
+            boxes = [(_boxed(a, n0, k0, bm, bk).float(),
+                      _boxed(b, k0, m0, bk, bn).float())
+                     for k0 in range(0, k + shift, bk)]
+            if not bf16:   # wgmma_tf32x3
+                acc = _tf32x3_walk(boxes) if boxes else torch.zeros((bm, bn))
+            else:
+                acc = torch.zeros((bm, bn), dtype=torch.float32)
+                for at, bt in boxes:
+                    for kk in range(0, bk, 16):   # one mma.sync each
+                        acc += at[:, kk:kk + 16] @ bt[kk:kk + 16]
             tile = out[n0:n0 + bm, m0:m0 + bn]
             tile.copy_(acc[:tile.shape[0], :tile.shape[1]].to(a.dtype))
     return out
@@ -213,6 +256,14 @@ def _tile_part(a, b, q, r0, c0, variant):
     n0, n1, m0, m1, k0, k1 = q
     bm, bn = PLAN_TILES[variant]
     acc = torch.zeros((bm, bn))
+    if variant == "wgmma_tf32x3":   # TMA boxes from k0 & ~3, 32 a step
+        steps = []
+        for kb in range(k0 - k0 % 4, k1, 32):
+            at = _boxed(a, n0 + r0, kb, bm, 32)
+            at[:, :max(k0 - kb, 0)] = 0      # A's columns before k0
+            at[:, k1 - kb:] = 0              # ... and at and past k1
+            steps.append((at, _boxed(b, kb, m0 + c0, 32, bn)))
+        return _tf32x3_walk(steps)
     if variant == "wgmma":   # TMA boxes of the whole operands from k0 & ~7
         for kb in range(k0 - k0 % 8, k1, 64):
             at = _boxed(a, n0 + r0, kb, bm, 64).float()
@@ -311,12 +362,14 @@ def _fold_in_plan_order(parts, plan, dtype):
 @pytest.mark.parametrize("shape,p,planner", PLAN_CASES)
 @pytest.mark.parametrize("variant,dtype", [("wgmma", torch.bfloat16),
                                            ("mma_sync", torch.bfloat16),
-                                           ("cuda_cores", torch.float32)])
+                                           ("wgmma_tf32x3", torch.float32)])
 def test_matmul_plan_walk_matches_plain_and_jax(shape, p, planner, variant,
                                                 dtype):
     """The plan walk: box-aligned k-steps from each cuboid's k0 rounded
-    down to 8 with A's columns outside [k0, k1) zeroed (wgmma), the faces'
-    own zero-filled k-walk (mma_sync, cuda_cores), output tiles clipped to
+    down to 8 (wgmma) or 4 (wgmma_tf32x3: three TF32 products, every 4
+    steps' sum added into an f32 total) with A's columns outside [k0, k1)
+    zeroed,
+    the faces' own zero-filled k-walk (mma_sync), output tiles clipped to
     the cuboid, and the k-cut sums in plan order: within MM_TOL of the
     plain version and of ``repro.core.paco_matmul`` on JAX's CPU, and,
     given the walk's own parts, bitwise the plain version's sums."""
@@ -463,6 +516,102 @@ def _read_mn_major(mem, start, lbo, sbo, n):
     return [[mem[_sw128(start + (nn // 64) * lbo + 2 * (nn % 64)
                         + (kk // 8) * sbo + (kk % 8) * 128)]
              for nn in range(n)] for kk in range(16)]
+
+
+def test_tf32_stage_layout_reads_what_tma_wrote():
+    """The wgmma_tf32x3 stage: A as a 128 x 32 f32 box and B^T's hi and lo
+    as 128 x 32 boxes, TMA's 128-byte swizzle.  The consumers' address of
+    A's element (r, col) (``plan_tf32x3_kernel``: float r * 32 + ((col / 4)
+    ^ (r % 8)) * 4 + col % 4) reads it where TMA put it, a warp's 32 reads
+    of a register fragment (rows g and g + 8, columns t4 and t4 + 4 of a
+    k8 slice) fall in 32 distinct banks, and the K-major descriptor of k8
+    slice s (``desc_k``: 32 s bytes in, sbo 1024) reads B^T's rows at
+    columns 8 s to 8 s + 7."""
+    mem = {_sw128(r * 128 + 4 * j): (r, j) for r in range(128)
+           for j in range(32)}
+    for r in range(128):
+        for col in range(32):
+            at = 4 * (r * 32 + (((col >> 2) ^ (r & 7)) << 2) + (col & 3))
+            assert mem[at] == (r, col)
+    for wg in range(2):
+        for warp in range(4):
+            for s in range(4):
+                for e in range(4):
+                    banks = set()
+                    for lane in range(32):
+                        g, t4 = lane >> 2, lane & 3
+                        r = 64 * wg + 16 * warp + g + 8 * (e & 1)
+                        col = 8 * s + t4 + 4 * (e >> 1)
+                        banks.add(
+                            (r * 32 + (((col >> 2) ^ (r & 7)) << 2)
+                             + (col & 3)) % 32)
+                    assert len(banks) == 32
+    for s in range(4):
+        got = [[mem[_sw128(s * 32 + (i // 8) * 1024 + (i % 8) * 128
+                           + 4 * kk)] for kk in range(8)]
+               for i in range(128)]
+        assert got == [[(i, 8 * s + kk) for kk in range(8)]
+                       for i in range(128)]
+
+
+def _tf32_reference(x: np.ndarray) -> np.ndarray:
+    """Round to 11 significant bits, ties away from zero, in float64, then
+    to float32 (past float32's range: infinity)."""
+    mant, exp = np.frexp(x.astype(np.float64))
+    r = np.sign(mant) * np.floor(np.abs(mant) * 2.0 ** 11 + 0.5)
+    with np.errstate(over="ignore"):
+        return np.ldexp(r / 2.0 ** 11, exp).astype(np.float32)
+
+
+def test_tf32_rounding_ties_away_and_splits_exactly():
+    """``tf32_round``: exact halfway cases go away from zero (1 + 2^-11 ->
+    1 + 2^-10, 1 + 3 2^-11 -> 1 + 2^-9, and their negatives), zero and
+    signed zero stay, a value at or past the halfway point above TF32's
+    largest becomes infinity and one just below it TF32's largest, inf and
+    nan pass; on a million normal values it equals the float64 reference,
+    and hi + lo of ``tf32_split`` is x to within 2^-21 of |x|."""
+    one = 1.0
+    cases = {one + 2 ** -11: one + 2 ** -10, one + 3 * 2 ** -11: one + 2 ** -9,
+             one + 2 ** -11 - 2 ** -23: one, -(one + 2 ** -11): -(one + 2 ** -10),
+             -(one + 3 * 2 ** -11): -(one + 2 ** -9), 0.0: 0.0,
+             3 * 2.0 ** -12: 3 * 2.0 ** -12,
+             (2 - 2 ** -11) * 2.0 ** 127: float("inf"),
+             -(2 - 2 ** -11) * 2.0 ** 127: float("-inf"),
+             (2 - 2 ** -11 - 2 ** -23) * 2.0 ** 127: (2 - 2 ** -10) * 2.0 ** 127,
+             float(np.finfo(np.float32).max): float("inf"),
+             float("inf"): float("inf"), float("-inf"): float("-inf")}
+    x = torch.tensor(list(cases), dtype=torch.float32)
+    want = torch.tensor(list(cases.values()), dtype=torch.float32)
+    assert torch.equal(tf32_round(x), want)
+    assert torch.equal(tf32_round(x).view(torch.int32) & 0x1FFF,
+                       torch.zeros_like(x, dtype=torch.int32))
+    assert torch.equal(torch.from_numpy(_tf32_reference(x.numpy())), want)
+    neg0 = tf32_round(torch.tensor([-0.0]))
+    assert neg0.item() == 0.0 and torch.signbit(neg0).item()
+    assert tf32_round(torch.tensor([float("nan")])).isnan().all()
+    rng = np.random.default_rng(7)
+    v = (rng.standard_normal(1 << 20)
+         * 2.0 ** rng.integers(-60, 60, 1 << 20)).astype(np.float32)
+    hi, lo = tf32_split(torch.from_numpy(v))
+    assert np.array_equal(hi.numpy(), _tf32_reference(v))
+    err = np.abs(v.astype(np.float64) - hi.double().numpy()
+                 - lo.double().numpy())
+    assert np.all(err <= 2.0 ** -21 * np.abs(v))
+
+
+def test_one_tf32_pass_fails_mm_tol_and_three_pass_the_walk_meets_it():
+    """At (128, 8192, 128) on normal operands, relative to max(1, max
+    |plain|) against the true f32 product: one TF32 product (A_hi B_hi
+    alone) errs past MM_TOL[float32]; the walk's three, every 128 of k
+    summed from zero and added into an f32 total, stay within it by a
+    factor of 10 (the card: chip_smoke.py's k = 8192 case)."""
+    n, k, m = 128, 8192, 128
+    _, _, ta, tb = _operands(8, n, k, m, torch.float32)
+    want = matmul_ref(ta, tb)
+    steps = [(ta[:, kb:kb + 32], tb[kb:kb + 32]) for kb in range(0, k, 32)]
+    errs = {passes: _rel(_tf32x3_walk(steps, passes), want)
+            for passes in (1, 3)}
+    assert errs[1] > MM_TOL[torch.float32] > 10 * errs[3], errs
 
 
 def test_matmul_bench_needs_a_card_and_its_ablations_apply(monkeypatch,
