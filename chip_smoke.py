@@ -106,7 +106,10 @@ Phases, in order; any failure ends the script with a nonzero exit:
    slot, a window across a page boundary, one reaching the last mapped
    page and slots splits apart; each timed in bf16 over its model's
    layers' pools beside its plain version, SDPA under the windows' mask
-   pinned per backend, and the bound (each slot's live K/V once, q, out).
+   pinned per backend, and the bound (each slot's live K/V once, q, out),
+   and given ``--parent`` the parent's entries in turns; one bf16 call of
+   each is one launch of the ``"cluster"`` family (splits sized from the
+   lengths on the device, merged on chip) that allocates no scratch.
 3c. seq_attention (``seq_attention_phase``): sequence-parallel attention,
    the key-block entries of kernels 5 and 5b (``flash_fwd_block``,
    ``flash_bwd_block``) and their merge (``seq_attention`` with the list
@@ -881,6 +884,9 @@ class ParentKernels:
     prefill's split count takes (width, page, start, C), latent prefill's
     (dtype, kv_lora, qk_rope, width, page, C, H, start) and latent
     decode's (width, page, B, H), and these three take f32 split scratch;
+    so do the verify entries of the prefill libraries (``paged_verify``,
+    its split count (width, page); ``paged_latent_verify``, its split
+    count (dtype, kv_lora, qk_rope, width, page, B, W, H));
     the LCS kernel takes a whole table in one launch (``lcs_table``) over
     the int32 state ``kernels.lcs`` lays out.  Where the parent's flash
     pair has the key-block entries (``flash_fwd_block``,
@@ -969,6 +975,16 @@ class ParentKernels:
                                 I, I, F, P]
         self.latent_splits = lat.paged_latent_prefill_splits
         self.latent_splits.argtypes = [I] * 8
+        self.verify = libs["paged_prefill"].paged_verify
+        self.verify.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                I, I, F, I, F, P]
+        self.verify_splits = libs["paged_prefill"].paged_verify_splits
+        self.verify_splits.argtypes = [I, I]
+        self.latent_verify = lat.paged_latent_verify
+        self.latent_verify.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I,
+                                       I, I, I, I, I, F, P]
+        self.latent_verify_splits = lat.paged_latent_verify_splits
+        self.latent_verify_splits.argtypes = [I] * 8
         ldec = libs["paged_latent_decode"]
         self.latent_dec = ldec.paged_latent_decode
         self.latent_dec.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I,
@@ -979,7 +995,9 @@ class ParentKernels:
         self.lcs_tab.argtypes = [P, P, P, I, I, I, I, P]
         for fn in (self.fwd, self.bwd, self.prefill, self.prefill_splits,
                    self.mm, self.decode, self.latent, self.latent_splits,
-                   self.latent_dec, self.latent_dec_splits, self.lcs_tab):
+                   self.latent_dec, self.latent_dec_splits, self.lcs_tab,
+                   self.verify, self.verify_splits, self.latent_verify,
+                   self.latent_verify_splits):
             fn.restype = I
 
     def forward(self, q, k, v, o, lse, causal=True, logit_cap=None) -> None:
@@ -1110,6 +1128,59 @@ class ParentKernels:
                           start, scale,
                           torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("parent paged_latent_prefill", err)
+        return out
+
+    def verify_scratch(self, q, width, page):
+        """The output and f32 split scratch of the parent's verify."""
+        b, w, hq, d = q.shape
+        n_split = self.verify_splits(width, page)
+        return (torch.empty_like(q),
+                torch.empty((n_split, b * w * hq, d), device=q.device),
+                torch.empty((n_split, b * w * hq, 2), device=q.device))
+
+    def paged_verify(self, q, k_pages, v_pages, tables, lengths, scratch
+                     ) -> torch.Tensor:
+        """bf16, no window or softcap: the serving shape's call (its
+        launch and, split, the merge kernel's)."""
+        b, w, hq, d = q.shape
+        n_pool, page, hkv, _ = k_pages.shape
+        out, acc, ml = scratch
+        err = self.verify(1, q.data_ptr(), k_pages.data_ptr(),
+                          v_pages.data_ptr(), tables.data_ptr(),
+                          lengths.data_ptr(), out.data_ptr(), acc.data_ptr(),
+                          ml.data_ptr(), b, w, hq, hkv, d, page,
+                          tables.shape[1], n_pool, 1 / math.sqrt(d),
+                          2 ** 31 - 1, 0.0,
+                          torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent paged_verify", err)
+        return out
+
+    def latent_verify_scratch(self, q_lat, q_rope, ckv, width):
+        """The output and f32 split scratch of the parent's latent
+        verify."""
+        b, w, h, kv = q_lat.shape
+        n_split = self.latent_verify_splits(1, kv, q_rope.shape[-1], width,
+                                            ckv.shape[1], b, w, h)
+        return (torch.empty_like(q_lat),
+                torch.empty((n_split, b * w * h, kv), device=q_lat.device),
+                torch.empty((n_split, b * w * h, 2), device=q_lat.device))
+
+    def paged_latent_verify(self, q_lat, q_rope, ckv, kr, tables, lengths,
+                            scale, scratch) -> torch.Tensor:
+        """bf16: the serving shape's call (its launch and, split, the
+        merge kernel's)."""
+        b, w, h, kv = q_lat.shape
+        n_pool, page, _ = ckv.shape
+        out, acc, ml = scratch
+        err = self.latent_verify(1, q_lat.data_ptr(), q_rope.data_ptr(),
+                                 ckv.data_ptr(), kr.data_ptr(),
+                                 tables.data_ptr(), lengths.data_ptr(),
+                                 out.data_ptr(), acc.data_ptr(),
+                                 ml.data_ptr(), b, w, h, kv,
+                                 q_rope.shape[-1], page, tables.shape[1],
+                                 n_pool, scale,
+                                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("parent paged_latent_verify", err)
         return out
 
     def latent_decode_scratch(self, q_lat, ckv, width):
@@ -1745,7 +1816,28 @@ def _verify_sdpa(qt, kg, vg, lens, w, iters, scale=None, window=None):
     return sdpa_by_backend(run)
 
 
-def bench_verify_kernels(gen: torch.Generator, iters: int
+def _one_launch(wrapper, call, q) -> dict:
+    """One bf16 verify call: its family (``variant``), and that it is one
+    launch of the cluster family that allocates nothing beside its output
+    (no f32 partials: ``scratch_bytes``, the peak beyond the output's
+    block, which the caching allocator rounds up to 512 bytes)."""
+    launches, before = wrapper.launches, wrapper.variants.copy()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - base
+             - -(-q.numel() * q.element_size() // 512) * 512)
+    (variant,) = wrapper.variants - before
+    assert wrapper.launches == launches + 1 and variant == "cluster", \
+        (wrapper.__name__, variant)
+    assert extra == 0, (wrapper.__name__, "allocated scratch", extra)
+    return {"variant": variant, "scratch_bytes": extra}
+
+
+def bench_verify_kernels(gen: torch.Generator, iters: int,
+                         parent: ParentKernels | None = None
                          ) -> tuple[list[dict], dict[str, float]]:
     """The ``verify_kernels`` phase: the verify entries of kernels 2 and 4
     (one launch for all slots) against their plain versions in bf16 and
@@ -1756,7 +1848,10 @@ def bench_verify_kernels(gen: torch.Generator, iters: int
     qk_rope 64, page 128, W 8), each over VERIFY_LENS; then each timed in
     bf16 over its model's layers' pools in turn (CUDA-graph replay) beside
     its plain version, SDPA under the windows' mask pinned per backend,
-    and the bound: each slot's live K/V read once, q and out."""
+    and the bound: each slot's live K/V read once, q and out.  Given
+    ``parent``, the parent's entries take turns with the kernels (kernel,
+    parent, plain and SDPA, parent, kernel).  One bf16 call of each is one
+    launch of the cluster family and allocates no scratch."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ops
@@ -1813,7 +1908,9 @@ def bench_verify_kernels(gen: torch.Generator, iters: int
             f"of the plain version, bitwise over two calls")
     del q, kp, vp
 
-    # timed at qwen3-0.6b's serving verify over its 28 layers' pools
+    # timed at qwen3-0.6b's serving verify over its 28 layers' pools, in
+    # turns with the parent's entry (given ``parent``): kernel, parent,
+    # plain and SDPA, parent, kernel
     cfg = get_arch("qwen3-0.6b")
     dtype, page, width = torch.bfloat16, 64, 16
     w = paco_draft_len(b, 2048, cfg.head_dim) + 1
@@ -1825,9 +1922,27 @@ def bench_verify_kernels(gen: torch.Generator, iters: int
     vpool = rnd(n_layers, n_pool, page, hkv, d, dtype=dtype)
     q = rnd(b, w, hq, d, dtype=dtype)
     scale = 1 / math.sqrt(d)
-    ms, eager_ms = time_ms(lambda i: K.paged_flash_verify(
-        q, kpool[i % n_layers], vpool[i % n_layers], bt, lens, scale=scale),
-        iters)
+    turns = collections.defaultdict(list)
+
+    def call(i):
+        return K.paged_flash_verify(q, kpool[i % n_layers],
+                                    vpool[i % n_layers], bt, lens,
+                                    scale=scale)
+
+    def parent_turn():
+        if parent is None:
+            return
+        scratch = parent.verify_scratch(q, width, page)
+        got = parent.paged_verify(q, kpool[0], vpool[0], bt, lens,
+                                  scratch).clone()
+        turns["err"].append(max_err(got, ops.paged_verify_attention(
+            q, kpool[0], vpool[0], bt, lens, use_kernel=False)))
+        turns["p"].append(time_ms(lambda i: parent.paged_verify(
+            q, kpool[i % n_layers], vpool[i % n_layers], bt, lens, scratch),
+            iters))
+
+    turns["k"].append(time_ms(call, iters))
+    parent_turn()
     plain_ms, _ = time_ms(lambda i: ops.paged_verify_attention(
         q, kpool[i % n_layers], vpool[i % n_layers], bt, lens,
         use_kernel=False), max(iters // 4, 10))
@@ -1838,24 +1953,26 @@ def bench_verify_kernels(gen: torch.Generator, iters: int
     vg = [ops.gather_kv_pages(vpool[i], bt[:, :ctx_pages])[:, :s_ctx]
           .transpose(1, 2).contiguous() for i in range(n_layers)]
     sdpa = _verify_sdpa(q.transpose(1, 2), kg, vg, lens, w, iters)
-    ms2, _ = time_ms(lambda i: K.paged_flash_verify(
-        q, kpool[i % n_layers], vpool[i % n_layers], bt, lens, scale=scale),
-        iters)
-    before = K.paged_flash_verify.variants.copy()
-    K.paged_flash_verify(q, kpool[0], vpool[0], bt, lens, scale=scale)
-    (variant,) = K.paged_flash_verify.variants - before
-    del kg, vg, kpool, vpool
+    del kg, vg
+    parent_turn()
+    turns["k"].append(time_ms(call, iters))
+    row_one = _one_launch(K.paged_flash_verify, lambda: call(0), q)
+    del kpool, vpool
     keys = int((lens + w).sum())
     pairs = int((lens[:, None] + torch.arange(1, w + 1, device=dev)).sum())
     flops, nbytes = W.paged_work(q.numel(), bt.numel(), lens.numel(), keys,
                                  pairs, hq, hkv, d, 2)
+    ms, eager_ms = (sum(t[i] for t in turns["k"]) / 2 for i in (0, 1))
     row = _with_library(_row(
-        "paged_verify", "src/repro_torch/csrc/paged_prefill.cu",
+        "paged_verify", "src/repro_torch/csrc/paged_decode.cu",
         "src/repro/kernels/attention/attention.py:172",
-        worst["paged_verify"], (ms + ms2) / 2, eager_ms, plain_ms, None,
-        nbytes, flops, dtype), sdpa)
-    row["ms_turns"] = [ms, ms2]
-    row["variant"] = variant
+        worst["paged_verify"], ms, eager_ms, plain_ms, None, nbytes, flops,
+        dtype), sdpa)
+    row.update(row_one, ms_turns=[t[0] for t in turns["k"]])
+    if parent is not None:
+        row["parent_ms"] = sum(t[0] for t in turns["p"]) / 2
+        row["parent_ms_turns"] = [t[0] for t in turns["p"]]
+        row["parent_max_abs_err"] = max(turns["err"])
     rows.append(row)
 
     # ---- kernel 4's verify entry: deepseek-v2's latent widths
@@ -1884,9 +2001,27 @@ def bench_verify_kernels(gen: torch.Generator, iters: int
     ckp = rnd(n_layers, n_pool, page, kv, dtype=dtype)
     krp = rnd(n_layers, n_pool, page, rope, dtype=dtype)
     vq = (rnd(b, w, h, kv, dtype=dtype), rnd(b, w, h, rope, dtype=dtype))
-    ms, eager_ms = time_ms(lambda i: K.paged_latent_verify(
-        *vq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale),
-        iters)
+    turns = collections.defaultdict(list)
+
+    def lcall(i):
+        return K.paged_latent_verify(*vq, ckp[i % n_layers],
+                                     krp[i % n_layers], bt, lens,
+                                     scale=scale)
+
+    def latent_parent_turn():
+        if parent is None:
+            return
+        scratch = parent.latent_verify_scratch(*vq, ckp[0], width)
+        got = parent.paged_latent_verify(*vq, ckp[0], krp[0], bt, lens,
+                                         scale, scratch).clone()
+        turns["err"].append(max_err(got, ops.paged_latent_verify_attention(
+            *vq, ckp[0], krp[0], bt, lens, scale=scale, use_kernel=False)))
+        turns["p"].append(time_ms(lambda i: parent.paged_latent_verify(
+            *vq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale,
+            scratch), iters))
+
+    turns["k"].append(time_ms(lcall, iters))
+    latent_parent_turn()
     plain_ms, _ = time_ms(lambda i: ops.paged_latent_verify_attention(
         *vq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale,
         use_kernel=False), max(iters // 20, 5))
@@ -1900,25 +2035,27 @@ def bench_verify_kernels(gen: torch.Generator, iters: int
         vg.append(ckg[:, None, :s_ctx].contiguous())
     q_cat = torch.cat(vq, -1).transpose(1, 2)             # (B, H, W, 576)
     sdpa = _verify_sdpa(q_cat, kg, vg, lens, w, iters, scale=scale)
-    ms2, _ = time_ms(lambda i: K.paged_latent_verify(
-        *vq, ckp[i % n_layers], krp[i % n_layers], bt, lens, scale=scale),
-        iters)
     del kg, vg
+    latent_parent_turn()
+    turns["k"].append(time_ms(lcall, iters))
+    row_one = _one_launch(K.paged_latent_verify, lambda: lcall(0), vq[0])
+    del ckp, krp
     keys = int((lens + w).sum())
     pairs = int((lens[:, None] + torch.arange(1, w + 1, device=dev)).sum())
     flops, nbytes = W.latent_work(vq[0].numel(), vq[1].numel(), bt.numel(),
                                   lens.numel(), keys, pairs, h, kv, rope, 2)
+    ms, eager_ms = (sum(t[i] for t in turns["k"]) / 2 for i in (0, 1))
     row = _with_library(_row(
         "paged_latent_verify",
         "src/repro_torch/csrc/paged_latent_prefill.cu",
         "src/repro/kernels/attention/attention.py:270",
-        worst["paged_latent_verify"], (ms + ms2) / 2, eager_ms, plain_ms,
-        None, nbytes, flops, dtype), sdpa)
-    row["ms_turns"] = [ms, ms2]
-    before = K.paged_latent_verify.variants.copy()
-    K.paged_latent_verify(*vq, ckp[0], krp[0], bt, lens, scale=scale)
-    (row["variant"],) = K.paged_latent_verify.variants - before
-    del ckp, krp
+        worst["paged_latent_verify"], ms, eager_ms, plain_ms, None, nbytes,
+        flops, dtype), sdpa)
+    row.update(row_one, ms_turns=[t[0] for t in turns["k"]])
+    if parent is not None:
+        row["parent_ms"] = sum(t[0] for t in turns["p"]) / 2
+        row["parent_ms_turns"] = [t[0] for t in turns["p"]]
+        row["parent_max_abs_err"] = max(turns["err"])
     rows.append(row)
     return rows, worst
 
@@ -4438,6 +4575,9 @@ def mesh_serve(cfg, params, mesh, rng: np.random.Generator, seed: int,
     assert plain["counts"] == meshed["counts"], result
     for name in ("paged_prefill", step):
         assert meshed["counts"][name][0] > 0, result
+    if step == "paged_verify":   # every bf16 verify launch one of clusters
+        assert meshed["counts"][step][1] == {
+            "cluster": meshed["counts"][step][0]}, result
     return result
 
 
@@ -4917,7 +5057,7 @@ def main() -> int:
             parent)
         rows += seq_rows
     with phase("verify_kernels"):
-        verify_rows, verify_worst = bench_verify_kernels(gen, ITERS)
+        verify_rows, verify_worst = bench_verify_kernels(gen, ITERS, parent)
         log(f"[verify] both entries against their plain versions: max err "
             f"{verify_worst}")
         rows += verify_rows
@@ -4990,8 +5130,8 @@ def main() -> int:
         assert K.paged_flash_decode.launches == 0, "a decode fallback ran"
         assert result["spec_fallback_dispatches"] == 0
         assert result["launches_by_variant"]["paged_verify"] == {
-            "mma_sync": result["launches"]["paged_verify"]}, \
-            ("every bf16 verify launch on tensor cores",
+            "cluster": result["launches"]["paged_verify"]}, \
+            ("every bf16 verify launch one launch of clusters",
              result["launches_by_variant"])
         launches["paged_verify"] = result["launches"]["paged_verify"]
         result["agreement_with_fused"] = agreement(done_s, done)
@@ -5087,8 +5227,8 @@ def main() -> int:
             speculate=0, spec_min_accept=0)
         assert K.paged_latent_decode.launches == 0, "a decode fallback ran"
         assert result["launches_by_variant"]["paged_latent_verify"] == {
-            "wgmma": result["launches"]["paged_latent_verify"]}, \
-            ("every bf16 latent verify launch on wgmma",
+            "cluster": result["launches"]["paged_latent_verify"]}, \
+            ("every bf16 latent verify launch one launch of clusters",
              result["launches_by_variant"])
         launches["paged_latent_verify"] = \
             result["launches"]["paged_latent_verify"]

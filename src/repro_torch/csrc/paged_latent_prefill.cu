@@ -35,9 +35,14 @@
 // out   (B, W, H, kv_lora) in q's type
 //
 // row r of slot b (position r / H of the window) masked at lengths[b] +
-// r / H + 1.  The same three families, with the slot as a grid axis; key
-// splits are sized on the host from the table's width, and a split past a
-// slot's last key walks nothing and weighs 0 in the merge.
+// r / H + 1.  bf16 at kv_lora 512, qk_rope 64 and pages of a multiple of
+// 64 takes "cluster" (paged_latent_wgmma.cuh's verify_kernel: one launch
+// of clusters, one per (slot, 64-row block), the ranks' shares sized on
+// the device from the block's live keys and merged on chip in rank order;
+// no scratch).  The other shapes take "mma_sync" or "cuda_cores" with the
+// slot as a grid axis; their key splits are sized on the host from the
+// table's width, a split past a slot's last key walks nothing and weighs 0
+// in the merge kernel.
 
 #include "paged_latent_common.cuh"
 #include "paged_latent_wgmma.cuh"
@@ -45,6 +50,9 @@
 namespace {
 
 enum Variant { kCudaCores = 0, kMmaSync = 1, kWgmma = 2 };
+// The verify entry's families, numbered as the wrapper's VERIFY_VARIANTS.
+enum VerifyVariant { kVerifyCudaCores = 0, kVerifyMmaSync = 1,
+                     kVerifyCluster = 2 };
 
 // The family latent::launch or latent_wgmma::launch takes for the shape.
 int variant(int dtype, int kv, int rope, int page) {
@@ -76,14 +84,18 @@ int paged_latent_prefill_splits(int dtype, int kv, int rope, int width,
       width, page, (chunk * heads + latent::kRows - 1) / latent::kRows);
 }
 
+// The verify entry's family: 2 "cluster" (the prefill's "wgmma" shapes),
+// else as the prefill's.
+int paged_latent_verify_variant(int dtype, int kv, int rope, int page) {
+  const int v = variant(dtype, kv, rope, page);
+  return v == kWgmma ? kVerifyCluster : v;
+}
+
+// The key splits of the verify entry's split families (the cluster family
+// takes no scratch: 1).
 int paged_latent_verify_splits(int dtype, int kv, int rope, int width,
                                int page, int batch, int w, int heads) {
-  if (variant(dtype, kv, rope, page) == kWgmma) {
-    int n_split, split_keys;
-    latent_wgmma::verify_splits(width, page, w * heads, batch, &n_split,
-                                &split_keys);
-    return n_split;
-  }
+  if (variant(dtype, kv, rope, page) == kWgmma) return 1;
   return latent::splits(
       width, page,
       batch * ((w * heads + latent::kRows - 1) / latent::kRows));
@@ -111,8 +123,9 @@ int paged_latent_prefill(int dtype, const void* q_lat, const void* q_rope,
 }
 
 // The verify entry.  part_acc (n_split, B*W*H, kv_lora) and part_ml
-// (n_split, B*W*H, 2) are f32 scratch, unused when n_split == 1.  Returns
-// cudaGetLastError().
+// (n_split, B*W*H, 2) are f32 scratch for paged_latent_verify_splits key
+// splits, unused when n_split == 1 (always in the cluster family).
+// Returns cudaGetLastError().
 int paged_latent_verify(int dtype, const void* q_lat, const void* q_rope,
                         const void* ckv, const void* kr, const int* tables,
                         const int* lengths, void* out, void* part_acc,
@@ -122,9 +135,8 @@ int paged_latent_verify(int dtype, const void* q_lat, const void* q_rope,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant(dtype, kv, rope, page) == kWgmma)
     return latent_wgmma::launch_verify(q_lat, q_rope, ckv, kr, tables,
-                                       lengths, out, part_acc, part_ml, batch,
-                                       w, heads, page, width, n_pool, scale,
-                                       s);
+                                       lengths, out, batch, w, heads, page,
+                                       width, n_pool, scale, s);
   return latent::launch<true>(dtype, q_lat, q_rope, ckv, kr, tables, lengths,
                               out, part_acc, part_ml, batch, w * heads, heads,
                               kv, rope, page, width, n_pool, 0, scale, s);

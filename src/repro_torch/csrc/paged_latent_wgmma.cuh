@@ -1,9 +1,10 @@
 // Paged MLA latent attention on wgmma with TMA loads: the bf16 kernels for
 // the full-width shapes (kv_lora 512, qk_rope 64, pages of a multiple of
 // 64 positions), variant "wgmma" of paged_latent_prefill.cu (kernel 4)
-// and of paged_latent_decode.cu (kernel 3).  Both run one walk, `walk`
-// below, over 64 query rows of one slot; they differ in their rows, their
-// key ranges and their epilogues.
+// and of paged_latent_decode.cu (kernel 3), and variant "cluster" of the
+// latent verify entry (4v).  All run one walk, `walk` below, over 64 query
+// rows of one slot; they differ in their rows, their key ranges and their
+// epilogues.
 //
 // Replaces src/repro/kernels/attention/attention.py:270
 // paged_latent_prefill_pallas (body _paged_latent_prefill_kernel, :227)
@@ -19,7 +20,10 @@
 // from L2.  Decode: bytes.  One query a slot, 1,152 bytes a key shared by
 // the 128 heads (~250 flops a byte, under the ~295 ridge): 5.1 MB of keys
 // for 8 slots of 48..1,032 positions, 0.0020 ms at 3.35 TB/s; in practice
-// the launch, the first loads and the merge set its time.
+// the launch, the first loads and the merge set its time.  Verify:
+// operations, as prefill.  The W x H rows of a slot share its keys: 8.6
+// GFLOP for chip_smoke.py's 8 slots of W 8 at lengths 0..1,016, 0.0087 ms
+// at 989 TFLOP/s, against 5.8 MB of keys and 18.9 MB of q and out.
 //
 // The walk (64 query rows, key positions [lo, hi) of one block-table row,
 // each row masked at its own limit):
@@ -70,32 +74,30 @@
 // landed), each warp staging its 16 rows 128 columns at a time and writing
 // whole 16-byte pieces, as the matmul plan kernel does.
 //
-// Decode (decode_kernel): a slot's H heads are its rows, 64 a CTA (two
-// blocks at H 128: each key tile is read twice, not eight times as by
-// 16-row blocks), every row masked at the slot's length.  One launch: the
-// grid is (kRanks, head blocks, slots) in clusters of kRanks CTAs, one
-// cluster per (slot, head block).  The splits are sized from the live
-// keys, on the device: each rank reads the slot's length and takes a
-// 64-key-aligned share of its tiles; a rank past the range loads no key
-// and leaves no state.  After the walk each live rank puts its (m, l) and
-// its 64 x 512 f32 accumulator in its own shared memory (over the key
-// stages, free once the last product has landed; rows 520 floats apart,
-// so the fragments' 8-byte stores meet no bank conflict).  Then every
-// rank merges a slice of 512 / kRanks features of the 64 rows, reading the
-// live ranks' states through distributed shared memory in rank order, and
-// writes it: no f32 partials go through device memory, no second kernel
-// runs, and the result is bitwise the same on every call.  A slot with no
-// valid key (length 0) walks its whole block-table row with every key
-// scored 0: the uniform mean of its latents, which the TPU kernel and the
-// plain version give by masking every score to the finite -1e30.
-//
-// Verify (prefill_kernel over a slot axis, paged_latent_prefill.cu's
-// paged_latent_verify): the W-token windows of B slots in one launch, the
-// grid's z the slot; slot b's rows are its W x H (position, head) pairs,
-// its window starting at lengths[b], read on the device.  The key splits
-// are sized on the host from the table's width (verify_splits); a split
-// past a slot's last key walks nothing and leaves the empty state, which
-// combine_kernel weighs 0.
+// Decode and verify (decode_kernel, verify_kernel: cluster_walk): one
+// launch, the grid (ranks, row blocks of 64, slots) in clusters of ranks
+// CTAs, one cluster per (slot, row block).  Decode: a slot's H heads are its
+// rows (two blocks at H 128: each key tile is read twice, not eight times as
+// by 16-row blocks), every row masked at the slot's length, clusters of
+// kRanks = 4.  Verify (paged_latent_prefill.cu's paged_latent_verify,
+// variant "cluster"): the W-token windows of B slots, slot b's rows its W x
+// H (position, head) pairs, row r masked at its own causal limit lengths[b]
+// + r / H + 1 (clamped to the table), its window's start read on the device;
+// clusters of kVerifyRanks.  The splits are sized from the live keys, on the
+// device: each rank reads the slot's length and takes a 64-key-aligned share
+// of the tiles up to the block's last row's limit; a rank past the range
+// loads no key and leaves no state.  After the walk each live rank puts its
+// (m, l) and its 64 x 512 f32 accumulator in its own shared memory (over the
+// key stages, free once the last product has landed; rows 520 floats apart,
+// so the fragments' 8-byte stores meet no bank conflict).  Then every rank
+// merges a slice of 512 / ranks features of the 64 rows, reading the live
+// ranks' states through distributed shared memory in rank order, and writes
+// it: no f32 partials go through device memory, no second kernel runs, and
+// the result is bitwise the same on every call.  A decode slot with no valid
+// key (length 0) walks its whole block-table row with every key scored 0:
+// the uniform mean of its latents, which the TPU kernel and the plain
+// version give by masking every score to the finite -1e30 (a verify row
+// always sees its own position).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -132,6 +134,8 @@ constexpr size_t kSmemW = kBar + 8 * (1 + kStagesW) + 1024;
 constexpr int kAccStride = kKv + 8;
 // decode: CTAs a cluster (8 ran slower, launch.paged_bench's ranks8 copy)
 constexpr int kRanks = 4;
+// verify: CTAs a cluster (launch.paged_bench's latent_verify_ranks* copies)
+constexpr int kVerifyRanks = 2;
 static_assert(kRowsW * kAccStride * 4 <= kStagesW * kTileBytes,
               "a rank's accumulator fits the key stages");
 
@@ -146,22 +150,6 @@ inline void splits(int start, int chunk, int heads, int* n_split,
                    int* split_keys) {
   const int blocks = (chunk * heads + kRowsW - 1) / kRowsW;
   const int keys = start + chunk;
-  int sk = (keys + kTk - 1) / kTk * kTk;
-  if (blocks < kSmsW) {
-    const int want = (kSmsW + blocks - 1) / blocks;
-    sk = ((keys + want - 1) / want + kTk - 1) / kTk * kTk;
-  }
-  *split_keys = sk;
-  *n_split = (keys + sk - 1) / sk;
-}
-
-// The key splits of a verify launch: B slots of n_rows rows each over
-// tables of width x page keys, by the rule of ``splits`` with the keys
-// counted from the width (the windows' starts are on the device).
-inline void verify_splits(int width, int page, int n_rows, int batch,
-                          int* n_split, int* split_keys) {
-  const int blocks = batch * ((n_rows + kRowsW - 1) / kRowsW);
-  const int keys = width * page;
   int sk = (keys + kTk - 1) / kTk * kTk;
   if (blocks < kSmsW) {
     const int want = (kSmsW + blocks - 1) / blocks;
@@ -356,19 +344,17 @@ __device__ __forceinline__ void walk(
     l[hh] = x_s[row[hh]] + x_s[kRowsW + row[hh]];
 }
 
-// q_lat (B * n_rows, 512), q_rope (B * n_rows, 64), the pools (n_pool *
-// page, 512) and (n_pool * page, 64), all as 2-D maps with 64 x 64 boxes;
-// tables (B, width); starts (B,) or, for one slot (B 1), nullptr and
-// ``start``; out (B * n_rows, 512) bf16, or, split, part_acc (n_split,
-// B * n_rows, 512) and part_ml (n_split, B * n_rows, 2) f32.  Grid (row
-// blocks, n_split, B).  scale_log2 = scale * log2 e.
+// q_lat (n_rows, 512), q_rope (n_rows, 64), the pools (n_pool * page,
+// 512) and (n_pool * page, 64), all as 2-D maps with 64 x 64 boxes;
+// row_table (width,); out (n_rows, 512) bf16, or, split, part_acc (n_split,
+// n_rows, 512) and part_ml (n_split, n_rows, 2) f32.  Grid (row blocks,
+// n_split).  scale_log2 = scale * log2 e.
 __global__ void __launch_bounds__(kThreadsW, 1)
 prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
                const __grid_constant__ CUtensorMap qr_map,
                const __grid_constant__ CUtensorMap ckv_map,
                const __grid_constant__ CUtensorMap kr_map,
-               const int* __restrict__ tables,
-               const int* __restrict__ starts, bf16* __restrict__ out,
+               const int* __restrict__ row_table, bf16* __restrict__ out,
                float* __restrict__ part_acc, float* __restrict__ part_ml,
                int n_rows, int n_heads, int page, int width, int n_pool,
                int start, int split_keys, float scale_log2) {
@@ -376,11 +362,6 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
   const uint32_t base = aligned_smem_base(smem_raw);
   unsigned char* gen = smem_raw + (base - smem_u32(smem_raw));
 
-  // the slot: its block-table row, its window's start, its rows' outputs
-  const int b = blockIdx.z;
-  const int* row_table = tables + (long long)b * width;
-  if (starts != nullptr) start = starts[b];
-  out += (long long)b * n_rows * kKv;
   // longest causal range first: the last row block goes first
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kRowsW;
   const int split = blockIdx.y;
@@ -393,17 +374,15 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
   for (int hh = 0; hh < 2; ++hh)
     limit[hh] = min(start + (r0 + row_of(hh)) / n_heads + 1, hi);
   float m[2], lt[2], acc[kAcc];
-  walk(base, gen, &ql_map, &qr_map, &ckv_map, &kr_map, row_table,
-       b * n_rows + r0, lo, hi, limit, page, n_pool, scale_log2, false, m,
-       lt, acc);
+  walk(base, gen, &ql_map, &qr_map, &ckv_map, &kr_map, row_table, r0, lo,
+       hi, limit, page, n_pool, scale_log2, false, m, lt, acc);
 
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t4 = lane & 3;
   const int row[2] = {row_of(0), row_of(1)};
   if (gridDim.y > 1) {   // f32 partials for combine_kernel
-    const long long prow0 =
-        ((long long)split * gridDim.z + b) * n_rows + r0;
+    const long long prow0 = (long long)split * n_rows + r0;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (r0 + row[hh] >= n_rows) continue;
@@ -452,40 +431,83 @@ prefill_kernel(const __grid_constant__ CUtensorMap ql_map,
   }
 }
 
-// q_lat (B * H, 512), q_rope (B * H, 64) and the pools as for prefill;
-// tables (B, width), lengths (B,); out (B * H, 512) bf16.  Grid (kRanks,
-// head blocks of 64, B), clusters of kRanks along x.
-__global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreadsW, 1)
-decode_kernel(const __grid_constant__ CUtensorMap ql_map,
-              const __grid_constant__ CUtensorMap qr_map,
-              const __grid_constant__ CUtensorMap ckv_map,
-              const __grid_constant__ CUtensorMap kr_map,
-              const int* __restrict__ tables,
-              const int* __restrict__ lengths, bf16* __restrict__ out,
-              int n_heads, int page, int width, int n_pool,
-              float scale_log2) {
+// The slot of the cluster that starts target-th (the card starts clusters
+// roughly in the grid's order): the slots by decreasing length, ties by
+// index, so that the longest walks start first and the short ones fill in
+// behind them.  Each warp finds it for itself, 32 slots a round.
+__device__ __forceinline__ int slot_by_length(const int* __restrict__ lengths,
+                                              int n_slots, int target) {
+  const int lane = threadIdx.x & 31;
+  for (int s0 = 0; s0 < n_slots; s0 += 32) {
+    const int s = s0 + lane;
+    int before = -1;
+    if (s < n_slots) {
+      const int len = lengths[s];
+      before = 0;
+      for (int j = 0; j < n_slots; ++j) {
+        const int lj = lengths[j];
+        before += lj > len || (lj == len && j < s);
+      }
+    }
+    const unsigned hit = __ballot_sync(0xffffffffu, before == target);
+    if (hit) return s0 + __ffs(hit) - 1;
+  }
+  return target;
+}
+
+// The cluster walk of decode and verify.  q_lat (B * n_rows, 512),
+// q_rope (B * n_rows, 64) and the pools as for prefill; tables (B, width),
+// lengths (B,); out (B * n_rows, 512) bf16.  Decode (n_rows = H): every
+// row sees the slot's keys [0, min(lengths[b], width * page)).  VERIFY
+// (n_rows = W x H): row r sees [0, min(lengths[b] + r / H + 1, width *
+// page)), its position's causal limit, and the clusters take the slots
+// longest first (slot_by_length) and each slot's row blocks from its last,
+// whose keys reach furthest.  Grid (RANKS, row blocks of 64, B) in
+// clusters of RANKS along x; the two kernels below fix their cluster
+// shapes at compile time.
+template <int RANKS, bool VERIFY>
+__device__ __forceinline__ void cluster_walk(
+    const CUtensorMap* ql_map, const CUtensorMap* qr_map,
+    const CUtensorMap* ckv_map, const CUtensorMap* kr_map,
+    const int* __restrict__ tables, const int* __restrict__ lengths,
+    bf16* __restrict__ out, int n_rows, int n_heads, int page, int width,
+    int n_pool, float scale_log2) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int hb = blockIdx.y, b = blockIdx.z;
+  const int rb = VERIFY ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int b =
+      VERIFY ? slot_by_length(lengths, gridDim.z, blockIdx.z) : blockIdx.z;
+  const int r0 = rb * kRowsW;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = aligned_smem_base(smem_raw);
   unsigned char* gen = smem_raw + (base - smem_u32(smem_raw));
 
-  // the slot's live keys [0, n) in 64-key tiles, and this rank's share; a
-  // slot with none walks the whole row, every key scored 0
-  int n = max(min(lengths[b], width * page), 0);
+  // the block's live keys [0, n) (those of its last row) in 64-key tiles,
+  // and this rank's share; each row masked at its own limit.  A decode
+  // slot with none (length 0) walks the whole row, every key scored 0.
+  const int length = lengths[b];
+  const int wp = width * page;
+  auto keys_of = [&](int r) {
+    return max(min(VERIFY ? length + r / n_heads + 1 : length, wp), 0);
+  };
+  int n = keys_of(min(r0 + kRowsW, n_rows) - 1);
   const bool uniform = n == 0;
-  if (uniform) n = width * page;
+  if (uniform) n = wp;
   const int tiles = (n + kTk - 1) / kTk;
-  const int share = (tiles + kRanks - 1) / kRanks;
+  const int share = (tiles + RANKS - 1) / RANKS;
   const int lo = min(rank * share * kTk, n);
   const int hi = min(n, lo + share * kTk);
-  const int limit[2] = {hi, hi};
+  int limit[2] = {hi, hi};
+  if (VERIFY) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      limit[hh] = min(keys_of(r0 + row_of(hh)), hi);
+  }
   float m[2], l[2], acc[kAcc];
-  walk(base, gen, &ql_map, &qr_map, &ckv_map, &kr_map,
-       tables + (long long)b * width, b * n_heads + hb * kRowsW, lo, hi,
-       limit, page, n_pool, scale_log2, uniform, m, l, acc);
+  walk(base, gen, ql_map, qr_map, ckv_map, kr_map,
+       tables + (long long)b * width, b * n_rows + r0, lo, hi, limit, page,
+       n_pool, scale_log2, uniform, m, l, acc);
 
   // the rank's state in its own shared memory: the accumulator over the
   // key stages, (m, l) over P
@@ -511,16 +533,16 @@ decode_kernel(const __grid_constant__ CUtensorMap ql_map,
 
   // the merge: features [rank F, rank F + F) of the 64 rows, 4 a thread at
   // a time, from the live ranks in rank order
-  constexpr int kF = kKv / kRanks, kUnits = kF / 4;
+  constexpr int kF = kKv / RANKS, kUnits = kF / 4;
   const int live = share > 0 ? (tiles + share - 1) / share : 0;
   for (int u = threadIdx.x; u < kRowsW * kUnits; u += kThreadsW) {
     const int r = u / kUnits, f = rank * kF + 4 * (u % kUnits);
-    const int h = hb * kRowsW + r;
-    if (h >= n_heads) continue;
-    float mr[kRanks], lr[kRanks];
-    float4 ar[kRanks];
+    const int row = r0 + r;
+    if (row >= n_rows) continue;
+    float mr[RANKS], lr[RANKS];
+    float4 ar[RANKS];
 #pragma unroll
-    for (int q = 0; q < kRanks; ++q) {
+    for (int q = 0; q < RANKS; ++q) {
       mr[q] = kNegInf;
       lr[q] = 0.f;
       ar[q] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -534,11 +556,11 @@ decode_kernel(const __grid_constant__ CUtensorMap ql_map,
     }
     float mm = kNegInf;
 #pragma unroll
-    for (int q = 0; q < kRanks; ++q) mm = fmaxf(mm, mr[q]);
+    for (int q = 0; q < RANKS; ++q) mm = fmaxf(mm, mr[q]);
     float ll = 0.f;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int q = 0; q < kRanks; ++q) {
+    for (int q = 0; q < RANKS; ++q) {
       if (q >= live) break;
       const float w = exp2f(mr[q] - mm);
       ll += lr[q] * w;
@@ -550,10 +572,41 @@ decode_kernel(const __grid_constant__ CUtensorMap ql_map,
     const float inv = 1.f / fmaxf(ll, 1e-30f);
     __nv_bfloat162 v[2] = {__floats2bfloat162_rn(a.x * inv, a.y * inv),
                            __floats2bfloat162_rn(a.z * inv, a.w * inv)};
-    *reinterpret_cast<uint2*>(out + ((long long)b * n_heads + h) * kKv + f) =
-        *reinterpret_cast<const uint2*>(v);
+    *reinterpret_cast<uint2*>(out + ((long long)b * n_rows + row) * kKv +
+                              f) = *reinterpret_cast<const uint2*>(v);
   }
   cluster.sync();   // no rank leaves while another reads its state
+}
+
+// Decode: q_lat (B * H, 512), q_rope (B * H, 64).
+__global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreadsW, 1)
+decode_kernel(const __grid_constant__ CUtensorMap ql_map,
+              const __grid_constant__ CUtensorMap qr_map,
+              const __grid_constant__ CUtensorMap ckv_map,
+              const __grid_constant__ CUtensorMap kr_map,
+              const int* __restrict__ tables,
+              const int* __restrict__ lengths, bf16* __restrict__ out,
+              int n_heads, int page, int width, int n_pool,
+              float scale_log2) {
+  cluster_walk<kRanks, false>(&ql_map, &qr_map, &ckv_map, &kr_map, tables,
+                              lengths, out, n_heads, n_heads, page, width,
+                              n_pool, scale_log2);
+}
+
+// Verify: q_lat (B * W * H, 512), q_rope (B * W * H, 64), n_rows = W * H.
+__global__ void __cluster_dims__(kVerifyRanks, 1, 1)
+    __launch_bounds__(kThreadsW, 1)
+verify_kernel(const __grid_constant__ CUtensorMap ql_map,
+              const __grid_constant__ CUtensorMap qr_map,
+              const __grid_constant__ CUtensorMap ckv_map,
+              const __grid_constant__ CUtensorMap kr_map,
+              const int* __restrict__ tables,
+              const int* __restrict__ lengths, bf16* __restrict__ out,
+              int n_rows, int n_heads, int page, int width, int n_pool,
+              float scale_log2) {
+  cluster_walk<kVerifyRanks, true>(&ql_map, &qr_map, &ckv_map, &kr_map,
+                                   tables, lengths, out, n_rows, n_heads,
+                                   page, width, n_pool, scale_log2);
 }
 
 // The 2-D maps of the queries (n_rows rows) and of the latent pools.
@@ -585,7 +638,7 @@ inline int launch(const void* q_lat, const void* q_rope, const void* ckv,
   splits(start, chunk, heads, &n_split, &split_keys);
   const dim3 grid((n_rows + kRowsW - 1) / kRowsW, n_split);
   prefill_kernel<<<grid, kThreadsW, kSmemW, stream>>>(
-      qlm, qrm, ckm, krm, row_table, nullptr, static_cast<bf16*>(out),
+      qlm, qrm, ckm, krm, row_table, static_cast<bf16*>(out),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), n_rows,
       heads, page, width, n_pool, start, split_keys,
       scale * flash_mma::kLog2e);
@@ -596,42 +649,6 @@ inline int launch(const void* q_lat, const void* q_rope, const void* ckv,
         static_cast<const float*>(part_acc),
         static_cast<const float*>(part_ml), static_cast<bf16*>(out), n_rows,
         kKv, n_split);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The verify launch: q_lat (B, W, H, 512) and q_rope (B, W, H, 64) as B *
-// W * H rows, tables (B, width), lengths (B,) the windows' starts; one
-// launch over the slots, and combine_kernel's when split.
-inline int launch_verify(const void* q_lat, const void* q_rope,
-                         const void* ckv, const void* kr, const int* tables,
-                         const int* lengths, void* out, void* part_acc,
-                         void* part_ml, int batch, int w, int heads, int page,
-                         int width, int n_pool, float scale,
-                         cudaStream_t stream) {
-  const int n_rows = w * heads;
-  if (batch * n_rows == 0) return 0;
-  static size_t opted_in = 48 * 1024;
-  const cudaError_t e = allow_smem(prefill_kernel, kSmemW, &opted_in);
-  if (e != cudaSuccess) return (int)e;
-  CUtensorMap qlm, qrm, ckm, krm;
-  if (!maps(&qlm, &qrm, &ckm, &krm, q_lat, q_rope, ckv, kr, batch * n_rows,
-            n_pool * page))
-    return (int)cudaErrorInvalidValue;
-  int n_split, split_keys;
-  verify_splits(width, page, n_rows, batch, &n_split, &split_keys);
-  const dim3 grid((n_rows + kRowsW - 1) / kRowsW, n_split, batch);
-  prefill_kernel<<<grid, kThreadsW, kSmemW, stream>>>(
-      qlm, qrm, ckm, krm, tables, lengths, static_cast<bf16*>(out),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), n_rows,
-      heads, page, width, n_pool, 0, split_keys, scale * flash_mma::kLog2e);
-  if (n_split > 1) {
-    const cudaError_t e2 = cudaGetLastError();
-    if (e2 != cudaSuccess) return (int)e2;
-    combine_kernel<bf16><<<batch * n_rows, 256, 0, stream>>>(
-        static_cast<const float*>(part_acc),
-        static_cast<const float*>(part_ml), static_cast<bf16*>(out),
-        batch * n_rows, kKv, n_split);
   }
   return (int)cudaGetLastError();
 }
@@ -654,6 +671,29 @@ inline int launch_decode(const void* q_lat, const void* q_rope,
   decode_kernel<<<grid, kThreadsW, kSmemW, stream>>>(
       qlm, qrm, ckm, krm, tables, lengths, static_cast<bf16*>(out), heads,
       page, width, n_pool, scale * flash_mma::kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// The verify launch: q_lat (B, W, H, 512) and q_rope (B, W, H, 64) as
+// B * W * H rows; one, no scratch.
+inline int launch_verify(const void* q_lat, const void* q_rope,
+                         const void* ckv, const void* kr, const int* tables,
+                         const int* lengths, void* out, int batch, int w,
+                         int heads, int page, int width, int n_pool,
+                         float scale, cudaStream_t stream) {
+  const int n_rows = w * heads;
+  if (batch * n_rows == 0) return 0;
+  CUtensorMap qlm, qrm, ckm, krm;
+  if (!maps(&qlm, &qrm, &ckm, &krm, q_lat, q_rope, ckv, kr, batch * n_rows,
+            n_pool * page))
+    return (int)cudaErrorInvalidValue;
+  static size_t opted_in = 48 * 1024;
+  const cudaError_t e = allow_smem(verify_kernel, kSmemW, &opted_in);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(kVerifyRanks, (n_rows + kRowsW - 1) / kRowsW, batch);
+  verify_kernel<<<grid, kThreadsW, kSmemW, stream>>>(
+      qlm, qrm, ckm, krm, tables, lengths, static_cast<bf16*>(out), n_rows,
+      heads, page, width, n_pool, scale * flash_mma::kLog2e);
   return (int)cudaGetLastError();
 }
 

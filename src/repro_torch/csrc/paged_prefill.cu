@@ -58,16 +58,17 @@
 // out    (B, W, Hq, D)
 //
 // with the slot as a grid axis of both bodies (the chunk of slot b is its
-// window).  It reads each slot's K/V once for all W rows, where the decode
-// kernel over B x W rows would read it W times.  Key splits are sized on
-// the host from width x page; a split past a slot's last key (lengths[b] +
-// W) walks nothing and leaves the empty state, which the merge weighs 0.
-// At qwen3-0.6b's verify (G 2, W 8) a slot and kv head hold 16 rows, which
-// one 16-row warp covers; the tensor-core body takes four warps a CTA all
-// the same (three idle in the products), not one: they stage each K/V tile
-// four times as fast, and the CTA waits on its tiles (launch.paged_bench,
-// NVIDIA H100 80GB HBM3, 700.00 W: 0.0338 ms against 0.0485 with one warp
-// and 0.0448 with the prefill's eight).
+// window).  It takes the shapes paged_decode.cu's cluster family does not
+// (attention.paged_flash_verify asks paged_verify_cluster_takes first):
+// float32 ("cuda_cores"), bf16 at D 16 or 32, and bf16 windows of more
+// than 16 rows (W x G; "mma_sync").  bf16 at D 64, 128 and 256 with W x G
+// <= 16, qwen3-0.6b's and gemma2-2b's verify among them, runs
+// paged_decode.cu's paged_verify_cluster: one launch of clusters whose
+// splits are sized from the device lengths and merged on chip.  Here key
+// splits are sized on the host from width x page; a split past a slot's
+// last key (lengths[b] + W) walks nothing and leaves the empty state,
+// which the merge weighs 0.  The tensor-core body takes four warps a CTA
+// where 64 rows cover a slot's G x W rows of one kv head, else eight.
 //
 // Masking keeps the TPU kernel's finite NEG_INF (-1e30).  In the CUDA-core
 // body a row whose first tile lies wholly before its window takes exp(0)

@@ -48,12 +48,20 @@ and ``paged_latent_decode`` count their launches by family in
 ``"wgmma"``, ``"mma_sync"``, ``"cuda_cores"``).
 
 Speculative verify: ``paged_flash_verify`` and ``paged_latent_verify`` are
-the W-token windows of all B slots in one launch, the entries
-``paged_verify`` of ``csrc/paged_prefill.cu`` and ``paged_latent_verify``
-of ``csrc/paged_latent_prefill.cu``, which run the prefill kernels with the
-slot as a grid axis and each slot's start read on the device (JAX vmaps
-``paged_flash_prefill_pallas`` and ``paged_latent_prefill_pallas`` over
-the slots).  They count launches and variants as the prefill wrappers do.
+the W-token windows of all B slots in one launch, each slot's start read
+on the device (JAX vmaps ``paged_flash_prefill_pallas`` and
+``paged_latent_prefill_pallas`` over the slots).  In bf16 at the models'
+widths both run the ``"cluster"`` family: one launch of thread-block
+clusters, one per (slot, kv head) or (slot, 64-row block), whose ranks
+size their key shares from the slot's length on the device and merge
+their states on chip, with no f32 scratch and no second kernel
+(``paged_verify_cluster`` of ``csrc/paged_decode.cu``, kernel 1's walk;
+``paged_latent_verify`` of ``csrc/paged_latent_prefill.cu``, kernel 3's).
+The other shapes run the prefill kernels with the slot as a grid axis and
+key splits sized on the host from the table's width (``paged_verify`` of
+``csrc/paged_prefill.cu``; ``paged_latent_verify``'s ``"mma_sync"`` and
+``"cuda_cores"``).  They count launches and variants as the prefill
+wrappers do.
 
 The kernels are CUDA C++ for ``sm_90a``, built by ``kernels.build`` at
 first use and called through their plain C interface with ``ctypes``.
@@ -144,6 +152,9 @@ DECODE_VARIANTS = ("cuda_cores", "mma_sync")
 # The kernel families of the dense flash libraries and of the latent pair,
 # by the number their ``<lib>_variant`` returns.
 FLASH_VARIANTS = ("cuda_cores", "mma_sync", "wgmma")
+# The verify entries': the split families of the prefill kernels, and the
+# one-launch clusters (paged_latent_verify_variant numbers them so)
+VERIFY_VARIANTS = ("cuda_cores", "mma_sync", "cluster")
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -354,9 +365,14 @@ def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
     q: (B, W, Hq, D) contiguous, slot b's window at positions
     lengths[b] + t; k_pages/v_pages: (n_pool, page, Hkv, D); block_tables
     (B, width) int32; lengths (B,) int32 on the device.  Returns
-    (B, W, Hq, D) in q's dtype.  The key splits cover the table's width;
-    ``variants`` counts ``"mma_sync"`` (bf16 at D 16, 32, 64, 128 or 256)
-    or ``"cuda_cores"``.
+    (B, W, Hq, D) in q's dtype.  ``variants`` counts the family:
+    ``"cluster"`` (bf16 at D 64, 128 or 256 with W x G <= 16:
+    ``csrc/paged_decode.cu``'s ``paged_verify_cluster``, one cluster of
+    CTAs per slot and kv head whose ranks split the slot's live keys, sized
+    from ``lengths`` on the device, and merge on chip; no scratch),
+    ``"mma_sync"`` (other bf16 shapes) or ``"cuda_cores"`` (float32): the
+    prefill kernels with key splits sized on the host from the table's
+    width and f32 scratch for their merge.
     """
     if not q.is_cuda and not _work.is_fake(q):
         from repro_torch.kernels.attention import ops
@@ -376,25 +392,35 @@ def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
                                          fake), hq, hkv, d,
                              q.element_size()))):
         return out
-    n_split = _fn("paged_prefill", "paged_verify_splits", (_I, _I))(width,
-                                                                     page)
-    part_acc, part_ml = _scratch(n_split, b * w * hq, d, q.device)
-    fn = _fn("paged_prefill", "paged_verify",
-             (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-              _I, _F, _I, _F, _P))
+    dtype = _DTYPES[q.dtype]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if _fn("paged_decode", "paged_verify_cluster_takes", (_I,) * 4)(
+            dtype, d, hq // hkv, w):
+        variant = "cluster"
+        fn = _fn("paged_decode", "paged_verify_cluster",
+                 (_P,) * 6 + (_I,) * 8 + (_F, _I, _F, _P))
+        args = (b, w, hq, hkv, d, page, width, n_pool)
+    else:
+        variant = VERIFY_VARIANTS[_fn(
+            "paged_prefill", "paged_prefill_variant", (_I, _I))(dtype, d)]
+        n_split = _fn("paged_prefill", "paged_verify_splits",
+                      (_I, _I))(width, page)
+        part_acc, part_ml = _scratch(n_split, b * w * hq, d, q.device)
+        fn = functools.partial(_fn(
+            "paged_prefill", "paged_verify",
+            (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _I, _F, _I, _F, _P)), dtype)
+        args = (_ptr(part_acc), _ptr(part_ml), b, w, hq, hkv, d, page, width,
+                n_pool)
     with torch.cuda.device(q.device):
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-                 v_pages.data_ptr(), block_tables.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), _ptr(part_acc),
-                 _ptr(part_ml), b, w, hq, hkv, d, page, width, n_pool,
-                 float(scale), _window(window), _softcap(logit_cap),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 *args, float(scale), _window(window), _softcap(logit_cap),
+                 stream)
     if err:
         raise RuntimeError(f"paged_verify launch failed: CUDA error {err}")
     paged_flash_verify.launches += 1
-    paged_flash_verify.variants[PREFILL_VARIANTS[_fn(
-        "paged_prefill", "paged_prefill_variant", (_I, _I))(
-            _DTYPES[q.dtype], d)]] += 1
+    paged_flash_verify.variants[variant] += 1
     return out
 
 
@@ -577,8 +603,13 @@ def paged_latent_verify(q_lat: torch.Tensor, q_rope: torch.Tensor,
     slot b's window at positions lengths[b] + t; latent pools as for
     decode; block_tables (B, width) int32; lengths (B,) int32 on the
     device.  Returns (B, W, H, kv_lora) in q's dtype.  ``variants`` counts
-    ``"wgmma"`` (bf16 at kv_lora 512, qk_rope 64 and pages of a multiple of
-    64), ``"mma_sync"`` or ``"cuda_cores"``, as for the latent prefill.
+    the family: ``"cluster"`` (bf16 at kv_lora 512, qk_rope 64 and pages of
+    a multiple of 64: one cluster of CTAs per slot and 64-row block on the
+    latent prefill's wgmma walk, whose ranks split the block's live keys,
+    sized from ``lengths`` on the device, and merge on chip; no scratch),
+    ``"mma_sync"`` or ``"cuda_cores"`` (the other shapes: the latent
+    prefill's 16-row families with key splits sized on the host from the
+    table's width and f32 scratch for their merge).
     """
     if not q_lat.is_cuda and not _work.is_fake(q_lat):
         from repro_torch.kernels.attention import ops
@@ -599,9 +630,13 @@ def paged_latent_verify(q_lat: torch.Tensor, q_rope: torch.Tensor,
             q_lat.element_size())):
         return out
     dtype = _DTYPES[q_lat.dtype]
-    n_split = _fn(lib, "paged_latent_verify_splits", (_I,) * 8)(
-        dtype, kv, rope, width, page, b, w, h)
-    part_acc, part_ml = _scratch(n_split, b * w * h, kv, q_lat.device)
+    variant = VERIFY_VARIANTS[_fn(lib, "paged_latent_verify_variant",
+                                  (_I,) * 4)(dtype, kv, rope, page)]
+    part_acc = part_ml = None
+    if variant != "cluster":
+        n_split = _fn(lib, "paged_latent_verify_splits", (_I,) * 8)(
+            dtype, kv, rope, width, page, b, w, h)
+        part_acc, part_ml = _scratch(n_split, b * w * h, kv, q_lat.device)
     fn = _fn(lib, "paged_latent_verify",
              (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
               _I, _I, _I, _F, _P))
@@ -616,8 +651,7 @@ def paged_latent_verify(q_lat: torch.Tensor, q_rope: torch.Tensor,
         raise RuntimeError(f"paged_latent_verify launch failed: CUDA error "
                            f"{err}")
     paged_latent_verify.launches += 1
-    paged_latent_verify.variants[FLASH_VARIANTS[_fn(
-        lib, f"{lib}_variant", (_I,) * 4)(dtype, kv, rope, page)]] += 1
+    paged_latent_verify.variants[variant] += 1
     return out
 
 

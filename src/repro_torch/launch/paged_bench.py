@@ -1,7 +1,7 @@
 """The paged decode kernel, the MLA latent prefill and decode kernels and
-the GQA verify entry on the card, in one short call: build, check, time
-and ablate them, for iterating on ``csrc/paged_decode.cu``,
-``csrc/paged_latent_wgmma.cuh`` and ``csrc/paged_prefill.cu``.
+the two speculative-verify entries on the card, in one short call: build,
+check, time and ablate them, for iterating on ``csrc/paged_decode.cu`` and
+``csrc/paged_latent_wgmma.cuh``.
 
   PYTHONPATH=src python -m repro_torch.launch.paged_bench [--seed N]
       [--ablate]
@@ -13,10 +13,12 @@ and ablate them, for iterating on ``csrc/paged_decode.cu``,
    the latent prefill at deepseek-v2's (one 128-token chunk at start 896,
    H 128, kv_lora 512, qk_rope 64, pages of 128, bf16) and the latent
    decode at deepseek-v2's (8 slots of 48..1032 positions, H 128, pages of
-   128, clusters of 4 ranks) and the GQA verify entry at qwen3-0.6b's
+   128, clusters of 4 ranks), the GQA verify entry at qwen3-0.6b's
    speculative serving (the decode's slots and pools, W 8 windows at the
    decode's lengths, tables of 32 pages as the engine's width bucket
-   gives them): each against
+   gives them) and the latent verify entry at deepseek-v2's (the latent
+   decode's slots, tables and pools, W 8 windows at its lengths), both of
+   the one-launch cluster family: each against
    its plain version (``chip_smoke.py``'s bf16 ATOL, 2e-2), bitwise equal
    over two calls, with the variant it took; device ms per call from one
    CUDA-graph replay of ITERS calls cycling over LAYERS layers' pools (so
@@ -31,12 +33,18 @@ and ablate them, for iterating on ``csrc/paged_decode.cu``,
    plain arrival), without its output stores or without its products
    (both wgmma loops, behind a condition that never holds); latent decode
    without its loads, its products or its merge (the ranks' states left
-   unread, no output written).  What bounds each kernel.  And copies that
-   compute the kernel's function, checked like it: the latent decode in
-   clusters of 8 ranks (``ranks8``); the verify entry with one, two or the
-   prefill's eight 16-row warps a CTA instead of four (``verify_warps1``,
-   ``verify_warps2``, ``verify_warps8``), and with key splits of 256 keys
-   instead of 128 (``verify_split256``).
+   unread, no output written); both verify entries without their loads or
+   their products, and the latent one without its merge (the walks they
+   share with kernels 1 and 3: the same edits, timed through the verify
+   entries).  What bounds each kernel.
+   And copies that compute the kernel's function, checked like it: the
+   latent decode in clusters of 8 ranks (``ranks8``); the GQA verify in
+   clusters of 2 or 8 ranks instead of 4 (``verify_ranks2``,
+   ``verify_ranks8``); the latent
+   verify in clusters of 1, 4 or 8 instead of 2 (``latent_verify_ranks1``,
+   ``latent_verify_ranks4``, ``latent_verify_ranks8``) and with its
+   clusters in the grid's order instead of the slots longest first
+   (``latent_verify_grid_order``).
 
 Exits 1 if a check fails, 2 without a card.  ``chip_smoke.py`` holds the
 kernels to the same bounds at more shapes and times them beside SDPA and
@@ -49,6 +57,7 @@ import ctypes
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 
@@ -112,15 +121,19 @@ _LATENT_NO_PRODUCTS = [
 _LATENT_MERGE = ("  for (int u = threadIdx.x; u < kRowsW * kUnits; "
                  "u += kThreadsW) {\n")
 _LATENT_RANKS = "constexpr int kRanks = 4;\n"
-_VERIFY_WARPS = "constexpr int kVerifyWarps = 4;\n"
-_VERIFY_LAUNCH = "launch_tc_d<kVerifyWarps>"
-_VERIFY_SPLIT = "constexpr int kSplitKeys = 128;"
+_VERIFY_RANKS = "constexpr int kVerifyRanks = 4;\n"
+_LATENT_VERIFY_RANKS = "constexpr int kVerifyRanks = 2;\n"
+_LATENT_ORDER = ("  const int rb = VERIFY ? gridDim.y - 1 - blockIdx.y : "
+                 "blockIdx.y;\n"
+                 "  const int b =\n"
+                 "      VERIFY ? slot_by_length(lengths, gridDim.z, "
+                 "blockIdx.z) : blockIdx.z;\n")
+_DECODE_NO_LOADS = [(_DECODE_ISSUE, ""), (_DECODE_NEXT, "")]
 ABLATIONS = {
-    "decode_no_loads": ("paged_decode.cu", [(_DECODE_ISSUE, ""),
-                                            (_DECODE_NEXT, "")]),
+    "decode_no_loads": ("paged_decode.cu", _DECODE_NO_LOADS),
     "decode_no_products": ("paged_decode.cu", _DECODE_NO_PRODUCTS),
-    "decode_no_loads_no_products": ("paged_decode.cu", [
-        (_DECODE_ISSUE, ""), (_DECODE_NEXT, "")] + _DECODE_NO_PRODUCTS),
+    "decode_no_loads_no_products": ("paged_decode.cu",
+                                    _DECODE_NO_LOADS + _DECODE_NO_PRODUCTS),
     "latent_no_stores": ("paged_latent_wgmma.cuh", [
         (_LATENT_STORE, _LATENT_STORE.replace("orow < n_rows",
                                               "orow < 0"))]),
@@ -140,17 +153,35 @@ ABLATIONS = {
     # clusters of 8 ranks: the kernel's function, a different split
     "latent_decode_ranks8": ("paged_latent_wgmma.cuh", [
         (_LATENT_RANKS, _LATENT_RANKS.replace("4", "8"))]),
-    # the verify entry's CTA at qwen3's G x W = 16 rows: 1, 2 or 8 warps
-    # instead of 4; splits of 256 keys instead of 128
-    **{f"verify_warps{nw}": ("paged_prefill.cu", [
-        (_VERIFY_WARPS, _VERIFY_WARPS.replace("4", str(nw))),
-        (_VERIFY_LAUNCH, f"launch_tc_d<{nw}>")]) for nw in (1, 2, 8)},
-    "verify_split256": ("paged_prefill.cu", [
-        (_VERIFY_SPLIT, _VERIFY_SPLIT.replace("128", "256"))]),
+    # the GQA verify's cluster walk (kernel 1's copies and stages, its own
+    # 16-row steps): the same edits, timed through paged_verify_cluster;
+    # clusters of 2 or 8 ranks instead of 4
+    "verify_no_loads": ("paged_decode.cu", _DECODE_NO_LOADS),
+    "verify_no_products": ("paged_decode.cu", _DECODE_NO_PRODUCTS),
+    **{f"verify_ranks{r}": ("paged_decode.cu", [
+        (_VERIFY_RANKS, _VERIFY_RANKS.replace("4", str(r)))])
+       for r in (2, 8)},
+    # the latent verify's walk (kernel 3's cluster kernel at W x H rows):
+    # without loads or products, and clusters of 1, 4 or 8 instead of 2
+    "latent_verify_no_loads": ("paged_latent_wgmma.cuh", _LATENT_NO_LOADS),
+    "latent_verify_no_products": ("paged_latent_wgmma.cuh",
+                                  _LATENT_NO_PRODUCTS),
+    "latent_verify_no_merge": ("paged_latent_wgmma.cuh", [
+        (_LATENT_MERGE, _LATENT_MERGE.replace("u < kRowsW * kUnits",
+                                              "u < kRowsW * kUnits && "
+                                              "page < 0"))]),
+    # the clusters in the grid's order, not the slots longest first
+    "latent_verify_grid_order": ("paged_latent_wgmma.cuh", [
+        (_LATENT_ORDER, "  const int rb = blockIdx.y;\n"
+                        "  const int b = blockIdx.z;\n")]),
+    **{f"latent_verify_ranks{r}": ("paged_latent_wgmma.cuh", [
+        (_LATENT_VERIFY_RANKS, _LATENT_VERIFY_RANKS.replace("2", str(r)))])
+       for r in (1, 4, 8)},
 }
 # the copies that compute the kernel's function, checked like it
-EXACT = ("latent_decode_ranks8", "verify_warps1", "verify_warps2",
-         "verify_warps8", "verify_split256")
+EXACT = ("latent_decode_ranks8", "verify_ranks2", "verify_ranks8",
+         "latent_verify_grid_order", "latent_verify_ranks1",
+         "latent_verify_ranks4", "latent_verify_ranks8")
 
 
 def ablated_sources(csrc) -> dict[str, tuple[str, str]]:
@@ -169,17 +200,26 @@ def ablated_sources(csrc) -> dict[str, tuple[str, str]]:
 
 
 def build_report() -> None:
+    """Each paged library's kernels' registers and spills from ``-Xptxas
+    -v``, the kernel names demangled by ``c++filt`` where there is one."""
     from repro_torch.kernels.build import LIBS
     LIBS.build_all()
+    filt = shutil.which("c++filt")
     for lib in ("paged_decode", "paged_latent_prefill",
                 "paged_latent_decode", "paged_prefill"):
         entry = None
         for line in LIBS.ptxas_log.get(lib, "").splitlines():
-            if "Compiling entry" in line:
-                entry = re.search(r"(\w+_kernel)\w*?(I\w+?E)?E", line)
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                entry = found.group(1)
+                if filt:
+                    entry = subprocess.run([filt, entry], capture_output=True,
+                                           text=True).stdout.strip()
+                entry = re.sub(r"\(anonymous namespace\)::|__nv_", "",
+                               entry)[:110]
             elif entry and ("registers" in line or "spill" in line
                             or "C75" in line):
-                print(f"[build] {lib} {entry.group(0)[:60]}: "
+                print(f"[build] {lib} {entry}: "
                       f"{line.split('ptxas info    :')[-1].strip()}")
 
 
@@ -205,10 +245,11 @@ def _graph_ms(call, iters: int = ITERS) -> float:
 
 
 class Shapes:
-    """The serving inputs of both kernels, from the seed: decode q, K/V
+    """The serving inputs of the kernels, from the seed: decode q, K/V
     pools (LAYERS, n_pool, 64, 8, 128), tables and lengths; latent q_lat,
     q_rope, pools (LAYERS, n_pool, 128, 512 | 64) and the chunk's block
-    row."""
+    row; the latent decode's q, tables and lengths; both verify entries'
+    W 8 windows."""
 
     def __init__(self, gen: torch.Generator):
         dev, bf = "cuda", torch.bfloat16
@@ -241,9 +282,17 @@ class Shapes:
             :slots * 16].reshape(slots, 16).to(torch.int32)
         self.dql = rnd(slots, 1, self.h, self.kv)
         self.dqr = rnd(slots, 1, self.h, self.rope)
-        # the verify: W 8 windows at the decode's lengths, its pools
+        # the verify: W 8 windows at the decode's lengths, its pools; the
+        # latent verify: W 8 windows over the latent decode's pools
         self.w = 8
         self.vq = rnd(slots, self.w, self.hq, self.d)
+        self.vql = rnd(slots, self.w, self.h, self.kv)
+        self.vqr = rnd(slots, self.w, self.h, self.rope)
+        # ... at chip_smoke.py's verify lengths over its tables of 8 pages
+        # of 128 (the kernel table's row 4v)
+        self.vlens = torch.tensor([0, 124, 1016, 1000, 300, 777, 48, 555],
+                                  dtype=torch.int32, device=dev)
+        self.vlbt = self.lbt[:, :8].contiguous()
 
     def decode_bound_ms(self) -> float:
         n_keys = int(self.lens.sum())
@@ -268,6 +317,16 @@ class Shapes:
                   + 2 * keys * 8 * self.d * 2)
         return max(nbytes / HBM_BYTES_PER_S,
                    4 * pairs * self.hq * self.d / BF16_FLOPS) * 1e3
+
+    def latent_verify_bound_ms(self) -> float:
+        keys = int((self.vlens + self.w).sum())
+        pairs = int((self.vlens[:, None] + torch.arange(
+            1, self.w + 1, device=self.vlens.device)).sum())
+        flops = pairs * self.h * (2 * (self.kv + self.rope) + 2 * self.kv)
+        nbytes = (2 * (2 * self.vql.numel() + self.vqr.numel())
+                  + 4 * (self.vlbt.numel() + 8)
+                  + keys * (self.kv + self.rope) * 2)
+        return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
 
     def latent_bound_ms(self) -> float:
         pairs = sum(self.start + i + 1 for i in range(self.c))
@@ -306,7 +365,12 @@ def check_and_time(sh: Shapes, smi: str) -> bool:
          lambda i: K.paged_flash_verify(sh.vq, sh.kp[i % LAYERS],
                                         sh.vp[i % LAYERS], sh.bt, sh.lens,
                                         scale=1 / math.sqrt(sh.d)),
-         lambda: verify_plain(sh), sh.verify_bound_ms())]
+         lambda: verify_plain(sh), sh.verify_bound_ms()),
+        ("paged_latent_verify", K.paged_latent_verify,
+         lambda i: K.paged_latent_verify(
+             sh.vql, sh.vqr, sh.ck[i % LAYERS], sh.kr[i % LAYERS], sh.vlbt,
+             sh.vlens, scale=sh.scale),
+         lambda: latent_verify_plain(sh), sh.latent_verify_bound_ms())]
     for name, wrapper, call, plain, bound in cases:
         before = wrapper.variants.copy()
         got = call(0)
@@ -337,6 +401,29 @@ def verify_plain(sh: Shapes) -> torch.Tensor:
                                       sh.lens, use_kernel=False)
 
 
+def latent_verify_plain(sh: Shapes) -> torch.Tensor:
+    """The plain latent verify on the first layer's pools."""
+    from repro_torch.kernels.attention import ops
+    return ops.paged_latent_verify_attention(
+        sh.vql, sh.vqr, sh.ck[0], sh.kr[0], sh.vlbt, sh.vlens, scale=sh.scale,
+        use_kernel=False)
+
+
+def _entry(name: str) -> str:
+    """The entry an ablated copy is timed through, from its name."""
+    for prefix in ("latent_verify", "latent_decode", "verify", "decode"):
+        if name.startswith(prefix):
+            return prefix
+    return "latent_prefill"
+
+
+# the library source each entry's copies are built from
+_LIB_SOURCE = {"decode": "paged_decode.cu", "verify": "paged_decode.cu",
+               "latent_decode": "paged_latent_decode.cu",
+               "latent_prefill": "paged_latent_prefill.cu",
+               "latent_verify": "paged_latent_prefill.cu"}
+
+
 def ablate(sh: Shapes, smi: str) -> bool:
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR.parent / "paged_bench"
@@ -345,11 +432,7 @@ def ablate(sh: Shapes, smi: str) -> bool:
     for name, (fname, text) in ablated_sources(build.CSRC).items():
         # the copy of a header goes beside a copy of the library's .cu that
         # includes it from the copy's directory first
-        lib_src = ("paged_decode.cu" if name.startswith("decode") else
-                   "paged_latent_decode.cu"
-                   if name.startswith("latent_decode") else
-                   "paged_prefill.cu" if name.startswith("verify") else
-                   "paged_latent_prefill.cu")
+        lib_src = _LIB_SOURCE[_entry(name)]
         cu_dir = out_dir / name
         cu_dir.mkdir(exist_ok=True)
         (cu_dir / fname).write_text(text)
@@ -368,18 +451,25 @@ def ablate(sh: Shapes, smi: str) -> bool:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     out_d = torch.empty_like(sh.q)
     out_l = torch.empty_like(sh.ql)
+    out_ld = torch.empty_like(sh.dql)
+    out_v = torch.empty_like(sh.vq)
+    out_lv = torch.empty_like(sh.vql)
+    plains = {"latent_decode": latent_decode_plain, "verify": verify_plain,
+              "latent_verify": latent_verify_plain}
     ok = True
     for name, proc in procs:
         text, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"ablation {name} did not build:\n{text}")
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        if name.startswith("decode"):
+        entry = _entry(name)
+        if entry == "decode":
             fn = lib.paged_decode
             fn.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, F,
                            P]
             fn.restype = I
             n_pool, page = sh.kp.shape[1:3]
+            out = out_d
 
             def call(i, fn=fn, name=name, n_pool=n_pool, page=page):
                 err = fn(1, sh.q.data_ptr(), sh.kp[i % LAYERS].data_ptr(),
@@ -390,41 +480,48 @@ def ablate(sh: Shapes, smi: str) -> bool:
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"ablation {name}: CUDA error {err}")
-        elif name.startswith("verify"):
-            fn = lib.paged_verify
-            fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                           F, I, F, P]
+        elif entry == "verify":
+            fn = lib.paged_verify_cluster
+            fn.argtypes = [P] * 6 + [I] * 8 + [F, I, F, P]
             fn.restype = I
             n_pool, page = sh.kp.shape[1:3]
-            width = sh.bt.shape[1]
-            splits = lib.paged_verify_splits
-            splits.argtypes, splits.restype = [I, I], I
-            n_split = splits(width, page)
-            rows = sh.vq.numel() // sh.d
-            acc = torch.empty((n_split, rows, sh.d), device="cuda")
-            ml = torch.empty((n_split, rows, 2), device="cuda")
-            out = out_ld = torch.empty_like(sh.vq)
+            out = out_v
 
-            def call(i, fn=fn, name=name, n_pool=n_pool, page=page,
-                     width=width, acc=acc, ml=ml, out=out):
-                err = fn(1, sh.vq.data_ptr(), sh.kp[i % LAYERS].data_ptr(),
+            def call(i, fn=fn, name=name, n_pool=n_pool, page=page):
+                err = fn(sh.vq.data_ptr(), sh.kp[i % LAYERS].data_ptr(),
                          sh.vp[i % LAYERS].data_ptr(), sh.bt.data_ptr(),
-                         sh.lens.data_ptr(), out.data_ptr(), acc.data_ptr(),
-                         ml.data_ptr(), 8, sh.w, sh.hq, 8, sh.d, page, width,
-                         n_pool, 1 / math.sqrt(sh.d), 2 ** 31 - 1, 0.0,
+                         sh.lens.data_ptr(), out_v.data_ptr(), 8, sh.w,
+                         sh.hq, 8, sh.d, page, sh.bt.shape[1], n_pool,
+                         1 / math.sqrt(sh.d), 2 ** 31 - 1, 0.0,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"ablation {name}: CUDA error {err}")
-        elif name.startswith("latent_decode"):
+        elif entry == "latent_verify":
+            fn = lib.paged_latent_verify
+            fn.argtypes = [I] + [P] * 9 + [I] * 8 + [F, P]
+            fn.restype = I
+            n_pool, page = sh.ck.shape[1:3]
+            out = out_lv
+
+            def call(i, fn=fn, name=name, n_pool=n_pool, page=page):
+                err = fn(1, sh.vql.data_ptr(), sh.vqr.data_ptr(),
+                         sh.ck[i % LAYERS].data_ptr(),
+                         sh.kr[i % LAYERS].data_ptr(), sh.vlbt.data_ptr(),
+                         sh.vlens.data_ptr(), out_lv.data_ptr(), None, None,
+                         sh.vlbt.shape[0], sh.w, sh.h, sh.kv, sh.rope, page,
+                         sh.vlbt.shape[1], n_pool, sh.scale,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"ablation {name}: CUDA error {err}")
+        elif entry == "latent_decode":
             fn = lib.paged_latent_decode
             fn.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                            F, P]
             fn.restype = I
             n_pool, page = sh.ck.shape[1:3]
-            out_ld = torch.empty_like(sh.dql)
+            out = out_ld
 
-            def call(i, fn=fn, name=name, n_pool=n_pool, page=page,
-                     out_ld=out_ld):
+            def call(i, fn=fn, name=name, n_pool=n_pool, page=page):
                 err = fn(1, sh.dql.data_ptr(), sh.dqr.data_ptr(),
                          sh.ck[i % LAYERS].data_ptr(),
                          sh.kr[i % LAYERS].data_ptr(), sh.lbt.data_ptr(),
@@ -440,6 +537,7 @@ def ablate(sh: Shapes, smi: str) -> bool:
                            F, P]
             fn.restype = I
             n_pool, page = sh.ck.shape[1:3]
+            out = out_l
 
             def call(i, fn=fn, name=name, n_pool=n_pool, page=page):
                 err = fn(1, sh.ql.data_ptr(), sh.qr.data_ptr(),
@@ -453,13 +551,12 @@ def ablate(sh: Shapes, smi: str) -> bool:
         row = {"copy": name, "ms": _graph_ms(call), "card": smi}
         if name in EXACT:
             call(0)
-            got = out_ld.clone()
+            got = out.clone()
             call(0)
-            want = (verify_plain(sh) if name.startswith("verify")
-                    else latent_decode_plain(sh))
+            want = plains[entry](sh)
             err = (got.float() - want.float()).abs().max()
             row.update(max_abs_err=err.item(),
-                       bitwise_repeat=torch.equal(got, out_ld))
+                       bitwise_repeat=torch.equal(got, out))
             row["ok"] = row["bitwise_repeat"] and row["max_abs_err"] <= ATOL
             ok &= row["ok"]
         print(f"[ablate] {json.dumps(row)}")

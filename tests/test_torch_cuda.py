@@ -434,9 +434,11 @@ def _tables(gen, b, width):
 def test_verify_kernel_matches_plain_and_repeats_bitwise(cuda, dtype, atol,
                                                          kw, geom):
     """The verify entry of kernel 2 (one launch for all slots, starts read
-    on the device, splits over the table's width) against the plain
-    version, bitwise the same over two calls, of the variant the library
-    names."""
+    on the device) against the plain version, bitwise the same over two
+    calls, of the family its shape takes: bf16 at D 64, 128 or 256 with
+    W x G <= 16 the cluster walk (splits sized from the lengths on the
+    device), other bf16 the tensor-core prefill body and float32 the
+    CUDA-core one (splits over the table's width)."""
     b, w, hq, hkv, d, page, width, lens = VERIFY_GEOMS[geom]
     gen = torch.Generator(device=cuda).manual_seed(50 + geom)
     n_pool, bt = _tables(gen, b, width)
@@ -451,7 +453,9 @@ def test_verify_kernel_matches_plain_and_repeats_bitwise(cuda, dtype, atol,
     again = ver(q, kp, vp, bt, lens, scale=1 / math.sqrt(d), **kw)
     torch.cuda.synchronize()
     assert ver.launches == before[0] + 2
-    variant = "mma_sync" if dtype == torch.bfloat16 else "cuda_cores"
+    variant = ("cuda_cores" if dtype == torch.float32 else
+               "cluster" if d in (64, 128, 256) and w * hq // hkv <= 16
+               else "mma_sync")
     assert ver.variants - before[1] == {variant: 2}
     assert torch.equal(got, again)
     want = ops.paged_verify_attention(q, kp, vp, bt, lens, use_kernel=False,
@@ -472,7 +476,8 @@ LATENT_VERIFY_GEOMS = [   # (B, W, H, kv_lora, qk_rope, page, width, lengths)
 def test_latent_verify_kernel_matches_plain_and_repeats_bitwise(cuda, dtype,
                                                                 atol, geom):
     """The verify entry of kernel 4 against the plain version, bitwise the
-    same over two calls; bf16 at deepseek-v2's widths takes wgmma."""
+    same over two calls; bf16 at deepseek-v2's widths takes the cluster
+    family, float32 the CUDA-core one."""
     b, w, h, kv, rope, page, width, lens = LATENT_VERIFY_GEOMS[geom]
     gen = torch.Generator(device=cuda).manual_seed(60 + geom)
     n_pool, bt = _tables(gen, b, width)
@@ -490,11 +495,135 @@ def test_latent_verify_kernel_matches_plain_and_repeats_bitwise(cuda, dtype,
     torch.cuda.synchronize()
     assert ver.launches == before[0] + 2
     if dtype == torch.bfloat16 and kv == 512:
-        assert ver.variants - before[1] == {"wgmma": 2}
+        assert ver.variants - before[1] == {"cluster": 2}
+    if dtype == torch.float32:
+        assert ver.variants - before[1] == {"cuda_cores": 2}
     assert torch.equal(got, again)
     want = ops.paged_latent_verify_attention(*args, scale=scale,
                                              use_kernel=False)
     assert _err(got, want) <= atol
+
+
+# chip_smoke.py's verify lengths over tables of 1,024 keys (16 pages of 64,
+# 8 of 128): an inactive slot, a window across a page, one reaching the
+# last mapped page, slots far apart
+CLUSTER_LENS = {64: [0, 60, 1016, 1000, 300, 777, 48, 555],
+                128: [0, 124, 1016, 1000, 300, 777, 48, 555]}
+
+
+def _peak_extra(call, out_bytes):
+    """Bytes ``call`` allocated at its peak beyond its output's block
+    (the caching allocator rounds a block up to 512 bytes)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base \
+        - -(-out_bytes // 512) * 512, out
+
+
+@pytest.mark.parametrize("mla", [False, True])
+def test_verify_cluster_call_is_one_launch_without_scratch(cuda, mla):
+    """In bf16 at qwen3-0.6b's and deepseek-v2's serving verify (8 slots,
+    W 8, chip_smoke.py's lengths) one call is one launch of the cluster
+    family and allocates nothing beside its output: no f32 partials."""
+    gen = torch.Generator(device=cuda).manual_seed(70 + mla)
+    b, w, bf = 8, 8, torch.bfloat16
+    page = 128 if mla else 64
+    n_pool, bt = _tables(gen, b, 1024 // page)
+    lens = torch.tensor(CLUSTER_LENS[page], dtype=torch.int32, device=cuda)
+    if mla:
+        ver = K.paged_latent_verify
+        args = (_rand(gen, b, w, 128, 512, dtype=bf),
+                _rand(gen, b, w, 128, 64, dtype=bf),
+                _rand(gen, n_pool, page, 512, dtype=bf),
+                _rand(gen, n_pool, page, 64, dtype=bf), bt, lens)
+        kw = {"scale": 1 / math.sqrt(192)}
+    else:
+        ver = K.paged_flash_verify
+        args = (_rand(gen, b, w, 16, 128, dtype=bf),
+                _rand(gen, n_pool, page, 8, 128, dtype=bf),
+                _rand(gen, n_pool, page, 8, 128, dtype=bf), bt, lens)
+        kw = {"scale": 1 / math.sqrt(128)}
+    ver(*args, **kw)                     # built, and its smem attribute set
+    before = ver.launches, ver.variants.copy()
+    extra, out = _peak_extra(lambda: ver(*args, **kw),
+                             args[0].numel() * 2)
+    assert ver.launches == before[0] + 1
+    assert ver.variants - before[1] == {"cluster": 1}
+    assert extra == 0, extra
+    assert out.shape == args[0].shape
+
+
+@pytest.mark.parametrize("kw", [{"logit_cap": 50.0},
+                                {"window": 4096, "logit_cap": 50.0},
+                                {"window": 100, "logit_cap": 50.0}])
+def test_verify_cluster_at_gemma2_window_and_softcap(cuda, kw):
+    """gemma2-2b's verify (Hq 8, Hkv 4, D 256, W 8) with its softcap, its
+    local layers' window and a window of 100 that cuts inside the slots'
+    ranges, over chip_smoke.py's lengths: the cluster family, within bf16
+    ATOL of the plain version and bitwise over two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(80)
+    b, w, bf = 8, 8, torch.bfloat16
+    n_pool, bt = _tables(gen, b, 16)
+    lens = torch.tensor(CLUSTER_LENS[64], dtype=torch.int32, device=cuda)
+    q = _rand(gen, b, w, 8, 256, dtype=bf)
+    kp = _rand(gen, n_pool, 64, 4, 256, dtype=bf)
+    vp = _rand(gen, n_pool, 64, 4, 256, dtype=bf)
+    ver = K.paged_flash_verify
+    before = ver.variants.copy()
+    got = ver(q, kp, vp, bt, lens, scale=1 / 16, **kw)
+    assert torch.equal(got, ver(q, kp, vp, bt, lens, scale=1 / 16, **kw))
+    assert ver.variants - before == {"cluster": 2}
+    want = ops.paged_verify_attention(q, kp, vp, bt, lens, use_kernel=False,
+                                      **kw)
+    assert _err(got, want) <= 2e-2
+
+
+def test_verify_cluster_rows_past_the_table_match_plain(cuda):
+    """Windows running past the table (lengths up to 1,020 over 1,024
+    keys) and, with a window of 3, rows whose window lies wholly past it
+    (the plain version's uniform mean over the table) and a slot wholly
+    past it: the cluster family against the plain version in bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(81)
+    b, w, bf = 4, 8, torch.bfloat16
+    n_pool, bt = _tables(gen, b, 16)
+    lens = torch.tensor([1020, 1022, 1030, 5], dtype=torch.int32,
+                        device=cuda)
+    q = _rand(gen, b, w, 16, 128, dtype=bf)
+    kp = _rand(gen, n_pool, 64, 8, 128, dtype=bf)
+    vp = _rand(gen, n_pool, 64, 8, 128, dtype=bf)
+    for kw in ({}, {"window": 3}):
+        got = K.paged_flash_verify(q, kp, vp, bt, lens,
+                                   scale=1 / math.sqrt(128), **kw)
+        want = ops.paged_verify_attention(q, kp, vp, bt, lens,
+                                          use_kernel=False, **kw)
+        assert _err(got, want) <= 2e-2, kw
+
+
+def test_chunk_prefills_repeat_bitwise(cuda):
+    """Kernels 2 and 4's chunk paths at their serving shapes (qwen3-0.6b's
+    64-token chunk at start 896 over 1,024 keys; deepseek-v2's 128-token
+    chunk at start 896, its f32 splits merged by the second kernel) are
+    bitwise the same over two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(82)
+    bf = torch.bfloat16
+    row = torch.randperm(17, generator=gen, device=cuda)[:16].to(torch.int32)
+    q = _rand(gen, 1, 64, 16, 128, dtype=bf)
+    kp = _rand(gen, 17, 64, 8, 128, dtype=bf)
+    vp = _rand(gen, 17, 64, 8, 128, dtype=bf)
+    got = K.paged_flash_prefill(q, kp, vp, row, 896, scale=1 / math.sqrt(128))
+    assert torch.equal(got, K.paged_flash_prefill(
+        q, kp, vp, row, 896, scale=1 / math.sqrt(128)))
+    lrow = row[:8].clone()
+    args = (_rand(gen, 1, 128, 128, 512, dtype=bf),
+            _rand(gen, 1, 128, 128, 64, dtype=bf),
+            _rand(gen, 17, 128, 512, dtype=bf),
+            _rand(gen, 17, 128, 64, dtype=bf), lrow, 896)
+    got = K.paged_latent_prefill(*args, scale=1 / math.sqrt(192))
+    assert torch.equal(got, K.paged_latent_prefill(
+        *args, scale=1 / math.sqrt(192)))
 
 
 @pytest.mark.parametrize("dtype,atol", DTYPES)

@@ -702,7 +702,7 @@ def _latent_wgmma_splits(start, c, h, sms=132, rows=64, tile=64):
 
 
 def _wgmma_walk(q, ckf, krf, table, lo, hi, limit, scale, tile=64,
-                uniform=False):
+                uniform=False, p_bf16=True):
     """csrc/paged_latent_wgmma.cuh's walk of one CTA: rows q (R, kv +
     rope) in f32 from bf16 operands against 64-key tiles inside one page
     from ``lo`` to ``hi`` of the block-table row ``table``, each row masked
@@ -710,7 +710,8 @@ def _wgmma_walk(q, ckf, krf, table, lo, hi, limit, scale, tile=64,
     keys give a row max, the two meet, and each keeps the row sum of its
     own keys (added at the end, warpgroup 0's first); the weights are
     rounded to bf16 before the value product, which each warpgroup runs
-    over its half of the value features; ``uniform`` scores every key 0.
+    over its half of the value features; ``uniform`` scores every key 0;
+    without ``p_bf16`` the weights stay f32 (the walk's arithmetic alone).
     Returns (m in log2 units, l, acc unnormalized)."""
     page, kv = ckf.shape[1], ckf.shape[2]
     half, wk = kv // 2, tile // 2
@@ -731,7 +732,7 @@ def _wgmma_walk(q, ckf, krf, table, lo, hi, limit, scale, tile=64,
         p = torch.where(x <= NEG_INF, 0.0, torch.exp2(x - m_new[:, None]))
         l_wg = l_wg * alpha + torch.stack([p[:, :wk].sum(-1),
                                            p[:, wk:].sum(-1)])
-        pb = _bf(p)
+        pb = _bf(p) if p_bf16 else p
         acc = acc * alpha[:, None] + torch.cat(
             [pb @ v[:, :half], pb @ v[:, half:]], -1)
         m = m_new

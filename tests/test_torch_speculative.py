@@ -17,12 +17,12 @@ decoder of the port against ``repro``'s, on the CPU.
     preemption, a prime page geometry, the acceptance stats, the history
     kept on the device, the adaptive fallback, the greedy-only and geometry
     errors) and ``reference_decode`` against ``repro``'s.
-(d) CPU emulations of the two verify entries' walks (``csrc/
-    paged_prefill.cu``: paged_verify, ``csrc/paged_latent_prefill.cu``:
-    paged_latent_verify): the slot axis, each slot's start read from
-    ``lengths``, key splits sized from the table's width (those past a
-    slot's keys empty) and the split-order merge, against the plain
-    versions (bf16 2e-2, f32 1e-5).
+(d) CPU emulations of the two verify entries' cluster walks (``csrc/
+    paged_decode.cu``: paged_verify_cluster, ``csrc/paged_latent_wgmma.cuh``:
+    the latent verify's cluster_kernel): rank shares sized from
+    ``lengths`` as the kernels read them on the device, per-row causal
+    limits (and, for GQA, window lower bounds), empty ranks and the
+    rank-order merge, against the plain versions (bf16 2e-2, f32 1e-5).
 """
 import math
 import sys
@@ -44,8 +44,7 @@ from repro_torch.kernels.attention import attention as K
 from repro_torch.kernels.attention import ops, ref
 from repro_torch.serve import (Request, ServeEngine, paco_draft_len,
                                reference_decode)
-from test_torch_paged_attention import (emulate_latent, emulate_latent_wgmma,
-                                        emulate_prefill, emulate_prefill_tc)
+from test_torch_paged_attention import _wgmma_walk, emulate_latent
 from torch_parity import (close, models, pools_jax,  # noqa: F401
                           reference, serve)
 
@@ -548,43 +547,125 @@ def test_launch_serve_speculates_and_checks_reference_parity(capsys,
 # (d) the verify entries' walks (CPU emulations of the CUDA kernels)
 # ---------------------------------------------------------------------------
 
-def verify_warps(g, w):
-    """csrc/paged_prefill.cu's verify_warps: four warps of 16 rows a CTA,
-    or eight where 64 rows do not cover a slot's G x W rows of one kv
-    head."""
-    return 8 if 16 * 4 < g * w else 4
+INT32_MAX = 2 ** 31 - 1
+NEG_INF = -1e30
+LN2, LOG2E = math.log(2.0), 1.0 / math.log(2.0)
 
 
-def emulate_verify(q, kp, vp, bt, lens, *, split=128, **kw):
-    """paged_verify: kernel 2's walk with the slot as a grid axis, slot
-    b's window at lens[b] (read on the device), 128-key splits over the
-    whole table (width x page), those past a slot's keys empty and weighed
-    0 by the merge.  bf16 takes the tensor-core body at NW warps a CTA,
-    f32 the CUDA-core body (32 rows a CTA).  Returns the output and how
-    many (slot, split) pairs held no key."""
+def _online_log2(st, x, ok, v, p_bf16):
+    """One 16-key step of the cluster walks' online softmax in the log2
+    domain: a masked key (``ok`` False) weighs 0 outright; with ``p_bf16``
+    the weights are rounded to bf16 for the value product."""
+    m, l, acc = st
+    m_new = torch.maximum(m, torch.where(ok, x, NEG_INF).max(-1).values)
+    p = torch.where(ok, torch.exp2(x - m_new[:, None]), 0.0)
+    alpha = torch.exp2(m - m_new)
+    pv = (p.bfloat16().float() if p_bf16 else p) @ v
+    return m_new, l * alpha + p.sum(-1), acc * alpha[:, None] + pv
+
+
+def _merge_natural(states):
+    """States (m in natural units, l, acc) merged in the order given:
+    the kernels' warp and rank merges.  Returns (m, l, acc)."""
+    m = torch.stack([st[0] for st in states]).max(0).values
+    w = [torch.exp(st[0] - m) for st in states]
+    return (m, sum(st[1] * wi for st, wi in zip(states, w)),
+            sum(st[2] * wi[:, None] for st, wi in zip(states, w)))
+
+
+def verify_cluster_ranges(length, w, window, wp):
+    """csrc/paged_decode.cu's verify key ranges: the slot's [lo, hi) from
+    its first row's window start to its last row's causal limit, and each
+    position t's own [rlo, rhi) and whether it is uniform (a window wholly
+    past the table: the whole table, scored 0; then the slot's range is the
+    whole table too)."""
+    p = length + np.arange(w)
+    rlo = np.minimum(np.maximum(p - window + 1, 0), wp)
+    rhi = np.minimum(p + 1, wp)
+    uni = rhi <= rlo
+    rlo, rhi = np.where(uni, 0, rlo), np.where(uni, wp, rhi)
+    if uni[-1]:
+        return 0, wp, rlo, rhi, uni
+    return int(max(length - window + 1, 0)), int(rhi[-1]), rlo, rhi, uni
+
+
+def emulate_verify(q, kp, vp, bt, lens, *, window=None, logit_cap=None,
+                   ranks=8, warps=4, stage_bytes=48 * (256 + 16)):
+    """paged_verify_cluster (csrc/paged_decode.cu): per (slot, kv head) a
+    cluster of ``ranks`` CTAs over the slot's W x G rows (row r = position
+    t = r // G, head r % G, as one 16-row tile).  The slot's live keys
+    [lo, hi) (``verify_cluster_ranges``: from lengths[b], as the kernel
+    reads them on the device) in rank shares of ceil(n / ranks) rounded up
+    to whole 16-key steps, a rank past them holding none; a rank's keys pass through shared memory in
+    stages of ``stage_bytes`` of K (a multiple of 16 keys), warp w taking
+    16-key steps w, w + warps, ... of each stage, each row masked at its
+    own [rlo, rhi) with the softcap applied before the mask, the weights
+    rounded to bf16 for the value product in bf16 (not in f32: the walk's
+    arithmetic alone); the warps' states merge in warp order, then rank 0
+    merges the live ranks' in rank order.  Returns the output and the live
+    ranks of each slot."""
     b, w, hq, d = q.shape
-    page, hkv, width = kp.shape[1], kp.shape[2], bt.shape[1]
-    n_split = -(-width * page // split)
-    out, empty = [], 0
-    for s in range(b):
-        start = int(lens[s])
-        empty += n_split - -(-min(start + w, width * page) // split)
-        if q.dtype == torch.bfloat16:
-            out.append(emulate_prefill_tc(
-                q[s:s + 1], kp, vp, bt[s], start,
-                rows_per_cta=16 * verify_warps(hq // hkv, w),
-                n_split=n_split, split=split, **kw)[0])
-        else:
-            out.append(emulate_prefill(q[s:s + 1], kp, vp, bt[s], start,
-                                       split=split, **kw)[0])
-    return torch.stack(out), empty
+    _, page, hkv, _ = kp.shape
+    g, wp = hq // hkv, bt.shape[1] * page
+    window = INT32_MAX if window is None else window
+    scale_log2 = LOG2E / math.sqrt(d)
+    p_bf16 = q.dtype == torch.bfloat16
+    stage_keys = stage_bytes // (d * 2 + 16) // 16 * 16
+    rows = w * g
+    qf, kf, vf = q.float(), kp.float(), vp.float()
+    out = torch.zeros(q.shape)
+    lives = []
+    for bi in range(b):
+        lo, hi, rlo, rhi, uni = verify_cluster_ranges(int(lens[bi]), w,
+                                                      window, wp)
+        rlo, rhi, uni = (torch.from_numpy(np.repeat(x, g))
+                         for x in (rlo, rhi, uni))
+        n = hi - lo
+        share = -(-(-(-n // ranks)) // 16) * 16
+        live = -(-n // share) if share else 1
+        lives.append(live)
+        for h in range(hkv):
+            qh = qf[bi, :, h * g:(h + 1) * g].reshape(rows, d)
+            rank_states = []
+            for r in range(live):
+                r_lo = lo + r * share
+                r_hi = min(hi, r_lo + share)
+                warp_states = []
+                for wi in range(warps):
+                    st = (torch.full((rows,), NEG_INF), torch.zeros(rows),
+                          torch.zeros(rows, d))
+                    for s0 in range(r_lo, r_hi, stage_keys):
+                        nk = min(stage_keys, r_hi - s0)
+                        for j0 in range(wi * 16, nk, warps * 16):
+                            pos = torch.arange(s0 + j0,
+                                               s0 + min(j0 + 16, nk))
+                            phys = bt[bi, pos // page].long()
+                            sc = qh @ kf[phys, pos % page, h].T
+                            if logit_cap is None:
+                                x = sc * scale_log2
+                            else:
+                                x = (torch.tanh(sc * (scale_log2 / LOG2E)
+                                                / logit_cap)
+                                     * (logit_cap * LOG2E))
+                            x = torch.where(uni[:, None], 0.0, x)
+                            ok = ((pos[None] >= rlo[:, None])
+                                  & (pos[None] < rhi[:, None]))
+                            st = _online_log2(st, x, ok,
+                                              vf[phys, pos % page, h],
+                                              p_bf16)
+                    warp_states.append((st[0] * LN2, st[1], st[2]))
+                rank_states.append(_merge_natural(warp_states))
+            _, l, acc = _merge_natural(rank_states)
+            o = acc / l.clamp(min=1e-30)[:, None]
+            out[bi, :, h * g:(h + 1) * g] = o.reshape(w, g, d)
+    return out.to(q.dtype), lives
 
 
-def _walk_case(dtype, seed, b=4, w=8, hq=16, hkv=8, d=32, page=16,
+def _walk_case(dtype, seed, b=4, w=8, hq=16, hkv=8, d=64, page=16,
                width=24, lens=(0, 20, 130, 367)):
-    """Pages of 16 over tables of 384 keys (three splits), lengths
-    including an inactive slot, a window crossing a page, one reaching the
-    last mapped page, and slots whose lengths lie splits apart."""
+    """Pages of 16 over tables of 384 keys, lengths including an inactive
+    slot, a window crossing a page, one reaching the last mapped page, and
+    one whose keys span every rank."""
     rng = np.random.default_rng(seed)
     n_pool = b * width + 1
     bt = rng.permutation(n_pool - 1)[:b * width].reshape(b, width)
@@ -599,14 +680,16 @@ def _walk_case(dtype, seed, b=4, w=8, hq=16, hkv=8, d=32, page=16,
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
                                         (torch.float32, 1e-5)])
 def test_verify_walk_matches_plain(kw, dtype, atol):
-    """qwen3's verify geometry at a narrow head (G 2, W 8: 16 rows in a
-    CTA of 64) and G 1 over W 3 in bf16 and f32, against the plain version;
-    without a window or softcap, against repro's Pallas prefill kernel
-    vmapped over the slots in interpret mode too."""
+    """The cluster walk at qwen3's verify geometry (G 2, W 8: the 16 rows
+    of one tile) and at G 1 over W 3, against the plain version; at
+    qwen3's, without a window every rank of the longest slot holds keys,
+    and the inactive slot's range has one rank; without a window or softcap, against
+    repro's Pallas prefill kernel vmapped over the slots in interpret mode
+    too."""
     for hq, hkv, w in ((16, 8, 8), (4, 4, 3)):
         q, kp, vp, bt, lens = _walk_case(dtype, 3, hq=hq, hkv=hkv, w=w)
-        got, empty = emulate_verify(q, kp, vp, bt, lens, **kw)
-        assert empty > 0, "no split lay past a slot's keys"
+        got, lives = emulate_verify(q, kp, vp, bt, lens, **kw)
+        assert lives[0] == 1 and (kw or lives[-1] == 8), lives
         want = ops.paged_verify_attention(q, kp, vp, bt, lens, **kw)
         close(got.float(), want.float().numpy(), atol)
         if not kw and dtype == torch.bfloat16:
@@ -616,55 +699,128 @@ def test_verify_walk_matches_plain(kw, dtype, atol):
                 *jq, jnp.asarray(bt.numpy()), jnp.asarray(lens.numpy()),
                 use_kernel=True, interpret=True)
             close(got.float(), np.asarray(jwant, np.float32), atol)
-    assert verify_warps(2, 8) == 4 and verify_warps(16, 8) == 8
 
 
-def latent_verify_splits(width, page, rows, batch, sms=132, tile=64):
-    """paged_latent_wgmma.cuh's verify_splits: the latent prefill's rule
-    with the blocks of all B slots and the keys of the whole table:
-    (n_split, split_keys)."""
-    blocks, keys = batch * -(-rows // 64), width * page
-    split_keys = -(-keys // tile) * tile
-    if blocks < sms:
-        want = -(-sms // blocks)
-        split_keys = -(-(-(-keys // want)) // tile) * tile
-    return -(-keys // split_keys), split_keys
+# (lengths, window, softcap) over tables of 24 pages of 16 (384 keys): a
+# window across a page (lower bounds 20 - 6 + 1 .. 27 - 6 + 1 straddle key
+# 16), rows past the table (379 + t), a slot whose last rows' windows lie
+# wholly past the table (382 + t - 2 + 1 >= 384 from t = 3: those rows
+# uniform, the slot's range the whole table), one wholly past it
+# (uniform), and gemma2's short window with its softcap
+VERIFY_EDGE_CASES = [((0, 20, 379, 200), 6, None),
+                     ((5, 382, 400, 100), 2, 30.0),
+                     ((0, 17, 300, 383), 100, 50.0)]
 
 
-def test_latent_verify_walks_match_plain():
-    """paged_latent_verify: the wgmma family (bf16; kv_lora 64 and qk_rope
-    16 standing for 512 and 64, pages of 64) with the slot axis, splits
-    from the table's width for B slots of W x H rows and empty splits past
-    a slot's keys; and the 16-row family (f32) with each slot's rows
-    limited at lens[b] + r / H + 1."""
+@pytest.mark.parametrize("case", range(len(VERIFY_EDGE_CASES)))
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-5)])
+def test_verify_walk_edges_match_plain(case, dtype, atol):
+    """The cluster walk's per-row masks at the edges: windows across a
+    page, rows past the table, rows whose window sees no key (the plain
+    version's uniform mean over the whole table), at G 2, W 8, D 64 and
+    gemma2-2b's D 256 (16 keys a stage)."""
+    lens, window, cap = VERIFY_EDGE_CASES[case]
+    d = 256 if case == 2 else 64
+    q, kp, vp, bt, lens = _walk_case(dtype, 7 + case, d=d, lens=lens,
+                                     hq=4, hkv=2)
+    kw = {"window": window, "logit_cap": cap}
+    got, _ = emulate_verify(q, kp, vp, bt, lens, **kw)
+    want = ops.paged_verify_attention(q, kp, vp, bt, lens, **kw)
+    close(got.float(), want.float().numpy(), atol)
+    if case == 1:
+        _, _, _, _, uni = verify_cluster_ranges(382, 8, 2, 384)
+        assert uni.tolist() == [False] * 3 + [True] * 5
+
+
+def emulate_latent_verify(q_lat, q_rope, ckv, kr, tables, lengths, *, scale,
+                          ranks=2, rows_per_cta=64, tile=64):
+    """The latent verify's cluster_kernel (csrc/paged_latent_wgmma.cuh):
+    per (slot, 64-row block) of the slot's W x H rows (row r: position
+    r // H, head r % H) a cluster of ``ranks`` CTAs; row r sees the keys
+    [0, min(lengths[b] + r // H + 1, width * page)), the block's live keys
+    those of its last row, in 64-key tiles, rank k taking tiles [k s,
+    k s + s) with s = ceil(tiles / ranks); a rank past them walks nothing
+    and leaves no state; each walk (``_wgmma_walk``) masks every row at its
+    own limit; the live ranks' (m, l, acc) merge in rank order (log2
+    domain).  bf16 rounds the weights for the value product, f32 does not.
+    Returns (B, W, H, kv) and the live ranks of each block."""
+    b, w, h, kv = q_lat.shape
+    page, wp = ckv.shape[1], tables.shape[1] * ckv.shape[1]
+    n_rows = w * h
+    p_bf16 = q_lat.dtype == torch.bfloat16
+    q = torch.cat([q_lat.float().reshape(b, n_rows, kv),
+                   q_rope.float().reshape(b, n_rows, -1)], -1)
+    ckf, krf = ckv.float(), kr.float()
+    out = torch.zeros(b, n_rows, kv)
+    lives = []
+    for slot in range(b):
+        for r0 in range(0, n_rows, rows_per_cta):
+            rows = torch.arange(r0, min(r0 + rows_per_cta, n_rows))
+            limit = torch.clamp(int(lengths[slot]) + rows // h + 1, max=wp)
+            n = int(limit[-1])
+            tiles = -(-n // tile)
+            share = -(-tiles // ranks)
+            states = []
+            for rank in range(ranks):
+                lo = min(rank * share * tile, n)
+                hi = min(n, lo + share * tile)
+                if hi > lo:
+                    states.append(_wgmma_walk(
+                        q[slot, rows], ckf, krf, tables[slot], lo, hi,
+                        torch.clamp(limit, max=hi), scale, tile,
+                        p_bf16=p_bf16))
+            lives.append(len(states))
+            mm = torch.stack([st[0] for st in states]).max(0).values
+            ll = torch.zeros(len(rows))
+            acc = torch.zeros(len(rows), kv)
+            for m, l, a in states:     # rank order
+                wt = torch.exp2(m - mm)
+                ll = ll + l * wt
+                acc = acc + a * wt[:, None]
+            out[slot, rows] = acc / ll.clamp(min=1e-30)[:, None]
+    return out.reshape(b, w, h, kv).to(q_lat.dtype), lives
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-5)])
+def test_latent_verify_walks_match_plain(ranks, dtype, atol):
+    """paged_latent_verify's cluster walk (kv_lora 64 and qk_rope 16
+    standing for 512 and 64, pages of 64, W 4 x H 40: blocks straddling
+    positions and a block of the next slot's rows past the last) at each
+    rank count paged_bench times, over a slot of length 0, a window across
+    a page (60 .. 63 + 1) and a slot whose keys span every rank and whose
+    rows run past the table (1022 + t over 1,024 keys), against the plain
+    version; in f32 also the 16-row family with each slot's rows limited at
+    lens[b] + r / H + 1."""
     rng = np.random.default_rng(5)
-    b, w, h, page, width = 3, 4, 5, 64, 6
-    lens = [0, 100, 380]
+    lens = [0, 60, 300, 1022]
+    b, w, h, page, width = len(lens), 4, 40, 64, 16
     n_pool = b * width + 1
     bt = torch.from_numpy(rng.permutation(n_pool - 1)[:b * width]
                           .reshape(b, width).astype(np.int32))
     lens_t = torch.tensor(lens, dtype=torch.int32)
-    bf = torch.bfloat16
-    ql, qr = (torch.from_numpy(_rand(rng, b, w, h, f)).to(bf)
+    ql, qr = (torch.from_numpy(_rand(rng, b, w, h, f)).to(dtype)
               for f in (64, 16))
-    ck, kr = (torch.from_numpy(_rand(rng, n_pool, page, f)).to(bf)
+    ck, kr = (torch.from_numpy(_rand(rng, n_pool, page, f)).to(dtype)
               for f in (64, 16))
     scale = 1 / math.sqrt(80)
-    splits = latent_verify_splits(width, page, w * h, b)
-    assert splits[0] > 1
-    got = torch.cat([emulate_latent_wgmma(
-        ql[s:s + 1], qr[s:s + 1], ck, kr, bt[s], lens[s], scale=scale,
-        splits=splits) for s in range(b)])
+    got, lives = emulate_latent_verify(ql, qr, ck, kr, bt, lens_t,
+                                       scale=scale, ranks=ranks)
+    # 160 rows: blocks of rows 0..63, 64..127, 128..159 a slot; the last
+    # slot's 16 tiles span every rank
+    assert lives[:3] == [1, 1, 1]
+    assert lives[6:9] == [-(-5 // -(-5 // ranks))] * 3
+    assert lives[9:] == [ranks] * 3
     want = ops.paged_latent_verify_attention(ql, qr, ck, kr, bt, lens_t,
                                              scale=scale)
-    close(got.float(), want.float().numpy(), 2e-2)
-    ql, qr, ck, kr = (x.float() for x in (ql, qr, ck, kr))
-    got = emulate_latent(ql.reshape(b, w * h, 64), qr.reshape(b, w * h, 16),
-                         ck, kr, bt, lambda s, r: lens[s] + r // h + 1,
-                         scale=scale)
-    want = ops.paged_latent_verify_attention(ql, qr, ck, kr, bt, lens_t,
-                                             scale=scale)
-    close(got, want.reshape(b, w * h, 64).numpy(), 1e-5)
+    close(got.float(), want.float().numpy(), atol)
+    if dtype == torch.float32 and ranks == 1:
+        got = emulate_latent(ql.reshape(b, w * h, 64),
+                             qr.reshape(b, w * h, 16), ck, kr, bt,
+                             lambda s, r: lens[s] + r // h + 1, scale=scale)
+        close(got, want.reshape(b, w * h, 64).numpy(), 1e-5)
 
 
 def test_latent_decode_walk_of_a_zero_length_slot_matches_plain():
