@@ -1056,17 +1056,23 @@ class ParentKernels:
         of the current ones, launch counts and all (their variants as the
         parent names them): a model step timed through the parent's
         kernels."""
+        from repro_torch.kernels.attention import attention as K
         from repro_torch.kernels.build import LIBS, c_function
 
         saved = {n: LIBS.get(n) for n in ("flash_fwd", "flash_bwd")}
+        ranks = K._flash_ranks
         try:
             for n in saved:
                 LIBS._libs[n] = self.libs[n]
             c_function.cache_clear()
+            if not hasattr(self.libs["flash_fwd"], "flash_fwd_ranks"):
+                # a parent without the split family names none
+                K._flash_ranks = lambda *a: 1
             yield
         finally:
             LIBS._libs.update(saved)
             c_function.cache_clear()
+            K._flash_ranks = ranks
 
     def prefill_scratch(self, q, k_pages, width, start):
         """The output and f32 split scratch of the parent's prefill."""
@@ -1281,15 +1287,26 @@ class ParentKernels:
 # The dense flash pair's rows, bf16: {row-name suffix: (B, Hq, Hkv, Sq, Sk,
 # D, causal)}.  The training shape of full-width qwen3-0.6b (rows 5, 5b);
 # seamless-m4t-medium's cross-attention, Sq 256 target positions against
-# Sk 1024 source frames, no mask (5x, 5bx); zamba2-7b's shared block
+# Sk 1024 source frames, no mask (5x, 5bx), and its decoder's causal
+# self-attention at S 256 (5t, 5bt); zamba2-7b's shared block
 # (5@112, 5b@112); gemma2-2b's attention (Hq 8, Hkv 4, D 256) at B 2 x S
 # 4096, causal, its scores capped at 50 as the model caps them (5@256,
 # 5b@256; FLASH_CAPS).
 FLASH_TRAIN_SHAPE = {"": (TRAIN_BATCH, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128,
                           True)}
 FLASH_OWN_SHAPES = {"_cross": (2, 16, 16, 256, 1024, 64, False),
+                    "_self": (2, 16, 16, 256, 256, 64, True),
                     "_d112": (1, 32, 32, 2048, 2048, 112, True),
                     "_d256": (2, 8, 4, 4096, 4096, 256, True)}
+# The pair's float32 family (the CUDA cores) at row 5's shape and at
+# seamless's cross-attention (rows 5f, 5bf), timed like the bf16 rows with
+# fewer calls a turn: its bound is three TF32 products on the tensor cores
+# (``bound_ms``), one f32 product on the CUDA cores beside it
+# (``bound_cuda_cores_ms``), as rows 6f-6l give them
+FLASH_F32_SHAPES = {"_f32": (TRAIN_BATCH, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128,
+                             True),
+                    "_cross_f32": (2, 16, 16, 256, 1024, 64, False)}
+FLASH_F32_ITERS = 5
 # The softcap of a row's kernels and plain versions: gemma2-2b's
 # softcap_attn.  SDPA has no softcap, so its rows' library time stays
 # uncapped.
@@ -1297,9 +1314,13 @@ FLASH_CAPS = {"_d256": 50.0}
 
 
 def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
-                parent: ParentKernels | None = None) -> list[dict]:
+                parent: ParentKernels | None = None,
+                dtype: torch.dtype = torch.bfloat16) -> list[dict]:
     """The dense flash pair at each of ``shapes`` (``FLASH_TRAIN_SHAPE``,
-    ``FLASH_OWN_SHAPES``), bf16: checked against the plain versions, the
+    ``FLASH_OWN_SHAPES``; ``FLASH_F32_SHAPES`` with ``dtype`` float32), in
+    ``dtype``, each under the family ``_flash_family`` names for its shape
+    (``cluster`` where the items fill few processors: the row's
+    ``variant`` and ``ranks``): checked against the plain versions, the
     backward bitwise equal over two calls, each with its row's softcap
     (``FLASH_CAPS``; none by default) (O within FLASH_TOL of
     max(1, max |plain|), each of dQ, dK and dV of its own max |plain|),
@@ -1316,13 +1337,13 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
     between calls), SDPA's of its two.
     Bounds: operations, the forward's 4 B Hq D flops a visible (query, key)
     pair and the backward's 2.5 times that (the five products a gradient
-    needs), against bytes: the forward's q, k, v, o and log-sum-exp once
-    each, the backward's q, k, v, o, dO and log-sum-exp in and dq, dk, dv
-    out."""
+    needs), in float32 three TF32 passes of each at 495 TFLOP/s (one
+    f32 pass at 67 as ``bound_cuda_cores_ms``), against bytes: the
+    forward's q, k, v, o and log-sum-exp once each, the backward's q, k,
+    v, o, dO and log-sum-exp in and dq, dk, dv out."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ref
 
-    dtype = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for tag, (b, hq, hkv, sq, sk, d, causal) in shapes.items():
@@ -1399,10 +1420,14 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
         torch.cuda.empty_cache()
         # visible (query, key) pairs: under the causal mask query q sees
         # min(q + 1, Sk) keys
-        flops, nbytes_f = W.flash_fwd_work(b, sq, sk, hq, hkv, d, 2,
+        elem = q.element_size()
+        flops, nbytes_f = W.flash_fwd_work(b, sq, sk, hq, hkv, d, elem,
                                            causal=causal)
-        flops_b, nbytes_b = W.flash_bwd_work(b, sq, sk, hq, hkv, d, 2,
+        flops_b, nbytes_b = W.flash_bwd_work(b, sq, sk, hq, hkv, d, elem,
                                              causal=causal)
+        # float32: the card's f32-accurate products are three TF32 passes
+        f32 = dtype == torch.float32
+        passes = W.TF32_PASSES if f32 else 1
         pair = []
         for key, name, src, err, nbytes, fl, lib_i, plain in (
                 ("f", f"flash_attention{tag}", "flash_fwd", err_f, nbytes_f,
@@ -1415,10 +1440,16 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
                 "src/repro/kernels/attention/attention.py:72", err,
                 sum(t[0] for t in turns) / len(turns),
                 sum(t[1] for t in turns) / len(turns), plain, None, nbytes,
-                fl, dtype), _merge_sdpa([t[lib_i] for t in lib]))
+                passes * fl, dtype, PEAK_TF32_FLOPS if f32 else None),
+                _merge_sdpa([t[lib_i] for t in lib]))
             row["ms_turns"] = [t[0] for t in turns]
-            row["variant"] = K._flash_variant(src, dtype, d)
-            assert row["variant"] == "wgmma", (name, row["variant"])
+            row["ranks"] = K._flash_ranks(src, dtype, b, sq, sk, hq, hkv, d,
+                                          causal, 2 ** 31 - 1)
+            row["variant"] = K._flash_variant(src, dtype, d, row["ranks"])
+            want = _flash_family(src, dtype, b, sq, sk, hq, hkv, d, causal)
+            assert row["variant"] == want, (name, row["variant"], want)
+            if f32:
+                row["bound_cuda_cores_ms"] = _bound(nbytes, fl, dtype)[0]
             row["shape"] = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "sk": sk,
                             "d": d, "causal": causal, "logit_cap": cap}
             if with_parent:
@@ -2637,7 +2668,10 @@ def check_flash_own_key_length(gen: torch.Generator) -> dict[str, float]:
     FLASH_TOL, O's error over max(1, max |plain|) and each of dQ, dK and
     dV's over its own max |plain| (``_own_rel_err``); in bf16 the forward
     and the backward bitwise the
-    same over two calls; keys no query sees get exactly zero dK and dV."""
+    same over two calls; keys no query sees get exactly zero dK and dV.
+    The split family (``cluster``) is held so at every case it takes,
+    at each of the library's cluster sizes (``ranks``; ``SPLIT_RANKS``:
+    2), besides the rank count the chooser gives the case."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ref
 
@@ -2667,11 +2701,37 @@ def check_flash_own_key_length(gen: torch.Generator) -> dict[str, float]:
             if causal and sq < sk:
                 assert not grads[1][:, sq:].any() and \
                     not grads[2][:, sq:].any(), ("unseen keys", case)
+            # the split family at every case it takes (bf16, D 64, 112,
+            # 128), at each rank count, whatever the chooser picks: within
+            # FLASH_TOL of the plain versions below, bitwise over two calls
             tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
-            err = _rel_err(o, ref.attention_ref(*tr[:3], causal=causal)
-                           .transpose(1, 2))
-            err_b = max(_own_rel_err(a, w.transpose(1, 2)) for a, w in zip(
-                grads, ref.attention_ref_grad(*tr, causal=causal)))
+            want_o = ref.attention_ref(*tr[:3], causal=causal).transpose(1, 2)
+            want_g = [w.transpose(1, 2) for w in ref.attention_ref_grad(
+                *tr, causal=causal)]
+            split = dtype == torch.bfloat16 and d in (64, 112, 128)
+            for r in K.SPLIT_RANKS if split else ():
+                o_r, lse_r = K._flash_fwd(q, k, v, causal=causal,
+                                          window=None, logit_cap=None,
+                                          ranks=r)
+                g_r = K.flash_attention_bwd(q, k, v, o_r, lse_r, d_o,
+                                            causal=causal, ranks=r)
+                again = K._flash_fwd(q, k, v, causal=causal, window=None,
+                                     logit_cap=None, ranks=r)
+                assert torch.equal(o_r, again[0]) and \
+                    torch.equal(lse_r, again[1]), ("split repeat", r, case)
+                again = K.flash_attention_bwd(q, k, v, o_r, lse_r, d_o,
+                                              causal=causal, ranks=r)
+                assert all(torch.equal(a, c) for a, c in zip(g_r, again)), \
+                    ("split backward repeat", r, case)
+                err_r = max(_rel_err(o_r, want_o), *(
+                    _own_rel_err(a, w) for a, w in zip(g_r, want_g)))
+                assert err_r <= FLASH_TOL[dtype], ("split", r, case, err_r)
+                if causal and sq < sk:
+                    assert not g_r[1][:, sq:].any() and \
+                        not g_r[2][:, sq:].any(), ("unseen keys", r, case)
+                del o_r, lse_r, g_r, again
+            err = _rel_err(o, want_o)
+            err_b = max(_own_rel_err(a, w) for a, w in zip(grads, want_g))
             assert err <= FLASH_TOL[dtype], ("flash_attention Sq/Sk", case,
                                              err)
             assert err_b <= FLASH_TOL[dtype], ("flash_attention_bwd Sq/Sk",
@@ -2681,7 +2741,7 @@ def check_flash_own_key_length(gen: torch.Generator) -> dict[str, float]:
                 worst[f"flash_attention_{tag}"], err)
             worst[f"flash_attention_bwd_{tag}"] = max(
                 worst[f"flash_attention_bwd_{tag}"], err_b)
-            del q, k, v, d_o, o, lse, grads, tr
+            del q, k, v, d_o, o, lse, grads, tr, want_o, want_g
     torch.cuda.empty_cache()
     return worst
 
@@ -2719,6 +2779,11 @@ def _sass_by_kernel(path: str) -> dict[str, collections.Counter]:
             if m:
                 key = (f"{m[1]}_kernel<256"
                        + (", key block>" if m[2] == "1" else ">"))
+            # the split family: "fwd_split2_kernel<64>"
+            m = re.search(r"flash_wgmma\d+(fwd|dq)_split(\d)_kernelILi(\d+)E",
+                          line)
+            if m:
+                key = f"{m[1]}_split{m[2]}_kernel<{m[3]}>"
             if key:
                 out[key] = collections.Counter()
             continue
@@ -2747,11 +2812,12 @@ def flash_against_parent(parent: ParentKernels,
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.build import LIBS
 
-    sass, sass_new = {}, {}
+    sass, sass_new, every = {}, {}, {}
     kept = ("HGMMA", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "BAR", "SYNCS")
     for lib in ("flash_fwd", "flash_bwd"):
         cur = _sass_by_kernel(LIBS.get(lib)._name)
         par = _sass_by_kernel(parent.paths[lib])
+        every.update(cur)
         for name in sorted(cur.keys() & par.keys()):
             ops = {op for op in cur[name] | par[name]
                    if cur[name][op] != par[name][op]}
@@ -2764,9 +2830,13 @@ def flash_against_parent(parent: ParentKernels,
                 ("SASS differs from the parent's", name, sass[name])
         for name in sorted(cur.keys() - par.keys()):
             sass_new[name] = {op: cur[name][op] for op in (*kept, "total")}
-    for name in ("fwd_kernel<256>", "dq_kernel<256>", "dkv_kernel<256>"):
-        assert not sass_new or sass_new.get(name, {}).get("HGMMA"), \
-            ("no wgmma in the D-256 kernel", name, sass_new)
+    # the D-256 kernels and the split family run their products on wgmma
+    # (where the toolkit has cuobjdump)
+    for name in ("fwd_kernel<256>", "dq_kernel<256>", "dkv_kernel<256>",
+                 *(f"{p}_split{r}_kernel<{d}>" for p in ("fwd", "dq")
+                   for r in K.SPLIT_RANKS for d in (64, 112, 128))):
+        assert not every or every.get(name, {}).get("HGMMA"), \
+            ("no wgmma in the kernel", name, sorted(every))
     (b, hq, hkv, sq, sk, d, causal), = FLASH_TRAIN_SHAPE.values()
     q, d_o = (torch.randn(b, sq, hq, d, generator=gen, device="cuda")
               .to(torch.bfloat16) for _ in range(2))
@@ -2819,7 +2889,7 @@ def flash_against_parent(parent: ParentKernels,
 
 
 def check_flash_same_as_parent(parent: ParentKernels,
-                               gen: torch.Generator) -> int:
+                               gen: torch.Generator) -> tuple[int, int]:
     """With ``--parent``: the pair at Sq == Sk, causal, is bitwise the
     parent's (O, the log-sum-exp, dQ, dK and dV) in every family the
     parent shares: bf16 at D 16 on the CUDA cores, 64 and 128 on wgmma, at
@@ -2827,10 +2897,16 @@ def check_flash_same_as_parent(parent: ParentKernels,
     at D 64 and 128.  (bf16 at D 256 runs ``fwd_kernel<256>`` of
     ``flash_wgmma.cuh`` and the backward of ``flash_wgmma256.cuh``, which
     are not the parent's where it predates them: ``check_flash_small`` and
-    the rows hold them to their plain versions.)
-    Returns the cases checked."""
+    the rows hold them to their plain versions.)  The current pair runs
+    with its rank count fixed at 1 (``ranks``); where the chooser splits a
+    case (its B 2 x Hkv 2 items fill few processors), the split family as
+    a caller gets it is held within FLASH_TOL of the parent's (dQ, dK, dV
+    each of its own max), its log-sum-exp within 1e-3: the split changes
+    the order of the sums.  Returns the cases checked and how many of
+    them split."""
     from repro_torch.kernels.attention import attention as K
 
+    split = 0
     cases = [(torch.bfloat16, d, s, g) for d, s, g in itertools.product(
         (16, 64, 128), (77, 1000, 4096), (1, 2, 8))]
     cases += [(torch.float32, d, s, g) for d, s, g in itertools.product(
@@ -2841,9 +2917,11 @@ def check_flash_same_as_parent(parent: ParentKernels,
                               device="cuda").to(dtype) for _ in range(2))
         k, v = (torch.randn(b, s, hkv, d, generator=gen,
                             device="cuda").to(dtype) for _ in range(2))
+        # the unsplit families (ranks 1) bitwise the parent's
         o, lse = K._flash_fwd(q, k, v, causal=True, window=None,
-                              logit_cap=None)
-        grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=True)
+                              logit_cap=None, ranks=1)
+        grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=True,
+                                      ranks=1)
         o2, lse2, delta = (torch.empty_like(o), torch.empty_like(lse),
                            torch.empty_like(lse))
         parent.forward(q, k, v, o2, lse2)
@@ -2855,7 +2933,23 @@ def check_flash_same_as_parent(parent: ParentKernels,
             ("flash forward differs from the parent's", case)
         assert all(torch.equal(a, c) for a, c in zip(grads, g2)), \
             ("flash backward differs from the parent's", case)
-    return len(cases)
+        # where the chooser splits the case (B 2 x Hkv 2 fills few
+        # processors), the split family within FLASH_TOL of the parent's
+        ranks = [K._flash_ranks(lib, dtype, b, s, s, hkv * g, hkv, d, True,
+                                2 ** 31 - 1)
+                 for lib in ("flash_fwd", "flash_bwd")]
+        if max(ranks) > 1:
+            split += 1
+            o3, lse3 = K._flash_fwd(q, k, v, causal=True, window=None,
+                                    logit_cap=None)
+            g3 = K.flash_attention_bwd(q, k, v, o3, lse3, d_o, causal=True)
+            err = max(_rel_err(o3, o2), *(
+                _own_rel_err(a, c) for a, c in zip(g3, g2)))
+            assert err <= FLASH_TOL[dtype], \
+                ("split flash differs from the parent's", case, ranks, err)
+            assert float((lse3 - lse2).abs().max()) <= 1e-3, \
+                ("split flash log-sum-exp", case, ranks)
+    return len(cases), split
 
 
 # ---------------------------------------------------------------------------
@@ -3178,29 +3272,60 @@ def _flash_counts(bwd: bool = False) -> dict:
             "variants": dict(fn.variants)}
 
 
-def _train_flash_counts(cfg, steps: int) -> tuple[dict, dict]:
+def _flash_family(lib: str, dtype: torch.dtype, b: int, sq: int, sk: int,
+                  hq: int, hkv: int, d: int, causal: bool) -> str:
+    """The family the flash wrappers name for a whole-sequence call of
+    ``lib`` at this shape: bf16 at D 64, 112 and 128 ``cluster`` where
+    ``attention.split_ranks`` (the mirror of the library's chooser) splits
+    it on this card's processors, else ``wgmma`` (and at D 256); the CUDA
+    cores for float32 and other widths."""
+    from repro_torch.kernels.attention import attention as K
+
+    if dtype != torch.bfloat16 or d not in (64, 112, 128, 256):
+        return "cuda_cores"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return "cluster" if K.split_ranks(lib, b, sq, sk, hq, hkv, d, dtype,
+                                      causal=causal, sms=sms) > 1 \
+        else "wgmma"
+
+
+def _train_flash_counts(cfg, steps: int, batch: int, seq: int,
+                        src_len: int = 0) -> tuple[dict, dict]:
     """The forward's and the backward's counts ``steps`` loss-and-gradient
-    evaluations with remat make: each layer's attention launches the
-    forward twice (forward and recompute) and the backward once; the
-    encoder, the decoder's self- and cross-attention for encdec (the cross
-    ones at Sq != Sk), the shared block once a group for the hybrid,
-    nothing for the SSM; bf16 at these widths on ``wgmma``, float32 on the
-    CUDA cores."""
-    if cfg.family == "encdec":
-        per, cross = cfg.n_enc_layers + 2 * cfg.n_layers, cfg.n_layers
+    evaluations with remat make at B ``batch`` x S ``seq``: each layer's
+    attention launches the forward twice (forward and recompute) and the
+    backward once; the encoder (over ``src_len`` frames), the decoder's
+    self- and cross-attention for encdec (the cross ones at Sq != Sk), the
+    shared block once a group for the hybrid, nothing for the SSM; each
+    call under the family ``_flash_family`` names for its shape (bf16:
+    ``wgmma``, or ``cluster`` where the items fill few processors, as
+    seamless's cross-attention and its decoder's backward do; float32 the
+    CUDA cores)."""
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.family == "encdec":   # (calls an evaluation, Sq, Sk, causal)
+        calls = [(cfg.n_enc_layers, src_len, src_len, False),
+                 (cfg.n_layers, seq, seq, True),
+                 (cfg.n_layers, seq, src_len, False)]
     elif cfg.family == "hybrid":
-        per, cross = cfg.n_layers // cfg.attn_every, 0
+        calls = [(cfg.n_layers // cfg.attn_every, seq, seq, True)]
     elif cfg.family == "ssm":
-        per, cross = 0, 0
+        calls = []
     else:
-        per, cross = cfg.n_layers, 0
-    fam = "wgmma" if cfg.dtype == torch.bfloat16 else "cuda_cores"
+        calls = [(cfg.n_layers, seq, seq, True)]
 
-    def counts(n, c):
-        return {"launches": n * steps, "cross_launches": c * steps,
-                "variants": {fam: n * steps} if n else {}}
+    def counts(lib, per_call):
+        out = {"launches": 0, "cross_launches": 0,
+               "variants": collections.Counter()}
+        for n, sq, sk, causal in calls:
+            n *= per_call * steps
+            out["launches"] += n
+            out["cross_launches"] += n if sq != sk else 0
+            out["variants"][_flash_family(lib, cfg.dtype, batch, sq, sk, h,
+                                          kv, d, causal)] += n
+        out["variants"] = dict(out["variants"])
+        return out
 
-    return counts(2 * per, 2 * cross), counts(per, cross)
+    return counts("flash_fwd", 2), counts("flash_bwd", 1)
 
 
 def nonpaged_qwen3(cfg, params, rng: np.random.Generator) -> dict:
@@ -3452,7 +3577,8 @@ def encdec_model(cfg, seed: int, rng: np.random.Generator) -> dict:
     the seed, 256 target tokens.  The forward runs kernel 5 three ways
     (the encoder without a mask, the decoder's causal self-attention and
     its cross-attention at Sq 256 against Sk 1024: 36 launches, 12 of them
-    cross, all ``wgmma``) within MODEL_ATOL of the plain path; then
+    cross, on ``cluster``, the rest on ``wgmma``) within MODEL_ATOL of the
+    plain path; then
     ``prefill`` (the encoder and every layer's cross K/V) and 32 greedy
     decode steps, each against the teacher-forced forward over the decoded
     tokens by the margin rule."""
@@ -3475,9 +3601,19 @@ def encdec_model(cfg, seed: int, rng: np.random.Generator) -> dict:
     fwd_s = time.perf_counter() - t0
     counts = _flash_counts()
     per_forward = cfg.n_enc_layers + 2 * cfg.n_layers
+    # the cross-attention's 64 items take the split family
+    want = collections.Counter()
+    for n, sq, sk, causal in ((cfg.n_enc_layers, ENCDEC_SRC, ENCDEC_SRC,
+                               False),
+                              (cfg.n_layers, ENCDEC_TGT, ENCDEC_TGT, True),
+                              (cfg.n_layers, ENCDEC_TGT, ENCDEC_SRC, False)):
+        want[_flash_family("flash_fwd", cfg.dtype, ENCDEC_BATCH, sq, sk,
+                           cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                           causal)] += n
+    assert want["cluster"] == cfg.n_layers, want
     assert counts == {"launches": per_forward,
                       "cross_launches": cfg.n_layers,
-                      "variants": {"wgmma": per_forward}}, counts
+                      "variants": dict(want)}, counts
     plain = forward(params, cfg, {"src_emb": src, "tokens": tokens},
                     use_kernel=False)
     err = max_err(full, plain)
@@ -3581,7 +3717,7 @@ def train_step_parity(cfg, seed: int, batch: int = TRAIN_BATCH,
     del params, grads_k, grads_p
     torch.cuda.empty_cache()
     assert math.isfinite(loss_k) and math.isfinite(norm_k), result
-    assert counts == _train_flash_counts(cfg, 1), result
+    assert counts == _train_flash_counts(cfg, 1, batch, seq, src_len), result
     assert result["loss_abs_err"] <= tol["loss"], result
     assert result["grad_norm_rel_err"] <= tol["grad_norm"], result
     if "leaf_rel" in tol:
@@ -3630,7 +3766,8 @@ def train_family(cfg, seed: int, smi: str, batch: int, seq: int,
     torch.cuda.empty_cache()
     assert all(math.isfinite(x) for x in result["loss"]), result
     if check_counts:
-        assert counts == _train_flash_counts(cfg, FAMILY_TRAIN_STEPS), result
+        assert counts == _train_flash_counts(cfg, FAMILY_TRAIN_STEPS, batch,
+                                             seq, src_len), result
     return result
 
 
@@ -4518,7 +4655,7 @@ def mesh_train_step(cfg, mesh, seed: int) -> dict:
               "step_s": [plain["s"], meshed["s"]],
               "flash": {"plain": plain["flash"], "mesh": meshed["flash"]}}
     log(f"[mesh] train step, 1 x 1 mesh vs no mesh: {json.dumps(result)}")
-    want = _train_flash_counts(cfg, 1)
+    want = _train_flash_counts(cfg, 1, TRAIN_BATCH, TRAIN_SEQ)
     assert plain["flash"] == want and meshed["flash"] == want, result
     assert abs(result["loss"][0] - result["loss"][1]) <= tol["loss"], result
     assert (abs(result["grad_norm"][0] - result["grad_norm"][1])
@@ -5041,9 +5178,13 @@ def main() -> int:
         log(f"[kernels] flash pair at Sq != Sk and D 112 ok: max err "
             f"{worst_sk}")
         if parent is not None:
+            n_cases, n_split = check_flash_same_as_parent(parent, gen_sk)
             log(f"[kernels] flash pair at Sq == Sk bitwise the parent's "
-                f"in {check_flash_same_as_parent(parent, gen_sk)} cases")
+                f"in {n_cases} cases at one rank; the split family within "
+                f"FLASH_TOL of it in the {n_split} of them it takes")
         rows += bench_flash(FLASH_OWN_SHAPES, gen_sk, FLASH_ITERS, parent)
+        rows += bench_flash(FLASH_F32_SHAPES, gen_sk, FLASH_F32_ITERS, parent,
+                            dtype=torch.float32)
         if parent is not None:
             log("[parent] flash pair against the parent's: " + json.dumps(
                 flash_against_parent(parent, torch.Generator(
@@ -5266,8 +5407,13 @@ def main() -> int:
     # 8. full-width qwen3-0.6b train-step parity, kernel path vs plain
     # path: float32 at depth 2, bf16 at depth 28
     with phase("qwen3 train-step parity"):
-        train_step_parity(dataclasses.replace(
+        result = train_step_parity(dataclasses.replace(
             cfg, param_dtype="float32", n_layers=TRAIN_F32_DEPTH), args.seed)
+        # row 5f's and 5bf's shape, on the CUDA cores
+        launches["flash_attention_f32"] = \
+            result["flash"]["forward"]["launches"]
+        launches["flash_attention_bwd_f32"] = \
+            result["flash"]["backward"]["launches"]
         train_step_parity(cfg, args.seed)
 
     # 9. train full-width qwen3-0.6b through the flash kernels
@@ -5285,8 +5431,14 @@ def main() -> int:
         zamba2, n_layers=HYBRID_TRAIN_GROUPS * zamba2.attn_every)
     with phase("seamless train-step parity"):
         for dtype in ("bfloat16", "float32"):
-            train_step_parity(dataclasses.replace(seamless, param_dtype=dtype),
-                              args.seed, **ENCDEC_TRAIN)
+            result = train_step_parity(dataclasses.replace(
+                seamless, param_dtype=dtype), args.seed, **ENCDEC_TRAIN)
+        # the float32 evaluation's cross-attention: rows 5f and 5bf at
+        # seamless's cross shape
+        launches["flash_attention_cross_f32"] = \
+            result["flash"]["forward"]["cross_launches"]
+        launches["flash_attention_bwd_cross_f32"] = \
+            result["flash"]["backward"]["cross_launches"]
     with phase("zamba2 train-step parity"):
         train_step_parity(zamba2, args.seed, **HYBRID_TRAIN)
 
@@ -5295,6 +5447,15 @@ def main() -> int:
         result = train_family(seamless, args.seed, smi, **ENCDEC_TRAIN)
         launches["flash_attention_bwd_cross"] = \
             result["flash"]["backward"]["cross_launches"]
+        # the decoder's self-attention (rows 5t, 5bt): the forward's calls
+        # less the encoder's and the cross ones (two a layer a step, with
+        # remat); the backward's split calls less the cross ones
+        fwd, bwd = result["flash"]["forward"], result["flash"]["backward"]
+        launches["flash_attention_self"] = (
+            fwd["launches"] - fwd["cross_launches"]
+            - 2 * seamless.n_enc_layers * FAMILY_TRAIN_STEPS)
+        launches["flash_attention_bwd_self"] = (
+            bwd["variants"].get("cluster", 0) - bwd["cross_launches"])
         result = train_family(zamba2, args.seed, smi, **HYBRID_TRAIN)
         launches["flash_attention_bwd_d112"] = \
             result["flash"]["backward"]["launches"]

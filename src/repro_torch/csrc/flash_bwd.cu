@@ -19,8 +19,8 @@
 // in q's type.  A key that no query sees (past Sq under the causal mask, or
 // out of every window) gets zero dK and dV.
 //
-// Three launches, no atomics, so every sum has a fixed order and the
-// result does not vary between runs:
+// Three launches (two in the split family below), no atomics, so every
+// sum has a fixed order and the result does not vary between runs:
 //  1. delta_kernel: Delta, one warp per (query position, head) row;
 //  2. dq pass: one CTA per (q block, kv head, batch element) over the G
 //     query heads of the kv head, walking the keys its rows may see, like
@@ -29,6 +29,20 @@
 //     over the G query heads and the query tiles that may see its keys,
 //     so dK and dV sum over the G heads inside one CTA.
 // (On wgmma, a persistent grid: each CTA takes such items in turn.)
+//
+// Which shapes take which launches (whole-sequence entry, bf16 at D 64,
+// 112 and 128): where the dQ pass's (q block, kv head, batch) items fill
+// the card's processors (rows 5, 5@112 and the training shapes: 512 or
+// more items), the three above.  Where they fill few (flash_bwd_ranks > 1:
+// seamless-m4t-medium's cross-attention, 64 items against Sk 1024, and its
+// decoder self-attention, 64 items at S 256), two: the split dQ pass
+// (flash_wgmma.cuh's dq_split2_kernel), one cluster of 2 CTAs an item
+// whose ranks walk contiguous shares of its key tiles, each forming Delta
+// for its rows from the O and dO tiles it loads (rank 0 stores it to
+// `delta`), and add their dQ partials through
+// distributed shared memory in rank order before one rounded store; then
+// pass 3 as above, reading that Delta.  The scratch is the same `delta`.
+// D 256, float32, other widths and the key-block entry keep three.
 //
 // What bounds it: operations.  Passes 2 and 3 do 7 products of the
 // forward's size between them (QK^T and dO V^T in both, P^T dO and dS^T Q
@@ -497,13 +511,23 @@ int launch_type(const void* q, const void* k, const void* v,
 }
 
 // Either entry after its checks: Delta, then the two passes (KB false the
-// whole sequence, dQ in q's type; KB true the key block at k_off, dQ f32).
+// whole sequence, dQ in q's type; KB true the key block at k_off, dQ f32);
+// or, at ranks 2 (the wgmma family's whole-sequence split), the split
+// dQ pass, which forms Delta, then the dK/dV pass.
 template <bool KB>
 int run_bwd(int dtype, const void* q, const void* k, const void* v,
             const void* o, const void* d_o, const float* lse, float* delta,
             void* dq, void* dk, void* dv, int batch, int sq, int sk, int hq,
             int hkv, int d, float scale, int causal, int window,
-            float softcap, int k_off, cudaStream_t st) {
+            float softcap, int k_off, int ranks, cudaStream_t st) {
+  const bool split_family = !KB && dtype == 1 && flash_wgmma::takes(d);
+  if (ranks != 1 && !split_family) return (int)cudaErrorInvalidValue;
+  if (ranks != 1)
+    return flash_wgmma::dispatch_d(d, [&](auto dt) {
+      return flash_wgmma::launch_bwd_ranked<decltype(dt)::value>(
+          ranks, q, k, v, o, d_o, lse, delta, dq, dk, dv, batch, sq, sk, hq,
+          hkv, scale, causal, window, softcap, st);
+    }, (int)cudaErrorInvalidValue);
   int err;
   if (dtype == 0) {
     err = launch_delta<float>(o, d_o, delta, batch, sq, hq, d, st);
@@ -547,11 +571,25 @@ extern "C" {
 int flash_bwd_max_g() { return kRows; }
 int flash_bwd_max_d() { return 256; }
 
-// The kernels flash_bwd launches after delta_kernel for this dtype and D:
-// 0 CUDA cores (flash_dq_kernel, flash_dkv_kernel), 2 wgmma
-// (flash_wgmma.cuh at D 64, 112 and 128, flash_wgmma256.cuh at D 256),
-// numbered as flash_fwd_variant.
-int flash_bwd_variant(int dtype, int d) {
+// The rank count flash_bwd splits a whole-sequence call's dQ pass over
+// (flash_wgmma.cuh's split_ranks with the pass's 64-key tiles on this
+// card's processors): 2 for bf16 at D 64, 112 and 128 where the query
+// blocks fill few processors, else 1.
+int flash_bwd_ranks(int dtype, int d, int batch, int sq, int sk, int hq,
+                    int hkv, int causal, int window) {
+  if (dtype != 1 || !flash_wgmma::takes(d) || bad_shape(d, hq, hkv, sq, sk))
+    return 1;
+  return flash_wgmma::bwd_ranks(batch, sq, sk, hq, hkv, causal, window);
+}
+
+// The kernels a call at this dtype, D and rank count (flash_bwd_ranks, or
+// the key-block entry's 1) launches: 0 CUDA cores (delta_kernel,
+// flash_dq_kernel, flash_dkv_kernel), 2 wgmma (delta_kernel, then
+// flash_wgmma.cuh at D 64, 112 and 128, flash_wgmma256.cuh at D 256), 3
+// the split family (dq_split2_kernel, Delta inside,
+// then dkv_kernel), numbered as flash_fwd_variant.
+int flash_bwd_variant(int dtype, int d, int ranks) {
+  if (dtype == 1 && flash_wgmma::takes(d) && ranks > 1) return 3;
   return dtype == 1 && (flash_wgmma::takes(d) || d == flash_wgmma::kD256)
              ? 2
              : 0;
@@ -562,7 +600,8 @@ int flash_bwd_variant(int dtype, int d) {
 // element, both >= 1, and a window that leaves the last query row a key
 // (sq - window < sk), as flash_fwd takes them; lse (B, Hq, Sq) f32 from
 // the forward; delta (B, Hq, Sq) f32 scratch.  Writes dq, dk, dv in q's
-// type.  Returns cudaGetLastError().
+// type.  Splits the dQ pass over flash_bwd_ranks' count.  Returns
+// cudaGetLastError().
 int flash_bwd(int dtype, const void* q, const void* k, const void* v,
               const void* o, const void* d_o, const void* lse, void* delta,
               void* dq, void* dk, void* dv, int batch, int sq, int sk, int hq,
@@ -574,6 +613,27 @@ int flash_bwd(int dtype, const void* q, const void* k, const void* v,
   return run_bwd<false>(dtype, q, k, v, o, d_o, static_cast<const float*>(lse),
                         static_cast<float*>(delta), dq, dk, dv, batch, sq, sk,
                         hq, hkv, d, scale, causal, window, softcap, 0,
+                        flash_bwd_ranks(dtype, d, batch, sq, sk, hq, hkv,
+                                        causal, window),
+                        static_cast<cudaStream_t>(stream));
+}
+
+// flash_bwd at a rank count of the caller's: 1 (every family: Delta, then
+// the two passes), 2 (bf16 at D 64, 112, 128: the split family; 4 too
+// in a copy built with FLASH_MAX_RANKS 4), whatever flash_bwd_ranks
+// would choose; for checks and benches.
+int flash_bwd_split(int ranks, int dtype, const void* q, const void* k,
+                    const void* v, const void* o, const void* d_o,
+                    const void* lse, void* delta, void* dq, void* dk,
+                    void* dv, int batch, int sq, int sk, int hq, int hkv,
+                    int d, float scale, int causal, int window,
+                    float softcap, void* stream) {
+  if (bad_shape(d, hq, hkv, sq, sk) ||
+      (long long)sq - (long long)window >= (long long)sk)
+    return (int)cudaErrorInvalidValue;
+  return run_bwd<false>(dtype, q, k, v, o, d_o, static_cast<const float*>(lse),
+                        static_cast<float*>(delta), dq, dk, dv, batch, sq, sk,
+                        hq, hkv, d, scale, causal, window, softcap, 0, ranks,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -591,7 +651,7 @@ int flash_bwd_block(int dtype, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   return run_bwd<true>(dtype, q, k, v, o, d_o, static_cast<const float*>(lse),
                        static_cast<float*>(delta), dq, dk, dv, batch, sq, sk,
-                       hq, hkv, d, scale, causal, window, softcap, k_off,
+                       hq, hkv, d, scale, causal, window, softcap, k_off, 1,
                        static_cast<cudaStream_t>(stream));
 }
 

@@ -37,7 +37,19 @@
 //    tiles and O through shared memory, FwdTraits there), with f32
 //    accumulation and the softmax in the log2 domain.  float32 and
 //    other widths run the products on CUDA cores (flash_fwd_kernel below),
-//    bound by shared-memory traffic.
+//    bound by shared-memory traffic;
+//  * where the (q block, kv head, batch) items of such a whole-sequence
+//    call fill few of the card's processors (seamless-m4t-medium's
+//    cross-attention, B 2 x 16 heads x 2 query blocks: 64 items on 132
+//    processors, each walking 1024 keys alone), the split family takes
+//    it: one cluster of 2 CTAs an item (fwd_split2_kernel: fwd_kernel's
+//    body), the ranks walking contiguous shares of the item's key tiles
+//    and merging (m, l, O) through distributed shared memory in rank
+//    order before one rounded store.
+//    flash_fwd_ranks says which shapes split and how far
+//    (flash_wgmma.cuh's split_ranks: items x ranks within the
+//    processors, at least two 128-key tiles a rank); flash_fwd_split
+//    fixes the count.
 //
 // Masking: the TPU kernel's finite -1e30 is the initial max, and a masked
 // key weighs 0 (not exp(0)), so no row ever meets exp(-inf - -inf) = NaN.
@@ -271,12 +283,22 @@ int launch_type(const void* q, const void* k, const void* v, void* o,
 }
 
 // Either entry: KB false the whole sequence, O in q's type; KB true the
-// key block at k_off, O in f32.  The caller has checked the arguments.
+// key block at k_off, O in f32.  ranks: the wgmma family's split (1 the
+// persistent grid; whole sequence only); the other families take 1.  The
+// caller has checked the arguments.
 template <bool KB>
 int run_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
             float* lse, int batch, int sq, int sk, int hq, int hkv, int d,
             float scale, int causal, int window, float softcap, int k_off,
-            cudaStream_t st) {
+            int ranks, cudaStream_t st) {
+  const bool split_family = !KB && dtype == 1 && flash_wgmma::takes(d);
+  if (ranks != 1 && !split_family) return (int)cudaErrorInvalidValue;
+  if (ranks != 1)
+    return flash_wgmma::dispatch_d(d, [&](auto dt) {
+      return flash_wgmma::launch_fwd_ranked<decltype(dt)::value>(
+          ranks, q, k, v, o, lse, batch, sq, sk, hq, hkv, scale, causal,
+          window, softcap, st);
+    }, (int)cudaErrorInvalidValue);
   if (dtype == 0)
     return launch_type<float, KB>(q, k, v, o, lse, batch, sq, sk, hq, hkv, d,
                                   scale, causal, window, softcap, k_off, st);
@@ -311,11 +333,24 @@ extern "C" {
 int flash_fwd_max_g() { return kRows; }
 int flash_fwd_max_d() { return 256; }
 
-// The kernel flash_fwd launches for this dtype and D: 0 CUDA cores
-// (flash_fwd_kernel), 2 wgmma (flash_wgmma.cuh's fwd_kernel at D 64, 112,
-// 128 and 256), numbered as the other libraries' families
-// (1 is mma.sync).
-int flash_fwd_variant(int dtype, int d) {
+// The rank count flash_fwd splits a whole-sequence call's key ranges
+// over (flash_wgmma.cuh's split_ranks on this card's processors): 2
+// for bf16 at D 64, 112 and 128 where the items fill few processors, else
+// 1.  window as flash_fwd takes it.
+int flash_fwd_ranks(int dtype, int d, int batch, int sq, int sk, int hq,
+                    int hkv, int causal, int window) {
+  if (dtype != 1 || !flash_wgmma::takes(d) || bad_shape(d, hq, hkv, sq, sk))
+    return 1;
+  return flash_wgmma::fwd_ranks(batch, sq, sk, hq, hkv, causal, window);
+}
+
+// The kernel a call at this dtype, D and rank count (flash_fwd_ranks, or
+// the key-block entry's 1) launches: 0 CUDA cores (flash_fwd_kernel), 2
+// wgmma (flash_wgmma.cuh's fwd_kernel at D 64, 112, 128 and 256), 3 the
+// split family (fwd_split2_kernel), numbered as the
+// other libraries' families (1 is mma.sync).
+int flash_fwd_variant(int dtype, int d, int ranks) {
+  if (dtype == 1 && flash_wgmma::takes(d) && ranks > 1) return 3;
   return dtype == 1 && (flash_wgmma::takes(d) || d == flash_wgmma::kD256)
              ? 2
              : 0;
@@ -325,8 +360,8 @@ int flash_fwd_variant(int dtype, int d) {
 // batch element, both >= 1.  causal: 0 or 1.  A window of INT32_MAX means
 // none; a window that leaves the last query row no key (sq - window >= sk)
 // is refused.  softcap <= 0 means none.  D must be a multiple of 8 and at
-// most 256, Hq a multiple of Hkv with G = Hq / Hkv <= 32.  Returns
-// cudaGetLastError().
+// most 256, Hq a multiple of Hkv with G = Hq / Hkv <= 32.  Splits the key
+// ranges over flash_fwd_ranks' count.  Returns cudaGetLastError().
 int flash_fwd(int dtype, const void* q, const void* k, const void* v,
               void* o, void* lse, int batch, int sq, int sk, int hq, int hkv,
               int d, float scale, int causal, int window, float softcap,
@@ -336,7 +371,25 @@ int flash_fwd(int dtype, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   return run_fwd<false>(dtype, q, k, v, o, static_cast<float*>(lse), batch,
                         sq, sk, hq, hkv, d, scale, causal, window, softcap, 0,
+                        flash_fwd_ranks(dtype, d, batch, sq, sk, hq, hkv,
+                                        causal, window),
                         static_cast<cudaStream_t>(stream));
+}
+
+// flash_fwd at a rank count of the caller's: 1 (every family; the
+// persistent grid for wgmma), 2 (bf16 at D 64, 112, 128: the split
+// family; 4 too in a copy built with FLASH_MAX_RANKS 4), whatever
+// flash_fwd_ranks would choose; for checks and benches.
+int flash_fwd_split(int ranks, int dtype, const void* q, const void* k,
+                    const void* v, void* o, void* lse, int batch, int sq,
+                    int sk, int hq, int hkv, int d, float scale, int causal,
+                    int window, float softcap, void* stream) {
+  if (bad_shape(d, hq, hkv, sq, sk) ||
+      (long long)sq - (long long)window >= (long long)sk)
+    return (int)cudaErrorInvalidValue;
+  return run_fwd<false>(dtype, q, k, v, o, static_cast<float*>(lse), batch,
+                        sq, sk, hq, hkv, d, scale, causal, window, softcap, 0,
+                        ranks, static_cast<cudaStream_t>(stream));
 }
 
 // The key-block entry: as flash_fwd, with k and v the sk keys at
@@ -351,7 +404,7 @@ int flash_fwd_block(int dtype, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   return run_fwd<true>(dtype, q, k, v, o, static_cast<float*>(lse), batch,
                        sq, sk, hq, hkv, d, scale, causal, window, softcap,
-                       k_off, static_cast<cudaStream_t>(stream));
+                       k_off, 1, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

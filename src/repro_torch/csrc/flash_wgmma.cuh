@@ -69,7 +69,17 @@
 //  * as in the mma.sync kernels (flash_mma.cuh, whose softmax and mask
 //    helpers these reuse): only the tiles the masks leave are walked,
 //    element masks only on partly visible tiles, the softmax in the log2
-//    domain, a finite -1e30 initial max with masked keys weighing 0.
+//    domain, a finite -1e30 initial max with masked keys weighing 0;
+//  * a whole-sequence call whose items fill few of the card's processors
+//    (seamless-m4t-medium's cross-attention: 64 items, each walking 1024
+//    keys alone on half the card) takes the split family instead of the
+//    persistent grid: the forward's and the dQ pass's bodies with RANKS
+//    2 (4 in a copy built with FLASH_MAX_RANKS 4), one cluster an item,
+//    the ranks walking contiguous shares of its key tiles and merging
+//    through distributed shared memory in rank order (in the forward the
+//    two consumer groups take turns to issue products); the split dQ
+//    pass also forms Delta (the section "key splits over a cluster"
+//    below says how).
 //
 // The backward takes two passes and no atomics, so every sum has a fixed
 // order.  dq_kernel walks 64-key tiles per query block like the forward
@@ -96,6 +106,14 @@
 // touches its stages, and its rows are stored as zeros (the forward's
 // log-sum-exp as -inf).  The forward writes O in f32 and the dQ pass dQ
 // in f32: partials that the ranks' merge adds before it rounds once.
+//
+// Ablations (launch.flash_bench --ablate builds copies of the flash
+// libraries with one of these defined; they compute garbage):
+// FLASH_ABLATE_NO_PRODUCTS skips every wgmma product, FLASH_ABLATE_NO_LOADS
+// every TMA load (its barriers complete by a plain arrival),
+// FLASH_ABLATE_NO_MERGE the ranks' merge (partials staged, the cluster's
+// barriers kept, nothing read or stored), FLASH_ABLATE_NO_WALK every
+// rank's share of the key tiles.  Undefined, they leave the source as is.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and the types of cuTensorMapEncodeTiled
@@ -155,6 +173,12 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+#ifdef FLASH_ABLATE_NO_LOADS  // a plain arrival: no load completes bytes
+  (void)bytes;
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+  return;
+#endif
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
       "r"(bytes)
@@ -163,6 +187,9 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 
 // Expect `bytes` more of TMA traffic on the barrier's phase, no arrival.
 __device__ __forceinline__ void mbar_add_tx(uint32_t bar, uint32_t bytes) {
+#ifdef FLASH_ABLATE_NO_LOADS
+  return;
+#endif
   asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(bytes)
                : "memory");
@@ -197,6 +224,9 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
                                             int c2, int c3) {
+#ifdef FLASH_ABLATE_NO_LOADS
+  if (c0 < 0)
+#endif
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
@@ -227,6 +257,10 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int N>
@@ -582,6 +616,9 @@ __device__ __forceinline__ void product_abt(float* d, uint32_t a, int r_a,
                                             int row0, uint32_t b) {
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks)
+#ifdef FLASH_ABLATE_NO_PRODUCTS
+    if (r_a < 0)
+#endif
     mma_ss<N>(d, desc_k(a, r_a, row0, ks), desc_k(b, N, 0, ks), ks > 0);
 }
 
@@ -602,7 +639,11 @@ template <int D, int K>
 __device__ __forceinline__ void product_ab(float* d, const unsigned (*a)[4],
                                           uint32_t b) {
 #pragma unroll
-  for (int ks = 0; ks < K / 16; ++ks) mma_rs<D>(d, a[ks], desc_mn(b, K, ks));
+  for (int ks = 0; ks < K / 16; ++ks)
+#ifdef FLASH_ABLATE_NO_PRODUCTS
+    if (b == 0u)
+#endif
+    mma_rs<D>(d, a[ks], desc_mn(b, K, ks));
 }
 
 // As product_ab, with P the f32 accumulator of a product, rounded to bf16.
@@ -642,10 +683,10 @@ __device__ __forceinline__ Item item_at(int it, int n_blk, int hkv, int hb,
 // expression of the kernel that took one length: with a second min
 // against Sk here, ptxas scheduled the forward's wgmma products slower at
 // the training shape; PERF.md section 6.)
-__device__ __forceinline__ void key_range(int c0, int bq, int k_lim,
-                                          int causal, int window, int tk,
-                                          int* k_lo, int* k_hi,
-                                          int* n_tiles) {
+__host__ __device__ __forceinline__ void key_range(int c0, int bq, int k_lim,
+                                                   int causal, int window,
+                                                   int tk, int* k_lo,
+                                                   int* k_hi, int* n_tiles) {
   const long long lo = (long long)c0 - (long long)window + 1;
   *k_lo = lo > 0 ? (int)lo : 0;
   *k_hi = causal ? min(c0 + bq, k_lim) : k_lim;
@@ -834,6 +875,176 @@ __device__ __forceinline__ void out_rows(long long* orow, int wg, int tid,
 }
 
 // ---------------------------------------------------------------------------
+// key splits over a cluster (the split families, kernels 5x and 5bx)
+// ---------------------------------------------------------------------------
+
+// Where the (block, kv head, batch) items of a whole-sequence call fill
+// few of the card's processors (seamless-m4t-medium's cross-attention: 64
+// items), the forward and the dQ pass take the split families: a grid of
+// (RANKS, items) CTAs in clusters of RANKS along x, one cluster an item,
+// whose ranks walk contiguous shares of the item's key tiles with the
+// bodies above and merge their partials through distributed shared memory
+// in rank order (so every sum keeps a fixed order), then store once.  No
+// f32 partial goes to device memory.  The rank count is fixed at compile
+// time, one __global__ wrapper per count over one __device__ body (a
+// runtime cluster attribute cost kernels 1 and 3 1-2.5%); the host picks
+// it (split_ranks).  The library's clusters are of 2 ranks: clusters of 4
+// lost to 2 at seamless's cross shape (256 CTAs in two waves), and a GPC
+// need not hold the items' clusters of 4 at once where they fit the SMs.
+// launch.flash_bench --ablate times a copy built with FLASH_MAX_RANKS 4.
+#ifndef FLASH_MAX_RANKS
+#define FLASH_MAX_RANKS 2
+#endif
+constexpr int kMaxRanks = FLASH_MAX_RANKS;
+constexpr int kMergeBar = 3;   // named barrier of the two consumer groups
+constexpr int kTurnBar = 4;    // 4 + g: consumer group g's turn to issue
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// Every thread of the cluster that has not exited; not aligned, so a
+// warp's lanes may arrive apart (the producer's idle lanes come early).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of this CTA's shared-memory word `addr` in rank r's.
+__device__ __forceinline__ uint32_t rank_addr(uint32_t addr, int r) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(r));
+  return out;
+}
+
+__device__ __forceinline__ float4 ld_rank16(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_rank8(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// The split forward's two consumer groups take turns issuing their
+// products (take_turn waits for this group's, pass_turn hands it to the
+// other), so that one group's softmax runs while the other's products do:
+// otherwise both wait on the same stages and reach their softmax together
+// (0.0130 -> 0.0122 ms at seamless's cross shape; the same turns in the
+// dQ and dK/dV passes moved nothing and were not kept: PERF.md section 6).
+// Group 1 hands group 0 its first turn (first_turn), and group 0 takes
+// the one turn left over at the end (last_turn).  No-ops on the
+// persistent grid.
+template <int RANKS>
+__device__ __forceinline__ void take_turn(int wg) {
+  if constexpr (RANKS > 1) bar_sync(kTurnBar + wg, kConsumers * 128);
+}
+
+template <int RANKS>
+__device__ __forceinline__ void pass_turn(int wg) {
+  if constexpr (RANKS > 1) bar_arrive(kTurnBar + 1 - wg, kConsumers * 128);
+}
+
+template <int RANKS>
+__device__ __forceinline__ void first_turn(int wg) {
+  if constexpr (RANKS > 1)
+    if (wg == 1) bar_arrive(kTurnBar, kConsumers * 128);
+}
+
+template <int RANKS>
+__device__ __forceinline__ void last_turn(int wg) {
+  if constexpr (RANKS > 1)
+    if (wg == 0) bar_sync(kTurnBar, kConsumers * 128);
+}
+
+// This rank's share of an item's *n_tiles key tiles: a contiguous
+// ceil(n / RANKS) of them from the returned first; *n_tiles becomes its
+// count (0 for a rank past the item's last tile).
+template <int RANKS>
+__device__ __forceinline__ int rank_share(int rank, int* n_tiles) {
+  const int share = (*n_tiles + RANKS - 1) / RANKS;
+  const int first = min(rank * share, *n_tiles);
+#ifdef FLASH_ABLATE_NO_WALK
+  *n_tiles = 0;
+#else
+  *n_tiles = min(*n_tiles, first + share) - first;
+#endif
+  return first;
+}
+
+// The item a CTA takes in round r: the persistent grid's (item_index), or
+// under a split one item a cluster, blockIdx.y (rounds past it: none).
+template <int RANKS>
+__device__ __forceinline__ int item_of(int r, int n_items) {
+  if constexpr (RANKS == 1)
+    return item_index(r);
+  else
+    return r == 0 ? (int)blockIdx.y : n_items;
+}
+
+// A rank's partial in its own shared memory, over its key stages once its
+// walk is done: the 128 rows' f32 accumulators at a row stride of D + 8
+// floats (the fragments' 8-byte writes and the merge's 16-byte reads meet
+// no bank twice), then each row's (m, l).
+template <int D>
+struct Partial {
+  static constexpr int kStride = D + 8;
+  static constexpr int kMl = kRows * kStride * 4;
+  static constexpr int kBytes = kMl + kRows * 8;
+};
+
+// This thread's two rows of acc (and, with ML, their m and l) into the
+// partial at `at`.
+template <int D, bool ML>
+__device__ __forceinline__ void stage_partial(uint32_t at, const float* acc,
+                                              const Rows& rw, const float* m,
+                                              const float* l, int t4) {
+  using P = Partial<D>;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rw.r[hh];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      st_shared_pair(at + (r * P::kStride + 8 * nt + 2 * t4) * 4,
+                     acc[4 * nt + 2 * hh], acc[4 * nt + 2 * hh + 1], 0.f);
+    if (ML && t4 == 0) st_shared_pair(at + P::kMl + r * 8, m[hh], l[hh], 0.f);
+  }
+}
+
+// Row r's output row and head of the query block at c0 (position-major
+// over the G heads of kv head w.h), or -1 where the row holds no query.
+__device__ __forceinline__ long long out_row(int r, int c0, int g_n, int bq,
+                                             int sq, int hq, const Item& w,
+                                             int* head) {
+  const int pos = c0 + r / g_n;
+  *head = w.h * g_n + r % g_n;
+  return r < g_n * bq && pos < sq
+             ? ((long long)w.b * sq + pos) * hq + *head
+             : -1;
+}
+
+// Four bf16 of an output row from f32.
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
+                         __floats2bfloat162_rn(v.z, v.w)};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+}
+
+// ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
@@ -879,20 +1090,79 @@ struct FwdSmem {
   static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages) + 1024;
 };
 
+// The split forward's merge: rank `rank` of RANKS takes rows [rank 128 /
+// RANKS, ..) of the block, 4 true columns a thread at a time, and weighs
+// every rank's partial (from the partials at `at` in each rank's shared
+// memory) by exp2(m_r - max m), in rank order, into one O rounded once and
+// the row's log-sum-exp.
+template <int DT, int RANKS>
+__device__ __forceinline__ void merge_fwd(uint32_t at, int rank, bf16* o,
+                                          float* lse, int c0, int g_n,
+                                          int bq, int sq, int hq,
+                                          const Item& w) {
+  constexpr int D = padded(DT), U = DT / 4, kPer = kRows / RANKS;
+  using P = Partial<D>;
+  uint32_t src[RANKS];
+#pragma unroll
+  for (int q = 0; q < RANKS; ++q) src[q] = rank_addr(at, q);
+#ifdef FLASH_ABLATE_NO_MERGE
+  if (rank < 0)
+#endif
+  for (int u = threadIdx.x; u < kPer * U; u += kConsumers * 128) {
+    const int r = rank * kPer + u / U, f = 4 * (u % U);
+    int head;
+    const long long orow = out_row(r, c0, g_n, bq, sq, hq, w, &head);
+    if (orow < 0) continue;
+    float mr[RANKS], lr[RANKS];
+    float4 ar[RANKS];
+#pragma unroll
+    for (int q = 0; q < RANKS; ++q) {
+      const float2 ml = ld_rank8(src[q] + P::kMl + r * 8);
+      mr[q] = ml.x;
+      lr[q] = ml.y;
+      ar[q] = ld_rank16(src[q] + (r * P::kStride + f) * 4);
+    }
+    float mm = mr[0];
+#pragma unroll
+    for (int q = 1; q < RANKS; ++q) mm = fmaxf(mm, mr[q]);
+    float ll = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < RANKS; ++q) {
+      const float x = exp2f(mr[q] - mm);
+      ll += lr[q] * x;
+      a.x += ar[q].x * x;
+      a.y += ar[q].y * x;
+      a.z += ar[q].z * x;
+      a.w += ar[q].w * x;
+    }
+    const float inv = 1.f / fmaxf(ll, 1e-30f);
+    store4(o + orow * DT + f,
+           make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+    if (f == 0)
+      lse[((long long)w.b * hq + head) * sq + c0 + r / g_n] =
+          (mm + log2f(fmaxf(ll, 1e-30f))) * flash_mma::kLn2;
+  }
+}
+
 // DT: the tensors' head_dim; D = padded(DT) in shared memory and in the
 // products.  KB: the keys are a block at k_off (the header says how).
-template <int DT, bool KB>
-__global__ void __launch_bounds__(kThreads, 1)
-fwd_kernel(const __grid_constant__ CUtensorMap q_map,
-           const __grid_constant__ CUtensorMap k_map,
-           const __grid_constant__ CUtensorMap v_map,
-           OutT<KB>* __restrict__ o, float* __restrict__ lse, int batch,
-           int sq, int k_lim, int hq, int hkv, int bq, float scale,
-           int causal, int window, float softcap, int k_off) {
+// RANKS: 1 the persistent grid (fwd_kernel), else one cluster of RANKS
+// an item, its key tiles split over the ranks (fwd_split*_kernel; whole
+// sequence, D up to 128).
+template <int DT, bool KB, int RANKS>
+__device__ __forceinline__ void fwd_body(
+    const CUtensorMap* q_map, const CUtensorMap* k_map,
+    const CUtensorMap* v_map, OutT<KB>* __restrict__ o,
+    float* __restrict__ lse, int batch, int sq, int k_lim, int hq, int hkv,
+    int bq, float scale, int causal, int window, float softcap, int k_off) {
   constexpr int D = padded(DT);
   using L = FwdSmem<D>;
   using Tr = FwdTraits<D>;
   constexpr int TK = Tr::kTk;
+  static_assert(RANKS == 1 || (!KB && !Tr::kStaged &&
+                               Partial<D>::kBytes <= 2 * kStages * L::kTile),
+                "a split rank's partial fits its key stages");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = aligned_smem_base(smem_raw);
   const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
@@ -917,29 +1187,39 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int g_n = hq / hkv, hb = hkv * batch;
   const int n_blk = (sq + bq - 1) / bq, n_items = n_blk * hb;
   const int shift = KB ? k_off : 0;
+  const int rank = RANKS > 1 ? cluster_rank() : 0;
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
-    // ---- producer: one thread issues every load
+    // ---- producer: one thread issues every load (under a split, every
+    // thread of the group also takes the merge's two cluster barriers)
     regs_dealloc<Tr::kProducerRegs>();
-    if (threadIdx.x != kConsumers * 128) return;
-    prefetch_map(&q_map);
-    prefetch_map(&k_map);
-    prefetch_map(&v_map);
+    if (threadIdx.x != kConsumers * 128) {
+      if constexpr (RANKS > 1) {
+        cluster_sync();
+        cluster_sync();
+      }
+      return;
+    }
+    prefetch_map(q_map);
+    prefetch_map(k_map);
+    prefetch_map(v_map);
     int stage = 0;
     uint32_t phase = 0, q_phase = 0;
-    for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
+    for (int r = 0, it; (it = item_of<RANKS>(r, n_items)) < n_items; ++r) {
       const Item w = item_at(it, n_blk, hkv, hb, causal);
       const int c0 = w.blk * bq;
       int k_lo, k_hi, n_tiles;
       block_key_range<KB>(c0, shift, bq, k_lim, causal, window, TK, &k_lo,
                           &k_hi, &n_tiles);
-      if (KB && n_tiles == 0) continue;   // no key of the block: no loads
+      if constexpr (RANKS > 1) k_lo += rank_share<RANKS>(rank, &n_tiles) * TK;
+      // no key of the block (or of the rank's share): no loads
+      if ((KB || RANKS > 1) && n_tiles == 0) continue;
       mbar_wait(q_empty, q_phase ^ 1);
       q_phase ^= 1;
       mbar_expect_tx(q_full, (D / 64) * g_n * bq * 128);
 #pragma unroll
       for (int c = 0; c < D / 64; ++c)
-        tma_load_4d(base + L::kQ + c * kRows * 128, &q_map, q_full, c * 64,
+        tma_load_4d(base + L::kQ + c * kRows * 128, q_map, q_full, c * 64,
                     w.h * g_n, c0, w.b);
       for (int i = 0; i < n_tiles; ++i) {
         const int t0 = k_lo + i * TK;
@@ -949,19 +1229,23 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(k_full + 8 * stage, L::kTile);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(kt + c * TK * 128, &k_map, k_full + 8 * stage, c * 64,
+          tma_load_4d(kt + c * TK * 128, k_map, k_full + 8 * stage, c * 64,
                       w.h, t0, w.b);
         mbar_wait(v_empty + 8 * stage, phase ^ 1);
         mbar_expect_tx(v_full + 8 * stage, L::kTile);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(vt + c * TK * 128, &v_map, v_full + 8 * stage, c * 64,
+          tma_load_4d(vt + c * TK * 128, v_map, v_full + 8 * stage, c * 64,
                       w.h, t0, w.b);
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
         }
       }
+    }
+    if constexpr (RANKS > 1) {
+      cluster_sync();
+      cluster_sync();
     }
     return;
   }
@@ -973,18 +1257,21 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int r0 = wg * 64 + warp * 16 + (lane >> 2);
   int stage = 0;
   uint32_t phase = 0, q_phase = 0;
-  for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
+  for (int r = 0, it; (it = item_of<RANKS>(r, n_items)) < n_items; ++r) {
     const Item w = item_at(it, n_blk, hkv, hb, causal);
     const int c0 = w.blk * bq;
     int k_lo, k_hi, n_tiles;
     block_key_range<KB>(c0, shift, bq, k_lim, causal, window, TK, &k_lo,
                         &k_hi, &n_tiles);
+    if constexpr (RANKS > 1) k_lo += rank_share<RANKS>(rank, &n_tiles) * TK;
     const Rows rw = rows_of(r0, c0, g_n, bq, sq, shift);
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    if (!KB || n_tiles > 0) {   // else the rows saw no key: zeros below
+    // else the rows saw no key (of the block, or of the rank's share):
+    // zeros below, or weight 0 in the ranks' merge
+    if ((!KB && RANKS == 1) || n_tiles > 0) {
       float s[TK / 2];
       unsigned p_prev[TK / 16][4];   // tile i - 1's weights, bf16
       mbar_wait(q_full, q_phase);
@@ -1013,11 +1300,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int hh = 0; hh < 2; ++hh)
           l[hh] = l[hh] * alpha[hh] + flash_mma::quad_sum(rs[hh]);
       };
+      first_turn<RANKS>(wg);
       mbar_wait(k_full + 8 * stage, phase);
+      take_turn<RANKS>(wg);
       wg_fence();
       product_abt<D, TK>(s, base + L::kQ, kRows, wg * 64,
                          base + L::kK + stage * L::kTile);
       wg_commit();
+      pass_turn<RANKS>(wg);
       wg_wait<0>();
       fence_regs<TK / 2>(s);
       if (lane == 0) {
@@ -1034,6 +1324,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       }
       for (int i = 1; i < n_tiles; ++i) {
         mbar_wait(k_full + 8 * stage, phase);
+        take_turn<RANKS>(wg);
         wg_fence();
         product_abt<D, TK>(s, base + L::kQ, kRows, wg * 64,
                            base + L::kK + stage * L::kTile);
@@ -1041,6 +1332,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         mbar_wait(v_full + 8 * v_stage, v_phase);
         product_ab<D, TK>(acc, p_prev, base + L::kV + v_stage * L::kTile);
         wg_commit();
+        pass_turn<RANKS>(wg);
         wg_wait<1>();   // S has landed; P V may still run
         fence_regs<TK / 2>(s);
         if (lane == 0) {
@@ -1062,59 +1354,103 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         }
       }
       mbar_wait(v_full + 8 * v_stage, v_phase);
+      take_turn<RANKS>(wg);
       wg_fence();
       product_ab<D, TK>(acc, p_prev, base + L::kV + v_stage * L::kTile);
       wg_commit();
+      pass_turn<RANKS>(wg);
+      last_turn<RANKS>(wg);
       wg_wait<0>();
       fence_regs<D / 2>(acc);
       if (lane == 0) mbar_arrive(v_empty + 8 * v_stage);
     }
 
-    if constexpr (Tr::kStaged) {
-      // O through the group's two pieces, two pieces a round (four rounds
-      // for an f32 O, two for bf16)
-      using T = OutT<KB>;
-      const int tid = threadIdx.x & 127;
-      const uint32_t staging = base + L::kOut + wg * 2 * kPiece;
-      const float inv[2] = {1.f / fmaxf(l[0], 1e-30f),
-                            1.f / fmaxf(l[1], 1e-30f)};
-      long long orow[4];
-      out_rows(orow, wg, tid, c0, g_n, bq, sq, hq, w);
+    if constexpr (RANKS > 1) {
+      // the ranks' partials over their key stages, once both groups are
+      // done with them, then the merge through the cluster
+      bar_sync(kMergeBar, kConsumers * 128);
+      stage_partial<D, true>(base + L::kK, acc, rw, m, l, t4);
+      cluster_sync();
+      merge_fwd<DT, RANKS>(base + L::kK, rank, o, lse, c0, g_n, bq, sq, hq,
+                           w);
+      cluster_sync();   // no rank leaves while another reads its partial
+    } else {
+      if constexpr (Tr::kStaged) {
+        // O through the group's two pieces, two pieces a round (four rounds
+        // for an f32 O, two for bf16)
+        using T = OutT<KB>;
+        const int tid = threadIdx.x & 127;
+        const uint32_t staging = base + L::kOut + wg * 2 * kPiece;
+        const float inv[2] = {1.f / fmaxf(l[0], 1e-30f),
+                              1.f / fmaxf(l[1], 1e-30f)};
+        long long orow[4];
+        out_rows(orow, wg, tid, c0, g_n, bq, sq, hq, w);
 #pragma unroll
-      for (int rd = 0; rd < D / kPieceCols<T> / 2; ++rd) {
-        bar_sync(1 + wg, 128);   // the last round's copies have read them
+        for (int rd = 0; rd < D / kPieceCols<T> / 2; ++rd) {
+          bar_sync(1 + wg, 128);   // the last round's copies have read them
 #pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2)
-          stage_piece<T>(staging + h2 * kPiece, acc, 2 * rd + h2, inv, warp,
-                         lane);
-        bar_sync(1 + wg, 128);
+          for (int h2 = 0; h2 < 2; ++h2)
+            stage_piece<T>(staging + h2 * kPiece, acc, 2 * rd + h2, inv, warp,
+                           lane);
+          bar_sync(1 + wg, 128);
 #pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2)
-          copy_piece<T>(staging + h2 * kPiece, o, 2 * rd + h2, orow, tid);
+          for (int h2 = 0; h2 < 2; ++h2)
+            copy_piece<T>(staging + h2 * kPiece, o, 2 * rd + h2, orow, tid);
+        }
       }
-    }
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      if (!rw.live[hh]) continue;
-      const int head = w.h * g_n + rw.r[hh] % g_n;
-      const int pos = rw.pos[hh] + shift;
-      if constexpr (!Tr::kStaged) {
-        const long long orow = ((long long)w.b * sq + pos) * hq + head;
-        const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+      for (int hh = 0; hh < 2; ++hh) {
+        if (!rw.live[hh]) continue;
+        const int head = w.h * g_n + rw.r[hh] % g_n;
+        const int pos = rw.pos[hh] + shift;
+        if constexpr (!Tr::kStaged) {
+          const long long orow = ((long long)w.b * sq + pos) * hq + head;
+          const float inv = 1.f / fmaxf(l[hh], 1e-30f);
 #pragma unroll
-        for (int nt = 0; nt < DT / 8; ++nt)   // the true columns only
-          store2(o + orow * DT + nt * 8 + 2 * t4, acc[4 * nt + 2 * hh] * inv,
-                 acc[4 * nt + 2 * hh + 1] * inv);
+          for (int nt = 0; nt < DT / 8; ++nt)   // the true columns only
+            store2(o + orow * DT + nt * 8 + 2 * t4, acc[4 * nt + 2 * hh] * inv,
+                   acc[4 * nt + 2 * hh + 1] * inv);
+        }
+        if (t4 == 0)   // m is in the log2 domain; a row of a key block that
+                       // saw no key has weight 0 in the merge
+          lse[((long long)w.b * hq + head) * sq + pos] =
+              KB && l[hh] == 0.f
+                  ? -INFINITY
+                  : (m[hh] + log2f(fmaxf(l[hh], 1e-30f))) * flash_mma::kLn2;
       }
-      if (t4 == 0)   // m is in the log2 domain; a row of a key block that
-                     // saw no key has weight 0 in the merge
-        lse[((long long)w.b * hq + head) * sq + pos] =
-            KB && l[hh] == 0.f
-                ? -INFINITY
-                : (m[hh] + log2f(fmaxf(l[hh], 1e-30f))) * flash_mma::kLn2;
     }
   }
 }
+
+template <int DT, bool KB>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+           const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map,
+           OutT<KB>* __restrict__ o, float* __restrict__ lse, int batch,
+           int sq, int k_lim, int hq, int hkv, int bq, float scale,
+           int causal, int window, float softcap, int k_off) {
+  fwd_body<DT, KB, 1>(&q_map, &k_map, &v_map, o, lse, batch, sq, k_lim, hq,
+                      hkv, bq, scale, causal, window, softcap, k_off);
+}
+
+// The split forward, clusters of R ranks: grid (R, items).
+#define REPRO_FWD_SPLIT(R)                                                  \
+  template <int DT>                                                         \
+  __global__ void __cluster_dims__(R, 1, 1) __launch_bounds__(kThreads, 1)  \
+  fwd_split##R##_kernel(const __grid_constant__ CUtensorMap q_map,          \
+                        const __grid_constant__ CUtensorMap k_map,          \
+                        const __grid_constant__ CUtensorMap v_map,          \
+                        bf16* __restrict__ o, float* __restrict__ lse,      \
+                        int batch, int sq, int k_lim, int hq, int hkv,      \
+                        int bq, float scale, int causal, int window,        \
+                        float softcap) {                                    \
+    fwd_body<DT, false, R>(&q_map, &k_map, &v_map, o, lse, batch, sq, k_lim, \
+                           hq, hkv, bq, scale, causal, window, softcap, 0); \
+  }
+REPRO_FWD_SPLIT(2)
+REPRO_FWD_SPLIT(4)
+#undef REPRO_FWD_SPLIT
 
 // ---------------------------------------------------------------------------
 // backward, pass 1: dQ
@@ -1136,21 +1472,98 @@ struct DqSmem {
   static constexpr int kBytes = kBar + 8 * (2 + 4 * kDqStages) + 1024;
 };
 
+// The split dQ pass also brings the block's O rows (beside dO, after the
+// barriers) and forms Delta = rowsum(dO O) itself: no Delta launch.
+template <int D>
+struct DqSplitSmem {
+  static constexpr int kO =
+      (DqSmem<D>::kBar + 8 * (2 + 4 * kDqStages) + 1023) / 1024 * 1024;
+  static constexpr int kBytes = kO + kRows * D * 2 + 1024;
+};
+
+// Row r's dO . O over the D columns of the two swizzled tiles (column
+// blocks of 128 rows x 128 bytes): this thread's 16-byte units t4 and
+// t4 + 4 of each block, summed over the quad.
+template <int D>
+__device__ __forceinline__ float row_dot(uint32_t a, uint32_t b, int r,
+                                         int t4) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t off =
+          c * kRows * 128 + r * 128 + (((t4 + 4 * j) ^ (r & 7)) << 4);
+      const uint4 x = ld_shared16(a + off), y = ld_shared16(b + off);
+      const unsigned xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z,
+                                                              y.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 u = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+        s += u.x * v.x + u.y * v.y;
+      }
+    }
+  return flash_mma::quad_sum(s);
+}
+
+// The split dQ pass's merge: rank `rank` of RANKS takes rows [rank 128 /
+// RANKS, ..) and adds every rank's partial dQ in rank order, then scales
+// and rounds once.
+template <int DT, int RANKS>
+__device__ __forceinline__ void merge_dq(uint32_t at, int rank, bf16* dq,
+                                         int c0, int g_n, int bq, int sq,
+                                         int hq, float scale, const Item& w) {
+  constexpr int D = padded(DT), U = DT / 4, kPer = kRows / RANKS;
+  using P = Partial<D>;
+  uint32_t src[RANKS];
+#pragma unroll
+  for (int q = 0; q < RANKS; ++q) src[q] = rank_addr(at, q);
+#ifdef FLASH_ABLATE_NO_MERGE
+  if (rank < 0)
+#endif
+  for (int u = threadIdx.x; u < kPer * U; u += kConsumers * 128) {
+    const int r = rank * kPer + u / U, f = 4 * (u % U);
+    int head;
+    const long long orow = out_row(r, c0, g_n, bq, sq, hq, w, &head);
+    if (orow < 0) continue;
+    float4 a = ld_rank16(src[0] + (r * P::kStride + f) * 4);
+#pragma unroll
+    for (int q = 1; q < RANKS; ++q) {
+      const float4 x = ld_rank16(src[q] + (r * P::kStride + f) * 4);
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    store4(dq + orow * DT + f,
+           make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale));
+  }
+}
+
 // sq query positions; k_lim as in key_range (Sk, or min(Sq, Sk) causal;
-// under KB the keys are a block at k_off and dq is f32).
-template <int DT, bool KB>
-__global__ void __launch_bounds__(kThreads, 1)
-dq_kernel(const __grid_constant__ CUtensorMap q_map,
-          const __grid_constant__ CUtensorMap g_map,
-          const __grid_constant__ CUtensorMap k_map,
-          const __grid_constant__ CUtensorMap v_map,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          OutT<KB>* __restrict__ dq, int batch, int sq, int k_lim, int hq,
-          int hkv, int bq, float scale, int causal, int window,
-          float softcap, int k_off) {
+// under KB the keys are a block at k_off and dq is f32).  RANKS: 1 the
+// persistent grid (dq_kernel, Delta from `delta`), else one cluster of
+// RANKS an item (dq_split*_kernel; whole sequence, D up to 128): the
+// ranks split the item's key tiles, form Delta from the O rows of o_map,
+// rank 0 writes it to delta_out for the dK/dV pass, and dQ merges on chip.
+template <int DT, bool KB, int RANKS>
+__device__ __forceinline__ void dq_body(
+    const CUtensorMap* q_map, const CUtensorMap* g_map,
+    const CUtensorMap* k_map, const CUtensorMap* v_map,
+    const CUtensorMap* o_map, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ delta_out,
+    OutT<KB>* __restrict__ dq, int batch, int sq, int k_lim, int hq,
+    int hkv, int bq, float scale, int causal, int window, float softcap,
+    int k_off) {
   constexpr int D = padded(DT);
   using L = DqSmem<D>;
   constexpr int TK = kTkDq;
+  static_assert(RANKS == 1 || (!KB && Partial<D>::kBytes <=
+                                          2 * kDqStages * L::kTile),
+                "a split rank's partial fits its key stages");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = aligned_smem_base(smem_raw);
   const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
@@ -1175,32 +1588,44 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
   const int g_n = hq / hkv, hb = hkv * batch;
   const int n_blk = (sq + bq - 1) / bq, n_items = n_blk * hb;
   const int shift = KB ? k_off : 0;
+  const int rank = RANKS > 1 ? cluster_rank() : 0;
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     regs_dealloc<kProducerRegs>();
-    if (threadIdx.x != kConsumers * 128) return;
-    prefetch_map(&q_map);
-    prefetch_map(&g_map);
-    prefetch_map(&k_map);
-    prefetch_map(&v_map);
+    if (threadIdx.x != kConsumers * 128) {
+      if constexpr (RANKS > 1) {
+        cluster_sync();
+        cluster_sync();
+      }
+      return;
+    }
+    prefetch_map(q_map);
+    prefetch_map(g_map);
+    prefetch_map(k_map);
+    prefetch_map(v_map);
     int stage = 0;
     uint32_t phase = 0, q_phase = 0;
-    for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
+    for (int r = 0, it; (it = item_of<RANKS>(r, n_items)) < n_items; ++r) {
       const Item w = item_at(it, n_blk, hkv, hb, causal);
       const int c0 = w.blk * bq;
       int k_lo, k_hi, n_tiles;
       block_key_range<KB>(c0, shift, bq, k_lim, causal, window, TK, &k_lo,
                           &k_hi, &n_tiles);
-      if (KB && n_tiles == 0) continue;   // no key of the block: no loads
+      if constexpr (RANKS > 1) k_lo += rank_share<RANKS>(rank, &n_tiles) * TK;
+      // no key of the block (or of the rank's share): no loads
+      if ((KB || RANKS > 1) && n_tiles == 0) continue;
       mbar_wait(q_empty, q_phase ^ 1);
       q_phase ^= 1;
-      mbar_expect_tx(q_full, 2 * (D / 64) * g_n * bq * 128);
+      mbar_expect_tx(q_full, (RANKS > 1 ? 3 : 2) * (D / 64) * g_n * bq * 128);
 #pragma unroll
       for (int c = 0; c < D / 64; ++c) {
-        tma_load_4d(base + L::kQ + c * kRows * 128, &q_map, q_full, c * 64,
+        tma_load_4d(base + L::kQ + c * kRows * 128, q_map, q_full, c * 64,
                     w.h * g_n, c0, w.b);
-        tma_load_4d(base + L::kG + c * kRows * 128, &g_map, q_full, c * 64,
+        tma_load_4d(base + L::kG + c * kRows * 128, g_map, q_full, c * 64,
                     w.h * g_n, c0, w.b);
+        if constexpr (RANKS > 1)
+          tma_load_4d(base + DqSplitSmem<D>::kO + c * kRows * 128, o_map,
+                      q_full, c * 64, w.h * g_n, c0, w.b);
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int t0 = k_lo + i * TK;
@@ -1210,19 +1635,23 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(k_full + 8 * stage, L::kTile);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(kt + c * TK * 128, &k_map, k_full + 8 * stage, c * 64,
+          tma_load_4d(kt + c * TK * 128, k_map, k_full + 8 * stage, c * 64,
                       w.h, t0, w.b);
         mbar_wait(v_empty + 8 * stage, phase ^ 1);
         mbar_expect_tx(v_full + 8 * stage, L::kTile);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(vt + c * TK * 128, &v_map, v_full + 8 * stage, c * 64,
+          tma_load_4d(vt + c * TK * 128, v_map, v_full + 8 * stage, c * 64,
                       w.h, t0, w.b);
         if (++stage == kDqStages) {
           stage = 0;
           phase ^= 1;
         }
       }
+    }
+    if constexpr (RANKS > 1) {
+      cluster_sync();
+      cluster_sync();
     }
     return;
   }
@@ -1233,17 +1662,20 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
   const int r0 = wg * 64 + warp * 16 + (lane >> 2);
   int stage = 0;
   uint32_t phase = 0, q_phase = 0;
-  for (int r = 0, it; (it = item_index(r)) < n_items; ++r) {
+  for (int r = 0, it; (it = item_of<RANKS>(r, n_items)) < n_items; ++r) {
     const Item w = item_at(it, n_blk, hkv, hb, causal);
     const int c0 = w.blk * bq;
     int k_lo, k_hi, n_tiles;
     block_key_range<KB>(c0, shift, bq, k_lim, causal, window, TK, &k_lo,
                         &k_hi, &n_tiles);
+    if constexpr (RANKS > 1) k_lo += rank_share<RANKS>(rank, &n_tiles) * TK;
     const Rows rw = rows_of(r0, c0, g_n, bq, sq, shift);
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    if (!KB || n_tiles > 0) {   // else the rows saw no key: zeros below
+    // else the rows saw no key (of the block, or of the rank's share):
+    // zeros below, or nothing added in the ranks' merge
+    if ((!KB && RANKS == 1) || n_tiles > 0) {
       float lse2[2], dl[2];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -1251,12 +1683,25 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
             ((long long)w.b * hq + w.h * g_n + rw.r[hh] % g_n) * sq +
             rw.pos[hh] + shift;
         lse2[hh] = rw.live[hh] ? lse[li] * flash_mma::kLog2e : 0.f;
-        dl[hh] = rw.live[hh] ? delta[li] : 0.f;
+        if constexpr (RANKS == 1) dl[hh] = rw.live[hh] ? delta[li] : 0.f;
       }
       float s[TK / 2], dp[TK / 2];
       unsigned ds_prev[TK / 16][4];   // tile i - 1's dS, bf16
       mbar_wait(q_full, q_phase);
       q_phase ^= 1;
+      if constexpr (RANKS > 1) {
+        // Delta of the two rows from the dO and O tiles; rank 0 (which
+        // always holds a share) stores it for the dK/dV pass
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float x = row_dot<D>(base + L::kG, base + DqSplitSmem<D>::kO,
+                                     rw.r[hh], t4);
+          dl[hh] = rw.live[hh] ? x : 0.f;
+          if (rank == 0 && t4 == 0 && rw.live[hh])
+            delta_out[((long long)w.b * hq + w.h * g_n + rw.r[hh] % g_n) *
+                          sq + rw.pos[hh]] = x;
+        }
+      }
       // As in the forward: tile i's S and dP are issued together with tile
       // i - 1's dQ += dS K, and tile i's dS is formed while that product
       // runs; tile 0 goes first on its own.
@@ -1330,18 +1775,66 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
       if (lane == 0) mbar_arrive(k_empty + 8 * k_stage);
     }
 
+    if constexpr (RANKS > 1) {
+      // as the split forward's: partials over the key stages, then the
+      // merge through the cluster
+      bar_sync(kMergeBar, kConsumers * 128);
+      stage_partial<D, false>(base + L::kK, acc, rw, nullptr, nullptr, t4);
+      cluster_sync();
+      merge_dq<DT, RANKS>(base + L::kK, rank, dq, c0, g_n, bq, sq, hq, scale,
+                          w);
+      cluster_sync();   // no rank leaves while another reads its partial
+    } else {
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      if (!rw.live[hh]) continue;
-      const long long orow = ((long long)w.b * sq + rw.pos[hh] + shift) * hq +
-                             w.h * g_n + rw.r[hh] % g_n;
+      for (int hh = 0; hh < 2; ++hh) {
+        if (!rw.live[hh]) continue;
+        const long long orow = ((long long)w.b * sq + rw.pos[hh] + shift) * hq +
+                               w.h * g_n + rw.r[hh] % g_n;
 #pragma unroll
-      for (int nt = 0; nt < DT / 8; ++nt)
-        store2(dq + orow * DT + nt * 8 + 2 * t4, acc[4 * nt + 2 * hh] * scale,
-               acc[4 * nt + 2 * hh + 1] * scale);
+        for (int nt = 0; nt < DT / 8; ++nt)
+          store2(dq + orow * DT + nt * 8 + 2 * t4, acc[4 * nt + 2 * hh] * scale,
+                 acc[4 * nt + 2 * hh + 1] * scale);
+      }
     }
   }
 }
+
+template <int DT, bool KB>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap q_map,
+          const __grid_constant__ CUtensorMap g_map,
+          const __grid_constant__ CUtensorMap k_map,
+          const __grid_constant__ CUtensorMap v_map,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          OutT<KB>* __restrict__ dq, int batch, int sq, int k_lim, int hq,
+          int hkv, int bq, float scale, int causal, int window,
+          float softcap, int k_off) {
+  dq_body<DT, KB, 1>(&q_map, &g_map, &k_map, &v_map, nullptr, lse, delta,
+                     nullptr, dq, batch, sq, k_lim, hq, hkv, bq, scale,
+                     causal, window, softcap, k_off);
+}
+
+// The split dQ pass, clusters of R ranks: grid (R, items).
+#define REPRO_DQ_SPLIT(R)                                                   \
+  template <int DT>                                                         \
+  __global__ void __cluster_dims__(R, 1, 1) __launch_bounds__(kThreads, 1)  \
+  dq_split##R##_kernel(const __grid_constant__ CUtensorMap q_map,           \
+                       const __grid_constant__ CUtensorMap g_map,           \
+                       const __grid_constant__ CUtensorMap k_map,           \
+                       const __grid_constant__ CUtensorMap v_map,           \
+                       const __grid_constant__ CUtensorMap o_map,           \
+                       const float* __restrict__ lse,                       \
+                       float* __restrict__ delta, bf16* __restrict__ dq,    \
+                       int batch, int sq, int k_lim, int hq, int hkv,       \
+                       int bq, float scale, int causal, int window,         \
+                       float softcap) {                                     \
+    dq_body<DT, false, R>(&q_map, &g_map, &k_map, &v_map, &o_map, lse,      \
+                          nullptr, delta, dq, batch, sq, k_lim, hq, hkv, bq, \
+                          scale, causal, window, softcap, 0);               \
+  }
+REPRO_DQ_SPLIT(2)
+REPRO_DQ_SPLIT(4)
+#undef REPRO_DQ_SPLIT
 
 // ---------------------------------------------------------------------------
 // backward, pass 2: dK and dV
@@ -1639,18 +2132,60 @@ inline bool map_2d(CUtensorMap* map, const void* p, int rows, int cols,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The persistent grid: one CTA per SM, or one per item if fewer.
-inline int grid_size(long long n_items) {
+inline int sm_count() {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return (int)(n_items < sms ? n_items : (sms > 0 ? sms : 1));
+  return sms > 0 ? sms : 1;
+}
+
+// The persistent grid: one CTA per SM, or one per item if fewer.
+inline int grid_size(long long n_items) {
+  const int sms = sm_count();
+  return (int)(n_items < sms ? n_items : sms);
 }
 
 // The key bound of key_range (Sk, or causal the last query's position +
 // 1 less a key block's offset, at most Sk).
 inline int key_limit(int sq, int sk, int causal, int k_off) {
   return causal ? max(0, min(sq - k_off, sk)) : sk;
+}
+
+// The rank count of a whole-sequence call's split family: 1 where its
+// (block, kv head, batch) items fill the card's sms processors; else the
+// largest of kMaxRanks, .., 2 that keeps items x ranks within the
+// processors and leaves the longest item at least two of its key tiles
+// (tk keys each, as key_range counts them) a rank; else 1.
+// attention.split_ranks mirrors it for the CPU tests.
+inline int split_ranks(int batch, int sq, int sk, int hq, int hkv,
+                       int causal, int window, int tk, int sms) {
+  const int bq = kRows / (hq / hkv);
+  const int n_blk = (sq + bq - 1) / bq;
+  const long long n_items = (long long)n_blk * hkv * batch;
+  if (n_items >= sms) return 1;
+  const int k_lim = key_limit(sq, sk, causal, 0);
+  int tiles = 0;
+  for (int blk = 0; blk < n_blk; ++blk) {
+    int lo, hi, n;
+    key_range(blk * bq, bq, k_lim, causal, window, tk, &lo, &hi, &n);
+    tiles = max(tiles, n);
+  }
+  for (int r = kMaxRanks; r > 1; r /= 2)
+    if (n_items * r <= sms && tiles >= 2 * r) return r;
+  return 1;
+}
+
+// The forward's (tk 128) and the dQ pass's (tk 64) on this card.
+inline int fwd_ranks(int batch, int sq, int sk, int hq, int hkv, int causal,
+                     int window) {
+  return split_ranks(batch, sq, sk, hq, hkv, causal, window, kTkFwd,
+                     sm_count());
+}
+
+inline int bwd_ranks(int batch, int sq, int sk, int hq, int hkv, int causal,
+                     int window) {
+  return split_ranks(batch, sq, sk, hq, hkv, causal, window, kTkDq,
+                     sm_count());
 }
 
 // DT: the tensors' head_dim (64, 112, 128 or 256); the maps span its
@@ -1681,6 +2216,76 @@ int launch_fwd_d(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// The split forward (whole sequence, D 64, 112 or 128): one cluster of
+// RANKS an item.
+template <int DT, int RANKS, class K>
+int launch_fwd_split(K kernel, const void* q, const void* k, const void* v,
+                     void* o, float* lse, int batch, int sq, int sk, int hq,
+                     int hkv, float scale, int causal, int window,
+                     float softcap, cudaStream_t stream) {
+  static size_t opted_in = 48 * 1024;
+  const size_t smem = FwdSmem<padded(DT)>::kBytes;
+  const cudaError_t e = allow_smem(kernel, smem, &opted_in);
+  if (e != cudaSuccess) return (int)e;
+  const int g_n = hq / hkv, bq = kRows / g_n;
+  CUtensorMap qm, km, vm;
+  if (!map_bshd(&qm, q, batch, sq, hq, DT, g_n, bq) ||
+      !map_bshd(&km, k, batch, sk, hkv, DT, 1, kTkFwd) ||
+      !map_bshd(&vm, v, batch, sk, hkv, DT, 1, kTkFwd))
+    return (int)cudaErrorInvalidValue;
+  const int n_items = (sq + bq - 1) / bq * hkv * batch;
+  kernel<<<dim3(RANKS, n_items), kThreads, smem, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), lse, batch, sq,
+      key_limit(sq, sk, causal, 0), hq, hkv, bq, scale, causal, window,
+      softcap);
+  return (int)cudaGetLastError();
+}
+
+// The split forward at `ranks` (2, or 4 up to kMaxRanks); ranks 1 is the
+// caller's: launch_fwd_d.
+template <int DT>
+int launch_fwd_ranked(int ranks, const void* q, const void* k,
+                      const void* v, void* o, float* lse, int batch, int sq,
+                      int sk, int hq, int hkv, float scale, int causal,
+                      int window, float softcap, cudaStream_t stream) {
+  if (ranks == 2)
+    return launch_fwd_split<DT, 2>(fwd_split2_kernel<DT>, q, k, v, o, lse,
+                                   batch, sq, sk, hq, hkv, scale, causal,
+                                   window, softcap, stream);
+  if constexpr (kMaxRanks >= 4)
+    if (ranks == 4)
+      return launch_fwd_split<DT, 4>(fwd_split4_kernel<DT>, q, k, v, o, lse,
+                                     batch, sq, sk, hq, hkv, scale, causal,
+                                     window, softcap, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dK/dV pass, ceil(Sk / 128) key blocks, Delta (B, Hq, Sq) f32 in
+// `delta`.  KB: the keys are a block at k_off.
+template <int DT, bool KB>
+int launch_dkv(const void* q, const void* k, const void* v, const void* d_o,
+               const float* lse, const float* delta, void* dk, void* dv,
+               int batch, int sq, int sk, int hq, int hkv, float scale,
+               int causal, int window, float softcap, int k_off,
+               cudaStream_t stream) {
+  static size_t opted_dkv = 48 * 1024;
+  const size_t smem_dkv = DkvSmem<padded(DT)>::kBytes;
+  const cudaError_t e = allow_smem(dkv_kernel<DT, KB>, smem_dkv, &opted_dkv);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap qt, gt, kb, vb;
+  if (!map_bshd(&qt, q, batch, sq, hq, DT, 1, kTqDkv) ||
+      !map_bshd(&gt, d_o, batch, sq, hq, DT, 1, kTqDkv) ||
+      !map_bshd(&kb, k, batch, sk, hkv, DT, 1, kRows) ||
+      !map_bshd(&vb, v, batch, sk, hkv, DT, 1, kRows))
+    return (int)cudaErrorInvalidValue;
+  const long long n_k = (long long)((sk + kRows - 1) / kRows) * hkv * batch;
+  dkv_kernel<DT, KB><<<grid_size(n_k), kThreads, smem_dkv, stream>>>(
+      qt, gt, kb, vb, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), batch, sq, sk, hq, hkv, scale, causal, window,
+      softcap, k_off);
+  return (int)cudaGetLastError();
+}
+
 // The two passes, sq query positions against sk keys; Delta (B, Hq, Sq)
 // f32 is already in `delta`.  The dQ pass takes the forward's key bound
 // (key_limit), the dK/dV pass ceil(Sk / 128) key blocks.  KB: the keys
@@ -1692,11 +2297,9 @@ int launch_bwd_d(const void* q, const void* k, const void* v,
                  int hq, int hkv, float scale, int causal, int window,
                  float softcap, int k_off, cudaStream_t stream) {
   constexpr int D = padded(DT);
-  static size_t opted_dq = 48 * 1024, opted_dkv = 48 * 1024;
-  const size_t smem_dq = DqSmem<D>::kBytes, smem_dkv = DkvSmem<D>::kBytes;
-  cudaError_t e = allow_smem(dq_kernel<DT, KB>, smem_dq, &opted_dq);
-  if (e != cudaSuccess) return (int)e;
-  e = allow_smem(dkv_kernel<DT, KB>, smem_dkv, &opted_dkv);
+  static size_t opted_dq = 48 * 1024;
+  const size_t smem_dq = DqSmem<D>::kBytes;
+  const cudaError_t e = allow_smem(dq_kernel<DT, KB>, smem_dq, &opted_dq);
   if (e != cudaSuccess) return (int)e;
   const int g_n = hq / hkv, bq = kRows / g_n;
   CUtensorMap qm, gm, km, vm;
@@ -1711,20 +2314,68 @@ int launch_bwd_d(const void* q, const void* k, const void* v,
       qm, gm, km, vm, lse, delta, static_cast<OutT<KB>*>(dq), batch, sq,
       key_limit(sq, sk, causal, k_off), hq, hkv, bq, scale, causal, window,
       softcap, k_off);
-  e = cudaGetLastError();
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_dkv<DT, KB>(q, k, v, d_o, lse, delta, dk, dv, batch, sq, sk,
+                            hq, hkv, scale, causal, window, softcap, k_off,
+                            stream);
+}
+
+// The split backward (whole sequence, D 64, 112 or 128): the dQ pass in
+// clusters of RANKS, which also forms Delta into `delta`, then the dK/dV
+// pass; two launches.
+template <int DT, int RANKS, class K>
+int launch_bwd_split(K kernel, const void* q, const void* k, const void* v,
+                     const void* o, const void* d_o, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv, int batch,
+                     int sq, int sk, int hq, int hkv, float scale, int causal,
+                     int window, float softcap, cudaStream_t stream) {
+  constexpr int D = padded(DT);
+  static size_t opted_dq = 48 * 1024;
+  const size_t smem_dq = DqSplitSmem<D>::kBytes;
+  const cudaError_t e = allow_smem(kernel, smem_dq, &opted_dq);
   if (e != cudaSuccess) return (int)e;
-  CUtensorMap qt, gt, kb, vb;
-  if (!map_bshd(&qt, q, batch, sq, hq, DT, 1, kTqDkv) ||
-      !map_bshd(&gt, d_o, batch, sq, hq, DT, 1, kTqDkv) ||
-      !map_bshd(&kb, k, batch, sk, hkv, DT, 1, kRows) ||
-      !map_bshd(&vb, v, batch, sk, hkv, DT, 1, kRows))
+  const int g_n = hq / hkv, bq = kRows / g_n;
+  CUtensorMap qm, gm, km, vm, om;
+  if (!map_bshd(&qm, q, batch, sq, hq, DT, g_n, bq) ||
+      !map_bshd(&gm, d_o, batch, sq, hq, DT, g_n, bq) ||
+      !map_bshd(&om, o, batch, sq, hq, DT, g_n, bq) ||
+      !map_bshd(&km, k, batch, sk, hkv, DT, 1, kTkDq) ||
+      !map_bshd(&vm, v, batch, sk, hkv, DT, 1, kTkDq))
     return (int)cudaErrorInvalidValue;
-  const long long n_k = (long long)((sk + kRows - 1) / kRows) * hkv * batch;
-  dkv_kernel<DT, KB><<<grid_size(n_k), kThreads, smem_dkv, stream>>>(
-      qt, gt, kb, vb, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), batch, sq, sk, hq, hkv, scale, causal, window,
-      softcap, k_off);
-  return (int)cudaGetLastError();
+  const int n_q = (sq + bq - 1) / bq * hkv * batch;
+  kernel<<<dim3(RANKS, n_q), kThreads, smem_dq, stream>>>(
+      qm, gm, km, vm, om, lse, delta, static_cast<bf16*>(dq), batch, sq,
+      key_limit(sq, sk, causal, 0), hq, hkv, bq, scale, causal, window,
+      softcap);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_dkv<DT, false>(q, k, v, d_o, lse, delta, dk, dv, batch, sq,
+                               sk, hq, hkv, scale, causal, window, softcap, 0,
+                               stream);
+}
+
+// The split backward at `ranks` (2, or 4 up to kMaxRanks); ranks 1 is the
+// caller's: Delta, then launch_bwd_d.
+template <int DT>
+int launch_bwd_ranked(int ranks, const void* q, const void* k, const void* v,
+                      const void* o, const void* d_o, const float* lse,
+                      float* delta, void* dq, void* dk, void* dv, int batch,
+                      int sq, int sk, int hq, int hkv, float scale,
+                      int causal, int window, float softcap,
+                      cudaStream_t stream) {
+  if (ranks == 2)
+    return launch_bwd_split<DT, 2>(dq_split2_kernel<DT>, q, k, v, o, d_o,
+                                   lse, delta, dq, dk, dv, batch, sq, sk, hq,
+                                   hkv, scale, causal, window, softcap,
+                                   stream);
+  if constexpr (kMaxRanks >= 4)
+    if (ranks == 4)
+      return launch_bwd_split<DT, 4>(dq_split4_kernel<DT>, q, k, v, o, d_o,
+                                     lse, delta, dq, dk, dv, batch, sq, sk,
+                                     hq, hkv, scale, causal, window, softcap,
+                                     stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace flash_wgmma

@@ -18,12 +18,17 @@ against that bound: bf16 at D 64, 112 (padded to 128 in shared memory),
 warp and a persistent grid (``csrc/flash_wgmma.cuh``; at D 256, gemma2-2b's
 width, with tiles of its own, and a backward whose work is divided anew,
 ``csrc/flash_wgmma256.cuh``); float32 and other widths run on the CUDA
-cores.  Each K/V tile is shared by the G query heads of its kv head, and
-only the tiles the causal and window masks leave are walked (each source's
-header says more).  Besides ``launches``, each of the two wrappers counts
-its launches by kernel family in ``variants`` (``"wgmma"`` or
+cores.  Where a whole-sequence call's (query block, kv head, batch) items
+fill few of the card's processors (seamless-m4t-medium's cross-attention),
+bf16 at D 64, 112 and 128 takes the split family instead: one cluster of
+2 CTAs an item, its ranks walking shares of the item's key tiles and
+merging on chip, the backward in two launches (``split_ranks``).  Each
+K/V tile is shared by the G query heads of its kv head, and only the
+tiles the causal and window masks leave are walked (each source's header
+says more).  Besides ``launches``, each of the two wrappers counts its
+calls by kernel family in ``variants`` (``"wgmma"``, ``"cluster"`` or
 ``"cuda_cores"``), as the library reports the family it takes for the
-dtype and D.
+dtype, D and shape.
 
 Sequence-parallel attention (``repro``'s cut of the key sequence, where
 the model axis divides neither head count): ``flash_attention_block`` and
@@ -150,8 +155,9 @@ PREFILL_VARIANTS = ("cuda_cores", "mma_sync")
 # of CTAs per slot and kv head)
 DECODE_VARIANTS = ("cuda_cores", "mma_sync")
 # The kernel families of the dense flash libraries and of the latent pair,
-# by the number their ``<lib>_variant`` returns.
-FLASH_VARIANTS = ("cuda_cores", "mma_sync", "wgmma")
+# by the number their ``<lib>_variant`` returns ("cluster": the flash
+# pair's split family, whose clusters split each item's key range).
+FLASH_VARIANTS = ("cuda_cores", "mma_sync", "wgmma", "cluster")
 # The verify entries': the split families of the prefill kernels, and the
 # one-launch clusters (paged_latent_verify_variant numbers them so)
 VERIFY_VARIANTS = ("cuda_cores", "mma_sync", "cluster")
@@ -665,9 +671,63 @@ paged_latent_verify.variants = collections.Counter()
 
 
 
-def _flash_variant(lib: str, dtype: torch.dtype, d: int) -> str:
-    return FLASH_VARIANTS[_fn(lib, f"{lib}_variant", (_I, _I))(
-        _DTYPES[dtype], d)]
+def _flash_variant(lib: str, dtype: torch.dtype, d: int,
+                   ranks: int = 1) -> str:
+    """The family a flash call at this dtype, D and rank count launches
+    (``ranks`` from ``_flash_ranks``; 1 for the key-block entries)."""
+    return FLASH_VARIANTS[_fn(lib, f"{lib}_variant", (_I, _I, _I))(
+        _DTYPES[dtype], d, ranks)]
+
+
+def _flash_ranks(lib: str, dtype: torch.dtype, b: int, sq: int, sk: int,
+                 hq: int, hkv: int, d: int, causal: bool, window: int) -> int:
+    """The rank count the library splits a whole-sequence call's key
+    ranges over on this card (``<lib>_ranks``; ``split_ranks`` mirrors
+    it): 1 unless bf16 at D 64, 112 or 128 whose items fill few of the
+    card's processors."""
+    return _fn(lib, f"{lib}_ranks", (_I,) * 9)(
+        _DTYPES[dtype], d, b, sq, sk, hq, hkv, int(bool(causal)), window)
+
+
+# The cluster sizes of the split family (csrc/flash_wgmma.cuh's
+# fwd_split*_kernel and dq_split*_kernel, up to its kMaxRanks), largest
+# first
+SPLIT_RANKS = (2,)
+# keys a tile of the forward and of the dQ pass at D 64, 112 and 128
+SPLIT_TILE_KEYS = {"flash_fwd": 128, "flash_bwd": 64}
+
+
+def split_ranks(lib: str, b: int, sq: int, sk: int, hq: int, hkv: int,
+                d: int, dtype: torch.dtype, *, causal: bool,
+                window: int | None = None, sms: int = 132) -> int:
+    """The rank count ``csrc/flash_wgmma.cuh``'s ``split_ranks`` gives a
+    whole-sequence call of ``lib`` ("flash_fwd", or "flash_bwd" for its dQ
+    pass) on a card of ``sms`` processors, computed as it computes it: 1
+    unless bf16 at D 64, 112 or 128 with fewer (query block, kv head,
+    batch) items than processors; then the largest of SPLIT_RANKS with
+    items x ranks <= sms whose ranks keep at least two of the longest
+    item's key tiles each (``key_range``'s count of ``SPLIT_TILE_KEYS``-key
+    tiles), else 1."""
+    if dtype != torch.bfloat16 or d not in (64, 112, 128):
+        return 1
+    w = _window(window)
+    bq = 128 // (hq // hkv)
+    n_blk = -(-sq // bq)
+    items = n_blk * hkv * b
+    if items >= sms:
+        return 1
+    tk = SPLIT_TILE_KEYS[lib]
+    k_lim = max(0, min(sq, sk)) if causal else sk
+    tiles = 0
+    for blk in range(n_blk):
+        c0 = blk * bq
+        lo = max(0, c0 - w + 1)
+        hi = min(c0 + bq, k_lim) if causal else k_lim
+        tiles = max(tiles, -(-(hi - lo) // tk))
+    for r in SPLIT_RANKS:
+        if items * r <= sms and tiles >= 2 * r:
+            return r
+    return 1
 
 
 def _check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -717,14 +777,19 @@ def _check_window(window: int | None, sq: int, sk: int) -> int:
 
 
 def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool, window: int | None, logit_cap: float | None
+               causal: bool, window: int | None, logit_cap: float | None,
+               ranks: int | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel (``csrc/flash_fwd.cu``): q (B, Sq, Hq, D)
     against k, v (B, Sk, Hkv, D), positions from 0 on both sides ->
     (O (B, Sq, Hq, D) in q's dtype, row log-sum-exp (B, Hq, Sq) f32).
     Refuses a window that leaves the last query row no key (Sq - window
-    >= Sk), where the kernel's rows would have nothing to weigh.  Counts on
-    ``flash_attention.launches``."""
+    >= Sk), where the kernel's rows would have nothing to weigh.  The
+    library splits the key ranges over the ranks ``_flash_ranks`` names
+    (variant ``"cluster"`` where they are more than 1); ``ranks`` fixes
+    the count instead (1 the unsplit family, 2 the split one, which
+    takes bf16 at D 64, 112 and 128; ``flash_fwd_split``), for checks
+    and benches.  Counts on ``flash_attention.launches``."""
     lib = "flash_fwd"
     b, sq, sk, hq, hkv, d = _check_dense(q, k, v, lib)
     w = _check_window(window, sq, sk)
@@ -735,8 +800,14 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 b, sq, sk, hq, hkv, d, q.element_size(), causal=causal,
                 window=window)):
         return out, lse
-    fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                        _I, _I, _F, _P))
+    args = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _F,
+            _P)
+    if ranks is None:
+        fn = _fn(lib, lib, args)
+        r = _flash_ranks(lib, q.dtype, b, sq, sk, hq, hkv, d, causal, w)
+    else:
+        fn = functools.partial(_fn(lib, f"{lib}_split", (_I, *args)), ranks)
+        r = ranks
     with torch.cuda.device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), lse.data_ptr(), b, sq, sk, hq, hkv, d,
@@ -746,7 +817,7 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     flash_attention.launches += 1
-    flash_attention.variants[_flash_variant(lib, q.dtype, d)] += 1
+    flash_attention.variants[_flash_variant(lib, q.dtype, d, r)] += 1
     if sq != sk:
         flash_attention.cross_launches += 1
     return out, lse
@@ -756,7 +827,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         d_o: torch.Tensor, *, causal: bool = True,
                         window: int | None = None,
-                        logit_cap: float | None = None
+                        logit_cap: float | None = None,
+                        ranks: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradient of dense flash attention (``csrc/flash_bwd.cu``).
 
@@ -764,10 +836,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from 0 on both sides as in the forward; lse (B, Hq, Sq) f32 from the
     forward kernel.  Returns (dq, dk, dv) in q's dtype and layouts; a key
     that no query sees gets zero dk and dv.  Refuses what ``_flash_fwd``
-    refuses.  Counts its launches in ``launches``, by kernel family in
-    ``variants``, and those with Sq != Sk in ``cross_launches``.  On the CPU
-    it takes the plain gradient (``ref.attention_ref_grad``), which needs
-    neither o nor lse."""
+    refuses.  The library splits the dQ pass over the ranks
+    ``_flash_ranks`` names (variant ``"cluster"``: two launches, Delta
+    formed in the dQ pass; else three); ``ranks`` fixes the count, as in
+    ``_flash_fwd`` (``flash_bwd_split``).  Either way the one scratch is
+    the (B, Hq, Sq) f32 Delta.  Counts its calls in ``launches``, by kernel
+    family in ``variants``, and those with Sq != Sk in ``cross_launches``.
+    On the CPU it takes the plain gradient (``ref.attention_ref_grad``),
+    which needs neither o nor lse."""
     if not q.is_cuda and not _work.is_fake(q):
         from repro_torch.kernels.attention import ref
         grads = ref.attention_ref_grad(
@@ -796,8 +872,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 b, sq, sk, hq, hkv, d, q.element_size(), causal=causal,
                 window=window)):
         return dq, dk, dv
-    fn = _fn(lib, lib, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                        _I, _I, _I, _I, _F, _I, _I, _F, _P))
+    args = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+            _I, _F, _I, _I, _F, _P)
+    if ranks is None:
+        fn = _fn(lib, lib, args)
+        r = _flash_ranks(lib, q.dtype, b, sq, sk, hq, hkv, d, causal, w)
+    else:
+        fn = functools.partial(_fn(lib, f"{lib}_split", (_I, *args)), ranks)
+        r = ranks
     with torch.cuda.device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
@@ -808,7 +890,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.variants[_flash_variant(lib, q.dtype, d)] += 1
+    flash_attention_bwd.variants[_flash_variant(lib, q.dtype, d, r)] += 1
     if sq != sk:
         flash_attention_bwd.cross_launches += 1
     return dq, dk, dv

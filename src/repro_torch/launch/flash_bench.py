@@ -2,6 +2,7 @@
 time and profile them, for iterating on ``csrc/flash_wgmma.cuh``.
 
   PYTHONPATH=src python -m repro_torch.launch.flash_bench [--seed N]
+      [--ablate]
 
 1. The balance of the wgmma kernels' persistent grid at the training shape
    (no card needed): for each pass, the busiest CTA's work over the mean,
@@ -25,6 +26,24 @@ time and profile them, for iterating on ``csrc/flash_wgmma.cuh``.
    kernel's device time per call from ``torch.profiler``; then the key
    block of rank 0 at gemma2-2b's train_4k cut (256 keys at offset 0 of
    S 4096, softcap 50) at B 1 and B 16, both entries.
+5. The split family (rows 5x, 5bx, 5t, 5bt): seamless-m4t-medium's
+   cross-attention (B 2, Hq = Hkv = 16, Sq 256 against Sk 1024, D 64, no
+   mask), its decoder self-attention (S 256, causal) and the cross shape
+   of its 32-token teacher-forced forward (Sq 32), each call at the
+   rank count the library picks and at 1 and 2 ranks
+   (``flash_fwd_split``, ``flash_bwd_split``) from CUDA graphs, each
+   launch of the backward timed alone by ``torch.profiler``.
+6. With ``--ablate``: copies of the two flash libraries built into
+   ``build/flash_bench/`` and called through their split entries: one
+   with clusters of 4 (``FLASH_MAX_RANKS`` 4), at each split shape
+   against the unchanged copy at 2 ranks (O and dQ within FLASH_TOL of
+   it); and one for each of ``csrc/flash_wgmma.cuh``'s ablation macros
+   (a part taken out), at the cross shape at 2 ranks: the walk without
+   products (every wgmma product skipped), without loads (no TMA load;
+   the barriers complete by a plain arrival), without the ranks' merge
+   (partials staged, the cluster's barriers kept, nothing read or
+   stored) and without the walk (every rank's share of the key tiles
+   empty).  The ablated copies compute garbage and are not checked.
 
 Exits 1 if a check fails, 2 without a card.  ``chip_smoke.py`` holds the
 kernels to the same bounds at more shapes and times them beside SDPA.
@@ -32,7 +51,9 @@ kernels to the same bounds at more shapes and times them beside SDPA.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import subprocess
 import sys
 
 import torch
@@ -282,9 +303,192 @@ def time_key_block(gen: torch.Generator, b: int) -> None:
           f"backward {tb:.4f} ms")
 
 
+# The split family's shapes: (B, Hq, Hkv, Sq, Sk, D, causal)
+SPLIT_SHAPES = {"cross": (2, 16, 16, 256, 1024, 64, False),
+                "decoder_self": (2, 16, 16, 256, 256, 64, True),
+                "cross_32": (2, 16, 16, 32, 1024, 64, False)}
+# The macros of csrc/flash_wgmma.cuh's ablated copies ("kernel": none)
+ABLATIONS = {"no_products": "FLASH_ABLATE_NO_PRODUCTS",
+             "no_loads": "FLASH_ABLATE_NO_LOADS",
+             "no_merge": "FLASH_ABLATE_NO_MERGE",
+             "no_walk": "FLASH_ABLATE_NO_WALK"}
+
+
+def _graph_ms(fn, n: int = 100) -> float:
+    """ms a call over a CUDA graph of n calls (after warm-up)."""
+    for _ in range(3):
+        fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    return _events_ms(graph.replay, 5) / n
+
+
+def _split_inputs(gen: torch.Generator, shape):
+    from repro_torch.kernels.attention import attention as K
+
+    b, hq, hkv, sq, sk, d, causal = shape
+    q, d_o = (torch.randn(b, sq, hq, d, generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, sk, hkv, d, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = K._flash_fwd(q, k, v, causal=causal, window=None,
+                          logit_cap=None)
+    return q, k, v, o, lse, d_o
+
+
+def time_split(gen: torch.Generator) -> None:
+    """Rows 5x, 5bx, 5t and 5bt (and the 32-token cross) at the chooser's
+    rank count and at 1 and 2 ranks, two turns each, and the backward's
+    launches alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.attention import attention as K
+
+    for tag, shape in SPLIT_SHAPES.items():
+        b, hq, hkv, sq, sk, d, causal = shape
+        q, k, v, o, lse, d_o = _split_inputs(gen, shape)
+        chosen = [K._flash_ranks(lib, torch.bfloat16, b, sq, sk, hq, hkv, d,
+                                 causal, 2 ** 31 - 1)
+                  for lib in ("flash_fwd", "flash_bwd")]
+        times = {}
+        for turn in range(2):
+            for r in (None, 1, *K.SPLIT_RANKS):
+                times.setdefault(r, []).append((
+                    _graph_ms(lambda: K._flash_fwd(
+                        q, k, v, causal=causal, window=None, logit_cap=None,
+                        ranks=r)),
+                    _graph_ms(lambda: K.flash_attention_bwd(
+                        q, k, v, o, lse, d_o, causal=causal, ranks=r))))
+        for r, t in times.items():
+            print(f"[split] {tag} {shape} ranks "
+                  f"{'chosen ' + str(chosen) if r is None else r}: forward "
+                  f"{' '.join(f'{x[0]:.4f}' for x in t)} ms, backward "
+                  f"{' '.join(f'{x[1]:.4f}' for x in t)} ms")
+        for r in (1, 2):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    K.flash_attention_bwd(q, k, v, o, lse, d_o,
+                                          causal=causal, ranks=r)
+                torch.cuda.synchronize()
+            per: dict[str, float] = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    name = kernel_name(e.name)
+                    per[name] = per.get(name, 0.0) + \
+                        e.device_time_total / 1e3 / 20
+            print(f"[split] {tag} backward at ranks {r}, each launch: "
+                  + ", ".join(f"{n} {ms:.4f} ms" for n, ms in per.items()))
+
+
+def ablate(gen: torch.Generator) -> bool:
+    """Copies of the two flash libraries: clusters of 4 (FLASH_MAX_RANKS
+    4) at each split shape against the kernel at 2 ranks, checked against
+    it within FLASH_TOL; the ablated copies (ABLATIONS) beside the kernel
+    at the cross shape at 2 ranks.  Two turns each."""
+    from repro_torch.kernels import build
+
+    out = build.BUILD_DIR.parent / "flash_bench"
+    out.mkdir(parents=True, exist_ok=True)
+    copies = {"kernel": [], "ranks4": ["-DFLASH_MAX_RANKS=4"],
+              **{n: [f"-D{m}"] for n, m in ABLATIONS.items()}}
+    procs = []
+    for name, defs in copies.items():
+        defs = defs + [f"-D{ns}={name}_{ns}" for ns in (
+            "paged", "flash_mma", "flash_wgmma")]
+        for lib in ("flash_fwd", "flash_bwd"):
+            procs.append((name, lib, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, *defs, f"-I{build.CSRC}",
+                 "-o", str(out / f"lib{lib}_{name}.so"),
+                 str(build.CSRC / f"{lib}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fns = {}
+    for name, lib, proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"copy {name} did not build:\n{text}")
+        fn = getattr(ctypes.CDLL(str(out / f"lib{lib}_{name}.so")),
+                     f"{lib}_split")
+        fn.argtypes = ([I, I, P, P, P, P, P, I, I, I, I, I, I, F, I, I, F, P]
+                       if lib == "flash_fwd" else
+                       [I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                        F, I, I, F, P])
+        fn.restype = I
+        fns[name, lib] = fn
+
+    def runner(shape):
+        """call(name, lib, ranks) on the shape's inputs, into outputs of
+        its own; returns (call, the outputs, the forward's o and dq)."""
+        b, hq, hkv, sq, sk, d, causal = shape
+        q, k, v, o, lse, d_o = _split_inputs(gen, shape)
+        o2, lse2, delta = (torch.empty_like(o), torch.empty_like(lse),
+                           torch.empty_like(lse))
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        scale, w = d ** -0.5, 2 ** 31 - 1
+
+        def call(name, lib, ranks):
+            st = torch.cuda.current_stream().cuda_stream
+            if lib == "flash_fwd":
+                err = fns[name, lib](ranks, 1, q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr(), o2.data_ptr(),
+                                     lse2.data_ptr(), b, sq, sk, hq, hkv, d,
+                                     scale, int(causal), w, 0.0, st)
+            else:
+                err = fns[name, lib](ranks, 1, q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr(), o.data_ptr(),
+                                     d_o.data_ptr(), lse.data_ptr(),
+                                     delta.data_ptr(),
+                                     *(g.data_ptr() for g in grads), b, sq,
+                                     sk, hq, hkv, d, scale, int(causal), w,
+                                     0.0, st)
+            if err:
+                raise RuntimeError(f"copy {name} {lib}: CUDA error {err}")
+        return call, o2, grads[0]
+
+    def turns(call, runs):
+        """{label: [ms of two turns]}, the runs in order, then reversed."""
+        got: dict[str, list[float]] = {}
+        for turn in range(2):
+            for label, args in (runs if turn == 0 else reversed(runs)):
+                got.setdefault(label, []).append(
+                    _graph_ms(lambda: call(*args)))
+        return ", ".join(f"{n} {' '.join(f'{t:.4f}' for t in ts)} ms"
+                         for n, ts in got.items())
+
+    ok = True
+    for tag, shape in SPLIT_SHAPES.items():
+        call, o_out, dq_out = runner(shape)
+        want = []
+        for name, r in (("kernel", 2), ("ranks4", 4)):
+            call(name, "flash_fwd", r)
+            call(name, "flash_bwd", r)
+            want.append((o_out.clone(), dq_out.clone()))
+        err = max(_rel(want[1][0], want[0][0]),
+                  _own_rel(want[1][1], want[0][1]))
+        ok &= err <= FLASH_TOL
+        for lib in ("flash_fwd", "flash_bwd"):
+            print(f"[ranks4] {tag} {shape} {lib}: " + turns(call, [
+                ("2 ranks", ("kernel", lib, 2)),
+                ("4 ranks", ("ranks4", lib, 4))])
+                + f"; O and dQ at 4 ranks against 2: {err:.2e}")
+    call, _, _ = runner(SPLIT_SHAPES["cross"])
+    for lib in ("flash_fwd", "flash_bwd"):
+        print(f"[ablate] {lib} at the cross shape, 2 ranks: " + turns(
+            call, [(n, (n, lib, 2)) for n in ("kernel", *ABLATIONS)]))
+    return ok
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ablate", action="store_true",
+                    help="also build and time the ablated copies")
     args = ap.parse_args(argv)
     for name, ratio in balance().items():
         print(f"[balance] {name}: busiest CTA over the mean, stride "
@@ -305,6 +509,9 @@ def main(argv: list[str] | None = None) -> int:
         time_training_shape(gen, hq=8, hkv=4, d=256, logit_cap=cap)
     for b in (1, 16):
         time_key_block(gen, b)
+    time_split(gen)
+    if args.ablate:
+        ok &= ablate(gen)
     return 0 if ok else 1
 
 

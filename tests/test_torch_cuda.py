@@ -794,15 +794,17 @@ OWN_KEY_LENGTH = [(256, 1024, 64, False), (1024, 256, 64, False),
 @pytest.mark.parametrize("sq,sk,d,causal", OWN_KEY_LENGTH)
 def test_flash_forward_at_its_own_key_length_matches_plain(cuda, dtype, tol,
                                                            sq, sk, d, causal):
-    """Every forward family (bf16 wgmma at D 64, 112 and 128, mma.sync at
-    256, the CUDA cores at 16 and in float32) with Sq != Sk, ragged on
-    both sides, causal or not: within the plain version's bound, one launch
-    of the variant the library names, bitwise the same over two calls."""
+    """Every forward family (bf16 wgmma at D 64, 112 and 128, or its split
+    family where B 2 x Hkv 4 fills few processors, mma.sync at 256, the
+    CUDA cores at 16 and in float32) with Sq != Sk, ragged on both sides,
+    causal or not: within the plain version's bound, one launch of the
+    variant the library names, bitwise the same over two calls."""
     gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
     b, hkv, g = 2, 4, 2
     q = _rand(gen, b, sq, hkv * g, d, dtype=dtype)
     k, v = (_rand(gen, b, sk, hkv, d, dtype=dtype) for _ in range(2))
-    name = K._flash_variant("flash_fwd", dtype, d)
+    name = K._flash_variant("flash_fwd", dtype, d, K._flash_ranks(
+        "flash_fwd", dtype, b, sq, sk, hkv * g, hkv, d, causal, 2 ** 31 - 1))
     before = K.flash_attention.variants[name]
     with torch.no_grad():
         o = K.flash_attention(q, k, v, causal=causal)
@@ -820,7 +822,9 @@ def test_flash_forward_at_its_own_key_length_matches_plain(cuda, dtype, tol,
 BWD_OWN_KEY_LENGTH = [(256, 1024, False, None), (1024, 256, False, None),
                       (300, 1000, True, None), (77, 300, True, 40),
                       (300, 77, False, 260)]
-# (dtype, D, the family the library names): both backward families
+# (dtype, D, the family the library names at one rank): both backward
+# families; bf16 at D 64, 112 and 128 takes the split family ``cluster``
+# where the library splits the shape
 BWD_OWN_KEY_FAMILIES = [(torch.bfloat16, 64, "wgmma"),
                         (torch.bfloat16, 128, "wgmma"),
                         (torch.bfloat16, 112, "wgmma"),
@@ -847,6 +851,11 @@ def test_flash_backward_at_its_own_key_length_matches_plain(
     k, v = (_rand(gen, b, sk, hkv, d, dtype=dtype) for _ in range(2))
     kw = {"causal": causal, "window": window}
     assert K._flash_variant("flash_bwd", dtype, d) == family
+    ranks = K._flash_ranks("flash_bwd", dtype, b, sq, sk, hkv * g, hkv, d,
+                           causal, window or 2 ** 31 - 1)
+    if ranks > 1:
+        assert family == "wgmma"
+        family = "cluster"
     n0 = (K.flash_attention_bwd.launches, K.flash_attention_bwd.cross_launches,
           K.flash_attention_bwd.variants[family])
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -876,6 +885,141 @@ def test_flash_backward_at_its_own_key_length_matches_plain(
     assert bool(unseen.any()) == (causal and sq < sk)
     for grad in grads[1:]:
         assert not grad[:, unseen].any()
+
+
+# seamless-m4t-medium's cross-attention (B 2, Hq = Hkv = 16, Sq 256 against
+# Sk 1024, D 64, no mask) and its decoder self-attention (S 256, causal)
+SEAMLESS_CROSS = (2, 16, 16, 256, 1024, 64, False)
+SEAMLESS_SELF = (2, 16, 16, 256, 256, 64, True)
+
+
+def _kernel_launches(fn):
+    """(what fn returns, the CUDA kernels it launched by name) from
+    ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "flash" in e.name
+             or e.device_type == DeviceType.CUDA and "delta" in e.name]
+    return out, names
+
+
+def test_split_family_takes_seamless_cross_attention(cuda):
+    """bf16 at seamless's cross shape runs the split family (variant
+    ``cluster``, the chooser's count equal to ``split_ranks``'s on this
+    card): the forward is one launch, the backward two (no Delta launch),
+    neither allocates more than its outputs and the backward's (B, Hq, Sq)
+    f32 Delta, both are bitwise the same over two calls and within
+    FLASH_TOL of the plain versions; the training shape keeps ``wgmma``."""
+    b, hq, hkv, sq, sk, d, causal = SEAMLESS_CROSS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for lib in ("flash_fwd", "flash_bwd"):
+        r = K._flash_ranks(lib, torch.bfloat16, b, sq, sk, hq, hkv, d, causal,
+                           2 ** 31 - 1)
+        assert r == K.split_ranks(lib, b, sq, sk, hq, hkv, d, torch.bfloat16,
+                                  causal=causal, sms=sms) > 1
+        assert K._flash_variant(lib, torch.bfloat16, d, r) == "cluster"
+        assert K._flash_ranks(lib, torch.bfloat16, 2, 4096, 4096, 16, 8, 128,
+                              True, 2 ** 31 - 1) == 1
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    q, d_o = (_rand(gen, b, sq, hq, d, dtype=torch.bfloat16)
+              for _ in range(2))
+    k, v = (_rand(gen, b, sk, hkv, d, dtype=torch.bfloat16) for _ in range(2))
+    n0 = (K.flash_attention.variants["cluster"],
+          K.flash_attention_bwd.variants["cluster"])
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (o, lse), fwd_names = _kernel_launches(lambda: K._flash_fwd(
+        q, k, v, causal=causal, window=None, logit_cap=None))
+    assert torch.cuda.max_memory_allocated() - base <= \
+        o.numel() * 2 + lse.numel() * 4 + 4096
+    assert len(fwd_names) == 1 and "fwd_split" in fwd_names[0], fwd_names
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads, bwd_names = _kernel_launches(lambda: K.flash_attention_bwd(
+        q, k, v, o, lse, d_o, causal=causal))
+    assert torch.cuda.max_memory_allocated() - base <= \
+        sum(t.numel() * 2 for t in grads) + lse.numel() * 4 + 4096
+    assert len(bwd_names) == 2 and "dq_split" in bwd_names[0], bwd_names
+    assert (K.flash_attention.variants["cluster"],
+            K.flash_attention_bwd.variants["cluster"]) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    o2, lse2 = K._flash_fwd(q, k, v, causal=causal, window=None,
+                            logit_cap=None)
+    again = K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    assert _rel(o, ref.attention_ref(*tr[:3], causal=causal)
+                .transpose(1, 2)) <= 2e-2
+    for got, w in zip(grads, ref.attention_ref_grad(*tr, causal=causal)):
+        assert _own_rel(got, w.transpose(1, 2)) <= 2e-2
+
+
+@pytest.mark.parametrize("shape", [SEAMLESS_CROSS, SEAMLESS_SELF],
+                         ids=["cross", "decoder_self"])
+def test_split_family_through_the_autograd_function(cuda, shape):
+    """``FlashAttention`` at seamless's cross and decoder-self shapes runs
+    the split family where the library splits (the cross pair, the decoder
+    self-attention's backward) and its gradient is within FLASH_TOL of
+    ``ref.attention_ref_grad``, each of dq, dk, dv of its own max; at
+    each of the library's cluster sizes (``SPLIT_RANKS``) the pair is
+    bitwise the same over two calls."""
+    b, hq, hkv, sq, sk, d, causal = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q, d_o = (_rand(gen, b, sq, hq, d, dtype=torch.bfloat16)
+              for _ in range(2))
+    k, v = (_rand(gen, b, sk, hkv, d, dtype=torch.bfloat16) for _ in range(2))
+    ranks = [K._flash_ranks(lib, torch.bfloat16, b, sq, sk, hq, hkv, d,
+                            causal, 2 ** 31 - 1)
+             for lib in ("flash_fwd", "flash_bwd")]
+    assert ranks == ([2, 2] if sq != sk else [1, 2])
+    n0 = K.flash_attention_bwd.variants["cluster"]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = K.flash_attention(*leaves, causal=causal)
+    grads = torch.autograd.grad(o, leaves, d_o)
+    torch.cuda.synchronize()
+    assert K.flash_attention_bwd.variants["cluster"] == n0 + 1
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want = [t.transpose(1, 2) for t in ref.attention_ref_grad(
+        *tr, causal=causal)]
+    for got, w in zip(grads, want):
+        assert got.dtype == torch.bfloat16 and _own_rel(got, w) <= 2e-2
+    for r in K.SPLIT_RANKS:
+        o1, lse1 = K._flash_fwd(q, k, v, causal=causal, window=None,
+                                logit_cap=None, ranks=r)
+        o2, lse2 = K._flash_fwd(q, k, v, causal=causal, window=None,
+                                logit_cap=None, ranks=r)
+        g1 = K.flash_attention_bwd(q, k, v, o1, lse1, d_o, causal=causal,
+                                   ranks=r)
+        g2 = K.flash_attention_bwd(q, k, v, o1, lse1, d_o, causal=causal,
+                                   ranks=r)
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+        assert all(torch.equal(a, c) for a, c in zip(g1, g2))
+        for got, w in zip(g1, want):
+            assert _own_rel(got, w) <= 2e-2
+
+
+def test_split_entries_refuse_what_they_do_not_take(cuda):
+    """A rank count other than 1 or 2 (clusters of 4 are built only with
+    FLASH_MAX_RANKS 4, in ``launch.flash_bench``'s copy), or above 1 for a
+    family without a split (float32, D 16, D 256), raises before any
+    launch."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for dtype, d, r in ((torch.bfloat16, 64, 3), (torch.bfloat16, 64, 4),
+                        (torch.float32, 64, 2),
+                        (torch.bfloat16, 16, 2), (torch.bfloat16, 256, 2)):
+        q = _rand(gen, 1, 64, 2, d, dtype=dtype)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K._flash_fwd(q, q, q, causal=True, window=None, logit_cap=None,
+                         ranks=r)
 
 
 def test_cross_attention_refuses_an_empty_row(cuda):
@@ -1019,31 +1163,43 @@ WGMMA_GEOMS = [(2, 128, 4096), (1, 64, 4096), (6, 128, 333), (8, 64, 1000),
 def test_wgmma_flash_kernels_match_plain_and_repeat_bitwise(cuda, kw, g, d,
                                                             s):
     """The bf16 forward and backward at D 64, 112, 128 and 256 launch the
-    wgmma kernels (the wrappers' per-variant counts), agree with the plain
-    versions within FLASH_DTYPES' bf16 bound, and the backward gives
-    bitwise the same dq, dk and dv on a second call."""
+    wgmma kernels, or the split family where B 2 x Hkv 2 fills few
+    processors (the wrappers' per-variant counts, as the library names
+    them for the shape), agree with the plain versions within
+    FLASH_DTYPES' bf16 bound, and the backward gives bitwise the same dq,
+    dk and dv on a second call; the unsplit kernels (``ranks=1``) are held
+    so at every geometry too."""
     gen = torch.Generator(device=cuda).manual_seed(g * d + s)
     b, hkv, dtype = 2, 2, torch.bfloat16
     q, k, v, d_o = (_rand(gen, b, s, h, d, dtype=dtype)
                     for h in (hkv * g, hkv, hkv, hkv * g))
-    f0 = K.flash_attention.variants["wgmma"]
-    b0 = K.flash_attention_bwd.variants["wgmma"]
-    o, lse = K._flash_fwd(q, k, v, causal=kw["causal"],
-                          window=kw.get("window"),
-                          logit_cap=kw.get("logit_cap"))
-    grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, **kw)
-    again = K.flash_attention_bwd(q, k, v, o, lse, d_o, **kw)
-    torch.cuda.synchronize()
-    assert (K.flash_attention.variants["wgmma"] - f0,
-            K.flash_attention_bwd.variants["wgmma"] - b0) == (1, 2)
-    assert all(torch.equal(a, c) for a, c in zip(grads, again))
     tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
     want_o = ref.attention_ref(*tr[:3], **kw).transpose(1, 2)
-    assert _rel(o, want_o) <= 2e-2
-    del want_o
     want_g = [t.transpose(1, 2) for t in ref.attention_ref_grad(*tr, **kw)]
-    for got, want in zip(grads, want_g):
-        assert got.dtype == dtype and _rel(got, want) <= 2e-2
+    w = kw.get("window") or 2 ** 31 - 1
+    fams = [K._flash_variant(lib, dtype, d, K._flash_ranks(
+        lib, dtype, b, s, s, hkv * g, hkv, d, kw["causal"], w))
+        for lib in ("flash_fwd", "flash_bwd")]
+    assert all(f in ("wgmma", "cluster") for f in fams)
+    for ranks in (None, 1):
+        f0 = K.flash_attention.variants.copy()
+        b0 = K.flash_attention_bwd.variants.copy()
+        o, lse = K._flash_fwd(q, k, v, causal=kw["causal"],
+                              window=kw.get("window"),
+                              logit_cap=kw.get("logit_cap"), ranks=ranks)
+        grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, ranks=ranks,
+                                      **kw)
+        again = K.flash_attention_bwd(q, k, v, o, lse, d_o, ranks=ranks,
+                                      **kw)
+        torch.cuda.synchronize()
+        assert (K.flash_attention.variants - f0,
+                K.flash_attention_bwd.variants - b0) == (
+            {fams[0] if ranks is None else "wgmma": 1},
+            {fams[1] if ranks is None else "wgmma": 2})
+        assert all(torch.equal(a, c) for a, c in zip(grads, again))
+        assert _rel(o, want_o) <= 2e-2
+        for got, want in zip(grads, want_g):
+            assert got.dtype == dtype and _rel(got, want) <= 2e-2
 
 
 def test_flash_wrappers_take_the_variant_the_library_names(cuda):

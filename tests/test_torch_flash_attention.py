@@ -200,11 +200,15 @@ class Walk:
     P^T times the softcap's slope to warpgroup 1 through the shared tile
     (``_p_handover``).  ``staged``: O and dQ leave through the epilogue's
     swizzled pieces (``_staged_rows``).  ``fast_tanh``: the softcap's tanh
-    from one exp2 and one division (``_fast_tanh``)."""
+    from one exp2 and one division (``_fast_tanh``).  ``ranks`` above 1:
+    the split family (one cluster an item, no persistent grid), whose
+    ranks walk contiguous shares of each item's key tiles in the forward
+    and the dQ pass and merge in rank order (``_rank_tiles``), the dQ
+    pass forming Delta from its item's rows."""
 
     def __init__(self, rows, tk, keys, tq, mma, position_major=False,
                  tk_dq=None, sms=None, box=None, split=False, staged=False,
-                 fast_tanh=False):
+                 fast_tanh=False, ranks=1):
         self.rows, self.tk, self.keys, self.tq, self.mma = (rows, tk, keys,
                                                             tq, mma)
         self.position_major = position_major
@@ -214,6 +218,7 @@ class Walk:
         self.split = split
         self.staged = staged
         self.fast_tanh = fast_tanh
+        self.ranks = ranks
 
     def round(self, x):
         return _bf16(x) if self.mma else x
@@ -236,6 +241,24 @@ WGMMA = Walk(rows=128, tk=128, keys=128, tq=64, mma=True,
 WGMMA256 = Walk(rows=128, tk=64, keys=64, tq=64, mma=True,
                 position_major=True, tk_dq=32, sms=3, box=64, split=True,
                 staged=True, fast_tanh=True)
+# the split family (``fwd_split*_kernel``, ``dq_split*_kernel``): the
+# wgmma tiles, one cluster of 2 ranks an item (of 4 in
+# ``launch.flash_bench``'s copy built with FLASH_MAX_RANKS 4)
+SPLIT2, SPLIT4 = (Walk(rows=128, tk=128, keys=128, tq=64, mma=True,
+                       position_major=True, tk_dq=64, box=64, ranks=r)
+                  for r in (2, 4))
+WALKS = [CUDA_CORES, WGMMA256, WGMMA, SPLIT2, SPLIT4]
+WALK_IDS = ["cuda_cores", "wgmma_d256", "wgmma", "split2", "split4"]
+
+
+def _rank_tiles(lo, hi, tk, ranks):
+    """The key tiles [lo, hi) in tk-key steps as the split family's
+    ranks share them (``rank_share``): rank r takes a contiguous
+    ceil(n / ranks) of the n from tile r ceil(n / ranks) on, none past
+    the last; one rank takes them all."""
+    tiles = list(range(lo, hi, tk))
+    share = -(-len(tiles) // ranks)
+    return [tiles[r * share:(r + 1) * share] for r in range(ranks)]
 
 
 def _fragment(rows, cols):
@@ -417,22 +440,33 @@ def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None,
         c0 = blk * bq
         head, pos = _q_rows(c0, sq, g, walk)
         qr = q[bi, pos, h * g + head]                         # (R, D)
-        m = torch.full((len(pos),), NEG)
-        l = torch.zeros(len(pos))
-        acc = torch.zeros(len(pos), q.shape[-1])
         lo, hi = _key_range(c0 - shift, int(pos.max()) - shift, sk, causal,
                             window)
-        for t0 in range(lo, hi, walk.tk):
-            kp = torch.arange(t0, min(t0 + walk.tk, hi))
-            x, _ = _scores(qr @ k[bi, kp, h].T, scale, cap, walk)
-            ok = _visible(pos - shift, kp, causal, window)
-            x = torch.where(ok, x, NEG)
-            m_new = torch.maximum(m, x.max(1).values)
-            p = torch.where(ok, torch.exp(x - m_new[:, None]), 0.0)
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(1)
-            acc = acc * alpha[:, None] + walk.round(p) @ v[bi, kp, h]
-            m = m_new
+        parts = []   # each rank's (m, l, acc) over its share of the tiles
+        for tiles in _rank_tiles(lo, hi, walk.tk, walk.ranks):
+            m = torch.full((len(pos),), NEG)
+            l = torch.zeros(len(pos))
+            acc = torch.zeros(len(pos), q.shape[-1])
+            for t0 in tiles:
+                kp = torch.arange(t0, min(t0 + walk.tk, hi))
+                x, _ = _scores(qr @ k[bi, kp, h].T, scale, cap, walk)
+                ok = _visible(pos - shift, kp, causal, window)
+                x = torch.where(ok, x, NEG)
+                m_new = torch.maximum(m, x.max(1).values)
+                p = torch.where(ok, torch.exp(x - m_new[:, None]), 0.0)
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(1)
+                acc = acc * alpha[:, None] + walk.round(p) @ v[bi, kp, h]
+                m = m_new
+            parts.append((m, l, acc))
+        # the ranks' merge, in rank order, each weighed by exp(m_r - max m)
+        m = torch.stack([pm for pm, _, _ in parts]).max(0).values
+        l = torch.zeros(len(pos))
+        acc = torch.zeros(len(pos), q.shape[-1])
+        for pm, pl, pa in parts:
+            wr = torch.exp(pm - m)
+            l = l + pl * wr
+            acc = acc + pa * wr[:, None]
         acc = acc / l.clamp(min=1e-30)[:, None]
         assert not acc[:, d:].any()     # the zero columns add nothing
         acc = _through_epilogue(acc, _live(c0, sq, g, walk), walk,
@@ -453,17 +487,23 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
     over the block's key range ending at Sk), and the dK/dV pass per (key
     block over the Sk, kv head, batch) item over the G heads and their
     query tiles (ending at Sq; none for a block no query sees, whose rows
-    are stored as zeros).  Outputs start as NaN (``torch.empty``'s
-    garbage), so a row the walk does not store shows.  Items taken are
-    appended to ``visited``.  ``k_off`` set: the key-block entry, o and
-    lse the merged forward's; the dQ pass compares the rows' positions
-    less k_off, the dK/dV pass the keys' plus k_off, and dQ stays f32."""
+    are stored as zeros).  The split family (``walk.ranks`` > 1) takes two:
+    its dQ pass forms each item's Delta from the item's O and dO rows
+    (NaN until then, so a row the pass misses shows in dK and dV) and
+    adds its ranks' partial dQ in rank order.  Outputs start as NaN
+    (``torch.empty``'s garbage), so a row the walk does not store shows.
+    Items taken are appended to ``visited``.  ``k_off`` set: the key-block
+    entry, o and lse the merged forward's; the dQ pass compares the rows'
+    positions less k_off, the dK/dV pass the keys' plus k_off, and dQ
+    stays f32."""
     shift = k_off or 0
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = 1 / math.sqrt(d)
     delta = (d_o * o).sum(-1).transpose(1, 2)                 # (B, Hq, Sq)
+    if walk.ranks > 1:
+        delta = torch.full_like(delta, math.nan)
     dq, dk, dv = (torch.full_like(t, math.nan) for t in (q, k, v))
     q, k, v, d_o = walk.pad(q, k, v, d_o)
     bq = walk.rows // g
@@ -474,17 +514,23 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
         head, pos = _q_rows(c0, sq, g, walk)
         hh = h * g + head
         qr, gr = q[bi, pos, hh], d_o[bi, pos, hh]
-        acc = torch.zeros(len(pos), q.shape[-1])
+        if walk.ranks > 1:   # Delta from the item's own O and dO rows
+            delta[bi, hh, pos] = (gr[:, :d] * o[bi, pos, hh]).sum(-1)
         lo, hi = _key_range(c0 - shift, int(pos.max()) - shift, sk, causal,
                             window)
-        for t0 in range(lo, hi, walk.tk_dq):
-            kp = torch.arange(t0, min(t0 + walk.tk_dq, hi))
-            x, cg = _scores(qr @ k[bi, kp, h].T, scale, cap, walk)
-            ok = _visible(pos - shift, kp, causal, window)
-            p = torch.where(ok, torch.exp(x - lse[bi, hh, pos][:, None]), 0.0)
-            dp = gr @ v[bi, kp, h].T
-            ds = p * (dp - delta[bi, hh, pos][:, None]) * cg
-            acc += walk.round(ds) @ k[bi, kp, h]
+        acc = torch.zeros(len(pos), q.shape[-1])
+        for tiles in _rank_tiles(lo, hi, walk.tk_dq, walk.ranks):
+            part = torch.zeros(len(pos), q.shape[-1])   # this rank's dQ
+            for t0 in tiles:
+                kp = torch.arange(t0, min(t0 + walk.tk_dq, hi))
+                x, cg = _scores(qr @ k[bi, kp, h].T, scale, cap, walk)
+                ok = _visible(pos - shift, kp, causal, window)
+                p = torch.where(ok, torch.exp(x - lse[bi, hh, pos][:, None]),
+                                0.0)
+                dp = gr @ v[bi, kp, h].T
+                ds = p * (dp - delta[bi, hh, pos][:, None]) * cg
+                part += walk.round(ds) @ k[bi, kp, h]
+            acc = acc + part     # the ranks' merge, in rank order
         assert not acc[:, d:].any()
         acc = _through_epilogue(acc * scale, _live(c0, sq, g, walk), walk,
                                 4 if k_off is not None else 2)
@@ -530,8 +576,7 @@ EMU_CASES = [dict(causal=True), dict(causal=False),
              dict(causal=False, window=20, logit_cap=30.0)]
 
 
-@pytest.mark.parametrize("walk", [CUDA_CORES, WGMMA256, WGMMA],
-                         ids=["cuda_cores", "wgmma_d256", "wgmma"])
+@pytest.mark.parametrize("walk", WALKS, ids=WALK_IDS)
 @pytest.mark.parametrize("g,s", [(1, 77), (2, 128), (3, 77), (8, 70)])
 @pytest.mark.parametrize("kw", EMU_CASES)
 def test_kernel_tile_walks_match_plain(walk, g, s, kw):
@@ -579,10 +624,9 @@ def test_kernel_tile_walks_match_plain(walk, g, s, kw):
         assert float((got - want).abs().max()) <= tol(want)
 
 
-@pytest.mark.parametrize("walk", [CUDA_CORES, WGMMA256, WGMMA],
-                         ids=["cuda_cores", "wgmma_d256", "wgmma"])
+@pytest.mark.parametrize("walk", WALKS, ids=WALK_IDS)
 @pytest.mark.parametrize("sq,sk", [(77, 200), (200, 77), (128, 300),
-                                   (256, 64)])
+                                   (256, 64), (300, 1000)])
 @pytest.mark.parametrize("g", [1, 3])
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
                                 dict(causal=True, window=40),
@@ -627,10 +671,9 @@ def test_forward_walks_at_their_own_key_length(walk, sq, sk, g, kw):
                                                    else 1e-5)
 
 
-@pytest.mark.parametrize("walk", [CUDA_CORES, WGMMA256, WGMMA],
-                         ids=["cuda_cores", "wgmma_d256", "wgmma"])
+@pytest.mark.parametrize("walk", WALKS, ids=WALK_IDS)
 @pytest.mark.parametrize("sq,sk", [(77, 200), (200, 77), (128, 300),
-                                   (256, 64)])
+                                   (256, 64), (300, 1000)])
 @pytest.mark.parametrize("g", [1, 3])
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
                                 dict(causal=True, window=40),
@@ -775,6 +818,96 @@ def test_persistent_walk_takes_the_longest_items_first(s, g, causal, window):
         stride = [list(range(c, len(items), walk.sms))
                   for c in range(walk.sms)]
         assert spread(_cta_items(len(items), walk.sms)) <= spread(stride)
+
+
+# (name, (B, Hq, Hkv, Sq, Sk, D, causal, window), dtype, the forward's
+# ranks, the dQ pass's): the rows' shapes and the training shape keep one
+# rank; seamless-m4t-medium's cross-attention (64 items against 1024 keys)
+# splits both passes, its decoder self-attention (64 items at S 256:
+# query blocks of one or two 128-key tiles) only the dQ pass's 64-key
+# tiles, and the teacher-forced forward's cross-attention at 32 target
+# tokens (32 items) into 4
+SPLIT_CHOICES = [
+    ("row 5, training", (2, 16, 8, 4096, 4096, 128, True, None),
+     torch.bfloat16, 1, 1),
+    ("row 5@112", (1, 32, 32, 2048, 2048, 112, True, None),
+     torch.bfloat16, 1, 1),
+    ("row 5@256", (2, 8, 4, 4096, 4096, 256, True, None),
+     torch.bfloat16, 1, 1),
+    ("seamless encoder", (2, 16, 16, 1024, 1024, 64, False, None),
+     torch.bfloat16, 1, 1),
+    ("seamless cross", (2, 16, 16, 256, 1024, 64, False, None),
+     torch.bfloat16, 2, 2),
+    ("seamless decoder self", (2, 16, 16, 256, 256, 64, True, None),
+     torch.bfloat16, 1, 2),
+    ("seamless cross, 32 tokens", (2, 16, 16, 32, 1024, 64, False, None),
+     torch.bfloat16, 2, 2),
+    ("seamless cross, f32", (2, 16, 16, 256, 1024, 64, False, None),
+     torch.float32, 1, 1),
+    ("cross at D 16", (2, 16, 16, 256, 1024, 16, False, None),
+     torch.bfloat16, 1, 1),
+    ("window", (1, 8, 8, 512, 2048, 128, False, 256), torch.bfloat16, 2, 2),
+    ("causal window", (1, 8, 8, 1024, 1024, 128, True, 200),
+     torch.bfloat16, 1, 2),
+]
+
+
+@pytest.mark.parametrize("name,shape,dtype,want_fwd,want_bwd",
+                         SPLIT_CHOICES, ids=[c[0] for c in SPLIT_CHOICES])
+def test_split_ranks_choose_from_the_items_and_their_tiles(
+        name, shape, dtype, want_fwd, want_bwd):
+    """``attention.split_ranks``, the mirror of ``csrc/flash_wgmma.cuh``'s
+    chooser, on the H100's 132 processors: one rank where the items fill
+    the card or the family has no split; else the largest count that keeps
+    items x ranks within the processors and at least two of the longest
+    item's key tiles a rank (counted by ``_key_range`` here)."""
+    b, hq, hkv, sq, sk, d, causal, window = shape
+    w = window or 2 ** 31 - 1
+    for lib, want in (("flash_fwd", want_fwd), ("flash_bwd", want_bwd)):
+        got = K.split_ranks(lib, b, sq, sk, hq, hkv, d, dtype,
+                            causal=causal, window=window)
+        assert got == want, (name, lib, got)
+        bq = 128 // (hq // hkv)
+        items = -(-sq // bq) * hkv * b
+        tk = 128 if lib == "flash_fwd" else 64
+        tiles = max(-(-(hi - lo) // tk) for lo, hi in (
+            _key_range(c0, min(c0 + bq, sq) - 1, sk, causal, w)
+            for c0 in range(0, sq, bq)))
+        if got > 1:
+            assert items * got <= 132 and tiles >= 2 * got
+        elif dtype == torch.bfloat16 and d in (64, 112, 128):
+            assert items >= 132 or tiles < 4 or items * 2 > 132
+
+
+def test_split_ranks_never_leave_a_rank_under_two_tiles():
+    """Over a sweep of small grids (B 1-2, Hkv 1-16, G 1-4, Sq and Sk 16
+    to 4096, causal or not, windows): a split is chosen only below 132
+    items, never over-fills the processors, and never gives the longest
+    item's ranks fewer than two key tiles each."""
+    rng = np.random.default_rng(5)
+    seen = collections.Counter()
+    for _ in range(400):
+        b, hkv, g = int(rng.integers(1, 3)), int(rng.integers(1, 17)), \
+            int(rng.choice([1, 2, 4]))
+        sq, sk = (int(x) for x in rng.integers(16, 4097, size=2))
+        causal = bool(rng.integers(2))
+        window = None if rng.integers(2) else int(rng.integers(
+            max(1, sq - sk + 1), 4097))
+        w = window or 2 ** 31 - 1
+        bq = 128 // g
+        items = -(-sq // bq) * hkv * b
+        for lib, tk in (("flash_fwd", 128), ("flash_bwd", 64)):
+            r = K.split_ranks(lib, b, sq, sk, hkv * g, hkv, 64,
+                              torch.bfloat16, causal=causal, window=window)
+            seen[r] += 1
+            tiles = max(-(-(hi - lo) // tk) for lo, hi in (
+                _key_range(c0, min(c0 + bq, sq) - 1, sk, causal, w)
+                for c0 in range(0, sq, bq)))
+            assert r in (1, *K.SPLIT_RANKS)
+            if r > 1:
+                assert items < 132 and items * r <= 132
+                assert tiles // r >= 2 and -(-tiles // r) >= 2
+    assert seen[2] and seen[1]
 
 
 # ---------------------------------------------------------------------------
@@ -1082,6 +1215,21 @@ def test_persistent_walk_at_d256_takes_the_longest_items_first(s, g,
             lens = [length(_item(it, n_blk, hkv, b, descending)[0])
                     for it in mine]
             assert lens == sorted(lens, reverse=True)
+
+
+def test_flash_bench_ablations_still_apply():
+    """``launch.flash_bench --ablate`` builds the flash libraries with one
+    of ``csrc/flash_wgmma.cuh``'s ablation macros defined: each macro is
+    still tested by the header (a renamed one would build an unablated
+    copy), and no macro of the header's is left untimed."""
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import flash_bench
+
+    header = (build.CSRC / "flash_wgmma.cuh").read_text()
+    tested = set(re.findall(r"^#ifdef (FLASH_ABLATE_\w+)", header, re.M))
+    assert tested == set(flash_bench.ABLATIONS.values())
 
 
 def test_flash_bench_reports_balance_and_needs_a_card(monkeypatch, capsys):
