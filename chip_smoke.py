@@ -68,9 +68,8 @@ Phases, in order; any failure ends the script with a nonzero exit:
    in true f32 (cuBLAS SGEMM, allow_tf32 off) and, given ``--parent``,
    the parent's f32 ``matmul_plan`` launch: ``matmul_plan_f32`` at 8192^3
    (p = 131 beside it) and ``matmul_plan_f32_tall`` at 65536 x 8192 x 512,
-   and the matmul row, one 2048^3 f32 Strassen leaf; their bound is
-   three TF32 products at 495 TFLOP/s, ``bound_cuda_cores_ms`` one true
-   f32 product at 67 TFLOP/s beside it; the latent rows' SDPA pinned per backend too, K/V
+   and the matmul row, one 2048^3 f32 Strassen leaf; the latent rows'
+   SDPA pinned per backend too, K/V
    expanded to the 128 heads over two layers where a backend refuses
    ``enable_gqa``; the LCS row: the whole 65,536^2 table at p = 132 in
    one launch, int32 operations at 16.7 TOP/s, the row scan as its plain
@@ -91,11 +90,23 @@ Phases, in order; any failure ends the script with a nonzero exit:
    which has no softcap, uncapped), each against its plain version
    and bitwise over two calls, timed with SDPA (and its backward) per
    backend and, given ``--parent``, the parent's kernels in turns (every
-   row of these shapes must report the ``wgmma`` variant).  With
-   ``--parent`` the flash pair is bitwise the parent's at D 16, 64 and
-   128, and the wgmma kernels the parent also has (D 64, 112, 128) keep
-   its HGMMA, WARPGROUP, BAR and SYNCS counts; the D-256 kernels' counts
-   are printed.
+   row of these shapes must report the ``wgmma`` variant).  Rows
+   ``flash_attention_f32`` / ``flash_attention_bwd_f32`` and their
+   ``_cross_f32`` pair (5f, 5bf: row 5's and 5x's shapes in float32) on
+   the float32 family ``wgmma_tf32x3``, and rows ``paged_decode_f32``,
+   ``paged_prefill_f32``, ``paged_latent_decode_f32`` and
+   ``paged_latent_prefill_f32`` (1f-4f: rows 1-4's shapes in float32, the
+   CUDA-core families phases 4 and 6's float32 runs launch, whose counts
+   those phases take), each against its plain version and SDPA in
+   float32.  Every float32 row's bound is its products as the card makes
+   them f32-accurate, three TF32 products at 495 TFLOP/s (or its bytes),
+   with ``bound_cuda_cores_ms`` one true f32 product at 67 TFLOP/s beside
+   it (``_row``).  With ``--parent`` the flash pair is bitwise the parent's at
+   D 16, 64 and 128 in bf16 and at D 16 in float32 (both sides at one
+   rank), within FLASH_TOL of it in float32 at D 64 and 128, and the
+   wgmma kernels the parent also has (D 64, 112, 128) keep its HGMMA,
+   WARPGROUP, BAR and SYNCS counts; the D-256 kernels' counts are
+   printed.
 3b. verify_kernels: the speculative-verify entries of kernels 2 and 4
    (``paged_verify``, ``paged_latent_verify``: one launch for all slots,
    each slot's start read on the device) against their plain versions in
@@ -212,8 +223,9 @@ Phases, in order; any failure ends the script with a nonzero exit:
    the plain path, TRAIN_PARITY_TOL; the flash counts of one evaluation
    with remat): seamless-m4t-medium at full depth in bf16 and float32, B 2,
    1024 source frames, 256 target tokens (kernel 5b 36 times, 12 of them
-   the cross-attention at Sq 256 against Sk 1024; ``wgmma`` in bf16, the
-   CUDA cores in float32); zamba2-7b in bf16, B 1 x S 2048, at 2 of its 9
+   the cross-attention at Sq 256 against Sk 1024; ``cluster`` and
+   ``wgmma`` in bf16, ``wgmma_tf32x3`` in float32); zamba2-7b in bf16, B
+   1 x S 2048, at 2 of its 9
    groups (``HYBRID_TRAIN_GROUPS``: full depth does not fit one card for
    training), kernels 5 and 5b at D 112 on ``wgmma``.
 9c. ``Trainer`` on each new family, 3 steps at the same sizes
@@ -284,6 +296,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -602,12 +615,15 @@ def check_small_geometries(gen: torch.Generator) -> dict[str, float]:
 
 
 def bench_kernels(cfg, gen: torch.Generator, iters: int,
-                  parent: ParentKernels | None = None) -> list[dict]:
-    """Each kernel at the serving shapes of full-width qwen3-0.6b: checked
-    against its plain version in f32 and bf16 (with and without a window
-    and a softcap), then timed in bf16 over the 28 layers' pools in turn,
+                  parent: ParentKernels | None = None,
+                  dtype: torch.dtype = torch.bfloat16) -> list[dict]:
+    """Each kernel at the serving shapes of full-width qwen3-0.6b in
+    ``dtype``: checked against its plain version (with and without a
+    window and a softcap), then timed over the 28 layers' pools in turn,
     so that each call finds its layer's K/V outside the 50 MB L2 as the
-    serving loop does."""
+    serving loop does.  float32 (rows 1f and 2f, the CUDA-core families
+    phase 4's float32 run launches) names its rows with "_f32" and times
+    no parent."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ops
 
@@ -618,29 +634,26 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int,
     n_pool = slots * pps + 1
     scale = 1 / math.sqrt(d)
     rows = []
+    tag = "" if dtype == torch.bfloat16 else "_f32"
+    parent = parent if dtype == torch.bfloat16 else None
 
     # ---- decode: B=8 slots, lengths as the serving run's contexts
     lens = torch.randint(48, 1000 + 32 + 1, (slots,), generator=gen,
                          device=dev, dtype=torch.int32)
     perm = torch.randperm(n_pool - 1, generator=gen, device=dev)
     bt = perm[:slots * pps].reshape(slots, pps).to(torch.int32).contiguous()
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(slots, 1, hq, d, generator=gen, device=dev).to(dtype)
-        kp = torch.randn(n_pool, page, hkv, d, generator=gen,
-                         device=dev).to(dtype)
-        vp = torch.randn(n_pool, page, hkv, d, generator=gen,
-                         device=dev).to(dtype)
-        for kw in ({}, {"window": 300}, {"logit_cap": 30.0}):
-            err = max_err(K.paged_flash_decode(q, kp, vp, bt, lens,
-                                               scale=scale, **kw),
-                          ops.paged_decode_attention(q, kp, vp, bt, lens,
-                                                     use_kernel=False, **kw))
-            assert err <= ATOL[dtype], ("paged_decode", dtype, kw, err)
-    err_decode = err   # bf16, softcap: the last checked case
-    del kp, vp
+    q = torch.randn(slots, 1, hq, d, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(n_pool, page, hkv, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(n_pool, page, hkv, d, generator=gen, device=dev).to(dtype)
+    for kw in ({}, {"window": 300}, {"logit_cap": 30.0}):
+        err_decode = max_err(K.paged_flash_decode(q, kp, vp, bt, lens,
+                                                  scale=scale, **kw),
+                             ops.paged_decode_attention(
+                                 q, kp, vp, bt, lens, use_kernel=False, **kw))
+        assert err_decode <= ATOL[dtype], ("paged_decode", kw, err_decode)
+    del kp, vp   # err_decode: the softcap case, the last checked
 
-    # ---- the 28 layers' pools, bf16
-    dtype = torch.bfloat16
+    # ---- the 28 layers' pools, in the timed dtype
     kpool = torch.randn(n_layers, n_pool, page, hkv, d, generator=gen,
                         device=dev).to(dtype)
     vpool = torch.randn(n_layers, n_pool, page, hkv, d, generator=gen,
@@ -697,10 +710,10 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int,
     decode_kernel_turn()
     n_keys = int(lens.sum())
     flops, nbytes = W.paged_work(q.numel(), bt.numel(), lens.numel(), n_keys,
-                                 n_keys, hq, hkv, d, 2)
+                                 n_keys, hq, hkv, d, q.element_size())
     ms, eager_ms = (sum(t[i] for t in dturns["k"]) / 2 for i in (0, 1))
     decode = _with_library(_row(
-        "paged_decode", "src/repro_torch/csrc/paged_decode.cu",
+        "paged_decode" + tag, "src/repro_torch/csrc/paged_decode.cu",
         "src/repro/kernels/attention/attention.py:371", err_decode, ms,
         eager_ms, plain_ms, None, nbytes, flops, dtype), sdpa_decode)
     decode["ms_turns"] = [t[0] for t in dturns["k"]]
@@ -717,19 +730,15 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int,
     c, start, width = 64, 960, 16
     row = perm[:width].to(torch.int32).contiguous()
     err_prefill = 0.0
-    for dt in (torch.float32, torch.bfloat16):
-        qc = torch.randn(1, c, hq, d, generator=gen, device=dev).to(dt)
-        kp = kpool[0].to(dt)
-        vp = vpool[0].to(dt)
-        for kw in ({}, {"window": 300}, {"logit_cap": 30.0}):
-            err = max_err(K.paged_flash_prefill(qc, kp, vp, row, start,
-                                                scale=scale, **kw),
-                          ops.paged_prefill_attention(qc, kp, vp, row, start,
-                                                      use_kernel=False,
-                                                      **kw))
-            assert err <= ATOL[dt], ("paged_prefill", dt, kw, err)
-            if dt == torch.bfloat16:
-                err_prefill = max(err_prefill, err)
+    qc = torch.randn(1, c, hq, d, generator=gen, device=dev).to(dtype)
+    for kw in ({}, {"window": 300}, {"logit_cap": 30.0}):
+        err = max_err(K.paged_flash_prefill(qc, kpool[0], vpool[0], row,
+                                            start, scale=scale, **kw),
+                      ops.paged_prefill_attention(qc, kpool[0], vpool[0],
+                                                  row, start,
+                                                  use_kernel=False, **kw))
+        assert err <= ATOL[dtype], ("paged_prefill", kw, err)
+        err_prefill = max(err_prefill, err)
     qc = torch.randn(1, c, hq, d, generator=gen, device=dev).to(dtype)
     # the calls take turns on the card: kernel, parent kernel (given
     # ``parent``), SDPA (below), parent, kernel
@@ -769,19 +778,20 @@ def bench_kernels(cfg, gen: torch.Generator, iters: int,
         qt, kg, vg, cmask, gqa, iters))
     parent_turn()
     kernel_turn()
+    before = K.paged_flash_prefill.variants.copy()
+    K.paged_flash_prefill(qc, kpool[0], vpool[0], row, start, scale=scale)
+    (variant,) = K.paged_flash_prefill.variants - before
     del kg, vg, kpool, vpool
     pairs = int(cmask.sum())
     flops, nbytes = W.paged_work(qc.numel(), row.numel(), 0, s_ctx, pairs,
-                                 hq, hkv, d, 2)
+                                 hq, hkv, d, qc.element_size())
     ms, eager_ms = (sum(t[i] for t in turns["k"]) / 2 for i in (0, 1))
     prefill = _with_library(_row(
-        "paged_prefill", "src/repro_torch/csrc/paged_prefill.cu",
+        "paged_prefill" + tag, "src/repro_torch/csrc/paged_prefill.cu",
         "src/repro/kernels/attention/attention.py:172", err_prefill, ms,
         eager_ms, plain_ms, None, nbytes, flops, dtype), sdpa_prefill)
     prefill["ms_turns"] = [t[0] for t in turns["k"]]
-    before = K.paged_flash_prefill.variants.copy()
-    K.paged_flash_prefill(qc, kp, vp, row, start, scale=scale)
-    (prefill["variant"],) = K.paged_flash_prefill.variants - before
+    prefill["variant"] = variant
     if parent is not None:
         prefill["parent_ms"] = sum(t[0] for t in turns["p"]) / 2
         prefill["parent_ms_turns"] = [t[0] for t in turns["p"]]
@@ -909,7 +919,7 @@ class ParentKernels:
         # the current libraries' of the same name
         rename = [f"-D{ns}=parent_{ns}"
                   for ns in ("paged", "flash_mma", "flash_wgmma", "latent",
-                             "latent_wgmma")]
+                             "latent_wgmma", "flash_tf32", "tf32x3")]
         procs = [(name, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, *rename, "-o",
              str(out / f"lib{name}.so"), str(src / f"{name}.cu")],
@@ -931,6 +941,29 @@ class ParentKernels:
         self.bwd = libs["flash_bwd"].flash_bwd
         self.bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                              I, F, I, I, F, P]
+        # the entries at a fixed rank count, where the parent's libraries
+        # have the split family (its chooser would split some of the
+        # parity cases, which the current pair runs at one rank)
+        self.fwd_split = getattr(libs["flash_fwd"], "flash_fwd_split", None)
+        self.bwd_split = getattr(libs["flash_bwd"], "flash_bwd_split", None)
+        if self.fwd_split is not None:
+            self.fwd_split.argtypes = [I, *self.fwd.argtypes]
+            self.bwd_split.argtypes = [I, *self.bwd.argtypes]
+            self.fwd_split.restype = self.bwd_split.restype = I
+        # the float32 family's entries (f32 at D 64 and 128, with a
+        # workspace), where the parent's libraries have them
+        self.fwd_tf32 = getattr(libs["flash_fwd"], "flash_fwd_tf32x3", None)
+        self.bwd_tf32 = getattr(libs["flash_bwd"], "flash_bwd_tf32x3", None)
+        if self.fwd_tf32 is not None:
+            from repro_torch.kernels.attention import attention as K
+            self.fwd_tf32.argtypes = list(K._FWD_TF32X3)
+            self.bwd_tf32.argtypes = list(K._BWD_TF32X3)
+            self.fwd_tf32.restype = self.bwd_tf32.restype = I
+            self.tf32_ws = {}
+            for lib in ("flash_fwd", "flash_bwd"):
+                fn = getattr(libs[lib], f"{lib}_tf32x3_ws_floats")
+                fn.argtypes, fn.restype = [I] * 6, L
+                self.tf32_ws[lib] = fn
         # the key-block entries, where the parent's libraries have them
         self.fwd_block = getattr(libs["flash_fwd"], "flash_fwd_block", None)
         self.bwd_block = getattr(libs["flash_bwd"], "flash_bwd_block", None)
@@ -1000,10 +1033,34 @@ class ParentKernels:
                    self.latent_verify_splits):
             fn.restype = I
 
-    def forward(self, q, k, v, o, lse, causal=True, logit_cap=None) -> None:
-        """No window; q's dtype, Sq and Sk from the shapes."""
+    def _tf32(self, q) -> bool:
+        """Whether the parent runs this call on its float32 family."""
+        return (self.fwd_tf32 is not None and q.dtype == torch.float32
+                and q.shape[3] in (64, 128))
+
+    def _tf32_ws(self, lib, q, k) -> torch.Tensor:
         b, sq, hq, d = q.shape
-        err = self.fwd(int(q.dtype == torch.bfloat16), q.data_ptr(),
+        return torch.empty(self.tf32_ws[lib](d, b, sq, k.shape[1], hq,
+                                             k.shape[2]), device=q.device)
+
+    def forward(self, q, k, v, o, lse, causal=True, logit_cap=None,
+                ranks=None) -> None:
+        """No window; q's dtype, Sq and Sk from the shapes; ``ranks`` set:
+        the parent's rank count fixed there (``flash_fwd_split``, where it
+        has one)."""
+        b, sq, hq, d = q.shape
+        if self._tf32(q):
+            from repro_torch.kernels.attention import attention as K
+            err = K._fwd_tf32x3(q, k, v, o, lse, self._tf32_ws("flash_fwd",
+                                                               q, k),
+                                0, causal, 2 ** 31 - 1, logit_cap or 0.0, 0,
+                                fn=self.fwd_tf32)
+            assert err == 0, ("parent flash_fwd_tf32x3", err)
+            return
+        fwd = self.fwd
+        if ranks is not None and self.fwd_split is not None:
+            fwd = functools.partial(self.fwd_split, ranks)
+        err = fwd(int(q.dtype == torch.bfloat16), q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        lse.data_ptr(), b, sq, k.shape[1], hq, k.shape[2], d,
                        1 / math.sqrt(d), int(causal), 2 ** 31 - 1,
@@ -1012,10 +1069,22 @@ class ParentKernels:
         assert err == 0, ("parent flash_fwd", err)
 
     def backward(self, q, k, v, o, lse, d_o, delta, dq, dk, dv,
-                 causal=True, logit_cap=None) -> None:
-        """No window; q's dtype, Sq and Sk from the shapes."""
+                 causal=True, logit_cap=None, ranks=None) -> None:
+        """No window; q's dtype, Sq and Sk from the shapes; ``ranks`` as
+        ``forward`` (``flash_bwd_split``)."""
         b, sq, hq, d = q.shape
-        err = self.bwd(int(q.dtype == torch.bfloat16), q.data_ptr(),
+        if self._tf32(q):
+            from repro_torch.kernels.attention import attention as K
+            err = K._bwd_tf32x3(q, k, v, o, lse, d_o, delta, dq, dk, dv,
+                                self._tf32_ws("flash_bwd", q, k), 0, causal,
+                                2 ** 31 - 1, logit_cap or 0.0, 0,
+                                fn=self.bwd_tf32)
+            assert err == 0, ("parent flash_bwd_tf32x3", err)
+            return
+        bwd = self.bwd
+        if ranks is not None and self.bwd_split is not None:
+            bwd = functools.partial(self.bwd_split, ranks)
+        err = bwd(int(q.dtype == torch.bfloat16), q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        d_o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
@@ -1425,9 +1494,6 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
                                            causal=causal)
         flops_b, nbytes_b = W.flash_bwd_work(b, sq, sk, hq, hkv, d, elem,
                                              causal=causal)
-        # float32: the card's f32-accurate products are three TF32 passes
-        f32 = dtype == torch.float32
-        passes = W.TF32_PASSES if f32 else 1
         pair = []
         for key, name, src, err, nbytes, fl, lib_i, plain in (
                 ("f", f"flash_attention{tag}", "flash_fwd", err_f, nbytes_f,
@@ -1440,16 +1506,15 @@ def bench_flash(shapes: dict, gen: torch.Generator, iters: int,
                 "src/repro/kernels/attention/attention.py:72", err,
                 sum(t[0] for t in turns) / len(turns),
                 sum(t[1] for t in turns) / len(turns), plain, None, nbytes,
-                passes * fl, dtype, PEAK_TF32_FLOPS if f32 else None),
-                _merge_sdpa([t[lib_i] for t in lib]))
+                fl, dtype), _merge_sdpa([t[lib_i] for t in lib]))
             row["ms_turns"] = [t[0] for t in turns]
             row["ranks"] = K._flash_ranks(src, dtype, b, sq, sk, hq, hkv, d,
                                           causal, 2 ** 31 - 1)
             row["variant"] = K._flash_variant(src, dtype, d, row["ranks"])
             want = _flash_family(src, dtype, b, sq, sk, hq, hkv, d, causal)
             assert row["variant"] == want, (name, row["variant"], want)
-            if f32:
-                row["bound_cuda_cores_ms"] = _bound(nbytes, fl, dtype)[0]
+            if want == "wgmma_tf32x3":   # the family's kernels and passes
+                row["source"] = "src/repro_torch/csrc/flash_tf32.cuh"
             row["shape"] = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "sk": sk,
                             "d": d, "causal": causal, "logit_cap": cap}
             if with_parent:
@@ -1478,14 +1543,25 @@ def _bound(nbytes, flops, dtype, peak=None) -> tuple[float, str]:
 
 
 def _row(name, source, replaces, err, ms, eager_ms, plain_ms, library_ms,
-         nbytes, flops, dtype, peak=None) -> dict:
-    bound_ms, bound_by = _bound(nbytes, flops, dtype, peak)
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": None, "max_abs_err": err,
-            "ms": ms, "kernel_ms": ms, "eager_ms": eager_ms,
-            "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+         nbytes, flops, dtype) -> dict:
+    """A kernel's row; ``flops`` its products' own.  In float32 the card's
+    f32-accurate product is three TF32 products on the tensor cores: the
+    bound takes W.TF32_PASSES x ``flops`` at PEAK_TF32_FLOPS (the row's
+    ``flops``), and ``bound_cuda_cores_ms`` one true f32 pass at
+    PEAK_FLOPS[float32] beside it."""
+    f32 = dtype == torch.float32
+    work = W.TF32_PASSES * flops if f32 else flops
+    bound_ms, bound_by = _bound(nbytes, work, dtype,
+                                PEAK_TF32_FLOPS if f32 else None)
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": None, "max_abs_err": err,
+           "ms": ms, "kernel_ms": ms, "eager_ms": eager_ms,
+           "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "flops": work}
+    if f32:
+        row["bound_cuda_cores_ms"] = _bound(nbytes, flops, dtype)[0]
+    return row
 
 
 def check_small_latent(gen: torch.Generator) -> dict[str, float]:
@@ -1596,20 +1672,25 @@ def check_small_latent(gen: torch.Generator) -> dict[str, float]:
 
 
 def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
-                         parent: ParentKernels | None = None) -> list[dict]:
+                         parent: ParentKernels | None = None,
+                         dtype: torch.dtype = torch.bfloat16) -> list[dict]:
     """The MLA latent kernels at the serving shapes of full-width
     deepseek-v2 (8 slots, contexts 48..1032, H = 128, kv_lora 512,
     qk_rope 64, page 128; prefill C = 128 at start 896): checked against
-    the plain version in f32 and bf16, then timed in bf16 cycling over
+    the plain version in ``dtype``, then timed in it cycling over
     ``cfg.n_layers`` layers' pools (1.1 GB, so each call finds its layer
     outside the 50 MB L2, as serving does after the MoE's 7.5 GB of
     experts).  The prefill kernel takes turns with its parent (given
     ``parent``) and SDPA: kernel, parent, SDPA twice, parent, kernel; it
-    and the parent are checked bitwise equal over two calls."""
+    and the parent are checked bitwise equal over two calls.  ``dtype``
+    float32: rows 3f and 4f (the CUDA-core families phase 6's float32 run
+    launches), named with "_f32", no parent."""
     from repro_torch.kernels.attention import attention as K
     from repro_torch.kernels.attention import ops
 
     dev = "cuda"
+    tag = "" if dtype == torch.bfloat16 else "_f32"
+    parent = parent if dtype == torch.bfloat16 else None
     m, h = cfg.mla, cfg.n_heads
     kv, rope = m.kv_lora, m.qk_rope
     scale = 1 / math.sqrt(m.qk_nope + m.qk_rope)
@@ -1627,30 +1708,22 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
     bt = perm[:slots * pps].reshape(slots, pps).to(torch.int32).contiguous()
     c, start, width = 128, 896, 8
     row = perm[:width].to(torch.int32).contiguous()
-    err = {"paged_latent_decode": 0.0, "paged_latent_prefill": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        ck, kr = rnd(n_pool, page, kv, dtype=dtype), rnd(n_pool, page, rope,
-                                                         dtype=dtype)
-        dq = (rnd(slots, 1, h, kv, dtype=dtype),
-              rnd(slots, 1, h, rope, dtype=dtype))
-        e = max_err(K.paged_latent_decode(*dq, ck, kr, bt, lens,
-                                          scale=scale),
-                    ops.paged_latent_decode_attention(
-                        *dq, ck, kr, bt, lens, scale=scale,
-                        use_kernel=False))
-        assert e <= ATOL[dtype], ("paged_latent_decode", dtype, e)
-        pq = (rnd(1, c, h, kv, dtype=dtype), rnd(1, c, h, rope, dtype=dtype))
-        e2 = max_err(K.paged_latent_prefill(*pq, ck, kr, row, start,
-                                            scale=scale),
-                     ops.paged_latent_prefill_attention(
-                         *pq, ck, kr, row, start, scale=scale,
-                         use_kernel=False))
-        assert e2 <= ATOL[dtype], ("paged_latent_prefill", dtype, e2)
-        if dtype == torch.bfloat16:
-            err = {"paged_latent_decode": e, "paged_latent_prefill": e2}
+    ck, kr = rnd(n_pool, page, kv, dtype=dtype), rnd(n_pool, page, rope,
+                                                     dtype=dtype)
+    dq = (rnd(slots, 1, h, kv, dtype=dtype),
+          rnd(slots, 1, h, rope, dtype=dtype))
+    pq = (rnd(1, c, h, kv, dtype=dtype), rnd(1, c, h, rope, dtype=dtype))
+    err = {"paged_latent_decode": max_err(
+        K.paged_latent_decode(*dq, ck, kr, bt, lens, scale=scale),
+        ops.paged_latent_decode_attention(*dq, ck, kr, bt, lens,
+                                          scale=scale, use_kernel=False)),
+        "paged_latent_prefill": max_err(
+        K.paged_latent_prefill(*pq, ck, kr, row, start, scale=scale),
+        ops.paged_latent_prefill_attention(*pq, ck, kr, row, start,
+                                           scale=scale, use_kernel=False))}
+    assert all(e <= ATOL[dtype] for e in err.values()), err
     del ck, kr
 
-    dtype = torch.bfloat16
     ckp = rnd(n_layers, n_pool, page, kv, dtype=dtype)
     krp = rnd(n_layers, n_pool, page, rope, dtype=dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1726,9 +1799,10 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
     n_keys = int(lens.sum())
     flops, nbytes = W.latent_work(dq[0].numel(), dq[1].numel(), bt.numel(),
                                   lens.numel(), n_keys, n_keys, h, kv, rope,
-                                  2)
+                                  dq[0].element_size())
     decode = _with_library(_row(
-        "paged_latent_decode", "src/repro_torch/csrc/paged_latent_decode.cu",
+        "paged_latent_decode" + tag,
+        "src/repro_torch/csrc/paged_latent_decode.cu",
         "src/repro/kernels/attention/attention.py:463",
         err["paged_latent_decode"], ms, eager_ms, plain_ms, None, nbytes,
         flops, dtype), sdpa_decode)
@@ -1787,10 +1861,11 @@ def bench_latent_kernels(cfg, gen: torch.Generator, iters: int,
     del ckp, krp
     pairs = int(cmask.sum())
     flops, nbytes = W.latent_work(pq[0].numel(), pq[1].numel(), row.numel(),
-                                  0, s_ctx, pairs, h, kv, rope, 2)
+                                  0, s_ctx, pairs, h, kv, rope,
+                                  pq[0].element_size())
     ms, eager_ms = (sum(t[i] for t in turns["k"]) / 2 for i in (0, 1))
     prefill = _with_library(_row(
-        "paged_latent_prefill",
+        "paged_latent_prefill" + tag,
         "src/repro_torch/csrc/paged_latent_prefill.cu",
         "src/repro/kernels/attention/attention.py:270",
         err["paged_latent_prefill"], ms, eager_ms, plain_ms, None, nbytes,
@@ -2893,24 +2968,32 @@ def check_flash_same_as_parent(parent: ParentKernels,
     """With ``--parent``: the pair at Sq == Sk, causal, is bitwise the
     parent's (O, the log-sum-exp, dQ, dK and dV) in every family the
     parent shares: bf16 at D 16 on the CUDA cores, 64 and 128 on wgmma, at
-    ragged and whole lengths and G 1, 2 and 8; and float32 (the CUDA cores)
-    at D 64 and 128.  (bf16 at D 256 runs ``fwd_kernel<256>`` of
+    ragged and whole lengths and G 1, 2 and 8; and float32 at D 16 (the
+    CUDA cores).  float32 at D 64 and 128 runs ``wgmma_tf32x3``, whose
+    sums go in another order than the parent's CUDA cores where the parent
+    predates it: held within FLASH_TOL of the parent's (O over max(1, max
+    |parent|), dQ, dK, dV each of its own max), its log-sum-exp within
+    1e-5.  (bf16 at D 256 runs ``fwd_kernel<256>`` of
     ``flash_wgmma.cuh`` and the backward of ``flash_wgmma256.cuh``, which
     are not the parent's where it predates them: ``check_flash_small`` and
     the rows hold them to their plain versions.)  The current pair runs
-    with its rank count fixed at 1 (``ranks``); where the chooser splits a
-    case (its B 2 x Hkv 2 items fill few processors), the split family as
-    a caller gets it is held within FLASH_TOL of the parent's (dQ, dK, dV
-    each of its own max), its log-sum-exp within 1e-3: the split changes
-    the order of the sums.  Returns the cases checked and how many of
-    them split."""
+    with its rank count fixed at 1 (``ranks``), and so does the parent
+    where it has the split family; where the chooser splits a case (its
+    B 2 x Hkv 2 items fill few processors), the split family as a caller
+    gets it is held within FLASH_TOL of the parent's (dQ, dK, dV each of
+    its own max), its log-sum-exp within 1e-3: the split changes the
+    order of the sums.  Returns the cases checked, how many of them were
+    held within FLASH_TOL rather than bitwise (float32 at D 64 and 128),
+    and how many of them split."""
     from repro_torch.kernels.attention import attention as K
 
-    split = 0
+    split = near = 0
     cases = [(torch.bfloat16, d, s, g) for d, s, g in itertools.product(
         (16, 64, 128), (77, 1000, 4096), (1, 2, 8))]
     cases += [(torch.float32, d, s, g) for d, s, g in itertools.product(
-        (64, 128), (77, 1000), (1, 8))]
+        (16, 64, 128), (77, 1000), (1, 8))]
+    # bitwise at f32 D 64 and 128 only where the parent has that family
+    tf32_parent = parent.fwd_tf32 is not None
     for dtype, d, s, g in cases:
         b, hkv = 2, 2
         q, d_o = (torch.randn(b, s, hkv * g, d, generator=gen,
@@ -2924,11 +3007,20 @@ def check_flash_same_as_parent(parent: ParentKernels,
                                       ranks=1)
         o2, lse2, delta = (torch.empty_like(o), torch.empty_like(lse),
                            torch.empty_like(lse))
-        parent.forward(q, k, v, o2, lse2)
+        parent.forward(q, k, v, o2, lse2, ranks=1)
         g2 = [torch.empty_like(t) for t in (q, k, v)]
-        parent.backward(q, k, v, o, lse, d_o, delta, *g2)
+        parent.backward(q, k, v, o, lse, d_o, delta, *g2, ranks=1)
         torch.cuda.synchronize()
         case = (str(dtype), d, s, g)
+        if dtype == torch.float32 and d in (64, 128) and not tf32_parent:
+            err = max(_rel_err(o, o2), *(
+                _own_rel_err(a, c) for a, c in zip(grads, g2)))
+            assert err <= FLASH_TOL[dtype], \
+                ("float32 flash differs from the parent's", case, err)
+            assert float((lse - lse2).abs().max()) <= 1e-5, \
+                ("float32 flash log-sum-exp", case)
+            near += 1
+            continue
         assert torch.equal(o, o2) and torch.equal(lse, lse2), \
             ("flash forward differs from the parent's", case)
         assert all(torch.equal(a, c) for a, c in zip(grads, g2)), \
@@ -2949,7 +3041,7 @@ def check_flash_same_as_parent(parent: ParentKernels,
                 ("split flash differs from the parent's", case, ranks, err)
             assert float((lse3 - lse2).abs().max()) <= 1e-3, \
                 ("split flash log-sum-exp", case, ranks)
-    return len(cases), split
+    return len(cases), near, split
 
 
 # ---------------------------------------------------------------------------
@@ -3277,10 +3369,13 @@ def _flash_family(lib: str, dtype: torch.dtype, b: int, sq: int, sk: int,
     """The family the flash wrappers name for a whole-sequence call of
     ``lib`` at this shape: bf16 at D 64, 112 and 128 ``cluster`` where
     ``attention.split_ranks`` (the mirror of the library's chooser) splits
-    it on this card's processors, else ``wgmma`` (and at D 256); the CUDA
-    cores for float32 and other widths."""
+    it on this card's processors, else ``wgmma`` (and at D 256); float32
+    at D 64 and 128 ``wgmma_tf32x3`` (three TF32 products); the CUDA
+    cores for other widths."""
     from repro_torch.kernels.attention import attention as K
 
+    if dtype == torch.float32 and d in (64, 128):
+        return "wgmma_tf32x3"
     if dtype != torch.bfloat16 or d not in (64, 112, 128, 256):
         return "cuda_cores"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3299,8 +3394,8 @@ def _train_flash_counts(cfg, steps: int, batch: int, seq: int,
     shared block once a group for the hybrid, nothing for the SSM; each
     call under the family ``_flash_family`` names for its shape (bf16:
     ``wgmma``, or ``cluster`` where the items fill few processors, as
-    seamless's cross-attention and its decoder's backward do; float32 the
-    CUDA cores)."""
+    seamless's cross-attention and its decoder's backward do; float32
+    ``wgmma_tf32x3`` at D 64 and 128, the CUDA cores at other widths)."""
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cfg.family == "encdec":   # (calls an evaluation, Sq, Sk, causal)
         calls = [(cfg.n_enc_layers, src_len, src_len, False),
@@ -4128,8 +4223,8 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
     ``matmul_plan_f32`` (8192^3, p = 131 beside it),
     ``matmul_plan_f32_tall`` (65536 x 8192 x 512, p = 132) and the
     Strassen leaf (``matmul``, one 2048^3 product); their bound three TF32
-    products at 495 TFLOP/s (``kernels.work.matmul_tf32x3_work``),
-    ``bound_cuda_cores_ms`` one true f32 product at 67.  LCS: the whole
+    products at 495 TFLOP/s (``_row``), ``bound_cuda_cores_ms`` one true
+    f32 product at 67.  LCS: the whole
     n = 65,536 table at p = 132 (tiles of 256), one launch a call, bitwise
     over two calls, in turns with the parent's (given ``parent``: one
     launch an anti-diagonal, 511), its variant, p = 131, PO, PA and both
@@ -4153,12 +4248,6 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
 
     def mean(xs):
         return sum(xs) / len(xs)
-
-    def f32_bounds(row, nn, m, k):
-        """A float32 row's second bound: one true f32 product on the CUDA
-        cores (the row's own bound is three TF32 products)."""
-        row["bound_cuda_cores_ms"] = _bound(
-            *W.matmul_work(nn, m, k, 4)[::-1], torch.float32)[0]
 
     def plan_row(name, a, b, plan, work):
         """The plan kernel on (a, b) in turns: kernel, parent (given
@@ -4220,20 +4309,14 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
         parent_turn()
         kernel_turn()
         plain = _events_loop_ms(lambda: matmul_plan_ref(a, b, plan), 2)
-        if dtype == torch.float32:
-            flops, nbytes = W.matmul_tf32x3_work(nn, m, k)
-        else:
-            flops, nbytes = W.matmul_work(nn, m, k, a.element_size())
+        flops, nbytes = W.matmul_work(nn, m, k, a.element_size())
         row = _row(name, src, replaces, err, mean([t[0] for t in times["k"]]),
                    mean([t[1] for t in times["k"]]), plain, mean(times["l"]),
-                   nbytes, flops, dtype,
-                   PEAK_TF32_FLOPS if dtype == torch.float32 else None)
+                   nbytes, flops, dtype)
         row["ms_turns"] = [t[0] for t in times["k"]]
         row["library_ms_turns"] = times["l"]
         row["variant"] = plan_variant(a, b)
-        if dtype == torch.float32:
-            f32_bounds(row, nn, m, k)
-        else:
+        if dtype != torch.float32:
             row["library_views_ms"] = mean(times["lv"])
         if parent is not None:
             row["parent_bitwise"] = same
@@ -4306,11 +4389,10 @@ def bench_paco_kernels(gen: torch.Generator, iters: int,
                 mean([t[0] for t in times["k"]]),
                 mean([t[1] for t in times["k"]]),
                 _events_loop_ms(lambda: matmul_ref(a, b), 10),
-                mean(times["l"]), *W.matmul_tf32x3_work(ls, ls, ls)[::-1],
-                torch.float32, PEAK_TF32_FLOPS)
+                mean(times["l"]), *W.matmul_work(ls, ls, ls, 4)[::-1],
+                torch.float32)
     leaf["ms_turns"] = [t[0] for t in times["k"]]
     leaf["library_ms_turns"] = times["l"]
-    f32_bounds(leaf, ls, ls, ls)
     before = matmul_kernel.variants.copy()
     matmul_kernel(a, b)
     (leaf["variant"],) = matmul_kernel.variants - before
@@ -4580,20 +4662,32 @@ def _mesh_group():
     assert dist.get_backend() == "nccl"
 
 
-def _zero_serve_counts() -> None:
+def _serve_wrappers() -> dict:
     from repro_torch.kernels.attention import attention as K
-    for fn in (K.paged_flash_prefill, K.paged_flash_decode,
-               K.paged_flash_verify):
+    return {"paged_prefill": K.paged_flash_prefill,
+            "paged_decode": K.paged_flash_decode,
+            "paged_verify": K.paged_flash_verify}
+
+
+def _zero_counts(wrappers: dict) -> None:
+    for fn in wrappers.values():
         fn.launches = 0
         fn.variants.clear()
 
 
-def _serve_counts() -> dict:
-    from repro_torch.kernels.attention import attention as K
-    return {name: (fn.launches, dict(fn.variants)) for name, fn in (
-        ("paged_prefill", K.paged_flash_prefill),
-        ("paged_decode", K.paged_flash_decode),
-        ("paged_verify", K.paged_flash_verify))}
+def _counts(wrappers: dict) -> dict:
+    """{name: (launches, {variant: launches})} since ``_zero_counts``."""
+    return {name: (fn.launches, dict(fn.variants))
+            for name, fn in wrappers.items()}
+
+
+def _cuda_core_launches(wrappers: dict) -> dict:
+    """{name: launches} since ``_zero_counts``, every launch of the
+    CUDA-core family (the float32 runs of phases 4 and 6: rows 1f-4f)."""
+    counts = _counts(wrappers)
+    for name, (n, variants) in counts.items():
+        assert set(variants) == {"cuda_cores"}, (name, variants)
+    return {name: n for name, (n, _) in counts.items()}
 
 
 def mesh_train_step(cfg, mesh, seed: int) -> dict:
@@ -4682,7 +4776,7 @@ def mesh_serve(cfg, params, mesh, rng: np.random.Generator, seed: int,
                              ticks_per_dispatch=8, seed=seed, device="cuda",
                              mesh=m, **engine_kw)
         torch.cuda.synchronize()
-        _zero_serve_counts()
+        _zero_counts(_serve_wrappers())
         t0 = time.perf_counter()
         for i, p in enumerate(prompts):
             engine.submit(Request(uid=i, prompt=p,
@@ -4691,7 +4785,8 @@ def mesh_serve(cfg, params, mesh, rng: np.random.Generator, seed: int,
         torch.cuda.synchronize()
         engine.check_page_invariants()
         runs[m is not None] = {
-            "s": time.perf_counter() - t0, "counts": _serve_counts(),
+            "s": time.perf_counter() - t0,
+            "counts": _counts(_serve_wrappers()),
             "tokens": {r.uid: r.out for r in done},
             "decode_steps": engine.stats["decode_steps"],
             "accepted": engine.stats["accepted_tokens"]}
@@ -5178,13 +5273,23 @@ def main() -> int:
         log(f"[kernels] flash pair at Sq != Sk and D 112 ok: max err "
             f"{worst_sk}")
         if parent is not None:
-            n_cases, n_split = check_flash_same_as_parent(parent, gen_sk)
+            n_cases, n_near, n_split = check_flash_same_as_parent(parent,
+                                                                  gen_sk)
             log(f"[kernels] flash pair at Sq == Sk bitwise the parent's "
-                f"in {n_cases} cases at one rank; the split family within "
-                f"FLASH_TOL of it in the {n_split} of them it takes")
+                f"in {n_cases - n_near} cases at one rank, within "
+                f"FLASH_TOL of it in {n_near} (float32 at D 64 and 128); "
+                f"the split family within FLASH_TOL of it in the "
+                f"{n_split} of them it takes")
         rows += bench_flash(FLASH_OWN_SHAPES, gen_sk, FLASH_ITERS, parent)
         rows += bench_flash(FLASH_F32_SHAPES, gen_sk, FLASH_F32_ITERS, parent,
                             dtype=torch.float32)
+        # the serving kernels' float32 families (rows 1f-4f: the CUDA
+        # cores, as phases 4 and 6 launch them in float32), from a
+        # generator of their own
+        gen_f32 = torch.Generator(device="cuda").manual_seed(args.seed + 4)
+        rows += bench_kernels(cfg, gen_f32, ITERS, dtype=torch.float32)
+        rows += bench_latent_kernels(cfg_ds, gen_f32, ITERS,
+                                     dtype=torch.float32)
         if parent is not None:
             log("[parent] flash pair against the parent's: " + json.dumps(
                 flash_against_parent(parent, torch.Generator(
@@ -5228,10 +5333,15 @@ def main() -> int:
 
     # 4. one chunk and 8 ticks at full width, float32 then bf16
     rng = np.random.default_rng(args.seed)
+    f32_launches = {}   # rows 1f-4f: the float32 runs' launches
     with phase("qwen3 model"):
         cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+        f32_wrappers = {"paged_prefill_f32": K.paged_flash_prefill,
+                        "paged_decode_f32": K.paged_flash_decode}
+        _zero_counts(f32_wrappers)
         parity = full_width_parity(
             cfg32, init_params(cfg32, seed=args.seed, device="cuda"), rng)
+        f32_launches.update(_cuda_core_launches(f32_wrappers))
         log(f"[model] kernel path vs plain path: {json.dumps(parity)}")
         params = init_params(cfg, seed=args.seed, device="cuda")
         log(f"[model] {cfg.name} full width, {param_count(params)} params "
@@ -5322,8 +5432,14 @@ def main() -> int:
             params = init_params(cfg_d, seed=args.seed, device="cuda")
             log(f"[ds-model] {cfg_d.name} full width, {cfg_d.n_layers} "
                 f"layers, {param_count(params)} params {cfg_d.dtype}")
+            f32_wrappers = ({
+                "paged_latent_prefill_f32": K.paged_latent_prefill,
+                "paged_latent_decode_f32": K.paged_latent_decode}
+                if dtype == torch.float32 else {})
+            _zero_counts(f32_wrappers)
             moe_full_width_parity(cfg_d, params, rng,
                                   share_routing=dtype == torch.bfloat16)
+            f32_launches.update(_cuda_core_launches(f32_wrappers))
         if dtype == torch.float32:
             del params
             torch.cuda.empty_cache()
@@ -5409,7 +5525,7 @@ def main() -> int:
     with phase("qwen3 train-step parity"):
         result = train_step_parity(dataclasses.replace(
             cfg, param_dtype="float32", n_layers=TRAIN_F32_DEPTH), args.seed)
-        # row 5f's and 5bf's shape, on the CUDA cores
+        # row 5f's and 5bf's shape, on wgmma_tf32x3
         launches["flash_attention_f32"] = \
             result["flash"]["forward"]["launches"]
         launches["flash_attention_bwd_f32"] = \
@@ -5485,6 +5601,7 @@ def main() -> int:
     with phase("launch tooling"):
         launch_phase(args.seed, smi)
 
+    launches.update(f32_launches)
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

@@ -17,9 +17,11 @@ CARD = "NVIDIA H100 80GB HBM3, 700 W"
 # x 2 give the sheet's 67 TFLOP/s).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int32: 132 * 64 * 1.98e9}
-# Dense TF32 on the tensor cores: kernel 6's float32 products run there as
-# three TF32 products (``kernels.work.matmul_tf32x3_work``); every other
-# float32 product (torch.matmul, allow_tf32 off) stays at PEAK_FLOPS.
+# Dense TF32 on the tensor cores: the card's f32-accurate product is three
+# TF32 products there (``kernels.work.TF32_PASSES``), as kernels 5, 5b and
+# 6 run float32 and as chip_smoke.py bounds every float32 kernel; a true
+# f32 product on the CUDA cores (torch.matmul, allow_tf32 off) runs at
+# PEAK_FLOPS.
 PEAK_TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12          # HBM3
 NVLINK_BYTES_PER_S = 450e9         # NVLink 4, a direction, within a node

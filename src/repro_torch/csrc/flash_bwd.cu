@@ -57,8 +57,11 @@
 // padded to 128 (flash_wgmma.cuh says how); bf16 with D 256 on wgmma
 // with tiles of its own (dq256_kernel and dkv256_kernel in
 // flash_wgmma256.cuh: 128 query rows over 32-key tiles, 64 keys per CTA
-// whose two warpgroups split the four products); float32 and other widths
-// on CUDA cores (below), bound by shared-memory traffic.
+// whose two warpgroups split the four products); float32 at D 64 and 128
+// as three TF32 products on wgmma (flash_tf32.cuh, entry
+// flash_bwd_tf32x3: Delta, the pre-passes of K, V, K^T, Q, dO, Q^T and
+// dO^T's TF32 parts into its workspace, then dQ, dV and dK passes); other
+// widths on CUDA cores (below), bound by shared-memory traffic.
 // Both walk only the tiles the masks leave, and mask the ragged last
 // tile.
 //
@@ -72,6 +75,7 @@
 
 #include <type_traits>
 
+#include "flash_tf32.cuh"
 #include "flash_wgmma256.cuh"
 
 namespace {
@@ -522,6 +526,8 @@ int run_bwd(int dtype, const void* q, const void* k, const void* v,
             float softcap, int k_off, int ranks, cudaStream_t st) {
   const bool split_family = !KB && dtype == 1 && flash_wgmma::takes(d);
   if (ranks != 1 && !split_family) return (int)cudaErrorInvalidValue;
+  // float32 at D 64 and 128 is flash_bwd_tf32x3's (it needs a workspace)
+  if (dtype == 0 && flash_tf32::takes(d)) return (int)cudaErrorInvalidValue;
   if (ranks != 1)
     return flash_wgmma::dispatch_d(d, [&](auto dt) {
       return flash_wgmma::launch_bwd_ranked<decltype(dt)::value>(
@@ -587,15 +593,19 @@ int flash_bwd_ranks(int dtype, int d, int batch, int sq, int sk, int hq,
 // flash_dq_kernel, flash_dkv_kernel), 2 wgmma (delta_kernel, then
 // flash_wgmma.cuh at D 64, 112 and 128, flash_wgmma256.cuh at D 256), 3
 // the split family (dq_split2_kernel, Delta inside,
-// then dkv_kernel), numbered as flash_fwd_variant.
+// then dkv_kernel), 4 float32 at D 64 and 128 (delta_kernel, the
+// pre-passes, then flash_tf32.cuh's dQ, dV and dK passes, through
+// flash_bwd_tf32x3), numbered as flash_fwd_variant.
 int flash_bwd_variant(int dtype, int d, int ranks) {
+  if (dtype == 0 && flash_tf32::takes(d)) return 4;
   if (dtype == 1 && flash_wgmma::takes(d) && ranks > 1) return 3;
   return dtype == 1 && (flash_wgmma::takes(d) || d == flash_wgmma::kD256)
              ? 2
              : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16; q, k, v, o, d_o as in the forward
+// dtype: 0 = float32 (but for D 64 and 128: flash_bwd_tf32x3), 1 =
+// bfloat16; q, k, v, o, d_o as in the forward
 // (contiguous, the model's layout): sq query and sk key positions per batch
 // element, both >= 1, and a window that leaves the last query row a key
 // (sq - window < sk), as flash_fwd takes them; lse (B, Hq, Sq) f32 from
@@ -653,6 +663,42 @@ int flash_bwd_block(int dtype, const void* q, const void* k, const void* v,
                        static_cast<float*>(delta), dq, dk, dv, batch, sq, sk,
                        hq, hkv, d, scale, causal, window, softcap, k_off, 1,
                        static_cast<cudaStream_t>(stream));
+}
+
+// The workspace (floats) flash_bwd_tf32x3 takes at this shape: the TF32
+// lo parts of K, V, Q and dO (their hi parts are the tensors themselves)
+// and the hi and lo parts of K^T, Q^T and dO^T.
+long long flash_bwd_tf32x3_ws_floats(int d, int batch, int sq, int sk,
+                                     int hq, int hkv) {
+  return flash_tf32::bwd_ws_floats(d, batch, sq, sk, hq, hkv);
+}
+
+// float32 at D 64 and 128 (variant 4): either entry, kb 0 the whole
+// sequence (as flash_bwd, k_off 0) or kb 1 the key block at k_off (as
+// flash_bwd_block: o and lse the merged forward's).  Writes dq, dk, dv in
+// float32; delta (B, Hq, Sq) f32 scratch; ws 16-byte aligned, at least
+// flash_bwd_tf32x3_ws_floats floats.  Six launches: Delta, the two
+// pre-passes, then the dQ, dV and dK passes.
+int flash_bwd_tf32x3(int kb, const void* q, const void* k, const void* v,
+                     const void* o, const void* d_o, const void* lse,
+                     void* delta, void* ws, long long ws_floats, void* dq,
+                     void* dk, void* dv, int batch, int sq, int sk, int hq,
+                     int hkv, int d, float scale, int causal, int window,
+                     float softcap, int k_off, void* stream) {
+  if (bad_shape(d, hq, hkv, sq, sk) || !flash_tf32::takes(d) ||
+      (kb ? (k_off < 0 || window < 1)
+          : (k_off != 0 ||
+             (long long)sq - (long long)window >= (long long)sk)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_delta<float>(o, d_o, static_cast<float*>(delta),
+                                      batch, sq, hq, d, st);
+  if (err) return err;
+  auto run = kb ? flash_tf32::run_bwd<true> : flash_tf32::run_bwd<false>;
+  return run(q, k, v, d_o, static_cast<const float*>(lse),
+             static_cast<const float*>(delta), static_cast<float*>(ws),
+             ws_floats, dq, dk, dv, batch, sq, sk, hq, hkv, d, scale, causal,
+             window, softcap, k_off, st);
 }
 
 }  // extern "C"

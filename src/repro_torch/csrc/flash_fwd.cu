@@ -35,9 +35,12 @@
 //    128 query rows per CTA, 128-key tiles; D 112 padded to 128 in shared
 //    memory, its last 16 columns zero-filled by TMA; D 256 with 64-key
 //    tiles and O through shared memory, FwdTraits there), with f32
-//    accumulation and the softmax in the log2 domain.  float32 and
-//    other widths run the products on CUDA cores (flash_fwd_kernel below),
-//    bound by shared-memory traffic;
+//    accumulation and the softmax in the log2 domain.  float32 at D 64
+//    and 128 runs every product as three TF32 products on wgmma
+//    (flash_tf32.cuh, entry flash_fwd_tf32x3, which takes a workspace for
+//    K's and V^T's TF32 parts); other widths, in either type, run the
+//    products on CUDA cores (flash_fwd_kernel below), bound by
+//    shared-memory traffic;
 //  * where the (q block, kv head, batch) items of such a whole-sequence
 //    call fill few of the card's processors (seamless-m4t-medium's
 //    cross-attention, B 2 x 16 heads x 2 query blocks: 64 items on 132
@@ -67,7 +70,7 @@
 
 #include <type_traits>
 
-#include "flash_wgmma.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -293,6 +296,8 @@ int run_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
             int ranks, cudaStream_t st) {
   const bool split_family = !KB && dtype == 1 && flash_wgmma::takes(d);
   if (ranks != 1 && !split_family) return (int)cudaErrorInvalidValue;
+  // float32 at D 64 and 128 is flash_fwd_tf32x3's (it needs a workspace)
+  if (dtype == 0 && flash_tf32::takes(d)) return (int)cudaErrorInvalidValue;
   if (ranks != 1)
     return flash_wgmma::dispatch_d(d, [&](auto dt) {
       return flash_wgmma::launch_fwd_ranked<decltype(dt)::value>(
@@ -347,16 +352,19 @@ int flash_fwd_ranks(int dtype, int d, int batch, int sq, int sk, int hq,
 // The kernel a call at this dtype, D and rank count (flash_fwd_ranks, or
 // the key-block entry's 1) launches: 0 CUDA cores (flash_fwd_kernel), 2
 // wgmma (flash_wgmma.cuh's fwd_kernel at D 64, 112, 128 and 256), 3 the
-// split family (fwd_split2_kernel), numbered as the
-// other libraries' families (1 is mma.sync).
+// split family (fwd_split2_kernel), 4 float32 at D 64 and 128 as three
+// TF32 products (flash_tf32.cuh, through flash_fwd_tf32x3), numbered as
+// the other libraries' families (1 is mma.sync).
 int flash_fwd_variant(int dtype, int d, int ranks) {
+  if (dtype == 0 && flash_tf32::takes(d)) return 4;
   if (dtype == 1 && flash_wgmma::takes(d) && ranks > 1) return 3;
   return dtype == 1 && (flash_wgmma::takes(d) || d == flash_wgmma::kD256)
              ? 2
              : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  sq query and sk key positions per
+// dtype: 0 = float32 (but for D 64 and 128: flash_fwd_tf32x3), 1 =
+// bfloat16.  sq query and sk key positions per
 // batch element, both >= 1.  causal: 0 or 1.  A window of INT32_MAX means
 // none; a window that leaves the last query row no key (sq - window >= sk)
 // is refused.  softcap <= 0 means none.  D must be a multiple of 8 and at
@@ -405,6 +413,37 @@ int flash_fwd_block(int dtype, const void* q, const void* k, const void* v,
   return run_fwd<true>(dtype, q, k, v, o, static_cast<float*>(lse), batch,
                        sq, sk, hq, hkv, d, scale, causal, window, softcap,
                        k_off, 1, static_cast<cudaStream_t>(stream));
+}
+
+// The workspace (floats) flash_fwd_tf32x3 takes at this shape: K's TF32
+// lo part (its hi part is K itself) and V^T's hi and lo (positions
+// rounded up to 8).
+long long flash_fwd_tf32x3_ws_floats(int d, int batch, int sq, int sk,
+                                     int hq, int hkv) {
+  (void)sq;
+  (void)hq;
+  return flash_tf32::fwd_ws_floats(d, batch, sk, hkv);
+}
+
+// float32 at D 64 and 128 (variant 4): either entry, kb 0 the whole
+// sequence (as flash_fwd, k_off 0) or kb 1 the key block at k_off (as
+// flash_fwd_block, O f32 either way).  ws 16-byte aligned, at least
+// flash_fwd_tf32x3_ws_floats floats (ws_floats says how many it has).
+// Three launches: the pre-passes of K and V^T, then the walk.
+int flash_fwd_tf32x3(int kb, const void* q, const void* k, const void* v,
+                     void* o, void* lse, void* ws, long long ws_floats,
+                     int batch, int sq, int sk, int hq, int hkv, int d,
+                     float scale, int causal, int window, float softcap,
+                     int k_off, void* stream) {
+  if (bad_shape(d, hq, hkv, sq, sk) || !flash_tf32::takes(d) ||
+      (kb ? (k_off < 0 || window < 1)
+          : (k_off != 0 ||
+             (long long)sq - (long long)window >= (long long)sk)))
+    return (int)cudaErrorInvalidValue;
+  auto run = kb ? flash_tf32::run_fwd<true> : flash_tf32::run_fwd<false>;
+  return run(q, k, v, o, static_cast<float*>(lse), static_cast<float*>(ws),
+             ws_floats, batch, sq, sk, hq, hkv, d, scale, causal, window,
+             softcap, k_off, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

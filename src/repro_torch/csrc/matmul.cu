@@ -79,10 +79,12 @@
 //    whole product as one cuboid, a persistent grid of at most one CTA per
 //    SM taking every gridDim.x-th 128 x 128 tile.
 #include "flash_wgmma.cuh"
+#include "tf32_wgmma.cuh"
 
 namespace {
 
 using namespace paged;
+using namespace tf32x3;   // tf32_rna, split_tf32, mma_tf32_n128
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
@@ -632,14 +634,10 @@ plan_mma_kernel(const unsigned short* __restrict__ a,
 
 // ---- variant "wgmma_tf32x3": float32 as three TF32 products on wgmma
 //
-// The tensor cores have no f32 mode.  Each operand element x is split into
-// hi = x rounded to TF32 and lo = (x - hi) rounded to TF32, and each
-// product accumulates A_lo B_hi, A_hi B_lo and A_hi B_hi (small terms
-// first) in one set of f32 accumulators; the dropped A_lo B_lo is 2^-22 of
-// the product.  wgmma reads a TF32 operand as an f32 bit pattern and
-// ignores its low 13 bits, so both parts are rounded explicitly
-// (cvt.rna).  wgmma takes TF32 operands K-major only (the transpose bits
-// are for 16-bit types, and TMA does not transpose), so a pre-pass
+// Each operand element is split into a TF32 hi and lo part and each
+// product takes three TF32 products, A_lo B_hi + A_hi B_lo + A_hi B_hi
+// (tf32_wgmma.cuh, shared with the flash pair's float32 family, says how).
+// wgmma takes TF32 operands K-major only, so a pre-pass
 // (split_bt_kernel) writes B^T's hi and lo parts, (m x kp) each, kp = k
 // rounded up to 4 (TMA's 16-byte row pitch), into the caller's workspace;
 // A (n x k, K-major as it is) streams at f32 size through TMA where its row
@@ -673,21 +671,6 @@ constexpr int kTBar = kTStages * kTStage;        // full, then empty barriers
 constexpr size_t kTSmem = kTBar + 16 * kTStages + 1024;  // + alignment
 constexpr int kTKAlign = 4;   // a TMA box starts a row on 16 bytes
 constexpr int kTPromote = 4;  // k-steps wgmma sums before the f32 total
-
-// x rounded to TF32, to nearest with ties away from zero (cvt.rna), as an
-// f32 bit pattern whose low 13 bits are 0.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x -> its TF32 hi part and the remainder's TF32 lo part.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
 
 // B (k x m, row stride ldb) -> B^T's hi and lo parts, (m x kp) each,
 // zero in columns [k, kp): a 32 x 32 block a CTA, through shared memory
@@ -725,46 +708,6 @@ pad_a_kernel(const float* __restrict__ a, long long lda, int n, int k,
     const int c = (int)(i - r * kp);
     out[i] = c < k ? a[r * lda + c] : 0.f;
   }
-}
-
-// d (64 x 128, f32) {=, +=} A (64 x 8, TF32 in registers: a0 (row g,
-// column t4), a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, t4 + 4) of the
-// warp's 16 rows) B (8 x 128, TF32 in shared memory through a K-major
-// descriptor).
-__device__ __forceinline__ void mma_tf32_n128(float* d, const uint32_t* a,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
 }
 
 // The walk.  Plan mode (pl.proc_off set): CTA i walks its processor's

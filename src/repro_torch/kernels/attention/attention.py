@@ -17,18 +17,23 @@ against that bound: bf16 at D 64, 112 (padded to 128 in shared memory),
 128 and 256 runs every product on ``wgmma`` with TMA loads, a producer
 warp and a persistent grid (``csrc/flash_wgmma.cuh``; at D 256, gemma2-2b's
 width, with tiles of its own, and a backward whose work is divided anew,
-``csrc/flash_wgmma256.cuh``); float32 and other widths run on the CUDA
-cores.  Where a whole-sequence call's (query block, kv head, batch) items
-fill few of the card's processors (seamless-m4t-medium's cross-attention),
-bf16 at D 64, 112 and 128 takes the split family instead: one cluster of
-2 CTAs an item, its ranks walking shares of the item's key tiles and
-merging on chip, the backward in two launches (``split_ranks``).  Each
+``csrc/flash_wgmma256.cuh``); float32 at D 64 and 128 runs every product
+as three TF32 products on ``wgmma`` (``csrc/flash_tf32.cuh``, through the
+entries ``flash_fwd_tf32x3`` and ``flash_bwd_tf32x3``, which take a
+workspace of the operands' TF32 parts that the wrappers allocate: the
+backward as Delta, pre-passes and dQ, dV and dK passes); other widths run
+on the CUDA cores.  Where a whole-sequence call's (query block, kv head,
+batch) items fill few of the card's processors (seamless-m4t-medium's
+cross-attention), bf16 at D 64, 112 and 128 takes the split family
+instead: one cluster of 2 CTAs an item, its ranks walking shares of the
+item's key tiles and merging on chip, the backward in two launches
+(``split_ranks``).  Each
 K/V tile is shared by the G query heads of its kv head, and only the
 tiles the causal and window masks leave are walked (each source's header
 says more).  Besides ``launches``, each of the two wrappers counts its
-calls by kernel family in ``variants`` (``"wgmma"``, ``"cluster"`` or
-``"cuda_cores"``), as the library reports the family it takes for the
-dtype, D and shape.
+calls by kernel family in ``variants`` (``"wgmma"``, ``"cluster"``,
+``"wgmma_tf32x3"`` or ``"cuda_cores"``), as the library reports the
+family it takes for the dtype, D and shape.
 
 Sequence-parallel attention (``repro``'s cut of the key sequence, where
 the model axis divides neither head count): ``flash_attention_block`` and
@@ -86,7 +91,9 @@ the one check ``work.tracing`` before the launch records the same work
 when a counter is open.  Where the work depends on the data (the paged
 kernels' lengths), a real call counts what its lengths need and a fake
 call the most its block tables allow.  The paged kernels' key-split
-scratch is sized by the library and is left out of the fake path.
+scratch is sized by the library and is left out of the fake path; the
+flash pair's float32 workspace is sized here (``tf32x3_ws_floats``) and
+allocated on both paths.
 """
 from __future__ import annotations
 
@@ -103,6 +110,7 @@ from repro_torch.kernels import work as _work
 INT32_MAX = 2 ** 31 - 1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
 
 def _limit(lib_name: str, fn_name: str) -> int:
@@ -156,8 +164,11 @@ PREFILL_VARIANTS = ("cuda_cores", "mma_sync")
 DECODE_VARIANTS = ("cuda_cores", "mma_sync")
 # The kernel families of the dense flash libraries and of the latent pair,
 # by the number their ``<lib>_variant`` returns ("cluster": the flash
-# pair's split family, whose clusters split each item's key range).
-FLASH_VARIANTS = ("cuda_cores", "mma_sync", "wgmma", "cluster")
+# pair's split family, whose clusters split each item's key range;
+# "wgmma_tf32x3": the flash pair's float32 family at D 64 and 128, every
+# product three TF32 products on wgmma).
+FLASH_VARIANTS = ("cuda_cores", "mma_sync", "wgmma", "cluster",
+                  "wgmma_tf32x3")
 # The verify entries': the split families of the prefill kernels, and the
 # one-launch clusters (paged_latent_verify_variant numbers them so)
 VERIFY_VARIANTS = ("cuda_cores", "mma_sync", "cluster")
@@ -689,6 +700,85 @@ def _flash_ranks(lib: str, dtype: torch.dtype, b: int, sq: int, sk: int,
         _DTYPES[dtype], d, b, sq, sk, hq, hkv, int(bool(causal)), window)
 
 
+# The head_dims of the flash pair's float32 family (csrc/flash_tf32.cuh's
+# ``takes``)
+TF32X3_WIDTHS = (64, 128)
+
+
+def _tf32x3(dtype: torch.dtype, d: int) -> bool:
+    """Whether a flash call at this dtype and D runs the float32 family
+    (``"wgmma_tf32x3"``, as ``<lib>_variant`` numbers it), which takes a
+    workspace through the entries ``<lib>_tf32x3``; decided here, with no
+    library loaded, so that a fake call takes the same path."""
+    return dtype == torch.float32 and d in TF32X3_WIDTHS
+
+
+def tf32x3_ws_floats(lib: str, b: int, sq: int, sk: int, hq: int, hkv: int,
+                     d: int) -> int:
+    """The float32 family's workspace in floats, as
+    ``<lib>_tf32x3_ws_floats`` counts it (``csrc/flash_tf32.cuh``): the
+    TF32 lo parts of the score products' B operands, whose hi parts are
+    the tensors themselves (K forward; K, V, Q and dO backward), and the hi
+    and lo parts of the transposed operands, positions rounded up to 8
+    (V^T forward; K^T, Q^T and dO^T backward)."""
+    nk = b * sk * hkv * d
+    tk = 2 * b * hkv * d * (-(-sk // 8) * 8)
+    if lib == "flash_fwd":
+        return nk + tk
+    return 2 * nk + tk + 2 * b * sq * hq * d + 4 * b * hq * d * (
+        -(-sq // 8) * 8)
+
+
+def _tf32x3_ws(lib: str, q: torch.Tensor, k: torch.Tensor
+               ) -> torch.Tensor | None:
+    """The float32 family's workspace for a call of ``lib`` on q and k,
+    allocated before the call's work is recorded, so that a fake call's
+    memory counts it as a real one does; None for the other families."""
+    b, sq, hq, d = q.shape
+    if not _tf32x3(q.dtype, d):
+        return None
+    return torch.empty(tf32x3_ws_floats(lib, b, sq, k.shape[1], hq,
+                                        k.shape[2], d),
+                       dtype=torch.float32, device=q.device)
+
+
+_FWD_TF32X3 = (_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F,
+               _I, _I, _F, _I, _P)
+_BWD_TF32X3 = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I,
+               _I, _I, _I, _I, _F, _I, _I, _F, _I, _P)
+
+
+def _fwd_tf32x3(q, k, v, out, lse, ws, kb: int, causal: bool, window: int,
+                softcap: float, k_off: int, fn=None) -> int:
+    """``flash_fwd_tf32x3`` (kb 0 the whole sequence, 1 the key block at
+    k_off) with workspace ``ws`` on the current stream, or ``fn`` (the
+    entry of another build of the library, bound to ``_FWD_TF32X3``);
+    returns its CUDA error."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    fn = fn or _fn("flash_fwd", "flash_fwd_tf32x3", _FWD_TF32X3)
+    return fn(kb, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              lse.data_ptr(), ws.data_ptr(), ws.numel(), b, sq, sk, hq, hkv,
+              d, 1.0 / math.sqrt(d), int(bool(causal)), window, softcap,
+              k_off, torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _bwd_tf32x3(q, k, v, o, lse, d_o, delta, dq, dk, dv, ws, kb: int,
+                causal: bool, window: int, softcap: float, k_off: int,
+                fn=None) -> int:
+    """``flash_bwd_tf32x3`` (kb, ws and fn as ``_fwd_tf32x3``'s, fn bound
+    to ``_BWD_TF32X3``); returns its CUDA error."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    fn = fn or _fn("flash_bwd", "flash_bwd_tf32x3", _BWD_TF32X3)
+    return fn(kb, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              d_o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              ws.data_ptr(), ws.numel(), dq.data_ptr(), dk.data_ptr(),
+              dv.data_ptr(), b, sq, sk, hq, hkv, d, 1.0 / math.sqrt(d),
+              int(bool(causal)), window, softcap, k_off,
+              torch.cuda.current_stream(q.device).cuda_stream)
+
+
 # The cluster sizes of the split family (csrc/flash_wgmma.cuh's
 # fwd_split*_kernel and dq_split*_kernel, up to its kMaxRanks), largest
 # first
@@ -795,6 +885,7 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = _check_window(window, sq, sk)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    ws = _tf32x3_ws(lib, q, k)
     if _work.tracing(q) and _work.record_call(
             lib, q, lambda fake: _work.flash_fwd_work(
                 b, sq, sk, hq, hkv, d, q.element_size(), causal=causal,
@@ -802,18 +893,28 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out, lse
     args = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _F,
             _P)
-    if ranks is None:
-        fn = _fn(lib, lib, args)
-        r = _flash_ranks(lib, q.dtype, b, sq, sk, hq, hkv, d, causal, w)
+    if ws is not None:
+        if ranks not in (None, 1):
+            raise ValueError(f"the float32 family takes no key split, got "
+                             f"ranks={ranks}")
+        r = 1
+        with torch.cuda.device(q.device):
+            err = _fwd_tf32x3(q, k, v, out, lse, ws, 0, causal, w,
+                              _softcap(logit_cap), 0)
     else:
-        fn = functools.partial(_fn(lib, f"{lib}_split", (_I, *args)), ranks)
-        r = ranks
-    with torch.cuda.device(q.device):
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), b, sq, sk, hq, hkv, d,
-                 1.0 / math.sqrt(d), int(bool(causal)), w,
-                 _softcap(logit_cap),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        if ranks is None:
+            fn = _fn(lib, lib, args)
+            r = _flash_ranks(lib, q.dtype, b, sq, sk, hq, hkv, d, causal, w)
+        else:
+            fn = functools.partial(_fn(lib, f"{lib}_split", (_I, *args)),
+                                   ranks)
+            r = ranks
+        with torch.cuda.device(q.device):
+            err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, sk,
+                     hq, hkv, d, 1.0 / math.sqrt(d), int(bool(causal)), w,
+                     _softcap(logit_cap),
+                     torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     flash_attention.launches += 1
@@ -867,6 +968,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("o, d_o and lse must be 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    ws = _tf32x3_ws(lib, q, k)
     if _work.tracing(q) and _work.record_call(
             lib, q, lambda fake: _work.flash_bwd_work(
                 b, sq, sk, hq, hkv, d, q.element_size(), causal=causal,
@@ -874,19 +976,30 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     args = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
             _I, _F, _I, _I, _F, _P)
-    if ranks is None:
-        fn = _fn(lib, lib, args)
-        r = _flash_ranks(lib, q.dtype, b, sq, sk, hq, hkv, d, causal, w)
+    if ws is not None:
+        if ranks not in (None, 1):
+            raise ValueError(f"the float32 family takes no key split, got "
+                             f"ranks={ranks}")
+        r = 1
+        with torch.cuda.device(q.device):
+            err = _bwd_tf32x3(q, k, v, o, lse, d_o, delta, dq, dk, dv, ws, 0,
+                              causal, w, _softcap(logit_cap), 0)
     else:
-        fn = functools.partial(_fn(lib, f"{lib}_split", (_I, *args)), ranks)
-        r = ranks
-    with torch.cuda.device(q.device):
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 o.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, sq, sk, hq, hkv, d, 1.0 / math.sqrt(d),
-                 int(bool(causal)), w, _softcap(logit_cap),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        if ranks is None:
+            fn = _fn(lib, lib, args)
+            r = _flash_ranks(lib, q.dtype, b, sq, sk, hq, hkv, d, causal, w)
+        else:
+            fn = functools.partial(_fn(lib, f"{lib}_split", (_I, *args)),
+                                   ranks)
+            r = ranks
+        with torch.cuda.device(q.device):
+            err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), d_o.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d,
+                     1.0 / math.sqrt(d), int(bool(causal)), w,
+                     _softcap(logit_cap),
+                     torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     flash_attention_bwd.launches += 1
@@ -987,19 +1100,25 @@ def flash_attention_block(q: torch.Tensor, k: torch.Tensor,
     w = _window(window)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    ws = _tf32x3_ws(lib, q, k)
     if _work.tracing(q) and _work.record_call(
             "flash_fwd_block", q, lambda fake: _work.flash_fwd_work(
                 b, sq, sk, hq, hkv, d, q.element_size(), causal=causal,
                 window=window, k_off=k_off)):
         return out, lse
-    fn = _fn(lib, "flash_fwd_block", (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _I, _F, _I, _I, _F, _I, _P))
     with torch.cuda.device(q.device):
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), b, sq, sk, hq, hkv, d,
-                 1.0 / math.sqrt(d), int(bool(causal)), w,
-                 _softcap(logit_cap), k_off,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        if ws is not None:
+            err = _fwd_tf32x3(q, k, v, out, lse, ws, 1, causal, w,
+                              _softcap(logit_cap), k_off)
+        else:
+            fn = _fn(lib, "flash_fwd_block", (_I, _P, _P, _P, _P, _P, _I, _I,
+                                              _I, _I, _I, _I, _F, _I, _I, _F,
+                                              _I, _P))
+            err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, sk,
+                     hq, hkv, d, 1.0 / math.sqrt(d), int(bool(causal)), w,
+                     _softcap(logit_cap), k_off,
+                     torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_fwd_block launch failed: CUDA error {err}")
     flash_attention_block.launches += 1
@@ -1050,21 +1169,27 @@ def flash_attention_block_bwd(q: torch.Tensor, k: torch.Tensor,
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    ws = _tf32x3_ws(lib, q, k)
     if _work.tracing(q) and _work.record_call(
             "flash_bwd_block", q, lambda fake: _work.flash_bwd_work(
                 b, sq, sk, hq, hkv, d, q.element_size(), causal=causal,
                 window=window, k_off=k_off)):
         return dq, dk, dv
-    fn = _fn(lib, "flash_bwd_block", (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                                      _F, _I, _P))
     with torch.cuda.device(q.device):
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 o.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, sq, sk, hq, hkv, d, 1.0 / math.sqrt(d),
-                 int(bool(causal)), w, _softcap(logit_cap), k_off,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        if ws is not None:
+            err = _bwd_tf32x3(q, k, v, o, lse, d_o, delta, dq, dk, dv, ws, 1,
+                              causal, w, _softcap(logit_cap), k_off)
+        else:
+            fn = _fn(lib, "flash_bwd_block", (_I, _P, _P, _P, _P, _P, _P, _P,
+                                              _P, _P, _P, _I, _I, _I, _I, _I,
+                                              _I, _F, _I, _I, _F, _I, _P))
+            err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), d_o.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d,
+                     1.0 / math.sqrt(d), int(bool(causal)), w,
+                     _softcap(logit_cap), k_off,
+                     torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_bwd_block launch failed: CUDA error {err}")
     flash_attention_block_bwd.launches += 1

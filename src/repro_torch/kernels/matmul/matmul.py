@@ -38,7 +38,7 @@ plain versions stay true float32.
 
 What bounds them on the card: operations, 2 n m k flops at 989 TFLOP/s in
 bf16; in float32 3 x 2 n m k TF32 flops at 495 TFLOP/s
-(``kernels.work.matmul_tf32x3_work``).  ``csrc/matmul.cu``'s header says
+(``kernels.work.TF32_PASSES``).  ``csrc/matmul.cu``'s header says
 what the designs do about it.
 
 The wrappers check device, dtype, shape and strides and raise on anything

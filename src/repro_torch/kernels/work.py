@@ -112,16 +112,12 @@ def matmul_work(n: int, m: int, k: int, esize: int) -> tuple[float, int]:
     return 2.0 * n * m * k, esize * (n * k + k * m + n * m)
 
 
-TF32_PASSES = 3   # A_lo B_hi + A_hi B_lo + A_hi B_hi
-
-
-def matmul_tf32x3_work(n: int, m: int, k: int) -> tuple[float, int]:
-    """Kernel 6 in float32 (variant ``wgmma_tf32x3``): TF32_PASSES
-    products of 2 n m k TF32 flops each (at ``card.PEAK_TF32_FLOPS``);
-    reads A and B, writes C, in float32.  ``matmul_work`` stays the
-    product's own 2 n m k, which the launch counters record."""
-    flops, nbytes = matmul_work(n, m, k, 4)
-    return TF32_PASSES * flops, nbytes
+# The card's f32-accurate product: three TF32 products on the tensor cores,
+# A_lo B_hi + A_hi B_lo + A_hi B_hi (at ``card.PEAK_TF32_FLOPS``), for
+# kernels 5, 5b and 6 in float32 (variant ``wgmma_tf32x3``) and the bound
+# of every float32 product.  The formulas here stay the products' own
+# flops, which the launch counters record.
+TF32_PASSES = 3
 
 
 LCS_OPS_PER_CELL = 4   # compare, add, max and running max per DP cell

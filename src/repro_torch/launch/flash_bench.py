@@ -33,7 +33,16 @@ time and profile them, for iterating on ``csrc/flash_wgmma.cuh``.
    rank count the library picks and at 1 and 2 ranks
    (``flash_fwd_split``, ``flash_bwd_split``) from CUDA graphs, each
    launch of the backward timed alone by ``torch.profiler``.
-6. With ``--ablate``: copies of the two flash libraries built into
+6. The float32 family (``csrc/flash_tf32.cuh``, variant
+   ``wgmma_tf32x3``: f32 at D 64 and 128 as three TF32 products): small
+   geometries (G 1 to 8, Sq != Sk, masks, softcaps, both entries) against
+   the plain versions within FLASH_TOL_F32 (O over max(1, max |plain|),
+   each gradient over its own max), the backward bitwise equal over two
+   calls; then rows 5f and 5bf (row 5's shape and seamless's cross
+   shape in float32) from CUDA graphs, each launch of the pair (the
+   pre-passes, the forward's walk; Delta, the dQ, dV and dK passes) timed
+   alone by ``torch.profiler``.
+7. With ``--ablate``: copies of the two flash libraries built into
    ``build/flash_bench/`` and called through their split entries: one
    with clusters of 4 (``FLASH_MAX_RANKS`` 4), at each split shape
    against the unchanged copy at 2 ranks (O and dQ within FLASH_TOL of
@@ -44,6 +53,11 @@ time and profile them, for iterating on ``csrc/flash_wgmma.cuh``.
    (partials staged, the cluster's barriers kept, nothing read or
    stored) and without the walk (every rank's share of the key tiles
    empty).  The ablated copies compute garbage and are not checked.
+   And copies for each of ``csrc/flash_tf32.cuh``'s macros
+   (``TF32_ABLATIONS``), called through ``flash_fwd_tf32x3`` and
+   ``flash_bwd_tf32x3`` at rows 5f's and 5bf's shapes beside the
+   unchanged copy: one TF32 product a product (A_hi B_hi alone; its
+   error printed), no products, no pre-passes.
 
 Exits 1 if a check fails, 2 without a card.  ``chip_smoke.py`` holds the
 kernels to the same bounds at more shapes and times them beside SDPA.
@@ -59,6 +73,7 @@ import sys
 import torch
 
 FLASH_TOL = 2e-2   # bf16, relative to max(1, max |plain|)
+FLASH_TOL_F32 = 1e-4   # float32 (chip_smoke.FLASH_TOL)
 SMS = 132          # the H100's SMs: the persistent grid's size
 CASES = [  # (B, G, D, S, options); Hkv 2
     (1, 1, 64, 128, {"causal": False}),
@@ -312,6 +327,23 @@ ABLATIONS = {"no_products": "FLASH_ABLATE_NO_PRODUCTS",
              "no_loads": "FLASH_ABLATE_NO_LOADS",
              "no_merge": "FLASH_ABLATE_NO_MERGE",
              "no_walk": "FLASH_ABLATE_NO_WALK"}
+# ... and of csrc/flash_tf32.cuh's (the float32 family)
+TF32_ABLATIONS = {"tf32_one_pass": "FLASH_ABLATE_ONE_PASS",
+                  "tf32_no_products": "FLASH_ABLATE_NO_PRODUCTS",
+                  "tf32_no_prepass": "FLASH_ABLATE_NO_PREPASS"}
+# Rows 5f and 5bf: (B, Hq, Hkv, Sq, Sk, D, causal)
+F32_SHAPES = {"row5": (2, 16, 8, 4096, 4096, 128, True),
+              "cross": (2, 16, 16, 256, 1024, 64, False)}
+F32_CASES = [  # (B, Hq, Hkv, Sq, Sk, D, options)
+    (2, 4, 2, 77, 77, 64, {"causal": True}),
+    (2, 4, 2, 200, 200, 128, {"causal": True}),
+    (1, 8, 1, 300, 300, 128, {"causal": False, "window": 60,
+                              "logit_cap": 30.0}),
+    (2, 6, 2, 130, 333, 64, {"causal": True}),
+    (2, 6, 2, 333, 130, 128, {"causal": False, "logit_cap": 20.0}),
+    (2, 16, 16, 256, 1024, 64, {"causal": False}),
+    (1, 4, 4, 1000, 1000, 128, {"causal": True, "window": 100}),
+]
 
 
 def _graph_ms(fn, n: int = 100) -> float:
@@ -385,6 +417,96 @@ def time_split(gen: torch.Generator) -> None:
                   + ", ".join(f"{n} {ms:.4f} ms" for n, ms in per.items()))
 
 
+def _f32_inputs(gen: torch.Generator, b, hq, hkv, sq, sk, d):
+    q, d_o = (torch.randn(b, sq, hq, d, generator=gen, device="cuda")
+              for _ in range(2))
+    k, v = (torch.randn(b, sk, hkv, d, generator=gen, device="cuda")
+            for _ in range(2))
+    return q, k, v, d_o
+
+
+def check_f32(gen: torch.Generator) -> bool:
+    """The float32 family on F32_CASES, both entries (the key block from a
+    third of Sk on), against the plain versions."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ref
+
+    ok = True
+    for b, hq, hkv, sq, sk, d, kw in F32_CASES:
+        q, k, v, d_o = _f32_inputs(gen, b, hq, hkv, sq, sk, d)
+        o, lse = K._flash_fwd(q, k, v, causal=kw["causal"],
+                              window=kw.get("window"),
+                              logit_cap=kw.get("logit_cap"))
+        grads = K.flash_attention_bwd(q, k, v, o, lse, d_o, **kw)
+        again = K.flash_attention_bwd(q, k, v, o, lse, d_o, **kw)
+        tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+        errs = [_rel(o, ref.attention_ref(*tr[:3], **kw).transpose(1, 2))]
+        errs += [_own_rel(a, w.transpose(1, 2)) for a, w in
+                 zip(grads, ref.attention_ref_grad(*tr, **kw))]
+        bitwise = all(torch.equal(a, c) for a, c in zip(grads, again))
+        off = sk // 3
+        kb, vb = k[:, off:].contiguous(), v[:, off:].contiguous()
+        ob, lb = K.flash_attention_block(q, kb, vb, k_off=off, **kw)
+        want_o, want_l = ref.attention_block_ref(q, kb, vb, k_off=off, **kw)
+        same_inf = torch.equal(torch.isinf(lb), torch.isinf(want_l))
+        gb = K.flash_attention_block_bwd(q, kb, vb, o, lse, d_o, k_off=off,
+                                         **kw)
+        want_g = ref.attention_block_ref_grad(q, kb, vb, o, lse, d_o,
+                                              k_off=off, **kw)
+        berrs = [_rel(ob, want_o)] + [_own_rel(x, w)
+                                      for x, w in zip(gb, want_g)]
+        ok &= bitwise and same_inf and max(errs + berrs) <= FLASH_TOL_F32
+        print(f"[f32] B {b} Hq {hq} Hkv {hkv} Sq {sq} Sk {sk} D {d} {kw}: "
+              f"o/dq/dk/dv {' '.join(f'{e:.3g}' for e in errs)} bitwise "
+              f"{bitwise}; key block from {off}: "
+              f"{' '.join(f'{e:.3g}' for e in berrs)} -inf rows {same_inf}")
+    print(f"[f32] launches by variant: forward "
+          f"{dict(K.flash_attention.variants)}, backward "
+          f"{dict(K.flash_attention_bwd.variants)}")
+    return ok
+
+
+def time_f32(gen: torch.Generator) -> None:
+    """Rows 5f and 5bf: the pair from CUDA graphs, two turns, and each
+    launch alone (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.attention import attention as K
+
+    for tag, (b, hq, hkv, sq, sk, d, causal) in F32_SHAPES.items():
+        q, k, v, d_o = _f32_inputs(gen, b, hq, hkv, sq, sk, d)
+        o, lse = K._flash_fwd(q, k, v, causal=causal, window=None,
+                              logit_cap=None)
+
+        def fwd():
+            K._flash_fwd(q, k, v, causal=causal, window=None,
+                         logit_cap=None)
+
+        def bwd():
+            K.flash_attention_bwd(q, k, v, o, lse, d_o, causal=causal)
+
+        n = 5 if tag == "row5" else 50
+        t = [(_graph_ms(fwd, n), _graph_ms(bwd, n)) for _ in range(2)]
+        print(f"[f32] {tag} B {b} Hq {hq} Hkv {hkv} Sq {sq} Sk {sk} D {d} "
+              f"causal {causal}: forward "
+              f"{' '.join(f'{x[0]:.4f}' for x in t)} ms, backward "
+              f"{' '.join(f'{x[1]:.4f}' for x in t)} ms")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fwd()
+                bwd()
+            torch.cuda.synchronize()
+        per: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = kernel_name(e.name)
+                per[name] = per.get(name, 0.0) + e.device_time_total / 1e3 / 5
+        print(f"[f32] {tag} each launch a call: " + ", ".join(
+            f"{nm} {ms:.4f} ms" for nm, ms in per.items()))
+
+
 def ablate(gen: torch.Generator) -> bool:
     """Copies of the two flash libraries: clusters of 4 (FLASH_MAX_RANKS
     4) at each split shape against the kernel at 2 ranks, checked against
@@ -395,11 +517,12 @@ def ablate(gen: torch.Generator) -> bool:
     out = build.BUILD_DIR.parent / "flash_bench"
     out.mkdir(parents=True, exist_ok=True)
     copies = {"kernel": [], "ranks4": ["-DFLASH_MAX_RANKS=4"],
-              **{n: [f"-D{m}"] for n, m in ABLATIONS.items()}}
+              **{n: [f"-D{m}"] for n, m in ABLATIONS.items()},
+              **{n: [f"-D{m}"] for n, m in TF32_ABLATIONS.items()}}
     procs = []
     for name, defs in copies.items():
         defs = defs + [f"-D{ns}={name}_{ns}" for ns in (
-            "paged", "flash_mma", "flash_wgmma")]
+            "paged", "flash_mma", "flash_wgmma", "flash_tf32", "tf32x3")]
         for lib in ("flash_fwd", "flash_bwd"):
             procs.append((name, lib, subprocess.Popen(
                 [build._nvcc(), *build.NVCC_FLAGS, *defs, f"-I{build.CSRC}",
@@ -408,13 +531,14 @@ def ablate(gen: torch.Generator) -> bool:
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fns = {}
+    fns, tf32_fns = {}, {}
     for name, lib, proc in procs:
         text, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"copy {name} did not build:\n{text}")
-        fn = getattr(ctypes.CDLL(str(out / f"lib{lib}_{name}.so")),
-                     f"{lib}_split")
+        so = ctypes.CDLL(str(out / f"lib{lib}_{name}.so"))
+        tf32_fns[name, lib] = so
+        fn = getattr(so, f"{lib}_split")
         fn.argtypes = ([I, I, P, P, P, P, P, I, I, I, I, I, I, F, I, I, F, P]
                        if lib == "flash_fwd" else
                        [I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
@@ -481,7 +605,54 @@ def ablate(gen: torch.Generator) -> bool:
     for lib in ("flash_fwd", "flash_bwd"):
         print(f"[ablate] {lib} at the cross shape, 2 ranks: " + turns(
             call, [(n, (n, lib, 2)) for n in ("kernel", *ABLATIONS)]))
+    ablate_f32(gen, tf32_fns, turns)
     return ok
+
+
+def ablate_f32(gen: torch.Generator, libs: dict, turns) -> None:
+    """The float32 family's copies (TF32_ABLATIONS) beside the unchanged
+    one at rows 5f's and 5bf's shapes, through the tf32x3 entries; the
+    one-pass copy's error against the plain versions."""
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.attention import ref
+
+    for tag, (b, hq, hkv, sq, sk, d, causal) in F32_SHAPES.items():
+        q, k, v, d_o = _f32_inputs(gen, b, hq, hkv, sq, sk, d)
+        o, lse = K._flash_fwd(q, k, v, causal=causal, window=None,
+                              logit_cap=None)
+        o2, lse2, delta = (torch.empty_like(o), torch.empty_like(lse),
+                           torch.empty_like(lse))
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        w = 2 ** 31 - 1
+        ws = {lib: K._tf32x3_ws(lib, q, k) for lib in ("flash_fwd",
+                                                       "flash_bwd")}
+
+        def call(name, lib):
+            fn = getattr(libs[name, lib], f"{lib}_tf32x3")
+            fn.restype = ctypes.c_int
+            if lib == "flash_fwd":
+                fn.argtypes = list(K._FWD_TF32X3)
+                err = K._fwd_tf32x3(q, k, v, o2, lse2, ws[lib], 0, causal, w,
+                                    0.0, 0, fn=fn)
+            else:
+                fn.argtypes = list(K._BWD_TF32X3)
+                err = K._bwd_tf32x3(q, k, v, o, lse, d_o, delta, *grads,
+                                    ws[lib], 0, causal, w, 0.0, 0, fn=fn)
+            if err:
+                raise RuntimeError(f"copy {name} {lib}: CUDA error {err}")
+
+        call("tf32_one_pass", "flash_fwd")
+        call("tf32_one_pass", "flash_bwd")
+        tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+        errs = [_rel(o2, ref.attention_ref(*tr[:3], causal=causal)
+                     .transpose(1, 2))]
+        errs += [_own_rel(x, wt.transpose(1, 2)) for x, wt in zip(
+            grads, ref.attention_ref_grad(*tr, causal=causal))]
+        print(f"[ablate f32] {tag}: one TF32 product a product errs "
+              f"o/dq/dk/dv {' '.join(f'{e:.3g}' for e in errs)}")
+        for lib in ("flash_fwd", "flash_bwd"):
+            print(f"[ablate f32] {lib} {tag}: " + turns(
+                call, [(n, (n, lib)) for n in ("kernel", *TF32_ABLATIONS)]))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -510,6 +681,8 @@ def main(argv: list[str] | None = None) -> int:
     for b in (1, 16):
         time_key_block(gen, b)
     time_split(gen)
+    ok &= check_f32(gen)
+    time_f32(gen)
     if args.ablate:
         ok &= ablate(gen)
     return 0 if ok else 1

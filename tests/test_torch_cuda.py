@@ -23,6 +23,7 @@ flash kernels' gradients are held relative to max(1, max |plain|), as
 ``chip_smoke.py`` holds them, and so is the matmul kernel (f32 1e-5, bf16
 1e-2: chip_smoke's MM_TOL); LCS is exact.
 """
+import ctypes
 import dataclasses
 import math
 
@@ -828,7 +829,9 @@ BWD_OWN_KEY_LENGTH = [(256, 1024, False, None), (1024, 256, False, None),
 BWD_OWN_KEY_FAMILIES = [(torch.bfloat16, 64, "wgmma"),
                         (torch.bfloat16, 128, "wgmma"),
                         (torch.bfloat16, 112, "wgmma"),
-                        (torch.float32, 64, "cuda_cores"),
+                        (torch.float32, 64, "wgmma_tf32x3"),
+                        (torch.float32, 128, "wgmma_tf32x3"),
+                        (torch.float32, 16, "cuda_cores"),
                         (torch.bfloat16, 16, "cuda_cores")]
 
 
@@ -1011,15 +1014,23 @@ def test_split_entries_refuse_what_they_do_not_take(cuda):
     """A rank count other than 1 or 2 (clusters of 4 are built only with
     FLASH_MAX_RANKS 4, in ``launch.flash_bench``'s copy), or above 1 for a
     family without a split (float32, D 16, D 256), raises before any
-    launch."""
+    launch: the library refuses it, or, for the float32 family at D 64
+    and 128 (``wgmma_tf32x3``), the wrapper."""
     gen = torch.Generator(device=cuda).manual_seed(2)
     for dtype, d, r in ((torch.bfloat16, 64, 3), (torch.bfloat16, 64, 4),
-                        (torch.float32, 64, 2),
+                        (torch.float32, 16, 2),
                         (torch.bfloat16, 16, 2), (torch.bfloat16, 256, 2)):
         q = _rand(gen, 1, 64, 2, d, dtype=dtype)
         with pytest.raises(RuntimeError, match="launch failed"):
             K._flash_fwd(q, q, q, causal=True, window=None, logit_cap=None,
                          ranks=r)
+    for d in (64, 128):
+        q = _rand(gen, 1, 64, 2, d, dtype=torch.float32)
+        n0 = K.flash_attention.launches
+        with pytest.raises(ValueError, match="no key split"):
+            K._flash_fwd(q, q, q, causal=True, window=None, logit_cap=None,
+                         ranks=2)
+        assert K.flash_attention.launches == n0
 
 
 def test_cross_attention_refuses_an_empty_row(cuda):
@@ -1045,7 +1056,9 @@ def test_cross_attention_refuses_an_empty_row(cuda):
 
 # The key-block entries of kernels 5 and 5b (sequence-parallel attention):
 # (dtype, D, G, the forward's family, the backward's) over every family
-BLOCK_FAMILIES = [(torch.float32, 64, 2, "cuda_cores", "cuda_cores"),
+BLOCK_FAMILIES = [(torch.float32, 64, 2, "wgmma_tf32x3", "wgmma_tf32x3"),
+                  (torch.float32, 128, 2, "wgmma_tf32x3", "wgmma_tf32x3"),
+                  (torch.float32, 16, 2, "cuda_cores", "cuda_cores"),
                   (torch.bfloat16, 16, 2, "cuda_cores", "cuda_cores"),
                   (torch.bfloat16, 64, 2, "wgmma", "wgmma"),
                   (torch.bfloat16, 112, 1, "wgmma", "wgmma"),
@@ -1203,14 +1216,16 @@ def test_wgmma_flash_kernels_match_plain_and_repeat_bitwise(cuda, kw, g, d,
 
 
 def test_flash_wrappers_take_the_variant_the_library_names(cuda):
-    """bf16 at D 64, 112, 128 and 256 reports wgmma, float32 and other
-    widths the CUDA cores, and each wrapper counts its launch under that
-    name."""
+    """bf16 at D 64, 112, 128 and 256 reports wgmma, float32 at D 64 and
+    128 wgmma_tf32x3 (three TF32 products), other widths the CUDA cores,
+    and each wrapper counts its launch under that name."""
     want = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
             (torch.bfloat16, 112): "wgmma",
             (torch.bfloat16, 256): "wgmma",
             (torch.bfloat16, 16): "cuda_cores",
-            (torch.float32, 128): "cuda_cores"}
+            (torch.float32, 128): "wgmma_tf32x3",
+            (torch.float32, 64): "wgmma_tf32x3",
+            (torch.float32, 16): "cuda_cores"}
     for (dtype, d), name in want.items():
         assert K._flash_variant("flash_fwd", dtype, d) == name
         gen = torch.Generator(device=cuda).manual_seed(d)
@@ -1222,6 +1237,26 @@ def test_flash_wrappers_take_the_variant_the_library_names(cuda):
     assert K._flash_variant("flash_bwd", torch.bfloat16, 128) == "wgmma"
     assert K._flash_variant("flash_bwd", torch.bfloat16, 112) == "wgmma"
     assert K._flash_variant("flash_bwd", torch.bfloat16, 256) == "wgmma"
+    assert K._flash_variant("flash_bwd", torch.float32, 64) == "wgmma_tf32x3"
+    assert K._flash_variant("flash_bwd", torch.float32, 16) == "cuda_cores"
+    for (dtype, d), name in want.items():   # the wrappers' own choice
+        assert K._tf32x3(dtype, d) == (name == "wgmma_tf32x3")
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 4096, 16, 8, 128),
+                                   (2, 256, 1024, 16, 16, 64),
+                                   (1, 37, 75, 6, 2, 128),
+                                   (3, 1, 9, 4, 4, 64)])
+def test_float32_workspace_is_the_library_count(cuda, shape):
+    """``tf32x3_ws_floats`` (the wrappers' workspace, sized with no library
+    so that a fake call holds it too) counts the floats
+    ``<lib>_tf32x3_ws_floats`` asks for, forward and backward, at rows
+    5f's and 5bf's shapes and at ragged ones."""
+    b, sq, sk, hq, hkv, d = shape
+    for lib in ("flash_fwd", "flash_bwd"):
+        want = K._fn(lib, f"{lib}_tf32x3_ws_floats", (ctypes.c_int,) * 6,
+                     ctypes.c_longlong)(d, b, sq, sk, hq, hkv)
+        assert K.tf32x3_ws_floats(lib, b, sq, sk, hq, hkv, d) == want
 
 
 def test_flash_wrappers_reject_misaligned_bases(cuda):

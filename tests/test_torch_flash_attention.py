@@ -38,6 +38,8 @@ from repro.models import layers as JL
 from repro_torch.kernels.attention import attention as K
 from repro_torch.kernels.attention import ops, ref
 from repro_torch.models import layers as TL
+from tf32_parts import (tf32_round, tf32_split, tf32_split_fast,
+                        tf32_split_raw)
 
 torch.set_num_threads(1)
 NEG = -1e30
@@ -204,11 +206,15 @@ class Walk:
     the split family (one cluster an item, no persistent grid), whose
     ranks walk contiguous shares of each item's key tiles in the forward
     and the dQ pass and merge in rank order (``_rank_tiles``), the dQ
-    pass forming Delta from its item's rows."""
+    pass forming Delta from its item's rows.  ``tf32x3``: the float32
+    family (``csrc/flash_tf32.cuh``): every product three TF32 products
+    (``_tf32x3``), each tile's output product from zero into an f32 total
+    through the pre-passed operand's permuted positions
+    (``_out_product``), and column tiles starting on a multiple of 8."""
 
     def __init__(self, rows, tk, keys, tq, mma, position_major=False,
                  tk_dq=None, sms=None, box=None, split=False, staged=False,
-                 fast_tanh=False, ranks=1):
+                 fast_tanh=False, ranks=1, tf32x3=False):
         self.rows, self.tk, self.keys, self.tq, self.mma = (rows, tk, keys,
                                                             tq, mma)
         self.position_major = position_major
@@ -219,9 +225,30 @@ class Walk:
         self.staged = staged
         self.fast_tanh = fast_tanh
         self.ranks = ranks
+        self.tf32x3 = tf32x3
+        self.passes = 3   # TF32 products a product (1: the single pass)
 
     def round(self, x):
         return _bf16(x) if self.mma else x
+
+    def scores(self, a, b):
+        """a (R, D) times b (N, D) transposed: S = Q K^T and its kin."""
+        if self.tf32x3:   # B as stored: its hi part the raw f32
+            return _tf32x3(a, b.T, self.passes, tf32_split_raw)
+        return a @ b.T
+
+    def out(self, w, c):
+        """One tile's output product, w (R, n) c (n, D): P V and its kin,
+        from zero (the caller adds it into its total)."""
+        if self.tf32x3:
+            return _out_product(w, c, self.passes)
+        return self.round(w) @ c
+
+    def first(self, lo, hi):
+        """The first column tile's start over [lo, hi): the float32
+        family rounds it down to a multiple of 8 (an empty range stays
+        empty)."""
+        return lo - lo % 8 if self.tf32x3 and hi > lo else lo
 
     def pad(self, *ts):
         """The inputs as the kernel's shared memory holds them: D padded
@@ -247,8 +274,51 @@ WGMMA256 = Walk(rows=128, tk=64, keys=64, tq=64, mma=True,
 SPLIT2, SPLIT4 = (Walk(rows=128, tk=128, keys=128, tq=64, mma=True,
                        position_major=True, tk_dq=64, box=64, ranks=r)
                   for r in (2, 4))
-WALKS = [CUDA_CORES, WGMMA256, WGMMA, SPLIT2, SPLIT4]
-WALK_IDS = ["cuda_cores", "wgmma_d256", "wgmma", "split2", "split4"]
+# the float32 family (``csrc/flash_tf32.cuh``): 128 rows or keys, 32-key
+# and 32-query tiles (D 128's; D 64 takes 64), a persistent grid of 3 CTAs
+TF32X3, TF32X3_D64 = (Walk(rows=128, tk=t, keys=128, tq=t, mma=False,
+                           position_major=True, sms=3, tf32x3=True)
+                      for t in (32, 64))
+WALKS = [CUDA_CORES, WGMMA256, WGMMA, SPLIT2, SPLIT4, TF32X3, TF32X3_D64]
+WALK_IDS = ["cuda_cores", "wgmma_d256", "wgmma", "split2", "split4",
+            "tf32x3", "tf32x3_d64"]
+
+
+def _tf32x3(a, b, passes=3, split_b=tf32_split):
+    """a @ b as three TF32 products, A_lo B_hi + A_hi B_lo + A_hi B_hi
+    (``csrc/tf32_wgmma.cuh``): A split in registers without conversions
+    (``tf32_split_fast``), B by ``split_b``: the pre-pass's rounded split
+    (``tf32_split``) of a transposed copy, or ``tf32_split_raw`` of an
+    operand loaded as stored (its hi the raw f32); ``passes`` 1: A_hi B_hi
+    alone."""
+    ah, al = tf32_split_fast(a.contiguous())
+    bh, bl = split_b(b.contiguous())
+    if passes == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _perm8(n):
+    """Slot c of each 8 of the output product's reduction index: the
+    accumulator column ``out_product`` puts in TF32 fragment slot c
+    (column 2 t4 + j in slot t4 + 4 j), which is also the position the
+    pre-pass (``split_t_kernel``) stores at column c of the transposed
+    operand: 8 (c // 8) + 2 (c % 4) + (c % 8) // 4."""
+    c = torch.arange(n)
+    return (c // 8) * 8 + 2 * (c % 4) + (c % 8) // 4
+
+
+def _out_product(w, c, passes=3):
+    """w (R, n) c (n, D) as the float32 family's output product takes
+    it: n padded with zeros to whole groups of 8 (masked columns weigh 0,
+    positions past the sequence are 0 in the pre-passed operand), w's
+    columns in fragment-slot order against c's positions in the pre-pass's
+    permuted order, three TF32 products summed from zero."""
+    pad = -w.shape[1] % 8
+    w = torch.nn.functional.pad(w, (0, pad))
+    c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+    perm = _perm8(w.shape[1])
+    return _tf32x3(w[:, perm], c[perm], passes)
 
 
 def _rank_tiles(lo, hi, tk, ranks):
@@ -443,20 +513,22 @@ def emulate_fwd(q, k, v, *, causal, window, cap, walk, visited=None,
         lo, hi = _key_range(c0 - shift, int(pos.max()) - shift, sk, causal,
                             window)
         parts = []   # each rank's (m, l, acc) over its share of the tiles
-        for tiles in _rank_tiles(lo, hi, walk.tk, walk.ranks):
+        for tiles in _rank_tiles(walk.first(lo, hi), hi, walk.tk,
+                                 walk.ranks):
             m = torch.full((len(pos),), NEG)
             l = torch.zeros(len(pos))
             acc = torch.zeros(len(pos), q.shape[-1])
             for t0 in tiles:
                 kp = torch.arange(t0, min(t0 + walk.tk, hi))
-                x, _ = _scores(qr @ k[bi, kp, h].T, scale, cap, walk)
+                x, _ = _scores(walk.scores(qr, k[bi, kp, h]), scale, cap,
+                               walk)
                 ok = _visible(pos - shift, kp, causal, window)
                 x = torch.where(ok, x, NEG)
                 m_new = torch.maximum(m, x.max(1).values)
                 p = torch.where(ok, torch.exp(x - m_new[:, None]), 0.0)
                 alpha = torch.exp(m - m_new)
                 l = l * alpha + p.sum(1)
-                acc = acc * alpha[:, None] + walk.round(p) @ v[bi, kp, h]
+                acc = acc * alpha[:, None] + walk.out(p, v[bi, kp, h])
                 m = m_new
             parts.append((m, l, acc))
         # the ranks' merge, in rank order, each weighed by exp(m_r - max m)
@@ -519,17 +591,19 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
         lo, hi = _key_range(c0 - shift, int(pos.max()) - shift, sk, causal,
                             window)
         acc = torch.zeros(len(pos), q.shape[-1])
-        for tiles in _rank_tiles(lo, hi, walk.tk_dq, walk.ranks):
+        for tiles in _rank_tiles(walk.first(lo, hi), hi, walk.tk_dq,
+                                 walk.ranks):
             part = torch.zeros(len(pos), q.shape[-1])   # this rank's dQ
             for t0 in tiles:
                 kp = torch.arange(t0, min(t0 + walk.tk_dq, hi))
-                x, cg = _scores(qr @ k[bi, kp, h].T, scale, cap, walk)
+                x, cg = _scores(walk.scores(qr, k[bi, kp, h]), scale, cap,
+                                walk)
                 ok = _visible(pos - shift, kp, causal, window)
                 p = torch.where(ok, torch.exp(x - lse[bi, hh, pos][:, None]),
                                 0.0)
-                dp = gr @ v[bi, kp, h].T
+                dp = walk.scores(gr, v[bi, kp, h])
                 ds = p * (dp - delta[bi, hh, pos][:, None]) * cg
-                part += walk.round(ds) @ k[bi, kp, h]
+                part += walk.out(ds, k[bi, kp, h])
             acc = acc + part     # the ranks' merge, in rank order
         assert not acc[:, d:].any()
         acc = _through_epilogue(acc * scale, _live(c0, sq, g, walk), walk,
@@ -547,23 +621,24 @@ def emulate_bwd(q, k, v, o, lse, d_o, *, causal, window, cap, walk,
         dv_acc = torch.zeros(len(kp), k.shape[-1])
         q_lo = k0 + shift if causal else 0
         q_hi = min(sq, int(kp[-1]) + shift + window)
-        for gi in range(g):
+        for gi, t0 in ((gi, t0) for gi in range(g) for t0 in range(
+                walk.first(q_lo, q_hi), q_hi, walk.tq)):
             hh = h * g + gi
-            for t0 in range(q_lo, q_hi, walk.tq):
-                qp = torch.arange(t0, min(t0 + walk.tq, q_hi))
-                x, cg = _scores(kb @ q[bi, qp, hh].T, scale, cap, walk)
-                ok = _visible(qp, kp + shift, causal, window).T  # (keys, q)
-                p = torch.where(ok, torch.exp(x - lse[bi, hh, qp]), 0.0)
-                dpt = vb @ d_o[bi, qp, hh].T
-                if walk.split:   # P^T cg from warpgroup 0's registers
-                    pc = torch.zeros(walk.keys, walk.tq)
-                    pc[:len(kp), :len(qp)] = p * cg
-                    pc = _p_handover(pc)[:len(kp), :len(qp)]
-                    ds = pc * (dpt - delta[bi, hh, qp])
-                else:
-                    ds = p * (dpt - delta[bi, hh, qp]) * cg
-                dv_acc += walk.round(p) @ d_o[bi, qp, hh]
-                dk_acc += walk.round(ds) @ q[bi, qp, hh]
+            qp = torch.arange(t0, min(t0 + walk.tq, q_hi))
+            x, cg = _scores(walk.scores(kb, q[bi, qp, hh]), scale, cap,
+                            walk)
+            ok = _visible(qp, kp + shift, causal, window).T  # (keys, q)
+            p = torch.where(ok, torch.exp(x - lse[bi, hh, qp]), 0.0)
+            dpt = walk.scores(vb, d_o[bi, qp, hh])
+            if walk.split:   # P^T cg from warpgroup 0's registers
+                pc = torch.zeros(walk.keys, walk.tq)
+                pc[:len(kp), :len(qp)] = p * cg
+                pc = _p_handover(pc)[:len(kp), :len(qp)]
+                ds = pc * (dpt - delta[bi, hh, qp])
+            else:
+                ds = p * (dpt - delta[bi, hh, qp]) * cg
+            dv_acc += walk.out(p, d_o[bi, qp, hh])
+            dk_acc += walk.out(ds, q[bi, qp, hh])
         assert not dk_acc[:, d:].any() and not dv_acc[:, d:].any()
         dk[bi, kp, h] = dk_acc[:, :d] * scale
         dv[bi, kp, h] = dv_acc[:, :d]
@@ -1219,17 +1294,21 @@ def test_persistent_walk_at_d256_takes_the_longest_items_first(s, g,
 
 def test_flash_bench_ablations_still_apply():
     """``launch.flash_bench --ablate`` builds the flash libraries with one
-    of ``csrc/flash_wgmma.cuh``'s ablation macros defined: each macro is
-    still tested by the header (a renamed one would build an unablated
-    copy), and no macro of the header's is left untimed."""
+    of ``csrc/flash_wgmma.cuh``'s ablation macros defined, or of
+    ``csrc/flash_tf32.cuh``'s (the float32 family): each macro is still
+    tested by its header (a renamed one would build an unablated copy),
+    and no macro of either header's is left untimed."""
     import re
 
     from repro_torch.kernels import build
     from repro_torch.launch import flash_bench
 
-    header = (build.CSRC / "flash_wgmma.cuh").read_text()
-    tested = set(re.findall(r"^#ifdef (FLASH_ABLATE_\w+)", header, re.M))
-    assert tested == set(flash_bench.ABLATIONS.values())
+    for name, ablations in (("flash_wgmma.cuh", flash_bench.ABLATIONS),
+                            ("flash_tf32.cuh", flash_bench.TF32_ABLATIONS)):
+        header = (build.CSRC / name).read_text()
+        tested = set(re.findall(r"^#ifn?def (FLASH_ABLATE_\w+)", header,
+                                re.M))
+        assert tested == set(ablations.values()), name
 
 
 def test_flash_bench_reports_balance_and_needs_a_card(monkeypatch, capsys):
@@ -1278,3 +1357,164 @@ def test_autograd_function_joins_the_two_wrappers(monkeypatch):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert float((g - w).abs().max()) <= 2e-5
+
+
+# ---------------------------------------------------------------------------
+# the float32 family (csrc/flash_tf32.cuh): three TF32 products on wgmma
+# ---------------------------------------------------------------------------
+
+FLASH_TOL_F32 = 1e-4   # chip_smoke.FLASH_TOL[torch.float32]
+
+
+def _split_t(x, s_pad):
+    """``split_t_kernel``'s layout without the split: x (B, S, H, D) ->
+    (B, H, D, s_pad), column c of each 8 holding position 8 (c // 8) +
+    2 (c % 4) + (c % 8) // 4, zero past S."""
+    b, s, h, d = x.shape
+    xt = torch.zeros(b, h, d, s_pad, dtype=x.dtype)
+    xt[..., :s] = x.permute(0, 2, 3, 1)
+    return xt[..., _perm8(s_pad)]
+
+
+@pytest.mark.parametrize("d,tk", [(128, 32), (64, 64)])
+def test_tf32x3_output_operand_meets_the_accumulator(d, tk):
+    """The output product's operands as the card holds them: W, a 64 x TK
+    f32 accumulator in its fragment registers (``_fragment``), taken as
+    ``out_product`` takes it (registers 4 ks + 0, 2, 1, 3 into TF32 A
+    slots a0 (g, t4), a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, t4 + 4)
+    of its warp's 16 rows), against C^T as the pre-pass writes it (the
+    positions permuted within each 8, zero past S = 70) and TMA lays a
+    32-position box of it into shared memory (D rows x 128 bytes,
+    swizzled), read as wgmma reads a K-major TF32 B operand through
+    ``desc_k(tile, D, 0, ks)``: the sum over the slots is W C for the
+    tile at t0 = 40, exactly (float64)."""
+    rng = np.random.default_rng(d + tk)
+    s, t0 = 70, 40
+    c_all = torch.from_numpy(rng.standard_normal((1, s, 1, d)))
+    w = torch.from_numpy(rng.standard_normal((64, tk)))
+    w[:, s - t0:] = 0.0     # columns past S are masked: weight 0
+    ct = _split_t(c_all, -(-s // 8) * 8)[0, 0]              # (D, S_pad)
+    # TMA: boxes of 32 positions x D rows, 128-byte swizzle (4-byte units)
+    mem = {}
+    for j2 in range(tk // 32):
+        for n in range(d):
+            for j in range(32):
+                pos = t0 + 32 * j2 + j
+                mem[_sw128(j2 * d * 128 + n * 128 + 4 * j)] = (
+                    ct[n, pos] if pos < ct.shape[1] else 0.0)   # TMA fill
+    tid, reg = _fragment(64, tk)
+    regs = torch.zeros(128, tk // 2, dtype=torch.float64)
+    regs[tid.flatten(), reg.flatten()] = w.flatten()
+    got = torch.zeros(64, d, dtype=torch.float64)
+    for ks in range(tk // 8):
+        start, sbo = _desc_k(d, 0, ks)
+        b = [[mem[_sw128(start + (n // 8) * sbo + (n % 8) * 128 + 4 * kk)]
+              for n in range(d)] for kk in range(8)]              # (k8, N)
+        for t in range(128):
+            wp, g, t4 = t // 32, (t % 32) // 4, t % 4
+            a = [regs[t, 4 * ks + i] for i in (0, 2, 1, 3)]
+            for (row, kk), x in zip(((g, t4), (g + 8, t4), (g, t4 + 4),
+                                     (g + 8, t4 + 4)), a):
+                got[16 * wp + row] += x * torch.tensor(b[kk],
+                                                       dtype=torch.float64)
+    tile = torch.zeros(tk, d, dtype=torch.float64)
+    tile[:s - t0] = c_all[0, t0:, 0]
+    assert torch.allclose(got, w @ tile, rtol=0, atol=1e-12)
+
+
+def test_tf32_fast_split_rounds_hi_and_keeps_x():
+    """``split_tf32_fast`` (the float32 family's A fragments, split with
+    no conversion instruction): hi is ``cvt.rna``'s TF32 (``tf32_round``),
+    lo = x - hi with the low 13 bits wgmma ignores dropped, and hi + lo is
+    x within 2^-21 |x| over normal floats of every exponent."""
+    rng = np.random.default_rng(3)
+    v = (rng.standard_normal(1 << 18)
+         * 2.0 ** rng.integers(-60, 60, 1 << 18)).astype(np.float32)
+    x = torch.from_numpy(v)
+    hi, lo = tf32_split_fast(x)
+    assert torch.equal(hi, tf32_round(x))
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+
+
+def test_tf32_raw_split_truncates_hi_and_keeps_x():
+    """``lo_of_raw`` (the score products' B operands, whose hi part is
+    the f32 tensor itself): hi is x with the low 13 bits that wgmma
+    ignores cleared, lo the rest rounded to TF32, and hi + lo is x within
+    2^-21 |x| over normal floats of every exponent."""
+    rng = np.random.default_rng(4)
+    v = (rng.standard_normal(1 << 18)
+         * 2.0 ** rng.integers(-60, 60, 1 << 18)).astype(np.float32)
+    x = torch.from_numpy(v)
+    hi, lo = tf32_split_raw(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert bool((hi.abs() <= x.abs()).all())
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+
+
+def test_one_tf32_pass_fails_flash_tol_and_three_pass():
+    """At B 1, Hq 2, Hkv 1, S 512, D 128, causal, on normal operands,
+    against the plain versions: the float32 walk with one TF32 product a
+    product (A_hi B_hi alone) errs past FLASH_TOL[float32] in O (over
+    max(1, max |plain|)) and in each of dQ, dK, dV (over its own max);
+    with three (``TF32X3``) every error stays within it by a factor of 10
+    (the card: ``chip_smoke.py``'s rows 5f and 5bf)."""
+    rng = np.random.default_rng(5)
+    b, hq, hkv, s, d = 1, 2, 1, 512, 128
+    q, d_o = (torch.from_numpy(_rand(rng, b, s, hq, d)) for _ in range(2))
+    k, v = (torch.from_numpy(_rand(rng, b, s, hkv, d)) for _ in range(2))
+    tr = [t.transpose(1, 2) for t in (q, k, v, d_o)]
+    want_o = ref.attention_ref(*tr[:3], causal=True).transpose(1, 2)
+    want_g = [t.transpose(1, 2)
+              for t in ref.attention_ref_grad(*tr, causal=True)]
+    errs = {}
+    for passes in (1, 3):
+        walk = Walk(rows=128, tk=32, keys=128, tq=32, mma=False,
+                    position_major=True, sms=3, tf32x3=True)
+        walk.passes = passes
+        o, lse = emulate_fwd(q, k, v, causal=True, window=2 ** 31 - 1,
+                             cap=None, walk=walk)
+        grads = emulate_bwd(q, k, v, o, lse, d_o, causal=True,
+                            window=2 ** 31 - 1, cap=None, walk=walk)
+        errs[passes] = [float((o - want_o).abs().max())
+                        / max(1.0, float(want_o.abs().max()))] + [
+            float((g - w).abs().max()) / float(w.abs().max())
+            for g, w in zip(grads, want_g)]
+    assert min(errs[1]) > FLASH_TOL_F32 > 10 * max(errs[3]), errs
+
+
+def test_tf32x3_walk_matches_pallas_and_jax_grad():
+    """The float32 family's walk (``TF32X3``, three TF32 products) at a
+    small GQA shape with the causal mask, a window and a softcap: O
+    against ``repro``'s ``flash_attention_pallas(interpret=True)`` within
+    2e-5 (as the plain version is held there), dq, dk and dv against
+    ``jax.vjp`` of ``repro``'s chunked ``layers.attention`` within 2e-5
+    (the walk's products drop A_lo B_lo, 2^-22 of each term)."""
+    rng = np.random.default_rng(17)
+    b, hq, hkv, s, d = 1, 4, 2, 96, 32
+    kw = dict(causal=True, window=40, logit_cap=20.0)
+    q, d_o = (_rand(rng, b, s, hq, d) for _ in range(2))
+    k, v = (_rand(rng, b, s, hkv, d) for _ in range(2))
+    o, lse = emulate_fwd(*map(torch.from_numpy, (q, k, v)),
+                         causal=True, window=40, cap=20.0, walk=TF32X3)
+    pallas = flash_attention_pallas(*(x.transpose(0, 2, 1, 3)
+                                      for x in (q, k, v)),
+                                    bq=32, bk=32, interpret=True, **kw)
+    np.testing.assert_allclose(o.numpy(),
+                               np.asarray(pallas).transpose(0, 2, 1, 3),
+                               atol=2e-5, rtol=0)
+    grads = emulate_bwd(*map(torch.from_numpy, (q, k, v)), o, lse,
+                        torch.from_numpy(d_o), causal=True, window=40,
+                        cap=20.0, walk=TF32X3)
+
+    def f(q, k, v):
+        return JL.attention(q, k, v, q_positions=jnp.arange(s),
+                            k_positions=jnp.arange(s), q_chunk=32, **kw)
+
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+    for got, want in zip(grads, vjp(jnp.asarray(d_o))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                                   rtol=0)

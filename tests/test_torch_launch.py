@@ -406,6 +406,60 @@ def test_kernel_fake_paths_record_their_formula():
     assert not LIBS._libs
 
 
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.float32, 64),
+                                     (torch.float32, 16),
+                                     (torch.bfloat16, 128)])
+@pytest.mark.parametrize("entry", ["whole", "block"])
+def test_fake_flash_calls_hold_the_float32_workspace(entry, dtype, d):
+    """The flash pair on fake tensors under the dry-run's MemTracker: the
+    peak is the inputs, the outputs (O and lse; dq, dk, dv and the Delta
+    scratch) and, for the float32 family (f32 at D 64 and 128), the
+    workspace ``tf32x3_ws_floats`` sizes (the same bytes a real call
+    allocates: 3.0 MB for the backward at this shape, D 128), through the
+    whole-sequence and the key-block entries alike; bf16 and f32 at D 16
+    take none.  No library is loaded."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    from repro_torch.kernels.attention import attention as K
+    from repro_torch.kernels.build import LIBS
+
+    b, sq, sk, hq, hkv = 1, 200, 136, 4, 2
+    nbytes = lambda *ts: sum(t.numel() * t.element_size()  # noqa: E731
+                             for t in ts)
+    for lib in ("flash_fwd", "flash_bwd"):
+        with specs.fake_mode():
+            e = lambda *shp, dt=dtype: torch.empty(shp, dtype=dt)  # noqa
+            q, o, d_o = e(b, sq, hq, d), e(b, sq, hq, d), e(b, sq, hq, d)
+            k, v = e(b, sk, hkv, d), e(b, sk, hkv, d)
+            lse = e(b, hq, sq, dt=torch.float32)
+            ins = (q, k, v) if lib == "flash_fwd" else (q, k, v, o, lse, d_o)
+            mt = MemTracker()
+            mt.track_external(*ins)
+            with mt:
+                if lib == "flash_fwd" and entry == "whole":
+                    outs = K._flash_fwd(q, k, v, causal=False, window=None,
+                                        logit_cap=None)
+                elif lib == "flash_fwd":
+                    outs = K.flash_attention_block(q, k, v, k_off=64,
+                                                   causal=False)
+                elif entry == "whole":
+                    outs = K.flash_attention_bwd(q, k, v, o, lse, d_o,
+                                                 causal=False)
+                else:
+                    outs = K.flash_attention_block_bwd(q, k, v, o, lse, d_o,
+                                                       k_off=64, causal=False)
+            peak = sum(x["Total"]
+                       for x in mt.get_tracker_snapshot("peak").values())
+        delta = 0 if lib == "flash_fwd" else nbytes(lse)
+        ws = (4 * K.tf32x3_ws_floats(lib, b, sq, sk, hq, hkv, d)
+              if K._tf32x3(dtype, d) else 0)
+        assert (d in K.TF32X3_WIDTHS and dtype == torch.float32) == (ws > 0)
+        assert peak == nbytes(*ins) + nbytes(*outs) + delta + ws, (lib,
+                                                                   peak)
+    assert not LIBS._libs
+
+
 def test_kernel_formulas_keep_the_tables_bounds():
     """``cost``'s formulas give the bytes and flops of the kernels line
     as ``chip_smoke.py`` last printed them on the card (the table's

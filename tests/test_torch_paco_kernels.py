@@ -51,6 +51,7 @@ from repro_torch.kernels.matmul import (matmul, matmul_kernel,
                                         matmul_ref)
 from repro_torch.kernels.matmul.matmul import (PLAN_CELL, PLAN_COL_ALIGN,
                                                PLAN_TILES, plan_table)
+from tf32_parts import tf32_round, tf32_split
 
 torch.set_num_threads(1)
 INT_MIN = -2 ** 31
@@ -76,22 +77,6 @@ def _k_shift(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.dtype != torch.bfloat16 or any(s % 8 for s in strides):
         return 0
     return (a.data_ptr() >> 1) & 7
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """float32 x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
-    nearest of 10 mantissa bits, ties away from zero, by int32 bit
-    operations (half a TF32 step added to the bits, the low 13 cleared; a
-    value past TF32's largest rounds to infinity), inf and nan unchanged."""
-    bits = x.contiguous().view(torch.int32)
-    rounded = (bits + 0x1000) & -0x2000
-    return torch.where(torch.isfinite(x), rounded, bits).view(torch.float32)
-
-
-def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x -> (hi, lo): x rounded to TF32, and the rest rounded to TF32."""
-    hi = tf32_round(x)
-    return hi, tf32_round(x - hi)
 
 
 TF32X3_PROMOTE = 4   # k-steps of 32 that wgmma sums before the f32 total

@@ -920,7 +920,8 @@ def test_latent_and_decode_wrappers_count_variants_only_on_the_card():
                           kr.bfloat16(), bt, lens, scale=SCALE)
     assert [(f.launches, dict(f.variants)) for f in counters] == before
     assert K.DECODE_VARIANTS == ("cuda_cores", "mma_sync")
-    assert K.FLASH_VARIANTS == ("cuda_cores", "mma_sync", "wgmma", "cluster")
+    assert K.FLASH_VARIANTS == ("cuda_cores", "mma_sync", "wgmma", "cluster",
+                                "wgmma_tf32x3")
 
 
 def test_paged_bench_ablations_still_apply():
